@@ -1,0 +1,102 @@
+"""Server strategies (counterpart of ``nanofed_tpu/aggregation/base.py``).
+
+A strategy is a server optimizer applied to the NEGATIVE aggregated client delta,
+``new_global = global + server_tx(-mean_k(params_k - global))``: with SGD(1.0) this is
+exactly FedAvg, and the others are FedAvgM / FedAdam / FedYogi (Reddi et al. 2021).
+The transforms follow optax's semantics (momentum trace, bias correction, eps outside
+the square root, Yogi's sign update and 1e-6 initial accumulators), not
+``torch.optim``'s, and act on flat ``[P]`` vectors in ravel order.  Learning rates
+are constants; per-round server schedules come with a later slice.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any
+
+import torch
+
+State = dict[str, Any]
+
+
+@dataclass(frozen=True)
+class ServerSGD:
+    """optax ``sgd(lr, momentum)``: ``t = g + momentum * t``; update ``-lr * t``."""
+
+    learning_rate: float
+    momentum: float | None = None
+
+    def init(self, flat: torch.Tensor) -> State:
+        return {"trace": torch.zeros_like(flat)} if self.momentum else {}
+
+    def update(self, grad: torch.Tensor, state: State) -> tuple[torch.Tensor, State]:
+        if self.momentum:
+            grad = grad + self.momentum * state["trace"]
+            state = {"trace": grad}
+        return grad * (-self.learning_rate), state
+
+
+@dataclass(frozen=True)
+class ServerAdam:
+    """optax ``adam`` (``yogi=False``) or ``yogi`` (``yogi=True``): first moment
+    ``(1-b1) g + b1 mu``; second moment ``(1-b2) g^2 + b2 nu`` (Adam) or
+    ``nu - (1-b2) sign(nu - g^2) g^2`` (Yogi); both bias-corrected by the step
+    count; update ``-lr * mu_hat / (sqrt(nu_hat) + eps)``."""
+
+    learning_rate: float
+    b1: float = 0.9
+    b2: float = 0.99
+    eps: float = 1e-3
+    yogi: bool = False
+
+    def init(self, flat: torch.Tensor) -> State:
+        if self.yogi:  # optax's initial_accumulator_value
+            return {"count": 0, "mu": torch.full_like(flat, 1e-6),
+                    "nu": torch.full_like(flat, 1e-6)}
+        return {"count": 0, "mu": torch.zeros_like(flat), "nu": torch.zeros_like(flat)}
+
+    def update(self, grad: torch.Tensor, state: State) -> tuple[torch.Tensor, State]:
+        mu = (1 - self.b1) * grad + self.b1 * state["mu"]
+        g2 = grad * grad
+        if self.yogi:
+            nu = state["nu"] - (1 - self.b2) * torch.sign(state["nu"] - g2) * g2
+        else:
+            nu = (1 - self.b2) * g2 + self.b2 * state["nu"]
+        count = state["count"] + 1
+        mu_hat = mu / (1 - self.b1**count)
+        nu_hat = nu / (1 - self.b2**count)
+        step = mu_hat / (torch.sqrt(nu_hat) + self.eps)
+        return step * (-self.learning_rate), {"count": count, "mu": mu, "nu": nu}
+
+
+@dataclass(frozen=True)
+class Strategy:
+    """A named server-side update rule; ``server_tx`` consumes the negative
+    aggregated delta."""
+
+    name: str
+    server_tx: ServerSGD | ServerAdam
+
+
+def fedavg_strategy() -> Strategy:
+    """Exact FedAvg: apply the aggregated delta verbatim."""
+    return Strategy(name="fedavg", server_tx=ServerSGD(1.0))
+
+
+def fedavgm_strategy(learning_rate: float = 1.0, momentum: float = 0.9) -> Strategy:
+    """FedAvg with server momentum (Hsu et al. 2019)."""
+    return Strategy(name="fedavgm", server_tx=ServerSGD(learning_rate, momentum=momentum))
+
+
+def fedadam_strategy(
+    learning_rate: float = 1e-2, b1: float = 0.9, b2: float = 0.99, eps: float = 1e-3
+) -> Strategy:
+    """FedAdam (Reddi et al. 2021)."""
+    return Strategy(name="fedadam", server_tx=ServerAdam(learning_rate, b1, b2, eps))
+
+
+def fedyogi_strategy(
+    learning_rate: float = 1e-2, b1: float = 0.9, b2: float = 0.99, eps: float = 1e-3
+) -> Strategy:
+    """FedYogi (Reddi et al. 2021)."""
+    return Strategy(name="fedyogi", server_tx=ServerAdam(learning_rate, b1, b2, eps, yogi=True))

@@ -1,0 +1,118 @@
+"""High-level experiment runner (counterpart of ``nanofed_tpu/experiments.py``), reduced
+to the flags this slice supports.
+
+The JAX runner's other flags (central DP, lr schedules, robust aggregation, SCAFFOLD,
+telemetry, fused blocks, mesh axes, strict mode, profiling, autotuning, adapters) come
+with later slices; passing one with a value other than the JAX default raises
+``NotImplementedError`` naming it, never a silent ignore.
+"""
+
+from __future__ import annotations
+
+from pathlib import Path
+from typing import Any
+
+from nanofed_tpu_torch.core.device import DeviceLike, resolve_device
+from nanofed_tpu_torch.data import federate, load_mnist, pack_eval
+from nanofed_tpu_torch.models import get_model
+from nanofed_tpu_torch.orchestration import Coordinator, CoordinatorConfig, RoundStatus
+from nanofed_tpu_torch.trainer import TrainingConfig
+
+# The JAX runner's flags that later slices bring, with the JAX defaults (accepted).
+LATER_SLICE_FLAGS: dict[str, Any] = {
+    "central_privacy": None,
+    "lr_schedule": "constant",
+    "lr_min_factor": 0.0,
+    "lr_decay_every": 10,
+    "lr_decay_gamma": 0.5,
+    "robust_trim_k": None,
+    "robust_method": None,
+    "scaffold": False,
+    "telemetry_dir": None,
+    "rounds_per_block": 1,
+    "model_shards": 1,
+    "hosts": 1,
+    "strict": False,
+    "profile_programs": False,
+    "autotune": False,
+    "retune_every": 0,
+    "adapter_rank": None,
+    "adapter_alpha": None,
+}
+
+
+def run_experiment(
+    model: str = "mnist_cnn",
+    num_clients: int = 10,
+    num_rounds: int = 2,
+    local_epochs: int = 2,
+    batch_size: int = 64,
+    learning_rate: float = 0.1,
+    scheme: str = "iid",
+    participation: float = 1.0,
+    data_dir: str | None = None,
+    out_dir: str | Path = "runs",
+    seed: int = 0,
+    prox_mu: float = 0.0,
+    eval_every: int = 0,
+    train_size: int | None = None,
+    client_chunk: int | None = None,
+    compute_dtype: str | None = None,
+    client_metrics_every: int = 1,
+    device: DeviceLike = None,
+    **kwargs: Any,
+) -> dict[str, Any]:
+    """Run a simulated federated experiment on ``device`` (default: the GPU) and return
+    a summary dict.  ``client_chunk`` trains and reduces the clients in chunks of that
+    many (the streamed round); ``compute_dtype="bfloat16"`` runs local forward and
+    backward in bf16.  Remaining keyword arguments go to the partitioner (e.g.
+    ``proportions=[0.75, 0.25]`` for unequal IID shares)."""
+    dev = resolve_device(device)
+    refused = [
+        name for name, default in LATER_SLICE_FLAGS.items()
+        if name in kwargs and kwargs[name] != default
+    ]
+    if refused:
+        raise NotImplementedError(
+            f"{', '.join(refused)}: not supported by this slice of nanofed_tpu_torch "
+            "(run nanofed_tpu for it)"
+        )
+    scheme_kwargs = {k: v for k, v in kwargs.items() if k not in LATER_SLICE_FLAGS}
+
+    mdl = get_model(model)  # mnist_cnn, the one model of this slice: MNIST-shaped data
+    train = load_mnist("train", data_dir, synthetic_size=train_size)
+    test = load_mnist("test", data_dir, synthetic_size=(train_size or 0) // 6 or None)
+    client_data = federate(
+        train, num_clients=num_clients, scheme=scheme, batch_size=batch_size, seed=seed,
+        **scheme_kwargs,
+    )
+    coordinator = Coordinator(
+        model=mdl,
+        train_data=client_data,
+        config=CoordinatorConfig(
+            num_rounds=num_rounds, participation_rate=participation, seed=seed,
+            base_dir=out_dir, eval_every=eval_every,
+            client_metrics_every=client_metrics_every,
+        ),
+        training=TrainingConfig(
+            batch_size=batch_size, local_epochs=local_epochs, learning_rate=learning_rate,
+            prox_mu=prox_mu, compute_dtype=compute_dtype,
+        ),
+        eval_data=pack_eval(test, batch_size=256),
+        client_chunk=client_chunk,
+        device=dev,
+    )
+    rounds = coordinator.run()
+    final_eval = coordinator.evaluate()
+    completed = [r for r in rounds if r.status == RoundStatus.COMPLETED]
+    return {
+        "model": model,
+        "num_clients": num_clients,
+        "rounds_completed": len(completed),
+        "rounds_failed": len(rounds) - len(completed),
+        "final_train_metrics": completed[-1].agg_metrics if completed else {},
+        "final_eval_metrics": final_eval,
+        "round_durations_s": [r.duration_s for r in rounds],
+        "devices": [str(dev)],
+        "params_device": str(next(iter(coordinator.params.values())).device),
+    }

@@ -1,0 +1,112 @@
+"""Minimal functional layer library (counterpart of ``nanofed_tpu/nn.py``).
+
+Models are pure functions over explicit param dicts, as in the JAX package, so a
+whole cohort of clients trains under one ``torch.func.vmap``.  The interface keeps
+the JAX package's layouts — NHWC activations, HWIO conv kernels, ``[in, out]`` dense
+kernels — so weights interchange with no transposes; :func:`conv2d` and
+:func:`max_pool` permute to PyTorch's NCHW/OIHW inside (the NHWC tensor permuted is
+exactly a channels-last NCHW tensor, which cuDNN takes without a copy).
+
+Randomness is explicit: init draws from a ``torch.Generator``, and dropout takes a
+keep-mask drawn by the caller (``trainer.local``), never a generator of its own.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+
+from nanofed_tpu_torch.core.types import Params
+
+# ---------------------------------------------------------------------------
+# Initializers
+# ---------------------------------------------------------------------------
+
+
+def _fan_in(shape: Sequence[int]) -> int:
+    if len(shape) == 2:  # dense [in, out]
+        return shape[0]
+    return shape[-2] * math.prod(shape[:-2])  # conv [kh, kw, cin, cout]
+
+
+def _uniform(gen: torch.Generator, shape: Sequence[int], bound: float) -> torch.Tensor:
+    u = torch.rand(tuple(shape), generator=gen, device=gen.device, dtype=torch.float32)
+    return u * (2.0 * bound) - bound
+
+
+def kaiming_uniform(gen: torch.Generator, shape: Sequence[int]) -> torch.Tensor:
+    """U(-1/sqrt(fan_in), 1/sqrt(fan_in)): torch's default Conv2d/Linear bound, the
+    same bound as the JAX package's init (``nanofed_tpu/nn.py:38-44``)."""
+    return _uniform(gen, shape, 1.0 / math.sqrt(_fan_in(shape)))
+
+
+def uniform_bias(gen: torch.Generator, fan_in: int, shape: Sequence[int]) -> torch.Tensor:
+    return _uniform(gen, shape, 1.0 / math.sqrt(fan_in) if fan_in > 0 else 0.0)
+
+
+# ---------------------------------------------------------------------------
+# Layers
+# ---------------------------------------------------------------------------
+
+
+def dense_init(gen: torch.Generator, in_features: int, out_features: int) -> Params:
+    return {
+        "bias": uniform_bias(gen, in_features, (out_features,)),
+        "kernel": kaiming_uniform(gen, (in_features, out_features)),
+    }
+
+
+def dense(params: Params, x: torch.Tensor) -> torch.Tensor:
+    return x @ params["kernel"] + params["bias"]
+
+
+def conv2d_init(
+    gen: torch.Generator, in_channels: int, out_channels: int, kernel_size: int
+) -> Params:
+    k = kernel_size
+    return {
+        "bias": uniform_bias(gen, in_channels * k * k, (out_channels,)),
+        "kernel": kaiming_uniform(gen, (k, k, in_channels, out_channels)),
+    }
+
+
+def conv2d(params: Params, x: torch.Tensor) -> torch.Tensor:
+    """Stride-1 VALID convolution: NHWC input, HWIO kernel, NHWC output."""
+    out = F.conv2d(
+        x.permute(0, 3, 1, 2), params["kernel"].permute(3, 2, 0, 1), params.get("bias")
+    )
+    return out.permute(0, 2, 3, 1)
+
+
+def max_pool(x: torch.Tensor, window: int = 2) -> torch.Tensor:
+    """NHWC non-overlapping max pooling (stride = window, VALID padding)."""
+    out = F.max_pool2d(x.permute(0, 3, 1, 2), window)
+    return out.permute(0, 2, 3, 1)
+
+
+def dropout(x: torch.Tensor, keep: torch.Tensor | None, rate: float) -> torch.Tensor:
+    """Inverted dropout with a caller-drawn boolean keep-mask shaped like ``x``;
+    identity when ``keep`` is None (eval, or dropout off)."""
+    if keep is None or rate == 0.0:
+        return x
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def draw_keep_mask(gen: torch.Generator, shape: Sequence[int], rate: float) -> torch.Tensor:
+    """Bernoulli(1 - rate) keep-mask on ``gen``'s device."""
+    return torch.rand(tuple(shape), generator=gen, device=gen.device) >= rate
+
+
+relu = torch.relu
+
+
+def log_softmax(x: torch.Tensor) -> torch.Tensor:
+    return F.log_softmax(x, dim=-1)
+
+
+def flatten(x: torch.Tensor) -> torch.Tensor:
+    """[N, ...] -> [N, prod(...)]."""
+    return x.reshape(x.shape[0], -1)

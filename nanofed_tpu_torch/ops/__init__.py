@@ -1,0 +1,47 @@
+"""Hand-written CUDA kernels for the port's hot data-movement ops.
+
+The convolutions and matrix products of local training stay on cuDNN/cuBLAS, as the
+JAX package leaves them to XLA.  The kernels of the TPU package that the port's
+paths run are written by hand for Hopper (``csrc/*.cu``, built at first use by
+``_build``):
+
+* ``ops.reduce``    — B1, the FedAvg weighted reduce ``[C, P] x [C] -> [P]``, in a
+                      normalised and an accumulate form;
+* ``ops.dp_reduce`` — B3, per-row squared norms ``[C, P] -> [C]``.
+
+``KERNELS`` lists each kernel wrapper; ``reset_launch_counts`` zeroes their counts.
+"""
+
+from nanofed_tpu_torch.ops.dp_reduce import row_sq_norms, row_sq_norms_plain
+from nanofed_tpu_torch.ops.reduce import (
+    weighted_mean_flat,
+    weighted_mean_flat_plain,
+    weighted_mean_tree,
+    weighted_sum_into,
+    weighted_sum_into_plain,
+)
+
+KERNELS = (weighted_mean_flat, weighted_sum_into, row_sq_norms)
+
+
+def launch_counts() -> dict[str, int]:
+    return {fn.__name__: fn.launches for fn in KERNELS}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS:
+        fn.launches = 0
+
+
+__all__ = [
+    "KERNELS",
+    "launch_counts",
+    "reset_launch_counts",
+    "row_sq_norms",
+    "row_sq_norms_plain",
+    "weighted_mean_flat",
+    "weighted_mean_flat_plain",
+    "weighted_mean_tree",
+    "weighted_sum_into",
+    "weighted_sum_into_plain",
+]

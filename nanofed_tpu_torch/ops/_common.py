@@ -1,0 +1,76 @@
+"""The dispatch rule shared by the port's kernels.
+
+A wrapper takes its plain PyTorch version only because the tensors it was given lie
+on the CPU.  For CUDA tensors it launches the hand-written kernel or raises: there
+is no ``try`` that falls back.  (Counterpart of ``nanofed_tpu/ops/_common.py``'s
+``auto_interpret``, which picked the Pallas interpreter off the TPU.)
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+
+def uses_kernel(*tensors: torch.Tensor) -> bool:
+    """True for CUDA tensors, False for CPU tensors; anything else (mixed devices,
+    other device types) raises."""
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cpu"}:
+        return False
+    if kinds == {"cuda"}:
+        if len({t.device for t in tensors}) != 1:
+            raise ValueError(f"tensors on several GPUs: {sorted(str(t.device) for t in tensors)}")
+        return True
+    raise ValueError(f"tensors must all be on the CPU or all on one GPU, got {sorted(kinds)}")
+
+
+def check_rows(name: str, x: torch.Tensor) -> tuple[int, int, int]:
+    """Validate a ``[C, P]`` float32 matrix whose rows are contiguous (the row
+    stride may exceed P, so rows can be padded to an aligned start).  Returns
+    ``(C, P, row_stride)``."""
+    if x.ndim != 2:
+        raise ValueError(f"{name}: x must be [C, P], got shape {tuple(x.shape)}")
+    if x.dtype != torch.float32:
+        raise TypeError(f"{name}: x must be float32, got {x.dtype}")
+    c, p = x.shape
+    if c < 1 or p < 1:
+        raise ValueError(f"{name}: x must have C >= 1 and P >= 1, got {tuple(x.shape)}")
+    ldx = x.stride(0) if c > 1 else p
+    if x.stride(1) != 1 or ldx < p:
+        raise ValueError(
+            f"{name}: rows of x must be contiguous (strides {x.stride()} for shape "
+            f"{tuple(x.shape)})"
+        )
+    return c, p, ldx
+
+
+def check_vector(name: str, what: str, v: torch.Tensor, n: int) -> None:
+    if v.ndim != 1 or v.shape[0] != n:
+        raise ValueError(f"{name}: {what} must be [{n}], got shape {tuple(v.shape)}")
+    if v.dtype != torch.float32:
+        raise TypeError(f"{name}: {what} must be float32, got {v.dtype}")
+    if not v.is_contiguous():
+        raise ValueError(f"{name}: {what} must be contiguous")
+
+
+def vector_width(x: torch.Tensor, ldx: int) -> int:
+    """Widest load (4, 2 or 1 floats) that keeps every row start of ``x`` aligned."""
+    for vec in (4, 2):
+        if ldx % vec == 0 and x.data_ptr() % (4 * vec) == 0:
+            return vec
+    return 1
+
+
+def stream_of(t: torch.Tensor) -> ctypes.c_void_p:
+    """PyTorch's current stream on ``t``'s device, as the kernels take it."""
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def check_launch(lib: ctypes.CDLL, name: str, rc: int) -> None:
+    """Raise if a launch returned a CUDA error (a refused launch never runs, and a
+    later synchronize would not report it)."""
+    if rc != 0:
+        msg = lib.nf_error_string(rc).decode(errors="replace")
+        raise RuntimeError(f"{name}: CUDA kernel launch failed with error {rc}: {msg}")

@@ -1,0 +1,267 @@
+"""The round loop (counterpart of ``nanofed_tpu/orchestration/coordinator.py``, reduced
+to its plain path).
+
+Each round: sample the cohort and the simulated dropouts with the JAX package's numpy
+streams (``default_rng(seed * 100_003 + round_id)``, ``choice`` then
+``random() >= dropout_rate``), fail the round below the completion gate, run the round
+step on the device, and record the weighted round metrics, the optional eval and the
+per-round metrics JSON (same keys and per-client detail as the JAX package's).
+
+Initial weights are drawn on the CPU from ``torch.Generator().manual_seed(seed)`` and
+then moved, so a seed gives the same starting model on every device.  Each round's
+epoch permutations and dropout masks come from a generator on the device seeded with
+``seed * 100_003 + round_id``; permutations are drawn for the whole population and
+gathered by client id, so a client's shuffling does not depend on which cohort slot it
+lands in.
+
+Later slices bring SCAFFOLD, adapters, central DP, validation, robust aggregation,
+fused multi-round blocks, the hosts/model mesh axes, autotuning, strict mode,
+profiling and persistence.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import time
+from dataclasses import dataclass
+from datetime import datetime, timezone
+from pathlib import Path
+from typing import Any, Iterator
+
+import numpy as np
+import torch
+
+from nanofed_tpu_torch.aggregation.base import Strategy, fedavg_strategy
+from nanofed_tpu_torch.aggregation.fedavg import compute_weights
+from nanofed_tpu_torch.core.device import DeviceLike, resolve_device
+from nanofed_tpu_torch.core.exceptions import NanoFedError
+from nanofed_tpu_torch.core.types import ClientData, Params
+from nanofed_tpu_torch.models.base import Model
+from nanofed_tpu_torch.orchestration.engine import completion_required
+from nanofed_tpu_torch.orchestration.types import RoundMetrics, RoundStatus, cohort_size
+from nanofed_tpu_torch.parallel.round_step import build_round_step, init_server_state
+from nanofed_tpu_torch.trainer.config import TrainingConfig
+from nanofed_tpu_torch.trainer.local import draw_permutations, make_evaluator
+
+_log = logging.getLogger(__name__)
+
+
+@dataclass(frozen=True)
+class CoordinatorConfig:
+    """``participation_rate`` sets the cohort (ceil(C * rate)); ``dropout_rate`` drops
+    sampled clients at random; below ``min_completion_rate`` of the cohort the round
+    FAILs and leaves the model untouched.  ``client_metrics_every`` samples the
+    per-client detail of the metrics JSON (0 = never)."""
+
+    num_rounds: int = 1
+    participation_rate: float = 1.0
+    min_completion_rate: float = 0.5
+    dropout_rate: float = 0.0
+    seed: int = 0
+    base_dir: str | Path = "runs"
+    save_metrics: bool = True
+    eval_every: int = 0  # 0 = never evaluate during training
+    client_metrics_every: int = 1
+
+    def __post_init__(self) -> None:
+        if self.num_rounds < 1:
+            raise ValueError("num_rounds must be >= 1")
+        if not 0.0 < self.participation_rate <= 1.0:
+            raise ValueError("participation_rate must be in (0, 1]")
+        if not 0.0 <= self.min_completion_rate <= 1.0:
+            raise ValueError("min_completion_rate must be in [0, 1]")
+        if not 0.0 <= self.dropout_rate < 1.0:
+            raise ValueError("dropout_rate must be in [0, 1)")
+        if self.client_metrics_every < 0:
+            raise ValueError("client_metrics_every must be >= 0 (0 = never)")
+
+
+class Coordinator:
+    """Drives simulated federated training on one device."""
+
+    def __init__(
+        self,
+        model: Model,
+        train_data: ClientData,
+        config: CoordinatorConfig,
+        training: TrainingConfig | None = None,
+        strategy: Strategy | None = None,
+        eval_data: ClientData | None = None,
+        client_chunk: int | None = None,
+        device: DeviceLike = None,
+    ) -> None:
+        self.device = resolve_device(device)
+        self.model = model
+        self.config = config
+        self.training = training or TrainingConfig()
+        self.strategy = strategy or fedavg_strategy()
+
+        self.num_clients = int(train_data.x.shape[0])
+        self._data = train_data.to(self.device)
+        self._num_samples = self._data.mask.sum(1)
+        init_gen = torch.Generator().manual_seed(config.seed)
+        self.params: Params = {
+            name: p.to(self.device) for name, p in model.init(init_gen).items()
+        }
+        self.server_state = init_server_state(self.strategy, self.params)
+
+        # Cohort gathering (participation < 1): run the round over the K sampled
+        # clients' rows, not all N with zero weights.  A chunk size that does not
+        # divide the cohort keeps the full-N path, as in the JAX package.
+        self._cohort_mode = self.cohort_size < self.num_clients
+        if self._cohort_mode and client_chunk is not None:
+            if client_chunk < self.cohort_size and self.cohort_size % client_chunk != 0:
+                self._cohort_mode = False
+        self._step_clients = self.cohort_size if self._cohort_mode else self.num_clients
+        self._round_step = build_round_step(
+            model, self.training, self.strategy, client_chunk=client_chunk
+        )
+        self._evaluator = make_evaluator(model, batch_size=256) if eval_data is not None else None
+        self._eval_data = eval_data.to(self.device) if eval_data is not None else None
+
+        self.current_round = 0
+        self._last_client_detail: dict[str, Any] | None = None
+        self.base_dir = Path(config.base_dir)
+        if config.save_metrics:
+            (self.base_dir / "metrics").mkdir(parents=True, exist_ok=True)
+
+    # ------------------------------------------------------------------
+    # Round loop
+    # ------------------------------------------------------------------
+
+    def start_training(self) -> Iterator[RoundMetrics]:
+        """Generator over rounds."""
+        while self.current_round < self.config.num_rounds:
+            metrics = self._train_round(self.current_round)
+            if self.config.save_metrics:
+                self._save_round_metrics(metrics)
+            self.current_round += 1
+            yield metrics
+
+    def run(self) -> list[RoundMetrics]:
+        return list(self.start_training())
+
+    def _sample_cohort(self, round_id: int) -> np.ndarray:
+        """This round's surviving cohort: the JAX package's numpy draws exactly."""
+        host_rng = np.random.default_rng(self.config.seed * 100_003 + round_id)
+        sampled = host_rng.choice(self.num_clients, size=self.cohort_size, replace=False)
+        if self.config.dropout_rate > 0:
+            keep = host_rng.random(len(sampled)) >= self.config.dropout_rate
+            sampled = sampled[keep]
+        return sampled
+
+    def _place_cohort(self, survived: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        """Front-pack the survivors into the step's slots; padding slots alias row 0
+        with weight 0."""
+        idx = np.zeros(self._step_clients, dtype=np.int64)
+        mask = np.zeros(self._step_clients, dtype=np.float32)
+        idx[: len(survived)] = survived
+        mask[: len(survived)] = 1.0
+        return idx, mask
+
+    def _round_generator(self, round_id: int) -> torch.Generator:
+        gen = torch.Generator(device=self.device)
+        return gen.manual_seed(self.config.seed * 100_003 + round_id)
+
+    def _client_detail_due(self, round_id: int) -> bool:
+        every = self.config.client_metrics_every
+        return every > 0 and round_id % every == 0
+
+    def _train_round(self, round_id: int) -> RoundMetrics:
+        t0 = time.perf_counter()
+        cohort = self.cohort_size
+        survived = self._sample_cohort(round_id)
+        required = completion_required(cohort, self.config.min_completion_rate)
+        if len(survived) < required:
+            _log.warning(
+                "round %d FAILED: %d/%d clients completed (< %d required)",
+                round_id, len(survived), cohort, required,
+            )
+            return RoundMetrics(
+                round_id=round_id, status=RoundStatus.FAILED, num_clients=len(survived),
+                duration_s=time.perf_counter() - t0, timestamp=_now_iso(),
+            )
+
+        gen = self._round_generator(round_id)
+        perms = draw_permutations(
+            gen, self.num_clients, self.training.local_epochs, self._data.y.shape[1]
+        )
+        if self._cohort_mode:
+            idx, mask = self._place_cohort(survived)
+            idx_dev = torch.as_tensor(idx, device=self.device)
+            data = self._data.select(idx_dev)
+            perms = perms[idx_dev]
+            weights = compute_weights(
+                self._num_samples[idx_dev], torch.as_tensor(mask, device=self.device)
+            )
+        else:
+            data = self._data
+            mask = np.zeros(self.num_clients, dtype=np.float32)
+            mask[survived] = 1.0
+            weights = compute_weights(self._num_samples, torch.as_tensor(mask, device=self.device))
+
+        result = self._round_step(self.params, self.server_state, data, weights, perms, gen)
+        self.params = result.params
+        self.server_state = result.server_opt_state
+
+        agg = {k: float(v) for k, v in result.metrics.items()}
+        agg["participating_clients"] = int(agg["participating_clients"])
+        eval_metrics: dict[str, float] = {}
+        if (
+            self._evaluator is not None
+            and self.config.eval_every > 0
+            and (round_id + 1) % self.config.eval_every == 0
+        ):
+            eval_metrics = self.evaluate()
+
+        self._last_client_detail = None
+        if self.config.save_metrics and self._client_detail_due(round_id):
+            self._last_client_detail = {
+                "weights": weights.tolist(),
+                "client_loss": result.client_metrics.loss.tolist(),
+                "client_accuracy": result.client_metrics.accuracy.tolist(),
+                "update_sq_norms": result.update_sq_norms.tolist(),
+            }
+            if self._cohort_mode:
+                # Cohort-slot order: which client each slot hosted.
+                self._last_client_detail["client_ids"] = idx.tolist()
+
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        duration = time.perf_counter() - t0
+        _log.info(
+            "round %d: loss=%.4f acc=%.4f clients=%d (%.2fs)",
+            round_id, agg["loss"], agg["accuracy"], len(survived), duration,
+        )
+        return RoundMetrics(
+            round_id=round_id, status=RoundStatus.COMPLETED, num_clients=len(survived),
+            agg_metrics=agg, eval_metrics=eval_metrics, duration_s=duration,
+            timestamp=_now_iso(),
+        )
+
+    # ------------------------------------------------------------------
+    # Observability
+    # ------------------------------------------------------------------
+
+    @property
+    def cohort_size(self) -> int:
+        return cohort_size(self.num_clients, self.config.participation_rate)
+
+    def evaluate(self) -> dict[str, float]:
+        if self._evaluator is None:
+            raise NanoFedError("no eval_data was provided to the Coordinator")
+        return {k: float(v) for k, v in self._evaluator(self.params, self._eval_data).items()}
+
+    def _save_round_metrics(self, metrics: RoundMetrics) -> None:
+        payload: dict[str, Any] = metrics.to_dict()
+        if metrics.status == RoundStatus.COMPLETED and self._last_client_detail is not None:
+            payload["clients"] = self._last_client_detail
+        path = self.base_dir / "metrics" / f"metrics_round_{metrics.round_id}.json"
+        tmp = path.with_suffix(".tmp")
+        tmp.write_text(json.dumps(payload, indent=2))
+        tmp.replace(path)
+
+
+def _now_iso() -> str:
+    return datetime.now(timezone.utc).isoformat()
