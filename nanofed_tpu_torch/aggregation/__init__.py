@@ -12,16 +12,44 @@ from nanofed_tpu_torch.aggregation.fedavg import (
     compute_weights,
     fedavg_combine,
 )
+from nanofed_tpu_torch.aggregation.privacy import (
+    PrivacyAwareAggregationConfig,
+    apply_central_privacy,
+    central_mechanism,
+    epsilon_adjusted_weights,
+    record_central_privacy,
+    validate_private_round,
+)
+from nanofed_tpu_torch.aggregation.robust import (
+    RobustAggregationConfig,
+    coordinate_median,
+    multi_krum,
+    robust_aggregate,
+    robust_floor,
+    trimmed_mean,
+)
 
 __all__ = [
+    "PrivacyAwareAggregationConfig",
+    "RobustAggregationConfig",
     "ServerAdam",
     "ServerSGD",
     "Strategy",
     "aggregate_metrics",
+    "apply_central_privacy",
+    "central_mechanism",
     "compute_weights",
+    "coordinate_median",
+    "epsilon_adjusted_weights",
     "fedadam_strategy",
     "fedavg_combine",
     "fedavg_strategy",
     "fedavgm_strategy",
     "fedyogi_strategy",
+    "multi_krum",
+    "record_central_privacy",
+    "robust_aggregate",
+    "robust_floor",
+    "trimmed_mean",
+    "validate_private_round",
 ]

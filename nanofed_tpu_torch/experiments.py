@@ -1,10 +1,13 @@
 """High-level experiment runner (counterpart of ``nanofed_tpu/experiments.py``), reduced
 to the flags this slice supports.
 
-The JAX runner's other flags (central DP, lr schedules, robust aggregation, SCAFFOLD,
-telemetry, fused blocks, mesh axes, strict mode, profiling, autotuning, adapters) come
-with later slices; passing one with a value other than the JAX default raises
-``NotImplementedError`` naming it, never a silent ignore.
+``central_privacy`` (DP-FedAvg at the reduce) and ``robust_trim_k``/``robust_method``
+(robust aggregation) are taken as the JAX runner takes them.  Update validation is
+not a runner flag in either package: it is ``Coordinator(validation=...)``.  The JAX
+runner's other flags (lr schedules, SCAFFOLD, telemetry, fused blocks, mesh axes,
+strict mode, profiling, autotuning, adapters) come with later slices; passing one
+with a value other than the JAX default raises ``NotImplementedError`` naming it,
+never a silent ignore.
 """
 
 from __future__ import annotations
@@ -12,6 +15,7 @@ from __future__ import annotations
 from pathlib import Path
 from typing import Any
 
+from nanofed_tpu_torch.aggregation import PrivacyAwareAggregationConfig, RobustAggregationConfig
 from nanofed_tpu_torch.core.device import DeviceLike, resolve_device
 from nanofed_tpu_torch.data import federate, load_mnist, pack_eval
 from nanofed_tpu_torch.models import get_model
@@ -20,13 +24,10 @@ from nanofed_tpu_torch.trainer import TrainingConfig
 
 # The JAX runner's flags that later slices bring, with the JAX defaults (accepted).
 LATER_SLICE_FLAGS: dict[str, Any] = {
-    "central_privacy": None,
     "lr_schedule": "constant",
     "lr_min_factor": 0.0,
     "lr_decay_every": 10,
     "lr_decay_gamma": 0.5,
-    "robust_trim_k": None,
-    "robust_method": None,
     "scaffold": False,
     "telemetry_dir": None,
     "rounds_per_block": 1,
@@ -60,13 +61,19 @@ def run_experiment(
     compute_dtype: str | None = None,
     client_metrics_every: int = 1,
     device: DeviceLike = None,
+    central_privacy: PrivacyAwareAggregationConfig | None = None,
+    robust_trim_k: int | None = None,
+    robust_method: str | None = None,
     **kwargs: Any,
 ) -> dict[str, Any]:
     """Run a simulated federated experiment on ``device`` (default: the GPU) and return
     a summary dict.  ``client_chunk`` trains and reduces the clients in chunks of that
     many (the streamed round); ``compute_dtype="bfloat16"`` runs local forward and
-    backward in bf16.  Remaining keyword arguments go to the partitioner (e.g.
-    ``proportions=[0.75, 0.25]`` for unequal IID shares)."""
+    backward in bf16.  ``central_privacy`` turns the reduce into DP-FedAvg;
+    ``robust_trim_k``/``robust_method`` (either one set) aggregate robustly, with
+    ``trim_k`` defaulting to 1 and the method to ``"trimmed_mean"``.  Remaining
+    keyword arguments go to the partitioner (e.g. ``proportions=[0.75, 0.25]`` for
+    unequal IID shares)."""
     dev = resolve_device(device)
     refused = [
         name for name, default in LATER_SLICE_FLAGS.items()
@@ -78,6 +85,12 @@ def run_experiment(
             "(run nanofed_tpu for it)"
         )
     scheme_kwargs = {k: v for k, v in kwargs.items() if k not in LATER_SLICE_FLAGS}
+    robust = None
+    if robust_trim_k is not None or robust_method is not None:
+        robust = RobustAggregationConfig(
+            trim_k=robust_trim_k if robust_trim_k is not None else 1,
+            method=robust_method or "trimmed_mean",
+        )
 
     mdl = get_model(model)  # mnist_cnn, the one model of this slice: MNIST-shaped data
     train = load_mnist("train", data_dir, synthetic_size=train_size)
@@ -101,6 +114,8 @@ def run_experiment(
         eval_data=pack_eval(test, batch_size=256),
         client_chunk=client_chunk,
         device=dev,
+        central_privacy=central_privacy,
+        robust=robust,
     )
     rounds = coordinator.run()
     final_eval = coordinator.evaluate()

@@ -8,7 +8,8 @@ kernels — so weights interchange with no transposes; :func:`conv2d` and
 exactly a channels-last NCHW tensor, which cuDNN takes without a copy).
 
 Randomness is explicit: init draws from a ``torch.Generator``, and dropout takes a
-keep-mask drawn by the caller (``trainer.local``), never a generator of its own.
+keep-mask drawn by the caller (``trainer.local``, through :func:`keep_mask`), never a
+generator of its own.
 """
 
 from __future__ import annotations
@@ -95,9 +96,41 @@ def dropout(x: torch.Tensor, keep: torch.Tensor | None, rate: float) -> torch.Te
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
-def draw_keep_mask(gen: torch.Generator, shape: Sequence[int], rate: float) -> torch.Tensor:
-    """Bernoulli(1 - rate) keep-mask on ``gen``'s device."""
-    return torch.rand(tuple(shape), generator=gen, device=gen.device) >= rate
+# lowbias32's multipliers (C. Wellons' integer-hash search), as int32 values.
+_M1, _M2 = 0x7FEB352D, 0x846CA68B - (1 << 32)
+_INT32_MIN = -(1 << 31)
+
+
+def _shr(x: torch.Tensor, n: int) -> torch.Tensor:
+    """Logical right shift of an int32 tensor (``>>`` sign-extends)."""
+    return (x >> n) & ((1 << (32 - n)) - 1)
+
+
+def mix32(x: torch.Tensor) -> torch.Tensor:
+    """lowbias32: a bijective hash of int32 tensors.  Products wrap modulo 2^32, so
+    the bits are the same on the CPU and on the card."""
+    x = x ^ _shr(x, 16)
+    x = x * _M1
+    x = x ^ _shr(x, 15)
+    x = x * _M2
+    return x ^ _shr(x, 16)
+
+
+def keep_mask(
+    row_keys: torch.Tensor, position_keys: torch.Tensor, shape: Sequence[int], rate: float
+) -> torch.Tensor:
+    """Bernoulli(1 - rate) keep-masks ``[k, *shape]``, counter-based: element
+    ``(i, j)`` is kept iff a hash of ``row_keys[i] + position_keys[j]`` (int32 ``[k]``
+    and ``[prod(shape)]``, both already hashed), read as an unsigned 32-bit number, is
+    at least ``rate * 2^32``.  A mask is a function of its keys only, whatever else
+    the call holds."""
+    x = row_keys[:, None] + position_keys[None, :]
+    x = x * _M1
+    x ^= _shr(x, 15)
+    x *= _M2
+    x ^= _INT32_MIN  # now signed order is the unsigned order shifted by 2^31
+    threshold = min(round(rate * 2**32), 2**32 - 1) + _INT32_MIN
+    return (x >= threshold).view(row_keys.shape[0], *shape)
 
 
 relu = torch.relu

@@ -6,14 +6,23 @@ paths run are written by hand for Hopper (``csrc/*.cu``, built at first use by
 ``_build``):
 
 * ``ops.reduce``    — B1, the FedAvg weighted reduce ``[C, P] x [C] -> [P]``, in a
-                      normalised and an accumulate form;
-* ``ops.dp_reduce`` — B3, per-row squared norms ``[C, P] -> [C]``.
+                      normalised and an accumulate form; B2, the validated round's
+                      masked, sanitized form of the same reduce;
+* ``ops.dp_reduce`` — B3, per-row squared norms ``[C, P] -> [C]``, and the
+                      central-DP clipped mean built on B3 and B1.
 
 ``KERNELS`` lists each kernel wrapper; ``reset_launch_counts`` zeroes their counts.
 """
 
-from nanofed_tpu_torch.ops.dp_reduce import row_sq_norms, row_sq_norms_plain
+from nanofed_tpu_torch.ops.dp_reduce import (
+    central_dp_reduce_stacked,
+    dp_clipped_mean_flat,
+    row_sq_norms,
+    row_sq_norms_plain,
+)
 from nanofed_tpu_torch.ops.reduce import (
+    masked_weighted_mean_flat,
+    masked_weighted_mean_flat_plain,
     weighted_mean_flat,
     weighted_mean_flat_plain,
     weighted_mean_tree,
@@ -21,7 +30,7 @@ from nanofed_tpu_torch.ops.reduce import (
     weighted_sum_into_plain,
 )
 
-KERNELS = (weighted_mean_flat, weighted_sum_into, row_sq_norms)
+KERNELS = (weighted_mean_flat, weighted_sum_into, row_sq_norms, masked_weighted_mean_flat)
 
 
 def launch_counts() -> dict[str, int]:
@@ -35,7 +44,11 @@ def reset_launch_counts() -> None:
 
 __all__ = [
     "KERNELS",
+    "central_dp_reduce_stacked",
+    "dp_clipped_mean_flat",
     "launch_counts",
+    "masked_weighted_mean_flat",
+    "masked_weighted_mean_flat_plain",
     "reset_launch_counts",
     "row_sq_norms",
     "row_sq_norms_plain",

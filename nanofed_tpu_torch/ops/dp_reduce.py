@@ -1,11 +1,15 @@
-"""Kernel B3: per-row squared L2 norms, ``[C, P] -> [C]``.
+"""Kernel B3, per-row squared L2 norms ``[C, P] -> [C]``, and the central-DP reduce
+built on B3 and B1.
 
-Replaces ``nanofed_tpu/ops/dp_reduce.py::row_sq_norms`` (the Pallas
+B3 replaces ``nanofed_tpu/ops/dp_reduce.py::row_sq_norms`` (the Pallas
 ``_sq_norm_kernel``).  The CUDA source is ``csrc/dp_reduce.cu``: a deterministic
 two-stage reduction in place of the TPU kernel's in-order grid accumulator; its
 header note gives the bound (bytes) and the design.  The round uses it for every
-client's ``update_sq_norms``.  ``dp_clipped_mean_flat`` and
-``central_dp_reduce_stacked`` come with the central-DP slice.
+client's ``update_sq_norms`` and for the central-DP clip norms.
+
+:func:`dp_clipped_mean_flat` is ``nanofed_tpu/ops/dp_reduce.py``'s fused clip + mean
+(two read passes, no write): B3 for the norms, then B1 with the clip folded into the
+weights and the denominator the participant weight sum.
 
 On CPU tensors :func:`row_sq_norms` takes :func:`row_sq_norms_plain`; on CUDA
 tensors it launches the kernel or raises, and counts launches in ``.launches``.
@@ -18,6 +22,7 @@ import functools
 
 import torch
 
+from nanofed_tpu_torch.core.types import Params
 from nanofed_tpu_torch.ops import _build
 from nanofed_tpu_torch.ops._common import (
     check_launch,
@@ -26,6 +31,8 @@ from nanofed_tpu_torch.ops._common import (
     uses_kernel,
     vector_width,
 )
+from nanofed_tpu_torch.ops.reduce import weighted_mean_flat
+from nanofed_tpu_torch.utils.trees import ravel_stacked, unravel
 
 # Columns per stage-1 block: 256 threads x VEC floats x 16 loads each.
 _LOADS_PER_THREAD = 16
@@ -72,3 +79,24 @@ def row_sq_norms(x: torch.Tensor) -> torch.Tensor:
 
 
 row_sq_norms.launches = 0
+
+
+def dp_clipped_mean_flat(
+    x: torch.Tensor, weights: torch.Tensor, clip: float | torch.Tensor
+) -> torch.Tensor:
+    """``[C, P] x [C] -> [P]``: ``weighted_mean(clip_rows(x), weights)`` without the
+    clipped rows: row c's clip coefficient ``min(1, clip / max(||x_c||, 1e-12))``
+    scales its WEIGHT, and the denominator stays the participant sum ``sum(w)`` (the
+    clip bounds each client's contribution; it must not inflate everyone else's)."""
+    norms = torch.sqrt(torch.clamp(row_sq_norms(x), min=0.0))
+    coef = torch.clamp(clip / torch.clamp(norms, min=1e-12), max=1.0)
+    return weighted_mean_flat(x, weights * coef, denom=weights.sum())
+
+
+def central_dp_reduce_stacked(
+    stacked: Params, weights: torch.Tensor, clip: float | torch.Tensor
+) -> Params:
+    """:func:`dp_clipped_mean_flat` over a stacked ``[C, ...]`` update (add noise with
+    ``privacy.noise.tree_noise``)."""
+    like = {name: leaf[0] for name, leaf in stacked.items()}
+    return unravel(dp_clipped_mean_flat(ravel_stacked(stacked), weights, clip), like)

@@ -1,5 +1,5 @@
-"""The round loop (counterpart of ``nanofed_tpu/orchestration/coordinator.py``, reduced
-to its plain path).
+"""The round loop (counterpart of ``nanofed_tpu/orchestration/coordinator.py``, its
+single-device simulated path).
 
 Each round: sample the cohort and the simulated dropouts with the JAX package's numpy
 streams (``default_rng(seed * 100_003 + round_id)``, ``choice`` then
@@ -9,14 +9,20 @@ per-round metrics JSON (same keys and per-client detail as the JAX package's).
 
 Initial weights are drawn on the CPU from ``torch.Generator().manual_seed(seed)`` and
 then moved, so a seed gives the same starting model on every device.  Each round's
-epoch permutations and dropout masks come from a generator on the device seeded with
-``seed * 100_003 + round_id``; permutations are drawn for the whole population and
-gathered by client id, so a client's shuffling does not depend on which cohort slot it
-lands in.
+device randomness comes from one round seed, ``seed * 100_003 + round_id``: the epoch
+permutations from a generator on the device seeded with it, drawn for the whole
+population and gathered by client id, and each client's dropout keys from a hash of
+(round seed, client id).  So a client trains the same whichever cohort slot or chunk
+it lands in, and a gathered cohort round equals the full-N masked round.
 
-Later slices bring SCAFFOLD, adapters, central DP, validation, robust aggregation,
-fused multi-round blocks, the hosts/model mesh axes, autotuning, strict mode,
-profiling and persistence.
+The guarded round (``parallel.round_step``): ``validation=`` rejects updates in the
+round, ``central_privacy=`` makes the reduce DP-FedAvg (accounted per round by an
+``RDPAccountant`` unless ``accountant=`` is given), ``robust=`` aggregates robustly.
+Under central DP the cohort and every device draw (permutations, dropout, noise) come
+from OS entropy, never from the seed, and no per-client detail is written.
+
+Later slices bring SCAFFOLD, adapters, fused multi-round blocks, the hosts/model mesh
+axes, autotuning, strict mode, profiling and persistence.
 """
 
 from __future__ import annotations
@@ -34,6 +40,11 @@ import torch
 
 from nanofed_tpu_torch.aggregation.base import Strategy, fedavg_strategy
 from nanofed_tpu_torch.aggregation.fedavg import compute_weights
+from nanofed_tpu_torch.aggregation.privacy import (
+    PrivacyAwareAggregationConfig,
+    record_central_privacy,
+)
+from nanofed_tpu_torch.aggregation.robust import RobustAggregationConfig, robust_floor
 from nanofed_tpu_torch.core.device import DeviceLike, resolve_device
 from nanofed_tpu_torch.core.exceptions import NanoFedError
 from nanofed_tpu_torch.core.types import ClientData, Params
@@ -41,8 +52,12 @@ from nanofed_tpu_torch.models.base import Model
 from nanofed_tpu_torch.orchestration.engine import completion_required
 from nanofed_tpu_torch.orchestration.types import RoundMetrics, RoundStatus, cohort_size
 from nanofed_tpu_torch.parallel.round_step import build_round_step, init_server_state
+from nanofed_tpu_torch.privacy.accounting import BasePrivacyAccountant, RDPAccountant
+from nanofed_tpu_torch.privacy.noise import get_noise_generator
+from nanofed_tpu_torch.security.validation import ValidationConfig
 from nanofed_tpu_torch.trainer.config import TrainingConfig
-from nanofed_tpu_torch.trainer.local import draw_permutations, make_evaluator
+from nanofed_tpu_torch.trainer.local import client_keys, draw_permutations, make_evaluator
+from nanofed_tpu_torch.utils.trees import tree_size
 
 _log = logging.getLogger(__name__)
 
@@ -90,12 +105,31 @@ class Coordinator:
         eval_data: ClientData | None = None,
         client_chunk: int | None = None,
         device: DeviceLike = None,
+        validation: ValidationConfig | None = None,
+        central_privacy: PrivacyAwareAggregationConfig | None = None,
+        accountant: BasePrivacyAccountant | None = None,
+        robust: RobustAggregationConfig | None = None,
     ) -> None:
         self.device = resolve_device(device)
         self.model = model
         self.config = config
         self.training = training or TrainingConfig()
         self.strategy = strategy or fedavg_strategy()
+
+        # The coordinator owns the accountant of its own central-DP reduce, RDP by
+        # default, so the spent (ε, δ) is tracked and reported.
+        self.central_privacy = central_privacy
+        if accountant is not None and central_privacy is None:
+            raise ValueError(
+                "accountant= given without central_privacy=: the coordinator only "
+                "records spend for its own central-DP reduce"
+            )
+        self.privacy_accountant = accountant
+        if central_privacy is not None and accountant is None:
+            self.privacy_accountant = RDPAccountant()
+        # OS-entropy generator for DP cohorts and the DP round's device seeds, seeded
+        # from the system at construction, never from config.seed.
+        self._secret_sampling_rng = np.random.default_rng()
 
         self.num_clients = int(train_data.x.shape[0])
         self._data = train_data.to(self.device)
@@ -106,6 +140,14 @@ class Coordinator:
         }
         self.server_state = init_server_state(self.strategy, self.params)
 
+        if robust is not None and self.cohort_size < robust_floor(robust):
+            # Every round would fail closed yet be reported COMPLETED: refuse up front.
+            raise ValueError(
+                f"robust method {robust.method!r} needs a cohort of at least "
+                f"{robust_floor(robust)} clients, but participation_rate="
+                f"{config.participation_rate} over {self.num_clients} clients "
+                f"samples only {self.cohort_size} per round"
+            )
         # Cohort gathering (participation < 1): run the round over the K sampled
         # clients' rows, not all N with zero weights.  A chunk size that does not
         # divide the cohort keeps the full-N path, as in the JAX package.
@@ -115,7 +157,8 @@ class Coordinator:
                 self._cohort_mode = False
         self._step_clients = self.cohort_size if self._cohort_mode else self.num_clients
         self._round_step = build_round_step(
-            model, self.training, self.strategy, client_chunk=client_chunk
+            model, self.training, self.strategy, client_chunk=client_chunk,
+            central_privacy=central_privacy, validation=validation, robust=robust,
         )
         self._evaluator = make_evaluator(model, batch_size=256) if eval_data is not None else None
         self._eval_data = eval_data.to(self.device) if eval_data is not None else None
@@ -143,8 +186,13 @@ class Coordinator:
         return list(self.start_training())
 
     def _sample_cohort(self, round_id: int) -> np.ndarray:
-        """This round's surviving cohort: the JAX package's numpy draws exactly."""
-        host_rng = np.random.default_rng(self.config.seed * 100_003 + round_id)
+        """This round's surviving cohort: the JAX package's numpy draws exactly.  Under
+        central DP the amplified ε the accountant credits holds only if the sampling
+        is secret, so DP cohorts come from OS entropy."""
+        if self.central_privacy is not None:
+            host_rng = self._secret_sampling_rng
+        else:
+            host_rng = np.random.default_rng(self.config.seed * 100_003 + round_id)
         sampled = host_rng.choice(self.num_clients, size=self.cohort_size, replace=False)
         if self.config.dropout_rate > 0:
             keep = host_rng.random(len(sampled)) >= self.config.dropout_rate
@@ -160,9 +208,13 @@ class Coordinator:
         mask[: len(survived)] = 1.0
         return idx, mask
 
-    def _round_generator(self, round_id: int) -> torch.Generator:
-        gen = torch.Generator(device=self.device)
-        return gen.manual_seed(self.config.seed * 100_003 + round_id)
+    def _round_seed(self, round_id: int) -> int:
+        """Seed of the round's device draws.  Under central DP it is 63 secret bits:
+        noise regenerable from a persisted seed could be subtracted from the released
+        aggregate."""
+        if self.central_privacy is not None:
+            return int(self._secret_sampling_rng.integers(0, 1 << 63))
+        return self.config.seed * 100_003 + round_id
 
     def _client_detail_due(self, round_id: int) -> bool:
         every = self.config.client_metrics_every
@@ -183,15 +235,23 @@ class Coordinator:
                 duration_s=time.perf_counter() - t0, timestamp=_now_iso(),
             )
 
-        gen = self._round_generator(round_id)
+        seed = self._round_seed(round_id)
+        gen = torch.Generator(device=self.device).manual_seed(seed)
         perms = draw_permutations(
             gen, self.num_clients, self.training.local_epochs, self._data.y.shape[1]
         )
+        keys = client_keys(seed, self.num_clients, self.device)
+        noise = None
+        if self.central_privacy is not None:
+            noise = get_noise_generator(self.central_privacy.privacy.noise_type).standard(
+                gen, (tree_size(self.params),)
+            )
         if self._cohort_mode:
             idx, mask = self._place_cohort(survived)
             idx_dev = torch.as_tensor(idx, device=self.device)
             data = self._data.select(idx_dev)
             perms = perms[idx_dev]
+            keys = keys[idx_dev]
             weights = compute_weights(
                 self._num_samples[idx_dev], torch.as_tensor(mask, device=self.device)
             )
@@ -201,12 +261,26 @@ class Coordinator:
             mask[survived] = 1.0
             weights = compute_weights(self._num_samples, torch.as_tensor(mask, device=self.device))
 
-        result = self._round_step(self.params, self.server_state, data, weights, perms, gen)
+        result = self._round_step(
+            self.params, self.server_state, data, weights, perms, keys, noise
+        )
         self.params = result.params
         self.server_state = result.server_opt_state
 
         agg = {k: float(v) for k, v in result.metrics.items()}
-        agg["participating_clients"] = int(agg["participating_clients"])
+        for count_key in ("participating_clients", "valid_clients"):
+            if count_key in agg:
+                agg[count_key] = int(agg[count_key])
+        if self.privacy_accountant is not None:
+            record_central_privacy(
+                self.privacy_accountant, self.central_privacy,
+                sampling_rate=self.cohort_size / self.num_clients,
+            )
+            spent = self.privacy_accountant.get_privacy_spent(
+                self.central_privacy.privacy.delta
+            )
+            agg["privacy_epsilon"] = spent.epsilon_spent
+            agg["privacy_delta"] = spent.delta_spent
         eval_metrics: dict[str, float] = {}
         if (
             self._evaluator is not None
@@ -215,8 +289,14 @@ class Coordinator:
         ):
             eval_metrics = self.evaluate()
 
+        # Under central DP no per-client detail is written: the weights reveal who
+        # took part, and per-client losses and norms describe the un-noised deltas.
         self._last_client_detail = None
-        if self.config.save_metrics and self._client_detail_due(round_id):
+        if (
+            self.config.save_metrics
+            and self.central_privacy is None
+            and self._client_detail_due(round_id)
+        ):
             self._last_client_detail = {
                 "weights": weights.tolist(),
                 "client_loss": result.client_metrics.loss.tolist(),
@@ -247,6 +327,13 @@ class Coordinator:
     @property
     def cohort_size(self) -> int:
         return cohort_size(self.num_clients, self.config.participation_rate)
+
+    @property
+    def privacy_spent(self):
+        """Cumulative central-DP spend (``PrivacySpent``), or None without central DP."""
+        if self.privacy_accountant is None:
+            return None
+        return self.privacy_accountant.get_privacy_spent(self.central_privacy.privacy.delta)
 
     def evaluate(self) -> dict[str, float]:
         if self._evaluator is None:

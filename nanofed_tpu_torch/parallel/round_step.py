@@ -1,10 +1,10 @@
 """The federated round on one device (counterpart of
-``nanofed_tpu/parallel/round_step.py``, its single-device plain path).
+``nanofed_tpu/parallel/round_step.py``, its single-device path).
 
-One round: every client's local fit, the client deltas as one contiguous
-``[k, P]`` float32 buffer in ravel order, each client's squared update norm (kernel
-B3), the sample-weighted mean delta (kernel B1), and the server optimizer.  Two forms
-of the reduce, as in the JAX package:
+One round: every client's local fit, the client deltas as one contiguous ``[k, P]``
+float32 buffer in ravel order (rows padded to 4 floats), each client's squared update
+norm (kernel B3), the aggregated delta, and the server optimizer.  Two forms of the
+plain FedAvg reduce, as in the JAX package:
 
 * materialised (``client_chunk`` unset): all clients fit at once and B1's normalised
   form reduces the ``[C, P]`` deltas;
@@ -13,9 +13,25 @@ of the reduce, as in the JAX package:
   ``[C, P]`` deltas never exist; the sum is divided by ``max(sum w, 1e-12)`` at the
   end.
 
-A round with zero total weight (no participants) leaves params and server state
-untouched.  The multi-GPU mesh, validation, robust aggregation and central DP come
-with later slices.
+The guarded rounds follow the JAX round line by line (on one device every psum is
+the identity and every all-gather the input):
+
+* ``validation`` — per-client finiteness, per-leaf norm bound and a leave-one-out
+  z-score zero the weights of invalid clients.  The deltas must materialise (the
+  z-score needs every client), chunk by chunk into one buffer when ``client_chunk``
+  is set.  The reduce is kernel B2, which sanitizes NaN and inf as it reads.
+* ``central_privacy`` — DP-FedAvg: each delta clipped to C (coefficient
+  ``min(1, C / (norm + 1e-12))`` from B3's norms, folded into B1's weights),
+  a uniform mean over the participants, then noise of std σ·C/K from a standard
+  ``[P]`` draw the caller passes (``noise``).  It streams under ``client_chunk``.
+* ``robust`` — trimmed mean, coordinate median or Multi-Krum over the materialised
+  deltas; the round's loss and accuracy are the same estimator over the client
+  scalars, and a round below the method's floor leaves params untouched.
+
+Validation composes with DP and with robust aggregation: the buffer is then
+sanitized in place before the clip or the sort (B1 would turn a NaN row into NaN even
+at weight 0).  Robust aggregation together with central DP is refused.  A round with
+zero total weight leaves params and server state untouched.
 """
 
 from __future__ import annotations
@@ -26,13 +42,24 @@ import torch
 
 from nanofed_tpu_torch.aggregation.base import Strategy, fedavg_strategy
 from nanofed_tpu_torch.aggregation.fedavg import aggregate_metrics
+from nanofed_tpu_torch.aggregation.privacy import PrivacyAwareAggregationConfig
+from nanofed_tpu_torch.aggregation.robust import RobustAggregationConfig, robust_aggregate
 from nanofed_tpu_torch.core.types import ClientData, ClientMetrics, Params
 from nanofed_tpu_torch.models.base import Model
 from nanofed_tpu_torch.ops.dp_reduce import row_sq_norms
-from nanofed_tpu_torch.ops.reduce import weighted_mean_flat, weighted_sum_into
+from nanofed_tpu_torch.ops.reduce import (
+    masked_weighted_mean_flat,
+    weighted_mean_flat,
+    weighted_sum_into,
+)
+from nanofed_tpu_torch.security.validation import (
+    ValidationConfig,
+    stacked_leaf_stats,
+    validate_stats,
+)
 from nanofed_tpu_torch.trainer.config import TrainingConfig
-from nanofed_tpu_torch.trainer.local import make_local_fit
-from nanofed_tpu_torch.utils.trees import ravel, unravel
+from nanofed_tpu_torch.trainer.local import GradFn, make_local_fit
+from nanofed_tpu_torch.utils.trees import ravel, unravel, unravel_stacked
 
 
 class RoundStepResult(NamedTuple):
@@ -46,26 +73,37 @@ class RoundStepResult(NamedTuple):
 RoundStepFn = Callable[..., RoundStepResult]
 
 
-def client_deltas(stacked: Params, global_flat: torch.Tensor) -> torch.Tensor:
+def client_deltas(
+    stacked: Params, global_flat: torch.Tensor, out: torch.Tensor | None = None
+) -> torch.Tensor:
     """``params_k - global`` for stacked params ``[k, ...]`` as one ``[k, P]`` view in
-    ravel order.  Rows are padded to a multiple of 4 floats so every row starts
-    16-byte aligned and the kernels load ``float4``s."""
+    ravel order, written into ``out`` (``[k, stride]``, rows contiguous) when given.
+    Rows are padded to a multiple of 4 floats so every row starts 16-byte aligned and
+    the kernels load ``float4``s."""
     k = next(iter(stacked.values())).shape[0]
     p = global_flat.numel()
-    stride = -(-p // 4) * 4
-    buf = torch.empty((k, stride), dtype=torch.float32, device=global_flat.device)
+    if out is None:
+        out = torch.empty((k, -(-p // 4) * 4), dtype=torch.float32, device=global_flat.device)
     offset = 0
     for leaf in stacked.values():
         n = leaf[0].numel()
         torch.sub(
-            leaf.reshape(k, n), global_flat[offset : offset + n], out=buf[:, offset : offset + n]
+            leaf.reshape(k, n), global_flat[offset : offset + n], out=out[:, offset : offset + n]
         )
         offset += n
-    return buf[:, :p]
+    return out[:, :p]
 
 
 def init_server_state(strategy: Strategy, global_params: Params) -> Any:
     return strategy.server_tx.init(ravel(global_params))
+
+
+def _rows(t: torch.Tensor | None, sl: slice) -> torch.Tensor | None:
+    return None if t is None else t[sl]
+
+
+def _cat_metrics(parts: list[ClientMetrics]) -> ClientMetrics:
+    return ClientMetrics(*(torch.cat(field) for field in zip(*parts)))
 
 
 def build_round_step(
@@ -73,20 +111,50 @@ def build_round_step(
     training: TrainingConfig,
     strategy: Strategy | None = None,
     client_chunk: int | None = None,
+    grad_fn: GradFn | None = None,
+    local_fit: Callable | None = None,
+    central_privacy: PrivacyAwareAggregationConfig | None = None,
+    validation: ValidationConfig | None = None,
+    robust: RobustAggregationConfig | None = None,
 ) -> RoundStepFn:
     """Returns ``round_step(global_params, server_opt_state, data, weights, perms,
-    generator=None) -> RoundStepResult``.
+    keys=None, noise=None) -> RoundStepResult``.
 
     ``data`` is ``ClientData`` tensors ``[C, N, ...]`` on the device, ``weights`` is
-    ``[C]`` float32 (sample counts x participation; zero drops a client),
-    ``perms`` is ``[C, E, N]`` (see ``trainer.local.draw_permutations``) and
-    ``generator`` draws the dropout masks.  ``client_chunk`` must divide C when it
-    is smaller than C.  Initialise ``server_opt_state`` with
-    :func:`init_server_state`.
+    ``[C]`` float32 (sample counts x participation; zero drops a client), ``perms``
+    is ``[C, E, N]`` (``trainer.local.draw_permutations``), ``keys`` the clients'
+    ``[C]`` int32 dropout keys (``trainer.local.client_keys``; needed when the model
+    has dropout) and ``noise`` a standard ``[P]`` draw (unit Gaussian or Laplace,
+    as the privacy config's noise type says; needed under ``central_privacy``).
+    ``client_chunk`` must divide C when it is smaller than C.  ``local_fit``
+    replaces the default fit (same signature as ``trainer.local.make_local_fit``'s);
+    ``grad_fn`` builds the default fit with another gradient; passing both is
+    refused.  Initialise ``server_opt_state`` with :func:`init_server_state`.
     """
+    if robust is not None and central_privacy is not None:
+        raise ValueError(
+            "robust= cannot be combined with central_privacy=: the DP guarantee is "
+            "calibrated for the clipped uniform MEAN (sensitivity C/K); a trimmed "
+            "mean has a different sensitivity and the stated budget would be wrong"
+        )
+    if local_fit is not None and grad_fn is not None:
+        raise ValueError(
+            "pass either grad_fn (used to build the default local fit) or a complete "
+            "local_fit, not both — a supplied local_fit ignores grad_fn"
+        )
     strategy = strategy or fedavg_strategy()
-    fit = make_local_fit(model, training)
+    fit = local_fit or make_local_fit(model, training, grad_fn=grad_fn)
     server_tx = strategy.server_tx
+
+    def clip_coefs(sq_norms: torch.Tensor) -> torch.Tensor:
+        """Per-client clip to the central-DP bound C: ``min(1, C / (norm + 1e-12))``
+        (the round's ``tree_clip_by_global_norm``)."""
+        clip = central_privacy.privacy.max_gradient_norm
+        return torch.clamp(clip / (torch.sqrt(sq_norms) + 1e-12), max=1.0)
+
+    def add_central_noise(agg: torch.Tensor, noise: torch.Tensor, participants: torch.Tensor):
+        p = central_privacy.privacy
+        return agg + noise * (p.noise_multiplier * p.max_gradient_norm / participants)
 
     def apply_server_update(gp_flat, like, sos, agg_delta, total_w):
         # The negative delta is the "gradient", so SGD(1.0) applies +delta exactly.
@@ -95,47 +163,139 @@ def build_round_step(
         updates, new_sos = server_tx.update(-agg_delta, sos)
         return unravel(gp_flat + updates, like), new_sos
 
+    def streamed(global_params, gp_flat, data, weights, perms, keys, noise):
+        """Fold each chunk's weighted delta sum into one ``[P]`` accumulator."""
+        acc = torch.zeros_like(gp_flat)
+        chunk_metrics, sq_norms = [], []
+        for start in range(0, weights.shape[0], client_chunk):
+            sl = slice(start, start + client_chunk)
+            result = fit(global_params, data.select(sl), perms[sl], _rows(keys, sl))
+            chunk_metrics.append(result.metrics)
+            delta = client_deltas(result.params, gp_flat)
+            del result  # free the chunk's params before its reduce and the next fit
+            sq = row_sq_norms(delta)
+            if central_privacy is not None:
+                # Clip, then uniform weights over participants (the clip rides in
+                # the weights); the reported norms are the clipped ones.
+                coef = clip_coefs(sq)
+                w = (weights[sl] > 0).float() * coef
+                sq = coef.square() * sq
+            else:
+                w = weights[sl]
+            weighted_sum_into(acc, delta, w)
+            sq_norms.append(sq)
+            del delta
+        if central_privacy is not None:
+            participants = torch.clamp((weights > 0).sum().float(), min=1.0)
+            agg = add_central_noise(acc / participants, noise, participants)
+        else:
+            agg = acc / torch.clamp(weights.sum(), min=1e-12)
+        return agg, _cat_metrics(chunk_metrics), torch.cat(sq_norms)
+
+    def fit_materialised(global_params, gp_flat, data, perms, keys):
+        """Every client's delta in one ``[C, stride]`` buffer, chunk by chunk."""
+        c = perms.shape[0]
+        k = client_chunk if client_chunk is not None and client_chunk < c else c
+        p = gp_flat.numel()
+        buf = torch.empty((c, -(-p // 4) * 4), dtype=torch.float32, device=gp_flat.device)
+        chunk_metrics = []
+        for start in range(0, c, k):
+            sl = slice(start, start + k)
+            result = fit(global_params, data.select(sl), perms[sl], _rows(keys, sl))
+            client_deltas(result.params, gp_flat, out=buf[sl])
+            chunk_metrics.append(result.metrics)
+            del result
+        return buf[:, :p], _cat_metrics(chunk_metrics)
+
     def round_step(
         global_params: Params,
         server_opt_state: Any,
         data: ClientData,
         weights: torch.Tensor,
         perms: torch.Tensor,
-        generator: torch.Generator | None = None,
+        keys: torch.Tensor | None = None,
+        noise: torch.Tensor | None = None,
     ) -> RoundStepResult:
         c = weights.shape[0]
         gp_flat = ravel(global_params)
-        total_w = weights.sum()
-        if client_chunk is not None and client_chunk < c:
-            if c % client_chunk != 0:
-                raise ValueError(f"client_chunk {client_chunk} must divide client count {c}")
-            acc = torch.zeros_like(gp_flat)
-            chunk_metrics, sq_norms = [], []
-            for start in range(0, c, client_chunk):
-                sl = slice(start, start + client_chunk)
-                result = fit(global_params, data.select(sl), perms[sl], generator)
-                chunk_metrics.append(result.metrics)
-                delta = client_deltas(result.params, gp_flat)
-                del result  # free the chunk's params before its reduce and the next fit
-                sq_norms.append(row_sq_norms(delta))
-                weighted_sum_into(acc, delta, weights[sl])
-                del delta
-            client_metrics = ClientMetrics(
-                *(torch.cat(parts) for parts in zip(*chunk_metrics))
+        if central_privacy is not None and (noise is None or noise.shape != gp_flat.shape):
+            raise ValueError(f"central_privacy needs noise=, a standard [{gp_flat.numel()}] draw")
+        chunking = client_chunk is not None and client_chunk < c
+        if chunking and c % client_chunk != 0:
+            raise ValueError(f"client_chunk {client_chunk} must divide client count {c}")
+
+        if chunking and validation is None and robust is None:
+            agg, client_metrics, update_sq_norms = streamed(
+                global_params, gp_flat, data, weights, perms, keys, noise
             )
-            update_sq_norms = torch.cat(sq_norms)
-            agg_delta = acc / torch.clamp(total_w, min=1e-12)
+            new_params, new_sos = apply_server_update(
+                gp_flat, global_params, server_opt_state, agg, weights.sum()
+            )
+            metrics = aggregate_metrics(client_metrics, weights)
+            metrics["participating_clients"] = (weights > 0).sum()
+            return RoundStepResult(new_params, new_sos, metrics, client_metrics,
+                                   update_sq_norms)
+
+        delta, client_metrics = fit_materialised(global_params, gp_flat, data, perms, keys)
+        update_sq_norms = None
+        if validation is not None:
+            # Checks on the client DELTA: range per leaf, z-score on the global norm.
+            # Sanitize the buffer itself only where a later pass would read the NaNs
+            # (the clip's B1, the robust sort); B2 sanitizes as it reads.
+            participating = weights > 0
+            stats = stacked_leaf_stats(
+                unravel_stacked(delta, global_params),
+                sanitize_in_place=central_privacy is not None or robust is not None,
+            )
+            valid = validate_stats(stats, validation, participating).valid
+            weights_in = weights
+            weights = weights * valid.float()
+            # A rejected client's metrics may be NaN: zero its whole row.
+            client_metrics = ClientMetrics(
+                *(torch.where(valid, m, torch.zeros_like(m)) for m in client_metrics)
+            )
+            update_sq_norms = stats.leaf_sq.sum(0)  # the sanitized norms
+
+        total_w = weights.sum()
+        robust_kept = None
+        if robust is not None:
+            part = (weights > 0).float()
+            agg, ok, robust_kept = robust_aggregate(robust, delta, part, global_params)
+            total_w = total_w * ok  # below the floor: params and server state untouched
+            if update_sq_norms is None:
+                update_sq_norms = row_sq_norms(delta)
+        elif central_privacy is not None:
+            if update_sq_norms is None:
+                update_sq_norms = row_sq_norms(delta)
+            coef = clip_coefs(update_sq_norms)
+            uniform = (weights > 0).float()
+            agg = weighted_mean_flat(delta, uniform * coef, denom=uniform.sum())
+            agg = add_central_noise(agg, noise, torch.clamp(uniform.sum(), min=1.0))
+            update_sq_norms = coef.square() * update_sq_norms  # of the clipped deltas
+        elif validation is not None:
+            agg = masked_weighted_mean_flat(delta, weights_in, valid)  # kernel B2
         else:
-            result = fit(global_params, data, perms, generator)
-            delta = client_deltas(result.params, gp_flat)
-            client_metrics = result.metrics
-            agg_delta = weighted_mean_flat(delta, weights)
+            agg = weighted_mean_flat(delta, weights)
             update_sq_norms = row_sq_norms(delta)
         new_params, new_sos = apply_server_update(
-            gp_flat, global_params, server_opt_state, agg_delta, total_w
+            gp_flat, global_params, server_opt_state, agg, total_w
         )
+
         metrics = aggregate_metrics(client_metrics, weights)
-        metrics["participating_clients"] = (weights > 0).sum()
+        if robust_kept is not None:
+            # The reported loss and accuracy are the same estimator over the client
+            # scalars: a NaN loss of a trimmed client must not ride the weighted mean.
+            scalars = torch.stack([client_metrics.accuracy, client_metrics.loss], 1)
+            like = {"accuracy": scalars[0, 0], "loss": scalars[0, 1]}
+            robust_scalars, _, _ = robust_aggregate(robust, scalars, part, like)
+            metrics["accuracy"], metrics["loss"] = robust_scalars[0], robust_scalars[1]
+            metrics["robust_kept_clients"] = robust_kept
+        if validation is not None:
+            # participating = the PRE-validation cohort; valid = those that survived.
+            metrics["participating_clients"] = participating.sum()
+            metrics["valid_clients"] = (valid & participating).sum()
+        else:
+            metrics["participating_clients"] = (weights > 0).sum()
         return RoundStepResult(new_params, new_sos, metrics, client_metrics, update_sq_norms)
 
     return round_step

@@ -3,6 +3,7 @@ from nanofed_tpu_torch.trainer.local import (
     SGD,
     LocalFitResult,
     StepStats,
+    client_keys,
     draw_permutations,
     make_evaluator,
     make_grad_fn,
@@ -15,6 +16,7 @@ __all__ = [
     "LocalFitResult",
     "StepStats",
     "TrainingConfig",
+    "client_keys",
     "draw_permutations",
     "make_evaluator",
     "make_grad_fn",

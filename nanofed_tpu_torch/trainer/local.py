@@ -7,10 +7,14 @@ step computes every client's gradient at once with ``torch.func.vmap`` of one
 client's ``grad``, and the optimizer update is elementwise over the stacked
 ``[k, ...]`` params.
 
-Randomness is explicit and lives outside the vmapped function: each client's epoch
-permutations arrive as a ``[k, E, N]`` index tensor (:func:`draw_permutations`, or
-injected — the parity tests pass the JAX fit's own permutations), and each step's
-dropout keep-masks are drawn from a ``torch.Generator`` and passed in batched.
+Randomness is explicit and lives outside the vmapped function, and it belongs to
+the client, as the JAX package's per-client keys do: each client's epoch permutations
+arrive as a ``[k, E, N]`` index tensor (:func:`draw_permutations`, or injected — the
+parity tests pass the JAX fit's own permutations), and each client's dropout
+keep-masks are a counter-based hash of its own key (:func:`client_keys`), the epoch,
+the step, the layer and the position (``nn.keep_mask``).  So a client trains the same
+model whichever chunk or cohort slot it runs in, and the masks are the same bits on
+the CPU and on the card.
 
 Padding discipline is the JAX package's: masked samples contribute nothing to the
 loss, the gradient or the metrics, and a batch that is all padding leaves a client's
@@ -19,6 +23,7 @@ params and optimizer state untouched.
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Callable, NamedTuple
 
@@ -26,7 +31,7 @@ import torch
 
 from nanofed_tpu_torch.core.types import ClientData, ClientMetrics, Params
 from nanofed_tpu_torch.models.base import ApplyFn, Model
-from nanofed_tpu_torch.nn import draw_keep_mask
+from nanofed_tpu_torch.nn import keep_mask, mix32
 from nanofed_tpu_torch.trainer.config import TrainingConfig, torch_dtype
 
 
@@ -121,20 +126,43 @@ def draw_permutations(
     return u.argsort(dim=-1)
 
 
+def client_keys(seed: int, num_clients: int, device: torch.device | str) -> torch.Tensor:
+    """``[num_clients]`` int32 dropout keys on ``device``: client ``c``'s key is a hash
+    of ``(seed, c)`` alone.  Gather them by client id, as the permutations are."""
+    lo, hi = seed & 0xFFFFFFFF, (seed >> 32) & 0xFFFFFFFF
+    words = torch.tensor([lo, hi], dtype=torch.int64).to(torch.int32)  # wraps to int32
+    base = int(mix32(mix32(words[:1]) + words[1:]))
+    ids = torch.arange(num_clients, dtype=torch.int32, device=device)
+    return mix32(ids + base)
+
+
+def _dropout_row_keys(keys: torch.Tensor, epochs: int, steps: int, layers: int) -> torch.Tensor:
+    """``[E, S, L, k]`` int32: one key per (epoch, step, dropout layer, client)."""
+    salt = mix32(torch.arange(epochs, dtype=torch.int32))[:, None] + torch.arange(
+        steps, dtype=torch.int32)
+    salt = mix32(salt)[:, :, None] + torch.arange(layers, dtype=torch.int32)
+    return mix32(mix32(salt).to(keys.device)[..., None] + keys)
+
+
 def _where_rows(keep: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.where(keep.view(-1, *([1] * (a.ndim - 1))), a, b)
 
 
-def make_local_fit(model: Model, config: TrainingConfig) -> Callable[..., LocalFitResult]:
-    """Build ``local_fit(global_params, data, perms, generator=None, lr_scale=1.0)``.
+def make_local_fit(
+    model: Model, config: TrainingConfig, grad_fn: GradFn | None = None
+) -> Callable[..., LocalFitResult]:
+    """Build ``local_fit(global_params, data, perms, keys=None, lr_scale=1.0)``.
 
     ``global_params`` is one param dict; ``data`` is ``ClientData`` tensors
-    ``[k, N, ...]``; ``perms`` is ``[k, E, N]``; ``generator`` draws the dropout masks
-    (required when ``model.dropout`` is not empty).  FedProx adds
+    ``[k, N, ...]``; ``perms`` is ``[k, E, N]``; ``keys`` is the clients' ``[k]``
+    int32 dropout keys (:func:`client_keys`; required when ``model.dropout`` is not
+    empty).  ``grad_fn`` replaces the default masked-NLL gradient of one client
+    (:func:`make_grad_fn`).  FedProx adds
     ``mu * (w - w_global)`` to each gradient; ``lr_scale`` multiplies every update
     (the lr-schedule hook; FedProx and weight decay scale with it).
     """
-    batched_grad = torch.func.vmap(make_grad_fn(model.apply, compute_dtype=config.compute_dtype))
+    grad_fn = grad_fn or make_grad_fn(model.apply, compute_dtype=config.compute_dtype)
+    batched_grad = torch.func.vmap(grad_fn)
     tx = make_optimizer(config)
     bsz = config.batch_size
     epochs = config.local_epochs
@@ -143,7 +171,7 @@ def make_local_fit(model: Model, config: TrainingConfig) -> Callable[..., LocalF
         global_params: Params,
         data: ClientData,
         perms: torch.Tensor,
-        generator: torch.Generator | None = None,
+        keys: torch.Tensor | None = None,
         lr_scale: float = 1.0,
     ) -> LocalFitResult:
         k, n = data.y.shape
@@ -154,11 +182,20 @@ def make_local_fit(model: Model, config: TrainingConfig) -> Callable[..., LocalF
             )
         if tuple(perms.shape) != (k, epochs, n):
             raise ValueError(f"perms must be {(k, epochs, n)}, got {tuple(perms.shape)}")
-        if model.dropout and generator is None:
-            raise ValueError(f"{model.name} trains with dropout: pass a generator")
+        if model.dropout and (
+            keys is None or tuple(keys.shape) != (k,) or keys.dtype != torch.int32
+        ):
+            raise ValueError(f"{model.name} trains with dropout: pass keys, [{k}] int32")
         steps = n // bsz
         if config.max_batches is not None:
             steps = min(steps, config.max_batches)
+        if model.dropout:
+            row_keys = _dropout_row_keys(keys, epochs, steps, len(model.dropout))
+            position_keys = [
+                mix32(torch.arange(bsz * math.prod(shape), dtype=torch.int32,
+                                   device=keys.device))
+                for shape, _ in model.dropout
+            ]
 
         params = {name: p.expand(k, *p.shape).clone() for name, p in global_params.items()}
         state = tx.init(params)
@@ -170,8 +207,8 @@ def make_local_fit(model: Model, config: TrainingConfig) -> Callable[..., LocalF
                 idx = perms[:, e, s * bsz : (s + 1) * bsz]
                 xb, yb, mb = data.x[rows, idx], data.y[rows, idx], data.mask[rows, idx]
                 dropout = tuple(
-                    draw_keep_mask(generator, (k, bsz, *shape), rate)
-                    for shape, rate in model.dropout
+                    keep_mask(row_keys[e, s, layer], position_keys[layer], (bsz, *shape), rate)
+                    for layer, (shape, rate) in enumerate(model.dropout)
                 )
                 grads, stats = batched_grad(params, xb, yb, mb, dropout)
                 if config.prox_mu > 0:

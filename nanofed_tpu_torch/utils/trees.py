@@ -87,6 +87,21 @@ def ravel_stacked(stacked: Params) -> torch.Tensor:
     return torch.cat([leaf.reshape(c, -1) for leaf in stacked.values()], dim=1)
 
 
+def unravel_stacked(flat: torch.Tensor, like: Params) -> Params:
+    """Views of a ``[C, P]`` matrix (rows contiguous; the row stride may exceed P) as
+    stacked leaves ``[C, *shape]`` shaped like ``like``: each leaf is its column
+    segment of the flat layout, so writing a leaf writes the matrix (no copy)."""
+    c = flat.shape[0]
+    out, offset = {}, 0
+    for name, leaf in like.items():
+        n = leaf.numel()
+        out[name] = flat[:, offset : offset + n].view(c, *leaf.shape)
+        offset += n
+    if offset != flat.shape[1]:
+        raise ValueError(f"flat matrix has {flat.shape[1]} columns, params need {offset}")
+    return out
+
+
 def tree_sq_norm(params: Params) -> torch.Tensor:
     """Squared global L2 norm over every leaf."""
     return torch.stack([leaf.square().sum() for leaf in params.values()]).sum()

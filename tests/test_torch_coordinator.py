@@ -1,6 +1,7 @@
 """Port Coordinator and runner against the JAX package's, on the CPU: the host-side
-cohort and dropout draws must be identical, and a run must write round metrics JSON
-with the same keys."""
+cohort and dropout draws must be identical, a run must write round metrics JSON with
+the same keys, and the guarded round's bookkeeping (central-DP accounting and
+secrecy, validation counts, the robust floor) must follow the JAX Coordinator's."""
 
 import json
 
@@ -25,7 +26,8 @@ from nanofed_tpu_torch.trainer import TrainingConfig
 SHAPE = (28, 28, 1)
 
 
-def _coordinators(tmp_path, num_clients=8, train_size=64, **cfg):
+def _coordinators(tmp_path, num_clients=8, train_size=64, jax_kw=None, torch_kw=None,
+                  **cfg):
     train = dict(batch_size=8, local_epochs=1, learning_rate=0.05)
     jc = JaxCoordinator(
         model=jax_get_model("mnist_cnn"),
@@ -34,17 +36,24 @@ def _coordinators(tmp_path, num_clients=8, train_size=64, **cfg):
         config=JaxCoordinatorConfig(base_dir=tmp_path / "jax", **cfg),
         training=JaxTrainingConfig(**train),
         eval_data=jax_pack_eval(jax_synthetic(32, 10, SHAPE, seed=1), 16),
+        **(jax_kw or {}),
     )
-    tc = Coordinator(
+    tc = _torch_coordinator(tmp_path / "torch", num_clients, train_size, **(torch_kw or {}),
+                            **cfg)
+    return jc, tc
+
+
+def _torch_coordinator(base_dir, num_clients=8, train_size=64, guards=None, **cfg):
+    return Coordinator(
         model=get_model("mnist_cnn"),
         train_data=federate(synthetic_classification(train_size, 10, SHAPE, seed=0),
                             num_clients, batch_size=8),
-        config=CoordinatorConfig(base_dir=tmp_path / "torch", **cfg),
-        training=TrainingConfig(**train),
+        config=CoordinatorConfig(base_dir=base_dir, **cfg),
+        training=TrainingConfig(batch_size=8, local_epochs=1, learning_rate=0.05),
         eval_data=pack_eval(synthetic_classification(32, 10, SHAPE, seed=1), 16),
         device="cpu",
+        **(guards or {}),
     )
-    return jc, tc
 
 
 @pytest.mark.parametrize("participation,dropout", [(1.0, 0.0), (0.5, 0.3), (0.3, 0.5)])
@@ -101,6 +110,120 @@ def test_run_experiment_refuses_later_slice_flags_and_trains(tmp_path):
     assert summary["rounds_completed"] == 2 and summary["params_device"] == "cpu"
     assert np.isfinite(summary["final_train_metrics"]["loss"])
     assert 0.0 <= summary["final_eval_metrics"]["accuracy"] <= 1.0
+
+
+def test_cohort_round_equals_full_masked_round_with_dropout(tmp_path):
+    """Dropout on (mnist_cnn): the gathered cohort round and the full-N round in which
+    the same survivors carry the weights release the same params, because every
+    client's permutations and dropout masks follow its id, not its slot (the port's
+    counterpart of tests/integration/test_end_to_end.py::
+    test_cohort_gather_equals_full_mask_round)."""
+    def make(name):
+        return _torch_coordinator(tmp_path / name, num_clients=8, train_size=96, seed=5,
+                                  num_rounds=2, participation_rate=0.5, save_metrics=False)
+
+    gathered, full = make("gathered"), make("full")
+    assert gathered._cohort_mode and gathered._step_clients == 4
+    full._cohort_mode = False
+    full._step_clients = full.num_clients
+    g_rounds, f_rounds = gathered.run(), full.run()
+    for k in gathered.params:
+        torch.testing.assert_close(gathered.params[k], full.params[k], rtol=1e-6, atol=1e-6)
+    for g, f in zip(g_rounds, f_rounds):
+        assert g.agg_metrics["participating_clients"] == f.agg_metrics["participating_clients"]
+        np.testing.assert_allclose(g.agg_metrics["loss"], f.agg_metrics["loss"], rtol=1e-5)
+
+
+def _dp_configs(jax_side):
+    from nanofed_tpu.aggregation.privacy import PrivacyAwareAggregationConfig as JaxCfg
+    from nanofed_tpu.privacy import PrivacyConfig as JaxPrivacyConfig
+    from nanofed_tpu_torch.aggregation import PrivacyAwareAggregationConfig
+    from nanofed_tpu_torch.privacy import PrivacyConfig
+
+    if jax_side:
+        return JaxCfg(privacy=JaxPrivacyConfig(max_gradient_norm=1.0, noise_multiplier=1.1))
+    return PrivacyAwareAggregationConfig(
+        privacy=PrivacyConfig(max_gradient_norm=1.0, noise_multiplier=1.1))
+
+
+def test_central_dp_accounts_like_jax_and_writes_no_client_detail(tmp_path):
+    jc, tc = _coordinators(
+        tmp_path, num_clients=8, seed=3, num_rounds=2, participation_rate=0.5,
+        jax_kw=dict(central_privacy=_dp_configs(True)),
+        torch_kw=dict(guards=dict(central_privacy=_dp_configs(False))),
+    )
+    jc.run()
+    t_rounds = tc.run()
+    assert [r.status for r in t_rounds] == [RoundStatus.COMPLETED] * 2
+    assert tc.privacy_spent.to_dict() == jc.privacy_spent.to_dict()
+    assert tc.privacy_accountant.state_dict() == jc.privacy_accountant.state_dict()
+    assert t_rounds[-1].agg_metrics["privacy_epsilon"] == jc.privacy_spent.epsilon_spent
+    for round_id in range(2):
+        saved = json.loads(
+            (tmp_path / "torch" / f"metrics/metrics_round_{round_id}.json").read_text())
+        assert "clients" not in saved
+        assert {"privacy_epsilon", "privacy_delta"} <= set(saved["agg_metrics"])
+        assert np.isfinite(saved["agg_metrics"]["loss"])
+
+
+def test_central_dp_draws_are_secret(tmp_path):
+    """Under DP the round seed (permutations, dropout keys, noise) comes from OS
+    entropy, never from config.seed; without DP it is the seed's."""
+    tc = _torch_coordinator(tmp_path, seed=3, save_metrics=False,
+                            guards=dict(central_privacy=_dp_configs(False)))
+    seeds = {tc._round_seed(0), tc._round_seed(0)}
+    assert len(seeds) == 2 and 3 * 100_003 not in seeds
+    plain = _torch_coordinator(tmp_path, seed=3, save_metrics=False)
+    assert plain._round_seed(2) == 3 * 100_003 + 2
+
+
+def test_accountant_without_central_privacy_is_refused(tmp_path):
+    from nanofed_tpu_torch.privacy import RDPAccountant
+
+    with pytest.raises(ValueError, match="accountant"):
+        _torch_coordinator(tmp_path, guards=dict(accountant=RDPAccountant()))
+
+
+def test_robust_floor_is_refused_at_construction_as_jax(tmp_path):
+    from nanofed_tpu.aggregation.robust import RobustAggregationConfig as JaxRobust
+    from nanofed_tpu_torch.aggregation import RobustAggregationConfig
+
+    with pytest.raises(ValueError, match="cohort of at least 7") as want:
+        _coordinators(tmp_path, num_clients=8, participation_rate=0.5,
+                      jax_kw=dict(robust=JaxRobust(trim_k=3)))
+    with pytest.raises(ValueError, match="cohort of at least 7") as got:
+        _torch_coordinator(tmp_path, participation_rate=0.5,
+                           guards=dict(robust=RobustAggregationConfig(trim_k=3)))
+    assert str(got.value) == str(want.value)
+
+
+def test_validated_and_robust_rounds_report_their_counts(tmp_path):
+    from nanofed_tpu_torch.aggregation import RobustAggregationConfig
+    from nanofed_tpu_torch.security import ValidationConfig
+
+    tc = _torch_coordinator(tmp_path / "v", seed=1, num_rounds=1,
+                            guards=dict(validation=ValidationConfig()))
+    (metrics,) = tc.run()
+    agg = metrics.agg_metrics
+    assert type(agg["valid_clients"]) is int and type(agg["participating_clients"]) is int
+    assert 0 < agg["valid_clients"] <= agg["participating_clients"] == 8
+    tc = _torch_coordinator(tmp_path / "r", seed=1, num_rounds=1,
+                            guards=dict(robust=RobustAggregationConfig(method="median")))
+    (metrics,) = tc.run()
+    assert metrics.agg_metrics["robust_kept_clients"] == 8.0
+
+
+def test_run_experiment_takes_the_guarded_flags(tmp_path):
+    summary = run_experiment(num_clients=6, num_rounds=1, local_epochs=1, batch_size=8,
+                             train_size=96, device="cpu", out_dir=tmp_path / "r",
+                             robust_method="multi_krum")
+    assert summary["final_train_metrics"]["robust_kept_clients"] == 5.0
+    summary = run_experiment(num_clients=4, num_rounds=2, local_epochs=1, batch_size=8,
+                             train_size=64, device="cpu", out_dir=tmp_path / "dp",
+                             client_chunk=2, central_privacy=_dp_configs(False))
+    assert summary["final_train_metrics"]["privacy_epsilon"] > 0
+    with pytest.raises(ValueError, match="unknown robust method"):
+        run_experiment(num_clients=4, device="cpu", robust_method="mean", out_dir=tmp_path)
 
 
 def test_jax_is_unaffected_by_the_port():

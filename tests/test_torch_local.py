@@ -22,7 +22,7 @@ from nanofed_tpu.trainer.local import stack_rngs
 from nanofed_tpu_torch.core.types import ClientData
 from nanofed_tpu_torch.models import get_model
 from nanofed_tpu_torch.trainer import TrainingConfig, make_evaluator, make_local_fit
-from nanofed_tpu_torch.trainer.local import draw_permutations
+from nanofed_tpu_torch.trainer.local import client_keys, draw_permutations
 from nanofed_tpu_torch.utils.trees import from_numpy_params
 
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -101,12 +101,14 @@ def test_dropout_fit_needs_a_generator_and_is_seeded():
     fit = make_local_fit(model, TrainingConfig(**HYPER))
     data = ClientData(x, y, mask).to(torch.device("cpu"))
     perms = draw_permutations(torch.Generator().manual_seed(1), 2, 2, 8)
-    with pytest.raises(ValueError, match="generator"):
+    with pytest.raises(ValueError, match="keys"):
         fit(params, data, perms)
-    a = fit(params, data, perms, torch.Generator().manual_seed(5))
-    b = fit(params, data, perms, torch.Generator().manual_seed(5))
+    a = fit(params, data, perms, client_keys(5, 2, "cpu"))
+    b = fit(params, data, perms, client_keys(5, 2, "cpu"))
+    c = fit(params, data, perms, client_keys(6, 2, "cpu"))
     for name in params:
         assert torch.equal(a.params[name], b.params[name])
+    assert not torch.equal(a.params["fc1/kernel"], c.params["fc1/kernel"])
 
 
 def test_evaluator_matches_jax():
@@ -126,3 +128,25 @@ def test_evaluator_matches_jax():
         ClientData(x, y, mask).to(torch.device("cpu")))
     for key in ("loss", "accuracy"):
         np.testing.assert_allclose(float(got[key]), float(want[key]), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("rate", [0.25, 0.5])
+def test_keep_masks_are_bernoulli_and_keyed_by_client(rate):
+    """``nn.keep_mask``: the keep share is 1 - rate within 5 standard errors, two
+    clients' masks agree as often as independent draws would (p^2 + (1-p)^2), and a
+    client's mask depends on its key alone, not on the other rows of the call."""
+    from nanofed_tpu_torch.nn import keep_mask, mix32
+
+    keys = client_keys(3, 4, "cpu")
+    positions = mix32(torch.arange(64 * 9216, dtype=torch.int32))
+    masks = keep_mask(keys, positions, (64, 9216), rate)
+    n = masks[0].numel()
+    p = 1.0 - rate
+    for m in masks:
+        assert abs(float(m.float().mean()) - p) < 5 * (p * (1 - p) / n) ** 0.5
+    agree = float((masks[0] == masks[1]).float().mean())
+    q = p * p + (1 - p) * (1 - p)
+    assert abs(agree - q) < 5 * (q * (1 - q) / n) ** 0.5
+    alone = keep_mask(keys[2:3], positions, (64, 9216), rate)
+    assert torch.equal(alone[0], masks[2])
+    assert keep_mask(keys, positions[:10], (10,), 0.0).all()

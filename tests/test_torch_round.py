@@ -1,6 +1,8 @@
 """Port round step against the JAX package's ``build_round_step`` on a 1-device CPU
 mesh: one 8-client round from the same weights, dropout off, the JAX fit's own
-permutations injected.
+permutations injected.  With dropout on, the port against itself: a client's
+dropout masks come from its own key, so neither chunking nor the clients' order may
+change the round.
 
 Tolerance 1e-4 (params, metrics, update norms): each client's four SGD steps of
 float32 convolutions summed in another order, then an 8-client weighted mean.
@@ -27,7 +29,7 @@ from nanofed_tpu_torch.aggregation import base
 from nanofed_tpu_torch.core.types import ClientData
 from nanofed_tpu_torch.models import get_model
 from nanofed_tpu_torch.parallel import build_round_step, init_server_state
-from nanofed_tpu_torch.trainer import TrainingConfig
+from nanofed_tpu_torch.trainer import TrainingConfig, client_keys
 from nanofed_tpu_torch.utils.trees import from_numpy_params, ravel
 
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -135,3 +137,38 @@ def test_zero_weight_round_leaves_params_and_server_state(setup, client_chunk):
     for key in ("mu", "nu"):
         assert torch.equal(again.server_opt_state[key], first.server_opt_state[key])
     assert int(again.metrics["participating_clients"]) == 0
+
+
+def _dropout_round(setup, client_chunk=None, order=None):
+    model = get_model("mnist_cnn")  # dropout on
+    strategy = base.fedavg_strategy()
+    step = build_round_step(model, TrainingConfig(**HYPER), strategy, client_chunk=client_chunk)
+    order = torch.arange(C) if order is None else order
+    data = setup["data"].select(order)
+    return step(setup["params"], init_server_state(strategy, setup["params"]), data,
+                torch.from_numpy(setup["weights"])[order], setup["perms"][order],
+                client_keys(11, C, "cpu")[order])
+
+
+def test_dropout_round_is_client_stable_across_chunks(setup):
+    """Dropout on: client_chunk=2 runs four chunks, yet every client draws the masks
+    of its own key, so the round equals the materialised round to 1e-6."""
+    full = _dropout_round(setup)
+    streamed = _dropout_round(setup, client_chunk=2)
+    for key in full.params:
+        torch.testing.assert_close(streamed.params[key], full.params[key], rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(streamed.update_sq_norms, full.update_sq_norms, rtol=1e-6,
+                               atol=1e-6)
+    torch.testing.assert_close(streamed.client_metrics.loss, full.client_metrics.loss)
+    off = run_port(setup, base.fedavg_strategy())
+    assert not torch.allclose(full.client_metrics.loss, off.client_metrics.loss)
+
+
+def test_dropout_round_does_not_depend_on_the_client_slots(setup):
+    """The same clients in reversed slots: the same per-client results, permuted."""
+    full = _dropout_round(setup)
+    order = torch.arange(C - 1, -1, -1)
+    moved = _dropout_round(setup, order=order)
+    torch.testing.assert_close(ravel(moved.params), ravel(full.params), rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(moved.update_sq_norms, full.update_sq_norms[order],
+                               rtol=1e-6, atol=1e-6)
