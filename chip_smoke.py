@@ -14,7 +14,9 @@ Phases (any failure exits non-zero):
    (``row_sq_norms``) and B2 (``masked_weighted_mean_flat``) against their plain
    PyTorch versions on the card, on ragged shapes, weight and validity cases and
    NaN/inf rows, and at the round's shapes (C = 2 and 125 clients for B1/B3, 125 and
-   1000 for B2, P = 1,199,882).  At those shapes each kernel, its plain version and
+   1000 for B2, P = 1,199,882); B5 (``quantize_u32``), B6 (``dequantize_u32``) and B7
+   (``add_mask``) bit for bit on ragged sizes, unaligned starts, ties, saturation and
+   both signs, and B7's stream against numpy's Philox at P = 1,199,882.  At those shapes each kernel, its plain version and
    one library call are timed with CUDA events (median of 30 runs after 5 warm-up
    runs, L2 flushed before each run), beside the least time the card could take.
 3. Slice: the port's entry points on the card at full ``mnist_cnn`` width, (a) the
@@ -27,6 +29,18 @@ Phases (any failure exits non-zero):
    (e) robust trimmed mean (k=5, cohort 100).  The kernels' launch counts are zeroed
    just before each configuration and read just after; each must equal what the
    round's code launches.
+   Then the secure federation over localhost HTTP, as
+   ``examples/secure_federation/run_secure.py`` drives it but through the port's
+   ``HTTPServer``, ``NetworkCoordinator`` and ``HTTPClient`` on the card: 8 clients of
+   ``mnist_cnn`` at full width on the ``cuda`` mask backend (600 synthetic samples
+   each, 1 epoch, batch 64, SGD lr 0.1, f32, 2 rounds), (f) the no-dropout masked
+   round (``SecureAggregationConfig(min_clients=8)``) and (g) the dropout-tolerant
+   round (threshold 5, ``min_clients`` 7, ``min_completion_rate`` 0.5), client_7 gone
+   from round 1 on after the share exchange; then (h) the same 8 clients in the plain
+   network round, which the coordinator reduces with B1 on the card.  Each round must
+   complete, its aggregate must equal the plain weighted FedAvg of the clients' own
+   trained params within 1e-4 (secure) or 1e-5 (plain), and the launches of B1 and
+   B5/B6/B7 must equal what the code launches.
 4. Cross-check: 8-client f32 rounds of the port on the card and on the CPU from the
    same weights, permutations and injected noise: the plain round with dropout off
    and on (the masks are an integer hash, the same bits on both devices), the
@@ -39,6 +53,7 @@ The last lines are the kernels' JSON record, the card's name and power limit, an
 
 from __future__ import annotations
 
+import asyncio
 import json
 import math
 import statistics
@@ -50,7 +65,21 @@ from pathlib import Path
 
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12  # f32 outside the tensor cores, H100 SXM data sheet
+# 32-bit integer ALU operations: 64 INT32 lanes per SM (half the 128 FP32 lanes,
+# Hopper white paper), 132 SMs, at the 1.98 GHz boost the 67 TFLOP/s figure assumes.
+H100_INT32_OPS = 132 * 64 * 1.98e9
 P_MNIST = 1_199_882
+# Kernel B7's integer work per Philox4x64-10 block (8 output words), counted as 32-bit
+# operations: each of the 10 rounds takes two 64x64->128-bit products (4 partial
+# 32x32->64 products, 8 result words, plus 6 carry adds: 14 each) and two 3-way XORs of
+# 64-bit words (one 32-bit LOP3 per half: 4); then one add or subtract per output word.
+# The key schedule is the same in every thread (it depends only on the key the launch
+# is given), so it is no work per block.
+PHILOX_OPS_PER_BLOCK = 10 * (2 * 14 + 4) + 8
+SECURE_CLIENTS = 8  # (f) and (g): the cohort of examples/secure_federation, 8 clients
+SECURE_SAMPLES = 600  # per client
+SECURE_TOL = 1e-4  # 8 quantizations at 2^-17 each, plus float32 sums in another order
+PLAIN_NETWORK_TOL = 1e-5  # (h): B1's float32 mean of 8 params against a float64 one
 # f32 sums taken in another order than the plain version's: up to 125 products of
 # magnitude ~1 (B1's accumulate form keeps the un-normalised sum, whose rounding error
 # reaches ~1e-5) or 1.2M squares (B3, held by rtol).
@@ -217,10 +246,11 @@ def phase_kernels(torch, ops, card: str) -> dict[str, dict]:
                               ops.weighted_mean_flat_plain(x, w, d), **TOL)
             d_ms = median_ms(lambda: ops.weighted_mean_flat(x, w, d), torch)
             d_plain = median_ms(lambda: ops.weighted_mean_flat_plain(x, w, d), torch)
+            d_lib = median_ms(lambda: (w / d) @ x, torch)
             b_ms, b_by = bound_ms(n_in + 4 + 4 * P_MNIST, 2 * c * P_MNIST)
             print(f"[{card}] weighted_mean_flat (denom form) C={c} P={P_MNIST}: "
-                  f"kernel_ms={d_ms:.6f} plain_ms={d_plain:.6f} bound_ms={b_ms:.6f} ({b_by}) "
-                  f"max_abs_err={err:.3e}")
+                  f"kernel_ms={d_ms:.6f} plain_ms={d_plain:.6f} library_ms={d_lib:.6f} "
+                  f"((w / denom) @ x) bound_ms={b_ms:.6f} ({b_by}) max_abs_err={err:.3e}")
     records["masked_weighted_mean_flat"] = time_masked(torch, ops, gen, card)
     return records
 
@@ -294,6 +324,374 @@ def time_masked(torch, ops, gen, card: str) -> dict:
         del x, finite
         torch.cuda.empty_cache()
     return record
+
+
+def same_bits(torch, name: str, got, want) -> float:
+    """Fail unless ``got`` and ``want`` (uint32 or float32, same shape) hold the same
+    bits; returns the max abs difference of their values (0.0)."""
+    torch.cuda.synchronize()
+    a, b = got.view(torch.int32), want.view(torch.int32)
+    if a.shape != b.shape or not torch.equal(a, b):
+        bad = int((a != b).sum()) if a.shape == b.shape else -1
+        fail(f"{name}: kernel disagrees with its plain version ({bad} words differ)")
+    if got.dtype == torch.float32:
+        return float((got - want).abs().max()) if got.numel() else 0.0
+    return float((a.to(torch.int64) - b.to(torch.int64)).abs().max()) if a.numel() else 0.0
+
+
+def fixed_point_inputs(torch, n: int, frac_bits: int, gen, specials: bool = True):
+    """float32 values inside the contract with exact half-step ties in every other
+    slot, and (``specials``) NaN, +-inf and out-of-range values at the end
+    (saturation)."""
+    x = (torch.rand(n, device="cuda", generator=gen) - 0.5) * 2000.0
+    k = torch.randint(-(1 << 20), 1 << 20, (n,), device="cuda", generator=gen)
+    ties = ((k.to(torch.float64) + 0.5) * 2.0 ** -frac_bits).to(torch.float32)
+    x[::2] = ties[::2]
+    if specials:
+        edge = torch.tensor([float("nan"), float("inf"), -float("inf"), 1e30, -1e30,
+                             2.0 ** (31 - frac_bits), -(2.0 ** (31 - frac_bits))], device="cuda")
+        m = min(n, edge.numel())
+        x[n - m:] = edge[:m]
+    return x
+
+
+def phase_quantize(torch, ops, card: str) -> dict[str, dict]:
+    """Hold B5, B6 and B7 bit for bit against their plain versions (ragged P, unaligned
+    starts, ties, saturation, both signs), check B7's stream against numpy's Philox at
+    P = 1,199,882, and time the three at that size."""
+    import numpy as np
+
+    from nanofed_tpu_torch.security.secure_agg import _fold_seed_words, _prg_uint32
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    rng = np.random.default_rng(11)
+    cases = 0
+    for n in (1, 3, 5, 1000, 1027, P_MNIST):
+        for start in (0, 1, 2, 3):
+            for frac_bits in (8, 16):
+                buf = fixed_point_inputs(torch, n + start, frac_bits, gen)
+                x = buf[start:]
+                tag = f"n={n} start={start} frac_bits={frac_bits}"
+                qx = ops.quantize_u32(x, frac_bits)
+                same_bits(torch, f"quantize_u32 {tag}", qx, ops.quantize_u32_plain(x, frac_bits))
+                qbuf = torch.empty(n + start, dtype=torch.int32, device="cuda")
+                qbuf[start:] = qx.view(torch.int32)
+                qv = qbuf[start:].view(torch.uint32)  # the same bits at an unaligned start
+                same_bits(torch, f"dequantize_u32 {tag}", ops.dequantize_u32(qv, frac_bits),
+                          ops.dequantize_u32_plain(qv, frac_bits))
+                words = _fold_seed_words(rng.bytes(32))
+                for sign in (1, -1):
+                    same_bits(torch, f"add_mask {tag} sign={sign}", ops.add_mask(qv, words, sign),
+                              ops.add_mask_plain(qv, words, sign))
+                cases += 4
+    seed = rng.bytes(32)
+    zeros = torch.zeros(P_MNIST, dtype=torch.int32, device="cuda").view(torch.uint32)
+    stream = ops.add_mask(zeros, _fold_seed_words(seed), 1).view(torch.int32).cpu().numpy()
+    if not (stream.view(np.uint32) == _prg_uint32(seed, P_MNIST)).all():
+        fail("add_mask: the kernel's stream at P=1,199,882 differs from numpy's Philox")
+    print(f"kernels: {cases} quantize/dequantize/mask cases bit-exact with the plain versions; "
+          f"B7's stream at P={P_MNIST} equals numpy's Philox4x64-10 (_prg_uint32)")
+
+    x = fixed_point_inputs(torch, P_MNIST, 16, gen, specials=False)
+    qx = ops.quantize_u32(x, 16)
+    words = _fold_seed_words(seed)
+    err = {
+        "quantize_u32": same_bits(torch, "quantize_u32", qx, ops.quantize_u32_plain(x, 16)),
+        "dequantize_u32": same_bits(torch, "dequantize_u32", ops.dequantize_u32(qx, 16),
+                                    ops.dequantize_u32_plain(qx, 16)),
+        "add_mask": same_bits(torch, "add_mask", ops.add_mask(qx, words, 1),
+                              ops.add_mask_plain(qx, words, 1)),
+    }
+    qi = qx.view(torch.int32)
+    inv = 1.0 / (1 << 16)
+    libraries = {
+        "quantize_u32": ("torch.quantize_per_tensor(x, 2^-16, 0, torch.qint32)",
+                         lambda: torch.quantize_per_tensor(x, inv, 0, torch.qint32),
+                         lambda out: out.int_repr().view(torch.uint32)),
+        "dequantize_u32": ("q.view(torch.int32) * 2^-16", lambda: qi * inv, lambda out: out),
+        "add_mask": None,
+    }
+    wants = {"quantize_u32": qx, "dequantize_u32": ops.dequantize_u32_plain(qx, 16)}
+    n_bytes = 8 * P_MNIST  # each kernel reads 4 bytes and writes 4 bytes an element
+    specs = {
+        "quantize_u32": (lambda: ops.quantize_u32(x, 16), lambda: ops.quantize_u32_plain(x, 16),
+                         bound_ms(n_bytes, 2 * P_MNIST)),
+        "dequantize_u32": (lambda: ops.dequantize_u32(qx, 16),
+                           lambda: ops.dequantize_u32_plain(qx, 16),
+                           bound_ms(n_bytes, 2 * P_MNIST)),
+        "add_mask": (lambda: ops.add_mask(qx, words, 1), lambda: ops.add_mask_plain(qx, words, 1),
+                     None),
+    }
+    blocks = -(-P_MNIST // 8)
+    t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
+    t_ops = blocks * PHILOX_OPS_PER_BLOCK / H100_INT32_OPS * 1e3
+    print(f"[{card}] add_mask bound: bytes {n_bytes} / {H100_BYTES_PER_S:.3g} B/s = "
+          f"{t_bytes:.6f} ms; integer work {blocks} Philox blocks x {PHILOX_OPS_PER_BLOCK} "
+          f"32-bit ops / {H100_INT32_OPS:.4g} op/s = {t_ops:.6f} ms")
+    records = {}
+    for name, (kernel, plain, bound) in specs.items():
+        b_ms, b_by = bound if bound else ((t_ops, "operations") if t_ops >= t_bytes
+                                          else (t_bytes, "bytes"))
+        ms, plain_ms = median_ms(kernel, torch), median_ms(plain, torch)
+        library_ms, lib_note = None, "none computes the same function"
+        if libraries[name] is not None:
+            lib_name, lib_fn, to_bits = libraries[name]
+            try:
+                agrees = torch.equal(to_bits(lib_fn()).view(torch.int32),
+                                     wants[name].view(torch.int32))
+            except (RuntimeError, NotImplementedError) as e:  # a yardstick torch lacks here
+                agrees, lib_note = False, f"{lib_name} unavailable: {e}".splitlines()[0]
+            if agrees:
+                library_ms, lib_note = median_ms(lib_fn, torch), lib_name
+            elif lib_note.startswith("none"):
+                lib_note = f"{lib_name} is not bit-equal to the kernel, so not timed"
+        print(f"[{card}] {name} P={P_MNIST}: kernel_ms={ms:.6f} plain_ms={plain_ms:.6f} "
+              f"library_ms={library_ms if library_ms is None else f'{library_ms:.6f}'} "
+              f"({lib_note}) bound_ms={b_ms:.6f} ({b_by}) max_abs_err={err[name]:.3e}")
+        records[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
+                             bound_by=b_by, max_abs_err=err[name])
+    return records
+
+
+def train_client(torch, local_fit, params, data, client: int, rnd: int):
+    """One client's local fit on the card: its own permutations and dropout keys."""
+    from nanofed_tpu_torch.trainer import client_keys, draw_permutations
+
+    gen = torch.Generator(device="cuda").manual_seed(1000 * rnd + client)
+    n = data.y.shape[1]
+    perms = draw_permutations(gen, 1, 1, n)
+    keys = client_keys(rnd, SECURE_CLIENTS, "cuda")[client:client + 1]
+    result = local_fit(params, data, perms, keys)
+    return {k: v[0] for k, v in result.params.items()}
+
+
+async def network_client(torch, comm, sa, url, cid, index, local_fit, data, cfg, template,
+                         trained, fetched, spent, drop_at_round=None):
+    """One network client as ``examples/secure_federation/run_secure.py`` drives it.
+    With ``cfg`` None it is a plain client: each round fetch, train, submit its params.
+    Otherwise it is a secure client on the ``cuda`` backend: enroll, then each round
+    fetch, (tolerant: deposit and open the round's shares), train, mask with B5/B7 and
+    submit, answer the unmask request.  ``spent`` collects the seconds of the client's
+    two synchronous sections, training and masking (each ends in a device synchronize)."""
+    import hashlib
+
+    from nanofed_tpu_torch.core.exceptions import NanoFedError
+
+    identity = sa.ClientKeyPair.generate()
+    num_samples = float(data.mask.sum())
+    async with comm.HTTPClient(url, cid, timeout_s=120) as client:
+        if cfg is not None:
+            if not await client.register_secagg(identity.public_bytes(), num_samples,
+                                                backend="cuda"):
+                raise RuntimeError(f"{cid}: enrollment refused")
+            roster = await client.fetch_secagg_roster(timeout_s=120)
+        while True:
+            for _ in range(2000):
+                try:
+                    params, rnd, active = await client.fetch_global_model(like=template)
+                    break
+                except NanoFedError:  # round 0 is published concurrently with start-up
+                    await asyncio.sleep(0.01)
+            else:
+                raise RuntimeError(f"{cid}: no model published")
+            if not active:
+                return
+            fetched.setdefault(rnd, params)
+            tolerant = cfg is not None and cfg.dropout_tolerant
+            if cfg is not None:
+                mask_index, mask_key = roster.index_of(cid), identity
+                ordered, self_seed, held = roster.ordered_keys(), None, None
+            if tolerant:
+                participants, threshold = await client.fetch_secagg_round_info()
+                if cid not in participants:
+                    return
+                mask_key = sa.ClientKeyPair.generate()
+                context = f"{client.secagg_session}:{rnd}"
+                self_seed, sealed = sa.make_dropout_shares(
+                    identity, mask_key, participants,
+                    {c: roster.public_keys[c] for c in participants},
+                    threshold or cfg.threshold, my_id=cid, context=context)
+                await client.deposit_secagg_shares(
+                    rnd, mask_key.public_bytes(), sealed,
+                    self_seed_commitment=hashlib.sha256(self_seed).digest())
+                epks, inbox = await client.fetch_secagg_inbox(rnd, timeout_s=120)
+                held = sa.open_share_inbox(identity, cid, roster.public_keys, inbox, epks,
+                                           context)
+                mask_index, ordered = participants.index(cid), [epks[c] for c in participants]
+            if drop_at_round is not None and rnd >= drop_at_round:
+                return  # gone after the share barrier: its masks are in the others' vectors
+            gp = {k: v.to("cuda") for k, v in params.items()}
+            t0 = time.perf_counter()
+            local = train_client(torch, local_fit, gp, data, index, rnd)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            spent.setdefault("train", []).append(t1 - t0)
+            if cfg is None:
+                trained.setdefault(rnd, {})[cid] = (num_samples, local)
+                accepted = await client.submit_update(local, {"num_samples": num_samples})
+            else:
+                trained.setdefault(rnd, {})[cid] = (roster.weights[cid], local)
+                masked = sa.mask_update(local, mask_index, mask_key, ordered, rnd, cfg,
+                                        weight=roster.weights[cid], backend="cuda",
+                                        self_seed=self_seed, device="cuda")
+                spent.setdefault("mask", []).append(time.perf_counter() - t1)
+                spent["masked"] = masked
+                accepted = await client.submit_masked_update(masked,
+                                                             {"num_samples": num_samples})
+            if not accepted:
+                raise RuntimeError(f"{cid}: update refused in round {rnd}")
+            answered = False
+            while True:
+                status = await client.check_server_status()
+                if not status["training_active"] or status["round"] != rnd:
+                    break
+                if tolerant and not answered:
+                    request = await client.poll_unmask_request()
+                    if (request is not None and request["round"] == rnd
+                            and cid in request["survivors"]):
+                        reveals = sa.build_unmask_reveals(request, cid, held)
+                        answered = await client.submit_unmask_reveals(rnd, reveals)
+                await asyncio.sleep(0.01)
+
+
+def phase_secure(torch, ops, card: str) -> dict[str, int]:
+    """(f) and (g): the secure federation over localhost HTTP on the card, 8 clients of
+    ``mnist_cnn`` at full width on the ``cuda`` backend; (h): the same clients in the
+    plain network round, which the coordinator reduces with B1 on the card.  Returns
+    their launch counts."""
+    import logging
+
+    from nanofed_tpu_torch import communication as comm
+    from nanofed_tpu_torch.data import federate, load_mnist
+    from nanofed_tpu_torch.models import get_model
+    from nanofed_tpu_torch.security import secure_agg as sa
+    from nanofed_tpu_torch.trainer import TrainingConfig, make_local_fit
+    from nanofed_tpu_torch.utils.logger import LogConfig, Logger
+    from nanofed_tpu_torch.utils.trees import ravel
+
+    Logger().configure(LogConfig(level=logging.WARNING))  # no per-request lines
+    n = SECURE_CLIENTS
+    model = get_model("mnist_cnn")
+    init = model.init(torch.Generator(device="cuda").manual_seed(0))
+    train = load_mnist("train", None, synthetic_size=n * SECURE_SAMPLES)
+    host = federate(train, num_clients=n, batch_size=64, seed=0)
+    data = [host.select(slice(c, c + 1)).to(torch.device("cuda")) for c in range(n)]
+    local_fit = make_local_fit(model, TrainingConfig(batch_size=64, local_epochs=1,
+                                                     learning_rate=0.1))
+    rounds = 2
+    configs = {
+        "f_secure": dict(secure=sa.SecureAggregationConfig(min_clients=n),
+                         round=dict(min_clients=n, round_timeout_s=120.0), drop=None),
+        # As run_secure.py --dropout-tolerant --drop-client 7 --drop-round 1 configures it.
+        "g_dropout_tolerant": dict(
+            secure=sa.SecureAggregationConfig(min_clients=n - 1, dropout_tolerant=True,
+                                              threshold=n // 2 + 1),
+            round=dict(min_clients=n, min_completion_rate=0.5, round_timeout_s=8.0),
+            drop=n - 1),
+        "h_plain_network": dict(secure=None, round=dict(min_clients=n, round_timeout_s=120.0),
+                                drop=None),
+    }
+    totals = dict.fromkeys(ops.launch_counts(), 0)
+    for name, cfg in configs.items():
+        secure, drop = cfg["secure"], cfg["drop"]
+        trained, fetched, spent = {}, {}, {}
+
+        async def main():
+            port = comm.free_port()
+            server = comm.HTTPServer(port=port)
+            await server.start()
+            try:
+                coordinator = comm.NetworkCoordinator(
+                    server, init, comm.NetworkRoundConfig(num_rounds=rounds, **cfg["round"]),
+                    secure=secure, device="cuda")
+                url = f"http://127.0.0.1:{port}"
+                clients = [
+                    network_client(torch, comm, sa, url, f"client_{c}", c, local_fit, data[c],
+                                   secure, init, trained, fetched, spent,
+                                   drop_at_round=1 if c == drop else None)
+                    for c in range(n)]
+                await asyncio.wait_for(asyncio.gather(coordinator.run(), *clients), 300)
+                return coordinator
+            finally:
+                await server.stop()
+
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        coordinator = asyncio.run(main())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        grew = ops.launch_counts()
+        history = coordinator.history
+        print(f"[{card}] network {name}: round_durations_s={coordinator.ledger.durations_s} "
+              f"wall_s={wall:.3f} history={history} launches={grew}")
+        if [h["status"] for h in history] != ["COMPLETED"] * rounds:
+            fail(f"{name}: rounds {history}")
+        # Launches from the code: each client's mask_update is one B5 plus one B7 per
+        # peer of the round's cohort (plus its self mask when tolerant); the server's
+        # unmask is one B6 a round, and the tolerant recovery one B7 per survivor's self
+        # mask plus one per (dropped, survivor) pair.  The plain round's aggregate is one
+        # B1 (normalised form) over the stacked [8, P] params a round.
+        tolerant = secure is not None and secure.dropout_tolerant
+        want = dict.fromkeys(grew, 0)
+        for r in range(rounds):
+            if secure is None:
+                want["weighted_mean_flat"] += 1
+                continue
+            cohort = n
+            survivors = n - (1 if drop is not None and r >= 1 else 0)
+            want["quantize_u32"] += survivors
+            want["add_mask"] += survivors * ((cohort - 1) + (1 if tolerant else 0))
+            if tolerant:
+                want["add_mask"] += survivors + survivors * (cohort - survivors)
+            want["dequantize_u32"] += 1
+        if grew != want:
+            fail(f"{name}: kernel launches {grew}, expected {want}")
+        if tolerant and [h["num_dropped"] for h in history] != [0, 1]:
+            fail(f"{name}: num_dropped {[h['num_dropped'] for h in history]}, expected [0, 1]")
+        # Each round's aggregate (the next round's published model, or the final
+        # params) against the plain weighted FedAvg of the clients' own trained params.
+        for r in range(rounds):
+            agg = ravel(fetched[r + 1]) if r + 1 < rounds else ravel(coordinator.params).cpu()
+            entries = trained[r].values()
+            mass = sum(w for w, _ in entries)
+            ref = sum(w * ravel(p).double().cpu() for w, p in entries) / mass
+            err = float((agg.double() - ref).abs().max())
+            tol = SECURE_TOL if secure is not None else PLAIN_NETWORK_TOL
+            print(f"[{card}] network {name} round {r}: {len(trained[r])} clients, "
+                  f"max|aggregate - FedAvg| = {err:.3e} (tolerance {tol})")
+            if not (torch.isfinite(agg).all() and err <= tol):
+                fail(f"{name} round {r}: aggregate differs from FedAvg by {err}")
+        if secure is not None:
+            print(f"[{card}] secure {name} host breakdown: "
+                  f"{secure_breakdown(comm, spent, init)}")
+        totals = {k: totals[k] + grew[k] for k in totals}
+    return totals
+
+
+def secure_breakdown(comm, spent: dict, params) -> str:
+    """Where a secure client's time goes: the mean of its measured training and masking
+    sections, and one timing each of the wire work around them (the masked vector's
+    npz compression and the server's decode of it, the model's npz encode at publish
+    and its decode at fetch), all on the host clock."""
+    import io
+
+    import numpy as np
+
+    t0 = time.perf_counter()
+    buf = io.BytesIO()
+    np.savez_compressed(buf, masked=spent["masked"])
+    t1 = time.perf_counter()
+    np.load(io.BytesIO(buf.getvalue()))["masked"]
+    t2 = time.perf_counter()
+    payload = comm.encode_params(params)
+    t3 = time.perf_counter()
+    comm.decode_params(payload, like=params)
+    t4 = time.perf_counter()
+    parts = dict(train_s=statistics.mean(spent["train"]), mask_s=statistics.mean(spent["mask"]),
+                 masked_npz_compress_s=t1 - t0, masked_npz_decode_s=t2 - t1,
+                 model_npz_encode_s=t3 - t2, model_npz_decode_s=t4 - t3)
+    return " ".join(f"{k}={v:.6f}" for k, v in parts.items()) + (
+        f" (masked payload {len(buf.getvalue())} bytes, model payload {len(payload)} bytes)")
 
 
 def run_validated(out_dir: Path) -> dict:
@@ -412,9 +810,6 @@ def phase_slice(torch, ops, run_experiment, card: str, out_dir: Path) -> dict[st
             fail(f"{name}: kernel launches {grew}, expected {want}")
         check_guarded(name, summary, out_dir / name, card)
         totals = {k: totals[k] + grew[k] for k in totals}
-    missing = [k for k, v in totals.items() if v == 0]
-    if missing:
-        fail(f"kernels never launched on the main path: {missing}")
     return totals
 
 
@@ -572,9 +967,15 @@ def main() -> None:
                 print(f"  {name}: {line.strip()}")
 
     records = phase_kernels(torch, ops, card)
+    records.update(phase_quantize(torch, ops, card))
     with tempfile.TemporaryDirectory(dir=Path(__file__).resolve().parent / "runs") as tmp:
         counts = phase_slice(torch, ops, run_experiment, card, Path(tmp))
+    secure_counts = phase_secure(torch, ops, card)
+    counts = {k: counts[k] + secure_counts[k] for k in counts}
     print(f"kernels: {json.dumps(counts)}")
+    missing = [k for k, v in counts.items() if v == 0]
+    if missing:
+        fail(f"kernels never launched on the main paths: {missing}")
     phase_cross_check(torch, ops, card)
 
     if any(m == "jax" or m.startswith(("jax.", "nanofed_tpu.")) or m == "nanofed_tpu"
@@ -586,6 +987,10 @@ def main() -> None:
         "row_sq_norms": ("nanofed_tpu_torch/ops/csrc/dp_reduce.cu", "nanofed_tpu/ops/dp_reduce.py:69"),
         "masked_weighted_mean_flat": ("nanofed_tpu_torch/ops/csrc/reduce.cu",
                                       "nanofed_tpu/ops/reduce.py:103"),
+        "quantize_u32": ("nanofed_tpu_torch/ops/csrc/quantize.cu", "nanofed_tpu/ops/quantize.py:55"),
+        "dequantize_u32": ("nanofed_tpu_torch/ops/csrc/quantize.cu",
+                           "nanofed_tpu/ops/quantize.py:78"),
+        "add_mask": ("nanofed_tpu_torch/ops/csrc/quantize.cu", "nanofed_tpu/ops/quantize.py:208"),
     }
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,

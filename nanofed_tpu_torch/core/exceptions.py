@@ -14,3 +14,16 @@ class AggregationError(NanoFedError):
 
 class PrivacyError(NanoFedError):
     """Raised on privacy budget violations or invalid privacy configuration."""
+
+
+class SecurityError(NanoFedError):
+    """Raised on signing/verification or secure-aggregation failures."""
+
+
+class CommunicationError(NanoFedError):
+    """Raised by the optional HTTP transport layer."""
+
+
+class CheckpointError(NanoFedError):
+    """Raised on round-state checkpoint save/restore failures (and by the codec's
+    structural checks, which share the checkpoint layout)."""

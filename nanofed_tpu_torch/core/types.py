@@ -8,7 +8,7 @@ interchange with no transposes (see ``utils.trees``).
 
 from __future__ import annotations
 
-from typing import Any, NamedTuple, TypeAlias
+from typing import Any, Mapping, NamedTuple, TypeAlias
 
 import numpy as np
 import torch
@@ -52,3 +52,24 @@ class ClientMetrics(NamedTuple):
     loss: torch.Tensor
     accuracy: torch.Tensor
     samples: torch.Tensor
+
+
+class ClientUpdates(NamedTuple):
+    """Stacked client results for one aggregation: ``params`` leaves ``[C, ...]``,
+    ``weights`` ``[C]`` (sample counts), ``metrics`` ``[C]`` each."""
+
+    params: Params
+    weights: torch.Tensor
+    metrics: ClientMetrics
+
+
+class ModelUpdate(NamedTuple):
+    """One client's update record on the host/transport path (the network mode's
+    buffer entry): params on the CPU as the wire decoded them."""
+
+    client_id: str
+    round_number: int
+    params: Params
+    metrics: Mapping[str, Any]
+    timestamp: str
+    privacy_spent: Any | None = None

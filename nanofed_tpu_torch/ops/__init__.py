@@ -9,7 +9,9 @@ paths run are written by hand for Hopper (``csrc/*.cu``, built at first use by
                       normalised and an accumulate form; B2, the validated round's
                       masked, sanitized form of the same reduce;
 * ``ops.dp_reduce`` — B3, per-row squared norms ``[C, P] -> [C]``, and the
-                      central-DP clipped mean built on B3 and B1.
+                      central-DP clipped mean built on B3 and B1;
+* ``ops.quantize``  — B5, B6 and B7, secure aggregation's fixed-point quantize and
+                      dequantize and its Philox mask add.
 
 ``KERNELS`` lists each kernel wrapper; ``reset_launch_counts`` zeroes their counts.
 """
@@ -19,6 +21,14 @@ from nanofed_tpu_torch.ops.dp_reduce import (
     dp_clipped_mean_flat,
     row_sq_norms,
     row_sq_norms_plain,
+)
+from nanofed_tpu_torch.ops.quantize import (
+    add_mask,
+    add_mask_plain,
+    dequantize_u32,
+    dequantize_u32_plain,
+    quantize_u32,
+    quantize_u32_plain,
 )
 from nanofed_tpu_torch.ops.reduce import (
     masked_weighted_mean_flat,
@@ -30,7 +40,8 @@ from nanofed_tpu_torch.ops.reduce import (
     weighted_sum_into_plain,
 )
 
-KERNELS = (weighted_mean_flat, weighted_sum_into, row_sq_norms, masked_weighted_mean_flat)
+KERNELS = (weighted_mean_flat, weighted_sum_into, row_sq_norms, masked_weighted_mean_flat,
+           quantize_u32, dequantize_u32, add_mask)
 
 
 def launch_counts() -> dict[str, int]:
@@ -44,11 +55,17 @@ def reset_launch_counts() -> None:
 
 __all__ = [
     "KERNELS",
+    "add_mask",
+    "add_mask_plain",
     "central_dp_reduce_stacked",
+    "dequantize_u32",
+    "dequantize_u32_plain",
     "dp_clipped_mean_flat",
     "launch_counts",
     "masked_weighted_mean_flat",
     "masked_weighted_mean_flat_plain",
+    "quantize_u32",
+    "quantize_u32_plain",
     "reset_launch_counts",
     "row_sq_norms",
     "row_sq_norms_plain",

@@ -1,5 +1,5 @@
 from nanofed_tpu_torch.orchestration.coordinator import Coordinator, CoordinatorConfig
-from nanofed_tpu_torch.orchestration.engine import completion_required
+from nanofed_tpu_torch.orchestration.engine import RoundLedger, completion_required
 from nanofed_tpu_torch.orchestration.types import (
     RoundMetrics,
     RoundStatus,
@@ -9,6 +9,7 @@ from nanofed_tpu_torch.orchestration.types import (
 __all__ = [
     "Coordinator",
     "CoordinatorConfig",
+    "RoundLedger",
     "RoundMetrics",
     "RoundStatus",
     "cohort_size",
