@@ -16,9 +16,14 @@ Phases (any failure exits non-zero):
    NaN/inf rows, and at the round's shapes (C = 2 and 125 clients for B1/B3, 125 and
    1000 for B2, P = 1,199,882); B5 (``quantize_u32``), B6 (``dequantize_u32``) and B7
    (``add_mask``) bit for bit on ragged sizes, unaligned starts, ties, saturation and
-   both signs, and B7's stream against numpy's Philox at P = 1,199,882.  At those shapes each kernel, its plain version and
-   one library call are timed with CUDA events (median of 30 runs after 5 warm-up
-   runs, L2 flushed before each run), beside the least time the card could take.
+   both signs, and B7's stream against numpy's Philox at P = 1,199,882; B4
+   (``dequant_accumulate_flat``) on ragged P, every int8 load width (16, 8, 4, 2 and 1
+   bytes), C = 1, 9, 64 and 1000, zero weights (exactly ``base``), an explicit
+   ``denom`` and the int8 extremes.  At those shapes each kernel, its plain version
+   and one library call (for B4 the unfused yardstick ``torch.addmv(base,
+   q.float().t(), coefs)``) are timed with CUDA events (median of 30 runs after 5
+   warm-up runs, L2 flushed before each run), beside the least time the card could
+   take.
 3. Slice: the port's entry points on the card at full ``mnist_cnn`` width, (a) the
    2-client tutorial shape (12k + 4k samples, 2 epochs, batch 64, SGD lr 0.1, f32,
    1 round) and (b) the 1000-client flagship (60 samples each, 2 epochs, batch 64,
@@ -41,6 +46,15 @@ Phases (any failure exits non-zero):
    complete, its aggregate must equal the plain weighted FedAvg of the clients' own
    trained params within 1e-4 (secure) or 1e-5 (plain), and the launches of B1 and
    B5/B6/B7 must equal what the code launches.
+   Then (i) the autotuned run: ``Coordinator.from_autotune`` at the flagship's shape
+   (1000 clients x 60 samples, 2 epochs, bf16, 2 rounds) over a pinned space
+   (``client_chunk`` None, 125 or 250 x batch 32 or 64), with the ranked table and the
+   aggregation-epilogue table (B4 and B2 against their unfused programs at P =
+   1,199,882, C = 64); its final params must equal a hand-built coordinator with the
+   winner's knobs within 1e-4; then ``run_experiment(autotune=True, retune_every=1,
+   profile_programs=True)`` on 8 ``mnist_cnn`` clients of 600 samples, 3 rounds.  The
+   launch counts of both runs must equal what the profiler's calls and the rounds
+   launch.
 4. Cross-check: 8-client f32 rounds of the port on the card and on the CPU from the
    same weights, permutations and injected noise: the plain round with dropout off
    and on (the masks are an integer hash, the same bits on both devices), the
@@ -54,6 +68,7 @@ The last lines are the kernels' JSON record, the card's name and power limit, an
 from __future__ import annotations
 
 import asyncio
+import dataclasses
 import json
 import math
 import statistics
@@ -85,6 +100,9 @@ PLAIN_NETWORK_TOL = 1e-5  # (h): B1's float32 mean of 8 params against a float64
 # reaches ~1e-5) or 1.2M squares (B3, held by rtol).
 TOL = dict(rtol=1e-5, atol=1e-4)
 CROSS_TOL = 1e-4  # cuDNN vs CPU convolutions summed in another order, 4 SGD steps, TF32 off
+EPILOGUE_CLIENTS = 64  # the epilogue table's C (tuning.epilogues.DEFAULT_EPILOGUE_CLIENTS)
+TUNED_CHUNKS = (None, 125, 250)  # (i): the flagship sweep's pinned client_chunk axis
+TUNED_BATCHES = (32, 64)  # (i): and its batch-size axis
 FLAGSHIP = dict(num_clients=1000, num_rounds=2, local_epochs=2, batch_size=64,
                 learning_rate=0.1, train_size=60_000, compute_dtype="bfloat16")
 TRIM_K = 5  # (e): trimmed mean over the 100-client cohort
@@ -453,6 +471,93 @@ def phase_quantize(torch, ops, card: str) -> dict[str, dict]:
     return records
 
 
+def int8_rows(torch, c: int, p: int, stride: int, offset: int, gen):
+    """A [c, p] int8 view with row stride ``stride`` starting ``offset`` bytes into a
+    fresh buffer, filled with random values over the whole int8 range."""
+    buf = torch.randint(-128, 128, (c * stride + offset,), generator=gen, device="cuda",
+                        dtype=torch.int8)
+    return buf[offset:offset + c * stride].view(c, stride)[:, :p]
+
+
+def phase_dequant(torch, ops, card: str) -> dict:
+    """Hold B4 against its plain version: ragged P, every int8 load width (a row
+    stride and start that allow 16, 8, 4, 2 or 1 bytes), C = 1, 9, 64 and 1000, zero
+    weights (exactly ``base``), explicit ``denom`` (float and tensor), the int8
+    extremes, an unaligned ``base``; time it at the epilogue's shapes (C = 64 and
+    1000, P = 1,199,882).  Returns the record at C = 64, the epilogue table's C."""
+    from nanofed_tpu_torch.ops._common import int8_vector_width
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    cases, widths = 0, set()
+    # (row stride rule, start offset) -> the load width it allows.
+    layouts = {16: (16, 0), 8: (8, 8), 4: (4, 4), 2: (2, 2), 1: (1, 1)}
+    for c in (1, 9, 64, 1000):
+        for p in (1, 2, 3, 15, 16, 17, 31, 1000, 1333, 4097):
+            for want_vec, (multiple, offset) in layouts.items():
+                stride = -(-p // multiple) * multiple
+                if want_vec < 16 and stride % (2 * multiple) == 0:
+                    stride += multiple  # exactly this width, not a wider one
+                q = int8_rows(torch, c, p, stride, offset, gen)
+                widths.add(int8_vector_width(q, stride if c > 1 else p))
+                if c == 9:  # the extremes in every row of the small cohort
+                    q[0] = 127
+                    q[1] = -127
+                    q[2] = -128
+                    q[3, ::2] = -128
+                    q[3, 1::2] = 127
+                s = torch.rand(c, generator=gen, device="cuda") * 1e-2 + 1e-4
+                w = torch.rand(c, generator=gen, device="cuda") + 0.5
+                base = torch.randn(p + 1, generator=gen, device="cuda")
+                for b in (base[:p], base[1:]):  # 16-byte aligned, then not
+                    tag = f"dequant_accumulate_flat c={c} p={p} vec={want_vec}"
+                    check_close(torch, tag, ops.dequant_accumulate_flat(q, s, w, b),
+                                ops.dequant_accumulate_flat_plain(q, s, w, b), **TOL)
+                    zero = ops.dequant_accumulate_flat(q, s, torch.zeros_like(w), b)
+                    torch.cuda.synchronize()
+                    if not torch.equal(zero, b):
+                        fail(f"{tag}: zero weights must return base exactly")
+                    cases += 2
+                for denom in (float(c) * 1.5, torch.tensor(2.5, device="cuda")):
+                    check_close(torch, f"dequant_accumulate_flat c={c} p={p} denom",
+                                ops.dequant_accumulate_flat(q, s, w, base[:p], denom),
+                                ops.dequant_accumulate_flat_plain(q, s, w, base[:p], denom),
+                                **TOL)
+                    cases += 1
+    if widths != {16, 8, 4, 2, 1}:
+        fail(f"dequant_accumulate_flat: load widths exercised {sorted(widths)}, "
+             "expected all of 16, 8, 4, 2, 1")
+    print(f"kernels: {cases} dequant_accumulate_flat cases agree with the plain version "
+          f"(rtol {TOL['rtol']}, atol {TOL['atol']}; load widths {sorted(widths)}; zero "
+          f"weights return base exactly)")
+
+    record = {}
+    p = P_MNIST
+    for c in (EPILOGUE_CLIENTS, 1000):
+        q = int8_rows(torch, c, p, -(-p // 16) * 16, 0, gen)
+        s = torch.rand(c, generator=gen, device="cuda") * 1e-2 + 1e-4
+        w = torch.rand(c, generator=gen, device="cuda") + 0.5
+        base = torch.randn(p, generator=gen, device="cuda")
+        coefs = (w * s) / w.sum()
+        err = check_close(torch, f"dequant_accumulate_flat C={c}",
+                          ops.dequant_accumulate_flat(q, s, w, base),
+                          ops.dequant_accumulate_flat_plain(q, s, w, base), **TOL)
+        ms = median_ms(lambda: ops.dequant_accumulate_flat(q, s, w, base), torch)
+        plain_ms = median_ms(lambda: ops.dequant_accumulate_flat_plain(q, s, w, base), torch)
+        yard_ms = median_ms(lambda: torch.addmv(base, q.float().t(), coefs), torch)
+        b_ms, b_by = bound_ms(c * p + 8 * p + 12 * c, 2 * c * p)
+        print(f"[{card}] dequant_accumulate_flat C={c} P={p}: kernel_ms={ms:.6f} "
+              f"plain_ms={plain_ms:.6f} yardstick_ms={yard_ms:.6f} (the unfused pair "
+              f"torch.addmv(base, q.float().t(), coefs): no single PyTorch call takes "
+              f"int8 with float coefficients) bound_ms={b_ms:.6f} ({b_by}) "
+              f"max_abs_err={err:.3e}")
+        if c == EPILOGUE_CLIENTS:
+            record = dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
+                          bound_by=b_by, max_abs_err=err)
+        del q
+        torch.cuda.empty_cache()
+    return record
+
+
 def train_client(torch, local_fit, params, data, client: int, rnd: int):
     """One client's local fit on the card: its own permutations and dropout keys."""
     from nanofed_tpu_torch.trainer import client_keys, draw_permutations
@@ -692,6 +797,188 @@ def secure_breakdown(comm, spent: dict, params) -> str:
                  model_npz_encode_s=t3 - t2, model_npz_decode_s=t4 - t3)
     return " ".join(f"{k}={v:.6f}" for k, v in parts.items()) + (
         f" (masked payload {len(buf.getvalue())} bytes, model payload {len(payload)} bytes)")
+
+
+def step_launches(chunk, rows: int) -> dict[str, int]:
+    """Kernel launches of one plain round step over ``rows`` clients: the
+    materialised reduce (B1 normalised, B3 once), or per chunk B1's accumulate form
+    and B3."""
+    if chunk is None or chunk >= rows:
+        return {"weighted_mean_flat": 1, "row_sq_norms": 1}
+    return {"weighted_sum_into": rows // chunk, "row_sq_norms": rows // chunk}
+
+
+def add_launches(total: dict, more: dict, times: int = 1) -> None:
+    for k, v in more.items():
+        total[k] = total.get(k, 0) + times * v
+
+
+def sweep_launches(result_dict: dict, rows: int, calls: int) -> tuple[dict, int]:
+    """Launches of an autotune sweep from its artifact: every profiled candidate's
+    round step ran ``calls`` times (the profiler's first, counting and timed calls),
+    and the epilogue table ran B4 and B2 ``calls`` times each.  Also returns how many
+    candidates were rejected for running out of device memory (their partial runs
+    are not derivable)."""
+    want: dict[str, int] = {}
+    oom = 0
+    if result_dict["cache_hit"]:  # a repeat run in one checkout: nothing was profiled
+        return want, oom
+    for cand in result_dict["candidates"]:
+        reason = cand.get("reject_reason", "")
+        if cand["feasible"] or "exceeds the device HBM budget" in reason:
+            add_launches(want, step_launches(cand["config"]["client_chunk"], rows), calls)
+        elif "out of device memory" in reason:
+            oom += 1
+    add_launches(want, {"dequant_accumulate_flat": calls,
+                        "masked_weighted_mean_flat": calls})
+    return want, oom
+
+
+def check_launches(name: str, grew: dict, want: dict, oom: int) -> None:
+    """Every count equal to the derived one; with a candidate rejected for memory, B4
+    and B2 equal and the round-step kernels at least the derived counts."""
+    want = {k: want.get(k, 0) for k in grew}
+    exact = ("dequant_accumulate_flat", "masked_weighted_mean_flat")
+    if oom == 0 and grew != want:
+        fail(f"{name}: kernel launches {grew}, expected {want}")
+    if any(grew[k] != want[k] for k in exact) or any(grew[k] < want[k] for k in grew):
+        fail(f"{name}: kernel launches {grew}, expected {want} ({oom} out-of-memory "
+             "candidates)")
+
+
+def print_sweep(card: str, tag: str, result) -> None:
+    """The ranked table of an autotune sweep and each profiled candidate's counts."""
+    from nanofed_tpu_torch.tuning import format_candidate_table
+
+    print(format_candidate_table(result))
+    for o in result.outcomes:
+        if o.cost:
+            print(f"[{card}] {tag} candidate chunk={o.config.client_chunk} "
+                  f"batch={o.config.batch_size}: measured_s_per_round="
+                  f"{o.cost['measured_s_per_round']:.6f} first_call_s="
+                  f"{o.cost['compile_seconds']} bound_s_per_round="
+                  f"{o.cost.get('lower_bound_s_per_round')} flops_per_round="
+                  f"{o.cost['flops_per_round']:.0f} bytes_per_round="
+                  f"{o.cost['bytes_accessed_per_round']:.0f} peak_bytes={o.cost['peak_bytes']}")
+
+
+def print_epilogues(card: str, epilogues: dict) -> None:
+    for name, rep in sorted(epilogues["reports"].items()):
+        print(f"[{card}] (i) epilogue {name}: bytes_accessed={rep['bytes_accessed']:.0f} "
+              f"measured_ms={rep['measured_s'] * 1e3:.6f} peak_bytes={rep['peak_bytes']}")
+    for kind in ("q8", "validated"):
+        cmp_ = epilogues[kind]
+        print(f"[{card}] (i) epilogue {kind} at P={epilogues['flat_size']} "
+              f"C={epilogues['clients']}: fused {cmp_['fused_bytes_accessed']:.0f} bytes "
+              f"{cmp_['fused_measured_ms']:.6f} ms vs unfused "
+              f"{cmp_['unfused_bytes_accessed']:.0f} bytes {cmp_['unfused_measured_ms']:.6f} "
+              f"ms ({cmp_.get('bytes_accessed_reduction_pct')}% fewer bytes)")
+
+
+def phase_autotune(torch, ops, run_experiment, card: str, out_dir: Path) -> dict[str, int]:
+    """(i): the autotuned flagship through ``Coordinator.from_autotune`` (held against
+    a hand-built coordinator with the winner's knobs), then the autotuned runner with
+    the online retuner and program profiling.  Returns their launch counts."""
+    from nanofed_tpu_torch.data import federate, load_mnist
+    from nanofed_tpu_torch.models import get_model
+    from nanofed_tpu_torch.observability.profiling import TIMED_CALLS
+    from nanofed_tpu_torch.orchestration import Coordinator, CoordinatorConfig, RoundStatus
+    from nanofed_tpu_torch.trainer import TrainingConfig
+    from nanofed_tpu_torch.tuning import AutotuneResult, TuningSpace
+    from nanofed_tpu_torch.utils.trees import ravel
+
+    calls = 2 + TIMED_CALLS  # the profiler's first, counting and timed calls
+    cfg = FLAGSHIP
+    n = cfg["num_clients"]
+    model = get_model("mnist_cnn")
+    data = federate(load_mnist("train", None, synthetic_size=cfg["train_size"]),
+                    num_clients=n, batch_size=cfg["batch_size"], seed=0)
+    training = TrainingConfig(batch_size=cfg["batch_size"], local_epochs=cfg["local_epochs"],
+                              learning_rate=cfg["learning_rate"],
+                              compute_dtype=cfg["compute_dtype"])
+    space = TuningSpace(client_chunks=TUNED_CHUNKS, rounds_per_blocks=(1,), model_shards=(1,),
+                        batch_sizes=TUNED_BATCHES)
+    totals: dict[str, int] = dict.fromkeys(ops.launch_counts(), 0)
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    coord = Coordinator.from_autotune(
+        model, data, CoordinatorConfig(num_rounds=cfg["num_rounds"], seed=0,
+                                       base_dir=out_dir / "i_flagship"),
+        training, tuning_space=space, autotune_cache_dir=out_dir / "cache", device="cuda")
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    rounds = coord.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    grew = ops.launch_counts()
+    result = coord.autotune_result
+    winner = result.winner
+    print(f"[{card}] (i) autotuned flagship: sweep_s={sweep_s:.3f} (profiled "
+          f"{result.compiles} candidates, {calls} calls each) wall_s={wall:.3f} "
+          f"round_durations_s={[r.duration_s for r in rounds]} winner={winner.to_dict()} "
+          f"launches={grew}")
+    print_sweep(card, "(i) flagship", result)
+    print_epilogues(card, result.epilogues)
+    if [r.status for r in rounds] != [RoundStatus.COMPLETED] * cfg["num_rounds"]:
+        fail(f"(i) flagship: rounds {[r.status for r in rounds]}")
+    want, oom = sweep_launches(result.to_dict(), n, calls)
+    add_launches(want, step_launches(winner.client_chunk, n), cfg["num_rounds"])
+    check_launches("(i) flagship", grew, want, oom)
+    print(f"[{card}] (i) flagship launches {grew} = the sweep's {calls} calls per profiled "
+          f"candidate ({oom} rejected for memory) + B4 and B2 {calls} each in the "
+          f"epilogue table + {cfg['num_rounds']} rounds at the winner's chunk")
+    if result.epilogues["q8"]["bytes_accessed_reduction_pct"] <= 0:
+        fail("(i) the fused q8 epilogue must move fewer bytes than the unfused pair")
+    add_launches(totals, grew)
+
+    ref = Coordinator(model, data, CoordinatorConfig(num_rounds=cfg["num_rounds"], seed=0,
+                                                     base_dir=out_dir / "i_reference"),
+                      training=dataclasses.replace(training, batch_size=winner.batch_size),
+                      client_chunk=winner.client_chunk, device="cuda")
+    ref.run()
+    got, want_params = ravel(coord.params), ravel(ref.params)
+    diff = float((got - want_params).abs().max())
+    print(f"[{card}] (i) autotuned vs hand-built coordinator with the winner's knobs: "
+          f"max|dparams|={diff:.3e} (tolerance {CROSS_TOL})")
+    if not (torch.isfinite(got).all() and diff <= CROSS_TOL):
+        fail(f"(i) the autotuned coordinator differs from the hand-built one by {diff}")
+    del coord, ref
+    torch.cuda.empty_cache()
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    summary = run_experiment(model="mnist_cnn", num_clients=SECURE_CLIENTS,
+                             train_size=SECURE_CLIENTS * SECURE_SAMPLES, num_rounds=3,
+                             autotune=True, retune_every=1, profile_programs=True,
+                             device="cuda", seed=0, out_dir=out_dir / "i_runner")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    grew = ops.launch_counts()
+    tuned, retunes = summary["tuned_config"], summary["retunes"]
+    print(f"[{card}] (i) autotuned runner: wall_s={wall:.3f} round_durations_s="
+          f"{summary['round_durations_s']} tuned_config={json.dumps(tuned)} "
+          f"retunes={json.dumps(retunes)} launches={grew}")
+    profile = summary["program_profiles"]["round_step"]
+    print(f"[{card}] (i) runner round_step profile: flops={profile['flops']:.0f} "
+          f"bytes_accessed={profile['bytes_accessed']:.0f} peak_bytes="
+          f"{profile['peak_bytes']} measured_s={profile['measured_s']:.6f} "
+          f"first_call_s={profile['compile_seconds']} verdict={profile['verdict']}")
+    if summary["rounds_completed"] != 3 or tuned["used"] != "tuned":
+        fail(f"(i) runner: {summary['rounds_completed']}/3 rounds, tuned_config {tuned}")
+    values = [*summary["final_train_metrics"].values(), *summary["final_eval_metrics"].values()]
+    if not all(math.isfinite(v) for v in values):
+        fail(f"(i) runner: non-finite metrics {values}")
+    artifact = json.loads(Path(tuned["artifact"]).read_text())
+    print_sweep(card, "(i) runner", AutotuneResult.from_dict(artifact))
+    want, oom = sweep_launches(artifact, SECURE_CLIENTS, calls)
+    add_launches(want, step_launches(tuned["client_chunk"], SECURE_CLIENTS), calls)
+    for program, measured in retunes["measured"].items():  # the rounds each chunk ran
+        chunk = int(program.split("_")[1].removeprefix("chunk")) or None
+        add_launches(want, step_launches(chunk, SECURE_CLIENTS), measured["rounds"])
+    check_launches("(i) runner", grew, want, oom)
+    add_launches(totals, grew)
+    return totals
 
 
 def run_validated(out_dir: Path) -> dict:
@@ -968,10 +1255,12 @@ def main() -> None:
 
     records = phase_kernels(torch, ops, card)
     records.update(phase_quantize(torch, ops, card))
+    records["dequant_accumulate_flat"] = phase_dequant(torch, ops, card)
     with tempfile.TemporaryDirectory(dir=Path(__file__).resolve().parent / "runs") as tmp:
         counts = phase_slice(torch, ops, run_experiment, card, Path(tmp))
-    secure_counts = phase_secure(torch, ops, card)
-    counts = {k: counts[k] + secure_counts[k] for k in counts}
+        secure_counts = phase_secure(torch, ops, card)
+        tuned_counts = phase_autotune(torch, ops, run_experiment, card, Path(tmp))
+    counts = {k: counts[k] + secure_counts[k] + tuned_counts[k] for k in counts}
     print(f"kernels: {json.dumps(counts)}")
     missing = [k for k, v in counts.items() if v == 0]
     if missing:
@@ -991,6 +1280,8 @@ def main() -> None:
         "dequantize_u32": ("nanofed_tpu_torch/ops/csrc/quantize.cu",
                            "nanofed_tpu/ops/quantize.py:78"),
         "add_mask": ("nanofed_tpu_torch/ops/csrc/quantize.cu", "nanofed_tpu/ops/quantize.py:208"),
+        "dequant_accumulate_flat": ("nanofed_tpu_torch/ops/csrc/quantize.cu",
+                                    "nanofed_tpu/ops/quantize.py:135"),
     }
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,

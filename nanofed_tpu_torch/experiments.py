@@ -1,13 +1,13 @@
 """High-level experiment runner (counterpart of ``nanofed_tpu/experiments.py``), reduced
 to the flags this slice supports.
 
-``central_privacy`` (DP-FedAvg at the reduce) and ``robust_trim_k``/``robust_method``
-(robust aggregation) are taken as the JAX runner takes them.  Update validation is
-not a runner flag in either package: it is ``Coordinator(validation=...)``.  The JAX
-runner's other flags (lr schedules, SCAFFOLD, telemetry, fused blocks, mesh axes,
-strict mode, profiling, autotuning, adapters) come with later slices; passing one
-with a value other than the JAX default raises ``NotImplementedError`` naming it,
-never a silent ignore.
+``central_privacy`` (DP-FedAvg at the reduce), ``robust_trim_k``/``robust_method``
+(robust aggregation), ``profile_programs``, ``autotune`` and ``retune_every`` are
+taken as the JAX runner takes them.  Update validation is not a runner flag in
+either package: it is ``Coordinator(validation=...)``.  The JAX runner's other flags
+(lr schedules, SCAFFOLD, telemetry, fused blocks, mesh axes, strict mode, adapters)
+come with later slices; passing one with a value other than the JAX default raises
+``NotImplementedError`` naming it, never a silent ignore.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ from typing import Any
 
 from nanofed_tpu_torch.aggregation import PrivacyAwareAggregationConfig, RobustAggregationConfig
 from nanofed_tpu_torch.core.device import DeviceLike, resolve_device
+from nanofed_tpu_torch.core.exceptions import NanoFedError
 from nanofed_tpu_torch.data import federate, load_mnist, pack_eval
 from nanofed_tpu_torch.models import get_model
 from nanofed_tpu_torch.orchestration import Coordinator, CoordinatorConfig, RoundStatus
@@ -34,9 +35,6 @@ LATER_SLICE_FLAGS: dict[str, Any] = {
     "model_shards": 1,
     "hosts": 1,
     "strict": False,
-    "profile_programs": False,
-    "autotune": False,
-    "retune_every": 0,
     "adapter_rank": None,
     "adapter_alpha": None,
 }
@@ -64,6 +62,9 @@ def run_experiment(
     central_privacy: PrivacyAwareAggregationConfig | None = None,
     robust_trim_k: int | None = None,
     robust_method: str | None = None,
+    profile_programs: bool = False,
+    autotune: bool = False,
+    retune_every: int = 0,
     **kwargs: Any,
 ) -> dict[str, Any]:
     """Run a simulated federated experiment on ``device`` (default: the GPU) and return
@@ -71,9 +72,18 @@ def run_experiment(
     many (the streamed round); ``compute_dtype="bfloat16"`` runs local forward and
     backward in bf16.  ``central_privacy`` turns the reduce into DP-FedAvg;
     ``robust_trim_k``/``robust_method`` (either one set) aggregate robustly, with
-    ``trim_k`` defaulting to 1 and the method to ``"trimmed_mean"``.  Remaining
-    keyword arguments go to the partitioner (e.g. ``proportions=[0.75, 0.25]`` for
-    unequal IID shares)."""
+    ``trim_k`` defaulting to 1 and the method to ``"trimmed_mean"``.
+
+    ``profile_programs=True`` profiles the round step at construction
+    (``observability.profiling``) and the summary carries ``program_profiles``.
+    ``autotune=True`` builds the coordinator with ``Coordinator.from_autotune``: the
+    ``client_chunk`` and batch size of the best profiled candidate, the ranked
+    table under ``out_dir`` as ``autotune_*.json``, and ``tuned_config`` in the
+    summary; it refuses an explicit ``client_chunk``.  ``retune_every`` (requires
+    ``autotune=True``) re-ranks the table every N rounds by the measured round times
+    and swaps ``client_chunk`` when the measurements say so; the summary carries a
+    ``retunes`` block.  Remaining keyword arguments go to the partitioner (e.g.
+    ``proportions=[0.75, 0.25]`` for unequal IID shares)."""
     dev = resolve_device(device)
     refused = [
         name for name, default in LATER_SLICE_FLAGS.items()
@@ -85,6 +95,16 @@ def run_experiment(
             "(run nanofed_tpu for it)"
         )
     scheme_kwargs = {k: v for k, v in kwargs.items() if k not in LATER_SLICE_FLAGS}
+    if retune_every > 0 and not autotune:
+        raise NanoFedError(
+            "retune_every requires autotune=True: the online retuner re-ranks "
+            "the sweep's candidate table — without a sweep there is no table"
+        )
+    if autotune and client_chunk is not None:
+        raise NanoFedError(
+            "autotune=True owns client_chunk — drop the explicit value or tune by "
+            "hand without autotune"
+        )
     robust = None
     if robust_trim_k is not None or robust_method is not None:
         robust = RobustAggregationConfig(
@@ -92,35 +112,48 @@ def run_experiment(
             method=robust_method or "trimmed_mean",
         )
 
-    mdl = get_model(model)  # mnist_cnn, the one model of this slice: MNIST-shaped data
+    mdl = get_model(model)  # a model of MNIST-shaped data: mnist_cnn, or mlp
     train = load_mnist("train", data_dir, synthetic_size=train_size)
     test = load_mnist("test", data_dir, synthetic_size=(train_size or 0) // 6 or None)
     client_data = federate(
         train, num_clients=num_clients, scheme=scheme, batch_size=batch_size, seed=seed,
         **scheme_kwargs,
     )
-    coordinator = Coordinator(
-        model=mdl,
-        train_data=client_data,
-        config=CoordinatorConfig(
-            num_rounds=num_rounds, participation_rate=participation, seed=seed,
-            base_dir=out_dir, eval_every=eval_every,
-            client_metrics_every=client_metrics_every,
-        ),
-        training=TrainingConfig(
-            batch_size=batch_size, local_epochs=local_epochs, learning_rate=learning_rate,
-            prox_mu=prox_mu, compute_dtype=compute_dtype,
-        ),
-        eval_data=pack_eval(test, batch_size=256),
-        client_chunk=client_chunk,
-        device=dev,
-        central_privacy=central_privacy,
-        robust=robust,
+    config = CoordinatorConfig(
+        num_rounds=num_rounds, participation_rate=participation, seed=seed,
+        base_dir=out_dir, eval_every=eval_every,
+        client_metrics_every=client_metrics_every,
+        profile_programs=profile_programs, retune_every=retune_every,
     )
+    training = TrainingConfig(
+        batch_size=batch_size, local_epochs=local_epochs, learning_rate=learning_rate,
+        prox_mu=prox_mu, compute_dtype=compute_dtype,
+    )
+    shared_kwargs: dict[str, Any] = dict(
+        eval_data=pack_eval(test, batch_size=256), device=dev,
+        central_privacy=central_privacy, robust=robust,
+    )
+    if autotune:
+        coordinator = Coordinator.from_autotune(
+            mdl, client_data, config, training=training, **shared_kwargs,
+        )
+    else:
+        coordinator = Coordinator(
+            model=mdl, train_data=client_data, config=config, training=training,
+            client_chunk=client_chunk, **shared_kwargs,
+        )
     rounds = coordinator.run()
     final_eval = coordinator.evaluate()
     completed = [r for r in rounds if r.status == RoundStatus.COMPLETED]
+    program_profiles = {
+        r.program: r.to_dict() for r in coordinator.program_catalog.reports()
+    }
     return {
+        **({"program_profiles": program_profiles} if program_profiles else {}),
+        **({"tuned_config": coordinator.tuned_config}
+           if coordinator.tuned_config is not None else {}),
+        **({"retunes": coordinator.retuner.summary()}
+           if coordinator.retuner is not None else {}),
         "model": model,
         "num_clients": num_clients,
         "rounds_completed": len(completed),

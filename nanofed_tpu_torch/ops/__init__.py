@@ -11,9 +11,12 @@ paths run are written by hand for Hopper (``csrc/*.cu``, built at first use by
 * ``ops.dp_reduce`` — B3, per-row squared norms ``[C, P] -> [C]``, and the
                       central-DP clipped mean built on B3 and B1;
 * ``ops.quantize``  — B5, B6 and B7, secure aggregation's fixed-point quantize and
-                      dequantize and its Philox mask add.
+                      dequantize and its Philox mask add; B4, the q8/topk aggregation
+                      epilogue's fused int8 dequant-accumulate.
 
 ``KERNELS`` lists each kernel wrapper; ``reset_launch_counts`` zeroes their counts.
+Each launch also reports the bytes its function moves to any open
+``_common.KernelBytes`` (the profiler's view of the kernels).
 """
 
 from nanofed_tpu_torch.ops.dp_reduce import (
@@ -25,6 +28,8 @@ from nanofed_tpu_torch.ops.dp_reduce import (
 from nanofed_tpu_torch.ops.quantize import (
     add_mask,
     add_mask_plain,
+    dequant_accumulate_flat,
+    dequant_accumulate_flat_plain,
     dequantize_u32,
     dequantize_u32_plain,
     quantize_u32,
@@ -41,7 +46,7 @@ from nanofed_tpu_torch.ops.reduce import (
 )
 
 KERNELS = (weighted_mean_flat, weighted_sum_into, row_sq_norms, masked_weighted_mean_flat,
-           quantize_u32, dequantize_u32, add_mask)
+           quantize_u32, dequantize_u32, add_mask, dequant_accumulate_flat)
 
 
 def launch_counts() -> dict[str, int]:
@@ -58,6 +63,8 @@ __all__ = [
     "add_mask",
     "add_mask_plain",
     "central_dp_reduce_stacked",
+    "dequant_accumulate_flat",
+    "dequant_accumulate_flat_plain",
     "dequantize_u32",
     "dequantize_u32_plain",
     "dp_clipped_mean_flat",

@@ -1,16 +1,52 @@
-"""The dispatch rule shared by the port's kernels.
+"""The dispatch rule shared by the port's kernels, and their launch bookkeeping.
 
 A wrapper takes its plain PyTorch version only because the tensors it was given lie
 on the CPU.  For CUDA tensors it launches the hand-written kernel or raises: there
 is no ``try`` that falls back.  (Counterpart of ``nanofed_tpu/ops/_common.py``'s
 ``auto_interpret``, which picked the Pallas interpreter off the TPU.)
+
+Where it launches, a wrapper calls :func:`kernel_launched`: one more on its
+``.launches`` count, and the bytes the kernel's function must move (each input read
+once, each output written once: the formula of ``PERF.md``'s bound column) to every
+open :class:`KernelBytes`.  The profiler (``observability.profiling``) counts those,
+because a ctypes launch is invisible to PyTorch's dispatch modes.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Any, Callable
 
 import torch
+
+_open_byte_counts: list["KernelBytes"] = []
+
+
+class KernelBytes:
+    """While entered, sums the bytes each hand-written kernel reports per launch
+    (``by_kernel``: wrapper name -> bytes)."""
+
+    def __init__(self) -> None:
+        self.by_kernel: dict[str, int] = {}
+
+    @property
+    def total(self) -> int:
+        return sum(self.by_kernel.values())
+
+    def __enter__(self) -> "KernelBytes":
+        _open_byte_counts.append(self)
+        return self
+
+    def __exit__(self, *exc: Any) -> None:
+        _open_byte_counts.remove(self)
+
+
+def kernel_launched(wrapper: Callable, nbytes: int) -> None:
+    """Count one launch of ``wrapper``'s kernel, which moved ``nbytes``."""
+    wrapper.launches += 1
+    name = wrapper.__name__
+    for counts in _open_byte_counts:
+        counts.by_kernel[name] = counts.by_kernel.get(name, 0) + int(nbytes)
 
 
 def uses_kernel(*tensors: torch.Tensor) -> bool:
@@ -44,6 +80,35 @@ def check_rows(name: str, x: torch.Tensor) -> tuple[int, int, int]:
             f"{tuple(x.shape)})"
         )
     return c, p, ldx
+
+
+def check_int8_rows(name: str, q: torch.Tensor) -> tuple[int, int, int]:
+    """:func:`check_rows` for an int8 ``[C, P]`` stack (the wire dtype): rows
+    contiguous, row stride >= P.  Raises ``TypeError`` for any other dtype.  Returns
+    ``(C, P, row_stride)``."""
+    if q.dtype != torch.int8:
+        raise TypeError(f"{name}: q must be int8 (the wire dtype), got {q.dtype}")
+    if q.ndim != 2:
+        raise ValueError(f"{name}: q must be [C, P], got shape {tuple(q.shape)}")
+    c, p = q.shape
+    if c < 1 or p < 1:
+        raise ValueError(f"{name}: q must have C >= 1 and P >= 1, got {tuple(q.shape)}")
+    ldq = q.stride(0) if c > 1 else p
+    if q.stride(1) != 1 or ldq < p:
+        raise ValueError(
+            f"{name}: rows of q must be contiguous (strides {q.stride()} for shape "
+            f"{tuple(q.shape)})"
+        )
+    return c, p, ldq
+
+
+def int8_vector_width(q: torch.Tensor, ldq: int) -> int:
+    """Widest load (16, 8, 4, 2 or 1 int8) that keeps every row start of ``q``
+    aligned: a 16-byte row stride lets the whole stack load 16 bytes at a time."""
+    for vec in (16, 8, 4, 2):
+        if ldq % vec == 0 and q.data_ptr() % vec == 0:
+            return vec
+    return 1
 
 
 def check_vector(name: str, what: str, v: torch.Tensor, n: int) -> None:

@@ -1,7 +1,26 @@
-// Kernels B5, B6 and B7: secure aggregation's fixed-point and mask arithmetic.
+// Kernels B5, B6 and B7: secure aggregation's fixed-point and mask arithmetic; kernel
+// B4: the fused int8 dequant-accumulate of the q8/topk aggregation epilogue.
 //
-// Replace nanofed_tpu/ops/quantize.py quantize_u32 (_quantize_kernel), dequantize_u32
-// (_dequantize_kernel) and add_mask (_mask_kernel).  The TPU kernels pad a flat vector
+// B4 replaces nanofed_tpu/ops/quantize.py dequant_accumulate_flat (_dequant_acc_kernel):
+//
+//   out[p] = base[p] + sum_c coefs[c] * float(q[c, p]),  coefs = (w * s) / max(denom, 1e-12)
+//
+// with the O(C) coefficients formed beside the launch.  The per-client dequant scale is
+// a row multiplier, so it folds into the reduce coefficients and the dequantized [C, P]
+// float32 stack never exists.  Bound on an H100: bytes.  The int8 stack is read once
+// (C*P bytes), base read and out written once (8*P), plus the C-sized vectors: at
+// P = 1,199,882 that is 86 MB at C = 64 (0.0258 ms at 3.35 TB/s) and 1.2 GB at C = 1000
+// (0.361 ms); its 2*C*P flops take a tenth of that at 67 TFLOP/s f32.
+// Design: B1's.  Each thread owns VEC contiguous columns (VEC = 16, 8, 4, 2 or 1 int8,
+// the widest load every row start allows: the caller pads the row stride to 16 bytes)
+// and walks the C rows in a fixed order, converting each int8 to float32 in registers
+// and FMA-ing it with coefs[c].  The coefficients are staged through shared memory in
+// tiles of kCoefTile, so any C fits.  base is added once and out written once; the
+// result does not depend on the launch and is the same on every run.  A thread whose
+// VEC columns run past P takes the ragged tail one byte at a time.
+//
+// B5-B7 replace nanofed_tpu/ops/quantize.py quantize_u32 (_quantize_kernel),
+// dequantize_u32 (_dequantize_kernel) and add_mask (_mask_kernel).  The TPU kernels pad a flat vector
 // into [256, 512] VMEM tiles; here every kernel walks the flat [n] vector directly with
 // a grid-stride loop, 16-byte loads where both pointers allow it and scalar accesses
 // for the ragged tail and unaligned starts, so nothing is padded.
@@ -171,7 +190,132 @@ unsigned grid_for(int64_t work) {
   return static_cast<unsigned>(blocks < kMaxBlocks ? (blocks > 0 ? blocks : 1) : kMaxBlocks);
 }
 
+constexpr int kCoefTile = 1024;  // B4 coefficients staged per shared-memory tile (4 KB)
+
+// The int8 in byte k (little-endian) of w, sign-extended, as a float (exact).
+__device__ __forceinline__ float byte_to_float(uint32_t w, int k) {
+  return static_cast<float>(static_cast<int32_t>(w << (24 - 8 * k)) >> 24);
+}
+
+// VEC int8 values in one load (16, 8, 4, 2 or 1 bytes), converted to float in
+// registers.  The caller guarantees `p` is aligned to VEC bytes.
+template <int VEC>
+__device__ __forceinline__ void load_i8(const int8_t* __restrict__ p, float (&v)[VEC]) {
+  uint32_t w[(VEC + 3) / 4];
+  if constexpr (VEC == 16) {
+    const uint4 t = __ldg(reinterpret_cast<const uint4*>(p));
+    w[0] = t.x; w[1] = t.y; w[2] = t.z; w[3] = t.w;
+  } else if constexpr (VEC == 8) {
+    const uint2 t = __ldg(reinterpret_cast<const uint2*>(p));
+    w[0] = t.x; w[1] = t.y;
+  } else if constexpr (VEC == 4) {
+    w[0] = __ldg(reinterpret_cast<const unsigned int*>(p));
+  } else if constexpr (VEC == 2) {
+    w[0] = __ldg(reinterpret_cast<const unsigned short*>(p));
+  } else {
+    w[0] = __ldg(reinterpret_cast<const unsigned char*>(p));
+  }
+#pragma unroll
+  for (int k = 0; k < VEC; ++k) v[k] = byte_to_float(w[k / 4], k % 4);
+}
+
+template <int VEC>
+__global__ void __launch_bounds__(kThreads) dequant_acc_kernel(
+    const int8_t* __restrict__ q, int64_t ldq, const float* __restrict__ coefs, int64_t C,
+    int64_t P, const float* __restrict__ base, bool base_vec4, float* __restrict__ out) {
+  __shared__ float s_coef[kCoefTile];
+  const int64_t p0 = (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) * VEC;
+  // Columns this thread owns: VEC, fewer at the ragged end, none past P.  A thread
+  // with none still takes part in every tile's barriers.
+  const int n = p0 >= P ? 0 : (P - p0 < VEC ? static_cast<int>(P - p0) : VEC);
+  const int8_t* col = q + p0;
+
+  float acc[VEC];
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) acc[i] = 0.f;
+
+  for (int64_t c0 = 0; c0 < C; c0 += kCoefTile) {
+    const int tile = (C - c0 < kCoefTile) ? static_cast<int>(C - c0) : kCoefTile;
+    __syncthreads();  // every thread is done with the previous tile
+    for (int i = threadIdx.x; i < tile; i += kThreads) s_coef[i] = __ldg(coefs + c0 + i);
+    __syncthreads();
+    const int8_t* rows = col + c0 * ldq;
+    if (n == VEC) {
+#pragma unroll 4
+      for (int c = 0; c < tile; ++c) {
+        float v[VEC];
+        load_i8<VEC>(rows + c * ldq, v);
+        const float cc = s_coef[c];
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) acc[i] = fmaf(cc, v[i], acc[i]);
+      }
+    } else if (n > 0) {
+      for (int c = 0; c < tile; ++c) {
+        const float cc = s_coef[c];
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) {
+          if (i < n) {
+            const uint32_t b = __ldg(reinterpret_cast<const unsigned char*>(rows + c * ldq + i));
+            acc[i] = fmaf(cc, byte_to_float(b, 0), acc[i]);
+          }
+        }
+      }
+    }
+  }
+
+  if constexpr (VEC >= 4) {
+    if (n == VEC) {  // out + p0 is 16-byte aligned: out is, and p0 is a multiple of 4
+#pragma unroll
+      for (int i = 0; i < VEC; i += 4) {
+        float4 b;
+        if (base_vec4) {
+          b = __ldg(reinterpret_cast<const float4*>(base + p0 + i));
+        } else {
+          b = make_float4(__ldg(base + p0 + i), __ldg(base + p0 + i + 1),
+                          __ldg(base + p0 + i + 2), __ldg(base + p0 + i + 3));
+        }
+        *reinterpret_cast<float4*>(out + p0 + i) =
+            make_float4(b.x + acc[i], b.y + acc[i + 1], b.z + acc[i + 2], b.w + acc[i + 3]);
+      }
+      return;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) {
+    if (i < n) out[p0 + i] = __ldg(base + p0 + i) + acc[i];
+  }
+}
+
+template <int VEC>
+cudaError_t launch_dequant_acc(const int8_t* q, int64_t ldq, const float* coefs, int64_t C,
+                               int64_t P, const float* base, bool base_vec4, float* out,
+                               cudaStream_t stream) {
+  const int64_t threads = (P + VEC - 1) / VEC;
+  const unsigned blocks = static_cast<unsigned>((threads + kThreads - 1) / kThreads);
+  dequant_acc_kernel<VEC><<<blocks, kThreads, 0, stream>>>(q, ldq, coefs, C, P, base,
+                                                           base_vec4, out);
+  return cudaGetLastError();
+}
+
 }  // namespace
+
+// B4.  q: [C, P] int8 with row stride ldq (bytes); coefs: [C] f32; base: [P] f32
+// (base_vec4 1 when it is 16-byte aligned); out: [P] f32, 16-byte aligned, not base;
+// vec: int8 values per load (16, 8, 4, 2 or 1), which must divide ldq and q's address.
+extern "C" int nf_dequant_accumulate(const int8_t* q, int64_t ldq, const float* coefs,
+                                     int64_t C, int64_t P, const float* base, int base_vec4,
+                                     float* out, int vec, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool b4 = base_vec4 != 0;
+  switch (vec) {
+    case 16: return static_cast<int>(launch_dequant_acc<16>(q, ldq, coefs, C, P, base, b4, out, s));
+    case 8: return static_cast<int>(launch_dequant_acc<8>(q, ldq, coefs, C, P, base, b4, out, s));
+    case 4: return static_cast<int>(launch_dequant_acc<4>(q, ldq, coefs, C, P, base, b4, out, s));
+    case 2: return static_cast<int>(launch_dequant_acc<2>(q, ldq, coefs, C, P, base, b4, out, s));
+    case 1: return static_cast<int>(launch_dequant_acc<1>(q, ldq, coefs, C, P, base, b4, out, s));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
 
 // x: [n] f32; out: [n] uint32; vec 4 needs both pointers 16-byte aligned.
 extern "C" int nf_quantize_u32(const float* x, uint32_t* out, int64_t n, float scale,

@@ -27,6 +27,7 @@ from nanofed_tpu_torch.ops import _build
 from nanofed_tpu_torch.ops._common import (
     check_launch,
     check_rows,
+    kernel_launched,
     stream_of,
     uses_kernel,
     vector_width,
@@ -74,7 +75,7 @@ def row_sq_norms(x: torch.Tensor) -> torch.Tensor:
             vec, stream_of(x),
         )
     check_launch(lib, "row_sq_norms", rc)
-    row_sq_norms.launches += 1
+    kernel_launched(row_sq_norms, 4 * c * p + 4 * c)
     return out
 
 

@@ -1,10 +1,19 @@
-"""Kernels B5, B6 and B7: secure aggregation's fixed-point and mask arithmetic.
+"""Kernels B5, B6 and B7: secure aggregation's fixed-point and mask arithmetic; kernel
+B4: the q8/topk aggregation epilogue's fused int8 dequant-accumulate.
 
-B5 :func:`quantize_u32`, B6 :func:`dequantize_u32` and B7 :func:`add_mask` replace
-``nanofed_tpu/ops/quantize.py``'s Pallas ``_quantize_kernel``, ``_dequantize_kernel``
-and ``_mask_kernel``.  The CUDA source of all three is ``csrc/quantize.cu``, whose
-header note gives their bounds (bytes for B5 and B6, integer operations for B7) and
-the design.
+B5 :func:`quantize_u32`, B6 :func:`dequantize_u32`, B7 :func:`add_mask` and B4
+:func:`dequant_accumulate_flat` replace ``nanofed_tpu/ops/quantize.py``'s Pallas
+``_quantize_kernel``, ``_dequantize_kernel``, ``_mask_kernel`` and
+``_dequant_acc_kernel``.  The CUDA source of all four is ``csrc/quantize.cu``, whose
+header note gives their bounds (bytes for B4, B5 and B6, integer operations for B7)
+and the design.
+
+* B4: int8 ``[C, P]`` x ``[C]`` scales x ``[C]`` weights + ``[P]`` base -> ``[P]``,
+  ``base + coefs @ float(q)`` with ``coefs = (w * s) / max(denom or sum(w), 1e-12)``
+  in float32, one read of the int8 stack; the dequantized float stack never exists.
+  The TPU's padding of C to 32 and of P to 512 lanes is a tiling rule and is left
+  out: the kernel takes any C and P, and a row stride padded to 16 bytes (as the
+  callers allocate it) lets it load 16 bytes at a time.
 
 * B5: float32 ``[n]`` -> uint32 ``[n]``, ``bits(int32(round_half_even(x * 2^frac)))``.
   Inside the secure-aggregation contract (``|x * 2^frac| < 2^31``) this is the JAX
@@ -37,7 +46,15 @@ import numpy as np
 import torch
 
 from nanofed_tpu_torch.ops import _build
-from nanofed_tpu_torch.ops._common import check_launch, stream_of, uses_kernel
+from nanofed_tpu_torch.ops._common import (
+    check_int8_rows,
+    check_launch,
+    check_vector,
+    int8_vector_width,
+    kernel_launched,
+    stream_of,
+    uses_kernel,
+)
 
 _LOW32 = 0xFFFFFFFF
 _INT32_MIN, _INT32_MAX = -(1 << 31), (1 << 31) - 1
@@ -55,7 +72,9 @@ def _lib() -> ctypes.CDLL:
     lib.nf_quantize_u32.argtypes = [ptr, ptr, i64, ctypes.c_float, c_int, ptr]
     lib.nf_dequantize_u32.argtypes = [ptr, ptr, i64, ctypes.c_float, c_int, ptr]
     lib.nf_add_mask.argtypes = [ptr, ptr, i64, u64, u64, c_int, c_int, ptr]
-    for fn in (lib.nf_quantize_u32, lib.nf_dequantize_u32, lib.nf_add_mask):
+    lib.nf_dequant_accumulate.argtypes = [ptr, i64, ptr, i64, i64, ptr, c_int, ptr, c_int, ptr]
+    for fn in (lib.nf_quantize_u32, lib.nf_dequantize_u32, lib.nf_add_mask,
+               lib.nf_dequant_accumulate):
         fn.restype = ctypes.c_int
     return lib
 
@@ -129,7 +148,7 @@ def quantize_u32(x: torch.Tensor, frac_bits: int = 16) -> torch.Tensor:
         rc = lib.nf_quantize_u32(x.data_ptr(), out.data_ptr(), x.shape[0],
                                  float(1 << frac_bits), _vec(x, out), stream_of(x))
     check_launch(lib, "quantize_u32", rc)
-    quantize_u32.launches += 1
+    kernel_launched(quantize_u32, 8 * x.shape[0])
     return out
 
 
@@ -160,7 +179,7 @@ def dequantize_u32(q: torch.Tensor, frac_bits: int = 16) -> torch.Tensor:
         rc = lib.nf_dequantize_u32(q.data_ptr(), out.data_ptr(), q.shape[0],
                                    1.0 / (1 << frac_bits), _vec(q, out), stream_of(q))
     check_launch(lib, "dequantize_u32", rc)
-    dequantize_u32.launches += 1
+    kernel_launched(dequantize_u32, 8 * q.shape[0])
     return out
 
 
@@ -234,8 +253,70 @@ def add_mask(
         rc = lib.nf_add_mask(q.data_ptr(), out.data_ptr(), q.shape[0], k0, k1,
                              int(sign < 0), _vec(q, out), stream_of(q))
     check_launch(lib, "add_mask", rc)
-    add_mask.launches += 1
+    kernel_launched(add_mask, 8 * q.shape[0])
     return out
 
 
 add_mask.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# B4: fused int8 dequant + weighted accumulate (the q8/topk aggregation epilogue)
+# ---------------------------------------------------------------------------
+
+
+def _dequant_coefs(
+    scales: torch.Tensor, weights: torch.Tensor, denom: float | torch.Tensor | None
+) -> torch.Tensor:
+    """``(w * s) / max(denom or sum(w), 1e-12)`` in float32, in the TPU function's
+    order: the per-client scale folded into the reduce coefficient."""
+    w = weights.to(torch.float32)
+    d = w.sum() if denom is None else torch.as_tensor(denom, dtype=torch.float32).to(w.device)
+    return (w * scales.to(torch.float32)) / torch.clamp(d, min=1e-12)
+
+
+def dequant_accumulate_flat_plain(
+    q: torch.Tensor, scales: torch.Tensor, weights: torch.Tensor, base: torch.Tensor,
+    denom: float | torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Plain PyTorch version of :func:`dequant_accumulate_flat`."""
+    if q.dtype != torch.int8:
+        raise TypeError(f"dequant_accumulate_flat: q must be int8 (the wire dtype), got {q.dtype}")
+    return base.to(torch.float32) + _dequant_coefs(scales, weights, denom) @ q.to(torch.float32)
+
+
+def dequant_accumulate_flat(
+    q: torch.Tensor, scales: torch.Tensor, weights: torch.Tensor, base: torch.Tensor,
+    denom: float | torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Fused q8/topk aggregation epilogue: ``[C, P] int8 x [C] scales x [C] weights +
+    [P] base -> [P]``, ``base + sum_c (w_c * s_c / denom) * q[c, :]`` in one pass over
+    the int8 stack.  ``denom`` defaults to ``sum(w)`` (the weighted mean) and is floored
+    at 1e-12, so all-zero weights return ``base`` exactly.  ``q`` is int8 (anything
+    else raises ``TypeError``) with contiguous rows; its row stride may exceed P (a
+    16-byte stride gives the kernel its widest loads).  ``base`` is a contiguous
+    float32 ``[P]``."""
+    c, p, ldq = check_int8_rows("dequant_accumulate_flat", q)
+    for what, v in (("scales", scales), ("weights", weights)):
+        if v.ndim != 1 or v.shape[0] != c:
+            raise ValueError(f"dequant_accumulate_flat: {what} must be [{c}], got "
+                             f"{tuple(v.shape)}")
+    check_vector("dequant_accumulate_flat", "base", base, p)
+    extra = [denom] if isinstance(denom, torch.Tensor) else []
+    if not uses_kernel(q, scales, weights, base, *extra):
+        return dequant_accumulate_flat_plain(q, scales, weights, base, denom)
+    coefs = _dequant_coefs(scales, weights, denom).contiguous()  # O(C), beside the kernel
+    out = torch.empty(p, dtype=torch.float32, device=q.device)
+    lib = _lib()
+    with torch.cuda.device(q.device):
+        rc = lib.nf_dequant_accumulate(q.data_ptr(), ldq, coefs.data_ptr(), c, p,
+                                       base.data_ptr(), int(base.data_ptr() % 16 == 0),
+                                       out.data_ptr(), int8_vector_width(q, ldq), stream_of(q))
+    check_launch(lib, "dequant_accumulate_flat", rc)
+    # Bytes: the int8 stack once, base read and out written, and the C-sized scales,
+    # weights and coefficients.
+    kernel_launched(dequant_accumulate_flat, c * p + 8 * p + 12 * c)
+    return out
+
+
+dequant_accumulate_flat.launches = 0

@@ -32,6 +32,7 @@ from nanofed_tpu_torch.ops._common import (
     check_launch,
     check_rows,
     check_vector,
+    kernel_launched,
     stream_of,
     uses_kernel,
     vector_width,
@@ -86,15 +87,15 @@ def weighted_mean_flat(
     coefficients ride in the weights).  All-zero weights give zeros (the
     denominator is floored at 1e-12).  ``x`` is float32 with contiguous rows; its
     row stride may exceed P."""
-    c, _, ldx = check_rows("weighted_mean_flat", x)
+    c, p, ldx = check_rows("weighted_mean_flat", x)
     check_vector("weighted_mean_flat", "weights", weights, c)
     extra = [denom] if isinstance(denom, torch.Tensor) else []
     if not uses_kernel(x, weights, *extra):
         return weighted_mean_flat_plain(x, weights, denom)
-    out = torch.empty(x.shape[1], dtype=torch.float32, device=x.device)
+    out = torch.empty(p, dtype=torch.float32, device=x.device)
     _launch("weighted_mean_flat", x, ldx, weights, _denom_tensor(denom, x.device), out,
             accumulate=False)
-    weighted_mean_flat.launches += 1
+    kernel_launched(weighted_mean_flat, 4 * c * p + 4 * c + 4 * p + (0 if denom is None else 4))
     return out
 
 
@@ -117,7 +118,7 @@ def weighted_sum_into(acc: torch.Tensor, x: torch.Tensor, weights: torch.Tensor)
     if not uses_kernel(acc, x, weights):
         return weighted_sum_into_plain(acc, x, weights)
     _launch("weighted_sum_into", x, ldx, weights, None, acc, accumulate=True)
-    weighted_sum_into.launches += 1
+    kernel_launched(weighted_sum_into, 4 * c * p + 4 * c + 8 * p)
     return acc
 
 
@@ -143,7 +144,7 @@ def masked_weighted_mean_flat(
     sanitize(x), weights * valid)`` with the sanitized stack never written.  ``valid``
     is bool or 0/1; an all-invalid cohort gives zeros.  ``x`` is float32 with
     contiguous rows; its row stride may exceed P."""
-    c, _, ldx = check_rows("masked_weighted_mean_flat", x)
+    c, p, ldx = check_rows("masked_weighted_mean_flat", x)
     check_vector("masked_weighted_mean_flat", "weights", weights, c)
     if valid.ndim != 1 or valid.shape[0] != c:
         raise ValueError(f"masked_weighted_mean_flat: valid must be [{c}], got "
@@ -151,10 +152,11 @@ def masked_weighted_mean_flat(
     if not uses_kernel(x, weights, valid):
         return masked_weighted_mean_flat_plain(x, weights, valid)
     w = weights * valid.to(torch.float32)  # the O(C) coefficient work, beside the kernel
-    out = torch.empty(x.shape[1], dtype=torch.float32, device=x.device)
+    out = torch.empty(p, dtype=torch.float32, device=x.device)
     _launch("masked_weighted_mean_flat", x, ldx, w, None, out, accumulate=False,
             sanitized=True)
-    masked_weighted_mean_flat.launches += 1
+    kernel_launched(masked_weighted_mean_flat,
+                    4 * c * p + 4 * c + valid.element_size() * c + 4 * p)
     return out
 
 

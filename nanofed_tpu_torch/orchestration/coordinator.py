@@ -21,12 +21,22 @@ round, ``central_privacy=`` makes the reduce DP-FedAvg (accounted per round by a
 Under central DP the cohort and every device draw (permutations, dropout, noise) come
 from OS entropy, never from the seed, and no per-client detail is written.
 
+Profiling and tuning: every coordinator registers its round step in a
+``ProgramCatalog`` (``observability.profiling``); ``profile_programs()`` (or
+``CoordinatorConfig(profile_programs=True)``) profiles it on clones of the params and
+server state, so the coordinator's state is left bit for bit as it was.
+``Coordinator.from_autotune`` builds the coordinator the autotuner picks
+(``tuning.autotuner``: ``client_chunk`` and batch size), and with
+``retune_every > 0`` an ``OnlineRetuner`` re-ranks the sweep's table by the round
+times the run realizes and hot-swaps ``client_chunk`` between rounds.
+
 Later slices bring SCAFFOLD, adapters, fused multi-round blocks, the hosts/model mesh
-axes, autotuning, strict mode, profiling and persistence.
+axes, strict mode, telemetry and persistence.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import logging
 import time
@@ -49,6 +59,7 @@ from nanofed_tpu_torch.core.device import DeviceLike, resolve_device
 from nanofed_tpu_torch.core.exceptions import NanoFedError
 from nanofed_tpu_torch.core.types import ClientData, Params
 from nanofed_tpu_torch.models.base import Model
+from nanofed_tpu_torch.observability.profiling import ProgramCatalog, ProgramCostReport
 from nanofed_tpu_torch.orchestration.engine import completion_required
 from nanofed_tpu_torch.orchestration.types import RoundMetrics, RoundStatus, cohort_size
 from nanofed_tpu_torch.parallel.round_step import build_round_step, init_server_state
@@ -57,6 +68,13 @@ from nanofed_tpu_torch.privacy.noise import get_noise_generator
 from nanofed_tpu_torch.security.validation import ValidationConfig
 from nanofed_tpu_torch.trainer.config import TrainingConfig
 from nanofed_tpu_torch.trainer.local import client_keys, draw_permutations, make_evaluator
+from nanofed_tpu_torch.tuning.autotuner import (
+    DEFAULT_CACHE_DIR,
+    PopulationSpec,
+    autotune,
+    candidate_program_name,
+)
+from nanofed_tpu_torch.tuning.retuner import OnlineRetuner
 from nanofed_tpu_torch.utils.trees import tree_size
 
 _log = logging.getLogger(__name__)
@@ -67,7 +85,13 @@ class CoordinatorConfig:
     """``participation_rate`` sets the cohort (ceil(C * rate)); ``dropout_rate`` drops
     sampled clients at random; below ``min_completion_rate`` of the cohort the round
     FAILs and leaves the model untouched.  ``client_metrics_every`` samples the
-    per-client detail of the metrics JSON (0 = never)."""
+    per-client detail of the metrics JSON (0 = never).
+
+    ``profile_programs`` profiles the round step at construction
+    (``Coordinator.profile_programs``).  ``retune_every`` (0 = off) asks the online
+    retuner for a verdict every that many rounds, on coordinators built by
+    ``from_autotune``; measured numbers are written back into the autotune cache
+    entry when the run completes."""
 
     num_rounds: int = 1
     participation_rate: float = 1.0
@@ -78,6 +102,8 @@ class CoordinatorConfig:
     save_metrics: bool = True
     eval_every: int = 0  # 0 = never evaluate during training
     client_metrics_every: int = 1
+    profile_programs: bool = False
+    retune_every: int = 0
 
     def __post_init__(self) -> None:
         if self.num_rounds < 1:
@@ -90,10 +116,75 @@ class CoordinatorConfig:
             raise ValueError("dropout_rate must be in [0, 1)")
         if self.client_metrics_every < 0:
             raise ValueError("client_metrics_every must be >= 0 (0 = never)")
+        if self.retune_every < 0:
+            raise ValueError("retune_every must be >= 0 (0 = off)")
 
 
 class Coordinator:
     """Drives simulated federated training on one device."""
+
+    @classmethod
+    def from_autotune(
+        cls,
+        model: Model,
+        train_data: ClientData,
+        config: CoordinatorConfig,
+        training: TrainingConfig | None = None,
+        *,
+        tuning_space=None,
+        hbm_budget_bytes: int | None = None,
+        autotune_cache_dir: str | Path | None = DEFAULT_CACHE_DIR,
+        autotune_force: bool = False,
+        **kwargs: Any,
+    ) -> "Coordinator":
+        """Build a coordinator with the configuration the autotuner picks
+        (``tuning.autotune``: each candidate's round step profiled on inputs of the
+        population's shapes on the coordinator's device): the winner's
+        ``client_chunk`` and batch size replace the defaults.  The ranked table
+        lands under ``config.base_dir`` as ``autotune_*.json``; results are cached,
+        so a repeat construction profiles nothing.  The coordinator carries
+        ``tuned_config`` (the winner and its provenance) and ``autotune_result``;
+        with ``config.retune_every > 0`` the online retuner is attached.  An
+        explicit ``client_chunk`` is refused: the tuner owns it (pin it with a
+        single-valued ``tuning_space``)."""
+        if "client_chunk" in kwargs:
+            raise NanoFedError(
+                "from_autotune owns client_chunk — the tuner picks it; pin an axis "
+                "with a single-valued tuning_space instead"
+            )
+        training = training or TrainingConfig()
+        result = autotune(
+            model, PopulationSpec.from_client_data(train_data), training,
+            participation=config.participation_rate,
+            num_rounds=config.num_rounds,
+            eval_every=config.eval_every,
+            space=tuning_space,
+            hbm_budget_bytes=hbm_budget_bytes,
+            cache_dir=autotune_cache_dir,
+            out_dir=config.base_dir,
+            force=autotune_force,
+            device=kwargs.get("device"),
+        )
+        winner = result.winner
+        coord = cls(
+            model, train_data, config,
+            training=dataclasses.replace(training, batch_size=winner.batch_size),
+            client_chunk=winner.client_chunk,
+            **kwargs,
+        )
+        coord.autotune_result = result
+        coord.tuned_config = {
+            **winner.to_dict(),
+            "used": "tuned",
+            "scoring_basis": result.scoring_basis,
+            "cache_hit": result.cache_hit,
+            **({"artifact": result.artifact_path} if result.artifact_path else {}),
+        }
+        if config.retune_every > 0:
+            # The sweep result IS the candidate table the online retuner re-ranks;
+            # measured numbers land back in the same cache entry.
+            coord.enable_retuning(result, cache_dir=autotune_cache_dir)
+        return coord
 
     def __init__(
         self,
@@ -156,10 +247,20 @@ class Coordinator:
             if client_chunk < self.cohort_size and self.cohort_size % client_chunk != 0:
                 self._cohort_mode = False
         self._step_clients = self.cohort_size if self._cohort_mode else self.num_clients
-        self._round_step = build_round_step(
-            model, self.training, self.strategy, client_chunk=client_chunk,
+        # Everything a retune swap needs to rebuild the round step with another
+        # client_chunk (see _rebuild_round_programs).
+        self._client_chunk = client_chunk
+        self._builder_ctx: dict[str, Any] = dict(
             central_privacy=central_privacy, validation=validation, robust=robust,
         )
+        self._round_step = build_round_step(
+            model, self.training, self.strategy, client_chunk=client_chunk,
+            **self._builder_ctx,
+        )
+        # The round step, registered with a LAZY argument factory (nothing is made
+        # until profile_programs() runs it).
+        self.program_catalog = ProgramCatalog()
+        self._register_programs()
         self._evaluator = make_evaluator(model, batch_size=256) if eval_data is not None else None
         self._eval_data = eval_data.to(self.device) if eval_data is not None else None
 
@@ -168,19 +269,201 @@ class Coordinator:
         self.base_dir = Path(config.base_dir)
         if config.save_metrics:
             (self.base_dir / "metrics").mkdir(parents=True, exist_ok=True)
+        # Set by from_autotune: the winner and its provenance, and the sweep result.
+        self.tuned_config: dict[str, Any] | None = None
+        self.autotune_result = None
+        # Online retuning: attached by enable_retuning (from_autotune with
+        # retune_every > 0).  _retune_candidate is the live program's row of the
+        # table, _last_retune_round the round the cadence counts from, and
+        # retune_events one record per verdict (the JAX package's `retune`
+        # telemetry records, with `applied`).
+        self.retuner: OnlineRetuner | None = None
+        self._retune_candidate = None
+        self._last_retune_round = 0
+        self.retune_events: list[dict[str, Any]] = []
+        if config.profile_programs:
+            self.profile_programs()
+
+    # ------------------------------------------------------------------
+    # Program profiling (observability.profiling)
+    # ------------------------------------------------------------------
+
+    def _register_programs(self) -> None:
+        """Register the round step under ``"round_step"``.  Its argument factory
+        hands the step CLONES of the params and server state, the data rows of the
+        step's width, weights one, permutations and dropout keys from the config's
+        seed (and a noise draw under central DP), so profiling leaves the
+        coordinator's state untouched."""
+
+        def _step_args() -> tuple[tuple, dict]:
+            n = self._step_clients
+            gen = torch.Generator(device=self.device).manual_seed(self.config.seed)
+            args = (
+                {name: p.clone() for name, p in self.params.items()},
+                {k: v.clone() if torch.is_tensor(v) else v
+                 for k, v in self.server_state.items()},
+                self._data.select(slice(0, n)),
+                torch.ones(n, device=self.device),
+                draw_permutations(gen, n, self.training.local_epochs, self._data.y.shape[1]),
+                client_keys(self.config.seed, n, self.device),
+            )
+            if self.central_privacy is not None:
+                noise_type = self.central_privacy.privacy.noise_type
+                args += (get_noise_generator(noise_type).standard(
+                    gen, (tree_size(self.params),)),)
+            return args, {}
+
+        self.program_catalog.register(
+            "round_step", self._round_step, args_factory=_step_args,
+            attrs={"step_clients": self._step_clients, "client_chunk": self._client_chunk},
+        )
+
+    def profile_programs(self, force: bool = False) -> list[ProgramCostReport]:
+        """Profile every catalogued program (``observability.profiling``: a first
+        call, a counting call and timed calls of the round step on clones of the
+        state), publish the ``nanofed_program_*`` gauges, and return the reports.
+        Reports are cached — a second call is free unless ``force``."""
+        reports: list[ProgramCostReport] = []
+        for name in self.program_catalog.names():
+            cached = self.program_catalog.report(name) is not None and not force
+            report = self.program_catalog.profile(name, force=force)
+            if not cached:
+                bound = report.lower_bound_s
+                _log.info(
+                    "program %s: %.3g FLOPs/round, %.3g bytes, peak %.3g device "
+                    "bytes, intensity %.2f -> %s%s (first call %.2fs, measured %.4gs)",
+                    name, report.flops / report.rounds, report.bytes_accessed,
+                    report.peak_bytes, report.arithmetic_intensity, report.verdict,
+                    (f", >= {bound / report.rounds:.3g}s/round achievable"
+                     if bound is not None else ""),
+                    report.compile_seconds, report.measured_s,
+                )
+            reports.append(report)
+        return reports
+
+    # ------------------------------------------------------------------
+    # Online retuning (tuning.retuner)
+    # ------------------------------------------------------------------
+
+    def enable_retuning(
+        self,
+        result,
+        *,
+        cache_dir: str | Path | None = DEFAULT_CACHE_DIR,
+        hysteresis: float = 0.05,
+        min_rounds: int = 2,
+        current=None,
+    ) -> OnlineRetuner:
+        """Attach an :class:`~nanofed_tpu_torch.tuning.OnlineRetuner` over
+        ``result``'s candidate table (``from_autotune`` calls this when
+        ``config.retune_every > 0``; callable directly on a hand-built coordinator
+        whose configuration matches a table row, named by ``current``, default the
+        winner).  Round times flow in after every round; :meth:`start_training`
+        asks for a verdict every ``config.retune_every`` rounds and writes the
+        measurements back into the autotune cache entry when the run completes."""
+        self.retuner = OnlineRetuner(
+            result, hysteresis=hysteresis, min_rounds=min_rounds, cache_dir=cache_dir,
+        )
+        self._retune_candidate = current if current is not None else result.winner
+        self._last_retune_round = self.current_round
+        return self.retuner
+
+    def _observe_retune(self, rounds: int, walltime_s: float) -> None:
+        """Feed one realized round time to the retuner (no-op when retuning is off).
+        The occupancy the JAX coordinator passes comes from spans: None here."""
+        if self.retuner is None or self._retune_candidate is None:
+            return
+        self.retuner.observe(self._retune_candidate, rounds, walltime_s, occupancy=None)
+
+    def _maybe_retune(self) -> None:
+        """Between rounds, ask the retuner for a verdict every ``config.retune_every``
+        rounds and apply a proposed swap.  Every verdict — swap, hold, or a swap the
+        coordinator refused — lands in ``retune_events``."""
+        cfg = self.config
+        if self.retuner is None or cfg.retune_every <= 0:
+            return
+        if self.current_round <= 0 or self.current_round >= cfg.num_rounds:
+            return
+        if self.current_round - self._last_retune_round < cfg.retune_every:
+            return
+        self._last_retune_round = self.current_round
+        decision = self.retuner.propose(self._retune_candidate)
+        applied = False
+        if decision.swap:
+            applied = self._apply_retune(decision)
+        self.retune_events.append(
+            {"round": self.current_round, "applied": applied, **decision.to_dict()}
+        )
+
+    def _apply_retune(self, decision) -> bool:
+        """Perform a proposed swap: rebuild the round step under the new
+        ``client_chunk`` and re-register it.  Returns False (the old program
+        untouched) when the coordinator refuses — the rebuild is transactional."""
+        new = decision.new
+        try:
+            self._rebuild_round_programs(new.client_chunk, new.rounds_per_block)
+        except NanoFedError as e:
+            _log.warning(
+                "retune swap to %s refused at the coordinator (%s); keeping %s",
+                candidate_program_name(new), e, candidate_program_name(decision.old),
+            )
+            return False
+        self._retune_candidate = new
+        _log.info(
+            "retune: swapped round program %s -> %s at round %d (%s basis, %+.1f%% "
+            "predicted win)",
+            candidate_program_name(decision.old), candidate_program_name(new),
+            self.current_round, decision.basis, 100.0 * (decision.delta or 0.0),
+        )
+        return True
+
+    def _rebuild_round_programs(self, client_chunk: int | None, rounds_per_block: int) -> None:
+        """Rebuild the round step for a hot-swapped ``client_chunk`` — the one knob
+        this coordinator swaps.  A ``rounds_per_block > 1`` swap is refused (fused
+        blocks come with the multi-GPU slice), as is a chunk that does not divide
+        the step's client rows.  Transactional: the new step is built before
+        anything is replaced."""
+        if rounds_per_block > 1:
+            raise NanoFedError(
+                f"rounds_per_block={rounds_per_block}: fused multi-round blocks come "
+                "with the multi-GPU slice of nanofed_tpu_torch; this coordinator "
+                "runs single rounds"
+            )
+        n = self._step_clients
+        if client_chunk is not None and client_chunk < n and n % client_chunk != 0:
+            raise NanoFedError(
+                f"client_chunk={client_chunk} does not divide the step's {n} client "
+                f"rows ({'gathered cohort' if self._cohort_mode else 'full population'})"
+            )
+        round_step = build_round_step(
+            self.model, self.training, self.strategy, client_chunk=client_chunk,
+            **self._builder_ctx,
+        )
+        # Commit: nothing above changed the coordinator.
+        self._round_step = round_step
+        self._client_chunk = client_chunk
+        self._register_programs()
 
     # ------------------------------------------------------------------
     # Round loop
     # ------------------------------------------------------------------
 
     def start_training(self) -> Iterator[RoundMetrics]:
-        """Generator over rounds."""
-        while self.current_round < self.config.num_rounds:
-            metrics = self._train_round(self.current_round)
-            if self.config.save_metrics:
-                self._save_round_metrics(metrics)
-            self.current_round += 1
-            yield metrics
+        """Generator over rounds.  Retune verdicts run BETWEEN rounds: the next round
+        picks up a swapped program, the one in flight never changes."""
+        try:
+            while self.current_round < self.config.num_rounds:
+                self._maybe_retune()
+                metrics = self._train_round(self.current_round)
+                self._observe_retune(1, metrics.duration_s)
+                if self.config.save_metrics:
+                    self._save_round_metrics(metrics)
+                self.current_round += 1
+                yield metrics
+        finally:
+            if self.retuner is not None and self.current_round >= self.config.num_rounds:
+                # The next run's cache hit starts from these measurements.
+                self.retuner.write_back()
 
     def run(self) -> list[RoundMetrics]:
         return list(self.start_training())

@@ -1,6 +1,6 @@
 """The port imports neither JAX nor anything of ``nanofed_tpu`` (every module of the
-package, the network mode and secure aggregation included), and its entry points run
-on the GPU unless the caller asks for the CPU."""
+package, the network mode, secure aggregation, observability and tuning included),
+and its entry points run on the GPU unless the caller asks for the CPU."""
 
 import importlib
 import pkgutil
@@ -21,6 +21,7 @@ from nanofed_tpu_torch.data import federate, synthetic_classification
 from nanofed_tpu_torch.models import get_model
 from nanofed_tpu_torch.orchestration import Coordinator, CoordinatorConfig
 from nanofed_tpu_torch.security import secure_agg
+from nanofed_tpu_torch.tuning import PopulationSpec, autotune, profile_aggregation_epilogues
 from nanofed_tpu_torch.utils.trees import from_numpy_params
 
 REPO = Path(__file__).resolve().parents[1]
@@ -71,13 +72,16 @@ def _entry_points():
             [np.zeros(3, np.uint32)], {"w": torch.zeros(3)},
             secure_agg.SecureAggregationConfig(min_clients=1)),
         "dequantize_sum": lambda: secure_agg.dequantize_sum(np.zeros(3, np.uint32), 16),
+        "autotune": lambda: autotune(model, PopulationSpec(2, 16, (28, 28, 1))),
+        "profile_aggregation_epilogues": lambda: profile_aggregation_epilogues(100),
     }
 
 
 @pytest.mark.parametrize("name", ["resolve_device", "run_experiment", "Coordinator",
                                   "from_numpy_params", "NetworkCoordinator",
                                   "mask_update_cuda_backend", "expand_mask_cuda_backend",
-                                  "unmask_sum", "dequantize_sum"])
+                                  "unmask_sum", "dequantize_sum", "autotune",
+                                  "profile_aggregation_epilogues"])
 def test_entry_points_default_to_cuda_and_raise_without_it(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -1,5 +1,11 @@
-"""Port kernels B5 (quantize), B6 (dequantize) and B7 (Philox mask add): the plain
-versions against the JAX package on the CPU.
+"""Port kernels B5 (quantize), B6 (dequantize), B7 (Philox mask add) and B4 (the
+fused int8 dequant-accumulate): the plain versions against the JAX package on the CPU.
+
+B4 is held to the JAX ``dequant_accumulate_flat`` run in interpret mode, at its own
+test's tolerance (rtol 1e-5, atol 1e-6): on random stacks, an explicit ``denom``,
+zero weights (exactly ``base``), per-leaf q8 aggregation of the port's wire payloads
+against the weighted mean of the JAX ``reconstruct_q8``'d params, topk8 dense rows
+and a padded row stride.
 
 B5 and B6 are held bit for bit to the Pallas kernels run in interpret mode, and B6
 after a modular sum to ``np.float32(secure_agg.dequantize(total))``.  B7's plain
@@ -15,11 +21,15 @@ import numpy as np
 import pytest
 import torch
 
+from nanofed_tpu.communication import codec as jax_codec
+from nanofed_tpu.ops import dequant_accumulate_flat as jax_dequant_accumulate_flat
 from nanofed_tpu.ops import dequantize_u32 as jax_dequantize_u32
 from nanofed_tpu.ops import quantize_u32 as jax_quantize_u32
 from nanofed_tpu.security import secure_agg as jax_sa
 from nanofed_tpu_torch import ops
+from nanofed_tpu_torch.communication import codec
 from nanofed_tpu_torch.ops import quantize as q
+from nanofed_tpu_torch.utils.trees import from_numpy_params
 
 SIZES = [1, 3, 1_199_882]  # ragged: 1.2M (the mnist_cnn width) is 2 mod 4 and 2 mod 8
 
@@ -155,7 +165,181 @@ def test_cpu_tensors_never_count_a_launch():
     quantized = ops.quantize_u32(torch.ones(10))
     ops.dequantize_u32(quantized)
     ops.add_mask(quantized, 3, -1)
+    ops.dequant_accumulate_flat(torch.ones(2, 5, dtype=torch.int8), torch.ones(2),
+                                torch.ones(2), torch.zeros(5))
     assert ops.launch_counts() == before
+
+
+# ---------------------------------------------------------------------------
+# B4: the fused int8 dequant-accumulate
+# ---------------------------------------------------------------------------
+
+B4_TOL = dict(rtol=1e-5, atol=1e-6)  # the JAX package's own test's tolerance
+
+
+def _b4_jax(q8, scales, weights, base, denom=None):
+    return np.asarray(jax_dequant_accumulate_flat(
+        jnp.asarray(q8), jnp.asarray(scales), jnp.asarray(weights), jnp.asarray(base),
+        denom=None if denom is None else jnp.float32(denom), interpret=True))
+
+
+def _b4_port(q8, scales, weights, base, denom=None):
+    return ops.dequant_accumulate_flat(
+        torch.from_numpy(q8), torch.from_numpy(scales), torch.from_numpy(weights),
+        torch.from_numpy(base), denom).numpy()
+
+
+@pytest.mark.parametrize("c,p,low", [(9, 1333, -127), (9, 1333, -128), (1, 1, -128),
+                                     (33, 517, -128)])
+def test_dequant_accumulate_matches_pallas(c, p, low):
+    rng = np.random.default_rng(c + p)
+    q8 = rng.integers(low, 128, size=(c, p), dtype=np.int8)
+    scales = rng.uniform(1e-4, 1e-2, size=c).astype(np.float32)
+    weights = rng.uniform(0.5, 2.0, size=c).astype(np.float32)
+    base = rng.normal(size=p).astype(np.float32)
+    np.testing.assert_allclose(_b4_port(q8, scales, weights, base),
+                               _b4_jax(q8, scales, weights, base), **B4_TOL)
+
+
+def test_dequant_accumulate_explicit_denominator():
+    rng = np.random.default_rng(1)
+    c, p = 4, 640
+    q8 = rng.integers(-127, 128, size=(c, p), dtype=np.int8)
+    scales = np.full(c, 1e-3, np.float32)
+    discounts = np.asarray([1.0, 0.7071, 0.5774, 0.5], np.float32)
+    base = np.zeros(p, np.float32)
+    got = _b4_port(q8, scales, discounts, base, denom=float(c))
+    np.testing.assert_allclose(got, _b4_jax(q8, scales, discounts, base, denom=float(c)),
+                               **B4_TOL)
+    np.testing.assert_allclose(got, (discounts / c) @ (q8.astype(np.float32) * scales[:, None]),
+                               **B4_TOL)
+    tensor_denom = ops.dequant_accumulate_flat(
+        torch.from_numpy(q8), torch.from_numpy(scales), torch.from_numpy(discounts),
+        torch.from_numpy(base), torch.tensor(float(c)))
+    np.testing.assert_array_equal(tensor_denom.numpy(), got)
+
+
+def test_dequant_accumulate_zero_weights_return_base_exactly():
+    c, p = 3, 512
+    q8 = np.full((c, p), -128, np.int8)
+    base = np.random.default_rng(2).normal(size=p).astype(np.float32)
+    got = _b4_port(q8, np.ones(c, np.float32), np.zeros(c, np.float32), base)
+    np.testing.assert_array_equal(got, base)
+    np.testing.assert_allclose(_b4_jax(q8, np.ones(c, np.float32), np.zeros(c, np.float32),
+                                       base), base, rtol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.uint8, torch.int32])
+def test_dequant_accumulate_rejects_non_int8(dtype):
+    with pytest.raises(TypeError, match="int8"):
+        ops.dequant_accumulate_flat(torch.zeros(2, 128, dtype=dtype), torch.ones(2),
+                                    torch.ones(2), torch.zeros(128))
+    with pytest.raises(TypeError, match="int8"):
+        ops.dequant_accumulate_flat_plain(torch.zeros(2, 128, dtype=dtype), torch.ones(2),
+                                          torch.ones(2), torch.zeros(128))
+    with pytest.raises(TypeError, match="int8"):
+        jax_dequant_accumulate_flat(jnp.zeros((2, 128), jnp.float32), jnp.ones(2),
+                                    jnp.ones(2), jnp.zeros(128), interpret=True)
+
+
+def test_dequant_accumulate_padded_row_stride():
+    """A [C, P] view of a [C, P + pad] buffer (the callers' 16-byte row stride)."""
+    rng = np.random.default_rng(3)
+    c, p = 7, 1_001
+    buf = rng.integers(-128, 128, size=(c, 1_008), dtype=np.int8)
+    q_view = torch.from_numpy(buf)[:, :p]
+    assert q_view.stride(0) == 1_008
+    scales = rng.uniform(1e-4, 1e-2, size=c).astype(np.float32)
+    weights = rng.uniform(0.5, 2.0, size=c).astype(np.float32)
+    base = rng.normal(size=p).astype(np.float32)
+    got = ops.dequant_accumulate_flat(q_view, torch.from_numpy(scales),
+                                      torch.from_numpy(weights), torch.from_numpy(base))
+    np.testing.assert_allclose(got.numpy(), _b4_jax(np.ascontiguousarray(buf[:, :p]), scales,
+                                                    weights, base), **B4_TOL)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.dequant_accumulate_flat(torch.from_numpy(buf)[:, ::2], torch.from_numpy(scales),
+                                    torch.from_numpy(weights), torch.from_numpy(base[:504]))
+
+
+def test_q8_aggregation_of_port_payloads_equals_the_jax_reconstructions():
+    """Encode each client's delta with the port's ``encode_delta_q8``, aggregate per
+    leaf with B4 (the wire format's scales are per leaf), and hold the result to the
+    weighted mean of the JAX package's ``reconstruct_q8``'d params."""
+    import io
+
+    rng = np.random.default_rng(2)
+    c = 5
+    base_tree = {"w": rng.normal(size=(13, 7)).astype(np.float32),
+                 "b": rng.normal(size=(19,)).astype(np.float32)}
+    weights = rng.uniform(1.0, 3.0, size=c).astype(np.float32)
+    leaves = {name: [] for name in base_tree}
+    scales = {name: [] for name in base_tree}
+    reconstructed = []
+    for i in range(c):
+        delta = {k: rng.normal(size=v.shape).astype(np.float32) * 0.1
+                 for k, v in base_tree.items()}
+        payload = codec.encode_delta_q8(from_numpy_params(delta, device="cpu"), seed=100 + i)
+        full = jax_codec.reconstruct_q8(base_tree, payload)
+        reconstructed.append(np.concatenate([np.ravel(full[k]) for k in base_tree]))
+        with np.load(io.BytesIO(payload)) as wire:
+            for name in base_tree:
+                leaves[name].append(np.ravel(wire[name + codec.Q8_QUANT_TAG]))
+                scales[name].append(np.float32(wire[name + codec.Q8_SCALE_TAG]))
+    fused = np.concatenate([
+        _b4_port(np.stack(leaves[name]), np.asarray(scales[name], np.float32), weights,
+                 np.ravel(base_tree[name]))
+        for name in base_tree
+    ])
+    np.testing.assert_allclose(fused, (weights / weights.sum()) @ np.stack(reconstructed),
+                               rtol=1e-5, atol=1e-5)
+    jax_fused = np.concatenate([
+        _b4_jax(np.stack(leaves[name]), np.asarray(scales[name], np.float32), weights,
+                np.ravel(base_tree[name]))
+        for name in base_tree
+    ])
+    np.testing.assert_allclose(fused, jax_fused, **B4_TOL)
+
+
+def test_topk8_dense_rows_aggregate():
+    """topk8 decodes to dense rows (zeros off the shipped coordinates); re-quantized
+    per row (scale absmax/127), B4 aggregates them as the JAX kernel does."""
+    rng = np.random.default_rng(3)
+    like = {"w": torch.zeros(40)}
+    dense = []
+    for i in range(2):
+        delta = {"w": torch.from_numpy(rng.normal(size=40).astype(np.float32))}
+        payload = codec.encode_delta_topk8(delta, fraction=0.2, seed=7 + i)
+        dense.append(codec.decode_delta_topk8(payload, like=like)["w"].numpy())
+    q_rows, row_scales = [], []
+    for row in dense:
+        s = max(float(np.max(np.abs(row))), 1e-12) / 127.0
+        q_rows.append(np.round(row / s).astype(np.int8))
+        row_scales.append(s)
+    q8, sc = np.stack(q_rows), np.asarray(row_scales, np.float32)
+    weights, base = np.ones(2, np.float32), np.zeros(40, np.float32)
+    got = _b4_port(q8, sc, weights, base)
+    np.testing.assert_allclose(got, _b4_jax(q8, sc, weights, base), **B4_TOL)
+    np.testing.assert_allclose(got, np.mean(np.stack(dense), axis=0), atol=1e-2)
+
+
+@pytest.mark.cuda
+def test_dequant_accumulate_kernel_matches_plain_version_on_the_card():
+    """On a GPU: B4 launches and agrees with its plain version for every int8 load
+    width; chip_smoke.py runs the full case list and the timing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs CUDA: checks the hand-written B4 kernel against its plain version")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    before = ops.launch_counts()["dequant_accumulate_flat"]
+    for stride, offset in ((1008, 0), (1000, 8), (1004, 4), (1002, 2), (1001, 1)):
+        buf = torch.randint(-128, 128, (9 * stride + offset,), generator=gen, device="cuda",
+                            dtype=torch.int8)
+        q8 = buf[offset:].view(9, stride)[:, :997]
+        s, w = torch.rand(9, device="cuda") * 1e-2, torch.rand(9, device="cuda") + 0.5
+        base = torch.randn(997, device="cuda")
+        torch.testing.assert_close(ops.dequant_accumulate_flat(q8, s, w, base),
+                                   ops.dequant_accumulate_flat_plain(q8, s, w, base),
+                                   rtol=1e-5, atol=1e-6)
+    assert ops.launch_counts()["dequant_accumulate_flat"] == before + 5
 
 
 @pytest.mark.cuda
