@@ -13,13 +13,17 @@ Phases (any failure exits non-zero):
 2. Kernels: B1 (``weighted_mean_flat`` and ``weighted_sum_into``), B3
    (``row_sq_norms``) and B2 (``masked_weighted_mean_flat``) against their plain
    PyTorch versions on the card, on ragged shapes, weight and validity cases and
-   NaN/inf rows, and at the round's shapes (C = 2 and 125 clients for B1/B3, 125 and
-   1000 for B2, P = 1,199,882); B5 (``quantize_u32``), B6 (``dequantize_u32``) and B7
-   (``add_mask``) bit for bit on ragged sizes, unaligned starts, ties, saturation and
-   both signs, and B7's stream against numpy's Philox at P = 1,199,882; B4
-   (``dequant_accumulate_flat``) on ragged P, every int8 load width (16, 8, 4, 2 and 1
-   bytes), C = 1, 9, 64 and 1000, zero weights (exactly ``base``), an explicit
-   ``denom`` and the int8 extremes.  At those shapes each kernel, its plain version
+   NaN/inf rows; B1/B2 also on the edges of their launch plan (C = 1 to 7, around
+   the ring's 3 and 6 stages, 40 and 1000; P = 1, 2, 3, around each largest grid of
+   minimum slabs and 1,199,882; every load width and a data pointer one float off), two
+   launches of each form giving the same bits, and timed with their launch plan at
+   every C the main path launches them with (C = 2, 8, 25, 125, 250 and 1000 for B1,
+   64, 125 and 1000 for B2, P = 1,199,882); B3 at C = 2 and 125; B5
+   (``quantize_u32``), B6 (``dequantize_u32``) and B7 (``add_mask``) bit for bit on
+   ragged sizes, unaligned starts, ties, saturation and both signs, and B7's stream
+   against numpy's Philox at P = 1,199,882; B4 (``dequant_accumulate_flat``) on
+   ragged P, every int8 load width (16, 8, 4, 2 and 1 bytes), C = 1, 9, 64 and 1000,
+   zero weights (exactly ``base``), an explicit ``denom`` and the int8 extremes.  At those shapes each kernel, its plain version
    and one library call (for B4 the unfused yardstick ``torch.addmv(base,
    q.float().t(), coefs)``) are timed with CUDA events (median of 30 runs after 5
    warm-up runs, L2 flushed before each run), beside the least time the card could
@@ -166,9 +170,11 @@ def check_close(torch, name: str, got, want, **tol) -> float:
 
 
 def phase_kernels(torch, ops, card: str) -> dict[str, dict]:
-    """Hold B1 (both forms), B3 and B2 against their plain versions; time them at the
-    round's shapes.  Returns the per-kernel record of the main path's shape (the
-    125-client chunk for B1 and B3, the 1000-client validated round for B2)."""
+    """Hold B1 (all forms), B3 and B2 against their plain versions, on ragged shapes
+    and on the edges of B1/B2's launch plan; check that B1/B2 give the same bits
+    twice; time them at every C the main path launches them with.  Returns the
+    per-kernel record of the main path's shape (the 125-client chunk for B1 and B3,
+    the 1000-client validated round for B2)."""
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     def rand(*shape):
@@ -179,98 +185,250 @@ def phase_kernels(torch, ops, card: str) -> dict[str, dict]:
         for layout in ("contiguous", "round"):
             x = rand(c, p) if layout == "contiguous" else round_layout(torch, c, p, seed=c + p)
             w = torch.rand(c, device="cuda", generator=gen) + 0.5
-            for wcase in ("random", "some_zero", "all_zero", "denom_float", "denom_tensor"):
-                wc, denom = w.clone(), None
-                if wcase == "some_zero":
-                    wc[::2] = 0.0
-                elif wcase == "all_zero":
-                    wc.zero_()
-                elif wcase == "denom_float":
-                    denom = 11.5
-                elif wcase == "denom_tensor":
-                    denom = torch.tensor(3.25, device="cuda")
-                tag = f"c={c} p={p} {layout} {wcase}"
-                check_close(torch, f"weighted_mean_flat {tag}",
-                            ops.weighted_mean_flat(x, wc, denom),
-                            ops.weighted_mean_flat_plain(x, wc, denom), **TOL)
-                if wcase == "all_zero" and ops.weighted_mean_flat(x, wc).abs().max() != 0:
-                    fail(f"weighted_mean_flat {tag}: all-zero weights must give zeros")
-                acc = rand(p)
-                want = ops.weighted_sum_into_plain(acc.clone(), x, wc)
-                got = ops.weighted_sum_into(acc, x, wc)
-                if got.data_ptr() != acc.data_ptr():
-                    fail("weighted_sum_into must update acc in place")
-                check_close(torch, f"weighted_sum_into {tag}", got, want, **TOL)
-                cases += 2
+            cases += check_weight_cases(torch, ops, x, w, gen, f"c={c} p={p} {layout}")
             check_close(torch, f"row_sq_norms c={c} p={p} {layout}", ops.row_sq_norms(x),
                         ops.row_sq_norms_plain(x), **TOL)
             cases += 1
     cases += check_masked_cases(torch, ops, gen)
     print(f"kernels: {cases} cases agree with the plain versions (rtol {TOL['rtol']}, "
           f"atol {TOL['atol']})")
+    check_reduce_edges(torch, ops, gen)
+    check_reduce_determinism(torch, ops, gen)
 
-    records = {}
+    records = time_reduce(torch, ops, card, gen)
     for c in (2, 125):
         x = round_layout(torch, c, P_MNIST, seed=c)
-        w = torch.rand(c, device="cuda", generator=gen) + 0.5
-        acc = torch.zeros(P_MNIST, device="cuda")
-        n_in = 4 * c * P_MNIST + 4 * c
-        specs = {
-            "weighted_mean_flat": dict(
-                kernel=lambda: ops.weighted_mean_flat(x, w),
-                plain=lambda: ops.weighted_mean_flat_plain(x, w),
-                library=("w @ x", lambda: w @ x),
-                bound=bound_ms(n_in + 4 * P_MNIST, 2 * c * P_MNIST),
-                err=check_close(torch, "weighted_mean_flat", ops.weighted_mean_flat(x, w),
-                                ops.weighted_mean_flat_plain(x, w), **TOL),
-            ),
-            "weighted_sum_into": dict(
-                kernel=lambda: ops.weighted_sum_into(acc, x, w),
-                plain=lambda: ops.weighted_sum_into_plain(acc, x, w),
-                library=("acc.addmv_(x.t(), w)", lambda: acc.addmv_(x.t(), w)),
-                bound=bound_ms(n_in + 8 * P_MNIST, 2 * c * P_MNIST),
-                err=check_close(torch, "weighted_sum_into",
-                                ops.weighted_sum_into(torch.zeros_like(acc), x, w),
-                                ops.weighted_sum_into_plain(torch.zeros_like(acc), x, w), **TOL),
-            ),
-            "row_sq_norms": dict(
-                kernel=lambda: ops.row_sq_norms(x),
-                plain=lambda: ops.row_sq_norms_plain(x),
-                library=("torch.linalg.vecdot(x, x)", lambda: torch.linalg.vecdot(x, x)),
-                bound=bound_ms(n_in, 2 * c * P_MNIST),
-                err=check_close(torch, "row_sq_norms", ops.row_sq_norms(x),
-                                ops.row_sq_norms_plain(x), **TOL),
-            ),
-        }
-        for name, spec in specs.items():
-            lib_name, lib_fn = spec["library"]
-            ms = median_ms(spec["kernel"], torch)
-            plain_ms = median_ms(spec["plain"], torch)
-            library_ms = median_ms(lib_fn, torch)
-            b_ms, b_by = spec["bound"]
-            print(f"[{card}] {name} C={c} P={P_MNIST}: kernel_ms={ms:.6f} "
-                  f"plain_ms={plain_ms:.6f} library_ms={library_ms:.6f} ({lib_name}) "
-                  f"bound_ms={b_ms:.6f} ({b_by}) max_abs_err={spec['err']:.3e}")
-            if name == "row_sq_norms":
-                sq_ms = median_ms(lambda: x.square().sum(1), torch)
-                print(f"[{card}] row_sq_norms C={c}: x.square().sum(1) ms={sq_ms:.6f}")
-            if c == 125:
-                records[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                                     bound_ms=b_ms, bound_by=b_by, max_abs_err=spec["err"])
+        err = check_close(torch, "row_sq_norms", ops.row_sq_norms(x), ops.row_sq_norms_plain(x),
+                          **TOL)
+        ms = median_ms(lambda: ops.row_sq_norms(x), torch)
+        plain_ms = median_ms(lambda: ops.row_sq_norms_plain(x), torch)
+        library_ms = median_ms(lambda: torch.linalg.vecdot(x, x), torch)
+        sq_ms = median_ms(lambda: x.square().sum(1), torch)
+        b_ms, b_by = bound_ms(4 * c * P_MNIST + 4 * c, 2 * c * P_MNIST)
+        print(f"[{card}] row_sq_norms C={c} P={P_MNIST}: kernel_ms={ms:.6f} "
+              f"plain_ms={plain_ms:.6f} library_ms={library_ms:.6f} "
+              f"(torch.linalg.vecdot(x, x)) bound_ms={b_ms:.6f} ({b_by}) "
+              f"max_abs_err={err:.3e}; x.square().sum(1) ms={sq_ms:.6f}")
         if c == 125:
-            # B1's denom form (central DP's materialised reduce, Multi-Krum's mean).
-            d = w.sum()
-            err = check_close(torch, "weighted_mean_flat denom", ops.weighted_mean_flat(x, w, d),
-                              ops.weighted_mean_flat_plain(x, w, d), **TOL)
-            d_ms = median_ms(lambda: ops.weighted_mean_flat(x, w, d), torch)
-            d_plain = median_ms(lambda: ops.weighted_mean_flat_plain(x, w, d), torch)
-            d_lib = median_ms(lambda: (w / d) @ x, torch)
-            b_ms, b_by = bound_ms(n_in + 4 + 4 * P_MNIST, 2 * c * P_MNIST)
-            print(f"[{card}] weighted_mean_flat (denom form) C={c} P={P_MNIST}: "
-                  f"kernel_ms={d_ms:.6f} plain_ms={d_plain:.6f} library_ms={d_lib:.6f} "
-                  f"((w / denom) @ x) bound_ms={b_ms:.6f} ({b_by}) max_abs_err={err:.3e}")
-    records["masked_weighted_mean_flat"] = time_masked(torch, ops, gen, card)
+            records["row_sq_norms"] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                                           bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
     return records
+
+
+def check_weight_cases(torch, ops, x, w, gen, tag: str) -> int:
+    """B1's normalised and accumulate forms on ``x`` under every weight case (random,
+    some zero, all zero, ``denom`` as a float and as a tensor)."""
+    p = x.shape[1]
+    for wcase in ("random", "some_zero", "all_zero", "denom_float", "denom_tensor"):
+        wc, denom = w.clone(), None
+        if wcase == "some_zero":
+            wc[::2] = 0.0
+        elif wcase == "all_zero":
+            wc.zero_()
+        elif wcase == "denom_float":
+            denom = 11.5
+        elif wcase == "denom_tensor":
+            denom = torch.tensor(3.25, device="cuda")
+        got = ops.weighted_mean_flat(x, wc, denom)
+        check_close(torch, f"weighted_mean_flat {tag} {wcase}", got,
+                    ops.weighted_mean_flat_plain(x, wc, denom), **TOL)
+        if wcase == "all_zero" and got.abs().max() != 0:
+            fail(f"weighted_mean_flat {tag}: all-zero weights must give zeros")
+        acc = torch.randn(p, device="cuda", generator=gen)
+        want = ops.weighted_sum_into_plain(acc.clone(), x, wc)
+        got = ops.weighted_sum_into(acc, x, wc)
+        if got.data_ptr() != acc.data_ptr():
+            fail("weighted_sum_into must update acc in place")
+        check_close(torch, f"weighted_sum_into {tag} {wcase}", got, want, **TOL)
+    return 10
+
+
+def reduce_layout(torch, c: int, p: int, layout: str, gen):
+    """A [c, p] float32 view in one of the layouts B1/B2 take: ``contiguous`` (row
+    stride P), ``vec4`` (stride a multiple of 4 floats: the bulk-copy ring), ``vec2``
+    (stride 2 mod 4) or ``vec1`` (stride a multiple of 4, data pointer one float past
+    a 16-byte boundary)."""
+    stride, offset = {"contiguous": (p, 0), "vec4": (-(-p // 4) * 4, 0),
+                      "vec2": (-(-p // 2) * 2, 0), "vec1": (-(-p // 4) * 4, 1)}[layout]
+    if layout == "vec2" and stride % 4 == 0:
+        stride += 2
+    buf = torch.randn(c * stride + offset, device="cuda", generator=gen)
+    return buf[offset:offset + c * stride].view(c, stride)[:, :p]
+
+
+def check_reduce_edges(torch, ops, gen) -> None:
+    """B1 (every weight and ``denom`` case) and B2 (NaN/inf rows, every validity case)
+    on the edges of the launch plan: C = 1 to 7 (around the ring's 3 and 6 stages),
+    40 and 1000; P = 1, 2, 3, around each largest grid of minimum slabs (the ring's
+    at one and two blocks an SM, the 2-float register path's: -4, -1, 0, +1, +4) and
+    1,199,882; every layout."""
+    from nanofed_tpu_torch.ops._common import vector_width
+    from nanofed_tpu_torch.ops.reduce import (
+        MIN_SLAB_UNITS,
+        REGISTER_BLOCKS_PER_SM,
+        RING_BLOCKS_PER_SM,
+    )
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    edges = [sms * MIN_SLAB_UNITS * 4 * k for k in (1, RING_BLOCKS_PER_SM)]
+    edges.append(sms * REGISTER_BLOCKS_PER_SM * MIN_SLAB_UNITS * 2)
+    near = lambda e: [e + d for d in (-4, -1, 0, 1, 4)]  # noqa: E731
+    ps = [1, 2, 3, *(q for e in edges for q in near(e)), P_MNIST]
+    shapes = [(c, p) for c in (1, 2, 3, 4, 5, 6, 7, 40) for p in ps]
+    shapes += [(1000, p) for p in (1, 2, 3, *near(edges[1]))]
+    cases, widths = 0, set()
+    for c, p in shapes:
+        for layout in ("contiguous", "vec4", "vec2", "vec1"):
+            x = reduce_layout(torch, c, p, layout, gen)
+            widths.add(vector_width(x, x.stride(0) if c > 1 else p))
+            w = torch.rand(c, device="cuda", generator=gen) + 0.5
+            tag = f"c={c} p={p} {layout}"
+            cases += check_weight_cases(torch, ops, x, w, gen, tag)
+            poison(x)
+            cases += check_validity_cases(torch, ops, x, w, gen, tag)
+            del x
+    torch.cuda.empty_cache()
+    if widths != {4, 2, 1}:
+        fail(f"reduce edges: load widths exercised {sorted(widths)}, expected 4, 2 and 1")
+    print(f"kernels: {cases} B1/B2 cases on the launch plan's edges agree with the plain "
+          f"versions (rtol {TOL['rtol']}, atol {TOL['atol']}; C 1-7, 40 and 1000; P {ps}; "
+          f"load widths {sorted(widths)})")
+
+
+def check_reduce_determinism(torch, ops, gen) -> None:
+    """Two launches of each B1/B2 form at C = 125 and 1000 (the round's layout, P =
+    1,199,882) must give the same bits."""
+    for c in (125, 1000):
+        x = round_layout(torch, c, P_MNIST, seed=7 * c)
+        w = torch.rand(c, device="cuda", generator=gen) + 0.5
+        valid = torch.rand(c, device="cuda", generator=gen) > 0.05
+        d = w.sum()
+        start = torch.randn(P_MNIST, device="cuda", generator=gen)
+        forms = {
+            "weighted_mean_flat": lambda: ops.weighted_mean_flat(x, w),
+            "weighted_mean_flat denom": lambda: ops.weighted_mean_flat(x, w, d),
+            "weighted_sum_into": lambda: ops.weighted_sum_into(start.clone(), x, w),
+            "masked_weighted_mean_flat": lambda: ops.masked_weighted_mean_flat(x, w, valid),
+        }
+        for name, fn in forms.items():
+            a, b = fn(), fn()
+            torch.cuda.synchronize()
+            if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+                fail(f"{name} C={c}: two launches gave different bits "
+                     f"({int((a != b).sum())} words differ)")
+        del x
+        torch.cuda.empty_cache()
+    print(f"kernels: B1 (normalised, denom, accumulate) and B2 give the same bits twice "
+          f"at C = 125 and 1000, P = {P_MNIST}")
+
+
+# B1/B2 at every C at which the main path launches them: (form, C, layout).
+TIMED_REDUCES = (
+    ("weighted_mean_flat", 2, "round"),  # (a) the tutorial round
+    ("weighted_mean_flat", 8, "contiguous"),  # (h) the plain network round: VEC 2
+    ("weighted_sum_into", 25, "round"),  # (d) the central-DP chunk
+    ("weighted_mean_flat", 125, "round"),
+    ("weighted_mean_flat_denom", 125, "round"),  # central DP materialised, Multi-Krum
+    ("weighted_sum_into", 125, "round"),  # (b) the flagship chunk
+    ("weighted_sum_into", 250, "round"),  # (i) the autotuner's chunk
+    ("weighted_mean_flat", 1000, "round"),  # (i) client_chunk=None
+    ("masked_weighted_mean_flat", 64, "round"),  # (i) the epilogue table
+    ("masked_weighted_mean_flat", 125, "round"),
+    ("masked_weighted_mean_flat", 1000, "round"),  # (c) the validated round
+)
+
+
+def time_reduce(torch, ops, card: str, gen, show_plan: bool = True) -> dict[str, dict]:
+    """Time B1/B2 at each of ``TIMED_REDUCES`` (P = 1,199,882): the kernel, its plain
+    version, one library call computing the same function where there is one, and the
+    bound; with ``show_plan`` also the launch plan, ``ptxas``'s registers and the
+    blocks an SM holds.  Returns the JSON records (B1 at C=125, B2 at C=1000).  B2's
+    yardstick ``coefs @ x`` on a finite x moves the same bytes but is not the same
+    function (no sanitize, coefficients precomputed)."""
+    records = {}
+    p = P_MNIST
+    for form, c, layout in TIMED_REDUCES:
+        if layout == "round":
+            x = round_layout(torch, c, p, seed=c + 1)
+        else:
+            x = torch.randn(c, p, device="cuda", generator=gen)
+        w = torch.rand(c, device="cuda", generator=gen) + 0.5
+        acc = torch.zeros(p, device="cuda")
+        n_in = 4 * c * p + 4 * c
+        lib_name, library, sanitized, accumulate = None, None, False, False
+        if form == "weighted_mean_flat":
+            kernel = lambda: ops.weighted_mean_flat(x, w)  # noqa: E731
+            plain = lambda: ops.weighted_mean_flat_plain(x, w)  # noqa: E731
+            lib_name, library = "w @ x", lambda: w @ x
+            bound = bound_ms(n_in + 4 * p, 2 * c * p)
+        elif form == "weighted_mean_flat_denom":
+            d = w.sum()
+            kernel = lambda: ops.weighted_mean_flat(x, w, d)  # noqa: E731
+            plain = lambda: ops.weighted_mean_flat_plain(x, w, d)  # noqa: E731
+            lib_name, library = "(w / denom) @ x", lambda: (w / d) @ x
+            bound = bound_ms(n_in + 4 + 4 * p, 2 * c * p)
+        elif form == "weighted_sum_into":
+            accumulate = True
+            kernel = lambda: ops.weighted_sum_into(acc, x, w)  # noqa: E731
+            plain = lambda: ops.weighted_sum_into_plain(acc, x, w)  # noqa: E731
+            lib_name, library = "acc.addmv_(x.t(), w)", lambda: acc.addmv_(x.t(), w)
+            bound = bound_ms(n_in + 8 * p, 2 * c * p)
+        else:
+            sanitized = True
+            finite = x.clone()
+            x[c // 3, :1000] = float("nan")
+            valid = torch.rand(c, device="cuda", generator=gen) > 0.05
+            coefs = w * valid / (w * valid).sum()
+            kernel = lambda: ops.masked_weighted_mean_flat(x, w, valid)  # noqa: E731
+            plain = lambda: ops.masked_weighted_mean_flat_plain(x, w, valid)  # noqa: E731
+            bound = bound_ms(n_in + c + 4 * p, 3 * c * p)
+        if accumulate:
+            err = check_close(torch, f"{form} C={c}",
+                              ops.weighted_sum_into(torch.zeros_like(acc), x, w),
+                              ops.weighted_sum_into_plain(torch.zeros_like(acc), x, w), **TOL)
+        else:
+            err = check_close(torch, f"{form} C={c}", kernel(), plain(), **TOL)
+        ms, plain_ms = median_ms(kernel, torch), median_ms(plain, torch)
+        library_ms = median_ms(library, torch) if library else None
+        b_ms, b_by = bound
+        if sanitized:
+            yard_ms = median_ms(lambda: coefs @ finite, torch)
+            lib_note = (f"library_ms=None yardstick_ms={yard_ms:.6f} (coefs @ x on a finite "
+                        "x: the same bytes, not the same function)")
+        else:
+            lib_note = f"library_ms={library_ms:.6f} ({lib_name})"
+        line = (f"[{card}] {form} C={c} P={p} layout={layout}: kernel_ms={ms:.6f} "
+                f"plain_ms={plain_ms:.6f} {lib_note} bound_ms={b_ms:.6f} ({b_by}) "
+                f"share_of_bound={b_ms / ms:.4f} max_abs_err={err:.3e}")
+        if show_plan:
+            line += " " + plan_line(torch, x, accumulate, sanitized)
+        print(line)
+        record = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
+                      bound_by=b_by, max_abs_err=err)
+        if (form, c) in (("weighted_mean_flat", 125), ("weighted_sum_into", 125),
+                         ("masked_weighted_mean_flat", 1000)):
+            records[form] = record
+        del x
+        torch.cuda.empty_cache()
+    return records
+
+
+def plan_line(torch, x, accumulate: bool, sanitized: bool) -> str:
+    """The launch plan of B1/B2 over ``x`` with what the card makes of it; fails if
+    the grid is more than one wave (blocks > SMs x the blocks an SM holds)."""
+    from nanofed_tpu_torch.ops.reduce import kernel_occupancy, plan_for, sm_count
+
+    ldx = x.stride(0) if x.shape[0] > 1 else x.shape[1]
+    vec, plan = plan_for(x, ldx)
+    regs, per_sm = kernel_occupancy(x.device, vec, accumulate, sanitized, plan)
+    sms = sm_count(x.device.index)
+    if plan.blocks > sms * per_sm or per_sm < plan.per_sm:
+        fail(f"reduce plan {plan}: the card holds {per_sm} blocks an SM ({sms} SMs), "
+             f"so the grid is more than one wave")
+    return (f"plan: vec={vec} path={'ring' if plan.stages else 'registers'} "
+            f"blocks={plan.blocks} slab={plan.slab} stages={plan.stages} "
+            f"shared_bytes={plan.shared_bytes} per_sm_planned={plan.per_sm} "
+            f"per_sm_card={per_sm} sms={sms} registers={regs}")
 
 
 def poison(x) -> None:
@@ -279,6 +437,30 @@ def poison(x) -> None:
     x[0, min(3, p - 1)] = float("nan")
     x[c // 2, p // 2] = float("inf")
     x[-1, -1] = -float("inf")
+
+
+def check_validity_cases(torch, ops, x, w, gen, tag: str) -> int:
+    """B2 on ``x`` under random / random-float / all-valid / all-invalid masks and zero
+    weights; an all-invalid cohort must give exact zeros."""
+    c = x.shape[0]
+    for vcase in ("random", "random_float", "all_valid", "all_invalid", "zero_weights"):
+        valid = torch.rand(c, device="cuda", generator=gen) > 0.4
+        wc = w.clone()
+        if vcase == "random_float":
+            valid = valid.float()
+        elif vcase == "all_valid":
+            valid = torch.ones(c, dtype=torch.bool, device="cuda")
+        elif vcase == "all_invalid":
+            valid = torch.zeros(c, dtype=torch.bool, device="cuda")
+        elif vcase == "zero_weights":
+            valid = torch.ones(c, dtype=torch.bool, device="cuda")
+            wc[::2] = 0.0
+        name = f"masked_weighted_mean_flat {tag} {vcase}"
+        got = ops.masked_weighted_mean_flat(x, wc, valid)
+        check_close(torch, name, got, ops.masked_weighted_mean_flat_plain(x, wc, valid), **TOL)
+        if vcase == "all_invalid" and got.abs().max() != 0:
+            fail(f"{name}: an all-invalid cohort must give exact zeros")
+    return 5
 
 
 def check_masked_cases(torch, ops, gen) -> int:
@@ -291,57 +473,9 @@ def check_masked_cases(torch, ops, gen) -> int:
                  else round_layout(torch, c, p, seed=3 * c + p))
             poison(x)
             w = torch.rand(c, device="cuda", generator=gen) + 0.5
-            for vcase in ("random", "random_float", "all_valid", "all_invalid", "zero_weights"):
-                valid = torch.rand(c, device="cuda", generator=gen) > 0.4
-                wc = w.clone()
-                if vcase == "random_float":
-                    valid = valid.float()
-                elif vcase == "all_valid":
-                    valid = torch.ones(c, dtype=torch.bool, device="cuda")
-                elif vcase == "all_invalid":
-                    valid = torch.zeros(c, dtype=torch.bool, device="cuda")
-                elif vcase == "zero_weights":
-                    valid = torch.ones(c, dtype=torch.bool, device="cuda")
-                    wc[::2] = 0.0
-                tag = f"masked_weighted_mean_flat c={c} p={p} {layout} {vcase}"
-                got = ops.masked_weighted_mean_flat(x, wc, valid)
-                check_close(torch, tag, got, ops.masked_weighted_mean_flat_plain(x, wc, valid),
-                            **TOL)
-                if vcase == "all_invalid" and got.abs().max() != 0:
-                    fail(f"{tag}: an all-invalid cohort must give exact zeros")
-                cases += 1
+            cases += check_validity_cases(torch, ops, x, w, gen,
+                                          f"c={c} p={p} {layout}")
     return cases
-
-
-def time_masked(torch, ops, gen, card: str) -> dict:
-    """B2 at the validated round's shapes (C = 125 and 1000, P = 1,199,882, rows padded,
-    one NaN row).  The yardstick ``coefs @ x`` on a finite x moves the same bytes but
-    is not the same function (no sanitize, coefficients precomputed)."""
-    record = {}
-    for c in (125, 1000):
-        x = round_layout(torch, c, P_MNIST, seed=c + 1)
-        finite = x.clone()
-        x[c // 3, :1000] = float("nan")
-        w = torch.rand(c, device="cuda", generator=gen) + 0.5
-        valid = torch.rand(c, device="cuda", generator=gen) > 0.05
-        coefs = w * valid / (w * valid).sum()
-        err = check_close(torch, f"masked_weighted_mean_flat C={c}",
-                          ops.masked_weighted_mean_flat(x, w, valid),
-                          ops.masked_weighted_mean_flat_plain(x, w, valid), **TOL)
-        ms = median_ms(lambda: ops.masked_weighted_mean_flat(x, w, valid), torch)
-        plain_ms = median_ms(lambda: ops.masked_weighted_mean_flat_plain(x, w, valid), torch)
-        yard_ms = median_ms(lambda: coefs @ finite, torch)
-        b_ms, b_by = bound_ms(4 * c * P_MNIST + 4 * c + c + 4 * P_MNIST, 3 * c * P_MNIST)
-        print(f"[{card}] masked_weighted_mean_flat C={c} P={P_MNIST}: kernel_ms={ms:.6f} "
-              f"plain_ms={plain_ms:.6f} yardstick_ms={yard_ms:.6f} (coefs @ x on a finite "
-              f"x: the same bytes, not the same function) bound_ms={b_ms:.6f} ({b_by}) "
-              f"max_abs_err={err:.3e}")
-        if c == 1000:
-            record = dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
-                          bound_by=b_by, max_abs_err=err)
-        del x, finite
-        torch.cuda.empty_cache()
-    return record
 
 
 def same_bits(torch, name: str, got, want) -> float:
@@ -1271,11 +1405,11 @@ def main() -> None:
            for m in sys.modules):
         fail("JAX or the JAX package was imported")
     sources = {
-        "weighted_mean_flat": ("nanofed_tpu_torch/ops/csrc/reduce.cu", "nanofed_tpu/ops/reduce.py:45"),
-        "weighted_sum_into": ("nanofed_tpu_torch/ops/csrc/reduce.cu", "nanofed_tpu/ops/reduce.py:45"),
-        "row_sq_norms": ("nanofed_tpu_torch/ops/csrc/dp_reduce.cu", "nanofed_tpu/ops/dp_reduce.py:69"),
+        "weighted_mean_flat": ("nanofed_tpu_torch/ops/csrc/reduce.cu", "nanofed_tpu/ops/reduce.py:46"),
+        "weighted_sum_into": ("nanofed_tpu_torch/ops/csrc/reduce.cu", "nanofed_tpu/ops/reduce.py:46"),
+        "row_sq_norms": ("nanofed_tpu_torch/ops/csrc/dp_reduce.cu", "nanofed_tpu/ops/dp_reduce.py:70"),
         "masked_weighted_mean_flat": ("nanofed_tpu_torch/ops/csrc/reduce.cu",
-                                      "nanofed_tpu/ops/reduce.py:103"),
+                                      "nanofed_tpu/ops/reduce.py:104"),
         "quantize_u32": ("nanofed_tpu_torch/ops/csrc/quantize.cu", "nanofed_tpu/ops/quantize.py:55"),
         "dequantize_u32": ("nanofed_tpu_torch/ops/csrc/quantize.cu",
                            "nanofed_tpu/ops/quantize.py:78"),

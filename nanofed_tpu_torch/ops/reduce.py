@@ -17,12 +17,18 @@ kernel with every element sanitized in registers.  Three entry points:
 On CPU tensors each takes its plain version (``*_plain``, same module), which is
 what the CPU tests hold against the JAX package.  On CUDA tensors it launches the
 kernel or raises.  Each wrapper counts its launches in ``.launches``.
+
+:func:`launch_plan` chooses each launch's grid on the host: a persistent grid of at
+most ``SMs x k`` blocks over column slabs of equal width (to within one 16-byte
+unit), and on the aligned layout the depth of the bulk-copy ring.  The C side
+refuses a plan it cannot run, and :func:`check_plan` raises on the same plans.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -40,14 +46,113 @@ from nanofed_tpu_torch.ops._common import (
 from nanofed_tpu_torch.utils.trees import ravel_stacked, unravel
 
 
+# The launch plan's constants, as csrc/reduce.cu has them.
+STAGE_BYTES = 16 * 1024  # one ring stage: 1024 16-byte units
+RING_BYTES_PER_SM = 96 * 1024  # the ring an SM holds in flight: 3 stages x 2 blocks
+MIN_STAGES, MAX_STAGES = 2, 8
+RING_THREADS = 288  # 256 consumers + one producer warp
+RING_BLOCKS_PER_SM = 2  # __launch_bounds__(288, 2): the registers allow two
+SMALL_READ_BYTES = 32 << 20  # below this read, one ring block an SM starts sooner
+REGISTER_THREADS = 256
+REGISTER_BLOCKS_PER_SM = 6  # __launch_bounds__(256, 6): up to 40 registers a thread
+MIN_SLAB_UNITS = 256  # one unit a consumer thread: fewer blocks where P is small
+SM_SHARED_BYTES = 233_472  # 228 KB of shared memory an H100 SM holds
+BLOCK_SHARED_MAX = 232_448  # 227 KB, a block's dynamic shared-memory limit
+BLOCK_SHARED_RESERVED = 2048  # the ring's static shared memory plus the 1 KB the card keeps
+MAX_THREADS_PER_SM = 2048
+
+
+class LaunchPlan(NamedTuple):
+    """One launch of B1/B2: ``blocks`` column slabs, each ``slab`` or ``slab + vec``
+    floats wide (the last one ends at P); ``stages`` ring stages in ``shared_bytes``
+    of dynamic shared memory (0 and 0 on the register path); ``per_sm`` (k) blocks
+    an SM holds at that footprint, so ``blocks <= SMs x per_sm`` is one wave."""
+
+    blocks: int
+    slab: int
+    stages: int
+    shared_bytes: int
+    per_sm: int
+
+
+def launch_plan(c: int, p: int, ldx: int, vec: int, sms: int) -> LaunchPlan:
+    """The grid of one launch over a ``[c, p]`` matrix of row stride ``ldx`` whose
+    layout allows ``vec``-float loads (:func:`vector_width`) on a card of ``sms``
+    SMs.  ``vec`` 4 takes the bulk-copy ring, 2 and 1 register loads."""
+    if c < 1 or p < 1 or ldx < p or sms < 1 or vec not in (4, 2, 1):
+        raise ValueError(f"launch_plan: no plan for c={c} p={p} ldx={ldx} vec={vec} sms={sms}")
+    units = -(-p // vec)
+    if vec == 4:
+        # 96 KB of ring an SM: two blocks of 3 stages, or, where the whole read is
+        # small, one block of 6 (a block's start-up then costs more than a second
+        # block's overlap).
+        used = 1 if 4 * c * p < SMALL_READ_BYTES else RING_BLOCKS_PER_SM
+        stages = RING_BYTES_PER_SM // (used * STAGE_BYTES)
+        shared = stages * STAGE_BYTES
+        per_sm = min(MAX_THREADS_PER_SM // RING_THREADS, RING_BLOCKS_PER_SM,
+                     SM_SHARED_BYTES // (shared + BLOCK_SHARED_RESERVED))
+        blocks = min(sms * used, units // MIN_SLAB_UNITS)
+    else:
+        stages, shared, per_sm = 0, 0, REGISTER_BLOCKS_PER_SM
+        blocks = min(sms * per_sm, units // MIN_SLAB_UNITS)
+    blocks = max(1, blocks)
+    return LaunchPlan(blocks, (units // blocks) * vec, stages, shared, per_sm)
+
+
+def plan_slabs(plan: LaunchPlan, p: int, vec: int) -> list[tuple[int, int]]:
+    """The ``[start, stop)`` columns of each block's slab, as the kernels' ``slab_of``
+    cuts them: ``ceil(p / vec)`` units of ``vec`` floats, the last ``units % blocks``
+    slabs one unit wider (the last slab may end in a partial unit)."""
+    units = -(-p // vec)
+    base, extra = divmod(units, plan.blocks)
+    first_wide = plan.blocks - extra
+    starts = [b * base + max(0, b - first_wide) for b in range(plan.blocks + 1)]
+    return [(starts[b] * vec, min(starts[b + 1] * vec, p)) for b in range(plan.blocks)]
+
+
+def check_plan(plan: LaunchPlan, c: int, p: int, ldx: int, vec: int) -> None:
+    """Raise ``ValueError`` for a plan ``nf_weighted_sum`` would refuse (its
+    ``plan_ok`` and layout checks, in the same order)."""
+    units = -(-p // vec) if vec in (4, 2, 1) else 0
+    ok = (vec in (4, 2, 1) and c >= 1 and p >= 1 and ldx >= p
+          and 1 <= plan.blocks <= min(units, 0x7FFFFFFF)
+          and plan.slab == (units // plan.blocks) * vec)
+    if ok and vec == 4:
+        ok = (ldx % 4 == 0 and MIN_STAGES <= plan.stages <= MAX_STAGES
+              and plan.shared_bytes == plan.stages * STAGE_BYTES
+              and plan.shared_bytes <= BLOCK_SHARED_MAX)
+    elif ok:
+        ok = plan.stages == 0 and plan.shared_bytes == 0
+    if not ok:
+        raise ValueError(f"reduce: the kernel cannot run {plan} for c={c} p={p} ldx={ldx} "
+                         f"vec={vec}")
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def plan_for(x: torch.Tensor, ldx: int) -> tuple[int, LaunchPlan]:
+    """``(vec, plan)`` of a launch over the CUDA matrix ``x``."""
+    vec = vector_width(x, ldx)
+    c, p = x.shape
+    return vec, launch_plan(c, p, ldx, vec, sm_count(x.device.index))
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("reduce")
-    ptr, i64 = ctypes.c_void_p, ctypes.c_int64
+    ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     lib.nf_weighted_sum.argtypes = [
-        ptr, i64, ptr, i64, i64, ptr, ptr, ctypes.c_int, ctypes.c_int, ctypes.c_int, ptr,
+        ptr, i64, ptr, i64, i64, ptr, ptr, i32, i32, i32, i64, i64, i32, i64, ptr,
     ]
-    lib.nf_weighted_sum.restype = ctypes.c_int
+    lib.nf_weighted_sum.restype = i32
+    lib.nf_weighted_sum_occupancy.argtypes = [
+        i32, i32, i32, i64, ctypes.POINTER(i32), ctypes.POINTER(i32),
+    ]
+    lib.nf_weighted_sum_occupancy.restype = i32
     return lib
 
 
@@ -56,13 +161,30 @@ def _launch(name: str, x: torch.Tensor, ldx: int, w: torch.Tensor,
             sanitized: bool = False) -> None:
     lib = _lib()
     c, p = x.shape
+    vec, plan = plan_for(x, ldx)
+    check_plan(plan, c, p, ldx, vec)
     with torch.cuda.device(x.device):
         rc = lib.nf_weighted_sum(
             x.data_ptr(), ldx, w.data_ptr(), c, p,
             None if denom is None else denom.data_ptr(), out.data_ptr(),
-            int(accumulate), int(sanitized), vector_width(x, ldx), stream_of(x),
+            int(accumulate), int(sanitized), vec, plan.blocks, plan.slab, plan.stages,
+            plan.shared_bytes, stream_of(x),
         )
     check_launch(lib, name, rc)
+
+
+def kernel_occupancy(device: torch.device, vec: int, accumulate: bool, sanitized: bool,
+                     plan: LaunchPlan) -> tuple[int, int]:
+    """``(registers a thread, blocks an SM holds)`` of the form's kernel on the card,
+    as ``ptxas`` and the occupancy calculator give them at the plan's shared memory."""
+    lib = _lib()
+    regs, per_sm = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(device):
+        rc = lib.nf_weighted_sum_occupancy(vec, int(accumulate), int(sanitized),
+                                           plan.shared_bytes, ctypes.byref(regs),
+                                           ctypes.byref(per_sm))
+    check_launch(lib, "kernel_occupancy", rc)
+    return regs.value, per_sm.value
 
 
 def _denom_tensor(denom: float | torch.Tensor | None, device: torch.device) -> torch.Tensor | None:
