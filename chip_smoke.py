@@ -20,14 +20,22 @@ Phases (any failure exits non-zero):
    every C the main path launches them with (C = 2, 8, 25, 125, 250 and 1000 for B1,
    64, 125 and 1000 for B2, P = 1,199,882); B3 at C = 2 and 125; B5
    (``quantize_u32``), B6 (``dequantize_u32``) and B7 (``add_mask``) bit for bit on
-   ragged sizes, unaligned starts, ties, saturation and both signs, and B7's stream
-   against numpy's Philox at P = 1,199,882; B4 (``dequant_accumulate_flat``) on
-   ragged P, every int8 load width (16, 8, 4, 2 and 1 bytes), C = 1, 9, 64 and 1000,
-   zero weights (exactly ``base``), an explicit ``denom`` and the int8 extremes.  At those shapes each kernel, its plain version
-   and one library call (for B4 the unfused yardstick ``torch.addmv(base,
-   q.float().t(), coefs)``) are timed with CUDA events (median of 30 runs after 5
-   warm-up runs, L2 flushed before each run), beside the least time the card could
-   take.
+   ragged sizes, unaligned starts, ties, saturation and both signs; B7 with k seeds a
+   launch (k = 1, 2, 7, 8, 14, 65 and 999, mixed signs, a seed at +1 and -1 in one
+   launch) against the plain composition, and its stream against numpy's Philox at
+   P = 1,199,882 with one seed and eight; B7's key loop counted by class in the SASS
+   (``cuobjdump -sass``) beside the function's own count, which gives its operations
+   bound; B4
+   (``dequant_accumulate_flat``) on ragged P, every int8 load width (16, 8, 4, 2 and 1
+   bytes), C = 1, 9, 64 and 1000, zero weights (exactly ``base``), an explicit
+   ``denom`` and the int8 extremes, then on the edges of its launch plan and twice for
+   the same bits.  At those shapes each kernel, its plain version and one library
+   call (for B4 the unfused yardstick ``torch.addmv(base, q.float().t(), coefs)``)
+   are timed with CUDA events (median of 30 runs after 5 warm-up runs, L2 flushed
+   before each run), beside the least time the card could take: B7 as a client's
+   masking pass of k = 1, 7, 8, 14 and 999 seeds (its plain version up to k = 8), B4
+   at C = 64 and 1000 with its launch plan.  B7 and B4 are also timed with the host's
+   work hidden behind a device sleep (``kernel_ms``: B7's pass, B4's launch alone).
 3. Slice: the port's entry points on the card at full ``mnist_cnn`` width, (a) the
    2-client tutorial shape (12k + 4k samples, 2 epochs, batch 64, SGD lr 0.1, f32,
    1 round) and (b) the 1000-client flagship (60 samples each, 2 epochs, batch 64,
@@ -49,7 +57,8 @@ Phases (any failure exits non-zero):
    network round, which the coordinator reduces with B1 on the card.  Each round must
    complete, its aggregate must equal the plain weighted FedAvg of the clients' own
    trained params within 1e-4 (secure) or 1e-5 (plain), and the launches of B1 and
-   B5/B6/B7 must equal what the code launches.
+   B5/B6/B7 must equal what the code launches (one B7 per masking client a round, and
+   one per dropout-tolerant recovery).
    Then (i) the autotuned run: ``Coordinator.from_autotune`` at the flagship's shape
    (1000 clients x 60 samples, 2 epochs, bf16, 2 rounds) over a pinned space
    (``client_chunk`` None, 125 or 250 x batch 32 or 64), with the ranked table and the
@@ -84,17 +93,35 @@ from pathlib import Path
 
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12  # f32 outside the tensor cores, H100 SXM data sheet
-# 32-bit integer ALU operations: 64 INT32 lanes per SM (half the 128 FP32 lanes,
-# Hopper white paper), 132 SMs, at the 1.98 GHz boost the 67 TFLOP/s figure assumes.
-H100_INT32_OPS = 132 * 64 * 1.98e9
+H100_SMS, H100_BOOST_HZ = 132, 1.98e9  # the clock the 67 TFLOP/s figure assumes
+# The compute capability 9.0 throughput table (CUDA C++ Programming Guide, "Arithmetic
+# Instructions"), results a clock an SM: 32-bit integer add and subtract, bitwise
+# logic, shifts and multiply(-add) 64 each.  IMAD runs on the FMA pipe, beside the
+# integer ALU that runs IADD3, LOP3, SHF and the like, and a 32x32->64 IMAD.WIDE gives
+# two 32-bit results.  An SM issues at most 4 warp instructions a clock, 128 thread
+# instructions.
+CC90_INT_RESULTS_PER_CLOCK = 64
+CC90_ISSUE_PER_CLOCK = 128
 P_MNIST = 1_199_882
-# Kernel B7's integer work per Philox4x64-10 block (8 output words), counted as 32-bit
-# operations: each of the 10 rounds takes two 64x64->128-bit products (4 partial
-# 32x32->64 products, 8 result words, plus 6 carry adds: 14 each) and two 3-way XORs of
-# 64-bit words (one 32-bit LOP3 per half: 4); then one add or subtract per output word.
-# The key schedule is the same in every thread (it depends only on the key the launch
-# is given), so it is no work per block.
-PHILOX_OPS_PER_BLOCK = 10 * (2 * 14 + 4) + 8
+# Kernel B7's work, the function's own (not a compile's): a Philox4x64-10 block (8
+# output words) is 10 rounds of a 64x64->128 product and XORs.  Round 0's product (of
+# the counter) is the same for every key, so a block of k keys needs 18k + 1 products,
+# each four 32x32->64 multiplies (IMAD.WIDE.U32: 8 FMA-pipe results).  The integer ALU
+# takes a product's 3 carry adds (IADD3 with two carries), a key's 38 XORs (4 three-input
+# LOP3 a round after round 0's 2) and 4 to complement a subtracted mask's words, and 4
+# three-input adds into the 8-word sum; a block's 8 adds into q come once.
+B7_FMA_PER_PRODUCT = 8
+B7_ALU_PER_KEY = 18 * 3 + 38 + 4 + 4
+B7_CHAINS = 3  # keys a key-loop iteration (csrc/quantize.cu kMaskChains)
+# The classes of sass_key_loop's count of the compiled key loop, and the instructions of
+# the integer ALU pipe beside IADD3 and LOP3 (the rest, loads, stores, branches and
+# uniform-datapath instructions, take only issue slots).
+SASS_CLASSES = ("IMAD.WIDE", "IMAD.HI", "IMAD", "LOP3", "IADD3", "other_alu", "other")
+SASS_ALU_OPS = ("SHF", "LEA", "ISETP", "SEL", "PRMT", "MOV", "IADD", "IABS", "IMNMX",
+                "VIADD", "BMSK", "SGXT", "PLOP3", "FLO", "POPC", "BREV", "P2R", "R2P")
+MASK_KS = (1, 2, 7, 8, 14, 65, 999)  # B7's multi-key cases: 65 passes one key tile
+TIMED_MASK_KS = (1, 7, 8, 14, 999)  # (f)'s pass, (g)'s pass, (g)'s recovery, 1000 clients
+MASK_RECORD_K = 8  # the JSON record: (g)'s client pass, 7 peers and the self mask
 SECURE_CLIENTS = 8  # (f) and (g): the cohort of examples/secure_federation, 8 clients
 SECURE_SAMPLES = 600  # per client
 SECURE_TOL = 1e-4  # 8 quantizations at 2^-17 each, plus float32 sums in another order
@@ -125,15 +152,20 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def median_ms(fn, torch, reps: int = 30, warmup: int = 5) -> float:
+def median_ms(fn, torch, reps: int = 30, warmup: int = 5, hide_host_ms: float = 0.0) -> float:
     """Median time of ``fn`` on the card, each run timed alone with CUDA events after
-    overwriting a 256 MB buffer (the 50 MB L2 holds none of the inputs)."""
+    overwriting a 256 MB buffer (the 50 MB L2 holds none of the inputs).  With
+    ``hide_host_ms``, a device sleep of about that long precedes each run, so the host
+    has enqueued ``fn``'s launches before the card reaches them: the time is then the
+    card's alone, whatever the host spends per call."""
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device="cuda")
     for _ in range(warmup):
         fn()
     events = []
     for _ in range(reps):
         flush.zero_()
+        if hide_host_ms:
+            torch.cuda._sleep(int(hide_host_ms * 1e-3 * H100_BOOST_HZ))
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
@@ -509,8 +541,9 @@ def fixed_point_inputs(torch, n: int, frac_bits: int, gen, specials: bool = True
 
 def phase_quantize(torch, ops, card: str) -> dict[str, dict]:
     """Hold B5, B6 and B7 bit for bit against their plain versions (ragged P, unaligned
-    starts, ties, saturation, both signs), check B7's stream against numpy's Philox at
-    P = 1,199,882, and time the three at that size."""
+    starts, ties, saturation, both signs), B7 also with k seeds a launch; check B7's
+    stream against numpy's Philox at P = 1,199,882, one seed and eight; time B5 and B6
+    at that size, and B7 there for each of ``TIMED_MASK_KS``."""
     import numpy as np
 
     from nanofed_tpu_torch.security.secure_agg import _fold_seed_words, _prg_uint32
@@ -536,23 +569,31 @@ def phase_quantize(torch, ops, card: str) -> dict[str, dict]:
                     same_bits(torch, f"add_mask {tag} sign={sign}", ops.add_mask(qv, words, sign),
                               ops.add_mask_plain(qv, words, sign))
                 cases += 4
+    cases += check_mask_cases(torch, ops, rng, gen)
     seed = rng.bytes(32)
     zeros = torch.zeros(P_MNIST, dtype=torch.int32, device="cuda").view(torch.uint32)
     stream = ops.add_mask(zeros, _fold_seed_words(seed), 1).view(torch.int32).cpu().numpy()
     if not (stream.view(np.uint32) == _prg_uint32(seed, P_MNIST)).all():
         fail("add_mask: the kernel's stream at P=1,199,882 differs from numpy's Philox")
+    seeds = [rng.bytes(32) for _ in range(MASK_RECORD_K)]
+    signs = [1, -1, 1, 1, -1, -1, 1, -1][:MASK_RECORD_K]
+    got = ops.add_mask(zeros, np.stack([_fold_seed_words(b) for b in seeds]), signs)
+    want = np.zeros(P_MNIST, np.uint32)
+    for b, sign in zip(seeds, signs):
+        want = want + _prg_uint32(b, P_MNIST) if sign > 0 else want - _prg_uint32(b, P_MNIST)
+    if not (got.view(torch.int32).cpu().numpy().view(np.uint32) == want).all():
+        fail(f"add_mask: {MASK_RECORD_K} seeds in one launch at P=1,199,882 differ from the "
+             "signed sum of numpy's Philox streams (_prg_uint32)")
     print(f"kernels: {cases} quantize/dequantize/mask cases bit-exact with the plain versions; "
-          f"B7's stream at P={P_MNIST} equals numpy's Philox4x64-10 (_prg_uint32)")
+          f"B7's stream at P={P_MNIST} equals numpy's Philox4x64-10 (_prg_uint32), and "
+          f"{MASK_RECORD_K} seeds in one launch equal the signed sum of theirs")
 
     x = fixed_point_inputs(torch, P_MNIST, 16, gen, specials=False)
     qx = ops.quantize_u32(x, 16)
-    words = _fold_seed_words(seed)
     err = {
         "quantize_u32": same_bits(torch, "quantize_u32", qx, ops.quantize_u32_plain(x, 16)),
         "dequantize_u32": same_bits(torch, "dequantize_u32", ops.dequantize_u32(qx, 16),
                                     ops.dequantize_u32_plain(qx, 16)),
-        "add_mask": same_bits(torch, "add_mask", ops.add_mask(qx, words, 1),
-                              ops.add_mask_plain(qx, words, 1)),
     }
     qi = qx.view(torch.int32)
     inv = 1.0 / (1 << 16)
@@ -561,47 +602,256 @@ def phase_quantize(torch, ops, card: str) -> dict[str, dict]:
                          lambda: torch.quantize_per_tensor(x, inv, 0, torch.qint32),
                          lambda out: out.int_repr().view(torch.uint32)),
         "dequantize_u32": ("q.view(torch.int32) * 2^-16", lambda: qi * inv, lambda out: out),
-        "add_mask": None,
     }
     wants = {"quantize_u32": qx, "dequantize_u32": ops.dequantize_u32_plain(qx, 16)}
     n_bytes = 8 * P_MNIST  # each kernel reads 4 bytes and writes 4 bytes an element
     specs = {
-        "quantize_u32": (lambda: ops.quantize_u32(x, 16), lambda: ops.quantize_u32_plain(x, 16),
-                         bound_ms(n_bytes, 2 * P_MNIST)),
+        "quantize_u32": (lambda: ops.quantize_u32(x, 16), lambda: ops.quantize_u32_plain(x, 16)),
         "dequantize_u32": (lambda: ops.dequantize_u32(qx, 16),
-                           lambda: ops.dequantize_u32_plain(qx, 16),
-                           bound_ms(n_bytes, 2 * P_MNIST)),
-        "add_mask": (lambda: ops.add_mask(qx, words, 1), lambda: ops.add_mask_plain(qx, words, 1),
-                     None),
+                           lambda: ops.dequantize_u32_plain(qx, 16)),
     }
-    blocks = -(-P_MNIST // 8)
-    t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
-    t_ops = blocks * PHILOX_OPS_PER_BLOCK / H100_INT32_OPS * 1e3
-    print(f"[{card}] add_mask bound: bytes {n_bytes} / {H100_BYTES_PER_S:.3g} B/s = "
-          f"{t_bytes:.6f} ms; integer work {blocks} Philox blocks x {PHILOX_OPS_PER_BLOCK} "
-          f"32-bit ops / {H100_INT32_OPS:.4g} op/s = {t_ops:.6f} ms")
     records = {}
-    for name, (kernel, plain, bound) in specs.items():
-        b_ms, b_by = bound if bound else ((t_ops, "operations") if t_ops >= t_bytes
-                                          else (t_bytes, "bytes"))
+    for name, (kernel, plain) in specs.items():
+        b_ms, b_by = bound_ms(n_bytes, 2 * P_MNIST)
         ms, plain_ms = median_ms(kernel, torch), median_ms(plain, torch)
         library_ms, lib_note = None, "none computes the same function"
-        if libraries[name] is not None:
-            lib_name, lib_fn, to_bits = libraries[name]
-            try:
-                agrees = torch.equal(to_bits(lib_fn()).view(torch.int32),
-                                     wants[name].view(torch.int32))
-            except (RuntimeError, NotImplementedError) as e:  # a yardstick torch lacks here
-                agrees, lib_note = False, f"{lib_name} unavailable: {e}".splitlines()[0]
-            if agrees:
-                library_ms, lib_note = median_ms(lib_fn, torch), lib_name
-            elif lib_note.startswith("none"):
-                lib_note = f"{lib_name} is not bit-equal to the kernel, so not timed"
+        lib_name, lib_fn, to_bits = libraries[name]
+        try:
+            agrees = torch.equal(to_bits(lib_fn()).view(torch.int32),
+                                 wants[name].view(torch.int32))
+        except (RuntimeError, NotImplementedError) as e:  # a yardstick torch lacks here
+            agrees, lib_note = False, f"{lib_name} unavailable: {e}".splitlines()[0]
+        if agrees:
+            library_ms, lib_note = median_ms(lib_fn, torch), lib_name
+        elif lib_note.startswith("none"):
+            lib_note = f"{lib_name} is not bit-equal to the kernel, so not timed"
         print(f"[{card}] {name} P={P_MNIST}: kernel_ms={ms:.6f} plain_ms={plain_ms:.6f} "
               f"library_ms={library_ms if library_ms is None else f'{library_ms:.6f}'} "
               f"({lib_note}) bound_ms={b_ms:.6f} ({b_by}) max_abs_err={err[name]:.3e}")
         records[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
                              bound_by=b_by, max_abs_err=err[name])
+    records["add_mask"] = time_masks(torch, ops, card, rng)[MASK_RECORD_K]
+    return records
+
+
+def check_mask_cases(torch, ops, rng, gen) -> int:
+    """B7 with k seeds in one launch, bit for bit against the plain composition: each k
+    of ``MASK_KS`` with mixed signs, on ragged n and unaligned starts (k = 999 on the
+    small n only: the plain Philox is slow); and one seed at +1 and -1 in one launch,
+    alone and among others, which must return q exactly."""
+    import numpy as np
+
+    from nanofed_tpu_torch.security.secure_agg import _fold_seed_words
+
+    def words(k):
+        return np.stack([_fold_seed_words(rng.bytes(32)) for _ in range(k)])
+
+    cases = 0
+    for k in MASK_KS:
+        for n in ((1, 5, 1027) if k > 100 else (1, 5, 1027, 40_003)):
+            for start in (0, 1, 3):
+                buf = torch.randint(-(1 << 31), 1 << 31, (n + start,), generator=gen,
+                                    device="cuda", dtype=torch.int32)
+                q = buf[start:].view(torch.uint32)
+                seeds = words(k)
+                signs = [int(v) for v in rng.choice([1, -1], k)]
+                same_bits(torch, f"add_mask k={k} n={n} start={start}",
+                          ops.add_mask(q, seeds, signs), ops.add_mask_plain(q, seeds, signs))
+                cases += 1
+    for n in (7, 1027, P_MNIST):
+        q = torch.randint(-(1 << 31), 1 << 31, (n,), generator=gen, device="cuda",
+                          dtype=torch.int32).view(torch.uint32)
+        a, b, c = words(3)
+        for seeds, signs in (([a, a], [1, -1]), ([a, b, c, b, a], [1, -1, 1, 1, -1])):
+            got = ops.add_mask(q, np.stack(seeds), signs)
+            want = ops.add_mask(q, c, 1) if len(seeds) > 2 else q
+            same_bits(torch, f"add_mask n={n}: a seed at +1 and -1 in one launch", got, want)
+            cases += 1
+    print(f"kernels: B7 with k seeds a launch (k in {MASK_KS}, mixed signs, ragged and "
+          "unaligned n; a seed at +1 and -1 cancels) bit-exact with the plain composition")
+    return cases
+
+
+def sass_class(opcode: str) -> str:
+    """The class of one SASS instruction for B7's count."""
+    for prefix in ("IMAD.WIDE", "IMAD.HI", "IMAD", "LOP3", "IADD3"):
+        if opcode.startswith(prefix):
+            return prefix
+    return "other_alu" if opcode.split(".")[0] in SASS_ALU_OPS else "other"
+
+
+def sass_key_loop(lib_path) -> dict | None:
+    """B7's key loop in the SASS of ``add_mask_kernel<4>`` (``cuobjdump -sass`` of the
+    built library): the innermost loop (a backward branch's body) with the most IMAD,
+    whose body carries ``B7_CHAINS`` keys, by class and per key.  None where cuobjdump
+    or the loop is not found."""
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    try:
+        text = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
+                              timeout=120, check=True).stdout
+    except (OSError, subprocess.SubprocessError):
+        return None
+    body = next((f for f in re.split(r"\n\s*Function : ", text)[1:]
+                 if "add_mask_kernel" in f.split("\n", 1)[0] and "ILi4E" in f.split("\n", 1)[0]),
+                None)
+    if body is None:
+        return None
+    instrs, labels = [], {}  # (address, opcode, operands); label -> address
+    for line in body.splitlines():
+        label = re.match(r"\s*(\.L_x_\d+):", line)
+        if label:
+            labels[label.group(1)] = None  # the next instruction's address
+            continue
+        ins = re.match(r"\s*/\*([0-9a-f]+)\*/\s+(?:@!?U?P[T\d]+\s+)?([A-Z][A-Z0-9_.]*)(.*?);",
+                       line)
+        if ins:
+            addr = int(ins.group(1), 16)
+            labels.update({k: addr for k, v in labels.items() if v is None})
+            instrs.append((addr, ins.group(2), ins.group(3)))
+    loops = []  # (first, last) instruction indices of each backward branch's body
+    index = {addr: i for i, (addr, _, _) in enumerate(instrs)}
+    for i, (addr, op, args) in enumerate(instrs):
+        if not op.startswith("BRA"):
+            continue
+        target = re.search(r"0x([0-9a-f]+)", args)
+        dest = int(target.group(1), 16) if target else labels.get(
+            next(iter(re.findall(r"\.L_x_\d+", args)), ""))
+        if dest is not None and dest <= addr and dest in index:
+            loops.append((index[dest], i))
+    inner = [lp for lp in loops
+             if not any(o != lp and lp[0] <= o[0] and o[1] <= lp[1] for o in loops)]
+    if not inner:
+        return None
+    first, last = max(inner, key=lambda lp: sum(op.startswith("IMAD")
+                                                for _, op, _ in instrs[lp[0]:lp[1] + 1]))
+    counts = dict.fromkeys(SASS_CLASSES, 0.0)
+    for _, op, _ in instrs[first:last + 1]:
+        counts[sass_class(op)] += 1
+    return {k: v / B7_CHAINS for k, v in counts.items()}
+
+
+def mask_bound_ms(n: int, k: int) -> tuple[float, str]:
+    """B7's least time for k masks over n words: its bytes (q read and out written,
+    8n), or its integer work, ceil(n / 8) Philox blocks of 18k + 1 products on the FMA
+    pipe and ``B7_ALU_PER_KEY`` a key (plus 8 adds into q) on the integer ALU, the
+    busier of the two pipes and the issue slots, at the throughput table's rates."""
+    blocks = -(-n // 8)
+    products = 18 * k + 1
+    fma = products * B7_FMA_PER_PRODUCT
+    alu = k * B7_ALU_PER_KEY + 8
+    cycles = max(fma / CC90_INT_RESULTS_PER_CLOCK, alu / CC90_INT_RESULTS_PER_CLOCK,
+                 (fma / 2 + alu) / CC90_ISSUE_PER_CLOCK)
+    t_ops = blocks * cycles / (H100_SMS * H100_BOOST_HZ) * 1e3
+    t_bytes = 8 * n / H100_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def sass_pipes(per_key: dict) -> tuple[float, float]:
+    """FMA-pipe results (an IMAD.WIDE gives two) and integer-ALU instructions a key of
+    a ``sass_key_loop`` count."""
+    fma = 2 * per_key["IMAD.WIDE"] + per_key["IMAD.HI"] + per_key["IMAD"]
+    return fma, per_key["LOP3"] + per_key["IADD3"] + per_key["other_alu"]
+
+
+def mask_pass(ops, q, seeds, signs, plain: bool = False):
+    """A client's masking pass over ``q`` (``plain``: through the plain version): one
+    B7 launch for all of its seeds, or, with an older package whose ``add_mask`` takes
+    one seed (no ``quantize.mask_keys``), one launch a seed."""
+    from nanofed_tpu_torch.ops import quantize
+
+    fn = ops.add_mask_plain if plain else ops.add_mask
+    if hasattr(quantize, "mask_keys"):
+        return fn(q, seeds, signs)
+    for words, sign in zip(seeds, signs):
+        q = fn(q, words, sign)
+    return q
+
+
+def host_ms(fn, torch, reps: int = 30) -> float:
+    """The host's time for one call of ``fn`` (median of ``reps`` calls, each timed on
+    the host clock without waiting for the card)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return statistics.median(times) * 1e3
+
+
+def time_masks(torch, ops, card: str, rng, ks=TIMED_MASK_KS) -> dict[int, dict]:
+    """B7 at P = 1,199,882: a client's masking pass of k seeds for each k of ``ks``,
+    timed on the card as the wrapper's call (``ms``, as every kernel is timed), again
+    with the host's work hidden (``kernel_ms``, ``median_ms(hide_host_ms=...)``: a pass
+    of k single-seed launches costs the host more than the card) and on the host alone,
+    beside the function's bound (``mask_bound_ms``) and, up to k = 8, its plain version
+    (5 runs: it is slow); checked against the host's Philox streams up to k = 14.
+    Prints the compiled key loop's count (``sass_key_loop``) beside the function's, the
+    kernel's registers, the blocks an SM holds and the grid.  Returns each k's record."""
+    import numpy as np
+
+    from nanofed_tpu_torch.ops import _build, quantize
+    from nanofed_tpu_torch.ops.reduce import sm_count
+    from nanofed_tpu_torch.security.secure_agg import _fold_seed_words, _prg_uint32
+
+    if hasattr(quantize, "mask_keys"):  # a package with the multi-key kernel
+        recount = sass_key_loop(_build.library_path("quantize"))
+        if recount is None:
+            print(f"[{card}] add_mask SASS key loop: not counted (no cuobjdump or no loop)")
+        else:
+            fma, alu = sass_pipes(recount)
+            print(f"[{card}] add_mask SASS key loop per Philox block and key: "
+                  f"{json.dumps(recount)}: {fma:.1f} FMA-pipe results and {alu:.1f} ALU "
+                  f"instructions, against the function's {18 * B7_FMA_PER_PRODUCT} and "
+                  f"{B7_ALU_PER_KEY} (the bound's)")
+    if hasattr(quantize, "add_mask_occupancy"):
+        sms = sm_count(0)
+        regs, per_sm = quantize.add_mask_occupancy(torch.device("cuda"))
+        grid = quantize.mask_grid(P_MNIST, sms)
+        print(f"[{card}] add_mask plan at P={P_MNIST}: grid={grid} threads="
+              f"{quantize.MASK_THREADS} per_sm_planned={quantize.MASK_BLOCKS_PER_SM} "
+              f"per_sm_card={per_sm} sms={sms} registers={regs}")
+        if per_sm < quantize.MASK_BLOCKS_PER_SM or grid > sms * per_sm:
+            fail(f"add_mask: the card holds {per_sm} blocks an SM, so {grid} blocks are more "
+                 "than one wave")
+    q = torch.randint(-(1 << 31), 1 << 31, (P_MNIST,), device="cuda",
+                      dtype=torch.int32).view(torch.uint32)
+    records = {}
+    for k in ks:
+        raw = [rng.bytes(32) for _ in range(k)]
+        seeds = np.stack([_fold_seed_words(b) for b in raw])
+        signs = [int(v) for v in rng.choice([1, -1], k)]
+        got = mask_pass(ops, q, seeds, signs)
+        err = "not checked here (k = 999 is checked bit for bit at n = 1027)"
+        if k <= 14:
+            want = q.view(torch.int32).cpu().numpy().view(np.uint32)
+            for b, sign in zip(raw, signs):
+                stream = _prg_uint32(b, P_MNIST)
+                want = want + stream if sign > 0 else want - stream
+            if not (got.view(torch.int32).cpu().numpy().view(np.uint32) == want).all():
+                fail(f"add_mask k={k} at P={P_MNIST}: differs from the host's Philox streams")
+            err = 0.0
+        call = lambda: mask_pass(ops, q, seeds, signs)  # noqa: E731
+        wrapper_ms = host_ms(call, torch)
+        ms = median_ms(call, torch)
+        kernel_ms = median_ms(call, torch, hide_host_ms=2 * wrapper_ms + 0.5)
+        plain_ms = (median_ms(lambda: mask_pass(ops, q, seeds, signs, plain=True), torch,
+                              reps=5, warmup=1) if k <= 8 else None)
+        b_ms, b_by = mask_bound_ms(P_MNIST, k)
+        plain_note = f"{plain_ms:.6f}" if plain_ms is not None else "not measured (k > 8)"
+        print(f"[{card}] add_mask k={k} P={P_MNIST}: ms={ms:.6f} (the call) kernel_ms="
+              f"{kernel_ms:.6f} (host hidden) host_ms={wrapper_ms:.6f} (the wrapper's host "
+              f"time a pass) plain_ms={plain_note} library_ms=None (torch's Philox is another "
+              f"stream) bound_ms={b_ms:.6f} ({b_by}) share_of_bound={b_ms / kernel_ms:.4f} "
+              f"(host hidden) max_abs_err={err}")
+        records[k] = dict(ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=None,
+                          bound_ms=b_ms, bound_by=b_by,
+                          max_abs_err=err if isinstance(err, float) else None)
     return records
 
 
@@ -613,48 +863,68 @@ def int8_rows(torch, c: int, p: int, stride: int, offset: int, gen):
     return buf[offset:offset + c * stride].view(c, stride)[:, :p]
 
 
+# (row stride rule, start offset) -> the int8 load width it allows.
+INT8_LAYOUTS = {16: (16, 0), 8: (8, 8), 4: (4, 4), 2: (2, 2), 1: (1, 1)}
+
+
+def int8_layout(torch, c: int, p: int, want_vec: int, gen):
+    """A [c, p] int8 view whose row stride and start allow exactly ``want_vec``-byte
+    loads (16: the bulk-copy ring)."""
+    multiple, offset = INT8_LAYOUTS[want_vec]
+    stride = -(-p // multiple) * multiple
+    if want_vec < 16 and stride % (2 * multiple) == 0:
+        stride += multiple  # exactly this width, not a wider one
+    return int8_rows(torch, c, p, stride, offset, gen), stride
+
+
+def check_dequant_case(torch, ops, q, gen, tag: str, extremes: bool = False) -> int:
+    """B4 on ``q`` against its plain version, with ``base`` 16-byte aligned and not;
+    zero weights must return ``base`` exactly."""
+    c, p = q.shape
+    if extremes:  # the int8 extremes in every row of the cohort's first rows
+        q[0] = 127
+        q[1] = -127
+        q[2] = -128
+        q[3, ::2] = -128
+        q[3, 1::2] = 127
+    s = torch.rand(c, generator=gen, device="cuda") * 1e-2 + 1e-4
+    w = torch.rand(c, generator=gen, device="cuda") + 0.5
+    base = torch.randn(p + 1, generator=gen, device="cuda")
+    for b in (base[:p], base[1:]):  # 16-byte aligned, then not
+        check_close(torch, tag, ops.dequant_accumulate_flat(q, s, w, b),
+                    ops.dequant_accumulate_flat_plain(q, s, w, b), **TOL)
+        zero = ops.dequant_accumulate_flat(q, s, torch.zeros_like(w), b)
+        torch.cuda.synchronize()
+        if not torch.equal(zero, b):
+            fail(f"{tag}: zero weights must return base exactly")
+    return 2
+
+
 def phase_dequant(torch, ops, card: str) -> dict:
     """Hold B4 against its plain version: ragged P, every int8 load width (a row
     stride and start that allow 16, 8, 4, 2 or 1 bytes), C = 1, 9, 64 and 1000, zero
     weights (exactly ``base``), explicit ``denom`` (float and tensor), the int8
-    extremes, an unaligned ``base``; time it at the epilogue's shapes (C = 64 and
+    extremes, an unaligned ``base``; then on the edges of its launch plan, two launches
+    giving the same bits, and timed with its plan at the epilogue's shapes (C = 64 and
     1000, P = 1,199,882).  Returns the record at C = 64, the epilogue table's C."""
     from nanofed_tpu_torch.ops._common import int8_vector_width
 
     gen = torch.Generator(device="cuda").manual_seed(4)
     cases, widths = 0, set()
-    # (row stride rule, start offset) -> the load width it allows.
-    layouts = {16: (16, 0), 8: (8, 8), 4: (4, 4), 2: (2, 2), 1: (1, 1)}
     for c in (1, 9, 64, 1000):
         for p in (1, 2, 3, 15, 16, 17, 31, 1000, 1333, 4097):
-            for want_vec, (multiple, offset) in layouts.items():
-                stride = -(-p // multiple) * multiple
-                if want_vec < 16 and stride % (2 * multiple) == 0:
-                    stride += multiple  # exactly this width, not a wider one
-                q = int8_rows(torch, c, p, stride, offset, gen)
+            for want_vec in INT8_LAYOUTS:
+                q, stride = int8_layout(torch, c, p, want_vec, gen)
                 widths.add(int8_vector_width(q, stride if c > 1 else p))
-                if c == 9:  # the extremes in every row of the small cohort
-                    q[0] = 127
-                    q[1] = -127
-                    q[2] = -128
-                    q[3, ::2] = -128
-                    q[3, 1::2] = 127
+                tag = f"dequant_accumulate_flat c={c} p={p} vec={want_vec}"
+                cases += check_dequant_case(torch, ops, q, gen, tag, extremes=c == 9)
                 s = torch.rand(c, generator=gen, device="cuda") * 1e-2 + 1e-4
                 w = torch.rand(c, generator=gen, device="cuda") + 0.5
-                base = torch.randn(p + 1, generator=gen, device="cuda")
-                for b in (base[:p], base[1:]):  # 16-byte aligned, then not
-                    tag = f"dequant_accumulate_flat c={c} p={p} vec={want_vec}"
-                    check_close(torch, tag, ops.dequant_accumulate_flat(q, s, w, b),
-                                ops.dequant_accumulate_flat_plain(q, s, w, b), **TOL)
-                    zero = ops.dequant_accumulate_flat(q, s, torch.zeros_like(w), b)
-                    torch.cuda.synchronize()
-                    if not torch.equal(zero, b):
-                        fail(f"{tag}: zero weights must return base exactly")
-                    cases += 2
+                base = torch.randn(p, generator=gen, device="cuda")
                 for denom in (float(c) * 1.5, torch.tensor(2.5, device="cuda")):
-                    check_close(torch, f"dequant_accumulate_flat c={c} p={p} denom",
-                                ops.dequant_accumulate_flat(q, s, w, base[:p], denom),
-                                ops.dequant_accumulate_flat_plain(q, s, w, base[:p], denom),
+                    check_close(torch, f"{tag} denom",
+                                ops.dequant_accumulate_flat(q, s, w, base, denom),
+                                ops.dequant_accumulate_flat_plain(q, s, w, base, denom),
                                 **TOL)
                     cases += 1
     if widths != {16, 8, 4, 2, 1}:
@@ -663,6 +933,69 @@ def phase_dequant(torch, ops, card: str) -> dict:
     print(f"kernels: {cases} dequant_accumulate_flat cases agree with the plain version "
           f"(rtol {TOL['rtol']}, atol {TOL['atol']}; load widths {sorted(widths)}; zero "
           f"weights return base exactly)")
+    check_dequant_edges(torch, ops, gen)
+    check_dequant_determinism(torch, ops, gen)
+    return time_dequant(torch, ops, card, gen)
+
+
+def check_dequant_edges(torch, ops, gen) -> None:
+    """B4 on the edges of its launch plan: P below one 16-byte unit, one unit and a
+    few, around each largest grid of minimum slabs (the ring's at one and two blocks an
+    SM, the 8-byte register path's: -16, -1, 0, +1, +16 columns) and 1,199,882; C = 1,
+    3 and 40; load widths 16, 8, 2 and 1."""
+    from nanofed_tpu_torch.ops.reduce import (
+        MIN_SLAB_UNITS,
+        REGISTER_BLOCKS_PER_SM,
+        RING_BLOCKS_PER_SM,
+    )
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    edges = [sms * MIN_SLAB_UNITS * 16 * k for k in (1, RING_BLOCKS_PER_SM)]
+    edges.append(sms * REGISTER_BLOCKS_PER_SM * MIN_SLAB_UNITS * 8)
+    ps = [1, 2, 15, 16, 17, 33, *(e + d for e in edges for d in (-16, -1, 0, 1, 16)), P_MNIST]
+    cases = 0
+    for c in (1, 3, 40):
+        for p in ps:
+            for want_vec in (16, 8, 2, 1):
+                q, _ = int8_layout(torch, c, p, want_vec, gen)
+                cases += check_dequant_case(torch, ops, q, gen,
+                                            f"dequant_accumulate_flat edge c={c} p={p} "
+                                            f"vec={want_vec}")
+                del q
+        torch.cuda.empty_cache()
+    print(f"kernels: {cases} B4 cases on the launch plan's edges agree with the plain version "
+          f"(rtol {TOL['rtol']}, atol {TOL['atol']}; C 1, 3 and 40; P {ps}; load widths 16, 8, "
+          "2 and 1)")
+
+
+def check_dequant_determinism(torch, ops, gen) -> None:
+    """Two launches of B4 at C = 64 and 1000 (rows padded to 16 bytes, P = 1,199,882)
+    must give the same bits."""
+    for c in (EPILOGUE_CLIENTS, 1000):
+        q = int8_rows(torch, c, P_MNIST, -(-P_MNIST // 16) * 16, 0, gen)
+        s = torch.rand(c, generator=gen, device="cuda") * 1e-2 + 1e-4
+        w = torch.rand(c, generator=gen, device="cuda") + 0.5
+        base = torch.randn(P_MNIST, generator=gen, device="cuda")
+        a = ops.dequant_accumulate_flat(q, s, w, base)
+        b = ops.dequant_accumulate_flat(q, s, w, base)
+        torch.cuda.synchronize()
+        if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+            fail(f"dequant_accumulate_flat C={c}: two launches gave different bits")
+        del q
+        torch.cuda.empty_cache()
+    print(f"kernels: B4 gives the same bits twice at C = {EPILOGUE_CLIENTS} and 1000, "
+          f"P = {P_MNIST}")
+
+
+def time_dequant(torch, ops, card: str, gen) -> dict:
+    """Time B4 at C = 64 and 1000 (P = 1,199,882, rows padded to 16 bytes, as the
+    epilogue table allocates them): the wrapper's call (``ms``, as every kernel is
+    timed: the coefficients' small tensor ops and the kernel) and, where the package
+    has ``quantize.dequant_launch``, the kernel alone with the host's work hidden
+    (``kernel_ms``); the call's host time, the plain version, the unfused yardstick,
+    the bound, and the launch plan with the kernel's registers.  Returns the record at
+    C = 64."""
+    from nanofed_tpu_torch.ops import quantize
 
     record = {}
     p = P_MNIST
@@ -675,21 +1008,57 @@ def phase_dequant(torch, ops, card: str) -> dict:
         err = check_close(torch, f"dequant_accumulate_flat C={c}",
                           ops.dequant_accumulate_flat(q, s, w, base),
                           ops.dequant_accumulate_flat_plain(q, s, w, base), **TOL)
-        ms = median_ms(lambda: ops.dequant_accumulate_flat(q, s, w, base), torch)
+        call = lambda: ops.dequant_accumulate_flat(q, s, w, base)  # noqa: E731
+        wrapper_ms = host_ms(call, torch)
+        ms = median_ms(call, torch)
+        kernel_ms = None
+        if hasattr(quantize, "dequant_launch"):
+            out = torch.empty(p, device="cuda")
+            launch = lambda: quantize.dequant_launch(q, q.stride(0), coefs, base, out)  # noqa: E731
+            launch()
+            check_close(torch, f"dequant_accumulate_flat C={c} kernel alone", out,
+                        ops.dequant_accumulate_flat_plain(q, s, w, base), **TOL)
+            kernel_ms = median_ms(launch, torch, hide_host_ms=2 * wrapper_ms + 0.5)
         plain_ms = median_ms(lambda: ops.dequant_accumulate_flat_plain(q, s, w, base), torch)
         yard_ms = median_ms(lambda: torch.addmv(base, q.float().t(), coefs), torch)
         b_ms, b_by = bound_ms(c * p + 8 * p + 12 * c, 2 * c * p)
-        print(f"[{card}] dequant_accumulate_flat C={c} P={p}: kernel_ms={ms:.6f} "
-              f"plain_ms={plain_ms:.6f} yardstick_ms={yard_ms:.6f} (the unfused pair "
-              f"torch.addmv(base, q.float().t(), coefs): no single PyTorch call takes "
-              f"int8 with float coefficients) bound_ms={b_ms:.6f} ({b_by}) "
-              f"max_abs_err={err:.3e}")
+        kernel_note = ("not measured (no dequant_launch)" if kernel_ms is None else
+                       f"{kernel_ms:.6f} (the launch alone, host hidden; share_of_bound="
+                       f"{b_ms / kernel_ms:.4f})")
+        line = (f"[{card}] dequant_accumulate_flat C={c} P={p}: ms={ms:.6f} (the call; "
+                f"share_of_bound={b_ms / ms:.4f}) kernel_ms={kernel_note} host_ms="
+                f"{wrapper_ms:.6f} plain_ms={plain_ms:.6f} yardstick_ms={yard_ms:.6f} (the "
+                f"unfused pair torch.addmv(base, q.float().t(), coefs): no single PyTorch call "
+                f"takes int8 with float coefficients) bound_ms={b_ms:.6f} ({b_by}) "
+                f"max_abs_err={err:.3e}")
+        if hasattr(quantize, "dequant_occupancy"):
+            line += " " + dequant_plan_line(torch, q)
+        print(line)
         if c == EPILOGUE_CLIENTS:
-            record = dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
-                          bound_by=b_by, max_abs_err=err)
+            record = dict(ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=None,
+                          bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
         del q
         torch.cuda.empty_cache()
     return record
+
+
+def dequant_plan_line(torch, q) -> str:
+    """B4's launch plan over ``q`` with what the card makes of it; fails if the grid
+    is more than one wave."""
+    from nanofed_tpu_torch.ops.quantize import dequant_occupancy
+    from nanofed_tpu_torch.ops.reduce import plan_for, sm_count
+
+    ldq = q.stride(0) if q.shape[0] > 1 else q.shape[1]
+    vec, plan = plan_for(q, ldq)
+    regs, per_sm = dequant_occupancy(q.device, vec, plan)
+    sms = sm_count(q.device.index)
+    if plan.blocks > sms * per_sm or per_sm < plan.per_sm:
+        fail(f"dequant plan {plan}: the card holds {per_sm} blocks an SM ({sms} SMs), so the "
+             "grid is more than one wave")
+    return (f"plan: vec={vec} path={'ring' if plan.stages else 'registers'} "
+            f"blocks={plan.blocks} slab={plan.slab} stages={plan.stages} "
+            f"shared_bytes={plan.shared_bytes} per_sm_planned={plan.per_sm} "
+            f"per_sm_card={per_sm} sms={sms} registers={regs}")
 
 
 def train_client(torch, local_fit, params, data, client: int, rnd: int):
@@ -865,23 +1234,20 @@ def phase_secure(torch, ops, card: str) -> dict[str, int]:
               f"wall_s={wall:.3f} history={history} launches={grew}")
         if [h["status"] for h in history] != ["COMPLETED"] * rounds:
             fail(f"{name}: rounds {history}")
-        # Launches from the code: each client's mask_update is one B5 plus one B7 per
-        # peer of the round's cohort (plus its self mask when tolerant); the server's
-        # unmask is one B6 a round, and the tolerant recovery one B7 per survivor's self
-        # mask plus one per (dropped, survivor) pair.  The plain round's aggregate is one
-        # B1 (normalised form) over the stacked [8, P] params a round.
+        # Launches from the code: each masking client's mask_update is one B5 and one B7
+        # (every peer's mask and, when tolerant, its self mask); the server's unmask is
+        # one B6 a round, and the tolerant recovery one B7 a round (every survivor's self
+        # mask and every orphaned pair mask).  The plain round's aggregate is one B1
+        # (normalised form) over the stacked [8, P] params a round.
         tolerant = secure is not None and secure.dropout_tolerant
         want = dict.fromkeys(grew, 0)
         for r in range(rounds):
             if secure is None:
                 want["weighted_mean_flat"] += 1
                 continue
-            cohort = n
             survivors = n - (1 if drop is not None and r >= 1 else 0)
             want["quantize_u32"] += survivors
-            want["add_mask"] += survivors * ((cohort - 1) + (1 if tolerant else 0))
-            if tolerant:
-                want["add_mask"] += survivors + survivors * (cohort - survivors)
+            want["add_mask"] += survivors + (1 if tolerant else 0)
             want["dequantize_u32"] += 1
         if grew != want:
             fail(f"{name}: kernel launches {grew}, expected {want}")

@@ -128,6 +128,15 @@ def vector_width(x: torch.Tensor, ldx: int) -> int:
     return 1
 
 
+def to_device(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """A small host tensor (a kernel's argument table) on ``device``: on a card, a
+    copy from pinned memory on the current stream, so the host does not wait for the
+    card (PyTorch keeps the pinned buffer until the copy has run)."""
+    if device.type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 def stream_of(t: torch.Tensor) -> ctypes.c_void_p:
     """PyTorch's current stream on ``t``'s device, as the kernels take it."""
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)

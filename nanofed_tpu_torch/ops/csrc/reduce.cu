@@ -63,110 +63,36 @@
 // and two launches give the same bits.  The one exception is the aligned layout's
 // ragged right edge (P % 4 columns of a padded row): bulk copies cannot take them,
 // so 31 lanes of the producer warp sum them over interleaved rows while the ring
-// streams, and the 31 partial sums are added in a fixed order at the end.  The
+// streams, and the 31 partial sums are added in a fixed order at the end.  (B4 in
+// quantize.cu sums its wider edge, up to 15 bytes a row, after its ring; its note
+// says why.  How the two forms compare here is not measured.)  The
 // normalised form divides by max(denom or sum(w), 1e-12), not by a reciprocal; the
 // accumulate form reads out once and writes it once, in place.
 #include "common.cuh"
 
 namespace {
 
+using nanofed::bulk_copy_g2s;
+using nanofed::imin;
+using nanofed::kBulkThreads;
+using nanofed::kConsumers;
+using nanofed::kConsumerWarps;
+using nanofed::kMaxStages;
+using nanofed::kStageUnits;
+using nanofed::kTailLanes;
 using nanofed::kThreads;
+using nanofed::mbar_arrive;
+using nanofed::mbar_arrive_expect_tx;
+using nanofed::mbar_init;
+using nanofed::mbar_wait;
+using nanofed::Slab;
+using nanofed::slab_of;
 
-constexpr int kConsumers = kThreads;            // the ring's consumer threads
-constexpr int kConsumerWarps = kConsumers / 32;
-constexpr int kBulkThreads = kConsumers + 32;   // + one producer warp
-constexpr int kStageUnits = 1024;               // 16-byte units a ring stage holds
-constexpr int kStageBytes = kStageUnits * 16;   // 16 KB
 constexpr int kUnitsPerThread = kStageUnits / kConsumers;
-constexpr int kMinStages = 2;
-constexpr int kMaxStages = 8;
-constexpr int kTailLanes = 31;                  // producer-warp lanes 1..31
-constexpr int kMaxBlockShared = 232448;         // 227 KB, a block's dynamic limit
 
 // isfinite(v) ? v : 0, on the bits: v is NaN or +-inf iff its exponent is all ones.
 __device__ __forceinline__ float sanitize(float v) {
   return (__float_as_uint(v) & 0x7f800000u) == 0x7f800000u ? 0.f : v;
-}
-
-__device__ __forceinline__ int64_t imin(int64_t a, int64_t b) { return a < b ? a : b; }
-
-// The slab of columns this block owns, in units of VEC floats: P is cut into
-// U = ceil(P / VEC) units, the last U % gridDim.x blocks take one unit more (so the
-// last slab, whose final unit may be partial, is never the narrowest by more than
-// one unit).
-struct Slab {
-  int64_t u0;     // first unit
-  int64_t units;  // unit count
-};
-
-__device__ __forceinline__ Slab slab_of(int64_t units_total) {
-  const int64_t b = blockIdx.x;
-  const int64_t base = units_total / gridDim.x;
-  const int64_t first_wide = gridDim.x - units_total % gridDim.x;
-  return {b * base + (b > first_wide ? b - first_wide : 0), base + (b >= first_wide ? 1 : 0)};
-}
-
-// ---- mbarriers and bulk copies (sm_90) -------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint32_t addr, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n"
-      "}\n"
-      : "=r"(done)
-      : "r"(addr), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-
-__device__ __forceinline__ uint64_t global_ns() {
-  uint64_t t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
-// Wait until the phase of parity `parity` of `bar` has completed.  A wait that
-// never ends (a ring whose arrivals and copies do not match) traps after 10 s, so
-// the launch fails with an error instead of holding the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_addr(bar);
-  if (mbar_try_wait(addr, parity)) return;
-  const uint64_t start = global_ns();
-  while (!mbar_try_wait(addr, parity)) {
-    if (global_ns() - start > 10000000000ull) __trap();
-  }
-}
-
-// Copy `bytes` (a multiple of 16; both addresses 16-byte aligned) from global to
-// shared memory; completion counts against `bar`'s transaction bytes.
-__device__ __forceinline__ void bulk_copy_g2s(void* dst, const void* src, uint32_t bytes,
-                                              uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
 }
 
 // max(denom or sum(w), 1e-12), computed by one warp: lane l sums w[l], w[l+32], ...
@@ -210,7 +136,7 @@ __global__ void __launch_bounds__(kBulkThreads, 2) weighted_sum_ring(
       mbar_init(&full[s], 1);                 // the producer's arrive.expect_tx
       mbar_init(&empty[s], kConsumerWarps);   // one arrive per consumer warp
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    nanofed::mbar_fence_init();
   }
   __syncthreads();
 
@@ -399,47 +325,13 @@ __global__ void __launch_bounds__(kThreads, 6) weighted_sum_regs(
   }
 }
 
-// ---- the launch plan and its checks ----------------------------------------------
-
-// The plan the host computed (ops/reduce.py launch_plan): `blocks` slabs of `slab`
-// floats (the narrower width), and for the ring `stages` stages in `shared_bytes`
-// of dynamic shared memory.  False for a plan this file cannot run.
-bool plan_ok(int vec, int64_t P, int64_t blocks, int64_t slab, int stages,
-             int64_t shared_bytes) {
-  if (vec != 4 && vec != 2 && vec != 1) return false;
-  const int64_t units = (P + vec - 1) / vec;
-  if (blocks < 1 || blocks > units || blocks > 0x7fffffff) return false;
-  if (slab != (units / blocks) * vec) return false;
-  if (vec == 4) {
-    return stages >= kMinStages && stages <= kMaxStages &&
-           shared_bytes == static_cast<int64_t>(stages) * kStageBytes &&
-           shared_bytes <= kMaxBlockShared;
-  }
-  return stages == 0 && shared_bytes == 0;
-}
+// ---- the launch and its checks ---------------------------------------------------
 
 template <bool ACCUMULATE, bool SANITIZE>
 cudaError_t prepare_ring() {
-  // Once per instantiation and device: allow the ring's dynamic shared memory above
-  // 48 KB, and prefer shared memory over L1 (the ring bypasses L1).
   static bool done[64] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < 64 && done[dev]) return cudaSuccess;
   auto kernel = weighted_sum_ring<ACCUMULATE, SANITIZE>;
-  cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, kernel);
-  if (err != cudaSuccess) return err;
-  // The block's limit covers static and dynamic shared memory together.
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kMaxBlockShared - static_cast<int>(attr.sharedSizeBytes));
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                             cudaSharedmemCarveoutMaxShared);
-  if (err != cudaSuccess) return err;
-  if (dev < 64) done[dev] = true;
-  return cudaSuccess;
+  return nanofed::prepare_ring(reinterpret_cast<const void*>(kernel), done);
 }
 
 template <bool ACCUMULATE, bool SANITIZE>
@@ -510,7 +402,8 @@ extern "C" int nf_weighted_sum(const float* x, int64_t ldx, const float* w, int6
                                int sanitized, int vec, int64_t blocks, int64_t slab,
                                int stages, int64_t shared_bytes, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (C < 1 || P < 1 || ldx < P || !plan_ok(vec, P, blocks, slab, stages, shared_bytes)) {
+  if (C < 1 || P < 1 || ldx < P ||
+      !nanofed::plan_ok(vec, 4, P, blocks, slab, stages, shared_bytes)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (vec > 1 && (ldx % vec != 0 || reinterpret_cast<uintptr_t>(x) % (4 * vec) != 0)) {
@@ -542,11 +435,6 @@ extern "C" int nf_weighted_sum_occupancy(int vec, int accumulate, int sanitized,
   }
   int threads = 0;
   const void* kernel = kernel_of(vec, accumulate != 0, sanitized != 0, &threads);
-  cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  *registers = attr.numRegs;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, threads,
-                                                      static_cast<size_t>(shared_bytes));
-  return static_cast<int>(err);
+  return static_cast<int>(
+      nanofed::occupancy(kernel, threads, shared_bytes, registers, blocks_per_sm));
 }

@@ -12,8 +12,10 @@ and the design.
   ``base + coefs @ float(q)`` with ``coefs = (w * s) / max(denom or sum(w), 1e-12)``
   in float32, one read of the int8 stack; the dequantized float stack never exists.
   The TPU's padding of C to 32 and of P to 512 lanes is a tiling rule and is left
-  out: the kernel takes any C and P, and a row stride padded to 16 bytes (as the
-  callers allocate it) lets it load 16 bytes at a time.
+  out: the kernel takes any C and P.  It runs on B1's template: a persistent grid
+  planned on the host (``ops.reduce.launch_plan`` with ``itemsize=1``), and on rows
+  whose stride and start are 16-byte multiples (as the callers allocate them) the
+  bulk-copy ring.
 
 * B5: float32 ``[n]`` -> uint32 ``[n]``, ``bits(int32(round_half_even(x * 2^frac)))``.
   Inside the secure-aggregation contract (``|x * 2^frac| < 2^31``) this is the JAX
@@ -21,12 +23,13 @@ and the design.
   ``INT32_MAX`` and NaN gives 0, in the kernel and in :func:`quantize_u32_plain` alike.
 * B6: uint32 ``[n]`` -> float32 ``[n]``, ``float(int32(q)) * 2^-frac``: one rounding,
   so on a modular sum it equals ``np.float32(secure_agg.dequantize(total))`` exactly.
-* B7: ``q + m`` or ``q - m`` modulo 2^32, where ``m`` is numpy's Philox4x64-10 stream
-  (``np.random.Philox``) under the 128-bit key formed from the four folded seed words
-  ``(w0 | w1 << 32, w2 | w3 << 32)``.  That is the key the host backend derives from
-  the same 32-byte seed (``secure_agg._prg_uint32``), so the card's mask equals the
-  host's mask bit for bit.  (The TPU kernel draws the TPU core's own random bits, a
-  stream no other device reproduces.)
+* B7: ``q + sum_j sign_j * m_j`` modulo 2^32 over k seeds in one launch, where
+  ``m_j`` is numpy's Philox4x64-10 stream (``np.random.Philox``) under the 128-bit key
+  formed from seed j's four folded words ``(w0 | w1 << 32, w2 | w3 << 32)``.  That
+  is the key the host backend derives from the same 32-byte seed
+  (``secure_agg._prg_uint32``), so the card's masks equal the host's bit for bit.  A
+  client adds all of its masks in one launch.  (The TPU kernel draws the TPU core's
+  own random bits, a stream no other device reproduces.)
 
 uint32 vectors are ``torch.uint32`` tensors (the wire arrays are numpy ``uint32``).
 PyTorch has few uint32 ops, so the plain versions carry the bits in int64 tensors
@@ -50,11 +53,12 @@ from nanofed_tpu_torch.ops._common import (
     check_int8_rows,
     check_launch,
     check_vector,
-    int8_vector_width,
     kernel_launched,
     stream_of,
+    to_device,
     uses_kernel,
 )
+from nanofed_tpu_torch.ops.reduce import LaunchPlan, check_plan, plan_for, sm_count
 
 _LOW32 = 0xFFFFFFFF
 _INT32_MIN, _INT32_MAX = -(1 << 31), (1 << 31) - 1
@@ -64,17 +68,31 @@ PHILOX_M0, PHILOX_M1 = 0xD2E7470EE14C6C93, 0xCA5A826395121157
 PHILOX_W0, PHILOX_W1 = 0x9E3779B97F4A7C15, 0xBB67AE8584CAA73B
 PHILOX_ROUNDS = 10
 
+# B7's grid, as csrc/quantize.cu has it: one thread per Philox block (8 words), 256
+# threads a block, __launch_bounds__(256, 5); each block covers an equal range of
+# Philox blocks (to within one), at least a warp's.
+MASK_THREADS = 256
+MASK_BLOCKS_PER_SM = 5
+MASK_MIN_SPAN = 32
+
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("quantize")
-    ptr, i64, u64, c_int = ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint64, ctypes.c_int
+    ptr, i64, c_int = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     lib.nf_quantize_u32.argtypes = [ptr, ptr, i64, ctypes.c_float, c_int, ptr]
     lib.nf_dequantize_u32.argtypes = [ptr, ptr, i64, ctypes.c_float, c_int, ptr]
-    lib.nf_add_mask.argtypes = [ptr, ptr, i64, u64, u64, c_int, c_int, ptr]
-    lib.nf_dequant_accumulate.argtypes = [ptr, i64, ptr, i64, i64, ptr, c_int, ptr, c_int, ptr]
+    lib.nf_add_mask.argtypes = [ptr, ptr, i64, ptr, ptr, c_int, c_int, c_int, i64, ptr]
+    lib.nf_add_mask_inline_keys.argtypes = []
+    lib.nf_dequant_accumulate.argtypes = [
+        ptr, i64, ptr, i64, i64, ptr, c_int, ptr, c_int, i64, i64, c_int, i64, ptr,
+    ]
+    int_out = ctypes.POINTER(c_int)
+    lib.nf_add_mask_occupancy.argtypes = [int_out, int_out]
+    lib.nf_dequant_accumulate_occupancy.argtypes = [c_int, i64, int_out, int_out]
     for fn in (lib.nf_quantize_u32, lib.nf_dequantize_u32, lib.nf_add_mask,
-               lib.nf_dequant_accumulate):
+               lib.nf_add_mask_inline_keys, lib.nf_dequant_accumulate, lib.nf_add_mask_occupancy,
+               lib.nf_dequant_accumulate_occupancy):
         fn.restype = ctypes.c_int
     return lib
 
@@ -223,41 +241,97 @@ def philox_stream_plain(key: tuple[int, int], n: int) -> np.ndarray:
     return halves.astype(np.uint32).reshape(-1)[:n]
 
 
-def add_mask_plain(
-    q: torch.Tensor, seed: int | Sequence[int] | np.ndarray, sign: int
-) -> torch.Tensor:
-    """Plain version of :func:`add_mask`: the explicit Philox stream, then the same
-    modular add or subtract in int64."""
-    mask = torch.from_numpy(philox_stream_plain(seed_key(seed), q.shape[0]).astype(np.int64))
-    bits = _bits(q)
-    return _from_bits(bits + mask.to(q.device) if sign > 0 else bits - mask.to(q.device))
+Seeds = int | Sequence[int] | Sequence[Sequence[int]] | np.ndarray
+Signs = int | Sequence[int]
 
 
-def add_mask(
-    q: torch.Tensor, seed: int | Sequence[int] | np.ndarray, sign: int
-) -> torch.Tensor:
-    """uint32 ``[n]`` -> ``q + PRG(seed)`` (``sign`` > 0) or ``q - PRG(seed)``
-    (``sign`` < 0), modulo 2^32, as a new tensor.  ``seed`` is four 32-bit words (128
-    seed bits) or a scalar; the mask is numpy's Philox4x64-10 stream under
-    :func:`seed_key`, so two parties with one seed and opposite signs cancel exactly
-    and the stream equals the host backend's for the same 32-byte seed."""
+def mask_keys(seeds: Seeds, signs: Signs) -> tuple[np.ndarray, np.ndarray]:
+    """The Philox keys and signs of one :func:`add_mask` call, as ``[k, 2]`` uint64
+    keys (:func:`seed_key` of each seed) and ``k`` int signs: one seed (a scalar or
+    four words) with an int sign, or a ``[k, 4]`` array of seed words with ``k``
+    signs.  Every sign is +1 or -1; ``k = 0`` raises."""
+    words = np.asarray(seeds, dtype=np.int64)
+    if words.ndim <= 1:
+        keys = np.array([seed_key(words)], dtype=np.uint64)
+        sign_arr = np.asarray(signs).reshape(1) if np.ndim(signs) == 0 else None
+    elif words.ndim == 2 and words.shape[1] == 4:
+        w = (words & _LOW32).astype(np.uint64)
+        shift = np.uint64(32)
+        keys = np.stack([w[:, 0] | (w[:, 1] << shift), w[:, 2] | (w[:, 3] << shift)], axis=1)
+        sign_arr = np.asarray(signs).reshape(-1) if np.ndim(signs) == 1 else None
+    else:
+        raise ValueError(f"add_mask: seeds must be one seed or [k, 4] words, got shape "
+                         f"{words.shape}")
+    if not len(keys):
+        raise ValueError("add_mask: no seeds (k = 0)")
+    if sign_arr is None or sign_arr.size != len(keys):
+        raise ValueError(f"add_mask: {len(keys)} seeds need {len(keys)} signs, got {signs!r}")
+    if not np.isin(sign_arr, (1, -1)).all():
+        raise ValueError(f"add_mask: sign must be +1 or -1, got {signs!r}")
+    return keys, sign_arr.astype(np.int64)
+
+
+def add_mask_plain(q: torch.Tensor, seeds: Seeds, signs: Signs) -> torch.Tensor:
+    """Plain version of :func:`add_mask`: each seed's explicit Philox stream, summed
+    with its sign into ``q``'s bits in int64, then taken modulo 2^32."""
+    keys, sign_arr = mask_keys(seeds, signs)
+    total = _bits(q)
+    for (k0, k1), sign in zip(keys, sign_arr):
+        mask = philox_stream_plain((int(k0), int(k1)), q.shape[0]).astype(np.int64)
+        total = total + int(sign) * torch.from_numpy(mask).to(q.device)
+    return _from_bits(total)
+
+
+def mask_grid(n: int, sms: int) -> int:
+    """B7's block count over ``n`` words on a card of ``sms`` SMs: ``sms x
+    MASK_BLOCKS_PER_SM`` blocks (one wave, the same number on every SM), fewer where a
+    block would cover less than ``MASK_MIN_SPAN`` Philox blocks."""
+    philox_blocks = -(-max(n, 1) // 8)
+    return max(1, min(sms * MASK_BLOCKS_PER_SM, philox_blocks // MASK_MIN_SPAN))
+
+
+def add_mask(q: torch.Tensor, seeds: Seeds, signs: Signs) -> torch.Tensor:
+    """uint32 ``[n]`` -> ``q + sum_j sign_j * PRG(seed_j)`` modulo 2^32, as a new
+    tensor, in one launch whatever the number of seeds.  ``seeds`` is one seed (four
+    32-bit words, 128 seed bits, or a scalar) with ``signs`` +1 (add) or -1
+    (subtract), or a ``[k, 4]`` array of seed words with ``k`` signs.  Each mask is
+    numpy's Philox4x64-10 stream under :func:`seed_key`, so two parties with one seed
+    and opposite signs cancel exactly and the stream equals the host backend's for
+    the same 32-byte seed."""
     _check_flat("add_mask", "q", q, torch.uint32)
-    if sign not in (1, -1):
-        raise ValueError(f"add_mask: sign must be +1 or -1, got {sign}")
+    keys, sign_arr = mask_keys(seeds, signs)
     if not uses_kernel(q):
-        return add_mask_plain(q, seed, sign)
-    k0, k1 = seed_key(seed)
+        return add_mask_plain(q, seeds, signs)
+    # The table of keys and signs, [k, 3] words (k0, k1, subtract): in the launch's
+    # parameters up to the kernel's limit, else copied to the card on its stream.
+    table = np.concatenate([keys, (sign_arr < 0).astype(np.uint64)[:, None]], axis=1)
+    n = q.shape[0]
     out = torch.empty_like(q)
     lib = _lib()
+    device_keys = None
+    if len(keys) > lib.nf_add_mask_inline_keys():
+        device_keys = to_device(torch.from_numpy(table.view(np.int64)), q.device)
     with torch.cuda.device(q.device):
-        rc = lib.nf_add_mask(q.data_ptr(), out.data_ptr(), q.shape[0], k0, k1,
-                             int(sign < 0), _vec(q, out), stream_of(q))
+        rc = lib.nf_add_mask(q.data_ptr(), out.data_ptr(), n, table.ctypes.data,
+                             None if device_keys is None else device_keys.data_ptr(), len(keys),
+                             int((sign_arr < 0).sum()), _vec(q, out),
+                             mask_grid(n, sm_count(q.device.index)), stream_of(q))
     check_launch(lib, "add_mask", rc)
-    kernel_launched(add_mask, 8 * q.shape[0])
+    kernel_launched(add_mask, 8 * n)
     return out
 
 
 add_mask.launches = 0
+
+
+def add_mask_occupancy(device: torch.device) -> tuple[int, int]:
+    """``(registers a thread, blocks an SM holds)`` of B7's kernel on the card."""
+    lib = _lib()
+    regs, per_sm = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(device):
+        rc = lib.nf_add_mask_occupancy(ctypes.byref(regs), ctypes.byref(per_sm))
+    check_launch(lib, "add_mask_occupancy", rc)
+    return regs.value, per_sm.value
 
 
 # ---------------------------------------------------------------------------
@@ -294,7 +368,7 @@ def dequant_accumulate_flat(
     the int8 stack.  ``denom`` defaults to ``sum(w)`` (the weighted mean) and is floored
     at 1e-12, so all-zero weights return ``base`` exactly.  ``q`` is int8 (anything
     else raises ``TypeError``) with contiguous rows; its row stride may exceed P (a
-    16-byte stride gives the kernel its widest loads).  ``base`` is a contiguous
+    16-byte stride gives the kernel its bulk-copy ring).  ``base`` is a contiguous
     float32 ``[P]``."""
     c, p, ldq = check_int8_rows("dequant_accumulate_flat", q)
     for what, v in (("scales", scales), ("weights", weights)):
@@ -307,16 +381,40 @@ def dequant_accumulate_flat(
         return dequant_accumulate_flat_plain(q, scales, weights, base, denom)
     coefs = _dequant_coefs(scales, weights, denom).contiguous()  # O(C), beside the kernel
     out = torch.empty(p, dtype=torch.float32, device=q.device)
-    lib = _lib()
-    with torch.cuda.device(q.device):
-        rc = lib.nf_dequant_accumulate(q.data_ptr(), ldq, coefs.data_ptr(), c, p,
-                                       base.data_ptr(), int(base.data_ptr() % 16 == 0),
-                                       out.data_ptr(), int8_vector_width(q, ldq), stream_of(q))
-    check_launch(lib, "dequant_accumulate_flat", rc)
+    dequant_launch(q, ldq, coefs, base, out)
     # Bytes: the int8 stack once, base read and out written, and the C-sized scales,
     # weights and coefficients.
     kernel_launched(dequant_accumulate_flat, c * p + 8 * p + 12 * c)
     return out
 
 
+def dequant_launch(q: torch.Tensor, ldq: int, coefs: torch.Tensor, base: torch.Tensor,
+                   out: torch.Tensor) -> None:
+    """One launch of B4's kernel on CUDA tensors whose coefficients are formed: ``out =
+    base + coefs @ float(q)``.  The wrapper's checks are done by the caller, and no
+    launch is counted."""
+    c, p = q.shape
+    vec, plan = plan_for(q, ldq)
+    check_plan(plan, c, p, ldq, vec, itemsize=1)
+    lib = _lib()
+    with torch.cuda.device(q.device):
+        rc = lib.nf_dequant_accumulate(
+            q.data_ptr(), ldq, coefs.data_ptr(), c, p, base.data_ptr(),
+            int(base.data_ptr() % 16 == 0), out.data_ptr(), vec, plan.blocks, plan.slab,
+            plan.stages, plan.shared_bytes, stream_of(q))
+    check_launch(lib, "dequant_accumulate_flat", rc)
+
+
 dequant_accumulate_flat.launches = 0
+
+
+def dequant_occupancy(device: torch.device, vec: int, plan: LaunchPlan) -> tuple[int, int]:
+    """``(registers a thread, blocks an SM holds)`` of B4's kernel for a launch of
+    load width ``vec`` on the card, at the plan's shared memory."""
+    lib = _lib()
+    regs, per_sm = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(device):
+        rc = lib.nf_dequant_accumulate_occupancy(vec, plan.shared_bytes, ctypes.byref(regs),
+                                                 ctypes.byref(per_sm))
+    check_launch(lib, "dequant_occupancy", rc)
+    return regs.value, per_sm.value

@@ -22,6 +22,8 @@ kernel or raises.  Each wrapper counts its launches in ``.launches``.
 most ``SMs x k`` blocks over column slabs of equal width (to within one 16-byte
 unit), and on the aligned layout the depth of the bulk-copy ring.  The C side
 refuses a plan it cannot run, and :func:`check_plan` raises on the same plans.
+Kernel B4 (``ops.quantize.dequant_accumulate_flat``) runs on the same template over
+int8 rows: its plans are these functions' with ``itemsize=1``.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ from nanofed_tpu_torch.ops._common import (
     check_launch,
     check_rows,
     check_vector,
+    int8_vector_width,
     kernel_launched,
     stream_of,
     uses_kernel,
@@ -46,7 +49,9 @@ from nanofed_tpu_torch.ops._common import (
 from nanofed_tpu_torch.utils.trees import ravel_stacked, unravel
 
 
-# The launch plan's constants, as csrc/reduce.cu has them.
+# The launch plan's constants, as csrc/common.cuh and csrc/reduce.cu have them (B4's
+# kernels in csrc/quantize.cu take the same ring, threads and blocks an SM).
+UNIT_BYTES = 16  # one 16-byte unit: a bulk copy's granularity, a ring consumer's load
 STAGE_BYTES = 16 * 1024  # one ring stage: 1024 16-byte units
 RING_BYTES_PER_SM = 96 * 1024  # the ring an SM holds in flight: 3 stages x 2 blocks
 MIN_STAGES, MAX_STAGES = 2, 8
@@ -63,10 +68,11 @@ MAX_THREADS_PER_SM = 2048
 
 
 class LaunchPlan(NamedTuple):
-    """One launch of B1/B2: ``blocks`` column slabs, each ``slab`` or ``slab + vec``
-    floats wide (the last one ends at P); ``stages`` ring stages in ``shared_bytes``
-    of dynamic shared memory (0 and 0 on the register path); ``per_sm`` (k) blocks
-    an SM holds at that footprint, so ``blocks <= SMs x per_sm`` is one wave."""
+    """One launch of B1/B2 (or B4): ``blocks`` column slabs, each ``slab`` or ``slab
+    + vec`` elements wide (the last one ends at P); ``stages`` ring stages in
+    ``shared_bytes`` of dynamic shared memory (0 and 0 on the register path);
+    ``per_sm`` (k) blocks an SM holds at that footprint, so ``blocks <= SMs x
+    per_sm`` is one wave."""
 
     blocks: int
     slab: int
@@ -75,18 +81,27 @@ class LaunchPlan(NamedTuple):
     per_sm: int
 
 
-def launch_plan(c: int, p: int, ldx: int, vec: int, sms: int) -> LaunchPlan:
-    """The grid of one launch over a ``[c, p]`` matrix of row stride ``ldx`` whose
-    layout allows ``vec``-float loads (:func:`vector_width`) on a card of ``sms``
-    SMs.  ``vec`` 4 takes the bulk-copy ring, 2 and 1 register loads."""
-    if c < 1 or p < 1 or ldx < p or sms < 1 or vec not in (4, 2, 1):
-        raise ValueError(f"launch_plan: no plan for c={c} p={p} ldx={ldx} vec={vec} sms={sms}")
+def load_widths(itemsize: int) -> tuple[int, ...]:
+    """The load widths, in elements, of a row of ``itemsize``-byte elements: powers
+    of two up to one 16-byte unit, the widest of which takes the bulk-copy ring."""
+    ring = UNIT_BYTES // itemsize
+    return tuple(1 << i for i in range(ring.bit_length() - 1, -1, -1))
+
+
+def launch_plan(c: int, p: int, ldx: int, vec: int, sms: int, itemsize: int = 4) -> LaunchPlan:
+    """The grid of one launch over a ``[c, p]`` matrix of ``itemsize``-byte elements
+    (4: B1/B2's float32, 1: B4's int8) with row stride ``ldx`` whose layout allows
+    ``vec``-element loads (:func:`load_widths`) on a card of ``sms`` SMs.  A
+    16-byte ``vec`` takes the bulk-copy ring, narrower ones register loads."""
+    if c < 1 or p < 1 or ldx < p or sms < 1 or vec not in load_widths(itemsize):
+        raise ValueError(f"launch_plan: no plan for c={c} p={p} ldx={ldx} vec={vec} sms={sms} "
+                         f"itemsize={itemsize}")
     units = -(-p // vec)
-    if vec == 4:
+    if vec * itemsize == UNIT_BYTES:
         # 96 KB of ring an SM: two blocks of 3 stages, or, where the whole read is
         # small, one block of 6 (a block's start-up then costs more than a second
         # block's overlap).
-        used = 1 if 4 * c * p < SMALL_READ_BYTES else RING_BLOCKS_PER_SM
+        used = 1 if itemsize * c * p < SMALL_READ_BYTES else RING_BLOCKS_PER_SM
         stages = RING_BYTES_PER_SM // (used * STAGE_BYTES)
         shared = stages * STAGE_BYTES
         per_sm = min(MAX_THREADS_PER_SM // RING_THREADS, RING_BLOCKS_PER_SM,
@@ -101,8 +116,8 @@ def launch_plan(c: int, p: int, ldx: int, vec: int, sms: int) -> LaunchPlan:
 
 def plan_slabs(plan: LaunchPlan, p: int, vec: int) -> list[tuple[int, int]]:
     """The ``[start, stop)`` columns of each block's slab, as the kernels' ``slab_of``
-    cuts them: ``ceil(p / vec)`` units of ``vec`` floats, the last ``units % blocks``
-    slabs one unit wider (the last slab may end in a partial unit)."""
+    cuts them: ``ceil(p / vec)`` units of ``vec`` elements, the last ``units %
+    blocks`` slabs one unit wider (the last slab may end in a partial unit)."""
     units = -(-p // vec)
     base, extra = divmod(units, plan.blocks)
     first_wide = plan.blocks - extra
@@ -110,22 +125,24 @@ def plan_slabs(plan: LaunchPlan, p: int, vec: int) -> list[tuple[int, int]]:
     return [(starts[b] * vec, min(starts[b + 1] * vec, p)) for b in range(plan.blocks)]
 
 
-def check_plan(plan: LaunchPlan, c: int, p: int, ldx: int, vec: int) -> None:
-    """Raise ``ValueError`` for a plan ``nf_weighted_sum`` would refuse (its
-    ``plan_ok`` and layout checks, in the same order)."""
-    units = -(-p // vec) if vec in (4, 2, 1) else 0
-    ok = (vec in (4, 2, 1) and c >= 1 and p >= 1 and ldx >= p
+def check_plan(plan: LaunchPlan, c: int, p: int, ldx: int, vec: int, itemsize: int = 4) -> None:
+    """Raise ``ValueError`` for a plan the C side would refuse (``plan_ok`` in
+    ``csrc/common.cuh`` and the layout checks of ``nf_weighted_sum`` or, with
+    ``itemsize=1``, ``nf_dequant_accumulate``, in the same order)."""
+    widths = load_widths(itemsize)
+    units = -(-p // vec) if vec in widths else 0
+    ok = (vec in widths and c >= 1 and p >= 1 and ldx >= p
           and 1 <= plan.blocks <= min(units, 0x7FFFFFFF)
           and plan.slab == (units // plan.blocks) * vec)
-    if ok and vec == 4:
-        ok = (ldx % 4 == 0 and MIN_STAGES <= plan.stages <= MAX_STAGES
+    if ok and vec * itemsize == UNIT_BYTES:
+        ok = (ldx % vec == 0 and MIN_STAGES <= plan.stages <= MAX_STAGES
               and plan.shared_bytes == plan.stages * STAGE_BYTES
               and plan.shared_bytes <= BLOCK_SHARED_MAX)
     elif ok:
         ok = plan.stages == 0 and plan.shared_bytes == 0
     if not ok:
-        raise ValueError(f"reduce: the kernel cannot run {plan} for c={c} p={p} ldx={ldx} "
-                         f"vec={vec}")
+        raise ValueError(f"the kernel cannot run {plan} for c={c} p={p} ldx={ldx} vec={vec} "
+                         f"itemsize={itemsize}")
 
 
 @functools.cache
@@ -135,10 +152,11 @@ def sm_count(index: int) -> int:
 
 
 def plan_for(x: torch.Tensor, ldx: int) -> tuple[int, LaunchPlan]:
-    """``(vec, plan)`` of a launch over the CUDA matrix ``x``."""
-    vec = vector_width(x, ldx)
+    """``(vec, plan)`` of a launch over the CUDA matrix ``x`` (float32 for B1/B2,
+    int8 for B4)."""
+    vec = int8_vector_width(x, ldx) if x.dtype == torch.int8 else vector_width(x, ldx)
     c, p = x.shape
-    return vec, launch_plan(c, p, ldx, vec, sm_count(x.device.index))
+    return vec, launch_plan(c, p, ldx, vec, sm_count(x.device.index), x.element_size())
 
 
 @functools.cache

@@ -22,12 +22,13 @@ Two mask-expansion backends, one per cohort (the server pins it at enrollment):
 
 * ``host`` — numpy: ``quantize`` in float64 and ``_prg_uint32`` (numpy's Philox4x64-10).
   The JAX package's host backend, bit for bit: port and JAX parties interoperate.
-* ``cuda`` — the card: ``weight * x`` in float32, kernel B5 (``ops.quantize_u32``), one
-  kernel B7 (``ops.add_mask``) per peer plus the self mask.  B7 expands the same
-  Philox4x64-10 stream under the same 128-bit key as ``_prg_uint32``, so the masks are
-  the host's bits; the quantize differs (float32 product vs float64), which is why a
-  cohort still uses one backend.  ``device=`` picks the card (``None`` -> ``"cuda"``;
-  ``"cpu"`` runs the kernels' plain versions).
+* ``cuda`` — the card: ``weight * x`` in float32, kernel B5 (``ops.quantize_u32``), then
+  ONE kernel B7 (``ops.add_mask``) a party that adds every pairwise mask and the self
+  mask; the server's dropout recovery likewise expands all of its corrections in one
+  B7.  B7 expands the same Philox4x64-10 stream under the same 128-bit key as
+  ``_prg_uint32``, so the masks are the host's bits; the quantize differs (float32
+  product vs float64), which is why a cohort still uses one backend.  ``device=``
+  picks the card (``None`` -> ``"cuda"``; ``"cpu"`` runs the kernels' plain versions).
 
 The JAX package's ``device`` backend expands the TPU core's own random stream, which
 nothing here can reproduce: the port refuses it.  The server dequantizes the modular
@@ -235,6 +236,28 @@ def expand_mask(
     return _to_numpy_u32(add_mask(zeros.view(torch.uint32), _fold_seed_words(seed), 1))
 
 
+def expand_masks(
+    seeds: Sequence[bytes], signs: Sequence[int], size: int, backend: str = "host",
+    device: DeviceLike = None,
+) -> np.ndarray:
+    """The signed sum ``sum_j signs[j] * PRG(seeds[j])`` (mod 2^32) of the uint32 mask
+    streams a ``backend`` expands from 32-byte seeds: for ``host`` the ``_prg_uint32``
+    streams, for ``cuda`` one kernel B7 on zeros, on ``device``, that adds them all
+    (none for no seeds)."""
+    check_backend(backend)
+    if len(seeds) != len(signs):
+        raise ValueError(f"expand_masks: {len(seeds)} seeds but {len(signs)} signs")
+    if backend == "host" or not seeds:
+        total = np.zeros(size, np.uint32)
+        for seed, sign in zip(seeds, signs):
+            mask = _prg_uint32(seed, size)
+            total = total + mask if sign > 0 else total - mask
+        return total
+    zeros = torch.zeros(size, dtype=torch.int32, device=resolve_device(device))
+    words = np.stack([_fold_seed_words(seed) for seed in seeds])
+    return _to_numpy_u32(add_mask(zeros.view(torch.uint32), words, list(signs)))
+
+
 def mask_update(
     params: Params,
     client_index: int,
@@ -304,18 +327,23 @@ def _mask_update_cuda(
     device: DeviceLike,
 ) -> np.ndarray:
     """Card-backend masking: B5 on ``weight * x`` in float32 (the weight rounded to
-    float32 first, as the JAX device backend multiplies), then one B7 per peer and one
-    for the self mask.  The 256-bit HKDF seeds fold to the kernel's four words (both
-    parties fold identically); mask bits never touch memory."""
+    float32 first, as the JAX device backend multiplies), then one B7 that adds every
+    peer's mask (+ for a later peer, - for an earlier one) and the self mask.  The
+    256-bit HKDF seeds fold to the kernel's four words (both parties fold
+    identically); mask bits never touch memory."""
     flat = ravel(params).detach().to(device=resolve_device(device), dtype=torch.float32)
     vec = quantize_u32(flat * float(np.float32(weight)), config.frac_bits)
+    seeds, signs = [], []
     for j, peer_pk in enumerate(all_public_keys):
         if j == client_index:
             continue
-        words = _fold_seed_words(_pair_seed(my_key, peer_pk, ctx))
-        vec = add_mask(vec, words, 1 if j > client_index else -1)
+        seeds.append(_fold_seed_words(_pair_seed(my_key, peer_pk, ctx)))
+        signs.append(1 if j > client_index else -1)
     if self_seed is not None:
-        vec = add_mask(vec, _fold_seed_words(_self_mask_seed(self_seed, ctx)), 1)
+        seeds.append(_fold_seed_words(_self_mask_seed(self_seed, ctx)))
+        signs.append(1)
+    if seeds:  # a one-party cohort without a self mask adds nothing
+        vec = add_mask(vec, np.stack(seeds), signs)
     return _to_numpy_u32(vec)
 
 
@@ -731,8 +759,9 @@ def recover_unmasked_sum(
 
     Returns the corrected uint32 sum = the quantized weighted sum of the SURVIVORS'
     updates; the caller dequantizes (``dequantize_sum``) and renormalizes by the
-    survivors' weight mass.  With ``backend="cuda"`` every mask is one kernel B7 on
-    ``device``: one per survivor's self mask, one per survivor for each dropped client.
+    survivors' weight mass.  Every seed is reconstructed and verified before any mask
+    is expanded; then all the corrections are one signed sum (``expand_masks``): with
+    ``backend="cuda"`` one kernel B7 on ``device``, which comes to the host once.
     """
     _require_cryptography()
     check_backend(backend)
@@ -771,6 +800,9 @@ def recover_unmasked_sum(
     total = np.zeros_like(next(iter(masked_updates.values())))
     for s in survivors:
         total = total + masked_updates[s]
+    # The correction masks, as (seed, sign) pairs.
+    seeds: list[bytes] = []
+    signs: list[int] = []
     # Remove survivors' self masks.  A corrupt/malicious share would make Lagrange
     # interpolation yield a WRONG seed silently (any 32 bytes are "valid"), and the
     # garbage-corrected sum would be installed as the global model with no error —
@@ -786,7 +818,8 @@ def recover_unmasked_sum(
                     f"reconstructed self seed for {s!r} fails its commitment "
                     "(corrupt or malicious share) — failing the round"
                 )
-        total = total - expand_mask(_self_mask_seed(b, ctx), size, backend, device)
+        seeds.append(_self_mask_seed(b, ctx))
+        signs.append(-1)
     # Remove dropped clients' orphaned pairwise masks.
     index = {c: i for i, c in enumerate(client_order)}
     for d in dropped:
@@ -800,13 +833,10 @@ def recover_unmasked_sum(
                 "ephemeral public key (corrupt or malicious share) — failing the round"
             )
         for s in survivors:
-            seed = _pair_seed(d_key, public_keys[s], ctx)
-            mask = expand_mask(seed, size, backend, device)
-            if index[d] > index[s]:
-                total = total - mask  # survivor s had ADDED this mask
-            else:
-                total = total + mask  # survivor s had SUBTRACTED it
-    return total
+            seeds.append(_pair_seed(d_key, public_keys[s], ctx))
+            # Survivor s had ADDED this mask if d follows it, SUBTRACTED it otherwise.
+            signs.append(-1 if index[d] > index[s] else 1)
+    return total + expand_masks(seeds, signs, size, backend, device)
 
 
 # ---------------------------------------------------------------------------------------

@@ -370,18 +370,19 @@ def candidate_program_name(cand: CandidateConfig) -> str:
 
 
 def resolve_hbm_budget(
-    explicit: int | None = None, device: DeviceLike = "cpu"
+    explicit: int | None = None, device: DeviceLike = None
 ) -> tuple[int | None, str]:
     """The device memory budget candidates must fit, with its provenance: explicit
     argument > ``NANOFED_AUTOTUNE_HBM_BUDGET`` env > the card's
     ``torch.cuda.get_device_properties().total_memory`` > None on the CPU (no
-    rejection — stated as unbounded, never a fabricated limit)."""
+    rejection — stated as unbounded, never a fabricated limit).  ``device=None``
+    means the card, as at every entry point: without one it raises."""
     if explicit is not None:
         return int(explicit), "explicit hbm_budget_bytes argument"
     env = os.environ.get("NANOFED_AUTOTUNE_HBM_BUDGET")
     if env:
         return int(float(env)), "NANOFED_AUTOTUNE_HBM_BUDGET environment variable"
-    dev = torch.device(device)
+    dev = resolve_device(device)
     if dev.type == "cuda":
         props = torch.cuda.get_device_properties(dev)
         return int(props.total_memory), (

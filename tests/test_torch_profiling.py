@@ -128,7 +128,8 @@ def _stub_launches(monkeypatch):
         monkeypatch.setattr(module, "_lib", lambda: _FakeLib())
         monkeypatch.setattr(module, "stream_of", lambda t: None)
     monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
-    monkeypatch.setattr(reduce, "sm_count", lambda index: 132)  # B1/B2's launch plan
+    for module in (reduce, quantize):  # the launch plans of B1/B2/B4 and B7's grid
+        monkeypatch.setattr(module, "sm_count", lambda index: 132)
 
 
 C, P = 5, 1003

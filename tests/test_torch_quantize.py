@@ -11,8 +11,10 @@ B5 and B6 are held bit for bit to the Pallas kernels run in interpret mode, and 
 after a modular sum to ``np.float32(secure_agg.dequantize(total))``.  B7's plain
 version is an explicit Philox4x64-10; it is held bit for bit to the JAX package's
 host mask stream (``expand_mask(seed, n, "host")``, numpy's ``np.random.Philox``),
-which is the stream it is defined to reproduce.  (The JAX interpret-mode ``add_mask``
-draws threefry bits, another stream, so it is no oracle here.)  Every comparison is
+which is the stream it is defined to reproduce, and with k seeds a call to the
+sequential single-seed masks and to the signed sum of the host streams.  (The JAX
+interpret-mode ``add_mask`` draws threefry bits, another stream, so it is no oracle
+here.)  Every comparison is
 exact: integer and power-of-two arithmetic leaves no tolerance to state.
 """
 
@@ -139,6 +141,95 @@ def test_add_then_subtract_cancels_and_seeds_differ(n):
     if n > 2:
         other = _u32(ops.add_mask(base, words_b, 1))
         assert (other != _u32(masked)).mean() > 0.99
+
+
+def _seed_words(rng: np.random.Generator, k: int) -> tuple[list[bytes], np.ndarray]:
+    """k random 32-byte seeds and their [k, 4] folded words."""
+    seeds = [rng.bytes(32) for _ in range(k)]
+    return seeds, np.stack([jax_sa._fold_seed_words(b) for b in seeds])
+
+
+@pytest.mark.parametrize("k", [1, 2, 7, 65])
+def test_multi_key_mask_equals_the_sequential_single_key_masks(k):
+    """k seeds in one ``add_mask`` (mixed signs) are bit-equal to k single-seed
+    ``add_mask_plain`` calls in a row, on a ragged n."""
+    rng = np.random.default_rng(100 + k)
+    n = 1_027
+    q0 = _t32(rng.integers(0, 1 << 32, size=n, dtype=np.uint64).astype(np.uint32))
+    _, words = _seed_words(rng, k)
+    signs = [int(s) for s in rng.choice([1, -1], k)]
+    want = q0
+    for w, sign in zip(words, signs):
+        want = ops.add_mask_plain(want, w, sign)
+    np.testing.assert_array_equal(_u32(ops.add_mask(q0, words, signs)), _u32(want))
+    np.testing.assert_array_equal(_u32(ops.add_mask_plain(q0, words, signs)), _u32(want))
+
+
+@pytest.mark.parametrize("k", [1, 3, 8])
+def test_multi_key_mask_equals_the_signed_sum_of_the_host_streams(k):
+    """On zeros, k seeds in one launch give the signed sum (mod 2^32) of the JAX
+    package's host streams ``_prg_uint32`` under the same 32-byte seeds, folded by
+    ``_fold_seed_words``: the stream a mixed cohort cancels against."""
+    rng = np.random.default_rng(200 + k)
+    n = 4_099
+    seeds, words = _seed_words(rng, k)
+    signs = [int(s) for s in rng.choice([1, -1], k)]
+    want = np.zeros(n, np.uint32)
+    for b, sign in zip(seeds, signs):
+        stream = jax_sa._prg_uint32(b, n)
+        want = want + stream if sign > 0 else want - stream
+    zeros = torch.zeros(n, dtype=torch.int32).view(torch.uint32)
+    np.testing.assert_array_equal(_u32(ops.add_mask(zeros, words, signs)), want)
+
+
+def test_a_seed_added_and_subtracted_in_one_call_returns_q():
+    rng = np.random.default_rng(5)
+    q0 = _t32(rng.integers(0, 1 << 32, size=333, dtype=np.uint64).astype(np.uint32))
+    _, (a, b) = _seed_words(rng, 2)
+    np.testing.assert_array_equal(_u32(ops.add_mask(q0, np.stack([a, b, a]), [1, 1, -1])),
+                                  _u32(ops.add_mask(q0, b, 1)))
+    np.testing.assert_array_equal(_u32(ops.add_mask(q0, np.stack([a, a]), [-1, 1])), _u32(q0))
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("n", [1, 7, 8, 1_027, 40_003, 1_199_882, 8 * 256 * 132 * 5 + 1])
+def test_mask_grid_is_one_wave_of_equal_ranges(n, sms):
+    """B7's grid: at most SMs x MASK_BLOCKS_PER_SM blocks (one wave) whose ranges of
+    Philox blocks (the kernel's slab_of cut) differ by at most one and cover every
+    Philox block once, each a warp's at least; at the mnist_cnn width on an H100
+    SXM's 132 SMs every range fits one pass (a Philox block a thread)."""
+    from nanofed_tpu_torch.ops.reduce import LaunchPlan, plan_slabs
+
+    grid = q.mask_grid(n, sms)
+    philox = -(-n // 8)
+    assert 1 <= grid <= sms * q.MASK_BLOCKS_PER_SM
+    ranges = plan_slabs(LaunchPlan(grid, philox // grid, 0, 0, 0), philox, 1)
+    assert ranges[0][0] == 0 and ranges[-1][1] == philox
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    sizes = [stop - start for start, stop in ranges]
+    assert max(sizes) - min(sizes) <= 1 and (grid == 1 or min(sizes) >= q.MASK_MIN_SPAN)
+    if n == 1_199_882 and sms == 132:
+        assert grid == 660 and max(sizes) <= q.MASK_THREADS
+
+
+U32_4 = torch.zeros(4, dtype=torch.int32).view(torch.uint32)
+
+
+@pytest.mark.parametrize(
+    "seeds,signs",
+    [
+        (np.zeros((0, 4), np.int64), []),  # k = 0
+        (np.zeros((2, 4), np.int64), [1]),  # fewer signs than seeds
+        (np.zeros((2, 4), np.int64), 1),  # one sign for several seeds
+        (np.zeros((2, 4), np.int64), [1, 0]),  # a sign that is not +-1
+        (np.zeros((2, 2, 4), np.int64), [1, 1]),  # not [k, 4]
+    ],
+    ids=["no_seeds", "short_signs", "scalar_sign", "zero_sign", "three_dims"],
+)
+def test_multi_key_mask_rejects_bad_seed_tables(seeds, signs):
+    for fn in (ops.add_mask, ops.add_mask_plain):
+        with pytest.raises(ValueError):
+            fn(U32_4, seeds, signs)
 
 
 @pytest.mark.parametrize(
@@ -325,7 +416,8 @@ def test_topk8_dense_rows_aggregate():
 @pytest.mark.cuda
 def test_dequant_accumulate_kernel_matches_plain_version_on_the_card():
     """On a GPU: B4 launches and agrees with its plain version for every int8 load
-    width; chip_smoke.py runs the full case list and the timing."""
+    width and on the bulk-copy ring with the plan it launched; chip_smoke.py runs the
+    full case list and the timing."""
     if not torch.cuda.is_available():
         pytest.skip("needs CUDA: checks the hand-written B4 kernel against its plain version")
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -339,14 +431,29 @@ def test_dequant_accumulate_kernel_matches_plain_version_on_the_card():
         torch.testing.assert_close(ops.dequant_accumulate_flat(q8, s, w, base),
                                    ops.dequant_accumulate_flat_plain(q8, s, w, base),
                                    rtol=1e-5, atol=1e-6)
-    assert ops.launch_counts()["dequant_accumulate_flat"] == before + 5
+    # The bulk-copy ring: rows padded to 16 bytes, P = 10 mod 16 as at mnist_cnn's width,
+    # wide enough for several slabs.
+    from nanofed_tpu_torch.ops.reduce import plan_for
+
+    c, p = 33, 16 * 300 * 40 + 10
+    buf = torch.randint(-128, 128, (c, -(-p // 16) * 16), generator=gen, device="cuda",
+                        dtype=torch.int8)
+    q8 = buf[:, :p]
+    vec, plan = plan_for(q8, buf.stride(0))
+    assert vec == 16 and plan.stages >= 2 and plan.blocks > 1
+    s, w = torch.rand(c, device="cuda") * 1e-2, torch.rand(c, device="cuda") + 0.5
+    base = torch.randn(p, device="cuda")
+    torch.testing.assert_close(ops.dequant_accumulate_flat(q8, s, w, base),
+                               ops.dequant_accumulate_flat_plain(q8, s, w, base),
+                               rtol=1e-5, atol=1e-4)
+    assert ops.launch_counts()["dequant_accumulate_flat"] == before + 6
 
 
 @pytest.mark.cuda
 def test_quantize_kernels_match_plain_versions_on_the_card():
     """On a GPU: B5, B6 and B7 launch their CUDA kernels and agree bit for bit with the
-    plain versions on ragged, unaligned vectors; chip_smoke.py runs the same checks at
-    the secure round's shapes."""
+    plain versions on ragged, unaligned vectors, B7 also with 20 seeds a launch;
+    chip_smoke.py runs the same checks at the secure round's shapes."""
     if not torch.cuda.is_available():
         pytest.skip("needs CUDA: checks the hand-written B5/B6/B7 kernels against their "
                     "plain versions")
@@ -361,6 +468,11 @@ def test_quantize_kernels_match_plain_versions_on_the_card():
         for sign in (1, -1):
             np.testing.assert_array_equal(_u32(ops.add_mask(got, [1, -2, 3, -4], sign).cpu()),
                                           _u32(ops.add_mask_plain(got, [1, -2, 3, -4], sign).cpu()))
+        # 20 seeds in one launch: more than the kernel takes in its parameters.
+        words = np.arange(80).reshape(20, 4) * 977 - 5000
+        signs = [1, -1] * 10
+        np.testing.assert_array_equal(_u32(ops.add_mask(got, words, signs).cpu()),
+                                      _u32(ops.add_mask_plain(got, words, signs).cpu()))
     after = ops.launch_counts()
     assert after["quantize_u32"] == before["quantize_u32"] + 3
-    assert after["add_mask"] == before["add_mask"] + 6
+    assert after["add_mask"] == before["add_mask"] + 9

@@ -17,12 +17,14 @@ pytest.importorskip("cryptography", reason="secure aggregation needs the crypto 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import torch
 from cryptography.hazmat.primitives.asymmetric.x25519 import X25519PrivateKey
 
 from nanofed_tpu.models import get_model as jax_get_model
 from nanofed_tpu.ops import quantize_u32 as jax_quantize_u32
 from nanofed_tpu.security import secure_agg as jax_sa
 from nanofed_tpu.utils.trees import tree_ravel
+from nanofed_tpu_torch import ops
 from nanofed_tpu_torch.core.exceptions import AggregationError
 from nanofed_tpu_torch.security import secure_agg as sa
 from nanofed_tpu_torch.utils.trees import from_numpy_params, ravel
@@ -115,10 +117,12 @@ def test_shamir_shares_and_reconstruction_match_jax():
         sa.reconstruct_vector(port[:2], 3)
 
 
-def _dropout_round(n: int = 4, t: int = 3, seed: int = 5, backend: str = "host"):
+def _dropout_round(n: int = 4, t: int = 3, seed: int = 5, backend: str = "host",
+                   drop: bool = True):
     """A dropout-tolerant round of n parties (threshold t) in which the last one drops
-    after the share exchange: the port's survivors' masked vectors, the round's epks
-    and every survivor's reveals, built through the port's share functions."""
+    after the share exchange (with ``drop``; else every party submits): the port's
+    survivors' masked vectors, the round's epks and every survivor's reveals, built
+    through the port's share functions."""
     identities, ephemerals = _keys(n, seed), _keys(n, seed + 100)
     order = [f"c{i}" for i in range(n)]
     id_pub = {c: k.public_bytes() for c, (k, _) in zip(order, identities)}
@@ -132,7 +136,7 @@ def _dropout_round(n: int = 4, t: int = 3, seed: int = 5, backend: str = "host")
             inboxes[recipient][c] = blob
     cfg = sa.SecureAggregationConfig(min_clients=n - 1, threshold=t, dropout_tolerant=True)
     masked, reveals = {}, {}
-    survivors, dropped = order[:-1], order[-1:]
+    survivors, dropped = (order[:-1], order[-1:]) if drop else (order, [])
     for i, c in enumerate(survivors):
         held = sa.open_share_inbox(identities[i][0], c, id_pub, inboxes[c], epks, ctx)
         masked[c] = sa.mask_update(params[i][0], i, ephemerals[i][0],
@@ -142,7 +146,7 @@ def _dropout_round(n: int = 4, t: int = 3, seed: int = 5, backend: str = "host")
             {"dropped": dropped, "survivors": survivors}, c, held)
     expect = np.zeros(params[0][0]["fc/bias"].numel() + params[0][0]["fc/kernel"].numel(),
                       np.uint32)
-    for pp, _ in params[:-1]:
+    for pp, _ in params[:len(survivors)]:
         flat = np.concatenate([v.numpy().ravel() for v in pp.values()])
         expect = expect + (jax_sa.quantize(flat.astype(np.float64) * 0.25, 16)
                            if backend == "host" else
@@ -170,6 +174,59 @@ def test_cuda_backend_recovery_on_the_cpu_equals_the_host_recovery():
                                    device="cpu")
     np.testing.assert_array_equal(cuda, host)
     np.testing.assert_array_equal(cuda, expect)
+
+
+@pytest.mark.parametrize("with_dropout", [False, True])
+def test_cuda_backend_recovery_equals_the_port_and_jax_host_recoveries(with_dropout):
+    """The cuda backend's recovery (every correction in one B7, run here through its
+    plain version) equals the port's and the JAX package's ``host`` recoveries bit for
+    bit, with the last party dropped after the share exchange and with none dropped."""
+    masked, order, epks, rnd, reveals, cfg, expect = _dropout_round(backend="cuda",
+                                                                    drop=with_dropout)
+    args = (masked, order, epks, rnd, reveals, cfg)
+    cuda = sa.recover_unmasked_sum(*args, backend="cuda", device="cpu")
+    np.testing.assert_array_equal(cuda, sa.recover_unmasked_sum(*args, device="cpu"))
+    jax_cfg = jax_sa.SecureAggregationConfig(min_clients=cfg.min_clients,
+                                             threshold=cfg.threshold, dropout_tolerant=True)
+    np.testing.assert_array_equal(cuda, jax_sa.recover_unmasked_sum(*args[:5], jax_cfg))
+    np.testing.assert_array_equal(cuda, expect)
+
+
+def test_cuda_mask_update_is_one_launch_of_every_mask():
+    """The cuda backend's masked vector (one B7 for all masks) has the bits of the
+    one-launch-per-mask formula: B5 of the float32 product, then each peer's mask
+    added for a later peer and subtracted for an earlier one, then the self mask."""
+    keys, params = _keys(4, seed=9), _params(4, seed=60)
+    pks = [k.public_bytes() for k, _ in keys]
+    cfg = sa.SecureAggregationConfig(min_clients=3)
+    me, self_seed, rnd = 1, bytes(range(32)), 5
+    got = sa.mask_update(params[me][0], me, keys[me][0], pks, rnd, cfg, weight=0.25,
+                         backend="cuda", self_seed=self_seed, device="cpu")
+    ctx = f"round:{rnd}".encode()
+    flat = ravel(params[me][0]).to(torch.float32) * float(np.float32(0.25))
+    vec = ops.quantize_u32_plain(flat, cfg.frac_bits)
+    for j, pk in enumerate(pks):
+        if j != me:
+            words = sa._fold_seed_words(sa._pair_seed(keys[me][0], pk, ctx))
+            vec = ops.add_mask_plain(vec, words, 1 if j > me else -1)
+    vec = ops.add_mask_plain(vec, sa._fold_seed_words(sa._self_mask_seed(self_seed, ctx)), 1)
+    np.testing.assert_array_equal(got, vec.view(torch.int32).numpy().view(np.uint32))
+
+
+def test_expand_masks_is_the_signed_sum_of_the_host_streams():
+    rng = np.random.default_rng(11)
+    seeds = [rng.bytes(32) for _ in range(5)]
+    signs = [1, -1, -1, 1, -1]
+    want = np.zeros(777, np.uint32)
+    for seed, sign in zip(seeds, signs):
+        want = want + jax_sa.expand_mask(seed, 777) if sign > 0 else want - jax_sa.expand_mask(
+            seed, 777)
+    np.testing.assert_array_equal(sa.expand_masks(seeds, signs, 777), want)
+    np.testing.assert_array_equal(sa.expand_masks(seeds, signs, 777, "cuda", device="cpu"), want)
+    np.testing.assert_array_equal(sa.expand_masks([], [], 9, "cuda", device="cpu"),
+                                  np.zeros(9, np.uint32))
+    with pytest.raises(ValueError, match="signs"):
+        sa.expand_masks(seeds, signs[:2], 777)
 
 
 def test_cuda_backend_quantize_matches_jax_device_backend_b5():

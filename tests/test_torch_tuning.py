@@ -228,6 +228,15 @@ def test_resolve_hbm_budget(monkeypatch):
     assert budget is None and "unbounded" in basis
 
 
+def test_resolve_hbm_budget_defaults_to_the_card(monkeypatch):
+    """A bare call means the card (``device=None`` is ``"cuda"``): without one it
+    raises, never reporting the CPU's "unbounded"."""
+    monkeypatch.delenv("NANOFED_AUTOTUNE_HBM_BUDGET", raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_hbm_budget()
+
+
 # ---------------------------------------------------------------------------
 # The sweep on the CPU
 # ---------------------------------------------------------------------------
