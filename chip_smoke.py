@@ -23,7 +23,14 @@ Phases (any failure exits non-zero):
    ragged sizes, unaligned starts, ties, saturation and both signs; B7 with k seeds a
    launch (k = 1, 2, 7, 8, 14, 65 and 999, mixed signs, a seed at +1 and -1 in one
    launch) against the plain composition, and its stream against numpy's Philox at
-   P = 1,199,882 with one seed and eight; B7's key loop counted by class in the SASS
+   P = 1,199,882 with one seed and eight; B5 and B6 also on the edges of their launch
+   plan (n = 1-5, around the largest grid of minimum slabs at 132 SMs and the card's
+   own count, around a slab boundary, slabs of one, two and three rounds of the
+   threads' registers; starts 0-3; ``frac_bits`` 8 and 16; through the wrappers and
+   into guarded outputs) and twice for the same bits, then the floor of a
+   1.2M-word pass (an empty launch, a same-bytes copy, B1 at C = 2 and 125, each after
+   the write flush, a read flush and none) and B5/B6 timed with their plan, cold
+   and warm; B7's key loop counted by class in the SASS
    (``cuobjdump -sass``) beside the function's own count, which gives its operations
    bound; B4
    (``dequant_accumulate_flat``) on ragged P, every int8 load width (16, 8, 4, 2 and 1
@@ -34,8 +41,9 @@ Phases (any failure exits non-zero):
    are timed with CUDA events (median of 30 runs after 5 warm-up runs, L2 flushed
    before each run), beside the least time the card could take: B7 as a client's
    masking pass of k = 1, 7, 8, 14 and 999 seeds (its plain version up to k = 8), B4
-   at C = 64 and 1000 with its launch plan.  B7 and B4 are also timed with the host's
-   work hidden behind a device sleep (``kernel_ms``: B7's pass, B4's launch alone).
+   at C = 64 and 1000 with its launch plan.  B5, B6, B7 and B4 are also timed with the
+   host's work hidden behind a device sleep (``kernel_ms``: B5's and B6's call, B7's
+   pass, B4's launch alone).
 3. Slice: the port's entry points on the card at full ``mnist_cnn`` width, (a) the
    2-client tutorial shape (12k + 4k samples, 2 epochs, batch 64, SGD lr 0.1, f32,
    1 round) and (b) the 1000-client flagship (60 samples each, 2 epochs, batch 64,
@@ -152,18 +160,33 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def median_ms(fn, torch, reps: int = 30, warmup: int = 5, hide_host_ms: float = 0.0) -> float:
-    """Median time of ``fn`` on the card, each run timed alone with CUDA events after
-    overwriting a 256 MB buffer (the 50 MB L2 holds none of the inputs).  With
+def median_ms(fn, torch, reps: int = 30, warmup: int = 5, hide_host_ms: float = 0.0,
+              flush: str = "write", prep=None) -> float:
+    """Median time of ``fn`` on the card, each run timed alone with CUDA events.  Before
+    each run ``flush`` empties the 50 MB L2 of the inputs: ``"write"`` overwrites a
+    256 MB buffer (the table's timing since the first slice; it leaves L2 full of dirty
+    lines, whose write-backs may fall in the timed window), ``"read"`` sums it (clean
+    lines), ``"none"`` leaves L2 as the last run left it.  Then ``prep`` runs, untimed
+    (a copy that writes the inputs, as a caller leaves them warm).  With
     ``hide_host_ms``, a device sleep of about that long precedes each run, so the host
     has enqueued ``fn``'s launches before the card reaches them: the time is then the
     card's alone, whatever the host spends per call."""
-    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device="cuda")
+    if flush not in ("write", "read", "none"):
+        raise ValueError(f"median_ms: flush must be write, read or none, got {flush!r}")
+    buf = torch.zeros(64 * 1024 * 1024, dtype=torch.float32, device="cuda")
+    total = torch.zeros((), dtype=torch.float32, device="cuda")
     for _ in range(warmup):
+        if prep:
+            prep()
         fn()
     events = []
     for _ in range(reps):
-        flush.zero_()
+        if flush == "write":
+            buf.zero_()
+        elif flush == "read":
+            torch.sum(buf, dim=0, out=total)
+        if prep:
+            prep()
         if hide_host_ms:
             torch.cuda._sleep(int(hide_host_ms * 1e-3 * H100_BOOST_HZ))
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -542,8 +565,10 @@ def fixed_point_inputs(torch, n: int, frac_bits: int, gen, specials: bool = True
 def phase_quantize(torch, ops, card: str) -> dict[str, dict]:
     """Hold B5, B6 and B7 bit for bit against their plain versions (ragged P, unaligned
     starts, ties, saturation, both signs), B7 also with k seeds a launch; check B7's
-    stream against numpy's Philox at P = 1,199,882, one seed and eight; time B5 and B6
-    at that size, and B7 there for each of ``TIMED_MASK_KS``."""
+    stream against numpy's Philox at P = 1,199,882, one seed and eight; hold B5 and B6
+    on the edges of their launch plan and twice for the same bits; time the floor of a
+    1.2M-word pass, B5 and B6 at that size, and B7 there for each of
+    ``TIMED_MASK_KS``."""
     import numpy as np
 
     from nanofed_tpu_torch.security.secure_agg import _fold_seed_words, _prg_uint32
@@ -588,8 +613,177 @@ def phase_quantize(torch, ops, card: str) -> dict[str, dict]:
           f"B7's stream at P={P_MNIST} equals numpy's Philox4x64-10 (_prg_uint32), and "
           f"{MASK_RECORD_K} seeds in one launch equal the signed sum of theirs")
 
-    x = fixed_point_inputs(torch, P_MNIST, 16, gen, specials=False)
+    check_fixed_point_edges(torch, ops, gen)
+    check_fixed_point_determinism(torch, ops, gen)
+    time_floor(torch, ops, card)
+    records = time_fixed_point(torch, ops, card, gen)
+    records["add_mask"] = time_masks(torch, ops, card, rng)[MASK_RECORD_K]
+    return records
+
+
+# Units of the 16-byte path (words of the single-word path, over 4) a block covers in
+# one round of its threads' registers: csrc/quantize.cu's kRegUnits x kThreads.
+FIXED_POINT_ROUND_UNITS = 8 * 256
+
+
+def fixed_point_edges(sms: int) -> list[int]:
+    """B5/B6's plan edges for a card of ``sms`` SMs: n = 1-5; around the largest grid
+    of minimum slabs (``sms x STREAM_BLOCKS_PER_SM`` blocks of ``STREAM_MIN_SLAB``
+    units); around the slab boundary of P = 1,199,882's plan (its blocks x slab whole
+    units); around slabs of one round of the threads' registers (one round, then two);
+    P = 1,199,882; and slabs of three rounds.  Offsets -4, -1, 0, +1 and +4 words."""
+    from nanofed_tpu_torch.ops import quantize
+
+    near = lambda e: [e + d for d in (-4, -1, 0, 1, 4)]  # noqa: E731
+    unit = quantize.STREAM_UNIT_WORDS
+    blocks = sms * quantize.STREAM_BLOCKS_PER_SM
+    plan = quantize.stream_plan(P_MNIST, sms)
+    ns = [1, 2, 3, 4, 5]
+    ns += near(blocks * quantize.STREAM_MIN_SLAB * unit)
+    ns += near(plan.blocks * plan.slab * unit)
+    ns += near(blocks * FIXED_POINT_ROUND_UNITS * unit)
+    ns += [P_MNIST, blocks * (2 * FIXED_POINT_ROUND_UNITS + 1) * unit + 3]
+    return sorted(set(ns))
+
+
+def check_fixed_point_case(torch, ops, n: int, start: int, frac_bits: int, gen) -> int:
+    """B5 on ``n`` words starting ``start`` words into a fresh buffer and B6 on their
+    bits at the same start, bit for bit against the plain versions, through the
+    wrappers and launched alone into a guarded output at the same start (the words
+    around the ``n`` must stay untouched).  Returns the number of comparisons."""
+    from nanofed_tpu_torch.ops import quantize
+
+    x = fixed_point_inputs(torch, n + start, frac_bits, gen)[start:]
+    tag = f"n={n} start={start} frac_bits={frac_bits}"
+    want_q = ops.quantize_u32_plain(x, frac_bits)
+    same_bits(torch, f"quantize_u32 {tag}", ops.quantize_u32(x, frac_bits), want_q)
+    qbuf = torch.empty(n + start, dtype=torch.int32, device="cuda")
+    qbuf[start:] = want_q.view(torch.int32)
+    qv = qbuf[start:].view(torch.uint32)  # the same bits at the same start
+    want_f = ops.dequantize_u32_plain(qv, frac_bits)
+    same_bits(torch, f"dequantize_u32 {tag}", ops.dequantize_u32(qv, frac_bits), want_f)
+    guard = 0x5A5A5A5A
+    for what, src, want in (("quantize_u32", x, want_q), ("dequantize_u32", qv, want_f)):
+        got = torch.full((start + n + 4,), guard, dtype=torch.int32, device="cuda")
+        dst = got[start:start + n].view(want.dtype)
+        quantize.fixed_point_launch(src, dst, frac_bits)
+        same_bits(torch, f"{what} {tag} guarded", dst, want)
+        if not (bool((got[:start] == guard).all()) and bool((got[start + n:] == guard).all())):
+            fail(f"{what} {tag}: the kernel wrote outside its n words")
+    return 4
+
+
+def check_fixed_point_edges(torch, ops, gen) -> None:
+    """B5 and B6 bit for bit on the edges of their launch plan (``fixed_point_edges``
+    at 132 SMs and at the card's own count), at starts 0-3 (16-byte aligned, then the
+    single-word path) and ``frac_bits`` 8 and 16."""
+    from nanofed_tpu_torch.ops.reduce import sm_count
+
+    ns = sorted(set(fixed_point_edges(132)) | set(fixed_point_edges(sm_count(0))))
+    cases = 0
+    for n in ns:
+        for start in (0, 1, 2, 3):
+            for frac_bits in (8, 16):
+                cases += check_fixed_point_case(torch, ops, n, start, frac_bits, gen)
+        torch.cuda.empty_cache()
+    print(f"kernels: {cases} B5/B6 cases on the launch plan's edges bit-exact with the plain "
+          f"versions (n {ns}; starts 0-3; frac_bits 8 and 16; wrappers and guarded outputs, "
+          f"nothing written outside the n words)")
+
+
+def check_fixed_point_determinism(torch, ops, gen) -> None:
+    """Two calls of B5 and of B6 at P = 1,199,882 and at slabs of three register rounds
+    must give the same bits."""
+    from nanofed_tpu_torch.ops.reduce import sm_count
+
+    sizes = (P_MNIST, fixed_point_edges(sm_count(0))[-1])
+    for n in sizes:
+        x = fixed_point_inputs(torch, n, 16, gen)
+        q = ops.quantize_u32(x, 16)
+        for name, run in (("quantize_u32", lambda: ops.quantize_u32(x, 16)),
+                          ("dequantize_u32", lambda: ops.dequantize_u32(q, 16))):
+            a, b = run(), run()
+            torch.cuda.synchronize()
+            if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+                fail(f"{name} n={n}: two launches gave different bits")
+        del x, q
+        torch.cuda.empty_cache()
+    print(f"kernels: B5 and B6 give the same bits twice at n = {sizes[0]} and {sizes[1]}")
+
+
+def time_floor(torch, ops, card: str) -> dict:
+    """The floor of a 1.2M-word pass under this script's timing, at P = 1,199,882: an
+    empty launch (``torch.cuda._sleep(0)``) and a same-bytes copy yardstick
+    (``out.copy_(x)`` of 4.8 MB of float32, the least time the card's own copy path
+    takes to move B5's bytes; the port never calls it), each after the table's write
+    flush, after a read flush, and warm (no flush; the copy's input written by a copy
+    just before, as B5's callers leave theirs); then B1 at C = 2 and 125 after each
+    flush, the diagnostic of the fixed ~12 us that B1 showed after the write flush.
+    The host is hidden behind a device sleep in every timing here.  Returns the times
+    by name and flush."""
+    p = P_MNIST
+    x0 = torch.randn(p, device="cuda")
+    x, out = x0.clone(), torch.empty_like(x0)
+    b_ms, _ = bound_ms(8 * p, 0)
+    floor = {}
+    for flush in ("write", "read", "none"):
+        empty = median_ms(lambda: torch.cuda._sleep(0), torch, flush=flush, hide_host_ms=0.5)
+        copy = median_ms(lambda: out.copy_(x), torch, flush=flush, hide_host_ms=0.5,
+                         prep=(lambda: x.copy_(x0)) if flush == "none" else None)
+        floor[flush] = dict(empty_launch_ms=empty, copy_ms=copy, floor_ms=max(empty, copy))
+        print(f"[{card}] floor P={p} flush={flush}: empty_launch_ms={empty:.6f} "
+              f"(torch.cuda._sleep(0)) copy_ms={copy:.6f} (out.copy_(x), {8 * p} bytes; a "
+              f"yardstick the port never calls) floor_ms={max(empty, copy):.6f} "
+              f"bound_ms={b_ms:.6f} share_of_bound_at_floor={b_ms / max(empty, copy):.4f}")
+    for c in (2, 125):
+        xs = round_layout(torch, c, p, seed=c + 1)
+        w = torch.rand(c, device="cuda") + 0.5
+        call = lambda: ops.weighted_mean_flat(xs, w)  # noqa: E731
+        hide = 2 * host_ms(call, torch) + 0.5
+        times = {flush: median_ms(call, torch, flush=flush, hide_host_ms=hide)
+                 for flush in ("write", "read", "none")}
+        floor[f"weighted_mean_flat C={c}"] = times
+        print(f"[{card}] floor weighted_mean_flat C={c} P={p}: write_flush_ms="
+              f"{times['write']:.6f} read_flush_ms={times['read']:.6f} no_flush_ms="
+              f"{times['none']:.6f} (host hidden; the input is {4 * c * p} bytes)")
+        del xs
+        torch.cuda.empty_cache()
+    return floor
+
+
+def fixed_point_plan_line(torch, dequantize: bool, plan) -> str:
+    """B5's (B6's with ``dequantize``) launch plan with what the card makes of it;
+    fails if the grid is more than one wave."""
+    from nanofed_tpu_torch.ops.quantize import STREAM_BLOCKS_PER_SM, fixed_point_occupancy
+    from nanofed_tpu_torch.ops.reduce import sm_count
+
+    regs, per_sm = fixed_point_occupancy(torch.device("cuda"), dequantize, plan.vec)
+    sms = sm_count(0)
+    if plan.blocks > sms * per_sm or per_sm < STREAM_BLOCKS_PER_SM:
+        fail(f"fixed-point plan {plan}: the card holds {per_sm} blocks an SM ({sms} SMs), so "
+             "the grid is more than one wave")
+    return (f"plan: vec={plan.vec} blocks={plan.blocks} slab={plan.slab} shared_bytes=0 "
+            f"per_sm_planned={STREAM_BLOCKS_PER_SM} per_sm_card={per_sm} sms={sms} "
+            f"registers={regs}")
+
+
+def time_fixed_point(torch, ops, card: str, gen) -> dict[str, dict]:
+    """B5 and B6 at P = 1,199,882 on 16-byte-aligned vectors, as the secure round
+    allocates them: the wrapper's call after the table's write flush (``ms``, as every
+    kernel is timed), and with the host's work hidden behind a device sleep after the
+    write flush (``kernel_ms``), after a read flush, and warm (``warm_ms``: no flush, the
+    input written by a copy just before, as the callers leave it); the wrapper's host
+    time, the plain version, one bit-equal library call where there is one, and the
+    bound; where the package has a plan, also the plan with the kernel's registers and
+    shared bytes.  Returns the records of B5 and B6."""
+    from nanofed_tpu_torch.ops import quantize
+    from nanofed_tpu_torch.ops.reduce import sm_count
+
+    p = P_MNIST
+    x0 = fixed_point_inputs(torch, p, 16, gen, specials=False)
+    x = x0.clone()
     qx = ops.quantize_u32(x, 16)
+    q0 = qx.clone()
     err = {
         "quantize_u32": same_bits(torch, "quantize_u32", qx, ops.quantize_u32_plain(x, 16)),
         "dequantize_u32": same_bits(torch, "dequantize_u32", ops.dequantize_u32(qx, 16),
@@ -604,16 +798,25 @@ def phase_quantize(torch, ops, card: str) -> dict[str, dict]:
         "dequantize_u32": ("q.view(torch.int32) * 2^-16", lambda: qi * inv, lambda out: out),
     }
     wants = {"quantize_u32": qx, "dequantize_u32": ops.dequantize_u32_plain(qx, 16)}
-    n_bytes = 8 * P_MNIST  # each kernel reads 4 bytes and writes 4 bytes an element
-    specs = {
-        "quantize_u32": (lambda: ops.quantize_u32(x, 16), lambda: ops.quantize_u32_plain(x, 16)),
-        "dequantize_u32": (lambda: ops.dequantize_u32(qx, 16),
+    specs = {  # name: (input, its pristine copy, call, plain)
+        "quantize_u32": (x, x0, lambda: ops.quantize_u32(x, 16),
+                         lambda: ops.quantize_u32_plain(x, 16)),
+        "dequantize_u32": (qx, q0, lambda: ops.dequantize_u32(qx, 16),
                            lambda: ops.dequantize_u32_plain(qx, 16)),
     }
+    b_ms, b_by = bound_ms(8 * p, 2 * p)  # 4 bytes read and 4 written a word
+    sms = sm_count(0)
     records = {}
-    for name, (kernel, plain) in specs.items():
-        b_ms, b_by = bound_ms(n_bytes, 2 * P_MNIST)
-        ms, plain_ms = median_ms(kernel, torch), median_ms(plain, torch)
+    for name, (src, pristine, kernel, plain) in specs.items():
+        warm = lambda src=src, pristine=pristine: src.view(torch.int32).copy_(  # noqa: E731
+            pristine.view(torch.int32))
+        wrapper_ms = host_ms(kernel, torch)
+        hide = 2 * wrapper_ms + 0.5
+        ms = median_ms(kernel, torch)
+        kernel_ms = median_ms(kernel, torch, hide_host_ms=hide)
+        read_ms = median_ms(kernel, torch, flush="read", hide_host_ms=hide)
+        warm_ms = median_ms(kernel, torch, flush="none", prep=warm, hide_host_ms=hide)
+        plain_ms = median_ms(plain, torch)
         library_ms, lib_note = None, "none computes the same function"
         lib_name, lib_fn, to_bits = libraries[name]
         try:
@@ -625,12 +828,21 @@ def phase_quantize(torch, ops, card: str) -> dict[str, dict]:
             library_ms, lib_note = median_ms(lib_fn, torch), lib_name
         elif lib_note.startswith("none"):
             lib_note = f"{lib_name} is not bit-equal to the kernel, so not timed"
-        print(f"[{card}] {name} P={P_MNIST}: kernel_ms={ms:.6f} plain_ms={plain_ms:.6f} "
-              f"library_ms={library_ms if library_ms is None else f'{library_ms:.6f}'} "
-              f"({lib_note}) bound_ms={b_ms:.6f} ({b_by}) max_abs_err={err[name]:.3e}")
-        records[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
-                             bound_by=b_by, max_abs_err=err[name])
-    records["add_mask"] = time_masks(torch, ops, card, rng)[MASK_RECORD_K]
+        line = (f"[{card}] {name} P={p}: ms={ms:.6f} (the call, write flush) kernel_ms="
+                f"{kernel_ms:.6f} (write flush, host hidden; share_of_bound="
+                f"{b_ms / kernel_ms:.4f}) read_flush_ms={read_ms:.6f} (host hidden) warm_ms="
+                f"{warm_ms:.6f} (no flush, input just written, host hidden) host_ms="
+                f"{wrapper_ms:.6f} (the wrapper's host time a call) plain_ms={plain_ms:.6f} "
+                f"library_ms="
+                f"{library_ms if library_ms is None else f'{library_ms:.6f}'} ({lib_note}) "
+                f"bound_ms={b_ms:.6f} ({b_by}) max_abs_err={err[name]:.3e}")
+        if hasattr(quantize, "stream_plan"):
+            line += " " + fixed_point_plan_line(torch, name == "dequantize_u32",
+                                                quantize.stream_plan(p, sms))
+        print(line)
+        records[name] = dict(ms=ms, kernel_ms=kernel_ms, warm_ms=warm_ms, plain_ms=plain_ms,
+                             library_ms=library_ms, bound_ms=b_ms, bound_by=b_by,
+                             max_abs_err=err[name])
     return records
 
 

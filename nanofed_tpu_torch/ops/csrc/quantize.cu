@@ -67,12 +67,38 @@
 // B5  out[i] = bits(int32(round_half_even(x[i] * 2^frac)))   (float32 -> uint32)
 //     x * 2^frac is exact (a power of two).  Outside |x * 2^frac| < 2^31, which the
 //     secure-aggregation contract excludes, the result saturates to INT32_MIN or
-//     INT32_MAX and NaN gives 0; the plain version does the same.
+//     INT32_MAX and NaN gives 0; the plain version does the same.  cvt.rni.s32.f32
+//     (__float2int_rn) already clamps and gives 0 for NaN, so the first design's three
+//     compares in front of it are gone (chip_smoke.py's saturation cases hold the bits).
 // B6  out[i] = float(int32(q[i])) * 2^-frac                  (uint32 -> float32)
 //     One rounding (int32 -> float32, to nearest even); the scale is exact.
 // Bound on an H100: bytes (each element read once and written once, 8 bytes, for one
-// multiply and one conversion).  At the mnist_cnn width (1.2M words) a launch costs
-// about as much as the work.
+// multiply and one conversion): 0.002865 ms at the mnist_cnn width (1,199,882 words).
+//
+// B5 and B6 are one kernel template over a conversion functor (ToFixed, FromFixed).
+// The first design launched ceil(n / 1024) blocks of 256 threads, one 16-byte load a
+// thread: 1172 blocks at 1.2M words, two waves at 8 blocks an SM.  The grid is now
+// planned on the host (ops/quantize.py stream_plan) and refused here when it is any
+// other plan: at most SMs x 2 blocks, one wave, each over a contiguous slab of whole
+// 16-byte units (slab_of; the last n % 4 words go to the last block, scalar).
+// * The floor, measured on an H100 80GB HBM3 at 700 W with CUDA events after a 256 MB
+//   L2 flush (scripts/time_quantize_kernels.py): an empty launch takes 0.0049-0.0051
+//   ms, so a 1.2M-word pass cannot beat 0.0050 + 0.0029 = 0.0079 ms (36% of the
+//   bound), and the first design already took 0.0079-0.0081 ms after a flush that
+//   leaves L2 clean.
+//   The flush that writes (the table's) adds 0.0013-0.0015 ms of write-backs to any
+//   pass.  torch's own copy of the same bytes takes 0.0109-0.0113 ms.
+// * The register form (kept on 16-byte-aligned pointers): 2 blocks an SM (264 slabs
+//   of 1136-1137 units at 132 SMs), each thread issuing the loads of its 4-5 units
+//   before its first store.  0.0092-0.0097 ms after the write flush, as the first
+//   design, and 0.0069-0.0071 ms warm (input just written, as the callers leave it),
+//   up to 7% faster; 0-8% slower after the read flush.  Unaligned starts take the same
+//   form over single words.
+// * A bulk form was measured and dropped: thread 0 asked for the whole slab at once
+//   by bulk copies into shared memory, each chunk on its own mbarrier, and the block
+//   converted each chunk in place and stored it by one bulk copy.  It was slower at
+//   every grid and chunk tried (1-8 blocks an SM, 2-8 KB chunks): 0.0099-0.0112 ms
+//   after the write flush, 0.0076-0.0089 warm (PERF.md keeps the times).
 //
 // B7  out[i] = q[i] + sum_j sign_j * m_j[i]   (mod 2^32), j = 0 .. k-1, in ONE launch
 //     m_j is numpy's Philox4x64-10 stream (np.random.Philox) under the 128-bit key
@@ -123,6 +149,8 @@
 //     there and never raises the bound.  This kernel's loop holds 150.0 FMA-pipe results
 //     a key (73.3 IMAD.WIDE, 3.3 other IMAD) and 136.7 ALU instructions (94.3 IADD3, 42
 //     LOP3), and it reaches 56% of the function's bound at k = 999 (PERF.md).
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
@@ -142,72 +170,110 @@ using nanofed::mbar_wait;
 using nanofed::Slab;
 using nanofed::slab_of;
 
-constexpr int kMaxBlocks = 4096;  // B5/B6: grid-stride beyond 4096 x 256 threads
+// ---- B5/B6: one pass of a fixed-point conversion over a flat vector ----------------
 
-__device__ __forceinline__ uint32_t to_fixed(float x, float scale) {
-  const float s = x * scale;
-  int32_t r;
-  if (s != s) {
-    r = 0;
-  } else if (s >= 2147483648.0f) {
-    r = INT32_MAX;
-  } else if (s < -2147483648.0f) {
-    r = INT32_MIN;
+constexpr int kUnitWords = 4;  // 32-bit words in a 16-byte unit
+constexpr int kRegUnits = 8;   // 16-byte units a thread holds at once
+constexpr int kRegWords = 32;  // words, where the start is not 16-byte aligned
+
+// B5 on one word's bits.  cvt.rni.s32.f32 rounds half to even, clamps to the int32
+// range and gives 0 for NaN: the saturation rule outside the contract.
+struct ToFixed {
+  float scale;
+  __device__ __forceinline__ uint32_t operator()(uint32_t bits) const {
+    return static_cast<uint32_t>(__float2int_rn(__fmul_rn(__uint_as_float(bits), scale)));
+  }
+};
+
+// B6: one rounding (int32 -> float32, to nearest even), then the exact 2^-frac.
+struct FromFixed {
+  float inv_scale;
+  __device__ __forceinline__ uint32_t operator()(uint32_t q) const {
+    return __float_as_uint(__fmul_rn(__int2float_rn(static_cast<int32_t>(q)), inv_scale));
+  }
+};
+
+template <class Op>
+__device__ __forceinline__ uint4 convert4(const Op& op, uint4 v) {
+  return make_uint4(op(v.x), op(v.y), op(v.z), op(v.w));
+}
+
+// The last n % 4 words (no whole 16-byte unit), by the last block with scalar accesses.
+template <class Op>
+__device__ __forceinline__ void convert_tail(const uint32_t* __restrict__ in,
+                                             uint32_t* __restrict__ out, int64_t n,
+                                             const Op& op) {
+  const int64_t i = n / kUnitWords * kUnitWords + threadIdx.x;
+  if (i < n) out[i] = op(__ldg(in + i));
+}
+
+// One pass over the block's slab in registers: VEC 4 (16-byte units; both pointers
+// aligned) or VEC 1 (words; any start).  A thread issues the loads of up to kRegUnits
+// units (kRegWords words) of its slab, kThreads apart, before its first store.
+template <int VEC, class Op>
+__global__ void __launch_bounds__(kThreads) convert_regs(const uint32_t* __restrict__ in,
+                                                         uint32_t* __restrict__ out, int64_t n,
+                                                         Op op) {
+  constexpr int R = VEC == kUnitWords ? kRegUnits : kRegWords;
+  using Unit = typename std::conditional<VEC == kUnitWords, uint4, uint32_t>::type;
+  const Unit* src = reinterpret_cast<const Unit*>(in);
+  Unit* dst = reinterpret_cast<Unit*>(out);
+  const int64_t units_total = n / VEC;
+  const Slab slab = slab_of(units_total);
+  const int64_t end = slab.u0 + slab.units;
+  for (int64_t u0 = slab.u0 + threadIdx.x; u0 < end; u0 += R * kThreads) {
+    Unit v[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (u0 + r * kThreads < end) v[r] = __ldg(src + u0 + r * kThreads);
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (u0 + r * kThreads < end) {
+        if constexpr (VEC == kUnitWords) {
+          dst[u0 + r * kThreads] = convert4(op, v[r]);
+        } else {
+          dst[u0 + r * kThreads] = op(v[r]);
+        }
+      }
+    }
+  }
+  if (VEC == kUnitWords && end == units_total) convert_tail(in, out, n, op);
+}
+
+// The host's plan (ops/quantize.py stream_plan), checked: `blocks` slabs over the n /
+// vec whole units of vec words (the last n % vec words go to the last block), `slab`
+// units the narrower.
+bool stream_plan_ok(int64_t n, int vec, int64_t blocks, int64_t slab) {
+  if (n < 0 || (vec != kUnitWords && vec != 1)) return false;
+  const int64_t units = n / vec;
+  if (blocks < 1 || blocks > (units > 1 ? units : 1) || blocks > 0x7fffffff) return false;
+  return slab == units / blocks;
+}
+
+template <class Op>
+cudaError_t launch_convert(const uint32_t* in, uint32_t* out, int64_t n, Op op, int vec,
+                           int64_t blocks, int64_t slab, void* stream) {
+  if (!stream_plan_ok(n, vec, blocks, slab)) return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned grid = static_cast<unsigned>(blocks);
+  if (vec == kUnitWords) {
+    if (reinterpret_cast<uintptr_t>(in) % 16 != 0 || reinterpret_cast<uintptr_t>(out) % 16 != 0) {
+      return cudaErrorInvalidValue;
+    }
+    convert_regs<kUnitWords, Op><<<grid, kThreads, 0, s>>>(in, out, n, op);
   } else {
-    r = __float2int_rn(s);  // cvt.rni: round half to even, like jnp.round
+    convert_regs<1, Op><<<grid, kThreads, 0, s>>>(in, out, n, op);
   }
-  return static_cast<uint32_t>(r);
+  return cudaGetLastError();
 }
 
-__device__ __forceinline__ float from_fixed(uint32_t q, float inv_scale) {
-  return __fmul_rn(__int2float_rn(static_cast<int32_t>(q)), inv_scale);
-}
-
-template <int VEC>
-__global__ void __launch_bounds__(kThreads) quantize_kernel(
-    const float* __restrict__ x, uint32_t* __restrict__ out, int64_t n, float scale) {
-  const int64_t groups = (n + VEC - 1) / VEC;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
-  for (int64_t g = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x; g < groups;
-       g += stride) {
-    const int64_t i = g * VEC;
-    if constexpr (VEC == 4) {
-      if (i + 4 <= n) {
-        const float4 v = __ldg(reinterpret_cast<const float4*>(x + i));
-        *reinterpret_cast<uint4*>(out + i) = make_uint4(
-            to_fixed(v.x, scale), to_fixed(v.y, scale), to_fixed(v.z, scale),
-            to_fixed(v.w, scale));
-        continue;
-      }
-    }
-    for (int k = 0; k < VEC && i + k < n; ++k) out[i + k] = to_fixed(__ldg(x + i + k), scale);
-  }
-}
-
-template <int VEC>
-__global__ void __launch_bounds__(kThreads) dequantize_kernel(
-    const uint32_t* __restrict__ q, float* __restrict__ out, int64_t n, float inv_scale) {
-  const int64_t groups = (n + VEC - 1) / VEC;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
-  for (int64_t g = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x; g < groups;
-       g += stride) {
-    const int64_t i = g * VEC;
-    if constexpr (VEC == 4) {
-      if (i + 4 <= n) {
-        const uint4 v = __ldg(reinterpret_cast<const uint4*>(q + i));
-        *reinterpret_cast<float4*>(out + i) = make_float4(
-            from_fixed(v.x, inv_scale), from_fixed(v.y, inv_scale),
-            from_fixed(v.z, inv_scale), from_fixed(v.w, inv_scale));
-        continue;
-      }
-    }
-    for (int k = 0; k < VEC && i + k < n; ++k) out[i + k] = from_fixed(__ldg(q + i + k), inv_scale);
-  }
-}
-
-unsigned grid_for(int64_t work) {
-  const int64_t blocks = (work + kThreads - 1) / kThreads;
-  return static_cast<unsigned>(blocks < kMaxBlocks ? (blocks > 0 ? blocks : 1) : kMaxBlocks);
+template <class Op>
+cudaError_t convert_occupancy(int vec, int* registers, int* blocks_per_sm) {
+  const void* kernel = vec == kUnitWords
+                           ? reinterpret_cast<const void*>(convert_regs<kUnitWords, Op>)
+                           : reinterpret_cast<const void*>(convert_regs<1, Op>);
+  return nanofed::occupancy(kernel, kThreads, 0, registers, blocks_per_sm);
 }
 
 // ---- B7: Philox4x64-10 masks, k keys a launch ---------------------------------------
@@ -723,32 +789,29 @@ extern "C" int nf_dequant_accumulate_occupancy(int vec, int64_t shared_bytes, in
       nanofed::occupancy(kernel, threads, shared_bytes, registers, blocks_per_sm));
 }
 
-// x: [n] f32; out: [n] uint32; vec 4 needs both pointers 16-byte aligned.
-extern "C" int nf_quantize_u32(const float* x, uint32_t* out, int64_t n, float scale,
-                               int vec, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (vec == 4) {
-    quantize_kernel<4><<<grid_for((n + 3) / 4), kThreads, 0, s>>>(x, out, n, scale);
-  } else if (vec == 1) {
-    quantize_kernel<1><<<grid_for(n), kThreads, 0, s>>>(x, out, n, scale);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+// B5.  x: [n] f32; out: [n] uint32; vec, blocks and slab are the host's plan (vec 4
+// needs both pointers 16-byte aligned).  Returns cudaErrorInvalidValue for a plan or a
+// layout it cannot run, else cudaGetLastError().
+extern "C" int nf_quantize_u32(const float* x, uint32_t* out, int64_t n, float scale, int vec,
+                               int64_t blocks, int64_t slab, void* stream) {
+  return static_cast<int>(launch_convert(reinterpret_cast<const uint32_t*>(x), out, n,
+                                         ToFixed{scale}, vec, blocks, slab, stream));
 }
 
-// q: [n] uint32; out: [n] f32; vec 4 needs both pointers 16-byte aligned.
+// B6.  q: [n] uint32; out: [n] f32; the plan as for nf_quantize_u32.
 extern "C" int nf_dequantize_u32(const uint32_t* q, float* out, int64_t n, float inv_scale,
-                                 int vec, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (vec == 4) {
-    dequantize_kernel<4><<<grid_for((n + 3) / 4), kThreads, 0, s>>>(q, out, n, inv_scale);
-  } else if (vec == 1) {
-    dequantize_kernel<1><<<grid_for(n), kThreads, 0, s>>>(q, out, n, inv_scale);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+                                 int vec, int64_t blocks, int64_t slab, void* stream) {
+  return static_cast<int>(launch_convert(q, reinterpret_cast<uint32_t*>(out), n,
+                                         FromFixed{inv_scale}, vec, blocks, slab, stream));
+}
+
+// What the card makes of B5's (dequantize 0) or B6's (1) kernel at a plan's vec: its
+// registers a thread and how many of its blocks an SM holds.
+extern "C" int nf_fixed_point_occupancy(int dequantize, int vec, int* registers,
+                                        int* blocks_per_sm) {
+  return static_cast<int>(dequantize
+                              ? convert_occupancy<FromFixed>(vec, registers, blocks_per_sm)
+                              : convert_occupancy<ToFixed>(vec, registers, blocks_per_sm));
 }
 
 // B7.  q, out: [n] uint32; the k >= 1 keys as [k][3] 64-bit words (the 128-bit Philox

@@ -23,6 +23,10 @@ and the design.
   ``INT32_MAX`` and NaN gives 0, in the kernel and in :func:`quantize_u32_plain` alike.
 * B6: uint32 ``[n]`` -> float32 ``[n]``, ``float(int32(q)) * 2^-frac``: one rounding,
   so on a modular sum it equals ``np.float32(secure_agg.dequantize(total))`` exactly.
+  B5 and B6 are one kernel over a conversion, on a one-wave grid planned on the host
+  (:func:`stream_plan`: slabs of whole 16-byte units, or single words where a pointer
+  is not 16-byte aligned), loaded into registers; the C side refuses any other plan,
+  and :func:`check_stream_plan` raises on the same plans.
 * B7: ``q + sum_j sign_j * m_j`` modulo 2^32 over k seeds in one launch, where
   ``m_j`` is numpy's Philox4x64-10 stream (``np.random.Philox``) under the 128-bit key
   formed from seed j's four folded words ``(w0 | w1 << 32, w2 | w3 << 32)``.  That
@@ -43,7 +47,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -75,13 +79,22 @@ MASK_THREADS = 256
 MASK_BLOCKS_PER_SM = 5
 MASK_MIN_SPAN = 32
 
+# B5/B6's plan, as csrc/quantize.cu has it: 256-thread blocks over slabs of whole
+# units (16 bytes, 4 words, where both pointers are 16-byte aligned; else single
+# words), at least STREAM_MIN_SLAB units a block, at most STREAM_BLOCKS_PER_SM blocks
+# an SM (the kernel's 48 registers let an SM hold 5; 2 measured fastest warm).
+STREAM_THREADS = 256
+STREAM_UNIT_WORDS = 4
+STREAM_MIN_SLAB = 256
+STREAM_BLOCKS_PER_SM = 2
+
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("quantize")
     ptr, i64, c_int = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    lib.nf_quantize_u32.argtypes = [ptr, ptr, i64, ctypes.c_float, c_int, ptr]
-    lib.nf_dequantize_u32.argtypes = [ptr, ptr, i64, ctypes.c_float, c_int, ptr]
+    lib.nf_quantize_u32.argtypes = [ptr, ptr, i64, ctypes.c_float, c_int, i64, i64, ptr]
+    lib.nf_dequantize_u32.argtypes = list(lib.nf_quantize_u32.argtypes)
     lib.nf_add_mask.argtypes = [ptr, ptr, i64, ptr, ptr, c_int, c_int, c_int, i64, ptr]
     lib.nf_add_mask_inline_keys.argtypes = []
     lib.nf_dequant_accumulate.argtypes = [
@@ -90,9 +103,10 @@ def _lib() -> ctypes.CDLL:
     int_out = ctypes.POINTER(c_int)
     lib.nf_add_mask_occupancy.argtypes = [int_out, int_out]
     lib.nf_dequant_accumulate_occupancy.argtypes = [c_int, i64, int_out, int_out]
+    lib.nf_fixed_point_occupancy.argtypes = [c_int, c_int, int_out, int_out]
     for fn in (lib.nf_quantize_u32, lib.nf_dequantize_u32, lib.nf_add_mask,
                lib.nf_add_mask_inline_keys, lib.nf_dequant_accumulate, lib.nf_add_mask_occupancy,
-               lib.nf_dequant_accumulate_occupancy):
+               lib.nf_dequant_accumulate_occupancy, lib.nf_fixed_point_occupancy):
         fn.restype = ctypes.c_int
     return lib
 
@@ -140,6 +154,75 @@ def seed_key(seed: int | Sequence[int] | np.ndarray) -> tuple[int, int]:
 
 
 # ---------------------------------------------------------------------------
+# B5 and B6: the launch plan
+# ---------------------------------------------------------------------------
+
+
+class StreamPlan(NamedTuple):
+    """One launch of B5 or B6 over ``n`` words: ``blocks`` slabs of the ``n // vec``
+    whole units of ``vec`` words (4: 16 bytes, 1: a word), ``slab`` units the narrower
+    (the others one more; the last ``n % vec`` words go to the last block)."""
+
+    blocks: int
+    slab: int
+    vec: int
+
+
+def check_stream_plan(plan: StreamPlan, n: int) -> None:
+    """Raise ``ValueError`` for a plan the C side would refuse (``stream_plan_ok`` in
+    ``csrc/quantize.cu``)."""
+    units = n // plan.vec if plan.vec in (STREAM_UNIT_WORDS, 1) else -1
+    if not (n >= 0 and units >= 0 and 1 <= plan.blocks <= min(max(units, 1), 0x7FFFFFFF)
+            and plan.slab == units // plan.blocks):
+        raise ValueError(f"the kernel cannot run {plan} for n={n}")
+
+
+@functools.lru_cache(maxsize=256)
+def stream_plan(n: int, sms: int, vec: int = STREAM_UNIT_WORDS) -> StreamPlan:
+    """The grid of one B5/B6 launch over ``n`` words on a card of ``sms`` SMs, checked
+    as the C side checks it: ``sms x STREAM_BLOCKS_PER_SM`` blocks in one wave (fewer
+    where a slab would hold under ``STREAM_MIN_SLAB`` units), each a contiguous slab.
+    ``vec`` 4 needs both pointers 16-byte aligned.  Cached, so a call pays a lookup."""
+    if n < 0 or sms < 1 or vec not in (STREAM_UNIT_WORDS, 1):
+        raise ValueError(f"stream_plan: no plan for n={n} sms={sms} vec={vec}")
+    units = n // vec
+    blocks = max(1, min(sms * STREAM_BLOCKS_PER_SM, units // STREAM_MIN_SLAB))
+    plan = StreamPlan(blocks, units // blocks, vec)
+    check_stream_plan(plan, n)
+    return plan
+
+
+def fixed_point_launch(src: torch.Tensor, out: torch.Tensor, frac_bits: int) -> None:
+    """One launch of B5 (``src`` float32, ``out`` uint32) or B6 (``src`` uint32, ``out``
+    float32) on CUDA tensors, on :func:`stream_plan` for the pointers.  The wrapper's
+    checks are done by the caller, and no launch is counted."""
+    n = src.shape[0]
+    vec = _vec(src, out)
+    plan = stream_plan(n, sm_count(src.device.index), vec)
+    lib = _lib()
+    if src.dtype == torch.float32:
+        name, fn, scale = "quantize_u32", lib.nf_quantize_u32, float(1 << frac_bits)
+    else:
+        name, fn, scale = "dequantize_u32", lib.nf_dequantize_u32, 1.0 / (1 << frac_bits)
+    with torch.cuda.device(src.device):
+        rc = fn(src.data_ptr(), out.data_ptr(), n, scale, vec, plan.blocks, plan.slab,
+                stream_of(src))
+    check_launch(lib, name, rc)
+
+
+def fixed_point_occupancy(device: torch.device, dequantize: bool, vec: int) -> tuple[int, int]:
+    """``(registers a thread, blocks an SM holds)`` of B5's (with ``dequantize``, B6's)
+    kernel at ``vec`` on the card."""
+    lib = _lib()
+    regs, per_sm = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(device):
+        rc = lib.nf_fixed_point_occupancy(int(dequantize), vec, ctypes.byref(regs),
+                                          ctypes.byref(per_sm))
+    check_launch(lib, "fixed_point_occupancy", rc)
+    return regs.value, per_sm.value
+
+
+# ---------------------------------------------------------------------------
 # B5: quantize
 # ---------------------------------------------------------------------------
 
@@ -161,11 +244,7 @@ def quantize_u32(x: torch.Tensor, frac_bits: int = 16) -> torch.Tensor:
     if not uses_kernel(x):
         return quantize_u32_plain(x, frac_bits)
     out = torch.empty(x.shape[0], dtype=torch.uint32, device=x.device)
-    lib = _lib()
-    with torch.cuda.device(x.device):
-        rc = lib.nf_quantize_u32(x.data_ptr(), out.data_ptr(), x.shape[0],
-                                 float(1 << frac_bits), _vec(x, out), stream_of(x))
-    check_launch(lib, "quantize_u32", rc)
+    fixed_point_launch(x, out, frac_bits)
     kernel_launched(quantize_u32, 8 * x.shape[0])
     return out
 
@@ -192,11 +271,7 @@ def dequantize_u32(q: torch.Tensor, frac_bits: int = 16) -> torch.Tensor:
     if not uses_kernel(q):
         return dequantize_u32_plain(q, frac_bits)
     out = torch.empty(q.shape[0], dtype=torch.float32, device=q.device)
-    lib = _lib()
-    with torch.cuda.device(q.device):
-        rc = lib.nf_dequantize_u32(q.data_ptr(), out.data_ptr(), q.shape[0],
-                                   1.0 / (1 << frac_bits), _vec(q, out), stream_of(q))
-    check_launch(lib, "dequantize_u32", rc)
+    fixed_point_launch(q, out, frac_bits)
     kernel_launched(dequantize_u32, 8 * q.shape[0])
     return out
 

@@ -610,7 +610,7 @@ def _evaluate_candidate(
     n_devices: int,
     budget: int | None,
     adapter: Any = None,
-    device: DeviceLike = "cpu",
+    device: DeviceLike = None,
 ) -> CandidateOutcome:
     """Build ONE candidate's round step and profile it on inputs of the population's
     shapes (:func:`_candidate_inputs`), then score its report.  Static checks
@@ -699,7 +699,7 @@ def _evaluate_candidate(
             ))
 
     # --- Build + profile (the candidate's round runs) ------------------------------
-    dev = torch.device(device)
+    dev = resolve_device(device)
     strategy = fedavg_strategy()
     training_c = dataclasses.replace(training, batch_size=cand.batch_size)
     step = build_round_step(model, training_c, strategy, client_chunk=cand.client_chunk)

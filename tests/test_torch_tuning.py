@@ -237,6 +237,15 @@ def test_resolve_hbm_budget_defaults_to_the_card(monkeypatch):
         resolve_hbm_budget()
 
 
+def test_evaluate_candidate_defaults_to_the_card(monkeypatch):
+    """A candidate past the static checks is profiled on the card unless its caller
+    names a device: without a card a bare call raises before it builds anything."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        autotuner._evaluate_candidate(CandidateConfig(None, 1, 1, 16), None, LINEAR_POP,
+                                      TrainingConfig(batch_size=16), 1.0, 4, 0, 1, None)
+
+
 # ---------------------------------------------------------------------------
 # The sweep on the CPU
 # ---------------------------------------------------------------------------
