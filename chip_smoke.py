@@ -76,6 +76,23 @@ Phases (any failure exits non-zero):
    profile_programs=True)`` on 8 ``mnist_cnn`` clients of 600 samples, 3 rounds.  The
    launch counts of both runs must equal what the profiler's calls and the rounds
    launch.
+   Then resumable runs: (j) at the flagship's shape through ``Coordinator`` with FedAvgM
+   (a [P] momentum trace) and a cosine client schedule (``lr_min_factor=0.2``), 4
+   rounds: an uninterrupted run with a ``ModelManager`` and a ``FileStateStore``, each
+   round's checkpoint, versioned model and whole publish timed; the same run again
+   (the card's run-to-run gap); a run whose ``start_training()`` is closed after two
+   rounds, resumed by a fresh coordinator at round 2 with the uninterrupted run's
+   ``lr_scale``s and its params and trace within 1e-4 and within the run-to-run gap
+   plus 1e-6; ``run_fault_tolerant`` through a ``ConnectionError`` after round 1
+   (history rounds 2 and 3, latest checkpoint round 3); the newest versioned model
+   equal to the live params bit for bit; then the flagship through ``run_experiment(
+   lr_schedule="linear", lr_min_factor=0.2)`` (2 rounds, its last ``lr_scale`` the
+   schedule's).  B1's accumulate form and B3 launch 8 times a round.  (k) the plain network round of (h) resumed, its clients training with
+   cuDNN's deterministic algorithms: 3 rounds uninterrupted, 2 rounds with a store
+   (the run-to-run gap after 2 rounds), then a new server and coordinator for 3
+   rounds that must start at round 2, publish the checkpointed params bit for bit and
+   end within 1e-4 of the uninterrupted run and within the run-to-run gap plus 1e-6
+   (B1 once a round).
 4. Cross-check: 8-client f32 rounds of the port on the card and on the CPU from the
    same weights, permutations and injected noise: the plain round with dropout off
    and on (the masks are an integer hash, the same bits on both devices), the
@@ -145,6 +162,8 @@ TUNED_BATCHES = (32, 64)  # (i): and its batch-size axis
 FLAGSHIP = dict(num_clients=1000, num_rounds=2, local_epochs=2, batch_size=64,
                 learning_rate=0.1, train_size=60_000, compute_dtype="bfloat16")
 TRIM_K = 5  # (e): trimmed mean over the 100-client cohort
+RESUME_ROUNDS = 4  # (j): the flagship run resumed after 2 of its 4 rounds
+RESUME_TOL = 1e-4  # (j), (k): a resumed run against the uninterrupted one on the card
 
 
 def fail(msg: str) -> None:
@@ -1693,6 +1712,281 @@ def phase_autotune(torch, ops, run_experiment, card: str, out_dir: Path) -> dict
     return totals
 
 
+def timed_method(obj, name: str, spent: list[float]) -> None:
+    """Record the seconds of every call of ``obj.name`` in ``spent``."""
+    fn = getattr(obj, name)
+
+    def wrapper(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            spent.append(time.perf_counter() - t0)
+
+    setattr(obj, name, wrapper)
+
+
+def max_gap(torch, a: dict, b: dict) -> float:
+    """max |a - b| over the tensors two states share (params or a server state)."""
+    return max(float((a[k].float() - b[k].float()).abs().max()) for k in a
+               if torch.is_tensor(a[k]))
+
+
+def phase_resume(torch, ops, run_experiment, card: str, out_dir: Path) -> dict[str, int]:
+    """(j): resumable simulated runs at the flagship's shape through ``Coordinator``,
+    FedAvgM (a [P] trace) and a cosine client schedule: an uninterrupted run with a
+    ``ModelManager`` and a ``FileStateStore`` (its publish cost timed), a second
+    uninterrupted run (the card's run-to-run gap), a run closed after two rounds and a
+    fresh coordinator resuming it, and ``run_fault_tolerant`` through a
+    ``ConnectionError``; then the runner's lr flags (``run_experiment(lr_schedule=
+    "linear")``).  Returns the launch counts."""
+    from nanofed_tpu_torch.aggregation import fedavgm_strategy
+    from nanofed_tpu_torch.data import federate, load_mnist
+    from nanofed_tpu_torch.models import get_model
+    from nanofed_tpu_torch.orchestration import Coordinator, CoordinatorConfig, RoundStatus
+    from nanofed_tpu_torch.persistence import (
+        FileStateStore,
+        ModelManager,
+        SimpleRecoveryStrategy,
+        run_fault_tolerant,
+    )
+    from nanofed_tpu_torch.trainer import TrainingConfig, lr_schedule_scale
+
+    cfg, rounds, chunk = FLAGSHIP, RESUME_ROUNDS, 125
+    n = cfg["num_clients"]
+    model = get_model("mnist_cnn")
+    data = federate(load_mnist("train", None, synthetic_size=cfg["train_size"]),
+                    num_clients=n, batch_size=cfg["batch_size"], seed=0)
+    training = TrainingConfig(batch_size=cfg["batch_size"], local_epochs=cfg["local_epochs"],
+                              learning_rate=cfg["learning_rate"],
+                              compute_dtype=cfg["compute_dtype"])
+    totals: dict[str, int] = dict.fromkeys(ops.launch_counts(), 0)
+    base = out_dir / "j_resume"
+
+    def make(name: str, **kwargs):
+        return Coordinator(
+            model, data, CoordinatorConfig(num_rounds=rounds, seed=0, base_dir=base / name,
+                                           lr_schedule="cosine", lr_min_factor=0.2),
+            training, strategy=fedavgm_strategy(), client_chunk=chunk, device="cuda",
+            **kwargs)
+
+    def drive(name: str, run, want_rounds: int):
+        """Run ``run()`` with the counts zeroed just before; check the rounds' launches."""
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        grew = ops.launch_counts()
+        want = dict.fromkeys(grew, 0)
+        add_launches(want, step_launches(chunk, n), want_rounds)
+        print(f"[{card}] (j) {name}: wall_s={wall:.3f} launches={grew}")
+        if grew != want:
+            fail(f"(j) {name}: kernel launches {grew}, expected {want}")
+        add_launches(totals, grew)
+        return out
+
+    # 1. Uninterrupted, publishing every round: a versioned model and a checkpoint.
+    manager = ModelManager(base / "models")
+    full = make("full", model_manager=manager, state_store=FileStateStore(base / "full_ckpt"))
+    ckpt_s: list[float] = []
+    model_s: list[float] = []
+    publish_s: list[float] = []
+    timed_method(full.state_store, "checkpoint", ckpt_s)
+    timed_method(manager, "save_model", model_s)
+    timed_method(full, "_publish_round", publish_s)
+    full_rounds = drive("uninterrupted, publishing", full.run, rounds)
+    for r, m in enumerate(full_rounds):
+        print(f"[{card}] (j) round {r}: round_s={m.duration_s:.6f} "
+              f"publish_s={publish_s[r]:.6f} checkpoint_s={ckpt_s[r]:.6f} "
+              f"versioned_model_s={model_s[r]:.6f} lr_scale={m.agg_metrics['lr_scale']} "
+              f"loss={m.agg_metrics['loss']:.6f}")
+    if [m.status for m in full_rounds] != [RoundStatus.COMPLETED] * rounds:
+        fail(f"(j) uninterrupted: rounds {[m.status for m in full_rounds]}")
+    latest, version = manager.load_model(like=full.params)
+    if version.round_number != rounds - 1 or not all(
+            torch.equal(latest[k], full.params[k].cpu()) for k in full.params):
+        fail(f"(j) the newest versioned model (round {version.round_number}) is not the "
+             "live params bit for bit")
+
+    # 2. The same run again: the card's run-to-run gap.
+    again = make("again")
+    drive("uninterrupted again", again.run, rounds)
+    run_gap = max(max_gap(torch, again.params, full.params),
+                  max_gap(torch, again.server_state, full.server_state))
+    del again
+
+    # 3. Closed after two rounds, resumed by a fresh coordinator.
+    store = FileStateStore(base / "ckpt")
+    first = make("first", state_store=store)
+
+    def two_rounds():
+        gen = first.start_training()
+        out = [next(gen), next(gen)]
+        gen.close()
+        return out
+
+    drive("closed after 2 rounds", two_rounds, 2)
+    del first
+    resumed = make("resumed", state_store=store)
+    if resumed.current_round != 2:
+        fail(f"(j) resumed at round {resumed.current_round}, expected 2")
+    resumed_rounds = drive("resumed", resumed.run, rounds - 2)
+    scales = [m.agg_metrics["lr_scale"] for m in resumed_rounds]
+    want_scales = [m.agg_metrics["lr_scale"] for m in full_rounds][2:]
+    resumed_gap = max(max_gap(torch, resumed.params, full.params),
+                      max_gap(torch, resumed.server_state, full.server_state))
+    print(f"[{card}] (j) run-to-run gap max|d(params, trace)|={run_gap:.3e}; resumed gap "
+          f"{resumed_gap:.3e} (tolerance {RESUME_TOL}, and at most the run-to-run gap + "
+          f"1e-6); resumed lr_scale={scales}, uninterrupted rounds 2-3 {want_scales}")
+    if scales != want_scales:
+        fail(f"(j) resumed lr scales {scales}, uninterrupted {want_scales}")
+    if not (resumed_gap <= RESUME_TOL and resumed_gap <= run_gap + 1e-6):
+        fail(f"(j) the resumed run differs from the uninterrupted one by {resumed_gap} "
+             f"(run-to-run {run_gap})")
+    del resumed
+
+    # 4. run_fault_tolerant through a recoverable failure after round 1's checkpoint.
+    tolerant_store = FileStateStore(base / "tolerant_ckpt")
+    crashed = []
+
+    def make_tolerant():
+        coord = make("tolerant", state_store=tolerant_store)
+        if not crashed:
+            def partition(metrics):
+                if metrics.round_id == 1:
+                    crashed.append(metrics.round_id)
+                    raise ConnectionError("simulated network partition")
+
+            coord.on_round_end = partition
+        return coord
+
+    history = drive("run_fault_tolerant", lambda: run_fault_tolerant(
+        make_tolerant, SimpleRecoveryStrategy(max_retries=2)), rounds)
+    latest_round = tolerant_store.restore_latest().round_number
+    print(f"[{card}] (j) run_fault_tolerant: crashed after rounds {crashed}, then history "
+          f"{[m.round_id for m in history]}, latest checkpoint round {latest_round}")
+    if [m.round_id for m in history] != [2, 3] or latest_round != rounds - 1:
+        fail(f"(j) run_fault_tolerant history {[m.round_id for m in history]}, latest "
+             f"checkpoint {latest_round}")
+
+    # 5. The runner's lr flags: the flagship through run_experiment on a linear schedule.
+    summary = drive("run_experiment(lr_schedule='linear')", lambda: run_experiment(
+        model="mnist_cnn", device="cuda", seed=0, out_dir=base / "runner", client_chunk=chunk,
+        lr_schedule="linear", lr_min_factor=0.2, **cfg), cfg["num_rounds"])
+    last = cfg["num_rounds"] - 1
+    want_scale = round(lr_schedule_scale("linear", last, cfg["num_rounds"], min_factor=0.2), 6)
+    train = summary["final_train_metrics"]
+    print(f"[{card}] (j) run_experiment(lr_schedule='linear'): round_durations_s="
+          f"{summary['round_durations_s']} lr_scale={train.get('lr_scale')} (schedule "
+          f"{want_scale}) loss={train.get('loss')}")
+    if summary["rounds_completed"] != cfg["num_rounds"] or train.get("lr_scale") != want_scale:
+        fail(f"(j) run_experiment: {summary['rounds_completed']} rounds, lr_scale "
+             f"{train.get('lr_scale')} (schedule {want_scale})")
+    return totals
+
+
+def phase_network_resume(torch, ops, card: str, out_dir: Path) -> dict[str, int]:
+    """(k): the plain network round of (h) resumed from a ``FileStateStore``: 3 rounds
+    uninterrupted, then 2 rounds with a store, and a new server and coordinator for 3
+    rounds resuming from it.  Returns the launch counts."""
+    import logging
+
+    import numpy as np
+
+    from nanofed_tpu_torch import communication as comm
+    from nanofed_tpu_torch.data import federate, load_mnist
+    from nanofed_tpu_torch.models import get_model
+    from nanofed_tpu_torch.persistence import FileStateStore
+    from nanofed_tpu_torch.security import secure_agg as sa
+    from nanofed_tpu_torch.trainer import TrainingConfig, make_local_fit
+    from nanofed_tpu_torch.utils.logger import LogConfig, Logger
+    from nanofed_tpu_torch.utils.trees import flatten_with_names, ravel
+
+    Logger().configure(LogConfig(level=logging.WARNING))
+    n = SECURE_CLIENTS
+    model = get_model("mnist_cnn")
+    init = model.init(torch.Generator(device="cuda").manual_seed(0))
+    host = federate(load_mnist("train", None, synthetic_size=n * SECURE_SAMPLES),
+                    num_clients=n, batch_size=64, seed=0)
+    data = [host.select(slice(c, c + 1)).to(torch.device("cuda")) for c in range(n)]
+    local_fit = make_local_fit(model, TrainingConfig(batch_size=64, local_epochs=1,
+                                                     learning_rate=0.1))
+    totals: dict[str, int] = dict.fromkeys(ops.launch_counts(), 0)
+
+    def run(name: str, rounds: int, store=None):
+        fetched: dict = {}
+
+        async def main():
+            port = comm.free_port()
+            server = comm.HTTPServer(port=port)
+            await server.start()
+            try:
+                coordinator = comm.NetworkCoordinator(
+                    server, init, comm.NetworkRoundConfig(num_rounds=rounds, min_clients=n,
+                                                          round_timeout_s=120.0),
+                    device="cuda", state_store=store)
+                url = f"http://127.0.0.1:{port}"
+                clients = [network_client(torch, comm, sa, url, f"client_{c}", c, local_fit,
+                                          data[c], None, init, {}, fetched, {})
+                           for c in range(n)]
+                await asyncio.wait_for(asyncio.gather(coordinator.run(), *clients), 300)
+                return coordinator
+            finally:
+                await server.stop()
+
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        coordinator = asyncio.run(main())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        grew = ops.launch_counts()
+        ran = [h["round"] for h in coordinator.history]
+        print(f"[{card}] (k) {name}: start_round={coordinator.start_round} rounds={ran} "
+              f"round_durations_s={coordinator.ledger.durations_s} wall_s={wall:.3f} "
+              f"launches={grew}")
+        if [h["status"] for h in coordinator.history] != ["COMPLETED"] * len(ran):
+            fail(f"(k) {name}: rounds {coordinator.history}")
+        want = dict.fromkeys(grew, 0)
+        want["weighted_mean_flat"] = len(ran)  # B1 normalised over [8, P], one a round
+        if grew != want:
+            fail(f"(k) {name}: kernel launches {grew}, expected {want}")
+        add_launches(totals, grew)
+        return coordinator, fetched
+
+    # The simulated clients train with cuDNN's deterministic algorithms: its default
+    # float32 convolution backward gave two runs of the same rounds 3e-5 to 3e-4 apart
+    # on the card, which would hide what the resume changes.
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        full, full_fetched = run("uninterrupted", 3)
+        store = FileStateStore(out_dir / "k_network_ckpt")
+        first, _ = run("2 rounds with a store", 2, store)
+        checkpoint = store.restore_latest()
+        resumed, fetched = run("resumed by a new server and coordinator", 3, store)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    # The store run repeats the uninterrupted run's rounds 0-1: the card's run-to-run gap.
+    run_gap = float((ravel(first.params).cpu() - ravel(full_fetched[2])).abs().max())
+    saved = torch.from_numpy(np.concatenate(
+        [a.ravel() for a in flatten_with_names(checkpoint.params).values()]))
+    if resumed.start_round != 2 or list(fetched) != [2] or not (
+            torch.equal(ravel(fetched[2]), saved)
+            and torch.equal(saved, ravel(first.params).cpu())):
+        fail(f"(k) the resumed coordinator started at {resumed.start_round} (rounds "
+             f"fetched {list(fetched)}), not publishing the round-1 checkpoint bit for bit")
+    gap = float((ravel(resumed.params) - ravel(full.params)).abs().max())
+    print(f"[{card}] (k) resumed at round 2, published the checkpoint bit for bit; "
+          f"run-to-run gap after 2 rounds {run_gap:.3e}; final max|resumed - "
+          f"uninterrupted|={gap:.3e} (tolerance {RESUME_TOL})")
+    if not (torch.isfinite(ravel(resumed.params)).all() and gap <= RESUME_TOL
+            and gap <= run_gap + 1e-6):
+        fail(f"(k) the resumed network run differs from the uninterrupted one by {gap} "
+             f"(run-to-run {run_gap})")
+    return totals
+
+
 def run_validated(out_dir: Path) -> dict:
     """(c): the flagship through ``Coordinator(validation=ValidationConfig())`` (the
     runner takes no validation flag, in either package), built as ``run_experiment``
@@ -1972,7 +2266,10 @@ def main() -> None:
         counts = phase_slice(torch, ops, run_experiment, card, Path(tmp))
         secure_counts = phase_secure(torch, ops, card)
         tuned_counts = phase_autotune(torch, ops, run_experiment, card, Path(tmp))
-    counts = {k: counts[k] + secure_counts[k] + tuned_counts[k] for k in counts}
+        resume_counts = phase_resume(torch, ops, run_experiment, card, Path(tmp))
+        network_resume_counts = phase_network_resume(torch, ops, card, Path(tmp))
+    counts = {k: counts[k] + secure_counts[k] + tuned_counts[k] + resume_counts[k]
+              + network_resume_counts[k] for k in counts}
     print(f"kernels: {json.dumps(counts)}")
     missing = [k for k, v in counts.items() if v == 0]
     if missing:

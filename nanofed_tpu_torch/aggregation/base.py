@@ -5,35 +5,59 @@ A strategy is a server optimizer applied to the NEGATIVE aggregated client delta
 exactly FedAvg, and the others are FedAvgM / FedAdam / FedYogi (Reddi et al. 2021).
 The transforms follow optax's semantics (momentum trace, bias correction, eps outside
 the square root, Yogi's sign update and 1e-6 initial accumulators), not
-``torch.optim``'s, and act on flat ``[P]`` vectors in ravel order.  Learning rates
-are constants; per-round server schedules come with a later slice.
+``torch.optim``'s, and act on flat ``[P]`` vectors in ravel order.
+
+A learning rate is a float or a schedule, a plain callable ``count -> lr`` stepped
+once per round: the server state persists across rounds, so the count is the number
+of server updates so far.  A schedule keeps its count in the state as
+``schedule_count`` (optax's ``ScaleByScheduleState``, which the JAX package's
+checkpoints carry), so a resumed run continues it.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any
+from typing import Any, Callable
 
 import torch
 
 State = dict[str, Any]
+LearningRate = float | Callable[[int], float]
+
+
+def _schedule_init(learning_rate: LearningRate) -> State:
+    return {"schedule_count": 0} if callable(learning_rate) else {}
+
+
+def _scaled(
+    step: torch.Tensor, learning_rate: LearningRate, state: State
+) -> tuple[torch.Tensor, State]:
+    """optax ``scale_by_learning_rate``: ``-lr * step``, the schedule read at the
+    current count, which then advances."""
+    if not callable(learning_rate):
+        return step * (-learning_rate), {}
+    count = state["schedule_count"]
+    return step * (-float(learning_rate(count))), {"schedule_count": count + 1}
 
 
 @dataclass(frozen=True)
 class ServerSGD:
     """optax ``sgd(lr, momentum)``: ``t = g + momentum * t``; update ``-lr * t``."""
 
-    learning_rate: float
+    learning_rate: LearningRate
     momentum: float | None = None
 
     def init(self, flat: torch.Tensor) -> State:
-        return {"trace": torch.zeros_like(flat)} if self.momentum else {}
+        trace = {"trace": torch.zeros_like(flat)} if self.momentum else {}
+        return {**trace, **_schedule_init(self.learning_rate)}
 
     def update(self, grad: torch.Tensor, state: State) -> tuple[torch.Tensor, State]:
+        trace = {}
         if self.momentum:
             grad = grad + self.momentum * state["trace"]
-            state = {"trace": grad}
-        return grad * (-self.learning_rate), state
+            trace = {"trace": grad}
+        step, schedule = _scaled(grad, self.learning_rate, state)
+        return step, {**trace, **schedule}
 
 
 @dataclass(frozen=True)
@@ -43,17 +67,16 @@ class ServerAdam:
     ``nu - (1-b2) sign(nu - g^2) g^2`` (Yogi); both bias-corrected by the step
     count; update ``-lr * mu_hat / (sqrt(nu_hat) + eps)``."""
 
-    learning_rate: float
+    learning_rate: LearningRate
     b1: float = 0.9
     b2: float = 0.99
     eps: float = 1e-3
     yogi: bool = False
 
     def init(self, flat: torch.Tensor) -> State:
-        if self.yogi:  # optax's initial_accumulator_value
-            return {"count": 0, "mu": torch.full_like(flat, 1e-6),
-                    "nu": torch.full_like(flat, 1e-6)}
-        return {"count": 0, "mu": torch.zeros_like(flat), "nu": torch.zeros_like(flat)}
+        init = 1e-6 if self.yogi else 0.0  # optax's initial_accumulator_value
+        return {"count": 0, "mu": torch.full_like(flat, init),
+                "nu": torch.full_like(flat, init), **_schedule_init(self.learning_rate)}
 
     def update(self, grad: torch.Tensor, state: State) -> tuple[torch.Tensor, State]:
         mu = (1 - self.b1) * grad + self.b1 * state["mu"]
@@ -65,8 +88,9 @@ class ServerAdam:
         count = state["count"] + 1
         mu_hat = mu / (1 - self.b1**count)
         nu_hat = nu / (1 - self.b2**count)
-        step = mu_hat / (torch.sqrt(nu_hat) + self.eps)
-        return step * (-self.learning_rate), {"count": count, "mu": mu, "nu": nu}
+        step, schedule = _scaled(mu_hat / (torch.sqrt(nu_hat) + self.eps),
+                                 self.learning_rate, state)
+        return step, {"count": count, "mu": mu, "nu": nu, **schedule}
 
 
 @dataclass(frozen=True)
@@ -83,20 +107,21 @@ def fedavg_strategy() -> Strategy:
     return Strategy(name="fedavg", server_tx=ServerSGD(1.0))
 
 
-def fedavgm_strategy(learning_rate: float = 1.0, momentum: float = 0.9) -> Strategy:
-    """FedAvg with server momentum (Hsu et al. 2019)."""
+def fedavgm_strategy(learning_rate: LearningRate = 1.0, momentum: float = 0.9) -> Strategy:
+    """FedAvg with server momentum (Hsu et al. 2019).  ``learning_rate`` may be a
+    schedule ``count -> lr``, stepped once per round."""
     return Strategy(name="fedavgm", server_tx=ServerSGD(learning_rate, momentum=momentum))
 
 
 def fedadam_strategy(
-    learning_rate: float = 1e-2, b1: float = 0.9, b2: float = 0.99, eps: float = 1e-3
+    learning_rate: LearningRate = 1e-2, b1: float = 0.9, b2: float = 0.99, eps: float = 1e-3
 ) -> Strategy:
     """FedAdam (Reddi et al. 2021)."""
     return Strategy(name="fedadam", server_tx=ServerAdam(learning_rate, b1, b2, eps))
 
 
 def fedyogi_strategy(
-    learning_rate: float = 1e-2, b1: float = 0.9, b2: float = 0.99, eps: float = 1e-3
+    learning_rate: LearningRate = 1e-2, b1: float = 0.9, b2: float = 0.99, eps: float = 1e-3
 ) -> Strategy:
     """FedYogi (Reddi et al. 2021)."""
     return Strategy(name="fedyogi", server_tx=ServerAdam(learning_rate, b1, b2, eps, yogi=True))

@@ -10,14 +10,19 @@ reconstructs the dropped clients' orphaned masks first (kernel B7 under the ``cu
 backend).
 
 This slice runs the synchronous rounds: plain FedAvg, the no-dropout masked round and
-the dropout-tolerant masked round.  Later slices bring async FedBuff
+the dropout-tolerant masked round.  With ``state_store=`` (``persistence.FileStateStore``)
+every COMPLETED round is checkpointed off the event loop (the params as the JAX
+package's nested numpy dict, and the evicted stragglers), and a new coordinator resumes
+from the latest checkpoint of either package: it publishes the restored params at the
+round after it.  Later slices bring async FedBuff
 (``NetworkRoundConfig.async_buffer_k``), validation and robust aggregation over the
-wire, checkpoints (``state_store``), fault injection (``chaos``), telemetry and the
-service's device gate; setting one raises ``NotImplementedError`` naming its slice.
+wire, fault injection (``chaos``), telemetry and the service's device gate; setting one
+raises ``NotImplementedError`` naming its slice.
 """
 
 from __future__ import annotations
 
+import asyncio
 import math
 from dataclasses import dataclass, replace
 from typing import TYPE_CHECKING, Any
@@ -32,9 +37,10 @@ from nanofed_tpu_torch.communication.http_server import (
 from nanofed_tpu_torch.core.device import DeviceLike, resolve_device
 from nanofed_tpu_torch.core.types import ClientMetrics, ClientUpdates, ModelUpdate, Params
 from nanofed_tpu_torch.orchestration.engine import RoundLedger, completion_required
+from nanofed_tpu_torch.persistence import FileStateStore
 from nanofed_tpu_torch.utils.clock import SYSTEM_CLOCK, Clock
 from nanofed_tpu_torch.utils.logger import Logger
-from nanofed_tpu_torch.utils.trees import unravel
+from nanofed_tpu_torch.utils.trees import from_checkpoint_params, to_numpy_params, unravel
 
 if TYPE_CHECKING:
     # Imported where used: secure_agg needs ``cryptography``, which the plain network
@@ -47,7 +53,6 @@ LATER_SLICE_OPTIONS: dict[str, tuple[Any, str]] = {
     "robust": (None, "robust aggregation over the wire (network-validation item)"),
     "telemetry_dir": (None, "telemetry (observability slice, queue A item 19)"),
     "registry": (None, "metrics registry (observability slice, queue A item 19)"),
-    "state_store": (None, "round checkpoints (persistence slice)"),
     "chaos": (None, "fault injection (faults slice, queue A item 17)"),
     "device_gate": (None, "the service's device scheduler (service slice, queue A item 18)"),
 }
@@ -132,6 +137,7 @@ class NetworkCoordinator:
         secure: SecureAggregationConfig | None = None,
         clock: Clock | None = None,
         device: DeviceLike = None,
+        state_store: FileStateStore | None = None,
         **later_slice_options: Any,
     ) -> None:
         refuse_later_slice_options("NetworkCoordinator", later_slice_options,
@@ -146,6 +152,7 @@ class NetworkCoordinator:
         self.params = {name: leaf.to(self.device) for name, leaf in params.items()}
         self.config = config
         self.secure = secure
+        self.state_store = state_store
         self.history: list[dict[str, Any]] = []
         self._clock = clock or SYSTEM_CLOCK
         self._log = Logger()
@@ -155,6 +162,23 @@ class NetworkCoordinator:
         self._known_clients: set[str] = set()
         self._absence: dict[str, int] = {}
         self._evicted_stragglers: set[str] = set()
+        # Crash recovery: the restored round is where the crashed run got to; this
+        # engine starts at the round after it, publishing the restored params.
+        self.start_round = 0
+        if state_store is not None:
+            restored = state_store.restore_latest()
+            if restored is not None:
+                self.params = from_checkpoint_params(restored.params, self.params)
+                self.start_round = restored.round_number + 1
+                engine_state = restored.server_state or {}
+                if isinstance(engine_state, dict):
+                    # str(): the JAX package pickles each id as a 0-d numpy string array.
+                    self._evicted_stragglers = {
+                        str(cid) for cid in engine_state.get("evicted_stragglers", ())}
+                    self._known_clients = set(self._evicted_stragglers)
+                self._log.info("resumed from checkpoint: round %d (restarting at %d, %d "
+                               "evicted stragglers restored)", restored.round_number,
+                               self.start_round, len(self._evicted_stragglers))
 
     @property
     def ledger(self) -> RoundLedger:
@@ -337,7 +361,20 @@ class NetworkCoordinator:
         self._ledger.charge(status=str(record.get("status", "?")),
                             num_clients=record.get("num_clients", 0),
                             duration_s=RoundLedger.now() - t0)
+        await self._checkpoint_round(round_number, record)
         return record
+
+    async def _checkpoint_round(self, round_number: int, record: dict[str, Any]) -> None:
+        """Persist a COMPLETED round's params and engine state off the event loop: the
+        recovery point a restarted coordinator resumes from.  FAILED rounds are not
+        checkpointed (the params did not change)."""
+        if self.state_store is None or record.get("status") != "COMPLETED":
+            return
+        await asyncio.to_thread(
+            self.state_store.checkpoint, round_number, to_numpy_params(self.params),
+            {"evicted_stragglers": sorted(self._evicted_stragglers)},
+            dict(record.get("metrics") or {}),
+        )
 
     async def _train_round_inner(self, round_number: int) -> dict[str, Any]:
         await self.server.publish_model(self.params, round_number)
@@ -363,8 +400,11 @@ class NetworkCoordinator:
 
     def _aggregate_round(self, round_number: int, updates: list[ModelUpdate]) -> dict[str, Any]:
         """Stack the drained updates on the device and fold them into the global params
-        (weighted FedAvg, kernel B1 on the card)."""
-        stacked = stack_model_updates(updates, self.device)
+        (weighted FedAvg, kernel B1 on the card).  The rows are stacked in client-id
+        order, not arrival order, so the float32 sum, and with it a resumed run, does
+        not depend on which client's update arrived first."""
+        stacked = stack_model_updates(sorted(updates, key=lambda u: u.client_id),
+                                      self.device)
         self.params = fedavg_combine(stacked.params, stacked.weights)
         w = stacked.weights
         round_metrics = {
@@ -379,7 +419,9 @@ class NetworkCoordinator:
         opens enrollment first and waits for the cohort."""
         if self.secure is not None:
             await self._enroll_cohort()
-        for r in range(self.config.num_rounds):
+        # After a resume, completed rounds are not re-run: the restored params are
+        # published at the next one.
+        for r in range(self.start_round, self.config.num_rounds):
             await self.train_round(r)
         self.server.stop_training()
         return self.history

@@ -3,6 +3,7 @@ from nanofed_tpu_torch.core.exceptions import (
     AggregationError,
     CheckpointError,
     CommunicationError,
+    ModelManagerError,
     NanoFedError,
     PrivacyError,
     SecurityError,
@@ -12,6 +13,7 @@ from nanofed_tpu_torch.core.types import (
     ClientMetrics,
     ClientUpdates,
     ModelUpdate,
+    ModelVersion,
     Params,
 )
 
@@ -22,7 +24,9 @@ __all__ = [
     "ClientMetrics",
     "ClientUpdates",
     "CommunicationError",
+    "ModelManagerError",
     "ModelUpdate",
+    "ModelVersion",
     "NanoFedError",
     "Params",
     "PrivacyError",

@@ -12,6 +12,10 @@ class AggregationError(NanoFedError):
     """Raised when aggregating client updates fails validation or math."""
 
 
+class ModelManagerError(NanoFedError):
+    """Raised on model versioning/persistence failures."""
+
+
 class PrivacyError(NanoFedError):
     """Raised on privacy budget violations or invalid privacy configuration."""
 

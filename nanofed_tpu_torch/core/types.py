@@ -4,10 +4,18 @@ Params are a flat ``dict[str, Tensor]`` keyed by the JAX package's ``/``-path na
 (``conv1/bias``, ``conv1/kernel``, ...) in its ravel order, with its layouts (HWIO
 conv kernels, ``[in, out]`` dense kernels), so weights and flat ``[P]`` vectors
 interchange with no transposes (see ``utils.trees``).
+
+The server optimizer's state in a checkpoint is the JAX package's optax state: a
+``(transform, schedule)`` tuple of the records below, whose leaves are nested dicts of
+numpy arrays shaped like the params (``utils.trees.to_numpy_server_state``).  The
+records carry optax's field names, so a checkpoint of either package loads in the
+other (``persistence.serialization`` maps them to and from optax's classes).
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+from datetime import datetime
 from typing import Any, Mapping, NamedTuple, TypeAlias
 
 import numpy as np
@@ -73,3 +81,39 @@ class ModelUpdate(NamedTuple):
     metrics: Mapping[str, Any]
     timestamp: str
     privacy_spent: Any | None = None
+
+
+@dataclass(frozen=True, slots=True)
+class ModelVersion:
+    """Frozen record of a saved global model version (the JAX package's
+    ``ModelVersion``)."""
+
+    version_id: str
+    created_at: datetime
+    model_path: str
+    config_path: str
+    round_number: int = -1
+
+
+class EmptyState(NamedTuple):
+    """optax ``EmptyState``: a stateless transform (constant-lr scaling, plain SGD)."""
+
+
+class TraceState(NamedTuple):
+    """optax ``TraceState``: the momentum trace of ``sgd(lr, momentum)``."""
+
+    trace: Any
+
+
+class ScaleByAdamState(NamedTuple):
+    """optax ``ScaleByAdamState`` (Adam and Yogi): step count and both moments."""
+
+    count: Any
+    mu: Any
+    nu: Any
+
+
+class ScaleByScheduleState(NamedTuple):
+    """optax ``ScaleByScheduleState``: the step count a learning-rate schedule reads."""
+
+    count: Any

@@ -2,12 +2,13 @@
 to the flags this slice supports.
 
 ``central_privacy`` (DP-FedAvg at the reduce), ``robust_trim_k``/``robust_method``
-(robust aggregation), ``profile_programs``, ``autotune`` and ``retune_every`` are
-taken as the JAX runner takes them.  Update validation is not a runner flag in
-either package: it is ``Coordinator(validation=...)``.  The JAX runner's other flags
-(lr schedules, SCAFFOLD, telemetry, fused blocks, mesh axes, strict mode, adapters)
-come with later slices; passing one with a value other than the JAX default raises
-``NotImplementedError`` naming it, never a silent ignore.
+(robust aggregation), the client lr schedule (``lr_schedule``, ``lr_min_factor``,
+``lr_decay_every``, ``lr_decay_gamma``), ``profile_programs``, ``autotune`` and
+``retune_every`` are taken as the JAX runner takes them.  Update validation is not a
+runner flag in either package: it is ``Coordinator(validation=...)``.  The JAX
+runner's other flags (SCAFFOLD, telemetry, fused blocks, mesh axes, strict mode,
+adapters) come with later slices; passing one with a value other than the JAX
+default raises ``NotImplementedError`` naming it, never a silent ignore.
 """
 
 from __future__ import annotations
@@ -25,10 +26,6 @@ from nanofed_tpu_torch.trainer import TrainingConfig
 
 # The JAX runner's flags that later slices bring, with the JAX defaults (accepted).
 LATER_SLICE_FLAGS: dict[str, Any] = {
-    "lr_schedule": "constant",
-    "lr_min_factor": 0.0,
-    "lr_decay_every": 10,
-    "lr_decay_gamma": 0.5,
     "scaffold": False,
     "telemetry_dir": None,
     "rounds_per_block": 1,
@@ -58,6 +55,10 @@ def run_experiment(
     client_chunk: int | None = None,
     compute_dtype: str | None = None,
     client_metrics_every: int = 1,
+    lr_schedule: str = "constant",
+    lr_min_factor: float = 0.0,
+    lr_decay_every: int = 10,
+    lr_decay_gamma: float = 0.5,
     device: DeviceLike = None,
     central_privacy: PrivacyAwareAggregationConfig | None = None,
     robust_trim_k: int | None = None,
@@ -72,7 +73,8 @@ def run_experiment(
     many (the streamed round); ``compute_dtype="bfloat16"`` runs local forward and
     backward in bf16.  ``central_privacy`` turns the reduce into DP-FedAvg;
     ``robust_trim_k``/``robust_method`` (either one set) aggregate robustly, with
-    ``trim_k`` defaulting to 1 and the method to ``"trimmed_mean"``.
+    ``trim_k`` defaulting to 1 and the method to ``"trimmed_mean"``.  ``lr_schedule``
+    decays the client lr across rounds (``CoordinatorConfig``).
 
     ``profile_programs=True`` profiles the round step at construction
     (``observability.profiling``) and the summary carries ``program_profiles``.
@@ -123,6 +125,8 @@ def run_experiment(
         num_rounds=num_rounds, participation_rate=participation, seed=seed,
         base_dir=out_dir, eval_every=eval_every,
         client_metrics_every=client_metrics_every,
+        lr_schedule=lr_schedule, lr_min_factor=lr_min_factor,
+        lr_decay_every=lr_decay_every, lr_decay_gamma=lr_decay_gamma,
         profile_programs=profile_programs, retune_every=retune_every,
     )
     training = TrainingConfig(

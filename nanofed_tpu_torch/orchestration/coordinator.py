@@ -30,8 +30,18 @@ server state, so the coordinator's state is left bit for bit as it was.
 ``retune_every > 0`` an ``OnlineRetuner`` re-ranks the sweep's table by the round
 times the run realizes and hot-swaps ``client_chunk`` between rounds.
 
+Resumable runs: ``lr_schedule`` scales each round's local steps by
+``trainer.schedules.lr_schedule_scale`` of the round index (reported as the round's
+``lr_scale`` unless constant); ``state_store=`` (``persistence.FileStateStore``)
+checkpoints every round and, on construction, resumes from the latest COMPLETED
+checkpoint: params, server state and the privacy accountant's events, with the next
+round's id.  ``model_manager=`` saves a versioned model of every COMPLETED round, and
+``on_round_end`` is called with each round's metrics after its artifacts are
+published.  Checkpoints and versioned models are in the JAX package's formats, so a
+run of either package resumes from the other's files (``persistence``).
+
 Later slices bring SCAFFOLD, adapters, fused multi-round blocks, the hosts/model mesh
-axes, strict mode, telemetry and persistence.
+axes, strict mode and telemetry.
 """
 
 from __future__ import annotations
@@ -43,7 +53,7 @@ import time
 from dataclasses import dataclass
 from datetime import datetime, timezone
 from pathlib import Path
-from typing import Any, Iterator
+from typing import Any, Callable, Iterator
 
 import numpy as np
 import torch
@@ -63,11 +73,13 @@ from nanofed_tpu_torch.observability.profiling import ProgramCatalog, ProgramCos
 from nanofed_tpu_torch.orchestration.engine import completion_required
 from nanofed_tpu_torch.orchestration.types import RoundMetrics, RoundStatus, cohort_size
 from nanofed_tpu_torch.parallel.round_step import build_round_step, init_server_state
+from nanofed_tpu_torch.persistence import FileStateStore, ModelManager, RestoredState
 from nanofed_tpu_torch.privacy.accounting import BasePrivacyAccountant, RDPAccountant
 from nanofed_tpu_torch.privacy.noise import get_noise_generator
 from nanofed_tpu_torch.security.validation import ValidationConfig
 from nanofed_tpu_torch.trainer.config import TrainingConfig
 from nanofed_tpu_torch.trainer.local import client_keys, draw_permutations, make_evaluator
+from nanofed_tpu_torch.trainer.schedules import SCHEDULES, lr_schedule_scale
 from nanofed_tpu_torch.tuning.autotuner import (
     DEFAULT_CACHE_DIR,
     PopulationSpec,
@@ -75,7 +87,13 @@ from nanofed_tpu_torch.tuning.autotuner import (
     candidate_program_name,
 )
 from nanofed_tpu_torch.tuning.retuner import OnlineRetuner
-from nanofed_tpu_torch.utils.trees import tree_size
+from nanofed_tpu_torch.utils.trees import (
+    from_checkpoint_params,
+    from_numpy_server_state,
+    to_numpy_params,
+    to_numpy_server_state,
+    tree_size,
+)
 
 _log = logging.getLogger(__name__)
 
@@ -86,6 +104,11 @@ class CoordinatorConfig:
     sampled clients at random; below ``min_completion_rate`` of the cohort the round
     FAILs and leaves the model untouched.  ``client_metrics_every`` samples the
     per-client detail of the metrics JSON (0 = never).
+
+    ``lr_schedule`` (``trainer.schedules``: constant, cosine, linear or step, with
+    ``lr_min_factor``, ``lr_decay_every`` and ``lr_decay_gamma``) scales each
+    round's local steps by a pure function of the round index, so a resumed run
+    continues it exactly.
 
     ``profile_programs`` profiles the round step at construction
     (``Coordinator.profile_programs``).  ``retune_every`` (0 = off) asks the online
@@ -102,6 +125,10 @@ class CoordinatorConfig:
     save_metrics: bool = True
     eval_every: int = 0  # 0 = never evaluate during training
     client_metrics_every: int = 1
+    lr_schedule: str = "constant"  # constant | cosine | linear | step
+    lr_min_factor: float = 0.0
+    lr_decay_every: int = 10  # step schedule: rounds between decays
+    lr_decay_gamma: float = 0.5  # step schedule: multiplier per decay
     profile_programs: bool = False
     retune_every: int = 0
 
@@ -114,6 +141,18 @@ class CoordinatorConfig:
             raise ValueError("min_completion_rate must be in [0, 1]")
         if not 0.0 <= self.dropout_rate < 1.0:
             raise ValueError("dropout_rate must be in [0, 1)")
+        if self.lr_schedule not in SCHEDULES:
+            raise ValueError(
+                f"unknown lr_schedule {self.lr_schedule!r}; choose from {SCHEDULES}"
+            )
+        if not 0.0 <= self.lr_min_factor <= 1.0:
+            raise ValueError("lr_min_factor must be in [0, 1]")
+        if self.lr_decay_every < 1:
+            raise ValueError("lr_decay_every must be >= 1")
+        if not 0.0 < self.lr_decay_gamma <= 1.0:
+            # gamma=0 would zero every update from the first decay on; gamma>1 would
+            # grow the lr each decay.
+            raise ValueError("lr_decay_gamma must be in (0, 1]")
         if self.client_metrics_every < 0:
             raise ValueError("client_metrics_every must be >= 0 (0 = never)")
         if self.retune_every < 0:
@@ -200,10 +239,16 @@ class Coordinator:
         central_privacy: PrivacyAwareAggregationConfig | None = None,
         accountant: BasePrivacyAccountant | None = None,
         robust: RobustAggregationConfig | None = None,
+        model_manager: ModelManager | None = None,
+        state_store: FileStateStore | None = None,
+        on_round_end: Callable[[RoundMetrics], None] | None = None,
     ) -> None:
         self.device = resolve_device(device)
         self.model = model
         self.config = config
+        self.model_manager = model_manager
+        self.state_store = state_store
+        self.on_round_end = on_round_end
         self.training = training or TrainingConfig()
         self.strategy = strategy or fedavg_strategy()
 
@@ -281,8 +326,31 @@ class Coordinator:
         self._retune_candidate = None
         self._last_retune_round = 0
         self.retune_events: list[dict[str, Any]] = []
+        if state_store is not None:
+            restored = state_store.restore_latest()
+            if restored is not None:
+                self._resume(restored)
         if config.profile_programs:
             self.profile_programs()
+
+    def _resume(self, restored: RestoredState) -> None:
+        """Continue from a checkpoint of either package: its params and server state
+        (checked against this model and strategy) onto the device, the accountant's
+        events, and the round after the checkpointed one."""
+        server_state = restored.server_state
+        if isinstance(server_state, dict) and "scaffold_c_stack" in server_state:
+            raise NanoFedError(
+                "the checkpoint carries SCAFFOLD control state: SCAFFOLD (queue A item "
+                "12) is not supported by this slice of nanofed_tpu_torch (resume it "
+                "with nanofed_tpu)"
+            )
+        self.params = from_checkpoint_params(restored.params, self.params)
+        self.server_state = from_numpy_server_state(server_state, self.strategy, self.params)
+        accountant_state = restored.metadata.metrics.get("privacy_accountant")
+        if self.privacy_accountant is not None and accountant_state is not None:
+            self.privacy_accountant.load_state_dict(accountant_state)
+        self.current_round = restored.round_number + 1
+        _log.info("resumed from round %d checkpoint", restored.round_number)
 
     # ------------------------------------------------------------------
     # Program profiling (observability.profiling)
@@ -456,8 +524,9 @@ class Coordinator:
                 self._maybe_retune()
                 metrics = self._train_round(self.current_round)
                 self._observe_retune(1, metrics.duration_s)
-                if self.config.save_metrics:
-                    self._save_round_metrics(metrics)
+                self._publish_round(metrics)
+                if self.on_round_end is not None:
+                    self.on_round_end(metrics)
                 self.current_round += 1
                 yield metrics
         finally:
@@ -467,6 +536,30 @@ class Coordinator:
 
     def run(self) -> list[RoundMetrics]:
         return list(self.start_training())
+
+    def _publish_round(self, metrics: RoundMetrics) -> None:
+        """Release the round's artifacts: the checkpoint FIRST, then the metrics JSON,
+        then the versioned model (COMPLETED rounds only).  A crash between them then
+        loses at most an artifact, never an accounting event: a persisted noised
+        release must not outlive its accountant entry."""
+        if self.state_store is not None:
+            ckpt_metrics = metrics.to_dict()
+            if self.privacy_accountant is not None:
+                ckpt_metrics["privacy_accountant"] = self.privacy_accountant.state_dict()
+            self.state_store.checkpoint(
+                round_number=metrics.round_id,
+                params=to_numpy_params(self.params),
+                server_state=to_numpy_server_state(self.server_state, self.params),
+                metrics=ckpt_metrics,
+                status="COMPLETED" if metrics.status == RoundStatus.COMPLETED else "FAILED",
+            )
+        if self.config.save_metrics:
+            self._save_round_metrics(metrics)
+        if self.model_manager is not None and metrics.status == RoundStatus.COMPLETED:
+            self.model_manager.save_model(
+                self.params,
+                metadata={"round": metrics.round_id, "metrics": metrics.agg_metrics},
+            )
 
     def _sample_cohort(self, round_id: int) -> np.ndarray:
         """This round's surviving cohort: the JAX package's numpy draws exactly.  Under
@@ -544,13 +637,20 @@ class Coordinator:
             mask[survived] = 1.0
             weights = compute_weights(self._num_samples, torch.as_tensor(mask, device=self.device))
 
+        cfg = self.config
+        lr_scale = lr_schedule_scale(
+            cfg.lr_schedule, round_id, cfg.num_rounds, min_factor=cfg.lr_min_factor,
+            decay_every=cfg.lr_decay_every, gamma=cfg.lr_decay_gamma,
+        )
         result = self._round_step(
-            self.params, self.server_state, data, weights, perms, keys, noise
+            self.params, self.server_state, data, weights, perms, keys, noise, lr_scale
         )
         self.params = result.params
         self.server_state = result.server_opt_state
 
         agg = {k: float(v) for k, v in result.metrics.items()}
+        if cfg.lr_schedule != "constant":
+            agg["lr_scale"] = round(lr_scale, 6)
         for count_key in ("participating_clients", "valid_clients"):
             if count_key in agg:
                 agg[count_key] = int(agg[count_key])

@@ -118,7 +118,7 @@ def build_round_step(
     robust: RobustAggregationConfig | None = None,
 ) -> RoundStepFn:
     """Returns ``round_step(global_params, server_opt_state, data, weights, perms,
-    keys=None, noise=None) -> RoundStepResult``.
+    keys=None, noise=None, lr_scale=1.0) -> RoundStepResult``.
 
     ``data`` is ``ClientData`` tensors ``[C, N, ...]`` on the device, ``weights`` is
     ``[C]`` float32 (sample counts x participation; zero drops a client), ``perms``
@@ -126,6 +126,8 @@ def build_round_step(
     ``[C]`` int32 dropout keys (``trainer.local.client_keys``; needed when the model
     has dropout) and ``noise`` a standard ``[P]`` draw (unit Gaussian or Laplace,
     as the privacy config's noise type says; needed under ``central_privacy``).
+    ``lr_scale`` (the round's lr-schedule scale, ``trainer.schedules``) multiplies
+    every local step.
     ``client_chunk`` must divide C when it is smaller than C.  ``local_fit``
     replaces the default fit (same signature as ``trainer.local.make_local_fit``'s);
     ``grad_fn`` builds the default fit with another gradient; passing both is
@@ -163,13 +165,14 @@ def build_round_step(
         updates, new_sos = server_tx.update(-agg_delta, sos)
         return unravel(gp_flat + updates, like), new_sos
 
-    def streamed(global_params, gp_flat, data, weights, perms, keys, noise):
+    def streamed(global_params, gp_flat, data, weights, perms, keys, noise, lr_scale):
         """Fold each chunk's weighted delta sum into one ``[P]`` accumulator."""
         acc = torch.zeros_like(gp_flat)
         chunk_metrics, sq_norms = [], []
         for start in range(0, weights.shape[0], client_chunk):
             sl = slice(start, start + client_chunk)
-            result = fit(global_params, data.select(sl), perms[sl], _rows(keys, sl))
+            result = fit(global_params, data.select(sl), perms[sl], _rows(keys, sl),
+                         lr_scale=lr_scale)
             chunk_metrics.append(result.metrics)
             delta = client_deltas(result.params, gp_flat)
             del result  # free the chunk's params before its reduce and the next fit
@@ -192,7 +195,7 @@ def build_round_step(
             agg = acc / torch.clamp(weights.sum(), min=1e-12)
         return agg, _cat_metrics(chunk_metrics), torch.cat(sq_norms)
 
-    def fit_materialised(global_params, gp_flat, data, perms, keys):
+    def fit_materialised(global_params, gp_flat, data, perms, keys, lr_scale):
         """Every client's delta in one ``[C, stride]`` buffer, chunk by chunk."""
         c = perms.shape[0]
         k = client_chunk if client_chunk is not None and client_chunk < c else c
@@ -201,7 +204,8 @@ def build_round_step(
         chunk_metrics = []
         for start in range(0, c, k):
             sl = slice(start, start + k)
-            result = fit(global_params, data.select(sl), perms[sl], _rows(keys, sl))
+            result = fit(global_params, data.select(sl), perms[sl], _rows(keys, sl),
+                         lr_scale=lr_scale)
             client_deltas(result.params, gp_flat, out=buf[sl])
             chunk_metrics.append(result.metrics)
             del result
@@ -215,6 +219,7 @@ def build_round_step(
         perms: torch.Tensor,
         keys: torch.Tensor | None = None,
         noise: torch.Tensor | None = None,
+        lr_scale: float = 1.0,
     ) -> RoundStepResult:
         c = weights.shape[0]
         gp_flat = ravel(global_params)
@@ -226,7 +231,7 @@ def build_round_step(
 
         if chunking and validation is None and robust is None:
             agg, client_metrics, update_sq_norms = streamed(
-                global_params, gp_flat, data, weights, perms, keys, noise
+                global_params, gp_flat, data, weights, perms, keys, noise, lr_scale
             )
             new_params, new_sos = apply_server_update(
                 gp_flat, global_params, server_opt_state, agg, weights.sum()
@@ -236,7 +241,8 @@ def build_round_step(
             return RoundStepResult(new_params, new_sos, metrics, client_metrics,
                                    update_sq_norms)
 
-        delta, client_metrics = fit_materialised(global_params, gp_flat, data, perms, keys)
+        delta, client_metrics = fit_materialised(global_params, gp_flat, data, perms, keys,
+                                                 lr_scale)
         update_sq_norms = None
         if validation is not None:
             # Checks on the client DELTA: range per leaf, z-score on the global norm.

@@ -1,13 +1,55 @@
-"""Persistence (counterpart of ``nanofed_tpu/persistence/``): so far the npz
-(de)serialization the wire codec shares with checkpoints."""
+"""Persistence (counterpart of ``nanofed_tpu/persistence/``): model versioning,
+round-state checkpoints and fault-tolerant restart, in the JAX package's formats so
+either package resumes from the other's files.  The multi-host ``GenerationStore``
+comes with the multi-host slice."""
 
+from nanofed_tpu_torch.persistence.model_manager import ModelManager, make_json_serializable
 from nanofed_tpu_torch.persistence.serialization import (
     DTYPE_TAG,
     flatten_to_arrays,
     from_storable,
+    load_pytree_npz,
+    load_state_pickle,
+    save_pytree_npz,
+    save_state_pickle,
     to_storable,
+    tree_to_numpy,
     unflatten_from_arrays,
+    write_text_durable,
+)
+from nanofed_tpu_torch.persistence.state_store import (
+    COMPLETED,
+    FAILED,
+    RECOVERABLE_EXCEPTIONS,
+    CheckpointMetadata,
+    FileStateStore,
+    RestoredState,
+    SimpleRecoveryStrategy,
+    is_recoverable,
+    run_fault_tolerant,
 )
 
-__all__ = ["DTYPE_TAG", "flatten_to_arrays", "from_storable", "to_storable",
-           "unflatten_from_arrays"]
+__all__ = [
+    "COMPLETED",
+    "DTYPE_TAG",
+    "FAILED",
+    "RECOVERABLE_EXCEPTIONS",
+    "CheckpointMetadata",
+    "FileStateStore",
+    "ModelManager",
+    "RestoredState",
+    "SimpleRecoveryStrategy",
+    "flatten_to_arrays",
+    "from_storable",
+    "is_recoverable",
+    "load_pytree_npz",
+    "load_state_pickle",
+    "make_json_serializable",
+    "run_fault_tolerant",
+    "save_pytree_npz",
+    "save_state_pickle",
+    "to_storable",
+    "tree_to_numpy",
+    "unflatten_from_arrays",
+    "write_text_durable",
+]

@@ -6,7 +6,10 @@ The JAX package's params are nested dicts of arrays.  Here they are one flat
 (``jax.flatten_util.ravel_pytree``: sorted dict keys at every level).  So a flat
 ``[P]`` vector means the same coordinates in both packages, and
 :func:`from_numpy_params` / :func:`to_numpy_params` carry weights across with no
-transposes.
+transposes.  A checkpoint's params and server state cross at the state store's
+boundary the same way (:func:`from_checkpoint_params`,
+:func:`to_numpy_server_state`, :func:`from_numpy_server_state`): inside the round
+they stay flat.
 """
 
 from __future__ import annotations
@@ -17,7 +20,14 @@ import numpy as np
 import torch
 
 from nanofed_tpu_torch.core.device import DeviceLike, resolve_device
-from nanofed_tpu_torch.core.types import Params
+from nanofed_tpu_torch.core.exceptions import CheckpointError
+from nanofed_tpu_torch.core.types import (
+    EmptyState,
+    Params,
+    ScaleByAdamState,
+    ScaleByScheduleState,
+    TraceState,
+)
 
 
 def _flatten(nested: Mapping[str, Any], prefix: tuple[str, ...]) -> list[tuple[tuple[str, ...], Any]]:
@@ -57,6 +67,87 @@ def to_numpy_params(params: Params) -> dict[str, Any]:
             node = node.setdefault(part, {})
         node[last] = leaf.detach().cpu().numpy()
     return nested
+
+
+def _leaves_like(nested: Any, like: Params, what: str) -> Params:
+    """A nested dict of arrays as flat tensors on ``like``'s device: exactly
+    ``like``'s names, shapes and dtypes, or a ``CheckpointError``."""
+    if not isinstance(nested, Mapping):
+        raise CheckpointError(f"{what} is a {type(nested).__name__}, not a dict of arrays")
+    arrays = flatten_with_names(nested)
+    if set(arrays) != set(like):
+        raise CheckpointError(
+            f"{what} has leaves {sorted(set(arrays) - set(like))[:5]} the model lacks and "
+            f"lacks {sorted(set(like) - set(arrays))[:5]}")
+    out = {}
+    for name, leaf in like.items():
+        t = torch.from_numpy(np.array(arrays[name]))
+        if tuple(t.shape) != tuple(leaf.shape) or t.dtype != leaf.dtype:
+            raise CheckpointError(
+                f"{what} leaf '{name}' is {t.dtype} {tuple(t.shape)}, the model's "
+                f"{leaf.dtype} {tuple(leaf.shape)}")
+        out[name] = t.to(leaf.device)
+    return out
+
+
+def from_checkpoint_params(nested: Mapping[str, Any], like: Params) -> Params:
+    """A checkpoint's params (the JAX package's nested dict of numpy arrays) as port
+    params on ``like``'s device, with ``like``'s names, shapes and dtypes checked."""
+    return _leaves_like(nested, like, "the checkpoint's params")
+
+
+def to_numpy_server_state(state: Mapping[str, Any], like: Params) -> tuple:
+    """The port's flat server state as the JAX package's optax state: a
+    ``(transform, schedule)`` tuple of ``core.types`` records whose trees are nested
+    dicts of numpy arrays shaped like ``like`` and whose counts are int32."""
+
+    def tree(flat: torch.Tensor) -> dict[str, Any]:
+        return to_numpy_params(unravel(flat, like))
+
+    if "mu" in state:
+        transform = ScaleByAdamState(np.asarray(state["count"], np.int32),
+                                     tree(state["mu"]), tree(state["nu"]))
+    elif "trace" in state:
+        transform = TraceState(tree(state["trace"]))
+    else:
+        transform = EmptyState()
+    schedule = (ScaleByScheduleState(np.asarray(state["schedule_count"], np.int32))
+                if "schedule_count" in state else EmptyState())
+    return (transform, schedule)
+
+
+def from_numpy_server_state(state: Any, strategy: Any, like: Params) -> dict[str, Any]:
+    """Inverse of :func:`to_numpy_server_state`, checked against what ``strategy``'s
+    server optimizer keeps (its transform, and whether its learning rate is a
+    schedule) and against ``like``'s leaves; vectors land on ``like``'s device."""
+    if not (isinstance(state, tuple) and len(state) == 2):
+        raise CheckpointError(
+            f"the checkpoint's server state is a {type(state).__name__}, not an optax "
+            "(transform, learning rate) pair")
+
+    def flat(tree: Any, field: str) -> torch.Tensor:
+        leaves = _leaves_like(tree, like, f"the checkpoint's server state '{field}'")
+        return torch.cat([leaf.reshape(-1) for leaf in leaves.values()])
+
+    transform, schedule = state
+    out: dict[str, Any] = {}
+    if isinstance(transform, ScaleByAdamState):
+        out.update(count=int(transform.count), mu=flat(transform.mu, "mu"),
+                   nu=flat(transform.nu, "nu"))
+    elif isinstance(transform, TraceState):
+        out["trace"] = flat(transform.trace, "trace")
+    elif not isinstance(transform, EmptyState):
+        raise CheckpointError(f"unknown server transform state {type(transform).__name__}")
+    if isinstance(schedule, ScaleByScheduleState):
+        out["schedule_count"] = int(schedule.count)
+    elif not isinstance(schedule, EmptyState):
+        raise CheckpointError(f"unknown learning-rate state {type(schedule).__name__}")
+    want = strategy.server_tx.init(torch.zeros(0))
+    if set(out) != set(want):
+        raise CheckpointError(
+            f"the checkpoint's server state keeps {sorted(out)}, strategy "
+            f"{strategy.name!r} keeps {sorted(want)}")
+    return out
 
 
 def tree_size(params: Params) -> int:
