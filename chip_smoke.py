@@ -17,8 +17,8 @@ Phases (any failure exits non-zero):
    the ring's 3 and 6 stages, 40 and 1000; P = 1, 2, 3, around each largest grid of
    minimum slabs and 1,199,882; every load width and a data pointer one float off), two
    launches of each form giving the same bits, and timed with their launch plan at
-   every C the main path launches them with (C = 2, 8, 25, 125, 250 and 1000 for B1,
-   64, 125 and 1000 for B2, P = 1,199,882); B3 at C = 2 and 125; B5
+   every C the main path launches them with (C = 2, 8, 25, 100, 125, 250 and 1000 for
+   B1, 64, 125 and 1000 for B2, P = 1,199,882); B3 at C = 2, 25, 100 and 125; B5
    (``quantize_u32``), B6 (``dequantize_u32``) and B7 (``add_mask``) bit for bit on
    ragged sizes, unaligned starts, ties, saturation and both signs; B7 with k seeds a
    launch (k = 1, 2, 7, 8, 14, 65 and 999, mixed signs, a seed at +1 and -1 in one
@@ -93,11 +93,36 @@ Phases (any failure exits non-zero):
    rounds that must start at round 2, publish the checkpointed params bit for bit and
    end within 1e-4 of the uninterrupted run and within the run-to-run gap plus 1e-6
    (B1 once a round).
+   Then the client-training layer at the flagship's shape (1000 clients x 60 samples,
+   2 epochs, batch 64, bf16): (l) DP-SGD clients, ``Coordinator(local_fit=
+   make_private_local_fit(..., PrivacyConfig(noise_multiplier=1.1,
+   max_gradient_norm=1.0)))`` with ``client_chunk=25``, 2 rounds (B1 accumulate and B3
+   40 a round), its peak device memory and each client's ε at δ=1e-5 from
+   ``record_local_fit``; on the card, one client's clipped per-example norms at most
+   C(1 + 1e-5), the per-example gradients against one-example backward passes (1e-4),
+   one noise draw at full width (mean within 0.01σC, std within 1%), a 100-client
+   round in chunks of 25 and of 50 within 1e-5, and one 25-client DP-SGD fit timed
+   against the plain fit with its device time by kernel (``torch.profiler``); (m) SCAFFOLD through
+   ``run_experiment(scaffold=True, participation=0.1, client_chunk=25)``, 3 rounds (B1
+   normalised, B1 accumulate and B3 once a round), then a ``Coordinator(scaffold=True)``
+   whose round 1 equals the plain FedAvg round within 1e-5, whose ``c_global`` equals
+   ``c + sum(dc_i) / 1000`` recomputed in float64 within 1e-6 relative after every
+   round, and whose non-participants' control rows stay the same bits; then a
+   100-client population for 4 rounds, twice (the run-to-run gap), and closed after 2
+   rounds and resumed by a fresh coordinator from its checkpoint (params, ``c_global``
+   and ``c_stack`` within 1e-4 and within the gap plus 1e-6), each checkpoint timed;
+   (n) ``Trainer.fit`` with a ``MetricsLogger`` on the tutorial client (12k samples, 2
+   epochs, f32) equal to ``make_local_fit`` run directly bit for bit (cuDNN's
+   deterministic algorithms), then the personalized evaluator over (m)'s model on its
+   1000 clients split 80/20, timed.
 4. Cross-check: 8-client f32 rounds of the port on the card and on the CPU from the
    same weights, permutations and injected noise: the plain round with dropout off
    and on (the masks are an integer hash, the same bits on both devices), the
    validated round with one client poisoned to NaN, the materialised central-DP
-   round, the trimmed-mean round and the Multi-Krum round.
+   round, the trimmed-mean round, the Multi-Krum round and the DP-SGD round (its
+   counter-based noise of one key within 1e-6 relative on both devices); then two
+   SCAFFOLD rounds from zero controls (params within 1e-4, the controls within 1e-4
+   over K * eta, the factor (x - y) / (K * eta) multiplies the params' error by).
 
 The last lines are the kernels' JSON record, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
@@ -270,7 +295,7 @@ def phase_kernels(torch, ops, card: str) -> dict[str, dict]:
     check_reduce_determinism(torch, ops, gen)
 
     records = time_reduce(torch, ops, card, gen)
-    for c in (2, 125):
+    for c in (2, 25, 100, 125):  # tutorial, (d)/(l) chunks, (m) cohort, flagship chunk
         x = round_layout(torch, c, P_MNIST, seed=c)
         err = check_close(torch, "row_sq_norms", ops.row_sq_norms(x), ops.row_sq_norms_plain(x),
                           **TOL)
@@ -400,7 +425,9 @@ def check_reduce_determinism(torch, ops, gen) -> None:
 TIMED_REDUCES = (
     ("weighted_mean_flat", 2, "round"),  # (a) the tutorial round
     ("weighted_mean_flat", 8, "contiguous"),  # (h) the plain network round: VEC 2
-    ("weighted_sum_into", 25, "round"),  # (d) the central-DP chunk
+    ("weighted_sum_into", 25, "round"),  # (d) the central-DP chunk, (l) the DP-SGD chunk
+    ("weighted_mean_flat", 100, "round"),  # (m) SCAFFOLD's uniform participant mean
+    ("weighted_sum_into", 100, "round"),  # (m) SCAFFOLD's control-delta sum
     ("weighted_mean_flat", 125, "round"),
     ("weighted_mean_flat_denom", 125, "round"),  # central DP materialised, Multi-Krum
     ("weighted_sum_into", 125, "round"),  # (b) the flagship chunk
@@ -2075,6 +2102,7 @@ def phase_slice(torch, ops, run_experiment, card: str, out_dir: Path) -> dict[st
     totals = dict.fromkeys(ops.launch_counts(), 0)
     for name, cfg in configs.items():
         want = {k: expected[name].get(k, 0) for k in totals}
+        torch.cuda.reset_peak_memory_stats()
         ops.reset_launch_counts()
         t0 = time.perf_counter()
         if cfg is None:
@@ -2089,7 +2117,8 @@ def phase_slice(torch, ops, run_experiment, card: str, out_dir: Path) -> dict[st
         print(f"[{card}] slice {name}: round_durations_s={summary['round_durations_s']} "
               f"wall_s={wall:.3f} train_loss={train.get('loss')} "
               f"train_accuracy={train.get('accuracy')} eval_loss={ev['loss']} "
-              f"eval_accuracy={ev['accuracy']} launches={grew}")
+              f"eval_accuracy={ev['accuracy']} launches={grew} "
+              f"peak_memory_bytes={torch.cuda.max_memory_allocated()}")
         rounds = (cfg or FLAGSHIP)["num_rounds"]
         if summary["rounds_completed"] != rounds:
             fail(f"{name}: {summary['rounds_completed']}/{rounds} rounds completed")
@@ -2132,6 +2161,411 @@ def check_guarded(name: str, summary: dict, out_dir: Path, card: str) -> None:
             fail(f"{name}: the trimmed mean must keep m - 2k ranks")
 
 
+DP_CHUNK = 25  # (l): a chunk's per-example gradients are 25 x 64 x P floats, 7.7 GB
+DP_PRIVACY = dict(noise_multiplier=1.1, max_gradient_norm=1.0)  # (l)
+DP_STABLE_CLIENTS = 100  # (l): the cohort whose round must not depend on client_chunk
+DP_STABLE_CHUNKS = (25, 50)
+DP_STABLE_TOL = 1e-5
+SCAFFOLD_ROUNDS = 3  # (m)
+SCAFFOLD_CHUNK = 25
+SCAFFOLD_FEDAVG_TOL = 1e-5  # (m): round 1 from zero controls against plain FedAvg
+SCAFFOLD_CONTROL_RTOL = 1e-6  # (m): c_global against its plain recomputation
+SCAFFOLD_RESUME_CLIENTS = 100  # (m): the resumed population, a 0.5 GB control stack
+TUTORIAL_SAMPLES = 16_000  # (n): the tutorial's two clients, 12k + 4k samples
+
+
+def flagship_data(num_clients: int | None = None):
+    """The flagship's population on the host: 60 synthetic MNIST samples a client."""
+    from nanofed_tpu_torch.data import federate, load_mnist
+
+    num_clients = num_clients or FLAGSHIP["num_clients"]
+
+    return federate(load_mnist("train", None, synthetic_size=60 * num_clients),
+                    num_clients=num_clients, batch_size=FLAGSHIP["batch_size"], seed=0)
+
+
+def flagship_training(**kwargs):
+    from nanofed_tpu_torch.trainer import TrainingConfig
+
+    cfg = FLAGSHIP
+    return TrainingConfig(batch_size=cfg["batch_size"], local_epochs=cfg["local_epochs"],
+                          learning_rate=cfg["learning_rate"],
+                          compute_dtype=cfg["compute_dtype"], **kwargs)
+
+
+def counted(torch, ops, card: str, tag: str, run, want: dict):
+    """Run ``run()`` with the launch counts zeroed just before and read just after;
+    fail unless they equal ``want``.  Returns ``(result, wall_s, counts)``."""
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    grew = ops.launch_counts()
+    want = {k: want.get(k, 0) for k in grew}
+    print(f"[{card}] {tag}: wall_s={wall:.3f} launches={grew}")
+    if grew != want:
+        fail(f"{tag}: kernel launches {grew}, expected {want}")
+    return out, wall, grew
+
+
+def phase_dp(torch, ops, card: str, out_dir: Path) -> dict[str, int]:
+    """(l): DP-SGD clients at the flagship's shape through ``Coordinator(local_fit=
+    make_private_local_fit(...))``, ``client_chunk=25``, 2 rounds, with each client's
+    accountant; then per-example clipping, the noise and client stability on the card.
+    Returns the coordinator run's launch counts."""
+    from nanofed_tpu_torch.aggregation import fedavg_strategy
+    from nanofed_tpu_torch.core.types import ClientData
+    from nanofed_tpu_torch.models import get_model
+    from nanofed_tpu_torch.orchestration import Coordinator, CoordinatorConfig, RoundStatus
+    from nanofed_tpu_torch.parallel import build_round_step, init_server_state
+    from nanofed_tpu_torch.privacy import PrivacyConfig, RDPAccountant
+    from nanofed_tpu_torch.trainer import (
+        client_keys,
+        draw_permutations,
+        get_privacy_spent,
+        local_fit_noise_events,
+        make_private_local_fit,
+        record_local_fit,
+    )
+    from nanofed_tpu_torch.trainer.private import (
+        clip_coefficients,
+        counter_noise,
+        per_example_grads,
+    )
+    from nanofed_tpu_torch.utils.trees import ravel, tree_size
+
+    n, rounds = FLAGSHIP["num_clients"], FLAGSHIP["num_rounds"]
+    model = get_model("mnist_cnn")
+    host = flagship_data()
+    training = flagship_training()
+    privacy = PrivacyConfig(**DP_PRIVACY)
+    fit = make_private_local_fit(model, training, privacy)
+    coord = Coordinator(model, host, CoordinatorConfig(num_rounds=rounds, seed=0,
+                                                       base_dir=out_dir / "l_dp"),
+                        training, client_chunk=DP_CHUNK, device="cuda", local_fit=fit)
+    torch.cuda.reset_peak_memory_stats()
+    chunks = n // DP_CHUNK
+    metrics, wall, counts = counted(
+        torch, ops, card, "(l) DP-SGD flagship", coord.run,
+        {"weighted_sum_into": chunks * rounds, "row_sq_norms": chunks * rounds})
+    peak = torch.cuda.max_memory_allocated()
+    if [m.status for m in metrics] != [RoundStatus.COMPLETED] * rounds:
+        fail(f"(l): rounds {[m.status for m in metrics]}")
+    params = coord.params
+    if not all(torch.isfinite(p).all() for p in params.values()):
+        fail("(l): non-finite params")
+    # Each client holds its own accountant: q = batch / its samples, steps x epochs events.
+    capacity = host.y.shape[1]
+    samples = host.mask.sum(1)
+    accountants = [RDPAccountant() for _ in range(n)]
+    for _ in metrics:
+        for c in range(n):
+            record_local_fit(accountants[c], privacy, training, capacity, int(samples[c]))
+    eps = [get_privacy_spent(a, privacy).epsilon_spent for a in accountants]
+    print(f"[{card}] (l) round_durations_s={[m.duration_s for m in metrics]} "
+          f"loss={[m.agg_metrics['loss'] for m in metrics]} peak_memory_bytes={peak} "
+          f"({peak / 2**30:.3f} GiB); each client: {rounds} fits of "
+          f"{local_fit_noise_events(training, capacity)} noise events at q="
+          f"{min(1.0, training.batch_size / float(samples[0]))}, epsilon={max(eps)} at "
+          f"delta={privacy.delta} (sigma={privacy.noise_multiplier}, C="
+          f"{privacy.max_gradient_norm})")
+    if not all(math.isfinite(e) and e > 0 for e in eps):
+        fail(f"(l): epsilon {max(eps)}")
+
+    # Per-example clipping on the card: the clipped norms, recomputed in plain torch.
+    data = host.select(slice(0, 1)).to(torch.device("cuda"))
+    xb, yb, mb = data.x[0], data.y[0], data.mask[0]
+    grads, _, _ = per_example_grads(model.apply, training.compute_dtype)(params, xb, yb, ())
+    coef = clip_coefficients(grads, mb, privacy.max_gradient_norm)
+    rows = torch.cat([g.reshape(g.shape[0], -1) for g in grads.values()], 1)
+    clipped_norms = (coef[:, None] * rows).norm(dim=1)
+    raw_norms = rows.norm(dim=1)
+    bound = privacy.max_gradient_norm * (1 + 1e-5)
+    print(f"[{card}] (l) one client's batch: raw per-example norms {float(raw_norms.min()):.4f}"
+          f"-{float(raw_norms.max()):.4f}, clipped max {float(clipped_norms.max()):.7f} "
+          f"(bound {bound}), padded rows {int((mb == 0).sum())} with coefficient 0")
+    if float(clipped_norms.max()) > bound or bool((coef[mb == 0] != 0).any()):
+        fail("(l): a clipped per-example gradient exceeds C, or padding is not zeroed")
+    # The per-example gradients against a plain loop of one-example backward passes (f32).
+    f32_grads, _, _ = per_example_grads(model.apply)(params, xb[:4], yb[:4], ())
+    worst = 0.0
+    for i in range(4):
+        leaves = {k: v.detach().requires_grad_() for k, v in params.items()}
+        logp = model.apply(leaves, xb[i:i + 1])
+        torch.autograd.backward(-logp[0, yb[i]])
+        for k, leaf in leaves.items():
+            worst = max(worst, float((f32_grads[k][i] - leaf.grad).abs().max()
+                                     / leaf.grad.abs().max().clamp(min=1e-12)))
+    print(f"[{card}] (l) per-example gradients (vmap) against one-example backward passes: "
+          f"max relative error {worst:.3e} (tolerance 1e-4)")
+    if worst > 1e-4:
+        fail("(l): per-example gradients disagree with one-example backward passes")
+    # One noise draw at full width.
+    p = tree_size(params)
+    std = privacy.noise_multiplier * privacy.max_gradient_norm
+    draw = counter_noise(torch.tensor(12345, dtype=torch.int32, device="cuda"), p) * std
+    mean, sd = float(draw.double().mean()), float(draw.double().std())
+    print(f"[{card}] (l) one noise draw, P={p}: mean {mean:.3e} (|.| <= {0.01 * std:.3e}), "
+          f"std {sd:.6f} (sigma*C = {std}, within 1%)")
+    if abs(mean) > 0.01 * std or abs(sd / std - 1) > 0.01:
+        fail("(l): the noise draw is off its distribution")
+    # Client stability: a 100-client cohort round in chunks of 25 and of 50.
+    cohort = host.select(slice(0, DP_STABLE_CLIENTS)).to(torch.device("cuda"))
+    perms = draw_permutations(torch.Generator(device="cuda").manual_seed(3), DP_STABLE_CLIENTS,
+                              training.local_epochs, capacity)
+    keys = client_keys(3, DP_STABLE_CLIENTS, "cuda")
+    start = {k: v.clone() for k, v in params.items()}
+    out = {}
+    for chunk in DP_STABLE_CHUNKS:
+        step = build_round_step(model, training, fedavg_strategy(), client_chunk=chunk,
+                                local_fit=fit)
+        result, _, _ = counted(
+            torch, ops, card, f"(l) 100-client DP round, client_chunk={chunk}",
+            lambda: step(start, init_server_state(fedavg_strategy(), start), cohort,
+                         cohort.mask.sum(1), perms, keys),
+            {"weighted_sum_into": DP_STABLE_CLIENTS // chunk,
+             "row_sq_norms": DP_STABLE_CLIENTS // chunk})
+        out[chunk] = ravel(result.params)
+    profile_fit(torch, card, model, training, fit, start, cohort, perms, keys)
+    gap = float((out[DP_STABLE_CHUNKS[0]] - out[DP_STABLE_CHUNKS[1]]).abs().max())
+    print(f"[{card}] (l) client_chunk {DP_STABLE_CHUNKS[0]} vs {DP_STABLE_CHUNKS[1]}: "
+          f"max|dparams|={gap:.3e} "
+          f"(tolerance {DP_STABLE_TOL})")
+    if gap > DP_STABLE_TOL:
+        fail("(l): the DP round depends on client_chunk")
+    del coord, grads, rows, f32_grads
+    return counts
+
+
+def profile_fit(torch, card: str, model, training, dp_fit, params, cohort, perms, keys):
+    """(l): where a DP-SGD fit's time goes: one ``DP_CHUNK``-client fit (2 steps) timed
+    against the plain fit (mean of 5 after a warm-up), and the DP fit's device time by
+    kernel from ``torch.profiler`` (the largest four, as shares of the kernels' total)."""
+    from nanofed_tpu_torch.trainer import make_local_fit
+
+    sl = slice(0, DP_CHUNK)
+    args = (params, cohort.select(sl), perms[sl], keys[sl])
+    times = {}
+    for name, fit in (("DP-SGD", dp_fit), ("plain", make_local_fit(model, training))):
+        fit(*args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            fit(*args)
+        torch.cuda.synchronize()
+        times[name] = (time.perf_counter() - t0) / 5 * 1e3
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        dp_fit(*args)
+        torch.cuda.synchronize()
+    kernels = [(e.key, getattr(e, "self_device_time_total", 0.0)) for e in prof.key_averages()
+               if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    total = sum(t for _, t in kernels)
+    top = sorted(kernels, key=lambda kt: -kt[1])[:4]
+    shares = "; ".join(f"{k[:60]} {t / total:.1%}" for k, t in top) if total else "no device time"
+    print(f"[{card}] (l) one {DP_CHUNK}-client fit of 2 steps: DP-SGD {times['DP-SGD']:.3f} ms, "
+          f"plain {times['plain']:.3f} ms; DP-SGD device time {total / 1e3:.3f} ms by kernel: "
+          f"{shares}")
+
+
+def scaffold_launches(rounds: int) -> dict[str, int]:
+    """A SCAFFOLD round launches B1 normalised (the uniform mean of delta y), B1's
+    accumulate form (the participants' dc sum) and B3 (the update norms) once each."""
+    return {"weighted_mean_flat": rounds, "weighted_sum_into": rounds, "row_sq_norms": rounds}
+
+
+def phase_scaffold(torch, ops, run_experiment, card: str, out_dir: Path):
+    """(m): SCAFFOLD at the flagship's shape, 10% cohorts in 25-client chunks:
+    ``run_experiment(scaffold=True)`` for 3 rounds; a ``Coordinator(scaffold=True)``
+    checked round by round (round 1 against plain FedAvg, ``c_global`` against its
+    recomputation, non-participants' control rows untouched); then a 100-client
+    population resumed from a checkpoint.  Returns the launch counts, the checked
+    coordinator's params and its population on the card."""
+    from nanofed_tpu_torch.models import get_model
+    from nanofed_tpu_torch.orchestration import Coordinator, CoordinatorConfig, RoundStatus
+    from nanofed_tpu_torch.persistence import FileStateStore
+
+    n, rounds, part = FLAGSHIP["num_clients"], SCAFFOLD_ROUNDS, 0.1
+    totals: dict[str, int] = dict.fromkeys(ops.launch_counts(), 0)
+    summary, _, grew = counted(
+        torch, ops, card, "(m) run_experiment(scaffold=True)",
+        lambda: run_experiment(model="mnist_cnn", device="cuda", seed=0, out_dir=out_dir / "m",
+                               participation=part, client_chunk=SCAFFOLD_CHUNK, scaffold=True,
+                               **dict(FLAGSHIP, num_rounds=rounds)),
+        scaffold_launches(rounds))
+    add_launches(totals, grew)
+    train = summary["final_train_metrics"]
+    print(f"[{card}] (m) round_durations_s={summary['round_durations_s']} "
+          f"loss={train.get('loss')} participating_clients={train.get('participating_clients')} "
+          f"eval_accuracy={summary['final_eval_metrics']['accuracy']}")
+    if summary["rounds_completed"] != rounds or not math.isfinite(train["loss"]):
+        fail(f"(m) run_experiment: {summary['rounds_completed']} rounds, loss {train.get('loss')}")
+
+    model = get_model("mnist_cnn")
+    host = flagship_data()
+    training = flagship_training()
+
+    def make(name: str, data=host, num_rounds=rounds, scaffold=True, **kwargs):
+        return Coordinator(model, data, CoordinatorConfig(
+            num_rounds=num_rounds, participation_rate=part, seed=0, base_dir=out_dir / name,
+            save_metrics=False), training, client_chunk=SCAFFOLD_CHUNK, device="cuda",
+            scaffold=scaffold, **kwargs)
+
+    plain = make("m_fedavg", num_rounds=1, scaffold=False)
+    _, _, grew = counted(torch, ops, card, "(m) plain FedAvg round", plain.run,
+                         step_launches(SCAFFOLD_CHUNK, plain.cohort_size))
+    add_launches(totals, grew)
+    coord = make("m_checked")
+    gen = coord.start_training()
+    for r in range(rounds):
+        c_prev, stack_prev = coord.c_global.clone(), coord.c_stack.clone()
+        cohort = torch.as_tensor(coord._sample_cohort(r), device="cuda")
+        metrics, _, grew = counted(torch, ops, card, f"(m) checked round {r}",
+                                   lambda: next(gen), scaffold_launches(1))
+        add_launches(totals, grew)
+        if metrics.status != RoundStatus.COMPLETED:
+            fail(f"(m) checked round {r}: {metrics.status}")
+        moved = (coord.c_stack[cohort].double() - stack_prev[cohort].double()).sum(0)
+        want = c_prev.double() + moved / n
+        rel = float((coord.c_global.double() - want).abs().max()
+                    / want.abs().max().clamp(min=1e-30))
+        outside = torch.ones(n, dtype=torch.bool, device="cuda")
+        outside[cohort] = False
+        untouched = torch.equal(coord.c_stack[outside], stack_prev[outside])
+        line = (f"[{card}] (m) round {r}: c_global against c + sum(dc_i)/{n} recomputed in "
+                f"float64: max relative error {rel:.3e} (tolerance {SCAFFOLD_CONTROL_RTOL}); "
+                f"{int(outside.sum())} non-participant rows unchanged bit for bit: {untouched}")
+        if r == 0:
+            gap = float((torch.cat([p.reshape(-1) for p in coord.params.values()])
+                         - torch.cat([p.reshape(-1) for p in plain.params.values()])).abs().max())
+            line += f"; round 1 against plain FedAvg max|dparams|={gap:.3e}"
+            if gap > SCAFFOLD_FEDAVG_TOL:
+                fail(f"(m) round 1 from zero controls differs from FedAvg by {gap}")
+        print(line)
+        if rel > SCAFFOLD_CONTROL_RTOL or not untouched:
+            fail(f"(m) round {r}: server control off by {rel} or a non-participant moved")
+        del stack_prev
+    gen.close()
+    final_params = coord.params
+    del coord, plain
+
+    # Resume: a 100-client population, 4 rounds, closed after 2 and resumed.
+    small = flagship_data(SCAFFOLD_RESUME_CLIENTS)
+    resume_rounds = RESUME_ROUNDS
+
+    def state(c):
+        return torch.cat([torch.cat([p.reshape(-1) for p in c.params.values()]),
+                          c.c_global]), c.c_stack
+
+    runs = {}
+    for name in ("uninterrupted", "again"):
+        c = make(f"m_{name}", data=small, num_rounds=resume_rounds)
+        _, _, grew = counted(torch, ops, card, f"(m) population 100, {name}", c.run,
+                             scaffold_launches(resume_rounds))
+        add_launches(totals, grew)
+        runs[name] = state(c)
+    store = FileStateStore(out_dir / "m_ckpt")
+    ckpt_s: list[float] = []
+    timed_method(store, "checkpoint", ckpt_s)
+    first = make("m_first", data=small, num_rounds=resume_rounds, state_store=store)
+
+    def two_rounds():
+        gen = first.start_training()
+        out = [next(gen), next(gen)]
+        gen.close()
+        return out
+
+    _, _, grew = counted(torch, ops, card, "(m) population 100, closed after 2 rounds",
+                         two_rounds, scaffold_launches(2))
+    add_launches(totals, grew)
+    ckpt_bytes = max(f.stat().st_size for f in (out_dir / "m_ckpt").rglob("state.pkl"))
+    resumed = make("m_resumed", data=small, num_rounds=resume_rounds, state_store=store)
+    if resumed.current_round != 2:
+        fail(f"(m) resumed at round {resumed.current_round}, expected 2")
+    _, _, grew = counted(torch, ops, card, "(m) population 100, resumed", resumed.run,
+                         scaffold_launches(resume_rounds - 2))
+    add_launches(totals, grew)
+    full, again = runs["uninterrupted"], runs["again"]
+    run_gap = max(float((a - b).abs().max()) for a, b in zip(full, again))
+    got = state(resumed)
+    gap = max(float((a - b).abs().max()) for a, b in zip(full, got))
+    print(f"[{card}] (m) resume: checkpoint_s={[round(s, 6) for s in ckpt_s]} "
+          f"(state.pkl of {ckpt_bytes} bytes with the control stack); run-to-run gap "
+          f"{run_gap:.3e}; resumed max|d(params, c_global, c_stack)|={gap:.3e} (tolerance "
+          f"{RESUME_TOL}, and at most the run-to-run gap + 1e-6)")
+    if not (gap <= RESUME_TOL and gap <= run_gap + 1e-6):
+        fail(f"(m) the resumed SCAFFOLD run differs by {gap} (run-to-run {run_gap})")
+    return totals, final_params, host
+
+
+def phase_trainer(torch, ops, card: str, out_dir: Path, global_params, population) -> None:
+    """(n): ``Trainer.fit`` with a ``MetricsLogger`` on the tutorial client against
+    ``make_local_fit`` run directly, bit for bit; then the personalized evaluator over
+    (m)'s model on its 1000-client population split 80/20."""
+    from nanofed_tpu_torch.core.types import ClientData
+    from nanofed_tpu_torch.data import federate, load_mnist
+    from nanofed_tpu_torch.models import get_model
+    from nanofed_tpu_torch.trainer import (
+        MetricsLogger,
+        Trainer,
+        TrainingConfig,
+        client_keys,
+        draw_permutations,
+        make_local_fit,
+        make_personalized_evaluator,
+        split_client_data,
+    )
+
+    model = get_model("mnist_cnn")
+    host = federate(load_mnist("train", None, synthetic_size=TUTORIAL_SAMPLES), num_clients=2,
+                    batch_size=64, seed=0, proportions=[0.75, 0.25])
+    client = ClientData(host.x[0], host.y[0], host.mask[0]).to(torch.device("cuda"))
+    training = TrainingConfig(batch_size=64, local_epochs=2, learning_rate=0.1)
+    params = model.init(torch.Generator().manual_seed(0))
+    params = {k: v.cuda() for k, v in params.items()}
+    perms = draw_permutations(torch.Generator(device="cuda").manual_seed(1), 1, 2,
+                              client.y.shape[0])
+    log_path = out_dir / "n_trainer_metrics.json"
+    trainer = Trainer(model, training, callbacks=[MetricsLogger(log_path, "tutorial_0")],
+                      device="cuda")
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # the same bits from two calls
+    try:
+        (tuned, final), fit_s, _ = counted(torch, ops, card, "(n) Trainer.fit",
+                                           lambda: trainer.fit(params, client, perms=perms[0]),
+                                           {})
+        direct, direct_s, _ = counted(
+            torch, ops, card, "(n) make_local_fit directly",
+            lambda: make_local_fit(model, training)(
+                params, ClientData(client.x[None], client.y[None], client.mask[None]), perms,
+                client_keys(0, 1, "cuda")), {})
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    same = all(torch.equal(tuned[k], direct.params[k][0]) for k in params)
+    logged = json.loads(log_path.read_text())
+    print(f"[{card}] (n) Trainer.fit on {int(client.mask.sum())} samples, 2 epochs: "
+          f"fit_s={fit_s:.3f} (make_local_fit directly {direct_s:.3f}), loss={final['loss']:.6f} "
+          f"accuracy={final['accuracy']:.6f}; params equal bit for bit: {same}; the "
+          f"MetricsLogger wrote {len(logged['epochs'])} epochs and {len(logged['batches'])} "
+          "batches")
+    if not same:
+        fail("(n) Trainer.fit differs from make_local_fit run directly")
+    if len(logged["epochs"]) != 2 or len(logged["batches"]) != 2 * perms.shape[-1] // 64:
+        fail(f"(n) the MetricsLogger wrote {len(logged['epochs'])} epochs")
+
+    train, test = split_client_data(population.to(torch.device("cuda")), 0.2, seed=0)
+    evaluate = make_personalized_evaluator(model, flagship_training())
+    out, eval_s, _ = counted(torch, ops, card, "(n) personalized evaluator, 1000 clients",
+                             lambda: evaluate(global_params, train, test, seed=0), {})
+    g, p = float(out["global_accuracy"]), float(out["personal_accuracy"])
+    print(f"[{card}] (n) personalized evaluation over (m)'s model: global_accuracy={g:.6f} "
+          f"personal_accuracy={p:.6f} gain={float(out['personalization_gain']):.6f} over "
+          f"{int(out['test_counts'].sum())} test samples, evaluate_s={eval_s:.3f}")
+    if not (0.0 <= g <= 1.0 and 0.0 <= p <= 1.0):
+        fail("(n) personalized accuracies outside [0, 1]")
+
+
 def phase_cross_check(torch, ops, card: str) -> None:
     """8-client f32 rounds on the card and on the CPU from the same inputs; each
     variant's kernel launches on the card are checked against the round's code."""
@@ -2145,7 +2579,11 @@ def phase_cross_check(torch, ops, card: str) -> None:
     from nanofed_tpu_torch.core.types import ClientData, ClientMetrics
     from nanofed_tpu_torch.data import federate, synthetic_classification
     from nanofed_tpu_torch.models import get_model
-    from nanofed_tpu_torch.parallel import build_round_step, init_server_state
+    from nanofed_tpu_torch.parallel import (
+        build_round_step,
+        build_scaffold_round_step,
+        init_server_state,
+    )
     from nanofed_tpu_torch.privacy import PrivacyConfig
     from nanofed_tpu_torch.security import ValidationConfig
     from nanofed_tpu_torch.trainer import (
@@ -2153,7 +2591,9 @@ def phase_cross_check(torch, ops, card: str) -> None:
         client_keys,
         draw_permutations,
         make_local_fit,
+        make_private_local_fit,
     )
+    from nanofed_tpu_torch.trainer.private import counter_noise
     from nanofed_tpu_torch.utils.trees import ravel, tree_size
 
     with_dropout = get_model("mnist_cnn")
@@ -2195,6 +2635,10 @@ def phase_cross_check(torch, ops, card: str) -> None:
         # loss/accuracy scalars through the same estimator (round_step.py:452-457).
         "Multi-Krum, f=1": (dict(robust=RobustAggregationConfig(trim_k=1, method="multi_krum")),
                             host, model, {"weighted_mean_flat": 2, "row_sq_norms": 1}),
+        # Per-example clipping and the counter-based noise of the clients' own keys.
+        "DP-SGD clients": (dict(local_fit=make_private_local_fit(model, training, PrivacyConfig(
+            max_gradient_norm=1.0, noise_multiplier=0.8))), host, model,
+            {"weighted_mean_flat": 1, "row_sq_norms": 1}),
     }
     for name, (kwargs, host_data, mdl, launches) in variants.items():
         step = build_round_step(mdl, training, strategy, **kwargs)
@@ -2232,6 +2676,53 @@ def phase_cross_check(torch, ops, card: str) -> None:
         if not (diff <= CROSS_TOL and loss_diff <= CROSS_TOL and norm_rel <= CROSS_TOL):
             fail(f"cross-check {name}: the round on the card disagrees with the CPU")
 
+    # The DP-SGD noise itself: a hash of the key, then float transforms, on both devices.
+    key = torch.tensor(7, dtype=torch.int32)
+    cpu_noise = counter_noise(key, tree_size(params))
+    noise_rel = float((counter_noise(key.cuda(), tree_size(params)).cpu() - cpu_noise).abs().max()
+                      / cpu_noise.abs().max())
+    print(f"[{card}] cross-check DP-SGD noise of one key, P={tree_size(params)}: max relative "
+          f"|cuda - cpu| = {noise_rel:.3e} (tolerance 1e-6)")
+    if noise_rel > 1e-6:
+        fail("cross-check: the counter-based noise differs between the card and the CPU")
+
+    # Two SCAFFOLD rounds from zero controls, the clients' deltas fed back.
+    states = {}
+    for dev in ("cuda", "cpu"):
+        device = torch.device(dev)
+        step = build_scaffold_round_step(model, training, 8, strategy, device=dev)
+        data = ClientData(*host).to(device)
+        p = {k: v.to(device) for k, v in params.items()}
+        sos = init_server_state(strategy, p)
+        c_global = torch.zeros(tree_size(p), device=device)
+        c_stack = torch.zeros((8, tree_size(p)), device=device)
+        ops.reset_launch_counts()
+        for _ in range(2):
+            out = step(p, sos, c_global, c_stack, data, data.mask.sum(1), perms.to(device),
+                       client_keys(7, 8, device))
+            p, sos, c_global = out.params, out.server_opt_state, out.c_global
+            c_stack = c_stack + out.delta_c
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            grew = ops.launch_counts()
+            want = {k: scaffold_launches(2).get(k, 0) for k in grew}
+            if grew != want:
+                fail(f"cross-check SCAFFOLD: launches {grew}, expected {want}")
+        states[dev] = (ravel(p).cpu(), c_global.cpu(), c_stack.cpu())
+    # dc_i = -c + (x - y) / (K * eta): the controls carry the params' error divided by
+    # K * eta (K = 4 steps, eta = 0.1), so they are held to CROSS_TOL / (K * eta).  Two
+    # CPU runs that differ only in how the convolutions are batched (client_chunk 1 vs
+    # none) are 3.3e-6 apart in params and 6.7e-5 in c_stack after round 2.
+    steps = training.local_epochs * (host.y.shape[1] // training.batch_size)
+    control_tol = CROSS_TOL / (steps * training.learning_rate)
+    gaps = [float((a - b).abs().max()) for a, b in zip(states["cuda"], states["cpu"])]
+    print(f"[{card}] cross-check SCAFFOLD, 2 rounds of 8 clients f32 cuda vs cpu: "
+          f"max|dparams|={gaps[0]:.3e} (tolerance {CROSS_TOL}) max|dc_global|={gaps[1]:.3e} "
+          f"max|dc_stack|={gaps[2]:.3e} (tolerance {control_tol:.3e})")
+    if (gaps[0] > CROSS_TOL or max(gaps[1:]) > control_tol
+            or not torch.isfinite(states["cuda"][0]).all()):
+        fail("cross-check SCAFFOLD: the rounds on the card disagree with the CPU")
+
 
 def main() -> None:
     import torch
@@ -2268,8 +2759,13 @@ def main() -> None:
         tuned_counts = phase_autotune(torch, ops, run_experiment, card, Path(tmp))
         resume_counts = phase_resume(torch, ops, run_experiment, card, Path(tmp))
         network_resume_counts = phase_network_resume(torch, ops, card, Path(tmp))
+        dp_counts = phase_dp(torch, ops, card, Path(tmp))
+        scaffold_counts, scaffold_params, population = phase_scaffold(
+            torch, ops, run_experiment, card, Path(tmp))
+        phase_trainer(torch, ops, card, Path(tmp), scaffold_params, population)
+        del scaffold_params, population
     counts = {k: counts[k] + secure_counts[k] + tuned_counts[k] + resume_counts[k]
-              + network_resume_counts[k] for k in counts}
+              + network_resume_counts[k] + dp_counts[k] + scaffold_counts[k] for k in counts}
     print(f"kernels: {json.dumps(counts)}")
     missing = [k for k, v in counts.items() if v == 0]
     if missing:

@@ -8,6 +8,14 @@ from nanofed_tpu_torch.core.exceptions import (
     PrivacyError,
     SecurityError,
 )
+from nanofed_tpu_torch.core.interfaces import (
+    AggregatorProtocol,
+    CoordinatorProtocol,
+    LocalFitFn,
+    ModelManagerProtocol,
+    ModelProtocol,
+    ServerProtocol,
+)
 from nanofed_tpu_torch.core.types import (
     ClientData,
     ClientMetrics,
@@ -19,17 +27,23 @@ from nanofed_tpu_torch.core.types import (
 
 __all__ = [
     "AggregationError",
+    "AggregatorProtocol",
     "CheckpointError",
     "ClientData",
     "ClientMetrics",
     "ClientUpdates",
     "CommunicationError",
+    "CoordinatorProtocol",
+    "LocalFitFn",
     "ModelManagerError",
+    "ModelManagerProtocol",
+    "ModelProtocol",
     "ModelUpdate",
     "ModelVersion",
     "NanoFedError",
     "Params",
     "PrivacyError",
     "SecurityError",
+    "ServerProtocol",
     "resolve_device",
 ]

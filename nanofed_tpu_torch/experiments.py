@@ -4,10 +4,10 @@ to the flags this slice supports.
 ``central_privacy`` (DP-FedAvg at the reduce), ``robust_trim_k``/``robust_method``
 (robust aggregation), the client lr schedule (``lr_schedule``, ``lr_min_factor``,
 ``lr_decay_every``, ``lr_decay_gamma``), ``profile_programs``, ``autotune`` and
-``retune_every`` are taken as the JAX runner takes them.  Update validation is not a
-runner flag in either package: it is ``Coordinator(validation=...)``.  The JAX
-runner's other flags (SCAFFOLD, telemetry, fused blocks, mesh axes, strict mode,
-adapters) come with later slices; passing one with a value other than the JAX
+``retune_every`` and ``scaffold`` are taken as the JAX runner takes them.  Update
+validation is not a runner flag in either package: it is
+``Coordinator(validation=...)``.  The JAX runner's other flags (telemetry, fused
+blocks, mesh axes, strict mode, adapters) come with later slices; passing one with a value other than the JAX
 default raises ``NotImplementedError`` naming it, never a silent ignore.
 """
 
@@ -26,7 +26,6 @@ from nanofed_tpu_torch.trainer import TrainingConfig
 
 # The JAX runner's flags that later slices bring, with the JAX defaults (accepted).
 LATER_SLICE_FLAGS: dict[str, Any] = {
-    "scaffold": False,
     "telemetry_dir": None,
     "rounds_per_block": 1,
     "model_shards": 1,
@@ -66,6 +65,7 @@ def run_experiment(
     profile_programs: bool = False,
     autotune: bool = False,
     retune_every: int = 0,
+    scaffold: bool = False,
     **kwargs: Any,
 ) -> dict[str, Any]:
     """Run a simulated federated experiment on ``device`` (default: the GPU) and return
@@ -74,7 +74,9 @@ def run_experiment(
     backward in bf16.  ``central_privacy`` turns the reduce into DP-FedAvg;
     ``robust_trim_k``/``robust_method`` (either one set) aggregate robustly, with
     ``trim_k`` defaulting to 1 and the method to ``"trimmed_mean"``.  ``lr_schedule``
-    decays the client lr across rounds (``CoordinatorConfig``).
+    decays the client lr across rounds (``CoordinatorConfig``).  ``scaffold=True``
+    runs SCAFFOLD (``Coordinator(scaffold=True)``: control variates, the uniform
+    participant mean).
 
     ``profile_programs=True`` profiles the round step at construction
     (``observability.profiling``) and the summary carries ``program_profiles``.
@@ -135,7 +137,7 @@ def run_experiment(
     )
     shared_kwargs: dict[str, Any] = dict(
         eval_data=pack_eval(test, batch_size=256), device=dev,
-        central_privacy=central_privacy, robust=robust,
+        central_privacy=central_privacy, robust=robust, scaffold=scaffold,
     )
     if autotune:
         coordinator = Coordinator.from_autotune(

@@ -40,8 +40,19 @@ round's id.  ``model_manager=`` saves a versioned model of every COMPLETED round
 published.  Checkpoints and versioned models are in the JAX package's formats, so a
 run of either package resumes from the other's files (``persistence``).
 
-Later slices bring SCAFFOLD, adapters, fused multi-round blocks, the hosts/model mesh
-axes, strict mode and telemetry.
+Client training: ``grad_fn=`` builds the default local fit with another gradient and
+``local_fit=`` replaces the fit (``trainer.private.make_private_local_fit`` for DP-SGD
+clients, whose noise comes from the seed-derived client keys as in the JAX package).
+``scaffold=True`` runs SCAFFOLD (``parallel.scaffold_step``): the server control
+``c_global`` ``[P]`` and every client's control, the rows of ``c_stack`` ``[N, P]``,
+stay on the device; a gathered cohort's rows are gathered by client id and its
+``delta_c`` scatter-added back with ``index_add_`` (padding slots alias row 0 with
+exact zeros), the full population's added in place.  Its checkpoints carry the
+controls as the JAX package's do (``{"opt", "scaffold_c_global",
+"scaffold_c_stack"}``).
+
+Later slices bring adapters, fused multi-round blocks, the hosts/model mesh axes,
+strict mode and telemetry.
 """
 
 from __future__ import annotations
@@ -73,12 +84,19 @@ from nanofed_tpu_torch.observability.profiling import ProgramCatalog, ProgramCos
 from nanofed_tpu_torch.orchestration.engine import completion_required
 from nanofed_tpu_torch.orchestration.types import RoundMetrics, RoundStatus, cohort_size
 from nanofed_tpu_torch.parallel.round_step import build_round_step, init_server_state
+from nanofed_tpu_torch.parallel.scaffold_step import build_scaffold_round_step
 from nanofed_tpu_torch.persistence import FileStateStore, ModelManager, RestoredState
 from nanofed_tpu_torch.privacy.accounting import BasePrivacyAccountant, RDPAccountant
 from nanofed_tpu_torch.privacy.noise import get_noise_generator
 from nanofed_tpu_torch.security.validation import ValidationConfig
 from nanofed_tpu_torch.trainer.config import TrainingConfig
-from nanofed_tpu_torch.trainer.local import client_keys, draw_permutations, make_evaluator
+from nanofed_tpu_torch.trainer.local import (
+    GradFn,
+    client_keys,
+    draw_permutations,
+    make_evaluator,
+)
+from nanofed_tpu_torch.trainer.scaffold import stack_zero_controls, zero_controls
 from nanofed_tpu_torch.trainer.schedules import SCHEDULES, lr_schedule_scale
 from nanofed_tpu_torch.tuning.autotuner import (
     DEFAULT_CACHE_DIR,
@@ -89,10 +107,14 @@ from nanofed_tpu_torch.tuning.autotuner import (
 from nanofed_tpu_torch.tuning.retuner import OnlineRetuner
 from nanofed_tpu_torch.utils.trees import (
     from_checkpoint_params,
+    from_checkpoint_stack,
     from_numpy_server_state,
+    ravel,
     to_numpy_params,
     to_numpy_server_state,
     tree_size,
+    unravel,
+    unravel_stacked,
 )
 
 _log = logging.getLogger(__name__)
@@ -191,6 +213,11 @@ class Coordinator:
                 "from_autotune owns client_chunk — the tuner picks it; pin an axis "
                 "with a single-valued tuning_space instead"
             )
+        if kwargs.get("scaffold"):
+            raise NanoFedError(
+                "from_autotune does not cover the SCAFFOLD round program (the "
+                "autotuner never sweeps it); build Coordinator(scaffold=True) by hand"
+            )
         training = training or TrainingConfig()
         result = autotune(
             model, PopulationSpec.from_client_data(train_data), training,
@@ -242,6 +269,9 @@ class Coordinator:
         model_manager: ModelManager | None = None,
         state_store: FileStateStore | None = None,
         on_round_end: Callable[[RoundMetrics], None] | None = None,
+        grad_fn: GradFn | None = None,
+        local_fit: Callable | None = None,
+        scaffold: bool = False,
     ) -> None:
         self.device = resolve_device(device)
         self.model = model
@@ -292,16 +322,53 @@ class Coordinator:
             if client_chunk < self.cohort_size and self.cohort_size % client_chunk != 0:
                 self._cohort_mode = False
         self._step_clients = self.cohort_size if self._cohort_mode else self.num_clients
+        if (
+            config.lr_schedule != "constant"
+            and local_fit is not None
+            and not getattr(local_fit, "supports_lr_scale", False)
+        ):
+            # The scale would be silently ignored: every round would train at full rate.
+            raise ValueError(
+                f"lr_schedule={config.lr_schedule!r} requires a local_fit that "
+                "accepts lr_scale (make_local_fit/make_private_local_fit do; mark a "
+                "custom one with `fit.supports_lr_scale = True` once it honors the "
+                "argument)"
+            )
+        self.scaffold = scaffold
+        if scaffold:
+            incompatible = {
+                "central_privacy": central_privacy, "validation": validation,
+                "robust": robust, "local_fit": local_fit,
+            }
+            bad = [k for k, v in incompatible.items() if v is not None]
+            if bad:
+                # The control estimate comes from the un-noised, un-trimmed local
+                # trajectory; composing it with DP noise, robust trimming or another
+                # fit would bias every later round's correction.
+                raise ValueError(
+                    f"scaffold=True cannot be combined with {', '.join(bad)}: the "
+                    "control-variate update assumes the plain corrected-SGD local fit "
+                    "and the uniform participant mean"
+                )
+            self.c_global = zero_controls(self.params)
+            self.c_stack = stack_zero_controls(self.params, self.num_clients)
         # Everything a retune swap needs to rebuild the round step with another
         # client_chunk (see _rebuild_round_programs).
         self._client_chunk = client_chunk
         self._builder_ctx: dict[str, Any] = dict(
             central_privacy=central_privacy, validation=validation, robust=robust,
+            grad_fn=grad_fn, local_fit=local_fit,
         )
-        self._round_step = build_round_step(
-            model, self.training, self.strategy, client_chunk=client_chunk,
-            **self._builder_ctx,
-        )
+        if scaffold:
+            self._round_step = build_scaffold_round_step(
+                model, self.training, self.num_clients, strategy=self.strategy,
+                grad_fn=grad_fn, client_chunk=client_chunk, device=self.device,
+            )
+        else:
+            self._round_step = build_round_step(
+                model, self.training, self.strategy, client_chunk=client_chunk,
+                **self._builder_ctx,
+            )
         # The round step, registered with a LAZY argument factory (nothing is made
         # until profile_programs() runs it).
         self.program_catalog = ProgramCatalog()
@@ -338,12 +405,25 @@ class Coordinator:
         (checked against this model and strategy) onto the device, the accountant's
         events, and the round after the checkpointed one."""
         server_state = restored.server_state
-        if isinstance(server_state, dict) and "scaffold_c_stack" in server_state:
+        has_controls = isinstance(server_state, dict) and "scaffold_c_stack" in server_state
+        if not self.scaffold and has_controls:
             raise NanoFedError(
-                "the checkpoint carries SCAFFOLD control state: SCAFFOLD (queue A item "
-                "12) is not supported by this slice of nanofed_tpu_torch (resume it "
-                "with nanofed_tpu)"
+                "the checkpoint carries SCAFFOLD control state but this "
+                "coordinator was built with scaffold=False — resume with "
+                "scaffold=True (or point at a non-SCAFFOLD run's store)"
             )
+        if self.scaffold:
+            if not has_controls:
+                raise NanoFedError(
+                    "scaffold=True but the checkpoint carries no control "
+                    "state — it was written by a non-SCAFFOLD run; resuming "
+                    "would silently zero every client's correction"
+                )
+            self.c_global = ravel(from_checkpoint_params(
+                server_state["scaffold_c_global"], self.params))
+            self.c_stack = from_checkpoint_stack(
+                server_state["scaffold_c_stack"], self.params, self.num_clients)
+            server_state = server_state["opt"]
         self.params = from_checkpoint_params(restored.params, self.params)
         self.server_state = from_numpy_server_state(server_state, self.strategy, self.params)
         accountant_state = restored.metadata.metrics.get("privacy_accountant")
@@ -429,6 +509,11 @@ class Coordinator:
         winner).  Round times flow in after every round; :meth:`start_training`
         asks for a verdict every ``config.retune_every`` rounds and writes the
         measurements back into the autotune cache entry when the run completes."""
+        if self.scaffold:
+            raise NanoFedError(
+                "online retuning does not cover the SCAFFOLD round program "
+                "(different signature; the autotuner never sweeps it)"
+            )
         self.retuner = OnlineRetuner(
             result, hysteresis=hysteresis, min_rounds=min_rounds, cache_dir=cache_dir,
         )
@@ -491,6 +576,8 @@ class Coordinator:
         blocks come with the multi-GPU slice), as is a chunk that does not divide
         the step's client rows.  Transactional: the new step is built before
         anything is replaced."""
+        if self.scaffold:
+            raise NanoFedError("online retuning does not cover the SCAFFOLD round program")
         if rounds_per_block > 1:
             raise NanoFedError(
                 f"rounds_per_block={rounds_per_block}: fused multi-round blocks come "
@@ -546,10 +633,20 @@ class Coordinator:
             ckpt_metrics = metrics.to_dict()
             if self.privacy_accountant is not None:
                 ckpt_metrics["privacy_accountant"] = self.privacy_accountant.state_dict()
+            server_state: Any = to_numpy_server_state(self.server_state, self.params)
+            if self.scaffold:
+                # The controls are round state: resuming without them would restart
+                # every client's correction from zero.
+                server_state = {
+                    "opt": server_state,
+                    "scaffold_c_global": to_numpy_params(unravel(self.c_global, self.params)),
+                    "scaffold_c_stack": to_numpy_params(
+                        unravel_stacked(self.c_stack, self.params)),
+                }
             self.state_store.checkpoint(
                 round_number=metrics.round_id,
                 params=to_numpy_params(self.params),
-                server_state=to_numpy_server_state(self.server_state, self.params),
+                server_state=server_state,
                 metrics=ckpt_metrics,
                 status="COMPLETED" if metrics.status == RoundStatus.COMPLETED else "FAILED",
             )
@@ -622,6 +719,7 @@ class Coordinator:
             noise = get_noise_generator(self.central_privacy.privacy.noise_type).standard(
                 gen, (tree_size(self.params),)
             )
+        idx_dev = None
         if self._cohort_mode:
             idx, mask = self._place_cohort(survived)
             idx_dev = torch.as_tensor(idx, device=self.device)
@@ -642,9 +740,23 @@ class Coordinator:
             cfg.lr_schedule, round_id, cfg.num_rounds, min_factor=cfg.lr_min_factor,
             decay_every=cfg.lr_decay_every, gamma=cfg.lr_decay_gamma,
         )
-        result = self._round_step(
-            self.params, self.server_state, data, weights, perms, keys, noise, lr_scale
-        )
+        if self.scaffold:
+            c_rows = self.c_stack if idx_dev is None else self.c_stack[idx_dev]
+            result = self._round_step(
+                self.params, self.server_state, self.c_global, c_rows, data, weights, perms,
+                keys, lr_scale,
+            )
+            self.c_global = result.c_global
+            if idx_dev is None:
+                self.c_stack += result.delta_c
+            else:
+                # Participants' rows move by their delta; padding and dropped slots add
+                # exact zeros (collision-safe though they alias row 0).
+                self.c_stack.index_add_(0, idx_dev, result.delta_c)
+        else:
+            result = self._round_step(
+                self.params, self.server_state, data, weights, perms, keys, noise, lr_scale
+            )
         self.params = result.params
         self.server_state = result.server_opt_state
 

@@ -1,8 +1,21 @@
 from nanofed_tpu_torch.parallel.round_step import (
     RoundStepResult,
+    apply_server_update,
     build_round_step,
     client_deltas,
     init_server_state,
 )
+from nanofed_tpu_torch.parallel.scaffold_step import (
+    ScaffoldStepResult,
+    build_scaffold_round_step,
+)
 
-__all__ = ["RoundStepResult", "build_round_step", "client_deltas", "init_server_state"]
+__all__ = [
+    "RoundStepResult",
+    "ScaffoldStepResult",
+    "apply_server_update",
+    "build_round_step",
+    "build_scaffold_round_step",
+    "client_deltas",
+    "init_server_state",
+]

@@ -98,6 +98,19 @@ def init_server_state(strategy: Strategy, global_params: Params) -> Any:
     return strategy.server_tx.init(ravel(global_params))
 
 
+def apply_server_update(
+    server_tx: Any, gp_flat: torch.Tensor, like: Params, sos: Any, agg_delta: torch.Tensor,
+    total_w: torch.Tensor,
+) -> tuple[Params, Any]:
+    """The server optimizer's step on the aggregated delta: new params shaped like
+    ``like`` and the new server state; with ``total_w`` 0 both are left as they are.
+    The negative delta is the "gradient", so SGD(1.0) applies +delta exactly."""
+    if not bool(total_w > 0):
+        return like, sos
+    updates, new_sos = server_tx.update(-agg_delta, sos)
+    return unravel(gp_flat + updates, like), new_sos
+
+
 def _rows(t: torch.Tensor | None, sl: slice) -> torch.Tensor | None:
     return None if t is None else t[sl]
 
@@ -157,13 +170,6 @@ def build_round_step(
     def add_central_noise(agg: torch.Tensor, noise: torch.Tensor, participants: torch.Tensor):
         p = central_privacy.privacy
         return agg + noise * (p.noise_multiplier * p.max_gradient_norm / participants)
-
-    def apply_server_update(gp_flat, like, sos, agg_delta, total_w):
-        # The negative delta is the "gradient", so SGD(1.0) applies +delta exactly.
-        if not bool(total_w > 0):
-            return like, sos
-        updates, new_sos = server_tx.update(-agg_delta, sos)
-        return unravel(gp_flat + updates, like), new_sos
 
     def streamed(global_params, gp_flat, data, weights, perms, keys, noise, lr_scale):
         """Fold each chunk's weighted delta sum into one ``[P]`` accumulator."""
@@ -234,7 +240,7 @@ def build_round_step(
                 global_params, gp_flat, data, weights, perms, keys, noise, lr_scale
             )
             new_params, new_sos = apply_server_update(
-                gp_flat, global_params, server_opt_state, agg, weights.sum()
+                server_tx, gp_flat, global_params, server_opt_state, agg, weights.sum()
             )
             metrics = aggregate_metrics(client_metrics, weights)
             metrics["participating_clients"] = (weights > 0).sum()
@@ -284,7 +290,7 @@ def build_round_step(
             agg = weighted_mean_flat(delta, weights)
             update_sq_norms = row_sq_norms(delta)
         new_params, new_sos = apply_server_update(
-            gp_flat, global_params, server_opt_state, agg, total_w
+            server_tx, gp_flat, global_params, server_opt_state, agg, total_w
         )
 
         metrics = aggregate_metrics(client_metrics, weights)

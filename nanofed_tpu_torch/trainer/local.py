@@ -14,7 +14,9 @@ parity tests pass the JAX fit's own permutations), and each client's dropout
 keep-masks are a counter-based hash of its own key (:func:`client_keys`), the epoch,
 the step, the layer and the position (``nn.keep_mask``).  So a client trains the same
 model whichever chunk or cohort slot it runs in, and the masks are the same bits on
-the CPU and on the card.
+the CPU and on the card.  A gradient function also gets the client's own key for the
+step (:data:`GradFn`): the same hash on another lane than the dropout layers', so a
+gradient's own randomness (DP-SGD's noise, ``trainer.private``) is client-stable too.
 
 Padding discipline is the JAX package's: masked samples contribute nothing to the
 loss, the gradient or the metrics, and a batch that is all padding leaves a client's
@@ -51,8 +53,14 @@ class LocalFitResult(NamedTuple):
     batch_loss: torch.Tensor  # [k, E, S] per-step mean loss (zeros unless collected)
 
 
-# grad_fn(params, xb, yb, mb, dropout) -> (grads, StepStats), for ONE client.
+# grad_fn(params, xb, yb, mb, dropout, key) -> (grads, StepStats), for ONE client:
+# ``dropout`` the batch's keep-masks, ``key`` the client's int32 key for this (epoch,
+# step), or None when the fit was given no keys.  A grad fn that needs the key sets
+# ``grad_fn.needs_key = True``, and the fit then requires keys.
 GradFn = Callable[..., tuple[Params, StepStats]]
+
+# The lane of the per-step key a grad fn gets; the dropout layers take lanes 0, 1, ...
+GRAD_KEY_LANE = 0x6E6F6973
 
 
 def make_grad_fn(apply_fn: ApplyFn, compute_dtype: str | None = None) -> GradFn:
@@ -78,7 +86,7 @@ def make_grad_fn(apply_fn: ApplyFn, compute_dtype: str | None = None) -> GradFn:
 
     grad_and_value = torch.func.grad_and_value(loss_fn, has_aux=True)
 
-    def grad_fn(params, xb, yb, mb, dropout):
+    def grad_fn(params, xb, yb, mb, dropout, key=None):
         grads, (loss, (correct, count)) = grad_and_value(params, xb, yb, mb, dropout)
         return grads, StepStats(loss_sum=loss * count, correct=correct, count=count)
 
@@ -136,12 +144,99 @@ def client_keys(seed: int, num_clients: int, device: torch.device | str) -> torc
     return mix32(ids + base)
 
 
-def _dropout_row_keys(keys: torch.Tensor, epochs: int, steps: int, layers: int) -> torch.Tensor:
-    """``[E, S, L, k]`` int32: one key per (epoch, step, dropout layer, client)."""
+def _row_keys(keys: torch.Tensor, epochs: int, steps: int, lanes: torch.Tensor) -> torch.Tensor:
+    """``[E, S, L, k]`` int32: one key per (epoch, step, lane, client).  The dropout
+    layers are lanes ``0 .. L-1``; a grad fn's key is lane :data:`GRAD_KEY_LANE`."""
     salt = mix32(torch.arange(epochs, dtype=torch.int32))[:, None] + torch.arange(
         steps, dtype=torch.int32)
-    salt = mix32(salt)[:, :, None] + torch.arange(layers, dtype=torch.int32)
+    salt = mix32(salt)[:, :, None] + lanes.to(torch.int32)
     return mix32(mix32(salt).to(keys.device)[..., None] + keys)
+
+
+def grad_keys(keys: torch.Tensor, epochs: int, steps: int) -> torch.Tensor:
+    """``[E, S, k]`` int32: the key a grad fn gets for each (epoch, step, client)."""
+    return _row_keys(keys, epochs, steps, torch.tensor([GRAD_KEY_LANE]))[:, :, 0]
+
+
+class _Batch(NamedTuple):
+    """One step's batch of every client: ``[k, bsz, ...]`` data, the dropout
+    keep-masks and the clients' ``[k]`` grad-fn keys (None without keys)."""
+
+    x: torch.Tensor
+    y: torch.Tensor
+    mask: torch.Tensor
+    dropout: tuple
+    key: torch.Tensor | None
+
+
+def _epoch_batches(model: Model, config: TrainingConfig, data: ClientData,
+                   perms: torch.Tensor, keys: torch.Tensor | None, needs_key: bool):
+    """Check a fit's inputs and return ``batches``: ``batches(e)`` yields epoch ``e``'s
+    steps in order.  The discipline every fit shares: capacity a multiple of
+    the batch, ``max_batches`` clamps the steps, epoch ``e``'s step ``s`` reads
+    ``perms[:, e, s*bsz:(s+1)*bsz]``."""
+    bsz, epochs = config.batch_size, config.local_epochs
+    k, n = data.y.shape
+    if n % bsz != 0:
+        raise ValueError(
+            f"data capacity {n} must be a multiple of batch_size {bsz} "
+            "(use data.batching.pack_clients with the same batch_size)"
+        )
+    if tuple(perms.shape) != (k, epochs, n):
+        raise ValueError(f"perms must be {(k, epochs, n)}, got {tuple(perms.shape)}")
+    if (model.dropout or needs_key) and (
+        keys is None or tuple(keys.shape) != (k,) or keys.dtype != torch.int32
+    ):
+        what = "dropout" if model.dropout else "a gradient that needs the clients' keys"
+        raise ValueError(f"{model.name} trains with {what}: pass keys, [{k}] int32")
+    steps = n // bsz
+    if config.max_batches is not None:
+        steps = min(steps, config.max_batches)
+    if model.dropout:
+        row_keys = _row_keys(keys, epochs, steps, torch.arange(len(model.dropout)))
+        position_keys = [
+            mix32(torch.arange(bsz * math.prod(shape), dtype=torch.int32, device=keys.device))
+            for shape, _ in model.dropout
+        ]
+    step_keys = grad_keys(keys, epochs, steps) if keys is not None else None
+    rows = torch.arange(k, device=data.y.device)[:, None]
+
+    def batches(e: int):
+        for s in range(steps):
+            idx = perms[:, e, s * bsz : (s + 1) * bsz]
+            dropout = tuple(
+                keep_mask(row_keys[e, s, layer], position_keys[layer], (bsz, *shape), rate)
+                for layer, (shape, rate) in enumerate(model.dropout)
+            )
+            yield _Batch(data.x[rows, idx], data.y[rows, idx], data.mask[rows, idx], dropout,
+                         None if step_keys is None else step_keys[e, s])
+
+    return batches
+
+
+def _batched_grad(grad_fn: GradFn) -> Callable[[Params, _Batch], tuple[Params, StepStats]]:
+    """``grad_fn`` over the ``[k]`` clients of a batch (``torch.func.vmap``); without
+    keys the grad fn gets None, which vmap takes only as an unbatched argument."""
+    with_key = torch.func.vmap(grad_fn)
+    without_key = torch.func.vmap(grad_fn, in_dims=(0, 0, 0, 0, 0, None))
+
+    def call(params: Params, b: _Batch) -> tuple[Params, StepStats]:
+        fn = without_key if b.key is None else with_key
+        return fn(params, b.x, b.y, b.mask, b.dropout, b.key)
+
+    return call
+
+
+def _epoch_metrics(step_stats: list[StepStats], collect_batch: bool):
+    """An epoch's ``[k]`` loss and accuracy and its ``[k, S]`` per-step loss (zeros
+    unless ``collect_batch``), from the steps' masked sums."""
+    loss_sum = torch.stack([st.loss_sum for st in step_stats], 1)  # [k, S]
+    correct = torch.stack([st.correct for st in step_stats], 1)
+    count = torch.stack([st.count for st in step_stats], 1)
+    total = torch.clamp(count.sum(1), min=1.0)
+    b_loss = (loss_sum / torch.clamp(count, min=1.0) if collect_batch
+              else torch.zeros_like(loss_sum))
+    return loss_sum.sum(1) / total, correct.sum(1) / total, b_loss
 
 
 def _where_rows(keep: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -149,23 +244,36 @@ def _where_rows(keep: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.T
 
 
 def make_local_fit(
-    model: Model, config: TrainingConfig, grad_fn: GradFn | None = None
+    model: Model,
+    config: TrainingConfig,
+    grad_fn: GradFn | None = None,
+    optimizer: SGD | None = None,
 ) -> Callable[..., LocalFitResult]:
     """Build ``local_fit(global_params, data, perms, keys=None, lr_scale=1.0)``.
 
     ``global_params`` is one param dict; ``data`` is ``ClientData`` tensors
     ``[k, N, ...]``; ``perms`` is ``[k, E, N]``; ``keys`` is the clients' ``[k]``
-    int32 dropout keys (:func:`client_keys`; required when ``model.dropout`` is not
-    empty).  ``grad_fn`` replaces the default masked-NLL gradient of one client
-    (:func:`make_grad_fn`).  FedProx adds
+    int32 keys (:func:`client_keys`; required when ``model.dropout`` is not empty or
+    the grad fn sets ``needs_key``).  ``grad_fn`` replaces the default masked-NLL
+    gradient of one client (:func:`make_grad_fn`); it owns its casts, so
+    ``config.compute_dtype`` must then be unset.  ``optimizer`` replaces
+    :func:`make_optimizer`'s (an object with ``init(params)`` and
+    ``update(grads, state, params)``, as :class:`SGD`).  FedProx adds
     ``mu * (w - w_global)`` to each gradient; ``lr_scale`` multiplies every update
     (the lr-schedule hook; FedProx and weight decay scale with it).
     """
+    if grad_fn is not None and config.compute_dtype is not None:
+        # A custom grad_fn owns its own casts; silently ignoring the config would let a
+        # user believe bf16 is active when it is not.
+        raise ValueError(
+            "compute_dtype is set but a custom grad_fn was supplied; bake the dtype "
+            "into the grad_fn (e.g. make_dp_grad_fn(..., compute_dtype=...)) and leave "
+            "TrainingConfig.compute_dtype unset"
+        )
+    needs_key = bool(getattr(grad_fn, "needs_key", False))
     grad_fn = grad_fn or make_grad_fn(model.apply, compute_dtype=config.compute_dtype)
-    batched_grad = torch.func.vmap(grad_fn)
-    tx = make_optimizer(config)
-    bsz = config.batch_size
-    epochs = config.local_epochs
+    batched_grad = _batched_grad(grad_fn)
+    tx = optimizer or make_optimizer(config)
 
     def local_fit(
         global_params: Params,
@@ -174,43 +282,15 @@ def make_local_fit(
         keys: torch.Tensor | None = None,
         lr_scale: float = 1.0,
     ) -> LocalFitResult:
-        k, n = data.y.shape
-        if n % bsz != 0:
-            raise ValueError(
-                f"data capacity {n} must be a multiple of batch_size {bsz} "
-                "(use data.batching.pack_clients with the same batch_size)"
-            )
-        if tuple(perms.shape) != (k, epochs, n):
-            raise ValueError(f"perms must be {(k, epochs, n)}, got {tuple(perms.shape)}")
-        if model.dropout and (
-            keys is None or tuple(keys.shape) != (k,) or keys.dtype != torch.int32
-        ):
-            raise ValueError(f"{model.name} trains with dropout: pass keys, [{k}] int32")
-        steps = n // bsz
-        if config.max_batches is not None:
-            steps = min(steps, config.max_batches)
-        if model.dropout:
-            row_keys = _dropout_row_keys(keys, epochs, steps, len(model.dropout))
-            position_keys = [
-                mix32(torch.arange(bsz * math.prod(shape), dtype=torch.int32,
-                                   device=keys.device))
-                for shape, _ in model.dropout
-            ]
-
+        k = data.y.shape[0]
+        batches = _epoch_batches(model, config, data, perms, keys, needs_key)
         params = {name: p.expand(k, *p.shape).clone() for name, p in global_params.items()}
         state = tx.init(params)
-        rows = torch.arange(k, device=data.y.device)[:, None]
         e_loss, e_acc, b_loss = [], [], []
-        for e in range(epochs):
+        for e in range(config.local_epochs):
             step_stats = []
-            for s in range(steps):
-                idx = perms[:, e, s * bsz : (s + 1) * bsz]
-                xb, yb, mb = data.x[rows, idx], data.y[rows, idx], data.mask[rows, idx]
-                dropout = tuple(
-                    keep_mask(row_keys[e, s, layer], position_keys[layer], (bsz, *shape), rate)
-                    for layer, (shape, rate) in enumerate(model.dropout)
-                )
-                grads, stats = batched_grad(params, xb, yb, mb, dropout)
+            for b in batches(e):
+                grads, stats = batched_grad(params, b)
                 if config.prox_mu > 0:
                     grads = {
                         name: g + (params[name] - global_params[name]) * config.prox_mu
@@ -226,17 +306,10 @@ def make_local_fit(
                     name: _where_rows(nonempty, t, state[name]) for name, t in new_state.items()
                 }
                 step_stats.append(stats)
-            loss_sum = torch.stack([st.loss_sum for st in step_stats], 1)  # [k, S]
-            correct = torch.stack([st.correct for st in step_stats], 1)
-            count = torch.stack([st.count for st in step_stats], 1)
-            total = torch.clamp(count.sum(1), min=1.0)
-            e_loss.append(loss_sum.sum(1) / total)
-            e_acc.append(correct.sum(1) / total)
-            b_loss.append(
-                loss_sum / torch.clamp(count, min=1.0)
-                if config.collect_batch_metrics
-                else torch.zeros_like(loss_sum)
-            )
+            loss, acc, batch_loss = _epoch_metrics(step_stats, config.collect_batch_metrics)
+            e_loss.append(loss)
+            e_acc.append(acc)
+            b_loss.append(batch_loss)
         metrics = ClientMetrics(loss=e_loss[-1], accuracy=e_acc[-1], samples=data.mask.sum(1))
         return LocalFitResult(
             params=params,
@@ -246,6 +319,9 @@ def make_local_fit(
             batch_loss=torch.stack(b_loss, 1),
         )
 
+    # A custom local_fit may not honour lr_scale; the round builders and the
+    # Coordinator check this marker before they schedule one.
+    local_fit.supports_lr_scale = True
     return local_fit
 
 

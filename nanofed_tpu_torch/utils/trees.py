@@ -96,6 +96,31 @@ def from_checkpoint_params(nested: Mapping[str, Any], like: Params) -> Params:
     return _leaves_like(nested, like, "the checkpoint's params")
 
 
+def from_checkpoint_stack(nested: Mapping[str, Any], like: Params, rows: int) -> torch.Tensor:
+    """A checkpoint's stacked tree (leaves ``[rows, *shape]``, the JAX package's
+    per-client state such as SCAFFOLD's control stack) as one ``[rows, P]`` float32
+    matrix in ravel order on ``like``'s device, names, shapes and dtypes checked."""
+    if not isinstance(nested, Mapping):
+        raise CheckpointError(f"the checkpoint's stack is a {type(nested).__name__}, "
+                              "not a dict of arrays")
+    arrays = flatten_with_names(nested)
+    if set(arrays) != set(like):
+        raise CheckpointError(
+            f"the checkpoint's stack has leaves {sorted(set(arrays) - set(like))[:5]} the "
+            f"model lacks and lacks {sorted(set(like) - set(arrays))[:5]}")
+    device = next(iter(like.values())).device
+    out = torch.empty((rows, tree_size(like)), device=device)
+    for name, view in unravel_stacked(out, like).items():
+        arr = np.asarray(arrays[name])
+        if arr.shape != (rows, *like[name].shape) or arr.dtype != np.float32:
+            raise CheckpointError(
+                f"the checkpoint's stack leaf '{name}' is {arr.dtype} {arr.shape}, this "
+                f"run needs float32 {(rows, *like[name].shape)} (one row per client of "
+                "the population)")
+        view.copy_(torch.from_numpy(np.require(arr, requirements="W")))
+    return out
+
+
 def to_numpy_server_state(state: Mapping[str, Any], like: Params) -> tuple:
     """The port's flat server state as the JAX package's optax state: a
     ``(transform, schedule)`` tuple of ``core.types`` records whose trees are nested

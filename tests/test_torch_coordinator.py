@@ -99,9 +99,9 @@ def test_completion_gate_fails_the_round_and_keeps_the_model(tmp_path):
 
 
 def test_run_experiment_refuses_later_slice_flags_and_trains(tmp_path):
-    with pytest.raises(NotImplementedError, match="scaffold"):
-        run_experiment(num_clients=2, device="cpu", scaffold=True, out_dir=tmp_path)
-    run_experiment(num_clients=2, device="cpu", scaffold=False, rounds_per_block=1,
+    with pytest.raises(NotImplementedError, match="strict"):
+        run_experiment(num_clients=2, device="cpu", strict=True, out_dir=tmp_path)
+    run_experiment(num_clients=2, device="cpu", strict=False, rounds_per_block=1,
                    num_rounds=1, local_epochs=1, batch_size=8, train_size=32,
                    out_dir=tmp_path / "ok")
     summary = run_experiment(num_clients=4, num_rounds=2, local_epochs=1, batch_size=8,

@@ -20,7 +20,9 @@ from nanofed_tpu_torch.core import resolve_device
 from nanofed_tpu_torch.data import federate, synthetic_classification
 from nanofed_tpu_torch.models import get_model
 from nanofed_tpu_torch.orchestration import Coordinator, CoordinatorConfig
+from nanofed_tpu_torch.parallel import build_scaffold_round_step
 from nanofed_tpu_torch.security import secure_agg
+from nanofed_tpu_torch.trainer import Trainer, TrainingConfig
 from nanofed_tpu_torch.tuning import PopulationSpec, autotune, profile_aggregation_epilogues
 from nanofed_tpu_torch.utils.trees import from_numpy_params
 
@@ -74,6 +76,11 @@ def _entry_points():
         "dequantize_sum": lambda: secure_agg.dequantize_sum(np.zeros(3, np.uint32), 16),
         "autotune": lambda: autotune(model, PopulationSpec(2, 16, (28, 28, 1))),
         "profile_aggregation_epilogues": lambda: profile_aggregation_epilogues(100),
+        "Coordinator_scaffold": lambda: Coordinator(
+            model, data, CoordinatorConfig(save_metrics=False), scaffold=True),
+        "build_scaffold_round_step": lambda: build_scaffold_round_step(
+            model, TrainingConfig(), 2),
+        "Trainer": lambda: Trainer(model, TrainingConfig()),
     }
 
 
@@ -81,7 +88,8 @@ def _entry_points():
                                   "from_numpy_params", "NetworkCoordinator",
                                   "mask_update_cuda_backend", "expand_mask_cuda_backend",
                                   "unmask_sum", "dequantize_sum", "autotune",
-                                  "profile_aggregation_epilogues"])
+                                  "profile_aggregation_epilogues", "Coordinator_scaffold",
+                                  "build_scaffold_round_step", "Trainer"])
 def test_entry_points_default_to_cuda_and_raise_without_it(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -327,14 +327,15 @@ def test_jax_dp_checkpoint_restores_the_port_accountant(mlp, cd, jax_cd, tmp_pat
 
 
 def test_refused_checkpoints(mlp, cd, jax_cd, tmp_path):
-    """A SCAFFOLD checkpoint is refused naming its queue item; a checkpoint of another
-    model (an adapter tree) or of another server optimizer fails its check."""
+    """A SCAFFOLD checkpoint is refused by a coordinator built with scaffold=False
+    (the JAX package's message); a checkpoint of another model (an adapter tree) or of
+    another server optimizer fails its check."""
     params = jax.device_get(_jax_coordinator(jax_cd, tmp_path / "j", 1).params)
     opt = jax.device_get(optax.sgd(1.0).init(params))
     stack = jax.tree.map(lambda a: np.stack([a] * 8), params)
     cases = {
         "scaffold": (params, {"opt": opt, "scaffold_c_global": params,
-                              "scaffold_c_stack": stack}, NanoFedError, "item 12"),
+                              "scaffold_c_stack": stack}, NanoFedError, "scaffold=True"),
         "adapter": ({"lora": {"a": np.zeros((8, 2), np.float32)}}, opt, CheckpointError,
                     "params"),
         "momentum": (params, jax.device_get(optax.sgd(1.0, momentum=0.9).init(params)),
