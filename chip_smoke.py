@@ -115,6 +115,28 @@ Phases (any failure exits non-zero):
    epochs, f32) equal to ``make_local_fit`` run directly bit for bit (cuDNN's
    deterministic algorithms), then the personalized evaluator over (m)'s model on its
    1000 clients split 80/20, timed.
+   Then the network mode's update pipeline over (h)'s cohort (8 ``mnist_cnn`` clients of
+   600 samples, 1 epoch, f32, localhost aiohttp on the card): (o) two validated rounds,
+   client_7 posting a NaN leaf and then a 1000x scaled update, both rejected as out of
+   range and the aggregate the FedAvg of the other 7 within 1e-5 (B1 once a round),
+   one round with the cohort z-score on (how many honest clients the float32
+   leave-one-out z-score rejects, against float64), then trimmed-mean (k=1) and
+   Multi-Krum (f=1) rounds with client_7 Byzantine, each within 1e-5 of its float64
+   recomputation (Multi-Krum's selection mean is one B1); (p) 2 rounds of q8-delta and
+   3 of topk8-delta (fraction 0.05) submissions, each aggregate the FedAvg of the
+   server's reconstructions within 1e-5, the bytes on the wire per update (npz, q8,
+   topk8) and the client's encode and server's decode seconds, in the run and alone;
+   (q) FedBuff (``async_buffer_k=4``, ``staleness_window=4``) over the 8 clients,
+   client c sleeping 0.15c s before each round's training, 4 aggregations with the
+   list buffer and with ``IngestConfig()`` (256 rows, 1.23 GB on the card), each
+   aggregation within 1e-5 of its float64 recomputation from the drained updates, the
+   list run's drains replayed through an ingest buffer (within 1e-6 of
+   ``fedbuff_combine``, the copy and the drain timed), then 2 sync rounds on the
+   ingest buffer (no kernel); (r) signed rounds, every client with a
+   ``SecurityManager`` and the server with ``require_signatures=True``: an npz and a
+   q8 round, an unregistered client answered 403 and absent from the aggregate,
+   signing and verifying timed, then a signed masked round on the ``cuda`` backend
+   (B5 8, B7 8, B6 1).
 4. Cross-check: 8-client f32 rounds of the port on the card and on the CPU from the
    same weights, permutations and injected noise: the plain round with dropout off
    and on (the masks are an integer hash, the same bits on both devices), the
@@ -1332,20 +1354,25 @@ def train_client(torch, local_fit, params, data, client: int, rnd: int):
 
 
 async def network_client(torch, comm, sa, url, cid, index, local_fit, data, cfg, template,
-                         trained, fetched, spent, drop_at_round=None):
+                         trained, fetched, spent, drop_at_round=None, client_kwargs=None,
+                         poison=None, delay_s=0.0):
     """One network client as ``examples/secure_federation/run_secure.py`` drives it.
-    With ``cfg`` None it is a plain client: each round fetch, train, submit its params.
-    Otherwise it is a secure client on the ``cuda`` backend: enroll, then each round
-    fetch, (tolerant: deposit and open the round's shares), train, mask with B5/B7 and
-    submit, answer the unmask request.  ``spent`` collects the seconds of the client's
-    two synchronous sections, training and masking (each ends in a device synchronize)."""
+    With ``cfg`` None it is a plain client: each round fetch, train, submit its params
+    (``poison(round, params)`` replaces them when given: a bad client).  Otherwise it
+    is a secure client on the ``cuda`` backend: enroll, then each round fetch,
+    (tolerant: deposit and open the round's shares), train, mask with B5/B7 and
+    submit, answer the unmask request.  ``client_kwargs`` go to ``HTTPClient`` (an
+    encoding, a ``security_manager``); ``delay_s`` is slept before each round's
+    training (a slower device).  ``spent`` collects the seconds of the client's two
+    synchronous sections, training and masking (each ends in a device synchronize).
+    ``trained[round][cid]`` is what the client submitted, with its FedAvg weight."""
     import hashlib
 
     from nanofed_tpu_torch.core.exceptions import NanoFedError
 
     identity = sa.ClientKeyPair.generate()
     num_samples = float(data.mask.sum())
-    async with comm.HTTPClient(url, cid, timeout_s=120) as client:
+    async with comm.HTTPClient(url, cid, timeout_s=120, **(client_kwargs or {})) as client:
         if cfg is not None:
             if not await client.register_secagg(identity.public_bytes(), num_samples,
                                                 backend="cuda"):
@@ -1386,6 +1413,8 @@ async def network_client(torch, comm, sa, url, cid, index, local_fit, data, cfg,
                 mask_index, ordered = participants.index(cid), [epks[c] for c in participants]
             if drop_at_round is not None and rnd >= drop_at_round:
                 return  # gone after the share barrier: its masks are in the others' vectors
+            if delay_s:
+                await asyncio.sleep(delay_s)
             gp = {k: v.to("cuda") for k, v in params.items()}
             t0 = time.perf_counter()
             local = train_client(torch, local_fit, gp, data, index, rnd)
@@ -1393,6 +1422,8 @@ async def network_client(torch, comm, sa, url, cid, index, local_fit, data, cfg,
             t1 = time.perf_counter()
             spent.setdefault("train", []).append(t1 - t0)
             if cfg is None:
+                if poison is not None:
+                    local = poison(rnd, local)
                 trained.setdefault(rnd, {})[cid] = (num_samples, local)
                 accepted = await client.submit_update(local, {"num_samples": num_samples})
             else:
@@ -1555,6 +1586,582 @@ def secure_breakdown(comm, spent: dict, params) -> str:
                  model_npz_encode_s=t3 - t2, model_npz_decode_s=t4 - t3)
     return " ".join(f"{k}={v:.6f}" for k, v in parts.items()) + (
         f" (masked payload {len(buf.getvalue())} bytes, model payload {len(payload)} bytes)")
+
+
+WIRE_VALIDATION = dict(max_norm=25.0)  # (o): a trained mnist_cnn leaf's L2 norm is below 7
+WIRE_POISON_SCALE = 1e3  # (o): the grossly scaled update of round 1
+WIRE_BYZANTINE_SHIFT = 8.0  # (o): the Byzantine client's params, shifted by -8
+TOPK_FRACTION = 0.05  # (p)
+FEDBUFF = dict(async_buffer_k=4, staleness_window=4)  # (q)
+FEDBUFF_AGGREGATIONS = 4
+FEDBUFF_DELAY_S = 0.15  # (q): client c sleeps c * this before each round's training
+FEDBUFF_TOL = 1e-5  # (q): a float32 aggregation against its float64 recomputation
+INGEST_TOL = 1e-6  # (q): the ingest drain against fedbuff_combine on the same updates
+
+
+def wire_setup(torch):
+    """(h)'s cohort: 8 ``mnist_cnn`` clients of 600 samples, 1 epoch, f32."""
+    from nanofed_tpu_torch.data import federate, load_mnist
+    from nanofed_tpu_torch.models import get_model
+    from nanofed_tpu_torch.trainer import TrainingConfig, make_local_fit
+
+    n = SECURE_CLIENTS
+    model = get_model("mnist_cnn")
+    init = model.init(torch.Generator(device="cuda").manual_seed(0))
+    host = federate(load_mnist("train", None, synthetic_size=n * SECURE_SAMPLES),
+                    num_clients=n, batch_size=64, seed=0)
+    data = [host.select(slice(c, c + 1)).to(torch.device("cuda")) for c in range(n)]
+    local_fit = make_local_fit(model, TrainingConfig(batch_size=64, local_epochs=1,
+                                                     learning_rate=0.1))
+    return init, data, local_fit
+
+
+def run_wire(torch, ops, card: str, tag: str, setup, *, rounds: int, server_kwargs=None,
+             coordinator_kwargs=None, round_kwargs=None, client_kwargs=None, poison=None,
+             delays=None, secure=None, gate=False, extra=None, want=None):
+    """One network run of (h)'s cohort through ``HTTPServer``, ``NetworkCoordinator``
+    and ``HTTPClient`` on the card, its launch counts zeroed just before and read just
+    after (they must equal ``want``).  ``gate`` lets the coordinator see the buffer
+    only once all 8 clients have submitted (a validated round rejects some, so its
+    barrier is lower than the cohort).  ``want`` may be a function of the
+    coordinator.  ``extra(url)`` is one more coroutine beside
+    the clients.  Returns the coordinator, what each client submitted and fetched,
+    the updates each drain took, every published version, the server and the launch
+    counts."""
+    from nanofed_tpu_torch import communication as comm
+    from nanofed_tpu_torch.security import secure_agg as sa
+
+    init, data, local_fit = setup
+    n = SECURE_CLIENTS
+    trained, fetched, spent, drained, publishes = {}, {}, {}, [], {}
+    client_kwargs = client_kwargs or (lambda c: {})
+
+    async def main():
+        port = comm.free_port()
+        server = comm.HTTPServer(port=port, **(server_kwargs or {}))
+        if gate:
+            server.num_updates = lambda: (len(server._updates)
+                                          if len(server._updates) >= n else 0)
+        for name in ("drain_updates", "take_updates"):
+            method = getattr(server, name)
+
+            async def captured(*a, _method=method):
+                out = await _method(*a)
+                drained.append(list(out))
+                return out
+
+            setattr(server, name, captured)
+        publish = server.publish_model
+
+        async def publish_and_keep(params, r):
+            publishes[r] = {k: v.detach().cpu().clone() for k, v in params.items()}
+            await publish(params, r)
+
+        server.publish_model = publish_and_keep
+        await server.start()
+        try:
+            coordinator = comm.NetworkCoordinator(
+                server, init, comm.NetworkRoundConfig(num_rounds=rounds, **round_kwargs),
+                secure=secure, device="cuda", **(coordinator_kwargs or {}))
+            url = f"http://127.0.0.1:{port}"
+            clients = [
+                network_client(torch, comm, sa, url, f"client_{c}", c, local_fit, data[c],
+                               secure, init, trained, fetched, spent,
+                               client_kwargs=client_kwargs(c),
+                               poison=poison if c == n - 1 else None,
+                               delay_s=(delays or [0.0] * n)[c])
+                for c in range(n)]
+            if extra is not None:
+                clients.append(extra(url))
+            await asyncio.wait_for(asyncio.gather(coordinator.run(), *clients), 300)
+            return coordinator, server
+        finally:
+            await server.stop()
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    coordinator, server = asyncio.run(main())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    grew = ops.launch_counts()
+    print(f"[{card}] {tag}: round_durations_s={coordinator.ledger.durations_s} "
+          f"wall_s={wall:.3f} launches={grew}")
+    if callable(want):
+        want = want(coordinator)
+    want = {k: (want or {}).get(k, 0) for k in grew}
+    if grew != want:
+        fail(f"{tag}: kernel launches {grew}, expected {want}")
+    return dict(coordinator=coordinator, trained=trained, fetched=fetched, drained=drained,
+                publishes=publishes, server=server, grew=grew, spent=spent)
+
+
+def published(run, r: int, torch):
+    """The params published after round or aggregation ``r``: the next round's model,
+    or the final params."""
+    from nanofed_tpu_torch.utils.trees import ravel
+
+    nxt = run["publishes"].get(r + 1)
+    return ravel(nxt if nxt is not None else run["coordinator"].params).cpu().double()
+
+
+def check_fedavg(torch, card: str, tag: str, agg, entries, tol: float) -> float:
+    """``agg`` against the float64 weighted FedAvg of ``entries`` ((weight, params))."""
+    from nanofed_tpu_torch.utils.trees import ravel
+
+    mass = sum(w for w, _ in entries)
+    ref = sum(w * ravel(p).double().cpu() for w, p in entries) / mass
+    err = float((agg - ref).abs().max())
+    print(f"[{card}] {tag}: {len(entries)} updates, max|aggregate - FedAvg| = {err:.3e} "
+          f"(tolerance {tol})")
+    if not (torch.isfinite(agg).all() and err <= tol):
+        fail(f"{tag}: aggregate differs from the float64 FedAvg by {err}")
+    return err
+
+
+def loo_anomalous(norms: dict, threshold: float) -> set:
+    """The clients whose leave-one-out z-score of their update norm exceeds
+    ``threshold``, in float64."""
+    import numpy as np
+
+    out = set()
+    for c, v in norms.items():
+        rest = np.array([u for k, u in norms.items() if k != c])
+        if abs(v - rest.mean()) / (rest.std(ddof=1) + 1e-8) > threshold:
+            out.add(c)
+    return out
+
+
+def phase_wire_validation(torch, ops, card: str, setup) -> dict[str, int]:
+    """(o): two validated rounds, client_7 posting a NaN leaf and then a 1000x scaled
+    update, the cohort z-score off (``min_clients_for_stats`` above the cohort): both
+    rejected as out of range, the aggregate the FedAvg of the 7 others.  Then one
+    round with the z-score on, which measures how many honest clients the reference's
+    float32 leave-one-out z-score over the params' norms rejects.  Then trimmed mean
+    (k=1) and Multi-Krum (f=1) rounds with client_7 Byzantine (its params shifted by
+    -8), each held against a float64 recomputation."""
+    import numpy as np
+
+    from nanofed_tpu_torch.aggregation.robust import RobustAggregationConfig
+    from nanofed_tpu_torch.security.validation import ValidationConfig
+    from nanofed_tpu_torch.utils.trees import ravel
+
+    n = SECURE_CLIENTS
+    bad = f"client_{n - 1}"
+
+    def nan_then_scaled(rnd, local):
+        if rnd == 0:
+            return {k: (torch.full_like(v, float("nan")) if k == "fc2/bias" else v)
+                    for k, v in local.items()}
+        return {k: v * WIRE_POISON_SCALE for k, v in local.items()}
+
+    totals: dict[str, int] = {}
+    cfg = ValidationConfig(**WIRE_VALIDATION, min_clients_for_stats=n + 1)
+    run = run_wire(torch, ops, card, "(o) validated", setup, rounds=2, gate=True,
+                   round_kwargs=dict(min_clients=n, min_completion_rate=(n - 1) / n,
+                                     round_timeout_s=120.0),
+                   coordinator_kwargs=dict(validation=cfg), poison=nan_then_scaled,
+                   want={"weighted_mean_flat": 2})
+    add_launches(totals, run["grew"])
+    for r, record in enumerate(run["coordinator"].history):
+        print(f"[{card}] (o) validated round {r}: {record['status']} num_rejected="
+              f"{record['num_rejected']} rejected={record.get('rejected')}")
+        if record["status"] != "COMPLETED" or record.get("rejected") != {bad: "INVALID_RANGE"}:
+            fail(f"(o) validated round {r}: {record}")
+        entries = run["trained"][r]
+        check_fedavg(torch, card, f"(o) validated round {r}", published(run, r, torch),
+                     [entries[c] for c in sorted(entries) if c != bad], PLAIN_NETWORK_TOL)
+
+    cfg = ValidationConfig(**WIRE_VALIDATION)
+    run = run_wire(torch, ops, card, "(o) validated, z-score on", setup, rounds=1, gate=True,
+                   round_kwargs=dict(min_clients=n, min_completion_rate=1 / n,
+                                     round_timeout_s=120.0),
+                   coordinator_kwargs=dict(validation=cfg), poison=nan_then_scaled,
+                   want=lambda coordinator: {"weighted_mean_flat": int(
+                       coordinator.history[0]["status"] == "COMPLETED")})
+    add_launches(totals, run["grew"])
+    record, entries = run["coordinator"].history[0], run["trained"][0]
+    norms = {c: float(np.linalg.norm(ravel(p).double().cpu().numpy()))
+             for c, (_, p) in entries.items() if c != bad}
+    spread = (max(norms.values()) - min(norms.values())) / statistics.mean(norms.values())
+    flagged = sorted(c for c, v in record.get("rejected", {}).items() if v == "ANOMALOUS")
+    exact = sorted(loo_anomalous(norms, cfg.z_score_threshold))
+    print(f"[{card}] (o) z-score on: {record['status']}; the float32 leave-one-out z-score "
+          f"rejected {len(flagged)} of {n - 1} honest clients {flagged}; in float64 it "
+          f"would reject {len(exact)} {exact}; the honest params' norms spread "
+          f"{spread:.3e} relative")
+    if record.get("rejected", {}).get(bad) != "INVALID_RANGE":
+        fail(f"(o) z-score on: the NaN client was not rejected as out of range: {record}")
+    if record["status"] == "COMPLETED":
+        check_fedavg(torch, card, "(o) z-score on", published(run, 0, torch),
+                     [entries[c] for c in sorted(entries)
+                      if c not in record["rejected"]], PLAIN_NETWORK_TOL)
+
+    def byzantine(rnd, local):
+        return {k: v - WIRE_BYZANTINE_SHIFT for k, v in local.items()}
+
+    for method, want_launches in (("trimmed_mean", {}),
+                                  ("multi_krum", {"weighted_mean_flat": 1})):
+        run = run_wire(torch, ops, card, f"(o) robust {method}", setup, rounds=1,
+                       round_kwargs=dict(min_clients=n, round_timeout_s=120.0),
+                       coordinator_kwargs=dict(robust=RobustAggregationConfig(
+                           method=method, trim_k=1)),
+                       poison=byzantine, want=want_launches)
+        add_launches(totals, run["grew"])
+        record = run["coordinator"].history[0]
+        if record["status"] != "COMPLETED":
+            fail(f"(o) robust {method}: {record}")
+        entries = run["trained"][0]
+        x = torch.stack([ravel(entries[c][1]).double().cpu() for c in sorted(entries)])
+        if method == "trimmed_mean":
+            ref = torch.sort(x, dim=0).values[1:-1].mean(0)
+        else:
+            d2 = torch.cdist(x, x).square()
+            scores = torch.sort(d2, dim=1).values[:, 1:1 + n - 1 - 2].sum(1)
+            keep = torch.argsort(scores, stable=True)[: n - 1]
+            ref = x[keep].mean(0)
+            if sorted(keep.tolist()) != list(range(n - 1)):
+                fail(f"(o) multi_krum: the float64 selection {keep.tolist()} keeps the "
+                     "Byzantine client")
+        agg = published(run, 0, torch)
+        err = float((agg - ref).abs().max())
+        honest_gap = float((agg - x[: n - 1].mean(0)).abs().max())
+        print(f"[{card}] (o) robust {method}: max|aggregate - float64 {method}| = "
+              f"{err:.3e} (tolerance {PLAIN_NETWORK_TOL}); max|aggregate - honest "
+              f"mean| = {honest_gap:.3e}; metrics {record['metrics']}")
+        if not (torch.isfinite(agg).all() and err <= PLAIN_NETWORK_TOL):
+            fail(f"(o) robust {method}: aggregate differs from float64 by {err}")
+    return totals
+
+
+def timed_calls(module, names, log: dict):
+    """Wrap ``module``'s functions ``names`` so each call's seconds and, for bytes
+    results, its length land in ``log[name]``; returns the originals to restore."""
+    originals = {name: getattr(module, name) for name in names}
+    for name, fn in originals.items():
+        def wrapper(*a, _fn=fn, _name=name, **k):
+            t0 = time.perf_counter()
+            out = _fn(*a, **k)
+            log.setdefault(_name, []).append(
+                (time.perf_counter() - t0, len(out) if isinstance(out, bytes) else None))
+            return out
+
+        setattr(module, name, wrapper)
+    return originals
+
+
+def phase_wire_compressed(torch, ops, card: str, setup) -> dict[str, int]:
+    """(p): 2 rounds of q8-delta and 3 of topk8-delta (fraction 0.05) submissions; each
+    aggregate against the float64 weighted FedAvg of the server's reconstructions,
+    with the bytes on the wire per update and the encode and decode seconds."""
+    from nanofed_tpu_torch.communication import encode_params
+    from nanofed_tpu_torch.communication import http_client, http_server
+    from nanofed_tpu_torch.utils.trees import ravel
+
+    n = SECURE_CLIENTS
+    totals: dict[str, int] = {}
+    npz_bytes = len(encode_params({k: v.cpu() for k, v in setup[0].items()}))
+    for encoding, rounds, encoder in (("q8-delta", 2, "encode_delta_q8"),
+                                      ("topk8-delta", 3, "encode_delta_topk8")):
+        log: dict = {}
+        decoder = "reconstruct_q8" if encoding == "q8-delta" else "reconstruct_topk8"
+        restore = [(http_client, timed_calls(http_client, [encoder], log)),
+                   (http_server, timed_calls(http_server, [decoder], log))]
+        try:
+            run = run_wire(torch, ops, card, f"(p) {encoding}", setup, rounds=rounds,
+                           round_kwargs=dict(min_clients=n, round_timeout_s=120.0),
+                           client_kwargs=lambda c, e=encoding: dict(
+                               update_encoding=e, topk_fraction=TOPK_FRACTION),
+                           want={"weighted_mean_flat": rounds})
+        finally:
+            for module, originals in restore:
+                for name, fn in originals.items():
+                    setattr(module, name, fn)
+        add_launches(totals, run["grew"])
+        for r in range(rounds):
+            reconstructed = run["drained"][r]
+            entries = [(float(u.metrics["num_samples"]), u.params)
+                       for u in sorted(reconstructed, key=lambda u: u.client_id)]
+            check_fedavg(torch, card, f"(p) {encoding} round {r} (server reconstructions)",
+                         published(run, r, torch), entries, PLAIN_NETWORK_TOL)
+            trained = run["trained"][r]
+            gap = max(float((ravel(u.params).double() - ravel(trained[u.client_id][1])
+                             .double().cpu()).abs().max()) for u in reconstructed)
+            print(f"[{card}] (p) {encoding} round {r}: max|reconstruction - client "
+                  f"params| = {gap:.3e}")
+        enc = log.get(encoder, [])
+        dec = log.get(decoder, [])
+        sizes = [b for _, b in enc]
+        print(f"[{card}] (p) {encoding}: bytes per update npz={npz_bytes} "
+              f"{encoding}={statistics.mean(sizes):.0f} (min {min(sizes)}, max "
+              f"{max(sizes)}, x{npz_bytes / statistics.mean(sizes):.2f} fewer); client "
+              f"encode s mean={statistics.mean(s for s, _ in enc):.6f} max="
+              f"{max(s for s, _ in enc):.6f} over {len(enc)}; server decode s mean="
+              f"{statistics.mean(s for s, _ in dec):.6f} max={max(s for s, _ in dec):.6f} "
+              f"over {len(dec)} (both in the run, beside 8 clients training on the event "
+              f"loop)")
+        # The same work once more with the host otherwise idle: client_0's last update.
+        last = max(run["trained"])
+        local = {k: v.cpu() for k, v in run["trained"][last]["client_0"][1].items()}
+        base = {k: v.cpu() for k, v in run["publishes"][last].items()}
+        delta = {k: local[k] - base[k] for k in local}
+        encode = getattr(http_client, encoder)
+        kwargs = {"fraction": TOPK_FRACTION} if encoding == "topk8-delta" else {}
+        t0 = time.perf_counter()
+        body = encode(delta, **kwargs)
+        t1 = time.perf_counter()
+        getattr(http_server, decoder)(base, body)
+        t2 = time.perf_counter()
+        encode_params(local)
+        t3 = time.perf_counter()
+        print(f"[{card}] (p) {encoding} alone: encode {t1 - t0:.6f} s, server "
+              f"reconstruction {t2 - t1:.6f} s ({len(body)} bytes); npz encode "
+              f"{t3 - t2:.6f} s")
+    return totals
+
+
+def fedbuff_reference(torch, run, record, versions, trained):
+    """One FedBuff aggregation recomputed in float64 from the updates its drain
+    reports: ``v + lr/K Σ (1+τ)^-α (params_i - base_i)``."""
+    from nanofed_tpu_torch.utils.trees import ravel
+
+    v = record["version"] - 1
+    out = versions[v].clone()
+    k = record["num_clients"]
+    for cid, tau in zip(record["drained"], record["staleness"]):
+        base = versions[v - tau]
+        params = ravel(trained[v - tau][cid][1]).double().cpu()
+        out += (1.0 + tau) ** -0.5 / k * (params - base)
+    return out
+
+
+def phase_wire_fedbuff(torch, ops, card: str, setup) -> dict[str, int]:
+    """(q): FedBuff (K=4, window 4) over 8 clients of staggered delay, 4 aggregations,
+    with the list buffer and with ``IngestConfig()`` (256 slots on the card); each
+    aggregation against its float64 recomputation, the list run's drains replayed
+    through an ingest buffer; then 2 sync rounds on the ingest buffer."""
+    import numpy as np
+
+    from nanofed_tpu_torch.communication import fedbuff_combine
+    from nanofed_tpu_torch.ingest import DeviceIngestBuffer, IngestConfig, flatten_params
+    from nanofed_tpu_torch.utils.trees import ravel
+
+    n = SECURE_CLIENTS
+    totals: dict[str, int] = {}
+    delays = [FEDBUFF_DELAY_S * c for c in range(n)]
+    runs = {}
+    for name, ingest in (("list", None), ("ingest", IngestConfig())):
+        drain_ms: list[float] = []
+        server_kwargs = dict(ingest=ingest, device="cuda") if ingest is not None else {}
+        run = run_wire(torch, ops, card, f"(q) FedBuff {name} buffer", setup,
+                       rounds=FEDBUFF_AGGREGATIONS, server_kwargs=server_kwargs,
+                       round_kwargs=dict(**FEDBUFF, round_timeout_s=120.0), delays=delays)
+        add_launches(totals, run["grew"])
+        history = run["coordinator"].history
+        if [h["status"] for h in history] != ["COMPLETED"] * FEDBUFF_AGGREGATIONS:
+            fail(f"(q) {name}: {history}")
+        versions = {v: ravel(p).double() for v, p in run["publishes"].items()}
+        for record in history:
+            if record["num_skipped_out_of_window"]:
+                fail(f"(q) {name}: a drain skipped stale bases: {record}")
+            ref = fedbuff_reference(torch, run, record, versions, run["trained"])
+            err = float((versions[record["version"]] - ref).abs().max())
+            print(f"[{card}] (q) {name} aggregation {record['aggregation']} -> version "
+                  f"{record['version']}: drained {record['drained']} staleness "
+                  f"{record['staleness']} buffered_at_drain {record['buffered_at_drain']}; "
+                  f"max|aggregate - float64| = {err:.3e} (tolerance {FEDBUFF_TOL})")
+            if err > FEDBUFF_TOL:
+                fail(f"(q) {name}: aggregation {record['aggregation']} differs by {err}")
+        if ingest is not None:
+            buffer = run["server"].ingest_pipeline.buffer
+            print(f"[{card}] (q) ingest buffer: {buffer.capacity} slots x {buffer.flat_size} "
+                  f"= {buffer.device_bytes} bytes on the card")
+        runs[name] = run
+        print(f"[{card}] (q) {name}: aggregation latency s "
+              f"{run['coordinator'].ledger.durations_s}")
+
+    # The list run's drains replayed through an ingest buffer on the card: the same
+    # drained set gives the same params within INGEST_TOL.
+    run = runs["list"]
+    template = {k: v.cpu() for k, v in setup[0].items()}
+    buffer = DeviceIngestBuffer(template, IngestConfig().capacity, device="cuda")
+    bases = run["publishes"]
+    worst = 0.0
+    for record, taken in zip(run["coordinator"].history, run["drained"]):
+        v = record["version"] - 1
+        for u in taken:
+            buffer.offer(flatten_params(u.params) - flatten_params(bases[u.round_number]),
+                         client_id=u.client_id, round_number=u.round_number, weight=1.0)
+        base_flat = flatten_params(bases[v])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        buffer._flush()  # the staged rows' copy alone; the drain below only multiplies
+        torch.cuda.synchronize()
+        flush_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        out, _, _ = buffer.drain_fedbuff(len(taken), v, list(bases), base_flat)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        combined, _ = fedbuff_combine(bases[v], taken, bases, v, device="cuda")
+        torch.cuda.synchronize()
+        combine_ms = (time.perf_counter() - t0) * 1e3
+        gap = float((out - ravel(combined)).abs().max())
+        worst = max(worst, gap)
+        print(f"[{card}] (q) replay of aggregation {record['aggregation']} ({len(taken)} "
+              f"updates): staged rows copied in {flush_ms:.3f} ms, then the drain "
+              f"{ms:.3f} ms (base copied in, one product over 256 rows, freed rows "
+              f"zeroed), "
+              f"fedbuff_combine {combine_ms:.3f} ms (host bases and updates copied to the "
+              f"card), max|drain - fedbuff_combine| = {gap:.3e}")
+    if worst > INGEST_TOL:
+        fail(f"(q) the ingest drain differs from fedbuff_combine by {worst}")
+    del buffer
+
+    run = run_wire(torch, ops, card, "(q) sync rounds on the ingest buffer", setup,
+                   rounds=2, server_kwargs=dict(ingest=IngestConfig(), device="cuda"),
+                   round_kwargs=dict(min_clients=n, round_timeout_s=120.0))
+    add_launches(totals, run["grew"])
+    for r, record in enumerate(run["coordinator"].history):
+        if record["status"] != "COMPLETED" or not record.get("ingest"):
+            fail(f"(q) sync ingest round {r}: {record}")
+        check_fedavg(torch, card, f"(q) sync ingest round {r}", published(run, r, torch),
+                     list(run["trained"][r].values()), PLAIN_NETWORK_TOL)
+    print(f"[{card}] (q) sync ingest: round latency s "
+          f"{run['coordinator'].ledger.durations_s}")
+    return totals
+
+
+def phase_wire_signed(torch, ops, card: str, setup) -> dict[str, int]:
+    """(r): signed rounds, every client with a ``SecurityManager`` and the server with
+    ``require_signatures=True``: one npz round and one q8 round, an unregistered
+    client's update refused with 403 and absent from the aggregate; then one signed
+    masked round on the ``cuda`` backend (B5, B7, B6)."""
+    from nanofed_tpu_torch import communication as comm
+    from nanofed_tpu_torch.security import signing
+    from nanofed_tpu_torch.security.secure_agg import SecureAggregationConfig
+
+    n = SECURE_CLIENTS
+    totals: dict[str, int] = {}
+    t0 = time.perf_counter()
+    managers = [signing.SecurityManager() for _ in range(n + 1)]
+    keygen_s = (time.perf_counter() - t0) / (n + 1)
+    keys = {f"client_{c}": managers[c].get_public_key() for c in range(n)}
+    intruder_key = managers[n]
+    refused: list[int] = []
+
+    async def intruder(url):
+        """A client whose key is not registered: fetch, submit, expect 403."""
+        import base64
+
+        import aiohttp
+
+        async with comm.HTTPClient(url, "intruder", timeout_s=120,
+                                   security_manager=intruder_key) as client:
+            for _ in range(2000):
+                try:
+                    params, rnd, _ = await client.fetch_global_model(like=setup[0])
+                    break
+                except Exception:
+                    await asyncio.sleep(0.01)
+            body = comm.encode_params(params)
+            signature = intruder_key.sign_update(params, "intruder", rnd, "{}")
+            async with aiohttp.ClientSession() as session:
+                async with session.post(url + "/update", data=body, headers={
+                        "X-NanoFed-Client": "intruder", "X-NanoFed-Round": str(rnd),
+                        "X-NanoFed-Signature": base64.b64encode(signature).decode()}) as r:
+                    refused.append(r.status)
+
+    log: dict = {}
+    restore = timed_calls(signing, ["update_signing_bytes", "verify_update_signature"], log)
+    sign_s: list[float] = []
+    originals = [m.sign_update for m in managers]
+    for m in managers:
+        def sign(*a, _fn=m.sign_update, **k):
+            t = time.perf_counter()
+            out = _fn(*a, **k)
+            sign_s.append(time.perf_counter() - t)
+            return out
+
+        m.sign_update = sign
+    try:
+        for encoding in ("npz", "q8-delta"):
+            refused.clear()
+            run = run_wire(torch, ops, card, f"(r) signed {encoding}", setup, rounds=1,
+                           server_kwargs=dict(require_signatures=True, client_keys=keys),
+                           round_kwargs=dict(min_clients=n, round_timeout_s=120.0),
+                           client_kwargs=lambda c, e=encoding: dict(
+                               update_encoding=e, security_manager=managers[c]),
+                           extra=intruder, want={"weighted_mean_flat": 1})
+            add_launches(totals, run["grew"])
+            record = run["coordinator"].history[0]
+            names = {u.client_id for u in run["drained"][0]}
+            print(f"[{card}] (r) signed {encoding}: {record['status']} "
+                  f"{record['num_clients']} clients; intruder answered {refused}")
+            if (record["status"] != "COMPLETED" or refused != [403] or "intruder" in names
+                    or len(names) != n):
+                fail(f"(r) signed {encoding}: {record}, intruder {refused}, drained {names}")
+            entries = [(float(u.metrics["num_samples"]), u.params)
+                       for u in sorted(run["drained"][0], key=lambda u: u.client_id)]
+            check_fedavg(torch, card, f"(r) signed {encoding}", published(run, 0, torch),
+                         entries, PLAIN_NETWORK_TOL)
+    finally:
+        for name, fn in restore.items():
+            setattr(signing, name, fn)
+        for m, fn in zip(managers, originals):
+            m.sign_update = fn
+    verify = log.get("verify_update_signature", [])
+    canon = log.get("update_signing_bytes", [])
+    print(f"[{card}] (r) signing per update: key generation {keygen_s:.6f} s a client; "
+          f"sign (canonical bytes, SHA-256, RSA-2048) mean {statistics.mean(sign_s):.6f} s "
+          f"over {len(sign_s)}; server verify mean "
+          f"{statistics.mean(s for s, _ in verify):.6f} s over {len(verify)}; canonical "
+          f"bytes alone mean {statistics.mean(s for s, _ in canon):.6f} s "
+          f"({canon[0][1]} bytes; all in the run, beside 8 clients training on the event "
+          f"loop)")
+    params = {k: v.cpu() for k, v in run["drained"][0][0].params.items()}
+    t0 = time.perf_counter()
+    signature = managers[0].sign_update(params, "client_0", 0, "{}")
+    t1 = time.perf_counter()
+    ok = signing.verify_update_signature(params, "client_0", 0, "{}", signature,
+                                         keys["client_0"])
+    t2 = time.perf_counter()
+    signing.canonical_bytes(params)
+    t3 = time.perf_counter()
+    print(f"[{card}] (r) alone: sign {t1 - t0:.6f} s, verify {t2 - t1:.6f} s (ok={ok}), "
+          f"canonical bytes {t3 - t2:.6f} s")
+    if not ok:
+        fail("(r) a signature made on the card's host does not verify")
+
+    secure = SecureAggregationConfig(min_clients=n)
+    run = run_wire(torch, ops, card, "(r) signed masked round, cuda backend", setup, rounds=1,
+                   server_kwargs=dict(require_signatures=True, client_keys=keys),
+                   round_kwargs=dict(min_clients=n, round_timeout_s=120.0),
+                   client_kwargs=lambda c: dict(security_manager=managers[c]), secure=secure,
+                   want={"quantize_u32": n, "add_mask": n, "dequantize_u32": 1})
+    add_launches(totals, run["grew"])
+    record = run["coordinator"].history[0]
+    if record["status"] != "COMPLETED":
+        fail(f"(r) signed masked round: {record}")
+    check_fedavg(torch, card, "(r) signed masked round", published(run, 0, torch),
+                 list(run["trained"][0].values()), SECURE_TOL)
+    return totals
+
+
+def phase_wire(torch, ops, card: str) -> dict[str, int]:
+    """(o)-(r): the network mode's update pipeline over (h)'s cohort."""
+    import logging
+
+    from nanofed_tpu_torch.utils.logger import LogConfig, Logger
+
+    Logger().configure(LogConfig(level=logging.WARNING))
+    setup = wire_setup(torch)
+    totals: dict[str, int] = {}
+    for phase in (phase_wire_validation, phase_wire_compressed, phase_wire_fedbuff,
+                  phase_wire_signed):
+        t0 = time.perf_counter()
+        add_launches(totals, phase(torch, ops, card, setup))
+        print(f"[{card}] {phase.__name__}: {time.perf_counter() - t0:.3f} s")
+    return totals
 
 
 def step_launches(chunk, rows: int) -> dict[str, int]:
@@ -2764,8 +3371,10 @@ def main() -> None:
             torch, ops, run_experiment, card, Path(tmp))
         phase_trainer(torch, ops, card, Path(tmp), scaffold_params, population)
         del scaffold_params, population
+    wire_counts = phase_wire(torch, ops, card)
     counts = {k: counts[k] + secure_counts[k] + tuned_counts[k] + resume_counts[k]
-              + network_resume_counts[k] + dp_counts[k] + scaffold_counts[k] for k in counts}
+              + network_resume_counts[k] + dp_counts[k] + scaffold_counts[k]
+              + wire_counts.get(k, 0) for k in counts}
     print(f"kernels: {json.dumps(counts)}")
     missing = [k for k, v in counts.items() if v == 0]
     if missing:

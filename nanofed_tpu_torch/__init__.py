@@ -8,8 +8,10 @@ It runs the synchronous simulated FedAvg round on one GPU:
 ``experiments.run_experiment`` -> ``orchestration.Coordinator`` ->
 ``parallel.round_step`` -> ``trainer.local`` -> the weighted reduce and row norms,
 which run in hand-written CUDA kernels (``ops/csrc``); and the network mode
-(``communication``) with secure aggregation (``security.secure_agg``), whose
-fixed-point quantize, dequantize and mask kernels run on the card too; and the
+(``communication``): validated, robust, compressed (q8/topk8) and signed
+(``security.signing``) rounds, async FedBuff with the device ingest buffer
+(``ingest``), and secure aggregation (``security.secure_agg``), whose fixed-point
+quantize, dequantize and mask kernels run on the card too; and the
 autotuned run (``tuning``, ``observability.profiling``): a sweep that profiles each
 candidate round, the aggregation-epilogue table with the int8 dequant-accumulate
 kernel, and the online retuner.

@@ -1,6 +1,8 @@
-"""The network mode (counterpart of ``nanofed_tpu/communication/``): binary npz
-payloads over HTTP, the round engine, and secure aggregation over the wire.  Needs
-``aiohttp`` to build a server or client, not to import; the codec is numpy only."""
+"""The network mode (counterpart of ``nanofed_tpu/communication/``): binary npz and
+compressed (q8, topk8) payloads over HTTP, the round engine (sync rounds, validated,
+robust and secure; async FedBuff), signatures and secure aggregation over the wire.
+Needs ``aiohttp`` to build a server or client, not to import; the codec is numpy
+only."""
 
 from nanofed_tpu_torch.communication.codec import (
     ENCODING_Q8_DELTA,
@@ -23,6 +25,7 @@ from nanofed_tpu_torch.communication.http_server import HTTPServer, ServerEndpoi
 from nanofed_tpu_torch.communication.network_coordinator import (
     NetworkCoordinator,
     NetworkRoundConfig,
+    fedbuff_combine,
     stack_model_updates,
 )
 from nanofed_tpu_torch.communication.retry import (
@@ -57,6 +60,7 @@ __all__ = [
     "encode_delta_q8",
     "encode_delta_topk8",
     "encode_params",
+    "fedbuff_combine",
     "free_port",
     "parse_retry_after",
     "reconstruct_q8",

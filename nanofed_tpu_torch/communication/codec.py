@@ -94,7 +94,8 @@ def encode_delta_q8(delta: Params, seed: int | None = None) -> bytes:
 
 def _to_template(arrays: dict[str, np.ndarray], like: Params, source: str) -> Params:
     tensors = {
-        name: torch.from_numpy(arr).to(like[name].dtype if name in like else torch.float32)
+        name: torch.from_numpy(np.asarray(arr)).to(like[name].dtype if name in like
+                                                   else torch.float32)
         for name, arr in arrays.items()
     }
     try:
@@ -131,7 +132,8 @@ def decode_delta_q8(payload: bytes, like: Params) -> Params:
 def _add(base: Params, delta: Params) -> Params:
     """``base + delta`` in numpy float32 (the arithmetic client and server share, so
     a signature over the reconstruction composes); float32 CPU tensors."""
-    return {name: torch.from_numpy(_np32(g) + _np32(delta[name])) for name, g in base.items()}
+    return {name: torch.from_numpy(np.asarray(_np32(g) + _np32(delta[name])))
+            for name, g in base.items()}
 
 
 def reconstruct_q8(base: Params, payload: bytes) -> Params:

@@ -7,11 +7,14 @@ share exchange, unmask reveals, masked submissions) and polls server status.  Th
 protocol is the JAX package's, so this client federates against either package's
 server.
 
-Later slices bring the rest of the JAX client: compressed ``q8-delta``/``topk8-delta``
-submissions, update signatures (``security_manager``), client wire metrics
-(``registry``) and fault-injection hooks (``wire_filter``); setting one raises
-``NotImplementedError`` naming its slice.  ``aiohttp`` is needed to open a client,
-not to import this module.
+``update_encoding="q8-delta"`` or ``"topk8-delta"`` submits the round's delta against
+the fetched global, compressed by the codec in the JAX package's numpy float32
+arithmetic, so both packages send the same bytes for the same delta and seed; topk8
+keeps the un-sent tail for error feedback.  ``security_manager`` signs every update
+(over what the server will reconstruct) and every secure-aggregation body.  Client
+wire metrics (``registry``) and fault-injection hooks (``wire_filter``) come with
+later items; setting one raises ``NotImplementedError`` naming its item.  ``aiohttp``
+is needed to open a client, not to import this module.
 """
 
 from __future__ import annotations
@@ -25,12 +28,25 @@ from typing import Any
 
 import numpy as np
 
-from nanofed_tpu_torch.communication.codec import decode_params, encode_params
+import torch
+
+from nanofed_tpu_torch.communication.codec import (
+    ENCODING_Q8_DELTA,
+    ENCODING_TOPK8,
+    decode_delta_topk8,
+    decode_params,
+    encode_delta_q8,
+    encode_delta_topk8,
+    encode_params,
+    reconstruct_q8,
+)
 from nanofed_tpu_torch.communication.http_server import (
     HEADER_CLIENT,
+    HEADER_ENCODING,
     HEADER_METRICS,
     HEADER_ROUND,
     HEADER_SECAGG,
+    HEADER_SIGNATURE,
     HEADER_STATUS,
     HEADER_SUBMIT,
     refuse_later_slice_options,
@@ -46,11 +62,19 @@ from nanofed_tpu_torch.core.types import Params
 from nanofed_tpu_torch.utils.clock import SYSTEM_CLOCK, Clock
 from nanofed_tpu_torch.utils.logger import Logger
 
+def _np32(leaf: Any) -> np.ndarray:
+    """A leaf as host float32 numpy (the arithmetic of the compressed paths)."""
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach().cpu().to(torch.float32).numpy()
+    return np.asarray(leaf, np.float32)
+
+
+def _tensors(arrays: dict[str, np.ndarray]) -> Params:
+    return {name: torch.from_numpy(np.asarray(a)) for name, a in arrays.items()}
+
+
 #: Client options of later slices, with the JAX defaults (accepted).
 LATER_SLICE_OPTIONS: dict[str, tuple[Any, str]] = {
-    "update_encoding": ("npz", "q8/topk8 submissions (network-ingest slice)"),
-    "topk_fraction": (0.05, "q8/topk8 submissions (network-ingest slice)"),
-    "security_manager": (None, "update signatures (security/signing slice)"),
     "registry": (None, "client wire metrics (observability slice, queue A item 19)"),
     "wire_filter": (None, "fault injection (faults slice, queue A item 17)"),
 }
@@ -103,22 +127,40 @@ class HTTPClient:
         client_id: str,
         endpoints: ClientEndpoints | None = None,
         timeout_s: float = 300.0,
+        security_manager: Any | None = None,
+        update_encoding: str = "npz",
+        topk_fraction: float = 0.05,
         retry: RetryPolicy | None = None,
         clock: Clock | None = None,
         **later_slice_options: Any,
     ) -> None:
-        """``retry`` makes model fetches and update submits survive transient failures
-        (connection errors, 429 with its ``Retry-After`` as a floor, 502/503/504) with
-        exponential backoff and jitter; every logical submit carries an idempotency
-        key, so the server folds a retried submit at most once.  ``clock`` injects
-        the time source for backoff sleeps and poll deadlines."""
+        """``security_manager`` (a ``security.signing.SecurityManager``) signs every
+        update and secure-aggregation body; pair it with a server built with
+        ``require_signatures=True`` and this client's public key.
+        ``update_encoding`` is ``"npz"`` (full params), ``"q8-delta"`` or
+        ``"topk8-delta"`` (the top ``topk_fraction`` of each leaf, with error
+        feedback); the compressed ones need the round's global fetched through this
+        client, the delta's base.  ``retry`` makes model fetches and update submits
+        survive transient failures (connection errors, 429 with its ``Retry-After``
+        as a floor, 502/503/504) with exponential backoff and jitter; every logical
+        submit carries an idempotency key, so the server folds a retried submit at
+        most once.  ``clock`` injects the time source for backoff sleeps and poll
+        deadlines."""
         refuse_later_slice_options("HTTPClient", later_slice_options, LATER_SLICE_OPTIONS)
+        if update_encoding not in ("npz", ENCODING_Q8_DELTA, ENCODING_TOPK8):
+            raise NanoFedError(f"unknown update_encoding {update_encoding!r} (choose 'npz', "
+                               f"'{ENCODING_Q8_DELTA}', or '{ENCODING_TOPK8}')")
+        if not 0.0 < topk_fraction <= 1.0:
+            raise NanoFedError("topk_fraction must be in (0, 1]")
         require_aiohttp()
         import aiohttp
 
         self.server_url = server_url.rstrip("/")
         self.client_id = client_id
         self.endpoints = endpoints or ClientEndpoints()
+        self.security_manager = security_manager
+        self.update_encoding = update_encoding
+        self.topk_fraction = topk_fraction
         self.retry = retry
         self._clock = clock or SYSTEM_CLOCK
         self._retry_rng = retry.rng_for(client_id) if retry is not None else None
@@ -127,7 +169,15 @@ class HTTPClient:
         self._log = Logger()
         self.current_round = 0
         self._submit_seq = 0  # idempotency-key counter (one per LOGICAL submit)
+        self._last_update_post: tuple[str, bytes, dict[str, str]] | None = None
         self._secagg_session = ""  # cohort session nonce, cached from the roster
+        self._last_global: Params | None = None  # the compressed delta's base
+        self._residual: dict[str, np.ndarray] | None = None  # topk8 error feedback
+        # After a rejected topk8 submit the whole delta is folded into _residual;
+        # _pending_base is the local params that fold covered, so a retry measures only
+        # the training since (zero for an identical retry) instead of counting the
+        # round's delta twice.
+        self._pending_base: Params | None = None
 
     @property
     def secagg_session(self) -> str:
@@ -227,7 +277,13 @@ class HTTPClient:
         self.current_round = round_number
         if resp_headers.get(HEADER_STATUS) == "terminated":
             return None, round_number, False
-        return decode_params(payload, like=like), round_number, True
+        params = decode_params(payload, like=like)
+        if self.update_encoding != "npz":
+            # The delta's base; a fresh base resets the retry bookkeeping (a rejected
+            # submit's mass is already in _residual, which rides the next delta).
+            self._last_global = params
+            self._pending_base = None
+        return params, round_number, True
 
     def _submit_headers(self, metrics: dict[str, Any]) -> dict[str, str]:
         self._submit_seq += 1
@@ -238,16 +294,74 @@ class HTTPClient:
             HEADER_SUBMIT: f"{self.client_id}:{self.current_round}:{self._submit_seq}",
         }
 
+    def _encode_delta(self, params: Params) -> tuple[bytes, Params, Any, Any]:
+        """``(body, signed_params, delta, staged_residual)`` of a compressed submit, in
+        the JAX client's numpy float32 arithmetic.  ``signed_params`` is what the
+        server will reconstruct; topk8's ``staged_residual`` (the un-sent tail) is
+        committed only once the server accepts."""
+        if self._last_global is None:
+            raise NanoFedError(
+                f"{self.update_encoding} encoding needs the round's global model as its "
+                "base: call fetch_global_model on this client before submit_update")
+        base = self._pending_base if self._pending_base is not None else self._last_global
+        delta = {name: _np32(p) - _np32(base[name]) for name, p in params.items()}
+        if self.update_encoding == ENCODING_Q8_DELTA:
+            body = encode_delta_q8(_tensors(delta))
+            return body, reconstruct_q8(self._last_global, body), delta, None
+        if self._residual is not None:
+            delta = {name: d + self._residual[name] for name, d in delta.items()}
+        body = encode_delta_topk8(_tensors(delta), self.topk_fraction)
+        sent = {name: _np32(s) for name, s in
+                decode_delta_topk8(body, like=self._last_global).items()}
+        staged = {name: d - sent[name] for name, d in delta.items()}
+        signed = _tensors({name: _np32(g) + sent[name]
+                           for name, g in self._last_global.items()})
+        return body, signed, delta, staged
+
     async def submit_update(self, params: Params, metrics: dict[str, Any]) -> bool:
-        """POST local training results (npz) for the current round: one LOGICAL submit
-        with a fresh idempotency key, retried under the ``retry`` policy."""
+        """POST local training results for the current round: one LOGICAL submit with
+        a fresh idempotency key, retried under the ``retry`` policy.  The body is the
+        npz params or the compressed delta; with a ``security_manager`` the signature
+        covers what the server will aggregate.  A rejected topk8 submit folds its
+        whole delta into the error-feedback residual."""
         self._require_session()
         url = self.server_url + self.endpoints.update
-        body, headers = encode_params(params), self._submit_headers(metrics)
+        headers = self._submit_headers(metrics)
+        delta = staged = None
+        if self.update_encoding == "npz":
+            body, signed = encode_params(params), params
+        else:
+            body, signed, delta, staged = self._encode_delta(params)
+            headers[HEADER_ENCODING] = self.update_encoding
+        if self.security_manager is not None:
+            signature = self.security_manager.sign_update(
+                signed, self.client_id, self.current_round, headers[HEADER_METRICS])
+            headers[HEADER_SIGNATURE] = base64.b64encode(signature).decode()
+        self._last_update_post = (url, body, dict(headers))
         status, _, _, message = await self._request_with_retries(
             "POST", url, data=body, headers=headers, endpoint="update")
         if status != 200:
             self._log.warning("update rejected (HTTP %d): %s", status, message)
+            if self.update_encoding == ENCODING_TOPK8:
+                # Nothing was applied server-side: the whole combined delta rides the
+                # next submit, measured from these params on.
+                self._residual, self._pending_base = delta, params
+            return False
+        if staged is not None:
+            self._residual, self._pending_base = staged, None
+        return True
+
+    async def resend_last_update(self) -> bool:
+        """Re-POST the exact bytes and headers (the same idempotency key) of the last
+        ``submit_update``: the duplicate a retry after a lost ACK makes.  The server
+        folds it at most once; the error-feedback state is untouched."""
+        if self._last_update_post is None:
+            raise NanoFedError("no update has been submitted yet")
+        url, body, headers = self._last_update_post
+        status, _, _, message = await self._request_with_retries(
+            "POST", url, data=body, headers=headers, endpoint="update")
+        if status != 200:
+            self._log.warning("duplicate update rejected (HTTP %d): %s", status, message)
             return False
         return True
 
@@ -264,6 +378,18 @@ class HTTPClient:
         body = json.dumps({"public_key": base64.b64encode(public_key).decode(),
                            "num_samples": num_samples, "backend": backend}).encode()
         headers = {HEADER_CLIENT: self.client_id, "Content-Type": "application/json"}
+        if self.security_manager is not None:
+            # Signed over the cohort's session nonce, which the roster endpoint gives.
+            try:
+                session = (await self._get_json(
+                    self.server_url + self.endpoints.secagg_roster, "secagg session fetch"
+                )).get("session", "")
+            except NanoFedError as e:
+                self._log.warning("%s", e)
+                return False
+            signature = self.security_manager.sign_enrollment(
+                self.client_id, public_key, num_samples, session, backend)
+            headers[HEADER_SIGNATURE] = base64.b64encode(signature).decode()
         return await self._post(self.server_url + self.endpoints.secagg_register, body,
                                 headers, "secagg registration")
 
@@ -313,10 +439,10 @@ class HTTPClient:
                                    "blobs": blobs}
         if self_seed_commitment is not None:
             payload["bh"] = base64.b64encode(self_seed_commitment).decode()
-        headers = {HEADER_CLIENT: self.client_id, HEADER_ROUND: str(round_number),
-                   "Content-Type": "application/json"}
-        return await self._post(self.server_url + self.endpoints.secagg_shares,
-                                json.dumps(payload).encode(), headers, "share deposit")
+        body = json.dumps(payload).encode()
+        headers = self._signed_body_headers("shares", body, round_number)
+        return await self._post(self.server_url + self.endpoints.secagg_shares, body,
+                                headers, "share deposit")
 
     async def fetch_secagg_inbox(
         self, round_number: int | None = None,
@@ -343,6 +469,18 @@ class HTTPClient:
                     f"({payload.get('deposited')}/{payload.get('expected')})")
             await self._clock.sleep(poll_interval_s)
 
+    def _signed_body_headers(self, kind: str, body: bytes, round_number: int
+                             ) -> dict[str, str]:
+        """Headers of a share deposit or unmask reveal, signed (with a
+        ``security_manager``) over the body, the cohort session and the round."""
+        headers = {HEADER_CLIENT: self.client_id, HEADER_ROUND: str(round_number),
+                   "Content-Type": "application/json"}
+        if self.security_manager is not None:
+            signature = self.security_manager.sign_secagg_body(
+                kind, body, self.client_id, f"{self._secagg_session}:{round_number}")
+            headers[HEADER_SIGNATURE] = base64.b64encode(signature).decode()
+        return headers
+
     async def poll_unmask_request(self) -> dict[str, Any] | None:
         """One poll of the unmask endpoint: the active request (round, dropped,
         survivors) or None."""
@@ -353,20 +491,25 @@ class HTTPClient:
     async def submit_unmask_reveals(self, round_number: int, reveals: dict[str, Any]) -> bool:
         """POST this survivor's unmask reveals (``secure_agg.build_unmask_reveals``,
         which refuses to reveal both secrets of one client)."""
-        headers = {HEADER_CLIENT: self.client_id, HEADER_ROUND: str(round_number),
-                   "Content-Type": "application/json"}
-        return await self._post(self.server_url + self.endpoints.secagg_unmask,
-                                json.dumps(reveals).encode(), headers, "unmask reveals")
+        body = json.dumps(reveals).encode()
+        headers = self._signed_body_headers("unmask", body, round_number)
+        return await self._post(self.server_url + self.endpoints.secagg_unmask, body,
+                                headers, "unmask reveals")
 
     async def submit_masked_update(self, masked: np.ndarray, metrics: dict[str, Any]) -> bool:
         """POST a pairwise-masked uint32 vector (``secure_agg.mask_update``) for the
         current round, as a compressed npz holding one ``masked`` array."""
         buf = io.BytesIO()
         np.savez_compressed(buf, masked=np.asarray(masked, np.uint32))
+        body = buf.getvalue()
         headers = self._submit_headers(metrics)
         headers[HEADER_SECAGG] = "masked"
-        return await self._post(self.server_url + self.endpoints.update, buf.getvalue(),
-                                headers, "masked update")
+        if self.security_manager is not None:
+            signature = self.security_manager.sign_masked_update(
+                body, self.client_id, self.current_round, headers[HEADER_METRICS])
+            headers[HEADER_SIGNATURE] = base64.b64encode(signature).decode()
+        return await self._post(self.server_url + self.endpoints.update, body, headers,
+                                "masked update")
 
     async def check_server_status(self) -> dict[str, Any]:
         """GET /status: round, buffered updates, whether training is active."""

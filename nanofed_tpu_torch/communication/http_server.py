@@ -16,33 +16,59 @@ refused with 409.  The port accepts ``host`` (numpy, interoperable with JAX part
 and ``cuda`` (the port's card kernels); ``device`` (the TPU kernel's stream, which the
 port cannot expand) is refused with 400.
 
-This slice serves the synchronous rounds.  The server options of later slices raise
-``NotImplementedError`` naming the slice (:data:`LATER_SLICE_OPTIONS`), and a
-``q8-delta``/``topk8-delta`` submission is refused with 400.  ``aiohttp`` is needed to
-build a server, not to import this module.
+The update pipeline is the JAX package's:
+
+* compressed submits (``X-NanoFed-Encoding: q8-delta`` or ``topk8-delta``) are
+  reconstructed against the base the client fetched, snapshotted under the lock
+  before the decode thread starts, in the codec's numpy float32 arithmetic (the
+  arithmetic the client signs); an unknown encoding is a 400;
+* ``staleness_window=W > 0`` is the asynchronous (FedBuff) protocol: an update based
+  on any of the last W published versions is accepted and kept across publishes,
+  one per client (the latest wins), and the round engine takes the K oldest;
+* ``require_signatures=True`` with ``client_keys`` (client id -> PEM) makes every
+  update, enrollment, share deposit, unmask reveal and masked vector carry an
+  RSA-PSS signature (``security.signing``); an unsigned or forged one is a 403 and
+  never reaches a buffer;
+* ``ingest=IngestConfig(...)`` switches plain submits to the device-resident buffer
+  (``nanofed_tpu_torch.ingest``) on ``device`` (default: the card): decoded deltas
+  are staged into a ``[capacity, P]`` buffer, a full buffer answers 429 +
+  Retry-After, and the round engine drains it with one batched product.
+
+The server options of later slices raise ``NotImplementedError`` naming their item
+(:data:`LATER_SLICE_OPTIONS`).  ``aiohttp`` is needed to build a server, not to
+import this module.
 """
 
 from __future__ import annotations
 
 import asyncio
 import base64
+import hashlib
 import io
 import json
 import math
 import secrets
 from collections import deque
 from dataclasses import dataclass
-from typing import Any, Callable, Iterable
+from typing import Any, Callable, Iterable, Mapping
 
 import numpy as np
 
-from nanofed_tpu_torch.communication.codec import decode_params, encode_params
+from nanofed_tpu_torch.communication.codec import (
+    ENCODING_Q8_DELTA,
+    ENCODING_TOPK8,
+    decode_params,
+    encode_params,
+    reconstruct_q8,
+    reconstruct_topk8,
+)
 from nanofed_tpu_torch.communication.transport import (
     HTTPTransport,
     read_body_bounded,
     require_aiohttp,
     web,
 )
+from nanofed_tpu_torch.core.device import DeviceLike, resolve_device
 from nanofed_tpu_torch.core.types import ModelUpdate, Params
 from nanofed_tpu_torch.security.secure_agg import check_backend
 from nanofed_tpu_torch.utils.dates import get_current_time
@@ -59,17 +85,14 @@ HEADER_CLIENT = "X-NanoFed-Client"
 HEADER_ROUND = "X-NanoFed-Round"
 HEADER_METRICS = "X-NanoFed-Metrics"
 HEADER_STATUS = "X-NanoFed-Status"
+HEADER_SIGNATURE = "X-NanoFed-Signature"  # base64 RSA-PSS signature (security.signing)
 HEADER_SECAGG = "X-NanoFed-SecAgg"  # "masked" flags a pairwise-masked uint32 payload
-HEADER_ENCODING = "X-NanoFed-Encoding"  # absent/"npz" = full params
+HEADER_ENCODING = "X-NanoFed-Encoding"  # absent/"npz" = full params; or q8/topk8 delta
 HEADER_SUBMIT = "X-NanoFed-Submit"  # idempotency key: one per LOGICAL submit
 
 #: Server options of later slices, with the JAX defaults (accepted).  Any other value
 #: raises NotImplementedError naming the slice.
 LATER_SLICE_OPTIONS: dict[str, tuple[Any, str]] = {
-    "ingest": (None, "the ingest pipeline (network-ingest slice)"),
-    "staleness_window": (0, "async/FedBuff federation (network-ingest slice)"),
-    "require_signatures": (False, "update signatures (security/signing slice)"),
-    "client_keys": (None, "update signatures (security/signing slice)"),
     "chaos": (None, "chaos hooks (faults slice, queue A item 17)"),
     "registry": (None, "/metrics and tracing (observability slice, queue A item 19)"),
     "tracer": (None, "/metrics and tracing (observability slice, queue A item 19)"),
@@ -103,6 +126,14 @@ def _error(message: str, status: int, **headers: str) -> web.Response:
                              headers=headers or None)
 
 
+def _signature(headers: Mapping[str, str]) -> bytes:
+    """The request's base64 signature header as bytes (b"" when absent or bad)."""
+    try:
+        return base64.b64decode(headers.get(HEADER_SIGNATURE, ""))
+    except Exception:
+        return b""
+
+
 @dataclass(frozen=True)
 class ServerEndpoints:
     model: str = "/model"
@@ -127,27 +158,51 @@ class HTTPServer:
         port: int = 8080,
         endpoints: ServerEndpoints | None = None,
         max_request_size: int = MAX_REQUEST_SIZE,
+        client_keys: Mapping[str, bytes] | None = None,
+        require_signatures: bool = False,
+        staleness_window: int = 0,
         read_timeout_s: float = 30.0,
+        ingest: Any | None = None,
+        device: DeviceLike = None,
         **later_slice_options: Any,
     ) -> None:
-        """``read_timeout_s`` bounds how long a request body may take to arrive (a
+        """``client_keys`` maps client id -> PEM public key; with
+        ``require_signatures`` every update and secure-aggregation body must carry a
+        valid signature from a registered client or it is refused with 403.
+        ``staleness_window=W > 0`` accepts updates on any of the last W published
+        versions (async FedBuff; the coordinator wires it).  ``ingest`` (an
+        ``ingest.IngestConfig``) buffers plain submits on ``device`` (default: the
+        card, which must be there; ``device`` is used by nothing else).
+        ``read_timeout_s`` bounds how long a request body may take to arrive (a
         stalled read is answered 408)."""
         refuse_later_slice_options("HTTPServer", later_slice_options, LATER_SLICE_OPTIONS)
         require_aiohttp()
+        if staleness_window < 0:
+            raise ValueError("staleness_window must be >= 0")
         if read_timeout_s <= 0:
             raise ValueError("read_timeout_s must be > 0")
         self.host = host
         self.port = port
         self.endpoints = endpoints or ServerEndpoints()
+        self.client_keys = dict(client_keys or {})
+        self.require_signatures = require_signatures
+        self.staleness_window = staleness_window
         self.read_timeout_s = read_timeout_s
+        self.ingest = ingest
+        # The ingest buffer's device, resolved now so a missing card fails at
+        # construction; the pipeline itself is built at the first publish (P).
+        self._ingest_device = resolve_device(device) if ingest is not None else None
+        self._ingest_pipeline: Any | None = None
         self._log = Logger()
         self._lock = asyncio.Lock()
-        self._seen_submits: dict[str, deque[str]] = {}
+        # client -> recent (submit key, fingerprint) pairs (see _submit_fingerprint)
+        self._seen_submits: dict[str, deque[tuple[str, str]]] = {}
         self._updates: dict[str, ModelUpdate] = {}
-        self._params: Params | None = None
+        self._params: Params | None = None  # host copy of the published model
         self._params_bytes: bytes | None = None
         self._param_count = 0
         self._round = 0
+        self._version_params: dict[int, Params] = {}  # async mode: the base window
         self._training_active = True
         # Secure aggregation: the roster (X25519 public key, sample count per client),
         # opened by the round engine, and a separate buffer for masked vectors.
@@ -195,16 +250,37 @@ class HTTPServer:
     # ------------------------------------------------------------------
 
     async def publish_model(self, params: Params, round_number: int) -> None:
-        """Set the global params served to clients and advance the round.  Buffered
-        plain and masked updates and the round's share state are dropped: a
-        straggler's masks are bound to the OLD round and would not cancel."""
-        payload = encode_params(params)
+        """Set the global params served to clients and advance the round.  Masked
+        updates and the round's share state are dropped (a straggler's masks are bound
+        to the OLD round and would not cancel); so are buffered plain updates in sync
+        mode.  In async mode the version joins the window and the buffer stays: a
+        straggler's update on an in-window version is still aggregatable."""
+        host = {name: leaf.detach().cpu() for name, leaf in params.items()}
+        payload = encode_params(host)
         async with self._lock:
-            self._params = params
+            self._params = host
             self._params_bytes = payload
-            self._param_count = sum(int(leaf.numel()) for leaf in params.values())
+            self._param_count = sum(int(leaf.numel()) for leaf in host.values())
             self._round = round_number
-            self._updates.clear()
+            if self.ingest is not None:
+                if self._ingest_pipeline is None:
+                    from nanofed_tpu_torch.ingest import IngestPipeline
+
+                    self._ingest_pipeline = IngestPipeline(host, self.ingest,
+                                                           device=self._ingest_device)
+                # The flat base window follows the same pruning rule as the version
+                # window below, so acceptance and reconstruction cannot disagree.
+                self._ingest_pipeline.note_version(round_number, host,
+                                                   window=self.staleness_window)
+                if self.staleness_window == 0:
+                    self._ingest_pipeline.clear()
+            if self.staleness_window > 0:
+                self._version_params[round_number] = host
+                floor = round_number - self.staleness_window
+                for old in [r for r in self._version_params if r < floor]:
+                    del self._version_params[old]
+            else:
+                self._updates.clear()
             self._masked_updates.clear()
             self._clear_round_shares_locked()
             self._unmask_request = None
@@ -217,7 +293,9 @@ class HTTPServer:
         self._round_share_senders.clear()
 
     def num_updates(self) -> int:
-        """Lock-free hint; the engine re-checks through :meth:`drain_updates`."""
+        """Lock-free hint; the engine re-checks through its drain."""
+        if self._ingest_pipeline is not None:
+            return self._ingest_pipeline.fill
         return len(self._updates)
 
     async def drain_updates(self) -> list[ModelUpdate]:
@@ -226,6 +304,42 @@ class HTTPServer:
             updates = list(self._updates.values())
             self._updates.clear()
         return updates
+
+    @property
+    def published_versions(self) -> dict[int, Params]:
+        """Async mode's version window (version -> host params): the one source of
+        which bases are still reconstructable and aggregatable."""
+        return dict(self._version_params)
+
+    async def take_updates(self, k: int) -> list[ModelUpdate]:
+        """Atomically take up to ``k`` buffered updates in arrival order, leaving the
+        rest buffered: a FedBuff step aggregates exactly K."""
+        async with self._lock:
+            keys = list(self._updates)[:k]
+            return [self._updates.pop(key) for key in keys]
+
+    async def drain_ingest_fedavg(self) -> tuple[Any | None, list[Any]]:
+        """Sync-round drain of the ingest buffer, one product against the current
+        round's base: ``(new_flat_params, slot_metas)``, ``(None, [])`` when empty."""
+        async with self._lock:
+            return self._ingest_pipeline.drain_fedavg(self._round)
+
+    async def drain_ingest_fedbuff(
+        self, k: int, current_version: int, staleness_exponent: float = 0.5,
+        server_lr: float = 1.0,
+    ) -> tuple[Any, list[Any], dict[str, Any]]:
+        """Async drain: one product over the K oldest buffered deltas (discounted,
+        out-of-window slots skipped) applied to the current version."""
+        async with self._lock:
+            return self._ingest_pipeline.drain_fedbuff(
+                k, current_version, staleness_exponent=staleness_exponent,
+                server_lr=server_lr)
+
+    @property
+    def ingest_pipeline(self) -> Any | None:
+        """The ingest pipeline once the first publish built it (None without
+        ``ingest=``)."""
+        return self._ingest_pipeline
 
     def stop_training(self) -> None:
         """Signal clients to stop polling."""
@@ -400,13 +514,31 @@ class HTTPServer:
                 content_type="application/json",
             ) from None
 
-    def _duplicate_submit(self, client_id: str, submit_id: str | None) -> bool:
-        return submit_id is not None and submit_id in self._seen_submits.get(client_id, ())
+    async def _offload(self, fn: Callable[..., Any], *args: Any) -> Any:
+        """One CPU-bound submit stage off the event loop: on the ingest pipeline's
+        bounded pool when there is one, else ``asyncio.to_thread``."""
+        if self._ingest_pipeline is not None:
+            return await self._ingest_pipeline.run_decode(fn, *args)
+        return await asyncio.to_thread(fn, *args)
 
-    def _record_submit_locked(self, client_id: str, submit_id: str | None) -> None:
+    def _submit_fingerprint(self, headers: Mapping[str, str]) -> str:
+        """What a duplicate must match beyond its idempotency key: on a signing server
+        the sha256 of the signature header (a retry re-sends it, a prober guessing the
+        key cannot), else nothing."""
+        if not self.require_signatures:
+            return ""
+        return hashlib.sha256(headers.get(HEADER_SIGNATURE, "").encode()).hexdigest()
+
+    def _duplicate_submit(self, client_id: str, submit_id: str | None,
+                          fingerprint: str) -> bool:
+        return (submit_id is not None
+                and (submit_id, fingerprint) in self._seen_submits.get(client_id, ()))
+
+    def _record_submit_locked(self, client_id: str, submit_id: str | None,
+                              fingerprint: str) -> None:
         if submit_id is not None:
             self._seen_submits.setdefault(
-                client_id, deque(maxlen=SUBMIT_KEY_WINDOW)).append(submit_id)
+                client_id, deque(maxlen=SUBMIT_KEY_WINDOW)).append((submit_id, fingerprint))
 
     def _duplicate_response(self, client_id: str) -> web.StreamResponse:
         self._log.info("duplicate submit from %s folded at most once", client_id)
@@ -417,8 +549,21 @@ class HTTPServer:
             "duplicate": True,
         })
 
+    def _round_acceptable(self, round_number: int) -> bool:
+        """Sync mode: exactly the current round.  Async mode: a version that was
+        published and is still in the window."""
+        if round_number == self._round:
+            return True
+        return self.staleness_window > 0 and round_number in self._version_params
+
+    def _round_rejection_message(self, round_number: int) -> str:
+        if self.staleness_window > 0:
+            return (f"update for round {round_number} is outside the staleness window "
+                    f"[{self._round - self.staleness_window}, {self._round}]")
+        return f"update for round {round_number}, server is on {self._round}"
+
     def _stale(self, round_number: int) -> web.Response:
-        return _error(f"update for round {round_number}, server is on {self._round}", 400)
+        return _error(self._round_rejection_message(round_number), 400)
 
     # ------------------------------------------------------------------
     # Handlers
@@ -434,6 +579,10 @@ class HTTPServer:
             body=self._params_bytes, content_type="application/octet-stream",
             headers={HEADER_STATUS: "training", HEADER_ROUND: str(self._round)},
         )
+
+    def _ingest_full(self) -> web.Response:
+        return _error(f"ingest buffer full ({self.ingest.capacity} slots); retry after "
+                      "backoff", 429, **{"Retry-After": "0.25"})
 
     async def _handle_submit_update(self, request: web.Request) -> web.StreamResponse:
         client_id = request.headers.get(HEADER_CLIENT)
@@ -452,58 +601,166 @@ class HTTPServer:
             return _error("no model published", 503)
         masked = request.headers.get(HEADER_SECAGG) == "masked"
         # Idempotent-submit dedupe first: a retry of an accepted submit may arrive
-        # after the round advanced.  The authoritative re-check runs under the lock.
+        # after the round advanced, and a 400 would make a topk8 client fold a delta
+        # the server already has.  The authoritative re-check runs under the lock.
         submit_id = request.headers.get(HEADER_SUBMIT)
-        if self._duplicate_submit(client_id, submit_id):
+        fingerprint = self._submit_fingerprint(request.headers)
+        if self._duplicate_submit(client_id, submit_id, fingerprint):
             return self._duplicate_response(client_id)
-        if round_number != self._round:
+        if not self._round_acceptable(round_number):
             return self._stale(round_number)
         encoding = request.headers.get(HEADER_ENCODING, "npz")
-        if encoding != "npz":
-            return _error(
-                f"encoding {encoding!r} is not accepted by this slice of "
-                "nanofed_tpu_torch (q8/topk8 submissions come with the network-ingest "
-                "slice); submit npz", 400)
         if masked:
+            if encoding != "npz":
+                return _error(f"encoding {encoding!r} cannot combine with SecAgg masked "
+                              "payloads", 400)
             return await self._handle_masked_update(request, client_id, round_number,
-                                                    metrics, submit_id)
+                                                    metrics, submit_id, fingerprint)
+        # A full ingest buffer sheds the submit before its body is read; a client
+        # whose slot would only be replaced (latest wins) is not shed.
+        if (self._ingest_pipeline is not None
+                and self._ingest_pipeline.fill >= self.ingest.capacity
+                and not self._ingest_pipeline.buffer.has_client(client_id)):
+            return self._ingest_full()
         body = await self._read_body(request)
+        if encoding not in ("npz", ENCODING_Q8_DELTA, ENCODING_TOPK8):
+            return _error(f"unknown encoding {encoding!r}", 400)
+        # The (round, base) pair is snapshotted under the lock before the decode
+        # thread starts: a publish during the decode must not hand the signature check
+        # a reconstruction against params the client never fetched.
         async with self._lock:
-            if round_number != self._round:
+            if not self._round_acceptable(round_number):
                 return self._stale(round_number)
-            base = self._params
+            base = (self._version_params.get(round_number) if self.staleness_window > 0
+                    else self._params)
+            base_flat = (self._ingest_pipeline.base_flat(round_number)
+                         if self._ingest_pipeline is not None else None)
+        if base is None:
+            return self._stale(round_number)
+
+        def decode() -> Params:
+            # Compressed deltas reconstruct base + delta in the codec's numpy float32
+            # arithmetic: what the client signed.
+            if encoding == ENCODING_TOPK8:
+                return reconstruct_topk8(base, body)
+            if encoding == ENCODING_Q8_DELTA:
+                return reconstruct_q8(base, body)
+            return decode_params(body, like=base)
+
         try:
-            params = await asyncio.to_thread(decode_params, body, base)
+            params = await self._offload(decode)
         except Exception as e:
             return _error(f"bad payload: {e}", 400)
+        if self.require_signatures:
+            verdict = await self._offload(self._verify_update_signature, client_id,
+                                          round_number, dict(request.headers), params)
+            if verdict is not None:
+                return verdict
+        if self._ingest_pipeline is not None:
+            return await self._ingest_buffer_update(client_id, round_number, metrics,
+                                                    submit_id, fingerprint, params, base_flat)
         async with self._lock:
-            if self._duplicate_submit(client_id, submit_id):
+            if self._duplicate_submit(client_id, submit_id, fingerprint):
                 return self._duplicate_response(client_id)
-            if round_number != self._round:
+            # In async mode the window may have moved during the decode.
+            if not self._round_acceptable(round_number):
                 return self._stale(round_number)
             self._updates[client_id] = ModelUpdate(
                 client_id=client_id, round_number=round_number, params=params,
                 metrics=metrics, timestamp=get_current_time().isoformat(),
             )
-            self._record_submit_locked(client_id, submit_id)
+            self._record_submit_locked(client_id, submit_id, fingerprint)
             accepted = len(self._updates)
         self._log.info("update from %s (round %d, %d buffered)", client_id, round_number,
                        accepted)
         return web.json_response(
             {"status": "success", "message": "update accepted", "update_id": client_id})
 
+    async def _ingest_buffer_update(
+        self, client_id: str, round_number: int, metrics: dict[str, Any],
+        submit_id: str | None, fingerprint: str, params: Params, base_flat: Any,
+    ) -> web.StreamResponse:
+        """The ingest tail of an admitted plain submit: flatten the decoded params into
+        a delta against the snapshotted base (on the pool) and offer it to the buffer
+        under the lock.  A full buffer is a 429 + Retry-After with the idempotency key
+        not recorded, so a retry lands later."""
+        if base_flat is None:
+            return self._stale(round_number)
+        from nanofed_tpu_torch.ingest import flatten_params
+
+        flat_delta = await self._offload(lambda: flatten_params(params) - base_flat)
+        async with self._lock:
+            if self._duplicate_submit(client_id, submit_id, fingerprint):
+                return self._duplicate_response(client_id)
+            if not self._round_acceptable(round_number):
+                return self._stale(round_number)
+            slot = self._ingest_pipeline.offer(flat_delta, client_id=client_id,
+                                               round_number=round_number, metrics=metrics)
+            if slot is not None:
+                self._record_submit_locked(client_id, submit_id, fingerprint)
+                buffered = self._ingest_pipeline.fill
+        if slot is None:
+            return self._ingest_full()
+        self._log.info("ingested update from %s (round %d, slot %d, %d buffered)",
+                       client_id, round_number, slot, buffered)
+        return web.json_response(
+            {"status": "success", "message": "update accepted", "update_id": client_id})
+
+    def _verify_update_signature(self, client_id: str, round_number: int,
+                                 headers: Mapping[str, str],
+                                 params: Params) -> web.Response | None:
+        """The 403 for a missing, unregistered or invalid update signature, or None.
+        The signature covers the client id, the round, the verbatim metrics header and
+        the params the server will aggregate (for a compressed submit, its
+        reconstruction)."""
+        from nanofed_tpu_torch.security.signing import verify_update_signature
+
+        pem = self.client_keys.get(client_id)
+        if pem is None:
+            return _error(f"unknown client {client_id!r}", 403)
+        signature = _signature(headers)
+        if not signature or not verify_update_signature(
+                params, client_id, round_number, headers.get(HEADER_METRICS, "{}"),
+                signature, pem):
+            self._log.warning("invalid signature from %s", client_id)
+            return _error("invalid signature", 403)
+        return None
+
+    async def _check_signature(self, request: web.Request, client_id: str,
+                               verify: Callable[..., bool], *verify_args: Any
+                               ) -> web.Response | None:
+        """The 403 for a secure-aggregation body whose signature does not verify, or
+        None; ``verify``'s trailing arguments are ``(signature, pem)``."""
+        pem = self.client_keys.get(client_id)
+        if pem is None:
+            return _error(f"unknown client {client_id!r}", 403)
+        signature = _signature(request.headers)
+        if not signature or not await self._offload(verify, *verify_args, signature, pem):
+            self._log.warning("invalid signature from %s on %s", client_id, request.path)
+            return _error("invalid signature", 403)
+        return None
+
     async def _handle_masked_update(
         self, request: web.Request, client_id: str, round_number: int,
-        metrics: dict[str, Any], submit_id: str | None,
+        metrics: dict[str, Any], submit_id: str | None, fingerprint: str,
     ) -> web.StreamResponse:
         """Buffer a pairwise-masked uint32 vector.  Masked payloads look like uniform
         noise, so the only content check is structural: enrollment, dtype and length
-        (the published model's parameter count)."""
+        (the published model's parameter count); with ``require_signatures`` the
+        verbatim body must also carry a valid signature."""
         if client_id not in self._secagg_roster:
             return _error(f"{client_id!r} not enrolled", 403)
         if client_id in self._secagg_evicted:
             return _error(f"{client_id!r} was evicted from this cohort", 403)
         body = await self._read_body(request)
+        if self.require_signatures:
+            from nanofed_tpu_torch.security.signing import verify_masked_signature
+
+            verdict = await self._check_signature(
+                request, client_id, verify_masked_signature, body, client_id, round_number,
+                request.headers.get(HEADER_METRICS, "{}"))
+            if verdict is not None:
+                return verdict
         expected_size = self._param_count
 
         def decode_masked() -> np.ndarray:
@@ -514,16 +771,17 @@ class HTTPServer:
             return vec
 
         try:
-            vec = await asyncio.to_thread(decode_masked)
+            vec = await self._offload(decode_masked)
         except Exception as e:
             return _error(f"bad masked payload: {e}", 400)
         async with self._lock:
-            if self._duplicate_submit(client_id, submit_id):
+            if self._duplicate_submit(client_id, submit_id, fingerprint):
                 return self._duplicate_response(client_id)
             if round_number != self._round:
-                return self._stale(round_number)
+                return _error(f"update for round {round_number}, server is on {self._round}",
+                              400)
             self._masked_updates[client_id] = (vec, metrics)
-            self._record_submit_locked(client_id, submit_id)
+            self._record_submit_locked(client_id, submit_id, fingerprint)
             accepted = len(self._masked_updates)
         self._log.info("masked update from %s (round %d, %d buffered)", client_id,
                        round_number, accepted)
@@ -552,6 +810,17 @@ class HTTPServer:
             check_backend(backend)
         except Exception as e:
             return _error(f"bad registration: {e}", 400)
+        if self.require_signatures:
+            # The signature binds this cohort's session nonce (no replay into a later
+            # cohort) and the mask backend (no splice).
+            from nanofed_tpu_torch.security.signing import verify_enrollment_signature
+
+            verdict = await self._check_signature(
+                request, client_id,
+                lambda *a: verify_enrollment_signature(*a, backend=backend),
+                client_id, public_key, num_samples, self._secagg_session)
+            if verdict is not None:
+                return verdict
         async with self._lock:
             if self._secagg_backend is not None and backend != self._secagg_backend:
                 return _error(
@@ -626,6 +895,14 @@ class HTTPServer:
             return _error(f"shares for round {round_header!r}, server is on {self._round}",
                           400)
         body = await self._read_body(request)
+        if self.require_signatures:
+            from nanofed_tpu_torch.security.signing import verify_secagg_body_signature
+
+            verdict = await self._check_signature(
+                request, client_id, verify_secagg_body_signature, "shares", body, client_id,
+                f"{self._secagg_session}:{self._round}")
+            if verdict is not None:
+                return verdict
         try:
             payload = json.loads(body)
             epk = base64.b64decode(payload["epk"])
@@ -715,6 +992,16 @@ class HTTPServer:
             return _error(f"reveal for round {round_header!r}, unmask round is "
                           f"{snapshot['round']}", 400)
         body = await self._read_body(request)
+        if self.require_signatures:
+            from nanofed_tpu_torch.security.signing import verify_secagg_body_signature
+
+            # Bound to the cohort's session nonce and the round: a reveal captured
+            # from an earlier cohort on this server does not verify.
+            verdict = await self._check_signature(
+                request, client_id, verify_secagg_body_signature, "unmask", body, client_id,
+                f"{self._secagg_session}:{snapshot['round']}")
+            if verdict is not None:
+                return verdict
         try:
             reveals = json.loads(body)
             if not isinstance(reveals.get("sk"), dict) or not isinstance(reveals.get("b"), dict):
@@ -755,3 +1042,5 @@ class HTTPServer:
 
     async def stop(self) -> None:
         await self.transport.stop()
+        if self._ingest_pipeline is not None:
+            self._ingest_pipeline.close()

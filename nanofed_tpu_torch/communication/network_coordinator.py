@@ -9,15 +9,21 @@ host and dequantizes the sum with kernel B6, and the dropout-tolerant variant
 reconstructs the dropped clients' orphaned masks first (kernel B7 under the ``cuda``
 backend).
 
-This slice runs the synchronous rounds: plain FedAvg, the no-dropout masked round and
-the dropout-tolerant masked round.  With ``state_store=`` (``persistence.FileStateStore``)
-every COMPLETED round is checkpointed off the event loop (the params as the JAX
-package's nested numpy dict, and the evicted stragglers), and a new coordinator resumes
-from the latest checkpoint of either package: it publishes the restored params at the
-round after it.  Later slices bring async FedBuff
-(``NetworkRoundConfig.async_buffer_k``), validation and robust aggregation over the
-wire, fault injection (``chaos``), telemetry and the service's device gate; setting one
-raises ``NotImplementedError`` naming its slice.
+Synchronous rounds: plain FedAvg, validated (``validation=``: shape, range and a
+leave-one-out z-score on the host, float64 norms as in the JAX package), robust
+(``robust=``: trimmed mean, median or Multi-Krum, unweighted, the reported loss and
+accuracy riding the same estimator), the no-dropout masked round and the
+dropout-tolerant masked round.  Asynchronous rounds: FedBuff
+(``NetworkRoundConfig.async_buffer_k``), each aggregation the K oldest buffered updates
+of any in-window version, discounted by ``(1+τ)^-α``.  On a server with ``ingest=``
+both run on the device buffer's one-product drains.
+
+With ``state_store=`` (``persistence.FileStateStore``) every COMPLETED round or
+aggregation is checkpointed off the event loop (the params as the JAX package's nested
+numpy dict, and the evicted stragglers), and a new coordinator resumes from the latest
+checkpoint of either package: it publishes the restored params at the round after it.
+Fault injection (``chaos``), telemetry and the service's device gate come with later
+items; setting one raises ``NotImplementedError`` naming its item.
 """
 
 from __future__ import annotations
@@ -27,9 +33,15 @@ import math
 from dataclasses import dataclass, replace
 from typing import TYPE_CHECKING, Any
 
+import numpy as np
 import torch
 
 from nanofed_tpu_torch.aggregation.fedavg import fedavg_combine
+from nanofed_tpu_torch.aggregation.robust import (
+    RobustAggregationConfig,
+    robust_aggregate,
+    robust_floor,
+)
 from nanofed_tpu_torch.communication.http_server import (
     HTTPServer,
     refuse_later_slice_options,
@@ -38,9 +50,23 @@ from nanofed_tpu_torch.core.device import DeviceLike, resolve_device
 from nanofed_tpu_torch.core.types import ClientMetrics, ClientUpdates, ModelUpdate, Params
 from nanofed_tpu_torch.orchestration.engine import RoundLedger, completion_required
 from nanofed_tpu_torch.persistence import FileStateStore
+from nanofed_tpu_torch.security.validation import (
+    ValidationConfig,
+    ValidationResult,
+    loo_zscore,
+    reference_shapes,
+    update_flat_norm,
+    validate_range,
+    validate_shape,
+)
 from nanofed_tpu_torch.utils.clock import SYSTEM_CLOCK, Clock
 from nanofed_tpu_torch.utils.logger import Logger
-from nanofed_tpu_torch.utils.trees import from_checkpoint_params, to_numpy_params, unravel
+from nanofed_tpu_torch.utils.trees import (
+    from_checkpoint_params,
+    ravel_stacked,
+    to_numpy_params,
+    unravel,
+)
 
 if TYPE_CHECKING:
     # Imported where used: secure_agg needs ``cryptography``, which the plain network
@@ -49,8 +75,6 @@ if TYPE_CHECKING:
 
 #: Coordinator options of later slices, with the JAX defaults (accepted).
 LATER_SLICE_OPTIONS: dict[str, tuple[Any, str]] = {
-    "validation": (None, "update validation over the wire (network-validation item)"),
-    "robust": (None, "robust aggregation over the wire (network-validation item)"),
     "telemetry_dir": (None, "telemetry (observability slice, queue A item 19)"),
     "registry": (None, "metrics registry (observability slice, queue A item 19)"),
     "chaos": (None, "fault injection (faults slice, queue A item 17)"),
@@ -60,8 +84,7 @@ LATER_SLICE_OPTIONS: dict[str, tuple[Any, str]] = {
 
 @dataclass(frozen=True)
 class NetworkRoundConfig:
-    """Round settings of the network path: the JAX package's fields, less the
-    FedBuff staleness settings, which come with the async slice."""
+    """Round settings of the network path (the JAX package's fields)."""
 
     num_rounds: int = 1
     min_clients: int = 1
@@ -76,9 +99,25 @@ class NetworkRoundConfig:
     # Straggler eviction (sync, non-secure rounds): a seen client that misses this
     # many CONSECUTIVE rounds leaves the expected population; 0 disables.
     straggler_evict_after: int = 0
-    # Asynchronous buffered aggregation (FedBuff): a later slice, which brings its
-    # staleness settings with it; any value but None raises NotImplementedError.
+    # Asynchronous buffered aggregation (FedBuff): aggregate as soon as async_buffer_k
+    # updates are buffered; updates on any of the last staleness_window published
+    # versions count, discounted by (1 + staleness)^-staleness_exponent.  num_rounds
+    # then counts aggregations.
     async_buffer_k: int | None = None
+    staleness_window: int = 4
+    staleness_exponent: float = 0.5
+    async_server_lr: float = 1.0
+
+    def __post_init__(self) -> None:
+        if self.async_buffer_k is not None:
+            if self.async_buffer_k < 1:
+                raise ValueError("async_buffer_k must be >= 1")
+            if self.staleness_window < 1:
+                raise ValueError("async mode needs staleness_window >= 1")
+            if self.staleness_exponent < 0:
+                raise ValueError("staleness_exponent must be >= 0")
+            if self.async_server_lr <= 0:
+                raise ValueError("async_server_lr must be > 0")
 
 
 def _metric(metrics: dict, key: str, default: float, *alt_keys: str,
@@ -116,6 +155,62 @@ def stack_model_updates(updates: list[ModelUpdate], device: DeviceLike = None) -
     return ClientUpdates(params=params, weights=weights, metrics=metrics)
 
 
+def fedbuff_combine(
+    global_params: Params,
+    updates: list[ModelUpdate],
+    version_params: dict[int, Params],
+    current_version: int,
+    staleness_exponent: float = 0.5,
+    server_lr: float = 1.0,
+    device: DeviceLike = None,
+) -> tuple[Params, dict[str, Any]]:
+    """FedBuff aggregation (Nguyen et al. 2022) on ``device`` (default: the card):
+    ``global + lr · (1/K) Σ (1+τ_i)^-α δ_i``, each delta against the version its client
+    trained from (``version_params[round_number]``), unnormalised, unweighted by
+    sample counts.  Updates whose base has left the window are skipped.  Raises
+    ``ValueError`` when nothing is aggregatable.
+
+    The arithmetic is the JAX package's float32 (each discount over K rounded to
+    float32, products and sums in float32), but the discounted deltas are summed in
+    client-id order where the JAX package sums them in arrival order, so the result
+    does not depend on which update arrived first.  The stats list the updates in
+    the order given."""
+    dev = resolve_device(device)
+    live, discounts, staleness, skipped = [], [], [], 0
+    for u in updates:
+        if u.round_number not in version_params:
+            skipped += 1
+            continue
+        s = current_version - u.round_number
+        live.append(u)
+        discounts.append((1.0 + s) ** (-staleness_exponent))
+        staleness.append(s)
+    if not live:
+        raise ValueError(f"no aggregatable updates: all {skipped} buffered bases have left "
+                         "the version window")
+    k = len(live)
+    coef = {u.client_id: float(np.float32(d / k)) for u, d in zip(live, discounts)}
+    agg = {name: torch.zeros(leaf.shape, dtype=torch.float32, device=dev)
+           for name, leaf in global_params.items()}
+    for u in sorted(live, key=lambda u: u.client_id):
+        base = version_params[u.round_number]
+        for name, acc in agg.items():
+            delta = (u.params[name].to(dev, torch.float32)
+                     - base[name].to(dev, torch.float32))
+            acc += coef[u.client_id] * delta
+    lr = float(np.float32(server_lr))
+    new_params = {name: (g.to(dev, torch.float32) + lr * agg[name]).to(g.dtype)
+                  for name, g in global_params.items()}
+    stats = {
+        "num_aggregated": k,
+        "num_skipped_out_of_window": skipped,
+        "staleness": staleness,
+        "mean_staleness": float(np.mean(staleness)),
+        "discounts": [round(float(d), 4) for d in discounts],
+    }
+    return new_params, stats
+
+
 class NetworkCoordinator:
     """Drives federated rounds over an :class:`HTTPServer`.
 
@@ -127,6 +222,14 @@ class NetworkCoordinator:
     ``secure.dropout_tolerant`` the double-masking variant recovers the round from the
     survivors.  The mask backend is the one the cohort enrolled with
     (``server.secagg_backend()``); the server's unmask arithmetic runs on ``device``.
+
+    ``validation`` (a ``ValidationConfig``) drops invalid drained updates before they
+    reach the aggregate: wrong shape, non-finite or over ``max_norm`` per leaf, then
+    the leave-one-out z-score over the range-valid survivors.  ``robust`` (a
+    ``RobustAggregationConfig``) replaces the weighted FedAvg by the robust estimator;
+    it cannot combine with ``secure`` (the server sees only masked vectors).  Neither
+    combines with asynchronous rounds or with a server's ingest buffer, as in the JAX
+    package.
     """
 
     def __init__(
@@ -134,7 +237,9 @@ class NetworkCoordinator:
         server: HTTPServer,
         params: Params,
         config: NetworkRoundConfig,
+        validation: ValidationConfig | None = None,
         secure: SecureAggregationConfig | None = None,
+        robust: RobustAggregationConfig | None = None,
         clock: Clock | None = None,
         device: DeviceLike = None,
         state_store: FileStateStore | None = None,
@@ -142,16 +247,48 @@ class NetworkCoordinator:
     ) -> None:
         refuse_later_slice_options("NetworkCoordinator", later_slice_options,
                                    LATER_SLICE_OPTIONS)
+        if robust is not None and secure is not None:
+            raise ValueError(
+                "robust= cannot be combined with secure=: the server only ever "
+                "sees masked (uniformly random) vectors, so it cannot compute "
+                "order statistics over individual updates — that blindness is the "
+                "point of secure aggregation"
+            )
+        if server.ingest is not None:
+            bad = [name for name, v in (("validation", validation), ("robust", robust))
+                   if v is not None]
+            if bad:
+                raise ValueError(
+                    f"batched ingest (server ingest=) cannot be combined with "
+                    f"{', '.join(bad)} — these inspect INDIVIDUAL updates, "
+                    "which the device-resident buffer folds away at submit "
+                    "time; disable ingest or drop the per-update mechanism"
+                )
         if config.async_buffer_k is not None:
-            raise NotImplementedError(
-                "NetworkCoordinator: async_buffer_k (async/FedBuff federation, "
-                "network-ingest slice) not supported by this slice of nanofed_tpu_torch "
-                "(run nanofed_tpu for it)")
+            bad = [name for name, v in (("secure", secure), ("robust", robust),
+                                        ("validation", validation)) if v is not None]
+            if bad:
+                raise ValueError(
+                    f"async_buffer_k cannot be combined with {', '.join(bad)} — "
+                    "asynchronous aggregation mixes staleness levels that these "
+                    "round-locked mechanisms assume away"
+                )
+            # The server enforces the window: one place to configure it.
+            server.staleness_window = config.staleness_window
+        elif server.staleness_window > 0:
+            raise ValueError(
+                "server was built with staleness_window > 0 but the coordinator "
+                "is synchronous — set NetworkRoundConfig(async_buffer_k=...) or "
+                "use a sync server (staleness_window=0)"
+            )
         self.device = resolve_device(device)
         self.server = server
         self.params = {name: leaf.to(self.device) for name, leaf in params.items()}
         self.config = config
+        self.validation = validation
         self.secure = secure
+        self.robust = robust
+        self._ingest_mode = server.ingest is not None
         self.state_store = state_store
         self.history: list[dict[str, Any]] = []
         self._clock = clock or SYSTEM_CLOCK
@@ -223,6 +360,37 @@ class NetworkCoordinator:
                               self.config.straggler_evict_after, newly_evicted,
                               self._required_clients())
         return newly_evicted
+
+    def _validate_updates(self, updates: list[ModelUpdate]
+                          ) -> tuple[list[ModelUpdate], dict[str, str]]:
+        """The updates that pass shape, range and the cohort z-score, and the verdict
+        name of each rejected client.  The z-score runs over the range-valid
+        survivors only (a NaN norm would poison it), leave-one-out, on the host."""
+        shapes = reference_shapes(self.params)
+        survivors, rejected = [], {}
+        for u in updates:
+            verdict = validate_shape(u, shapes)
+            if verdict is ValidationResult.VALID:
+                verdict = validate_range(u, self.validation)
+            if verdict is not ValidationResult.VALID:
+                self._log.warning("rejecting update from %s: %s", u.client_id, verdict.name)
+                rejected[u.client_id] = verdict.name
+                continue
+            survivors.append(u)
+        if len(survivors) > 1:
+            norms = torch.tensor([update_flat_norm(u) for u in survivors], dtype=torch.float32)
+            _, anomalous = loo_zscore(norms, torch.ones_like(norms),
+                                      self.validation.z_score_threshold,
+                                      float(self.validation.min_clients_for_stats))
+            kept = []
+            for u, bad in zip(survivors, anomalous.tolist()):
+                if bad:
+                    self._log.warning("rejecting update from %s: ANOMALOUS", u.client_id)
+                    rejected[u.client_id] = ValidationResult.ANOMALOUS.name
+                else:
+                    kept.append(u)
+            survivors = kept
+        return survivors, rejected
 
     async def _tolerant_secure_round(self, round_number: int, required: int) -> dict[str, Any]:
         """One dropout-tolerant masked round (double masking): wait for the cohort until
@@ -382,41 +550,188 @@ class NetworkCoordinator:
         if self.secure is not None:
             return await self._secure_round(round_number, required)
         ok = await self._wait_for_clients(required)
-        updates = await self.server.drain_updates()
+        if self._ingest_mode:
+            return await self._ingest_round_tail(round_number, required, ok)
+        # Client-id order, not arrival order: the float32 sums (and with them a resumed
+        # run) do not depend on which update arrived first.
+        updates = sorted(await self.server.drain_updates(), key=lambda u: u.client_id)
+        num_received, rejected = len(updates), {}
+        if self.validation is not None and updates:
+            updates, rejected = self._validate_updates(updates)
+        num_rejected = num_received - len(updates)
         newly_evicted = self._note_participation({u.client_id for u in updates})
         if not ok or len(updates) < required:
-            self._log.warning("round %d FAILED: %d/%d updates", round_number, len(updates),
-                              required)
+            self._log.warning("round %d FAILED: %d/%d updates (%d rejected)", round_number,
+                              len(updates), required, num_rejected)
             record = {"round": round_number, "status": "FAILED",
-                      "num_clients": len(updates), "num_rejected": 0, "required": required}
+                      "num_clients": len(updates), "num_rejected": num_rejected,
+                      "required": required}
         else:
-            record = self._aggregate_round(round_number, updates)
+            record = self._aggregate_round(round_number, updates, num_rejected)
             record["required"] = required
-            self._log.info("round %d: %s", round_number, record["metrics"])
+            if record["status"] == "COMPLETED":
+                self._log.info("round %d: %s", round_number, record["metrics"])
+        if rejected:
+            record["rejected"] = rejected
         if newly_evicted:
             record["evicted_stragglers"] = newly_evicted
         self.history.append(record)
         return record
 
-    def _aggregate_round(self, round_number: int, updates: list[ModelUpdate]) -> dict[str, Any]:
-        """Stack the drained updates on the device and fold them into the global params
-        (weighted FedAvg, kernel B1 on the card).  The rows are stacked in client-id
-        order, not arrival order, so the float32 sum, and with it a resumed run, does
-        not depend on which client's update arrived first."""
-        stacked = stack_model_updates(sorted(updates, key=lambda u: u.client_id),
-                                      self.device)
-        self.params = fedavg_combine(stacked.params, stacked.weights)
-        w = stacked.weights
-        round_metrics = {
-            "loss": float((stacked.metrics.loss * w).sum() / w.sum()),
-            "accuracy": float((stacked.metrics.accuracy * w).sum() / w.sum()),
-        }
+    async def _ingest_round_tail(self, round_number: int, required: int,
+                                 ok: bool) -> dict[str, Any]:
+        """A sync round on the ingest buffer: one product over every buffered delta
+        against the round's base, the weighted FedAvg of the clients' params."""
+        new_flat, metas = await self.server.drain_ingest_fedavg()
+        newly_evicted = self._note_participation({m.client_id for m in metas})
+        record: dict[str, Any] = {"round": round_number, "num_clients": len(metas),
+                                  "num_rejected": 0, "required": required, "ingest": True}
+        if not ok or len(metas) < required:
+            self._log.warning("round %d FAILED: %d/%d batched updates", round_number,
+                              len(metas), required)
+            record["status"] = "FAILED"
+        else:
+            self.params = unravel(new_flat.to(self.device), self.params)
+            wsum = sum(m.weight for m in metas)
+            record["status"] = "COMPLETED"
+            record["metrics"] = {
+                "loss": sum(_metric(m.metrics, "loss", 0.0) * m.weight for m in metas) / wsum,
+                "accuracy": sum(_metric(m.metrics, "accuracy", 0.0) * m.weight
+                                for m in metas) / wsum,
+            }
+            self._log.info("round %d (batched ingest): %s", round_number, record["metrics"])
+        if newly_evicted:
+            record["evicted_stragglers"] = newly_evicted
+        self.history.append(record)
+        return record
+
+    def _aggregate_round(self, round_number: int, updates: list[ModelUpdate],
+                         num_rejected: int) -> dict[str, Any]:
+        """Stack the updates on the device and fold them into the global params:
+        weighted FedAvg (kernel B1 on the card), or the robust estimator, unweighted,
+        with every update participating and the round's loss and accuracy as two more
+        coordinates of the same call (the JAX package's ``{"accuracy", "loss",
+        "params"}`` tree, in its leaf order)."""
+        stacked = stack_model_updates(updates, self.device)
+        if self.robust is None:
+            self.params = fedavg_combine(stacked.params, stacked.weights)
+            w = stacked.weights
+            round_metrics = {
+                "loss": float((stacked.metrics.loss * w).sum() / w.sum()),
+                "accuracy": float((stacked.metrics.accuracy * w).sum() / w.sum()),
+            }
+        else:
+            c = len(updates)
+            x = torch.cat([stacked.metrics.accuracy[:, None], stacked.metrics.loss[:, None],
+                           ravel_stacked(stacked.params)], dim=1)
+            del stacked
+            like = {"accuracy": x.new_zeros(()), "loss": x.new_zeros(()),
+                    **{f"params/{name}": leaf for name, leaf in self.params.items()}}
+            agg, trim_ok, _ = robust_aggregate(
+                self.robust, x, torch.ones(c, dtype=torch.float32, device=self.device), like)
+            if not bool(trim_ok):
+                floor = robust_floor(self.robust)
+                self._log.warning("round %d FAILED: %d updates < robust floor %d",
+                                  round_number, c, floor)
+                return {"round": round_number, "status": "FAILED", "num_clients": c,
+                        "num_rejected": num_rejected,
+                        "reason": f"{c} updates below the robust floor {floor}"}
+            self.params = unravel(agg[2:], self.params)
+            round_metrics = {"loss": float(agg[1]), "accuracy": float(agg[0])}
         return {"round": round_number, "status": "COMPLETED", "num_clients": len(updates),
-                "num_rejected": 0, "metrics": round_metrics}
+                "num_rejected": num_rejected, "metrics": round_metrics}
+
+    async def _wait_for_buffer(self, k: int) -> int:
+        """Async mode: poll until ``k`` updates are buffered or the timeout; the
+        buffered count at exit."""
+        deadline = self._clock.time() + self.config.round_timeout_s
+        while self._clock.time() < deadline:
+            n = self.server.num_updates()
+            if n >= k:
+                return n
+            await self._clock.sleep(self.config.poll_interval_s)
+        return self.server.num_updates()
+
+    async def _fedbuff_step(self, agg_i: int, version: int, k: int,
+                            got: int) -> dict[str, Any]:
+        """One FedBuff aggregation: the K oldest buffered updates (the ingest buffer's
+        one-product drain, or the list buffer through :func:`fedbuff_combine`) applied
+        to the current version."""
+        try:
+            if self._ingest_mode:
+                new_flat, drained, stats = await self.server.drain_ingest_fedbuff(
+                    k, version, staleness_exponent=self.config.staleness_exponent,
+                    server_lr=self.config.async_server_lr)
+                self.params = unravel(new_flat.to(self.device), self.params)
+            else:
+                drained = await self.server.take_updates(k)
+                if not drained:
+                    return {"aggregation": agg_i, "version": version, "status": "FAILED",
+                            "num_clients": 0,
+                            "reason": f"timeout with an empty buffer (wanted {k})"}
+                self.params, stats = fedbuff_combine(
+                    self.params, drained, self.server.published_versions, version,
+                    staleness_exponent=self.config.staleness_exponent,
+                    server_lr=self.config.async_server_lr, device=self.device)
+        except ValueError as e:
+            return self._async_stale_drain_record(agg_i, version, e)
+        losses = [_metric(u.metrics, "loss", float("nan")) for u in drained]
+        finite = [v for v in losses if math.isfinite(v)]
+        record = {"aggregation": agg_i, "version": version + 1, "status": "COMPLETED",
+                  "num_clients": stats["num_aggregated"], "buffered_at_drain": got,
+                  "metrics": {"loss": float(np.mean(finite)) if finite else None},
+                  "drained": [u.client_id for u in drained], **stats}
+        if self._ingest_mode:
+            record["ingest"] = True
+        self._log.info("aggregation %d -> version %d: %d updates, staleness %s", agg_i,
+                       version + 1, stats["num_aggregated"], stats["staleness"])
+        return record
+
+    async def _run_async(self) -> list[dict[str, Any]]:
+        """The FedBuff loop: publish the current version, wait for ``async_buffer_k``
+        buffered updates of any in-window staleness (no cohort barrier), apply the
+        discounted aggregate.  ``num_rounds`` counts aggregations; a timeout with an
+        empty buffer records a FAILED aggregation and publishes the same version
+        again.  A resumed engine starts at the checkpointed version."""
+        k = self.config.async_buffer_k
+        version = self.start_round
+        for agg_i in range(self.start_round, self.config.num_rounds):
+            t0 = RoundLedger.now()
+            await self.server.publish_model(self.params, version)
+            got = await self._wait_for_buffer(k)
+            if self._ingest_mode and not got:
+                record = {"aggregation": agg_i, "version": version, "status": "FAILED",
+                          "num_clients": 0,
+                          "reason": f"timeout with an empty buffer (wanted {k})"}
+            else:
+                record = await self._fedbuff_step(agg_i, version, k, got)
+            if record["status"] == "COMPLETED":
+                version += 1
+            else:
+                self._log.warning("aggregation %d FAILED: %s", agg_i, record["reason"])
+            self.history.append(record)
+            self._ledger.charge(status=record["status"], num_clients=record["num_clients"],
+                                duration_s=RoundLedger.now() - t0)
+            if record["status"] == "COMPLETED":
+                # Keyed by the produced version: a resumed engine starts from it.
+                await self._checkpoint_round(version - 1, record)
+        await self.server.publish_model(self.params, version)
+        self.server.stop_training()
+        return self.history
+
+    def _async_stale_drain_record(self, agg_i: int, version: int,
+                                  e: ValueError) -> dict[str, Any]:
+        """A drain whose every update's base left the window: a FAILED aggregation (the
+        slots were consumed, the version does not advance), not a crashed run."""
+        return {"aggregation": agg_i, "version": version, "status": "FAILED",
+                "num_clients": 0, "reason": str(e)}
 
     async def run(self) -> list[dict[str, Any]]:
         """All rounds, then signal termination to polling clients.  In secure mode,
-        opens enrollment first and waits for the cohort."""
+        opens enrollment first and waits for the cohort.  With ``async_buffer_k`` it
+        runs the FedBuff loop instead."""
+        if self.config.async_buffer_k is not None:
+            return await self._run_async()
         if self.secure is not None:
             await self._enroll_cohort()
         # After a resume, completed rounds are not re-run: the restored params are

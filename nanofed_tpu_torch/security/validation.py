@@ -5,18 +5,35 @@ The checks run over the stacked ``[C, ...]`` client axis and return per-client
 boolean tensors; an invalid client is not rejected with an exception, its
 aggregation weight is zeroed (:func:`apply_validation_mask`).  The round step
 (``parallel.round_step``) runs the same statistics on its flat delta buffer and
-reduces with kernel B2.  The host enum API (``validate_shape``/``validate_range``/
-``validate_statistics`` on one ``ModelUpdate``) comes with the network slice.
+reduces with kernel B2.
+
+The host path of the network mode checks one ``ModelUpdate`` at a time and returns a
+:class:`ValidationResult` (``validate_shape``, ``validate_range``,
+``validate_statistics``).  Its norms are the JAX package's: float64 numpy on the
+host, so a client near ``max_norm`` or the z-score threshold gets the same verdict
+from both packages (a float32 norm on the card could decide otherwise).
 """
 
 from __future__ import annotations
 
+import enum
 from dataclasses import dataclass
-from typing import NamedTuple
+from typing import Mapping, NamedTuple, Sequence
 
+import numpy as np
 import torch
 
-from nanofed_tpu_torch.core.types import Params
+from nanofed_tpu_torch.core.types import ModelUpdate, Params
+
+
+class ValidationResult(enum.Enum):
+    """Host-path verdicts on one update."""
+
+    VALID = enum.auto()
+    INVALID_SHAPE = enum.auto()
+    INVALID_RANGE = enum.auto()
+    INVALID_SIGNATURE = enum.auto()
+    ANOMALOUS = enum.auto()
 
 
 @dataclass(frozen=True)
@@ -143,3 +160,62 @@ def validate_client_updates(
 def apply_validation_mask(weights: torch.Tensor, report: ValidationReport) -> torch.Tensor:
     """Zero the aggregation weight of every invalid client."""
     return weights * report.valid.to(weights.dtype)
+
+
+# ---------------------------------------------------------------------------------------
+# Host path: one ModelUpdate at a time, float64 numpy norms.
+# ---------------------------------------------------------------------------------------
+
+
+def reference_shapes(params: Params) -> dict[str, tuple[int, ...]]:
+    """Name -> shape of the global model: the host-path shape reference."""
+    return {name: tuple(leaf.shape) for name, leaf in params.items()}
+
+
+def _host_leaves(update: ModelUpdate) -> list[tuple[str, np.ndarray]]:
+    """The update's leaves as numpy arrays (bf16 widened to float32, exactly)."""
+    out = []
+    for name, leaf in update.params.items():
+        t = leaf.detach().cpu()
+        out.append((name, (t.float() if t.dtype == torch.bfloat16 else t).numpy()))
+    return out
+
+
+def validate_shape(update: ModelUpdate,
+                   reference: Mapping[str, tuple[int, ...]]) -> ValidationResult:
+    """Every reference leaf present with exactly its shape."""
+    got = dict(_host_leaves(update))
+    for key, shape in reference.items():
+        if key not in got or tuple(got[key].shape) != tuple(shape):
+            return ValidationResult.INVALID_SHAPE
+    return ValidationResult.VALID
+
+
+def validate_range(update: ModelUpdate, config: ValidationConfig) -> ValidationResult:
+    """Finite values and each leaf's float64 L2 norm at most ``max_norm``."""
+    for _, leaf in _host_leaves(update):
+        if not np.all(np.isfinite(leaf)):
+            return ValidationResult.INVALID_RANGE
+        if np.linalg.norm(leaf.astype(np.float64).ravel()) > config.max_norm:
+            return ValidationResult.INVALID_RANGE
+    return ValidationResult.VALID
+
+
+def update_flat_norm(update: ModelUpdate) -> float:
+    """Float64 L2 norm of one update's whole parameter vector (the statistic of the
+    cohort z-score)."""
+    vecs = [leaf.astype(np.float64).ravel() for _, leaf in _host_leaves(update)]
+    return float(np.linalg.norm(np.concatenate(vecs)))
+
+
+def validate_statistics(update: ModelUpdate, reference_updates: Sequence[ModelUpdate],
+                        config: ValidationConfig) -> ValidationResult:
+    """The z-score of the update's norm against the cohort's norms (ddof 1); VALID
+    below ``min_clients_for_stats``."""
+    if len(reference_updates) < config.min_clients_for_stats:
+        return ValidationResult.VALID
+    norms = np.array([update_flat_norm(u) for u in reference_updates])
+    z = abs(update_flat_norm(update) - norms.mean()) / (norms.std(ddof=1) + 1e-8)
+    if z > config.z_score_threshold:
+        return ValidationResult.ANOMALOUS
+    return ValidationResult.VALID

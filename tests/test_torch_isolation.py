@@ -1,6 +1,8 @@
 """The port imports neither JAX nor anything of ``nanofed_tpu`` (every module of the
-package, the network mode, secure aggregation, observability and tuning included),
-and its entry points run on the GPU unless the caller asks for the CPU."""
+package, the network mode, secure aggregation, signing, the ingest buffer,
+observability and tuning included, and the compressed codec, signing and ingest paths
+when they run), and its entry points run on the GPU unless the caller asks for the
+CPU."""
 
 import importlib
 import pkgutil
@@ -14,10 +16,16 @@ import torch
 
 import nanofed_tpu_torch
 from nanofed_tpu_torch import run_experiment
-from nanofed_tpu_torch.communication import HTTPServer, NetworkCoordinator, NetworkRoundConfig
+from nanofed_tpu_torch.communication import (
+    HTTPServer,
+    NetworkCoordinator,
+    NetworkRoundConfig,
+    fedbuff_combine,
+)
 from nanofed_tpu_torch.communication.transport import free_port
 from nanofed_tpu_torch.core import resolve_device
 from nanofed_tpu_torch.data import federate, synthetic_classification
+from nanofed_tpu_torch.ingest import DeviceIngestBuffer, IngestConfig, IngestPipeline
 from nanofed_tpu_torch.models import get_model
 from nanofed_tpu_torch.orchestration import Coordinator, CoordinatorConfig
 from nanofed_tpu_torch.parallel import build_scaffold_round_step
@@ -51,6 +59,47 @@ def test_port_imports_no_jax_and_nothing_of_nanofed_tpu():
     assert int(proc.stdout.split()[-1]) >= 40  # every module of the package was imported
 
 
+_RUN_WIRE_PATHS = """
+import sys
+import numpy as np
+import torch
+from nanofed_tpu_torch.communication import codec
+from nanofed_tpu_torch.ingest import DeviceIngestBuffer
+from nanofed_tpu_torch.security import signing
+params = {"a/bias": torch.zeros(3), "a/kernel": torch.ones(2, 3, dtype=torch.bfloat16)}
+delta = {"a/bias": torch.full((3,), 0.1), "a/kernel": torch.full((2, 3), -0.2)}
+codec.reconstruct_q8(params, codec.encode_delta_q8(delta, seed=0))
+codec.reconstruct_topk8(params, codec.encode_delta_topk8(delta, 0.5, seed=0))
+signing.update_signing_bytes(params, "c", 0, "{}")
+buf = DeviceIngestBuffer(params, 2, device="cpu")
+buf.offer(np.ones(9, np.float32), client_id="c", round_number=0, weight=1.0)
+buf.drain_fedavg(np.zeros(9, np.float32))
+for name in ("cryptography", "cryptography.hazmat.primitives.asymmetric.rsa"):
+    try:
+        __import__(name)
+    except ImportError:
+        break
+else:
+    manager = signing.SecurityManager(key_size=1024)
+    sig = manager.sign_update(params, "c", 0, "{}")
+    assert signing.verify_update_signature(params, "c", 0, "{}", sig,
+                                           manager.get_public_key())
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
+             or m == "ml_dtypes" or m == "nanofed_tpu" or m.startswith("nanofed_tpu."))
+assert not bad, bad
+print("ok")
+"""
+
+
+def test_wire_paths_run_without_jax_or_ml_dtypes():
+    """The compressed codec, signing (bf16 leaves included) and the ingest buffer run
+    with no JAX, no ``ml_dtypes`` and nothing of the JAX package loaded."""
+    proc = subprocess.run([sys.executable, "-c", _RUN_WIRE_PATHS], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0 and proc.stdout.split()[-1] == "ok", proc.stderr
+
+
 def test_every_module_imports_in_process():
     for info in pkgutil.walk_packages(nanofed_tpu_torch.__path__, "nanofed_tpu_torch."):
         importlib.import_module(info.name)
@@ -81,6 +130,10 @@ def _entry_points():
         "build_scaffold_round_step": lambda: build_scaffold_round_step(
             model, TrainingConfig(), 2),
         "Trainer": lambda: Trainer(model, TrainingConfig()),
+        "DeviceIngestBuffer": lambda: DeviceIngestBuffer({"w": torch.zeros(3)}, 2),
+        "IngestPipeline": lambda: IngestPipeline({"w": torch.zeros(3)}, IngestConfig()),
+        "HTTPServer_ingest": lambda: HTTPServer(port=free_port(), ingest=IngestConfig()),
+        "fedbuff_combine": lambda: fedbuff_combine({"w": torch.zeros(3)}, [], {}, 0),
     }
 
 
@@ -89,7 +142,9 @@ def _entry_points():
                                   "mask_update_cuda_backend", "expand_mask_cuda_backend",
                                   "unmask_sum", "dequantize_sum", "autotune",
                                   "profile_aggregation_epilogues", "Coordinator_scaffold",
-                                  "build_scaffold_round_step", "Trainer"])
+                                  "build_scaffold_round_step", "Trainer",
+                                  "DeviceIngestBuffer", "IngestPipeline", "HTTPServer_ingest",
+                                  "fedbuff_combine"])
 def test_entry_points_default_to_cuda_and_raise_without_it(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
