@@ -73,9 +73,9 @@ Phases (any failure exits non-zero):
    aggregation-epilogue table (B4 and B2 against their unfused programs at P =
    1,199,882, C = 64); its final params must equal a hand-built coordinator with the
    winner's knobs within 1e-4; then ``run_experiment(autotune=True, retune_every=1,
-   profile_programs=True)`` on 8 ``mnist_cnn`` clients of 600 samples, 3 rounds.  The
-   launch counts of both runs must equal what the profiler's calls and the rounds
-   launch.
+   profile_programs=True)`` on 8 ``mnist_cnn`` clients of 128 samples, 3 rounds (its
+   default space sweeps 3-round blocks too).  The launch counts of both runs must equal
+   what the profiler's calls and the rounds launch.
    Then resumable runs: (j) at the flagship's shape through ``Coordinator`` with FedAvgM
    (a [P] momentum trace) and a cosine client schedule (``lr_min_factor=0.2``), 4
    rounds: an uninterrupted run with a ``ModelManager`` and a ``FileStateStore``, each
@@ -137,6 +137,18 @@ Phases (any failure exits non-zero):
    q8 round, an unregistered client answered 403 and absent from the aggregate,
    signing and verifying timed, then a signed masked round on the ``cuda`` backend
    (B5 8, B7 8, B6 1).
+   Then fused multi-round blocks (``CoordinatorConfig.rounds_per_block``): (s1) the
+   flagship (``client_chunk=125``), 8 rounds at ``rounds_per_block=4`` (two blocks) and
+   at 1, and the fused run again for the run-to-run gap: params within 1e-4 and the gap
+   plus 1e-6, every round's metrics within 1e-4 (counts equal), B1 accumulate and B3 64
+   each a run, per-round wall time and peak device memory above each run's start
+   (within 1%); (s2) a validated 10% cohort with dropout 0.1 as one 4-round block
+   against single rounds (B2 once a round), and a 4-round block that resamples its
+   cohorts on the card through ``build_round_block`` (distinct ids, plausible
+   survivors; B1 normalised and B3 once a round); (s3) in the second fused run, the synchronizing operations inside
+   its first block's dispatch under ``torch.cuda.set_sync_debug_mode("warn")`` (must be
+   0) and its second block under ``torch.profiler``: the device's busy share of the
+   block's wall time and its top four kernels by device time.
 4. Cross-check: 8-client f32 rounds of the port on the card and on the CPU from the
    same weights, permutations and injected noise: the plain round with dropout off
    and on (the masks are an integer hash, the same bits on both devices), the
@@ -154,6 +166,7 @@ from __future__ import annotations
 
 import asyncio
 import dataclasses
+import gc
 import json
 import math
 import statistics
@@ -206,6 +219,9 @@ CROSS_TOL = 1e-4  # cuDNN vs CPU convolutions summed in another order, 4 SGD ste
 EPILOGUE_CLIENTS = 64  # the epilogue table's C (tuning.epilogues.DEFAULT_EPILOGUE_CLIENTS)
 TUNED_CHUNKS = (None, 125, 250)  # (i): the flagship sweep's pinned client_chunk axis
 TUNED_BATCHES = (32, 64)  # (i): and its batch-size axis
+# (i): the autotuned runner's samples a client.  Its default space sweeps 3-round blocks
+# beside single rounds, and the profiler runs every candidate 5 times.
+RUNNER_SAMPLES = 128
 FLAGSHIP = dict(num_clients=1000, num_rounds=2, local_epochs=2, batch_size=64,
                 learning_rate=0.1, train_size=60_000, compute_dtype="bfloat16")
 TRIM_K = 5  # (e): trimmed mean over the 100-client cohort
@@ -2180,7 +2196,8 @@ def add_launches(total: dict, more: dict, times: int = 1) -> None:
 
 def sweep_launches(result_dict: dict, rows: int, calls: int) -> tuple[dict, int]:
     """Launches of an autotune sweep from its artifact: every profiled candidate's
-    round step ran ``calls`` times (the profiler's first, counting and timed calls),
+    round step (or R-round block, R rounds a call) ran ``calls`` times (the
+    profiler's first, counting and timed calls),
     and the epilogue table ran B4 and B2 ``calls`` times each.  Also returns how many
     candidates were rejected for running out of device memory (their partial runs
     are not derivable)."""
@@ -2191,7 +2208,8 @@ def sweep_launches(result_dict: dict, rows: int, calls: int) -> tuple[dict, int]
     for cand in result_dict["candidates"]:
         reason = cand.get("reject_reason", "")
         if cand["feasible"] or "exceeds the device HBM budget" in reason:
-            add_launches(want, step_launches(cand["config"]["client_chunk"], rows), calls)
+            add_launches(want, step_launches(cand["config"]["client_chunk"], rows),
+                         calls * cand["config"]["rounds_per_block"])
         elif "out of device memory" in reason:
             oom += 1
     add_launches(want, {"dequant_accumulate_flat": calls,
@@ -2219,6 +2237,7 @@ def print_sweep(card: str, tag: str, result) -> None:
     for o in result.outcomes:
         if o.cost:
             print(f"[{card}] {tag} candidate chunk={o.config.client_chunk} "
+                  f"rounds_per_block={o.config.rounds_per_block} "
                   f"batch={o.config.batch_size}: measured_s_per_round="
                   f"{o.cost['measured_s_per_round']:.6f} first_call_s="
                   f"{o.cost['compile_seconds']} bound_s_per_round="
@@ -2314,7 +2333,7 @@ def phase_autotune(torch, ops, run_experiment, card: str, out_dir: Path) -> dict
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     summary = run_experiment(model="mnist_cnn", num_clients=SECURE_CLIENTS,
-                             train_size=SECURE_CLIENTS * SECURE_SAMPLES, num_rounds=3,
+                             train_size=SECURE_CLIENTS * RUNNER_SAMPLES, num_rounds=3,
                              autotune=True, retune_every=1, profile_programs=True,
                              device="cuda", seed=0, out_dir=out_dir / "i_runner")
     torch.cuda.synchronize()
@@ -2337,7 +2356,10 @@ def phase_autotune(torch, ops, run_experiment, card: str, out_dir: Path) -> dict
     artifact = json.loads(Path(tuned["artifact"]).read_text())
     print_sweep(card, "(i) runner", AutotuneResult.from_dict(artifact))
     want, oom = sweep_launches(artifact, SECURE_CLIENTS, calls)
-    add_launches(want, step_launches(tuned["client_chunk"], SECURE_CLIENTS), calls)
+    # The catalog's round step, and its block of R rounds a call when the winner fuses.
+    rpb = tuned["rounds_per_block"]
+    add_launches(want, step_launches(tuned["client_chunk"], SECURE_CLIENTS),
+                 calls * (1 + rpb if rpb > 1 else 1))
     for program, measured in retunes["measured"].items():  # the rounds each chunk ran
         chunk = int(program.split("_")[1].removeprefix("chunk")) or None
         add_launches(want, step_launches(chunk, SECURE_CLIENTS), measured["rounds"])
@@ -3173,6 +3195,256 @@ def phase_trainer(torch, ops, card: str, out_dir: Path, global_params, populatio
         fail("(n) personalized accuracies outside [0, 1]")
 
 
+FUSED_RPB = 4  # (s): rounds per block
+FUSED_ROUNDS = 8  # (s1), (s3): two blocks of the flagship
+FUSED_COHORT_ROUNDS = 4  # (s2): one block
+FUSED_MEMORY_RTOL = 0.01  # (s1): a fused run's peak device memory against a single one's
+
+
+def block_timer(torch, coord, spent: list[float], around=None) -> None:
+    """Wrap ``coord``'s block: record each call's seconds from its dispatch to the
+    device's end, and run the ``i``-th call inside ``around[i](call)`` when given."""
+    block = coord._round_block
+
+    def timed(*args, **kwargs):
+        call = lambda: block(*args, **kwargs)  # noqa: E731
+        wrap = (around or {}).get(len(spent))
+        t0 = time.perf_counter()
+        out = wrap(call) if wrap is not None else call()
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t0)
+        return out
+
+    coord._round_block = timed
+
+
+def sync_warnings(torch, call) -> tuple[object, list[str]]:
+    """``call()`` under ``torch.cuda.set_sync_debug_mode("warn")``: its result and the
+    warnings of the synchronizing operations it ran (not the mode's own notice that
+    it is a prototype)."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = call()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, [str(w.message) for w in caught
+                 if "called a synchronizing CUDA operation" in str(w.message)]
+
+
+def device_profile(torch, call) -> tuple[object, float, float, list[tuple[str, float]]]:
+    """``call()`` under ``torch.profiler`` (device activity only: recording the host's
+    ops as well costs more than the block): its result, the wall seconds from the call
+    to the device's end, the device's busy time in ms (the union of its kernels',
+    copies' and fills' intervals, so nothing is counted twice) and the four largest
+    kernels by summed device time."""
+    activities = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        out = call()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans, by_name = [], {}
+    for e in prof.events():
+        if (not str(getattr(e, "device_type", "")).endswith("CUDA")
+                or getattr(e, "is_user_annotation", False)):
+            continue
+        start, end = e.time_range.start, e.time_range.end
+        spans.append((start, end))
+        by_name[e.name] = by_name.get(e.name, 0.0) + (end - start) / 1e3
+    busy_us, reach = 0.0, float("-inf")
+    for start, end in sorted(spans):
+        if end > reach:
+            busy_us += end - max(start, reach)
+            reach = end
+    return out, wall, busy_us / 1e3, sorted(by_name.items(), key=lambda kt: -kt[1])[:4]
+
+
+def phase_fused(torch, ops, card: str, out_dir: Path) -> dict[str, int]:
+    """(s): fused multi-round blocks.  (s1) the flagship at ``rounds_per_block=4`` (two
+    blocks) and at 1, 8 rounds each, a second fused run for the run-to-run gap; (s2) a
+    validated 10% cohort with dropout as one block against single rounds, and a block
+    resampling its cohorts on the device through ``build_round_block``; (s3) the
+    synchronizing operations inside a block's dispatch (``set_sync_debug_mode``) and
+    the device's busy share of one block (``torch.profiler``), both in the second
+    fused run.  Returns the launch counts."""
+    from nanofed_tpu_torch.aggregation import fedavg_strategy
+    from nanofed_tpu_torch.models import get_model
+    from nanofed_tpu_torch.orchestration import (
+        Coordinator,
+        CoordinatorConfig,
+        RoundStatus,
+        cohort_size,
+    )
+    from nanofed_tpu_torch.parallel import build_round_block, init_server_state, round_seeds
+    from nanofed_tpu_torch.security.validation import ValidationConfig
+    from nanofed_tpu_torch.utils.trees import ravel
+
+    t_phase = time.perf_counter()
+    n, chunk, rpb = FLAGSHIP["num_clients"], 125, FUSED_RPB
+    model, data, training = get_model("mnist_cnn"), flagship_data(), flagship_training()
+    totals: dict[str, int] = dict.fromkeys(ops.launch_counts(), 0)
+    base = out_dir / "s_fused"
+    gc.collect()  # earlier phases' coordinators sit in cycles with their catalogs
+
+    def make(name: str, rounds_per_block: int, num_rounds: int = FUSED_ROUNDS, **kw):
+        guards = {k: kw.pop(k) for k in ("validation", "client_chunk") if k in kw}
+        return Coordinator(
+            model, data, CoordinatorConfig(num_rounds=num_rounds, seed=0,
+                                           base_dir=base / name,
+                                           rounds_per_block=rounds_per_block, **kw),
+            training, **{"client_chunk": chunk, **guards}, device="cuda")
+
+    def drive(tag: str, coord, want: dict):
+        """Run ``coord``; return its rounds, wall seconds and peak device memory above
+        what was allocated when it started (its working memory: the population and
+        anything earlier phases left behind are not the run's)."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated()
+        rounds, wall, grew = counted(torch, ops, card, tag, coord.run, want)
+        add_launches(totals, grew)
+        if [m.status for m in rounds] != [RoundStatus.COMPLETED] * len(rounds):
+            fail(f"{tag}: rounds {[m.status for m in rounds]}")
+        return rounds, wall, torch.cuda.max_memory_allocated() - start
+
+    # (s1) single rounds, then fused, then fused again instrumented (s3).
+    want = {}
+    add_launches(want, step_launches(chunk, n), FUSED_ROUNDS)
+    # One coordinator on the card at a time, so the peaks compare.
+    single = make("single", 1)
+    s_rounds, s_wall, s_peak = drive("(s1) single rounds", single, want)
+    s_params = ravel(single.params)
+    del single
+    gc.collect()  # a coordinator sits in a cycle with its program catalog
+    fused = make("fused", rpb)
+    f_blocks: list[float] = []
+    block_timer(torch, fused, f_blocks)
+    f_rounds, f_wall, f_peak = drive("(s1) fused", fused, want)
+    if len(f_blocks) != FUSED_ROUNDS // rpb:
+        fail(f"(s1) fused: {len(f_blocks)} blocks ran, expected {FUSED_ROUNDS // rpb}")
+    f_params = ravel(fused.params)
+    del fused
+    gc.collect()
+    again = make("fused_again", rpb)
+    caught: dict[str, object] = {}
+
+    def with_sync_check(call):
+        out, caught["sync"] = sync_warnings(torch, call)
+        return out
+
+    def with_profile(call):
+        out, caught["wall"], caught["busy"], caught["top"] = device_profile(torch, call)
+        return out
+
+    a_blocks: list[float] = []
+    block_timer(torch, again, a_blocks, around={0: with_sync_check, 1: with_profile})
+    drive("(s1) fused again, (s3) instrumented", again, want)
+
+    gap = float((f_params - ravel(again.params)).abs().max())
+    diff = float((f_params - s_params).abs().max())
+    metric_gap = max(abs(f.agg_metrics[k] - s.agg_metrics[k])
+                     for f, s in zip(f_rounds, s_rounds) for k in s.agg_metrics)
+    s_per = [m.duration_s for m in s_rounds]
+    f_per = [m.duration_s for m in f_rounds]
+    print(f"[{card}] (s1) flagship, {FUSED_ROUNDS} rounds: single round_s={s_per} "
+          f"(median {statistics.median(s_per):.6f}, wall_s={s_wall:.3f}); fused "
+          f"rounds_per_block={rpb} round_s={f_per} (median {statistics.median(f_per):.6f}, "
+          f"wall_s={f_wall:.3f}, blocks dispatch-to-device-end s={f_blocks}); fused/single "
+          f"median={statistics.median(f_per) / statistics.median(s_per):.4f}")
+    print(f"[{card}] (s1) max|dparams| fused vs single={diff:.3e}, fused run-to-run gap="
+          f"{gap:.3e} (tolerance {CROSS_TOL} and the gap + 1e-6); max|dmetric| per round="
+          f"{metric_gap:.3e}; peak device memory above each run's start single={s_peak} "
+          f"fused={f_peak} "
+          f"(fused/single {f_peak / s_peak:.6f})")
+    if not (torch.isfinite(f_params).all() and diff <= CROSS_TOL
+            and diff <= gap + 1e-6):
+        fail(f"(s1) fused params differ from single rounds by {diff} (gap {gap})")
+    for f, s in zip(f_rounds, s_rounds):
+        counts = ("participating_clients", "samples")
+        if (f.agg_metrics.keys() != s.agg_metrics.keys()
+                or any(f.agg_metrics[k] != s.agg_metrics[k] for k in counts)
+                or metric_gap > CROSS_TOL):
+            fail(f"(s1) round {f.round_id}: fused {f.agg_metrics} vs single {s.agg_metrics}")
+    if abs(f_peak / s_peak - 1.0) > FUSED_MEMORY_RTOL:
+        fail(f"(s1) fused peak memory {f_peak} vs single {s_peak}")
+
+    # (s3) from the instrumented run: its first block under the sync check, its
+    # second under the profiler.
+    syncs = caught["sync"]
+    busy_ms, prof_wall = caught["busy"], caught["wall"]
+    top = "; ".join(f"{k[:70]} {t:.3f} ms ({t / busy_ms:.1%})" for k, t in caught["top"])
+    print(f"[{card}] (s3) synchronizing operations inside a fused flagship block's dispatch: "
+          f"{len(syncs)}{' ' + repr(syncs[:3]) if syncs else ''}")
+    print(f"[{card}] (s3) the instrumented run's blocks, dispatch to device end: "
+          f"sync-checked {a_blocks[0]:.3f} s, profiled {a_blocks[1]:.3f} s")
+    print(f"[{card}] (s3) one profiled fused block ({rpb} rounds): device time "
+          f"{busy_ms:.3f} ms of {prof_wall * 1e3:.3f} ms wall under the profiler (busy share "
+          f"{busy_ms / (prof_wall * 1e3):.4f}); of the unprofiled second block's "
+          f"{f_blocks[1] * 1e3:.3f} ms: {busy_ms / (f_blocks[1] * 1e3):.4f}; top four by "
+          f"device time: {top}")
+    if syncs:
+        fail(f"(s3) {len(syncs)} synchronizing operations inside a host-sampled FedAvg block")
+    if not busy_ms > 0:
+        fail("(s3) the profiler saw no device time in the block")
+    del again
+    gc.collect()
+
+    # (s2) a validated 10% cohort with dropout: one block against single rounds (B2 once
+    # a round), then on-device resampling through the builder.
+    cohort = cohort_size(n, 0.1)
+    kw = dict(num_rounds=FUSED_COHORT_ROUNDS, participation_rate=0.1, dropout_rate=0.1,
+              validation=ValidationConfig())
+    want = {"masked_weighted_mean_flat": FUSED_COHORT_ROUNDS}
+    c_single = make("cohort_single", 1, **kw)
+    cs_rounds, _, _ = drive("(s2) validated cohort, single rounds", c_single, want)
+    c_fused = make("cohort_fused", FUSED_COHORT_ROUNDS, **kw)
+    cf_rounds, cf_wall, _ = drive("(s2) validated cohort, one block", c_fused, want)
+    c_diff = float((ravel(c_fused.params) - ravel(c_single.params)).abs().max())
+    print(f"[{card}] (s2) validated {cohort}-client cohorts, dropout 0.1: survivors "
+          f"{[m.num_clients for m in cf_rounds]}, valid "
+          f"{[m.agg_metrics['valid_clients'] for m in cf_rounds]}, fused round_s="
+          f"{[m.duration_s for m in cf_rounds]}, single round_s="
+          f"{[m.duration_s for m in cs_rounds]}; max|dparams|={c_diff:.3e}")
+    if c_diff > CROSS_TOL or any(
+            f.num_clients != s.num_clients or f.agg_metrics.keys() != s.agg_metrics.keys()
+            or any(abs(f.agg_metrics[k] - s.agg_metrics[k]) > CROSS_TOL for k in s.agg_metrics)
+            for f, s in zip(cf_rounds, cs_rounds)):
+        fail(f"(s2) the fused cohort block differs from single rounds by {c_diff}")
+    del c_single, c_fused
+    gc.collect()
+
+    block = build_round_block(model, training, fedavg_strategy(), num_clients=n,
+                              step_clients=cohort, cohort_size=cohort, dropout_rate=0.1,
+                              device="cuda")
+    params = {k: v.cuda() for k, v in model.init(torch.Generator().manual_seed(0)).items()}
+    dev_data = data.to(torch.device("cuda"))
+    want = {"weighted_mean_flat": FUSED_COHORT_ROUNDS, "row_sq_norms": FUSED_COHORT_ROUNDS}
+    res, wall, grew = counted(
+        torch, ops, card, "(s2) on-device resampling block",
+        lambda: block(params, init_server_state(fedavg_strategy(), params), dev_data,
+                      dev_data.mask.sum(1), round_seeds(0, range(FUSED_COHORT_ROUNDS)),
+                      [1.0] * FUSED_COHORT_ROUNDS), want)
+    add_launches(totals, grew)
+    ids = res.cohort_ids.cpu()
+    survivors = res.survivors.tolist()
+    distinct = [len(set(row[:cohort].tolist())) for row in ids]
+    print(f"[{card}] (s2) on-device resampling, {FUSED_COHORT_ROUNDS} rounds: wall_s="
+          f"{wall:.3f} survivors={survivors} distinct ids={distinct} "
+          f"participating={res.metrics['participating_clients'].tolist()} "
+          f"loss={res.metrics['loss'].tolist()}")
+    if (distinct != [cohort] * FUSED_COHORT_ROUNDS or not bool((ids >= 0).all())
+            or not bool((ids < n).all()) or not all(cohort // 2 <= s <= cohort for s in survivors)
+            or res.metrics["participating_clients"].tolist() != survivors
+            or not bool(torch.isfinite(res.metrics["loss"]).all())):
+        fail("(s2) the on-device cohorts are not valid draws")
+    print(f"[{card}] (s) phase wall_s={time.perf_counter() - t_phase:.3f}")
+    return totals
+
+
 def phase_cross_check(torch, ops, card: str) -> None:
     """8-client f32 rounds on the card and on the CPU from the same inputs; each
     variant's kernel launches on the card are checked against the round's code."""
@@ -3371,10 +3643,11 @@ def main() -> None:
             torch, ops, run_experiment, card, Path(tmp))
         phase_trainer(torch, ops, card, Path(tmp), scaffold_params, population)
         del scaffold_params, population
+        fused_counts = phase_fused(torch, ops, card, Path(tmp))
     wire_counts = phase_wire(torch, ops, card)
     counts = {k: counts[k] + secure_counts[k] + tuned_counts[k] + resume_counts[k]
               + network_resume_counts[k] + dp_counts[k] + scaffold_counts[k]
-              + wire_counts.get(k, 0) for k in counts}
+              + fused_counts[k] + wire_counts.get(k, 0) for k in counts}
     print(f"kernels: {json.dumps(counts)}")
     missing = [k for k, v in counts.items() if v == 0]
     if missing:

@@ -6,7 +6,8 @@ counterpart there.  It imports ``torch`` and never ``jax`` or ``nanofed_tpu``.
 
 It runs the synchronous simulated FedAvg round on one GPU:
 ``experiments.run_experiment`` -> ``orchestration.Coordinator`` ->
-``parallel.round_step`` -> ``trainer.local`` -> the weighted reduce and row norms,
+``parallel.round_step`` (or ``parallel.multi_round``'s fused blocks of R rounds with no
+host barrier between them) -> ``trainer.local`` -> the weighted reduce and row norms,
 which run in hand-written CUDA kernels (``ops/csrc``); and the network mode
 (``communication``): validated, robust, compressed (q8/topk8) and signed
 (``security.signing``) rounds, async FedBuff with the device ingest buffer

@@ -1,4 +1,5 @@
 from nanofed_tpu_torch.aggregation.base import (
+    AggregationResult,
     ServerAdam,
     ServerSGD,
     Strategy,
@@ -6,6 +7,7 @@ from nanofed_tpu_torch.aggregation.base import (
     fedavg_strategy,
     fedavgm_strategy,
     fedyogi_strategy,
+    validate_updates,
 )
 from nanofed_tpu_torch.aggregation.fedavg import (
     aggregate_metrics,
@@ -30,6 +32,7 @@ from nanofed_tpu_torch.aggregation.robust import (
 )
 
 __all__ = [
+    "AggregationResult",
     "PrivacyAwareAggregationConfig",
     "RobustAggregationConfig",
     "ServerAdam",
@@ -52,4 +55,5 @@ __all__ = [
     "robust_floor",
     "trimmed_mean",
     "validate_private_round",
+    "validate_updates",
 ]

@@ -12,17 +12,38 @@ once per round: the server state persists across rounds, so the count is the num
 of server updates so far.  A schedule keeps its count in the state as
 ``schedule_count`` (optax's ``ScaleByScheduleState``, which the JAX package's
 checkpoints carry), so a resumed run continues it.
+
+The counters (``schedule_count``, Adam's ``count``) are Python ints between rounds.
+Inside a fused block (``parallel.multi_round``) they ride as 0-d int64 tensors on the
+device, so a round the device gates leaves them where they were without a read back;
+a schedule is then called with that tensor, as an optax schedule is traced inside the
+JAX block, so it must compute with torch ops (``float()`` or ``if`` on it reads the
+device).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Callable
 
 import torch
 
+from nanofed_tpu_torch.core.exceptions import AggregationError
+from nanofed_tpu_torch.core.types import ClientUpdates, Params
+
 State = dict[str, Any]
 LearningRate = float | Callable[[int], float]
+
+
+@dataclass(frozen=True)
+class AggregationResult:
+    """The new global params plus round bookkeeping and weighted-mean client
+    metrics."""
+
+    params: Params
+    round_number: int
+    num_clients: int
+    metrics: dict[str, Any] = field(default_factory=dict)
 
 
 def _schedule_init(learning_rate: LearningRate) -> State:
@@ -37,7 +58,16 @@ def _scaled(
     if not callable(learning_rate):
         return step * (-learning_rate), {}
     count = state["schedule_count"]
-    return step * (-float(learning_rate(count))), {"schedule_count": count + 1}
+    lr = learning_rate(count)
+    lr = lr if torch.is_tensor(lr) else float(lr)
+    return step * (-lr), {"schedule_count": count + 1}
+
+
+def _bias_correction(decay: float, count: int | torch.Tensor) -> float | torch.Tensor:
+    """``1 - decay**count`` in float64, on the host or (a tensor count) the device."""
+    if torch.is_tensor(count):
+        return 1 - torch.pow(decay, count.double())
+    return 1 - decay**count
 
 
 @dataclass(frozen=True)
@@ -86,8 +116,8 @@ class ServerAdam:
         else:
             nu = (1 - self.b2) * g2 + self.b2 * state["nu"]
         count = state["count"] + 1
-        mu_hat = mu / (1 - self.b1**count)
-        nu_hat = nu / (1 - self.b2**count)
+        mu_hat = mu / _bias_correction(self.b1, count)
+        nu_hat = nu / _bias_correction(self.b2, count)
         step, schedule = _scaled(mu_hat / (torch.sqrt(nu_hat) + self.eps),
                                  self.learning_rate, state)
         return step, {"count": count, "mu": mu, "nu": nu, **schedule}
@@ -125,3 +155,20 @@ def fedyogi_strategy(
 ) -> Strategy:
     """FedYogi (Reddi et al. 2021)."""
     return Strategy(name="fedyogi", server_tx=ServerAdam(learning_rate, b1, b2, eps, yogi=True))
+
+
+def validate_updates(updates: ClientUpdates, global_params: Params) -> None:
+    """Structural validation before aggregation: the stacked client params carry the
+    global model's leaves, each ``[C, *leaf.shape]``.  Statistical checks live in
+    ``security.validation``."""
+    if list(updates.params) != list(global_params):
+        raise AggregationError(
+            f"update tree structure mismatch: {list(updates.params)} != {list(global_params)}"
+        )
+    c = updates.weights.shape[0]
+    for g, u in zip(global_params.values(), updates.params.values()):
+        if tuple(u.shape) != (c, *g.shape):
+            raise AggregationError(
+                f"update leaf shape {tuple(u.shape)} incompatible with global "
+                f"{tuple(g.shape)} and client count {c}"
+            )

@@ -189,15 +189,17 @@ def fedbuff_combine(
         raise ValueError(f"no aggregatable updates: all {skipped} buffered bases have left "
                          "the version window")
     k = len(live)
-    coef = {u.client_id: float(np.float32(d / k)) for u, d in zip(live, discounts)}
+    # One coefficient per update: two updates of one client carry their own
+    # staleness.  The stable sort keeps a repeated client's updates in buffer order.
+    coefs = [float(np.float32(d / k)) for d in discounts]
     agg = {name: torch.zeros(leaf.shape, dtype=torch.float32, device=dev)
            for name, leaf in global_params.items()}
-    for u in sorted(live, key=lambda u: u.client_id):
-        base = version_params[u.round_number]
+    for i in sorted(range(k), key=lambda i: live[i].client_id):
+        u, base = live[i], version_params[live[i].round_number]
         for name, acc in agg.items():
             delta = (u.params[name].to(dev, torch.float32)
                      - base[name].to(dev, torch.float32))
-            acc += coef[u.client_id] * delta
+            acc += coefs[i] * delta
     lr = float(np.float32(server_lr))
     new_params = {name: (g.to(dev, torch.float32) + lr * agg[name]).to(g.dtype)
                   for name, g in global_params.items()}

@@ -7,6 +7,8 @@ from nanofed_tpu_torch.core.exceptions import (
     NanoFedError,
     PrivacyError,
     SecurityError,
+    TrainingError,
+    ValidationError,
 )
 from nanofed_tpu_torch.core.interfaces import (
     AggregatorProtocol,
@@ -45,5 +47,7 @@ __all__ = [
     "PrivacyError",
     "SecurityError",
     "ServerProtocol",
+    "TrainingError",
+    "ValidationError",
     "resolve_device",
 ]

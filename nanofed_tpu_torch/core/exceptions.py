@@ -1,5 +1,4 @@
-"""Exception hierarchy (counterpart of ``nanofed_tpu/core/exceptions.py``; the
-classes the port raises so far)."""
+"""Exception hierarchy (counterpart of ``nanofed_tpu/core/exceptions.py``)."""
 
 from __future__ import annotations
 
@@ -16,8 +15,16 @@ class ModelManagerError(NanoFedError):
     """Raised on model versioning/persistence failures."""
 
 
+class TrainingError(NanoFedError):
+    """Raised when local training cannot proceed (bad shapes, empty data)."""
+
+
 class PrivacyError(NanoFedError):
     """Raised on privacy budget violations or invalid privacy configuration."""
+
+
+class ValidationError(NanoFedError):
+    """Raised when a client update fails integrity/sanity validation."""
 
 
 class SecurityError(NanoFedError):

@@ -4,11 +4,12 @@ to the flags this slice supports.
 ``central_privacy`` (DP-FedAvg at the reduce), ``robust_trim_k``/``robust_method``
 (robust aggregation), the client lr schedule (``lr_schedule``, ``lr_min_factor``,
 ``lr_decay_every``, ``lr_decay_gamma``), ``profile_programs``, ``autotune`` and
-``retune_every`` and ``scaffold`` are taken as the JAX runner takes them.  Update
-validation is not a runner flag in either package: it is
-``Coordinator(validation=...)``.  The JAX runner's other flags (telemetry, fused
-blocks, mesh axes, strict mode, adapters) come with later slices; passing one with a value other than the JAX
-default raises ``NotImplementedError`` naming it, never a silent ignore.
+``retune_every``, ``scaffold`` and ``rounds_per_block`` (fused multi-round blocks)
+are taken as the JAX runner takes them.  Update validation is not a runner flag in
+either package: it is ``Coordinator(validation=...)``.  The JAX runner's other flags
+(telemetry, mesh axes, strict mode, adapters) come with later slices; passing one with
+a value other than the JAX default raises ``NotImplementedError`` naming it, never a
+silent ignore.
 """
 
 from __future__ import annotations
@@ -27,7 +28,6 @@ from nanofed_tpu_torch.trainer import TrainingConfig
 # The JAX runner's flags that later slices bring, with the JAX defaults (accepted).
 LATER_SLICE_FLAGS: dict[str, Any] = {
     "telemetry_dir": None,
-    "rounds_per_block": 1,
     "model_shards": 1,
     "hosts": 1,
     "strict": False,
@@ -66,6 +66,7 @@ def run_experiment(
     autotune: bool = False,
     retune_every: int = 0,
     scaffold: bool = False,
+    rounds_per_block: int = 1,
     **kwargs: Any,
 ) -> dict[str, Any]:
     """Run a simulated federated experiment on ``device`` (default: the GPU) and return
@@ -76,7 +77,9 @@ def run_experiment(
     ``trim_k`` defaulting to 1 and the method to ``"trimmed_mean"``.  ``lr_schedule``
     decays the client lr across rounds (``CoordinatorConfig``).  ``scaffold=True``
     runs SCAFFOLD (``Coordinator(scaffold=True)``: control variates, the uniform
-    participant mean).
+    participant mean).  ``rounds_per_block > 1`` runs full blocks of that many rounds
+    with no host barrier between them (``CoordinatorConfig.rounds_per_block``);
+    configurations the fused path does not cover run single rounds.
 
     ``profile_programs=True`` profiles the round step at construction
     (``observability.profiling``) and the summary carries ``program_profiles``.
@@ -104,10 +107,14 @@ def run_experiment(
             "retune_every requires autotune=True: the online retuner re-ranks "
             "the sweep's candidate table — without a sweep there is no table"
         )
-    if autotune and client_chunk is not None:
+    pinned = [name for name, engaged in (
+        ("client_chunk", client_chunk is not None),
+        ("rounds_per_block", rounds_per_block != 1),
+    ) if engaged]
+    if autotune and pinned:
         raise NanoFedError(
-            "autotune=True owns client_chunk — drop the explicit value or tune by "
-            "hand without autotune"
+            f"autotune=True owns {', '.join(pinned)} — drop the explicit value(s) or "
+            "tune by hand without autotune"
         )
     robust = None
     if robust_trim_k is not None or robust_method is not None:
@@ -125,7 +132,7 @@ def run_experiment(
     )
     config = CoordinatorConfig(
         num_rounds=num_rounds, participation_rate=participation, seed=seed,
-        base_dir=out_dir, eval_every=eval_every,
+        base_dir=out_dir, eval_every=eval_every, rounds_per_block=rounds_per_block,
         client_metrics_every=client_metrics_every,
         lr_schedule=lr_schedule, lr_min_factor=lr_min_factor,
         lr_decay_every=lr_decay_every, lr_decay_gamma=lr_decay_gamma,

@@ -52,3 +52,7 @@ def get_model(name: str, **kwargs) -> Model:
         raise KeyError(f"unknown model '{name}'; known: {sorted(_REGISTRY)}")
     return _REGISTRY[name](**kwargs)
 
+
+def list_models() -> list[str]:
+    return sorted(_REGISTRY)
+

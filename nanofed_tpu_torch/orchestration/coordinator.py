@@ -21,14 +21,15 @@ round, ``central_privacy=`` makes the reduce DP-FedAvg (accounted per round by a
 Under central DP the cohort and every device draw (permutations, dropout, noise) come
 from OS entropy, never from the seed, and no per-client detail is written.
 
-Profiling and tuning: every coordinator registers its round step in a
-``ProgramCatalog`` (``observability.profiling``); ``profile_programs()`` (or
-``CoordinatorConfig(profile_programs=True)``) profiles it on clones of the params and
-server state, so the coordinator's state is left bit for bit as it was.
-``Coordinator.from_autotune`` builds the coordinator the autotuner picks
-(``tuning.autotuner``: ``client_chunk`` and batch size), and with
-``retune_every > 0`` an ``OnlineRetuner`` re-ranks the sweep's table by the round
-times the run realizes and hot-swaps ``client_chunk`` between rounds.
+Profiling and tuning: every coordinator registers its round step (and its block,
+when it fuses) in a ``ProgramCatalog`` (``observability.profiling``);
+``profile_programs()`` (or ``CoordinatorConfig(profile_programs=True)``) profiles them
+on clones of the params and server state, so the coordinator's state is left bit for
+bit as it was.  ``Coordinator.from_autotune`` builds the coordinator the autotuner
+picks (``tuning.autotuner``: ``client_chunk``, ``rounds_per_block`` and batch size),
+and with ``retune_every > 0`` an ``OnlineRetuner`` re-ranks the sweep's table by the
+round times the run realizes and hot-swaps ``client_chunk`` and ``rounds_per_block``
+between rounds and blocks.
 
 Resumable runs: ``lr_schedule`` scales each round's local steps by
 ``trainer.schedules.lr_schedule_scale`` of the round index (reported as the round's
@@ -51,8 +52,20 @@ exact zeros), the full population's added in place.  Its checkpoints carry the
 controls as the JAX package's do (``{"opt", "scaffold_c_global",
 "scaffold_c_stack"}``).
 
-Later slices bring adapters, fused multi-round blocks, the hosts/model mesh axes,
-strict mode and telemetry.
+Fused multi-round blocks (``CoordinatorConfig.rounds_per_block = R > 1``,
+``parallel.multi_round``): full blocks of R rounds are enqueued on the device with no
+host barrier between them, from the same host cohorts, round seeds and lr scales as
+the single-round path, so a fused run equals the unfused one round for round.  The
+host synchronizes and fetches the stacked metrics once a block; checkpoints and
+versioned models are written at the block's last round, so a resumed run restarts at
+a block edge.  SCAFFOLD, robust aggregation, central DP and ``eval_every < R`` run
+single rounds (``_fused_fallback_reason``); ragged tails and the rounds before an eval
+boundary run single too.
+
+The JAX coordinator's ``adapter=``, ``chaos=``, ``mesh=``, ``mesh_shape=``,
+``strict=`` and ``telemetry_dir=`` come with later slices: a value other than the JAX
+default raises ``NotImplementedError`` naming the ROADMAP item
+(:data:`LATER_SLICE_KEYWORDS`).
 """
 
 from __future__ import annotations
@@ -82,7 +95,13 @@ from nanofed_tpu_torch.core.types import ClientData, Params
 from nanofed_tpu_torch.models.base import Model
 from nanofed_tpu_torch.observability.profiling import ProgramCatalog, ProgramCostReport
 from nanofed_tpu_torch.orchestration.engine import completion_required
-from nanofed_tpu_torch.orchestration.types import RoundMetrics, RoundStatus, cohort_size
+from nanofed_tpu_torch.orchestration.types import (
+    RoundMetrics,
+    RoundStatus,
+    TrainingProgress,
+    cohort_size,
+)
+from nanofed_tpu_torch.parallel.multi_round import build_round_block, round_seeds
 from nanofed_tpu_torch.parallel.round_step import build_round_step, init_server_state
 from nanofed_tpu_torch.parallel.scaffold_step import build_scaffold_round_step
 from nanofed_tpu_torch.persistence import FileStateStore, ModelManager, RestoredState
@@ -97,7 +116,11 @@ from nanofed_tpu_torch.trainer.local import (
     make_evaluator,
 )
 from nanofed_tpu_torch.trainer.scaffold import stack_zero_controls, zero_controls
-from nanofed_tpu_torch.trainer.schedules import SCHEDULES, lr_schedule_scale
+from nanofed_tpu_torch.trainer.schedules import (
+    SCHEDULES,
+    lr_schedule_scale,
+    lr_schedule_scales,
+)
 from nanofed_tpu_torch.tuning.autotuner import (
     DEFAULT_CACHE_DIR,
     PopulationSpec,
@@ -119,6 +142,17 @@ from nanofed_tpu_torch.utils.trees import (
 
 _log = logging.getLogger(__name__)
 
+#: The JAX coordinator's keywords that later slices bring: name -> (the JAX default,
+#: which is accepted, and the ROADMAP queue A item that lands it).
+LATER_SLICE_KEYWORDS: dict[str, tuple[Any, str]] = {
+    "adapter": (None, "item 16 (transformer, adapters and fleet)"),
+    "chaos": (None, "item 17 (multi-host federation and faults)"),
+    "mesh": (None, "item 9b (several GPUs)"),
+    "mesh_shape": (None, "item 9b (several GPUs)"),
+    "strict": (False, "item 21 (analysis)"),
+    "telemetry_dir": (None, "item 19 (observability)"),
+}
+
 
 @dataclass(frozen=True)
 class CoordinatorConfig:
@@ -131,6 +165,9 @@ class CoordinatorConfig:
     ``lr_min_factor``, ``lr_decay_every`` and ``lr_decay_gamma``) scales each
     round's local steps by a pure function of the round index, so a resumed run
     continues it exactly.
+
+    ``rounds_per_block`` (R) runs full blocks of R rounds with no host barrier
+    between them (``parallel.multi_round``); 1 is the single-round loop.
 
     ``profile_programs`` profiles the round step at construction
     (``Coordinator.profile_programs``).  ``retune_every`` (0 = off) asks the online
@@ -146,6 +183,7 @@ class CoordinatorConfig:
     base_dir: str | Path = "runs"
     save_metrics: bool = True
     eval_every: int = 0  # 0 = never evaluate during training
+    rounds_per_block: int = 1
     client_metrics_every: int = 1
     lr_schedule: str = "constant"  # constant | cosine | linear | step
     lr_min_factor: float = 0.0
@@ -175,6 +213,8 @@ class CoordinatorConfig:
             # gamma=0 would zero every update from the first decay on; gamma>1 would
             # grow the lr each decay.
             raise ValueError("lr_decay_gamma must be in (0, 1]")
+        if self.rounds_per_block < 1:
+            raise ValueError("rounds_per_block must be >= 1")
         if self.client_metrics_every < 0:
             raise ValueError("client_metrics_every must be >= 0 (0 = never)")
         if self.retune_every < 0:
@@ -199,11 +239,11 @@ class Coordinator:
         **kwargs: Any,
     ) -> "Coordinator":
         """Build a coordinator with the configuration the autotuner picks
-        (``tuning.autotune``: each candidate's round step profiled on inputs of the
-        population's shapes on the coordinator's device): the winner's
-        ``client_chunk`` and batch size replace the defaults.  The ranked table
-        lands under ``config.base_dir`` as ``autotune_*.json``; results are cached,
-        so a repeat construction profiles nothing.  The coordinator carries
+        (``tuning.autotune``: each candidate's round step or block profiled on inputs
+        of the population's shapes on the coordinator's device): the winner's
+        ``client_chunk``, ``rounds_per_block`` and batch size replace the defaults.
+        The ranked table lands under ``config.base_dir`` as ``autotune_*.json``;
+        results are cached, so a repeat construction profiles nothing.  The coordinator carries
         ``tuned_config`` (the winner and its provenance) and ``autotune_result``;
         with ``config.retune_every > 0`` the online retuner is attached.  An
         explicit ``client_chunk`` is refused: the tuner owns it (pin it with a
@@ -233,7 +273,8 @@ class Coordinator:
         )
         winner = result.winner
         coord = cls(
-            model, train_data, config,
+            model, train_data,
+            dataclasses.replace(config, rounds_per_block=winner.rounds_per_block),
             training=dataclasses.replace(training, batch_size=winner.batch_size),
             client_chunk=winner.client_chunk,
             **kwargs,
@@ -272,7 +313,19 @@ class Coordinator:
         grad_fn: GradFn | None = None,
         local_fit: Callable | None = None,
         scaffold: bool = False,
+        **later_slice: Any,
     ) -> None:
+        for name, value in later_slice.items():
+            if name not in LATER_SLICE_KEYWORDS:
+                raise TypeError(
+                    f"Coordinator.__init__() got an unexpected keyword argument {name!r}"
+                )
+            default, item = LATER_SLICE_KEYWORDS[name]
+            if value != default:
+                raise NotImplementedError(
+                    f"{name}=: not supported by this slice of nanofed_tpu_torch; it comes "
+                    f"with ROADMAP queue A {item} (run nanofed_tpu for it)"
+                )
         self.device = resolve_device(device)
         self.model = model
         self.config = config
@@ -369,6 +422,19 @@ class Coordinator:
                 model, self.training, self.strategy, client_chunk=client_chunk,
                 **self._builder_ctx,
             )
+        # Fused blocks, or the reason this configuration runs single rounds.
+        self._round_block = None
+        self._fused_fallback_reason: str | None = None
+        if config.rounds_per_block > 1:
+            unfused = self._unfused(config.rounds_per_block)
+            if unfused:
+                self._fused_fallback_reason = unfused
+                _log.info(
+                    "rounds_per_block=%d requested but %s is not fused; using the "
+                    "single-round path", config.rounds_per_block, unfused,
+                )
+            else:
+                self._round_block = self._build_block(client_chunk)
         # The round step, registered with a LAZY argument factory (nothing is made
         # until profile_programs() runs it).
         self.program_catalog = ProgramCatalog()
@@ -377,6 +443,7 @@ class Coordinator:
         self._eval_data = eval_data.to(self.device) if eval_data is not None else None
 
         self.current_round = 0
+        self.history: list[RoundMetrics] = []
         self._last_client_detail: dict[str, Any] | None = None
         self.base_dir = Path(config.base_dir)
         if config.save_metrics:
@@ -437,10 +504,12 @@ class Coordinator:
     # ------------------------------------------------------------------
 
     def _register_programs(self) -> None:
-        """Register the round step under ``"round_step"``.  Its argument factory
-        hands the step CLONES of the params and server state, the data rows of the
-        step's width, weights one, permutations and dropout keys from the config's
-        seed (and a noise draw under central DP), so profiling leaves the
+        """Register the round step under ``"round_step"`` and, when the coordinator
+        fuses, its block under ``"round_block"`` (profiled over its R rounds).  The
+        argument factories hand the programs CLONES of the params and server state;
+        the step gets the data rows of its width, weights one, permutations and
+        dropout keys from the config's seed (and a noise draw under central DP), the
+        block the population and a full cohort each round, so profiling leaves the
         coordinator's state untouched."""
 
         def _step_args() -> tuple[tuple, dict]:
@@ -461,9 +530,33 @@ class Coordinator:
                     gen, (tree_size(self.params),)),)
             return args, {}
 
+        attrs = {"step_clients": self._step_clients, "client_chunk": self._client_chunk}
         self.program_catalog.register(
-            "round_step", self._round_step, args_factory=_step_args,
-            attrs={"step_clients": self._step_clients, "client_chunk": self._client_chunk},
+            "round_step", self._round_step, args_factory=_step_args, attrs=attrs,
+        )
+        if self._round_block is None:
+            return
+        rpb = self.config.rounds_per_block
+
+        def _block_args() -> tuple[tuple, dict]:
+            # Every slot a distinct client with weight: the profiled block runs the
+            # rounds a full cohort runs.
+            n = self._step_clients
+            idx = (torch.arange(n, device=self.device).expand(rpb, n).contiguous()
+                   if self._cohort_mode else None)
+            args = (
+                {name: p.clone() for name, p in self.params.items()},
+                {k: v.clone() if torch.is_tensor(v) else v
+                 for k, v in self.server_state.items()},
+                self._data, self._num_samples,
+                round_seeds(self.config.seed, range(rpb)), [1.0] * rpb,
+                idx, torch.ones((rpb, n), device=self.device),
+            )
+            return args, {}
+
+        self.program_catalog.register(
+            "round_block", self._round_block, args_factory=_block_args, rounds=rpb,
+            attrs={**attrs, "rounds_per_block": rpb},
         )
 
     def profile_programs(self, force: bool = False) -> list[ProgramCostReport]:
@@ -570,20 +663,44 @@ class Coordinator:
         )
         return True
 
+    def _unfused(self, rounds_per_block: int) -> str | None:
+        """Why this configuration cannot run ``rounds_per_block``-round blocks (the
+        JAX coordinator's reasons), or None."""
+        ctx = self._builder_ctx
+        unsupported = [name for name, active in (
+            ("SCAFFOLD", self.scaffold),
+            ("robust aggregation", ctx["robust"] is not None),
+            ("central DP", ctx["central_privacy"] is not None),
+            # Blocks are cut at eval boundaries: a shorter eval cadence would never
+            # leave room for a full block.
+            ("eval_every < rounds_per_block",
+             0 < self.config.eval_every < rounds_per_block),
+        ) if active]
+        return " + ".join(unsupported) or None
+
+    def _build_block(self, client_chunk: int | None) -> Callable:
+        ctx = self._builder_ctx
+        cfg = self.config
+        return build_round_block(
+            self.model, self.training, self.strategy,
+            num_clients=self.num_clients, step_clients=self._step_clients,
+            cohort_size=self.cohort_size, dropout_rate=cfg.dropout_rate,
+            min_completion_rate=cfg.min_completion_rate,
+            grad_fn=ctx["grad_fn"], local_fit=ctx["local_fit"],
+            validation=ctx["validation"], client_chunk=client_chunk,
+            collect_client_detail=cfg.save_metrics and cfg.client_metrics_every > 0,
+            # Explicit, never derived: the block lays out the mask as _train_block
+            # builds it (full-N when the chunk does not divide the cohort).
+            cohort_mode=self._cohort_mode, device=self.device,
+        )
+
     def _rebuild_round_programs(self, client_chunk: int | None, rounds_per_block: int) -> None:
-        """Rebuild the round step for a hot-swapped ``client_chunk`` — the one knob
-        this coordinator swaps.  A ``rounds_per_block > 1`` swap is refused (fused
-        blocks come with the multi-GPU slice), as is a chunk that does not divide
-        the step's client rows.  Transactional: the new step is built before
-        anything is replaced."""
+        """Rebuild the round step and block for a hot-swapped ``(client_chunk,
+        rounds_per_block)``.  A chunk that does not divide the step's client rows is
+        refused, as is a ``rounds_per_block > 1`` this configuration cannot fuse.
+        Transactional: both programs are built before anything is replaced."""
         if self.scaffold:
             raise NanoFedError("online retuning does not cover the SCAFFOLD round program")
-        if rounds_per_block > 1:
-            raise NanoFedError(
-                f"rounds_per_block={rounds_per_block}: fused multi-round blocks come "
-                "with the multi-GPU slice of nanofed_tpu_torch; this coordinator "
-                "runs single rounds"
-            )
         n = self._step_clients
         if client_chunk is not None and client_chunk < n and n % client_chunk != 0:
             raise NanoFedError(
@@ -594,9 +711,23 @@ class Coordinator:
             self.model, self.training, self.strategy, client_chunk=client_chunk,
             **self._builder_ctx,
         )
+        round_block = None
+        if rounds_per_block > 1:
+            unfused = self._unfused(rounds_per_block)
+            if unfused:
+                raise NanoFedError(
+                    f"rounds_per_block={rounds_per_block} is not fused-capable here "
+                    f"({unfused})"
+                )
+            round_block = self._build_block(client_chunk)
         # Commit: nothing above changed the coordinator.
         self._round_step = round_step
+        self._round_block = round_block
+        self._fused_fallback_reason = None
         self._client_chunk = client_chunk
+        self.config = dataclasses.replace(self.config, rounds_per_block=rounds_per_block)
+        if round_block is None:
+            self.program_catalog.remove("round_block")  # no dead program stays profiled
         self._register_programs()
 
     # ------------------------------------------------------------------
@@ -604,12 +735,20 @@ class Coordinator:
     # ------------------------------------------------------------------
 
     def start_training(self) -> Iterator[RoundMetrics]:
-        """Generator over rounds.  Retune verdicts run BETWEEN rounds: the next round
-        picks up a swapped program, the one in flight never changes."""
+        """Generator over rounds.  Retune verdicts run BETWEEN rounds, and between
+        blocks: the next dispatch picks up a swapped program, the one in flight never
+        changes.  With ``rounds_per_block > 1`` a full block publishes all its rounds
+        before the first is yielded, so a consumer that stops mid-block resumes at the
+        block's edge."""
         try:
             while self.current_round < self.config.num_rounds:
                 self._maybe_retune()
+                n = self._block_len()
+                if n > 1:
+                    yield from self._train_block(n)
+                    continue
                 metrics = self._train_round(self.current_round)
+                self.history.append(metrics)
                 self._observe_retune(1, metrics.duration_s)
                 self._publish_round(metrics)
                 if self.on_round_end is not None:
@@ -624,12 +763,16 @@ class Coordinator:
     def run(self) -> list[RoundMetrics]:
         return list(self.start_training())
 
-    def _publish_round(self, metrics: RoundMetrics) -> None:
+    def _publish_round(self, metrics: RoundMetrics, persist_state: bool = True) -> None:
         """Release the round's artifacts: the checkpoint FIRST, then the metrics JSON,
         then the versioned model (COMPLETED rounds only).  A crash between them then
         loses at most an artifact, never an accounting event: a persisted noised
-        release must not outlive its accountant entry."""
-        if self.state_store is not None:
+        release must not outlive its accountant entry.
+
+        ``persist_state=False`` (a fused block's rounds before its last) skips the
+        checkpoint and the versioned model: ``self.params`` already holds the block's
+        END state, which is persisted only under the block's last round id."""
+        if self.state_store is not None and persist_state:
             ckpt_metrics = metrics.to_dict()
             if self.privacy_accountant is not None:
                 ckpt_metrics["privacy_accountant"] = self.privacy_accountant.state_dict()
@@ -652,7 +795,11 @@ class Coordinator:
             )
         if self.config.save_metrics:
             self._save_round_metrics(metrics)
-        if self.model_manager is not None and metrics.status == RoundStatus.COMPLETED:
+        if (
+            self.model_manager is not None
+            and persist_state
+            and metrics.status == RoundStatus.COMPLETED
+        ):
             self.model_manager.save_model(
                 self.params,
                 metadata={"round": metrics.round_id, "metrics": metrics.agg_metrics},
@@ -689,9 +836,140 @@ class Coordinator:
             return int(self._secret_sampling_rng.integers(0, 1 << 63))
         return self.config.seed * 100_003 + round_id
 
+    def _eval_due(self, round_id: int) -> bool:
+        every = self.config.eval_every
+        return self._evaluator is not None and every > 0 and (round_id + 1) % every == 0
+
+    def _round_agg(self, values: dict[str, float], lr_scale: float) -> dict[str, float]:
+        """A round's metrics record: the weighted metrics, the lr scale unless the
+        schedule is constant, and the client counts as ints."""
+        agg = dict(values)
+        if self.config.lr_schedule != "constant":
+            agg["lr_scale"] = round(lr_scale, 6)
+        for count_key in ("participating_clients", "valid_clients"):
+            if count_key in agg:
+                agg[count_key] = int(agg[count_key])
+        return agg
+
     def _client_detail_due(self, round_id: int) -> bool:
         every = self.config.client_metrics_every
         return every > 0 and round_id % every == 0
+
+    # ------------------------------------------------------------------
+    # Fused multi-round blocks
+    # ------------------------------------------------------------------
+
+    def _block_len(self) -> int:
+        """Rounds to run next as one fused block; 1 = the single-round path.  Only
+        full blocks of ``rounds_per_block`` rounds run fused; ragged tails and the
+        rounds leading into an eval boundary run single."""
+        rpb = self.config.rounds_per_block
+        if self._round_block is None or rpb <= 1:
+            return 1
+        n = min(rpb, self.config.num_rounds - self.current_round)
+        if self.config.eval_every > 0:
+            # Blocks END on eval boundaries: the eval is host work.
+            n = min(n, self.config.eval_every - (self.current_round % self.config.eval_every))
+        return n if n == rpb else 1
+
+    def _train_block(self, n: int) -> list[RoundMetrics]:
+        """Run ``n`` rounds as one fused block.  Cohorts, round seeds and lr scales
+        are the single-round path's host functions of the round index; the cohort
+        arrays go to the device before the dispatch.  The host then synchronizes
+        once and fetches the stacked metrics (and the ``[R, K]`` detail only when some
+        round of the block is due), and publishes every round, persisting state at
+        the last."""
+        cfg = self.config
+        first = self.current_round
+        rounds = list(range(first, first + n))
+        required = completion_required(self.cohort_size, cfg.min_completion_rate)
+        t0 = time.perf_counter()
+
+        idx_rows = np.zeros((n, self._step_clients), dtype=np.int64)
+        mask_rows = np.zeros((n, self._step_clients), dtype=np.float32)
+        survived_counts = []
+        for i, r in enumerate(rounds):
+            survived = self._sample_cohort(r)
+            survived_counts.append(len(survived))
+            if self._cohort_mode:
+                idx_rows[i], mask_rows[i] = self._place_cohort(survived)
+            else:
+                mask_rows[i, survived] = 1.0
+        lr_scales = lr_schedule_scales(
+            cfg.lr_schedule, first, n, cfg.num_rounds, min_factor=cfg.lr_min_factor,
+            decay_every=cfg.lr_decay_every, gamma=cfg.lr_decay_gamma,
+        )
+        idx_dev = torch.as_tensor(idx_rows).to(self.device) if self._cohort_mode else None
+        mask_dev = torch.as_tensor(mask_rows).to(self.device)
+        result = self._round_block(
+            self.params, self.server_state, self._data, self._num_samples,
+            round_seeds(cfg.seed, rounds), lr_scales, idx_dev, mask_dev,
+        )
+        self.params = result.params
+        self.server_state = result.server_opt_state
+
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)  # the block's one barrier
+        names = list(result.metrics)
+        values = torch.stack([result.metrics[k].double() for k in names]).tolist()
+        stacked = dict(zip(names, values))
+        detail = None
+        if result.client_metrics is not None and any(self._client_detail_due(r) for r in rounds):
+            detail = {
+                "weights": result.weights.tolist(),
+                "client_loss": result.client_metrics.loss.tolist(),
+                "client_accuracy": result.client_metrics.accuracy.tolist(),
+                "update_sq_norms": result.update_sq_norms.tolist(),
+            }
+        del result
+        block_duration = time.perf_counter() - t0
+        per_round_s = block_duration / n
+        self._observe_retune(n, block_duration)
+
+        out: list[RoundMetrics] = []
+        for i, r in enumerate(rounds):
+            if survived_counts[i] < required:
+                _log.warning(
+                    "round %d FAILED: %d/%d clients completed (< %d required)",
+                    r, survived_counts[i], self.cohort_size, required,
+                )
+                metrics = RoundMetrics(
+                    round_id=r, status=RoundStatus.FAILED, num_clients=survived_counts[i],
+                    duration_s=per_round_s, timestamp=_now_iso(),
+                )
+            else:
+                agg = self._round_agg({k: v[i] for k, v in stacked.items()}, lr_scales[i])
+                # Due only at a block's last round (_block_len), so self.params is
+                # this round's model.
+                eval_metrics = self.evaluate() if self._eval_due(r) else {}
+                _log.info(
+                    "round %d: loss=%.4f acc=%.4f clients=%d (fused %d-round block, "
+                    "%.2fs/round)", r, agg["loss"], agg["accuracy"], survived_counts[i],
+                    n, per_round_s,
+                )
+                metrics = RoundMetrics(
+                    round_id=r, status=RoundStatus.COMPLETED, num_clients=survived_counts[i],
+                    agg_metrics=agg, eval_metrics=eval_metrics, duration_s=per_round_s,
+                    timestamp=_now_iso(),
+                )
+            self._last_client_detail = None
+            if (
+                detail is not None
+                and metrics.status == RoundStatus.COMPLETED
+                and self._client_detail_due(r)
+            ):
+                self._last_client_detail = {k: v[i] for k, v in detail.items()}
+                if self._cohort_mode:
+                    self._last_client_detail["client_ids"] = idx_rows[i].tolist()
+            self.history.append(metrics)
+            # Checkpoint and versioned model only at the block's edge: a mid-block
+            # checkpoint would pair round r's id with the block's END params.
+            self._publish_round(metrics, persist_state=(i == n - 1))
+            if self.on_round_end is not None:
+                self.on_round_end(metrics)
+            self.current_round += 1
+            out.append(metrics)
+        return out
 
     def _train_round(self, round_id: int) -> RoundMetrics:
         t0 = time.perf_counter()
@@ -760,12 +1038,7 @@ class Coordinator:
         self.params = result.params
         self.server_state = result.server_opt_state
 
-        agg = {k: float(v) for k, v in result.metrics.items()}
-        if cfg.lr_schedule != "constant":
-            agg["lr_scale"] = round(lr_scale, 6)
-        for count_key in ("participating_clients", "valid_clients"):
-            if count_key in agg:
-                agg[count_key] = int(agg[count_key])
+        agg = self._round_agg({k: float(v) for k, v in result.metrics.items()}, lr_scale)
         if self.privacy_accountant is not None:
             record_central_privacy(
                 self.privacy_accountant, self.central_privacy,
@@ -776,13 +1049,7 @@ class Coordinator:
             )
             agg["privacy_epsilon"] = spent.epsilon_spent
             agg["privacy_delta"] = spent.delta_spent
-        eval_metrics: dict[str, float] = {}
-        if (
-            self._evaluator is not None
-            and self.config.eval_every > 0
-            and (round_id + 1) % self.config.eval_every == 0
-        ):
-            eval_metrics = self.evaluate()
+        eval_metrics = self.evaluate() if self._eval_due(round_id) else {}
 
         # Under central DP no per-client detail is written: the weights reveal who
         # took part, and per-client losses and norms describe the un-noised deltas.
@@ -818,6 +1085,25 @@ class Coordinator:
     # ------------------------------------------------------------------
     # Observability
     # ------------------------------------------------------------------
+
+    @property
+    def training_progress(self) -> TrainingProgress:
+        """Rounds run, completed and failed so far (``history``), and the mean loss
+        and accuracy of the completed rounds."""
+        completed = [m for m in self.history if m.status == RoundStatus.COMPLETED]
+        failed = [m for m in self.history if m.status == RoundStatus.FAILED]
+        global_metrics: dict[str, float] = {}
+        for key in ("loss", "accuracy"):
+            vals = [m.agg_metrics[key] for m in completed if key in m.agg_metrics]
+            if vals:
+                global_metrics[key] = float(np.mean(vals))
+        return TrainingProgress(
+            current_round=self.current_round,
+            total_rounds=self.config.num_rounds,
+            completed_rounds=len(completed),
+            failed_rounds=len(failed),
+            global_metrics=global_metrics,
+        )
 
     @property
     def cohort_size(self) -> int:

@@ -21,6 +21,14 @@ class RoundStatus(Enum):
 
 
 @dataclass(frozen=True)
+class ClientInfo:
+    """Host-side record of one simulated client."""
+
+    client_id: str
+    num_samples: int
+
+
+@dataclass(frozen=True)
 class RoundMetrics:
     """One round's outcome: id, status, participating clients, aggregated train
     metrics, eval metrics and wall-clock."""
@@ -44,3 +52,14 @@ class RoundMetrics:
             "timestamp": self.timestamp,
         }
 
+
+
+@dataclass(frozen=True)
+class TrainingProgress:
+    """Live progress snapshot (``Coordinator.training_progress``)."""
+
+    current_round: int
+    total_rounds: int
+    completed_rounds: int
+    failed_rounds: int
+    global_metrics: dict[str, float] = field(default_factory=dict)

@@ -1,3 +1,8 @@
+from nanofed_tpu_torch.parallel.multi_round import (
+    RoundBlockResult,
+    build_round_block,
+    round_seeds,
+)
 from nanofed_tpu_torch.parallel.round_step import (
     RoundStepResult,
     apply_server_update,
@@ -11,11 +16,14 @@ from nanofed_tpu_torch.parallel.scaffold_step import (
 )
 
 __all__ = [
+    "RoundBlockResult",
     "RoundStepResult",
     "ScaffoldStepResult",
     "apply_server_update",
+    "build_round_block",
     "build_round_step",
     "build_scaffold_round_step",
     "client_deltas",
     "init_server_state",
+    "round_seeds",
 ]

@@ -31,7 +31,8 @@ the identity and every all-gather the input):
 Validation composes with DP and with robust aggregation: the buffer is then
 sanitized in place before the clip or the sort (B1 would turn a NaN row into NaN even
 at weight 0).  Robust aggregation together with central DP is refused.  A round with
-zero total weight leaves params and server state untouched.
+zero total weight leaves params and server state untouched, by a select on the
+device (``apply_server_update``).
 """
 
 from __future__ import annotations
@@ -104,11 +105,23 @@ def apply_server_update(
 ) -> tuple[Params, Any]:
     """The server optimizer's step on the aggregated delta: new params shaped like
     ``like`` and the new server state; with ``total_w`` 0 both are left as they are.
-    The negative delta is the "gradient", so SGD(1.0) applies +delta exactly."""
-    if not bool(total_w > 0):
-        return like, sos
+    The negative delta is the "gradient", so SGD(1.0) applies +delta exactly.
+
+    The zero-weight identity is a select on the device, so the step never reads the
+    device back, save for a server state whose counters are Python ints (Adam's
+    ``count``, a schedule's ``schedule_count``): advancing one needs the gate on the
+    host.  Inside a fused block the counters are device tensors (``parallel.
+    multi_round``) and nothing is read."""
+    ok = total_w > 0
     updates, new_sos = server_tx.update(-agg_delta, sos)
-    return unravel(gp_flat + updates, like), new_sos
+    new_sos = {key: _gated(ok, new, sos[key]) for key, new in new_sos.items()}
+    return unravel(torch.where(ok, gp_flat + updates, gp_flat), like), new_sos
+
+
+def _gated(ok: torch.Tensor, new: Any, old: Any) -> Any:
+    if torch.is_tensor(old):
+        return torch.where(ok, new, old)
+    return new if bool(ok) else old  # a Python-int counter: the gate crosses to the host
 
 
 def _rows(t: torch.Tensor | None, sl: slice) -> torch.Tensor | None:

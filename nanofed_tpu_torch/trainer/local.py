@@ -144,18 +144,21 @@ def client_keys(seed: int, num_clients: int, device: torch.device | str) -> torc
     return mix32(ids + base)
 
 
-def _row_keys(keys: torch.Tensor, epochs: int, steps: int, lanes: torch.Tensor) -> torch.Tensor:
+def _row_keys(keys: torch.Tensor, epochs: int, steps: int, lanes: range) -> torch.Tensor:
     """``[E, S, L, k]`` int32: one key per (epoch, step, lane, client).  The dropout
-    layers are lanes ``0 .. L-1``; a grad fn's key is lane :data:`GRAD_KEY_LANE`."""
-    salt = mix32(torch.arange(epochs, dtype=torch.int32))[:, None] + torch.arange(
-        steps, dtype=torch.int32)
-    salt = mix32(salt)[:, :, None] + lanes.to(torch.int32)
-    return mix32(mix32(salt).to(keys.device)[..., None] + keys)
+    layers are lanes ``0 .. L-1``; a grad fn's key is lane :data:`GRAD_KEY_LANE`.
+    The salts are made on the keys' device, so a fit copies nothing from the host."""
+    dev = keys.device
+    salt = mix32(torch.arange(epochs, dtype=torch.int32, device=dev))[:, None] + torch.arange(
+        steps, dtype=torch.int32, device=dev)
+    lane = torch.arange(lanes.start, lanes.stop, dtype=torch.int32, device=dev)
+    salt = mix32(salt)[:, :, None] + lane
+    return mix32(mix32(salt)[..., None] + keys)
 
 
 def grad_keys(keys: torch.Tensor, epochs: int, steps: int) -> torch.Tensor:
     """``[E, S, k]`` int32: the key a grad fn gets for each (epoch, step, client)."""
-    return _row_keys(keys, epochs, steps, torch.tensor([GRAD_KEY_LANE]))[:, :, 0]
+    return _row_keys(keys, epochs, steps, range(GRAD_KEY_LANE, GRAD_KEY_LANE + 1))[:, :, 0]
 
 
 class _Batch(NamedTuple):
@@ -193,7 +196,7 @@ def _epoch_batches(model: Model, config: TrainingConfig, data: ClientData,
     if config.max_batches is not None:
         steps = min(steps, config.max_batches)
     if model.dropout:
-        row_keys = _row_keys(keys, epochs, steps, torch.arange(len(model.dropout)))
+        row_keys = _row_keys(keys, epochs, steps, range(len(model.dropout)))
         position_keys = [
             mix32(torch.arange(bsz * math.prod(shape), dtype=torch.int32, device=keys.device))
             for shape, _ in model.dropout

@@ -1,6 +1,6 @@
 """Autotuning (counterpart of ``nanofed_tpu/tuning``): the round configuration
-(``client_chunk`` x batch size; the fused-block, mesh and adapter axes are recorded as
-rejected until their slices land) picked from profiled candidates — see
+(``client_chunk`` x ``rounds_per_block`` x batch size; the mesh and adapter axes are
+recorded as rejected until their slices land) picked from profiled candidates — see
 ``tuning.autotuner`` for the scoring bases and how they differ from the JAX
 package's compile-only sweep — the fused-vs-unfused aggregation-epilogue table
 (``tuning.epilogues``, kernels B4 and B2), and the online retuner.  The JAX

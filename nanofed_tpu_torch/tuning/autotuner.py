@@ -1,8 +1,9 @@
 """Autotuning of the round configuration from profiled programs (counterpart of
 ``nanofed_tpu/tuning/autotuner.py``).
 
-The sweep builds every candidate's round step through the same
-``parallel.build_round_step`` the ``Coordinator`` runs, with the candidate's
+The sweep builds every candidate's round step (or, with ``rounds_per_block`` R > 1,
+its R-round block) through the same ``parallel.build_round_step`` and
+``parallel.build_round_block`` the ``Coordinator`` runs, with the candidate's
 ``client_chunk`` and per-client batch size, and profiles it
 (``observability.profiling.profile_program``) on inputs of the population's shapes
 and dtypes made on the device from a fixed seed: mask all ones, weights one.  The
@@ -28,9 +29,10 @@ Scoring never fabricates a peak:
 The measured time per round rides in each candidate's ``cost``
 (``measured_s_per_round``), where the online retuner's write-back puts its own.
 
-The port runs on one card, so ``rounds_per_block > 1`` (fused blocks), ``model_shards
-> 1`` and ``hosts > 1`` (mesh axes) and ``adapter_rank`` (LoRA) are recorded as
-rejected with the slice that brings them; they are never raised.  Only a
+A block candidate is profiled over its R rounds (``profile_program(..., rounds=R)``),
+so its scores are per round, as the round step's.  The port runs on one card, so
+``model_shards > 1`` and ``hosts > 1`` (mesh axes) and ``adapter_rank`` (LoRA) are
+recorded as rejected with the slice that brings them; they are never raised.  Only a
 ``torch.cuda.OutOfMemoryError`` turns a profiled candidate into a rejection: any
 other exception propagates, so a failing kernel cannot pass for an infeasible
 candidate.
@@ -76,12 +78,10 @@ DEFAULT_CACHE_DIR = ".nanofed_torch_cache"
 
 # The later slices that bring the axes this port does not sweep yet.
 _LATER_AXES = {
-    "rounds_per_block": "fused multi-round blocks come with the multi-GPU slice "
-                        "(ROADMAP queue A item 9)",
     "model_shards": "the model mesh axis comes with the multi-GPU slice "
-                    "(ROADMAP queue A item 9)",
+                    "(ROADMAP queue A item 9b)",
     "hosts": "the hosts mesh axis comes with the multi-GPU slice "
-             "(ROADMAP queue A items 9 and 17)",
+             "(ROADMAP queue A items 9b and 17)",
     "adapter_rank": "LoRA adapters come with the adapters slice "
                     "(ROADMAP queue A item 16)",
 }
@@ -227,7 +227,7 @@ class TuningSpace:
     ) -> "TuningSpace":
         if hosts is None:
             # The port runs one process on one card: the hosts axis is (1,) until
-            # the multi-GPU slice (ROADMAP queue A item 9).
+            # the multi-GPU slice (ROADMAP queue A item 9b).
             hosts = (1,)
 
         per_dev = _pad_client_count(population.num_clients, n_devices) // n_devices
@@ -619,6 +619,7 @@ def _evaluate_candidate(
 
     from nanofed_tpu_torch.aggregation.base import fedavg_strategy
     from nanofed_tpu_torch.observability.profiling import profile_program
+    from nanofed_tpu_torch.parallel.multi_round import build_round_block, round_seeds
     from nanofed_tpu_torch.parallel.round_step import build_round_step
 
     C, cap = population.num_clients, population.capacity
@@ -687,7 +688,6 @@ def _evaluate_candidate(
         ))
     # --- Axes this port does not run yet (recorded, never raised) ------------------
     for axis, engaged in (
-        ("rounds_per_block", cand.rounds_per_block > 1),
         ("model_shards", cand.model_shards > 1),
         ("hosts", cand.hosts > 1),
         ("adapter_rank", cand.adapter_rank is not None),
@@ -702,14 +702,34 @@ def _evaluate_candidate(
     dev = resolve_device(device)
     strategy = fedavg_strategy()
     training_c = dataclasses.replace(training, batch_size=cand.batch_size)
-    step = build_round_step(model, training_c, strategy, client_chunk=cand.client_chunk)
+    rpb = cand.rounds_per_block
+    if rpb == 1:
+        fn = build_round_step(model, training_c, strategy, client_chunk=cand.client_chunk)
+    else:
+        fn = build_round_block(
+            model, training_c, strategy, num_clients=C, padded_clients=padded,
+            step_clients=step_clients, cohort_size=cohort,
+            client_chunk=cand.client_chunk, collect_client_detail=False,
+            cohort_mode=cohort_mode, device=dev,
+        )
     name = candidate_program_name(cand)
     out_of_memory = None
     t0 = time.perf_counter()
     try:
-        args = _candidate_inputs(model, population, training_c, step_clients, strategy, dev)
-        report = profile_program(name, step, *args, rounds=cand.rounds_per_block,
-                                 attrs=cand.to_dict())
+        if rpb == 1:
+            args = _candidate_inputs(model, population, training_c, step_clients, strategy,
+                                     dev)
+        else:
+            # The block gathers from the whole population: every slot a distinct
+            # client with weight, every round a full cohort's work.
+            params, sos, data, _, _, _ = _candidate_inputs(
+                model, population, training_c, padded, strategy, dev)
+            idx = (torch.arange(step_clients, device=dev).expand(rpb, step_clients)
+                   .contiguous() if cohort_mode else None)
+            args = (params, sos, data, torch.ones(padded, device=dev),
+                    round_seeds(0, range(rpb)), [1.0] * rpb, idx,
+                    torch.ones((rpb, step_clients), device=dev))
+        report = profile_program(name, fn, *args, rounds=rpb, attrs=cand.to_dict())
     except torch.cuda.OutOfMemoryError as e:
         # Only running out of device memory makes a candidate infeasible; any other
         # failure (a kernel that does not launch, a wrong shape) propagates.

@@ -18,8 +18,8 @@ programs.
 Scope rule: only ``client_chunk``/``rounds_per_block`` are hot-swappable — the
 mesh shape (hosts x model_shards), batch size, and adapter rank define the layouts
 of the resident params and data.  Ineligible candidates are recorded as such in the
-decision's ``considered`` table, never silently dropped.  (The port's coordinator
-swaps ``client_chunk`` only: it refuses a ``rounds_per_block > 1`` swap.)
+decision's ``considered`` table, never silently dropped.  The port's coordinator
+swaps both, and refuses a ``rounds_per_block > 1`` its configuration cannot fuse.
 
 ``write_back()`` stamps the measured numbers into the autotune cache entry
 (``.nanofed_torch_cache/autotune_<key16>.json``), so the NEXT run's cache hit

@@ -223,3 +223,32 @@ def test_fedbuff_combine_matches_jax_with_skipped_stale_bases():
     with pytest.raises(ValueError, match="left the version window"):
         fedbuff_combine(from_numpy_params(current, device="cpu"),
                         [_update("z", 1, trained["z"], "port")], {}, 5, device="cpu")
+
+
+def test_fedbuff_combine_discounts_each_update_of_a_repeated_client_like_jax():
+    """Two updates of one client from different versions each carry their own
+    staleness discount, as in the JAX package; the port sums them in buffer order
+    within the client's place in the client-id order."""
+    rng = np.random.default_rng(11)
+
+    def rand():
+        return jax.tree.map(lambda a: rng.standard_normal(a.shape).astype(np.float32), NESTED)
+
+    versions = {v: rand() for v in (0, 1, 2)}
+    current = rand()
+    arrivals = [("c1", 0), ("b", 1), ("c1", 2)]
+    trained = [rand() for _ in arrivals]
+    ours, ostats = fedbuff_combine(
+        from_numpy_params(current, device="cpu"),
+        [_update(c, r, t, "port") for (c, r), t in zip(arrivals, trained)],
+        {v: from_numpy_params(p, device="cpu") for v, p in versions.items()}, 2,
+        staleness_exponent=0.5, device="cpu")
+    theirs, tstats = jax_fedbuff(
+        jax.tree.map(jnp.asarray, current),
+        [_update(c, r, t, "jax") for (c, r), t in zip(arrivals, trained)],
+        {v: jax.tree.map(jnp.asarray, p) for v, p in versions.items()}, 2,
+        staleness_exponent=0.5)
+    assert ostats == tstats and ostats["staleness"] == [2, 1, 0]
+    want = flatten_with_names(jax.tree.map(np.asarray, theirs))
+    for name, leaf in ours.items():
+        np.testing.assert_allclose(leaf.numpy(), want[name], rtol=0, atol=TOL, err_msg=name)

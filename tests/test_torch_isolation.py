@@ -1,5 +1,5 @@
 """The port imports neither JAX nor anything of ``nanofed_tpu`` (every module of the
-package, the network mode, secure aggregation, signing, the ingest buffer,
+package, fused multi-round blocks, the network mode, secure aggregation, signing, the ingest buffer,
 observability and tuning included, and the compressed codec, signing and ingest paths
 when they run), and its entry points run on the GPU unless the caller asks for the
 CPU."""
@@ -28,7 +28,7 @@ from nanofed_tpu_torch.data import federate, synthetic_classification
 from nanofed_tpu_torch.ingest import DeviceIngestBuffer, IngestConfig, IngestPipeline
 from nanofed_tpu_torch.models import get_model
 from nanofed_tpu_torch.orchestration import Coordinator, CoordinatorConfig
-from nanofed_tpu_torch.parallel import build_scaffold_round_step
+from nanofed_tpu_torch.parallel import build_round_block, build_scaffold_round_step
 from nanofed_tpu_torch.security import secure_agg
 from nanofed_tpu_torch.trainer import Trainer, TrainingConfig
 from nanofed_tpu_torch.tuning import PopulationSpec, autotune, profile_aggregation_epilogues
@@ -134,6 +134,9 @@ def _entry_points():
         "IngestPipeline": lambda: IngestPipeline({"w": torch.zeros(3)}, IngestConfig()),
         "HTTPServer_ingest": lambda: HTTPServer(port=free_port(), ingest=IngestConfig()),
         "fedbuff_combine": lambda: fedbuff_combine({"w": torch.zeros(3)}, [], {}, 0),
+        "build_round_block": lambda: build_round_block(model, TrainingConfig(), num_clients=2),
+        "Coordinator_fused": lambda: Coordinator(
+            model, data, CoordinatorConfig(save_metrics=False, rounds_per_block=2)),
     }
 
 
@@ -144,7 +147,8 @@ def _entry_points():
                                   "profile_aggregation_epilogues", "Coordinator_scaffold",
                                   "build_scaffold_round_step", "Trainer",
                                   "DeviceIngestBuffer", "IngestPipeline", "HTTPServer_ingest",
-                                  "fedbuff_combine"])
+                                  "fedbuff_combine", "build_round_block",
+                                  "Coordinator_fused"])
 def test_entry_points_default_to_cuda_and_raise_without_it(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):

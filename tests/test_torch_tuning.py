@@ -144,15 +144,17 @@ def test_static_rejection_reasons_equal_jax(case):
 
 
 @pytest.mark.parametrize("cfg,axis", [
-    (CandidateConfig(None, 2, 1, 16), "rounds_per_block 2: not in the PyTorch port yet"),
+    (CandidateConfig(None, 1, 1, 16, adapter_rank=4),
+     "adapter_rank 4: not in the PyTorch port yet"),
     (CandidateConfig(None, 1, 2, 16), "model_shards 2: not in the PyTorch port yet"),
     (CandidateConfig(None, 1, 1, 16, hosts=2), "hosts 2: not in the PyTorch port yet"),
 ])
 def test_unported_axes_are_rejected_with_their_slice(cfg, axis):
-    """Past the JAX checks (four devices here, so the mesh axes divide), the axes a
-    later slice brings are recorded as rejected, never raised."""
+    """Past the JAX checks (four devices here, so the mesh axes divide; an adapter
+    spec, so a swept rank is not a static rejection), the axes a later slice brings
+    are recorded as rejected, never raised."""
     out = autotuner._evaluate_candidate(cfg, None, LINEAR_POP, TrainingConfig(batch_size=16),
-                                        1.0, 4, 0, 4, None)
+                                        1.0, 4, 0, 4, None, adapter=object())
     assert not out.feasible
     assert out.reject_reason.startswith(axis) and "ROADMAP queue A" in out.reject_reason
 
@@ -266,18 +268,19 @@ def _sweep(tmp_path, **kw):
 
 def test_autotune_on_the_cpu_writes_the_jax_artifact_and_hits_its_cache(tmp_path, monkeypatch):
     res = _sweep(tmp_path)
-    assert res.winner is not None and res.winner.rounds_per_block == 1
-    assert res.compiles == 4  # chunk {None, 2} x batch {16, 32}; the rpb-2 rows ran nothing
+    assert res.winner is not None
+    assert res.compiles == 8  # chunk {None, 2} x rpb {1, 2} x batch {16, 32}: all run
     table = json.loads(next((tmp_path / "runs").glob("autotune_*.json")).read_text())
     jax_keys = set(_jax_result().to_dict()) - {"compile_budget_s", "skipped", "wedged_at"}
     assert set(table) == jax_keys
     feasible = [c for c in table["candidates"] if c["feasible"]]
     assert [c["score"] for c in feasible] == sorted(c["score"] for c in feasible)
     assert all(c["cost"]["measured_s_per_round"] > 0 for c in feasible)
-    rejected = [c for c in table["candidates"] if not c["feasible"]]
-    assert {c["config"]["rounds_per_block"] for c in rejected} == {2} and len(rejected) == 4
-    assert all("fused multi-round blocks come with the multi-GPU slice" in c["reject_reason"]
-               for c in rejected)
+    # The rpb-2 rows profiled their two-round blocks: scored per round, as the steps.
+    assert not [c for c in table["candidates"] if not c["feasible"]]
+    assert {c["config"]["rounds_per_block"] for c in feasible} == {1, 2}
+    blocks = [c for c in feasible if c["config"]["rounds_per_block"] == 2]
+    assert len(blocks) == 4 and all(c["cost"]["flops_per_round"] > 0 for c in blocks)
     assert "NOT a predicted walltime" in table["scoring_basis"]
     assert set(table["epilogues"]["reports"]) == {
         "q8_epilogue_dequant", "q8_epilogue_reduce", "q8_epilogue_fused",
@@ -417,7 +420,7 @@ def test_from_autotune_applies_the_winner_and_attaches_the_retuner(tmp_path):
 
 RPB1 = CandidateConfig(None, 1, 1, 8)
 CHUNK2 = CandidateConfig(2, 1, 1, 8)
-RPB2 = CandidateConfig(None, 2, 1, 8)
+CHUNK3 = CandidateConfig(3, 1, 1, 8)  # does not divide the 8 clients: refused
 
 
 def _table(*cfgs):
@@ -459,9 +462,9 @@ def test_forced_retune_swap_keeps_the_trajectory(tmp_path):
 
 def test_refused_swap_is_transactional(tmp_path):
     coord = _mnist_coordinator(tmp_path, "refused", retune_every=1)
-    rt = coord.enable_retuning(_table(RPB1, RPB2), cache_dir=None, current=RPB1)
+    rt = coord.enable_retuning(_table(RPB1, CHUNK3), cache_dir=None, current=RPB1)
     rt.observe(RPB1, rounds=4, walltime_s=4.0)
-    rt.observe(RPB2, rounds=4, walltime_s=0.4)
+    rt.observe(CHUNK3, rounds=4, walltime_s=0.4)
     coord.current_round = 1
     step, names = coord._round_step, coord.program_catalog.names()
     coord._maybe_retune()
