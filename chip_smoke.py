@@ -149,6 +149,21 @@ Phases (any failure exits non-zero):
    its first block's dispatch under ``torch.cuda.set_sync_debug_mode("warn")`` (must be
    0) and its second block under ``torch.profiler``: the device's busy share of the
    block's wall time and its top four kernels by device time.
+   Then the CIFAR ResNets through the package's entry points (phase (t)), on synthetic
+   CIFAR-shaped data (no CIFAR files in the repository): (t1) ``cli.main(["bench",
+   "fedprox_cifar10"])``, ResNet-8 (P = 77,850), 100 clients, Dirichlet 0.5, cohorts of
+   10, FedProx mu 0.01, 3 rounds over 50,000 + 10,000 images (B1 normalised and B3 once
+   a round); (t2) ``run_benchmark("cross_silo")``, ResNet-18 at full width (P =
+   11,218,340), 8 clients of 6,250 images, 2 rounds in f32 (TF32 off): round times,
+   peak device memory above the phase's start, one round step of one batch a client
+   profiled (``observability.profile_program``: counted FLOPs, so the round's FLOPs
+   and achieved rate) and traced (``torch.profiler``: device busy time and the top
+   kernels); (t3) the same configuration in bf16 through ``cli.main``, 1 round, its
+   round-0 training loss within 10% of the f32 run's; (t4) a ResNet-8 round of 8
+   clients and a narrow ResNet-18's forward and gradient on the card against the CPU
+   (1e-4: the stride-2 SAME convolutions and GroupNorm); (t5) B1 normalised and B3 at
+   C = 10, P = 77,850 and C = 8, P = 11,218,340 in the round's layout, timed with the
+   library calls ``w @ x`` and ``torch.linalg.vecdot(x, x)`` beside their bounds.
 4. Cross-check: 8-client f32 rounds of the port on the card and on the CPU from the
    same weights, permutations and injected noise: the plain round with dropout off
    and on (the masks are an integer hash, the same bits on both devices), the
@@ -158,8 +173,8 @@ Phases (any failure exits non-zero):
    SCAFFOLD rounds from zero controls (params within 1e-4, the controls within 1e-4
    over K * eta, the factor (x - y) / (K * eta) multiplies the params' error by).
 
-The last lines are the kernels' JSON record, the card's name and power limit, and
-``{"ok": true, "device": {...}}``.
+The last lines are the whole script's wall time, the kernels' JSON record, the card's
+name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -3239,8 +3254,8 @@ def device_profile(torch, call) -> tuple[object, float, float, list[tuple[str, f
     """``call()`` under ``torch.profiler`` (device activity only: recording the host's
     ops as well costs more than the block): its result, the wall seconds from the call
     to the device's end, the device's busy time in ms (the union of its kernels',
-    copies' and fills' intervals, so nothing is counted twice) and the four largest
-    kernels by summed device time."""
+    copies' and fills' intervals, so nothing is counted twice) and every kernel name
+    with its summed device time, largest first."""
     activities = [torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as prof:
         t0 = time.perf_counter()
@@ -3260,7 +3275,7 @@ def device_profile(torch, call) -> tuple[object, float, float, list[tuple[str, f
         if end > reach:
             busy_us += end - max(start, reach)
             reach = end
-    return out, wall, busy_us / 1e3, sorted(by_name.items(), key=lambda kt: -kt[1])[:4]
+    return out, wall, busy_us / 1e3, sorted(by_name.items(), key=lambda kt: -kt[1])
 
 
 def phase_fused(torch, ops, card: str, out_dir: Path) -> dict[str, int]:
@@ -3376,7 +3391,7 @@ def phase_fused(torch, ops, card: str, out_dir: Path) -> dict[str, int]:
     # second under the profiler.
     syncs = caught["sync"]
     busy_ms, prof_wall = caught["busy"], caught["wall"]
-    top = "; ".join(f"{k[:70]} {t:.3f} ms ({t / busy_ms:.1%})" for k, t in caught["top"])
+    top = "; ".join(f"{k[:70]} {t:.3f} ms ({t / busy_ms:.1%})" for k, t in caught["top"][:4])
     print(f"[{card}] (s3) synchronizing operations inside a fused flagship block's dispatch: "
           f"{len(syncs)}{' ' + repr(syncs[:3]) if syncs else ''}")
     print(f"[{card}] (s3) the instrumented run's blocks, dispatch to device end: "
@@ -3443,6 +3458,265 @@ def phase_fused(torch, ops, card: str, out_dir: Path) -> dict[str, int]:
         fail("(s2) the on-device cohorts are not valid draws")
     print(f"[{card}] (s) phase wall_s={time.perf_counter() - t_phase:.3f}")
     return totals
+
+
+CIFAR_TOL = 1e-4  # (t4): cuDNN vs CPU convolutions and GroupNorm summed in another order
+CIFAR_BOUNDED_S = 90.0  # (t2): the phase's wall above which the data would be cut
+P_RESNET8, P_RESNET18 = 77_850, 11_218_340
+# (t5): B1 normalised and B3 at each new shape: (C, P) of fedprox_cifar10's cohort and
+# of cross_silo's 8 clients.
+CIFAR_REDUCES = ((10, P_RESNET8), (8, P_RESNET18))
+
+
+def cli_summary(cli, argv: list[str]) -> dict:
+    """``cli.main(argv)`` with its stdout captured: the summary JSON it prints."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        code = cli.main(argv)
+    if code != 0:
+        fail(f"nanofed-tpu-torch {' '.join(argv)}: exit code {code}")
+    return json.loads(buf.getvalue())
+
+
+def check_summary(tag: str, summary: dict, rounds: int) -> None:
+    ev = summary["final_eval_metrics"]
+    values = [ev["loss"], ev["accuracy"], *summary["round_durations_s"]]
+    if summary["rounds_completed"] != rounds or summary["rounds_failed"]:
+        fail(f"{tag}: {summary['rounds_completed']}/{rounds} rounds completed")
+    if not all(math.isfinite(v) for v in values):
+        fail(f"{tag}: non-finite metrics {values}")
+    if not summary["params_device"].startswith("cuda"):
+        fail(f"{tag}: params ended on {summary['params_device']}, not the card")
+
+
+def phase_cifar(torch, ops, card: str, out_dir: Path) -> dict[str, int]:
+    """(t): the CIFAR ResNets through the package's entry points.  (t1) ``nanofed-tpu-torch
+    bench fedprox_cifar10`` (``cli.main``); (t2) ``run_benchmark("cross_silo")`` with
+    ResNet-18 at full width, its peak device memory, and one round step profiled
+    (counted FLOPs, top kernels); (t3) the same configuration in bf16 through the command
+    line, 1 round; (t4) a ResNet-8 round and a narrow ResNet-18's forward and gradient,
+    card against CPU; (t5) B1 and B3 timed at the two new shapes.  Returns the main
+    paths' launch counts."""
+    from nanofed_tpu_torch import cli
+    from nanofed_tpu_torch.aggregation import fedavg_strategy
+    from nanofed_tpu_torch.benchmarks import BENCHMARKS, run_benchmark
+    from nanofed_tpu_torch.core.types import ClientData
+    from nanofed_tpu_torch.data import federate, synthetic_classification
+    from nanofed_tpu_torch.models import get_model
+    from nanofed_tpu_torch.observability import profile_program
+    from nanofed_tpu_torch.parallel import build_round_step, init_server_state
+    from nanofed_tpu_torch.trainer import TrainingConfig, client_keys, draw_permutations
+    from nanofed_tpu_torch.utils.trees import tree_size
+
+    t_phase = time.perf_counter()
+    totals: dict[str, int] = dict.fromkeys(ops.launch_counts(), 0)
+    base = out_dir / "t_cifar"
+    gc.collect()
+
+    # (t1) FedProx on CIFAR-10 ResNet-8: 100 clients, Dirichlet 0.5, cohorts of 10 (one
+    # B1 normalised and one B3 a round over the [10, P] deltas), 3 rounds.
+    fedprox = BENCHMARKS["fedprox_cifar10"]
+    rounds = fedprox["num_rounds"]
+    summary, wall, grew = counted(
+        torch, ops, card, "(t1) nanofed-tpu-torch bench fedprox_cifar10",
+        lambda: cli_summary(cli, ["bench", "fedprox_cifar10", "--out-dir",
+                                  str(base / "fedprox")]),
+        {"weighted_mean_flat": rounds, "row_sq_norms": rounds})
+    add_launches(totals, grew)
+    check_summary("(t1)", summary, rounds)
+    ev = summary["final_eval_metrics"]
+    print(f"[{card}] (t1) fedprox_cifar10 (resnet8, P={P_RESNET8}, 100 clients, cohort 10, "
+          f"50,000 + 10,000 synthetic CIFAR-10): round_durations_s="
+          f"{summary['round_durations_s']} rounds_per_sec={summary['rounds_per_sec']} "
+          f"eval_loss={ev['loss']} eval_accuracy={ev['accuracy']}")
+
+    # (t2) cross_silo: ResNet-18 on CIFAR-100 at full width, 8 clients, 2 rounds, f32.
+    silo = BENCHMARKS["cross_silo"]
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start_bytes = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    summary, wall, grew = counted(
+        torch, ops, card, "(t2) run_benchmark cross_silo",
+        lambda: run_benchmark("cross_silo", out_dir=str(base / "silo"), device="cuda"),
+        {"weighted_mean_flat": silo["num_rounds"], "row_sq_norms": silo["num_rounds"]})
+    silo_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - start_bytes
+    add_launches(totals, grew)
+    check_summary("(t2)", summary, silo["num_rounds"])
+    durations = summary["round_durations_s"]
+    ev = summary["final_eval_metrics"]
+    print(f"[{card}] (t2) cross_silo (resnet18, P={P_RESNET18}, 8 clients of 6,250 "
+          f"synthetic CIFAR-100 images, 196 steps of batch 32 a round, f32, TF32 off): "
+          f"round_durations_s={durations} rounds_per_sec={summary['rounds_per_sec']} "
+          f"eval_loss={ev['loss']} eval_accuracy={ev['accuracy']} "
+          f"peak_memory_above_start_bytes={peak} wall_s={silo_s:.3f} (train_size: the "
+          f"full 50,000, not cut: the run is "
+          f"{'inside' if silo_s <= CIFAR_BOUNDED_S else 'OVER'} the phase's "
+          f"{CIFAR_BOUNDED_S:.0f} s)")
+
+    # One round step of the same configuration over one batch a client: its counted
+    # FLOPs (observability.profiling), then its device time by kernel.
+    model = get_model("resnet18")
+    training = TrainingConfig(batch_size=silo["batch_size"], local_epochs=1,
+                              learning_rate=silo["learning_rate"])
+    c = silo["num_clients"]
+    host = federate(synthetic_classification(c * training.batch_size, 100, (32, 32, 3),
+                                             seed=4), c, batch_size=training.batch_size)
+    data = ClientData(*host).to(torch.device("cuda"))
+    params = {k: v.cuda() for k, v in model.init(torch.Generator().manual_seed(0)).items()}
+    strategy = fedavg_strategy()
+    step = build_round_step(model, training, strategy)
+    perms = draw_permutations(torch.Generator().manual_seed(1), c, 1, training.batch_size)
+    args = (params, init_server_state(strategy, params), data, data.mask.sum(1),
+            perms.cuda(), client_keys(0, c, "cuda"))
+    report, _, grew = counted(torch, ops, card, "(t2) profile_program, 1-step round step",
+                              lambda: profile_program("cross_silo_round_step", step, *args),
+                              {"weighted_mean_flat": 5, "row_sq_norms": 5})
+    add_launches(totals, grew)
+    steps = -(-(50_000 // c) // training.batch_size)
+    round_flops = report.flops * steps
+    steady = statistics.median(durations[1:] or durations)
+    print(f"[{card}] (t2) profiled round step of 1 batch a client: counted_flops="
+          f"{report.flops:.6e} measured_s={report.measured_s:.6f} peak_bytes="
+          f"{report.peak_bytes}; a round of {steps} steps: {round_flops:.6e} FLOPs, "
+          f"achieved {round_flops / steady / 1e12:.3f} TFLOP/s over the steady round "
+          f"({steady:.3f} s; f32 peak 67 TFLOP/s outside the tensor cores)")
+    _, prof_wall, busy_ms, by_name = device_profile(torch, lambda: step(*args))
+    # The per-name sums exceed the busy union where kernels overlap in time.
+    print(f"[{card}] (t2) torch.profiler over one 1-step round step: wall_s={prof_wall:.4f} "
+          f"device_busy_ms={busy_ms:.3f} kernel_sum_ms={sum(t for _, t in by_name):.3f} "
+          f"kernels={len(by_name)} top kernels: "
+          + "; ".join(f"{name} {ms:.3f} ms ({ms / busy_ms:.1%})" for name, ms in by_name[:6]))
+    del args, data, params, step
+
+    # (t3) the same configuration in bf16 through the command line, 1 round.
+    gc.collect()
+    summary, wall, grew = counted(
+        torch, ops, card, "(t3) nanofed-tpu-torch bench cross_silo --dtype bfloat16",
+        lambda: cli_summary(cli, ["bench", "cross_silo", "--dtype", "bfloat16", "--rounds",
+                                  "1", "--out-dir", str(base / "silo_bf16")]),
+        {"weighted_mean_flat": 1, "row_sq_norms": 1})
+    add_launches(totals, grew)
+    check_summary("(t3)", summary, 1)
+    ev = summary["final_eval_metrics"]
+    # Round 0 of both runs: the same clients from the same init, in f32 and in bf16.
+    first = {tag: json.loads((base / tag / "metrics" / "metrics_round_0.json").read_text())[
+        "agg_metrics"] for tag in ("silo", "silo_bf16")}
+    print(f"[{card}] (t3) cross_silo bf16: round_durations_s={summary['round_durations_s']} "
+          f"eval_loss={ev['loss']} eval_accuracy={ev['accuracy']}; round 0 train loss / "
+          f"accuracy f32 {first['silo']['loss']} / {first['silo']['accuracy']}, bf16 "
+          f"{first['silo_bf16']['loss']} / {first['silo_bf16']['accuracy']}")
+    if abs(first["silo_bf16"]["loss"] - first["silo"]["loss"]) > 0.1 * first["silo"]["loss"]:
+        fail("(t3) the bf16 round's training loss is more than 10% from the f32 round's")
+
+    phase_cifar_cross_check(torch, ops, card)
+    time_cifar_reduces(torch, ops, card)
+    print(f"[{card}] (t) phase wall_s={time.perf_counter() - t_phase:.3f}")
+    return totals
+
+
+def phase_cifar_cross_check(torch, ops, card: str) -> None:
+    """(t4): a ResNet-8 round of 8 clients (f32, 2 epochs of 2 steps) and a narrow
+    ResNet-18 (stages 8/16/32/64, 2 blocks each) forward and masked-NLL gradient, from
+    the same inputs on the card and on the CPU: the stride-2 SAME convolutions and
+    GroupNorm are what it holds."""
+    from nanofed_tpu_torch.aggregation import fedavg_strategy
+    from nanofed_tpu_torch.core.types import ClientData
+    from nanofed_tpu_torch.data import federate, synthetic_classification
+    from nanofed_tpu_torch.models import get_model
+    from nanofed_tpu_torch.models.resnet import _resnet
+    from nanofed_tpu_torch.parallel import build_round_step, init_server_state
+    from nanofed_tpu_torch.trainer import TrainingConfig, client_keys, draw_permutations
+    from nanofed_tpu_torch.utils.trees import ravel
+
+    model = get_model("resnet8")
+    training = TrainingConfig(batch_size=8, local_epochs=2, learning_rate=0.05, prox_mu=0.01)
+    host = federate(synthetic_classification(128, 10, (32, 32, 3), seed=5), 8, batch_size=8)
+    params = model.init(torch.Generator().manual_seed(0))
+    perms = draw_permutations(torch.Generator().manual_seed(1), 8, 2, host.y.shape[1])
+    strategy = fedavg_strategy()
+    step = build_round_step(model, training, strategy)
+    results = {}
+    for dev in ("cuda", "cpu"):
+        device = torch.device(dev)
+        data = ClientData(*host).to(device)
+        p = {k: v.to(device) for k, v in params.items()}
+        ops.reset_launch_counts()
+        results[dev] = step(p, init_server_state(strategy, p), data, data.mask.sum(1),
+                            perms.to(device), client_keys(7, 8, device))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            grew = ops.launch_counts()
+            want = {k: {"weighted_mean_flat": 1, "row_sq_norms": 1}.get(k, 0) for k in grew}
+            if grew != want:
+                fail(f"(t4) resnet8 round: launches {grew}, expected {want}")
+    gp = ravel(results["cuda"].params).cpu()
+    diff = float((gp - ravel(results["cpu"].params)).abs().max())
+    loss_diff = abs(float(results["cuda"].metrics["loss"]) - float(results["cpu"].metrics["loss"]))
+    print(f"[{card}] (t4) resnet8 round, 8 clients f32 cuda vs cpu: max|dparams|={diff:.3e} "
+          f"|dloss|={loss_diff:.3e} (tolerance {CIFAR_TOL})")
+    if not (torch.isfinite(gp).all() and diff <= CIFAR_TOL and loss_diff <= CIFAR_TOL):
+        fail("(t4) the ResNet-8 round on the card disagrees with the CPU")
+
+    narrow = _resnet("resnet18_narrow", (8, 16, 32, 64), 2, 100, stem_channels=8)
+    params = narrow.init(torch.Generator().manual_seed(2))
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn(6, 32, 32, 3, generator=gen)
+    y = torch.randint(0, 100, (6,), generator=gen)
+    m = torch.tensor([1.0, 1.0, 1.0, 1.0, 0.0, 1.0])
+
+    def loss(p, x, y, m):
+        logp = narrow.apply(p, x)
+        return (-logp.gather(-1, y[:, None])[:, 0] * m).sum() / m.sum(), logp
+
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        p = {k: v.to(dev) for k, v in params.items()}
+        grads, logp = torch.func.grad(loss, has_aux=True)(p, x.to(dev), y.to(dev), m.to(dev))
+        outs[dev] = (logp.cpu(), ravel(grads).cpu())
+    fwd = float((outs["cuda"][0] - outs["cpu"][0]).abs().max())
+    grad = float((outs["cuda"][1] - outs["cpu"][1]).abs().max())
+    print(f"[{card}] (t4) narrow resnet18 (stages 8/16/32/64), batch 6 cuda vs cpu: "
+          f"max|dlogp|={fwd:.3e} max|dgrad|={grad:.3e} (tolerance {CIFAR_TOL})")
+    if not (fwd <= CIFAR_TOL and grad <= CIFAR_TOL):
+        fail("(t4) the narrow ResNet-18 on the card disagrees with the CPU")
+
+
+def time_cifar_reduces(torch, ops, card: str) -> None:
+    """(t5): B1 normalised and B3 at the ResNets' shapes, in the round's layout (rows
+    padded to 4 floats), against their plain versions and the library calls."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    for c, p in CIFAR_REDUCES:
+        x = round_layout(torch, c, p, seed=c + p)
+        w = torch.rand(c, device="cuda", generator=gen) + 0.5
+        err = check_close(torch, f"(t5) weighted_mean_flat C={c} P={p}",
+                          ops.weighted_mean_flat(x, w), ops.weighted_mean_flat_plain(x, w),
+                          **TOL)
+        ms = median_ms(lambda: ops.weighted_mean_flat(x, w), torch)
+        plain_ms = median_ms(lambda: ops.weighted_mean_flat_plain(x, w), torch)
+        library_ms = median_ms(lambda: w @ x, torch)
+        b_ms, b_by = bound_ms(4 * c * p + 4 * c + 4 * p, 2 * c * p)
+        print(f"[{card}] (t5) weighted_mean_flat C={c} P={p}: kernel_ms={ms:.6f} "
+              f"plain_ms={plain_ms:.6f} library_ms={library_ms:.6f} (w @ x) "
+              f"bound_ms={b_ms:.6f} ({b_by}) share_of_bound={b_ms / ms:.4f} "
+              f"max_abs_err={err:.3e} {plan_line(torch, x, False, False)}")
+        err = check_close(torch, f"(t5) row_sq_norms C={c} P={p}", ops.row_sq_norms(x),
+                          ops.row_sq_norms_plain(x), **TOL)
+        ms = median_ms(lambda: ops.row_sq_norms(x), torch)
+        plain_ms = median_ms(lambda: ops.row_sq_norms_plain(x), torch)
+        library_ms = median_ms(lambda: torch.linalg.vecdot(x, x), torch)
+        b_ms, b_by = bound_ms(4 * c * p + 4 * c, 2 * c * p)
+        print(f"[{card}] (t5) row_sq_norms C={c} P={p}: kernel_ms={ms:.6f} "
+              f"plain_ms={plain_ms:.6f} library_ms={library_ms:.6f} "
+              f"(torch.linalg.vecdot(x, x)) bound_ms={b_ms:.6f} ({b_by}) "
+              f"share_of_bound={b_ms / ms:.4f} max_abs_err={err:.3e}")
+        del x
+        torch.cuda.empty_cache()
 
 
 def phase_cross_check(torch, ops, card: str) -> None:
@@ -3604,6 +3878,7 @@ def phase_cross_check(torch, ops, card: str) -> None:
 
 
 def main() -> None:
+    t_script = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -3644,10 +3919,11 @@ def main() -> None:
         phase_trainer(torch, ops, card, Path(tmp), scaffold_params, population)
         del scaffold_params, population
         fused_counts = phase_fused(torch, ops, card, Path(tmp))
+        cifar_counts = phase_cifar(torch, ops, card, Path(tmp))
     wire_counts = phase_wire(torch, ops, card)
     counts = {k: counts[k] + secure_counts[k] + tuned_counts[k] + resume_counts[k]
               + network_resume_counts[k] + dp_counts[k] + scaffold_counts[k]
-              + fused_counts[k] + wire_counts.get(k, 0) for k in counts}
+              + fused_counts[k] + cifar_counts[k] + wire_counts.get(k, 0) for k in counts}
     print(f"kernels: {json.dumps(counts)}")
     missing = [k for k, v in counts.items() if v == 0]
     if missing:
@@ -3675,6 +3951,7 @@ def main() -> None:
          "launches": counts[name], **records[name]}
         for name, (src, replaces) in sources.items()
     ]
+    print(f"chip_smoke: whole script wall_s={time.perf_counter() - t_script:.1f}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -418,6 +418,12 @@ class HTTPClient:
                     f"({payload.get('enrolled')}/{payload.get('expected')})")
             await self._clock.sleep(poll_interval_s)
 
+    async def fetch_secagg_participants(self) -> list[str]:
+        """This round's ACTIVE cohort (enrolled minus evicted): what the per-round
+        shares must cover."""
+        participants, _ = await self.fetch_secagg_round_info()
+        return participants
+
     async def fetch_secagg_round_info(self) -> tuple[list[str], int | None]:
         """This round's ACTIVE cohort and the server-announced Shamir threshold (None
         on exact-cohort servers: use the shared config)."""
@@ -515,3 +521,11 @@ class HTTPClient:
         """GET /status: round, buffered updates, whether training is active."""
         return await self._get_json(self.server_url + self.endpoints.status,
                                     "check_server_status")
+
+    async def wait_for_completion(self, poll_interval_s: float = 1.0) -> None:
+        """Poll the status until the server stops training."""
+        while True:
+            status = await self.check_server_status()
+            if not status.get("training_active", False):
+                return
+            await self._clock.sleep(poll_interval_s)

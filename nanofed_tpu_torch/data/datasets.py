@@ -1,15 +1,19 @@
 """Dataset loading (counterpart of ``nanofed_tpu/data/datasets.py``).
 
 Host-side numpy, identical to the JAX package's for a seed: MNIST from IDX files or
-an ``.npz`` under ``data_dir``, normalized with mean 0.1307 / std 0.3081, and a
+an ``.npz`` under ``data_dir``, normalized with mean 0.1307 / std 0.3081; CIFAR-10/100
+from the standard python pickle layout (``cifar-10-batches-py/``,
+``cifar-100-python/`` under ``data_dir``), normalized per channel; and a
 deterministic synthetic fallback with the same shapes (class prototypes plus
-Gaussian noise) when no files are present.  The digits, CIFAR and token-stream
-loaders come with a later slice.
+Gaussian noise) when no files are present.  Nothing is downloaded.  Also the
+scikit-learn digits (when sklearn is installed) and a bilinear resize.  The token
+streams come with the transformer slice (ROADMAP queue A item 16).
 """
 
 from __future__ import annotations
 
 import gzip
+import pickle
 import struct
 from dataclasses import dataclass
 from pathlib import Path
@@ -17,6 +21,8 @@ from pathlib import Path
 import numpy as np
 
 MNIST_MEAN, MNIST_STD = 0.1307, 0.3081
+CIFAR_MEAN = np.array([0.4914, 0.4822, 0.4465], dtype=np.float32)
+CIFAR_STD = np.array([0.2470, 0.2435, 0.2616], dtype=np.float32)
 
 
 @dataclass(frozen=True)
@@ -114,4 +120,87 @@ def load_mnist(
     n = synthetic_size or (60_000 if split == "train" else 10_000)
     return synthetic_classification(
         n, 10, (28, 28, 1), seed=0 if split == "train" else 1, name="mnist-synthetic"
+    )
+
+
+def load_digits_dataset(split: str = "train", test_fraction: float = 0.2) -> Dataset:
+    """The scikit-learn handwritten digits (1,797 real 8x8 images), pixels scaled to
+    [0, 1], split by a seeded shuffle with the last ``test_fraction`` held out.
+    Raises ``FileNotFoundError`` when sklearn is not installed."""
+    try:
+        from sklearn.datasets import load_digits
+    except ImportError as e:
+        raise FileNotFoundError(
+            "sklearn is not installed; the bundled digits dataset is unavailable"
+        ) from e
+
+    x, y = load_digits(return_X_y=True)
+    x = (x.reshape(-1, 8, 8, 1) / 16.0).astype(np.float32)  # pixels are 0..16
+    y = y.astype(np.int32)
+    order = np.random.default_rng(0).permutation(len(y))
+    x, y = x[order], y[order]
+    cut = int(len(y) * (1.0 - test_fraction))
+    if split == "train":
+        x, y = x[:cut], y[:cut]
+    else:
+        x, y = x[cut:], y[cut:]
+    return Dataset(x=x, y=y, num_classes=10, name="digits")
+
+
+def resize_images(ds: Dataset, height: int, width: int) -> Dataset:
+    """Bilinearly resize an image dataset (``x`` [N, H, W, C]) to ``height x width``
+    with scipy's ``zoom`` (order 1); labels are untouched."""
+    from scipy.ndimage import zoom
+
+    n, h, w, c = ds.x.shape
+    x = zoom(ds.x, (1, height / h, width / w, 1), order=1).astype(np.float32)
+    if x.shape != (n, height, width, c):
+        raise ValueError(f"resize to {height}x{width} gave shape {x.shape}")
+    return Dataset(
+        x=x, y=ds.y, num_classes=ds.num_classes, name=f"{ds.name}@{height}x{width}"
+    )
+
+
+def _load_cifar_batches(files: list[Path], label_key: bytes) -> tuple[np.ndarray, np.ndarray]:
+    xs, ys = [], []
+    for f in files:
+        with open(f, "rb") as fh:
+            batch = pickle.load(fh, encoding="bytes")
+        xs.append(batch[b"data"])
+        ys.append(np.asarray(batch[label_key]))
+    x = np.concatenate(xs).reshape(-1, 3, 32, 32).transpose(0, 2, 3, 1).astype(np.float32) / 255.0
+    x = (x - CIFAR_MEAN) / CIFAR_STD
+    return x, np.concatenate(ys).astype(np.int32)
+
+
+def load_cifar(
+    split: str = "train",
+    data_dir: str | Path | None = None,
+    num_classes: int = 10,
+    synthetic_fallback: bool = True,
+    synthetic_size: int | None = None,
+) -> Dataset:
+    """CIFAR-10/100 from the standard python pickle layout under ``data_dir``
+    (``cifar-10-batches-py/data_batch_*`` and ``test_batch``; ``cifar-100-python/train``
+    and ``test``, fine labels), NHWC and normalized per channel; synthetic
+    CIFAR-shaped data (seed 2 for train, 3 for test) when none are present."""
+    name = f"cifar{num_classes}"
+    if data_dir is not None:
+        d = Path(data_dir)
+        sub10, sub100 = d / "cifar-10-batches-py", d / "cifar-100-python"
+        if num_classes == 10 and sub10.exists():
+            files = (
+                sorted(sub10.glob("data_batch_*")) if split == "train" else [sub10 / "test_batch"]
+            )
+            x, y = _load_cifar_batches(files, b"labels")
+            return Dataset(x=x, y=y, num_classes=10, name=name)
+        if num_classes == 100 and sub100.exists():
+            files = [sub100 / ("train" if split == "train" else "test")]
+            x, y = _load_cifar_batches(files, b"fine_labels")
+            return Dataset(x=x, y=y, num_classes=100, name=name)
+    if not synthetic_fallback:
+        raise FileNotFoundError(f"CIFAR-{num_classes} not found under {data_dir!r}")
+    n = synthetic_size or (50_000 if split == "train" else 10_000)
+    return synthetic_classification(
+        n, num_classes, (32, 32, 3), seed=(2 if split == "train" else 3), name=f"{name}-synthetic"
     )

@@ -1,5 +1,9 @@
 """High-level experiment runner (counterpart of ``nanofed_tpu/experiments.py``), reduced
-to the flags this slice supports.
+to the flags this slice supports, and the engine behind ``nanofed-tpu-torch run``.
+
+:func:`load_datasets_for` picks the data by the model's input shape, as the JAX
+runner does: MNIST-shaped, the 8x8 digits, CIFAR-shaped (10 or 100 classes, files under
+``data_dir`` or the synthetic fallback), else synthetic data of the model's shape.
 
 ``central_privacy`` (DP-FedAvg at the reduce), ``robust_trim_k``/``robust_method``
 (robust aggregation), the client lr schedule (``lr_schedule``, ``lr_min_factor``,
@@ -20,10 +24,18 @@ from typing import Any
 from nanofed_tpu_torch.aggregation import PrivacyAwareAggregationConfig, RobustAggregationConfig
 from nanofed_tpu_torch.core.device import DeviceLike, resolve_device
 from nanofed_tpu_torch.core.exceptions import NanoFedError
-from nanofed_tpu_torch.data import federate, load_mnist, pack_eval
+from nanofed_tpu_torch.data import (
+    federate,
+    load_cifar,
+    load_digits_dataset,
+    load_mnist,
+    pack_eval,
+    synthetic_classification,
+)
 from nanofed_tpu_torch.models import get_model
 from nanofed_tpu_torch.orchestration import Coordinator, CoordinatorConfig, RoundStatus
 from nanofed_tpu_torch.trainer import TrainingConfig
+from nanofed_tpu_torch.utils.logger import Logger
 
 # The JAX runner's flags that later slices bring, with the JAX defaults (accepted).
 LATER_SLICE_FLAGS: dict[str, Any] = {
@@ -34,6 +46,38 @@ LATER_SLICE_FLAGS: dict[str, Any] = {
     "adapter_rank": None,
     "adapter_alpha": None,
 }
+
+
+def load_datasets_for(
+    mdl: Any, data_dir: str | None, train_size: int | None, seed: int = 0
+) -> tuple[Any, Any]:
+    """Train and test datasets matching a model's input shape (MNIST-shaped, the 8x8
+    digits, CIFAR-shaped, or synthetic for anything else); the test split is a sixth
+    of ``train_size`` when it is given."""
+    test_size = (train_size or 0) // 6 or None
+    if getattr(mdl, "token_stream", False):
+        raise NotImplementedError(
+            "token-stream models: synthetic_token_streams comes with the transformer "
+            "slice of nanofed_tpu_torch (ROADMAP queue A item 16)"
+        )
+    if mdl.input_shape == (28, 28, 1):
+        train = load_mnist("train", data_dir, synthetic_size=train_size)
+        test = load_mnist("test", data_dir, synthetic_size=test_size)
+    elif mdl.input_shape == (8, 8, 1):
+        train = load_digits_dataset("train")
+        test = load_digits_dataset("test")
+    elif mdl.input_shape == (32, 32, 3):
+        nc = mdl.num_classes
+        train = load_cifar("train", data_dir, num_classes=nc, synthetic_size=train_size)
+        test = load_cifar("test", data_dir, num_classes=nc, synthetic_size=test_size)
+    else:
+        train = synthetic_classification(
+            train_size or 4096, mdl.num_classes, mdl.input_shape, seed=seed
+        )
+        test = synthetic_classification(
+            test_size or 1024, mdl.num_classes, mdl.input_shape, seed=seed + 1
+        )
+    return train, test
 
 
 def run_experiment(
@@ -123,9 +167,9 @@ def run_experiment(
             method=robust_method or "trimmed_mean",
         )
 
-    mdl = get_model(model)  # a model of MNIST-shaped data: mnist_cnn, or mlp
-    train = load_mnist("train", data_dir, synthetic_size=train_size)
-    test = load_mnist("test", data_dir, synthetic_size=(train_size or 0) // 6 or None)
+    mdl = get_model(model)
+    train, test = load_datasets_for(mdl, data_dir, train_size, seed)
+    Logger().info("dataset %s: %d train / %d test samples", train.name, len(train), len(test))
     client_data = federate(
         train, num_clients=num_clients, scheme=scheme, batch_size=batch_size, seed=seed,
         **scheme_kwargs,
@@ -158,10 +202,14 @@ def run_experiment(
     rounds = coordinator.run()
     final_eval = coordinator.evaluate()
     completed = [r for r in rounds if r.status == RoundStatus.COMPLETED]
+    spent = coordinator.privacy_spent
     program_profiles = {
         r.program: r.to_dict() for r in coordinator.program_catalog.reports()
     }
     return {
+        **({"privacy_spent": {"epsilon_spent": spent.epsilon_spent,
+                              "delta_spent": spent.delta_spent}}
+           if spent is not None else {}),
         **({"program_profiles": program_profiles} if program_profiles else {}),
         **({"tuned_config": coordinator.tuned_config}
            if coordinator.tuned_config is not None else {}),

@@ -108,6 +108,10 @@ class DeviceIngestBuffer:
         """Occupied slots in arrival order."""
         return sorted(self._meta.values(), key=lambda m: m.seq)
 
+    def client_ids(self) -> set[str]:
+        """The clients holding a live slot (a copy; :meth:`has_client` asks for one)."""
+        return set(self._client_slot)
+
     def has_client(self, client_id: str) -> bool:
         return client_id in self._client_slot
 

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import asyncio
 import math
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Callable, Mapping
@@ -65,6 +66,8 @@ class IngestPipeline:
                                             thread_name_prefix="nanofed-ingest-decode")
         self._version_flat: dict[int, np.ndarray] = {}
         self._queue_depth = 0
+        self._busy_s = 0.0
+        self._busy_lock = threading.Lock()  # += from concurrent pool workers
         reg = registry or get_registry()
         self._m_fill = reg.gauge("nanofed_ingest_buffer_fill",
                                  "Occupied slots in the device-resident ingest buffer")
@@ -95,7 +98,10 @@ class IngestPipeline:
             try:
                 return fn(*args, **kwargs)
             finally:
-                self._m_decode_s.observe(time.perf_counter() - t0)
+                dt = time.perf_counter() - t0
+                with self._busy_lock:
+                    self._busy_s += dt
+                self._m_decode_s.observe(dt)
 
         self._queue_depth += 1
         self._m_queue.set(self._queue_depth)
@@ -104,6 +110,11 @@ class IngestPipeline:
         finally:
             self._queue_depth -= 1
             self._m_queue.set(self._queue_depth)
+
+    def decode_busy_seconds(self) -> float:
+        """Total worker-busy wall seconds since construction (utilization =
+        busy / (decode_workers * elapsed))."""
+        return self._busy_s
 
     def close(self) -> None:
         self._executor.shutdown(wait=False, cancel_futures=True)

@@ -65,20 +65,53 @@ def dense(params: Params, x: torch.Tensor) -> torch.Tensor:
 
 
 def conv2d_init(
-    gen: torch.Generator, in_channels: int, out_channels: int, kernel_size: int
+    gen: torch.Generator, in_channels: int, out_channels: int, kernel_size: int,
+    use_bias: bool = True,
 ) -> Params:
     k = kernel_size
-    return {
-        "bias": uniform_bias(gen, in_channels * k * k, (out_channels,)),
-        "kernel": kaiming_uniform(gen, (k, k, in_channels, out_channels)),
-    }
+    params = {}
+    if use_bias:
+        params["bias"] = uniform_bias(gen, in_channels * k * k, (out_channels,))
+    params["kernel"] = kaiming_uniform(gen, (k, k, in_channels, out_channels))
+    return params
 
 
-def conv2d(params: Params, x: torch.Tensor) -> torch.Tensor:
-    """Stride-1 VALID convolution: NHWC input, HWIO kernel, NHWC output."""
-    out = F.conv2d(
-        x.permute(0, 3, 1, 2), params["kernel"].permute(3, 2, 0, 1), params.get("bias")
-    )
+def same_padding(size: int, kernel: int, stride: int) -> tuple[int, int]:
+    """XLA's ``"SAME"`` padding of one spatial dimension: ``ceil(size / stride)``
+    outputs, the total padding split with the smaller half before (``lo = total //
+    2``).  A 3x3 stride-2 window over an even size pads (0, 1), where torch's
+    ``padding=1`` would pad (1, 1) and shift every window by a pixel."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
+
+
+def conv2d(
+    params: Params, x: torch.Tensor, *, stride: int = 1, padding: str = "VALID"
+) -> torch.Tensor:
+    """NHWC input, HWIO kernel, NHWC output; ``padding`` is ``"VALID"`` or XLA's
+    ``"SAME"`` (:func:`same_padding`, padded explicitly when it is asymmetric).
+
+    A 1x1 kernel is a product over the channels of every ``stride``-th pixel (SAME
+    pads nothing there), computed as one: torch's CPU backward of a strided 1x1
+    convolution over a channels-last input aborts the process at some shapes (an
+    input of [6, 32, 32, 8] into 16 channels at stride 2)."""
+    if padding not in ("VALID", "SAME"):
+        raise ValueError(f"padding must be 'VALID' or 'SAME', got {padding!r}")
+    if params["kernel"].shape[:2] == (1, 1):
+        out = x[:, ::stride, ::stride, :] @ params["kernel"][0, 0]
+        return out + params["bias"] if "bias" in params else out
+    kernel = params["kernel"].permute(3, 2, 0, 1)
+    xc = x.permute(0, 3, 1, 2)
+    pad: tuple[int, int] | int = 0
+    if padding == "SAME":
+        (top, bottom), (left, right) = (
+            same_padding(size, k, stride) for size, k in zip(xc.shape[2:], kernel.shape[2:]))
+        if top == bottom and left == right:
+            pad = (top, left)
+        else:
+            xc = F.pad(xc, (left, right, top, bottom))
+    out = F.conv2d(xc, kernel, params.get("bias"), stride=stride, padding=pad)
     return out.permute(0, 2, 3, 1)
 
 
@@ -86,6 +119,40 @@ def max_pool(x: torch.Tensor, window: int = 2) -> torch.Tensor:
     """NHWC non-overlapping max pooling (stride = window, VALID padding)."""
     out = F.max_pool2d(x.permute(0, 3, 1, 2), window)
     return out.permute(0, 2, 3, 1)
+
+
+def avg_pool(x: torch.Tensor, window: int = 2, stride: int | None = None) -> torch.Tensor:
+    """NHWC average pooling, VALID padding (stride defaults to the window)."""
+    out = F.avg_pool2d(x.permute(0, 3, 1, 2), window, window if stride is None else stride)
+    return out.permute(0, 2, 3, 1)
+
+
+def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
+    """[N, H, W, C] -> [N, C]."""
+    return x.mean(dim=(1, 2))
+
+
+def group_norm_init(num_channels: int, device: torch.device | str = "cpu") -> Params:
+    return {"bias": torch.zeros(num_channels, device=device),
+            "scale": torch.ones(num_channels, device=device)}
+
+
+def group_norm(params: Params, x: torch.Tensor, num_groups: int = 8,
+               eps: float = 1e-5) -> torch.Tensor:
+    """GroupNorm over NHWC input, groups of contiguous channels, as the JAX package's
+    (``nanofed_tpu/nn.py:174-184``).  The statistics are the population mean and
+    variance taken in float32 and rounded to ``x``'s dtype, as ``jnp.mean`` and
+    ``jnp.var`` give them for bf16; the normalisation then runs in ``x``'s dtype."""
+    n, h, w, c = x.shape
+    g = min(num_groups, c)
+    while c % g != 0:
+        g -= 1
+    xg = x.reshape(n, h, w, g, c // g)
+    xf = xg.float()
+    mean = xf.mean(dim=(1, 2, 4), keepdim=True).to(x.dtype)
+    var = xf.var(dim=(1, 2, 4), keepdim=True, correction=0).to(x.dtype)
+    xg = (xg - mean) * torch.rsqrt(var + eps)
+    return xg.reshape(n, h, w, c) * params["scale"] + params["bias"]
 
 
 def dropout(x: torch.Tensor, keep: torch.Tensor | None, rate: float) -> torch.Tensor:

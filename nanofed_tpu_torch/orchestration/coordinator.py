@@ -504,8 +504,10 @@ class Coordinator:
     # ------------------------------------------------------------------
 
     def _register_programs(self) -> None:
-        """Register the round step under ``"round_step"`` and, when the coordinator
-        fuses, its block under ``"round_block"`` (profiled over its R rounds).  The
+        """Register the round step under ``"round_step"`` (a SCAFFOLD coordinator's
+        under ``"scaffold_round_step"``, with the controls among its arguments, as
+        the JAX package names it) and, when the coordinator fuses, its block under
+        ``"round_block"`` (profiled over its R rounds).  The
         argument factories hand the programs CLONES of the params and server state;
         the step gets the data rows of its width, weights one, permutations and
         dropout keys from the config's seed (and a noise draw under central DP), the
@@ -531,6 +533,20 @@ class Coordinator:
             return args, {}
 
         attrs = {"step_clients": self._step_clients, "client_chunk": self._client_chunk}
+        if self.scaffold:
+            def _scaffold_args() -> tuple[tuple, dict]:
+                # The SCAFFOLD step takes the controls between the server state and
+                # the data: c_global and the step's rows of the control stack.
+                (params, state, data, weights, perms, keys), _ = _step_args()
+                c_rows = self.c_stack[: self._step_clients].clone()
+                return (params, state, self.c_global.clone(), c_rows, data, weights,
+                        perms, keys), {}
+
+            self.program_catalog.register(
+                "scaffold_round_step", self._round_step, args_factory=_scaffold_args,
+                attrs=attrs,
+            )
+            return
         self.program_catalog.register(
             "round_step", self._round_step, args_factory=_step_args, attrs=attrs,
         )

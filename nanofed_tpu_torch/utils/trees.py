@@ -57,16 +57,22 @@ def from_numpy_params(nested: Mapping[str, Any], device: DeviceLike = None) -> P
     }
 
 
-def to_numpy_params(params: Params) -> dict[str, Any]:
-    """Inverse of :func:`from_numpy_params`: a nested dict of numpy arrays."""
+def unflatten_names(flat: Mapping[str, Any]) -> dict[str, Any]:
+    """Inverse of :func:`flatten_with_names`: ``{"a/b": leaf}`` -> nested dicts of the
+    same leaves (no copies)."""
     nested: dict[str, Any] = {}
-    for name, leaf in params.items():
+    for name, leaf in flat.items():
         *parents, last = name.split("/")
         node = nested
         for part in parents:
             node = node.setdefault(part, {})
-        node[last] = leaf.detach().cpu().numpy()
+        node[last] = leaf
     return nested
+
+
+def to_numpy_params(params: Params) -> dict[str, Any]:
+    """Inverse of :func:`from_numpy_params`: a nested dict of numpy arrays."""
+    return unflatten_names({name: leaf.detach().cpu().numpy() for name, leaf in params.items()})
 
 
 def _leaves_like(nested: Any, like: Params, what: str) -> Params:

@@ -13,6 +13,7 @@ finding); both behaviours are pinned here.
 
 import asyncio
 import math
+import time
 
 import jax
 import jax.numpy as jnp
@@ -166,6 +167,48 @@ def test_pipeline_drains_and_version_window_match_jax():
         _same_metas(am, bm)
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0, atol=TOL)
         assert asyncio.run(ours.run_decode(lambda x: x + 1, 41)) == 42
+    finally:
+        ours.close()
+        theirs.close()
+
+
+def test_client_ids_follow_offers_and_drains_like_jax():
+    port, ref = _pair(4)
+    assert port.client_ids() == ref.client_ids() == set()
+    rows = _rows(4, seed=3)
+    for i, cid in enumerate(["a", "b", "a", "c"]):  # a's second offer replaces its first
+        _offer((port, ref), rows[i], cid, 0, 1.0 + i)
+    assert port.client_ids() == ref.client_ids() == {"a", "b", "c"}
+    ids = port.client_ids()
+    ids.add("intruder")  # a copy: the buffer's own bookkeeping is untouched
+    assert port.client_ids() == {"a", "b", "c"}
+    base = _rows(1, seed=4)[0]
+    _same_metas(port.drain_fedbuff(2, 0, [0], base)[1], ref.drain_fedbuff(2, 0, [0], base)[1])
+    assert port.client_ids() == ref.client_ids() == {"c"}  # a kept its first slot's age
+    port.clear()
+    ref.clear()
+    assert port.client_ids() == ref.client_ids() == set()
+
+
+def test_decode_busy_seconds_sum_the_pool_workers_like_jax():
+    """Worker-busy wall seconds: 0 at construction, then at least the summed wall time
+    of every decode job, however many workers ran them at once."""
+    from nanofed_tpu.observability.registry import MetricsRegistry as JaxRegistry
+
+    ours = IngestPipeline(from_numpy_params(NESTED, device="cpu"),
+                          IngestConfig(capacity=2, decode_workers=3),
+                          registry=MetricsRegistry(), device="cpu")
+    theirs = JaxPipeline(jax.tree.map(jnp.asarray, NESTED),
+                         JaxIngestConfig(capacity=2, decode_workers=3), registry=JaxRegistry())
+
+    async def jobs(pipe):
+        return await asyncio.gather(*(pipe.run_decode(time.sleep, 0.02) for _ in range(6)))
+
+    try:
+        for pipe in (ours, theirs):
+            assert pipe.decode_busy_seconds() == 0.0
+            asyncio.run(jobs(pipe))
+            assert 6 * 0.02 <= pipe.decode_busy_seconds() < 6 * 0.02 + 1.0
     finally:
         ours.close()
         theirs.close()

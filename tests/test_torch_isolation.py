@@ -1,8 +1,8 @@
 """The port imports neither JAX nor anything of ``nanofed_tpu`` (every module of the
 package, fused multi-round blocks, the network mode, secure aggregation, signing, the ingest buffer,
-observability and tuning included, and the compressed codec, signing and ingest paths
-when they run), and its entry points run on the GPU unless the caller asks for the
-CPU."""
+observability and tuning, the ResNets, the benchmark suite and the command line
+included, and the compressed codec, signing and ingest paths when they run), and its
+entry points run on the GPU unless the caller asks for the CPU."""
 
 import importlib
 import pkgutil
@@ -15,7 +15,8 @@ import pytest
 import torch
 
 import nanofed_tpu_torch
-from nanofed_tpu_torch import run_experiment
+from nanofed_tpu_torch import cli, run_experiment
+from nanofed_tpu_torch.benchmarks import run_benchmark
 from nanofed_tpu_torch.communication import (
     HTTPServer,
     NetworkCoordinator,
@@ -137,6 +138,8 @@ def _entry_points():
         "build_round_block": lambda: build_round_block(model, TrainingConfig(), num_clients=2),
         "Coordinator_fused": lambda: Coordinator(
             model, data, CoordinatorConfig(save_metrics=False, rounds_per_block=2)),
+        "run_benchmark": lambda: run_benchmark("cross_silo", train_size=64),
+        "cli_bench": lambda: cli.main(["bench", "cross_silo", "--train-size", "64"]),
     }
 
 
@@ -148,7 +151,7 @@ def _entry_points():
                                   "build_scaffold_round_step", "Trainer",
                                   "DeviceIngestBuffer", "IngestPipeline", "HTTPServer_ingest",
                                   "fedbuff_combine", "build_round_block",
-                                  "Coordinator_fused"])
+                                  "Coordinator_fused", "run_benchmark", "cli_bench"])
 def test_entry_points_default_to_cuda_and_raise_without_it(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -114,9 +114,11 @@ async def _plain_client(pkg, url, cid):
             await _wait_next_round(client, rnd)
 
 
-async def _secure_client(pkg, url, cid, cfg, backend="host", drop_at_round=None):
+async def _secure_client(pkg, url, cid, cfg, backend="host", drop_at_round=None, seen=None):
     """One secure client as ``examples/secure_federation/run_secure.py`` drives it,
-    submitting the fetched model plus its delta instead of training."""
+    submitting the fetched model plus its delta instead of training.  With ``seen``
+    (a dict) it records what ``fetch_secagg_participants`` answers each round, and
+    waits for the server's end with ``wait_for_completion``."""
     template = pkg.params(INIT)
     identity = pkg.sa.ClientKeyPair.generate()
     async with pkg.comm.HTTPClient(url, cid, timeout_s=30) as client:
@@ -126,11 +128,17 @@ async def _secure_client(pkg, url, cid, cfg, backend="host", drop_at_round=None)
         while True:
             params, rnd, active = await _fetch(pkg, client, template)
             if not active:
+                if seen is not None:
+                    await client.wait_for_completion(poll_interval_s=0.01)
+                    seen[(cid, "completed")] = (await client.check_server_status())[
+                        "training_active"]
                 return
             index, mask_key, ordered = roster.index_of(cid), identity, roster.ordered_keys()
             self_seed = held = None
             if cfg.dropout_tolerant:
                 participants, threshold = await client.fetch_secagg_round_info()
+                if seen is not None:
+                    seen[(cid, rnd)] = (participants, await client.fetch_secagg_participants())
                 if cid not in participants:
                     return
                 mask_key = pkg.sa.ClientKeyPair.generate()
@@ -176,7 +184,7 @@ MODES = {
 
 
 def _run(mode, server_pkg, client_pkgs, drop=None, backend="host", timeout_s=20.0,
-         device=None):
+         device=None, seen=None):
     """Run ``ROUNDS`` rounds: ``server_pkg``'s server and coordinator, one client per
     entry of ``client_pkgs`` (a package name per client).  ``device`` overrides the
     port coordinator's device (the CPU by default).  Returns the coordinator."""
@@ -204,7 +212,8 @@ def _run(mode, server_pkg, client_pkgs, drop=None, backend="host", timeout_s=20.
                 else:
                     ccfg = pkg.sa.SecureAggregationConfig(**secure_kw)
                     clients.append(_secure_client(pkg, url, cid, ccfg, backend=backend,
-                                                  drop_at_round=drop if cid == "c3" else None))
+                                                  drop_at_round=drop if cid == "c3" else None,
+                                                  seen=seen))
             await asyncio.wait_for(asyncio.gather(coordinator.run(), *clients), 120)
             return coordinator
         finally:
@@ -308,6 +317,22 @@ def test_interop_gives_the_single_package_aggregate(mode, direction):
         np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
     else:
         np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
+@pytest.mark.parametrize("server", ["port", "jax"])
+def test_participants_and_completion_helpers_match_jax(server):
+    """A tolerant cohort of port and JAX clients: each round every client's
+    ``fetch_secagg_participants`` is its ``fetch_secagg_round_info`` cohort and the
+    same list for all, and after the last round ``wait_for_completion`` returns for
+    both packages' clients once the server reports training over."""
+    seen = {}
+    coordinator = _run("tolerant", server, ["port", "jax", "port", "jax"], seen=seen)
+    assert [h["status"] for h in coordinator.history] == ["COMPLETED"] * ROUNDS
+    for rnd in range(ROUNDS):
+        answers = [seen[(cid, rnd)] for cid in NUM_SAMPLES]
+        assert all(info == mine == answers[0][0] for info, mine in answers)
+        assert sorted(answers[0][0]) == sorted(NUM_SAMPLES)
+    assert [seen[(cid, "completed")] for cid in NUM_SAMPLES] == [False] * 4
 
 
 def test_server_refuses_mixed_backend_and_device_enrollments():

@@ -102,8 +102,7 @@ def test_validate_updates_gives_the_jax_verdicts(case):
 def test_list_models_is_the_jax_registry_less_the_later_models():
     ours, theirs = list_models(), jax_list_models()
     assert ours == sorted(ours) and set(ours) <= set(theirs)
-    assert set(theirs) - set(ours) == {"resnet18", "resnet8", "transformer_lm",
-                                       "transformer_lm_scan"}  # items 13 and 16
+    assert set(theirs) - set(ours) == {"transformer_lm", "transformer_lm_scan"}  # item 16
 
 
 def test_training_progress_counts_like_jax(tmp_path):

@@ -425,6 +425,23 @@ def test_scaffold_coordinator_matches_jax(mlp, tmp_path):
                                **PARITY)
 
 
+@pytest.mark.parametrize("participation", [1.0, 0.25])
+def test_scaffold_program_is_profiled_under_the_jax_name(mlp, tmp_path, participation):
+    """The SCAFFOLD step is catalogued as ``scaffold_round_step`` with its controls among
+    its arguments, as the JAX coordinator catalogues it, and profiles (it runs); the
+    profiled calls leave the coordinator's params and controls as they were."""
+    cd = federate(_data(n=256), num_clients=16, scheme="iid", batch_size=16)
+    jc = _jax_coord(_jax_cd(), tmp_path / "j", 1, participation_rate=participation)
+    tc = _port_like_jax(mlp, cd, tmp_path / "t", 1, jc, participation_rate=participation)
+    assert tc.program_catalog.names() == jc.program_catalog.names() == [
+        "scaffold_round_step"]
+    before = (ravel(tc.params).clone(), tc.c_global.clone(), tc.c_stack.clone())
+    (report,) = tc.profile_programs()
+    assert report.program == "scaffold_round_step" and report.flops > 0
+    for was, now in zip(before, (ravel(tc.params), tc.c_global, tc.c_stack)):
+        assert torch.equal(was, now)
+
+
 def test_jax_scaffold_checkpoint_resumes_the_port(mlp, tmp_path):
     cd = federate(_data(n=256), num_clients=16, scheme="iid", batch_size=16)
     store = tmp_path / "ckpt"
