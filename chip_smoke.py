@@ -164,6 +164,24 @@ Phases (any failure exits non-zero):
    (1e-4: the stride-2 SAME convolutions and GroupNorm); (t5) B1 normalised and B3 at
    C = 10, P = 77,850 and C = 8, P = 11,218,340 in the round's layout, timed with the
    library calls ``w @ x`` and ``torch.linalg.vecdot(x, x)`` beside their bounds.
+   Then observability (phase (u)): (u1) the flagship (``client_chunk=125``) with
+   ``telemetry_dir``, 4 single rounds and 8 rounds at ``rounds_per_block=4``: the spans
+   of ``telemetry.jsonl`` with the JAX names and nesting, every ``round`` record,
+   ``summarize_telemetry`` over the file, the span-derived occupancy on both bases, the
+   first block's whole ``dispatch`` span under the sync check (0 synchronizing
+   operations) and the second block under ``torch.profiler`` (its span occupancy at
+   most the device's busy share + 0.02), then the round with telemetry off and on,
+   interleaved (off, on, on, off; 3 rounds each after a warm round); (u2) one flagship
+   round inside ``utils.profiling.trace``, whose Chrome trace must hold the span names
+   and B1's and B3's kernels; (u3) (h)'s plain network round with the server's
+   ``registry=`` and ``tracer=``, the clients' ``registry=`` and the coordinator's
+   ``telemetry_dir=``: ``GET /metrics`` with the JAX families, 8 updates a round, the
+   bytes received equal to the bodies the clients sent, every submit's trace id in
+   exactly one ``submit-decode`` span (B1 once a round); (u4) the kernel-build manifest
+   over ``nanofed_tpu_torch/_build/`` (three libraries, the toolchain matches) and a
+   second load that counts three hits and no build; (u5) ``nanofed-tpu-torch run
+   --telemetry-dir`` (1 round of 8 clients), then ``metrics-summary`` and ``trace`` on
+   its directory, each exiting 0.
 4. Cross-check: 8-client f32 rounds of the port on the card and on the CPU from the
    same weights, permutations and injected noise: the plain round with dropout off
    and on (the masks are an integer hash, the same bits on both devices), the
@@ -3719,6 +3737,410 @@ def time_cifar_reduces(torch, ops, card: str) -> None:
         torch.cuda.empty_cache()
 
 
+OBS_ROUNDS = 4  # (u1): single flagship rounds with telemetry
+OBS_FUSED_ROUNDS = 8  # (u1): two blocks at rounds_per_block = FUSED_RPB
+OBS_TIMED_ROUNDS = 3  # (u1): timed rounds a coordinator, after its warm round
+OCCUPANCY_SLACK = 0.02  # (u1): span occupancy may exceed the profiler's busy share by this
+SINGLE_SPANS = [("cohort-sample", 1, "round"), ("cohort-gather", 1, "round"),
+                ("local-train", 1, "round"), ("aggregate", 1, "round"), ("round", 0, None),
+                ("publish", 0, None)]  # (u1): a single round's spans, in closing order
+WIRE_FAMILIES = (  # (u3): the JAX server's and round engine's families
+    "nanofed_bytes_received_total", "nanofed_bytes_sent_total", "nanofed_updates_total",
+    "nanofed_secagg_evictions_total", "nanofed_http_429_total",
+    "nanofed_read_timeouts_total", "nanofed_fleet_bytes_total",
+    "nanofed_fleet_updates_total", "nanofed_unknown_tenant_total", "nanofed_rounds_total",
+    "nanofed_round_duration_seconds", "nanofed_cohort_size",
+    "nanofed_round_critical_path_seconds", "nanofed_span_duration_seconds",
+    "nanofed_validation_rejections_total", "nanofed_straggler_evictions_total")
+
+
+def telemetry_records(run_dir: Path) -> list[dict]:
+    lines = (run_dir / "telemetry.jsonl").read_text().splitlines()
+    return [json.loads(line) for line in lines]
+
+
+def span_structure(records: list[dict]) -> list[tuple]:
+    """(name, depth, parent's name) of every span record, in closing order."""
+    names = {r["span_id"]: r["name"] for r in records if r["type"] == "span"}
+    return [(r["name"], r["depth"], names.get(r["parent_id"]))
+            for r in records if r["type"] == "span"]
+
+
+def span_occupancy(obs, spans: list[dict]) -> float | None:
+    """``update_device_occupancy`` over these span records alone, in a fresh
+    registry (the process registry holds every earlier phase's spans too)."""
+    reg = obs.MetricsRegistry()
+    hist = reg.histogram(obs.SPAN_HISTOGRAM, "Federation-loop phase durations",
+                         labels=("span",))
+    for r in spans:
+        hist.observe(r["duration_s"], span=r["name"])
+    return obs.update_device_occupancy(reg)
+
+
+def sync_checked_span(torch, tracer, name: str, caught: dict) -> None:
+    """Run the first span ``name`` that ``tracer`` opens, its whole body, under
+    ``torch.cuda.set_sync_debug_mode("warn")``: the warnings of the synchronizing
+    operations it ran land in ``caught[name]``."""
+    import contextlib
+    import warnings
+
+    span = tracer.span
+
+    @contextlib.contextmanager
+    def checked(span_name, **attrs):
+        if span_name != name or name in caught:
+            with span(span_name, **attrs):
+                yield
+            return
+        with span(span_name, **attrs), warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                yield
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        caught[name] = [str(w.message) for w in seen
+                        if "called a synchronizing CUDA operation" in str(w.message)]
+
+    tracer.span = checked
+
+
+def prom_value(text: str, sample: str) -> float | None:
+    """A sample's value in Prometheus text (``name{labels}`` as rendered)."""
+    for line in text.splitlines():
+        if line.startswith(sample + " "):
+            return float(line.split()[-1])
+    return None
+
+
+def phase_observability(torch, ops, card: str, out_dir: Path) -> dict[str, int]:
+    """(u): observability.  (u1) the flagship with ``telemetry_dir``: 4 single rounds,
+    then 8 rounds at ``rounds_per_block=4`` (the first block's dispatch under the
+    sync check, the second block under ``torch.profiler``), the spans' names and
+    nesting, the ``round`` records, ``summarize_telemetry``, the occupancy gauge on
+    both bases, and the round with telemetry off and on, interleaved; (u2) one
+    flagship round inside ``utils.profiling.trace``; (u3) (h)'s plain network round with
+    the server's ``registry=`` and ``tracer=``, clients' ``registry=`` and the network
+    coordinator's ``telemetry_dir=``: ``GET /metrics``, bytes and trace ids; (u4) the
+    kernel-build manifest; (u5) ``run --telemetry-dir``, then ``metrics-summary`` and
+    ``trace`` on it.  Returns the launch counts."""
+    import aiohttp
+
+    from nanofed_tpu_torch import cli
+    from nanofed_tpu_torch import communication as comm
+    from nanofed_tpu_torch import observability as obs
+    from nanofed_tpu_torch.data import federate, load_mnist
+    from nanofed_tpu_torch.models import get_model
+    from nanofed_tpu_torch.ops import _build
+    from nanofed_tpu_torch.orchestration import Coordinator, CoordinatorConfig, RoundStatus
+    from nanofed_tpu_torch.security import secure_agg as sa
+    from nanofed_tpu_torch.trainer import TrainingConfig, make_local_fit
+    from nanofed_tpu_torch.tuning import compile_cache
+    from nanofed_tpu_torch.utils import profiling as uprof
+
+    t_phase = time.perf_counter()
+    n, chunk, rpb = FLAGSHIP["num_clients"], 125, FUSED_RPB
+    model, data, training = get_model("mnist_cnn"), flagship_data(), flagship_training()
+    totals: dict[str, int] = dict.fromkeys(ops.launch_counts(), 0)
+    base = out_dir / "u_observability"
+    gc.collect()
+
+    def make(name: str, rounds_per_block: int, num_rounds: int, telemetry: bool):
+        return Coordinator(
+            model, data, CoordinatorConfig(num_rounds=num_rounds, seed=0,
+                                           base_dir=base / name, save_metrics=False,
+                                           rounds_per_block=rounds_per_block),
+            training, client_chunk=chunk, device="cuda",
+            telemetry_dir=base / name / "telemetry" if telemetry else None)
+
+    def drive(tag: str, coord, rounds: int):
+        want: dict[str, int] = {}
+        add_launches(want, step_launches(chunk, n), rounds)
+        out, wall, grew = counted(torch, ops, card, tag, coord.run, want)
+        add_launches(totals, grew)
+        if [m.status for m in out] != [RoundStatus.COMPLETED] * rounds:
+            fail(f"{tag}: rounds {[m.status for m in out]}")
+        return out, wall
+
+    # (u1) single rounds with telemetry.
+    single = make("single", 1, OBS_ROUNDS, True)
+    s_rounds, s_wall = drive("(u1) flagship single rounds, telemetry on", single, OBS_ROUNDS)
+    tel_dir = base / "single" / "telemetry"
+    records = telemetry_records(tel_dir)
+    del single
+    gc.collect()
+    if records[0]["type"] != "topology" or records[-1]["type"] != "metrics_snapshot":
+        fail(f"(u1) single: first/last records {records[0]['type']}/{records[-1]['type']}")
+    if span_structure(records) != SINGLE_SPANS * OBS_ROUNDS:
+        fail(f"(u1) single: spans {span_structure(records)[:8]}...")
+    round_recs = [r for r in records if r["type"] == "round"]
+    if ([(r["round"], r["status"], r["num_clients"]) for r in round_recs]
+            != [(i, "COMPLETED", n) for i in range(OBS_ROUNDS)]
+            or any(set(r) != {"type", "t", "round", "status", "num_clients", "duration_s"}
+                   for r in round_recs)):
+        fail(f"(u1) single: round records {round_recs}")
+    summary = obs.summarize_telemetry(tel_dir / "telemetry.jsonl")
+    if (summary["rounds"] != {"COMPLETED": OBS_ROUNDS}
+            or set(summary["phases"]) != {name for name, _, _ in SINGLE_SPANS}
+            or summary["round_duration"]["count"] != OBS_ROUNDS):
+        fail(f"(u1) single: summary {summary}")
+    spans = [r for r in records if r["type"] == "span"]
+    occ_single = span_occupancy(obs, spans)
+    phase_s = {k: v["total_s"] for k, v in summary["phases"].items()}
+    round_total = phase_s["round"] + phase_s["publish"]
+    shares = {k: phase_s[k] / round_total for k in ("cohort-sample", "cohort-gather",
+                                                     "local-train", "aggregate", "publish")}
+    print(f"[{card}] (u1) single rounds, span seconds over {OBS_ROUNDS} rounds: "
+          f"{json.dumps(phase_s)}; shares of round+publish: "
+          + ", ".join(f"{k} {v:.6f}" for k, v in shares.items())
+          + f"; host time outside local-train {1 - shares['local-train']:.6f}; "
+          f"occupancy (single basis) {occ_single:.6f}; metrics-summary phases "
+          f"{json.dumps(summary['phases'])}")
+
+    # (u1) fused blocks with telemetry: block 0's dispatch under the sync check, block 1
+    # (dispatch, host_sync and its publishes) under the profiler.
+    fused = make("fused", rpb, OBS_FUSED_ROUNDS, True)
+    caught: dict[str, object] = {}
+    sync_checked_span(torch, fused._tracer, "dispatch", caught)
+    train_block = fused._train_block
+    blocks: list[float] = []
+
+    def profiled_block(nr):
+        if len(blocks) == 1:
+            out, caught["wall"], caught["busy"], caught["top"] = device_profile(
+                torch, lambda: train_block(nr))
+        else:
+            t0 = time.perf_counter()
+            out = train_block(nr)
+            caught.setdefault("plain_wall", time.perf_counter() - t0)
+        blocks.append(len(blocks))
+        return out
+
+    fused._train_block = profiled_block
+    f_rounds, f_wall = drive("(u1) flagship fused blocks, telemetry on", fused,
+                             OBS_FUSED_ROUNDS)
+    f_dir = base / "fused" / "telemetry"
+    records = telemetry_records(f_dir)
+    del fused
+    gc.collect()
+    block_spans = ([("cohort-sample", 1, "dispatch"), ("dispatch", 0, None),
+                    ("host_sync", 0, None)] + [("publish", 0, None)] * rpb)
+    if span_structure(records) != block_spans * (OBS_FUSED_ROUNDS // rpb):
+        fail(f"(u1) fused: spans {span_structure(records)}")
+    round_recs = [r for r in records if r["type"] == "round"]
+    if [(r["round"], r["fused"], r["rounds_per_block"]) for r in round_recs] != [
+            (i, True, rpb) for i in range(OBS_FUSED_ROUNDS)]:
+        fail(f"(u1) fused: round records {round_recs}")
+    summary_f = obs.summarize_telemetry(f_dir / "telemetry.jsonl")
+    if summary_f["rounds"] != {"COMPLETED": OBS_FUSED_ROUNDS}:
+        fail(f"(u1) fused: summary {summary_f}")
+    spans = [r for r in records if r["type"] == "span"]
+    occ_fused = span_occupancy(obs, spans)
+    per_block = len(block_spans)
+    second = spans[per_block:2 * per_block]
+    occ_second = span_occupancy(obs, second)
+    busy_share = caught["busy"] / (caught["wall"] * 1e3)
+    syncs = caught["dispatch"]
+    top = "; ".join(f"{k[:60]} {t:.3f} ms" for k, t in caught["top"][:3])
+    print(f"[{card}] (u1) fused blocks: synchronizing operations in block 0's whole "
+          f"dispatch span (cohort sampling, copies, enqueue) with spans on: {len(syncs)}"
+          f"{' ' + repr(syncs[:3]) if syncs else ''}")
+    print(f"[{card}] (u1) fused blocks: span seconds {json.dumps({k: v['total_s'] for k, v in summary_f['phases'].items()})}; "
+          f"occupancy (fused basis) over both blocks {occ_fused:.6f}; block 1 span occupancy "
+          f"{occ_second:.6f} against the profiler's busy share {busy_share:.6f} "
+          f"(device {caught['busy']:.3f} ms of {caught['wall'] * 1e3:.3f} ms, slack "
+          f"{OCCUPANCY_SLACK}); unprofiled block 0 wall {caught['plain_wall']:.6f} s; top "
+          f"kernels {top}")
+    if syncs:
+        fail(f"(u1) {len(syncs)} synchronizing operations in a fused block's dispatch")
+    if not (0 < occ_single <= 1 and 0 < occ_fused <= 1):
+        fail(f"(u1) occupancy single {occ_single} fused {occ_fused}")
+    if occ_second > busy_share + OCCUPANCY_SLACK:
+        fail(f"(u1) span occupancy {occ_second} above the busy share {busy_share} + slack")
+    reg = obs.get_registry()
+    # Set at the last block's host_sync, before that block's publishes.
+    gauge = reg.gauge(obs.profiling.DEVICE_OCCUPANCY_GAUGE).value()
+    if not 0 < gauge <= 1:
+        fail(f"(u1) the process's occupancy gauge is {gauge}")
+    print(f"[{card}] (u1) process gauge nanofed_device_occupancy_ratio={gauge:.6f} (every "
+          "coordinator of the process so far, fused basis)")
+
+    # (u1) the round with telemetry off and on, interleaved; spans are on in both.
+    timed: dict[str, list[float]] = {"off": [], "on": []}
+    for i, mode in enumerate(("off", "on", "on", "off")):
+        coord = make(f"overhead_{i}_{mode}", 1, 1 + OBS_TIMED_ROUNDS, mode == "on")
+        out, _ = drive(f"(u1) overhead run {i} telemetry {mode}", coord,
+                       1 + OBS_TIMED_ROUNDS)
+        timed[mode].extend(m.duration_s for m in out[1:])
+        del coord
+        gc.collect()
+    med_off, med_on = statistics.median(timed["off"]), statistics.median(timed["on"])
+    print(f"[{card}] (u1) flagship round_s telemetry off {timed['off']} (median "
+          f"{med_off:.6f}), on {timed['on']} (median {med_on:.6f}); on/off "
+          f"{med_on / med_off:.6f}")
+
+    # (u2) one flagship round inside the capture.
+    cap = make("captured", 1, 1, True)
+    want: dict[str, int] = {}
+    add_launches(want, step_launches(chunk, n))
+
+    def captured():
+        with uprof.trace(base / "u2_trace"):
+            return cap.run()
+
+    counted_out, cap_wall, grew = counted(torch, ops, card, "(u2) one flagship round "
+                                          "inside utils.profiling.trace", captured, want)
+    add_launches(totals, grew)
+    del cap
+    gc.collect()
+    (trace_file,) = (base / "u2_trace").glob("*.json")
+    events = json.loads(trace_file.read_text())["traceEvents"]
+    names = {str(e.get("name", "")) for e in events}
+    span_names = {"round", "cohort-sample", "cohort-gather", "local-train", "aggregate",
+                  "publish"}
+    kernels = {k: sorted(x for x in names if k in x)[:2]
+               for k in ("weighted_sum_ring", "weighted_sum_regs", "row_sq_partial_kernel",
+                         "row_sq_final_kernel")}
+    print(f"[{card}] (u2) capture {trace_file.name}: {trace_file.stat().st_size} bytes, "
+          f"{len(events)} events; spans found {sorted(span_names & names)}; B1/B3 kernel "
+          f"names {json.dumps(kernels)}")
+    if not span_names <= names:
+        fail(f"(u2) spans missing from the capture: {sorted(span_names - names)}")
+    if not ((kernels["weighted_sum_ring"] or kernels["weighted_sum_regs"])
+            and kernels["row_sq_partial_kernel"]):
+        fail("(u2) B1's or B3's kernel is missing from the capture")
+    trace_file.unlink()  # tens of MB: not kept
+
+    # (u3) (h)'s plain network round with metrics, tracer and telemetry.
+    import logging
+
+    from nanofed_tpu_torch.utils.logger import LogConfig, Logger
+
+    Logger().configure(LogConfig(level=logging.WARNING))
+    clients = SECURE_CLIENTS
+    init = model.init(torch.Generator(device="cuda").manual_seed(0))
+    host = federate(load_mnist("train", None, synthetic_size=clients * SECURE_SAMPLES),
+                    num_clients=clients, batch_size=64, seed=0)
+    cdata = [host.select(slice(c, c + 1)).to(torch.device("cuda")) for c in range(clients)]
+    fit = make_local_fit(model, TrainingConfig(batch_size=64, local_epochs=1,
+                                               learning_rate=0.1))
+    rounds = 2
+    server_reg = obs.MetricsRegistry()
+    tracer = obs.SpanTracer(registry=False)
+    client_regs = [obs.MetricsRegistry() for _ in range(clients)]
+    trained, fetched, spent, scraped = {}, {}, {}, {}
+
+    async def main():
+        port = comm.free_port()
+        server = comm.HTTPServer(port=port, registry=server_reg, tracer=tracer)
+        await server.start()
+        try:
+            coordinator = comm.NetworkCoordinator(
+                server, init, comm.NetworkRoundConfig(num_rounds=rounds, min_clients=clients,
+                                                      round_timeout_s=120.0),
+                device="cuda", telemetry_dir=base / "u3_network")
+            url = f"http://127.0.0.1:{port}"
+            await asyncio.wait_for(asyncio.gather(coordinator.run(), *[
+                network_client(torch, comm, sa, url, f"client_{c}", c, fit, cdata[c], None,
+                               init, trained, fetched, spent,
+                               client_kwargs={"registry": client_regs[c]})
+                for c in range(clients)]), 300)
+            async with aiohttp.ClientSession() as session:
+                async with session.get(f"{url}/metrics") as resp:
+                    scraped["status"], scraped["type"] = resp.status, resp.headers.get(
+                        "Content-Type", "")
+                    scraped["text"] = await resp.text()
+            return coordinator
+        finally:
+            await server.stop()
+
+    want = {"weighted_mean_flat": rounds}
+    coordinator, net_wall, grew = counted(torch, ops, card, "(u3) plain network round with "
+                                          "metrics", lambda: asyncio.run(main()), want)
+    add_launches(totals, grew)
+    text = scraped["text"]
+    families = {line.split()[2] for line in text.splitlines() if line.startswith("# TYPE ")}
+    accepted = prom_value(text, 'nanofed_updates_total{kind="plain",result="accepted"}')
+    received = prom_value(text, 'nanofed_bytes_received_total{endpoint="update"}')
+    sent_bodies = sum(reg.counter("nanofed_client_bytes_sent_total", labels=("endpoint",))
+                      .value(endpoint="update") for reg in client_regs)
+    net_records = telemetry_records(base / "u3_network")
+    per_round = [r["num_clients"] for r in net_records if r["type"] == "round"]
+    model_sent = prom_value(text, 'nanofed_bytes_sent_total{endpoint="model"}')
+    decodes = [r for r in tracer.records if r.name == "submit-decode"]
+    want_traces = {obs.new_trace(f"client_{c}", r, r + 1).trace_id
+                   for c in range(clients) for r in range(rounds)}
+    got_traces = [r.attrs.get("trace") for r in decodes]
+    print(f"[{card}] (u3) GET /metrics: HTTP {scraped['status']} {scraped['type']!r}, "
+          f"{len(families)} families; updates accepted {accepted} ({rounds} rounds, per "
+          f"round {per_round}); bytes received {received} = client bodies sent "
+          f"{sent_bodies}; model bytes sent {model_sent}; "
+          f"submit-decode spans {len(decodes)} over {len(set(got_traces))} trace ids "
+          f"(want {len(want_traces)}); network spans "
+          f"{json.dumps(obs.summarize_telemetry(base / 'u3_network' / 'telemetry.jsonl')['phases'])}")
+    if scraped["status"] != 200 or not scraped["type"].startswith("text/plain; version=0.0.4"):
+        fail(f"(u3) /metrics answered {scraped['status']} {scraped['type']!r}")
+    if not set(WIRE_FAMILIES) <= families:
+        fail(f"(u3) families missing from /metrics: {sorted(set(WIRE_FAMILIES) - families)}")
+    if accepted != clients * rounds or per_round != [clients] * rounds:
+        fail(f"(u3) {accepted} updates accepted, per round {per_round}")
+    if received != sent_bodies or not received:
+        fail(f"(u3) bytes received {received} != bodies sent {sent_bodies}")
+    if sorted(got_traces) != sorted(want_traces) or len(got_traces) != len(want_traces):
+        fail(f"(u3) submit-decode trace ids {got_traces} != the submits' {want_traces}")
+    if [h["status"] for h in coordinator.history] != ["COMPLETED"] * rounds:
+        fail(f"(u3) rounds {coordinator.history}")
+    del coordinator, cdata
+    gc.collect()
+
+    # (u4) the kernel-build manifest over the checkout's build directory.
+    compile_cache.install_compile_cache_metrics()
+    path = compile_cache.write_manifest()
+    report = compile_cache.verify_manifest()
+    libs = report["manifest"]["libraries"]
+    hits_c = obs.get_registry().counter(compile_cache.COMPILE_CACHE_HITS)
+    miss_c = obs.get_registry().counter(compile_cache.COMPILE_CACHE_MISSES)
+    hits0, misses0 = hits_c.value(), miss_c.value()
+    t0 = time.perf_counter()
+    rebuilt = _build.build()
+    load_s = time.perf_counter() - t0
+    hits1, misses1 = hits_c.value(), miss_c.value()
+    bridge = {line.split()[0]: line.split()[1] for line in obs.get_registry()
+              .render_prometheus().splitlines() if line.startswith("nanofed_torch_event")
+              and "_bucket{" not in line}
+    print(f"[{card}] (u4) manifest {path}: {json.dumps(report['manifest']['toolchain'])}; "
+          f"libraries {[(lib['name'], lib['hash'], lib['bytes'], lib['current']) for lib in libs]}; "
+          f"compatible={report['compatible']} reasons={report['reasons']}; counters before "
+          f"the second load hits={hits0} misses={misses0}, after hits={hits1} misses={misses1} "
+          f"({load_s:.4f} s, built {list(rebuilt)}); build bridge {json.dumps(bridge)}")
+    if (not report["compatible"] or len(libs) != len(_build.SOURCES)
+            or not all(lib["current"] for lib in libs)):
+        fail(f"(u4) manifest {report}")
+    if rebuilt or hits1 - hits0 != len(_build.SOURCES) or misses1 != misses0:
+        fail(f"(u4) the second load built {list(rebuilt)}, hits +{hits1 - hits0}, "
+             f"misses +{misses1 - misses0}")
+
+    # (u5) the command line: run with --telemetry-dir, then metrics-summary and trace.
+    cli_dir = base / "u5_cli"
+    argv = ["run", "--model", "mnist_cnn", "--clients", "8", "--rounds", "1",
+            "--train-size", "1024", "--out-dir", str(cli_dir / "out"),
+            "--telemetry-dir", str(cli_dir / "telemetry")]
+    ops.reset_launch_counts()
+    ran = cli_summary(cli, argv)
+    torch.cuda.synchronize()
+    add_launches(totals, ops.launch_counts())
+    digest = cli_summary(cli, ["metrics-summary", str(cli_dir / "telemetry")])
+    timeline = cli_summary(cli, ["trace", str(cli_dir / "telemetry")])
+    print(f"[{card}] (u5) nanofed-tpu-torch run --telemetry-dir: rounds_completed "
+          f"{ran['rounds_completed']}; metrics-summary rounds {digest['rounds']} phases "
+          f"{sorted(digest['phases'])}; trace streams {json.dumps(timeline['streams'])} "
+          f"resolved {timeline['trace_resolution']['resolved']}")
+    if ran["rounds_completed"] != 1 or digest["rounds"] != {"COMPLETED": 1}:
+        fail(f"(u5) run {ran} / summary {digest}")
+    print(f"[{card}] (u) phase wall_s={time.perf_counter() - t_phase:.3f}")
+    return totals
+
+
 def phase_cross_check(torch, ops, card: str) -> None:
     """8-client f32 rounds on the card and on the CPU from the same inputs; each
     variant's kernel launches on the card are checked against the round's code."""
@@ -3888,7 +4310,13 @@ def main() -> None:
     except ImportError as e:
         fail(f"nanofed_tpu_torch not importable ({e}): run from the root of a checkout")
     from nanofed_tpu_torch import ops, run_experiment
+    from nanofed_tpu_torch.observability import install_torch_event_bridge
     from nanofed_tpu_torch.ops import _build
+    from nanofed_tpu_torch.tuning import install_compile_cache_metrics
+
+    # Before the first build, so (u4) reads its nvcc builds from the counters.
+    install_torch_event_bridge()
+    install_compile_cache_metrics()
 
     card = nvidia_smi()
     print(f"card: {card}")
@@ -3920,10 +4348,12 @@ def main() -> None:
         del scaffold_params, population
         fused_counts = phase_fused(torch, ops, card, Path(tmp))
         cifar_counts = phase_cifar(torch, ops, card, Path(tmp))
+        obs_counts = phase_observability(torch, ops, card, Path(tmp))
     wire_counts = phase_wire(torch, ops, card)
     counts = {k: counts[k] + secure_counts[k] + tuned_counts[k] + resume_counts[k]
               + network_resume_counts[k] + dp_counts[k] + scaffold_counts[k]
-              + fused_counts[k] + cifar_counts[k] + wire_counts.get(k, 0) for k in counts}
+              + fused_counts[k] + cifar_counts[k] + obs_counts[k] + wire_counts.get(k, 0)
+              for k in counts}
     print(f"kernels: {json.dumps(counts)}")
     missing = [k for k, v in counts.items() if v == 0]
     if missing:

@@ -4,8 +4,10 @@ installed as ``nanofed-tpu-torch``; ``python -m nanofed_tpu_torch.cli`` runs the
 ``run`` drives a simulated federated experiment (``--dp-epsilon`` engages
 budget-calibrated central DP), ``bench`` runs the BASELINE.json suite, ``profile``
 profiles the round programs without running a federation (``--sweep``: the autotune
-sweep), ``serve`` hosts the network-mode federation server, and ``info`` prints the
-environment and the model zoo.  ``run``, ``bench``, ``profile`` and ``serve`` run on
+sweep), ``serve`` hosts the network-mode federation server, ``metrics-summary``
+digests a run's ``telemetry.jsonl``, ``trace`` merges per-host telemetry streams into
+one timeline, and ``info`` prints the environment and the model zoo.  ``--telemetry-dir``
+on ``run``, ``profile`` and ``serve`` says where the telemetry goes.  ``run``, ``bench``, ``profile`` and ``serve`` run on
 ``--device`` (default ``cuda``: without a card they raise unless given
 ``--device cpu``).
 
@@ -29,9 +31,6 @@ from typing import Any
 LATER_SUBCOMMANDS: dict[str, tuple[str, str]] = {
     "chaos-plan": ("generate a seeded FaultPlan JSON", "item 17 (multi-host federation "
                    "and faults)"),
-    "metrics-summary": ("digest a run's telemetry.jsonl", "item 19 (observability)"),
-    "trace": ("merge per-host telemetry streams into one timeline",
-              "item 19 (observability)"),
     "audit": ("audit the round programs", "item 21 (analysis)"),
     "loadtest": ("synthetic client swarm load harness", "item 18 (load and service)"),
     "tenants": ("multi-tenant federation service drill", "item 18 (load and service)"),
@@ -40,7 +39,6 @@ LATER_SUBCOMMANDS: dict[str, tuple[str, str]] = {
 # Flags of later slices, by subcommand: dest -> (flag, type, JAX default, item).
 _ADAPTERS = "item 16 (transformer, adapters and fleet)"
 _GPUS = "item 9b (several GPUs)"
-_TELEMETRY = "item 19 (observability)"
 LATER_SLICE_FLAGS: dict[str, dict[str, tuple[str, type, Any, str]]] = {
     "run": {
         "adapter_rank": ("--adapter-rank", int, None, _ADAPTERS),
@@ -48,19 +46,16 @@ LATER_SLICE_FLAGS: dict[str, dict[str, tuple[str, type, Any, str]]] = {
         "model_shards": ("--model-shards", int, 1, _GPUS),
         "hosts": ("--hosts", int, 1, _GPUS),
         "distributed": ("--distributed", bool, False, _GPUS),
-        "telemetry_dir": ("--telemetry-dir", str, None, _TELEMETRY),
         "strict": ("--strict", bool, False, "item 21 (analysis)"),
     },
     "profile": {
         "adapter_rank": ("--adapter-rank", int, None, _ADAPTERS),
         "model_shards": ("--model-shards", int, 1, _GPUS),
         "hosts": ("--hosts", int, 1, _GPUS),
-        "telemetry_dir": ("--telemetry-dir", str, None, _TELEMETRY),
     },
     "serve": {
         "chaos_plan": ("--chaos-plan", str, None,
                        "item 17 (multi-host federation and faults)"),
-        "telemetry_dir": ("--telemetry-dir", str, None, _TELEMETRY),
         "max_inflight": ("--max-inflight", int, None, "item 18 (load and service)"),
     },
 }
@@ -184,6 +179,7 @@ def _cmd_run(args: argparse.Namespace) -> int:
         profile_programs=args.profile_programs,
         autotune=args.autotune,
         retune_every=args.retune_every,
+        telemetry_dir=args.telemetry_dir,
         device=device,
     )
     print(json.dumps(metrics, indent=2, default=str))
@@ -232,13 +228,21 @@ def _cmd_sweep(args: argparse.Namespace) -> int:
             TuningSpace.default(pop, 1, training.batch_size, num_rounds),
             client_chunks=(args.client_chunk,),
         )
+    telemetry = None
+    if args.telemetry_dir is not None:
+        from nanofed_tpu_torch.observability import RunTelemetry
+
+        telemetry = RunTelemetry(args.telemetry_dir)
     try:
         result = autotune(mdl, pop, training, participation=args.participation,
-                          num_rounds=num_rounds, space=space, force=args.force_sweep,
-                          device=device)
+                          num_rounds=num_rounds, space=space, telemetry=telemetry,
+                          force=args.force_sweep, device=device)
     except AutotuneError as e:
         print(f"error: {e}", file=sys.stderr)
         return 1
+    finally:
+        if telemetry is not None:
+            telemetry.close()
     if args.json:
         print(json.dumps(result.to_dict(), indent=2))
         return 0
@@ -274,8 +278,9 @@ def _cmd_profile(args: argparse.Namespace) -> int:
     mdl, client_data, training = _profile_inputs(args)
 
     def build(scaffold: bool, rounds_per_block: int) -> Coordinator:
-        # save_metrics=False: profiling leaves no run artifacts behind; num_rounds
-        # only has to admit the block length.
+        # save_metrics=False: profiling leaves no run artifacts behind (telemetry
+        # lands only where --telemetry-dir points); num_rounds only has to admit
+        # the block length.
         return Coordinator(
             model=mdl, train_data=client_data,
             config=CoordinatorConfig(
@@ -283,13 +288,17 @@ def _cmd_profile(args: argparse.Namespace) -> int:
                 seed=args.seed, save_metrics=False, rounds_per_block=rounds_per_block,
             ),
             training=training, scaffold=scaffold, client_chunk=args.client_chunk,
-            device=device,
+            device=device, telemetry_dir=args.telemetry_dir,
         )
 
     coordinators = [build(scaffold=False, rounds_per_block=args.rounds_per_block)]
     if not args.no_scaffold:
         coordinators.append(build(scaffold=True, rounds_per_block=1))
-    reports = [r for coord in coordinators for r in coord.profile_programs()]
+    reports = []
+    for coord in coordinators:
+        reports.extend(coord.profile_programs())
+        if coord.telemetry is not None:
+            coord.telemetry.close()
     if args.json:
         print(json.dumps([r.to_dict() for r in reports], indent=2))
     else:
@@ -420,7 +429,7 @@ def _cmd_serve(args: argparse.Namespace) -> int:
                                       if args.staleness_window is not None else 4),
                 ),
                 validation=validation, secure=secure, device=device,
-                state_store=state_store,
+                state_store=state_store, telemetry_dir=args.telemetry_dir,
             )
             return await coordinator.run()
         finally:
@@ -456,6 +465,57 @@ def _cmd_bench(args: argparse.Namespace) -> int:
                             device=resolve_device(args.device), **overrides)
     print(json.dumps(summary, indent=2, default=str))
     return 0
+
+
+def _cmd_metrics_summary(args: argparse.Namespace) -> int:
+    """Digest a run's ``telemetry.jsonl``: per-phase span durations, round outcomes and
+    headline counters, as one JSON document."""
+    from nanofed_tpu_torch.observability import find_latest_telemetry, summarize_telemetry
+
+    path = find_latest_telemetry(args.path)
+    if path is None:
+        print(f"error: no telemetry.jsonl found under {args.path!r} — run with "
+              "--telemetry-dir (or the default runs dir with metrics saving on) "
+              "first", file=sys.stderr)
+        return 1
+    print(json.dumps(summarize_telemetry(path), indent=2))
+    return 0
+
+
+def _cmd_trace(args: argparse.Namespace) -> int:
+    """Merge a run's per-host ``telemetry.jsonl`` streams into one clock-aligned story:
+    the per-round critical-path digest on stdout and, with ``--chrome-out``, a
+    host-laned Chrome/Perfetto timeline."""
+    from pathlib import Path
+
+    from nanofed_tpu_torch.observability import (
+        clock_offsets,
+        federation_timeline,
+        load_host_streams,
+        merge_timeline,
+    )
+
+    root = Path(args.path)
+    streams = load_host_streams(root)
+    if not streams:
+        print(f"error: no telemetry.jsonl streams found under {root} — run with "
+              "--telemetry-dir first", file=sys.stderr)
+        return 1
+    if args.chrome_out is not None:
+        timeline = merge_timeline(streams, clock_offsets(streams))
+        out = Path(args.chrome_out)
+        out.parent.mkdir(parents=True, exist_ok=True)
+        out.write_text(json.dumps(timeline))
+        print(f"# wrote {len(timeline['traceEvents'])} trace events to {out}",
+              file=sys.stderr)
+    digest = federation_timeline(root, include_trace_map=args.trace_map)
+    print(json.dumps(digest, indent=2))
+    resolution = digest.get("trace_resolution") or {}
+    return 0 if resolution.get("resolved", True) else 1
+
+
+def _add_telemetry_dir(p: argparse.ArgumentParser, text: str) -> None:
+    p.add_argument("--telemetry-dir", default=None, help=text)
 
 
 def _add_device(p: argparse.ArgumentParser) -> None:
@@ -537,6 +597,9 @@ def build_parser() -> argparse.ArgumentParser:
     run.add_argument("--profile-programs", action="store_true",
                      help="profile the round programs at construction; the reports land "
                      "in the summary")
+    _add_telemetry_dir(run, "write the run's telemetry.jsonl (phase spans + round records "
+                       "+ final metrics snapshot) here instead of the default <out-dir>; "
+                       "read it back with `nanofed-tpu-torch metrics-summary`")
     _add_device(run)
     _add_later_flags(run, "run")
 
@@ -580,6 +643,9 @@ def build_parser() -> argparse.ArgumentParser:
                        help="evict a client after K consecutive missed rounds; 0 = never")
     serve.add_argument("--state-dir", default=None, metavar="DIR",
                        help="checkpoint every completed round here and resume from it")
+    _add_telemetry_dir(serve, "write this server run's telemetry.jsonl (round/phase spans "
+                       "+ round records) here; live metrics are always scrapable at "
+                       "GET /metrics")
     _add_device(serve)
     _add_later_flags(serve, "serve")
 
@@ -610,6 +676,9 @@ def build_parser() -> argparse.ArgumentParser:
                          help="with --sweep: ignore the cached sweep result")
     profile.add_argument("--json", action="store_true",
                          help="full report dicts as JSON instead of the table")
+    _add_telemetry_dir(profile, "also append program_profile records (with --sweep: the "
+                       "compile and autotune records) to a telemetry.jsonl here (read back "
+                       "with `nanofed-tpu-torch metrics-summary`)")
     _add_device(profile)
     _add_later_flags(profile, "profile")
 
@@ -623,6 +692,30 @@ def build_parser() -> argparse.ArgumentParser:
     bench.add_argument("--out-dir", default="runs/bench")
     _add_device(bench)
 
+    summary = sub.add_parser(
+        "metrics-summary",
+        help="digest a run's telemetry.jsonl: per-phase durations, round outcomes, "
+        "headline counters")
+    summary.add_argument(
+        "path", nargs="?", default="runs",
+        help="a telemetry.jsonl, a run dir containing one, or a tree to search for the "
+        "most recent one (default: runs)")
+
+    trace = sub.add_parser(
+        "trace",
+        help="merge a run's per-host telemetry.jsonl streams into one clock-aligned "
+        "timeline: per-round critical-path digest + trace resolution on stdout, "
+        "optional Chrome/Perfetto trace file")
+    trace.add_argument(
+        "path", nargs="?", default="runs",
+        help="a --telemetry-dir (per-host streams live in host_*/ subdirs; default: runs)")
+    trace.add_argument(
+        "--chrome-out", default=None, metavar="TRACE.json",
+        help="also write the merged host-laned Chrome trace_event file here")
+    trace.add_argument(
+        "--trace-map", action="store_true",
+        help="include the full submit-trace -> consuming-round map in the digest")
+
     for name, (text, item) in LATER_SUBCOMMANDS.items():
         sub.add_parser(name, help=f"{text} (not in nanofed_tpu_torch yet: ROADMAP queue "
                        f"A {item})")
@@ -630,7 +723,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 COMMANDS = {"info": _cmd_info, "run": _cmd_run, "bench": _cmd_bench,
-            "profile": _cmd_profile, "serve": _cmd_serve}
+            "profile": _cmd_profile, "serve": _cmd_serve,
+            "metrics-summary": _cmd_metrics_summary, "trace": _cmd_trace}
 
 
 def main(argv: list[str] | None = None) -> int:

@@ -11,10 +11,13 @@ server.
 the fetched global, compressed by the codec in the JAX package's numpy float32
 arithmetic, so both packages send the same bytes for the same delta and seed; topk8
 keeps the un-sent tail for error feedback.  ``security_manager`` signs every update
-(over what the server will reconstruct) and every secure-aggregation body.  Client
-wire metrics (``registry``) and fault-injection hooks (``wire_filter``) come with
-later items; setting one raises ``NotImplementedError`` naming its item.  ``aiohttp``
-is needed to open a client, not to import this module.
+(over what the server will reconstruct) and every secure-aggregation body.  Every
+submit carries the ``X-NanoFed-Trace`` header that ``observability.new_trace`` derives
+from (client id, round, submit sequence), byte-equal to the JAX client's, so retries of
+one logical submit ride one trace.  Client wire metrics go to ``registry`` (default:
+the process-wide one) under the JAX package's families.  Fault-injection hooks
+(``wire_filter``) come with a later item; setting one raises ``NotImplementedError``
+naming it.  ``aiohttp`` is needed to open a client, not to import this module.
 """
 
 from __future__ import annotations
@@ -49,6 +52,7 @@ from nanofed_tpu_torch.communication.http_server import (
     HEADER_SIGNATURE,
     HEADER_STATUS,
     HEADER_SUBMIT,
+    HEADER_TRACE,
     refuse_later_slice_options,
 )
 from nanofed_tpu_torch.communication.retry import (
@@ -59,6 +63,8 @@ from nanofed_tpu_torch.communication.retry import (
 from nanofed_tpu_torch.communication.transport import require_aiohttp
 from nanofed_tpu_torch.core.exceptions import NanoFedError
 from nanofed_tpu_torch.core.types import Params
+from nanofed_tpu_torch.observability.registry import MetricsRegistry, get_registry
+from nanofed_tpu_torch.observability.tracing import new_trace
 from nanofed_tpu_torch.utils.clock import SYSTEM_CLOCK, Clock
 from nanofed_tpu_torch.utils.logger import Logger
 
@@ -75,7 +81,6 @@ def _tensors(arrays: dict[str, np.ndarray]) -> Params:
 
 #: Client options of later slices, with the JAX defaults (accepted).
 LATER_SLICE_OPTIONS: dict[str, tuple[Any, str]] = {
-    "registry": (None, "client wire metrics (observability slice, queue A item 19)"),
     "wire_filter": (None, "fault injection (faults slice, queue A item 17)"),
 }
 
@@ -132,6 +137,7 @@ class HTTPClient:
         topk_fraction: float = 0.05,
         retry: RetryPolicy | None = None,
         clock: Clock | None = None,
+        registry: MetricsRegistry | None = None,
         **later_slice_options: Any,
     ) -> None:
         """``security_manager`` (a ``security.signing.SecurityManager``) signs every
@@ -145,7 +151,7 @@ class HTTPClient:
         as a floor, 502/503/504) with exponential backoff and jitter; every logical
         submit carries an idempotency key, so the server folds a retried submit at
         most once.  ``clock`` injects the time source for backoff sleeps and poll
-        deadlines."""
+        deadlines.  ``registry`` receives the client's wire metrics."""
         refuse_later_slice_options("HTTPClient", later_slice_options, LATER_SLICE_OPTIONS)
         if update_encoding not in ("npz", ENCODING_Q8_DELTA, ENCODING_TOPK8):
             raise NanoFedError(f"unknown update_encoding {update_encoding!r} (choose 'npz', "
@@ -178,6 +184,33 @@ class HTTPClient:
         # the training since (zero for an identical retry) instead of counting the
         # round's delta twice.
         self._pending_base: Params | None = None
+        # Client-side wire metrics, the JAX package's families.
+        reg = registry or get_registry()
+        self._m_bytes_tx = reg.counter(
+            "nanofed_client_bytes_sent_total",
+            "Request body bytes sent by HTTP clients, by endpoint",
+            labels=("endpoint",),
+        )
+        self._m_bytes_rx = reg.counter(
+            "nanofed_client_bytes_received_total",
+            "Response body bytes fetched by HTTP clients, by endpoint",
+            labels=("endpoint",),
+        )
+        self._m_submissions = reg.counter(
+            "nanofed_client_submissions_total",
+            "Update submissions by result (accepted / rejected)",
+            labels=("result",),
+        )
+        self._m_codec_ratio = reg.gauge(
+            "nanofed_client_codec_ratio",
+            "Last update's wire bytes / raw float32 bytes, by encoding",
+            labels=("encoding",),
+        )
+        self._m_retries = reg.counter(
+            "nanofed_client_retries_total",
+            "Request retries by endpoint and failure reason",
+            labels=("endpoint", "reason"),
+        )
 
     @property
     def secagg_session(self) -> str:
@@ -240,6 +273,7 @@ class HTTPClient:
             delay = policy.backoff_s(attempt, self._retry_rng, retry_after)
             if deadline is not None and self._clock.time() + delay > deadline:
                 return status, {}, None, f"{message} (retry budget exhausted)"
+            self._m_retries.inc(endpoint=endpoint, reason=reason)
             self._log.warning("%s %s failed (%s); retry %d/%d in %.3fs", method, endpoint,
                               reason, attempt, policy.max_attempts - 1, delay)
             await self._clock.sleep(delay)
@@ -277,6 +311,7 @@ class HTTPClient:
         self.current_round = round_number
         if resp_headers.get(HEADER_STATUS) == "terminated":
             return None, round_number, False
+        self._m_bytes_rx.inc(len(payload), endpoint="model")
         params = decode_params(payload, like=like)
         if self.update_encoding != "npz":
             # The delta's base; a fresh base resets the retry bookkeeping (a rejected
@@ -292,6 +327,10 @@ class HTTPClient:
             HEADER_ROUND: str(self.current_round),
             HEADER_METRICS: json.dumps(metrics),
             HEADER_SUBMIT: f"{self.client_id}:{self.current_round}:{self._submit_seq}",
+            # Derived from the idempotency key's identity: retries of this logical
+            # submit ride one trace.
+            HEADER_TRACE: new_trace(
+                self.client_id, self.current_round, self._submit_seq).header(),
         }
 
     def _encode_delta(self, params: Params) -> tuple[bytes, Params, Any, Any]:
@@ -333,15 +372,21 @@ class HTTPClient:
         else:
             body, signed, delta, staged = self._encode_delta(params)
             headers[HEADER_ENCODING] = self.update_encoding
+        raw_bytes = sum(
+            (p.numel() if torch.is_tensor(p) else np.size(p)) * 4 for p in params.values())
+        if raw_bytes:
+            self._m_codec_ratio.set(len(body) / raw_bytes, encoding=self.update_encoding)
         if self.security_manager is not None:
             signature = self.security_manager.sign_update(
                 signed, self.client_id, self.current_round, headers[HEADER_METRICS])
             headers[HEADER_SIGNATURE] = base64.b64encode(signature).decode()
+        self._m_bytes_tx.inc(len(body), endpoint="update")
         self._last_update_post = (url, body, dict(headers))
         status, _, _, message = await self._request_with_retries(
             "POST", url, data=body, headers=headers, endpoint="update")
         if status != 200:
             self._log.warning("update rejected (HTTP %d): %s", status, message)
+            self._m_submissions.inc(result="rejected")
             if self.update_encoding == ENCODING_TOPK8:
                 # Nothing was applied server-side: the whole combined delta rides the
                 # next submit, measured from these params on.
@@ -349,6 +394,7 @@ class HTTPClient:
             return False
         if staged is not None:
             self._residual, self._pending_base = staged, None
+        self._m_submissions.inc(result="accepted")
         return True
 
     async def resend_last_update(self) -> bool:

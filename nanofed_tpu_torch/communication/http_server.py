@@ -3,7 +3,8 @@
 
 ``GET /model`` serves the current global params (npz, ``communication.codec``),
 ``POST /update`` buffers client updates for the current round (stale rounds are a
-400), ``GET /status`` reports the round, and the secure-aggregation endpoints run the
+400), ``GET /status`` reports the round, ``GET /metrics`` renders the metrics
+registry as Prometheus text, and the secure-aggregation endpoints run the
 SecAgg protocol: enrollment (``/secagg/register``, ``/secagg/roster``), the per-round
 share exchange of the dropout-tolerant variant (``/secagg/shares``), the unmask round
 (``/secagg/unmask``) and masked submissions (``POST /update`` with
@@ -34,6 +35,14 @@ The update pipeline is the JAX package's:
   are staged into a ``[capacity, P]`` buffer, a full buffer answers 429 +
   Retry-After, and the round engine drains it with one batched product.
 
+Wire metrics (``registry=``, default the process-wide registry) carry the JAX
+package's families: body bytes received and sent by endpoint, update submissions by
+kind and result, secure-aggregation evictions, 429s and read timeouts (the fleet
+families are registered and stay at 0 until the fleet slice).  A submit's
+``X-NanoFed-Trace`` header is parsed leniently, and with ``tracer=`` (a
+``SpanTracer``) the offloaded decode runs inside a ``submit-decode`` span carrying its
+trace id.
+
 The server options of later slices raise ``NotImplementedError`` naming their item
 (:data:`LATER_SLICE_OPTIONS`).  ``aiohttp`` is needed to build a server, not to
 import this module.
@@ -49,6 +58,7 @@ import json
 import math
 import secrets
 from collections import deque
+from contextlib import nullcontext
 from dataclasses import dataclass
 from typing import Any, Callable, Iterable, Mapping
 
@@ -70,6 +80,8 @@ from nanofed_tpu_torch.communication.transport import (
 )
 from nanofed_tpu_torch.core.device import DeviceLike, resolve_device
 from nanofed_tpu_torch.core.types import ModelUpdate, Params
+from nanofed_tpu_torch.observability.registry import MetricsRegistry, get_registry
+from nanofed_tpu_torch.observability.tracing import TraceContext, parse_trace
 from nanofed_tpu_torch.security.secure_agg import check_backend
 from nanofed_tpu_torch.utils.dates import get_current_time
 from nanofed_tpu_torch.utils.logger import Logger
@@ -89,13 +101,12 @@ HEADER_SIGNATURE = "X-NanoFed-Signature"  # base64 RSA-PSS signature (security.s
 HEADER_SECAGG = "X-NanoFed-SecAgg"  # "masked" flags a pairwise-masked uint32 payload
 HEADER_ENCODING = "X-NanoFed-Encoding"  # absent/"npz" = full params; or q8/topk8 delta
 HEADER_SUBMIT = "X-NanoFed-Submit"  # idempotency key: one per LOGICAL submit
+HEADER_TRACE = "X-NanoFed-Trace"  # W3C-style trace context: 00-<trace>-<span>-<flags>
 
 #: Server options of later slices, with the JAX defaults (accepted).  Any other value
 #: raises NotImplementedError naming the slice.
 LATER_SLICE_OPTIONS: dict[str, tuple[Any, str]] = {
     "chaos": (None, "chaos hooks (faults slice, queue A item 17)"),
-    "registry": (None, "/metrics and tracing (observability slice, queue A item 19)"),
-    "tracer": (None, "/metrics and tracing (observability slice, queue A item 19)"),
     "max_inflight": (None, "admission control (service slice, queue A item 18)"),
     "retry_after_s": (0.25, "admission control (service slice, queue A item 18)"),
     "clock": (None, "chaos hooks (faults slice, queue A item 17)"),
@@ -144,6 +155,7 @@ class ServerEndpoints:
     secagg_roster: str = "/secagg/roster"
     secagg_shares: str = "/secagg/shares"
     secagg_unmask: str = "/secagg/unmask"
+    metrics: str = "/metrics"
 
 
 class HTTPServer:
@@ -164,6 +176,8 @@ class HTTPServer:
         read_timeout_s: float = 30.0,
         ingest: Any | None = None,
         device: DeviceLike = None,
+        registry: MetricsRegistry | None = None,
+        tracer: Any | None = None,
         **later_slice_options: Any,
     ) -> None:
         """``client_keys`` maps client id -> PEM public key; with
@@ -174,7 +188,10 @@ class HTTPServer:
         ``ingest.IngestConfig``) buffers plain submits on ``device`` (default: the
         card, which must be there; ``device`` is used by nothing else).
         ``read_timeout_s`` bounds how long a request body may take to arrive (a
-        stalled read is answered 408)."""
+        stalled read is answered 408).  ``registry`` (default: the process-wide one)
+        receives the wire metrics and is what ``GET /metrics`` renders; ``tracer`` (a
+        ``SpanTracer``) opens a ``submit-decode`` span around each admitted submit's
+        decode, tagged with its trace id (None records nothing)."""
         refuse_later_slice_options("HTTPServer", later_slice_options, LATER_SLICE_OPTIONS)
         require_aiohttp()
         if staleness_window < 0:
@@ -228,6 +245,46 @@ class HTTPServer:
         self._unmask_request: dict[str, Any] | None = None
         self._unmask_reveals: dict[str, dict[str, Any]] = {}
         self.evictions = 0
+        self._tracer = tracer
+        # Wire metrics, the JAX package's families, counted at the handlers.
+        self.metrics_registry = registry or get_registry()
+        self._m_bytes_rx = self.metrics_registry.counter(
+            "nanofed_bytes_received_total",
+            "Request body bytes received, by endpoint", labels=("endpoint",),
+        )
+        self._m_bytes_tx = self.metrics_registry.counter(
+            "nanofed_bytes_sent_total",
+            "Response body bytes served, by endpoint", labels=("endpoint",),
+        )
+        self._m_updates = self.metrics_registry.counter(
+            "nanofed_updates_total",
+            "Client update submissions by kind (plain/masked) and result",
+            labels=("kind", "result"),
+        )
+        self._m_evictions = self.metrics_registry.counter(
+            "nanofed_secagg_evictions_total",
+            "Clients evicted from the secure-aggregation cohort",
+        )
+        self._m_429 = self.metrics_registry.counter(
+            "nanofed_http_429_total",
+            "Requests shed by admission control (429 + Retry-After), by endpoint",
+            labels=("endpoint",),
+        )
+        self._m_read_timeouts = self.metrics_registry.counter(
+            "nanofed_read_timeouts_total",
+            "Request bodies that failed to arrive within read_timeout_s (408)",
+        )
+        # The fleet families (the fleet slice writes them).
+        self.metrics_registry.counter(
+            "nanofed_fleet_bytes_total",
+            "Fleet-mode body bytes by tier and direction (rx=submit, tx=model)",
+            labels=("tier", "direction"),
+        )
+        self.metrics_registry.counter(
+            "nanofed_fleet_updates_total",
+            "Fleet-mode tier submits by tier and result",
+            labels=("tier", "result"),
+        )
         ep = self.endpoints
         self._routes: dict[tuple[str, str], Any] = {
             ("GET", ep.model): self._handle_get_model,
@@ -240,9 +297,11 @@ class HTTPServer:
             ("GET", ep.secagg_shares): self._handle_secagg_shares_get,
             ("GET", ep.secagg_unmask): self._handle_unmask_get,
             ("POST", ep.secagg_unmask): self._handle_unmask_post,
+            ("GET", ep.metrics): self._handle_metrics,
         }
         self.transport = HTTPTransport(host=host, port=port,
-                                       max_request_size=max_request_size)
+                                       max_request_size=max_request_size,
+                                       registry=self.metrics_registry)
         self.transport.add_session(self)
 
     # ------------------------------------------------------------------
@@ -455,7 +514,10 @@ class HTTPServer:
         revealed); the round's share state goes with them."""
         async with self._lock:
             ids = set(client_ids)
-            self.evictions += len(ids - self._secagg_evicted)
+            newly = len(ids - self._secagg_evicted)
+            self.evictions += newly
+            if newly:
+                self._m_evictions.inc(newly)
             self._secagg_evicted.update(ids)
             self._clear_round_shares_locked()
 
@@ -508,6 +570,7 @@ class HTTPServer:
         try:
             return await read_body_bounded(request, self.read_timeout_s)
         except asyncio.TimeoutError:
+            self._m_read_timeouts.inc()
             raise web.HTTPRequestTimeout(
                 text=json.dumps({"status": "error", "message": (
                     f"request body not received within {self.read_timeout_s:g}s")}),
@@ -520,6 +583,20 @@ class HTTPServer:
         if self._ingest_pipeline is not None:
             return await self._ingest_pipeline.run_decode(fn, *args)
         return await asyncio.to_thread(fn, *args)
+
+    def _decode_span(self, trace: TraceContext | None, client_id: str,
+                     encoding: str) -> Any:
+        """A ``submit-decode`` span around the offloaded decode when a tracer is
+        wired, tagged with the submit's trace id; no tracer -> a no-op context."""
+        if self._tracer is None:
+            return nullcontext()
+        attrs: dict[str, Any] = {"client": client_id, "encoding": encoding}
+        if trace is not None:
+            attrs["trace"] = trace.trace_id
+        return self._tracer.span("submit-decode", **attrs)
+
+    def _reject_update(self, reason: str, kind: str = "plain") -> None:
+        self._m_updates.inc(kind=kind, result=reason)
 
     def _submit_fingerprint(self, headers: Mapping[str, str]) -> str:
         """What a duplicate must match beyond its idempotency key: on a signing server
@@ -540,7 +617,8 @@ class HTTPServer:
             self._seen_submits.setdefault(
                 client_id, deque(maxlen=SUBMIT_KEY_WINDOW)).append((submit_id, fingerprint))
 
-    def _duplicate_response(self, client_id: str) -> web.StreamResponse:
+    def _duplicate_response(self, client_id: str, kind: str = "plain") -> web.StreamResponse:
+        self._m_updates.inc(kind=kind, result="duplicate")
         self._log.info("duplicate submit from %s folded at most once", client_id)
         return web.json_response({
             "status": "success",
@@ -575,12 +653,15 @@ class HTTPServer:
                 HEADER_STATUS: "terminated", HEADER_ROUND: str(self._round)})
         if self._params_bytes is None:
             return _error("no model published", 503)
+        self._m_bytes_tx.inc(len(self._params_bytes), endpoint="model")
         return web.Response(
             body=self._params_bytes, content_type="application/octet-stream",
             headers={HEADER_STATUS: "training", HEADER_ROUND: str(self._round)},
         )
 
     def _ingest_full(self) -> web.Response:
+        self._m_429.inc(endpoint="update")
+        self._reject_update("ingest_full")
         return _error(f"ingest buffer full ({self.ingest.capacity} slots); retry after "
                       "backoff", 429, **{"Retry-After": "0.25"})
 
@@ -588,16 +669,20 @@ class HTTPServer:
         client_id = request.headers.get(HEADER_CLIENT)
         round_header = request.headers.get(HEADER_ROUND)
         if not client_id or round_header is None:
+            self._reject_update("missing_headers")
             return _error("missing client/round headers", 400)
         try:
             round_number = int(round_header)
         except ValueError:
+            self._reject_update("bad_round_header")
             return _error(f"bad round: {round_header!r}", 400)
         try:
             metrics: dict[str, Any] = json.loads(request.headers.get(HEADER_METRICS, "{}"))
         except json.JSONDecodeError:
+            self._reject_update("bad_metrics_header")
             return _error("bad metrics header", 400)
         if self._params is None:
+            self._reject_update("no_model")
             return _error("no model published", 503)
         masked = request.headers.get(HEADER_SECAGG) == "masked"
         # Idempotent-submit dedupe first: a retry of an accepted submit may arrive
@@ -606,12 +691,14 @@ class HTTPServer:
         submit_id = request.headers.get(HEADER_SUBMIT)
         fingerprint = self._submit_fingerprint(request.headers)
         if self._duplicate_submit(client_id, submit_id, fingerprint):
-            return self._duplicate_response(client_id)
+            return self._duplicate_response(client_id, "masked" if masked else "plain")
         if not self._round_acceptable(round_number):
+            self._reject_update("stale_round", kind="masked" if masked else "plain")
             return self._stale(round_number)
         encoding = request.headers.get(HEADER_ENCODING, "npz")
         if masked:
             if encoding != "npz":
+                self._reject_update("bad_encoding", kind="masked")
                 return _error(f"encoding {encoding!r} cannot combine with SecAgg masked "
                               "payloads", 400)
             return await self._handle_masked_update(request, client_id, round_number,
@@ -622,20 +709,26 @@ class HTTPServer:
                 and self._ingest_pipeline.fill >= self.ingest.capacity
                 and not self._ingest_pipeline.buffer.has_client(client_id)):
             return self._ingest_full()
+        # A malformed or absent trace header is an untraced submit, never a rejection.
+        trace = parse_trace(request.headers.get(HEADER_TRACE))
         body = await self._read_body(request)
+        self._m_bytes_rx.inc(len(body), endpoint="update")
         if encoding not in ("npz", ENCODING_Q8_DELTA, ENCODING_TOPK8):
+            self._reject_update("bad_encoding")
             return _error(f"unknown encoding {encoding!r}", 400)
         # The (round, base) pair is snapshotted under the lock before the decode
         # thread starts: a publish during the decode must not hand the signature check
         # a reconstruction against params the client never fetched.
         async with self._lock:
             if not self._round_acceptable(round_number):
+                self._reject_update("stale_round")
                 return self._stale(round_number)
             base = (self._version_params.get(round_number) if self.staleness_window > 0
                     else self._params)
             base_flat = (self._ingest_pipeline.base_flat(round_number)
                          if self._ingest_pipeline is not None else None)
         if base is None:
+            self._reject_update("stale_round")
             return self._stale(round_number)
 
         def decode() -> Params:
@@ -648,13 +741,16 @@ class HTTPServer:
             return decode_params(body, like=base)
 
         try:
-            params = await self._offload(decode)
+            with self._decode_span(trace, client_id, encoding):
+                params = await self._offload(decode)
         except Exception as e:
+            self._reject_update("bad_payload")
             return _error(f"bad payload: {e}", 400)
         if self.require_signatures:
             verdict = await self._offload(self._verify_update_signature, client_id,
                                           round_number, dict(request.headers), params)
             if verdict is not None:
+                self._reject_update("bad_signature")
                 return verdict
         if self._ingest_pipeline is not None:
             return await self._ingest_buffer_update(client_id, round_number, metrics,
@@ -664,6 +760,7 @@ class HTTPServer:
                 return self._duplicate_response(client_id)
             # In async mode the window may have moved during the decode.
             if not self._round_acceptable(round_number):
+                self._reject_update("stale_round")
                 return self._stale(round_number)
             self._updates[client_id] = ModelUpdate(
                 client_id=client_id, round_number=round_number, params=params,
@@ -671,6 +768,7 @@ class HTTPServer:
             )
             self._record_submit_locked(client_id, submit_id, fingerprint)
             accepted = len(self._updates)
+        self._m_updates.inc(kind="plain", result="accepted")
         self._log.info("update from %s (round %d, %d buffered)", client_id, round_number,
                        accepted)
         return web.json_response(
@@ -685,6 +783,7 @@ class HTTPServer:
         under the lock.  A full buffer is a 429 + Retry-After with the idempotency key
         not recorded, so a retry lands later."""
         if base_flat is None:
+            self._reject_update("stale_round")
             return self._stale(round_number)
         from nanofed_tpu_torch.ingest import flatten_params
 
@@ -693,6 +792,7 @@ class HTTPServer:
             if self._duplicate_submit(client_id, submit_id, fingerprint):
                 return self._duplicate_response(client_id)
             if not self._round_acceptable(round_number):
+                self._reject_update("stale_round")
                 return self._stale(round_number)
             slot = self._ingest_pipeline.offer(flat_delta, client_id=client_id,
                                                round_number=round_number, metrics=metrics)
@@ -701,6 +801,7 @@ class HTTPServer:
                 buffered = self._ingest_pipeline.fill
         if slot is None:
             return self._ingest_full()
+        self._m_updates.inc(kind="plain", result="accepted")
         self._log.info("ingested update from %s (round %d, slot %d, %d buffered)",
                        client_id, round_number, slot, buffered)
         return web.json_response(
@@ -749,10 +850,13 @@ class HTTPServer:
         (the published model's parameter count); with ``require_signatures`` the
         verbatim body must also carry a valid signature."""
         if client_id not in self._secagg_roster:
+            self._reject_update("not_enrolled", kind="masked")
             return _error(f"{client_id!r} not enrolled", 403)
         if client_id in self._secagg_evicted:
+            self._reject_update("evicted", kind="masked")
             return _error(f"{client_id!r} was evicted from this cohort", 403)
         body = await self._read_body(request)
+        self._m_bytes_rx.inc(len(body), endpoint="update")
         if self.require_signatures:
             from nanofed_tpu_torch.security.signing import verify_masked_signature
 
@@ -760,6 +864,7 @@ class HTTPServer:
                 request, client_id, verify_masked_signature, body, client_id, round_number,
                 request.headers.get(HEADER_METRICS, "{}"))
             if verdict is not None:
+                self._reject_update("bad_signature", kind="masked")
                 return verdict
         expected_size = self._param_count
 
@@ -773,16 +878,19 @@ class HTTPServer:
         try:
             vec = await self._offload(decode_masked)
         except Exception as e:
+            self._reject_update("bad_payload", kind="masked")
             return _error(f"bad masked payload: {e}", 400)
         async with self._lock:
             if self._duplicate_submit(client_id, submit_id, fingerprint):
-                return self._duplicate_response(client_id)
+                return self._duplicate_response(client_id, "masked")
             if round_number != self._round:
+                self._reject_update("stale_round", kind="masked")
                 return _error(f"update for round {round_number}, server is on {self._round}",
                               400)
             self._masked_updates[client_id] = (vec, metrics)
             self._record_submit_locked(client_id, submit_id, fingerprint)
             accepted = len(self._masked_updates)
+        self._m_updates.inc(kind="masked", result="accepted")
         self._log.info("masked update from %s (round %d, %d buffered)", client_id,
                        round_number, accepted)
         return web.json_response({"status": "success", "message": "masked update accepted",
@@ -1028,6 +1136,16 @@ class HTTPServer:
 
     async def _handle_test(self, request: web.Request) -> web.StreamResponse:
         return web.json_response({"status": "success", "message": "server is running"})
+
+    async def _handle_metrics(self, request: web.Request) -> web.StreamResponse:
+        """Prometheus text exposition of the attached registry: the whole process's
+        instruments, so one scrape sees the coordinators' round and phase metrics
+        beside the wire counters."""
+        text = self.metrics_registry.render_prometheus()
+        return web.Response(
+            body=text.encode("utf-8"),
+            headers={"Content-Type": "text/plain; version=0.0.4; charset=utf-8"},
+        )
 
     # ------------------------------------------------------------------
     # Lifecycle

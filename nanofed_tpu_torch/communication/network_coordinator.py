@@ -22,15 +22,25 @@ With ``state_store=`` (``persistence.FileStateStore``) every COMPLETED round or
 aggregation is checkpointed off the event loop (the params as the JAX package's nested
 numpy dict, and the evicted stragglers), and a new coordinator resumes from the latest
 checkpoint of either package: it publishes the restored params at the round after it.
-Fault injection (``chaos``), telemetry and the service's device gate come with later
-items; setting one raises ``NotImplementedError`` naming its item.
+
+Observability, as the JAX engine's: every round is a ``round`` span over ``publish``,
+``cohort-sample`` (the barrier wait and the drain) and ``aggregate`` (or
+``secure-aggregate``), each FedBuff aggregation the same under ``aggregation=``; the
+outcome is charged to the ``RoundLedger`` on ``registry`` (default: the server's), with
+the validation-reject and straggler-eviction counters beside it.  With
+``telemetry_dir`` the spans and ``round`` records stream into ``telemetry.jsonl``,
+closed with the registry snapshot when :meth:`NetworkCoordinator.run` exits.
+Fault injection (``chaos``) and the service's device gate come with later items;
+setting one raises ``NotImplementedError`` naming its item.
 """
 
 from __future__ import annotations
 
 import asyncio
 import math
+import time
 from dataclasses import dataclass, replace
+from pathlib import Path
 from typing import TYPE_CHECKING, Any
 
 import numpy as np
@@ -48,6 +58,9 @@ from nanofed_tpu_torch.communication.http_server import (
 )
 from nanofed_tpu_torch.core.device import DeviceLike, resolve_device
 from nanofed_tpu_torch.core.types import ClientMetrics, ClientUpdates, ModelUpdate, Params
+from nanofed_tpu_torch.observability.registry import MetricsRegistry
+from nanofed_tpu_torch.observability.spans import SpanTracer
+from nanofed_tpu_torch.observability.telemetry import RunTelemetry
 from nanofed_tpu_torch.orchestration.engine import RoundLedger, completion_required
 from nanofed_tpu_torch.persistence import FileStateStore
 from nanofed_tpu_torch.security.validation import (
@@ -75,8 +88,6 @@ if TYPE_CHECKING:
 
 #: Coordinator options of later slices, with the JAX defaults (accepted).
 LATER_SLICE_OPTIONS: dict[str, tuple[Any, str]] = {
-    "telemetry_dir": (None, "telemetry (observability slice, queue A item 19)"),
-    "registry": (None, "metrics registry (observability slice, queue A item 19)"),
     "chaos": (None, "fault injection (faults slice, queue A item 17)"),
     "device_gate": (None, "the service's device scheduler (service slice, queue A item 18)"),
 }
@@ -245,6 +256,8 @@ class NetworkCoordinator:
         clock: Clock | None = None,
         device: DeviceLike = None,
         state_store: FileStateStore | None = None,
+        telemetry_dir: str | Path | None = None,
+        registry: MetricsRegistry | None = None,
         **later_slice_options: Any,
     ) -> None:
         refuse_later_slice_options("NetworkCoordinator", later_slice_options,
@@ -295,7 +308,27 @@ class NetworkCoordinator:
         self.history: list[dict[str, Any]] = []
         self._clock = clock or SYSTEM_CLOCK
         self._log = Logger()
-        self._ledger = RoundLedger()
+        self.metrics_registry = registry or server.metrics_registry
+        self.telemetry = (
+            RunTelemetry(telemetry_dir, registry=self.metrics_registry)
+            if telemetry_dir is not None
+            else None
+        )
+        self._tracer = (
+            self.telemetry.tracer
+            if self.telemetry is not None
+            # keep_records=False: only the histogram consumes these spans.
+            else SpanTracer(registry=self.metrics_registry, keep_records=False)
+        )
+        self._ledger = RoundLedger(self.metrics_registry, telemetry=self.telemetry)
+        self._m_validation_rejects = self.metrics_registry.counter(
+            "nanofed_validation_rejections_total",
+            "Drained updates rejected by host-path validation",
+        )
+        self._m_straggler_evictions = self.metrics_registry.counter(
+            "nanofed_straggler_evictions_total",
+            "Clients evicted from the sync round barrier after consecutive misses",
+        )
         # Straggler accounting (sync rounds): consecutive missed rounds per ever-seen
         # client, and the evicted set the round barrier excludes.
         self._known_clients: set[str] = set()
@@ -357,6 +390,7 @@ class NetworkCoordinator:
                 self._evicted_stragglers.add(cid)
                 newly_evicted.append(cid)
         if newly_evicted:
+            self._m_straggler_evictions.inc(len(newly_evicted))
             self._log.warning("evicting stragglers after %d consecutive missed rounds: %s "
                               "(barrier degrades to %d required)",
                               self.config.straggler_evict_after, newly_evicted,
@@ -525,12 +559,18 @@ class NetworkCoordinator:
         return record
 
     async def train_round(self, round_number: int) -> dict[str, Any]:
-        """One federation round, charged to the ledger."""
-        t0 = RoundLedger.now()
-        record = await self._train_round_inner(round_number)
-        self._ledger.charge(status=str(record.get("status", "?")),
-                            num_clients=record.get("num_clients", 0),
-                            duration_s=RoundLedger.now() - t0)
+        """One federation round, instrumented: the round and its phases are spans, the
+        outcome is charged to the ledger and, with a ``telemetry_dir``, appended as a
+        ``round`` record."""
+        t0 = time.perf_counter()
+        with self._tracer.span("round", round=round_number):
+            record = await self._train_round_inner(round_number)
+        duration = time.perf_counter() - t0
+        self._ledger.charge(
+            status=str(record.get("status", "?")),
+            num_clients=record.get("num_clients", 0), duration_s=duration,
+            telemetry_fields={"duration_s": round(duration, 6), **record},
+        )
         await self._checkpoint_round(round_number, record)
         return record
 
@@ -547,20 +587,26 @@ class NetworkCoordinator:
         )
 
     async def _train_round_inner(self, round_number: int) -> dict[str, Any]:
-        await self.server.publish_model(self.params, round_number)
+        with self._tracer.span("publish", round=round_number):
+            await self.server.publish_model(self.params, round_number)
         required = self._required_clients()
         if self.secure is not None:
-            return await self._secure_round(round_number, required)
-        ok = await self._wait_for_clients(required)
+            with self._tracer.span("secure-aggregate", round=round_number):
+                return await self._secure_round(round_number, required)
+        with self._tracer.span("cohort-sample", round=round_number):
+            ok = await self._wait_for_clients(required)
+            # Client-id order, not arrival order: the float32 sums (and with them a
+            # resumed run) do not depend on which update arrived first.
+            updates = ([] if self._ingest_mode else
+                       sorted(await self.server.drain_updates(), key=lambda u: u.client_id))
         if self._ingest_mode:
             return await self._ingest_round_tail(round_number, required, ok)
-        # Client-id order, not arrival order: the float32 sums (and with them a resumed
-        # run) do not depend on which update arrived first.
-        updates = sorted(await self.server.drain_updates(), key=lambda u: u.client_id)
         num_received, rejected = len(updates), {}
         if self.validation is not None and updates:
             updates, rejected = self._validate_updates(updates)
         num_rejected = num_received - len(updates)
+        if num_rejected:
+            self._m_validation_rejects.inc(num_rejected)
         newly_evicted = self._note_participation({u.client_id for u in updates})
         if not ok or len(updates) < required:
             self._log.warning("round %d FAILED: %d/%d updates (%d rejected)", round_number,
@@ -569,7 +615,9 @@ class NetworkCoordinator:
                       "num_clients": len(updates), "num_rejected": num_rejected,
                       "required": required}
         else:
-            record = self._aggregate_round(round_number, updates, num_rejected)
+            with self._tracer.span("aggregate", round=round_number,
+                                   num_clients=len(updates)):
+                record = self._aggregate_round(round_number, updates, num_rejected)
             record["required"] = required
             if record["status"] == "COMPLETED":
                 self._log.info("round %d: %s", round_number, record["metrics"])
@@ -584,7 +632,8 @@ class NetworkCoordinator:
                                  ok: bool) -> dict[str, Any]:
         """A sync round on the ingest buffer: one product over every buffered delta
         against the round's base, the weighted FedAvg of the clients' params."""
-        new_flat, metas = await self.server.drain_ingest_fedavg()
+        with self._tracer.span("aggregate", round=round_number, ingest=True):
+            new_flat, metas = await self.server.drain_ingest_fedavg()
         newly_evicted = self._note_participation({m.client_id for m in metas})
         record: dict[str, Any] = {"round": round_number, "num_clients": len(metas),
                                   "num_rejected": 0, "required": required, "ingest": True}
@@ -654,11 +703,11 @@ class NetworkCoordinator:
             await self._clock.sleep(self.config.poll_interval_s)
         return self.server.num_updates()
 
-    async def _fedbuff_step(self, agg_i: int, version: int, k: int,
-                            got: int) -> dict[str, Any]:
-        """One FedBuff aggregation: the K oldest buffered updates (the ingest buffer's
-        one-product drain, or the list buffer through :func:`fedbuff_combine`) applied
-        to the current version."""
+    async def _fedbuff_step(self, agg_i: int, version: int, k: int, got: int,
+                            taken: list[ModelUpdate]) -> dict[str, Any]:
+        """One FedBuff aggregation applied to the current version: the ingest buffer's
+        one-product drain of the K oldest buffered updates, or the ``taken`` list
+        updates through :func:`fedbuff_combine`."""
         try:
             if self._ingest_mode:
                 new_flat, drained, stats = await self.server.drain_ingest_fedbuff(
@@ -666,11 +715,7 @@ class NetworkCoordinator:
                     server_lr=self.config.async_server_lr)
                 self.params = unravel(new_flat.to(self.device), self.params)
             else:
-                drained = await self.server.take_updates(k)
-                if not drained:
-                    return {"aggregation": agg_i, "version": version, "status": "FAILED",
-                            "num_clients": 0,
-                            "reason": f"timeout with an empty buffer (wanted {k})"}
+                drained = taken
                 self.params, stats = fedbuff_combine(
                     self.params, drained, self.server.published_versions, version,
                     staleness_exponent=self.config.staleness_exponent,
@@ -698,22 +743,37 @@ class NetworkCoordinator:
         k = self.config.async_buffer_k
         version = self.start_round
         for agg_i in range(self.start_round, self.config.num_rounds):
-            t0 = RoundLedger.now()
-            await self.server.publish_model(self.params, version)
-            got = await self._wait_for_buffer(k)
-            if self._ingest_mode and not got:
-                record = {"aggregation": agg_i, "version": version, "status": "FAILED",
-                          "num_clients": 0,
-                          "reason": f"timeout with an empty buffer (wanted {k})"}
-            else:
-                record = await self._fedbuff_step(agg_i, version, k, got)
+            t0 = time.perf_counter()
+            with self._tracer.span("round", aggregation=agg_i, version=version):
+                with self._tracer.span("publish", aggregation=agg_i):
+                    await self.server.publish_model(self.params, version)
+                with self._tracer.span("cohort-sample", aggregation=agg_i):
+                    got = await self._wait_for_buffer(k)
+                    # Exactly K per aggregation; the surplus stays for the next one.
+                    taken = [] if self._ingest_mode else await self.server.take_updates(k)
+                if not (got if self._ingest_mode else taken):
+                    record = {"aggregation": agg_i, "version": version, "status": "FAILED",
+                              "num_clients": 0,
+                              "reason": f"timeout with an empty buffer (wanted {k})"}
+                else:
+                    attrs = ({"num_clients": got, "ingest": True} if self._ingest_mode
+                             else {"num_clients": len(taken)})
+                    with self._tracer.span("aggregate", aggregation=agg_i, **attrs):
+                        record = await self._fedbuff_step(agg_i, version, k, got, taken)
             if record["status"] == "COMPLETED":
                 version += 1
             else:
                 self._log.warning("aggregation %d FAILED: %s", agg_i, record["reason"])
             self.history.append(record)
-            self._ledger.charge(status=record["status"], num_clients=record["num_clients"],
-                                duration_s=RoundLedger.now() - t0)
+            duration = time.perf_counter() - t0
+            self._ledger.charge(
+                status=record["status"], num_clients=record["num_clients"],
+                duration_s=duration,
+                telemetry_fields={
+                    "duration_s": round(duration, 6),
+                    **{key: v for key, v in record.items() if key != "discounts"},
+                },
+            )
             if record["status"] == "COMPLETED":
                 # Keyed by the produced version: a resumed engine starts from it.
                 await self._checkpoint_round(version - 1, record)
@@ -731,7 +791,15 @@ class NetworkCoordinator:
     async def run(self) -> list[dict[str, Any]]:
         """All rounds, then signal termination to polling clients.  In secure mode,
         opens enrollment first and waits for the cohort.  With ``async_buffer_k`` it
-        runs the FedBuff loop instead."""
+        runs the FedBuff loop instead.  Telemetry is closed on the way out, a raised
+        enrollment timeout included."""
+        try:
+            return await self._run_all_rounds()
+        finally:
+            if self.telemetry is not None:
+                self.telemetry.close()
+
+    async def _run_all_rounds(self) -> list[dict[str, Any]]:
         if self.config.async_buffer_k is not None:
             return await self._run_async()
         if self.secure is not None:

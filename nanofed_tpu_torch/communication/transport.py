@@ -7,8 +7,8 @@ application, the catch-all route table, tenant resolution and the bounded body r
 it.  Tenant identity travels as a path prefix (``/t/<tenant>/update``) or as the
 ``X-NanoFed-Tenant`` header; an unknown tenant is a 404.  A single-tenant server owns
 a private transport and mounts itself as the default session, so unprefixed requests
-route to it.  (Several tenants on one transport are the service slice's; the
-unknown-tenant count is a plain attribute until the metrics registry is ported.)
+route to it.  (Several tenants on one transport are the service slice's.)  Unknown
+tenants are counted in ``nanofed_unknown_tenant_total`` on the transport's registry.
 
 ``aiohttp`` is imported when this module is, but a missing ``aiohttp`` only raises
 when a transport is built, so ``import nanofed_tpu_torch`` works without it.
@@ -27,6 +27,7 @@ except ImportError as _e:  # pragma: no cover - depends on the environment
     web = None  # type: ignore[assignment]
     _AIOHTTP_ERROR = str(_e)
 
+from nanofed_tpu_torch.observability.registry import MetricsRegistry, get_registry
 from nanofed_tpu_torch.utils.logger import Logger
 
 __all__ = [
@@ -85,6 +86,7 @@ class HTTPTransport:
     def __init__(
         self, host: str = "127.0.0.1", port: int = 8080,
         max_request_size: int = MAX_REQUEST_SIZE,
+        registry: MetricsRegistry | None = None,
     ) -> None:
         require_aiohttp()
         self.host = host
@@ -93,6 +95,11 @@ class HTTPTransport:
         self._sessions: dict[str, TransportSession] = {}
         self._default: TransportSession | None = None
         self.unknown_tenant_requests = 0
+        self.metrics_registry = registry or get_registry()
+        self._m_unknown_tenant = self.metrics_registry.counter(
+            "nanofed_unknown_tenant_total",
+            "Requests addressed to a tenant this transport does not host (404)",
+        )
         self._app = web.Application(client_max_size=max_request_size)
         self._app.router.add_route(
             "*", TENANT_PATH_PREFIX + "/{tenant}/{tail:.+}", self._dispatch_tenant_path
@@ -127,6 +134,7 @@ class HTTPTransport:
 
     def _unknown(self, message: str) -> web.Response:
         self.unknown_tenant_requests += 1
+        self._m_unknown_tenant.inc()
         return _json_error(message, 404)
 
     async def _dispatch_tenant_path(self, request: web.Request) -> web.StreamResponse:

@@ -8,12 +8,12 @@ runner does: MNIST-shaped, the 8x8 digits, CIFAR-shaped (10 or 100 classes, file
 ``central_privacy`` (DP-FedAvg at the reduce), ``robust_trim_k``/``robust_method``
 (robust aggregation), the client lr schedule (``lr_schedule``, ``lr_min_factor``,
 ``lr_decay_every``, ``lr_decay_gamma``), ``profile_programs``, ``autotune`` and
-``retune_every``, ``scaffold`` and ``rounds_per_block`` (fused multi-round blocks)
-are taken as the JAX runner takes them.  Update validation is not a runner flag in
-either package: it is ``Coordinator(validation=...)``.  The JAX runner's other flags
-(telemetry, mesh axes, strict mode, adapters) come with later slices; passing one with
-a value other than the JAX default raises ``NotImplementedError`` naming it, never a
-silent ignore.
+``retune_every``, ``scaffold``, ``rounds_per_block`` (fused multi-round blocks) and
+``telemetry_dir`` are taken as the JAX runner takes them.  Update validation is not a
+runner flag in either package: it is ``Coordinator(validation=...)``.  The JAX
+runner's other flags (mesh axes, strict mode, adapters) come with later slices;
+passing one with a value other than the JAX default raises ``NotImplementedError``
+naming it, never a silent ignore.
 """
 
 from __future__ import annotations
@@ -39,7 +39,6 @@ from nanofed_tpu_torch.utils.logger import Logger
 
 # The JAX runner's flags that later slices bring, with the JAX defaults (accepted).
 LATER_SLICE_FLAGS: dict[str, Any] = {
-    "telemetry_dir": None,
     "model_shards": 1,
     "hosts": 1,
     "strict": False,
@@ -111,6 +110,7 @@ def run_experiment(
     retune_every: int = 0,
     scaffold: bool = False,
     rounds_per_block: int = 1,
+    telemetry_dir: str | Path | None = None,
     **kwargs: Any,
 ) -> dict[str, Any]:
     """Run a simulated federated experiment on ``device`` (default: the GPU) and return
@@ -133,7 +133,8 @@ def run_experiment(
     summary; it refuses an explicit ``client_chunk``.  ``retune_every`` (requires
     ``autotune=True``) re-ranks the table every N rounds by the measured round times
     and swaps ``client_chunk`` when the measurements say so; the summary carries a
-    ``retunes`` block.  Remaining keyword arguments go to the partitioner (e.g.
+    ``retunes`` block.  ``telemetry_dir`` is where the run's ``telemetry.jsonl``
+    goes (default: ``out_dir``, as metrics are saved).  Remaining keyword arguments go to the partitioner (e.g.
     ``proportions=[0.75, 0.25]`` for unequal IID shares)."""
     dev = resolve_device(device)
     refused = [
@@ -189,6 +190,7 @@ def run_experiment(
     shared_kwargs: dict[str, Any] = dict(
         eval_data=pack_eval(test, batch_size=256), device=dev,
         central_privacy=central_privacy, robust=robust, scaffold=scaffold,
+        telemetry_dir=telemetry_dir,
     )
     if autotune:
         coordinator = Coordinator.from_autotune(

@@ -33,9 +33,10 @@ again: the port's round step and the epilogue programs do not mutate theirs.
 
 :class:`ProgramCatalog` keeps the JAX package's interface: lazily registered
 programs, profiled on demand, published as the ``nanofed_program_*`` gauges and the
-time-to-ready histogram under the same names.  Not in this slice:
-``ProgramCatalog.audit`` (the analysis slice) and ``update_device_occupancy``, which
-derives from spans (the observability slice).
+time-to-ready histogram under the same names.  :func:`update_device_occupancy`
+derives the ``nanofed_device_occupancy_ratio`` gauge the retuner reads from the
+coordinator's spans, on the JAX package's two bases.  Not in this slice:
+``ProgramCatalog.audit`` (the analysis slice).
 """
 
 from __future__ import annotations
@@ -51,6 +52,7 @@ from torch.utils.flop_counter import FlopCounterMode, conv_flop_count
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from nanofed_tpu_torch.observability.registry import MetricsRegistry, get_registry
+from nanofed_tpu_torch.observability.spans import SPAN_HISTOGRAM
 from nanofed_tpu_torch.ops._common import KernelBytes
 
 #: Gauge/histogram names: the JAX package's (``nanofed_tpu/observability/profiling.py``).
@@ -59,6 +61,7 @@ PROGRAM_PEAK_BYTES_GAUGE = "nanofed_program_peak_bytes"
 PROGRAM_BYTES_ACCESSED_GAUGE = "nanofed_program_bytes_accessed"
 PROGRAM_INTENSITY_GAUGE = "nanofed_program_arithmetic_intensity"
 PROGRAM_COMPILE_HISTOGRAM = "nanofed_program_compile_seconds"
+DEVICE_OCCUPANCY_GAUGE = "nanofed_device_occupancy_ratio"
 
 #: Buckets for time-to-ready, as the JAX package's.
 COMPILE_BUCKETS: tuple[float, ...] = (
@@ -497,6 +500,42 @@ class ProgramCatalog:
             labels=("program",),
             buckets=COMPILE_BUCKETS,
         ).observe(report.compile_seconds, program=report.program)
+
+
+def update_device_occupancy(registry: MetricsRegistry | None = None) -> float | None:
+    """Derive ``nanofed_device_occupancy_ratio`` from the span histogram and set the
+    gauge; returns the ratio (or None when no spans have been recorded).
+
+    The fraction of orchestration walltime the host spent blocked ON the device — a
+    LOWER bound on the device's busy fraction (the device also computes while the
+    host enqueues), on the JAX package's two bases:
+
+    * fused blocks: ``host_sync`` (the block's one device barrier) over
+      ``dispatch + host_sync + publish``;
+    * single rounds: ``local-train`` (which ends in the round's one device barrier,
+      so its duration is device time) over ``round + publish``.
+
+    ``publish`` is host time the device spends idle, so it belongs in the
+    denominator.  The fused basis wins when both exist."""
+    reg = registry or get_registry()
+    hist = reg.histogram(SPAN_HISTOGRAM, labels=("span",))
+    sync = hist.sample_sum(span="host_sync")
+    dispatch = hist.sample_sum(span="dispatch")
+    publish = hist.sample_sum(span="publish")
+    if sync + dispatch > 0:
+        busy, total = sync, sync + dispatch + publish
+    else:
+        busy = hist.sample_sum(span="local-train")
+        total = hist.sample_sum(span="round") + publish
+    if total <= 0:
+        return None
+    ratio = min(1.0, busy / total)
+    reg.gauge(
+        DEVICE_OCCUPANCY_GAUGE,
+        "Host-blocked-on-device fraction of orchestration walltime (lower "
+        "bound on device occupancy), derived from dispatch/host_sync spans",
+    ).set(ratio)
+    return ratio
 
 
 def format_cost_table(reports: Iterable[ProgramCostReport]) -> str:

@@ -62,10 +62,23 @@ a block edge.  SCAFFOLD, robust aggregation, central DP and ``eval_every < R`` r
 single rounds (``_fused_fallback_reason``); ragged tails and the rounds before an eval
 boundary run single too.
 
-The JAX coordinator's ``adapter=``, ``chaos=``, ``mesh=``, ``mesh_shape=``,
-``strict=`` and ``telemetry_dir=`` come with later slices: a value other than the JAX
-default raises ``NotImplementedError`` naming the ROADMAP item
-(:data:`LATER_SLICE_KEYWORDS`).
+Observability, as the JAX coordinator's: the round and its phases are spans with the
+JAX names and nesting (``round`` > ``cohort-sample``, ``cohort-gather``,
+``local-train``, ``aggregate``; then ``publish``; a fused block's ``dispatch`` >
+``cohort-sample``, then ``host_sync``), observed into the span histogram of the
+metrics registry and, each as a ``torch.profiler.record_function``, visible in a
+``utils.profiling.trace`` capture.  A span never synchronizes the device: the round's
+one barrier closes ``local-train``, a block's closes ``host_sync``.  Each round is
+charged to the ``RoundLedger``; ``update_device_occupancy`` sets the occupancy gauge
+after every round and block and its value goes to the retuner.  With
+``telemetry_dir`` (or ``save_metrics``, into ``base_dir``) the run writes
+``telemetry.jsonl``: the ``topology`` record, every span, ``round``,
+``program_profile``, ``autotune`` and ``retune`` records, and the final registry
+snapshot.
+
+The JAX coordinator's ``adapter=``, ``chaos=``, ``mesh=``, ``mesh_shape=`` and
+``strict=`` come with later slices: a value other than the JAX default raises
+``NotImplementedError`` naming the ROADMAP item (:data:`LATER_SLICE_KEYWORDS`).
 """
 
 from __future__ import annotations
@@ -93,8 +106,15 @@ from nanofed_tpu_torch.core.device import DeviceLike, resolve_device
 from nanofed_tpu_torch.core.exceptions import NanoFedError
 from nanofed_tpu_torch.core.types import ClientData, Params
 from nanofed_tpu_torch.models.base import Model
-from nanofed_tpu_torch.observability.profiling import ProgramCatalog, ProgramCostReport
-from nanofed_tpu_torch.orchestration.engine import completion_required
+from nanofed_tpu_torch.observability.profiling import (
+    ProgramCatalog,
+    ProgramCostReport,
+    update_device_occupancy,
+)
+from nanofed_tpu_torch.observability.registry import get_registry
+from nanofed_tpu_torch.observability.spans import SpanTracer
+from nanofed_tpu_torch.observability.telemetry import RunTelemetry, install_torch_event_bridge
+from nanofed_tpu_torch.orchestration.engine import RoundLedger, completion_required
 from nanofed_tpu_torch.orchestration.types import (
     RoundMetrics,
     RoundStatus,
@@ -150,7 +170,6 @@ LATER_SLICE_KEYWORDS: dict[str, tuple[Any, str]] = {
     "mesh": (None, "item 9b (several GPUs)"),
     "mesh_shape": (None, "item 9b (several GPUs)"),
     "strict": (False, "item 21 (analysis)"),
-    "telemetry_dir": (None, "item 19 (observability)"),
 }
 
 
@@ -291,6 +310,8 @@ class Coordinator:
             # The sweep result IS the candidate table the online retuner re-ranks;
             # measured numbers land back in the same cache entry.
             coord.enable_retuning(result, cache_dir=autotune_cache_dir)
+        if coord.telemetry is not None:
+            coord.telemetry.record("autotune", **result.telemetry_payload())
         return coord
 
     def __init__(
@@ -313,6 +334,7 @@ class Coordinator:
         grad_fn: GradFn | None = None,
         local_fit: Callable | None = None,
         scaffold: bool = False,
+        telemetry_dir: str | Path | None = None,
         **later_slice: Any,
     ) -> None:
         for name, value in later_slice.items():
@@ -448,6 +470,36 @@ class Coordinator:
         self.base_dir = Path(config.base_dir)
         if config.save_metrics:
             (self.base_dir / "metrics").mkdir(parents=True, exist_ok=True)
+
+        # Observability: round and phase metrics always flow into the process
+        # registry; with save_metrics (or an explicit telemetry_dir) the run also
+        # writes telemetry.jsonl.  The build bridge counts kernel libraries.
+        install_torch_event_bridge()
+        tel_dir = (
+            Path(telemetry_dir)
+            if telemetry_dir is not None
+            else (self.base_dir if config.save_metrics else None)
+        )
+        self.telemetry = RunTelemetry(tel_dir) if tel_dir is not None else None
+        if self.telemetry is not None:
+            # One process on one device: the JAX record's single-host geometry.
+            self.telemetry.record(
+                "topology", process_count=1, hosts=1, mesh_shape=[1], devices=1,
+                num_clients=self.num_clients,
+            )
+        self._tracer = (
+            self.telemetry.tracer
+            if self.telemetry is not None
+            # keep_records=False: only the histogram consumes these spans.
+            else SpanTracer(keep_records=False)
+        )
+        self._registry = (
+            self.telemetry.registry if self.telemetry is not None else get_registry()
+        )
+        self.program_catalog.registry = self._registry
+        self._ledger = RoundLedger(
+            self._registry, telemetry=self.telemetry, track_dropouts=True
+        )
         # Set by from_autotune: the winner and its provenance, and the sweep result.
         self.tuned_config: dict[str, Any] | None = None
         self.autotune_result = None
@@ -583,8 +635,11 @@ class Coordinator:
         reports: list[ProgramCostReport] = []
         for name in self.program_catalog.names():
             cached = self.program_catalog.report(name) is not None and not force
-            report = self.program_catalog.profile(name, force=force)
+            with self._tracer.span("program-profile", program=name):
+                report = self.program_catalog.profile(name, force=force)
             if not cached:
+                if self.telemetry is not None:
+                    self.telemetry.record("program_profile", **report.to_dict())
                 bound = report.lower_bound_s
                 _log.info(
                     "program %s: %.3g FLOPs/round, %.3g bytes, peak %.3g device "
@@ -630,17 +685,22 @@ class Coordinator:
         self._last_retune_round = self.current_round
         return self.retuner
 
-    def _observe_retune(self, rounds: int, walltime_s: float) -> None:
-        """Feed one realized round time to the retuner (no-op when retuning is off).
-        The occupancy the JAX coordinator passes comes from spans: None here."""
+    def _observe_retune(
+        self, rounds: int, walltime_s: float, occupancy: float | None = None,
+    ) -> None:
+        """Feed one realized round or block time, and the span-derived occupancy, to
+        the retuner (no-op when retuning is off)."""
         if self.retuner is None or self._retune_candidate is None:
             return
-        self.retuner.observe(self._retune_candidate, rounds, walltime_s, occupancy=None)
+        self.retuner.observe(
+            self._retune_candidate, rounds, walltime_s, occupancy=occupancy,
+        )
 
     def _maybe_retune(self) -> None:
         """Between rounds, ask the retuner for a verdict every ``config.retune_every``
         rounds and apply a proposed swap.  Every verdict — swap, hold, or a swap the
-        coordinator refused — lands in ``retune_events``."""
+        coordinator refused — lands in ``retune_events`` and as a ``retune``
+        telemetry record."""
         cfg = self.config
         if self.retuner is None or cfg.retune_every <= 0:
             return
@@ -653,9 +713,10 @@ class Coordinator:
         applied = False
         if decision.swap:
             applied = self._apply_retune(decision)
-        self.retune_events.append(
-            {"round": self.current_round, "applied": applied, **decision.to_dict()}
-        )
+        event = {"round": self.current_round, "applied": applied, **decision.to_dict()}
+        self.retune_events.append(event)
+        if self.telemetry is not None:
+            self.telemetry.record("retune", **event)
 
     def _apply_retune(self, decision) -> bool:
         """Perform a proposed swap: rebuild the round step under the new
@@ -765,16 +826,27 @@ class Coordinator:
                     continue
                 metrics = self._train_round(self.current_round)
                 self.history.append(metrics)
-                self._observe_retune(1, metrics.duration_s)
-                self._publish_round(metrics)
+                with self._tracer.span("publish", round=metrics.round_id):
+                    self._publish_round(metrics)
                 if self.on_round_end is not None:
                     self.on_round_end(metrics)
                 self.current_round += 1
                 yield metrics
         finally:
-            if self.retuner is not None and self.current_round >= self.config.num_rounds:
+            # The final snapshot only when ALL rounds ran: a caller that abandons the
+            # generator early may resume with a fresh start_training(), and a closed
+            # sink would drop every later record.
+            done = self.current_round >= self.config.num_rounds
+            if self.retuner is not None and done:
                 # The next run's cache hit starts from these measurements.
-                self.retuner.write_back()
+                written = self.retuner.write_back()
+                if self.telemetry is not None:
+                    self.telemetry.record(
+                        "retune_summary", **self.retuner.summary(),
+                        **({"cache_entry": str(written)} if written is not None else {}),
+                    )
+            if self.telemetry is not None and done:
+                self.telemetry.close()
 
     def run(self) -> list[RoundMetrics]:
         return list(self.start_training())
@@ -889,58 +961,65 @@ class Coordinator:
         return n if n == rpb else 1
 
     def _train_block(self, n: int) -> list[RoundMetrics]:
-        """Run ``n`` rounds as one fused block.  Cohorts, round seeds and lr scales
-        are the single-round path's host functions of the round index; the cohort
-        arrays go to the device before the dispatch.  The host then synchronizes
-        once and fetches the stacked metrics (and the ``[R, K]`` detail only when some
-        round of the block is due), and publishes every round, persisting state at
-        the last."""
+        """Run ``n`` rounds as one fused block, in two spans: ``dispatch`` (sample the
+        cohorts, move them to the device, enqueue the block; nothing waits on the
+        device) and ``host_sync`` (the block's one barrier and the stacked-metrics
+        fetch, with the ``[R, K]`` detail only when some round of the block is due).
+        Cohorts, round seeds and lr scales are the single-round path's host
+        functions of the round index.  Every round is then charged and published,
+        with state persisted at the last."""
         cfg = self.config
         first = self.current_round
         rounds = list(range(first, first + n))
         required = completion_required(self.cohort_size, cfg.min_completion_rate)
         t0 = time.perf_counter()
 
-        idx_rows = np.zeros((n, self._step_clients), dtype=np.int64)
-        mask_rows = np.zeros((n, self._step_clients), dtype=np.float32)
-        survived_counts = []
-        for i, r in enumerate(rounds):
-            survived = self._sample_cohort(r)
-            survived_counts.append(len(survived))
-            if self._cohort_mode:
-                idx_rows[i], mask_rows[i] = self._place_cohort(survived)
-            else:
-                mask_rows[i, survived] = 1.0
-        lr_scales = lr_schedule_scales(
-            cfg.lr_schedule, first, n, cfg.num_rounds, min_factor=cfg.lr_min_factor,
-            decay_every=cfg.lr_decay_every, gamma=cfg.lr_decay_gamma,
-        )
-        idx_dev = torch.as_tensor(idx_rows).to(self.device) if self._cohort_mode else None
-        mask_dev = torch.as_tensor(mask_rows).to(self.device)
-        result = self._round_block(
-            self.params, self.server_state, self._data, self._num_samples,
-            round_seeds(cfg.seed, rounds), lr_scales, idx_dev, mask_dev,
-        )
-        self.params = result.params
-        self.server_state = result.server_opt_state
+        with self._tracer.span("dispatch", round=first, rounds=n):
+            with self._tracer.span("cohort-sample", round=first, rounds=n):
+                idx_rows = np.zeros((n, self._step_clients), dtype=np.int64)
+                mask_rows = np.zeros((n, self._step_clients), dtype=np.float32)
+                survived_counts = []
+                for i, r in enumerate(rounds):
+                    survived = self._sample_cohort(r)
+                    survived_counts.append(len(survived))
+                    if self._cohort_mode:
+                        idx_rows[i], mask_rows[i] = self._place_cohort(survived)
+                    else:
+                        mask_rows[i, survived] = 1.0
+            lr_scales = lr_schedule_scales(
+                cfg.lr_schedule, first, n, cfg.num_rounds, min_factor=cfg.lr_min_factor,
+                decay_every=cfg.lr_decay_every, gamma=cfg.lr_decay_gamma,
+            )
+            idx_dev = self._to_device(idx_rows) if self._cohort_mode else None
+            mask_dev = self._to_device(mask_rows)
+            result = self._round_block(
+                self.params, self.server_state, self._data, self._num_samples,
+                round_seeds(cfg.seed, rounds), lr_scales, idx_dev, mask_dev,
+            )
+            self.params = result.params
+            self.server_state = result.server_opt_state
 
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)  # the block's one barrier
-        names = list(result.metrics)
-        values = torch.stack([result.metrics[k].double() for k in names]).tolist()
-        stacked = dict(zip(names, values))
-        detail = None
-        if result.client_metrics is not None and any(self._client_detail_due(r) for r in rounds):
-            detail = {
-                "weights": result.weights.tolist(),
-                "client_loss": result.client_metrics.loss.tolist(),
-                "client_accuracy": result.client_metrics.accuracy.tolist(),
-                "update_sq_norms": result.update_sq_norms.tolist(),
-            }
-        del result
+        with self._tracer.span("host_sync", round=first, rounds=n):
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)  # the block's one barrier
+            names = list(result.metrics)
+            values = torch.stack([result.metrics[k].double() for k in names]).tolist()
+            stacked = dict(zip(names, values))
+            detail = None
+            if (result.client_metrics is not None
+                    and any(self._client_detail_due(r) for r in rounds)):
+                detail = {
+                    "weights": result.weights.tolist(),
+                    "client_loss": result.client_metrics.loss.tolist(),
+                    "client_accuracy": result.client_metrics.accuracy.tolist(),
+                    "update_sq_norms": result.update_sq_norms.tolist(),
+                }
+            del result
         block_duration = time.perf_counter() - t0
         per_round_s = block_duration / n
-        self._observe_retune(n, block_duration)
+        # Occupancy on the fused basis: host_sync over dispatch + host_sync + publish.
+        occupancy = update_device_occupancy(self._registry)
+        self._observe_retune(n, block_duration, occupancy)
 
         out: list[RoundMetrics] = []
         for i, r in enumerate(rounds):
@@ -968,6 +1047,14 @@ class Coordinator:
                     agg_metrics=agg, eval_metrics=eval_metrics, duration_s=per_round_s,
                     timestamp=_now_iso(),
                 )
+            self._ledger.charge(
+                status=metrics.status.name, num_clients=metrics.num_clients,
+                duration_s=per_round_s, expected=self.cohort_size,
+                telemetry_fields=dict(
+                    round=r, status=metrics.status.name, num_clients=metrics.num_clients,
+                    duration_s=round(per_round_s, 6), fused=True, rounds_per_block=n,
+                ),
+            )
             self._last_client_detail = None
             if (
                 detail is not None
@@ -978,19 +1065,51 @@ class Coordinator:
                 if self._cohort_mode:
                     self._last_client_detail["client_ids"] = idx_rows[i].tolist()
             self.history.append(metrics)
-            # Checkpoint and versioned model only at the block's edge: a mid-block
-            # checkpoint would pair round r's id with the block's END params.
-            self._publish_round(metrics, persist_state=(i == n - 1))
+            with self._tracer.span("publish", round=r):
+                # Checkpoint and versioned model only at the block's edge: a mid-block
+                # checkpoint would pair round r's id with the block's END params.
+                self._publish_round(metrics, persist_state=(i == n - 1))
             if self.on_round_end is not None:
                 self.on_round_end(metrics)
             self.current_round += 1
             out.append(metrics)
         return out
 
+    def _to_device(self, rows: np.ndarray) -> torch.Tensor:
+        """A host array on the device without a barrier: on the card a copy from
+        pinned memory, enqueued on the stream, so a block's dispatch waits on nothing."""
+        host = torch.as_tensor(rows)
+        if self.device.type != "cuda":
+            return host.to(self.device)
+        return host.pin_memory().to(self.device, non_blocking=True)
+
     def _train_round(self, round_id: int) -> RoundMetrics:
+        """One round, instrumented: the round and its phases land as spans, the
+        outcome on the ledger (and as a ``round`` telemetry record), and the
+        occupancy on the single-round basis goes to the retuner."""
+        t0 = time.perf_counter()
+        with self._tracer.span("round", round=round_id):
+            metrics = self._train_round_impl(round_id)
+        duration = time.perf_counter() - t0
+        self._ledger.charge(
+            status=metrics.status.name, num_clients=metrics.num_clients,
+            duration_s=duration, expected=self.cohort_size,
+            telemetry_fields=dict(
+                round=round_id, status=metrics.status.name,
+                num_clients=metrics.num_clients, duration_s=round(duration, 6),
+            ),
+        )
+        # The local-train span ends at the round's one barrier, so its share of the
+        # round span is device time.
+        occupancy = update_device_occupancy(self._registry)
+        self._observe_retune(1, duration, occupancy)
+        return metrics
+
+    def _train_round_impl(self, round_id: int) -> RoundMetrics:
         t0 = time.perf_counter()
         cohort = self.cohort_size
-        survived = self._sample_cohort(round_id)
+        with self._tracer.span("cohort-sample", round=round_id):
+            survived = self._sample_cohort(round_id)
         required = completion_required(cohort, self.config.min_completion_rate)
         if len(survived) < required:
             _log.warning(
@@ -1014,58 +1133,69 @@ class Coordinator:
                 gen, (tree_size(self.params),)
             )
         idx_dev = None
-        if self._cohort_mode:
-            idx, mask = self._place_cohort(survived)
-            idx_dev = torch.as_tensor(idx, device=self.device)
-            data = self._data.select(idx_dev)
-            perms = perms[idx_dev]
-            keys = keys[idx_dev]
-            weights = compute_weights(
-                self._num_samples[idx_dev], torch.as_tensor(mask, device=self.device)
-            )
-        else:
-            data = self._data
-            mask = np.zeros(self.num_clients, dtype=np.float32)
-            mask[survived] = 1.0
-            weights = compute_weights(self._num_samples, torch.as_tensor(mask, device=self.device))
+        with self._tracer.span("cohort-gather", round=round_id, cohort=len(survived)):
+            if self._cohort_mode:
+                idx, mask = self._place_cohort(survived)
+                idx_dev = torch.as_tensor(idx, device=self.device)
+                data = self._data.select(idx_dev)
+                perms = perms[idx_dev]
+                keys = keys[idx_dev]
+                weights = compute_weights(
+                    self._num_samples[idx_dev], torch.as_tensor(mask, device=self.device)
+                )
+            else:
+                data = self._data
+                mask = np.zeros(self.num_clients, dtype=np.float32)
+                mask[survived] = 1.0
+                weights = compute_weights(
+                    self._num_samples, torch.as_tensor(mask, device=self.device))
 
         cfg = self.config
         lr_scale = lr_schedule_scale(
             cfg.lr_schedule, round_id, cfg.num_rounds, min_factor=cfg.lr_min_factor,
             decay_every=cfg.lr_decay_every, gamma=cfg.lr_decay_gamma,
         )
-        if self.scaffold:
-            c_rows = self.c_stack if idx_dev is None else self.c_stack[idx_dev]
-            result = self._round_step(
-                self.params, self.server_state, self.c_global, c_rows, data, weights, perms,
-                keys, lr_scale,
-            )
-            self.c_global = result.c_global
-            if idx_dev is None:
-                self.c_stack += result.delta_c
+        # The round step runs local training and the reduce as one program, so
+        # local-train covers both (its attribute says so).  The round's one barrier
+        # ends the span, so its duration is device time, not the enqueue.
+        with self._tracer.span("local-train", round=round_id, fused="train+aggregate"):
+            if self.scaffold:
+                c_rows = self.c_stack if idx_dev is None else self.c_stack[idx_dev]
+                result = self._round_step(
+                    self.params, self.server_state, self.c_global, c_rows, data, weights,
+                    perms, keys, lr_scale,
+                )
+                self.c_global = result.c_global
+                if idx_dev is None:
+                    self.c_stack += result.delta_c
+                else:
+                    # Participants' rows move by their delta; padding and dropped slots
+                    # add exact zeros (collision-safe though they alias row 0).
+                    self.c_stack.index_add_(0, idx_dev, result.delta_c)
             else:
-                # Participants' rows move by their delta; padding and dropped slots add
-                # exact zeros (collision-safe though they alias row 0).
-                self.c_stack.index_add_(0, idx_dev, result.delta_c)
-        else:
-            result = self._round_step(
-                self.params, self.server_state, data, weights, perms, keys, noise, lr_scale
-            )
-        self.params = result.params
-        self.server_state = result.server_opt_state
+                result = self._round_step(
+                    self.params, self.server_state, data, weights, perms, keys, noise,
+                    lr_scale,
+                )
+            self.params = result.params
+            self.server_state = result.server_opt_state
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)  # the round's one barrier
 
-        agg = self._round_agg({k: float(v) for k, v in result.metrics.items()}, lr_scale)
-        if self.privacy_accountant is not None:
-            record_central_privacy(
-                self.privacy_accountant, self.central_privacy,
-                sampling_rate=self.cohort_size / self.num_clients,
-            )
-            spent = self.privacy_accountant.get_privacy_spent(
-                self.central_privacy.privacy.delta
-            )
-            agg["privacy_epsilon"] = spent.epsilon_spent
-            agg["privacy_delta"] = spent.delta_spent
-        eval_metrics = self.evaluate() if self._eval_due(round_id) else {}
+        with self._tracer.span("aggregate", round=round_id):
+            agg = self._round_agg({k: float(v) for k, v in result.metrics.items()},
+                                  lr_scale)
+            if self.privacy_accountant is not None:
+                record_central_privacy(
+                    self.privacy_accountant, self.central_privacy,
+                    sampling_rate=self.cohort_size / self.num_clients,
+                )
+                spent = self.privacy_accountant.get_privacy_spent(
+                    self.central_privacy.privacy.delta
+                )
+                agg["privacy_epsilon"] = spent.epsilon_spent
+                agg["privacy_delta"] = spent.delta_spent
+            eval_metrics = self.evaluate() if self._eval_due(round_id) else {}
 
         # Under central DP no per-client detail is written: the weights reveal who
         # took part, and per-client losses and norms describe the un-noised deltas.
@@ -1085,8 +1215,6 @@ class Coordinator:
                 # Cohort-slot order: which client each slot hosted.
                 self._last_client_detail["client_ids"] = idx.tolist()
 
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
         duration = time.perf_counter() - t0
         _log.info(
             "round %d: loss=%.4f acc=%.4f clients=%d (%.2fs)",

@@ -3,9 +3,9 @@
 recorded as rejected until their slices land) picked from profiled candidates — see
 ``tuning.autotuner`` for the scoring bases and how they differ from the JAX
 package's compile-only sweep — the fused-vs-unfused aggregation-epilogue table
-(``tuning.epilogues``, kernels B4 and B2), and the online retuner.  The JAX
-package's ``compile_cache`` and the ``profile --sweep`` / ``run --autotune`` command
-line come with later slices."""
+(``tuning.epilogues``, kernels B4 and B2), the online retuner, and the kernel-build
+cache (``tuning.compile_cache``: the manifest of the built CUDA libraries, the
+hit/miss counters and the warm pass)."""
 
 from nanofed_tpu_torch.tuning.autotuner import (
     AutotuneError,
@@ -22,6 +22,14 @@ from nanofed_tpu_torch.tuning.autotuner import (
     rank_candidates,
     resolve_hbm_budget,
 )
+from nanofed_tpu_torch.tuning.compile_cache import (
+    WarmResult,
+    build_manifest,
+    install_compile_cache_metrics,
+    verify_manifest,
+    warm,
+    write_manifest,
+)
 from nanofed_tpu_torch.tuning.epilogues import (
     profile_aggregation_epilogues,
     register_epilogue_programs,
@@ -37,13 +45,19 @@ __all__ = [
     "PopulationSpec",
     "RetuneDecision",
     "TuningSpace",
+    "WarmResult",
     "autotune",
+    "build_manifest",
     "candidate_program_name",
     "format_candidate_table",
+    "install_compile_cache_metrics",
     "order_by_predicted_compile_cost",
     "predicted_compile_cost",
     "profile_aggregation_epilogues",
     "rank_candidates",
     "register_epilogue_programs",
     "resolve_hbm_budget",
+    "verify_manifest",
+    "warm",
+    "write_manifest",
 ]

@@ -453,6 +453,27 @@ class AutotuneResult:
             **({"epilogues": self.epilogues} if self.epilogues else {}),
         }
 
+    def telemetry_payload(self) -> dict[str, Any]:
+        """The ``autotune`` telemetry-record fields (what ``metrics-summary`` digests
+        into its ``autotunes`` block): the JAX package's keys."""
+        feasible = [o for o in self.outcomes if o.feasible]
+        return {
+            "winner": self.winner.to_dict() if self.winner else None,
+            "scoring_basis": self.scoring_basis,
+            "platform": self.platform,
+            "device_kind": self.device_kind,
+            "num_devices": self.num_devices,
+            "candidates_total": len(self.outcomes),
+            "candidates_feasible": len(feasible),
+            "cache_key": self.cache_key,
+            "cache_hit": self.cache_hit,
+            "compiles": self.compiles,
+            "compile_seconds_total": round(self.compile_seconds_total, 4),
+            **({"skipped": self.skipped} if self.skipped else {}),
+            **({"wedged_at": self.wedged_at} if self.wedged_at else {}),
+            **({"best_score": feasible[0].score} if feasible else {}),
+        }
+
     @classmethod
     def from_dict(cls, d: dict[str, Any]) -> "AutotuneResult":
         return cls(
@@ -833,14 +854,12 @@ def autotune(
     ``except`` guards it: it launches kernels B4 and B2 on the card, and a failing
     launch must fail the sweep, not hide in the side table.
 
-    Refused here, each with its slice: ``telemetry=`` (the observability slice) and
-    ``adapter=`` (the adapters slice).
+    ``telemetry`` (a ``RunTelemetry``) receives one ``compile`` record per profiled
+    candidate (its first call's seconds, under the JAX name) and the ``autotune``
+    record (:meth:`AutotuneResult.telemetry_payload`), on cache hits too.
+
+    Refused here: ``adapter=`` (the adapters slice).
     """
-    if telemetry is not None:
-        raise NotImplementedError(
-            "autotune(telemetry=...): run telemetry comes with the observability "
-            "slice of nanofed_tpu_torch (ROADMAP queue A item 19)"
-        )
     if adapter is not None:
         raise NotImplementedError(
             "autotune(adapter=...): LoRA adapters come with the adapters slice of "
@@ -881,7 +900,7 @@ def autotune(
                 "autotune cache hit (%s): winner %s, zero profiles",
                 cache_path, cached.winner.to_dict(),
             )
-            _finish(cached, out_dir)
+            _finish(cached, out_dir, telemetry)
             return cached
     if compile_budget_s is None:
         env_budget = os.environ.get("NANOFED_AUTOTUNE_COMPILE_BUDGET")
@@ -950,6 +969,12 @@ def autotune(
         if profiled_s is not None:
             compiles += 1
             spent += float(profiled_s)
+        cand_compile_s = outcome.cost.get("compile_seconds")
+        if telemetry is not None and cand_compile_s is not None:
+            telemetry.record(
+                "compile", program=candidate_program_name(cand),
+                seconds=round(float(cand_compile_s), 4), cache_key=key[:16],
+            )
         outcomes.append(outcome)
         _log.info(
             "autotune candidate %s: %s",
@@ -1000,7 +1025,7 @@ def autotune(
         # truncated or wedged sweeps are not cached either: their winner is the
         # best of an INCOMPLETE table.
         _write_cache(cache_path, result)
-    _finish(result, out_dir)
+    _finish(result, out_dir, telemetry)
     if result.winner is None:
         raise AutotuneError(
             "autotune found no feasible candidate: " + "; ".join(
@@ -1038,9 +1063,9 @@ def _write_cache(path: Path, result: AutotuneResult) -> None:
         _log.warning("could not write autotune cache %s: %s", path, e)
 
 
-def _finish(result: AutotuneResult, out_dir: str | Path | None) -> None:
-    """Emit the ranked-table artifact (also on cache hits, so every invocation leaves
-    a fresh auditable table)."""
+def _finish(result: AutotuneResult, out_dir: str | Path | None, telemetry: Any) -> None:
+    """Emit the ranked-table artifact and the ``autotune`` telemetry record (also on
+    cache hits, so every invocation leaves a fresh auditable table)."""
     if out_dir is not None:
         from nanofed_tpu_torch.utils.dates import get_current_time
 
@@ -1052,6 +1077,8 @@ def _finish(result: AutotuneResult, out_dir: str | Path | None) -> None:
             result.artifact_path = str(path)
         except OSError as e:
             _log.warning("could not write autotune artifact %s: %s", path, e)
+    if telemetry is not None:
+        telemetry.record("autotune", **result.telemetry_payload())
 
 
 def format_candidate_table(result: AutotuneResult) -> str:

@@ -23,8 +23,9 @@ swaps both, and refuses a ``rounds_per_block > 1`` its configuration cannot fuse
 
 ``write_back()`` stamps the measured numbers into the autotune cache entry
 (``.nanofed_torch_cache/autotune_<key16>.json``), so the NEXT run's cache hit
-starts from measurements.  The device-occupancy gauge the JAX coordinator passes
-comes from spans (the observability slice): the port's coordinator passes None.
+starts from measurements.  The coordinator passes each observation's
+device-occupancy ratio (``observability.update_device_occupancy``, from its spans),
+so measured rows carry ``measured_occupancy_mean`` as the JAX package's do.
 """
 
 from __future__ import annotations

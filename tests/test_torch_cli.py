@@ -1,10 +1,11 @@
 """The port's command line (``nanofed_tpu_torch.cli``, the ``nanofed-tpu-torch`` script)
 on the CPU: ``run`` and ``bench`` give what the library calls give, ``profile`` (with
-``--sweep``) and ``serve`` run through, ``info`` runs nothing, every command that runs
-something defaults to the card and raises without one, and each subcommand and flag
-of a later slice is refused with its ROADMAP item, and together they are the JAX
-command line's subcommands and flags (read from its parser, which is built and never
-run)."""
+``--sweep``) and ``serve`` run through, ``--telemetry-dir`` writes each one's telemetry,
+``metrics-summary`` and ``trace`` give what the JAX package's readers give, ``info``
+runs nothing, every command that runs something defaults to the card and raises
+without one, and each subcommand and flag of a later slice is refused with its ROADMAP
+item, and together they are the JAX command line's subcommands and flags (read from
+its parser, which is built and never run)."""
 
 import argparse
 import asyncio
@@ -180,8 +181,7 @@ def test_commands_default_to_the_card_and_raise_without_it(argv, monkeypatch):
 
 
 @pytest.mark.parametrize("name,item", [
-    ("chaos-plan", "item 17"), ("metrics-summary", "item 19"), ("trace", "item 19"),
-    ("audit", "item 21"), ("loadtest", "item 18"), ("tenants", "item 18"),
+    ("chaos-plan", "item 17"), ("audit", "item 21"), ("loadtest", "item 18"), ("tenants", "item 18"),
 ])
 def test_later_subcommands_are_listed_and_refused_with_their_item(name, item, capsys):
     assert cli.main([name, "--seed", "3", "somewhere"]) == 2
@@ -195,14 +195,11 @@ def test_later_subcommands_are_listed_and_refused_with_their_item(name, item, ca
     ("run", ["--model-shards", "2"], "item 9b"),
     ("run", ["--hosts", "2"], "item 9b"),
     ("run", ["--distributed"], "item 9b"),
-    ("run", ["--telemetry-dir", "t"], "item 19"),
     ("run", ["--strict"], "item 21"),
     ("profile", ["--adapter-rank", "4"], "item 16"),
     ("profile", ["--model-shards", "2"], "item 9b"),
     ("profile", ["--hosts", "2"], "item 9b"),
-    ("profile", ["--telemetry-dir", "t"], "item 19"),
     ("serve", ["--chaos-plan", "plan.json"], "item 17"),
-    ("serve", ["--telemetry-dir", "t"], "item 19"),
     ("serve", ["--max-inflight", "8"], "item 18"),
 ])
 def test_later_flags_are_refused_with_their_item(cmd, argv, item, capsys):
@@ -240,7 +237,9 @@ def test_every_jax_subcommand_and_flag_is_ported_or_refused(monkeypatch):
     for cmd in cli.COMMANDS:
         jax_flags = set(theirs[cmd]._option_string_actions)
         our_flags = set(ours[cmd]._option_string_actions)
-        assert our_flags - jax_flags == ({"--device"} if cmd != "info" else set())
+        # --device on every command that runs on a device.
+        runs_nothing = cmd in ("info", "metrics-summary", "trace")
+        assert our_flags - jax_flags == (set() if runs_nothing else {"--device"})
         assert jax_flags <= our_flags
         refused = {flag for flag, *_ in cli.LATER_SLICE_FLAGS.get(cmd, {}).values()}
         assert refused <= jax_flags
@@ -280,3 +279,115 @@ def test_platform_helpers(capsys):
         cwd=REPO, capture_output=True, text=True, timeout=60)
     assert proc.returncode == 3 and "stage 'stuck' exceeded" in proc.stderr
     assert json.loads(proc.stdout) == {"ok": False, "error": "stuck timed out after 0s"}
+
+
+# ---------------------------------------------------------------------------
+# Telemetry on the command line: what the refused cases of the observability slice
+# became.
+# ---------------------------------------------------------------------------
+
+TINY_RUN = ["--device", "cpu", "--model", "linear", "--clients", "2", "--rounds", "2",
+            "--epochs", "1", "--batch-size", "8", "--train-size", "32"]
+
+
+def _telemetry_records(directory):
+    lines = (Path(directory) / "telemetry.jsonl").read_text().splitlines()
+    return [json.loads(line) for line in lines]
+
+
+def test_run_writes_telemetry_where_telemetry_dir_points(tmp_path):
+    code, _ = _main(["run", *TINY_RUN, "--out-dir", str(tmp_path / "out"),
+                     "--telemetry-dir", str(tmp_path / "tel")])
+    assert code == 0
+    records = _telemetry_records(tmp_path / "tel")
+    assert [r["status"] for r in records if r["type"] == "round"] == ["COMPLETED"] * 2
+    assert records[0]["type"] == "topology" and records[-1]["type"] == "metrics_snapshot"
+    assert {r["name"] for r in records if r["type"] == "span"} == {
+        "round", "cohort-sample", "cohort-gather", "local-train", "aggregate", "publish"}
+    assert not (tmp_path / "out" / "telemetry.jsonl").exists()
+
+
+def test_metrics_summary_digests_a_run_like_the_jax_reader(tmp_path):
+    from nanofed_tpu.observability import summarize_telemetry as jax_summarize
+
+    assert _main(["run", *TINY_RUN, "--out-dir", str(tmp_path)])[0] == 0
+    code, out = _main(["metrics-summary", str(tmp_path)])
+    assert code == 0
+    assert json.loads(out) == jax_summarize(tmp_path / "telemetry.jsonl")
+    assert json.loads(out)["rounds"] == {"COMPLETED": 2}
+    assert cli.main(["metrics-summary", str(tmp_path / "nothing")]) == 1
+
+
+def test_trace_merges_the_streams_like_the_jax_reader(tmp_path):
+    from nanofed_tpu.observability import federation_timeline as jax_timeline
+
+    for host, skew in ((0, 0.0), (1, 0.25)):
+        stream = tmp_path / f"host_{host}" / "telemetry.jsonl"
+        stream.parent.mkdir()
+        stream.write_text("".join(json.dumps(r) + "\n" for r in (
+            {"type": "clock_sync", "host": host, "anchor_wall": 100.0 + skew},
+            {"type": "round", "host": host, "round": 0, "status": "COMPLETED",
+             "duration_s": 1.0, "start_wall": 100.5 + skew,
+             "segments": {"wire_wait": 0.5, "apply": 0.5}, "traces": [f"{host:032x}"]},
+        )))
+    code, out = _main(["trace", str(tmp_path), "--chrome-out", str(tmp_path / "t.json")])
+    assert code == 0
+    assert json.loads(out) == jax_timeline(tmp_path)
+    events = json.loads((tmp_path / "t.json").read_text())["traceEvents"]
+    assert {e["pid"] for e in events} == {0, 1}
+    assert cli.main(["trace", str(tmp_path / "nothing")]) == 1
+
+
+def test_profile_appends_program_profile_records_to_telemetry_dir(tmp_path):
+    code, _ = _main(["profile", "--device", "cpu", "--model", "linear", "--clients", "4",
+                     "--batch-size", "8", "--train-size", "64", "--rounds-per-block", "1",
+                     "--telemetry-dir", str(tmp_path / "tel")])
+    assert code == 0
+    records = _telemetry_records(tmp_path / "tel")
+    assert sorted(r["program"] for r in records if r["type"] == "program_profile") == [
+        "round_step", "scaffold_round_step"]
+    assert [r["attrs"]["program"] for r in records if r["type"] == "span"] == [
+        "round_step", "scaffold_round_step"]
+    assert [r["type"] for r in records].count("metrics_snapshot") == 2
+
+
+def test_serve_writes_telemetry_and_serves_metrics(tmp_path):
+    from nanofed_tpu_torch.communication import HTTPClient
+    from nanofed_tpu_torch.communication.transport import free_port
+    from nanofed_tpu_torch.core.exceptions import NanoFedError
+
+    aiohttp = pytest.importorskip("aiohttp")
+    port = free_port()
+    result = {}
+
+    def serve():
+        result["code"], _ = _main([
+            "serve", "--device", "cpu", "--model", "linear", "--port", str(port),
+            "--rounds", "1", "--timeout", "60", "--telemetry-dir", str(tmp_path / "tel")])
+
+    thread = threading.Thread(target=serve)
+    thread.start()
+
+    async def client():
+        url = f"http://127.0.0.1:{port}"
+        async with HTTPClient(url, "c0", timeout_s=30) as c:
+            for _ in range(500):
+                try:
+                    params, rnd, active = await c.fetch_global_model()
+                    break
+                except (NanoFedError, OSError):  # the server is still starting
+                    await asyncio.sleep(0.02)
+            async with aiohttp.ClientSession() as session:
+                async with session.get(f"{url}/metrics") as resp:
+                    result["metrics"] = await resp.text()
+            assert await c.submit_update(params, {"num_samples": 3})
+
+    asyncio.run(client())
+    thread.join(timeout=60)
+    assert not thread.is_alive() and result["code"] == 0
+    assert 'nanofed_bytes_sent_total{endpoint="model"}' in result["metrics"]
+    records = _telemetry_records(tmp_path / "tel")
+    assert [r["status"] for r in records if r["type"] == "round"] == ["COMPLETED"]
+    assert [r["name"] for r in records if r["type"] == "span"] == [
+        "publish", "cohort-sample", "aggregate", "round"]
+    assert records[-1]["type"] == "metrics_snapshot"

@@ -480,19 +480,78 @@ def test_codec_refuses_a_payload_that_does_not_fit_the_template():
         lambda: port_comm.NetworkCoordinator(
             port_comm.HTTPServer(port=free_port()), {}, port_comm.NetworkRoundConfig(),
             device="cpu", chaos=object()),
-        lambda: port_comm.HTTPClient("http://127.0.0.1:1", "c", registry=object()),
-        lambda: port_comm.HTTPServer(port=free_port(), tracer=object()),
         lambda: port_comm.HTTPServer(port=free_port(), max_inflight=4),
         lambda: port_comm.HTTPServer(port=free_port(), transport=object()),
         lambda: port_comm.HTTPServer(port=free_port(), tenant="t"),
         lambda: port_comm.HTTPServer(port=free_port(), fleet=object()),
     ],
-    ids=["chaos", "registry", "tracer", "admission", "transport", "tenant", "fleet"],
+    ids=["chaos", "admission", "transport", "tenant", "fleet"],
 )
 def test_later_slice_options_raise_naming_their_slice(build):
     """What the port still refuses names the ROADMAP item that brings it."""
     with pytest.raises(NotImplementedError, match=r"slice, queue A item \d+"):
         build()
+
+
+def _one_plain_round(server_kwargs, client_kwargs):
+    """One plain round of c0 on a port server built with ``server_kwargs``, the client
+    built with ``client_kwargs``; returns the server."""
+    from nanofed_tpu_torch.observability import MetricsRegistry
+
+    async def main():
+        port = free_port()
+        server = port_comm.HTTPServer(port=port, registry=MetricsRegistry(), **server_kwargs)
+        await server.start()
+        try:
+            coordinator = port_comm.NetworkCoordinator(
+                server, from_numpy_params(INIT, device="cpu"),
+                port_comm.NetworkRoundConfig(num_rounds=1, round_timeout_s=20.0,
+                                             poll_interval_s=0.02), device="cpu")
+            url = f"http://127.0.0.1:{port}"
+
+            async def client():
+                async with port_comm.HTTPClient(url, "c0", timeout_s=30,
+                                                **client_kwargs) as c:
+                    params, rnd, _ = await _fetch(PKGS["port"], c, PKGS["port"].params(INIT))
+                    assert await c.submit_update(_port_add(params, DELTAS["c0"]),
+                                                 {"num_samples": 3.0})
+
+            await asyncio.wait_for(asyncio.gather(coordinator.run(), client()), 60)
+            return server
+        finally:
+            await server.stop()
+
+    return asyncio.run(main())
+
+
+def test_client_registry_receives_the_wire_metrics():
+    """``HTTPClient(registry=)``: the client's wire families, the JAX package's."""
+    from nanofed_tpu_torch.observability import MetricsRegistry
+
+    registry = MetricsRegistry()
+    server = _one_plain_round({}, {"registry": registry})
+    text = registry.render_prometheus()
+    for family in ("nanofed_client_bytes_sent_total", "nanofed_client_bytes_received_total",
+                   "nanofed_client_submissions_total", "nanofed_client_codec_ratio",
+                   "nanofed_client_retries_total"):
+        assert f"# TYPE {family} " in text
+    sent = registry.counter("nanofed_client_bytes_sent_total", labels=("endpoint",))
+    received = server.metrics_registry.counter("nanofed_bytes_received_total",
+                                               labels=("endpoint",))
+    assert sent.value(endpoint="update") == received.value(endpoint="update") > 0
+    assert registry.counter("nanofed_client_submissions_total", labels=("result",)).value(
+        result="accepted") == 1
+
+
+def test_server_tracer_wraps_each_decode_in_a_traced_span():
+    """``HTTPServer(tracer=)``: a ``submit-decode`` span carrying the submit's trace id."""
+    from nanofed_tpu_torch.observability import SpanTracer, new_trace
+
+    tracer = SpanTracer(registry=False, annotate_device=False)
+    _one_plain_round({"tracer": tracer}, {})
+    (decode,) = [r for r in tracer.records if r.name == "submit-decode"]
+    assert decode.attrs == {"client": "c0", "encoding": "npz",
+                            "trace": new_trace("c0", 0, 1).trace_id}
 
 
 def test_plain_submit_refuses_compressed_encodings_and_stale_rounds():

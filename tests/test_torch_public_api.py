@@ -139,7 +139,6 @@ def test_training_progress_counts_like_jax(tmp_path):
     ("mesh", object(), "item 9b"),
     ("mesh_shape", (1, 1), "item 9b"),
     ("strict", True, "item 21"),
-    ("telemetry_dir", "telemetry", "item 19"),
 ])
 def test_coordinator_refuses_the_jax_only_keywords_with_their_item(tmp_path, keyword, value,
                                                                     item):
@@ -152,3 +151,20 @@ def test_coordinator_refuses_the_jax_only_keywords_with_their_item(tmp_path, key
     Coordinator(model, data, config, device="cpu", **{keyword: default})  # the JAX default
     with pytest.raises(TypeError, match="unexpected keyword argument 'mesh_shapes'"):
         Coordinator(model, data, config, device="cpu", mesh_shapes=(1, 1))
+
+
+def test_coordinator_telemetry_dir_writes_the_runs_telemetry(tmp_path):
+    """``telemetry_dir=``, a JAX keyword this slice ports: the run's records land there,
+    not under ``base_dir``."""
+    from nanofed_tpu_torch.observability import summarize_telemetry
+
+    model = get_model("linear", in_features=10, num_classes=2)
+    data = federate(synthetic_classification(32, 2, (10,), seed=0), 2, batch_size=8)
+    config = CoordinatorConfig(num_rounds=2, base_dir=tmp_path / "base")
+    Coordinator(model, data, config, TrainingConfig(batch_size=8), device="cpu",
+                telemetry_dir=tmp_path / "tel").run()
+    assert not (tmp_path / "base" / "telemetry.jsonl").exists()
+    summary = summarize_telemetry(tmp_path / "tel" / "telemetry.jsonl")
+    assert summary["rounds"] == {"COMPLETED": 2}
+    assert summary["topology"]["num_clients"] == 2 and "local-train" in summary["phases"]
+    assert "telemetry_dir" not in LATER_SLICE_KEYWORDS

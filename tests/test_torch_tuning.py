@@ -345,12 +345,27 @@ def test_only_out_of_memory_turns_a_candidate_into_a_rejection(tmp_path, monkeyp
 
 
 @pytest.mark.parametrize("kwargs,slice_name", [
-    ({"telemetry": object()}, "observability slice"),
     ({"adapter": object()}, "adapters slice"),
 ])
 def test_autotune_refuses_what_later_slices_bring(tmp_path, kwargs, slice_name):
     with pytest.raises(NotImplementedError, match=slice_name):
         _sweep(tmp_path, **kwargs)
+
+
+def test_autotune_telemetry_gets_a_compile_record_per_candidate(tmp_path):
+    """``autotune(telemetry=)``: one ``compile`` record per profiled candidate and the
+    ``autotune`` record, with the JAX package's fields."""
+    from nanofed_tpu_torch.observability import RunTelemetry, summarize_telemetry
+
+    tel = RunTelemetry(tmp_path / "tel", annotate_device=False)
+    res = _sweep(tmp_path, telemetry=tel, include_epilogues=False)
+    tel.close()
+    summary = summarize_telemetry(tmp_path / "tel" / "telemetry.jsonl")
+    assert summary["compiles"]["count"] == res.compiles == 8
+    assert set(summary["compiles"]["by_program"]) == {
+        candidate_program_name(o.config) for o in res.outcomes}
+    (digest,) = summary["autotunes"].values()
+    assert digest["winner"] == res.winner.to_dict() and digest["cache_hit"] is False
 
 
 def test_cache_key_follows_population_and_budget():
