@@ -182,6 +182,33 @@ Phases (any failure exits non-zero):
    second load that counts three hits and no build; (u5) ``nanofed-tpu-torch run
    --telemetry-dir`` (1 round of 8 clients), then ``metrics-summary`` and ``trace`` on
    its directory, each exiting 0.
+   Then the causal transformer LM and LoRA adapter federation (phase (v)), on seeded
+   Markov-chain token streams, SGD without momentum: (v1) the ``base`` flagship (vocab
+   8192, seq 128, width 768, depth 12, 12 heads; 97,745,408 parameters) with rank-8
+   adapters (1,398,784 parameters, ratio 69.88) through ``Coordinator(adapter=)``, 8
+   clients of 128 sequences, batch 16, 1 epoch, lr 0.1: 2 rounds in f32, then 3 in bf16
+   (the third traced by ``torch.profiler``), each round's seconds, counted FLOPs
+   (``FlopCounterMode``) and rate, peak device memory and loss; the merge at round 0
+   the base bit for bit and after round 1 within 1e-5 of ``base + s A@B`` in float64;
+   B1 normalised and B3 once a round at C = 8, P = 1,398,784; (v2) the same cohort's
+   dense full fine-tune, 1 round f32 (B1 and B3 at C = 8, P = 97,745,408, held against
+   their plain versions on the round's own delta stack), and the q8 and topk8 (5%) wire
+   bytes of its delta and of (v1)'s first adapter delta; B1 and B3 at those shapes and
+   B1's accumulate form at C = 2, P = 7,356,416 timed beside ``w @ x``, ``acc.addmv_``
+   and ``torch.linalg.vecdot`` and their bounds; (v3) 4 bf16 adapter rounds at
+   ``rounds_per_block`` 2 and 1 and at 2 again (the run-to-run gap; its first block's
+   ``dispatch`` under the sync check, 0 synchronizing operations): the adapters within
+   1e-4 plus the gap; (v4) the ``large`` flagship (vocab 32768, seq 256, width 2048,
+   depth 24; 1,343,377,408 parameters, initialised on the card, timed) with rank-8
+   adapters, 4 clients of 8 uniform token sequences, batch 8, bf16, ``client_chunk=2``
+   (1 after running out of memory), 1 round step: its seconds and peak device memory, B1
+   accumulate and B3 2 at C = 2, P = 7,356,416; (v5) at the ``evidence`` config
+   (3,701,248 parameters) ``nanofed-tpu-torch run --model transformer_lm
+   --adapter-rank 4`` (the zoo's default dims, 8 clients, 1 round), a
+   ``Coordinator(adapter=)`` with a ``ModelManager`` and a state store closed after 2 of
+   4 rounds and resumed (within 1e-4 of the uninterrupted run; the versioned model the
+   merged params, the checkpoint the adapters), and ``autotune(adapter=AdapterSpec(
+   rank=8))`` with the chunk and batch pinned over ranks 4, 8 and 16.
 4. Cross-check: 8-client f32 rounds of the port on the card and on the CPU from the
    same weights, permutations and injected noise: the plain round with dropout off
    and on (the masks are an integer hash, the same bits on both devices), the
@@ -189,7 +216,9 @@ Phases (any failure exits non-zero):
    round, the trimmed-mean round, the Multi-Krum round and the DP-SGD round (its
    counter-based noise of one key within 1e-6 relative on both devices); then two
    SCAFFOLD rounds from zero controls (params within 1e-4, the controls within 1e-4
-   over K * eta, the factor (x - y) / (K * eta) multiplies the params' error by).
+   over K * eta, the factor (x - y) / (K * eta) multiplies the params' error by);
+   then (v6) a tiny transformer's adapter round (vocab 256, seq 32, width 64, depth 2,
+   rank 4) within 1e-4.
 
 The last lines are the whole script's wall time, the kernels' JSON record, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -2270,7 +2299,7 @@ def print_sweep(card: str, tag: str, result) -> None:
     for o in result.outcomes:
         if o.cost:
             print(f"[{card}] {tag} candidate chunk={o.config.client_chunk} "
-                  f"rounds_per_block={o.config.rounds_per_block} "
+                  f"rounds_per_block={o.config.rounds_per_block} lora={o.config.adapter_rank} "
                   f"batch={o.config.batch_size}: measured_s_per_round="
                   f"{o.cost['measured_s_per_round']:.6f} first_call_s="
                   f"{o.cost['compile_seconds']} bound_s_per_round="
@@ -4141,6 +4170,516 @@ def phase_observability(torch, ops, card: str, out_dir: Path) -> dict[str, int]:
     return totals
 
 
+LM_RANK = 8  # (v): the adapters' rank
+LM_CLIENTS, LM_SEQS, LM_BATCH, LM_LR = 8, 128, 16, 0.1  # (v1)-(v3): the base flagship's cohort
+LM_MERGE_TOL = 1e-5  # (v1): merged params against base + s A@B in float64
+LM_FUSED_ROUNDS = 4  # (v3): at rounds_per_block 2 and 1
+LM_LARGE_CLIENTS, LM_LARGE_SEQS, LM_LARGE_CHUNK = 4, 8, 2  # (v4)
+LM_RESUME_ROUNDS = 4  # (v5): closed after 2 and resumed
+LM_REDUCES = (  # (v): B1 and B3 at the transformer's shapes: (C, P, form)
+    (8, 1_398_784, "normalised"), (8, 97_745_408, "normalised"), (2, 7_356_416, "accumulate"))
+
+
+def capture_reduces(round_step_module):
+    """Record the inputs of the round step's B1 and B3 calls (the kernels' wrappers as
+    the round step imported them) in a dict, for holding the kernels against their plain
+    versions on the path's own delta stacks afterwards; returns the dict and an undo."""
+    seen: dict[str, tuple] = {}
+    names = ("weighted_mean_flat", "weighted_sum_into", "row_sq_norms")
+    originals = {n: getattr(round_step_module, n) for n in names}
+
+    def wrap(name):
+        fn = originals[name]
+
+        def recorded(*args, **kwargs):
+            seen[name] = args
+            return fn(*args, **kwargs)
+
+        return recorded
+
+    for n in names:
+        setattr(round_step_module, n, wrap(n))
+    return seen, lambda: [setattr(round_step_module, n, f) for n, f in originals.items()]
+
+
+def hold_reduces(torch, ops, card: str, tag: str, seen: dict) -> None:
+    """B1 and B3 on the delta stack a round handed them, against their plain versions."""
+    for name, args in seen.items():
+        if name == "weighted_sum_into":
+            _, x, w = args
+            got = ops.weighted_sum_into(torch.zeros(x.shape[1], device="cuda"), x, w)
+            want = ops.weighted_sum_into_plain(torch.zeros(x.shape[1], device="cuda"), x, w)
+        elif name == "weighted_mean_flat":
+            x, w = args[0], args[1]
+            got, want = ops.weighted_mean_flat(x, w), ops.weighted_mean_flat_plain(x, w)
+        else:
+            x = args[0]
+            got, want = ops.row_sq_norms(x), ops.row_sq_norms_plain(x)
+        err = check_close(torch, f"{tag} {name} on the round's deltas", got, want, **TOL)
+        print(f"[{card}] {tag} {name} on the round's [{x.shape[0]}, {x.shape[1]}] delta "
+              f"stack against its plain version: max_abs_err={err:.3e}")
+
+
+def time_lm_reduces(torch, ops, card: str) -> None:
+    """(v) B1 (normalised or accumulate) and B3 at the transformer path's shapes, in the
+    round's layout, against their plain versions and the library calls, with bounds."""
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    for c, p, form in LM_REDUCES:
+        x = round_layout(torch, c, p, seed=c + p)
+        w = torch.rand(c, device="cuda", generator=gen) + 0.5
+        if form == "accumulate":
+            acc = torch.zeros(p, device="cuda")
+            name = "weighted_sum_into"
+            err = check_close(torch, f"(v) {name} C={c} P={p}",
+                              ops.weighted_sum_into(acc.clone(), x, w),
+                              ops.weighted_sum_into_plain(acc.clone(), x, w), **TOL)
+            ms = median_ms(lambda: ops.weighted_sum_into(acc, x, w), torch)
+            plain_ms = median_ms(lambda: ops.weighted_sum_into_plain(acc, x, w), torch)
+            library_ms = median_ms(lambda: acc.addmv_(x.t(), w), torch)
+            library, moved = "acc.addmv_(x.t(), w)", 4 * c * p + 8 * p + 4 * c
+        else:
+            name = "weighted_mean_flat"
+            err = check_close(torch, f"(v) {name} C={c} P={p}", ops.weighted_mean_flat(x, w),
+                              ops.weighted_mean_flat_plain(x, w), **TOL)
+            ms = median_ms(lambda: ops.weighted_mean_flat(x, w), torch)
+            plain_ms = median_ms(lambda: ops.weighted_mean_flat_plain(x, w), torch)
+            library_ms = median_ms(lambda: w @ x, torch)
+            library, moved = "w @ x", 4 * c * p + 4 * c + 4 * p
+        b_ms, b_by = bound_ms(moved, 2 * c * p)
+        print(f"[{card}] (v) {name} C={c} P={p}: kernel_ms={ms:.6f} plain_ms={plain_ms:.6f} "
+              f"library_ms={library_ms:.6f} ({library}) bound_ms={b_ms:.6f} ({b_by}) "
+              f"share_of_bound={b_ms / ms:.4f} max_abs_err={err:.3e} "
+              f"{plan_line(torch, x, form == 'accumulate', False)}")
+        if form == "normalised":
+            err = check_close(torch, f"(v) row_sq_norms C={c} P={p}", ops.row_sq_norms(x),
+                              ops.row_sq_norms_plain(x), **TOL)
+            ms = median_ms(lambda: ops.row_sq_norms(x), torch)
+            plain_ms = median_ms(lambda: ops.row_sq_norms_plain(x), torch)
+            library_ms = median_ms(lambda: torch.linalg.vecdot(x, x), torch)
+            b_ms, b_by = bound_ms(4 * c * p + 4 * c, 2 * c * p)
+            print(f"[{card}] (v) row_sq_norms C={c} P={p}: kernel_ms={ms:.6f} "
+                  f"plain_ms={plain_ms:.6f} library_ms={library_ms:.6f} "
+                  f"(torch.linalg.vecdot(x, x)) bound_ms={b_ms:.6f} ({b_by}) "
+                  f"share_of_bound={b_ms / ms:.4f} max_abs_err={err:.3e}")
+        del x
+        torch.cuda.empty_cache()
+
+
+def flop_counted_rounds(torch, coord, flops: list, traced: dict | None = None) -> None:
+    """Run each of ``coord``'s round steps under ``FlopCounterMode``, appending its
+    counted FLOPs (matrix products, forward and backward) to ``flops``; the count is
+    host work inside the round, the device busy behind it.  With ``traced``, the step
+    after the counted ones (``traced["call"]``) runs under ``torch.profiler`` instead,
+    and its wall, busy ms and kernels land in ``traced``."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    step = coord._round_step
+
+    def counted_step(*args, **kwargs):
+        if traced is not None and len(flops) == traced["call"]:
+            out, traced["wall"], traced["busy"], traced["top"] = device_profile(
+                torch, lambda: step(*args, **kwargs))
+            return out
+        with FlopCounterMode(display=False) as counter:
+            out = step(*args, **kwargs)
+        flops.append(counter.get_total_flops())
+        return out
+
+    coord._round_step = counted_step
+
+
+def lm_population(num_clients: int, seqs: int, batch: int, flagship: str, seed: int = 0):
+    """A flagship's token-stream population on the host: ``num_clients`` x ``seqs``."""
+    from nanofed_tpu_torch.data import federate, synthetic_token_streams
+    from nanofed_tpu_torch.models.transformer import FLAGSHIP_CONFIGS
+
+    vocab, seq_len = FLAGSHIP_CONFIGS[flagship][:2]
+    return federate(synthetic_token_streams(num_clients * seqs, vocab=vocab, seq_len=seq_len,
+                                            seed=seed),
+                    num_clients=num_clients, batch_size=batch, seed=seed)
+
+
+def phase_transformer(torch, ops, card: str, out_dir: Path) -> dict[str, int]:
+    """(v): the causal transformer LM and LoRA adapter federation.  (v1) the ``base``
+    flagship with rank-8 adapters through ``Coordinator(adapter=)``, 2 rounds f32 then 2
+    bf16; (v2) the same cohort's dense full fine-tune, 1 round f32, and the wire bytes of
+    both deltas; (v3) fused blocks against single rounds; (v4) the ``large`` flagship's
+    adapter round step; (v5) the entry points at the ``evidence`` config.  Returns the
+    launch counts."""
+    from nanofed_tpu_torch import cli
+    from nanofed_tpu_torch.adapters import (
+        AdapterSpec,
+        adapter_param_count,
+        init_adapters,
+        make_adapter_apply,
+    )
+    from nanofed_tpu_torch.adapters.evidence import measure_wire_bytes
+    from nanofed_tpu_torch.aggregation import fedavg_strategy
+    from nanofed_tpu_torch.core.types import ClientData
+    from nanofed_tpu_torch.models.transformer import FLAGSHIP_CONFIGS, flagship
+    from nanofed_tpu_torch.orchestration import Coordinator, CoordinatorConfig, RoundStatus
+    from nanofed_tpu_torch.parallel import FrozenBase, build_round_step, init_server_state
+    from nanofed_tpu_torch.parallel import round_step as round_step_module
+    from nanofed_tpu_torch.trainer import TrainingConfig, client_keys, draw_permutations
+    from nanofed_tpu_torch.utils.trees import ravel
+
+    t_phase = time.perf_counter()
+    totals: dict[str, int] = dict.fromkeys(ops.launch_counts(), 0)
+    base_dir = out_dir / "v_transformer"
+    gc.collect()
+    torch.cuda.empty_cache()
+    spec = AdapterSpec(rank=LM_RANK)
+    model = flagship("base")
+    t0 = time.perf_counter()
+    population = lm_population(LM_CLIENTS, LM_SEQS, LM_BATCH, "base")
+    print(f"[{card}] (v) base flagship {FLAGSHIP_CONFIGS['base']} (vocab, seq, width, depth, "
+          f"heads): token streams {LM_CLIENTS} x {LM_SEQS} made in "
+          f"{time.perf_counter() - t0:.3f} s; device bytes allocated at the phase's start "
+          f"{torch.cuda.memory_allocated()}")
+
+    def coordinator(name: str, rounds: int, dtype=None, adapter=spec, **cfg):
+        return Coordinator(
+            model, population, CoordinatorConfig(num_rounds=rounds, seed=0,
+                                                 base_dir=base_dir / name,
+                                                 save_metrics=False, **cfg),
+            TrainingConfig(batch_size=LM_BATCH, local_epochs=1, learning_rate=LM_LR,
+                           compute_dtype=dtype),
+            adapter=adapter, device="cuda")
+
+    def run_rounds(tag: str, coord, flops: list, want: dict):
+        """Rounds one at a time: seconds, peak device memory and loss of each (a fused
+        block runs whole before its first round is yielded, so its peak is the first
+        round's)."""
+        rows = []
+        ops.reset_launch_counts()
+        t_run = time.perf_counter()
+        for metrics in _rounds_with_peaks(torch, coord, rows):
+            if metrics.status != RoundStatus.COMPLETED or not math.isfinite(
+                    metrics.agg_metrics["loss"]):
+                fail(f"{tag}: round {metrics.round_id} {metrics.status} "
+                     f"{metrics.agg_metrics}")
+        torch.cuda.synchronize()
+        grew = ops.launch_counts()
+        print(f"[{card}] {tag}: wall_s={time.perf_counter() - t_run:.3f} launches={grew}")
+        if grew != {k: want.get(k, 0) for k in grew}:
+            fail(f"{tag}: kernel launches {grew}, expected {want}")
+        add_launches(totals, grew)
+        for i, (metrics, peak) in enumerate(rows):
+            f = flops[i] if i < len(flops) else None
+            rate = f"{f:.4e} FLOPs, {f / metrics.duration_s / 1e12:.3f} TFLOP/s" if f else ""
+            rpb = coord.config.rounds_per_block
+            peak = peak if i % rpb == 0 else "(the block's, above)"
+            print(f"[{card}] {tag} round {metrics.round_id}: round_s={metrics.duration_s:.6f} "
+                  f"{rate} peak_device_bytes={peak} loss={metrics.agg_metrics['loss']:.6f}")
+        return rows
+
+    # (v1) rank-8 adapters, f32 then bf16.
+    coord = coordinator("v1_f32", 2)
+    counts = adapter_param_count(spec, coord.base_params)
+    print(f"[{card}] (v1) rank-{LM_RANK} adapters: {counts['adapter_params']:,} adapter and "
+          f"{counts['base_params']:,} base parameters, ratio {counts['ratio']}")
+    if (counts["adapter_params"], counts["base_params"], counts["ratio"]) != (
+            1_398_784, 97_745_408, 69.88):
+        fail(f"(v1) adapter counts {counts}")
+    merged = coord.merged_params()
+    if not all(torch.equal(merged[k], coord.base_params[k]) for k in merged):
+        fail("(v1) round 0's merged params are not the base (B starts at 0)")
+    del merged
+    before = {k: v.clone() for k, v in coord.params.items()}
+    flops: list[float] = []
+    flop_counted_rounds(torch, coord, flops)
+    seen, undo = capture_reduces(round_step_module)
+    first_delta = {}
+
+    def keep_first(metrics):
+        if metrics.round_id == 0:
+            first_delta.update({k: coord.params[k] - before[k] for k in before})
+
+    coord.on_round_end = keep_first
+    run_rounds("(v1) base flagship, adapters, f32", coord, flops,
+               {"weighted_mean_flat": 2, "row_sq_norms": 2})
+    undo()
+    hold_reduces(torch, ops, card, "(v1)", seen)
+    seen.clear()
+    merged = coord.merged_params()
+    gap = 0.0
+    for name, leaf in coord.base_params.items():
+        want = leaf.double()
+        if f"{name}/A" in coord.params:
+            want = want + spec.scaling * (coord.params[f"{name}/A"].double()
+                                          @ coord.params[f"{name}/B"].double())
+        gap = max(gap, float((merged[name].double() - want).abs().max()))
+    print(f"[{card}] (v1) merged params after round 1 against base + s A@B in float64: "
+          f"max_abs={gap:.3e} (tolerance {LM_MERGE_TOL})")
+    if gap > LM_MERGE_TOL:
+        fail(f"(v1) the merge is {gap} from its float64 recomputation")
+    del merged, coord, before
+    gc.collect()
+    torch.cuda.empty_cache()
+    coord = coordinator("v1_bf16", 3, dtype="bfloat16")
+    bf16_flops: list[float] = []
+    traced = {"call": 2}
+    flop_counted_rounds(torch, coord, bf16_flops, traced)
+    run_rounds("(v1) base flagship, adapters, bf16 (round 2 traced)", coord, bf16_flops,
+               {"weighted_mean_flat": 3, "row_sq_norms": 3})
+    busy, wall = traced["busy"], traced["wall"]
+    top = "; ".join(f"{k[:80]} {t:.3f} ms ({t / busy:.1%})" for k, t in traced["top"][:6])
+    print(f"[{card}] (v1) one traced bf16 adapter round step: device busy {busy:.3f} ms of "
+          f"{wall * 1e3:.3f} ms wall (busy share {busy / (wall * 1e3):.4f}); top six by "
+          f"device time: {top}")
+    del coord
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (v2) the dense full fine-tune of the same cohort, 1 round f32.
+    dense = coordinator("v2_dense", 1, adapter=None)
+    dense_before = {k: v.clone() for k, v in dense.params.items()}
+    dense_flops: list[float] = []
+    flop_counted_rounds(torch, dense, dense_flops)
+    seen, undo = capture_reduces(round_step_module)
+    run_rounds("(v2) base flagship, dense full fine-tune, f32", dense, dense_flops,
+               {"weighted_mean_flat": 1, "row_sq_norms": 1})
+    undo()
+    hold_reduces(torch, ops, card, "(v2)", seen)
+    seen.clear()
+    dense_delta = {k: dense.params[k] - dense_before[k] for k in dense_before}
+    del dense, dense_before
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    wire = measure_wire_bytes(None, dense_delta, first_delta)
+    print(f"[{card}] (v2) wire bytes of one round's update (seed 0, top-k 5%): q8 full "
+          f"{wire['q8_bytes_full']:,} adapter {wire['q8_bytes_adapter']:,} "
+          f"({wire['q8_reduction']}x); topk8 full {wire['topk8_bytes_full']:,} adapter "
+          f"{wire['topk8_bytes_adapter']:,} ({wire['topk8_reduction']}x); encoding took "
+          f"{time.perf_counter() - t0:.3f} s")
+    del dense_delta, first_delta
+    time_lm_reduces(torch, ops, card)
+
+    # (v3) fused blocks of 2 against single rounds, bf16, and the fused run again (the
+    # run-to-run gap; its first block under the sync check).
+    runs, blocks = {}, {}
+    for name, rpb in (("single", 1), ("fused", 2), ("fused_again", 2)):
+        coord = coordinator(f"v3_{name}", LM_FUSED_ROUNDS, dtype="bfloat16",
+                            rounds_per_block=rpb)
+        spent: list[float] = []
+        caught: dict[str, object] = {}
+        if rpb > 1:
+            def with_sync_check(call, caught=caught):
+                out, caught["sync"] = sync_warnings(torch, call)
+                return out
+
+            block_timer(torch, coord, spent,
+                        around={0: with_sync_check} if name == "fused_again" else None)
+        rows = run_rounds(f"(v3) {name}, rounds_per_block={rpb}", coord, [],
+                          {"weighted_mean_flat": LM_FUSED_ROUNDS,
+                           "row_sq_norms": LM_FUSED_ROUNDS})
+        runs[name] = (ravel(coord.params), [m for m, _ in rows])
+        blocks[name] = (spent, caught.get("sync"))
+        del coord
+        gc.collect()
+    gap = float((runs["fused"][0] - runs["fused_again"][0]).abs().max())
+    diff = float((runs["fused"][0] - runs["single"][0]).abs().max())
+    f_per = [m.duration_s for m in runs["fused"][1]]
+    s_per = [m.duration_s for m in runs["single"][1]]
+    syncs = blocks["fused_again"][1]
+    print(f"[{card}] (v3) {LM_FUSED_ROUNDS} bf16 adapter rounds: single round_s={s_per}; fused "
+          f"round_s={f_per} (blocks dispatch-to-device-end s={blocks['fused'][0]}); fused/"
+          f"single median={statistics.median(f_per) / statistics.median(s_per):.4f}; "
+          f"max|dadapters| fused vs single={diff:.3e}, fused run-to-run gap={gap:.3e} "
+          f"(tolerance {CROSS_TOL} + the gap); synchronizing operations inside a block's "
+          f"dispatch: {len(syncs)}{' ' + repr(syncs[:3]) if syncs else ''}")
+    if diff > CROSS_TOL + gap or not torch.isfinite(runs["fused"][0]).all():
+        fail(f"(v3) fused adapters differ from single rounds by {diff} (gap {gap})")
+    if syncs:
+        fail(f"(v3) {len(syncs)} synchronizing operations inside an adapter block's dispatch")
+    del runs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (v4) the large flagship's adapter round step, bf16, in client chunks.
+    large = flagship("large")
+    vocab, seq_len = FLAGSHIP_CONFIGS["large"][:2]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    base = large.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    counts = adapter_param_count(spec, base)
+    print(f"[{card}] (v4) large flagship {FLAGSHIP_CONFIGS['large']}: "
+          f"{counts['base_params']:,} base parameters initialised on the card in "
+          f"{init_s:.3f} s; {counts['adapter_params']:,} adapter parameters")
+    adapters = init_adapters(spec, base, rng=0)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    # Uniform token ids drawn on the card: the Markov chain's [32768, 32768] transition
+    # matrix would take longer on the host than the round itself.
+    x = torch.randint(0, vocab, (LM_LARGE_CLIENTS, LM_LARGE_SEQS, seq_len), generator=gen,
+                      device="cuda")
+    data = ClientData(x, torch.randint(0, vocab, (LM_LARGE_CLIENTS, LM_LARGE_SEQS),
+                                       generator=gen, device="cuda"),
+                      torch.ones((LM_LARGE_CLIENTS, LM_LARGE_SEQS), device="cuda"))
+    training = TrainingConfig(batch_size=LM_LARGE_SEQS, local_epochs=1, learning_rate=LM_LR,
+                              compute_dtype="bfloat16")
+    frozen = FrozenBase(None, lambda b: make_adapter_apply(large.apply, spec, b))
+    perms = draw_permutations(gen, LM_LARGE_CLIENTS, 1, LM_LARGE_SEQS)
+    keys = client_keys(0, LM_LARGE_CLIENTS, "cuda")
+    weights = data.mask.sum(1)
+    attempts = []
+    for chunk in (LM_LARGE_CHUNK, 1):
+        step = build_round_step(large, training, client_chunk=chunk, frozen_base=frozen)
+        n = LM_LARGE_CLIENTS // chunk
+        seen, undo = capture_reduces(round_step_module)
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            out, wall, grew = counted(
+                torch, ops, card, f"(v4) large flagship adapter round, client_chunk={chunk}",
+                lambda: step(adapters, init_server_state(fedavg_strategy(), adapters), base,
+                             data, weights, perms, keys),
+                {"weighted_sum_into": n, "row_sq_norms": n})
+        except torch.cuda.OutOfMemoryError as e:
+            attempts.append(f"client_chunk={chunk}: out of device memory at peak "
+                            f"{torch.cuda.max_memory_allocated()} ({str(e).splitlines()[0]})")
+            print(f"[{card}] (v4) {attempts[-1]}")
+            torch.cuda.empty_cache()
+            continue
+        finally:
+            undo()
+        add_launches(totals, grew)
+        loss = float(out.metrics["loss"])
+        print(f"[{card}] (v4) large flagship, {LM_LARGE_CLIENTS} clients x {LM_LARGE_SEQS} "
+              f"sequences, bf16, client_chunk={chunk}: round_s={wall:.6f} peak_device_bytes="
+              f"{torch.cuda.max_memory_allocated()} loss={loss:.6f} (earlier attempts: "
+              f"{attempts or 'none'})")
+        if not (math.isfinite(loss) and torch.isfinite(ravel(out.params)).all()):
+            fail("(v4) the large flagship's adapter round is not finite")
+        hold_reduces(torch, ops, card, "(v4)", seen)
+        break
+    else:
+        fail(f"(v4) the large flagship's adapter round ran out of memory: {attempts}")
+    del base, adapters, data, out, seen
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (v5) the entry points at the evidence config.
+    tag = "(v5) nanofed-tpu-torch run --model transformer_lm --adapter-rank 4"
+    summary, wall, grew = counted(torch, ops, card, tag, lambda: cli_summary(cli, [
+        "run", "--model", "transformer_lm", "--clients", "8", "--rounds", "1",
+        "--adapter-rank", "4", "--out-dir", str(base_dir / "v5_cli")]),
+        {"weighted_mean_flat": 1, "row_sq_norms": 1})
+    add_launches(totals, grew)
+    check_summary(tag, summary, 1)
+    print(f"[{card}] {tag}: adapter {summary['adapter']} round_s="
+          f"{summary['round_durations_s']} eval {summary['final_eval_metrics']}")
+    totals_v5 = phase_transformer_evidence(torch, ops, card, base_dir)
+    add_launches(totals, totals_v5)
+    print(f"[{card}] (v) phase wall_s={time.perf_counter() - t_phase:.3f}")
+    return totals
+
+
+def _rounds_with_peaks(torch, coord, rows: list):
+    """``coord``'s rounds, each with the peak device memory over it (reset before)."""
+    rounds = coord.start_training()
+    while True:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            metrics = next(rounds)
+        except StopIteration:
+            return
+        rows.append((metrics, torch.cuda.max_memory_allocated()))
+        yield metrics
+
+
+def phase_transformer_evidence(torch, ops, card: str, base_dir: Path) -> dict[str, int]:
+    """(v5): ``Coordinator(adapter=)`` at the ``evidence`` config with a ``ModelManager``
+    and a state store, closed after 2 of 4 rounds and resumed against the uninterrupted
+    run; then ``autotune(adapter=)`` over ranks 4/8/16 with the chunk and batch pinned."""
+    from nanofed_tpu_torch.adapters import AdapterSpec, merge_adapters
+    from nanofed_tpu_torch.models.transformer import FLAGSHIP_CONFIGS, flagship
+    from nanofed_tpu_torch.observability.profiling import TIMED_CALLS
+    from nanofed_tpu_torch.orchestration import Coordinator, CoordinatorConfig
+    from nanofed_tpu_torch.persistence import FileStateStore, ModelManager
+    from nanofed_tpu_torch.trainer import TrainingConfig
+    from nanofed_tpu_torch.tuning import PopulationSpec, TuningSpace, autotune
+    from nanofed_tpu_torch.utils.trees import flatten_with_names, ravel, tree_size
+
+    totals: dict[str, int] = dict.fromkeys(ops.launch_counts(), 0)
+    model = flagship("evidence")
+    population = lm_population(LM_CLIENTS, 32, 16, "evidence")
+    spec = AdapterSpec(rank=LM_RANK)
+    training = TrainingConfig(batch_size=16, local_epochs=1, learning_rate=0.2)
+    print(f"[{card}] (v5) evidence config {FLAGSHIP_CONFIGS['evidence']}: "
+          f"{tree_size(model.init(torch.Generator().manual_seed(0))):,} parameters")
+
+    def make(name: str, **kw):
+        return Coordinator(model, population,
+                           CoordinatorConfig(num_rounds=LM_RESUME_ROUNDS, seed=0,
+                                             base_dir=base_dir / name, save_metrics=False),
+                           training, adapter=spec, device="cuda", **kw)
+
+    want = {"weighted_mean_flat": 2 * LM_RESUME_ROUNDS, "row_sq_norms": 2 * LM_RESUME_ROUNDS}
+
+    def both_runs():
+        manager = ModelManager(base_dir / "v5_models")
+        whole = make("v5_whole", model_manager=manager)
+        whole.run()
+        store = FileStateStore(base_dir / "v5_store")
+        first = make("v5_first", state_store=store)
+        rounds = first.start_training()
+        next(rounds), next(rounds)
+        rounds.close()
+        resumed = make("v5_resumed", state_store=FileStateStore(base_dir / "v5_store"))
+        if resumed.current_round != 2:
+            fail(f"(v5) resumed at round {resumed.current_round}, not 2")
+        resumed.run()
+        return whole, resumed, manager
+
+    (whole, resumed, manager), wall, grew = counted(
+        torch, ops, card, "(v5) Coordinator(adapter=), uninterrupted and resumed", both_runs,
+        want)
+    add_launches(totals, grew)
+    gap = float((ravel(whole.params) - ravel(resumed.params)).abs().max())
+    params, version = manager.load_model()
+    merged = merge_adapters(whole.base_params, whole.params, spec)
+    published = max(float((params[k].cuda() - merged[k]).abs().max()) for k in merged)
+    meta = json.loads(Path(version.config_path).read_text())["metadata"]
+    ckpt = FileStateStore(base_dir / "v5_store").restore_latest()
+    ckpt_leaves = sorted(flatten_with_names(ckpt.params))
+    print(f"[{card}] (v5) resumed after 2 of {LM_RESUME_ROUNDS} rounds against uninterrupted: "
+          f"max|dadapters|={gap:.3e} (tolerance {RESUME_TOL}); versioned model round "
+          f"{version.round_number}: merged params, max|d| against the live merge "
+          f"{published:.3e}, metadata adapter {meta.get('adapter')}; checkpoint leaves "
+          f"{len(ckpt_leaves)} adapter leaves ({ckpt_leaves[0]} ...); merges "
+          f"{whole._merge_count}")
+    if gap > RESUME_TOL or published > 1e-6 or meta.get("adapter") != spec.to_dict():
+        fail("(v5) the resumed run, or the versioned model, is not what it should be")
+    if ckpt_leaves != sorted(whole.params):
+        fail("(v5) the checkpoint does not hold the adapters")
+    del whole, resumed, params, merged
+    gc.collect()
+
+    pop = PopulationSpec.from_client_data(population)
+    space = dataclasses.replace(TuningSpace.default(pop, 1, 16, 1, adapter_rank=LM_RANK),
+                                client_chunks=(None,), batch_sizes=(16,))
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = autotune(model, pop, training, space=space, adapter=spec,
+                      cache_dir=base_dir / "v5_cache", out_dir=base_dir / "v5_sweep",
+                      device="cuda")
+    torch.cuda.synchronize()
+    grew = ops.launch_counts()
+    print(f"[{card}] (v5) autotune(adapter=AdapterSpec(rank=8)): wall_s="
+          f"{time.perf_counter() - t0:.3f} launches={grew}")
+    want, oom = sweep_launches(result.to_dict(), LM_CLIENTS, 2 + TIMED_CALLS)
+    check_launches("(v5) autotune(adapter=)", grew, want, oom)
+    add_launches(totals, grew)
+    print_sweep(card, "(v5)", result)
+    ranks = sorted(o.config.adapter_rank for o in result.outcomes if o.feasible)
+    if ranks != [4, 8, 16]:
+        fail(f"(v5) the rank sweep profiled ranks {ranks}, not 4, 8 and 16")
+    return totals
+
+
 def phase_cross_check(torch, ops, card: str) -> None:
     """8-client f32 rounds on the card and on the CPU from the same inputs; each
     variant's kernel launches on the card are checked against the round's code."""
@@ -4297,6 +4836,53 @@ def phase_cross_check(torch, ops, card: str) -> None:
     if (gaps[0] > CROSS_TOL or max(gaps[1:]) > control_tol
             or not torch.isfinite(states["cuda"][0]).all()):
         fail("cross-check SCAFFOLD: the rounds on the card disagree with the CPU")
+    phase_transformer_cross_check(torch, ops, card)
+
+
+def phase_transformer_cross_check(torch, ops, card: str) -> None:
+    """(v6): a tiny transformer's frozen-base adapter round (vocab 256, seq 32, width 64,
+    depth 2, rank 4, 8 clients, f32) on the card and on the CPU from the same inputs."""
+    from nanofed_tpu_torch.adapters import AdapterSpec, init_adapters, make_adapter_apply
+    from nanofed_tpu_torch.aggregation import fedavg_strategy
+    from nanofed_tpu_torch.core.types import ClientData
+    from nanofed_tpu_torch.data import federate, synthetic_token_streams
+    from nanofed_tpu_torch.models import get_model
+    from nanofed_tpu_torch.parallel import FrozenBase, build_round_step, init_server_state
+    from nanofed_tpu_torch.trainer import TrainingConfig, client_keys, draw_permutations
+    from nanofed_tpu_torch.utils.trees import ravel
+
+    model = get_model("transformer_lm", vocab=256, seq_len=32, width=64, depth=2, heads=4)
+    spec = AdapterSpec(rank=4)
+    host = federate(synthetic_token_streams(8 * 32, seed=5), 8, batch_size=16)
+    base = model.init(torch.Generator().manual_seed(0))
+    adapters = init_adapters(spec, base, rng=1)
+    perms = draw_permutations(torch.Generator().manual_seed(1), 8, 2, host.y.shape[1])
+    training = TrainingConfig(batch_size=16, local_epochs=2, learning_rate=0.3)
+    step = build_round_step(model, training, fedavg_strategy(), frozen_base=FrozenBase(
+        None, lambda b: make_adapter_apply(model.apply, spec, b)))
+    results = {}
+    for dev in ("cuda", "cpu"):
+        device = torch.device(dev)
+        data = ClientData(*host).to(device)
+        ad = {k: v.to(device) for k, v in adapters.items()}
+        ops.reset_launch_counts()
+        results[dev] = step(ad, init_server_state(fedavg_strategy(), ad),
+                            {k: v.to(device) for k, v in base.items()}, data,
+                            data.mask.sum(1), perms.to(device), client_keys(7, 8, device))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            grew = ops.launch_counts()
+            want = {k: {"weighted_mean_flat": 1, "row_sq_norms": 1}.get(k, 0) for k in grew}
+            if grew != want:
+                fail(f"(v6) adapter round: launches {grew}, expected {want}")
+    got = ravel(results["cuda"].params).cpu()
+    diff = float((got - ravel(results["cpu"].params)).abs().max())
+    loss_diff = abs(float(results["cuda"].metrics["loss"]) - float(results["cpu"].metrics["loss"]))
+    print(f"[{card}] (v6) cross-check, tiny transformer adapter round (8 clients, 2 epochs of 2 "
+          f"steps, f32) cuda vs cpu: max|dadapters|={diff:.3e} |dloss|={loss_diff:.3e} "
+          f"(tolerance {CROSS_TOL})")
+    if not (torch.isfinite(got).all() and diff <= CROSS_TOL and loss_diff <= CROSS_TOL):
+        fail("(v6) the adapter round on the card disagrees with the CPU")
 
 
 def main() -> None:
@@ -4349,10 +4935,12 @@ def main() -> None:
         fused_counts = phase_fused(torch, ops, card, Path(tmp))
         cifar_counts = phase_cifar(torch, ops, card, Path(tmp))
         obs_counts = phase_observability(torch, ops, card, Path(tmp))
+        lm_counts = phase_transformer(torch, ops, card, Path(tmp))
     wire_counts = phase_wire(torch, ops, card)
     counts = {k: counts[k] + secure_counts[k] + tuned_counts[k] + resume_counts[k]
               + network_resume_counts[k] + dp_counts[k] + scaffold_counts[k]
-              + fused_counts[k] + cifar_counts[k] + obs_counts[k] + wire_counts.get(k, 0)
+              + fused_counts[k] + cifar_counts[k] + obs_counts[k] + lm_counts[k]
+              + wire_counts.get(k, 0)
               for k in counts}
     print(f"kernels: {json.dumps(counts)}")
     missing = [k for k, v in counts.items() if v == 0]

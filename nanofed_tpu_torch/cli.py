@@ -37,19 +37,15 @@ LATER_SUBCOMMANDS: dict[str, tuple[str, str]] = {
 }
 
 # Flags of later slices, by subcommand: dest -> (flag, type, JAX default, item).
-_ADAPTERS = "item 16 (transformer, adapters and fleet)"
 _GPUS = "item 9b (several GPUs)"
 LATER_SLICE_FLAGS: dict[str, dict[str, tuple[str, type, Any, str]]] = {
     "run": {
-        "adapter_rank": ("--adapter-rank", int, None, _ADAPTERS),
-        "adapter_alpha": ("--adapter-alpha", float, None, _ADAPTERS),
         "model_shards": ("--model-shards", int, 1, _GPUS),
         "hosts": ("--hosts", int, 1, _GPUS),
         "distributed": ("--distributed", bool, False, _GPUS),
         "strict": ("--strict", bool, False, "item 21 (analysis)"),
     },
     "profile": {
-        "adapter_rank": ("--adapter-rank", int, None, _ADAPTERS),
         "model_shards": ("--model-shards", int, 1, _GPUS),
         "hosts": ("--hosts", int, 1, _GPUS),
     },
@@ -180,6 +176,8 @@ def _cmd_run(args: argparse.Namespace) -> int:
         autotune=args.autotune,
         retune_every=args.retune_every,
         telemetry_dir=args.telemetry_dir,
+        adapter_rank=args.adapter_rank,
+        adapter_alpha=args.adapter_alpha,
         device=device,
     )
     print(json.dumps(metrics, indent=2, default=str))
@@ -202,6 +200,15 @@ def _profile_inputs(args: argparse.Namespace):
     return mdl, client_data, training
 
 
+def _adapter(args: argparse.Namespace):
+    """The ``AdapterSpec`` of ``--adapter-rank`` (or None)."""
+    if args.adapter_rank is None:
+        return None
+    from nanofed_tpu_torch.adapters import AdapterSpec
+
+    return AdapterSpec(rank=args.adapter_rank)
+
+
 def _cmd_sweep(args: argparse.Namespace) -> int:
     """``profile --sweep``: the autotune sweep (``nanofed_tpu_torch.tuning``) — profile
     every candidate round configuration, rank them, print the ranked table and the
@@ -222,10 +229,13 @@ def _cmd_sweep(args: argparse.Namespace) -> int:
     mdl, client_data, training = _profile_inputs(args)
     pop = PopulationSpec.from_client_data(client_data)
     num_rounds = max(args.rounds_per_block, 8)
+    adapter = _adapter(args)
     space = None
     if args.client_chunk is not None:  # pin that axis to the one value, never ignore it
+        # TuningSpace.default owns the adapter-rank ladder, so the pin keeps it.
         space = dataclasses.replace(
-            TuningSpace.default(pop, 1, training.batch_size, num_rounds),
+            TuningSpace.default(pop, 1, training.batch_size, num_rounds,
+                                adapter_rank=args.adapter_rank),
             client_chunks=(args.client_chunk,),
         )
     telemetry = None
@@ -236,7 +246,7 @@ def _cmd_sweep(args: argparse.Namespace) -> int:
     try:
         result = autotune(mdl, pop, training, participation=args.participation,
                           num_rounds=num_rounds, space=space, telemetry=telemetry,
-                          force=args.force_sweep, device=device)
+                          force=args.force_sweep, adapter=adapter, device=device)
     except AutotuneError as e:
         print(f"error: {e}", file=sys.stderr)
         return 1
@@ -276,6 +286,7 @@ def _cmd_profile(args: argparse.Namespace) -> int:
 
     device = resolve_device(args.device)
     mdl, client_data, training = _profile_inputs(args)
+    adapter = _adapter(args)
 
     def build(scaffold: bool, rounds_per_block: int) -> Coordinator:
         # save_metrics=False: profiling leaves no run artifacts behind (telemetry
@@ -289,10 +300,13 @@ def _cmd_profile(args: argparse.Namespace) -> int:
             ),
             training=training, scaffold=scaffold, client_chunk=args.client_chunk,
             device=device, telemetry_dir=args.telemetry_dir,
+            adapter=None if scaffold else adapter,
         )
 
     coordinators = [build(scaffold=False, rounds_per_block=args.rounds_per_block)]
-    if not args.no_scaffold:
+    # Adapter SCAFFOLD is refused by construction, so adapter mode profiles no
+    # SCAFFOLD program.
+    if not args.no_scaffold and adapter is None:
         coordinators.append(build(scaffold=True, rounds_per_block=1))
     reports = []
     for coord in coordinators:
@@ -597,6 +611,16 @@ def build_parser() -> argparse.ArgumentParser:
     run.add_argument("--profile-programs", action="store_true",
                      help="profile the round programs at construction; the reports land "
                      "in the summary")
+    run.add_argument("--adapter-rank", type=int, default=None, metavar="R",
+                     help="parameter-efficient federation (nanofed_tpu_torch.adapters): "
+                     "freeze the base model on the device and federate only rank-R "
+                     "LoRA A/B deltas on the 2-D kernel leaves; training, aggregation "
+                     "and checkpoints are adapter-sized (the full model is merged only "
+                     "for eval and versioned models); with --autotune R seeds the "
+                     "tuner's rank ladder")
+    run.add_argument("--adapter-alpha", type=float, default=None,
+                     help="LoRA alpha: the merged delta is (alpha/rank) * A @ B "
+                     "(default: alpha = rank, i.e. scale 1.0)")
     _add_telemetry_dir(run, "write the run's telemetry.jsonl (phase spans + round records "
                        "+ final metrics snapshot) here instead of the default <out-dir>; "
                        "read it back with `nanofed-tpu-torch metrics-summary`")
@@ -666,6 +690,11 @@ def build_parser() -> argparse.ArgumentParser:
     profile.add_argument("--rounds-per-block", type=int, default=4,
                          help="also profile the fused R-round block (1 = single step only)")
     profile.add_argument("--client-chunk", type=int, default=None)
+    profile.add_argument("--adapter-rank", type=int, default=None, metavar="R",
+                         help="profile the frozen-base LoRA round programs; with --sweep "
+                         "the rank ladder {R/2, R, 2R} joins the space, the epilogue "
+                         "table is sized to the adapter payload and the ranked table "
+                         "grows a 'lora' column")
     profile.add_argument("--dtype", default=None, choices=["bfloat16", "float32"])
     profile.add_argument("--no-scaffold", action="store_true",
                          help="skip the SCAFFOLD round program")

@@ -112,7 +112,7 @@ LATER_SLICE_OPTIONS: dict[str, tuple[Any, str]] = {
     "clock": (None, "chaos hooks (faults slice, queue A item 17)"),
     "transport": (None, "shared multi-tenant transports (service slice, queue A item 18)"),
     "tenant": (None, "shared multi-tenant transports (service slice, queue A item 18)"),
-    "fleet": (None, "heterogeneous fleets (fleet slice, queue A item 16)"),
+    "fleet": (None, "heterogeneous fleets (fleet slice, queue A item 16b)"),
 }
 
 

@@ -37,15 +37,18 @@ class ClientData(NamedTuple):
     mask: Any  # [N] or [C, N] float {0., 1.}
 
     def to(self, device: torch.device) -> "ClientData":
-        """Tensors on ``device``: x and mask float32, y int64 (torch's index type)."""
+        """Tensors on ``device``: mask float32, y int64 (torch's index type), x float32,
+        or int64 when it holds integer ids (a token stream indexes an embedding)."""
 
         def put(a: Any, dtype: torch.dtype) -> torch.Tensor:
             return torch.as_tensor(np.asarray(a) if not torch.is_tensor(a) else a).to(
                 device=device, dtype=dtype
             )
 
+        x = torch.as_tensor(np.asarray(self.x) if not torch.is_tensor(self.x) else self.x)
+        x_dtype = torch.float32 if x.is_floating_point() else torch.int64
         return ClientData(
-            x=put(self.x, torch.float32), y=put(self.y, torch.int64),
+            x=put(x, x_dtype), y=put(self.y, torch.int64),
             mask=put(self.mask, torch.float32),
         )
 

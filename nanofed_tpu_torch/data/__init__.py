@@ -8,6 +8,7 @@ from nanofed_tpu_torch.data.datasets import (
     load_mnist,
     resize_images,
     synthetic_classification,
+    synthetic_token_streams,
 )
 from nanofed_tpu_torch.data.partition import (
     dirichlet_partition,
@@ -33,4 +34,5 @@ __all__ = [
     "resize_images",
     "subset_iid",
     "synthetic_classification",
+    "synthetic_token_streams",
 ]

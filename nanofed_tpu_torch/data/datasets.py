@@ -6,8 +6,8 @@ from the standard python pickle layout (``cifar-10-batches-py/``,
 ``cifar-100-python/`` under ``data_dir``), normalized per channel; and a
 deterministic synthetic fallback with the same shapes (class prototypes plus
 Gaussian noise) when no files are present.  Nothing is downloaded.  Also the
-scikit-learn digits (when sklearn is installed) and a bilinear resize.  The token
-streams come with the transformer slice (ROADMAP queue A item 16).
+scikit-learn digits (when sklearn is installed), a bilinear resize, and the seeded
+Markov-chain token streams of the causal transformer LM.
 """
 
 from __future__ import annotations
@@ -59,6 +59,46 @@ def synthetic_classification(
     y = rng.integers(0, num_classes, size=n).astype(np.int32)
     x = protos[y] + rng.normal(0.0, noise, size=(n, *shape)).astype(np.float32)
     return Dataset(x=x, y=y, num_classes=num_classes, name=name)
+
+
+def synthetic_token_streams(
+    n: int,
+    vocab: int = 256,
+    seq_len: int = 32,
+    seed: int = 0,
+    temperature: float = 0.35,
+    name: str = "synthetic_tokens",
+    chain_seed: int = 4321,
+) -> Dataset:
+    """Learnable token streams for the causal LM: ``x`` is ``[N, seq_len]`` int32 ids
+    drawn from a fixed first-order Markov chain, ``y`` the true next token after
+    each sequence.  The chain's transition matrix is keyed by ``chain_seed`` apart
+    from the sample draw (``seed``), so train and test splits share the language;
+    ``temperature`` sets how peaked each row is.  The JAX package's draws, bit for
+    bit."""
+    if vocab < 2:
+        raise ValueError(f"vocab must be >= 2, got {vocab}")
+    if seq_len < 1:
+        raise ValueError(f"seq_len must be >= 1, got {seq_len}")
+    chain_rng = np.random.default_rng(chain_seed)
+    # Softmax of scaled Gaussians: full support (finite NLL everywhere), most of each
+    # row's mass on a few successors.
+    logits = chain_rng.normal(0.0, 1.0, size=(vocab, vocab)) / max(temperature, 1e-3)
+    logits -= logits.max(axis=1, keepdims=True)
+    probs = np.exp(logits)
+    probs /= probs.sum(axis=1, keepdims=True)
+    cdf = np.cumsum(probs, axis=1)
+
+    rng = np.random.default_rng(seed)
+    tokens = np.empty((n, seq_len + 1), dtype=np.int32)
+    tokens[:, 0] = rng.integers(0, vocab, size=n)
+    for t in range(1, seq_len + 1):
+        u = rng.random(n)
+        # One inverse-CDF step of the chain for the whole batch.
+        tokens[:, t] = np.minimum(
+            (cdf[tokens[:, t - 1]] < u[:, None]).sum(axis=1), vocab - 1
+        ).astype(np.int32)
+    return Dataset(x=tokens[:, :seq_len], y=tokens[:, seq_len], num_classes=vocab, name=name)
 
 
 def _read_idx(path: Path) -> np.ndarray:

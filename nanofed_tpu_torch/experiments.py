@@ -1,17 +1,19 @@
 """High-level experiment runner (counterpart of ``nanofed_tpu/experiments.py``), reduced
 to the flags this slice supports, and the engine behind ``nanofed-tpu-torch run``.
 
-:func:`load_datasets_for` picks the data by the model's input shape, as the JAX
-runner does: MNIST-shaped, the 8x8 digits, CIFAR-shaped (10 or 100 classes, files under
-``data_dir`` or the synthetic fallback), else synthetic data of the model's shape.
+:func:`load_datasets_for` picks the data by the model, as the JAX runner does: token
+streams for a token-stream model (the causal LM), else by input shape: MNIST-shaped,
+the 8x8 digits, CIFAR-shaped (10 or 100 classes, files under ``data_dir`` or the
+synthetic fallback), else synthetic data of the model's shape.
 
 ``central_privacy`` (DP-FedAvg at the reduce), ``robust_trim_k``/``robust_method``
 (robust aggregation), the client lr schedule (``lr_schedule``, ``lr_min_factor``,
 ``lr_decay_every``, ``lr_decay_gamma``), ``profile_programs``, ``autotune`` and
-``retune_every``, ``scaffold``, ``rounds_per_block`` (fused multi-round blocks) and
-``telemetry_dir`` are taken as the JAX runner takes them.  Update validation is not a
-runner flag in either package: it is ``Coordinator(validation=...)``.  The JAX
-runner's other flags (mesh axes, strict mode, adapters) come with later slices;
+``retune_every``, ``scaffold``, ``rounds_per_block`` (fused multi-round blocks),
+``adapter_rank``/``adapter_alpha`` (LoRA adapter federation) and ``telemetry_dir`` are
+taken as the JAX runner takes them.  Update validation is not a runner flag in either
+package: it is ``Coordinator(validation=...)``.  The JAX runner's other flags (mesh
+axes, strict mode) come with later slices;
 passing one with a value other than the JAX default raises ``NotImplementedError``
 naming it, never a silent ignore.
 """
@@ -21,6 +23,7 @@ from __future__ import annotations
 from pathlib import Path
 from typing import Any
 
+from nanofed_tpu_torch.adapters import AdapterSpec, adapter_param_count
 from nanofed_tpu_torch.aggregation import PrivacyAwareAggregationConfig, RobustAggregationConfig
 from nanofed_tpu_torch.core.device import DeviceLike, resolve_device
 from nanofed_tpu_torch.core.exceptions import NanoFedError
@@ -31,6 +34,7 @@ from nanofed_tpu_torch.data import (
     load_mnist,
     pack_eval,
     synthetic_classification,
+    synthetic_token_streams,
 )
 from nanofed_tpu_torch.models import get_model
 from nanofed_tpu_torch.orchestration import Coordinator, CoordinatorConfig, RoundStatus
@@ -42,23 +46,26 @@ LATER_SLICE_FLAGS: dict[str, Any] = {
     "model_shards": 1,
     "hosts": 1,
     "strict": False,
-    "adapter_rank": None,
-    "adapter_alpha": None,
 }
 
 
 def load_datasets_for(
     mdl: Any, data_dir: str | None, train_size: int | None, seed: int = 0
 ) -> tuple[Any, Any]:
-    """Train and test datasets matching a model's input shape (MNIST-shaped, the 8x8
-    digits, CIFAR-shaped, or synthetic for anything else); the test split is a sixth
-    of ``train_size`` when it is given."""
+    """Train and test datasets matching a model: token streams of its vocabulary and
+    sequence length for a token-stream model, else by input shape (MNIST-shaped, the
+    8x8 digits, CIFAR-shaped, or synthetic for anything else); the test split is a
+    sixth of ``train_size`` when it is given."""
     test_size = (train_size or 0) // 6 or None
     if getattr(mdl, "token_stream", False):
-        raise NotImplementedError(
-            "token-stream models: synthetic_token_streams comes with the transformer "
-            "slice of nanofed_tpu_torch (ROADMAP queue A item 16)"
+        seq_len = mdl.input_shape[0]
+        train = synthetic_token_streams(
+            train_size or 4096, vocab=mdl.num_classes, seq_len=seq_len, seed=seed
         )
+        test = synthetic_token_streams(
+            test_size or 1024, vocab=mdl.num_classes, seq_len=seq_len, seed=seed + 1
+        )
+        return train, test
     if mdl.input_shape == (28, 28, 1):
         train = load_mnist("train", data_dir, synthetic_size=train_size)
         test = load_mnist("test", data_dir, synthetic_size=test_size)
@@ -111,6 +118,8 @@ def run_experiment(
     scaffold: bool = False,
     rounds_per_block: int = 1,
     telemetry_dir: str | Path | None = None,
+    adapter_rank: int | None = None,
+    adapter_alpha: float | None = None,
     **kwargs: Any,
 ) -> dict[str, Any]:
     """Run a simulated federated experiment on ``device`` (default: the GPU) and return
@@ -134,7 +143,10 @@ def run_experiment(
     ``autotune=True``) re-ranks the table every N rounds by the measured round times
     and swaps ``client_chunk`` when the measurements say so; the summary carries a
     ``retunes`` block.  ``telemetry_dir`` is where the run's ``telemetry.jsonl``
-    goes (default: ``out_dir``, as metrics are saved).  Remaining keyword arguments go to the partitioner (e.g.
+    goes (default: ``out_dir``, as metrics are saved).  ``adapter_rank`` federates
+    rank-R LoRA adapters over the frozen base (``Coordinator(adapter=...)``), with
+    ``adapter_alpha`` scaling the delta by alpha/rank; the summary then carries an
+    ``adapter`` block.  Remaining keyword arguments go to the partitioner (e.g.
     ``proportions=[0.75, 0.25]`` for unequal IID shares)."""
     dev = resolve_device(device)
     refused = [
@@ -160,6 +172,14 @@ def run_experiment(
         raise NanoFedError(
             f"autotune=True owns {', '.join(pinned)} — drop the explicit value(s) or "
             "tune by hand without autotune"
+        )
+    adapter = None
+    if adapter_rank is not None:
+        adapter = AdapterSpec(rank=adapter_rank, alpha=adapter_alpha)
+    elif adapter_alpha is not None:
+        raise NanoFedError(
+            "adapter_alpha only applies with adapter_rank (it scales the "
+            "LoRA delta alpha/rank)"
         )
     robust = None
     if robust_trim_k is not None or robust_method is not None:
@@ -190,7 +210,7 @@ def run_experiment(
     shared_kwargs: dict[str, Any] = dict(
         eval_data=pack_eval(test, batch_size=256), device=dev,
         central_privacy=central_privacy, robust=robust, scaffold=scaffold,
-        telemetry_dir=telemetry_dir,
+        telemetry_dir=telemetry_dir, adapter=adapter,
     )
     if autotune:
         coordinator = Coordinator.from_autotune(
@@ -208,11 +228,19 @@ def run_experiment(
     program_profiles = {
         r.program: r.to_dict() for r in coordinator.program_catalog.reports()
     }
+    adapter_summary = None
+    if coordinator.adapter is not None:
+        adapter_summary = {
+            **coordinator.adapter.to_dict(),
+            **adapter_param_count(coordinator.adapter, coordinator.base_params),
+            "merges": coordinator._merge_count,
+        }
     return {
         **({"privacy_spent": {"epsilon_spent": spent.epsilon_spent,
                               "delta_spent": spent.delta_spent}}
            if spent is not None else {}),
         **({"program_profiles": program_profiles} if program_profiles else {}),
+        **({"adapter": adapter_summary} if adapter_summary else {}),
         **({"tuned_config": coordinator.tuned_config}
            if coordinator.tuned_config is not None else {}),
         **({"retunes": coordinator.retuner.summary()}

@@ -32,6 +32,10 @@ class Model:
     # Empty means the model trains without dropout (dataclasses.replace(model,
     # dropout=()) turns it off, as the parity tests do).
     dropout: tuple[tuple[tuple[int, ...], float], ...] = ()
+    # Token-stream models (the causal transformer LM): ``x`` is integer token ids of
+    # shape ``input_shape == (seq_len,)`` and ``num_classes`` is the vocabulary.  The
+    # runner picks token-stream data by it, and no cast touches the ids.
+    token_stream: bool = False
 
 
 _REGISTRY: dict[str, Callable[..., Model]] = {}

@@ -76,8 +76,19 @@ after every round and block and its value goes to the retuner.  With
 ``program_profile``, ``autotune`` and ``retune`` records, and the final registry
 snapshot.
 
-The JAX coordinator's ``adapter=``, ``chaos=``, ``mesh=``, ``mesh_shape=`` and
-``strict=`` come with later slices: a value other than the JAX default raises
+Parameter-efficient federation (``adapter=AdapterSpec(...)``, ``nanofed_tpu_torch.
+adapters``): the federated ``params`` and server state are the LoRA adapter tree,
+initialised by ``init_adapters(spec, base, rng=seed)``, while the base model stays
+on the device as ``base_params``, read by every round step and block
+(``parallel.round_step.FrozenBase``) and never updated.  Checkpoints hold the
+adapters; ``merged_params()`` merges them into the base (counted), and evaluation
+and versioned models use the merged params, the latter with ``metadata["adapter"]``.
+The round programs are catalogued as ``adapter_round_step`` and
+``adapter_round_block``.  SCAFFOLD and a custom ``local_fit``/``grad_fn`` are refused
+with it, as in the JAX package.
+
+The JAX coordinator's ``chaos=``, ``mesh=``, ``mesh_shape=`` and ``strict=`` come
+with later slices: a value other than the JAX default raises
 ``NotImplementedError`` naming the ROADMAP item (:data:`LATER_SLICE_KEYWORDS`).
 """
 
@@ -95,6 +106,13 @@ from typing import Any, Callable, Iterator
 import numpy as np
 import torch
 
+from nanofed_tpu_torch.adapters import (
+    AdapterSpec,
+    adapter_param_count,
+    init_adapters,
+    make_adapter_apply,
+    merge_adapters,
+)
 from nanofed_tpu_torch.aggregation.base import Strategy, fedavg_strategy
 from nanofed_tpu_torch.aggregation.fedavg import compute_weights
 from nanofed_tpu_torch.aggregation.privacy import (
@@ -122,7 +140,11 @@ from nanofed_tpu_torch.orchestration.types import (
     cohort_size,
 )
 from nanofed_tpu_torch.parallel.multi_round import build_round_block, round_seeds
-from nanofed_tpu_torch.parallel.round_step import build_round_step, init_server_state
+from nanofed_tpu_torch.parallel.round_step import (
+    FrozenBase,
+    build_round_step,
+    init_server_state,
+)
 from nanofed_tpu_torch.parallel.scaffold_step import build_scaffold_round_step
 from nanofed_tpu_torch.persistence import FileStateStore, ModelManager, RestoredState
 from nanofed_tpu_torch.privacy.accounting import BasePrivacyAccountant, RDPAccountant
@@ -165,7 +187,6 @@ _log = logging.getLogger(__name__)
 #: The JAX coordinator's keywords that later slices bring: name -> (the JAX default,
 #: which is accepted, and the ROADMAP queue A item that lands it).
 LATER_SLICE_KEYWORDS: dict[str, tuple[Any, str]] = {
-    "adapter": (None, "item 16 (transformer, adapters and fleet)"),
     "chaos": (None, "item 17 (multi-host federation and faults)"),
     "mesh": (None, "item 9b (several GPUs)"),
     "mesh_shape": (None, "item 9b (several GPUs)"),
@@ -266,7 +287,9 @@ class Coordinator:
         ``tuned_config`` (the winner and its provenance) and ``autotune_result``;
         with ``config.retune_every > 0`` the online retuner is attached.  An
         explicit ``client_chunk`` is refused: the tuner owns it (pin it with a
-        single-valued ``tuning_space``)."""
+        single-valued ``tuning_space``).  With ``adapter=`` the sweep profiles the
+        frozen-base round on the rank ladder around the spec's rank, and the
+        coordinator federates at the winner's rank."""
         if "client_chunk" in kwargs:
             raise NanoFedError(
                 "from_autotune owns client_chunk — the tuner picks it; pin an axis "
@@ -278,6 +301,7 @@ class Coordinator:
                 "autotuner never sweeps it); build Coordinator(scaffold=True) by hand"
             )
         training = training or TrainingConfig()
+        adapter_spec = kwargs.pop("adapter", None)
         result = autotune(
             model, PopulationSpec.from_client_data(train_data), training,
             participation=config.participation_rate,
@@ -288,14 +312,19 @@ class Coordinator:
             cache_dir=autotune_cache_dir,
             out_dir=config.base_dir,
             force=autotune_force,
+            adapter=adapter_spec,
             device=kwargs.get("device"),
         )
         winner = result.winner
+        if adapter_spec is not None and winner.adapter_rank is not None:
+            # The tuner owns the rank axis as it owns chunk and block.
+            adapter_spec = dataclasses.replace(adapter_spec, rank=winner.adapter_rank)
         coord = cls(
             model, train_data,
             dataclasses.replace(config, rounds_per_block=winner.rounds_per_block),
             training=dataclasses.replace(training, batch_size=winner.batch_size),
             client_chunk=winner.client_chunk,
+            adapter=adapter_spec,
             **kwargs,
         )
         coord.autotune_result = result
@@ -335,6 +364,7 @@ class Coordinator:
         local_fit: Callable | None = None,
         scaffold: bool = False,
         telemetry_dir: str | Path | None = None,
+        adapter: AdapterSpec | None = None,
         **later_slice: Any,
     ) -> None:
         for name, value in later_slice.items():
@@ -376,9 +406,32 @@ class Coordinator:
         self._data = train_data.to(self.device)
         self._num_samples = self._data.mask.sum(1)
         init_gen = torch.Generator().manual_seed(config.seed)
-        self.params: Params = {
-            name: p.to(self.device) for name, p in model.init(init_gen).items()
-        }
+        initial = {name: p.to(self.device) for name, p in model.init(init_gen).items()}
+        # Adapter mode: the federated params are the adapter tree; the base stays on
+        # the device, read by every round and never updated or rebuilt.
+        self.adapter = adapter
+        self._merge_count = 0
+        self.base_params: Params | None = None
+        if adapter is not None:
+            if scaffold:
+                raise ValueError(
+                    "adapter= cannot be combined with scaffold=True: the "
+                    "control-variate machinery assumes the federated tree IS "
+                    "the model; adapter SCAFFOLD would need control state on "
+                    "the adapter tree, which is not built yet"
+                )
+            if local_fit is not None or grad_fn is not None:
+                raise ValueError(
+                    "adapter= builds the local fit from the frozen base inside "
+                    "the round program; a custom local_fit/grad_fn cannot see "
+                    "the base and is refused (see parallel.round_step.FrozenBase)"
+                )
+            self.base_params = initial
+            # Seeded off config.seed, a host draw as the JAX package's; B = 0 makes
+            # round 0's merged model the base exactly.
+            self.params: Params = init_adapters(adapter, initial, rng=config.seed)
+        else:
+            self.params = initial
         self.server_state = init_server_state(self.strategy, self.params)
 
         if robust is not None and self.cohort_size < robust_floor(robust):
@@ -433,6 +486,9 @@ class Coordinator:
         self._builder_ctx: dict[str, Any] = dict(
             central_privacy=central_privacy, validation=validation, robust=robust,
             grad_fn=grad_fn, local_fit=local_fit,
+            frozen_base=None if adapter is None else FrozenBase(
+                base_like=self.base_params,
+                bind=lambda base: make_adapter_apply(model.apply, adapter, base)),
         )
         if scaffold:
             self._round_step = build_scaffold_round_step(
@@ -487,6 +543,13 @@ class Coordinator:
                 "topology", process_count=1, hosts=1, mesh_shape=[1], devices=1,
                 num_clients=self.num_clients,
             )
+            if adapter is not None:
+                # The rank and the trainable-vs-frozen sizes, digested by
+                # metrics-summary; the final merge count follows at the run's end.
+                self.telemetry.record(
+                    "adapter", **adapter.to_dict(),
+                    **adapter_param_count(adapter, self.base_params),
+                )
         self._tracer = (
             self.telemetry.tracer
             if self.telemetry is not None
@@ -557,9 +620,10 @@ class Coordinator:
 
     def _register_programs(self) -> None:
         """Register the round step under ``"round_step"`` (a SCAFFOLD coordinator's
-        under ``"scaffold_round_step"``, with the controls among its arguments, as
-        the JAX package names it) and, when the coordinator fuses, its block under
-        ``"round_block"`` (profiled over its R rounds).  The
+        under ``"scaffold_round_step"``, with the controls among its arguments, and an
+        adapter coordinator's under ``"adapter_round_step"``, with the frozen base, as
+        the JAX package names them) and, when the coordinator fuses, its block under
+        ``"round_block"`` (``"adapter_round_block"``; profiled over its R rounds).  The
         argument factories hand the programs CLONES of the params and server state;
         the step gets the data rows of its width, weights one, permutations and
         dropout keys from the config's seed (and a noise draw under central DP), the
@@ -599,9 +663,23 @@ class Coordinator:
                 attrs=attrs,
             )
             return
-        self.program_catalog.register(
-            "round_step", self._round_step, args_factory=_step_args, attrs=attrs,
-        )
+        if self.adapter is not None:
+            attrs = {**attrs, "adapter_rank": self.adapter.rank}
+
+            def _adapter_step_args() -> tuple[tuple, dict]:
+                # The frozen base enters as dispatched: the third argument, not cloned
+                # (no round writes it).
+                (params, state, *rest), _ = _step_args()
+                return (params, state, self.base_params, *rest), {}
+
+            self.program_catalog.register(
+                "adapter_round_step", self._round_step, args_factory=_adapter_step_args,
+                attrs=attrs,
+            )
+        else:
+            self.program_catalog.register(
+                "round_step", self._round_step, args_factory=_step_args, attrs=attrs,
+            )
         if self._round_block is None:
             return
         rpb = self.config.rounds_per_block
@@ -620,12 +698,16 @@ class Coordinator:
                 round_seeds(self.config.seed, range(rpb)), [1.0] * rpb,
                 idx, torch.ones((rpb, n), device=self.device),
             )
-            return args, {}
+            return args, ({} if self.adapter is None else {"base_params": self.base_params})
 
         self.program_catalog.register(
-            "round_block", self._round_block, args_factory=_block_args, rounds=rpb,
-            attrs={**attrs, "rounds_per_block": rpb},
+            self._block_program_name, self._round_block, args_factory=_block_args,
+            rounds=rpb, attrs={**attrs, "rounds_per_block": rpb},
         )
+
+    @property
+    def _block_program_name(self) -> str:
+        return "round_block" if self.adapter is None else "adapter_round_block"
 
     def profile_programs(self, force: bool = False) -> list[ProgramCostReport]:
         """Profile every catalogued program (``observability.profiling``: a first
@@ -764,7 +846,8 @@ class Coordinator:
             cohort_size=self.cohort_size, dropout_rate=cfg.dropout_rate,
             min_completion_rate=cfg.min_completion_rate,
             grad_fn=ctx["grad_fn"], local_fit=ctx["local_fit"],
-            validation=ctx["validation"], client_chunk=client_chunk,
+            validation=ctx["validation"], frozen_base=ctx["frozen_base"],
+            client_chunk=client_chunk,
             collect_client_detail=cfg.save_metrics and cfg.client_metrics_every > 0,
             # Explicit, never derived: the block lays out the mask as _train_block
             # builds it (full-N when the chunk does not divide the cohort).
@@ -804,7 +887,8 @@ class Coordinator:
         self._client_chunk = client_chunk
         self.config = dataclasses.replace(self.config, rounds_per_block=rounds_per_block)
         if round_block is None:
-            self.program_catalog.remove("round_block")  # no dead program stays profiled
+            # No dead program stays profiled.
+            self.program_catalog.remove(self._block_program_name)
         self._register_programs()
 
     # ------------------------------------------------------------------
@@ -846,6 +930,10 @@ class Coordinator:
                         **({"cache_entry": str(written)} if written is not None else {}),
                     )
             if self.telemetry is not None and done:
+                if self.adapter is not None:
+                    # How many times the run paid the full-model merge.
+                    self.telemetry.record("adapter", rank=self.adapter.rank,
+                                          merges=self._merge_count)
                 self.telemetry.close()
 
     def run(self) -> list[RoundMetrics]:
@@ -888,10 +976,14 @@ class Coordinator:
             and persist_state
             and metrics.status == RoundStatus.COMPLETED
         ):
-            self.model_manager.save_model(
-                self.params,
-                metadata={"round": metrics.round_id, "metrics": metrics.agg_metrics},
-            )
+            save_params = self.params
+            metadata = {"round": metrics.round_id, "metrics": metrics.agg_metrics}
+            if self.adapter is not None:
+                # A versioned model must run for a consumer that knows nothing of
+                # adapters: the MERGED params.  Checkpoints stay adapter-shaped.
+                save_params = self.merged_params()
+                metadata["adapter"] = self.adapter.to_dict()
+            self.model_manager.save_model(save_params, metadata=metadata)
 
     def _sample_cohort(self, round_id: int) -> np.ndarray:
         """This round's surviving cohort: the JAX package's numpy draws exactly.  Under
@@ -995,6 +1087,7 @@ class Coordinator:
             result = self._round_block(
                 self.params, self.server_state, self._data, self._num_samples,
                 round_seeds(cfg.seed, rounds), lr_scales, idx_dev, mask_dev,
+                **({} if self.adapter is None else {"base_params": self.base_params}),
             )
             self.params = result.params
             self.server_state = result.server_opt_state
@@ -1173,9 +1266,10 @@ class Coordinator:
                     # add exact zeros (collision-safe though they alias row 0).
                     self.c_stack.index_add_(0, idx_dev, result.delta_c)
             else:
+                base = () if self.adapter is None else (self.base_params,)
                 result = self._round_step(
-                    self.params, self.server_state, data, weights, perms, keys, noise,
-                    lr_scale,
+                    self.params, self.server_state, *base, data, weights, perms, keys,
+                    noise, lr_scale,
                 )
             self.params = result.params
             self.server_state = result.server_opt_state
@@ -1260,10 +1354,23 @@ class Coordinator:
             return None
         return self.privacy_accountant.get_privacy_spent(self.central_privacy.privacy.delta)
 
+    def merged_params(self) -> Params:
+        """The model the outside world consumes: ``params``, or in adapter mode the
+        base with the adapters merged in (``adapters.merge_adapters``).  Each merge
+        is counted: it is the one full-model-sized computation adapter federation
+        pays outside the rounds."""
+        if self.adapter is None:
+            return self.params
+        self._merge_count += 1
+        with torch.no_grad():
+            return merge_adapters(self.base_params, self.params, self.adapter)
+
     def evaluate(self) -> dict[str, float]:
+        """The eval set's loss and accuracy under :meth:`merged_params`."""
         if self._evaluator is None:
             raise NanoFedError("no eval_data was provided to the Coordinator")
-        return {k: float(v) for k, v in self._evaluator(self.params, self._eval_data).items()}
+        return {k: float(v)
+                for k, v in self._evaluator(self.merged_params(), self._eval_data).items()}
 
     def _save_round_metrics(self, metrics: RoundMetrics) -> None:
         payload: dict[str, Any] = metrics.to_dict()

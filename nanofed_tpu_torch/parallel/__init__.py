@@ -4,6 +4,7 @@ from nanofed_tpu_torch.parallel.multi_round import (
     round_seeds,
 )
 from nanofed_tpu_torch.parallel.round_step import (
+    FrozenBase,
     RoundStepResult,
     apply_server_update,
     build_round_step,
@@ -16,6 +17,7 @@ from nanofed_tpu_torch.parallel.scaffold_step import (
 )
 
 __all__ = [
+    "FrozenBase",
     "RoundBlockResult",
     "RoundStepResult",
     "ScaffoldStepResult",

@@ -20,6 +20,10 @@ builds, with the same closures, so the fused and single-round paths cannot drift
   and gathers the cohort's data, permutations and keys by client id;
 * the lr schedule rides as ``[R]`` host floats (``trainer.schedules``).
 
+With ``frozen_base`` (adapters) the base is a loop-invariant input of the block,
+passed once and handed to every round; the carry from round to round is the
+adapter-sized params and server state only.
+
 A round whose surviving cohort falls below ``min_completion_rate`` is gated to zero
 total weight on the device, which the round step defines as the identity for params
 AND server state.  Its training still runs, as it does in the JAX block.
@@ -41,7 +45,7 @@ from nanofed_tpu_torch.aggregation.fedavg import compute_weights
 from nanofed_tpu_torch.core.device import DeviceLike, resolve_device
 from nanofed_tpu_torch.core.types import ClientData, ClientMetrics, Params
 from nanofed_tpu_torch.models.base import Model
-from nanofed_tpu_torch.parallel.round_step import build_round_step
+from nanofed_tpu_torch.parallel.round_step import FrozenBase, build_round_step
 from nanofed_tpu_torch.security.validation import ValidationConfig
 from nanofed_tpu_torch.trainer.config import TrainingConfig
 from nanofed_tpu_torch.trainer.local import GradFn, client_keys, draw_permutations
@@ -121,7 +125,7 @@ def build_round_block(
     collect_client_detail: bool = True,
     cohort_mode: bool | None = None,
     device: DeviceLike = None,
-    frozen_base: Any = None,
+    frozen_base: FrozenBase | None = None,
     scaffold: bool = False,
     robust: Any = None,
     central_privacy: Any = None,
@@ -130,7 +134,7 @@ def build_round_block(
 
     Returns ``round_block(global_params, server_opt_state, data, num_samples,
     round_seeds, lr_scales, cohort_idx=None, cohort_mask=None, perms=None,
-    keys=None) -> RoundBlockResult`` where
+    keys=None, base_params=None) -> RoundBlockResult`` where
 
     * ``data`` is the whole population's ``ClientData`` (``[C_pad, N, ...]`` on
       ``device``) and ``num_samples`` its ``[C_pad]`` sample counts;
@@ -141,7 +145,9 @@ def build_round_block(
       neither: with neither, each round resamples its cohort on the device;
     * ``perms`` (``[R, C_pad, E, N]``) and ``keys`` (``[R, C_pad]`` int32) replace the
       rounds' drawn permutations and dropout keys, per client id (gathered like the
-      drawn ones); tests inject the JAX package's permutations this way.
+      drawn ones); tests inject the JAX package's permutations this way;
+    * ``base_params`` is the frozen base, passed exactly when the block was built with
+      ``frozen_base`` (every round reads it; no round writes it).
 
     ``num_clients`` is the population, ``padded_clients`` the data's rows (default
     ``num_clients``), ``step_clients`` the round step's width (default
@@ -152,15 +158,10 @@ def build_round_block(
     sampled or stepped".  ``validation`` and ``client_chunk`` are the round step's.
 
     The JAX builder's ``mesh``, ``axis_name``, ``params_like`` and ``donate`` have no
-    meaning on one card and are not taken.  ``frozen_base=`` (adapters) raises
-    ``NotImplementedError``; SCAFFOLD, robust aggregation and central DP are not fused,
-    as in the JAX package, and raise ``ValueError``: they run on the single-round path.
+    meaning on one card and are not taken.  ``frozen_base`` is the round step's.
+    SCAFFOLD, robust aggregation and central DP are not fused, as in the JAX package,
+    and raise ``ValueError``: they run on the single-round path.
     """
-    if frozen_base is not None:
-        raise NotImplementedError(
-            "frozen_base= (frozen-base adapter rounds) is not supported by this slice "
-            "of nanofed_tpu_torch: it comes with ROADMAP queue A item 16 (adapters)"
-        )
     unfused = [name for name, active in (
         ("SCAFFOLD", scaffold), ("robust aggregation", robust is not None),
         ("central DP", central_privacy is not None)) if active]
@@ -192,7 +193,7 @@ def build_round_block(
     required = completion_required(cohort_size, min_completion_rate)
     step = build_round_step(
         model, training, strategy, client_chunk=client_chunk, grad_fn=grad_fn,
-        local_fit=local_fit, validation=validation,
+        local_fit=local_fit, validation=validation, frozen_base=frozen_base,
     )
     epochs = training.local_epochs
 
@@ -230,7 +231,15 @@ def build_round_block(
         cohort_mask: torch.Tensor | None = None,
         perms: torch.Tensor | None = None,
         keys: torch.Tensor | None = None,
+        base_params: Params | None = None,
     ) -> RoundBlockResult:
+        if (base_params is None) != (frozen_base is None):
+            raise ValueError(
+                "base_params must be passed exactly when the block was built "
+                "with frozen_base="
+            )
+        # The frozen base rides into every round's step ahead of the round's data.
+        base = () if frozen_base is None else (base_params,)
         seeds = [int(s) for s in round_seeds]
         scales = [float(s) for s in lr_scales]
         if len(scales) != len(seeds):
@@ -274,7 +283,8 @@ def build_round_block(
             else:
                 data_r = data
                 weights = compute_weights(num_samples, mask_eff)
-            result = step(gp, sos, data_r, weights, perms_r, keys_r, lr_scale=scales[i])
+            result = step(gp, sos, *base, data_r, weights, perms_r, keys_r,
+                          lr_scale=scales[i])
             gp, sos = result.params, result.server_opt_state
             rows["metrics"].append(result.metrics)
             rows["survivors"].append(survivors)

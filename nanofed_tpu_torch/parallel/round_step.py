@@ -28,6 +28,13 @@ the identity and every all-gather the input):
   deltas; the round's loss and accuracy are the same estimator over the client
   scalars, and a round below the method's floor leaves params untouched.
 
+Frozen-base rounds (``frozen_base=FrozenBase(...)``, the adapters' hook): the
+federated params are the small trainable tree (LoRA adapters) and the base model is
+an extra read-only input of every call.  The per-client fit is built from
+``frozen_base.bind(base)`` inside the call and closes over the base, which is not
+stacked per client, gets no optimizer state and is never an output; every reduce
+above then runs at the adapters' size.
+
 Validation composes with DP and with robust aggregation: the buffer is then
 sanitized in place before the clip or the sort (B1 would turn a NaN row into NaN even
 at weight 0).  Robust aggregation together with central DP is refused.  A round with
@@ -37,6 +44,7 @@ device (``apply_server_update``).
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable, NamedTuple
 
 import torch
@@ -61,6 +69,18 @@ from nanofed_tpu_torch.security.validation import (
 from nanofed_tpu_torch.trainer.config import TrainingConfig
 from nanofed_tpu_torch.trainer.local import GradFn, make_local_fit
 from nanofed_tpu_torch.utils.trees import ravel, unravel, unravel_stacked
+
+
+class FrozenBase(NamedTuple):
+    """A frozen base for the round (counterpart of the JAX ``FrozenBase``):
+    ``bind(base)`` returns an apply with the zoo signature ``apply(trainable, x, *,
+    dropout=None)`` closing over the base (for adapters, ``adapters.
+    make_adapter_apply`` with the spec).  ``base_like`` names the base's leaves for a
+    reader of shapes; the JAX package builds its mesh specs from it, and the round
+    here reads only the base it is called with (it may be None)."""
+
+    base_like: Params | None
+    bind: Callable[[Params], Callable[..., torch.Tensor]]
 
 
 class RoundStepResult(NamedTuple):
@@ -142,9 +162,13 @@ def build_round_step(
     central_privacy: PrivacyAwareAggregationConfig | None = None,
     validation: ValidationConfig | None = None,
     robust: RobustAggregationConfig | None = None,
+    frozen_base: FrozenBase | None = None,
 ) -> RoundStepFn:
     """Returns ``round_step(global_params, server_opt_state, data, weights, perms,
-    keys=None, noise=None, lr_scale=1.0) -> RoundStepResult``.
+    keys=None, noise=None, lr_scale=1.0) -> RoundStepResult``; with ``frozen_base``,
+    ``round_step(global_params, server_opt_state, base_params, data, weights, perms,
+    keys=None, noise=None, lr_scale=1.0)`` (the JAX ``adapter_round_step``: the base
+    is the third argument, and ``global_params`` the trainable tree).
 
     ``data`` is ``ClientData`` tensors ``[C, N, ...]`` on the device, ``weights`` is
     ``[C]`` float32 (sample counts x participation; zero drops a client), ``perms``
@@ -170,8 +194,17 @@ def build_round_step(
             "pass either grad_fn (used to build the default local fit) or a complete "
             "local_fit, not both — a supplied local_fit ignores grad_fn"
         )
+    if frozen_base is not None and (local_fit is not None or grad_fn is not None):
+        # The bound apply exists only inside the call (it closes over the base), so a
+        # build-time fit or gradient could never see the base it needs.
+        raise ValueError(
+            "frozen_base= builds the local fit from bind(gathered_base) "
+            "inside the round body; a custom local_fit/grad_fn cannot "
+            "close over the base and is refused"
+        )
     strategy = strategy or fedavg_strategy()
-    fit = local_fit or make_local_fit(model, training, grad_fn=grad_fn)
+    dense_fit = None if frozen_base is not None else (
+        local_fit or make_local_fit(model, training, grad_fn=grad_fn))
     server_tx = strategy.server_tx
 
     def clip_coefs(sq_norms: torch.Tensor) -> torch.Tensor:
@@ -184,7 +217,7 @@ def build_round_step(
         p = central_privacy.privacy
         return agg + noise * (p.noise_multiplier * p.max_gradient_norm / participants)
 
-    def streamed(global_params, gp_flat, data, weights, perms, keys, noise, lr_scale):
+    def streamed(fit, global_params, gp_flat, data, weights, perms, keys, noise, lr_scale):
         """Fold each chunk's weighted delta sum into one ``[P]`` accumulator."""
         acc = torch.zeros_like(gp_flat)
         chunk_metrics, sq_norms = [], []
@@ -214,7 +247,7 @@ def build_round_step(
             agg = acc / torch.clamp(weights.sum(), min=1e-12)
         return agg, _cat_metrics(chunk_metrics), torch.cat(sq_norms)
 
-    def fit_materialised(global_params, gp_flat, data, perms, keys, lr_scale):
+    def fit_materialised(fit, global_params, gp_flat, data, perms, keys, lr_scale):
         """Every client's delta in one ``[C, stride]`` buffer, chunk by chunk."""
         c = perms.shape[0]
         k = client_chunk if client_chunk is not None and client_chunk < c else c
@@ -230,16 +263,8 @@ def build_round_step(
             del result
         return buf[:, :p], _cat_metrics(chunk_metrics)
 
-    def round_step(
-        global_params: Params,
-        server_opt_state: Any,
-        data: ClientData,
-        weights: torch.Tensor,
-        perms: torch.Tensor,
-        keys: torch.Tensor | None = None,
-        noise: torch.Tensor | None = None,
-        lr_scale: float = 1.0,
-    ) -> RoundStepResult:
+    def run_round(fit, global_params, server_opt_state, data, weights, perms, keys, noise,
+                  lr_scale) -> RoundStepResult:
         c = weights.shape[0]
         gp_flat = ravel(global_params)
         if central_privacy is not None and (noise is None or noise.shape != gp_flat.shape):
@@ -250,7 +275,7 @@ def build_round_step(
 
         if chunking and validation is None and robust is None:
             agg, client_metrics, update_sq_norms = streamed(
-                global_params, gp_flat, data, weights, perms, keys, noise, lr_scale
+                fit, global_params, gp_flat, data, weights, perms, keys, noise, lr_scale
             )
             new_params, new_sos = apply_server_update(
                 server_tx, gp_flat, global_params, server_opt_state, agg, weights.sum()
@@ -260,8 +285,8 @@ def build_round_step(
             return RoundStepResult(new_params, new_sos, metrics, client_metrics,
                                    update_sq_norms)
 
-        delta, client_metrics = fit_materialised(global_params, gp_flat, data, perms, keys,
-                                                 lr_scale)
+        delta, client_metrics = fit_materialised(fit, global_params, gp_flat, data, perms,
+                                                 keys, lr_scale)
         update_sq_norms = None
         if validation is not None:
             # Checks on the client DELTA: range per leaf, z-score on the global norm.
@@ -323,4 +348,37 @@ def build_round_step(
             metrics["participating_clients"] = (weights > 0).sum()
         return RoundStepResult(new_params, new_sos, metrics, client_metrics, update_sq_norms)
 
-    return round_step
+    if frozen_base is None:
+        def round_step(
+            global_params: Params,
+            server_opt_state: Any,
+            data: ClientData,
+            weights: torch.Tensor,
+            perms: torch.Tensor,
+            keys: torch.Tensor | None = None,
+            noise: torch.Tensor | None = None,
+            lr_scale: float = 1.0,
+        ) -> RoundStepResult:
+            return run_round(dense_fit, global_params, server_opt_state, data, weights,
+                             perms, keys, noise, lr_scale)
+
+        return round_step
+
+    def adapter_round_step(
+        global_params: Params,
+        server_opt_state: Any,
+        base_params: Params,
+        data: ClientData,
+        weights: torch.Tensor,
+        perms: torch.Tensor,
+        keys: torch.Tensor | None = None,
+        noise: torch.Tensor | None = None,
+        lr_scale: float = 1.0,
+    ) -> RoundStepResult:
+        # The base is read only: closed over by this call's fit, never stacked per
+        # client, never an output.
+        bound = dataclasses.replace(model, apply=frozen_base.bind(base_params))
+        return run_round(make_local_fit(bound, training), global_params, server_opt_state,
+                         data, weights, perms, keys, noise, lr_scale)
+
+    return adapter_round_step

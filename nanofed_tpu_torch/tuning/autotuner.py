@@ -30,9 +30,12 @@ The measured time per round rides in each candidate's ``cost``
 (``measured_s_per_round``), where the online retuner's write-back puts its own.
 
 A block candidate is profiled over its R rounds (``profile_program(..., rounds=R)``),
-so its scores are per round, as the round step's.  The port runs on one card, so
-``model_shards > 1`` and ``hosts > 1`` (mesh axes) and ``adapter_rank`` (LoRA) are
-recorded as rejected with the slice that brings them; they are never raised.  Only a
+so its scores are per round, as the round step's.  An ``adapter_rank`` candidate
+profiles the frozen-base round (``parallel.round_step.FrozenBase``) at its rank, the
+adapter tree federated and the base a read-only input, as the ``Coordinator`` runs it;
+``autotune(adapter=spec)`` sweeps the rank ladder ``{r/2, r, 2r}`` around the spec's
+rank.  The port runs on one card, so ``model_shards > 1`` and ``hosts > 1`` (mesh
+axes) are recorded as rejected with the slice that brings them; they are never raised.  Only a
 ``torch.cuda.OutOfMemoryError`` turns a profiled candidate into a rejection: any
 other exception propagates, so a failing kernel cannot pass for an infeasible
 candidate.
@@ -82,8 +85,6 @@ _LATER_AXES = {
                     "(ROADMAP queue A item 9b)",
     "hosts": "the hosts mesh axis comes with the multi-GPU slice "
              "(ROADMAP queue A items 9b and 17)",
-    "adapter_rank": "LoRA adapters come with the adapters slice "
-                    "(ROADMAP queue A item 16)",
 }
 
 
@@ -588,12 +589,14 @@ def _plan_layout(
 
 def _candidate_inputs(
     model: Any, population: PopulationSpec, training: Any, rows: int, strategy: Any,
-    device: torch.device,
+    device: torch.device, adapter: Any = None,
 ) -> tuple:
     """The round step's arguments for ``rows`` clients of the population's shapes and
-    dtypes, made on ``device`` from a fixed seed: random samples and labels, mask
-    all ones, weights one.  Data moves to the device as the coordinator moves it
-    (``ClientData.to``)."""
+    dtypes, made on ``device`` from a fixed seed: random samples and labels (token
+    ids in the vocabulary), mask all ones, weights one.  Data moves to the device as
+    the coordinator moves it (``ClientData.to``).  With ``adapter`` (a spec at the
+    candidate's rank) the federated params are its adapter tree and the base is the
+    third argument, as the frozen-base round step takes them."""
     from nanofed_tpu_torch.core.types import ClientData
     from nanofed_tpu_torch.parallel.round_step import init_server_state
     from nanofed_tpu_torch.trainer.local import client_keys, draw_permutations
@@ -604,16 +607,27 @@ def _candidate_inputs(
         for name, p in model.init(torch.Generator().manual_seed(0)).items()
     }
     cap = population.capacity
+    x_dtype = getattr(torch, population.x_dtype)
+    x_shape = (rows, cap, *population.sample_shape)
+    if x_dtype.is_floating_point:
+        x = torch.randn(x_shape, generator=gen, device=device).to(x_dtype)
+    else:  # token ids: valid indices of the model's vocabulary
+        x = torch.randint(0, max(1, model.num_classes), x_shape, generator=gen,
+                          device=device, dtype=x_dtype)
     data = ClientData(
-        x=torch.randn((rows, cap, *population.sample_shape), generator=gen,
-                      device=device).to(getattr(torch, population.x_dtype)),
+        x=x,
         y=torch.randint(0, max(1, model.num_classes), (rows, cap), generator=gen,
                         device=device, dtype=getattr(torch, population.y_dtype)),
         mask=torch.ones((rows, cap), device=device,
                         dtype=getattr(torch, population.mask_dtype)),
     ).to(device)
+    base = ()
+    if adapter is not None:
+        from nanofed_tpu_torch.adapters import init_adapters
+
+        params, base = init_adapters(adapter, params, rng=0), (params,)
     return (
-        params, init_server_state(strategy, params), data,
+        params, init_server_state(strategy, params), *base, data,
         torch.ones(rows, device=device),
         draw_permutations(gen, rows, training.local_epochs, cap),
         client_keys(0, rows, device),
@@ -711,7 +725,6 @@ def _evaluate_candidate(
     for axis, engaged in (
         ("model_shards", cand.model_shards > 1),
         ("hosts", cand.hosts > 1),
-        ("adapter_rank", cand.adapter_rank is not None),
     ):
         if engaged:
             return CandidateOutcome(cand, False, reject_reason=(
@@ -724,33 +737,47 @@ def _evaluate_candidate(
     strategy = fedavg_strategy()
     training_c = dataclasses.replace(training, batch_size=cand.batch_size)
     rpb = cand.rounds_per_block
+    spec_r = frozen_base = None
+    if cand.adapter_rank is not None:
+        from nanofed_tpu_torch.adapters import make_adapter_apply
+        from nanofed_tpu_torch.parallel.round_step import FrozenBase
+
+        # The federated tree is the adapter tree at this rank; the base is the
+        # read-only input, as the coordinator dispatches it.
+        spec_r = dataclasses.replace(adapter, rank=cand.adapter_rank)
+        frozen_base = FrozenBase(
+            base_like=None, bind=lambda base: make_adapter_apply(model.apply, spec_r, base))
     if rpb == 1:
-        fn = build_round_step(model, training_c, strategy, client_chunk=cand.client_chunk)
+        fn = build_round_step(model, training_c, strategy, client_chunk=cand.client_chunk,
+                              frozen_base=frozen_base)
     else:
         fn = build_round_block(
             model, training_c, strategy, num_clients=C, padded_clients=padded,
             step_clients=step_clients, cohort_size=cohort,
             client_chunk=cand.client_chunk, collect_client_detail=False,
-            cohort_mode=cohort_mode, device=dev,
+            cohort_mode=cohort_mode, device=dev, frozen_base=frozen_base,
         )
     name = candidate_program_name(cand)
     out_of_memory = None
     t0 = time.perf_counter()
     try:
+        kwargs = {}
         if rpb == 1:
             args = _candidate_inputs(model, population, training_c, step_clients, strategy,
-                                     dev)
+                                     dev, adapter=spec_r)
         else:
             # The block gathers from the whole population: every slot a distinct
             # client with weight, every round a full cohort's work.
-            params, sos, data, _, _, _ = _candidate_inputs(
-                model, population, training_c, padded, strategy, dev)
+            params, sos, *base, data, _, _, _ = _candidate_inputs(
+                model, population, training_c, padded, strategy, dev, adapter=spec_r)
             idx = (torch.arange(step_clients, device=dev).expand(rpb, step_clients)
                    .contiguous() if cohort_mode else None)
             args = (params, sos, data, torch.ones(padded, device=dev),
                     round_seeds(0, range(rpb)), [1.0] * rpb, idx,
                     torch.ones((rpb, step_clients), device=dev))
-        report = profile_program(name, fn, *args, rounds=rpb, attrs=cand.to_dict())
+            kwargs = {"base_params": base[0]} if base else {}
+        report = profile_program(name, fn, *args, rounds=rpb, attrs=cand.to_dict(),
+                                 **kwargs)
     except torch.cuda.OutOfMemoryError as e:
         # Only running out of device memory makes a candidate infeasible; any other
         # failure (a kernel that does not launch, a wrong shape) propagates.
@@ -858,13 +885,10 @@ def autotune(
     candidate (its first call's seconds, under the JAX name) and the ``autotune``
     record (:meth:`AutotuneResult.telemetry_payload`), on cache hits too.
 
-    Refused here: ``adapter=`` (the adapters slice).
+    ``adapter`` (an ``adapters.AdapterSpec``) profiles every candidate's frozen-base
+    round, the default space sweeps the rank ladder around the spec's rank, and the
+    epilogue table is sized to the adapter payload.
     """
-    if adapter is not None:
-        raise NotImplementedError(
-            "autotune(adapter=...): LoRA adapters come with the adapters slice of "
-            "nanofed_tpu_torch (ROADMAP queue A item 16)"
-        )
     from nanofed_tpu_torch.observability.profiling import device_kind_of
     from nanofed_tpu_torch.trainer.config import TrainingConfig
 
@@ -876,13 +900,16 @@ def autotune(
     device_kind = device_kind_of(dev)
     n_devices = 1
     if space is None:
+        # TuningSpace.default owns the adapter-rank ladder rule.
         space = TuningSpace.default(
             population, n_devices, training.batch_size, num_rounds,
+            adapter_rank=adapter.rank if adapter is not None else None,
         )
     budget, budget_basis = resolve_hbm_budget(hbm_budget_bytes, dev)
     key = compute_cache_key(
         model, population, training, space, participation, num_rounds,
-        eval_every, device_kind, n_devices, hbm_budget=budget, platform=platform,
+        eval_every, device_kind, n_devices, hbm_budget=budget, adapter=adapter,
+        platform=platform,
     )
 
     cache_path = (
@@ -912,7 +939,7 @@ def autotune(
     def evaluate(cand: CandidateConfig) -> CandidateOutcome:
         return _evaluate_candidate(
             cand, model, population, training, participation, num_rounds,
-            eval_every, n_devices, budget, device=dev,
+            eval_every, n_devices, budget, adapter=adapter, device=dev,
         )
 
     outcomes: list[CandidateOutcome] = []
@@ -1015,8 +1042,15 @@ def autotune(
     if include_epilogues:
         from nanofed_tpu_torch.tuning.epilogues import profile_aggregation_epilogues
 
-        leaves = _model_fingerprint(model)["leaves"]
-        flat = sum(math.prod(shape) or 1 for _, shape, _ in leaves)
+        leaves = {name: shape for name, shape, _ in _model_fingerprint(model)["leaves"]}
+        if adapter is not None:
+            # In adapter mode the client stack the epilogues reduce is the adapter
+            # payload.
+            from nanofed_tpu_torch.adapters import adapter_param_count
+
+            flat = adapter_param_count(adapter, leaves)["adapter_params"]
+        else:
+            flat = sum(math.prod(shape) or 1 for shape in leaves.values())
         result.epilogues = profile_aggregation_epilogues(flat_size=flat, device=dev)
 
     if cache_path is not None and result.winner is not None and skipped == 0:

@@ -121,9 +121,12 @@ def test_load_datasets_for_digits_equals_jax():
 
 
 def test_token_streams_are_refused_with_their_item():
-    lm = dataclasses.make_dataclass("LM", [("token_stream", bool)])(True)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        load_datasets_for(lm, None, 64)
+    """Token-stream models, which earlier slices refused here, now get the JAX
+    runner's token streams: its vocabulary, sequence length and seeds, bit for bit."""
+    lm, jax_lm = get_model("transformer_lm"), jax_get_model("transformer_lm")
+    for a, b in zip(load_datasets_for(lm, None, 64, seed=2),
+                    jax_experiments.load_datasets_for(jax_lm, None, 64, seed=2)):
+        _same(a, b)
 
 
 def test_benchmarks_equal_jax():

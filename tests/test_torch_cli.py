@@ -190,13 +190,10 @@ def test_later_subcommands_are_listed_and_refused_with_their_item(name, item, ca
 
 
 @pytest.mark.parametrize("cmd,argv,item", [
-    ("run", ["--adapter-rank", "4"], "item 16"),
-    ("run", ["--adapter-alpha", "2.0"], "item 16"),
     ("run", ["--model-shards", "2"], "item 9b"),
     ("run", ["--hosts", "2"], "item 9b"),
     ("run", ["--distributed"], "item 9b"),
     ("run", ["--strict"], "item 21"),
-    ("profile", ["--adapter-rank", "4"], "item 16"),
     ("profile", ["--model-shards", "2"], "item 9b"),
     ("profile", ["--hosts", "2"], "item 9b"),
     ("serve", ["--chaos-plan", "plan.json"], "item 17"),
@@ -206,6 +203,46 @@ def test_later_flags_are_refused_with_their_item(cmd, argv, item, capsys):
     assert cli.main([cmd, *argv]) == 2  # refused before a device is looked for
     err = capsys.readouterr().err
     assert argv[0] in err and item in err
+
+
+@pytest.mark.parametrize("cmd,argv,reaches", [
+    ("run", ["--adapter-rank", "4"], {"adapter_rank": 4, "adapter_alpha": None}),
+    ("run", ["--adapter-rank", "4", "--adapter-alpha", "2.0"],
+     {"adapter_rank": 4, "adapter_alpha": 2.0}),
+    ("profile", ["--adapter-rank", "4"], {"adapter": 4}),
+])
+def test_adapter_flags_reach_the_runner(cmd, argv, reaches, monkeypatch, capsys):
+    """The adapter flags the earlier slices refused: ``run``'s reach
+    ``run_experiment`` as the JAX command line passes them, and ``profile``'s builds
+    an adapter coordinator (no SCAFFOLD program beside it)."""
+    from nanofed_tpu_torch import experiments
+    from nanofed_tpu_torch.orchestration import coordinator
+
+    seen = {}
+    if cmd == "run":
+        def fake_run(**kw):
+            seen.update(kw)
+            return {"ok": True}
+
+        monkeypatch.setattr(experiments, "run_experiment", fake_run)
+        assert cli.main([cmd, *argv, "--device", "cpu"]) == 0
+        assert {k: seen[k] for k in reaches} == reaches
+        return
+    built = []
+
+    class Recorder(coordinator.Coordinator):
+        def __init__(self, *a, **kw):
+            built.append(kw.get("adapter"))
+            super().__init__(*a, **kw)
+
+        def profile_programs(self, force=False):
+            return []
+
+    monkeypatch.setattr(coordinator, "Coordinator", Recorder)
+    monkeypatch.setattr("nanofed_tpu_torch.orchestration.Coordinator", Recorder)
+    assert cli.main([cmd, "--model", "mlp", "--clients", "2", "--train-size", "128",
+                     "--rounds-per-block", "1", "--device", "cpu", *argv]) == 1
+    assert [a.rank for a in built] == [reaches["adapter"]]
 
 
 def _subparsers(parser):

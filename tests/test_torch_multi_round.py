@@ -295,7 +295,6 @@ def test_collect_client_detail_off_returns_none():
 
 
 @pytest.mark.parametrize("kwargs,error,match", [
-    ({"frozen_base": object()}, NotImplementedError, "item 16"),
     ({"scaffold": True}, ValueError, "SCAFFOLD is not fused"),
     ({"robust": RobustAggregationConfig(trim_k=1)}, ValueError, "robust aggregation"),
     ({"central_privacy": PrivacyAwareAggregationConfig(PrivacyConfig())}, ValueError,
@@ -307,6 +306,18 @@ def test_collect_client_detail_off_returns_none():
 def test_refusals(kwargs, error, match):
     with pytest.raises(error, match=match):
         _linear_block(**kwargs)
+
+
+def test_frozen_base_builds_and_requires_its_base():
+    """``frozen_base=``, which earlier slices refused: the block builds, and a call
+    must pass the base exactly when it was built with one (the JAX message)."""
+    from nanofed_tpu_torch.parallel import FrozenBase
+
+    block = build_round_block(get_model("linear", in_features=10, num_classes=2),
+                              TrainingConfig(batch_size=8), num_clients=16,
+                              frozen_base=FrozenBase(None, lambda base: None), device="cpu")
+    with pytest.raises(ValueError, match="base_params must be passed exactly"):
+        block({}, {}, None, None, [0], [1.0])
 
 
 def test_call_refusals():

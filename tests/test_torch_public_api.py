@@ -100,9 +100,11 @@ def test_validate_updates_gives_the_jax_verdicts(case):
 
 
 def test_list_models_is_the_jax_registry_less_the_later_models():
+    """The transformer slice brought the last missing family: the registries are
+    equal."""
     ours, theirs = list_models(), jax_list_models()
     assert ours == sorted(ours) and set(ours) <= set(theirs)
-    assert set(theirs) - set(ours) == {"transformer_lm", "transformer_lm_scan"}  # item 16
+    assert set(theirs) - set(ours) == set()
 
 
 def test_training_progress_counts_like_jax(tmp_path):
@@ -134,7 +136,6 @@ def test_training_progress_counts_like_jax(tmp_path):
 
 
 @pytest.mark.parametrize("keyword,value,item", [
-    ("adapter", object(), "item 16"),
     ("chaos", object(), "item 17"),
     ("mesh", object(), "item 9b"),
     ("mesh_shape", (1, 1), "item 9b"),
@@ -151,6 +152,22 @@ def test_coordinator_refuses_the_jax_only_keywords_with_their_item(tmp_path, key
     Coordinator(model, data, config, device="cpu", **{keyword: default})  # the JAX default
     with pytest.raises(TypeError, match="unexpected keyword argument 'mesh_shapes'"):
         Coordinator(model, data, config, device="cpu", mesh_shapes=(1, 1))
+
+
+def test_coordinator_takes_the_adapter_keyword(tmp_path):
+    """``adapter=``, which earlier slices refused: the federated params are the
+    adapter tree of the adapted kernel, the base stays beside them, and a round runs."""
+    from nanofed_tpu_torch.adapters import AdapterSpec
+
+    assert "adapter" not in LATER_SLICE_KEYWORDS
+    model = get_model("mlp", in_features=10, hidden=16, num_classes=2)
+    data = federate(synthetic_classification(32, 2, (10,), seed=0), 2, batch_size=8)
+    coord = Coordinator(model, data, CoordinatorConfig(base_dir=tmp_path, save_metrics=False),
+                        TrainingConfig(batch_size=8), device="cpu",
+                        adapter=AdapterSpec(rank=2))
+    assert list(coord.params) == ["fc1/kernel/A", "fc1/kernel/B"]
+    assert list(coord.base_params) == list(model.init(torch.Generator().manual_seed(0)))
+    assert coord.run()[0].status.name == "COMPLETED"
 
 
 def test_coordinator_telemetry_dir_writes_the_runs_telemetry(tmp_path):

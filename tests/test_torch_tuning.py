@@ -144,19 +144,34 @@ def test_static_rejection_reasons_equal_jax(case):
 
 
 @pytest.mark.parametrize("cfg,axis", [
-    (CandidateConfig(None, 1, 1, 16, adapter_rank=4),
-     "adapter_rank 4: not in the PyTorch port yet"),
     (CandidateConfig(None, 1, 2, 16), "model_shards 2: not in the PyTorch port yet"),
     (CandidateConfig(None, 1, 1, 16, hosts=2), "hosts 2: not in the PyTorch port yet"),
 ])
 def test_unported_axes_are_rejected_with_their_slice(cfg, axis):
-    """Past the JAX checks (four devices here, so the mesh axes divide; an adapter
-    spec, so a swept rank is not a static rejection), the axes a later slice brings
-    are recorded as rejected, never raised."""
+    """Past the JAX checks (four devices here, so the mesh axes divide), the axes a
+    later slice brings are recorded as rejected, never raised."""
     out = autotuner._evaluate_candidate(cfg, None, LINEAR_POP, TrainingConfig(batch_size=16),
-                                        1.0, 4, 0, 4, None, adapter=object())
+                                        1.0, 4, 0, 4, None)
     assert not out.feasible
     assert out.reject_reason.startswith(axis) and "ROADMAP queue A" in out.reject_reason
+
+
+@pytest.mark.parametrize("rpb", [1, 2])
+def test_adapter_rank_candidate_profiles_the_frozen_base_round(rpb):
+    """An ``adapter_rank`` candidate, which earlier slices rejected, profiles the
+    frozen-base round (or block) at its rank: feasible, its program named with the
+    rank, its counted bytes below the dense candidate's."""
+    from nanofed_tpu_torch.adapters import AdapterSpec
+
+    model = get_model("mlp", in_features=10, hidden=64, num_classes=2)
+    spec = AdapterSpec(rank=8)
+    out = {rank: autotuner._evaluate_candidate(
+        CandidateConfig(None, rpb, 1, 16, adapter_rank=rank), model, LINEAR_POP,
+        TrainingConfig(batch_size=16), 1.0, 4, 0, 1, None, adapter=spec, device="cpu")
+        for rank in (4, None)}
+    assert out[4].feasible and out[None].feasible
+    assert out[4].cost["bytes_accessed_per_round"] < out[None].cost["bytes_accessed_per_round"]
+    assert candidate_program_name(out[4].config).endswith("_r4")
 
 
 def _jax_result() -> JaxAutotuneResult:
@@ -344,12 +359,26 @@ def test_only_out_of_memory_turns_a_candidate_into_a_rejection(tmp_path, monkeyp
         _sweep(tmp_path, include_epilogues=False, cache_dir=None, out_dir=None)
 
 
-@pytest.mark.parametrize("kwargs,slice_name", [
-    ({"adapter": object()}, "adapters slice"),
-])
-def test_autotune_refuses_what_later_slices_bring(tmp_path, kwargs, slice_name):
-    with pytest.raises(NotImplementedError, match=slice_name):
-        _sweep(tmp_path, **kwargs)
+def test_autotune_takes_an_adapter_spec(tmp_path):
+    """``autotune(adapter=)``, which earlier slices refused: the default space is the
+    JAX rank ladder around the spec's rank, every candidate runs the frozen-base
+    round, the cache key carries the spec and the epilogues are sized to the adapter
+    payload."""
+    from nanofed_tpu_torch.adapters import AdapterSpec, adapter_param_count
+
+    model = get_model("mlp", in_features=10, hidden=64, num_classes=2)
+    spec = AdapterSpec(rank=4)
+    res = autotune(model, _linear_data(), TrainingConfig(batch_size=16), num_rounds=1,
+                   cache_dir=tmp_path / "cache", out_dir=None, adapter=spec, device="cpu")
+    jspace = JaxTuningSpace.default(JaxPopulationSpec(8, 32, (10,)), 1, 16, 1, adapter_rank=4)
+    assert res.space["adapter_ranks"] == list(jspace.adapter_ranks) == [2, 4, 8]
+    assert all(o.config.adapter_rank in (2, 4, 8) for o in res.outcomes)
+    assert res.winner.adapter_rank in (2, 4, 8)
+    params = model.init(torch.Generator().manual_seed(0))
+    assert res.epilogues["flat_size"] == adapter_param_count(spec, params)["adapter_params"]
+    again = autotune(model, _linear_data(), TrainingConfig(batch_size=16), num_rounds=1,
+                     cache_dir=tmp_path / "cache", out_dir=None, device="cpu")
+    assert not again.cache_hit  # the dense sweep is another cache entry
 
 
 def test_autotune_telemetry_gets_a_compile_record_per_candidate(tmp_path):
