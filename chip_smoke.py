@@ -209,6 +209,22 @@ Phases (any failure exits non-zero):
    4 rounds and resumed (within 1e-4 of the uninterrupted run; the versioned model the
    merged params, the checkpoint the adapters), and ``autotune(adapter=AdapterSpec(
    rank=8))`` with the chunk and batch pinned over ranks 4, 8 and 16.
+   Then the round across ranks (phase (w), ``parallel.mesh``) on the one card: (w0) (b)'s
+   configuration unsharded under cuDNN's deterministic algorithms; (w1) this process as a
+   world of one rank over NCCL, ``Coordinator(mesh_shape=(1,))``, bit for bit (w0), and
+   NCCL's all-reduce of the [P] aggregate timed; a rank of two NCCL ranks on one card
+   refused before its process group, naming the card; (w2) 4 spawned ranks on ``cuda:0``
+   over gloo, mesh (2, 2, 1), the flagship with 250 clients a rank in 2 chunks: within
+   1e-5 of (w1), every rank's params the same bits, each rank's all-reduce and
+   all-gather calls, bytes and seconds, then a validated round (B2's ``denom`` form once a
+   rank); (w3) the ``base`` transformer's dense FedAdam round and its rank-8 adapter round
+   (8 clients in chunks of 2, f32) on one rank and on 2 ranks over gloo, mesh (1, 2): bit
+   for bit, each rank's model state between rounds half the one-rank state, each rank's
+   peak memory; (w4) ``nanofed-tpu-torch run --distributed`` under ``python -m
+   torch.distributed.run --nproc_per_node 1`` (NCCL) and ``run --model-shards 2`` on one
+   rank (exit 2, the JAX validator's message); then B2's ``denom`` form at C = 250 and B1's
+   accumulate form and B3 at C = 2, P = 97,745,408 and 1,398,784 timed beside their plain
+   versions, library calls and bounds.  Every rank's launches join the kernels line.
 4. Cross-check: 8-client f32 rounds of the port on the card and on the CPU from the
    same weights, permutations and injected noise: the plain round with dropout off
    and on (the masks are an integer hash, the same bits on both devices), the
@@ -2755,9 +2771,10 @@ def dp_config(num_clients: int, cohort: int, rounds: int):
         epsilon=2.0, delta=1e-5, max_gradient_norm=1.0, noise_multiplier=sigma))
 
 
-def phase_slice(torch, ops, run_experiment, card: str, out_dir: Path) -> dict[str, int]:
+def phase_slice(torch, ops, run_experiment, card: str, out_dir: Path,
+                keep: dict | None = None) -> dict[str, int]:
     """Drive the port's entry points on the card in five configurations; return the
-    kernels' launch counts over all of them."""
+    kernels' launch counts over all of them (each summary into ``keep``)."""
     from nanofed_tpu_torch.orchestration import cohort_size
 
     n, rounds = FLAGSHIP["num_clients"], FLAGSHIP["num_rounds"]
@@ -2823,6 +2840,8 @@ def phase_slice(torch, ops, run_experiment, card: str, out_dir: Path) -> dict[st
             fail(f"{name}: kernel launches {grew}, expected {want}")
         check_guarded(name, summary, out_dir / name, card)
         totals = {k: totals[k] + grew[k] for k in totals}
+        if keep is not None:
+            keep[name] = summary
     return totals
 
 
@@ -4885,6 +4904,446 @@ def phase_transformer_cross_check(torch, ops, card: str) -> None:
         fail("(v6) the adapter round on the card disagrees with the CPU")
 
 
+MESH_CHUNK = 125  # (w1), (w2): the flagship's client_chunk; (w2)'s 250 clients a rank
+MESH_TOL = 1e-5  # (w2): a 4-rank round against one rank (sums over ranks in another order)
+LM_MESH_CHUNK = 2  # (w3): each rank of the (1, 2) mesh fits all 8 clients, 2 at a time
+MESH_STATE_SHARE = (0.45, 0.55)  # (w3): a rank's model state against the one-rank state
+MESH_REDUCES = ((2, 97_745_408), (2, 1_398_784))  # (w3): B1 accumulate and B3 a chunk
+MESH_VALIDATED_C = 250  # (w2): B2's denom form over one rank's rows
+
+
+def flagship_coordinator(base_dir, rounds: int = FLAGSHIP["num_rounds"], **kw):
+    """(b)'s configuration through ``Coordinator``: the flagship, ``client_chunk=125``."""
+    from nanofed_tpu_torch.models import get_model
+    from nanofed_tpu_torch.orchestration import Coordinator, CoordinatorConfig
+
+    return Coordinator(
+        get_model("mnist_cnn"), flagship_data(),
+        CoordinatorConfig(num_rounds=rounds, seed=0, base_dir=base_dir, save_metrics=False),
+        flagship_training(), client_chunk=MESH_CHUNK, device="cuda", **kw)
+
+
+class CollectiveTimer:
+    """Times (synchronized) and sizes every all-reduce and all-gather a rank's mesh
+    runs while entered."""
+
+    def __init__(self, torch):
+        import torch.distributed as dist
+
+        from nanofed_tpu_torch.parallel import mesh
+
+        self.totals = {"all_reduce": [0, 0, 0.0], "all_gather": [0, 0, 0.0]}
+        self._undo = []
+
+        def timed(kind, fn):
+            def call(out, *args, **kwargs):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = fn(out, *args, **kwargs)
+                torch.cuda.synchronize()
+                row = self.totals[kind]
+                row[0] += 1
+                row[1] += out.numel() * out.element_size()
+                row[2] += time.perf_counter() - t0
+                return res
+            return call
+
+        for owner, attr, kind in ((dist, "all_reduce", "all_reduce"),
+                                  (mesh, "_gather_into", "all_gather")):
+            original = getattr(owner, attr)
+            setattr(owner, attr, timed(kind, original))
+            self._undo.append((owner, attr, original))
+
+    def close(self):
+        for owner, attr, original in self._undo:
+            setattr(owner, attr, original)
+
+
+def state_bytes(torch, coord) -> int:
+    """Bytes of a coordinator's params and tensor server state on its device."""
+    return (sum(v.numel() * v.element_size() for v in coord.params.values())
+            + sum(v.numel() * v.element_size() for v in coord.server_state.values()
+                  if torch.is_tensor(v)))
+
+
+def mesh_flagship_rank(rank: int, world: int, mesh_shape, out_dir: str, validated: bool):
+    """(w1), (w2): the flagship on ``mesh_shape`` as one rank of the world, cuDNN's
+    deterministic algorithms; with ``validated``, then one validated round (B2)."""
+    import torch
+    import torch.distributed as dist
+
+    from nanofed_tpu_torch import ops
+    from nanofed_tpu_torch.security import ValidationConfig
+
+    torch.backends.cudnn.deterministic = True
+    coord = flagship_coordinator(Path(out_dir) / f"w{world}", mesh_shape=mesh_shape)
+    timer = CollectiveTimer(torch)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    rounds = coord.run()
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    timer.close()
+    out = {
+        "round_s": [m.duration_s for m in rounds],
+        "loss": [m.agg_metrics["loss"] for m in rounds],
+        "counts": counts, "collectives": timer.totals,
+        "peak_bytes": torch.cuda.max_memory_allocated(),
+        "params": {k: v.cpu().numpy() for k, v in coord.full_params().items()},
+    }
+    if world == 1:
+        # The mesh of one rank runs no collective: NCCL's own all-reduce of the [P]
+        # aggregate over the world of one, timed alone.
+        x = torch.ones(P_MNIST, device="cuda")
+        out["nccl_allreduce_ms"] = median_ms(lambda: dist.all_reduce(x), torch)
+    if validated:
+        del coord
+        coord = flagship_coordinator(Path(out_dir) / f"w{world}v", rounds=1,
+                                     mesh_shape=mesh_shape, validation=ValidationConfig())
+        ops.reset_launch_counts()
+        (metrics,) = coord.run()
+        torch.cuda.synchronize()
+        out["validated_counts"] = ops.launch_counts()
+        out["validated"] = {k: metrics.agg_metrics[k] for k in
+                            ("loss", "valid_clients", "participating_clients")}
+    return out
+
+
+def lm_mesh_coordinator(base_dir, adapter, population, **kw):
+    """(w3): the ``base`` flagship's cohort (8 clients of 128 sequences), FedAdam, one
+    round in f32 in chunks of 2; dense, or rank-8 adapters over the frozen base."""
+    from nanofed_tpu_torch.adapters import AdapterSpec
+    from nanofed_tpu_torch.aggregation import fedadam_strategy
+    from nanofed_tpu_torch.models.transformer import flagship
+    from nanofed_tpu_torch.orchestration import Coordinator, CoordinatorConfig
+    from nanofed_tpu_torch.trainer import TrainingConfig
+
+    return Coordinator(
+        flagship("base"), population,
+        CoordinatorConfig(num_rounds=1, seed=0, base_dir=base_dir, save_metrics=False),
+        TrainingConfig(batch_size=LM_BATCH, local_epochs=1, learning_rate=LM_LR),
+        strategy=fedadam_strategy(), client_chunk=LM_MESH_CHUNK,
+        adapter=AdapterSpec(rank=LM_RANK) if adapter else None, device="cuda", **kw)
+
+
+def run_lm_mesh(torch, ops, coord) -> dict:
+    """One (w3) round with deterministic algorithms: state bytes before and after, the
+    peak, the launches, the gathered params."""
+    torch.cuda.synchronize()
+    before = state_bytes(torch, coord)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    (metrics,) = coord.run()
+    torch.cuda.synchronize()
+    return {
+        "round_s": time.perf_counter() - t0, "loss": metrics.agg_metrics["loss"],
+        "counts": ops.launch_counts(), "state_before": before,
+        "state_after": state_bytes(torch, coord),
+        "peak_bytes": torch.cuda.max_memory_allocated(),
+        "params": coord.full_params(),
+    }
+
+
+def mesh_lm_rank(rank: int, world: int, out_dir: str) -> list[dict]:
+    """(w3): the ``base`` round on the (1, 2) mesh as one rank, dense then with
+    adapters; rank 0 saves the gathered params for the parent to hold against one
+    rank's."""
+    import torch
+
+    from nanofed_tpu_torch import ops
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    population = lm_population(LM_CLIENTS, LM_SEQS, LM_BATCH, "base")
+    outs = []
+    for adapter in (False, True):
+        coord = lm_mesh_coordinator(Path(out_dir) / f"w3_{rank}_{adapter}", adapter,
+                                    population, mesh_shape=(1, 2))
+        out = run_lm_mesh(torch, ops, coord)
+        del coord
+        params = out.pop("params")
+        if rank == 0:
+            torch.save({k: v.cpu() for k, v in params.items()},
+                       Path(out_dir) / f"w3_{'adapter' if adapter else 'dense'}.pt")
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        outs.append(out)
+    return outs
+
+
+def spawned(torch, card: str, tag: str, fn, world: int, backend: str, args=()) -> list:
+    """``fn`` on a new world of ranks on the card; a failing rank fails the script."""
+    from nanofed_tpu_torch.parallel.launch import spawn_world
+
+    t0 = time.perf_counter()
+    try:
+        out = spawn_world(fn, world, backend=backend, device="cuda", timeout_s=300, args=args)
+    except (RuntimeError, TimeoutError) as e:
+        fail(f"{tag}: {e}")
+    print(f"[{card}] {tag}: world of {world} over {backend} ran in "
+          f"{time.perf_counter() - t0:.3f} s")
+    return out
+
+
+def rank_counts(results: list, key: str = "counts") -> dict:
+    total: dict[str, int] = {}
+    for r in results:
+        add_launches(total, r[key])
+    return total
+
+
+def time_mesh_reduces(torch, ops, card: str) -> None:
+    """(w) B2's ``denom`` form at a (w2) rank's validated rows, and B1's accumulate form
+    and B3 at (w3)'s chunks, against their plain versions and the library calls, with
+    bounds."""
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    c, p = MESH_VALIDATED_C, P_MNIST
+    x = round_layout(torch, c, p, seed=c)
+    poison(x)
+    w = torch.rand(c, device="cuda", generator=gen) + 0.5
+    valid = torch.rand(c, device="cuda", generator=gen) > 0.1
+    denom = (w * valid).sum() * 4  # the cohort's valid weight over four ranks
+    err = check_close(torch, "(w) masked_weighted_mean_flat denom",
+                      ops.masked_weighted_mean_flat(x, w, valid, denom=denom),
+                      ops.masked_weighted_mean_flat_plain(x, w, valid, denom=denom), **TOL)
+    ms = median_ms(lambda: ops.masked_weighted_mean_flat(x, w, valid, denom=denom), torch)
+    plain_ms = median_ms(
+        lambda: ops.masked_weighted_mean_flat_plain(x, w, valid, denom=denom), torch)
+    b_ms, b_by = bound_ms(4 * c * p + 4 * c + c + 4 * p + 4, 2 * c * p)
+    print(f"[{card}] (w) masked_weighted_mean_flat denom form C={c} P={p}: kernel_ms={ms:.6f} "
+          f"plain_ms={plain_ms:.6f} library_ms=none bound_ms={b_ms:.6f} ({b_by}) "
+          f"share_of_bound={b_ms / ms:.4f} max_abs_err={err:.3e} "
+          f"{plan_line(torch, x, False, True)}")
+    del x
+    for c, p in MESH_REDUCES:
+        x = round_layout(torch, c, p, seed=c + p)
+        w = torch.rand(c, device="cuda", generator=gen) + 0.5
+        acc = torch.zeros(p, device="cuda")
+        err = check_close(torch, f"(w) weighted_sum_into C={c} P={p}",
+                          ops.weighted_sum_into(acc.clone(), x, w),
+                          ops.weighted_sum_into_plain(acc.clone(), x, w), **TOL)
+        ms = median_ms(lambda: ops.weighted_sum_into(acc, x, w), torch)
+        plain_ms = median_ms(lambda: ops.weighted_sum_into_plain(acc, x, w), torch)
+        library_ms = median_ms(lambda: acc.addmv_(x.t(), w), torch)
+        b_ms, b_by = bound_ms(4 * c * p + 8 * p + 4 * c, 2 * c * p)
+        print(f"[{card}] (w) weighted_sum_into C={c} P={p}: kernel_ms={ms:.6f} "
+              f"plain_ms={plain_ms:.6f} library_ms={library_ms:.6f} (acc.addmv_(x.t(), w)) "
+              f"bound_ms={b_ms:.6f} ({b_by}) share_of_bound={b_ms / ms:.4f} "
+              f"max_abs_err={err:.3e} {plan_line(torch, x, True, False)}")
+        err = check_close(torch, f"(w) row_sq_norms C={c} P={p}", ops.row_sq_norms(x),
+                          ops.row_sq_norms_plain(x), **TOL)
+        ms = median_ms(lambda: ops.row_sq_norms(x), torch)
+        plain_ms = median_ms(lambda: ops.row_sq_norms_plain(x), torch)
+        library_ms = median_ms(lambda: torch.linalg.vecdot(x, x), torch)
+        b_ms, b_by = bound_ms(4 * c * p + 4 * c, 2 * c * p)
+        print(f"[{card}] (w) row_sq_norms C={c} P={p}: kernel_ms={ms:.6f} "
+              f"plain_ms={plain_ms:.6f} library_ms={library_ms:.6f} "
+              f"(torch.linalg.vecdot(x, x)) bound_ms={b_ms:.6f} ({b_by}) "
+              f"share_of_bound={b_ms / ms:.4f} max_abs_err={err:.3e}")
+        del x, acc
+        torch.cuda.empty_cache()
+
+
+def max_abs_gap(torch, a: dict, b: dict) -> float:
+    return max(float((torch.as_tensor(a[k]).double() - torch.as_tensor(b[k]).double())
+                     .abs().max()) for k in b)
+
+
+def phase_mesh(torch, ops, card: str, out_dir: Path, slice_runs: dict) -> dict[str, int]:
+    """(w): the sharded round across ranks (``parallel.mesh``) on the one card.  (w1)
+    this process as a world of one rank over NCCL: the flagship through
+    ``Coordinator(mesh_shape=(1,))``, bit for bit the unsharded coordinator's run of
+    (b)'s configuration; (w2) four ranks on ``cuda:0`` over gloo, mesh (2, 2, 1): the
+    same flagship (250 clients a rank, 2 chunks each) within 1e-5 of (w1), every rank's
+    params the same bits, the collectives' seconds and bytes, then one validated round
+    (B2 on a rank's rows); (w3) two ranks over gloo, mesh (1, 2): the ``base``
+    transformer's dense FedAdam round and its adapter round with the base sharded, each
+    bit for bit one rank's run, each rank's model state and peak memory; two NCCL ranks
+    on one card refused; (w4) the command line under ``python -m
+    torch.distributed.run`` and ``--model-shards 2`` on one rank.  Returns the launch
+    counts of every rank's main paths and this process's."""
+    import contextlib
+    import io
+
+    import torch.distributed as dist
+
+    from nanofed_tpu_torch import cli
+    from nanofed_tpu_torch.communication.transport import free_port
+    from nanofed_tpu_torch.parallel.mesh import initialize_distributed
+
+    t_phase = time.perf_counter()
+    totals: dict[str, int] = dict.fromkeys(ops.launch_counts(), 0)
+    base_dir = out_dir / "w_mesh"
+    base_dir.mkdir(parents=True, exist_ok=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    p = P_MNIST
+    flagship_counts = {"weighted_sum_into": 16, "row_sq_norms": 16}
+
+    # (w0) (b)'s configuration on one device, unsharded, deterministic algorithms.
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        unsharded = flagship_coordinator(base_dir / "w0")
+        rounds, _, grew = counted(torch, ops, card, "(w0) flagship, unsharded",
+                                  unsharded.run, flagship_counts)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    add_launches(totals, grew)
+    want = {k: v.cpu() for k, v in unsharded.params.items()}
+    del unsharded
+    gc.collect()
+    torch.cuda.empty_cache()
+    w0_rounds = [m.duration_s for m in rounds]
+    b_rounds = slice_runs["b_flagship"]["round_durations_s"]
+
+    # (w1) this process as a world of one rank over NCCL.
+    t0 = time.perf_counter()
+    initialize_distributed("nccl", init_method=f"file://{base_dir / 'w1_rendezvous'}",
+                           world_size=1, rank=0, device="cuda")
+    try:
+        w1 = mesh_flagship_rank(0, 1, (1,), str(base_dir), False)
+        torch.backends.cudnn.deterministic = deterministic
+    finally:
+        dist.destroy_process_group()
+    add_launches(totals, w1["counts"])
+    same = all(torch.equal(torch.from_numpy(w1["params"][k]), want[k]) for k in want)
+    print(f"[{card}] (w1) flagship on a world of one rank over NCCL ({time.perf_counter() - t0:.3f} s): "
+          f"round_s={w1['round_s']} ((b) {b_rounds}, (w0) unsharded {w0_rounds}); params "
+          f"bit-equal to (w0): {same}; launches={w1['counts']}; NCCL all-reduce of the [P] "
+          f"f32 aggregate ({4 * p} bytes) at world 1: {w1['nccl_allreduce_ms']:.6f} ms; "
+          f"peak_device_bytes={w1['peak_bytes']}")
+    if not same:
+        fail(f"(w1) the one-rank mesh run is {max_abs_gap(torch, w1['params'], want):.3e} "
+             "from the unsharded run, not bit-equal")
+    if w1["counts"] != {k: flagship_counts.get(k, 0) for k in w1["counts"]}:
+        fail(f"(w1) kernel launches {w1['counts']}")
+
+    # Two NCCL ranks on one card: refused before any process group, never gloo.
+    try:
+        initialize_distributed("nccl", init_method=f"file://{base_dir / 'w_refused'}",
+                               world_size=2, rank=0, device="cuda")
+        fail("(w) two NCCL ranks on one card were not refused")
+    except RuntimeError as e:
+        refused = ("NCCL refuses two ranks" in str(e)
+                   and torch.cuda.get_device_name(0) in str(e) and not dist.is_initialized())
+        print(f"[{card}] (w) a rank of two NCCL ranks on one card refused before the process "
+              f"group, naming the card: {refused} ({e})")
+        if not refused:
+            fail(f"(w) two NCCL ranks failed otherwise: {e}")
+
+    # (w2) four ranks on cuda:0 over gloo, mesh (2, 2, 1).
+    w2 = spawned(torch, card, "(w2) flagship, mesh (2, 2, 1)", mesh_flagship_rank, 4, "gloo",
+                 args=((2, 2, 1), str(base_dir), True))
+    add_launches(totals, rank_counts(w2))
+    add_launches(totals, rank_counts(w2, "validated_counts"))
+    gap = max_abs_gap(torch, w2[0]["params"], w1["params"])
+    ranks_same = all(all(torch.equal(torch.from_numpy(r["params"][k]),
+                                     torch.from_numpy(w2[0]["params"][k]))
+                         for k in w2[0]["params"]) for r in w2[1:])
+    for i, r in enumerate(w2):
+        ar, ag = r["collectives"]["all_reduce"], r["collectives"]["all_gather"]
+        print(f"[{card}] (w2) rank {i}: round_s={r['round_s']} launches={r['counts']} "
+              f"all_reduce {ar[0]} calls, {ar[1]} bytes, {ar[2]:.6f} s; all_gather {ag[0]} "
+              f"calls, {ag[1]} bytes, {ag[2]:.6f} s (2 rounds, each call synchronized, "
+              f"waits for the other ranks included); peak_device_bytes={r['peak_bytes']}; "
+              f"validated round {r['validated']} launches={r['validated_counts']}")
+        if r["counts"] != {k: {"weighted_sum_into": 4, "row_sq_norms": 4}.get(k, 0)
+                           for k in r["counts"]}:
+            fail(f"(w2) rank {i} kernel launches {r['counts']}")
+        if r["validated_counts"] != {k: int(k == "masked_weighted_mean_flat")
+                                     for k in r["validated_counts"]}:
+            fail(f"(w2) rank {i} validated round launches {r['validated_counts']}")
+    print(f"[{card}] (w2) 4 ranks against (w1): max_abs={gap:.3e} (tolerance {MESH_TOL}); "
+          f"every rank's params the same bits: {ranks_same}")
+    if gap > MESH_TOL or not ranks_same:
+        fail(f"(w2) params {gap} from (w1), ranks bit-identical: {ranks_same}")
+
+    # (w3) the base transformer on one rank (this process, no process group: the same
+    # mesh code), then on two ranks over gloo, mesh (1, 2); dense, then adapters.
+    population = lm_population(LM_CLIENTS, LM_SEQS, LM_BATCH, "base")
+    refs = []
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
+    for adapter in (False, True):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            one = lm_mesh_coordinator(base_dir / f"w3_one_{adapter}", adapter, population,
+                                      mesh_shape=(1,))
+            ref = run_lm_mesh(torch, ops, one)
+        finally:
+            torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+        del one
+        add_launches(totals, ref["counts"])
+        ref["params"] = {k: v.cpu() for k, v in ref["params"].items()}
+        refs.append(ref)
+    del population
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks = spawned(torch, card, "(w3) base dense and adapter rounds, mesh (1, 2)",
+                    mesh_lm_rank, 2, "gloo", args=(str(base_dir),))
+    for j, adapter in enumerate((False, True)):
+        tag = f"(w3) base {'adapter' if adapter else 'dense'} FedAdam round"
+        ref = refs[j]
+        add_launches(totals, rank_counts([r[j] for r in ranks]))
+        got = torch.load(base_dir / f"w3_{'adapter' if adapter else 'dense'}.pt")
+        same = all(torch.equal(got[k], ref["params"][k]) for k in ref["params"])
+        gap = 0.0 if same else max_abs_gap(torch, got, ref["params"])
+        print(f"[{card}] {tag} on one rank: round_s={ref['round_s']:.3f} "
+              f"loss={ref['loss']:.6f} model state {ref['state_after']} bytes "
+              f"peak_device_bytes={ref['peak_bytes']} launches={ref['counts']}")
+        for i, rank_out in enumerate(ranks):
+            r = rank_out[j]
+            share = r["state_after"] / ref["state_after"]
+            print(f"[{card}] {tag}, rank {i} of (1, 2): round_s={r['round_s']:.3f} "
+                  f"loss={r['loss']:.6f} model state between rounds {r['state_before']} -> "
+                  f"{r['state_after']} bytes ({share:.4f} of one rank's) "
+                  f"peak_device_bytes={r['peak_bytes']} launches={r['counts']}")
+            if not MESH_STATE_SHARE[0] <= share <= MESH_STATE_SHARE[1]:
+                fail(f"{tag}: rank {i} holds {share:.4f} of the one-rank model state")
+            if r["counts"] != ref["counts"]:
+                fail(f"{tag}: rank {i} launches {r['counts']}, one rank {ref['counts']}")
+        print(f"[{card}] {tag}: the (1, 2) mesh's params bit-equal to one rank's: {same} "
+              f"(max_abs {gap:.3e})")
+        if not same:
+            fail(f"{tag}: the (1, 2) mesh is {gap} from one rank, not bit-equal")
+        del got
+    del refs
+
+    # (w4) the command line under torchrun (one rank over NCCL), then --model-shards 2
+    # on one rank.
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", "1",
+         "--master_port", str(free_port()), "-m", "nanofed_tpu_torch.cli", "run",
+         "--distributed", "--model", "mlp", "--clients", "8", "--rounds", "1", "--epochs",
+         "1", "--train-size", "480", "--batch-size", "20",
+         "--out-dir", str(base_dir / "w4")], capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        fail(f"(w4) torchrun run --distributed exited {proc.returncode}: {proc.stderr[-2000:]}")
+    summary = json.loads(proc.stdout)
+    print(f"[{card}] (w4) torchrun --nproc_per_node 1 run --distributed (nccl): exit 0 in "
+          f"{time.perf_counter() - t0:.3f} s, rounds_completed={summary['rounds_completed']} "
+          f"params_device={summary['params_device']}")
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        code = cli.main(["run", "--model-shards", "2", "--model", "mlp", "--clients", "8",
+                         "--rounds", "1", "--train-size", "480", "--batch-size", "20",
+                         "--out-dir", str(base_dir / "w4_refused")])
+    message = ("model_shards=2 does not divide the 1 available devices — the 2-D mesh needs "
+               "a full (devices/N, N) clients x model grid")
+    print(f"[{card}] (w4) run --model-shards 2 on one rank: exit {code}, the JAX "
+          f"validator's message: {message in err.getvalue()}")
+    if code != 2 or message not in err.getvalue():
+        fail(f"(w4) --model-shards 2 on one rank: exit {code} {err.getvalue()[-1000:]}")
+
+    time_mesh_reduces(torch, ops, card)
+    print(f"[{card}] (w) phase wall_s={time.perf_counter() - t_phase:.1f}")
+    return totals
+
 def main() -> None:
     t_script = time.perf_counter()
     import torch
@@ -4922,7 +5381,8 @@ def main() -> None:
     records.update(phase_quantize(torch, ops, card))
     records["dequant_accumulate_flat"] = phase_dequant(torch, ops, card)
     with tempfile.TemporaryDirectory(dir=Path(__file__).resolve().parent / "runs") as tmp:
-        counts = phase_slice(torch, ops, run_experiment, card, Path(tmp))
+        slice_runs: dict = {}
+        counts = phase_slice(torch, ops, run_experiment, card, Path(tmp), slice_runs)
         secure_counts = phase_secure(torch, ops, card)
         tuned_counts = phase_autotune(torch, ops, run_experiment, card, Path(tmp))
         resume_counts = phase_resume(torch, ops, run_experiment, card, Path(tmp))
@@ -4936,11 +5396,12 @@ def main() -> None:
         cifar_counts = phase_cifar(torch, ops, card, Path(tmp))
         obs_counts = phase_observability(torch, ops, card, Path(tmp))
         lm_counts = phase_transformer(torch, ops, card, Path(tmp))
+        mesh_counts = phase_mesh(torch, ops, card, Path(tmp), slice_runs)
     wire_counts = phase_wire(torch, ops, card)
     counts = {k: counts[k] + secure_counts[k] + tuned_counts[k] + resume_counts[k]
               + network_resume_counts[k] + dp_counts[k] + scaffold_counts[k]
               + fused_counts[k] + cifar_counts[k] + obs_counts[k] + lm_counts[k]
-              + wire_counts.get(k, 0)
+              + mesh_counts[k] + wire_counts.get(k, 0)
               for k in counts}
     print(f"kernels: {json.dumps(counts)}")
     missing = [k for k, v in counts.items() if v == 0]

@@ -9,7 +9,9 @@ digests a run's ``telemetry.jsonl``, ``trace`` merges per-host telemetry streams
 one timeline, and ``info`` prints the environment and the model zoo.  ``--telemetry-dir``
 on ``run``, ``profile`` and ``serve`` says where the telemetry goes.  ``run``, ``bench``, ``profile`` and ``serve`` run on
 ``--device`` (default ``cuda``: without a card they raise unless given
-``--device cpu``).
+``--device cpu``).  ``run --distributed`` joins the world ``torchrun`` starts, and
+``--model-shards``/``--hosts`` lay the world's ranks out as a mesh
+(``parallel.mesh``).
 
 The port profiles by RUNNING each program (``observability.profiling``): the JAX
 package asks XLA's cost model and runs nothing, so ``profile`` and ``profile
@@ -37,18 +39,11 @@ LATER_SUBCOMMANDS: dict[str, tuple[str, str]] = {
 }
 
 # Flags of later slices, by subcommand: dest -> (flag, type, JAX default, item).
-_GPUS = "item 9b (several GPUs)"
 LATER_SLICE_FLAGS: dict[str, dict[str, tuple[str, type, Any, str]]] = {
     "run": {
-        "model_shards": ("--model-shards", int, 1, _GPUS),
-        "hosts": ("--hosts", int, 1, _GPUS),
-        "distributed": ("--distributed", bool, False, _GPUS),
         "strict": ("--strict", bool, False, "item 21 (analysis)"),
     },
-    "profile": {
-        "model_shards": ("--model-shards", int, 1, _GPUS),
-        "hosts": ("--hosts", int, 1, _GPUS),
-    },
+    "profile": {},
     "serve": {
         "chaos_plan": ("--chaos-plan", str, None,
                        "item 17 (multi-host federation and faults)"),
@@ -119,11 +114,53 @@ def _central_privacy(args: argparse.Namespace) -> tuple[Any, int | None]:
     return config, None
 
 
+def _distributed(args: argparse.Namespace) -> int | None:
+    """``--distributed``: join the world ``torchrun`` describes (``RANK``,
+    ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``) before anything
+    touches the device.  The backend follows the device, never a failure: ``gloo`` for
+    ``--device cpu``, ``nccl`` on the cards (one card per rank; ranks that would share
+    a card are refused)."""
+    from nanofed_tpu_torch.parallel.mesh import initialize_distributed
+
+    backend = "gloo" if args.device == "cpu" else "nccl"
+    try:
+        info = initialize_distributed(backend, device=args.device)
+    except (ValueError, RuntimeError) as e:
+        return _error(str(e))
+    print(f"# distributed: process {info['process_index']} of {info['process_count']}"
+          + (f" ({backend})" if info["process_count"] > 1 else ""), file=sys.stderr)
+    return None
+
+
+def _mesh_flags_ok(args: argparse.Namespace) -> int | None:
+    """Validate ``--hosts`` x ``--model-shards`` against the world's ranks (the JAX
+    validator's message, exit code 2)."""
+    from nanofed_tpu_torch.parallel.mesh import mesh_shape_for_topology, world_size
+
+    try:
+        mesh_shape_for_topology(args.hosts, args.model_shards, world_size())
+    except ValueError as e:
+        return _error(str(e))
+    return None
+
+
 def _cmd_run(args: argparse.Namespace) -> int:
+    import torch.distributed as dist
+
     from nanofed_tpu_torch.core.device import resolve_device
     from nanofed_tpu_torch.experiments import run_experiment
+    from nanofed_tpu_torch.parallel.mesh import is_primary
 
-    device = resolve_device(args.device)
+    if args.distributed and (code := _distributed(args)) is not None:
+        return code
+    try:
+        return _run(args, resolve_device(args.device), run_experiment, is_primary())
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _run(args: argparse.Namespace, device, run_experiment, primary: bool) -> int:
     robust = args.robust_trim is not None or args.robust_method is not None
     if robust and args.dp_epsilon is not None:
         return _error("--robust-trim cannot be combined with --dp-epsilon — the DP "
@@ -140,10 +177,14 @@ def _cmd_run(args: argparse.Namespace) -> int:
         pinned = [flag for flag, engaged in (
             ("--client-chunk", args.client_chunk is not None),
             ("--rounds-per-block", args.rounds_per_block != 1),
+            ("--model-shards", args.model_shards != 1),
+            ("--hosts", args.hosts != 1),
         ) if engaged]
         if pinned:
             return _error(f"--autotune cannot be combined with {', '.join(pinned)} — the "
                           "sweep picks those knobs; drop --autotune to set them by hand")
+    if (code := _mesh_flags_ok(args)) is not None:
+        return code
     central_privacy, code = _central_privacy(args)
     if code is not None:
         return code
@@ -178,9 +219,12 @@ def _cmd_run(args: argparse.Namespace) -> int:
         telemetry_dir=args.telemetry_dir,
         adapter_rank=args.adapter_rank,
         adapter_alpha=args.adapter_alpha,
+        model_shards=args.model_shards,
+        hosts=args.hosts,
         device=device,
     )
-    print(json.dumps(metrics, indent=2, default=str))
+    if primary:  # one summary for the world
+        print(json.dumps(metrics, indent=2, default=str))
     return 0
 
 
@@ -225,18 +269,30 @@ def _cmd_sweep(args: argparse.Namespace) -> int:
         format_candidate_table,
     )
 
+    from nanofed_tpu_torch.parallel.mesh import world_size
+
     device = resolve_device(args.device)
     mdl, client_data, training = _profile_inputs(args)
     pop = PopulationSpec.from_client_data(client_data)
     num_rounds = max(args.rounds_per_block, 8)
     adapter = _adapter(args)
+    # Explicit --client-chunk / --model-shards / --hosts pin that axis of the sweep to
+    # the one value, never ignored.
+    pins = {}
+    if args.client_chunk is not None:
+        pins["client_chunks"] = (args.client_chunk,)
+    if args.model_shards != 1:
+        pins["model_shards"] = (args.model_shards,)
+    if args.hosts != 1:
+        pins["hosts"] = (args.hosts,)
     space = None
-    if args.client_chunk is not None:  # pin that axis to the one value, never ignore it
-        # TuningSpace.default owns the adapter-rank ladder, so the pin keeps it.
+    if pins:
+        # TuningSpace.default owns the hosts rule and the adapter-rank ladder, so a
+        # pin keeps the other axes.
         space = dataclasses.replace(
-            TuningSpace.default(pop, 1, training.batch_size, num_rounds,
+            TuningSpace.default(pop, world_size(), training.batch_size, num_rounds,
                                 adapter_rank=args.adapter_rank),
-            client_chunks=(args.client_chunk,),
+            **pins,
         )
     telemetry = None
     if args.telemetry_dir is not None:
@@ -280,6 +336,8 @@ def _cmd_profile(args: argparse.Namespace) -> int:
     counted FLOPs and bytes, peak device bytes, measured time, roofline verdict)."""
     if args.sweep:
         return _cmd_sweep(args)
+    if (code := _mesh_flags_ok(args)) is not None:
+        return code
     from nanofed_tpu_torch.core.device import resolve_device
     from nanofed_tpu_torch.observability import format_cost_table
     from nanofed_tpu_torch.orchestration import Coordinator, CoordinatorConfig
@@ -538,6 +596,21 @@ def _add_device(p: argparse.ArgumentParser) -> None:
                    "raises unless given --device cpu)")
 
 
+def _add_mesh_flags(p: argparse.ArgumentParser, cmd: str) -> None:
+    what = "the round" if cmd == "run" else "the sweep's candidates"
+    p.add_argument(
+        "--model-shards", type=int, default=1, metavar="N",
+        help=f"run {what} on a (ranks/N, N) clients x model mesh: params and the server "
+        "state split N ways over the model axis (each leaf's largest divisible "
+        "dimension). N must divide the world's ranks; 1 = replicated")
+    p.add_argument(
+        "--hosts", type=int, default=1, metavar="H",
+        help=f"run {what} on an (H, ranks/(H*model-shards), model-shards) hosts x "
+        "clients x model mesh: the reduce is host-local first, then one all-reduce "
+        "across hosts, and cohorts sample host-locally. H must be a multiple of the "
+        "node count; H * model-shards must divide the world's ranks")
+
+
 def _add_later_flags(p: argparse.ArgumentParser, cmd: str) -> None:
     for dest, (flag, kind, default, item) in LATER_SLICE_FLAGS[cmd].items():
         note = f"not in nanofed_tpu_torch yet (ROADMAP queue A {item})"
@@ -621,6 +694,14 @@ def build_parser() -> argparse.ArgumentParser:
     run.add_argument("--adapter-alpha", type=float, default=None,
                      help="LoRA alpha: the merged delta is (alpha/rank) * A @ B "
                      "(default: alpha = rank, i.e. scale 1.0)")
+    _add_mesh_flags(run, "run")
+    run.add_argument(
+        "--distributed", action="store_true",
+        help="join the world torchrun describes (RANK, WORLD_SIZE, LOCAL_RANK, "
+        "MASTER_ADDR, MASTER_PORT) before anything else: every rank runs this command "
+        "and the mesh spans the world's ranks; gloo with --device cpu, nccl on the "
+        "cards (one card per rank). Launch with python -m torch.distributed.run "
+        "--nproc_per_node N -m nanofed_tpu_torch.cli run --distributed ...")
     _add_telemetry_dir(run, "write the run's telemetry.jsonl (phase spans + round records "
                        "+ final metrics snapshot) here instead of the default <out-dir>; "
                        "read it back with `nanofed-tpu-torch metrics-summary`")
@@ -696,6 +777,7 @@ def build_parser() -> argparse.ArgumentParser:
                          "table is sized to the adapter payload and the ranked table "
                          "grows a 'lora' column")
     profile.add_argument("--dtype", default=None, choices=["bfloat16", "float32"])
+    _add_mesh_flags(profile, "profile")
     profile.add_argument("--no-scaffold", action="store_true",
                          help="skip the SCAFFOLD round program")
     profile.add_argument("--sweep", action="store_true",

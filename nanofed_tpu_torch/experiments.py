@@ -10,12 +10,13 @@ synthetic fallback), else synthetic data of the model's shape.
 (robust aggregation), the client lr schedule (``lr_schedule``, ``lr_min_factor``,
 ``lr_decay_every``, ``lr_decay_gamma``), ``profile_programs``, ``autotune`` and
 ``retune_every``, ``scaffold``, ``rounds_per_block`` (fused multi-round blocks),
-``adapter_rank``/``adapter_alpha`` (LoRA adapter federation) and ``telemetry_dir`` are
-taken as the JAX runner takes them.  Update validation is not a runner flag in either
-package: it is ``Coordinator(validation=...)``.  The JAX runner's other flags (mesh
-axes, strict mode) come with later slices;
-passing one with a value other than the JAX default raises ``NotImplementedError``
-naming it, never a silent ignore.
+``adapter_rank``/``adapter_alpha`` (LoRA adapter federation), ``telemetry_dir`` and
+the mesh axes ``model_shards``/``hosts`` (over the ranks of the world, when this
+process is one of several) are taken as the JAX runner takes them.  Update validation
+is not a runner flag in either package: it is ``Coordinator(validation=...)``.  The
+JAX runner's strict mode comes with a later slice; passing it with a value other
+than the JAX default raises ``NotImplementedError`` naming it, never a silent
+ignore.
 """
 
 from __future__ import annotations
@@ -38,13 +39,12 @@ from nanofed_tpu_torch.data import (
 )
 from nanofed_tpu_torch.models import get_model
 from nanofed_tpu_torch.orchestration import Coordinator, CoordinatorConfig, RoundStatus
+from nanofed_tpu_torch.parallel.mesh import mesh_shape_for_topology, world_size
 from nanofed_tpu_torch.trainer import TrainingConfig
 from nanofed_tpu_torch.utils.logger import Logger
 
 # The JAX runner's flags that later slices bring, with the JAX defaults (accepted).
 LATER_SLICE_FLAGS: dict[str, Any] = {
-    "model_shards": 1,
-    "hosts": 1,
     "strict": False,
 }
 
@@ -120,6 +120,8 @@ def run_experiment(
     telemetry_dir: str | Path | None = None,
     adapter_rank: int | None = None,
     adapter_alpha: float | None = None,
+    model_shards: int = 1,
+    hosts: int = 1,
     **kwargs: Any,
 ) -> dict[str, Any]:
     """Run a simulated federated experiment on ``device`` (default: the GPU) and return
@@ -146,8 +148,15 @@ def run_experiment(
     goes (default: ``out_dir``, as metrics are saved).  ``adapter_rank`` federates
     rank-R LoRA adapters over the frozen base (``Coordinator(adapter=...)``), with
     ``adapter_alpha`` scaling the delta by alpha/rank; the summary then carries an
-    ``adapter`` block.  Remaining keyword arguments go to the partitioner (e.g.
-    ``proportions=[0.75, 0.25]`` for unequal IID shares)."""
+    ``adapter`` block.  ``model_shards > 1`` arranges the world's ranks as the 2-D
+    ``(ranks/model_shards, model_shards)`` clients x model mesh (params and server
+    state sharded over the model axis) and ``hosts > 1`` as the 3-D ``(hosts,
+    ranks/(hosts*model_shards), model_shards)`` mesh with the two-stage reduce;
+    ``hosts * model_shards`` must divide the world size (``parallel.mesh.
+    mesh_shape_for_topology``), and the summary then carries ``mesh_shape``.  Every
+    rank of the world calls this with the same arguments.  Remaining keyword
+    arguments go to the partitioner (e.g. ``proportions=[0.75, 0.25]`` for unequal
+    IID shares)."""
     dev = resolve_device(device)
     refused = [
         name for name, default in LATER_SLICE_FLAGS.items()
@@ -164,9 +173,12 @@ def run_experiment(
             "retune_every requires autotune=True: the online retuner re-ranks "
             "the sweep's candidate table — without a sweep there is no table"
         )
+    mesh_shape = mesh_shape_for_topology(hosts, model_shards, world_size())
     pinned = [name for name, engaged in (
         ("client_chunk", client_chunk is not None),
         ("rounds_per_block", rounds_per_block != 1),
+        ("model_shards", model_shards != 1),
+        ("hosts", hosts != 1),
     ) if engaged]
     if autotune and pinned:
         raise NanoFedError(
@@ -219,7 +231,7 @@ def run_experiment(
     else:
         coordinator = Coordinator(
             model=mdl, train_data=client_data, config=config, training=training,
-            client_chunk=client_chunk, **shared_kwargs,
+            client_chunk=client_chunk, mesh_shape=mesh_shape, **shared_kwargs,
         )
     rounds = coordinator.run()
     final_eval = coordinator.evaluate()
@@ -232,7 +244,8 @@ def run_experiment(
     if coordinator.adapter is not None:
         adapter_summary = {
             **coordinator.adapter.to_dict(),
-            **adapter_param_count(coordinator.adapter, coordinator.base_params),
+            **adapter_param_count(coordinator.adapter,
+                                  coordinator._base_like or coordinator.base_params),
             "merges": coordinator._merge_count,
         }
     return {
@@ -254,4 +267,7 @@ def run_experiment(
         "round_durations_s": [r.duration_s for r in rounds],
         "devices": [str(dev)],
         "params_device": str(next(iter(coordinator.params.values())).device),
+        # The realized mesh (the tuner may have picked a 2-D layout).
+        **({"mesh_shape": list(coordinator.mesh.shape)}
+           if coordinator.mesh is not None and len(coordinator.mesh.shape) > 1 else {}),
     }

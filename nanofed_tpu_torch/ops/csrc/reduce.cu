@@ -10,9 +10,11 @@
 // B2 replaces nanofed_tpu/ops/reduce.py masked_weighted_mean_flat
 // (_masked_wmean_kernel), the validated round's sanitize-then-reduce in one pass:
 //
-//   sanitized:   out[p]  = sum_c w[c] * s(x[c, p]) / max(sum_c w[c], 1e-12),
+//   sanitized:   out[p]  = sum_c w[c] * s(x[c, p]) / max(denom or sum_c w[c], 1e-12),
 //                s(v) = isfinite(v) ? v : 0
 //
+// (a rank of a mesh passes the whole cohort's valid weight as denom, so the ranks'
+// outputs sum to the cohort's mean)
 // with w = weights * valid formed beside the launch (an O(C) tensor op).  Each
 // element is sanitized in registers BEFORE its FMA: a rejected client's NaN must be
 // zeroed as a value, because 0 * NaN = NaN, and the sanitized [C, P] stack is never
@@ -392,8 +394,8 @@ const void* kernel_of(int vec, bool accumulate, bool sanitized, int* threads) {
 }  // namespace
 
 // x: [C, P] f32 with row stride ldx (elements); w: [C] f32; denom: one f32 on the
-// device or null (then sum(w)); out: [P] f32; sanitized selects B2 (normalised by
-// sum(w) only).  vec is the layout's load width (4: the bulk-copy ring, which needs
+// device or null (then sum(w)); out: [P] f32; sanitized selects B2 (normalised, never
+// accumulated).  vec is the layout's load width (4: the bulk-copy ring, which needs
 // ldx % 4 == 0 and x 16-byte aligned; 2 or 1: register loads); blocks, slab, stages
 // and shared_bytes are the host's launch plan.  Returns cudaErrorInvalidValue for a
 // plan or a form it cannot run, else cudaGetLastError().
@@ -410,7 +412,7 @@ extern "C" int nf_weighted_sum(const float* x, int64_t ldx, const float* w, int6
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (sanitized) {
-    if (accumulate || denom != nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    if (accumulate) return static_cast<int>(cudaErrorInvalidValue);
     return static_cast<int>(launch<false, true>(x, ldx, w, C, P, denom, out, vec, blocks,
                                                 stages, shared_bytes, s));
   }

@@ -12,7 +12,8 @@ kernel with every element sanitized in registers.  Three entry points:
 * :func:`weighted_sum_into` (B1) — ``acc += sum_c w_c x[c]`` in place (the streamed
   round folds each client chunk into a running sum);
 * :func:`masked_weighted_mean_flat` (B2) — the validated round's reduce: the mean
-  over the valid clients of the deltas with NaN and inf zeroed, in one read pass.
+  over the valid clients of the deltas with NaN and inf zeroed, in one read pass
+  (with ``denom``, a rank of a mesh divides by the whole cohort's valid weight).
 
 On CPU tensors each takes its plain version (``*_plain``, same module), which is
 what the CPU tests hold against the JAX package.  On CUDA tensors it launches the
@@ -267,37 +268,44 @@ weighted_sum_into.launches = 0
 
 
 def masked_weighted_mean_flat_plain(
-    x: torch.Tensor, weights: torch.Tensor, valid: torch.Tensor
+    x: torch.Tensor, weights: torch.Tensor, valid: torch.Tensor,
+    denom: float | torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Plain PyTorch version of :func:`masked_weighted_mean_flat`, as the TPU
     function writes it: normalised coefficients, then the sanitized contraction."""
     w = weights * valid.to(torch.float32)
-    coefs = w / torch.clamp(w.sum(), min=1e-12)
+    d = w.sum() if denom is None else torch.as_tensor(denom, dtype=torch.float32)
+    coefs = w / torch.clamp(d.to(x.device), min=1e-12)
     sanitized = torch.where(torch.isfinite(x), x, torch.zeros((), device=x.device))
     return (coefs[:, None] * sanitized).sum(0)
 
 
 def masked_weighted_mean_flat(
-    x: torch.Tensor, weights: torch.Tensor, valid: torch.Tensor
+    x: torch.Tensor, weights: torch.Tensor, valid: torch.Tensor,
+    denom: float | torch.Tensor | None = None,
 ) -> torch.Tensor:
     """``[C, P] x [C] weights x [C] validity -> [P]``: the weighted mean over the VALID
     clients of ``x`` with NaN and inf zeroed, equal to ``weighted_mean_flat(
     sanitize(x), weights * valid)`` with the sanitized stack never written.  ``valid``
     is bool or 0/1; an all-invalid cohort gives zeros.  ``x`` is float32 with
-    contiguous rows; its row stride may exceed P."""
+    contiguous rows; its row stride may exceed P.  ``denom`` replaces the valid
+    weights' sum as the divisor, as B1's: on a mesh it is the whole cohort's valid
+    weight, so the ranks' results sum to the cohort's mean."""
     c, p, ldx = check_rows("masked_weighted_mean_flat", x)
     check_vector("masked_weighted_mean_flat", "weights", weights, c)
     if valid.ndim != 1 or valid.shape[0] != c:
         raise ValueError(f"masked_weighted_mean_flat: valid must be [{c}], got "
                          f"{tuple(valid.shape)}")
-    if not uses_kernel(x, weights, valid):
-        return masked_weighted_mean_flat_plain(x, weights, valid)
+    extra = [denom] if isinstance(denom, torch.Tensor) else []
+    if not uses_kernel(x, weights, valid, *extra):
+        return masked_weighted_mean_flat_plain(x, weights, valid, denom)
     w = weights * valid.to(torch.float32)  # the O(C) coefficient work, beside the kernel
     out = torch.empty(p, dtype=torch.float32, device=x.device)
-    _launch("masked_weighted_mean_flat", x, ldx, w, None, out, accumulate=False,
-            sanitized=True)
+    _launch("masked_weighted_mean_flat", x, ldx, w, _denom_tensor(denom, x.device), out,
+            accumulate=False, sanitized=True)
     kernel_launched(masked_weighted_mean_flat,
-                    4 * c * p + 4 * c + valid.element_size() * c + 4 * p)
+                    4 * c * p + 4 * c + valid.element_size() * c + 4 * p
+                    + (0 if denom is None else 4))
     return out
 
 

@@ -87,9 +87,23 @@ The round programs are catalogued as ``adapter_round_step`` and
 ``adapter_round_block``.  SCAFFOLD and a custom ``local_fit``/``grad_fn`` are refused
 with it, as in the JAX package.
 
-The JAX coordinator's ``chaos=``, ``mesh=``, ``mesh_shape=`` and ``strict=`` come
-with later slices: a value other than the JAX default raises
-``NotImplementedError`` naming the ROADMAP item (:data:`LATER_SLICE_KEYWORDS`).
+A world of ranks (``mesh=`` or ``mesh_shape=``, ``parallel.mesh``; the JAX
+coordinator's ``:274-420``): every rank runs this coordinator with the same arguments.
+Clients pad to the client shards; each rank builds the whole partition on the host
+(deterministic) and copies only its host row's clients to its device
+(``host_client_slice``), draws the same cohorts (host-local stratified draws over a
+hosts axis, bit-equal to the JAX package's), and trains its slots of the step.  Params
+and the server state are the rank's model shard; evaluation, checkpoints and
+versioned models use the gathered full params, in the reference's layout, so a run
+resumes on another mesh shape or on one rank.  Only rank 0 writes the metrics JSON,
+checkpoints, versioned models and telemetry.  In a world (an initialised process
+group) a coordinator with neither argument spans the world on the 1-D mesh, as the
+JAX coordinator spans every device; without one it is the one-device coordinator.
+SCAFFOLD and program profiling on a mesh come with ROADMAP queue A item 9c.
+
+The JAX coordinator's ``chaos=`` and ``strict=`` come with later slices: a value
+other than the JAX default raises ``NotImplementedError`` naming the ROADMAP item
+(:data:`LATER_SLICE_KEYWORDS`).
 """
 
 from __future__ import annotations
@@ -105,6 +119,7 @@ from typing import Any, Callable, Iterator
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from nanofed_tpu_torch.adapters import (
     AdapterSpec,
@@ -139,7 +154,26 @@ from nanofed_tpu_torch.orchestration.types import (
     TrainingProgress,
     cohort_size,
 )
-from nanofed_tpu_torch.parallel.multi_round import build_round_block, round_seeds
+from nanofed_tpu_torch.parallel.mesh import (
+    Mesh,
+    MeshLayout,
+    broadcast_object,
+    client_shard_count,
+    client_slice,
+    host_axis_size,
+    host_client_slice,
+    is_primary,
+    make_mesh,
+    mesh_shape_for_topology,
+    pad_client_count,
+    pad_clients,
+    world_size,
+)
+from nanofed_tpu_torch.parallel.multi_round import (
+    build_round_block,
+    pad_permutations,
+    round_seeds,
+)
 from nanofed_tpu_torch.parallel.round_step import (
     FrozenBase,
     build_round_step,
@@ -188,8 +222,6 @@ _log = logging.getLogger(__name__)
 #: which is accepted, and the ROADMAP queue A item that lands it).
 LATER_SLICE_KEYWORDS: dict[str, tuple[Any, str]] = {
     "chaos": (None, "item 17 (multi-host federation and faults)"),
-    "mesh": (None, "item 9b (several GPUs)"),
-    "mesh_shape": (None, "item 9b (several GPUs)"),
     "strict": (False, "item 21 (analysis)"),
 }
 
@@ -262,7 +294,8 @@ class CoordinatorConfig:
 
 
 class Coordinator:
-    """Drives simulated federated training on one device."""
+    """Drives simulated federated training on one device, or as one rank of a world
+    (``mesh=``/``mesh_shape=``)."""
 
     @classmethod
     def from_autotune(
@@ -290,10 +323,11 @@ class Coordinator:
         single-valued ``tuning_space``).  With ``adapter=`` the sweep profiles the
         frozen-base round on the rank ladder around the spec's rank, and the
         coordinator federates at the winner's rank."""
-        if "client_chunk" in kwargs:
+        owned = [k for k in ("client_chunk", "mesh_shape", "mesh") if k in kwargs]
+        if owned:
             raise NanoFedError(
-                "from_autotune owns client_chunk — the tuner picks it; pin an axis "
-                "with a single-valued tuning_space instead"
+                f"from_autotune owns {', '.join(owned)} — the tuner picks it; pin an "
+                "axis with a single-valued tuning_space instead"
             )
         if kwargs.get("scaffold"):
             raise NanoFedError(
@@ -325,6 +359,9 @@ class Coordinator:
             training=dataclasses.replace(training, batch_size=winner.batch_size),
             client_chunk=winner.client_chunk,
             adapter=adapter_spec,
+            # Every rank builds the mesh of rank 0's pick (autotune broadcasts it).
+            mesh_shape=mesh_shape_for_topology(
+                winner.hosts, winner.model_shards, world_size()),
             **kwargs,
         )
         coord.autotune_result = result
@@ -365,6 +402,8 @@ class Coordinator:
         scaffold: bool = False,
         telemetry_dir: str | Path | None = None,
         adapter: AdapterSpec | None = None,
+        mesh: Mesh | None = None,
+        mesh_shape: tuple[int, ...] | None = None,
         **later_slice: Any,
     ) -> None:
         for name, value in later_slice.items():
@@ -379,6 +418,21 @@ class Coordinator:
                     f"with ROADMAP queue A {item} (run nanofed_tpu for it)"
                 )
         self.device = resolve_device(device)
+        if mesh is not None and mesh_shape is not None:
+            raise ValueError(
+                "pass either mesh= (a prebuilt Mesh) or mesh_shape= "
+                "((n_client_shards, n_model_shards) or (n_hosts, "
+                "n_client_shards, n_model_shards)), not both"
+            )
+        if mesh is None and (mesh_shape is not None or dist.is_initialized()):
+            mesh = make_mesh(mesh_shape, device=self.device)
+        self.mesh = mesh
+        if mesh is not None and scaffold:
+            raise NotImplementedError(
+                "scaffold=True on a mesh (the control stack sharded over clients) comes "
+                "with ROADMAP queue A item 9c; run it on one device"
+            )
+        self._primary = is_primary()
         self.model = model
         self.config = config
         self.model_manager = model_manager
@@ -403,8 +457,22 @@ class Coordinator:
         self._secret_sampling_rng = np.random.default_rng()
 
         self.num_clients = int(train_data.x.shape[0])
-        self._data = train_data.to(self.device)
-        self._num_samples = self._data.mask.sum(1)
+        # Clients pad to the client shards; a rank holds its host row's clients.
+        n_shards = 1 if mesh is None else client_shard_count(mesh)
+        self._n_hosts = 1 if mesh is None else host_axis_size(mesh)
+        self._padded_clients = pad_client_count(self.num_clients, n_shards)
+        self._rows_per_host = self._padded_clients // self._n_hosts
+        if mesh is None:
+            self._row0 = 0
+            self._data = train_data.to(self.device)
+            self._num_samples = self._data.mask.sum(1)
+        else:
+            padded = pad_clients(train_data, self._padded_clients)
+            self._row0, row_stop = host_client_slice(self._padded_clients, mesh)
+            self._data = padded.select(slice(self._row0, row_stop)).to(self.device)
+            # Sample counts of the whole population, from the host copy.
+            self._num_samples = torch.as_tensor(
+                np.asarray(padded.mask, dtype=np.float32).sum(1)).to(self.device)
         init_gen = torch.Generator().manual_seed(config.seed)
         initial = {name: p.to(self.device) for name, p in model.init(init_gen).items()}
         # Adapter mode: the federated params are the adapter tree; the base stays on
@@ -432,6 +500,18 @@ class Coordinator:
             self.params: Params = init_adapters(adapter, initial, rng=config.seed)
         else:
             self.params = initial
+        # On a mesh params, base and server state live as this rank's model shard;
+        # the layouts know the full shapes.
+        self._layout = self._base_layout = None
+        self._params_like = self._base_like = None
+        if mesh is not None:
+            self._params_like = {k: v.to("meta") for k, v in self.params.items()}
+            self._layout = MeshLayout(mesh, self._params_like)
+            self.params = self._layout.shard_params(self.params)
+            if self.base_params is not None:
+                self._base_like = {k: v.to("meta") for k, v in self.base_params.items()}
+                self._base_layout = MeshLayout(mesh, self._base_like)
+                self.base_params = self._base_layout.shard_params(self.base_params)
         self.server_state = init_server_state(self.strategy, self.params)
 
         if robust is not None and self.cohort_size < robust_floor(robust):
@@ -447,9 +527,26 @@ class Coordinator:
         # divide the cohort keeps the full-N path, as in the JAX package.
         self._cohort_mode = self.cohort_size < self.num_clients
         if self._cohort_mode and client_chunk is not None:
-            if client_chunk < self.cohort_size and self.cohort_size % client_chunk != 0:
+            per_dev = pad_client_count(self.cohort_size, n_shards) // n_shards
+            if client_chunk < per_dev and per_dev % client_chunk != 0:
                 self._cohort_mode = False
-        self._step_clients = self.cohort_size if self._cohort_mode else self.num_clients
+        self._step_clients = (pad_client_count(self.cohort_size, n_shards)
+                              if self._cohort_mode else self._padded_clients)
+        # Host-local cohorts over a hosts axis: each host's slot segment only ever
+        # references that host's clients (see _sample_cohort/_place_cohort).
+        self._slots_per_host = self._step_clients // self._n_hosts
+        if self._cohort_mode and self._n_hosts > 1:
+            caps = [
+                min(max(0, stop - start), self._slots_per_host)
+                for start, stop in self._host_populations()
+            ]
+            if sum(caps) < self.cohort_size:
+                raise NanoFedError(
+                    f"cohort_size {self.cohort_size} exceeds the hosts-axis "
+                    f"capacity (per-host caps {caps} = min(resident clients, "
+                    f"slot segment {self._slots_per_host})) — shrink the "
+                    "cohort or raise participation"
+                )
         if (
             config.lr_schedule != "constant"
             and local_fit is not None
@@ -487,8 +584,9 @@ class Coordinator:
             central_privacy=central_privacy, validation=validation, robust=robust,
             grad_fn=grad_fn, local_fit=local_fit,
             frozen_base=None if adapter is None else FrozenBase(
-                base_like=self.base_params,
+                base_like=self.base_params if mesh is None else self._base_like,
                 bind=lambda base: make_adapter_apply(model.apply, adapter, base)),
+            **({} if mesh is None else {"mesh": mesh, "params_like": self._params_like}),
         )
         if scaffold:
             self._round_step = build_scaffold_round_step(
@@ -524,7 +622,7 @@ class Coordinator:
         self.history: list[RoundMetrics] = []
         self._last_client_detail: dict[str, Any] | None = None
         self.base_dir = Path(config.base_dir)
-        if config.save_metrics:
+        if config.save_metrics and self._primary:
             (self.base_dir / "metrics").mkdir(parents=True, exist_ok=True)
 
         # Observability: round and phase metrics always flow into the process
@@ -536,11 +634,14 @@ class Coordinator:
             if telemetry_dir is not None
             else (self.base_dir if config.save_metrics else None)
         )
-        self.telemetry = RunTelemetry(tel_dir) if tel_dir is not None else None
+        self.telemetry = (RunTelemetry(tel_dir)
+                          if tel_dir is not None and self._primary else None)
         if self.telemetry is not None:
-            # One process on one device: the JAX record's single-host geometry.
+            # The world's geometry (one process on one device without a mesh).
+            world = 1 if mesh is None else mesh.world_size
             self.telemetry.record(
-                "topology", process_count=1, hosts=1, mesh_shape=[1], devices=1,
+                "topology", process_count=world, hosts=self._n_hosts,
+                mesh_shape=[1] if mesh is None else list(mesh.shape), devices=world,
                 num_clients=self.num_clients,
             )
             if adapter is not None:
@@ -548,7 +649,7 @@ class Coordinator:
                 # metrics-summary; the final merge count follows at the run's end.
                 self.telemetry.record(
                     "adapter", **adapter.to_dict(),
-                    **adapter_param_count(adapter, self.base_params),
+                    **adapter_param_count(adapter, self._base_like or self.base_params),
                 )
         self._tracer = (
             self.telemetry.tracer
@@ -606,8 +707,14 @@ class Coordinator:
             self.c_stack = from_checkpoint_stack(
                 server_state["scaffold_c_stack"], self.params, self.num_clients)
             server_state = server_state["opt"]
-        self.params = from_checkpoint_params(restored.params, self.params)
-        self.server_state = from_numpy_server_state(server_state, self.strategy, self.params)
+        # A checkpoint holds the full params and state; a mesh rank keeps its shard.
+        params = from_checkpoint_params(restored.params, self.full_params())
+        state = from_numpy_server_state(server_state, self.strategy, params)
+        if self._layout is not None:
+            params = self._layout.shard_params(params)
+            state = {k: self._layout.slice_shard(v) if torch.is_tensor(v) else v
+                     for k, v in state.items()}
+        self.params, self.server_state = params, state
         accountant_state = restored.metadata.metrics.get("privacy_accountant")
         if self.privacy_accountant is not None and accountant_state is not None:
             self.privacy_accountant.load_state_dict(accountant_state)
@@ -714,6 +821,11 @@ class Coordinator:
         call, a counting call and timed calls of the round step on clones of the
         state), publish the ``nanofed_program_*`` gauges, and return the reports.
         Reports are cached — a second call is free unless ``force``."""
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "profile_programs() on a mesh comes with ROADMAP queue A item 9c; "
+                "profile the one-device coordinator"
+            )
         reports: list[ProgramCostReport] = []
         for name in self.program_catalog.names():
             cached = self.program_catalog.report(name) is not None and not force
@@ -791,7 +903,8 @@ class Coordinator:
         if self.current_round - self._last_retune_round < cfg.retune_every:
             return
         self._last_retune_round = self.current_round
-        decision = self.retuner.propose(self._retune_candidate)
+        # Ranks measure different round times: rank 0's verdict holds for all.
+        decision = broadcast_object(self.retuner.propose(self._retune_candidate))
         applied = False
         if decision.swap:
             applied = self._apply_retune(decision)
@@ -842,7 +955,8 @@ class Coordinator:
         cfg = self.config
         return build_round_block(
             self.model, self.training, self.strategy,
-            num_clients=self.num_clients, step_clients=self._step_clients,
+            num_clients=self.num_clients, padded_clients=self._padded_clients,
+            step_clients=self._step_clients,
             cohort_size=self.cohort_size, dropout_rate=cfg.dropout_rate,
             min_completion_rate=cfg.min_completion_rate,
             grad_fn=ctx["grad_fn"], local_fit=ctx["local_fit"],
@@ -852,6 +966,7 @@ class Coordinator:
             # Explicit, never derived: the block lays out the mask as _train_block
             # builds it (full-N when the chunk does not divide the cohort).
             cohort_mode=self._cohort_mode, device=self.device,
+            mesh=self.mesh, params_like=self._params_like,
         )
 
     def _rebuild_round_programs(self, client_chunk: int | None, rounds_per_block: int) -> None:
@@ -921,7 +1036,7 @@ class Coordinator:
             # generator early may resume with a fresh start_training(), and a closed
             # sink would drop every later record.
             done = self.current_round >= self.config.num_rounds
-            if self.retuner is not None and done:
+            if self.retuner is not None and done and self._primary:
                 # The next run's cache hit starts from these measurements.
                 written = self.retuner.write_back()
                 if self.telemetry is not None:
@@ -949,10 +1064,13 @@ class Coordinator:
         checkpoint and the versioned model: ``self.params`` already holds the block's
         END state, which is persisted only under the block's last round id."""
         if self.state_store is not None and persist_state:
+            # On a mesh every rank gathers (a collective); rank 0 writes.
+            params, state = self.full_params(), self.full_server_state()
+        if self.state_store is not None and persist_state and self._primary:
             ckpt_metrics = metrics.to_dict()
             if self.privacy_accountant is not None:
                 ckpt_metrics["privacy_accountant"] = self.privacy_accountant.state_dict()
-            server_state: Any = to_numpy_server_state(self.server_state, self.params)
+            server_state: Any = to_numpy_server_state(state, params)
             if self.scaffold:
                 # The controls are round state: resuming without them would restart
                 # every client's correction from zero.
@@ -964,26 +1082,27 @@ class Coordinator:
                 }
             self.state_store.checkpoint(
                 round_number=metrics.round_id,
-                params=to_numpy_params(self.params),
+                params=to_numpy_params(params),
                 server_state=server_state,
                 metrics=ckpt_metrics,
                 status="COMPLETED" if metrics.status == RoundStatus.COMPLETED else "FAILED",
             )
-        if self.config.save_metrics:
+        if self.config.save_metrics and self._primary:
             self._save_round_metrics(metrics)
         if (
             self.model_manager is not None
             and persist_state
             and metrics.status == RoundStatus.COMPLETED
         ):
-            save_params = self.params
+            save_params = self.full_params()
             metadata = {"round": metrics.round_id, "metrics": metrics.agg_metrics}
             if self.adapter is not None:
                 # A versioned model must run for a consumer that knows nothing of
                 # adapters: the MERGED params.  Checkpoints stay adapter-shaped.
                 save_params = self.merged_params()
                 metadata["adapter"] = self.adapter.to_dict()
-            self.model_manager.save_model(save_params, metadata=metadata)
+            if self._primary:
+                self.model_manager.save_model(save_params, metadata=metadata)
 
     def _sample_cohort(self, round_id: int) -> np.ndarray:
         """This round's surviving cohort: the JAX package's numpy draws exactly.  Under
@@ -993,27 +1112,97 @@ class Coordinator:
             host_rng = self._secret_sampling_rng
         else:
             host_rng = np.random.default_rng(self.config.seed * 100_003 + round_id)
-        sampled = host_rng.choice(self.num_clients, size=self.cohort_size, replace=False)
+        if self._n_hosts > 1 and self._cohort_mode:
+            # Host-local stratified draw: every host's slot segment is filled from
+            # the clients it holds (the draw order differs from the 1-D mesh's).
+            sampled = self._sample_host_local(host_rng)
+        else:
+            sampled = host_rng.choice(self.num_clients, size=self.cohort_size,
+                                      replace=False)
         if self.config.dropout_rate > 0:
             keep = host_rng.random(len(sampled)) >= self.config.dropout_rate
             sampled = sampled[keep]
+        if self.central_privacy is not None:
+            sampled = broadcast_object(sampled)  # rank 0's secret draw, on every rank
         return sampled
 
+    def _host_populations(self) -> list[tuple[int, int]]:
+        """Per-host resident client id ranges ``[(start, stop), ...]``: host h holds
+        the padded rows ``[h*rows_per_host, (h+1)*rows_per_host)``, clipped to the
+        real clients."""
+        return [
+            (h * self._rows_per_host,
+             min((h + 1) * self._rows_per_host, self.num_clients))
+            for h in range(self._n_hosts)
+        ]
+
+    def _sample_host_local(self, host_rng: np.random.Generator) -> np.ndarray:
+        """Stratified cohort draw over the hosts axis, the JAX coordinator's draw for
+        draw: proportional quotas with randomized largest-remainder rounding (each
+        leftover slot to a host drawn with weight its outstanding remainder, uniform
+        once remainders are spent), capped by each host's clients and slot segment,
+        then each host's quota drawn without replacement from its own range."""
+        ranges = self._host_populations()
+        pops = [max(0, stop - start) for start, stop in ranges]
+        total = sum(pops)
+        exact = [self.cohort_size * p / total for p in pops]
+        quotas = [int(q) for q in exact]
+        caps = [min(p, self._slots_per_host) for p in pops]
+        quotas = [min(q, c) for q, c in zip(quotas, caps)]
+        short = self.cohort_size - sum(quotas)
+        while short > 0:
+            open_hosts = [h for h in range(self._n_hosts) if quotas[h] < caps[h]]
+            if not open_hosts:
+                raise NanoFedError(
+                    f"cohort_size {self.cohort_size} exceeds the hosts-axis "
+                    f"capacity (per-host caps {caps} = min(resident clients, "
+                    f"slot segment {self._slots_per_host})) — shrink the "
+                    "cohort or raise participation"
+                )
+            w = np.array([max(exact[h] - quotas[h], 0.0) for h in open_hosts])
+            if w.sum() <= 0:
+                w = np.ones(len(open_hosts))
+            pick = open_hosts[int(host_rng.choice(len(open_hosts), p=w / w.sum()))]
+            quotas[pick] += 1
+            short -= 1
+        parts = []
+        for (start, _), pop, quota in zip(ranges, pops, quotas):
+            if quota > 0:
+                parts.append(start + host_rng.choice(pop, size=quota, replace=False))
+        return np.concatenate(parts) if parts else np.zeros(0, dtype=np.int64)
+
     def _place_cohort(self, survived: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
-        """Front-pack the survivors into the step's slots; padding slots alias row 0
-        with weight 0."""
+        """Lay the survivors into the step's slots.  One host: front-packed, padding
+        slots alias row 0 with weight 0.  A hosts axis: each host's survivors fill its
+        slot segment, whose padding slots alias the host's first row (never another
+        host's)."""
         idx = np.zeros(self._step_clients, dtype=np.int64)
         mask = np.zeros(self._step_clients, dtype=np.float32)
-        idx[: len(survived)] = survived
-        mask[: len(survived)] = 1.0
+        if self._n_hosts <= 1:
+            idx[: len(survived)] = survived
+            mask[: len(survived)] = 1.0
+            return idx, mask
+        slots = self._slots_per_host
+        for h, (start, stop) in enumerate(self._host_populations()):
+            rows = survived[(survived >= start) & (survived < stop)]
+            if len(rows) > slots:
+                raise NanoFedError(
+                    f"host {h} drew {len(rows)} cohort clients but its slot "
+                    f"segment holds {slots} — host-local sampling must cap "
+                    "per-host quotas at the segment width"
+                )
+            base = h * slots
+            idx[base: base + slots] = start
+            idx[base: base + len(rows)] = rows
+            mask[base: base + len(rows)] = 1.0
         return idx, mask
 
     def _round_seed(self, round_id: int) -> int:
-        """Seed of the round's device draws.  Under central DP it is 63 secret bits:
-        noise regenerable from a persisted seed could be subtracted from the released
-        aggregate."""
+        """Seed of the round's device draws.  Under central DP it is 63 secret bits
+        (rank 0's, on every rank of a mesh): noise regenerable from a persisted seed
+        could be subtracted from the released aggregate."""
         if self.central_privacy is not None:
-            return int(self._secret_sampling_rng.integers(0, 1 << 63))
+            return broadcast_object(int(self._secret_sampling_rng.integers(0, 1 << 63)))
         return self.config.seed * 100_003 + round_id
 
     def _eval_due(self, round_id: int) -> bool:
@@ -1219,29 +1408,34 @@ class Coordinator:
         perms = draw_permutations(
             gen, self.num_clients, self.training.local_epochs, self._data.y.shape[1]
         )
-        keys = client_keys(seed, self.num_clients, self.device)
+        keys = client_keys(seed, self._padded_clients, self.device)
         noise = None
         if self.central_privacy is not None:
+            # The whole model's draw: the same on every rank of a mesh.
             noise = get_noise_generator(self.central_privacy.privacy.noise_type).standard(
-                gen, (tree_size(self.params),)
+                gen, (tree_size(self._params_like or self.params),)
             )
+        perms = pad_permutations(perms, self._padded_clients)
         idx_dev = None
+        sl = self._slots
         with self._tracer.span("cohort-gather", round=round_id, cohort=len(survived)):
+            # The whole step's weights on every rank; this rank trains its slots.
             if self._cohort_mode:
                 idx, mask = self._place_cohort(survived)
                 idx_dev = torch.as_tensor(idx, device=self.device)
-                data = self._data.select(idx_dev)
-                perms = perms[idx_dev]
-                keys = keys[idx_dev]
+                ids = idx_dev[sl]
+                data = self._data.select(ids - self._row0)
                 weights = compute_weights(
                     self._num_samples[idx_dev], torch.as_tensor(mask, device=self.device)
                 )
             else:
-                data = self._data
-                mask = np.zeros(self.num_clients, dtype=np.float32)
+                ids = sl
+                data = self._data.select(slice(sl.start - self._row0, sl.stop - self._row0))
+                mask = np.zeros(self._padded_clients, dtype=np.float32)
                 mask[survived] = 1.0
                 weights = compute_weights(
                     self._num_samples, torch.as_tensor(mask, device=self.device))
+            perms, keys = perms[ids], keys[ids]
 
         cfg = self.config
         lr_scale = lr_schedule_scale(
@@ -1268,7 +1462,7 @@ class Coordinator:
             else:
                 base = () if self.adapter is None else (self.base_params,)
                 result = self._round_step(
-                    self.params, self.server_state, *base, data, weights, perms, keys,
+                    self.params, self.server_state, *base, data, weights[sl], perms, keys,
                     noise, lr_scale,
                 )
             self.params = result.params
@@ -1344,6 +1538,13 @@ class Coordinator:
         )
 
     @property
+    def _slots(self) -> slice:
+        """This rank's slots of the step (all of them on one device)."""
+        if self.mesh is None:
+            return slice(0, self._step_clients)
+        return slice(*client_slice(self._step_clients, self.mesh))
+
+    @property
     def cohort_size(self) -> int:
         return cohort_size(self.num_clients, self.config.participation_rate)
 
@@ -1354,16 +1555,32 @@ class Coordinator:
             return None
         return self.privacy_accountant.get_privacy_spent(self.central_privacy.privacy.delta)
 
+    def full_params(self) -> Params:
+        """The full federated params: ``params`` itself on one device, gathered from
+        the model shards on a mesh (a collective: every rank calls it)."""
+        return self.params if self._layout is None else self._layout.gather_full(self.params)
+
+    def full_server_state(self) -> Any:
+        """The server state over the full params (gathered on a mesh, as
+        :meth:`full_params`)."""
+        if self._layout is None or not self._layout.model_sharded:
+            return self.server_state
+        return {k: ravel(self._layout.gather_full(unravel(v, self.params)))
+                if torch.is_tensor(v) else v for k, v in self.server_state.items()}
+
     def merged_params(self) -> Params:
-        """The model the outside world consumes: ``params``, or in adapter mode the
-        base with the adapters merged in (``adapters.merge_adapters``).  Each merge
-        is counted: it is the one full-model-sized computation adapter federation
-        pays outside the rounds."""
+        """The model the outside world consumes: the full ``params``, or in adapter
+        mode the base with the adapters merged in (``adapters.merge_adapters``).
+        Each merge is counted: it is the one full-model-sized computation adapter
+        federation pays outside the rounds.  On a mesh it gathers (every rank calls
+        it)."""
         if self.adapter is None:
-            return self.params
+            return self.full_params()
         self._merge_count += 1
+        base = (self.base_params if self._base_layout is None
+                else self._base_layout.gather_full(self.base_params))
         with torch.no_grad():
-            return merge_adapters(self.base_params, self.params, self.adapter)
+            return merge_adapters(base, self.full_params(), self.adapter)
 
     def evaluate(self) -> dict[str, float]:
         """The eval set's loss and accuracy under :meth:`merged_params`."""

@@ -45,6 +45,13 @@ from nanofed_tpu_torch.aggregation.fedavg import compute_weights
 from nanofed_tpu_torch.core.device import DeviceLike, resolve_device
 from nanofed_tpu_torch.core.types import ClientData, ClientMetrics, Params
 from nanofed_tpu_torch.models.base import Model
+from nanofed_tpu_torch.parallel.mesh import (
+    Mesh,
+    client_shard_count,
+    client_slice,
+    host_axis_size,
+    host_client_slice,
+)
 from nanofed_tpu_torch.parallel.round_step import FrozenBase, build_round_step
 from nanofed_tpu_torch.security.validation import ValidationConfig
 from nanofed_tpu_torch.trainer.config import TrainingConfig
@@ -103,6 +110,19 @@ def _counters_on(sos: Any, device: torch.device) -> tuple[Any, list[str]]:
     return out, moved
 
 
+def pad_permutations(perms: torch.Tensor, rows: int) -> torch.Tensor:
+    """The population's ``[C, E, N]`` permutations with padding clients' rows
+    (identity orders; a padding client has no samples) up to ``rows``: the real
+    clients' rows are drawn for the real population alone, so padding to a mesh's
+    client shards leaves every client's draws as on one device."""
+    extra = rows - perms.shape[0]
+    if extra == 0:
+        return perms
+    ident = torch.arange(perms.shape[-1], device=perms.device).expand(
+        extra, *perms.shape[1:])
+    return torch.cat([perms, ident])
+
+
 def _stack_metrics(parts: list[ClientMetrics]) -> ClientMetrics:
     return ClientMetrics(*(torch.stack(field) for field in zip(*parts)))
 
@@ -129,6 +149,8 @@ def build_round_block(
     scaffold: bool = False,
     robust: Any = None,
     central_privacy: Any = None,
+    mesh: Mesh | None = None,
+    params_like: Params | None = None,
 ) -> RoundBlockFn:
     """Build the R-round block function.
 
@@ -157,8 +179,17 @@ def build_round_block(
     ``step_clients == padded_clients`` slots); it defaults to "a strict subset is
     sampled or stepped".  ``validation`` and ``client_chunk`` are the round step's.
 
-    The JAX builder's ``mesh``, ``axis_name``, ``params_like`` and ``donate`` have no
-    meaning on one card and are not taken.  ``frozen_base`` is the round step's.
+    ``mesh`` and ``params_like`` make every round the round step's sharded form
+    (``build_round_step(..., mesh=)``), so the block shares its collectives.  Then
+    ``data`` holds this rank's HOST rows of the population
+    (``parallel.mesh.host_client_slice``), ``num_samples`` stays the whole
+    population's, cohorts stay whole (``[R, step_clients]``, every rank the same) and
+    each rank trains its slot segment (``parallel.mesh.client_slice``); the stacked
+    per-client detail is the whole cohort's on every rank.  On-device resampling draws
+    the same ids on every rank (the same seeds on the same device type); over a hosts
+    axis it is not built (host cohorts only; it would read another host's rows).
+    The JAX builder's ``axis_name`` and ``donate`` have no meaning here and are not
+    taken.  ``frozen_base`` is the round step's.
     SCAFFOLD, robust aggregation and central DP are not fused, as in the JAX package,
     and raise ``ValueError``: they run on the single-round path.
     """
@@ -194,7 +225,20 @@ def build_round_block(
     step = build_round_step(
         model, training, strategy, client_chunk=client_chunk, grad_fn=grad_fn,
         local_fit=local_fit, validation=validation, frozen_base=frozen_base,
+        mesh=mesh, params_like=params_like,
     )
+    # This rank's slots of the step and the first population row it holds.
+    if mesh is None:
+        slots, row0 = slice(0, step_clients), 0
+    else:
+        shards = client_shard_count(mesh)
+        if step_clients % shards or padded_clients % host_axis_size(mesh):
+            raise ValueError(
+                f"step_clients {step_clients} and padded_clients {padded_clients} must "
+                f"divide over the mesh's {shards} client shards (pad_client_count)")
+        slots = slice(*client_slice(step_clients, mesh))
+        row0 = host_client_slice(padded_clients, mesh)[0]
+    device_cohorts_refused = mesh is not None and host_axis_size(mesh) > 1 and cohort_mode
     epochs = training.local_epochs
 
     def resample(seed: int) -> tuple[torch.Tensor | None, torch.Tensor]:
@@ -251,6 +295,11 @@ def build_round_block(
             )
         if keys is not None and perms is None:
             raise ValueError("keys= replaces the drawn keys only together with perms=")
+        if cohort_mask is None and device_cohorts_refused:
+            raise NotImplementedError(
+                "on-device cohort resampling over a hosts axis would gather another "
+                "host's client rows; pass host cohorts (cohort_idx=, cohort_mask=) — "
+                "the device-resampled form comes with ROADMAP queue A item 9c")
         n = data.y.shape[1]
         gp, sos = global_params, server_opt_state
         sos, moved = _counters_on(sos, dev)
@@ -262,7 +311,8 @@ def build_round_block(
             # The round's draws, in _train_round's order.
             if perms is None:
                 gen = torch.Generator(device=dev).manual_seed(seed)
-                perms_r = draw_permutations(gen, padded_clients, epochs, n)
+                perms_r = pad_permutations(
+                    draw_permutations(gen, num_clients, epochs, n), padded_clients)
                 keys_r = client_keys(seed, padded_clients, dev)
             else:
                 perms_r, keys_r = perms[i], None if keys is None else keys[i]
@@ -275,15 +325,19 @@ def build_round_block(
             # Below the completion floor the round is gated to zero weight: the round
             # step's identity for params and server state, decided on the device.
             mask_eff = mask * (survivors >= required)
+            # The cohort's weights are whole on every rank; this rank trains its
+            # slots (all of them on one device).
             if cohort_mode:
-                data_r = data.select(idx)
-                perms_r = perms_r[idx]
-                keys_r = None if keys_r is None else keys_r[idx]
+                ids = idx[slots]
+                data_r = data.select(ids - row0)
                 weights = compute_weights(num_samples[idx], mask_eff)
             else:
-                data_r = data
+                ids = slots
+                data_r = data.select(slice(slots.start - row0, slots.stop - row0))
                 weights = compute_weights(num_samples, mask_eff)
-            result = step(gp, sos, *base, data_r, weights, perms_r, keys_r,
+            perms_r = perms_r[ids]
+            keys_r = None if keys_r is None else keys_r[ids]
+            result = step(gp, sos, *base, data_r, weights[slots], perms_r, keys_r,
                           lr_scale=scales[i])
             gp, sos = result.params, result.server_opt_state
             rows["metrics"].append(result.metrics)

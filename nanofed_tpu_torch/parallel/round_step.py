@@ -1,5 +1,6 @@
-"""The federated round on one device (counterpart of
-``nanofed_tpu/parallel/round_step.py``, its single-device path).
+"""The federated round on one device, or as one rank of a world (counterpart of
+``nanofed_tpu/parallel/round_step.py``: its single-device path, and with ``mesh=``
+its ``build_sharded_round``).
 
 One round: every client's local fit, the client deltas as one contiguous ``[k, P]``
 float32 buffer in ravel order (rows padded to 4 floats), each client's squared update
@@ -14,7 +15,8 @@ plain FedAvg reduce, as in the JAX package:
   end.
 
 The guarded rounds follow the JAX round line by line (on one device every psum is
-the identity and every all-gather the input):
+the identity and every all-gather the input; on a mesh each is one collective over
+the client shards, ``parallel.mesh.MeshLayout``):
 
 * ``validation`` — per-client finiteness, per-leaf norm bound and a leave-one-out
   z-score zero the weights of invalid clients.  The deltas must materialise (the
@@ -50,7 +52,10 @@ from typing import Any, Callable, NamedTuple
 import torch
 
 from nanofed_tpu_torch.aggregation.base import Strategy, fedavg_strategy
-from nanofed_tpu_torch.aggregation.fedavg import aggregate_metrics
+from nanofed_tpu_torch.aggregation.fedavg import (
+    psum_weighted_mean,
+    psum_weighted_metrics,
+)
 from nanofed_tpu_torch.aggregation.privacy import PrivacyAwareAggregationConfig
 from nanofed_tpu_torch.aggregation.robust import RobustAggregationConfig, robust_aggregate
 from nanofed_tpu_torch.core.types import ClientData, ClientMetrics, Params
@@ -61,6 +66,7 @@ from nanofed_tpu_torch.ops.reduce import (
     weighted_mean_flat,
     weighted_sum_into,
 )
+from nanofed_tpu_torch.parallel.mesh import Mesh, MeshLayout, sum_fn_of
 from nanofed_tpu_torch.security.validation import (
     ValidationConfig,
     stacked_leaf_stats,
@@ -163,6 +169,8 @@ def build_round_step(
     validation: ValidationConfig | None = None,
     robust: RobustAggregationConfig | None = None,
     frozen_base: FrozenBase | None = None,
+    mesh: Mesh | None = None,
+    params_like: Params | None = None,
 ) -> RoundStepFn:
     """Returns ``round_step(global_params, server_opt_state, data, weights, perms,
     keys=None, noise=None, lr_scale=1.0) -> RoundStepResult``; with ``frozen_base``,
@@ -182,6 +190,21 @@ def build_round_step(
     replaces the default fit (same signature as ``trainer.local.make_local_fit``'s);
     ``grad_fn`` builds the default fit with another gradient; passing both is
     refused.  Initialise ``server_opt_state`` with :func:`init_server_state`.
+
+    ``mesh`` (``parallel.mesh.make_mesh``) makes the call this rank's part of the
+    round spread over a world of ranks (JAX ``build_sharded_round``): ``data``,
+    ``weights``, ``perms`` and ``keys`` are this rank's client rows
+    (``parallel.mesh.client_slice``), ``noise`` the whole round's one draw, the same
+    on every rank.  Every reduce is the rank's local contraction followed by an
+    all-reduce over the client shards (host-local, then across hosts); robust
+    aggregation all-gathers the deltas instead.  The round's metrics, and the
+    all-gathered ``[C]`` client metrics and update norms, are the whole cohort's on
+    every rank.  With a model axis, ``params_like`` (the full params, or anything
+    with their shapes) is required: ``global_params`` and the server state are this
+    rank's shard (``MeshLayout.shard_params``), gathered once before the fits, and
+    the server update runs on the shard of the aggregate.  A frozen base is sharded
+    and gathered the same way (``frozen_base.base_like`` gives its full shapes).
+    Without ``mesh`` the call is the one-device round, unchanged.
     """
     if robust is not None and central_privacy is not None:
         raise ValueError(
@@ -203,6 +226,15 @@ def build_round_step(
             "close over the base and is refused"
         )
     strategy = strategy or fedavg_strategy()
+    layout = None if mesh is None else MeshLayout(mesh, params_like)
+    base_layout = None
+    if layout is not None and frozen_base is not None and layout.model_sharded:
+        if frozen_base.base_like is None:
+            raise ValueError("a model-sharded frozen base needs frozen_base.base_like= "
+                             "(the full base's shapes)")
+        base_layout = MeshLayout(mesh, frozen_base.base_like)
+    psum = (lambda x: x) if layout is None else layout.client_psum
+    gather = (lambda x: x) if layout is None else layout.client_all_gather
     dense_fit = None if frozen_base is not None else (
         local_fit or make_local_fit(model, training, grad_fn=grad_fn))
     server_tx = strategy.server_tx
@@ -240,11 +272,12 @@ def build_round_step(
             weighted_sum_into(acc, delta, w)
             sq_norms.append(sq)
             del delta
+        acc = psum(acc)  # the one [P] all-reduce of a streamed round
         if central_privacy is not None:
-            participants = torch.clamp((weights > 0).sum().float(), min=1.0)
+            participants = torch.clamp(psum((weights > 0).sum().float()), min=1.0)
             agg = add_central_noise(acc / participants, noise, participants)
         else:
-            agg = acc / torch.clamp(weights.sum(), min=1e-12)
+            agg = acc / torch.clamp(psum(weights.sum()), min=1e-12)
         return agg, _cat_metrics(chunk_metrics), torch.cat(sq_norms)
 
     def fit_materialised(fit, global_params, gp_flat, data, perms, keys, lr_scale):
@@ -263,10 +296,25 @@ def build_round_step(
             del result
         return buf[:, :p], _cat_metrics(chunk_metrics)
 
-    def run_round(fit, global_params, server_opt_state, data, weights, perms, keys, noise,
+    def finish(client_metrics, update_sq_norms) -> tuple[ClientMetrics, torch.Tensor]:
+        """The whole cohort's per-client rows on every rank."""
+        return ClientMetrics(*(gather(m) for m in client_metrics)), gather(update_sq_norms)
+
+    def run_round(fit, shard_params, server_opt_state, data, weights, perms, keys, noise,
                   lr_scale) -> RoundStepResult:
+        # Model axis: the fits read full params, gathered once; the server update
+        # runs on this rank's shard.
+        global_params = shard_params if layout is None else layout.gather_full(shard_params)
         c = weights.shape[0]
         gp_flat = ravel(global_params)
+        shard_flat = gp_flat if global_params is shard_params else ravel(shard_params)
+
+        def server_update(agg, total_w):
+            if layout is not None:
+                agg = layout.slice_shard(agg)
+            return apply_server_update(server_tx, shard_flat, shard_params,
+                                       server_opt_state, agg, total_w)
+
         if central_privacy is not None and (noise is None or noise.shape != gp_flat.shape):
             raise ValueError(f"central_privacy needs noise=, a standard [{gp_flat.numel()}] draw")
         chunking = client_chunk is not None and client_chunk < c
@@ -277,13 +325,11 @@ def build_round_step(
             agg, client_metrics, update_sq_norms = streamed(
                 fit, global_params, gp_flat, data, weights, perms, keys, noise, lr_scale
             )
-            new_params, new_sos = apply_server_update(
-                server_tx, gp_flat, global_params, server_opt_state, agg, weights.sum()
-            )
-            metrics = aggregate_metrics(client_metrics, weights)
-            metrics["participating_clients"] = (weights > 0).sum()
-            return RoundStepResult(new_params, new_sos, metrics, client_metrics,
-                                   update_sq_norms)
+            new_params, new_sos = server_update(agg, psum(weights.sum()))
+            metrics = psum_weighted_metrics(client_metrics, weights, layout)
+            metrics["participating_clients"] = psum((weights > 0).sum())
+            return RoundStepResult(new_params, new_sos, metrics,
+                                   *finish(client_metrics, update_sq_norms))
 
         delta, client_metrics = fit_materialised(fit, global_params, gp_flat, data, perms,
                                                  keys, lr_scale)
@@ -297,7 +343,8 @@ def build_round_step(
                 unravel_stacked(delta, global_params),
                 sanitize_in_place=central_privacy is not None or robust is not None,
             )
-            valid = validate_stats(stats, validation, participating).valid
+            valid = validate_stats(stats, validation, participating,
+                                   sum_fn=sum_fn_of(layout)).valid
             weights_in = weights
             weights = weights * valid.float()
             # A rejected client's metrics may be NaN: zero its whole row.
@@ -306,11 +353,13 @@ def build_round_step(
             )
             update_sq_norms = stats.leaf_sq.sum(0)  # the sanitized norms
 
-        total_w = weights.sum()
+        total_w = psum(weights.sum())
         robust_kept = None
         if robust is not None:
-            part = (weights > 0).float()
-            agg, ok, robust_kept = robust_aggregate(robust, delta, part, global_params)
+            # Order statistics need every client's delta on every rank.
+            part = gather((weights > 0).float())
+            agg, ok, robust_kept = robust_aggregate(robust, gather(delta), part,
+                                                    global_params)
             total_w = total_w * ok  # below the floor: params and server state untouched
             if update_sq_norms is None:
                 update_sq_norms = row_sq_norms(delta)
@@ -319,34 +368,42 @@ def build_round_step(
                 update_sq_norms = row_sq_norms(delta)
             coef = clip_coefs(update_sq_norms)
             uniform = (weights > 0).float()
-            agg = weighted_mean_flat(delta, uniform * coef, denom=uniform.sum())
-            agg = add_central_noise(agg, noise, torch.clamp(uniform.sum(), min=1.0))
+            participants = psum(uniform.sum())
+            agg = psum(weighted_mean_flat(delta, uniform * coef, denom=participants))
+            agg = add_central_noise(agg, noise, torch.clamp(participants, min=1.0))
             update_sq_norms = coef.square() * update_sq_norms  # of the clipped deltas
         elif validation is not None:
-            agg = masked_weighted_mean_flat(delta, weights_in, valid)  # kernel B2
+            if layout is None:
+                agg = masked_weighted_mean_flat(delta, weights_in, valid)  # kernel B2
+            else:
+                # B2 divided by the whole cohort's valid weight, then summed over ranks.
+                agg = psum(masked_weighted_mean_flat(delta, weights_in, valid,
+                                                     denom=total_w))
         else:
-            agg = weighted_mean_flat(delta, weights)
+            if layout is None:
+                agg = weighted_mean_flat(delta, weights)
+            else:
+                agg = psum_weighted_mean(delta, weights, layout)
             update_sq_norms = row_sq_norms(delta)
-        new_params, new_sos = apply_server_update(
-            server_tx, gp_flat, global_params, server_opt_state, agg, total_w
-        )
+        new_params, new_sos = server_update(agg, total_w)
 
-        metrics = aggregate_metrics(client_metrics, weights)
+        metrics = psum_weighted_metrics(client_metrics, weights, layout)
         if robust_kept is not None:
             # The reported loss and accuracy are the same estimator over the client
             # scalars: a NaN loss of a trimmed client must not ride the weighted mean.
-            scalars = torch.stack([client_metrics.accuracy, client_metrics.loss], 1)
+            scalars = gather(torch.stack([client_metrics.accuracy, client_metrics.loss], 1))
             like = {"accuracy": scalars[0, 0], "loss": scalars[0, 1]}
             robust_scalars, _, _ = robust_aggregate(robust, scalars, part, like)
             metrics["accuracy"], metrics["loss"] = robust_scalars[0], robust_scalars[1]
             metrics["robust_kept_clients"] = robust_kept
         if validation is not None:
             # participating = the PRE-validation cohort; valid = those that survived.
-            metrics["participating_clients"] = participating.sum()
-            metrics["valid_clients"] = (valid & participating).sum()
+            metrics["participating_clients"] = psum(participating.sum())
+            metrics["valid_clients"] = psum((valid & participating).sum())
         else:
-            metrics["participating_clients"] = (weights > 0).sum()
-        return RoundStepResult(new_params, new_sos, metrics, client_metrics, update_sq_norms)
+            metrics["participating_clients"] = psum((weights > 0).sum())
+        return RoundStepResult(new_params, new_sos, metrics,
+                               *finish(client_metrics, update_sq_norms))
 
     if frozen_base is None:
         def round_step(
@@ -376,7 +433,9 @@ def build_round_step(
         lr_scale: float = 1.0,
     ) -> RoundStepResult:
         # The base is read only: closed over by this call's fit, never stacked per
-        # client, never an output.
+        # client, never an output.  A model-sharded base is gathered once a call.
+        if base_layout is not None:
+            base_params = base_layout.gather_full(base_params)
         bound = dataclasses.replace(model, apply=frozen_base.bind(base_params))
         return run_round(make_local_fit(bound, training), global_params, server_opt_state,
                          data, weights, perms, keys, noise, lr_scale)

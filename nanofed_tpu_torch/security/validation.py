@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import enum
 from dataclasses import dataclass
-from typing import Mapping, NamedTuple, Sequence
+from typing import Callable, Mapping, NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -108,6 +108,7 @@ def loo_zscore(
     eligible: torch.Tensor,
     z_score_threshold: float,
     min_cohort: float,
+    sum_fn: Callable[[torch.Tensor], torch.Tensor] = torch.sum,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Leave-one-out cohort z-score over eligible clients.
 
@@ -116,10 +117,14 @@ def loo_zscore(
     against), and each client is judged against the cohort EXCLUDING itself (a
     self-inclusive z-score with ddof=1 is capped at (n-1)/sqrt(n), so at a cohort of
     5 a single attacker could never reach a threshold of 2).
+
+    ``sum_fn`` is the cohort's sum: the local one over a stacked axis, or across a
+    mesh (``parallel.mesh.sum_fn_of(layout)``), so each rank judges its clients
+    against the whole cohort's n, sum and sum of squares.
     """
-    n = eligible.sum()
-    s = (norms * eligible).sum()
-    ss = (norms.square() * eligible).sum()
+    n = sum_fn(eligible)
+    s = sum_fn(norms * eligible)
+    ss = sum_fn(norms.square() * eligible)
     n_rest = torch.clamp(n - 1.0, min=1.0)
     mean_rest = (s - norms * eligible) / n_rest
     var_rest = (ss - norms.square() * eligible - n_rest * mean_rest.square()) / torch.clamp(
@@ -132,16 +137,18 @@ def loo_zscore(
 
 
 def validate_stats(
-    stats: StackedLeafStats, config: ValidationConfig, participating: torch.Tensor
+    stats: StackedLeafStats, config: ValidationConfig, participating: torch.Tensor,
+    sum_fn: Callable[[torch.Tensor], torch.Tensor] = torch.sum,
 ) -> ValidationReport:
     """The verdicts from precomputed statistics: per-leaf range check, then the
     leave-one-out z-score over the participating clients that passed the
-    finiteness and range checks."""
+    finiteness and range checks (the cohort's sums through ``sum_fn``, as
+    :func:`loo_zscore` takes them)."""
     range_ok = (torch.sqrt(stats.leaf_sq) <= config.max_norm).all(0)
     eligible = participating.float() * stats.finite * range_ok
     z, anomalous = loo_zscore(
         stats.global_norm, eligible, config.z_score_threshold,
-        float(config.min_clients_for_stats),
+        float(config.min_clients_for_stats), sum_fn=sum_fn,
     )
     valid = stats.finite & range_ok & ~anomalous
     return ValidationReport(stats.finite, range_ok, anomalous, stats.global_norm, z, valid)

@@ -56,6 +56,16 @@ import torch
 
 from nanofed_tpu_torch.core.device import DeviceLike, resolve_device
 from nanofed_tpu_torch.core.exceptions import NanoFedError
+from nanofed_tpu_torch.parallel.mesh import (
+    MeshLayout,
+    broadcast_object,
+    host_axis_size,
+    is_primary,
+    make_mesh,
+    mesh_shape_for_topology,
+    node_count,
+    world_size,
+)
 from nanofed_tpu_torch.utils.logger import Logger
 
 __all__ = [
@@ -78,15 +88,6 @@ _log = Logger()
 
 #: Where :func:`autotune` caches sweep results (``.gitignore`` lists it).
 DEFAULT_CACHE_DIR = ".nanofed_torch_cache"
-
-# The later slices that bring the axes this port does not sweep yet.
-_LATER_AXES = {
-    "model_shards": "the model mesh axis comes with the multi-GPU slice "
-                    "(ROADMAP queue A item 9b)",
-    "hosts": "the hosts mesh axis comes with the multi-GPU slice "
-             "(ROADMAP queue A items 9b and 17)",
-}
-
 
 def _dtype_name(a: Any) -> str:
     """numpy's name of an array's or tensor's dtype ("float32", "int64")."""
@@ -207,8 +208,7 @@ class TuningSpace:
     rounds_per_blocks: tuple[int, ...]
     model_shards: tuple[int, ...]
     batch_sizes: tuple[int, ...]
-    #: Hosts-axis sizes to sweep; (1,) = single-host meshes only, the one the port
-    #: runs until the multi-GPU slice.
+    #: Hosts-axis sizes to sweep; (1,) = single-host meshes only.
     hosts: tuple[int, ...] = (1,)
     #: LoRA ranks to sweep (the parameter-efficient axis); (None,) = dense
     #: full fine-tune only.  Engaged when :func:`autotune` is given an
@@ -227,9 +227,11 @@ class TuningSpace:
         adapter_rank: int | None = None,
     ) -> "TuningSpace":
         if hosts is None:
-            # The port runs one process on one card: the hosts axis is (1,) until
-            # the multi-GPU slice (ROADMAP queue A item 9b).
-            hosts = (1,)
+            # THE one home of the multi-node space rule: a world over several nodes
+            # sweeps the two-stage hosts=(node_count,) topology (a flat client axis
+            # across nodes would pay one cross-node reduce per client shard).
+            nodes = node_count()
+            hosts = (nodes,) if nodes > 1 else (1,)
 
         per_dev = _pad_client_count(population.num_clients, n_devices) // n_devices
         chunks: list[int | None] = [None] + [
@@ -655,7 +657,7 @@ def _evaluate_candidate(
     from nanofed_tpu_torch.aggregation.base import fedavg_strategy
     from nanofed_tpu_torch.observability.profiling import profile_program
     from nanofed_tpu_torch.parallel.multi_round import build_round_block, round_seeds
-    from nanofed_tpu_torch.parallel.round_step import build_round_step
+    from nanofed_tpu_torch.parallel.round_step import build_round_step, init_server_state
 
     C, cap = population.num_clients, population.capacity
 
@@ -721,19 +723,14 @@ def _evaluate_candidate(
             f"adapter_rank {cand.adapter_rank} swept without an adapter= spec "
             "— the tuner needs the target patterns to build the adapter tree"
         ))
-    # --- Axes this port does not run yet (recorded, never raised) ------------------
-    for axis, engaged in (
-        ("model_shards", cand.model_shards > 1),
-        ("hosts", cand.hosts > 1),
-    ):
-        if engaged:
-            return CandidateOutcome(cand, False, reject_reason=(
-                f"{axis} {getattr(cand, axis)}: not in the PyTorch port yet — "
-                f"{_LATER_AXES[axis]}"
-            ))
-
     # --- Build + profile (the candidate's round runs) ------------------------------
     dev = resolve_device(device)
+    # In a world (or for a mesh axis) the candidate runs as every rank's part of its
+    # mesh; every rank builds the same meshes, candidate by candidate.
+    mesh = None
+    if n_devices > 1 or world_size() > 1:
+        mesh = make_mesh(mesh_shape_for_topology(cand.hosts, cand.model_shards, n_devices),
+                         device=dev)
     strategy = fedavg_strategy()
     training_c = dataclasses.replace(training, batch_size=cand.batch_size)
     rpb = cand.rounds_per_block
@@ -747,29 +744,39 @@ def _evaluate_candidate(
         spec_r = dataclasses.replace(adapter, rank=cand.adapter_rank)
         frozen_base = FrozenBase(
             base_like=None, bind=lambda base: make_adapter_apply(model.apply, spec_r, base))
-    if rpb == 1:
-        fn = build_round_step(model, training_c, strategy, client_chunk=cand.client_chunk,
-                              frozen_base=frozen_base)
-    else:
-        fn = build_round_block(
-            model, training_c, strategy, num_clients=C, padded_clients=padded,
-            step_clients=step_clients, cohort_size=cohort,
-            client_chunk=cand.client_chunk, collect_client_detail=False,
-            cohort_mode=cohort_mode, device=dev, frozen_base=frozen_base,
-        )
     name = candidate_program_name(cand)
     out_of_memory = None
     t0 = time.perf_counter()
     try:
         kwargs = {}
+        # A rank's rows: its slots of the step, or (a block, which gathers from the
+        # population) its host row of the population.
+        n_hosts = 1 if mesh is None else host_axis_size(mesh)
+        rows = step_clients // n_client_shards if rpb == 1 else padded // n_hosts
+        params, sos, *base, data, weights, perms, keys = _candidate_inputs(
+            model, population, training_c, rows, strategy, dev, adapter=spec_r)
+        mesh_kw = {}
+        if mesh is not None:
+            mesh_kw = {"mesh": mesh, "params_like": params}
+            if base:
+                frozen_base = frozen_base._replace(base_like=base[0])
+                base = [MeshLayout(mesh, base[0]).shard_params(base[0])]
+            params = MeshLayout(mesh, params).shard_params(params)
+            sos = init_server_state(strategy, params)
         if rpb == 1:
-            args = _candidate_inputs(model, population, training_c, step_clients, strategy,
-                                     dev, adapter=spec_r)
+            fn = build_round_step(model, training_c, strategy,
+                                  client_chunk=cand.client_chunk, frozen_base=frozen_base,
+                                  **mesh_kw)
+            args = (params, sos, *base, data, weights, perms, keys)
         else:
-            # The block gathers from the whole population: every slot a distinct
-            # client with weight, every round a full cohort's work.
-            params, sos, *base, data, _, _, _ = _candidate_inputs(
-                model, population, training_c, padded, strategy, dev, adapter=spec_r)
+            fn = build_round_block(
+                model, training_c, strategy, num_clients=C, padded_clients=padded,
+                step_clients=step_clients, cohort_size=cohort,
+                client_chunk=cand.client_chunk, collect_client_detail=False,
+                cohort_mode=cohort_mode, device=dev, frozen_base=frozen_base, **mesh_kw,
+            )
+            # Every slot a distinct client with weight, every round a full cohort's
+            # work.
             idx = (torch.arange(step_clients, device=dev).expand(rpb, step_clients)
                    .contiguous() if cohort_mode else None)
             args = (params, sos, data, torch.ones(padded, device=dev),
@@ -898,7 +905,10 @@ def autotune(
         population = PopulationSpec.from_client_data(population)
     platform = dev.type
     device_kind = device_kind_of(dev)
-    n_devices = 1
+    # Every rank of a world runs the same sweep over the world's meshes; rank 0's
+    # ranking is everyone's (the ranks' measured times differ).
+    n_devices = world_size()
+    primary = is_primary()
     if space is None:
         # TuningSpace.default owns the adapter-rank ladder rule.
         space = TuningSpace.default(
@@ -917,7 +927,7 @@ def autotune(
         if cache_dir is not None else None
     )
     if cache_path is not None and not force:
-        cached = _read_cache(cache_path, key)
+        cached = broadcast_object(_read_cache(cache_path, key) if primary else None)
         # A winnerless entry is never written (below), but guard anyway: a
         # cache hit must not short-circuit the all-rejected AutotuneError.
         if cached is not None and cached.winner is not None:
@@ -927,7 +937,7 @@ def autotune(
                 "autotune cache hit (%s): winner %s, zero profiles",
                 cache_path, cached.winner.to_dict(),
             )
-            _finish(cached, out_dir, telemetry)
+            _finish(cached, out_dir if primary else None, telemetry)
             return cached
     if compile_budget_s is None:
         env_budget = os.environ.get("NANOFED_AUTOTUNE_COMPILE_BUDGET")
@@ -1010,7 +1020,7 @@ def autotune(
              else f"rejected ({outcome.reject_reason})"),
         )
 
-    ranked = rank_candidates(outcomes)
+    ranked = broadcast_object(rank_candidates(outcomes))
     feasible = [o for o in ranked if o.feasible]
     has_peaks = any("lower_bound_s_per_round" in o.cost for o in feasible)
     peaks_basis = None
@@ -1053,13 +1063,13 @@ def autotune(
             flat = sum(math.prod(shape) or 1 for shape in leaves.values())
         result.epilogues = profile_aggregation_epilogues(flat_size=flat, device=dev)
 
-    if cache_path is not None and result.winner is not None and skipped == 0:
+    if cache_path is not None and result.winner is not None and skipped == 0 and primary:
         # Failed (all-rejected) sweeps are never cached: a later invocation must
         # re-reject — and re-raise — rather than return winner=None.  Budget-
         # truncated or wedged sweeps are not cached either: their winner is the
         # best of an INCOMPLETE table.
         _write_cache(cache_path, result)
-    _finish(result, out_dir, telemetry)
+    _finish(result, out_dir if primary else None, telemetry)
     if result.winner is None:
         raise AutotuneError(
             "autotune found no feasible candidate: " + "; ".join(

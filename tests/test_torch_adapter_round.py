@@ -61,7 +61,7 @@ from nanofed_tpu_torch.utils.trees import flatten_with_names, from_numpy_params,
 STEP_TOL = dict(rtol=1e-5, atol=1e-5)
 RUN_TOL = dict(rtol=1e-4, atol=1e-4)
 SELF_TOL = dict(rtol=1e-6, atol=1e-6)
-DIMS = dict(vocab=256, seq_len=32, width=64, depth=2, heads=4)
+DIMS = dict(vocab=64, seq_len=16, width=32, depth=2, heads=2)
 C = 8
 
 
@@ -84,7 +84,8 @@ def step_setup():
     spec = AdapterSpec(rank=4, alpha=8.0)
     jspec = jax_adapters.AdapterSpec(rank=4, alpha=8.0)
     jad = jax.device_get(jax_adapters.init_adapters(jspec, base, rng=1))
-    cd = jax_federate(jax_token_streams(32 * C, seed=0), num_clients=C, batch_size=16)
+    cd = jax_federate(jax_token_streams(32 * C, vocab=DIMS["vocab"], seq_len=DIMS["seq_len"],
+                                        seed=0), num_clients=C, batch_size=16)
     weights = np.asarray(cd.mask).sum(1) * np.asarray([1, 1, 0, 1, 1, 1, 1, 1], np.float32)
     rngs = stack_rngs(jax.random.key(2), C)
     training = dict(batch_size=16, local_epochs=1, learning_rate=0.3)
@@ -193,7 +194,7 @@ def test_fused_block_takes_the_base_and_equals_single_steps(step_setup):
 # --- the coordinator -------------------------------------------------------------
 
 LM = dict(vocab=64, seq_len=16, width=32, depth=2, heads=2)
-TRAIN = dict(batch_size=16, local_epochs=2, learning_rate=0.5)
+TRAIN = dict(batch_size=16, local_epochs=1, learning_rate=0.5)
 
 
 def _jax_coord(tmp_path, rounds, **kw):

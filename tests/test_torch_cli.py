@@ -190,12 +190,7 @@ def test_later_subcommands_are_listed_and_refused_with_their_item(name, item, ca
 
 
 @pytest.mark.parametrize("cmd,argv,item", [
-    ("run", ["--model-shards", "2"], "item 9b"),
-    ("run", ["--hosts", "2"], "item 9b"),
-    ("run", ["--distributed"], "item 9b"),
     ("run", ["--strict"], "item 21"),
-    ("profile", ["--model-shards", "2"], "item 9b"),
-    ("profile", ["--hosts", "2"], "item 9b"),
     ("serve", ["--chaos-plan", "plan.json"], "item 17"),
     ("serve", ["--max-inflight", "8"], "item 18"),
 ])
@@ -203,6 +198,41 @@ def test_later_flags_are_refused_with_their_item(cmd, argv, item, capsys):
     assert cli.main([cmd, *argv]) == 2  # refused before a device is looked for
     err = capsys.readouterr().err
     assert argv[0] in err and item in err
+
+
+@pytest.mark.parametrize("cmd,argv,hosts,shards", [
+    ("run", ["--model-shards", "2"], 1, 2),
+    ("run", ["--hosts", "2"], 2, 1),
+    ("run", ["--distributed", "--hosts", "2"], 2, 1),
+    ("profile", ["--model-shards", "2"], 1, 2),
+    ("profile", ["--hosts", "2"], 2, 1),
+])
+def test_mesh_flags_are_validated_against_the_world_as_jax_validates(cmd, argv, hosts,
+                                                                     shards, capsys):
+    """The mesh flags earlier slices refused: in one process (``--distributed``
+    outside ``torchrun`` is the documented single-process no-op) the world has one
+    rank, and a mesh of more fails with the JAX validator's message, exit code 2."""
+    from nanofed_tpu.parallel.mesh import mesh_shape_for_topology as jax_validator
+
+    with pytest.raises(ValueError) as want:
+        jax_validator(hosts, shards, 1)
+    assert cli.main([cmd, *argv, "--device", "cpu"]) == 2
+    assert str(want.value) in capsys.readouterr().err
+
+
+def test_mesh_flags_reach_the_runner(monkeypatch):
+    from nanofed_tpu_torch import experiments
+
+    seen = {}
+
+    def fake_run(**kw):
+        seen.update(kw)
+        return {"ok": True}
+
+    monkeypatch.setattr(experiments, "run_experiment", fake_run)
+    assert cli.main(["run", "--distributed", "--model-shards", "1", "--hosts", "1",
+                     "--device", "cpu"]) == 0
+    assert (seen["model_shards"], seen["hosts"]) == (1, 1)
 
 
 @pytest.mark.parametrize("cmd,argv,reaches", [

@@ -1,8 +1,9 @@
 """The port imports neither JAX nor anything of ``nanofed_tpu`` (every module of the
 package, fused multi-round blocks, the network mode, secure aggregation, signing, the ingest buffer,
 observability and tuning, the ResNets, the benchmark suite and the command line
-included, and the compressed codec, signing and ingest paths when they run), and its
-entry points run on the GPU unless the caller asks for the CPU."""
+included, and the compressed codec, signing and ingest paths when they run), nor does
+any rank of a world it spawns (``parallel.launch.spawn_world``), and its entry points
+run on the GPU unless the caller asks for the CPU."""
 
 import importlib
 import pkgutil
@@ -58,6 +59,17 @@ def test_port_imports_no_jax_and_nothing_of_nanofed_tpu():
     )
     assert proc.returncode == 0, proc.stderr
     assert int(proc.stdout.split()[-1]) >= 40  # every module of the package was imported
+
+
+def test_spawned_ranks_import_no_jax():
+    """Every rank of a gloo world imports every module of the port and runs a
+    collective; none loads JAX or the JAX package (the parent test process has both)."""
+    import torch_world_ranks
+
+    from nanofed_tpu_torch.parallel.launch import spawn_world
+
+    assert spawn_world(torch_world_ranks.imported_modules, 2, backend="gloo", device="cpu",
+                       timeout_s=120) == [[], []]
 
 
 _RUN_WIRE_PATHS = """

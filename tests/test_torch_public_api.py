@@ -137,8 +137,6 @@ def test_training_progress_counts_like_jax(tmp_path):
 
 @pytest.mark.parametrize("keyword,value,item", [
     ("chaos", object(), "item 17"),
-    ("mesh", object(), "item 9b"),
-    ("mesh_shape", (1, 1), "item 9b"),
     ("strict", True, "item 21"),
 ])
 def test_coordinator_refuses_the_jax_only_keywords_with_their_item(tmp_path, keyword, value,
@@ -152,6 +150,30 @@ def test_coordinator_refuses_the_jax_only_keywords_with_their_item(tmp_path, key
     Coordinator(model, data, config, device="cpu", **{keyword: default})  # the JAX default
     with pytest.raises(TypeError, match="unexpected keyword argument 'mesh_shapes'"):
         Coordinator(model, data, config, device="cpu", mesh_shapes=(1, 1))
+
+
+@pytest.mark.parametrize("kw,error", [
+    (dict(mesh_shape=(1,)), None),
+    (dict(mesh_shape=(1, 1)), None),
+    (dict(mesh_shape=(2, 2)), "mesh shape (2, 2) needs 4 devices but 1 are available"),
+    (dict(mesh_shape=(1,), mesh=object()), "pass either mesh="),
+])
+def test_coordinator_takes_mesh_and_mesh_shape(tmp_path, kw, error):
+    """``mesh=``/``mesh_shape=``, which earlier slices refused: without a process group
+    the world is one rank, so a one-rank mesh runs a round (its collectives the
+    identity) and a larger one fails at the JAX mesh's own check."""
+    model = get_model("linear", in_features=10, num_classes=2)
+    data = federate(synthetic_classification(32, 2, (10,), seed=0), 2, batch_size=8)
+    config = CoordinatorConfig(base_dir=tmp_path, save_metrics=False)
+    if error is not None:
+        with pytest.raises(ValueError, match=error.replace("(", r"\(").replace(")", r"\)")):
+            Coordinator(model, data, config, device="cpu", **kw)
+        return
+    coord = Coordinator(model, data, config, training=TrainingConfig(batch_size=8),
+                        device="cpu", **kw)
+    assert coord.mesh.shape == kw["mesh_shape"]
+    (metrics,) = coord.run()
+    assert metrics.status.name == "COMPLETED"
 
 
 def test_coordinator_takes_the_adapter_keyword(tmp_path):

@@ -9,6 +9,7 @@ here (a winner, the JAX artifact keys, stated rejections, a cache hit that profi
 nothing), and the coordinator's retune swap to the unswapped trajectory.
 """
 
+import dataclasses
 import json
 
 import numpy as np
@@ -144,16 +145,17 @@ def test_static_rejection_reasons_equal_jax(case):
 
 
 @pytest.mark.parametrize("cfg,axis", [
-    (CandidateConfig(None, 1, 2, 16), "model_shards 2: not in the PyTorch port yet"),
-    (CandidateConfig(None, 1, 1, 16, hosts=2), "hosts 2: not in the PyTorch port yet"),
+    (CandidateConfig(None, 1, 2, 16), "mesh shape (2, 2) needs 4 devices"),
+    (CandidateConfig(None, 1, 1, 16, hosts=2), "mesh shape (2, 2, 1) needs 4 devices"),
 ])
 def test_unported_axes_are_rejected_with_their_slice(cfg, axis):
-    """Past the JAX checks (four devices here, so the mesh axes divide), the axes a
-    later slice brings are recorded as rejected, never raised."""
-    out = autotuner._evaluate_candidate(cfg, None, LINEAR_POP, TrainingConfig(batch_size=16),
-                                        1.0, 4, 0, 4, None)
-    assert not out.feasible
-    assert out.reject_reason.startswith(axis) and "ROADMAP queue A" in out.reject_reason
+    """Past the JAX checks (four devices here, so the mesh axes divide), the mesh
+    axes are no longer rejected: the candidate is built on its mesh over the world's
+    ranks, so outside a world of four it fails at the mesh's own check."""
+    model = get_model("linear", in_features=10, num_classes=2)
+    with pytest.raises(ValueError, match=axis.replace("(", r"\(").replace(")", r"\)")):
+        autotuner._evaluate_candidate(cfg, model, LINEAR_POP, TrainingConfig(batch_size=16),
+                                      1.0, 4, 0, 4, None, device="cpu")
 
 
 @pytest.mark.parametrize("rpb", [1, 2])
@@ -368,8 +370,14 @@ def test_autotune_takes_an_adapter_spec(tmp_path):
 
     model = get_model("mlp", in_features=10, hidden=64, num_classes=2)
     spec = AdapterSpec(rank=4)
+    # The default space's rank ladder; its chunk and batch axes pinned to one value each
+    # (they do not enter these checks), so 3 candidates run instead of 27.
+    space = dataclasses.replace(
+        TuningSpace.default(PopulationSpec(8, 32, (10,)), 1, 16, 1, adapter_rank=4),
+        client_chunks=(None,), batch_sizes=(16,))
     res = autotune(model, _linear_data(), TrainingConfig(batch_size=16), num_rounds=1,
-                   cache_dir=tmp_path / "cache", out_dir=None, adapter=spec, device="cpu")
+                   space=space, cache_dir=tmp_path / "cache", out_dir=None, adapter=spec,
+                   device="cpu")
     jspace = JaxTuningSpace.default(JaxPopulationSpec(8, 32, (10,)), 1, 16, 1, adapter_rank=4)
     assert res.space["adapter_ranks"] == list(jspace.adapter_ranks) == [2, 4, 8]
     assert all(o.config.adapter_rank in (2, 4, 8) for o in res.outcomes)
@@ -377,6 +385,7 @@ def test_autotune_takes_an_adapter_spec(tmp_path):
     params = model.init(torch.Generator().manual_seed(0))
     assert res.epilogues["flat_size"] == adapter_param_count(spec, params)["adapter_params"]
     again = autotune(model, _linear_data(), TrainingConfig(batch_size=16), num_rounds=1,
+                     space=dataclasses.replace(space, adapter_ranks=(None,)),
                      cache_dir=tmp_path / "cache", out_dir=None, device="cpu")
     assert not again.cache_hit  # the dense sweep is another cache entry
 
