@@ -18,7 +18,12 @@ Phases (any failure exits non-zero):
    minimum slabs and 1,199,882; every load width and a data pointer one float off), two
    launches of each form giving the same bits, and timed with their launch plan at
    every C the main path launches them with (C = 2, 8, 25, 100, 125, 250 and 1000 for
-   B1, 64, 125 and 1000 for B2, P = 1,199,882); B3 at C = 2, 25, 100 and 125; B5
+   B1, 64, 125 and 1000 for B2, P = 1,199,882); B3 at C = 2, 25, 100 and 125 with its
+   launch plan, and on the edges of its plan (C = 1, P under one segment and around
+   the segment count's steps, P not a multiple of a 16-byte unit, one more (row,
+   segment) pair than one wave holds on the ring and on the register path, 70,000
+   rows, a row stride beyond P, every load width), the same bits twice, and rows of a
+   C = 125 launch equal bit for bit to a launch of those rows alone; B5
    (``quantize_u32``), B6 (``dequantize_u32``) and B7 (``add_mask``) bit for bit on
    ragged sizes, unaligned starts, ties, saturation and both signs; B7 with k seeds a
    launch (k = 1, 2, 7, 8, 14, 65 and 999, mixed signs, a seed at +1 and -1 in one
@@ -409,6 +414,10 @@ def phase_kernels(torch, ops, card: str) -> dict[str, dict]:
           f"atol {TOL['atol']})")
     check_reduce_edges(torch, ops, gen)
     check_reduce_determinism(torch, ops, gen)
+    t0 = time.perf_counter()
+    check_row_sq_edges(torch, ops, gen)
+    check_row_sq_determinism(torch, ops, gen)
+    print(f"kernels: B3's edge and bit checks took {time.perf_counter() - t0:.3f} s")
 
     records = time_reduce(torch, ops, card, gen)
     for c in (2, 25, 100, 125):  # tutorial, (d)/(l) chunks, (m) cohort, flagship chunk
@@ -423,7 +432,8 @@ def phase_kernels(torch, ops, card: str) -> dict[str, dict]:
         print(f"[{card}] row_sq_norms C={c} P={P_MNIST}: kernel_ms={ms:.6f} "
               f"plain_ms={plain_ms:.6f} library_ms={library_ms:.6f} "
               f"(torch.linalg.vecdot(x, x)) bound_ms={b_ms:.6f} ({b_by}) "
-              f"max_abs_err={err:.3e}; x.square().sum(1) ms={sq_ms:.6f}")
+              f"max_abs_err={err:.3e}; x.square().sum(1) ms={sq_ms:.6f} "
+              f"{row_sq_plan_line(torch, x)}")
         if c == 125:
             records["row_sq_norms"] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                                            bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
@@ -535,6 +545,98 @@ def check_reduce_determinism(torch, ops, gen) -> None:
         torch.cuda.empty_cache()
     print(f"kernels: B1 (normalised, denom, accumulate) and B2 give the same bits twice "
           f"at C = 125 and 1000, P = {P_MNIST}")
+
+
+def check_row_sq_edges(torch, ops, gen) -> None:
+    """B3 against its plain version on the edges of its launch plan: C = 1, 2, 3, 7 and
+    40 over P = 1-5, under one segment, around the steps of the segment count (one to
+    two segments, and where it reaches SMs / 2) and 1,199,882, every layout; one more
+    (row, segment) pair than one wave holds on the ring (C = 2 x SMs + 1 small rows) and
+    on the register path (C = 6 x SMs + 1); 70,000 rows (past the old grid's 65,535); a
+    row stride 64 floats beyond P."""
+    from nanofed_tpu_torch.ops._common import vector_width
+    from nanofed_tpu_torch.ops.dp_reduce import (
+        MIN_SEGMENT_UNITS,
+        SMS_PER_SEGMENT,
+        check_row_sq_plan,
+        row_sq_plan_for,
+    )
+    from nanofed_tpu_torch.ops.reduce import REGISTER_BLOCKS_PER_SM, RING_BLOCKS_PER_SM
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    seg = MIN_SEGMENT_UNITS * 4  # one segment's least columns on the ring
+    near = lambda e: [e + d for d in (-4, -1, 1, 4)]  # noqa: E731
+    ps = [1, 2, 3, 4, 5, seg - 24, *near(seg), *near(2 * seg),
+          *near(sms // SMS_PER_SEGMENT * seg), P_MNIST]
+    shapes = [(c, p, layout) for c in (1, 2, 3, 7, 40) for p in ps
+              for layout in ("contiguous", "vec4", "vec2", "vec1")]
+    shapes += [(RING_BLOCKS_PER_SM * sms + 1, seg - 24, "vec4"),
+               (REGISTER_BLOCKS_PER_SM * sms + 1, 999, "vec2"),
+               (REGISTER_BLOCKS_PER_SM * sms + 1, 999, "vec1"), (70_000, 3, "vec4")]
+    widths, pairs_over_wave = set(), []
+    for c, p, layout in shapes:
+        x = reduce_layout(torch, c, p, layout, gen)
+        ldx = x.stride(0) if c > 1 else p
+        widths.add(vector_width(x, ldx))
+        vec, plan = row_sq_plan_for(x, ldx)
+        check_row_sq_plan(plan, c, p, ldx, vec)
+        if c > sms and plan.segments == 1:
+            pairs_over_wave.append((c, vec, plan.blocks))
+        check_close(torch, f"row_sq_norms edge c={c} p={p} {layout}", ops.row_sq_norms(x),
+                    ops.row_sq_norms_plain(x), **TOL)
+        del x
+    buf = torch.randn(3 * (4096 + 64), device="cuda", generator=gen)
+    strided = buf.view(3, 4096 + 64)[:, :4096]  # the ring on a stride 64 floats past P
+    check_close(torch, "row_sq_norms stride P+64", ops.row_sq_norms(strided),
+                ops.row_sq_norms_plain(strided), **TOL)
+    torch.cuda.empty_cache()
+    if widths != {4, 2, 1}:
+        fail(f"row_sq_norms edges: load widths exercised {sorted(widths)}, expected 4, 2 and 1")
+    print(f"kernels: {len(shapes) + 1} B3 cases on its launch plan's edges agree with the "
+          f"plain version (rtol {TOL['rtol']}, atol {TOL['atol']}; C 1-7, 40, "
+          f"(C, vec, blocks) past one wave {pairs_over_wave}, 70,000 rows; P {ps}; load "
+          f"widths {sorted(widths)})")
+
+
+def check_row_sq_determinism(torch, ops, gen) -> None:
+    """B3 at C = 125 on the round's layout (P = 1,199,882) and at C = 25 on the 2-float
+    layout: two launches give the same bits, and rows 0-1 and the last two rows equal
+    bit for bit a launch of those rows alone (another grid, another ring depth)."""
+    def equal(what: str, a, b) -> None:
+        torch.cuda.synchronize()
+        if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+            fail(f"row_sq_norms {what}: different bits ({int((a != b).sum())} rows differ)")
+
+    for c, layout in ((125, "round"), (25, "vec2")):
+        x = (round_layout(torch, c, P_MNIST, seed=11 * c) if layout == "round"
+             else reduce_layout(torch, c, P_MNIST, layout, gen))
+        a = ops.row_sq_norms(x)
+        equal(f"C={c} {layout}, two launches", a, ops.row_sq_norms(x))
+        equal(f"C={c} {layout}, rows 0-1 alone", a[:2], ops.row_sq_norms(x[:2]))
+        equal(f"C={c} {layout}, the last two rows alone", a[-2:], ops.row_sq_norms(x[-2:]))
+        del x
+    torch.cuda.empty_cache()
+    print(f"kernels: B3 gives the same bits twice, and for rows 0-1 and the last two rows "
+          f"launched alone, at C = 125 (ring) and 25 (2-float loads), P = {P_MNIST}")
+
+
+def row_sq_plan_line(torch, x) -> str:
+    """B3's launch plan over ``x`` with what the card makes of it; fails if the grid
+    is more than one wave."""
+    from nanofed_tpu_torch.ops.dp_reduce import row_sq_occupancy, row_sq_plan_for
+    from nanofed_tpu_torch.ops.reduce import sm_count
+
+    ldx = x.stride(0) if x.shape[0] > 1 else x.shape[1]
+    vec, plan = row_sq_plan_for(x, ldx)
+    regs, per_sm = row_sq_occupancy(x.device, vec, plan)
+    sms = sm_count(x.device.index)
+    if plan.blocks > sms * per_sm or per_sm < plan.per_sm:
+        fail(f"row_sq_norms plan {plan}: the card holds {per_sm} blocks an SM ({sms} SMs), "
+             f"so the grid is more than one wave")
+    return (f"plan: vec={vec} path={'ring' if plan.stages else 'registers'} "
+            f"segments={plan.segments} blocks={plan.blocks} stages={plan.stages} "
+            f"shared_bytes={plan.shared_bytes} per_sm_planned={plan.per_sm} "
+            f"per_sm_card={per_sm} sms={sms} registers={regs}")
 
 
 # B1/B2 at every C at which the main path launches them: (form, C, layout).
@@ -4047,15 +4149,15 @@ def phase_observability(torch, ops, card: str, out_dir: Path) -> dict[str, int]:
     span_names = {"round", "cohort-sample", "cohort-gather", "local-train", "aggregate",
                   "publish"}
     kernels = {k: sorted(x for x in names if k in x)[:2]
-               for k in ("weighted_sum_ring", "weighted_sum_regs", "row_sq_partial_kernel",
-                         "row_sq_final_kernel")}
+               for k in ("weighted_sum_ring", "weighted_sum_regs", "row_sq_ring",
+                         "row_sq_regs")}
     print(f"[{card}] (u2) capture {trace_file.name}: {trace_file.stat().st_size} bytes, "
           f"{len(events)} events; spans found {sorted(span_names & names)}; B1/B3 kernel "
           f"names {json.dumps(kernels)}")
     if not span_names <= names:
         fail(f"(u2) spans missing from the capture: {sorted(span_names - names)}")
     if not ((kernels["weighted_sum_ring"] or kernels["weighted_sum_regs"])
-            and kernels["row_sq_partial_kernel"]):
+            and (kernels["row_sq_ring"] or kernels["row_sq_regs"])):
         fail("(u2) B1's or B3's kernel is missing from the capture")
     trace_file.unlink()  # tens of MB: not kept
 

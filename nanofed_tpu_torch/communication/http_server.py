@@ -753,8 +753,9 @@ class HTTPServer:
                 self._reject_update("bad_signature")
                 return verdict
         if self._ingest_pipeline is not None:
-            return await self._ingest_buffer_update(client_id, round_number, metrics,
-                                                    submit_id, fingerprint, params, base_flat)
+            return await self._ingest_buffer_update(
+                client_id, round_number, metrics, submit_id, fingerprint, params, base_flat,
+                trace="" if trace is None else trace.trace_id)
         async with self._lock:
             if self._duplicate_submit(client_id, submit_id, fingerprint):
                 return self._duplicate_response(client_id)
@@ -777,10 +778,11 @@ class HTTPServer:
     async def _ingest_buffer_update(
         self, client_id: str, round_number: int, metrics: dict[str, Any],
         submit_id: str | None, fingerprint: str, params: Params, base_flat: Any,
+        trace: str = "",
     ) -> web.StreamResponse:
         """The ingest tail of an admitted plain submit: flatten the decoded params into
         a delta against the snapshotted base (on the pool) and offer it to the buffer
-        under the lock.  A full buffer is a 429 + Retry-After with the idempotency key
+        under the lock, with the submit's trace id.  A full buffer is a 429 + Retry-After with the idempotency key
         not recorded, so a retry lands later."""
         if base_flat is None:
             self._reject_update("stale_round")
@@ -795,7 +797,8 @@ class HTTPServer:
                 self._reject_update("stale_round")
                 return self._stale(round_number)
             slot = self._ingest_pipeline.offer(flat_delta, client_id=client_id,
-                                               round_number=round_number, metrics=metrics)
+                                               round_number=round_number, metrics=metrics,
+                                               trace=trace)
             if slot is not None:
                 self._record_submit_locked(client_id, submit_id, fingerprint)
                 buffered = self._ingest_pipeline.fill

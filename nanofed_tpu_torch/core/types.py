@@ -36,6 +36,11 @@ class ClientData(NamedTuple):
     y: Any  # [N] or [C, N] integer labels
     mask: Any  # [N] or [C, N] float {0., 1.}
 
+    @property
+    def num_samples(self) -> Any:
+        """Number of real (unpadded) samples: ``mask`` summed over its last axis."""
+        return self.mask.sum(-1)
+
     def to(self, device: torch.device) -> "ClientData":
         """Tensors on ``device``: mask float32, y int64 (torch's index type), x float32,
         or int64 when it holds integer ids (a token stream indexes an embedding)."""
@@ -63,6 +68,15 @@ class ClientMetrics(NamedTuple):
     loss: torch.Tensor
     accuracy: torch.Tensor
     samples: torch.Tensor
+
+    def to_dict(self) -> dict[str, Any]:
+        """One client's metrics as plain numbers (the keys of the reference's
+        ``TrainingMetrics``)."""
+        return {
+            "loss": float(self.loss),
+            "accuracy": float(self.accuracy),
+            "samples_processed": int(self.samples),
+        }
 
 
 class ClientUpdates(NamedTuple):

@@ -63,6 +63,7 @@ class SlotMeta(NamedTuple):
     weight: float  # FedAvg aggregation weight (client sample count)
     metrics: Mapping[str, Any]
     seq: int  # arrival order: FedBuff drains the K oldest
+    trace: str = ""  # the submit's X-NanoFed-Trace trace id; "" when untraced
 
 
 def _fedbuff_stats(live: list[SlotMeta], skipped: int, staleness: list[int],
@@ -116,9 +117,9 @@ class DeviceIngestBuffer:
         return client_id in self._client_slot
 
     def offer(self, flat_delta: Any, *, client_id: str, round_number: int, weight: float,
-              metrics: Mapping[str, Any] | None = None) -> int | None:
+              metrics: Mapping[str, Any] | None = None, trace: str = "") -> int | None:
         """Stage one client's flattened delta into a slot; the slot, or None when the
-        buffer is full.  One live slot per client: a client's newer submit replaces
+        buffer is full.  ``trace`` is the submit's trace id, kept in the slot's record.  One live slot per client: a client's newer submit replaces
         its unaggregated older one in place (latest wins)."""
         slot = self._client_slot.get(client_id)
         if slot is None:
@@ -132,7 +133,8 @@ class DeviceIngestBuffer:
         self._seq += 1
         self._meta[slot] = SlotMeta(slot=slot, client_id=client_id,
                                     round_number=int(round_number), weight=float(weight),
-                                    metrics=dict(metrics or {}), seq=self._seq)
+                                    metrics=dict(metrics or {}), seq=self._seq,
+                                    trace=trace)
         self._client_slot[client_id] = slot
         return slot
 

@@ -135,10 +135,11 @@ class IngestPipeline:
         return self.buffer.fill
 
     def offer(self, flat_delta: Any, *, client_id: str, round_number: int,
-              metrics: Mapping[str, Any] | None = None) -> int | None:
+              metrics: Mapping[str, Any] | None = None, trace: str = "") -> int | None:
         replaced = self.buffer.has_client(client_id)
         slot = self.buffer.offer(flat_delta, client_id=client_id, round_number=round_number,
-                                 weight=weight_from_metrics(metrics), metrics=metrics or {})
+                                 weight=weight_from_metrics(metrics), metrics=metrics or {},
+                                 trace=trace)
         if slot is None:
             self._m_offers.inc(result="buffer_full")
         else:

@@ -1,6 +1,6 @@
 // mbarriers and 1-D bulk asynchronous copies (sm_90): the PTX under the bulk-copy
-// ring of kernels B1/B2 (reduce.cu) and B4 (quantize.cu), and B7's L2 prefetch
-// (quantize.cu).  Included by common.cuh.
+// ring of kernels B1/B2 (reduce.cu), B3 (dp_reduce.cu) and B4 (quantize.cu), and B7's
+// L2 prefetch (quantize.cu).  Included by common.cuh.
 #pragma once
 
 #include <cstdint>

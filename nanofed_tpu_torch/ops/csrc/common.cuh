@@ -48,7 +48,8 @@ __device__ __forceinline__ float block_sum(float v) {
 
 __device__ __forceinline__ int64_t imin(int64_t a, int64_t b) { return a < b ? a : b; }
 
-// ---- the persistent grid and the bulk-copy ring (B1/B2 in reduce.cu, B4 in quantize.cu)
+// ---- the persistent grid and the bulk-copy ring (B1/B2 in reduce.cu, B4 in quantize.cu,
+// B3 in dp_reduce.cu over (row, segment) pairs)
 //
 // The host plans each launch (ops/reduce.py launch_plan): `blocks` slabs of columns,
 // at most SMs x k blocks, so one wave.  On 16-byte-aligned rows a block streams its

@@ -147,7 +147,6 @@ def check_plan(plan: LaunchPlan, c: int, p: int, ldx: int, vec: int, itemsize: i
 
 
 @functools.cache
-@functools.cache
 def sm_count(index: int) -> int:
     """Streaming multiprocessors of CUDA device ``index``."""
     return torch.cuda.get_device_properties(index).multi_processor_count

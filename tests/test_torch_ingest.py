@@ -15,23 +15,29 @@ import asyncio
 import math
 import time
 
+import aiohttp
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import nanofed_tpu.communication as jax_comm
+import nanofed_tpu_torch.communication as port_comm
 from nanofed_tpu.communication.network_coordinator import fedbuff_combine as jax_fedbuff
 from nanofed_tpu.core.types import ModelUpdate as JaxModelUpdate
 from nanofed_tpu.ingest import DeviceIngestBuffer as JaxBuffer
 from nanofed_tpu.ingest import IngestConfig as JaxIngestConfig
 from nanofed_tpu.ingest import IngestPipeline as JaxPipeline
+from nanofed_tpu.ingest.buffer import SlotMeta as JaxSlotMeta
 from nanofed_tpu.utils.trees import tree_ravel
 from nanofed_tpu_torch.communication import fedbuff_combine
+from nanofed_tpu_torch.communication.transport import free_port
 from nanofed_tpu_torch.core.types import ModelUpdate
 from nanofed_tpu_torch.ingest import DeviceIngestBuffer, IngestConfig, IngestPipeline
+from nanofed_tpu_torch.ingest.buffer import SlotMeta
 from nanofed_tpu_torch.ingest.pipeline import flatten_params, weight_from_metrics
-from nanofed_tpu_torch.observability import MetricsRegistry
+from nanofed_tpu_torch.observability import MetricsRegistry, new_trace
 from nanofed_tpu_torch.utils.trees import flatten_with_names, from_numpy_params
 
 NESTED = {"dense": {"bias": np.zeros(3, np.float32), "kernel": np.zeros((5, 3), np.float32)},
@@ -295,3 +301,71 @@ def test_fedbuff_combine_discounts_each_update_of_a_repeated_client_like_jax():
     want = flatten_with_names(jax.tree.map(np.asarray, theirs))
     for name, leaf in ours.items():
         np.testing.assert_allclose(leaf.numpy(), want[name], rtol=0, atol=TOL, err_msg=name)
+
+
+def test_slot_record_has_the_jax_fields():
+    assert SlotMeta._fields == JaxSlotMeta._fields
+    assert SlotMeta._field_defaults == JaxSlotMeta._field_defaults == {"trace": ""}
+
+
+def test_offer_trace_rides_the_slot_record_into_the_drain_like_jax():
+    """A trace id offered with a delta comes back on the drained slot's record; an
+    untraced offer's is ""; a client's replacing offer replaces its trace too."""
+    port, ref = _pair(4)
+    rows, base = _rows(3), _rows(1, seed=5)[0]
+    offers = [("c0", rows[0], "aa" * 16), ("c1", rows[1], None), ("c0", rows[2], "bb" * 16)]
+    for buf in (port, ref):
+        for cid, row, trace in offers:
+            kw = {} if trace is None else {"trace": trace}
+            assert buf.offer(row, client_id=cid, round_number=0, weight=1.0, **kw) is not None
+    (_, ometas), (_, tmetas) = port.drain_fedavg(base), ref.drain_fedavg(base)
+    _same_metas(ometas, tmetas)
+    assert [m.trace for m in ometas] == [m.trace for m in tmetas] == ["", "bb" * 16]
+
+
+def test_pipeline_offer_forwards_its_trace_like_jax():
+    template = from_numpy_params(NESTED, device="cpu")
+    port = IngestPipeline(template, IngestConfig(capacity=2), registry=MetricsRegistry(),
+                          device="cpu")
+    ref = JaxPipeline(jax.tree.map(jnp.asarray, NESTED),
+                      JaxIngestConfig(capacity=2, batch_size=2))
+    for pipe in (port, ref):
+        pipe.note_version(0, template if pipe is port else jax.tree.map(jnp.asarray, NESTED))
+        assert pipe.offer(_rows(1)[0], client_id="a", round_number=0,
+                          metrics={"num_samples": 2}, trace="cd" * 16) is not None
+    (_, ometas), (_, tmetas) = port.drain_fedavg(0), ref.drain_fedavg(0)
+    assert [m.trace for m in ometas] == [m.trace for m in tmetas] == ["cd" * 16]
+
+
+def test_ingest_submit_trace_header_reaches_the_drained_slot_like_jax():
+    """A plain submit to an ingest server carries ``X-NanoFed-Trace``; the slot the
+    round drains names its trace id, in both packages.  An untraced submit's is ""."""
+    trace = new_trace("client-a", 0)
+
+    async def one(pkg):
+        comm = {"port": port_comm, "jax": jax_comm}[pkg]
+        if pkg == "port":
+            server = comm.HTTPServer(port=free_port(), ingest=IngestConfig(capacity=4),
+                                     device="cpu")
+            params = from_numpy_params(NESTED, device="cpu")
+        else:
+            server = comm.HTTPServer(port=free_port(), ingest=JaxIngestConfig(capacity=4))
+            params = jax.tree.map(jnp.asarray, NESTED)
+        await server.start()
+        try:
+            await server.publish_model(params, 0)
+            body = port_comm.encode_params(from_numpy_params(NESTED, device="cpu"))
+            url = f"http://127.0.0.1:{server.port}/update"
+            async with aiohttp.ClientSession() as session:
+                for cid, extra in (("a", {"X-NanoFed-Trace": trace.header()}), ("b", {})):
+                    headers = {"X-NanoFed-Client": cid, "X-NanoFed-Round": "0",
+                               "X-NanoFed-Metrics": '{"num_samples": 2}', **extra}
+                    async with session.post(url, data=body, headers=headers) as r:
+                        assert r.status == 200, await r.text()
+            _, metas = await server.drain_ingest_fedavg()
+            return sorted((m.client_id, m.trace) for m in metas)
+        finally:
+            await server.stop()
+
+    ours, theirs = asyncio.run(one("port")), asyncio.run(one("jax"))
+    assert ours == theirs == [("a", trace.trace_id), ("b", "")]

@@ -128,8 +128,10 @@ def _stub_launches(monkeypatch):
         monkeypatch.setattr(module, "_lib", lambda: _FakeLib())
         monkeypatch.setattr(module, "stream_of", lambda t: None)
     monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
-    for module in (reduce, quantize):  # the launch plans of B1/B2/B4 and B7's grid
+    for module in (reduce, dp_reduce, quantize):  # the plans of B1-B4 and B7's grid
         monkeypatch.setattr(module, "sm_count", lambda index: 132)
+    monkeypatch.setattr(dp_reduce, "_workspace", lambda device, stream, rows, pairs: (
+        torch.zeros(rows, dtype=torch.int32), torch.empty(pairs)))  # B3's per-stream scratch
 
 
 C, P = 5, 1003

@@ -13,6 +13,8 @@ import torch
 
 from nanofed_tpu.aggregation import base as jax_base
 from nanofed_tpu.core import exceptions as jax_exceptions
+from nanofed_tpu.core.types import ClientData as JaxClientData
+from nanofed_tpu.core.types import ClientMetrics as JaxClientMetrics
 from nanofed_tpu.core.types import ClientUpdates as JaxClientUpdates
 from nanofed_tpu.data import federate as jax_federate
 from nanofed_tpu.data import synthetic_classification as jax_synthetic
@@ -24,7 +26,7 @@ from nanofed_tpu.orchestration import types as jax_types
 from nanofed_tpu.trainer import TrainingConfig as JaxTrainingConfig
 from nanofed_tpu_torch.aggregation import AggregationResult, validate_updates
 from nanofed_tpu_torch.core import exceptions
-from nanofed_tpu_torch.core.types import ClientMetrics, ClientUpdates
+from nanofed_tpu_torch.core.types import ClientData, ClientMetrics, ClientUpdates
 from nanofed_tpu_torch.data import federate, synthetic_classification
 from nanofed_tpu_torch.models import get_model, list_models
 from nanofed_tpu_torch.orchestration import (
@@ -59,6 +61,34 @@ def test_exceptions_sit_where_the_jax_ones_do(name):
     assert ours.__doc__ == theirs.__doc__
     with pytest.raises(exceptions.NanoFedError):
         raise ours("x")
+
+
+@pytest.mark.parametrize("host", [True, False], ids=["numpy", "tensor"])
+def test_client_data_num_samples_sums_the_mask_like_jax(host):
+    """``num_samples`` of a [2, 3] mask: the mask summed over its last axis, in its
+    dtype and shape, as the JAX ``ClientData.num_samples``."""
+    mask = np.array([[1, 1, 0], [1, 1, 1]], np.float32)
+    x = np.zeros((2, 3, 4), np.float32)
+    y = np.zeros((2, 3), np.int32)
+    want = JaxClientData(jnp.asarray(x), jnp.asarray(y), jnp.asarray(mask)).num_samples
+    data = ClientData(x, y, mask)
+    got = data.num_samples if host else data.to(torch.device("cpu")).num_samples
+    got = np.asarray(got)
+    assert got.dtype == np.asarray(want).dtype == np.float32
+    assert got.shape == want.shape == (2,)
+    np.testing.assert_array_equal(got, np.asarray(want))
+    np.testing.assert_array_equal(got, [2.0, 3.0])
+
+
+def test_client_metrics_to_dict_like_jax():
+    """``to_dict()`` of one client's metrics: the reference's keys, ``float``,
+    ``float`` and ``int``."""
+    ours = ClientMetrics(torch.tensor(0.25), torch.tensor(0.75), torch.tensor(12)).to_dict()
+    theirs = JaxClientMetrics(jnp.float32(0.25), jnp.float32(0.75), jnp.int32(12)).to_dict()
+    assert ours == theirs == {"loss": 0.25, "accuracy": 0.75, "samples_processed": 12}
+    assert list(ours) == list(theirs)
+    assert [type(v) for v in ours.values()] == [type(v) for v in theirs.values()] == \
+        [float, float, int]
 
 
 NESTED = {"dense": {"bias": np.zeros(3, np.float32), "kernel": np.zeros((5, 3), np.float32)}}
