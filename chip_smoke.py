@@ -200,7 +200,7 @@ Phases (any failure exits non-zero):
    their plain versions on the round's own delta stack), and the q8 and topk8 (5%) wire
    bytes of its delta and of (v1)'s first adapter delta; B1 and B3 at those shapes and
    B1's accumulate form at C = 2, P = 7,356,416 timed beside ``w @ x``, ``acc.addmv_``
-   and ``torch.linalg.vecdot`` and their bounds; (v3) 4 bf16 adapter rounds at
+   and ``torch.linalg.vecdot`` and their bounds; (v3) 2 bf16 adapter rounds at
    ``rounds_per_block`` 2 and 1 and at 2 again (the run-to-run gap; its first block's
    ``dispatch`` under the sync check, 0 synchronizing operations): the adapters within
    1e-4 plus the gap; (v4) the ``large`` flagship (vocab 32768, seq 256, width 2048,
@@ -230,6 +230,20 @@ Phases (any failure exits non-zero):
    rank (exit 2, the JAX validator's message); then B2's ``denom`` form at C = 250 and B1's
    accumulate form and B3 at C = 2, P = 97,745,408 and 1,398,784 timed beside their plain
    versions, library calls and bounds.  Every rank's launches join the kernels line.
+   Then the rest of the mesh and the host-local federation (phase (x)): (x1) SCAFFOLD
+   at (m)'s configuration (1000 clients, 10% cohorts in chunks of 25, 3 rounds) on 4
+   gloo ranks, mesh (2, 2, 1), within 1e-5 of one rank given the same (host-local)
+   cohorts, every rank's params and ``c_global`` the same bits, each rank a quarter of
+   the control stack; the same on 2 ranks, mesh (1, 2), bit for bit one rank; a
+   100-client checkpoint of the (2, 2, 1) run resumed on one rank and one rank's resumed
+   on (2, 2, 1), bit for bit; (x2) ``profile_programs()`` on every rank of (2, 2, 1) in
+   lockstep, the gauges from rank 0 alone; (x3) a fused flagship block of R = 4 drawing
+   its cohorts on the card over the hosts axis (one all-gather of rows a round), within
+   1e-5 of the one-device block, the same ids; (x4) 2 gloo ranks as hosts, each an
+   ``HTTPServer`` with a card ingest buffer and 4 ``HTTPClient`` s submitting full-width
+   params: the partial drains, one row all-reduce under a ``CollectiveWatchdog`` and the
+   apply, FedAvg and FedBuff, within 1e-5 of one server draining the union, a
+   ``GenerationStore`` generation committed and read back each round.
 4. Cross-check: 8-client f32 rounds of the port on the card and on the CPU from the
    same weights, permutations and injected noise: the plain round with dropout off
    and on (the masks are an integer hash, the same bits on both devices), the
@@ -4294,7 +4308,7 @@ def phase_observability(torch, ops, card: str, out_dir: Path) -> dict[str, int]:
 LM_RANK = 8  # (v): the adapters' rank
 LM_CLIENTS, LM_SEQS, LM_BATCH, LM_LR = 8, 128, 16, 0.1  # (v1)-(v3): the base flagship's cohort
 LM_MERGE_TOL = 1e-5  # (v1): merged params against base + s A@B in float64
-LM_FUSED_ROUNDS = 4  # (v3): at rounds_per_block 2 and 1
+LM_FUSED_ROUNDS = 2  # (v3): at rounds_per_block 2 and 1
 LM_LARGE_CLIENTS, LM_LARGE_SEQS, LM_LARGE_CHUNK = 4, 8, 2  # (v4)
 LM_RESUME_ROUNDS = 4  # (v5): closed after 2 and resumed
 LM_REDUCES = (  # (v): B1 and B3 at the transformer's shapes: (C, P, form)
@@ -5446,6 +5460,565 @@ def phase_mesh(torch, ops, card: str, out_dir: Path, slice_runs: dict) -> dict[s
     print(f"[{card}] (w) phase wall_s={time.perf_counter() - t_phase:.1f}")
     return totals
 
+SCAFFOLD_MESH_SHAPE = (2, 2, 1)  # (x1), (x2), (x3)
+SCAFFOLD_MESH_TOL = 1e-5  # (x1): four ranks against one rank given the same cohorts
+# (x1), (x3) train in float32: a bf16 fit turns a float32 ulp of the reduce's other
+# summation order into a bf16 ulp, and SCAFFOLD's (2, 2, 1) run drifts 1.2e-5 from one
+# rank after its second round (scripts/scaffold_mesh_drift.py).
+MESH_DTYPE = "float32"
+MESH_BLOCK_RPB = 4  # (x3): one fused block of the flagship, cohorts drawn on the card
+MESH_BLOCK_COHORT = 5  # (x3): a fifth of the population a round, so each rank streams chunks
+MESH_BLOCK_TOL = 1e-5  # (x3): against the one-device block with the same seeds
+FED_CLIENTS = 4  # (x4): HTTP clients a host
+FED_K = 4  # (x4): each host's FedBuff drain
+FED_TOL = 1e-5  # (x4): the two hosts' reduce against one server draining the union
+
+
+def scaffold_coordinator(base_dir, data, rounds: int = SCAFFOLD_ROUNDS, **kw):
+    """(m)'s configuration through ``Coordinator(scaffold=True)``: ``mnist_cnn``, 10%
+    cohorts in chunks of 25, trained in ``MESH_DTYPE``."""
+    from nanofed_tpu_torch.models import get_model
+    from nanofed_tpu_torch.orchestration import Coordinator, CoordinatorConfig
+
+    return Coordinator(
+        get_model("mnist_cnn"), data,
+        CoordinatorConfig(num_rounds=rounds, participation_rate=0.1, seed=0,
+                          base_dir=base_dir, save_metrics=False),
+        dataclasses.replace(flagship_training(), compute_dtype=MESH_DTYPE),
+        client_chunk=SCAFFOLD_CHUNK, device="cuda", scaffold=True, **kw)
+
+
+def controls_state(torch, coord) -> dict:
+    """A SCAFFOLD coordinator's whole state on the host (a collective on a mesh)."""
+    c_global, c_stack = coord.full_controls()
+    state = coord.full_server_state()
+    return {"params": {k: v.cpu() for k, v in coord.full_params().items()},
+            "state": {k: v.cpu() for k, v in state.items() if torch.is_tensor(v)},
+            "c_global": c_global.cpu(), "c_stack": c_stack.cpu()}
+
+
+def same_state(torch, a: dict, b: dict) -> bool:
+    return all(torch.equal(a[part][k], b[part][k]) for part in ("params", "state")
+               for k in b[part]) and all(torch.equal(a[k], b[k]) for k in ("c_global", "c_stack"))
+
+
+def mesh_block(torch, mesh, rounds: int):
+    """(x3): one fused block of the flagship's 20% cohorts drawn on the card in chunks of
+    25, in ``MESH_DTYPE``, on ``mesh`` (this rank's host rows) or one device; its
+    params, ids and launches."""
+    from nanofed_tpu_torch import ops
+    from nanofed_tpu_torch.aggregation import fedavg_strategy
+    from nanofed_tpu_torch.models import get_model
+    from nanofed_tpu_torch.parallel import build_round_block, init_server_state, round_seeds
+    from nanofed_tpu_torch.parallel.mesh import MeshLayout, host_client_slice
+
+    model, data = get_model("mnist_cnn"), flagship_data()
+    n = FLAGSHIP["num_clients"]
+    full = {k: v.to("cuda") for k, v in model.init(torch.Generator().manual_seed(0)).items()}
+    layout = None if mesh is None else MeshLayout(mesh, full)
+    block = build_round_block(
+        model, dataclasses.replace(flagship_training(), compute_dtype=MESH_DTYPE),
+        fedavg_strategy(), num_clients=n,
+        step_clients=n // MESH_BLOCK_COHORT, cohort_size=n // MESH_BLOCK_COHORT,
+        client_chunk=SCAFFOLD_CHUNK, device="cuda", mesh=mesh,
+        params_like=full)
+    lo, hi = (0, n) if mesh is None else host_client_slice(n, mesh)
+    rows = data.select(slice(lo, hi)).to(torch.device("cuda"))
+    num_samples = torch.as_tensor(data.mask.sum(1), device="cuda")
+    gp = full if layout is None else layout.shard_params(full)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = block(gp, init_server_state(fedavg_strategy(), gp), rows, num_samples,
+                round_seeds(0, range(rounds)), [1.0] * rounds)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    params = res.params if layout is None else layout.gather_full(res.params)
+    return {"params": {k: v.cpu() for k, v in params.items()}, "ids": res.cohort_ids.cpu(),
+            "loss": res.metrics["loss"].cpu(), "counts": counts, "wall_s": wall,
+            "exchange_bytes": block.cohort_exchange_bytes}
+
+
+def as_numpy(tree):
+    """Tensors in nested dicts and lists as numpy arrays: what a rank hands back to the
+    parent (a tensor would cross the queue as shared memory the exiting rank frees)."""
+    import torch
+
+    if torch.is_tensor(tree):
+        return tree.detach().cpu().numpy()
+    if isinstance(tree, dict):
+        return {k: as_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(as_numpy(v) for v in tree)
+    return tree
+
+
+def published_programs() -> dict:
+    from nanofed_tpu_torch.observability import get_registry
+
+    out = {}
+    for line in get_registry().render_prometheus().splitlines():
+        if line.startswith("nanofed_program_") and "{" in line:
+            out[line.split(" ")[0]] = float(line.split(" ")[-1])
+    return out
+
+
+def scaffold_mesh_rank(rank: int, world: int, out_dir: str) -> dict:
+    """(x1)-(x3) as one rank of four on (2, 2, 1): SCAFFOLD at (m)'s configuration, its
+    programs profiled in lockstep, a 100-client run checkpointed by rank 0 and a
+    one-rank checkpoint resumed here, then a fused block drawing its cohorts on the
+    card; cuDNN's deterministic algorithms throughout."""
+    import torch
+
+    from nanofed_tpu_torch import ops
+    from nanofed_tpu_torch.parallel.mesh import make_mesh
+    from nanofed_tpu_torch.persistence import FileStateStore
+
+    torch.backends.cudnn.deterministic = True
+    out_dir = Path(out_dir)
+    mesh = make_mesh(SCAFFOLD_MESH_SHAPE, device="cuda")
+    coord = scaffold_coordinator(out_dir / "x1", flagship_data(), mesh=mesh)
+    # Each round's host-local draw and its slot layout, for the one-rank reference.
+    cohorts = [coord._sample_cohort(r) for r in range(SCAFFOLD_ROUNDS)]
+    out = {"cohorts": cohorts, "slots": [coord._place_cohort(c) for c in cohorts],
+           "stack_bytes": coord.c_stack.numel() * coord.c_stack.element_size()}
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    rounds = coord.run()
+    torch.cuda.synchronize()
+    out["counts"] = ops.launch_counts()
+    out["round_s"] = [m.duration_s for m in rounds]
+    out["loss"] = [m.agg_metrics["loss"] for m in rounds]
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["exchange_bytes"] = coord.control_exchange_bytes
+    out["params"] = {k: v.cpu() for k, v in coord.full_params().items()}
+    out["c_global"] = coord.full_c_global().cpu()
+    # (x2) every program profiled on every rank in lockstep; rank 0 publishes.
+    t0 = time.perf_counter()
+    reports = coord.profile_programs()
+    out["profile_s"] = time.perf_counter() - t0
+    out["reports"] = [r.to_dict() for r in reports]
+    out["published"] = published_programs()
+    del coord
+    gc.collect()
+    torch.cuda.empty_cache()
+    # A 100-client population: three rounds checkpointed here, and a one-rank
+    # checkpoint of two rounds resumed here for its third.
+    small = flagship_data(SCAFFOLD_RESUME_CLIENTS)
+    ran = scaffold_coordinator(out_dir / "x1_small", small, mesh=mesh,
+                               state_store=FileStateStore(out_dir / "x1_mesh_ckpt"))
+    ran.run()
+    state = controls_state(torch, ran)
+    if rank == 0:
+        torch.save(state, out_dir / "x1_mesh_state.pt")
+    del ran, state
+    resumed = scaffold_coordinator(out_dir / "x1_resumed", small, mesh=mesh,
+                                   state_store=FileStateStore(out_dir / "x1_one_ckpt"))
+    out["resumed_round"] = resumed.current_round
+    state = controls_state(torch, resumed)
+    if rank == 0:
+        torch.save(state, out_dir / "x1_resumed_state.pt")
+    del resumed, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (x3) a fused block with cohorts drawn on the card.
+    out["block"] = mesh_block(torch, mesh, MESH_BLOCK_RPB)
+    return as_numpy(out)
+
+
+def federation_rank(rank: int, world: int, out_dir: str) -> dict:
+    """(x1)'s (1, 2) mesh, then (x4): rank h is host h of a (2, 1, 1) mesh.  It runs
+    an ``HTTPServer`` with a card ingest buffer on localhost; four ``HTTPClient`` s
+    submit full-width ``mnist_cnn`` params; the partial drain, one row all-reduce
+    under a ``CollectiveWatchdog`` and the apply give the round, for FedAvg and then
+    FedBuff (K = 4 a host, against two bases); each round both hosts commit a
+    ``GenerationStore`` generation and read back the latest complete one."""
+    import asyncio
+
+    import torch
+    import torch.distributed as dist
+
+    from nanofed_tpu_torch import ops
+    from nanofed_tpu_torch.communication import HTTPClient, HTTPServer
+    from nanofed_tpu_torch.communication.federation import (
+        apply_summed_row,
+        build_cross_host_row_psum,
+        host_partial_row,
+    )
+    from nanofed_tpu_torch.communication.transport import free_port
+    from nanofed_tpu_torch.ingest import IngestConfig
+    from nanofed_tpu_torch.models import get_model
+    from nanofed_tpu_torch.parallel import CollectiveWatchdog
+    from nanofed_tpu_torch.parallel.mesh import make_mesh
+    from nanofed_tpu_torch.persistence import GenerationStore
+    from nanofed_tpu_torch.utils.trees import ravel
+
+    torch.backends.cudnn.deterministic = True
+    out_dir = Path(out_dir)
+    out: dict = {}
+    # (x1) the same SCAFFOLD configuration on (1, 2).
+    coord = scaffold_coordinator(out_dir / "x1_1x2", flagship_data(),
+                                 mesh=make_mesh((1, 2), device="cuda"))
+    ops.reset_launch_counts()
+    rounds = coord.run()
+    torch.cuda.synchronize()
+    out["counts"] = ops.launch_counts()
+    out["round_s"] = [m.duration_s for m in rounds]
+    out["stack_bytes"] = coord.c_stack.numel() * coord.c_stack.element_size()
+    out["params"] = {k: v.cpu() for k, v in coord.full_params().items()}
+    out["c_global"] = coord.full_c_global().cpu()
+    del coord
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (x4) two hosts.
+    mesh = make_mesh((2, 1, 1), device="cuda")
+    row_psum = build_cross_host_row_psum(mesh)
+    watchdog = CollectiveWatchdog(deadline_s=120.0, host=rank)
+    store = GenerationStore(out_dir / "x4_generations", host=rank)
+    model = get_model("mnist_cnn")
+    base = {k: v.cpu() for k, v in model.init(torch.Generator().manual_seed(0)).items()}
+
+    async def submits(server, clients, versions):
+        """Each client fetches version ``versions[i]`` and submits it plus its delta."""
+        url = f"http://127.0.0.1:{server.port}"
+        for i, (cid, version) in enumerate(zip(clients, versions)):
+            async with HTTPClient(url, cid) as client:
+                got, _, _ = await client.fetch_global_model()
+                delta = fed_delta(torch, cid, got)
+                await client.submit_update({k: got[k] + delta[k] for k in got},
+                                           {"num_samples": 10 + i})
+
+    async def run_round(policy: str) -> dict:
+        clients = [f"h{rank}c{i}" for i in range(FED_CLIENTS)]
+        server = HTTPServer(port=free_port(), ingest=IngestConfig(capacity=2 * FED_CLIENTS),
+                            device="cuda", staleness_window=0 if policy == "fedavg" else 2)
+        await server.start()
+        try:
+            params = {k: v.clone() for k, v in base.items()}
+            await server.publish_model(params, 0)
+            versions = [0] * FED_CLIENTS
+            if policy == "fedbuff":
+                # Half the clients train on version 0, half on version 1.
+                await submits(server, clients[:2], [0, 0])
+                params = {k: v + 0.01 for k, v in base.items()}
+                await server.publish_model(params, 1)
+                await submits(server, clients[2:], [1, 1])
+            else:
+                await submits(server, clients, versions)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if policy == "fedavg":
+                num, mass, metas = await server.drain_ingest_fedavg_partial()
+            else:
+                num, metas, stats = await server.drain_ingest_fedbuff_partial(FED_K, 1)
+                mass = float(len(metas))
+            row = host_partial_row(num, mass, num.numel())
+            torch.cuda.synchronize()
+            drain_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            await server.stop()
+        t0 = time.perf_counter()
+        total = watchdog.run(row_psum, row, round_number=0 if policy == "fedavg" else 1)
+        torch.cuda.synchronize()
+        reduce_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        new, tail = apply_summed_row(ravel({k: v.cuda() for k, v in params.items()}), total,
+                                     num.numel())
+        torch.cuda.synchronize()
+        apply_ms = (time.perf_counter() - t0) * 1e3
+        return {"new": new.cpu(), "mass": float(tail[0]), "drained": len(metas),
+                "drain_ms": drain_ms, "all_reduce_ms": reduce_ms, "apply_ms": apply_ms,
+                "row_bytes": row.numel() * row.element_size()}
+
+    for gen, policy in enumerate(("fedavg", "fedbuff")):
+        result = asyncio.run(run_round(policy))
+        store.commit(gen, gen, {"flat": result["new"]}, {}, hosts=[0, 1],
+                     meta={"policy": policy})
+        dist.barrier()
+        record = store.latest_complete()
+        result["latest_complete"] = (record.generation, record.hosts, record.meta)
+        out[policy] = result
+    out["imports"] = sorted(m for m in sys.modules
+                            if m.split(".")[0] in ("jax", "jaxlib", "nanofed_tpu"))
+    return as_numpy(out)
+
+
+def fed_delta(torch, cid: str, like: dict) -> dict:
+    """(x4): a client's update, a seeded draw of 1e-3 scale, the same in every process."""
+    gen = torch.Generator().manual_seed(int.from_bytes(cid.encode(), "little"))
+    return {k: 1e-3 * torch.randn(v.shape, generator=gen) for k, v in like.items()}
+
+
+def union_drain(torch, policy: str) -> torch.Tensor:
+    """(x4)'s reference: one server on this process draining the union of both hosts'
+    submits, as one host's round."""
+    import asyncio
+
+    from nanofed_tpu_torch.communication import HTTPClient, HTTPServer
+    from nanofed_tpu_torch.communication.transport import free_port
+    from nanofed_tpu_torch.ingest import IngestConfig
+    from nanofed_tpu_torch.models import get_model
+
+    base = {k: v.cpu() for k, v in get_model("mnist_cnn").init(
+        torch.Generator().manual_seed(0)).items()}
+
+    async def main():
+        server = HTTPServer(port=free_port(), ingest=IngestConfig(capacity=4 * FED_CLIENTS),
+                            device="cuda", staleness_window=0 if policy == "fedavg" else 2)
+        await server.start()
+        try:
+            await server.publish_model(base, 0)
+            url = f"http://127.0.0.1:{server.port}"
+
+            async def submit(cid, i):
+                async with HTTPClient(url, cid) as client:
+                    got, _, _ = await client.fetch_global_model()
+                    delta = fed_delta(torch, cid, got)
+                    await client.submit_update({k: got[k] + delta[k] for k in got},
+                                               {"num_samples": 10 + i})
+
+            half = FED_CLIENTS // 2
+            ids = [(f"h{h}c{i}", i) for h in range(2) for i in range(FED_CLIENTS)]
+            if policy == "fedavg":
+                for cid, i in ids:
+                    await submit(cid, i)
+                new, _ = await server.drain_ingest_fedavg()
+                return new
+            for cid, i in (x for x in ids if x[1] < half):
+                await submit(cid, i)
+            await server.publish_model({k: v + 0.01 for k, v in base.items()}, 1)
+            for cid, i in (x for x in ids if x[1] >= half):
+                await submit(cid, i)
+            new, _, _ = await server.drain_ingest_fedbuff(2 * FED_K, 1)
+            return new
+        finally:
+            await server.stop()
+
+    return asyncio.run(main()).cpu()
+
+
+def time_rank_mean(torch, ops, card: str) -> None:
+    """(x1) B1's ``denom`` form at a (2, 2, 1) rank's SCAFFOLD rows (25 clients: the
+    uniform participant mean over the rank's rows, divided by the cohort's count) against
+    its plain version and the library call, with its bound."""
+    c, p = SCAFFOLD_CHUNK, P_MNIST
+    x = round_layout(torch, c, p, seed=17)
+    w = (torch.rand(c, device="cuda", generator=torch.Generator(device="cuda").manual_seed(17))
+         > 0.1).float()
+    denom = w.sum() * 4  # the cohort's participants over four ranks
+    err = check_close(torch, "(x1) weighted_mean_flat denom",
+                      ops.weighted_mean_flat(x, w, denom=denom),
+                      ops.weighted_mean_flat_plain(x, w, denom=denom), **TOL)
+    ms = median_ms(lambda: ops.weighted_mean_flat(x, w, denom=denom), torch)
+    plain_ms = median_ms(lambda: ops.weighted_mean_flat_plain(x, w, denom=denom), torch)
+    library_ms = median_ms(lambda: (w / denom) @ x, torch)
+    b_ms, b_by = bound_ms(4 * c * p + 4 * c + 4 * p + 4, 2 * c * p)
+    print(f"[{card}] (x1) weighted_mean_flat denom form C={c} P={p}: kernel_ms={ms:.6f} "
+          f"plain_ms={plain_ms:.6f} library_ms={library_ms:.6f} ((w / denom) @ x) "
+          f"bound_ms={b_ms:.6f} ({b_by}) share_of_bound={b_ms / ms:.4f} "
+          f"max_abs_err={err:.3e} {plan_line(torch, x, False, False)}")
+
+
+def phase_mesh_rest(torch, ops, card: str, out_dir: Path) -> dict[str, int]:
+    """(x): the rest of the mesh and the host-local federation on the one card.  (x1)
+    SCAFFOLD at (m)'s configuration on four gloo ranks, mesh (2, 2, 1), against one
+    rank given the same cohorts (1e-5), and on (1, 2) against one rank bit for bit;
+    each rank's control-stack bytes and launches; a 100-client checkpoint from
+    (2, 2, 1) resumed on one rank and one rank's resumed on (2, 2, 1), bit for bit;
+    (x2) the SCAFFOLD step profiled in lockstep on every rank; (x3) a fused block of
+    R = 4, 20% cohorts drawn on the card over the hosts axis in chunks of 25, against
+    the one-device block (1e-5); (x4) two ranks as hosts: ingest servers, partial drains, one row
+    all-reduce and the apply against one server draining the union, FedAvg and FedBuff,
+    with generations committed.  Ranks share the card over gloo, so (x)'s times say
+    nothing of a multi-card round.  Returns every rank's launches on the main paths."""
+    from nanofed_tpu_torch.parallel.mesh import Mesh, client_slice
+    from nanofed_tpu_torch.persistence import FileStateStore
+
+    t_phase = time.perf_counter()
+    totals: dict[str, int] = dict.fromkeys(ops.launch_counts(), 0)
+    base_dir = out_dir / "x_mesh"
+    base_dir.mkdir(parents=True, exist_ok=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    n, p = FLAGSHIP["num_clients"], P_MNIST
+
+    # The one-rank checkpoint (x1) resumes on (2, 2, 1): two rounds of the 100-client
+    # population, written before the world starts.
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        small = flagship_data(SCAFFOLD_RESUME_CLIENTS)
+        one = scaffold_coordinator(base_dir / "x1_one", small, rounds=2,
+                                   state_store=FileStateStore(base_dir / "x1_one_ckpt"))
+        _, _, grew = counted(torch, ops, card, "(x1) population 100 on one rank, 2 rounds",
+                             one.run, scaffold_launches(2))
+        add_launches(totals, grew)
+        one_state = controls_state(torch, one)
+        del one
+        ranks = spawned(torch, card, "(x1)-(x3) SCAFFOLD, profiles and a block, mesh (2, 2, 1)",
+                        scaffold_mesh_rank, 4, "gloo", args=(str(base_dir),))
+        two = spawned(torch, card, "(x1) SCAFFOLD on (1, 2), then (x4) two hosts",
+                      federation_rank, 2, "gloo", args=(str(base_dir),))
+
+        # (x1) four ranks against one rank given their cohorts; (1, 2) against one rank.
+        refs = {}
+        for name, given in (("given", ranks[0]), ("own", None)):
+            gc.collect()
+            torch.cuda.empty_cache()
+            ref = scaffold_coordinator(base_dir / f"x1_ref_{name}", flagship_data())
+            if given is not None:
+                # The mesh's cohorts in the mesh's slot order: a bf16 fit's bits depend
+                # on the clients its chunk holds (vmap batches them into one convolution).
+                slots = {c.tobytes(): s for c, s in zip(given["cohorts"], given["slots"])}
+                ref._sample_cohort = lambda r, c=given["cohorts"]: c[r]
+                ref._place_cohort = lambda survived, s=slots: s[survived.tobytes()]
+            _, wall, grew = counted(torch, ops, card, f"(x1) one rank, {name} cohorts",
+                                    ref.run, scaffold_launches(SCAFFOLD_ROUNDS))
+            add_launches(totals, grew)
+            refs[name] = {"params": {k: v.cpu() for k, v in ref.params.items()},
+                          "c_global": ref.c_global.cpu(), "wall_s": wall,
+                          "stack_bytes": ref.c_stack.numel() * ref.c_stack.element_size()}
+            del ref
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    gc.collect()
+    torch.cuda.empty_cache()
+    want_counts = scaffold_launches(SCAFFOLD_ROUNDS)
+    full_stack = n * p * 4
+    for i, r in enumerate(ranks):
+        add_launches(totals, r["counts"])
+        lo, hi = client_slice(n, Mesh.describe(SCAFFOLD_MESH_SHAPE, i))
+        print(f"[{card}] (x1) rank {i} of (2, 2, 1): round_s={r['round_s']} loss={r['loss']} "
+              f"control stack rows [{lo}, {hi}) = {r['stack_bytes']} bytes "
+              f"({r['stack_bytes'] / full_stack:.4f} of N x P x 4 = {full_stack}); last "
+              f"round's control-row exchange {r['exchange_bytes']} bytes received; "
+              f"launches={r['counts']} (expected {want_counts}); "
+              f"peak_device_bytes={r['peak_bytes']}")
+        if r["counts"] != {k: want_counts.get(k, 0) for k in r["counts"]}:
+            fail(f"(x1) rank {i} launches {r['counts']}, expected {want_counts}")
+        if r["stack_bytes"] * 4 != full_stack:
+            fail(f"(x1) rank {i} holds {r['stack_bytes']} bytes of the control stack")
+    gap = max(max_abs_gap(torch, ranks[0]["params"], refs["given"]["params"]),
+              max_abs_gap(torch, {"c": ranks[0]["c_global"]}, {"c": refs["given"]["c_global"]}))
+    ranks_same = all(all((r["params"][k] == ranks[0]["params"][k]).all()
+                         for k in ranks[0]["params"])
+                     and (r["c_global"] == ranks[0]["c_global"]).all() for r in ranks[1:])
+    print(f"[{card}] (x1) (2, 2, 1) against one rank given the same cohorts in the same "
+          f"slots: max|d(params, "
+          f"c_global)|={gap:.3e} (tolerance {SCAFFOLD_MESH_TOL}); every rank's params and "
+          f"c_global the same bits: {ranks_same}; one rank's wall {refs['given']['wall_s']:.3f}"
+          f" s for {SCAFFOLD_ROUNDS} rounds, control stack {refs['given']['stack_bytes']} "
+          f"bytes")
+    if gap > SCAFFOLD_MESH_TOL or not ranks_same:
+        fail(f"(x1) (2, 2, 1) is {gap} from one rank; ranks bit-identical: {ranks_same}")
+    for i, r in enumerate(two):
+        add_launches(totals, r["counts"])
+        print(f"[{card}] (x1) rank {i} of (1, 2): round_s={r['round_s']} control stack "
+              f"{r['stack_bytes']} bytes; launches={r['counts']}")
+        if r["counts"] != {k: want_counts.get(k, 0) for k in r["counts"]}:
+            fail(f"(x1) (1, 2) rank {i} launches {r['counts']}")
+    same = (all(torch.equal(torch.from_numpy(two[0]["params"][k]), refs["own"]["params"][k])
+                for k in refs["own"]["params"])
+            and torch.equal(torch.from_numpy(two[0]["c_global"]), refs["own"]["c_global"]))
+    print(f"[{card}] (x1) (1, 2) params and c_global bit-equal to one rank: {same}")
+    if not same:
+        fail("(x1) the (1, 2) SCAFFOLD run is not bit-equal to one rank: max "
+             f"{max_abs_gap(torch, two[0]['params'], refs['own']['params']):.3e}")
+
+    # Checkpoints across mesh shapes: (2, 2, 1)'s resumed on one rank; one rank's on
+    # (2, 2, 1).
+    resumed_mesh = torch.load(base_dir / "x1_resumed_state.pt")
+    ok_in = ranks[0]["resumed_round"] == 2 and same_state(torch, resumed_mesh, one_state)
+    back = scaffold_coordinator(base_dir / "x1_back", flagship_data(SCAFFOLD_RESUME_CLIENTS),
+                                rounds=4, state_store=FileStateStore(base_dir / "x1_mesh_ckpt"))
+    ok_out = back.current_round == 3 and same_state(
+        torch, controls_state(torch, back), torch.load(base_dir / "x1_mesh_state.pt"))
+    stack_mb = SCAFFOLD_RESUME_CLIENTS * p * 4 / 1e6
+    print(f"[{card}] (x1) a one-rank round-1 checkpoint resumed on (2, 2, 1) at round "
+          f"{ranks[0]['resumed_round']}, state bit-equal: {ok_in}; the (2, 2, 1) round-2 "
+          f"checkpoint resumed on one rank at round {back.current_round}, state bit-equal: "
+          f"{ok_out} ({SCAFFOLD_RESUME_CLIENTS} clients: a {stack_mb:.0f} MB control stack "
+          "gathered for each checkpoint)")
+    del back, resumed_mesh, one_state
+    if not (ok_in and ok_out):
+        fail(f"(x1) checkpoints across mesh shapes: into the mesh {ok_in}, out {ok_out}")
+
+    # (x2) every rank's report; rank 0 alone published.
+    for i, r in enumerate(ranks):
+        for rep in r["reports"]:
+            print(f"[{card}] (x2) rank {i} {rep['program']}: flops={rep['flops']:.6g} "
+                  f"bytes_accessed={rep['bytes_accessed']:.6g} peak_bytes={rep['peak_bytes']} "
+                  f"first_call_s={rep['compile_seconds']} measured_s={rep['measured_s']:.6f} "
+                  f"num_devices={rep['num_devices']} attrs={rep['attrs']} "
+                  f"(profile_programs {r['profile_s']:.3f} s)")
+        if [rep["program"] for rep in r["reports"]] != ["scaffold_round_step"]:
+            fail(f"(x2) rank {i} profiled {[rep['program'] for rep in r['reports']]}")
+    print(f"[{card}] (x2) rank 0's gauges: {ranks[0]['published']}; ranks 1-3 published "
+          f"{[len(r['published']) for r in ranks[1:]]} gauges")
+    if not ranks[0]["published"] or any(r["published"] for r in ranks[1:]):
+        fail("(x2) the gauges must come from rank 0 alone")
+
+    # (x3) the block against one device with the same seeds.
+    gc.collect()
+    torch.cuda.empty_cache()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        ref = mesh_block(torch, None, MESH_BLOCK_RPB)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    cohort = n // MESH_BLOCK_COHORT
+    want = {k: v * MESH_BLOCK_RPB for k, v in step_launches(SCAFFOLD_CHUNK, cohort).items()}
+    if ref["counts"] != {k: want.get(k, 0) for k in ref["counts"]}:
+        fail(f"(x3) one device's launches {ref['counts']}, expected {want}")
+    block_counts = {k: v * MESH_BLOCK_RPB  # a rank streams its quarter of the cohort
+                    for k, v in step_launches(SCAFFOLD_CHUNK, cohort // 4).items()}
+    add_launches(totals, ref["counts"])
+    got = ranks[0]["block"]
+    ids_same = all(torch.equal(torch.from_numpy(r["block"]["ids"]), ref["ids"]) for r in ranks)
+    gap = max_abs_gap(torch, got["params"], ref["params"])
+    for i, r in enumerate(ranks):
+        add_launches(totals, r["block"]["counts"])
+        print(f"[{card}] (x3) rank {i}: block of {MESH_BLOCK_RPB} rounds in "
+              f"{r['block']['wall_s']:.3f} s, cohort exchange "
+              f"{r['block']['exchange_bytes']} bytes received a round; "
+              f"launches={r['block']['counts']}")
+        if r["block"]["counts"] != {k: block_counts.get(k, 0) for k in r["block"]["counts"]}:
+            fail(f"(x3) rank {i} launches {r['block']['counts']}")
+    crossed = int(((ref["ids"] // (n // 2))
+                   != (torch.arange(ref["ids"].shape[1]) // (ref["ids"].shape[1] // 2))).sum())
+    print(f"[{card}] (x3) one device: {ref['wall_s']:.3f} s, launches={ref['counts']}; the "
+          f"mesh drew the same ids: {ids_same} ({crossed} of {ref['ids'].numel()} slots held "
+          f"by the other host); max|d params|={gap:.3e} (tolerance {MESH_BLOCK_TOL}); loss "
+          f"{got['loss'].tolist()} vs {ref['loss'].tolist()}")
+    if not ids_same or gap > MESH_BLOCK_TOL or crossed == 0:
+        fail(f"(x3) ids equal {ids_same}, params {gap} from one device, {crossed} crossed")
+
+    # (x4) the two hosts against one server draining the union.
+    if any(r["imports"] for r in two):
+        fail(f"(x4) a host imported {two[0]['imports']}")
+    for policy in ("fedavg", "fedbuff"):
+        want = union_drain(torch, policy)
+        for i, r in enumerate(two):
+            x = r[policy]
+            gap = float((torch.from_numpy(x["new"]) - want).abs().max())
+            print(f"[{card}] (x4) {policy} host {i}: drained {x['drained']} (mass "
+                  f"{x['mass']}), drain {x['drain_ms']:.3f} ms, row all-reduce of "
+                  f"{x['row_bytes']} bytes {x['all_reduce_ms']:.3f} ms, apply "
+                  f"{x['apply_ms']:.3f} ms; against one server draining the union "
+                  f"max|d|={gap:.3e} (tolerance {FED_TOL}); latest complete generation "
+                  f"{x['latest_complete']}")
+            if gap > FED_TOL or x["latest_complete"][0] != ("fedavg", "fedbuff").index(policy):
+                fail(f"(x4) {policy} host {i}: {gap} from the union, {x['latest_complete']}")
+        if not (two[0][policy]["new"] == two[1][policy]["new"]).all():
+            fail(f"(x4) {policy}: the hosts' params differ")
+    time_rank_mean(torch, ops, card)
+    print(f"[{card}] (x) ranks share one card over gloo: these times are not a multi-card "
+          f"round's; phase wall_s={time.perf_counter() - t_phase:.1f}")
+    return totals
+
+
 def main() -> None:
     t_script = time.perf_counter()
     import torch
@@ -5499,11 +6072,12 @@ def main() -> None:
         obs_counts = phase_observability(torch, ops, card, Path(tmp))
         lm_counts = phase_transformer(torch, ops, card, Path(tmp))
         mesh_counts = phase_mesh(torch, ops, card, Path(tmp), slice_runs)
+        rest_counts = phase_mesh_rest(torch, ops, card, Path(tmp))
     wire_counts = phase_wire(torch, ops, card)
     counts = {k: counts[k] + secure_counts[k] + tuned_counts[k] + resume_counts[k]
               + network_resume_counts[k] + dp_counts[k] + scaffold_counts[k]
               + fused_counts[k] + cifar_counts[k] + obs_counts[k] + lm_counts[k]
-              + mesh_counts[k] + wire_counts.get(k, 0)
+              + mesh_counts[k] + rest_counts[k] + wire_counts.get(k, 0)
               for k in counts}
     print(f"kernels: {json.dumps(counts)}")
     missing = [k for k, v in counts.items() if v == 0]

@@ -394,6 +394,25 @@ class HTTPServer:
                 k, current_version, staleness_exponent=staleness_exponent,
                 server_lr=server_lr)
 
+    async def drain_ingest_fedavg_partial(self) -> tuple[Any | None, float, list[Any]]:
+        """The host-local stage of a hierarchical sync round: the ingest buffer's
+        unnormalised ``(Σ w_i δ_i, Σ w_i, slot_metas)``, drained under the server's
+        lock; ``(None, 0.0, [])`` when empty (the host still joins the cross-host
+        all-reduce, ``communication.federation``)."""
+        async with self._lock:
+            return self._ingest_pipeline.drain_fedavg_partial()
+
+    async def drain_ingest_fedbuff_partial(
+        self, k: int, current_version: int, staleness_exponent: float = 0.5,
+    ) -> tuple[Any, list[Any], dict[str, Any]]:
+        """The host-local stage of a hierarchical FedBuff step: the unnormalised
+        discounted sum of this host's K oldest in-window deltas, under the server's
+        lock (``server_lr`` and the global ``1/K`` apply after the cross-host
+        all-reduce)."""
+        async with self._lock:
+            return self._ingest_pipeline.drain_fedbuff_partial(
+                k, current_version, staleness_exponent=staleness_exponent)
+
     @property
     def ingest_pipeline(self) -> Any | None:
         """The ingest pipeline once the first publish built it (None without

@@ -2,7 +2,8 @@
 FedBuff-style ``[capacity, P]`` buffer of client deltas on the card, drained by one
 batched product a round or aggregation instead of one host stack per client, behind
 a bounded decode pool.  A full buffer answers 429 + Retry-After at the HTTP layer.
-The hierarchical partial drains come with the federation service (ROADMAP item 17)."""
+The partial drains are the host-local stage of a hierarchical federation
+(``communication.federation``)."""
 
 from nanofed_tpu_torch.ingest.buffer import DeviceIngestBuffer, IngestConfig, SlotMeta
 from nanofed_tpu_torch.ingest.pipeline import (

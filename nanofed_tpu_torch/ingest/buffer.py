@@ -1,6 +1,5 @@
 """The device-resident ingest buffer: fixed slots, one batched product per drain
-(counterpart of ``nanofed_tpu/ingest/buffer.py``, less the hierarchical partial
-drains).
+(counterpart of ``nanofed_tpu/ingest/buffer.py``).
 
 Layout: one preallocated ``[capacity, P]`` float32 tensor of flattened client deltas
 on the card, plus host-side slot bookkeeping: a free list and per-slot metadata
@@ -11,7 +10,10 @@ reach the card in one ``index_copy_`` at the next drain.  A drain is one product
     new_flat = base_flat + coefs @ buffer        # torch.addmv, [P] + [capacity]·[capacity, P]
 
 with the policy in a host coefficient vector: FedAvg ``w_i / Σw`` on the drained
-slots, FedBuff ``lr · (1+τ_i)^-α / K``, exact 0.0 elsewhere.  The JAX package computes
+slots, FedBuff ``lr · (1+τ_i)^-α / K``, exact 0.0 elsewhere.  The partial drains are
+the host-local stage of a hierarchical federation (``communication.federation``):
+the same product with no base and unnormalised coefficients (``w_i``, or
+``(1+τ_i)^-α``), because the normaliser is global.  The JAX package computes
 the same product as a plain ``jnp`` expression outside any Pallas kernel, so this is
 no port of a kernel.
 
@@ -172,12 +174,17 @@ class DeviceIngestBuffer:
         self._release(list(self._meta))
         return n
 
-    def _run_reduce(self, coefs: np.ndarray, base_flat: Any) -> torch.Tensor:
+    def _run_reduce(self, coefs: np.ndarray, base_flat: Any = None) -> torch.Tensor:
+        """``base + coefs @ buffer``, or ``coefs @ buffer`` without a base."""
+        coefs_dev = torch.from_numpy(coefs).to(self.device)
+        if base_flat is None:
+            self._flush()
+            return torch.mv(self._buf.t(), coefs_dev)
         base = torch.as_tensor(np.asarray(base_flat, np.float32)).to(self.device)
         if base.shape != (self.flat_size,):
             raise ValueError(f"base shape {tuple(base.shape)} != ({self.flat_size},)")
         self._flush()
-        return torch.addmv(base, self._buf.t(), torch.from_numpy(coefs).to(self.device))
+        return torch.addmv(base, self._buf.t(), coefs_dev)
 
     def drain_fedavg(self, base_flat: Any) -> tuple[torch.Tensor | None, list[SlotMeta]]:
         """Drain every occupied slot as one weighted FedAvg step,
@@ -192,6 +199,51 @@ class DeviceIngestBuffer:
         out = self._run_reduce(coefs, base_flat)
         self._release([m.slot for m in metas])
         return out, metas
+
+    def drain_fedavg_partial(self) -> tuple[torch.Tensor | None, float, list[SlotMeta]]:
+        """Drain every occupied slot as the host-local stage of a hierarchical FedAvg:
+        ``(Σ w_i δ_i, Σ w_i, metas)``, unnormalised, because the normaliser is global.
+        Summing the hosts' partials (one cross-host all-reduce of numerator ‖ mass)
+        and dividing once gives :meth:`drain_fedavg` of the union of the buffers.
+        ``(None, 0.0, [])`` when empty (such a host adds zeros to the all-reduce)."""
+        metas = self.occupied()
+        if not metas:
+            return None, 0.0, []
+        coefs = np.zeros(self.capacity, np.float32)
+        for m in metas:
+            coefs[m.slot] = m.weight
+        out = self._run_reduce(coefs)
+        self._release([m.slot for m in metas])
+        return out, float(sum(m.weight for m in metas)), metas
+
+    def drain_fedbuff_partial(self, k: int, current_version: int,
+                              valid_versions: Iterable[int], staleness_exponent: float = 0.5
+                              ) -> tuple[torch.Tensor, list[SlotMeta], dict]:
+        """The host-local stage of a hierarchical FedBuff step: this host's K oldest
+        slots' in-window ones as the unnormalised discounted sum ``Σ (1+τ_i)^-α δ_i``
+        (no ``server_lr`` and no ``1/K``: both are global, applied after the
+        cross-host all-reduce of numerator ‖ live count).  The window, skip and
+        consume contract is :meth:`drain_fedbuff`'s, the all-out-of-window
+        ``ValueError`` included."""
+        window = {int(v) for v in valid_versions}
+        metas = self.occupied()[: max(1, int(k))]
+        live = [m for m in metas if m.round_number in window]
+        skipped = len(metas) - len(live)
+        if not live:
+            self._release([m.slot for m in metas])
+            raise ValueError(f"no aggregatable updates: all {skipped} buffered bases have "
+                             "left the version window")
+        coefs = np.zeros(self.capacity, np.float32)
+        staleness, discounts = [], []
+        for m in live:
+            s = current_version - m.round_number
+            d = (1.0 + s) ** (-staleness_exponent)
+            staleness.append(s)
+            discounts.append(d)
+            coefs[m.slot] = d
+        out = self._run_reduce(coefs)
+        self._release([m.slot for m in metas])
+        return out, live, _fedbuff_stats(live, skipped, staleness, discounts)
 
     def drain_fedbuff(self, k: int, current_version: int, valid_versions: Iterable[int],
                       base_flat: Any, staleness_exponent: float = 0.5,

@@ -1,6 +1,5 @@
 """The asyncio-facing half of batched ingest: a bounded decode pool and the drains
-(counterpart of ``nanofed_tpu/ingest/pipeline.py``, less the hierarchical partial
-drains).
+(counterpart of ``nanofed_tpu/ingest/pipeline.py``).
 
 Every CPU-bound submit stage (npz decode, delta reconstruction, signature verify,
 flattening) runs on a fixed-size worker pool, never on the event loop and never on
@@ -74,9 +73,10 @@ class IngestPipeline:
         self._m_offers = reg.counter(
             "nanofed_ingest_offers_total",
             "Buffer offers by result (accepted / replaced / buffer_full)", labels=("result",))
-        self._m_drains = reg.counter("nanofed_ingest_drains_total",
-                                     "Batched-reduce drains by policy (fedavg / fedbuff)",
-                                     labels=("policy",))
+        self._m_drains = reg.counter(
+            "nanofed_ingest_drains_total",
+            "Batched-reduce drains by policy (fedavg / fedbuff / fedavg_partial / "
+            "fedbuff_partial)", labels=("policy",))
         self._m_batch = reg.histogram(
             "nanofed_ingest_drain_batch_size", "Client deltas folded per batched-reduce drain",
             buckets=(1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024))
@@ -164,6 +164,34 @@ class IngestPipeline:
             self._m_batch.observe(len(metas))
         self._m_fill.set(self.buffer.fill)
         return out, metas
+
+    def drain_fedavg_partial(self) -> tuple[torch.Tensor | None, float, list[SlotMeta]]:
+        """The host-local stage of a hierarchical FedAvg drain: the unnormalised
+        ``(Σ w_i δ_i, Σ w_i, metas)`` of every occupied slot, with no base (the apply
+        runs once, after the cross-host all-reduce of the partials)."""
+        out, mass, metas = self.buffer.drain_fedavg_partial()
+        if metas:
+            self._m_drains.inc(policy="fedavg_partial")
+            self._m_batch.observe(len(metas))
+        self._m_fill.set(self.buffer.fill)
+        return out, mass, metas
+
+    def drain_fedbuff_partial(self, k: int, current_version: int,
+                              staleness_exponent: float = 0.5
+                              ) -> tuple[torch.Tensor, list[SlotMeta], dict]:
+        """The host-local stage of a hierarchical FedBuff drain: the unnormalised
+        discounted sum of this host's K oldest in-window slots (``server_lr`` and the
+        global ``1/K`` apply after the cross-host all-reduce); the cached version
+        window decides which bases are in window, as in :meth:`drain_fedbuff`."""
+        try:
+            out, metas, stats = self.buffer.drain_fedbuff_partial(
+                k, current_version, self._version_flat,
+                staleness_exponent=staleness_exponent)
+        finally:
+            self._m_fill.set(self.buffer.fill)
+        self._m_drains.inc(policy="fedbuff_partial")
+        self._m_batch.observe(len(metas))
+        return out, metas, stats
 
     def drain_fedbuff(self, k: int, current_version: int, staleness_exponent: float = 0.5,
                       server_lr: float = 1.0) -> tuple[torch.Tensor, list[SlotMeta], dict]:

@@ -31,6 +31,15 @@ tensors cannot pass through the ctypes-launched kernels), so here
 A program therefore runs ``2 + TIMED_CALLS`` times and must accept the same inputs
 again: the port's round step and the epilogue programs do not mutate theirs.
 
+A mesh program (one rank's part of a round across a world of ranks) holds collectives,
+so every rank must profile it, with the same calls in the same order
+(``Coordinator.profile_programs`` checks the ranks are in step before each program).
+Its report counts what THIS rank ran: its share of the FLOPs and bytes, its peak, and
+times that include waiting for its peers in the collectives; the collectives' own
+traffic is not among the counted bytes.  That is the per-device SPMD module the JAX
+profiler costs, and ``num_devices`` is the world size, as the JAX report's device
+count.
+
 :class:`ProgramCatalog` keeps the JAX package's interface: lazily registered
 programs, profiled on demand, published as the ``nanofed_program_*`` gauges and the
 time-to-ready histogram under the same names.  :func:`update_device_occupancy`
@@ -48,6 +57,7 @@ from dataclasses import dataclass, field
 from typing import Any, Callable, Iterable, Iterator, NamedTuple
 
 import torch
+import torch.distributed as dist
 from torch.utils.flop_counter import FlopCounterMode, conv_flop_count
 from torch.utils._python_dispatch import TorchDispatchMode
 
@@ -349,7 +359,7 @@ def profile_program(
         program=name,
         platform=platform,
         device_kind=device_kind,
-        num_devices=1,
+        num_devices=dist.get_world_size() if dist.is_initialized() else 1,
         rounds=max(1, int(rounds)),
         flops=flops,
         transcendentals=0.0,
@@ -440,9 +450,10 @@ class ProgramCatalog:
         with self._lock:
             return [self._reports[n] for n in sorted(self._reports)]
 
-    def profile(self, name: str, force: bool = False) -> ProgramCostReport:
-        """Profile one registered program (cached unless ``force``) and publish its
-        gauges."""
+    def profile(self, name: str, force: bool = False, publish: bool = True
+                ) -> ProgramCostReport:
+        """Profile one registered program (cached unless ``force``) and, with
+        ``publish`` (a mesh's rank 0 only), publish its gauges."""
         with self._lock:
             entry = self._entries.get(name)
             cached = self._reports.get(name)
@@ -456,7 +467,8 @@ class ProgramCatalog:
         )
         with self._lock:
             self._reports[name] = report
-        self.publish(report)
+        if publish:
+            self.publish(report)
         return report
 
     def profile_all(self, force: bool = False) -> list[ProgramCostReport]:

@@ -99,7 +99,15 @@ resumes on another mesh shape or on one rank.  Only rank 0 writes the metrics JS
 checkpoints, versioned models and telemetry.  In a world (an initialised process
 group) a coordinator with neither argument spans the world on the 1-D mesh, as the
 JAX coordinator spans every device; without one it is the one-device coordinator.
-SCAFFOLD and program profiling on a mesh come with ROADMAP queue A item 9c.
+SCAFFOLD on a mesh keeps the server control as the rank's model shard and the
+``[N, P]`` control stack sharded over the client shards: a rank holds the rows of its
+shard of the padded population (``client_slice``), a quarter of the stack on a (2, 2, 1)
+mesh.  A gathered cohort's slots reference clients of their own host (host-local
+draws), but not always of their own rank: each round the ranks of a host's clients
+line all-gather the rows the host's slots need, and after the step all-gather the
+slots' ``delta_c`` rows, each rank scatter-adding those it owns.  A SCAFFOLD
+checkpoint holds the whole stack (gathered, rank 0 writes it).  ``profile_programs()``
+on a mesh runs every program on every rank in lockstep (see its docstring).
 
 The JAX coordinator's ``chaos=`` and ``strict=`` come with later slices: a value
 other than the JAX default raises ``NotImplementedError`` naming the ROADMAP item
@@ -155,6 +163,8 @@ from nanofed_tpu_torch.orchestration.types import (
     cohort_size,
 )
 from nanofed_tpu_torch.parallel.mesh import (
+    CLIENT_AXIS,
+    HOST_AXIS,
     Mesh,
     MeshLayout,
     broadcast_object,
@@ -427,11 +437,6 @@ class Coordinator:
         if mesh is None and (mesh_shape is not None or dist.is_initialized()):
             mesh = make_mesh(mesh_shape, device=self.device)
         self.mesh = mesh
-        if mesh is not None and scaffold:
-            raise NotImplementedError(
-                "scaffold=True on a mesh (the control stack sharded over clients) comes "
-                "with ROADMAP queue A item 9c; run it on one device"
-            )
         self._primary = is_primary()
         self.model = model
         self.config = config
@@ -575,8 +580,16 @@ class Coordinator:
                     "control-variate update assumes the plain corrected-SGD local fit "
                     "and the uniform participant mean"
                 )
+            # The server control is params-shaped round state (the rank's model shard
+            # on a mesh); a rank holds its client shard's rows of the control stack.
             self.c_global = zero_controls(self.params)
-            self.c_stack = stack_zero_controls(self.params, self.num_clients)
+            if mesh is None:
+                self.c_stack = stack_zero_controls(self.params, self.num_clients)
+            else:
+                lo, hi = client_slice(self._padded_clients, mesh)
+                self.c_stack = torch.zeros((hi - lo, tree_size(self._params_like)),
+                                           device=self.device)
+            self.control_exchange_bytes = 0  # received by the last round's exchanges
         # Everything a retune swap needs to rebuild the round step with another
         # client_chunk (see _rebuild_round_programs).
         self._client_chunk = client_chunk
@@ -592,6 +605,7 @@ class Coordinator:
             self._round_step = build_scaffold_round_step(
                 model, self.training, self.num_clients, strategy=self.strategy,
                 grad_fn=grad_fn, client_chunk=client_chunk, device=self.device,
+                mesh=mesh, params_like=self._params_like,
             )
         else:
             self._round_step = build_round_step(
@@ -695,6 +709,9 @@ class Coordinator:
                 "coordinator was built with scaffold=False — resume with "
                 "scaffold=True (or point at a non-SCAFFOLD run's store)"
             )
+        # A checkpoint holds the full params, state and controls; a mesh rank keeps
+        # its shards and its rows.
+        full = self.full_params()
         if self.scaffold:
             if not has_controls:
                 raise NanoFedError(
@@ -702,13 +719,16 @@ class Coordinator:
                     "state — it was written by a non-SCAFFOLD run; resuming "
                     "would silently zero every client's correction"
                 )
-            self.c_global = ravel(from_checkpoint_params(
-                server_state["scaffold_c_global"], self.params))
-            self.c_stack = from_checkpoint_stack(
-                server_state["scaffold_c_stack"], self.params, self.num_clients)
+            c_global = ravel(from_checkpoint_params(server_state["scaffold_c_global"], full))
+            if self._layout is None:
+                self.c_global = c_global
+                self.c_stack = from_checkpoint_stack(
+                    server_state["scaffold_c_stack"], full, self.num_clients)
+            else:
+                self.c_global = self._layout.slice_shard(c_global)
+                self.c_stack = self._own_control_rows(server_state["scaffold_c_stack"], full)
             server_state = server_state["opt"]
-        # A checkpoint holds the full params and state; a mesh rank keeps its shard.
-        params = from_checkpoint_params(restored.params, self.full_params())
+        params = from_checkpoint_params(restored.params, full)
         state = from_numpy_server_state(server_state, self.strategy, params)
         if self._layout is not None:
             params = self._layout.shard_params(params)
@@ -735,33 +755,39 @@ class Coordinator:
         the step gets the data rows of its width, weights one, permutations and
         dropout keys from the config's seed (and a noise draw under central DP), the
         block the population and a full cohort each round, so profiling leaves the
-        coordinator's state untouched."""
+        coordinator's state untouched.  On a mesh each rank's arguments are its own:
+        its model shards, its slots' rows of the step, and a block's cohorts drawn from
+        each host's own clients.  The attributes carry ``mesh_shape`` as the JAX
+        coordinator's do (``[clients, model]`` on a 1-D mesh and on one device)."""
+        n_local = self._slots.stop - self._slots.start
 
         def _step_args() -> tuple[tuple, dict]:
-            n = self._step_clients
             gen = torch.Generator(device=self.device).manual_seed(self.config.seed)
             args = (
                 {name: p.clone() for name, p in self.params.items()},
                 {k: v.clone() if torch.is_tensor(v) else v
                  for k, v in self.server_state.items()},
-                self._data.select(slice(0, n)),
-                torch.ones(n, device=self.device),
-                draw_permutations(gen, n, self.training.local_epochs, self._data.y.shape[1]),
-                client_keys(self.config.seed, n, self.device),
+                self._data.select(slice(0, n_local)),
+                torch.ones(n_local, device=self.device),
+                draw_permutations(gen, n_local, self.training.local_epochs,
+                                  self._data.y.shape[1]),
+                client_keys(self.config.seed, n_local, self.device),
             )
             if self.central_privacy is not None:
                 noise_type = self.central_privacy.privacy.noise_type
                 args += (get_noise_generator(noise_type).standard(
-                    gen, (tree_size(self.params),)),)
+                    gen, (tree_size(self._params_like or self.params),)),)
             return args, {}
 
-        attrs = {"step_clients": self._step_clients, "client_chunk": self._client_chunk}
+        mesh_shape = [1] if self.mesh is None else list(self.mesh.shape)
+        attrs = {"mesh_shape": mesh_shape + [1] * (len(mesh_shape) == 1),
+                 "step_clients": self._step_clients, "client_chunk": self._client_chunk}
         if self.scaffold:
             def _scaffold_args() -> tuple[tuple, dict]:
                 # The SCAFFOLD step takes the controls between the server state and
                 # the data: c_global and the step's rows of the control stack.
                 (params, state, data, weights, perms, keys), _ = _step_args()
-                c_rows = self.c_stack[: self._step_clients].clone()
+                c_rows = self.c_stack[:n_local].clone()
                 return (params, state, self.c_global.clone(), c_rows, data, weights,
                         perms, keys), {}
 
@@ -793,10 +819,12 @@ class Coordinator:
 
         def _block_args() -> tuple[tuple, dict]:
             # Every slot a distinct client with weight: the profiled block runs the
-            # rounds a full cohort runs.
+            # rounds a full cohort runs; each host's slot segment holds its own clients.
             n = self._step_clients
-            idx = (torch.arange(n, device=self.device).expand(rpb, n).contiguous()
-                   if self._cohort_mode else None)
+            slot = torch.arange(n, device=self.device)
+            seg = n // self._n_hosts
+            ids = (slot // seg) * self._rows_per_host + slot % seg
+            idx = ids.expand(rpb, n).contiguous() if self._cohort_mode else None
             args = (
                 {name: p.clone() for name, p in self.params.items()},
                 {k: v.clone() if torch.is_tensor(v) else v
@@ -820,17 +848,24 @@ class Coordinator:
         """Profile every catalogued program (``observability.profiling``: a first
         call, a counting call and timed calls of the round step on clones of the
         state), publish the ``nanofed_program_*`` gauges, and return the reports.
-        Reports are cached — a second call is free unless ``force``."""
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "profile_programs() on a mesh comes with ROADMAP queue A item 9c; "
-                "profile the one-device coordinator"
-            )
+        Reports are cached — a second call is free unless ``force``.
+
+        On a mesh a program holds collectives, so every rank must run the same calls
+        in the same order: before each program the ranks all-gather what they are
+        about to do (the program and whether its report is cached) and every rank
+        raises the same error if any differs, instead of one rank waiting in a
+        collective its peers never enter.  The calls themselves are bounded by the
+        world's deadline, the process group's timeout.  Each rank returns its own
+        reports (its share of the counts, ``num_devices`` the world size); rank 0
+        alone publishes the gauges and the telemetry records."""
         reports: list[ProgramCostReport] = []
         for name in self.program_catalog.names():
             cached = self.program_catalog.report(name) is not None and not force
+            if self.mesh is not None:
+                _lockstep(("profile", name, cached))
             with self._tracer.span("program-profile", program=name):
-                report = self.program_catalog.profile(name, force=force)
+                report = self.program_catalog.profile(name, force=force,
+                                                      publish=self._primary)
             if not cached:
                 if self.telemetry is not None:
                     self.telemetry.record("program_profile", **report.to_dict())
@@ -1066,6 +1101,8 @@ class Coordinator:
         if self.state_store is not None and persist_state:
             # On a mesh every rank gathers (a collective); rank 0 writes.
             params, state = self.full_params(), self.full_server_state()
+            if self.scaffold:
+                c_global, c_stack = self.full_controls()
         if self.state_store is not None and persist_state and self._primary:
             ckpt_metrics = metrics.to_dict()
             if self.privacy_accountant is not None:
@@ -1076,9 +1113,8 @@ class Coordinator:
                 # every client's correction from zero.
                 server_state = {
                     "opt": server_state,
-                    "scaffold_c_global": to_numpy_params(unravel(self.c_global, self.params)),
-                    "scaffold_c_stack": to_numpy_params(
-                        unravel_stacked(self.c_stack, self.params)),
+                    "scaffold_c_global": to_numpy_params(unravel(c_global, params)),
+                    "scaffold_c_stack": to_numpy_params(unravel_stacked(c_stack, params)),
                 }
             self.state_store.checkpoint(
                 round_number=metrics.round_id,
@@ -1447,18 +1483,14 @@ class Coordinator:
         # ends the span, so its duration is device time, not the enqueue.
         with self._tracer.span("local-train", round=round_id, fused="train+aggregate"):
             if self.scaffold:
-                c_rows = self.c_stack if idx_dev is None else self.c_stack[idx_dev]
+                cohort_idx = idx if self._cohort_mode else None
                 result = self._round_step(
-                    self.params, self.server_state, self.c_global, c_rows, data, weights,
-                    perms, keys, lr_scale,
+                    self.params, self.server_state, self.c_global,
+                    self._control_rows(cohort_idx, idx_dev), data, weights[sl], perms, keys,
+                    lr_scale,
                 )
                 self.c_global = result.c_global
-                if idx_dev is None:
-                    self.c_stack += result.delta_c
-                else:
-                    # Participants' rows move by their delta; padding and dropped slots
-                    # add exact zeros (collision-safe though they alias row 0).
-                    self.c_stack.index_add_(0, idx_dev, result.delta_c)
+                self._add_control_deltas(cohort_idx, idx_dev, result.delta_c)
             else:
                 base = () if self.adapter is None else (self.base_params,)
                 result = self._round_step(
@@ -1568,6 +1600,96 @@ class Coordinator:
         return {k: ravel(self._layout.gather_full(unravel(v, self.params)))
                 if torch.is_tensor(v) else v for k, v in self.server_state.items()}
 
+    def full_c_global(self) -> torch.Tensor:
+        """SCAFFOLD's server control ``[P]``, whole (gathered from the model shards on
+        a mesh with a model axis: every rank calls it)."""
+        if self._layout is None or not self._layout.model_sharded:
+            return self.c_global
+        return ravel(self._layout.gather_full(unravel(self.c_global, self.params)))
+
+    def full_controls(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """SCAFFOLD's server control ``[P]`` and the population's control stack
+        ``[N, P]``, whole: the coordinator's own on one device, gathered on a mesh (a
+        collective: every rank calls it)."""
+        if self._layout is None:
+            return self.c_global, self.c_stack
+        stack = self._layout.client_all_gather(self.c_stack)
+        return self.full_c_global(), stack[: self.num_clients]
+
+    def _own_control_rows(self, nested: Any, full: Params) -> torch.Tensor:
+        """This rank's rows of a checkpoint's ``[N, P]`` control stack (padding rows
+        zero), read on the host and moved to the device."""
+        host_like = {k: torch.empty(v.shape, dtype=v.dtype) for k, v in full.items()}
+        stack = from_checkpoint_stack(nested, host_like, self.num_clients)
+        lo, hi = client_slice(self._padded_clients, self.mesh)
+        rows = torch.zeros((hi - lo, stack.shape[1]))
+        real = max(0, min(hi, self.num_clients) - lo)
+        rows[:real] = stack[lo: lo + real]
+        return rows.to(self.device)
+
+    def _control_plan(self, idx: np.ndarray) -> tuple[np.ndarray, np.ndarray, int]:
+        """How the host's slot segment's control rows spread over its clients line:
+        each segment slot's client id, the line coordinate of the rank holding that
+        row, and the most rows any rank of the line holds (the exchange's pack)."""
+        mesh = self.mesh
+        seg = self._slots_per_host
+        h, c = mesh.coords[HOST_AXIS], mesh.coords[CLIENT_AXIS]
+        ids = idx[h * seg: (h + 1) * seg]
+        per = self._padded_clients // client_shard_count(mesh)
+        owner = ids // per - h * mesh.dims[1]
+        counts = np.bincount(owner, minlength=mesh.dims[1])
+        return ids, owner, int(counts.max())
+
+    def _control_rows(self, idx: np.ndarray | None, idx_dev: torch.Tensor | None
+                      ) -> torch.Tensor:
+        """The control rows of this rank's slots.  One device: gathered by client id.
+        A mesh without cohorts: the rank's own rows are its slots.  A mesh with
+        cohorts: every rank of the host's clients line packs the rows it holds for
+        the host's segment, and one all-gather over the line brings each rank its
+        slots' rows."""
+        if self.mesh is None:
+            return self.c_stack if idx_dev is None else self.c_stack[idx_dev]
+        if idx is None:
+            return self.c_stack
+        ids, owner, most = self._control_plan(idx)
+        lo = client_slice(self._padded_clients, self.mesh)[0]
+        c = self.mesh.coords[CLIENT_AXIS]
+        mine = np.flatnonzero(owner == c)
+        pack = torch.zeros((most, self.c_stack.shape[1]), device=self.device)
+        pack[: len(mine)] = self.c_stack[torch.as_tensor(ids[mine] - lo, device=self.device)]
+        gathered = self._layout.host_local_all_gather(pack)
+        self.control_exchange_bytes = gathered.numel() * gathered.element_size()
+        # Slot q of the segment is row (owner, rank of q among the owner's slots).
+        slot_rank = np.zeros(len(ids), dtype=np.int64)
+        for o in np.unique(owner):
+            where = np.flatnonzero(owner == o)
+            slot_rank[where] = np.arange(len(where))
+        per_rank = len(ids) // self.mesh.dims[1]
+        mine_slots = slice(c * per_rank, (c + 1) * per_rank)
+        rows = owner[mine_slots] * most + slot_rank[mine_slots]
+        return gathered[torch.as_tensor(rows, device=self.device)]
+
+    def _add_control_deltas(self, idx: np.ndarray | None, idx_dev: torch.Tensor | None,
+                            delta_c: torch.Tensor) -> None:
+        """Scatter-add the step's ``delta_c`` rows into the stack: participants' rows
+        move by their delta, padding and dropped slots add exact zeros (collision-safe
+        though they alias a host's first row).  On a mesh with cohorts the host's
+        clients line all-gathers its slots' deltas and each rank adds the rows it
+        holds."""
+        if idx is None:
+            self.c_stack += delta_c
+            return
+        if self.mesh is None:
+            self.c_stack.index_add_(0, idx_dev, delta_c)
+            return
+        ids, owner, _ = self._control_plan(idx)
+        gathered = self._layout.host_local_all_gather(delta_c)
+        self.control_exchange_bytes += gathered.numel() * gathered.element_size()
+        mine = np.flatnonzero(owner == self.mesh.coords[CLIENT_AXIS])
+        lo = client_slice(self._padded_clients, self.mesh)[0]
+        self.c_stack.index_add_(0, torch.as_tensor(ids[mine] - lo, device=self.device),
+                                gathered[torch.as_tensor(mine, device=self.device)])
+
     def merged_params(self) -> Params:
         """The model the outside world consumes: the full ``params``, or in adapter
         mode the base with the adapters merged in (``adapters.merge_adapters``).
@@ -1597,6 +1719,18 @@ class Coordinator:
         tmp = path.with_suffix(".tmp")
         tmp.write_text(json.dumps(payload, indent=2))
         tmp.replace(path)
+
+
+def _lockstep(step: Any) -> None:
+    """Check that every rank of the world is about to take the same ``step``; raises
+    on every rank, naming the ranks' steps, when they differ (one all-gather, bounded
+    by the process group's timeout)."""
+    if not dist.is_initialized():
+        return
+    steps: list[Any] = [None] * dist.get_world_size()
+    dist.all_gather_object(steps, step)
+    if any(s != steps[0] for s in steps):
+        raise NanoFedError(f"the ranks are out of step: {dict(enumerate(steps))}")
 
 
 def _now_iso() -> str:

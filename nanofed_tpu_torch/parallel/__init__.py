@@ -3,6 +3,15 @@ from nanofed_tpu_torch.parallel.multi_round import (
     build_round_block,
     round_seeds,
 )
+from nanofed_tpu_torch.parallel.resilience import (
+    CollectiveWatchdog,
+    Heartbeat,
+    HostFailure,
+    HostMonitor,
+    HostState,
+    no_orphans,
+    resilience_metrics,
+)
 from nanofed_tpu_torch.parallel.round_step import (
     FrozenBase,
     RoundStepResult,
@@ -17,7 +26,12 @@ from nanofed_tpu_torch.parallel.scaffold_step import (
 )
 
 __all__ = [
+    "CollectiveWatchdog",
     "FrozenBase",
+    "Heartbeat",
+    "HostFailure",
+    "HostMonitor",
+    "HostState",
     "RoundBlockResult",
     "RoundStepResult",
     "ScaffoldStepResult",
@@ -27,5 +41,7 @@ __all__ = [
     "build_scaffold_round_step",
     "client_deltas",
     "init_server_state",
+    "no_orphans",
+    "resilience_metrics",
     "round_seeds",
 ]

@@ -510,6 +510,29 @@ class MeshLayout:
             x = _all_gather(x, group)
         return x
 
+    def host_local_all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """``[rows, ...] -> [n_clients_line * rows, ...]``: the rows of every rank of
+        this rank's clients line (one host row's client shards, in client order) —
+        the first stage of :meth:`client_all_gather` alone, which moves nothing
+        across hosts.  The identity where the line has one rank."""
+        group = self.mesh.groups.get(CLIENT_AXIS)
+        return x if group is None else _all_gather(x, group)
+
+    def hosts_all_reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum of ``x`` over this rank's hosts line: ONE all-reduce, in place on
+        ``x``, which is returned (the identity without a hosts axis)."""
+        group = self.mesh.groups.get(HOST_AXIS)
+        if group is not None:
+            _all_reduce(x, group)
+        return x
+
+    def hosts_all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """``[rows, ...] -> [n_hosts * rows, ...]``: the rows of every rank of this
+        rank's hosts line (one rank a host, the same client and model coordinates), in
+        host order.  The identity without a hosts axis."""
+        group = self.mesh.groups.get(HOST_AXIS)
+        return x if group is None else _all_gather(x, group)
+
     # -- model axis ----------------------------------------------------------------
 
     def shard_params(self, full: Params) -> Params:

@@ -32,6 +32,18 @@ Stated difference: on-device resampling draws from Philox generators seeded from
 round seed and the JAX salts, where the JAX block folds the salts into a Threefry key,
 so the sampled ids differ from the JAX block's; they are valid, deterministic draws
 (``tests/test_torch_multi_round.py``).
+
+On a mesh with a hosts axis a rank holds only its host's rows of the population, while
+an on-device cohort is one global draw (the JAX block gathers the cohort's rows
+wherever they live and re-lays them in the joint (hosts, clients) layout).  So each
+round the ranks of a hosts line (one rank a host, the same client coordinate) run one
+all-gather: every rank packs, for the line's slots, the bytes of the data rows
+(``x``, ``y``, ``mask``) its host holds and zeros elsewhere, and takes its own slots'
+rows from the host that holds each.  The pack is sized by the slots, not by the draw,
+so nothing is read back to the host.  A slot's permutation, dropout key and sample
+count are functions of its client id on every rank already, so a fused round trains
+each client as the single-round draw does (stated difference: one exchange a round,
+``round_block.cohort_exchange_bytes`` received by each rank).
 """
 
 from __future__ import annotations
@@ -46,7 +58,10 @@ from nanofed_tpu_torch.core.device import DeviceLike, resolve_device
 from nanofed_tpu_torch.core.types import ClientData, ClientMetrics, Params
 from nanofed_tpu_torch.models.base import Model
 from nanofed_tpu_torch.parallel.mesh import (
+    CLIENT_AXIS,
+    HOST_AXIS,
     Mesh,
+    MeshLayout,
     client_shard_count,
     client_slice,
     host_axis_size,
@@ -187,7 +202,8 @@ def build_round_block(
     each rank trains its slot segment (``parallel.mesh.client_slice``); the stacked
     per-client detail is the whole cohort's on every rank.  On-device resampling draws
     the same ids on every rank (the same seeds on the same device type); over a hosts
-    axis it is not built (host cohorts only; it would read another host's rows).
+    axis each round's slots fetch their clients' rows from the hosts that hold them
+    in one all-gather (see the module note).
     The JAX builder's ``axis_name`` and ``donate`` have no meaning here and are not
     taken.  ``frozen_base`` is the round step's.
     SCAFFOLD, robust aggregation and central DP are not fused, as in the JAX package,
@@ -238,8 +254,46 @@ def build_round_block(
                 f"divide over the mesh's {shards} client shards (pad_client_count)")
         slots = slice(*client_slice(step_clients, mesh))
         row0 = host_client_slice(padded_clients, mesh)[0]
-    device_cohorts_refused = mesh is not None and host_axis_size(mesh) > 1 and cohort_mode
+    exchange = mesh is not None and host_axis_size(mesh) > 1 and cohort_mode
+    if exchange:
+        # The hosts line's slots: the segment of client coordinate c on every host.
+        n_hosts, n_cli = mesh.dims[0], mesh.dims[1]
+        per = step_clients // (n_hosts * n_cli)
+        c = mesh.coords[CLIENT_AXIS]
+        line_slots = torch.cat([
+            torch.arange((h * n_cli + c) * per, (h * n_cli + c + 1) * per)
+            for h in range(n_hosts)]).to(dev)
+        rows_per_host = padded_clients // n_hosts
+        host = mesh.coords[HOST_AXIS]
+        hosts_line = MeshLayout(mesh, params_like)
     epochs = training.local_epochs
+
+    def data_bytes(data: ClientData) -> tuple[torch.Tensor, list]:
+        """The host's rows as one ``[rows, bytes]`` uint8 matrix, and how to undo it."""
+        parts, layout = [], []
+        for t in data:
+            flat = t.contiguous().view(torch.uint8).reshape(t.shape[0], -1)
+            parts.append(flat)
+            layout.append((t.dtype, tuple(t.shape[1:]), flat.shape[1]))
+        return torch.cat(parts, 1), layout
+
+    def fetch_rows(packed: torch.Tensor, layout: list, idx: torch.Tensor) -> ClientData:
+        """This rank's slots' data rows from the hosts that hold them: one all-gather
+        over the hosts line of each host's rows for the line's slots (zeros where
+        another host holds the client)."""
+        ids = idx[line_slots]
+        held = (ids // rows_per_host) == host
+        local = torch.where(held, ids - row0, torch.zeros_like(ids))
+        pack = packed[local] * held[:, None].to(torch.uint8)
+        gathered = hosts_line.hosts_all_gather(pack).view(n_hosts, len(ids), -1)
+        round_block.cohort_exchange_bytes = gathered.numel()
+        mine = slice(host * per, (host + 1) * per)
+        rows = gathered[ids[mine] // rows_per_host, torch.arange(per, device=dev) + mine.start]
+        fields, at = [], 0
+        for dtype, shape, width in layout:
+            fields.append(rows[:, at: at + width].contiguous().view(dtype).reshape(per, *shape))
+            at += width
+        return ClientData(*fields)
 
     def resample(seed: int) -> tuple[torch.Tensor | None, torch.Tensor]:
         """This round's cohort drawn on the device: ``(idx, mask)``."""
@@ -295,11 +349,9 @@ def build_round_block(
             )
         if keys is not None and perms is None:
             raise ValueError("keys= replaces the drawn keys only together with perms=")
-        if cohort_mask is None and device_cohorts_refused:
-            raise NotImplementedError(
-                "on-device cohort resampling over a hosts axis would gather another "
-                "host's client rows; pass host cohorts (cohort_idx=, cohort_mask=) — "
-                "the device-resampled form comes with ROADMAP queue A item 9c")
+        fetching = exchange and cohort_mask is None
+        if fetching:
+            packed, layout = data_bytes(data)
         n = data.y.shape[1]
         gp, sos = global_params, server_opt_state
         sos, moved = _counters_on(sos, dev)
@@ -329,7 +381,8 @@ def build_round_block(
             # slots (all of them on one device).
             if cohort_mode:
                 ids = idx[slots]
-                data_r = data.select(ids - row0)
+                data_r = (fetch_rows(packed, layout, idx) if fetching
+                          else data.select(ids - row0))
                 weights = compute_weights(num_samples[idx], mask_eff)
             else:
                 ids = slots
@@ -367,4 +420,5 @@ def build_round_block(
             cohort_ids=torch.stack(rows["ids"]) if rows["ids"] else None,
         )
 
+    round_block.cohort_exchange_bytes = 0
     return round_block

@@ -1,5 +1,6 @@
-"""The SCAFFOLD federated round on one device (counterpart of
-``nanofed_tpu/parallel/scaffold_step.py``; on one device every psum is the identity).
+"""The SCAFFOLD federated round on one device, or as one rank of a world (counterpart
+of ``nanofed_tpu/parallel/scaffold_step.py``; on one device every psum is the
+identity).
 
 Per round (Karimireddy et al. 2020, Alg. 1):
 
@@ -19,6 +20,17 @@ summation order does not depend on ``client_chunk``: a chunked round equals the
 unchunked one bit for bit on one device (the JAX package has no streamed SCAFFOLD
 either, since the ``[C, P]`` ``dc`` output exists anyway).  A round with total weight
 0 moves neither the model, the server state nor the server control.
+
+On a mesh (``mesh=``, ``parallel.mesh``) each rank fits its client rows with its rows
+of the control stack; the uniform participant mean is B1 over the rank's rows divided
+by the whole cohort's participant count, then one ``[P]`` all-reduce over the client
+shards (host-local, then across hosts: ``MeshLayout.client_psum``), and the control
+delta sum is B1's accumulate form over the rank's rows, then one ``[P]`` all-reduce.
+With a model axis, params, the server state and ``c_global`` are this rank's model
+shard: both are gathered once (``MeshLayout.gather_full``) for the fits, and the
+aggregates are sliced back (``MeshLayout.slice_shard``) before the server update, as
+the JAX ``layout.gather_full``/``slice_shard`` do; the control stack's rows stay
+whole, sharded over the clients only.
 """
 
 from __future__ import annotations
@@ -28,12 +40,13 @@ from typing import Any, Callable, NamedTuple
 import torch
 
 from nanofed_tpu_torch.aggregation.base import Strategy, fedavg_strategy
-from nanofed_tpu_torch.aggregation.fedavg import aggregate_metrics
+from nanofed_tpu_torch.aggregation.fedavg import psum_weighted_mean, psum_weighted_metrics
 from nanofed_tpu_torch.core.device import DeviceLike, resolve_device
 from nanofed_tpu_torch.core.types import ClientData, ClientMetrics, Params
 from nanofed_tpu_torch.models.base import Model
 from nanofed_tpu_torch.ops.dp_reduce import row_sq_norms
 from nanofed_tpu_torch.ops.reduce import weighted_mean_flat, weighted_sum_into
+from nanofed_tpu_torch.parallel.mesh import Mesh, MeshLayout
 from nanofed_tpu_torch.parallel.round_step import (
     _cat_metrics,
     _rows,
@@ -43,17 +56,18 @@ from nanofed_tpu_torch.parallel.round_step import (
 from nanofed_tpu_torch.trainer.config import TrainingConfig
 from nanofed_tpu_torch.trainer.local import GradFn
 from nanofed_tpu_torch.trainer.scaffold import make_scaffold_local_fit
-from nanofed_tpu_torch.utils.trees import ravel
+from nanofed_tpu_torch.utils.trees import ravel, unravel
 
 
 class ScaffoldStepResult(NamedTuple):
-    params: Params  # new global params
-    server_opt_state: Any  # server optimizer state (flat [P] tensors)
-    c_global: torch.Tensor  # updated server control [P]
-    delta_c: torch.Tensor  # [C, P] per-client control deltas (zero for non-participants)
+    params: Params  # new global params (a rank's model shard on a mesh)
+    server_opt_state: Any  # server optimizer state (flat [P] tensors, or the shard's)
+    c_global: torch.Tensor  # updated server control [P] (or the shard's)
+    delta_c: torch.Tensor  # [C, P] per-client control deltas (zero for non-participants);
+    #                        on a mesh, this rank's rows
     metrics: dict[str, torch.Tensor]
-    client_metrics: ClientMetrics  # per-client [C]
-    update_sq_norms: torch.Tensor  # [C]
+    client_metrics: ClientMetrics  # per-client [C], the whole cohort's on every rank
+    update_sq_norms: torch.Tensor  # [C], the whole cohort's on every rank
 
 
 def build_scaffold_round_step(
@@ -64,6 +78,8 @@ def build_scaffold_round_step(
     grad_fn: GradFn | None = None,
     client_chunk: int | None = None,
     device: DeviceLike = None,
+    mesh: Mesh | None = None,
+    params_like: Params | None = None,
 ) -> Callable[..., ScaffoldStepResult]:
     """Returns ``scaffold_step(global_params, server_opt_state, c_global, c_stack,
     data, weights, perms, keys=None, lr_scale=1.0) -> ScaffoldStepResult`` on
@@ -75,10 +91,22 @@ def build_scaffold_round_step(
     ``build_round_step``.  ``weights`` (sample counts x participation) weight the
     reported metrics; the model aggregate is the uniform participant mean.
     ``num_clients_total`` is the real population N.  ``client_chunk`` must divide C
-    when smaller."""
-    dev = resolve_device(device)
+    when smaller.
+
+    ``mesh`` makes the call this rank's part of the round (JAX ``build_scaffold_round_
+    step`` on a mesh): ``c_stack``, ``data``, ``weights``, ``perms`` and ``keys`` are
+    this rank's client rows (``parallel.mesh.client_slice``) and ``delta_c`` comes
+    back for those rows; metrics, client metrics and update norms are the whole
+    cohort's on every rank.  With a model axis ``params_like`` (the full params, or
+    their shapes) is required, and ``global_params``, the server state and
+    ``c_global`` are this rank's shard (``MeshLayout.shard_params``/``slice_shard``).
+    The step runs on the mesh's device."""
+    dev = mesh.device if mesh is not None and device is None else resolve_device(device)
     server_tx = (strategy or fedavg_strategy()).server_tx
     fit = make_scaffold_local_fit(model, training, grad_fn=grad_fn)
+    layout = None if mesh is None else MeshLayout(mesh, params_like)
+    psum = (lambda x: x) if layout is None else layout.client_psum
+    gather = (lambda x: x) if layout is None else layout.client_all_gather
 
     def scaffold_step(
         global_params: Params,
@@ -92,7 +120,15 @@ def build_scaffold_round_step(
         lr_scale: float = 1.0,
     ) -> ScaffoldStepResult:
         c = weights.shape[0]
+        # Model axis: the fits read the full params and server control, gathered once;
+        # the updates run on this rank's shards.
+        shard_params = global_params
+        cg_full = c_global
+        if layout is not None and layout.model_sharded:
+            global_params = layout.gather_full(shard_params)
+            cg_full = ravel(layout.gather_full(unravel(c_global, shard_params)))
         gp_flat = ravel(global_params)
+        shard_flat = gp_flat if global_params is shard_params else ravel(shard_params)
         if gp_flat.device.type != dev.type:
             raise ValueError(f"the params are on {gp_flat.device}, the step runs on {dev}")
         k = client_chunk if client_chunk is not None and client_chunk < c else c
@@ -107,7 +143,7 @@ def build_scaffold_round_step(
         chunk_metrics = []
         for start in range(0, c, k):
             sl = slice(start, start + k)
-            result = fit(global_params, data.select(sl), perms[sl], c_global, c_stack[sl],
+            result = fit(global_params, data.select(sl), perms[sl], cg_full, c_stack[sl],
                          _rows(keys, sl), lr_scale=lr_scale)
             client_deltas(result.params, gp_flat, out=dy_rows[sl])
             delta_c[sl] = torch.where(participating[sl, None] > 0, result.delta_c, zero)
@@ -116,17 +152,27 @@ def build_scaffold_round_step(
         client_metrics = _cat_metrics(chunk_metrics)
 
         update_sq_norms = row_sq_norms(delta_y)  # B3
-        agg = weighted_mean_flat(delta_y, participating)  # B1: the uniform participant mean
-        total_w = weights.sum()
+        # B1: the uniform participant mean (on a mesh, the rank's rows over the whole
+        # cohort's participants, then one all-reduce).
+        if layout is None:
+            agg = weighted_mean_flat(delta_y, participating)
+        else:
+            agg = layout.slice_shard(psum_weighted_mean(delta_y, participating, layout))
+        total_w = psum(weights.sum())
         new_params, new_sos = apply_server_update(
-            server_tx, gp_flat, global_params, server_opt_state, agg, total_w)
-        c_sum = torch.zeros_like(c_global)
+            server_tx, shard_flat, shard_params, server_opt_state, agg, total_w)
+        c_sum = torch.zeros_like(gp_flat)
         weighted_sum_into(c_sum, delta_c, participating)  # B1: the participants' dc sum
-        new_c = c_global + c_sum / float(num_clients_total) if bool(total_w > 0) else c_global
+        if layout is not None:
+            c_sum = layout.slice_shard(psum(c_sum))
+        # An empty round moves no control: the gate is a select on the device.
+        new_c = torch.where(total_w > 0, c_global + c_sum / float(num_clients_total),
+                            c_global)
 
-        metrics = aggregate_metrics(client_metrics, weights)
-        metrics["participating_clients"] = (weights > 0).sum()
+        metrics = psum_weighted_metrics(client_metrics, weights, layout)
+        metrics["participating_clients"] = psum((weights > 0).sum())
         return ScaffoldStepResult(new_params, new_sos, new_c, delta_c, metrics,
-                                  client_metrics, update_sq_norms)
+                                  ClientMetrics(*(gather(m) for m in client_metrics)),
+                                  gather(update_sq_norms))
 
     return scaffold_step

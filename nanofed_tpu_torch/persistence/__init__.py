@@ -1,8 +1,9 @@
 """Persistence (counterpart of ``nanofed_tpu/persistence/``): model versioning,
 round-state checkpoints and fault-tolerant restart, in the JAX package's formats so
-either package resumes from the other's files.  The multi-host ``GenerationStore``
-comes with the multi-host slice."""
+either package resumes from the other's files, and the multi-host generations with
+commit markers (``GenerationStore``)."""
 
+from nanofed_tpu_torch.persistence.generation_store import GenerationRecord, GenerationStore
 from nanofed_tpu_torch.persistence.model_manager import ModelManager, make_json_serializable
 from nanofed_tpu_torch.persistence.serialization import (
     DTYPE_TAG,
@@ -36,6 +37,8 @@ __all__ = [
     "RECOVERABLE_EXCEPTIONS",
     "CheckpointMetadata",
     "FileStateStore",
+    "GenerationRecord",
+    "GenerationStore",
     "ModelManager",
     "RestoredState",
     "SimpleRecoveryStrategy",

@@ -2,8 +2,9 @@
 package, fused multi-round blocks, the network mode, secure aggregation, signing, the ingest buffer,
 observability and tuning, the ResNets, the benchmark suite and the command line
 included, and the compressed codec, signing and ingest paths when they run), nor does
-any rank of a world it spawns (``parallel.launch.spawn_world``), and its entry points
-run on the GPU unless the caller asks for the CPU."""
+any rank of a world it spawns (``parallel.launch.spawn_world``), the federation's
+cross-host reduce, generation store and watchdog included, and its entry points run on
+the GPU unless the caller asks for the CPU."""
 
 import importlib
 import pkgutil
@@ -24,6 +25,7 @@ from nanofed_tpu_torch.communication import (
     NetworkRoundConfig,
     fedbuff_combine,
 )
+from nanofed_tpu_torch.communication.federation import host_partial_row
 from nanofed_tpu_torch.communication.transport import free_port
 from nanofed_tpu_torch.core import resolve_device
 from nanofed_tpu_torch.data import federate, synthetic_classification
@@ -70,6 +72,18 @@ def test_spawned_ranks_import_no_jax():
 
     assert spawn_world(torch_world_ranks.imported_modules, 2, backend="gloo", device="cpu",
                        timeout_s=120) == [[], []]
+
+
+def test_spawned_hosts_run_the_federation_modules_without_jax(tmp_path):
+    """Two ranks as hosts run ``communication.federation``'s row all-reduce under
+    ``parallel.resilience``'s watchdog and commit a ``persistence.generation_store``
+    generation; neither loads JAX or the JAX package."""
+    import torch_world_ranks
+
+    from nanofed_tpu_torch.parallel.launch import spawn_world
+
+    assert spawn_world(torch_world_ranks.federation_modules, 2, backend="gloo",
+                       device="cpu", timeout_s=120, args=(str(tmp_path),)) == [[], []]
 
 
 _RUN_WIRE_PATHS = """
@@ -152,6 +166,7 @@ def _entry_points():
             model, data, CoordinatorConfig(save_metrics=False, rounds_per_block=2)),
         "run_benchmark": lambda: run_benchmark("cross_silo", train_size=64),
         "cli_bench": lambda: cli.main(["bench", "cross_silo", "--train-size", "64"]),
+        "host_partial_row_empty": lambda: host_partial_row(None, 0.0, 3),
     }
 
 
@@ -163,7 +178,8 @@ def _entry_points():
                                   "build_scaffold_round_step", "Trainer",
                                   "DeviceIngestBuffer", "IngestPipeline", "HTTPServer_ingest",
                                   "fedbuff_combine", "build_round_block",
-                                  "Coordinator_fused", "run_benchmark", "cli_bench"])
+                                  "Coordinator_fused", "run_benchmark", "cli_bench",
+                                  "host_partial_row_empty"])
 def test_entry_points_default_to_cuda_and_raise_without_it(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):

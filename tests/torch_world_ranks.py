@@ -113,14 +113,15 @@ def run_case(inputs: dict[str, Any], case: dict[str, Any], mesh) -> dict[str, An
     return out
 
 
-def run_block(inputs: dict[str, Any], mesh, rounds: int = 2) -> dict[str, Any]:
+def run_block(inputs: dict[str, Any], mesh, rounds: int = 2, perms=None) -> dict[str, Any]:
     """A fused block of ``rounds`` rounds resampling its half-population cohorts on
-    the device, on ``mesh`` (or one device with ``mesh=None``)."""
+    the device, on ``mesh`` (where the data is this rank's host rows) or one device
+    (``mesh=None``); ``perms`` replace the drawn permutations."""
     from nanofed_tpu_torch.aggregation import base
     from nanofed_tpu_torch.core.types import ClientData
     from nanofed_tpu_torch.models import get_model
     from nanofed_tpu_torch.parallel import build_round_block, init_server_state, round_seeds
-    from nanofed_tpu_torch.parallel.mesh import MeshLayout
+    from nanofed_tpu_torch.parallel.mesh import MeshLayout, host_client_slice
     from nanofed_tpu_torch.trainer import TrainingConfig
     from nanofed_tpu_torch.utils.trees import from_numpy_params
 
@@ -131,12 +132,15 @@ def run_block(inputs: dict[str, Any], mesh, rounds: int = 2) -> dict[str, Any]:
         num_clients=C, step_clients=C // 2, cohort_size=C // 2, device="cpu",
         mesh=mesh, params_like=full)
     gp = full if layout is None else layout.shard_params(full)
-    data = ClientData(inputs["x"], inputs["y"], inputs["mask"]).to(torch.device("cpu"))
+    lo, hi = (0, C) if mesh is None else host_client_slice(C, mesh)
+    data = ClientData(inputs["x"][lo:hi], inputs["y"][lo:hi], inputs["mask"][lo:hi]).to(
+        torch.device("cpu"))
     res = block(gp, init_server_state(base.fedavg_strategy(), gp), data,
-                data.mask.sum(1), round_seeds(7, range(rounds)), [1.0] * rounds)
+                torch.from_numpy(inputs["mask"].sum(1)), round_seeds(7, range(rounds)),
+                [1.0] * rounds, perms=perms)
     params = res.params if layout is None else layout.gather_full(res.params)
-    return {"cohort_ids": res.cohort_ids.numpy().copy(), "params": _numpy(params),
-            "loss": res.metrics["loss"].numpy().copy()}
+    return {"cohort_ids": res.cohort_ids.numpy().copy(), "params": _numpy(params), "loss": res.metrics["loss"].numpy().copy(),
+            "exchange_bytes": block.cohort_exchange_bytes}
 
 
 def mesh_rounds(rank: int, world: int, inputs: dict[str, Any],
@@ -324,3 +328,245 @@ def hang_on_rank_one(rank: int, world: int) -> int:
         time.sleep(3600)
     dist.all_reduce(torch.ones(1))
     return rank
+
+
+# ---------------------------------------------------------------------------------------
+# SCAFFOLD, program profiling and on-device cohorts across ranks
+# (tests/test_torch_scaffold_mesh.py)
+# ---------------------------------------------------------------------------------------
+
+SC_HYPER = dict(batch_size=4, local_epochs=2, learning_rate=0.1)
+SC_POPULATION = 10  # the step's N_total: more than its 8 rows, as a gathered cohort's
+
+
+def scaffold_step_case(inputs: dict[str, Any], mesh) -> dict[str, Any]:
+    """One FedAvgM SCAFFOLD step on ``mesh`` with this rank's rows: the gathered full
+    params, server control and momentum, this rank's ``delta_c`` rows, the metrics and
+    the cohort's client rows."""
+    from nanofed_tpu_torch.aggregation import fedavgm_strategy
+    from nanofed_tpu_torch.core.types import ClientData
+    from nanofed_tpu_torch.models import get_model
+    from nanofed_tpu_torch.parallel import build_scaffold_round_step, init_server_state
+    from nanofed_tpu_torch.parallel.mesh import MeshLayout, client_slice
+    from nanofed_tpu_torch.trainer import TrainingConfig
+    from nanofed_tpu_torch.utils.trees import from_numpy_params, ravel, unravel
+
+    strategy = fedavgm_strategy(0.7, 0.9)
+    full = from_numpy_params(inputs["params"], device="cpu")
+    step = build_scaffold_round_step(get_model("digits_mlp"), TrainingConfig(**SC_HYPER),
+                                     SC_POPULATION, strategy, mesh=mesh, params_like=full)
+    layout = MeshLayout(mesh, full)
+    lo, hi = client_slice(C, mesh)
+    gp = layout.shard_params(full)
+    res = step(gp, init_server_state(strategy, gp),
+               layout.slice_shard(torch.from_numpy(inputs["c_global"])),
+               torch.from_numpy(inputs["c_stack"][lo:hi]),
+               ClientData(inputs["x"][lo:hi], inputs["y"][lo:hi],
+                          inputs["mask"][lo:hi]).to(torch.device("cpu")),
+               torch.from_numpy(inputs["weights"][lo:hi]),
+               torch.from_numpy(inputs["perms"][lo:hi]))
+    full_flat = lambda v: ravel(layout.gather_full(unravel(v, res.params))).numpy()  # noqa: E731
+    return {
+        "params": _numpy(layout.gather_full(res.params)),
+        "c_global": full_flat(res.c_global),
+        "trace": full_flat(res.server_opt_state["trace"]),
+        "delta_c": res.delta_c.numpy().copy(), "rows": (lo, hi),
+        "metrics": {k: float(v) for k, v in res.metrics.items()},
+        "sq_norms": res.update_sq_norms.numpy().copy(),
+        "client_loss": res.client_metrics.loss.numpy().copy(),
+    }
+
+
+def _controls(coord) -> dict[str, Any]:
+    """A coordinator's whole state: full params, server state and controls."""
+    params, state = _state(coord)
+    c_global, c_stack = coord.full_controls()
+    return {"params": params, "state": state, "c_global": c_global.numpy().copy(),
+            "c_stack": c_stack.numpy().copy()}
+
+
+def _published_programs() -> list[str]:
+    from nanofed_tpu_torch.observability import get_registry
+
+    text = get_registry().render_prometheus()
+    return sorted({line.split('program="')[1].split('"')[0] for line in text.splitlines()
+                   if line.startswith("nanofed_program_flops_total{")})
+
+
+def scaffold_world(rank: int, world: int, inputs: dict[str, Any], tmp: str,
+                   perms: torch.Tensor) -> dict[str, Any]:
+    """The SCAFFOLD step and coordinator on (2, 2, 1), a one-rank checkpoint resumed
+    there, every program profiled in lockstep, and the block's on-device cohorts over
+    the hosts axis."""
+    from pathlib import Path
+
+    from nanofed_tpu_torch.parallel.mesh import make_mesh
+    from nanofed_tpu_torch.persistence import FileStateStore
+
+    tmp = Path(tmp)
+    mesh = make_mesh((2, 2, 1), device="cpu")
+    out: dict[str, Any] = {"step": scaffold_step_case(inputs, mesh)}
+    # Three rounds from the JAX coordinator's initial weights, checkpointed by rank 0.
+    coord = make_coordinator(tmp / "sc_mesh", inputs["coord_params"], mesh=mesh,
+                             scaffold=True, state_store=FileStateStore(tmp / "sc_mesh_ckpt"))
+    out["cohorts"] = [coord._sample_cohort(r) for r in range(COORD["rounds"])]
+    coord.run()
+    out["coord"] = _controls(coord)
+    out["stack_rows"] = int(coord.c_stack.shape[0])
+    out["exchange_bytes"] = coord.control_exchange_bytes
+    # Profiled in lockstep: the SCAFFOLD step, and a fused coordinator's step and block.
+    reports = coord.profile_programs()
+    fused = make_coordinator(tmp / "fused", mesh=mesh, config=dict(rounds_per_block=2))
+    reports += fused.profile_programs()
+    out["reports"] = [(r.program, r.num_devices, r.flops, r.attrs["mesh_shape"])
+                      for r in reports]
+    out["published"] = _published_programs()
+    # A one-rank checkpoint of two rounds resumed here, one more round, checkpointed.
+    resumed = make_coordinator(tmp / "sc_resume", mesh=mesh, scaffold=True,
+                               state_store=FileStateStore(tmp / "sc_one_to_mesh"))
+    out["resumed_round"] = resumed.current_round
+    out["resumed"] = _controls(resumed)
+    out["resumed_cohort"] = resumed._sample_cohort(2)
+    resumed.run()
+    out["resumed_after"] = _controls(resumed)
+    # The block drawing its cohorts on the device (the JAX permutations injected).
+    out["block"] = run_block(inputs, mesh, perms=perms)
+    # The runner takes SCAFFOLD on two virtual hosts.
+    from nanofed_tpu_torch import run_experiment
+
+    summary = run_experiment(model="linear", num_clients=8, num_rounds=2, local_epochs=1,
+                             batch_size=8, train_size=64, participation=0.5, scaffold=True,
+                             hosts=2, device="cpu", out_dir=str(tmp / "sc_runner"))
+    out["runner"] = {k: summary[k] for k in ("mesh_shape", "rounds_completed",
+                                             "final_train_metrics")}
+    out["_imports"] = sorted(m for m in sys.modules
+                             if m.split(".")[0] in ("jax", "jaxlib", "nanofed_tpu"))
+    return out
+
+
+def scaffold_model_axis_world(rank: int, world: int, inputs: dict[str, Any],
+                              tmp: str) -> dict[str, Any]:
+    """(1, 2): the SCAFFOLD step, a coordinator from the JAX initial weights, and the
+    (2, 2, 1) run's checkpoint resumed for one more round."""
+    from pathlib import Path
+
+    from nanofed_tpu_torch.parallel.mesh import make_mesh
+    from nanofed_tpu_torch.persistence import FileStateStore
+
+    tmp = Path(tmp)
+    mesh = make_mesh((1, 2), device="cpu")
+    out: dict[str, Any] = {"step": scaffold_step_case(inputs, mesh)}
+    coord = make_coordinator(tmp / "sc_model_axis", inputs["coord_params"], mesh=mesh,
+                             scaffold=True)
+    coord.run()
+    out["coord"] = _controls(coord)
+    out["stack_rows"] = int(coord.c_stack.shape[0])
+    resumed = make_coordinator(tmp / "sc_resume_1x2", mesh=mesh, scaffold=True,
+                               config=dict(num_rounds=4),
+                               state_store=FileStateStore(tmp / "sc_mesh_to_1x2"))
+    out["resumed_round"] = resumed.current_round
+    out["resumed"] = _controls(resumed)
+    resumed.run()
+    out["resumed_after"] = _controls(resumed)
+    # A rank whose catalog holds one more program is out of step: every rank raises.
+    from nanofed_tpu_torch.core.exceptions import NanoFedError
+
+    skewed = make_coordinator(tmp / "skewed", mesh=mesh, config=dict(num_rounds=1))
+    if rank == 1:
+        skewed.program_catalog.register("extra", lambda: None)
+    try:
+        skewed.profile_programs()
+        out["skewed"] = "profiled"
+    except NanoFedError as e:
+        out["skewed"] = str(e)
+    out["_imports"] = sorted(m for m in sys.modules
+                             if m.split(".")[0] in ("jax", "jaxlib", "nanofed_tpu"))
+    return out
+
+
+# ---------------------------------------------------------------------------------------
+# The host-local stage of a hierarchical federation (tests/test_torch_federation.py)
+# ---------------------------------------------------------------------------------------
+
+
+def federation_world(rank: int, world: int, inputs: dict[str, Any], tmp: str) -> dict[str, Any]:
+    """Rank h is host h of a (2, 1, 1) mesh: its ingest buffer's partial drains, ONE
+    row all-reduce across the hosts under a watchdog, the apply; the fused slab
+    reduce; a generation committed by both hosts and read back."""
+    import torch.distributed as dist
+
+    from nanofed_tpu_torch.communication.federation import (
+        apply_summed_row,
+        build_cross_host_reduce,
+        build_cross_host_row_psum,
+        build_drained_ingest_reduce,
+        host_partial_row,
+    )
+    from nanofed_tpu_torch.ingest import DeviceIngestBuffer
+    from nanofed_tpu_torch.parallel import CollectiveWatchdog
+    from nanofed_tpu_torch.parallel.mesh import make_mesh
+    from nanofed_tpu_torch.persistence import GenerationStore
+
+    mesh = make_mesh((2, 1, 1), device="cpu")
+    p = inputs["base"].size
+    template = {"w": torch.zeros(p)}
+    row_psum = build_cross_host_row_psum(mesh)
+    watchdog = CollectiveWatchdog(deadline_s=60.0, host=rank)
+    out: dict[str, Any] = {}
+
+    buf = DeviceIngestBuffer(template, 4, device="cpu")
+    for cid, delta, weight, _ in inputs["hosts"][rank]:
+        buf.offer(delta, client_id=cid, round_number=0, weight=weight)
+    num, mass, _ = buf.drain_fedavg_partial()
+    calls = []
+    all_reduce = dist.all_reduce
+    dist.all_reduce = lambda t, *a, **kw: (calls.append(t.numel()), all_reduce(t, *a, **kw))[1]
+    try:
+        total = watchdog.run(row_psum, host_partial_row(num, mass, p, extra=(1.0,)),
+                             round_number=0)
+    finally:
+        dist.all_reduce = all_reduce
+    out["all_reduces"] = calls
+    new, tail = apply_summed_row(inputs["base"], total, p)
+    out["fedavg"] = (new.numpy().copy(), tail.numpy().copy())
+
+    for cid, delta, _, version in inputs["hosts"][rank]:
+        buf.offer(delta, client_id=cid, round_number=version, weight=1.0)
+    num, live, stats = buf.drain_fedbuff_partial(k=buf.fill, current_version=2,
+                                                 valid_versions=(1, 2))
+    reduce = build_cross_host_reduce(mesh, p)
+    new, tail = watchdog.run(reduce, host_partial_row(num, len(live), p),
+                             torch.from_numpy(inputs["base"]))
+    out["fedbuff"] = (new.numpy().copy(), tail.numpy().copy(), stats)
+
+    fused = build_drained_ingest_reduce(mesh, inputs["slabs"].shape[1], p)
+    out["fused"] = fused(torch.from_numpy(inputs["slabs"][rank]),
+                         torch.from_numpy(inputs["coefs"][rank]),
+                         torch.from_numpy(inputs["base"])).numpy().copy()
+
+    store = GenerationStore(tmp, host=rank)
+    store.commit(0, 0, {"w": new}, {"count": 1}, hosts=[0, 1], meta={"by": "port"})
+    dist.barrier()
+    record = store.latest_complete()
+    out["generation"] = (record.generation, record.round_number, record.hosts, record.meta)
+    out["_imports"] = sorted(m for m in sys.modules
+                             if m.split(".")[0] in ("jax", "jaxlib", "nanofed_tpu"))
+    return out
+
+
+def federation_modules(rank: int, world: int, tmp: str) -> list[str]:
+    """JAX or JAX-package modules loaded in this host after one row all-reduce under a
+    watchdog and one generation commit (tests/test_torch_isolation.py)."""
+    from nanofed_tpu_torch.communication.federation import (
+        build_cross_host_row_psum,
+        host_partial_row,
+    )
+    from nanofed_tpu_torch.parallel.mesh import make_mesh
+    from nanofed_tpu_torch.parallel.resilience import CollectiveWatchdog
+    from nanofed_tpu_torch.persistence.generation_store import GenerationStore
+
+    row_psum = build_cross_host_row_psum(make_mesh((2, 1, 1), device="cpu"))
+    total = CollectiveWatchdog(60.0).run(row_psum, host_partial_row(torch.ones(3), 1.0, 3))
+    assert float(total[3]) == world
+    GenerationStore(tmp, host=rank).commit(0, 0, {"w": total}, {}, hosts=[0, 1])
+    return sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "nanofed_tpu"))
