@@ -244,6 +244,20 @@ Phases (any failure exits non-zero):
    params: the partial drains, one row all-reduce under a ``CollectiveWatchdog`` and the
    apply, FedAvg and FedBuff, within 1e-5 of one server draining the union, a
    ``GenerationStore`` generation committed and read back each round.
+   Then faults and chaos (phase (y), ``nanofed_tpu_torch.faults``): (y1) the flagship
+   (b) through ``Coordinator(chaos=)`` under ``FaultPlan.generate(crash_fraction=
+   0.25)``, at a completion rate every round completes at on the 750 survivors and at
+   one every round fails at: the cohorts the plan's survivors, B1 accumulate and B3 the
+   counts the code predicts, the crash count the plan's; (y2) (h)'s 8 clients on a
+   ``VirtualClock`` under a plan with a crash, a straggler, a drop, a lost ACK with
+   duplicates, a corrupted body and a ``server_kill``, resumed from a ``FileStateStore``:
+   every round's status, the counts by kind, each aggregate within 1e-5 of the FedAvg of
+   the updates accepted exactly once, B1 at C = that count;
+   ``scripts/multihost_harness_torch.py`` with gloo ranks on the card: (y3) ``smoke``,
+   2 ranks against 1 within 5e-5, beside (y1) and (y2); then (y4) ``hostchaos`` with a planned ``host_crash`` (2
+   ranks, 6 rounds, blocks of 2, a rejoin): detection, recovery and start-up seconds,
+   rounds lost, the parity gap, orphans; (y5) a short ``bench``.  Every rank's launches
+   join the kernels line.
 4. Cross-check: 8-client f32 rounds of the port on the card and on the CPU from the
    same weights, permutations and injected noise: the plain round with dropout off
    and on (the masks are an integer hash, the same bits on both devices), the
@@ -6019,6 +6033,436 @@ def phase_mesh_rest(torch, ops, card: str, out_dir: Path) -> dict[str, int]:
     return totals
 
 
+CHAOS_CRASH_FRACTION = 0.25  # (y1): 250 of the flagship's 1000 clients crash in round 0
+CHAOS_RATES = ((0.7, "COMPLETED"), (0.9, "FAILED"))  # (y1): 750 >= 700, 750 < 900
+CHAOS_NET_ROUNDS = 3  # (y2): rounds 0 and 1, then the kill in round 2 and its resume
+CHAOS_NET_TOL = 1e-5  # (y2): a float32 aggregate against its float64 FedAvg
+CHAOS_NET_TIMEOUT_S = 600.0  # (y2): virtual seconds; a client's retry storm cannot reach it
+# (y3)-(y5): the harness at full mnist_cnn width; 16 clients of 64 samples, batch 32, in
+# chunks of 4 (a rank of 2 streams 2 chunks a round, one rank 4).
+HARNESS_ARGS = ["--device", "cuda", "--model", "mnist_cnn", "--clients", "16",
+                "--capacity", "64", "--batch-size", "32", "--client-chunk", "4"]
+HARNESS_BENCH = dict(clients=2000, capacity=16, chunk=250, rounds=2)  # (y5)
+
+
+def phase_chaos_simulator(torch, ops, card: str, out_dir: Path) -> dict[str, int]:
+    """(y1): the flagship (b) through ``Coordinator(chaos=)``.  Every crash of
+    ``FaultPlan.generate`` falls in round 0 (rounds [0, R/2) with R = 2), so both rounds
+    sample the 750 survivors.  Launches the code predicts, written before the runs: the
+    full-participation step fits all 1000 rows (a crashed client rides at weight 0), so a
+    completed round is (b)'s 8 chunks of 125 (B1 accumulate and B3 8 each), and a failed
+    round stops before the step (none)."""
+    from nanofed_tpu_torch.faults import ChaosSchedule, FaultPlan
+    from nanofed_tpu_torch.models import get_model
+    from nanofed_tpu_torch.observability.registry import MetricsRegistry
+    from nanofed_tpu_torch.orchestration import Coordinator, CoordinatorConfig
+
+    n, rounds, chunk = FLAGSHIP["num_clients"], FLAGSHIP["num_rounds"], MESH_CHUNK
+    plan = FaultPlan.generate(0, list(range(n)), rounds, crash_fraction=CHAOS_CRASH_FRACTION)
+    crashed = [{e.client for e in plan.events if e.round <= r} for r in range(rounds)]
+    survivors = [sorted(set(range(n)) - c) for c in crashed]
+    data = flagship_data()
+    totals: dict[str, int] = dict.fromkeys(ops.launch_counts(), 0)
+    for rate, expect in CHAOS_RATES:
+        want = ({"weighted_sum_into": rounds * (n // chunk), "row_sq_norms": rounds * (n // chunk)}
+                if expect == "COMPLETED" else {})
+        print(f"[{card}] (y1) completion rate {rate}: {len(plan.events)} planned crashes, "
+              f"survivors {[len(s) for s in survivors]} a round, predicted {expect} rounds "
+              f"and launches {want}")
+        schedule = ChaosSchedule(plan, registry=MetricsRegistry())
+        coord = Coordinator(
+            get_model("mnist_cnn"), data,
+            CoordinatorConfig(num_rounds=rounds, seed=0, min_completion_rate=rate,
+                              base_dir=out_dir / f"y1_{rate}", save_metrics=False),
+            flagship_training(), client_chunk=chunk, device="cuda", chaos=schedule)
+        cohorts: list = []
+
+        def recorded(r, _sample=coord._sample_cohort, _cohorts=cohorts):
+            out = _sample(r)
+            _cohorts.append(sorted(int(c) for c in out))
+            return out
+
+        coord._sample_cohort = recorded
+        history, wall, grew = counted(torch, ops, card, f"(y1) rate {rate}", coord.run, want)
+        statuses = [h.status.name for h in history]
+        print(f"[{card}] (y1) rate {rate}: statuses {statuses}, clients "
+              f"{[h.num_clients for h in history]}, counts {schedule.counts()}, "
+              f"round_durations_s {[h.duration_s for h in history]}")
+        if statuses != [expect] * rounds:
+            fail(f"(y1) rate {rate}: statuses {statuses}, expected {expect} every round")
+        if cohorts != survivors:
+            fail(f"(y1) rate {rate}: the cohorts are not the plan's survivors")
+        if schedule.counts() != {"crash": len(crashed[-1])}:
+            fail(f"(y1) rate {rate}: counts {schedule.counts()}, planned {len(crashed[-1])} "
+                 "crashes")
+        if expect == "COMPLETED" and not all(torch.isfinite(v).all()
+                                             for v in coord.params.values()):
+            fail("(y1): non-finite params after the survivors' rounds")
+        add_launches(totals, grew)
+        del coord
+        gc.collect()
+        torch.cuda.empty_cache()
+    return totals
+
+
+async def chaos_network_client(torch, comm, faults, url, cid, index, local_fit, data,
+                               template, clock, schedule):
+    """test_chaos.py's scripted client on the card: fetch, train once a round, submit
+    through ``ChaosClient`` under the plan, re-submit if the round is still open 2 virtual
+    seconds later (a restarted server lost its buffer; a corrupted body was refused),
+    retry through a server's restart, stop once training ends or the plan crashes it."""
+    from nanofed_tpu_torch.core.exceptions import NanoFedError
+
+    retry = comm.RetryPolicy(max_attempts=50, base_backoff_s=0.05, max_backoff_s=0.5,
+                             seed=1234)
+    num_samples = float(data.mask.sum())
+    async with comm.HTTPClient(url, cid, timeout_s=120, retry=retry, clock=clock) as client:
+        chaos = faults.ChaosClient(client, schedule, clock=clock)
+        trained: dict[int, dict] = {}
+        submitted: dict[int, float] = {}
+        while True:
+            try:
+                params, rnd, active = await client.fetch_global_model(like=template)
+            except NanoFedError:  # the server is restarting
+                await clock.sleep(0.05)
+                continue
+            if not active or not chaos.alive(rnd):
+                return
+            if rnd in submitted and clock.time() - submitted[rnd] < 2.0:
+                await clock.sleep(0.05)
+                continue
+            if rnd not in trained:
+                gp = {k: v.to("cuda") for k, v in params.items()}
+                trained[rnd] = train_client(torch, local_fit, gp, data, index, rnd)
+            await chaos.submit(trained[rnd], {"num_samples": num_samples}, rnd)
+            submitted[rnd] = clock.time()
+            await clock.sleep(0.05)
+
+
+def phase_chaos_network(torch, ops, card: str, out_dir: Path, setup) -> dict[str, int]:
+    """(y2): (h)'s 8 clients on a ``VirtualClock`` under a hand-written plan, 3 rounds of
+    7 required updates: client_7 crashes in round 1; client_6 straggles 3 virtual s in
+    round 0; client_0's first two posts of round 0 are dropped; client_1's round-1 ACK is
+    lost and it re-posts twice more (duplicates); client_2's round-1 body is corrupted;
+    the server is killed in round 2 and a new server and coordinator resume from the
+    ``FileStateStore``.  Predicted: every round COMPLETED, counts by kind the plan's (drop
+    2, the rest 1), each aggregate the FedAvg of the updates the server drained (each
+    client once) within 1e-5, B1 normalised once a completed round (3) at C = the
+    drained count, nothing else."""
+    import logging
+
+    from nanofed_tpu_torch import communication as comm
+    from nanofed_tpu_torch import faults
+    from nanofed_tpu_torch.communication import network_coordinator
+    from nanofed_tpu_torch.observability.registry import MetricsRegistry
+    from nanofed_tpu_torch.persistence import FileStateStore
+    from nanofed_tpu_torch.utils.clock import VirtualClock
+    from nanofed_tpu_torch.utils.logger import LogConfig, Logger
+
+    Logger().configure(LogConfig(level=logging.ERROR))  # no per-fault warning lines
+    init, data, local_fit = setup
+    n = SECURE_CLIENTS
+    ev = faults.FaultEvent
+    plan = faults.FaultPlan(seed=18, events=(
+        ev(kind="delay", round=0, client="client_6", seconds=3.0),
+        ev(kind="drop", round=0, client="client_0", count=2),
+        ev(kind="crash", round=1, client="client_7"),
+        ev(kind="ack_drop", round=1, client="client_1"),
+        ev(kind="duplicate", round=1, client="client_1", count=2),
+        ev(kind="corrupt", round=1, client="client_2"),
+        ev(kind="server_kill", round=2),
+    ))
+    want_counts = {"delay": 1, "drop": 2, "crash": 1, "ack_drop": 1, "duplicate": 1,
+                   "corrupt": 1, "server_kill": 1}
+    registry = MetricsRegistry()
+    schedule = faults.ChaosSchedule(plan, registry=registry)
+    clock = VirtualClock()
+    store = FileStateStore(out_dir / "y2_state")
+    drained: dict[int, list] = {}
+    reduced: list[int] = []
+    publishes: dict[int, dict] = {}
+    combine = network_coordinator.fedavg_combine
+
+    def recorded_combine(stacked, weights):
+        reduced.append(int(weights.shape[0]))
+        return combine(stacked, weights)
+
+    async def main():
+        port = comm.free_port()
+        url = f"http://127.0.0.1:{port}"
+        clients = [asyncio.ensure_future(chaos_network_client(
+            torch, comm, faults, url, f"client_{c}", c, local_fit, data[c], init, clock,
+            schedule)) for c in range(n)]
+
+        async def incarnation(final: bool):
+            server = comm.HTTPServer(port=port, registry=registry, clock=clock, chaos=schedule)
+            drain = server.drain_updates
+
+            async def captured(*a):
+                out = await drain(*a)
+                drained[server._round] = list(out)
+                return out
+
+            server.drain_updates = captured
+            publish = server.publish_model
+
+            async def publish_and_keep(params, r):
+                publishes[r] = {k: v.detach().cpu().clone() for k, v in params.items()}
+                await publish(params, r)
+
+            server.publish_model = publish_and_keep
+            coordinator = comm.NetworkCoordinator(
+                server, init, comm.NetworkRoundConfig(
+                    num_rounds=CHAOS_NET_ROUNDS, min_clients=n, min_completion_rate=7 / 8,
+                    round_timeout_s=CHAOS_NET_TIMEOUT_S, poll_interval_s=0.01),
+                registry=registry, clock=clock, state_store=store, chaos=schedule,
+                device="cuda")
+            await server.start()
+            try:
+                try:
+                    history = await coordinator.run()
+                except faults.InjectedServerCrash as crash:
+                    return coordinator, list(coordinator.history), crash
+                if final:
+                    await asyncio.wait_for(asyncio.gather(*clients), 120)
+                return coordinator, history, None
+            finally:
+                await server.stop()
+
+        try:
+            first = await incarnation(final=False)
+            second = await incarnation(final=True)
+        finally:
+            for task in clients:
+                task.cancel()
+        return first, second
+
+    network_coordinator.fedavg_combine = recorded_combine
+    try:
+        want = {"weighted_mean_flat": CHAOS_NET_ROUNDS}
+        print(f"[{card}] (y2) plan {plan.to_json()!r}; predicted counts {want_counts}, "
+              f"launches {want}")
+        runs, _, grew = counted(torch, ops, card, "(y2) chaos network round",
+                                lambda: asyncio.run(main()), want)
+    finally:
+        network_coordinator.fedavg_combine = combine
+    (c1, h1, crash1), (c2, h2, crash2) = runs
+    history = h1 + h2
+    rounds = [h["round"] for h in history]
+    statuses = [h["status"] for h in history]
+    print(f"[{card}] (y2) first server: rounds {[h['round'] for h in h1]}, crash "
+          f"{crash1!r}; resumed at {c2.start_round}: rounds {[h['round'] for h in h2]}; "
+          f"statuses {statuses}; clients {[h['num_clients'] for h in history]}; counts "
+          f"{schedule.counts()}; B1's C a round {reduced}; virtual s {clock.time():.2f}")
+    if crash1 is None or crash2 is not None or c2.start_round != 2:
+        fail(f"(y2) the kill did not fire once in round 2 and resume there ({crash1!r}, "
+             f"{crash2!r}, start_round {c2.start_round})")
+    if rounds != list(range(CHAOS_NET_ROUNDS)) or statuses != ["COMPLETED"] * len(rounds):
+        fail(f"(y2) rounds {rounds}, statuses {statuses}")
+    if schedule.counts() != want_counts:
+        fail(f"(y2) fault counts {schedule.counts()}, planned {want_counts}")
+    text = registry.render_prometheus()
+    print(f"[{card}] (y2) " + "; ".join(
+        line for line in text.splitlines() if line.startswith("nanofed_updates_total{")))
+    for r in range(CHAOS_NET_ROUNDS):
+        updates = drained[r]
+        ids = [u.client_id for u in updates]
+        if len(ids) != len(set(ids)) or len(ids) != reduced[r]:
+            fail(f"(y2) round {r}: drained {ids}, B1 reduced {reduced[r]}")
+        if r >= 1 and "client_7" in ids:
+            fail(f"(y2) round {r}: the crashed client_7 was aggregated")
+        agg = published({"publishes": publishes, "coordinator": c2}, r, torch)
+        check_fedavg(torch, card, f"(y2) round {r} ({len(ids)} updates accepted once)", agg,
+                     [(float(u.metrics["num_samples"]), u.params) for u in updates],
+                     CHAOS_NET_TOL)
+    return grew
+
+
+def start_harness(argv: list[str]) -> tuple[subprocess.Popen, float]:
+    """``scripts/multihost_harness_torch.py`` with ``argv``, started (its workers' logs go
+    to its stderr, printed only when it fails)."""
+    root = Path(__file__).resolve().parent
+    # A session of its own, so stop_harness reaches its workers too.
+    proc = subprocess.Popen([sys.executable, str(root / "scripts" / "multihost_harness_torch.py"),
+                             *argv], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, cwd=root, start_new_session=True)
+    return proc, time.perf_counter()
+
+
+def stop_harness(started: tuple[subprocess.Popen, float]) -> None:
+    """Kill a started harness and every worker it spawned."""
+    import os
+    import signal
+
+    proc = started[0]
+    try:
+        os.killpg(proc.pid, signal.SIGKILL)
+    except ProcessLookupError:
+        pass
+    proc.communicate()
+
+
+def finish_harness(card: str, tag: str, started: tuple[subprocess.Popen, float],
+                   timeout_s: float) -> str:
+    """Wait for a started harness; fail unless it exits 0.  Returns its stdout."""
+    proc, t0 = started
+    try:
+        out, err = proc.communicate(timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        stop_harness(started)
+        fail(f"{tag}: the harness ran past {timeout_s} s")
+    print(f"[{card}] {tag}: harness wall_s={time.perf_counter() - t0:.3f} rc={proc.returncode}")
+    if proc.returncode != 0:
+        print(out[-6000:])
+        print(err[-10000:])
+        fail(f"{tag}: the harness exited {proc.returncode}")
+    return out
+
+
+def harness_json(stdout: str) -> dict:
+    """The first pretty-printed JSON object the harness printed."""
+    start = stdout.index("{\n")
+    return json.loads(stdout[start:stdout.index("\n}\n", start) + 2])
+
+
+def sum_ranks(by_rank: list[dict]) -> dict[str, int]:
+    total: dict[str, int] = {}
+    for counts in by_rank:
+        add_launches(total, counts)
+    return total
+
+
+def expect_ranks(tag: str, by_rank: list[dict], per_rank: dict[str, int]) -> None:
+    for rank, counts in enumerate(by_rank):
+        want = {k: per_rank.get(k, 0) for k in counts}
+        if counts != want:
+            fail(f"{tag} rank {rank}: kernel launches {counts}, expected {want}")
+
+
+HARNESS_SMOKE_TIMED = 3  # (y3): rounds after the warm-up round
+
+
+def start_chaos_smoke(card: str, out_dir: Path) -> tuple[subprocess.Popen, float]:
+    """(y3) started: it checks parity and times nothing, so it runs beside (y1) and
+    (y2)."""
+    per_rank = {k: 2 * (HARNESS_SMOKE_TIMED + 1) for k in ("weighted_sum_into", "row_sq_norms")}
+    print(f"[{card}] (y3) predicted launches a rank of 2: {per_rank}, one rank twice that")
+    return start_harness(["smoke", *HARNESS_ARGS, "--rounds", str(HARNESS_SMOKE_TIMED),
+                          "--timeout", "300", "--tmp-dir", str(out_dir / "y3")])
+
+
+def phase_chaos_harness(torch, ops, card: str, out_dir: Path,
+                        smoke: tuple[subprocess.Popen, float]) -> dict[str, int]:
+    """(y3)-(y5): the multi-host harness with gloo ranks on the card (they share it, so
+    no time here is a round across cards); (y3) was started by :func:`start_chaos_smoke`.
+    Launches predicted from the round step's code: a rank streams its rows in chunks of
+    4, B1 accumulate and B3 once a chunk."""
+    from nanofed_tpu_torch.observability.telemetry import summarize_telemetry
+
+    totals: dict[str, int] = dict.fromkeys(ops.launch_counts(), 0)
+    per_rank = {k: 2 * (HARNESS_SMOKE_TIMED + 1) for k in ("weighted_sum_into", "row_sq_norms")}
+    verdict = harness_json(finish_harness(card, "(y3) smoke", smoke, 420))
+    gaps = (verdict["max_loss_delta"], verdict["max_param_delta"])
+    print(f"[{card}] (y3) 2 gloo ranks, mesh {verdict['topology']['mesh_shape']}, against "
+          f"one rank: max loss gap {gaps[0]:.3e}, max param gap {gaps[1]:.3e} (tolerance "
+          f"{verdict['tolerance']}); losses {verdict['losses_multi']}; launches by rank "
+          f"{verdict['launches_by_rank']}, one rank {verdict['launches_ref']}; "
+          f"walltime_s {verdict['walltime_s']}")
+    if max(gaps) > verdict["tolerance"] or verdict["topology"]["process_count"] != 2:
+        fail(f"(y3) smoke gaps {gaps} over {verdict['tolerance']}")
+    expect_ranks("(y3)", verdict["launches_by_rank"], per_rank)
+    expect_ranks("(y3) one rank", [verdict["launches_ref"]],
+                 {k: 2 * v for k, v in per_rank.items()})
+    add_launches(totals, sum_ranks(verdict["launches_by_rank"]))
+    add_launches(totals, verdict["launches_ref"])
+
+    rounds, block = 6, 2
+    finish_harness(card, "(y4) hostchaos", start_harness([
+        "hostchaos", *HARNESS_ARGS, "--host-fault", "crash", "--rounds", str(rounds),
+        "--block-size", str(block), "--rejoin-rounds", "2", "--watchdog-deadline", "20",
+        "--stall-timeout", "15", "--compile-grace", "90", "--timeout", "300",
+        "--tmp-dir", str(out_dir / "y4"), "--out-dir", str(out_dir / "y4_out")]), 900)
+    (path,) = sorted((out_dir / "y4_out").glob("hostchaos_torch_*_2h.json"))
+    art = json.loads(path.read_text())
+    fl, rec, par = art["failure"], art["recovery"], art["parity"]
+    resumed = rec["resumed_round"]
+    rejoin = art["rejoin"]
+    one_rank = {k: 4 * (rounds - resumed) for k in ("weighted_sum_into", "row_sq_norms")}
+    two_ranks = {k: 2 * (rounds + 2 - rejoin["resumed_round"])
+                 for k in ("weighted_sum_into", "row_sq_norms")}
+    print(f"[{card}] (y4) {fl['kind']} on host {fl['host']} in round {fl['round']}: "
+          f"detection_s={fl['detection_s']:.3f} (watchdog deadline "
+          f"{fl['watchdog_deadline_s']}) exit codes {fl['worker_exit_codes']}; "
+          f"recovery_s={rec['recovery_s']:.3f} of which startup_s={rec['startup_s']:.3f}, "
+          f"phases {rec['phases']}; rounds lost {rec['rounds_lost']} (block {block}), "
+          f"resumed generation {rec['resumed_generation']} at round {resumed}; parity gap "
+          f"{par['max_loss_delta']:.3e} (bit-equal {par['bit_equal']}); orphans "
+          f"{art['orphans']}; rejoined at round {rejoin['resumed_round']}, ran to "
+          f"{rejoin['rounds'][-1]}; launches a rank: recovered "
+          f"{art['recovered']['launches_by_rank']} (predicted {one_rank}), rejoined "
+          f"{rejoin['launches_by_rank']} (predicted {two_ranks}), reference "
+          f"{art['reference_unfailed_shrunk']['launches_by_rank']}; walltime_s "
+          f"{art['walltime_s']:.3f}")
+    if not (fl["kind"] == "host_crash" and fl["detection_s"] < fl["watchdog_deadline_s"]
+            and rec["rounds_lost"] <= block and par["ok"] and not art["orphans"]
+            and rejoin["rounds"][-1] == rounds + 1):
+        fail(f"(y4) the drill's record does not hold: {json.dumps(art)[:3000]}")
+    expect_ranks("(y4) recovered", art["recovered"]["launches_by_rank"], one_rank)
+    expect_ranks("(y4) reference", art["reference_unfailed_shrunk"]["launches_by_rank"],
+                 one_rank)
+    expect_ranks("(y4) rejoined", rejoin["launches_by_rank"], two_ranks)
+    for by_rank in (art["recovered"]["launches_by_rank"], rejoin["launches_by_rank"],
+                    art["reference_unfailed_shrunk"]["launches_by_rank"]):
+        add_launches(totals, sum_ranks(by_rank))
+    digest = summarize_telemetry(out_dir / "y4" / "telemetry" / "telemetry.jsonl")
+    if digest["host_failures"]["by_kind"] != {"host_crash": 1} or \
+            digest["recoveries"]["count"] != 2:
+        fail(f"(y4) metrics-summary of the drill's telemetry: {digest}")
+
+    b = HARNESS_BENCH
+    chunks = b["clients"] // 2 // b["chunk"]
+    per_rank = {k: chunks * (b["rounds"] + 1) for k in ("weighted_sum_into", "row_sq_norms")}
+    record = harness_json(finish_harness(card, "(y5) bench", start_harness([
+        "bench", "--device", "cuda", "--model", "mnist_cnn", "--clients", str(b["clients"]),
+        "--capacity", str(b["capacity"]), "--batch-size", str(b["capacity"]),
+        "--client-chunk", str(b["chunk"]), "--rounds", str(b["rounds"]), "--timeout", "300",
+        "--tmp-dir", str(out_dir / "y5"), "--out-dir", str(out_dir / "y5_out")]), 420))
+    print(f"[{card}] (y5) bench {b['clients']} clients of {b['capacity']} samples on 2 gloo "
+          f"ranks sharing the card: per_round_s {record['per_round_s']}, rounds_per_sec "
+          f"{record['rounds_per_sec']:.4f}, clients_per_sec {record['clients_per_sec']:.1f}; "
+          f"launches by rank {record['launches_by_rank']} (predicted {per_rank}); "
+          f"walltime_s {record['walltime_s']}")
+    if record["platform"] != "gpu" or not all(math.isfinite(v) for v in record["losses"]):
+        fail(f"(y5) bench record {record}")
+    expect_ranks("(y5)", record["launches_by_rank"], per_rank)
+    add_launches(totals, sum_ranks(record["launches_by_rank"]))
+    return totals
+
+
+def phase_chaos(torch, ops, card: str, out_dir: Path) -> dict[str, int]:
+    """(y): faults and chaos.  Returns the launches of (y1), (y2) and every rank of
+    (y3)-(y5)."""
+    t_phase = time.perf_counter()
+    base = out_dir / "y_chaos"
+    base.mkdir(parents=True, exist_ok=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    smoke = start_chaos_smoke(card, base)
+    try:
+        totals = phase_chaos_simulator(torch, ops, card, base)
+        t1 = time.perf_counter()
+        add_launches(totals, phase_chaos_network(torch, ops, card, base, wire_setup(torch)))
+    except BaseException:
+        stop_harness(smoke)
+        raise
+    t2 = time.perf_counter()
+    add_launches(totals, phase_chaos_harness(torch, ops, card, base, smoke))
+    print(f"[{card}] (y) wall_s={time.perf_counter() - t_phase:.1f} ((y1) {t1 - t_phase:.1f}, "
+          f"(y2) {t2 - t1:.1f}, (y3) beside them, then (y3)-(y5) "
+          f"{time.perf_counter() - t2:.1f}); launches {totals}")
+    return totals
+
+
 def main() -> None:
     t_script = time.perf_counter()
     import torch
@@ -6073,11 +6517,12 @@ def main() -> None:
         lm_counts = phase_transformer(torch, ops, card, Path(tmp))
         mesh_counts = phase_mesh(torch, ops, card, Path(tmp), slice_runs)
         rest_counts = phase_mesh_rest(torch, ops, card, Path(tmp))
+        chaos_counts = phase_chaos(torch, ops, card, Path(tmp))
     wire_counts = phase_wire(torch, ops, card)
     counts = {k: counts[k] + secure_counts[k] + tuned_counts[k] + resume_counts[k]
               + network_resume_counts[k] + dp_counts[k] + scaffold_counts[k]
               + fused_counts[k] + cifar_counts[k] + obs_counts[k] + lm_counts[k]
-              + mesh_counts[k] + rest_counts[k] + wire_counts.get(k, 0)
+              + mesh_counts[k] + rest_counts[k] + chaos_counts[k] + wire_counts.get(k, 0)
               for k in counts}
     print(f"kernels: {json.dumps(counts)}")
     missing = [k for k, v in counts.items() if v == 0]

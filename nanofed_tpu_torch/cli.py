@@ -31,8 +31,6 @@ from typing import Any
 
 # Subcommands of later slices: name -> (help, ROADMAP queue A item).
 LATER_SUBCOMMANDS: dict[str, tuple[str, str]] = {
-    "chaos-plan": ("generate a seeded FaultPlan JSON", "item 17 (multi-host federation "
-                   "and faults)"),
     "audit": ("audit the round programs", "item 21 (analysis)"),
     "loadtest": ("synthetic client swarm load harness", "item 18 (load and service)"),
     "tenants": ("multi-tenant federation service drill", "item 18 (load and service)"),
@@ -45,8 +43,6 @@ LATER_SLICE_FLAGS: dict[str, dict[str, tuple[str, type, Any, str]]] = {
     },
     "profile": {},
     "serve": {
-        "chaos_plan": ("--chaos-plan", str, None,
-                       "item 17 (multi-host federation and faults)"),
         "max_inflight": ("--max-inflight", int, None, "item 18 (load and service)"),
     },
 }
@@ -439,8 +435,17 @@ def _cmd_serve(args: argparse.Namespace) -> int:
         NetworkRoundConfig,
     )
     from nanofed_tpu_torch.core.device import resolve_device
+    from nanofed_tpu_torch.faults import InjectedServerCrash
     from nanofed_tpu_torch.models import get_model
 
+    chaos = None
+    if args.chaos_plan is not None:
+        from nanofed_tpu_torch.faults import ChaosSchedule, FaultPlan
+
+        try:
+            chaos = ChaosSchedule(FaultPlan.load(args.chaos_plan))
+        except (OSError, ValueError, KeyError) as e:
+            return _error(f"could not load chaos plan {args.chaos_plan!r}: {e}")
     device = resolve_device(args.device)
     refusal = _serve_refusal(args)
     if refusal is not None:
@@ -484,7 +489,8 @@ def _cmd_serve(args: argparse.Namespace) -> int:
               for name, p in model.init(torch.Generator().manual_seed(args.seed)).items()}
 
     async def serve() -> list[dict]:
-        server = HTTPServer(host=args.host, port=args.port, ingest=ingest, device=device)
+        server = HTTPServer(host=args.host, port=args.port, ingest=ingest, device=device,
+                            chaos=chaos)
         await server.start()
         try:
             coordinator = NetworkCoordinator(
@@ -501,7 +507,7 @@ def _cmd_serve(args: argparse.Namespace) -> int:
                                       if args.staleness_window is not None else 4),
                 ),
                 validation=validation, secure=secure, device=device,
-                state_store=state_store, telemetry_dir=args.telemetry_dir,
+                state_store=state_store, telemetry_dir=args.telemetry_dir, chaos=chaos,
             )
             return await coordinator.run()
         finally:
@@ -513,8 +519,53 @@ def _cmd_serve(args: argparse.Namespace) -> int:
         # The cohort never completed enrollment: keep the JSON output.
         print(json.dumps([{"status": "FAILED", "error": str(e)}]))
         return 1
+    except InjectedServerCrash as e:
+        # A planned server kill, as an operator's supervisor sees it: the same command
+        # with the same --state-dir resumes from the last completed round.
+        print(json.dumps([{
+            "status": "CRASHED", "error": str(e),
+            "resume": ("re-run with the same --state-dir to resume from the last "
+                       "completed round" if args.state_dir is not None
+                       else "no --state-dir: a restart would begin from round 0"),
+        }]))
+        return 1
     print(json.dumps(history, indent=2, default=str))
     return 0 if all(h["status"] == "COMPLETED" for h in history) else 1
+
+
+def _cmd_chaos_plan(args: argparse.Namespace) -> int:
+    """Generate a seeded FaultPlan and print or save it: ``serve --chaos-plan``
+    consumes its wire and client kinds, the multi-host harness's hostchaos supervisor
+    its host kinds."""
+    from nanofed_tpu_torch.faults import FaultPlan
+
+    try:
+        plan = FaultPlan.generate(
+            args.seed, [f"c{i}" for i in range(args.clients)], args.rounds,
+            crash_fraction=args.crash_fraction,
+            straggler_fraction=args.straggler_fraction,
+            straggler_delay_s=args.straggler_delay,
+            drop_fraction=args.drop_fraction,
+            duplicate_fraction=args.duplicate_fraction,
+            corrupt_fraction=args.corrupt_fraction,
+            server_kill_round=args.server_kill_round,
+            hosts=args.hosts,
+            host_crash_count=args.host_crashes,
+            host_stall_count=args.host_stalls,
+            dcn_degrade_fraction=args.dcn_degrade_fraction,
+            dcn_delay_s=args.dcn_delay,
+        )
+    except ValueError as e:
+        return _error(str(e))
+    if not plan.events:
+        return _error("the requested plan is empty — give at least one "
+                      "fraction/count/round")
+    if args.out is not None:
+        plan.save(args.out)
+        print(f"wrote {len(plan.events)} events to {args.out}")
+    else:
+        print(plan.to_json())
+    return 0
 
 
 def _cmd_bench(args: argparse.Namespace) -> int:
@@ -748,6 +799,11 @@ def build_parser() -> argparse.ArgumentParser:
                        help="evict a client after K consecutive missed rounds; 0 = never")
     serve.add_argument("--state-dir", default=None, metavar="DIR",
                        help="checkpoint every completed round here and resume from it")
+    serve.add_argument("--chaos-plan", default=None, metavar="PLAN.json",
+                       help="fault injection: load a seeded FaultPlan "
+                       "(nanofed_tpu_torch.faults) and apply its wire faults "
+                       "(drop/ack_drop/delay) at the server boundary and its server_kill "
+                       "events in the round loop")
     _add_telemetry_dir(serve, "write this server run's telemetry.jsonl (round/phase spans "
                        "+ round records) here; live metrics are always scrapable at "
                        "GET /metrics")
@@ -827,6 +883,34 @@ def build_parser() -> argparse.ArgumentParser:
         "--trace-map", action="store_true",
         help="include the full submit-trace -> consuming-round map in the digest")
 
+    chaos_plan = sub.add_parser(
+        "chaos-plan",
+        help="generate a seeded FaultPlan JSON (nanofed_tpu_torch.faults): client wire "
+        "faults and/or host faults (host_crash/host_stall/dcn_degrade), for `serve "
+        "--chaos-plan` and the multi-host harness's hostchaos supervisor")
+    chaos_plan.add_argument("--seed", type=int, default=0)
+    chaos_plan.add_argument("--clients", type=int, default=0,
+                            help="client population the *_fraction draws sample from "
+                            "(client ids are c0..cN-1)")
+    chaos_plan.add_argument("--rounds", type=int, default=10)
+    chaos_plan.add_argument("--crash-fraction", type=float, default=0.0)
+    chaos_plan.add_argument("--straggler-fraction", type=float, default=0.0)
+    chaos_plan.add_argument("--straggler-delay", type=float, default=1.0)
+    chaos_plan.add_argument("--drop-fraction", type=float, default=0.0)
+    chaos_plan.add_argument("--duplicate-fraction", type=float, default=0.0)
+    chaos_plan.add_argument("--corrupt-fraction", type=float, default=0.0)
+    chaos_plan.add_argument("--server-kill-round", type=int, default=None)
+    chaos_plan.add_argument("--hosts", type=int, default=0,
+                            help="mesh host count the host-fault draws target")
+    chaos_plan.add_argument("--host-crashes", type=int, default=0)
+    chaos_plan.add_argument("--host-stalls", type=int, default=0)
+    chaos_plan.add_argument("--dcn-degrade-fraction", type=float, default=0.0)
+    chaos_plan.add_argument("--dcn-delay", type=float, default=0.5,
+                            help="seconds of injected cross-host latency per degraded "
+                            "round")
+    chaos_plan.add_argument("--out", default=None, metavar="PLAN.json",
+                            help="write the plan here instead of printing it")
+
     for name, (text, item) in LATER_SUBCOMMANDS.items():
         sub.add_parser(name, help=f"{text} (not in nanofed_tpu_torch yet: ROADMAP queue "
                        f"A {item})")
@@ -834,7 +918,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 COMMANDS = {"info": _cmd_info, "run": _cmd_run, "bench": _cmd_bench,
-            "profile": _cmd_profile, "serve": _cmd_serve,
+            "profile": _cmd_profile, "serve": _cmd_serve, "chaos-plan": _cmd_chaos_plan,
             "metrics-summary": _cmd_metrics_summary, "trace": _cmd_trace}
 
 

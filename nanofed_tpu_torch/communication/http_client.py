@@ -15,9 +15,10 @@ keeps the un-sent tail for error feedback.  ``security_manager`` signs every upd
 submit carries the ``X-NanoFed-Trace`` header that ``observability.new_trace`` derives
 from (client id, round, submit sequence), byte-equal to the JAX client's, so retries of
 one logical submit ride one trace.  Client wire metrics go to ``registry`` (default:
-the process-wide one) under the JAX package's families.  Fault-injection hooks
-(``wire_filter``) come with a later item; setting one raises ``NotImplementedError``
-naming it.  ``aiohttp`` is needed to open a client, not to import this module.
+the process-wide one) under the JAX package's families.  ``wire_filter(endpoint,
+body) -> body`` is the fault-injection hook: it rewrites an update's body after
+signing, so what it corrupts is what the server receives.  ``aiohttp`` is needed to
+open a client, not to import this module.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ import base64
 import io
 import json
 from dataclasses import dataclass
-from typing import Any
+from typing import Any, Callable
 
 import numpy as np
 
@@ -53,7 +54,6 @@ from nanofed_tpu_torch.communication.http_server import (
     HEADER_STATUS,
     HEADER_SUBMIT,
     HEADER_TRACE,
-    refuse_later_slice_options,
 )
 from nanofed_tpu_torch.communication.retry import (
     RETRYABLE_STATUSES,
@@ -77,12 +77,6 @@ def _np32(leaf: Any) -> np.ndarray:
 
 def _tensors(arrays: dict[str, np.ndarray]) -> Params:
     return {name: torch.from_numpy(np.asarray(a)) for name, a in arrays.items()}
-
-
-#: Client options of later slices, with the JAX defaults (accepted).
-LATER_SLICE_OPTIONS: dict[str, tuple[Any, str]] = {
-    "wire_filter": (None, "fault injection (faults slice, queue A item 17)"),
-}
 
 
 @dataclass(frozen=True)
@@ -138,7 +132,7 @@ class HTTPClient:
         retry: RetryPolicy | None = None,
         clock: Clock | None = None,
         registry: MetricsRegistry | None = None,
-        **later_slice_options: Any,
+        wire_filter: Callable[[str, bytes], bytes] | None = None,
     ) -> None:
         """``security_manager`` (a ``security.signing.SecurityManager``) signs every
         update and secure-aggregation body; pair it with a server built with
@@ -151,8 +145,10 @@ class HTTPClient:
         as a floor, 502/503/504) with exponential backoff and jitter; every logical
         submit carries an idempotency key, so the server folds a retried submit at
         most once.  ``clock`` injects the time source for backoff sleeps and poll
-        deadlines.  ``registry`` receives the client's wire metrics."""
-        refuse_later_slice_options("HTTPClient", later_slice_options, LATER_SLICE_OPTIONS)
+        deadlines.  ``registry`` receives the client's wire metrics.  ``wire_filter``
+        (fault injection, ``faults.ChaosClient``) rewrites each update body after
+        signing: a corrupted body is what a flipped bit in transit looks like, and the
+        server must reject it."""
         if update_encoding not in ("npz", ENCODING_Q8_DELTA, ENCODING_TOPK8):
             raise NanoFedError(f"unknown update_encoding {update_encoding!r} (choose 'npz', "
                                f"'{ENCODING_Q8_DELTA}', or '{ENCODING_TOPK8}')")
@@ -168,6 +164,7 @@ class HTTPClient:
         self.update_encoding = update_encoding
         self.topk_fraction = topk_fraction
         self.retry = retry
+        self.wire_filter = wire_filter
         self._clock = clock or SYSTEM_CLOCK
         self._retry_rng = retry.rng_for(client_id) if retry is not None else None
         self._timeout = aiohttp.ClientTimeout(total=timeout_s)
@@ -380,6 +377,8 @@ class HTTPClient:
             signature = self.security_manager.sign_update(
                 signed, self.client_id, self.current_round, headers[HEADER_METRICS])
             headers[HEADER_SIGNATURE] = base64.b64encode(signature).decode()
+        if self.wire_filter is not None:
+            body = self.wire_filter("update", body)
         self._m_bytes_tx.inc(len(body), endpoint="update")
         self._last_update_post = (url, body, dict(headers))
         status, _, _, message = await self._request_with_retries(

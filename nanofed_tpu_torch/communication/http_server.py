@@ -33,7 +33,11 @@ The update pipeline is the JAX package's:
 * ``ingest=IngestConfig(...)`` switches plain submits to the device-resident buffer
   (``nanofed_tpu_torch.ingest``) on ``device`` (default: the card): decoded deltas
   are staged into a ``[capacity, P]`` buffer, a full buffer answers 429 +
-  Retry-After, and the round engine drains it with one batched product.
+  Retry-After, and the round engine drains it with one batched product;
+* ``chaos=`` (a ``faults.ChaosSchedule``) faults the update endpoint only: ``drop``
+  severs the connection before the handler runs, ``ack_drop`` runs the handler (the
+  update IS buffered) and severs it before the response, ``delay`` holds the request
+  for its seconds on ``clock`` (default: the system clock).
 
 Wire metrics (``registry=``, default the process-wide registry) carry the JAX
 package's families: body bytes received and sent by endpoint, update submissions by
@@ -83,6 +87,7 @@ from nanofed_tpu_torch.core.types import ModelUpdate, Params
 from nanofed_tpu_torch.observability.registry import MetricsRegistry, get_registry
 from nanofed_tpu_torch.observability.tracing import TraceContext, parse_trace
 from nanofed_tpu_torch.security.secure_agg import check_backend
+from nanofed_tpu_torch.utils.clock import SYSTEM_CLOCK, Clock
 from nanofed_tpu_torch.utils.dates import get_current_time
 from nanofed_tpu_torch.utils.logger import Logger
 
@@ -106,10 +111,8 @@ HEADER_TRACE = "X-NanoFed-Trace"  # W3C-style trace context: 00-<trace>-<span>-<
 #: Server options of later slices, with the JAX defaults (accepted).  Any other value
 #: raises NotImplementedError naming the slice.
 LATER_SLICE_OPTIONS: dict[str, tuple[Any, str]] = {
-    "chaos": (None, "chaos hooks (faults slice, queue A item 17)"),
     "max_inflight": (None, "admission control (service slice, queue A item 18)"),
     "retry_after_s": (0.25, "admission control (service slice, queue A item 18)"),
-    "clock": (None, "chaos hooks (faults slice, queue A item 17)"),
     "transport": (None, "shared multi-tenant transports (service slice, queue A item 18)"),
     "tenant": (None, "shared multi-tenant transports (service slice, queue A item 18)"),
     "fleet": (None, "heterogeneous fleets (fleet slice, queue A item 16b)"),
@@ -178,6 +181,8 @@ class HTTPServer:
         device: DeviceLike = None,
         registry: MetricsRegistry | None = None,
         tracer: Any | None = None,
+        chaos: Any | None = None,
+        clock: Clock | None = None,
         **later_slice_options: Any,
     ) -> None:
         """``client_keys`` maps client id -> PEM public key; with
@@ -191,7 +196,9 @@ class HTTPServer:
         stalled read is answered 408).  ``registry`` (default: the process-wide one)
         receives the wire metrics and is what ``GET /metrics`` renders; ``tracer`` (a
         ``SpanTracer``) opens a ``submit-decode`` span around each admitted submit's
-        decode, tagged with its trace id (None records nothing)."""
+        decode, tagged with its trace id (None records nothing).  ``chaos`` (a
+        ``faults.ChaosSchedule``) applies the plan's wire faults to the update
+        endpoint; ``clock`` is the time source of their delays."""
         refuse_later_slice_options("HTTPServer", later_slice_options, LATER_SLICE_OPTIONS)
         require_aiohttp()
         if staleness_window < 0:
@@ -205,6 +212,8 @@ class HTTPServer:
         self.require_signatures = require_signatures
         self.staleness_window = staleness_window
         self.read_timeout_s = read_timeout_s
+        self._chaos = chaos
+        self._clock = clock or SYSTEM_CLOCK
         self.ingest = ingest
         # The ingest buffer's device, resolved now so a missing card fails at
         # construction; the pipeline itself is built at the first publish (P).
@@ -583,7 +592,36 @@ class HTTPServer:
             if any(p == path for _, p in self._routes):
                 return _error(f"method {request.method} not allowed on {path}", 405)
             return _error(f"no endpoint {path}", 404)
+        if self._chaos is not None and path == self.endpoints.update:
+            return await self._apply_chaos(request, handler)
         return await handler(request)
+
+    async def _apply_chaos(self, request: web.Request, handler: Any) -> web.StreamResponse:
+        """This request's wire fault from the chaos schedule, if any.  ``drop`` severs
+        the connection BEFORE the handler (the submit never happened); ``ack_drop``
+        runs the handler (its effects are real) and severs the connection before the
+        response (the lost ACK idempotent submit keys exist for); ``delay`` holds the
+        request for its seconds.  One-shot events are consumed by the schedule, so a
+        retry gets through once they are spent."""
+        event = self._chaos.wire_fault(
+            request.headers.get(HEADER_CLIENT), request.headers.get(HEADER_ROUND))
+        if event is None:
+            return await handler(request)
+        if event.kind == "delay":
+            await self._clock.sleep(event.seconds)
+            return await handler(request)
+        if event.kind == "drop":
+            self._log.warning("chaos: dropping request from %s pre-handler",
+                              request.headers.get(HEADER_CLIENT))
+            if request.transport is not None:
+                request.transport.close()
+            return web.Response(status=500)  # never reaches the severed peer
+        response = await handler(request)
+        self._log.warning("chaos: severing connection from %s before its ACK",
+                          request.headers.get(HEADER_CLIENT))
+        if request.transport is not None:
+            request.transport.close()
+        return response
 
     async def _read_body(self, request: web.Request) -> bytes:
         try:

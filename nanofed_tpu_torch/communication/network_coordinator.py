@@ -30,8 +30,12 @@ outcome is charged to the ``RoundLedger`` on ``registry`` (default: the server's
 the validation-reject and straggler-eviction counters beside it.  With
 ``telemetry_dir`` the spans and ``round`` records stream into ``telemetry.jsonl``,
 closed with the registry snapshot when :meth:`NetworkCoordinator.run` exits.
-Fault injection (``chaos``) and the service's device gate come with later items;
-setting one raises ``NotImplementedError`` naming its item.
+``chaos`` (a ``faults.ChaosSchedule``) injects the round loop's ``server_kill``: the
+round's model is published, then :class:`~nanofed_tpu_torch.faults.InjectedServerCrash`
+(a ``RuntimeError``, recoverable for ``persistence.is_recoverable``) is raised before
+aggregation; a new coordinator over the same ``state_store`` resumes at that round.
+The service's device gate comes with a later item; setting it raises
+``NotImplementedError`` naming its item.
 """
 
 from __future__ import annotations
@@ -58,6 +62,7 @@ from nanofed_tpu_torch.communication.http_server import (
 )
 from nanofed_tpu_torch.core.device import DeviceLike, resolve_device
 from nanofed_tpu_torch.core.types import ClientMetrics, ClientUpdates, ModelUpdate, Params
+from nanofed_tpu_torch.faults.plan import InjectedServerCrash
 from nanofed_tpu_torch.observability.registry import MetricsRegistry
 from nanofed_tpu_torch.observability.spans import SpanTracer
 from nanofed_tpu_torch.observability.telemetry import RunTelemetry
@@ -88,7 +93,6 @@ if TYPE_CHECKING:
 
 #: Coordinator options of later slices, with the JAX defaults (accepted).
 LATER_SLICE_OPTIONS: dict[str, tuple[Any, str]] = {
-    "chaos": (None, "fault injection (faults slice, queue A item 17)"),
     "device_gate": (None, "the service's device scheduler (service slice, queue A item 18)"),
 }
 
@@ -258,6 +262,7 @@ class NetworkCoordinator:
         state_store: FileStateStore | None = None,
         telemetry_dir: str | Path | None = None,
         registry: MetricsRegistry | None = None,
+        chaos: Any | None = None,
         **later_slice_options: Any,
     ) -> None:
         refuse_later_slice_options("NetworkCoordinator", later_slice_options,
@@ -306,6 +311,7 @@ class NetworkCoordinator:
         self._ingest_mode = server.ingest is not None
         self.state_store = state_store
         self.history: list[dict[str, Any]] = []
+        self.chaos = chaos
         self._clock = clock or SYSTEM_CLOCK
         self._log = Logger()
         self.metrics_registry = registry or server.metrics_registry
@@ -589,6 +595,13 @@ class NetworkCoordinator:
     async def _train_round_inner(self, round_number: int) -> dict[str, Any]:
         with self._tracer.span("publish", round=round_number):
             await self.server.publish_model(self.params, round_number)
+        if self.chaos is not None and self.chaos.take_server_kill(round_number):
+            # Mid-round crash: this round's model IS published (clients may have
+            # fetched, trained and submitted) but aggregation never happens.  A
+            # coordinator rebuilt from the state store re-runs this round.
+            raise InjectedServerCrash(
+                f"chaos plan (seed {getattr(self.chaos.plan, 'seed', '?')}): "
+                f"server killed mid-round {round_number}")
         required = self._required_clients()
         if self.secure is not None:
             with self._tracer.span("secure-aggregate", round=round_number):

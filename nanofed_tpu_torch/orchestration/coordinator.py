@@ -109,9 +109,12 @@ slots' ``delta_c`` rows, each rank scatter-adding those it owns.  A SCAFFOLD
 checkpoint holds the whole stack (gathered, rank 0 writes it).  ``profile_programs()``
 on a mesh runs every program on every rank in lockstep (see its docstring).
 
-The JAX coordinator's ``chaos=`` and ``strict=`` come with later slices: a value
-other than the JAX default raises ``NotImplementedError`` naming the ROADMAP item
-(:data:`LATER_SLICE_KEYWORDS`).
+``chaos=`` (a ``faults.ChaosSchedule``) drops the plan's crashed clients from every
+cohort the host samples, after the dropout draw, as the JAX coordinator does; on a
+mesh every rank filters the same cohort.  A fused block that resamples its cohorts on
+the device does not consult the plan (nor does the JAX block).  The JAX coordinator's
+``strict=`` comes with a later slice: a value other than the JAX default raises
+``NotImplementedError`` naming the ROADMAP item (:data:`LATER_SLICE_KEYWORDS`).
 """
 
 from __future__ import annotations
@@ -231,7 +234,6 @@ _log = logging.getLogger(__name__)
 #: The JAX coordinator's keywords that later slices bring: name -> (the JAX default,
 #: which is accepted, and the ROADMAP queue A item that lands it).
 LATER_SLICE_KEYWORDS: dict[str, tuple[Any, str]] = {
-    "chaos": (None, "item 17 (multi-host federation and faults)"),
     "strict": (False, "item 21 (analysis)"),
 }
 
@@ -414,6 +416,7 @@ class Coordinator:
         adapter: AdapterSpec | None = None,
         mesh: Mesh | None = None,
         mesh_shape: tuple[int, ...] | None = None,
+        chaos: Any | None = None,
         **later_slice: Any,
     ) -> None:
         for name, value in later_slice.items():
@@ -428,6 +431,9 @@ class Coordinator:
                     f"with ROADMAP queue A {item} (run nanofed_tpu for it)"
                 )
         self.device = resolve_device(device)
+        # Planned per-client crashes (faults.ChaosSchedule), applied to every sampled
+        # cohort: deterministic under the plan, unlike dropout_rate's coin flips.
+        self._chaos = chaos
         if mesh is not None and mesh_shape is not None:
             raise ValueError(
                 "pass either mesh= (a prebuilt Mesh) or mesh_shape= "
@@ -1160,6 +1166,12 @@ class Coordinator:
             sampled = sampled[keep]
         if self.central_privacy is not None:
             sampled = broadcast_object(sampled)  # rank 0's secret draw, on every rank
+        if self._chaos is not None:
+            # Planned crashes: a crashed client is gone from this and every later
+            # cohort; the round then stands or falls on min_completion_rate.  After
+            # the broadcast, so every rank filters (and counts) the same cohort.
+            alive = [c for c in sampled if not self._chaos.crashed(int(c), round_id)]
+            sampled = np.asarray(alive, dtype=sampled.dtype)
         return sampled
 
     def _host_populations(self) -> list[tuple[int, int]]:

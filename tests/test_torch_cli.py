@@ -145,6 +145,112 @@ def test_serve_runs_a_round_with_a_client(tmp_path):
         torch.testing.assert_close(leaf, result["sent"][name], rtol=1e-6, atol=1e-6)
 
 
+CHAOS_PLANS = [
+    ["--clients", "8", "--rounds", "4", "--crash-fraction", "0.25", "--seed", "3"],
+    ["--clients", "12", "--rounds", "6", "--straggler-fraction", "0.25", "--straggler-delay",
+     "2", "--drop-fraction", "0.1", "--duplicate-fraction", "0.2", "--corrupt-fraction",
+     "0.1", "--server-kill-round", "3"],
+    ["--rounds", "6", "--hosts", "4", "--host-crashes", "1", "--host-stalls", "1",
+     "--dcn-degrade-fraction", "0.5", "--dcn-delay", "0.25", "--seed", "9"],
+]
+
+
+@pytest.mark.parametrize("argv", CHAOS_PLANS)
+def test_chaos_plan_writes_the_plan_the_jax_cli_writes(argv, tmp_path, capsys):
+    from nanofed_tpu import cli as jax_cli
+
+    assert jax_cli.main(["chaos-plan", *argv, "--out", str(tmp_path / "jax.json")]) == 0
+    want_out = capsys.readouterr().out
+    assert cli.main(["chaos-plan", *argv, "--out", str(tmp_path / "port.json")]) == 0
+    got_out = capsys.readouterr().out
+    assert (tmp_path / "port.json").read_text() == (tmp_path / "jax.json").read_text()
+    assert got_out.replace("port.json", "jax.json") == want_out
+    assert cli.main(["chaos-plan", *argv]) == 0  # printed instead of saved
+    assert capsys.readouterr().out.strip() == (tmp_path / "jax.json").read_text()
+
+
+@pytest.mark.parametrize("argv,words", [
+    ([], "the requested plan is empty"),
+    (["--host-crashes", "1"], "host faults need hosts >= 1"),
+    (["--hosts", "1", "--host-crashes", "2"], "cannot fail 2 of 1 hosts"),
+])
+def test_chaos_plan_exits_2_where_the_jax_cli_does(argv, words, capsys):
+    from nanofed_tpu import cli as jax_cli
+
+    assert jax_cli.main(["chaos-plan", *argv]) == 2
+    want = capsys.readouterr().err
+    assert cli.main(["chaos-plan", *argv]) == 2
+    assert words in capsys.readouterr().err and words in want
+
+
+def test_serve_exits_2_on_an_unreadable_chaos_plan(tmp_path, capsys):
+    (tmp_path / "bad.json").write_text("{not json")
+    for path in (tmp_path / "missing.json", tmp_path / "bad.json"):
+        # Refused before a device is looked for, as the JAX command refuses it.
+        assert cli.main(["serve", "--chaos-plan", str(path)]) == 2
+        assert "could not load chaos plan" in capsys.readouterr().err
+
+
+def test_serve_chaos_plan_server_kill_crashes_then_the_state_dir_resumes(tmp_path):
+    """``serve --chaos-plan`` with a planned ``server_kill`` in round 1: round 0
+    completes with one client, round 1's model is published, then the command prints
+    the ``CRASHED`` record with its resume hint and exits 1.  The same ``--state-dir``
+    then resumes at round 1 and completes it."""
+    from nanofed_tpu.faults import FaultEvent, FaultPlan
+    from nanofed_tpu_torch.communication import HTTPClient
+    from nanofed_tpu_torch.communication.transport import free_port
+    from nanofed_tpu_torch.core.exceptions import NanoFedError
+
+    pytest.importorskip("aiohttp")
+    # A plan the JAX package wrote: plans load across packages.
+    FaultPlan(seed=4, events=(FaultEvent(kind="server_kill", round=1),)).save(
+        tmp_path / "plan.json")
+    state = tmp_path / "state"
+
+    def serve_with_a_client(extra):
+        port = free_port()
+        result = {}
+
+        def serve():
+            result["code"], result["out"] = _main([
+                "serve", "--device", "cpu", "--model", "linear", "--port", str(port),
+                "--rounds", "2", "--timeout", "60", "--state-dir", str(state), *extra])
+
+        thread = threading.Thread(target=serve)
+        thread.start()
+        seen = []
+
+        async def client():
+            async with HTTPClient(f"http://127.0.0.1:{port}", "c0", timeout_s=30) as c:
+                while thread.is_alive():
+                    try:
+                        params, rnd, active = await c.fetch_global_model()
+                    except (NanoFedError, OSError):  # starting, or crashed and gone
+                        await asyncio.sleep(0.02)
+                        continue
+                    if not active:
+                        return
+                    if rnd not in seen:
+                        seen.append(rnd)
+                        assert await c.submit_update({k: v + 0.5 for k, v in params.items()},
+                                                     {"num_samples": 3})
+                    await asyncio.sleep(0.02)
+
+        asyncio.run(asyncio.wait_for(client(), timeout=120))
+        thread.join(timeout=60)
+        assert not thread.is_alive()
+        return result["code"], json.loads(result["out"]), seen
+
+    code, out, seen = serve_with_a_client(["--chaos-plan", str(tmp_path / "plan.json")])
+    assert code == 1 and seen[0] == 0  # round 1 may crash before the client fetches it
+    (crashed,) = out
+    assert crashed["status"] == "CRASHED" and "mid-round 1" in crashed["error"]
+    assert "same --state-dir" in crashed["resume"]
+    code, history, seen = serve_with_a_client([])
+    assert code == 0 and seen == [1]
+    assert [(h["round"], h["status"]) for h in history] == [(1, "COMPLETED")]
+
+
 @pytest.mark.parametrize("argv,words", [
     (["--secure", "--validate"], "--validate cannot be combined with --secure"),
     (["--dropout-tolerant"], "--dropout-tolerant requires --secure"),
@@ -181,7 +287,7 @@ def test_commands_default_to_the_card_and_raise_without_it(argv, monkeypatch):
 
 
 @pytest.mark.parametrize("name,item", [
-    ("chaos-plan", "item 17"), ("audit", "item 21"), ("loadtest", "item 18"), ("tenants", "item 18"),
+    ("audit", "item 21"), ("loadtest", "item 18"), ("tenants", "item 18"),
 ])
 def test_later_subcommands_are_listed_and_refused_with_their_item(name, item, capsys):
     assert cli.main([name, "--seed", "3", "somewhere"]) == 2
@@ -191,7 +297,6 @@ def test_later_subcommands_are_listed_and_refused_with_their_item(name, item, ca
 
 @pytest.mark.parametrize("cmd,argv,item", [
     ("run", ["--strict"], "item 21"),
-    ("serve", ["--chaos-plan", "plan.json"], "item 17"),
     ("serve", ["--max-inflight", "8"], "item 18"),
 ])
 def test_later_flags_are_refused_with_their_item(cmd, argv, item, capsys):
@@ -305,7 +410,7 @@ def test_every_jax_subcommand_and_flag_is_ported_or_refused(monkeypatch):
         jax_flags = set(theirs[cmd]._option_string_actions)
         our_flags = set(ours[cmd]._option_string_actions)
         # --device on every command that runs on a device.
-        runs_nothing = cmd in ("info", "metrics-summary", "trace")
+        runs_nothing = cmd in ("info", "metrics-summary", "trace", "chaos-plan")
         assert our_flags - jax_flags == (set() if runs_nothing else {"--device"})
         assert jax_flags <= our_flags
         refused = {flag for flag, *_ in cli.LATER_SLICE_FLAGS.get(cmd, {}).values()}

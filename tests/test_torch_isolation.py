@@ -1,5 +1,6 @@
 """The port imports neither JAX nor anything of ``nanofed_tpu`` (every module of the
-package, fused multi-round blocks, the network mode, secure aggregation, signing, the ingest buffer,
+package, the fault plans and injectors, the multi-host harness's worker, fused
+multi-round blocks, the network mode, secure aggregation, signing, the ingest buffer,
 observability and tuning, the ResNets, the benchmark suite and the command line
 included, and the compressed codec, signing and ingest paths when they run), nor does
 any rank of a world it spawns (``parallel.launch.spawn_world``), the federation's
@@ -127,6 +128,50 @@ def test_wire_paths_run_without_jax_or_ml_dtypes():
     assert proc.returncode == 0 and proc.stdout.split()[-1] == "ok", proc.stderr
 
 
+_RUN_FAULTS_AND_HARNESS_WORKER = """
+import importlib.util, json, sys
+from pathlib import Path
+import nanofed_tpu_torch.faults as faults
+tmp = Path(sys.argv[1])
+plan = faults.FaultPlan.generate(3, [f"c{i}" for i in range(8)], 4, crash_fraction=0.25,
+                                 hosts=2, dcn_degrade_fraction=0.5, dcn_delay_s=0.01)
+schedule = faults.ChaosSchedule(plan)
+assert [c for c in range(8) if schedule.crashed(f"c{c}", 3)]
+plan.save(tmp / "plan.json")
+spec = importlib.util.spec_from_file_location("harness", "scripts/multihost_harness_torch.py")
+harness = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(harness)
+rc = harness.main(["worker", "--job", "hostchaos", "--num-processes", "1", "--device", "cpu",
+                   "--clients", "4", "--rounds", "2", "--block-size", "1",
+                   "--fault-plan", str(tmp / "plan.json"), "--hb-dir", str(tmp / "hb"),
+                   "--ckpt-dir", str(tmp / "ckpt"), "--out", str(tmp / "out.json")])
+assert rc == 0 and json.loads((tmp / "out.json").read_text())["rounds"] == [0, 1]
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
+             or m == "nanofed_tpu" or m.startswith("nanofed_tpu."))
+assert not bad, bad
+print("ok")
+"""
+
+
+def test_faults_and_the_harness_worker_run_without_jax(tmp_path):
+    """``nanofed_tpu_torch.faults`` and a hostchaos worker of
+    ``scripts/multihost_harness_torch.py`` (plan, heartbeats, watchdog, generation
+    commits) run with no JAX and nothing of the JAX package loaded."""
+    proc = subprocess.run([sys.executable, "-c", _RUN_FAULTS_AND_HARNESS_WORKER,
+                           str(tmp_path)], cwd=REPO, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0 and proc.stdout.split()[-1] == "ok", proc.stderr
+
+
+def _harness_worker():
+    spec = importlib.util.spec_from_file_location(
+        "multihost_harness_torch", REPO / "scripts" / "multihost_harness_torch.py")
+    harness = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(harness)
+    return harness.main(["worker", "--num-processes", "1", "--clients", "2"])
+
+
 def test_every_module_imports_in_process():
     for info in pkgutil.walk_packages(nanofed_tpu_torch.__path__, "nanofed_tpu_torch."):
         importlib.import_module(info.name)
@@ -167,6 +212,7 @@ def _entry_points():
         "run_benchmark": lambda: run_benchmark("cross_silo", train_size=64),
         "cli_bench": lambda: cli.main(["bench", "cross_silo", "--train-size", "64"]),
         "host_partial_row_empty": lambda: host_partial_row(None, 0.0, 3),
+        "harness_worker": _harness_worker,
     }
 
 
@@ -179,7 +225,7 @@ def _entry_points():
                                   "DeviceIngestBuffer", "IngestPipeline", "HTTPServer_ingest",
                                   "fedbuff_combine", "build_round_block",
                                   "Coordinator_fused", "run_benchmark", "cli_bench",
-                                  "host_partial_row_empty"])
+                                  "host_partial_row_empty", "harness_worker"])
 def test_entry_points_default_to_cuda_and_raise_without_it(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -1,0 +1,219 @@
+"""``scripts/multihost_harness_torch.py`` on the CPU: the launcher's units of
+``tests/integration/test_multihost_harness.py`` against the port script (the
+orphan-reaping contract of ``_wait``/``_reap``, the torn-tail progress reader), then
+the modes end to end with gloo ranks on a tiny model: ``smoke`` (2 ranks against 1
+within ``SMOKE_TOL``), ``bench`` (its artifact), and ``hostchaos`` for a planned
+``host_crash`` (with a rejoin) and a ``host_stall`` (stall flagged after 3 s, watchdog
+deadline 5 s).  Each world's timeout is 120 s.  The four runs start together when the
+module's first run is asked for, so the file's wall time is the longest drill's."""
+
+import importlib.util
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import pytest
+
+from nanofed_tpu_torch.observability.telemetry import summarize_telemetry
+from nanofed_tpu_torch.parallel.resilience import no_orphans
+
+REPO = Path(__file__).resolve().parents[1]
+SCRIPT = REPO / "scripts" / "multihost_harness_torch.py"
+COMMON = ["--device", "cpu", "--clients", "8", "--timeout", "120"]
+DRILL = ["--rounds", "6", "--block-size", "2", "--watchdog-deadline", "5",
+         "--stall-timeout", "3", "--compile-grace", "30"]
+RUNS = {
+    "smoke": ["smoke", *COMMON],
+    "bench": ["bench", *COMMON, "--client-chunk", "2", "--rounds", "2"],
+    "crash": ["hostchaos", *COMMON, *DRILL, "--host-fault", "crash", "--rejoin-rounds", "2"],
+    "stall": ["hostchaos", *COMMON, *DRILL, "--host-fault", "stall", "--rejoin-rounds", "0"],
+}
+
+
+@pytest.fixture(scope="module")
+def harness():
+    spec = importlib.util.spec_from_file_location("multihost_harness_torch", SCRIPT)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """Every mode started at once, each in its own directories; a run's result is
+    read when a test asks for it."""
+    base = tmp_path_factory.mktemp("harness")
+    started = {}
+    for name, argv in RUNS.items():
+        d = base / name
+        d.mkdir()
+        log = (d / "log.txt").open("w")
+        proc = subprocess.Popen(
+            [sys.executable, str(SCRIPT), *argv, "--tmp-dir", str(d / "tmp"),
+             "--out-dir", str(d / "out")],
+            cwd=REPO, stdout=log, stderr=subprocess.STDOUT)
+        started[name] = (proc, d, log)
+    yield started
+    for proc, _, log in started.values():
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait(timeout=30)
+        log.close()
+
+
+def _finish(runs, name):
+    proc, d, log = runs[name]
+    rc = proc.wait(timeout=400)
+    log.flush()
+    text = (d / "log.txt").read_text()
+    assert rc == 0, text[-4000:]
+    return d, text
+
+
+def _artifact(d: Path, pattern: str) -> dict:
+    (path,) = sorted((d / "out").glob(pattern))
+    return json.loads(path.read_text())
+
+
+def _sleeper(seconds=60):
+    return subprocess.Popen([sys.executable, "-c", f"import time; time.sleep({seconds})"])
+
+
+def _crasher(rc=3, after_s=0.0):
+    return subprocess.Popen([sys.executable, "-c",
+                             f"import sys, time; time.sleep({after_s}); sys.exit({rc})"])
+
+
+def test_wait_reaps_survivors_when_a_worker_crashes(harness):
+    survivor, crasher = _sleeper(), _crasher(rc=3, after_s=0.2)
+    procs = [survivor, crasher]
+    with pytest.raises(SystemExit, match="rc=3"):
+        harness._wait(procs, timeout_s=30.0)
+    assert all(p.returncode is not None for p in procs)
+    assert no_orphans([p.pid for p in procs]) == []
+
+
+def test_wait_reaps_everyone_on_timeout(harness):
+    procs = [_sleeper(), _sleeper()]
+    t0 = time.monotonic()
+    with pytest.raises(SystemExit, match="timed out"):
+        harness._wait(procs, timeout_s=0.5)
+    assert time.monotonic() - t0 < 10
+    assert all(p.returncode is not None for p in procs)
+    assert no_orphans([p.pid for p in procs]) == []
+
+
+def test_wait_returns_when_all_exit_cleanly(harness):
+    procs = [_crasher(rc=0), _crasher(rc=0)]
+    harness._wait(procs, timeout_s=30.0)
+    assert [p.returncode for p in procs] == [0, 0]
+
+
+def test_reap_escalates_sigterm_to_sigkill(harness):
+    stubborn = subprocess.Popen([sys.executable, "-c",
+                                 "import signal, time; "
+                                 "signal.signal(signal.SIGTERM, signal.SIG_IGN); "
+                                 "time.sleep(60)"])
+    time.sleep(0.3)  # let the handler install
+    harness._reap([stubborn], grace_s=0.5)
+    assert stubborn.returncode is not None
+    assert no_orphans([stubborn.pid]) == []
+
+
+def test_read_progress_skips_torn_tail(harness, tmp_path):
+    p = tmp_path / "progress.jsonl"
+    p.write_text(json.dumps({"round": 0, "loss": 2.0, "wall_t": 1.0}) + "\n"
+                 + json.dumps({"round": 1, "loss": 1.9, "wall_t": 2.0}) + "\n"
+                 + '{"round": 2, "los')  # killed mid-write
+    assert [r["round"] for r in harness._read_progress(p)] == [0, 1]
+    assert harness._read_progress(tmp_path / "missing.jsonl") == []
+
+
+def test_each_world_gets_a_fresh_absolute_rendezvous(harness, tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    a, b = harness._rendezvous(Path("rel")), harness._rendezvous(Path("rel"))
+    assert a.is_absolute() and a.parent == tmp_path / "rel" / "rendezvous"
+    assert a != b and not a.exists()
+
+
+def test_client_rows_are_the_jax_harness_draws(harness):
+    spec = importlib.util.spec_from_file_location(
+        "multihost_harness", REPO / "scripts" / "multihost_harness.py")
+    jax_harness = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(jax_harness)
+    for got, want in zip(harness.client_rows(range(3, 7), 8, (8, 8, 1), 5),
+                         jax_harness.client_rows(range(3, 7), 8, (8, 8, 1), 5)):
+        assert got.dtype == want.dtype and (got == want).all()
+
+
+def test_federate_exits_2_naming_item_18():
+    proc = subprocess.run([sys.executable, str(SCRIPT), "federate", "--device", "cpu"],
+                          cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 2
+    assert "item 18" in proc.stderr
+
+
+def test_smoke_two_ranks_match_one(runs, harness):
+    d, text = _finish(runs, "smoke")
+    verdict = json.loads(text[text.index("{\n"):text.index("\n}\n") + 2])
+    assert verdict["topology"]["process_count"] == 2
+    assert verdict["topology"]["mesh_shape"] == [2, 1, 1]
+    assert len(verdict["losses_multi"]) == 4  # a warm-up round and three timed
+    assert verdict["max_loss_delta"] <= harness.SMOKE_TOL
+    assert verdict["max_param_delta"] <= harness.SMOKE_TOL
+    assert "multihost-smoke OK" in text
+
+
+def test_bench_writes_its_artifact(runs):
+    d, _ = _finish(runs, "bench")
+    record = _artifact(d, "multihost_torch_*_8clients.json")
+    assert record["num_clients"] == 8 and record["client_chunk"] == 2
+    assert len(record["per_round_s"]) == 2 and record["rounds_per_sec"] > 0
+    assert record["platform"] == "cpu" and record["topology"]["mesh_shape"] == [2, 1, 1]
+    assert "not a round across several cards" in record["basis"]
+
+
+def _check_drill(d: Path, kind: str) -> dict:
+    art = _artifact(d, "hostchaos_torch_*_2h.json")
+    assert art["failure"]["kind"] == kind
+    victim = art["failure"]["host"]
+    (event,) = art["plan"]["events"]
+    assert event["kind"] == kind and event["host"] == victim
+    assert art["recovery"]["rounds_lost"] <= art["block_size"]
+    assert art["recovery"]["resumed_round"] % art["block_size"] == 0
+    assert art["recovered"]["rounds"][-1] == art["rounds"] - 1
+    assert art["recovered"]["rounds"][0] == art["recovery"]["resumed_round"]
+    assert art["parity"]["ok"] and art["parity"]["max_loss_delta"] <= art["parity"]["tolerance"]
+    assert art["orphans"] == []
+    assert 0 < art["recovery"]["startup_s"] < art["recovery"]["recovery_s"]
+    assert {"reap", "respawn", "bring_up", "first_round"} <= set(art["recovery"]["phases"])
+    digest = summarize_telemetry(d / "tmp" / "telemetry" / "telemetry.jsonl")
+    assert digest["host_failures"]["by_kind"] == {kind: 1}
+    return {"artifact": art, "digest": digest}
+
+
+def test_hostchaos_recovers_from_a_crash_and_the_host_rejoins(runs):
+    d, text = _finish(runs, "crash")
+    out = _check_drill(d, "host_crash")
+    art = out["artifact"]
+    victim = art["failure"]["host"]
+    assert art["failure"]["worker_exit_codes"][str(victim)] == 31
+    assert art["recovery"]["at_most_one_block"]
+    assert art["rejoin"]["rounds"][-1] == art["rounds"] + 1  # two rounds past the run
+    assert art["rejoin"]["hosts"] == [0, 1]
+    assert out["digest"]["recoveries"]["count"] == 2  # the shrink and the regrow
+    assert "hostchaos OK: host_crash" in text
+
+
+def test_hostchaos_recovers_from_a_stall(runs):
+    d, text = _finish(runs, "stall")
+    out = _check_drill(d, "host_stall")
+    art = out["artifact"]
+    # Flagged once the heartbeat froze past the stall timeout, before the survivor's
+    # watchdog deadline (the survivor keeps beating while it waits).
+    assert 3.0 <= art["failure"]["detection_s"] < 3.0 + 5.0
+    assert art["rejoin"] is None
+    assert out["digest"]["recoveries"]["count"] == 1
+    assert "hostchaos OK: host_stall" in text

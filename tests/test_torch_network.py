@@ -477,20 +477,54 @@ def test_codec_refuses_a_payload_that_does_not_fit_the_template():
 @pytest.mark.parametrize(
     "build",
     [
-        lambda: port_comm.NetworkCoordinator(
-            port_comm.HTTPServer(port=free_port()), {}, port_comm.NetworkRoundConfig(),
-            device="cpu", chaos=object()),
         lambda: port_comm.HTTPServer(port=free_port(), max_inflight=4),
         lambda: port_comm.HTTPServer(port=free_port(), transport=object()),
         lambda: port_comm.HTTPServer(port=free_port(), tenant="t"),
         lambda: port_comm.HTTPServer(port=free_port(), fleet=object()),
     ],
-    ids=["chaos", "admission", "transport", "tenant", "fleet"],
+    ids=["admission", "transport", "tenant", "fleet"],
 )
 def test_later_slice_options_raise_naming_their_slice(build):
     """What the port still refuses names the ROADMAP item that brings it."""
     with pytest.raises(NotImplementedError, match=r"slice, queue A item \d+"):
         build()
+
+
+def test_chaos_options_are_taken_as_the_jax_package_takes_them():
+    """``chaos=``, ``clock=`` and ``wire_filter=`` (the faults slice) are accepted
+    where the JAX package accepts them; ``tests/test_torch_chaos.py`` runs them."""
+    import inspect
+
+    from nanofed_tpu.faults import ChaosSchedule as JaxSchedule
+    from nanofed_tpu.faults import FaultPlan as JaxPlan
+    from nanofed_tpu_torch.communication import http_client, http_server
+    from nanofed_tpu_torch.communication import network_coordinator as nc
+    from nanofed_tpu_torch.faults import ChaosSchedule, FaultPlan
+    from nanofed_tpu_torch.utils.clock import VirtualClock
+
+    for owner, names in ((jax_comm.HTTPServer, ("chaos", "clock")),
+                         (jax_comm.NetworkCoordinator, ("chaos",)),
+                         (jax_comm.HTTPClient, ("wire_filter",))):
+        port_owner = getattr(port_comm, owner.__name__)
+        for name in names:
+            assert inspect.signature(owner).parameters[name].default is None
+            assert inspect.signature(port_owner).parameters[name].default is None
+    assert "chaos" not in http_server.LATER_SLICE_OPTIONS
+    assert "clock" not in http_server.LATER_SLICE_OPTIONS
+    assert "chaos" not in nc.LATER_SLICE_OPTIONS
+    assert not hasattr(http_client, "LATER_SLICE_OPTIONS")
+    schedule = ChaosSchedule(FaultPlan(seed=1))
+    clock = VirtualClock()
+    server = port_comm.HTTPServer(port=free_port(), chaos=schedule, clock=clock)
+    assert server._chaos is schedule and server._clock is clock
+    coordinator = port_comm.NetworkCoordinator(server, {}, port_comm.NetworkRoundConfig(),
+                                               device="cpu", chaos=schedule, clock=clock)
+    assert coordinator.chaos is schedule
+    flip = lambda endpoint, body: body[::-1]  # noqa: E731
+    assert port_comm.HTTPClient("http://127.0.0.1:1", "c0", wire_filter=flip).wire_filter is flip
+    # A schedule of the JAX package is duck-typed the same way.
+    jax_schedule = JaxSchedule(JaxPlan(seed=1))
+    assert port_comm.HTTPServer(port=free_port(), chaos=jax_schedule)._chaos is jax_schedule
 
 
 def _one_plain_round(server_kwargs, client_kwargs):

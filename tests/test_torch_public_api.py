@@ -166,7 +166,6 @@ def test_training_progress_counts_like_jax(tmp_path):
 
 
 @pytest.mark.parametrize("keyword,value,item", [
-    ("chaos", object(), "item 17"),
     ("strict", True, "item 21"),
 ])
 def test_coordinator_refuses_the_jax_only_keywords_with_their_item(tmp_path, keyword, value,
@@ -180,6 +179,44 @@ def test_coordinator_refuses_the_jax_only_keywords_with_their_item(tmp_path, key
     Coordinator(model, data, config, device="cpu", **{keyword: default})  # the JAX default
     with pytest.raises(TypeError, match="unexpected keyword argument 'mesh_shapes'"):
         Coordinator(model, data, config, device="cpu", mesh_shapes=(1, 1))
+
+
+@pytest.mark.parametrize("participation,dropout", [(1.0, 0.0), (0.5, 0.25)])
+def test_coordinator_chaos_drops_planned_crashes_as_jax(tmp_path, participation, dropout):
+    """``chaos=`` (a ``faults.ChaosSchedule``): every sampled cohort loses the plan's
+    crashed clients after the dropout draw, the JAX coordinator's cohorts exactly."""
+    from nanofed_tpu.faults import ChaosSchedule as JaxSchedule
+    from nanofed_tpu.faults import FaultPlan as JaxPlan
+    from nanofed_tpu_torch.faults import ChaosSchedule, FaultPlan
+
+    assert "chaos" not in LATER_SLICE_KEYWORDS
+    kw = dict(seed=5, participation_rate=participation, dropout_rate=dropout,
+              save_metrics=False)
+    plan_args = (2, list(range(10)), 6)
+    plan = FaultPlan.generate(*plan_args, crash_fraction=0.3)
+    theirs = JaxCoordinator(
+        model=jax_get_model("linear", in_features=10, num_classes=2),
+        train_data=jax_federate(jax_synthetic(80, 2, (10,), seed=0), 10, batch_size=8),
+        config=JaxCoordinatorConfig(base_dir=tmp_path / "jax", **kw),
+        training=JaxTrainingConfig(batch_size=8, local_epochs=1),
+        chaos=JaxSchedule(JaxPlan.generate(*plan_args, crash_fraction=0.3)))
+    ours = Coordinator(
+        get_model("linear", in_features=10, num_classes=2),
+        federate(synthetic_classification(80, 2, (10,), seed=0), 10, batch_size=8),
+        CoordinatorConfig(base_dir=tmp_path / "torch", **kw), device="cpu",
+        chaos=ChaosSchedule(plan))
+    plain = Coordinator(
+        get_model("linear", in_features=10, num_classes=2),
+        federate(synthetic_classification(80, 2, (10,), seed=0), 10, batch_size=8),
+        CoordinatorConfig(base_dir=tmp_path / "plain", **kw), device="cpu")
+    crashes = {e.client: e.round for e in plan.events}
+    assert len(crashes) == 3
+    for round_id in range(6):
+        got = ours._sample_cohort(round_id)
+        np.testing.assert_array_equal(got, theirs._sample_cohort(round_id))
+        alive = [c for c in plain._sample_cohort(round_id)
+                 if crashes.get(int(c), round_id + 1) > round_id]
+        np.testing.assert_array_equal(got, alive)
 
 
 @pytest.mark.parametrize("kw,error", [
