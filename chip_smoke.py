@@ -226,8 +226,8 @@ Phases (any failure exits non-zero):
    (8 clients in chunks of 2, f32) on one rank and on 2 ranks over gloo, mesh (1, 2): bit
    for bit, each rank's model state between rounds half the one-rank state, each rank's
    peak memory; (w4) ``nanofed-tpu-torch run --distributed`` under ``python -m
-   torch.distributed.run --nproc_per_node 1`` (NCCL) and ``run --model-shards 2`` on one
-   rank (exit 2, the JAX validator's message); then B2's ``denom`` form at C = 250 and B1's
+   torch.distributed.run --nproc_per_node 1`` (NCCL; it times nothing, so it runs beside
+   the cross-check of part 4) and ``run --model-shards 2`` on one rank (exit 2, the JAX validator's message); then B2's ``denom`` form at C = 250 and B1's
    accumulate form and B3 at C = 2, P = 97,745,408 and 1,398,784 timed beside their plain
    versions, library calls and bounds.  Every rank's launches join the kernels line.
    Then the rest of the mesh and the host-local federation (phase (x)): (x1) SCAFFOLD
@@ -258,6 +258,26 @@ Phases (any failure exits non-zero):
    ranks, 6 rounds, blocks of 2, a rejoin): detection, recovery and start-up seconds,
    rounds lost, the parity gap, orphans; (y5) a short ``bench``.  Every rank's launches
    join the kernels line.
+   Then load and service (phase (z), ``nanofed_tpu_torch.loadgen`` and ``.service``):
+   (z1) ``run_loadtest_comparison`` at the JAX command line's defaults on the system
+   clock but 1,000 clients and a 5 s round timeout (``digits_mlp``, K = 64, ingest
+   capacity 1024, 4 decode workers, ``max_inflight`` 512, Poisson 2000/s), both serving
+   paths: no submit lost, every other one accepted or ended by the engine's end, p50 <=
+   p99 <= max, aggregations completed; (z2) the ingest path at full ``mnist_cnn`` width
+   (1,000 clients at 250/s, capacity 256: a 1.23 GB buffer on the card), the same
+   checks; (z3) ``run_tenant_service`` with the default three-tenant roster and the
+   storm on alpha (40 clients a tenant, 2 submits each, 3 rounds, system clock),
+   concurrent then sequential: bravo and charlie lose nothing, the storm counts only in
+   alpha's registry, every tenant's leases equal its device sections with device
+   seconds > 0, B1 once a completed charlie round; (z4) under an explicit 16 GiB budget
+   a ``mnist_cnn`` FedBuff tenant with a 4096-row ingest buffer (19.7 GB resident) is
+   refused with its numbers and nothing stays mounted; under the card's own budget it
+   is admitted beside a ``mnist_cnn`` sync FedAvg tenant (8 clients, 2 rounds, B1 once
+   a round at C = 8), both run and both are removed; (z5) ``nanofed-tpu-torch
+   loadtest`` and ``tenants`` through ``cli.main`` (exit 0, the artifacts parse), and
+   ``scripts/multihost_harness_torch.py federate`` on 2 gloo ranks sharing the card
+   (run beside the cross-check of part 4: it times nothing), every host's params within
+   1e-5 of the numpy replay of the drained rounds.
 4. Cross-check: 8-client f32 rounds of the port on the card and on the CPU from the
    same weights, permutations and injected noise: the plain round with dropout off
    and on (the masks are an integer hash, the same bits on both devices), the
@@ -267,7 +287,7 @@ Phases (any failure exits non-zero):
    SCAFFOLD rounds from zero controls (params within 1e-4, the controls within 1e-4
    over K * eta, the factor (x - y) / (K * eta) multiplies the params' error by);
    then (v6) a tiny transformer's adapter round (vocab 256, seq 32, width 64, depth 2,
-   rank 4) within 1e-4.
+   rank 4) within 1e-4.  Beside it run (w4)'s ``torchrun`` run and (z5)'s ``federate``.
 
 The last lines are the whole script's wall time, the kernels' JSON record, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -5290,16 +5310,15 @@ def phase_mesh(torch, ops, card: str, out_dir: Path, slice_runs: dict) -> dict[s
     (B2 on a rank's rows); (w3) two ranks over gloo, mesh (1, 2): the ``base``
     transformer's dense FedAdam round and its adapter round with the base sharded, each
     bit for bit one rank's run, each rank's model state and peak memory; two NCCL ranks
-    on one card refused; (w4) the command line under ``python -m
-    torch.distributed.run`` and ``--model-shards 2`` on one rank.  Returns the launch
-    counts of every rank's main paths and this process's."""
+    on one card refused; (w4) ``--model-shards 2`` on one rank (its ``torchrun`` run is
+    :func:`start_torchrun`'s).  Returns the launch counts of every rank's main paths and
+    this process's."""
     import contextlib
     import io
 
     import torch.distributed as dist
 
     from nanofed_tpu_torch import cli
-    from nanofed_tpu_torch.communication.transport import free_port
     from nanofed_tpu_torch.parallel.mesh import initialize_distributed
 
     t_phase = time.perf_counter()
@@ -5443,21 +5462,7 @@ def phase_mesh(torch, ops, card: str, out_dir: Path, slice_runs: dict) -> dict[s
         del got
     del refs
 
-    # (w4) the command line under torchrun (one rank over NCCL), then --model-shards 2
-    # on one rank.
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", "1",
-         "--master_port", str(free_port()), "-m", "nanofed_tpu_torch.cli", "run",
-         "--distributed", "--model", "mlp", "--clients", "8", "--rounds", "1", "--epochs",
-         "1", "--train-size", "480", "--batch-size", "20",
-         "--out-dir", str(base_dir / "w4")], capture_output=True, text=True, timeout=300)
-    if proc.returncode != 0:
-        fail(f"(w4) torchrun run --distributed exited {proc.returncode}: {proc.stderr[-2000:]}")
-    summary = json.loads(proc.stdout)
-    print(f"[{card}] (w4) torchrun --nproc_per_node 1 run --distributed (nccl): exit 0 in "
-          f"{time.perf_counter() - t0:.3f} s, rounds_completed={summary['rounds_completed']} "
-          f"params_device={summary['params_device']}")
+    # (w4) --model-shards 2 on one rank.
     err = io.StringIO()
     with contextlib.redirect_stderr(err):
         code = cli.main(["run", "--model-shards", "2", "--model", "mlp", "--clients", "8",
@@ -6289,6 +6294,18 @@ def start_harness(argv: list[str]) -> tuple[subprocess.Popen, float]:
     return proc, time.perf_counter()
 
 
+def atexit_stop(started: tuple[subprocess.Popen, float]):
+    """Register the stop of a started subprocess for the interpreter's exit (a failed
+    check exits through ``fail``); returns the callback, to unregister once read."""
+    import atexit
+
+    def stop() -> None:
+        stop_harness(started)
+
+    atexit.register(stop)
+    return stop
+
+
 def stop_harness(started: tuple[subprocess.Popen, float]) -> None:
     """Kill a started harness and every worker it spawned."""
     import os
@@ -6463,8 +6480,421 @@ def phase_chaos(torch, ops, card: str, out_dir: Path) -> dict[str, int]:
     return totals
 
 
+#: (z1): the JAX command line's ``loadtest`` defaults (``nanofed_tpu/cli.py``) on the system
+#: clock, but 1,000 clients and a 5 s round timeout.  At its 10,000 a one-process tier
+#: loses submits, the JAX package's as the port's on the same host (a submit whose
+#: stamped version leaves the window five times fails), and both paths took 259.6 s on
+#: the H100 machine, 120 s of it the engines waiting out aggregations no submit was left
+#: to fill (PERF.md §6, ROADMAP queue C).
+LOADTEST_DEFAULTS = dict(clients=1000, submits_per_client=1, model="digits_mlp",
+                         async_buffer_k=64, ingest_capacity=1024, decode_workers=4,
+                         max_inflight=512, arrival="poisson", arrival_rate=2000.0,
+                         round_timeout_s=5.0)
+#: (z2): the ingest path at full mnist_cnn width, a 256 x P buffer (1.23 GB).
+LOADTEST_FULL = dict(clients=1000, model="mnist_cnn", async_buffer_k=64, ingest_capacity=256,
+                     decode_workers=4, max_inflight=512, arrival="poisson", arrival_rate=250.0,
+                     round_timeout_s=5.0)
+#: (z3): the rounds of the JAX package's three-tenant leg
+#: (``tests/integration/test_tenant_service.py``).  A sync round keeps one update a client
+#: and drops what lands between its drain and the next publish, so at the command line's
+#: 4 rounds on the system clock charlie's last round can starve (PERF.md §7).
+TENANT_ROUNDS = 3
+TENANT_REFUSED_BUDGET = 16 * 2**30  # (z4): the budget the 19.7 GB tenant does not fit
+TENANT_FAT_CAPACITY = 4096  # (z4): ingest rows of the full-width FedBuff tenant
+FEDERATE_ARGS = ["--device", "cuda", "--model", "mnist_cnn", "--clients", "256",
+                 "--round-timeout-s", "1.5", "--round-quota", "32", "--ingest-capacity",
+                 "256", "--arrival-rate", "200", "--timeout", "300"]  # (z5)
+
+
+def check_loadtest(tag: str, rec: dict, clients: int) -> None:
+    """No submit lost outright; every logical submit ends accepted, duplicate or
+    terminated (the engine reached its target), and each landed one has a latency; the
+    latencies are ordered and finite; aggregations completed."""
+    lat = rec["submit_latency_s"]
+    landed = rec["accepted"] + rec["duplicates"]
+    ok = (rec["failed_submits"] == 0 and landed + rec["terminated_early"] == clients
+          and lat["count"] == landed > 0 and math.isfinite(lat["p99_s"])
+          and lat["p50_s"] <= lat["p99_s"] <= lat["max_s"]
+          and rec["aggregations_completed"] > 0)
+    if not ok:
+        fail(f"{tag} {rec['mode']}: {json.dumps(rec)[:2000]}")
+
+
+def loadtest_line(rec: dict) -> str:
+    lat = rec["submit_latency_s"]
+    pool = rec["decode_pool"]
+    return (f"{rec['mode']}: p50_s {lat['p50_s']} p99_s {lat['p99_s']} max_s {lat['max_s']}, "
+            f"rounds_per_sec {rec['rounds_per_sec']} ({rec['aggregations_completed']} of "
+            f"{rec['aggregations_target']} aggregations, coordinator_wall_s "
+            f"{rec['coordinator_wall_s']}, swarm_wall_s {rec['swarm_wall_s']}), aggregate "
+            f"span {rec['aggregate_span']}, 429s {rec['http_429_total']}, retries "
+            f"{rec['client_retries_total']}, stale refreshes {rec['stale_refreshes']}, "
+            f"accepted {rec['accepted']}, duplicates {rec['duplicates']}, lost outright "
+            f"{rec['failed_submits']}, terminated {rec['terminated_early']}, decode pool "
+            + ("none" if pool is None else f"{pool['workers']} workers busy_s "
+               f"{pool['busy_s']} utilization {pool['utilization']}"))
+
+
+def phase_loadtest(torch, ops, card: str, out_dir: Path) -> None:
+    """(z1) and (z2).  Predicted launches: none (the FedBuff and ingest drains are plain
+    products in both packages)."""
+    from nanofed_tpu_torch.loadgen import run_loadtest, run_loadtest_comparison
+
+    art, wall, _ = counted(torch, ops, card, "(z1) loadtest, both paths", lambda:
+                           run_loadtest_comparison(out_dir=out_dir / "z1",
+                                                   telemetry_dir=out_dir / "z1",
+                                                   device="cuda", **LOADTEST_DEFAULTS), {})
+    for rec in art["modes"].values():
+        print(f"[{card}] (z1) {loadtest_line(rec)}")
+        check_loadtest("(z1)", rec, LOADTEST_DEFAULTS["clients"])
+    print(f"[{card}] (z1) rounds/s ingest over per-submit "
+          f"{art.get('rounds_per_sec_ratio_ingest_over_per_submit')}; wall_s {wall:.1f}")
+    rec, wall, _ = counted(torch, ops, card, "(z2) ingest at mnist_cnn width", lambda:
+                           run_loadtest(mode="ingest", device="cuda", **LOADTEST_FULL), {})
+    print(f"[{card}] (z2) {loadtest_line(rec)}; ingest.device_bytes "
+          f"{rec['ingest']['device_bytes']} drains {rec['ingest']['drains']}; wall_s {wall:.1f}")
+    check_loadtest("(z2)", rec, LOADTEST_FULL["clients"])
+    want_bytes = LOADTEST_FULL["ingest_capacity"] * P_MNIST * 4
+    if rec["ingest"]["device_bytes"] != want_bytes:
+        fail(f"(z2) ingest.device_bytes {rec['ingest']['device_bytes']}, expected {want_bytes}")
+
+
+def phase_tenants(torch, ops, card: str, out_dir: Path) -> dict[str, int]:
+    """(z3): the default roster on the system clock, concurrent then sequential.  Each
+    device section is counted by (listener, tenant), so the concurrent run's and every
+    sequential run's sections meet their own scheduler's leases.  Predicted: B1
+    normalised once a completed charlie round (sync FedAvg on ``linear``), nothing
+    else."""
+    from nanofed_tpu_torch.communication import network_coordinator as nc
+    from nanofed_tpu_torch.models import get_model
+    from nanofed_tpu_torch.service import run_tenant_service
+
+    sections: dict[tuple[int, str], int] = {}
+    real = nc.NetworkCoordinator._device_section
+    combine = nc.fedavg_combine
+    cohorts: list[int] = []  # C of each sync round's B1
+
+    def counting(self):
+        key = (id(self.server.transport), self.server.tenant)
+        sections[key] = sections.get(key, 0) + 1
+        return real(self)
+
+    def recorded_combine(stacked, weights):
+        cohorts.append(int(weights.shape[0]))
+        return combine(stacked, weights)
+
+    nc.NetworkCoordinator._device_section = counting
+    nc.fedavg_combine = recorded_combine
+    try:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        art = run_tenant_service(virtual_clock=False, out_dir=out_dir / "z3",
+                                 telemetry_dir=out_dir / "z3", tag="z3", device="cuda",
+                                 rounds=TENANT_ROUNDS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        grew = ops.launch_counts()
+    finally:
+        nc.NetworkCoordinator._device_section = real
+        nc.fedavg_combine = combine
+    tenants = art["tenants"]
+    seq = art["sequential"]["per_tenant"]
+    for name, t in tenants.items():
+        st = art["scheduler"]["tenants"][name]
+        print(f"[{card}] (z3) {name} ({t['model']}, {t['algorithm']}): rounds "
+              f"{t['rounds_completed']}/{t['rounds_target']}, rounds_per_sec "
+              f"{t['rounds_per_sec']}, p50_s {t['submit_latency_s']['p50_s']} p99_s "
+              f"{t['submit_latency_s']['p99_s']}, accepted {t['accepted']} duplicates "
+              f"{t['duplicates']} failed {t['failed_submits']} 429s {t['http_429_total']} "
+              f"retries {t['retries']}, chaos {t['chaos_by_kind']}; leases {st['leases']} "
+              f"device_seconds {st['device_seconds']} wait_seconds {st['wait_seconds']} "
+              f"resident {st['resident_bytes']} peak {st['peak_extra_bytes']} "
+              f"({st['footprint_basis']}); sequential rounds "
+              f"{seq[name]['rounds_completed']} wall_s {seq[name]['wall_s']} leases "
+              f"{seq[name]['scheduler']['leases']} device_seconds "
+              f"{seq[name]['scheduler']['device_seconds']}")
+    print(f"[{card}] (z3) concurrent {art['concurrent']}, sequential wall_s "
+          f"{art['sequential']['wall_s']} aggregate_rounds_per_sec "
+          f"{art['sequential']['aggregate_rounds_per_sec']}, concurrent over sequential "
+          f"{art.get('concurrent_over_sequential')}; budget {art['scheduler']['hbm_budget_bytes']} "
+          f"({art['scheduler']['hbm_budget_basis']}); wall_s {wall:.1f}; launches {grew}")
+    if not (art["isolation"]["zero_rounds_lost"] and art["isolation"]["zero_failed_submits"]
+            and all(tenants[n]["rounds_completed"] == tenants[n]["rounds_target"]
+                    and tenants[n]["failed_submits"] == 0 for n in ("bravo", "charlie"))):
+        fail(f"(z3) isolation: {art['isolation']}")
+    if not (tenants["alpha"]["chaos_injected_total"] > 0
+            and tenants["bravo"]["chaos_injected_total"] == 0
+            and tenants["charlie"]["chaos_injected_total"] == 0):
+        fail("(z3) the storm's counters moved outside alpha's registry")
+    runs: list[dict[str, int]] = []  # by listener, in order of first use
+    listeners: dict[int, int] = {}
+    for (listener, name), n in sections.items():
+        runs_index = listeners.setdefault(listener, len(listeners))
+        if runs_index == len(runs):
+            runs.append({})
+        runs[runs_index][name] = n
+    leases = [{n: st["leases"] for n, st in art["scheduler"]["tenants"].items()}] + [
+        {n: seq[n]["scheduler"]["leases"]} for n in tenants]
+    seconds = [st["device_seconds"] for st in art["scheduler"]["tenants"].values()] + [
+        seq[n]["scheduler"]["device_seconds"] for n in tenants]
+    if runs != leases or min(seconds) <= 0:
+        fail(f"(z3) device sections {runs} against leases {leases}, device seconds {seconds}")
+    charlie = tenants["charlie"]["rounds_completed"] + seq["charlie"]["rounds_completed"]
+    want = {k: (charlie if k == "weighted_mean_flat" else 0) for k in grew}
+    if grew != want or len(cohorts) != charlie:
+        fail(f"(z3) kernel launches {grew}, expected {want}; B1 cohorts {cohorts}")
+    # B1 at charlie's shape, timed as the kernel table's rows are.
+    c = max(set(cohorts), key=cohorts.count)
+    p = sum(int(v.numel()) for v in get_model("linear").init(
+        torch.Generator().manual_seed(0)).values())
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    x = torch.randn(c, p, device="cuda", generator=gen)
+    w = torch.rand(c, device="cuda", generator=gen) + 0.5
+    err = check_close(torch, f"B1 at charlie's C={c}, P={p}", ops.weighted_mean_flat(x, w),
+                      ops.weighted_mean_flat_plain(x, w), **TOL)
+    ms = median_ms(lambda: ops.weighted_mean_flat(x, w), torch)
+    plain_ms = median_ms(lambda: ops.weighted_mean_flat_plain(x, w), torch)
+    lib_ms = median_ms(lambda: w @ x, torch)
+    b_ms, b_by = bound_ms(4 * c * p + 4 * c + 4 * p, 2 * c * p)
+    print(f"[{card}] (z3) B1 normalised at charlie's shape C={c}, P={p} (cohorts {cohorts}): "
+          f"launches {charlie}, bound_ms={b_ms:.6f} ({b_by}) ms={ms:.6f} plain_ms="
+          f"{plain_ms:.6f} library_ms={lib_ms:.6f} (w @ x) max_abs_err={err:.3e}")
+    return grew
+
+
+def phase_admission(torch, ops, card: str) -> dict[str, int]:
+    """(z4): the bin-pack refuses a 19.7 GB tenant under 16 GiB and admits it under the
+    card's ``total_memory`` beside a sync FedAvg tenant; both run, both are removed.
+    Predicted launches: B1 normalised once a sync round at C = 8 (2), nothing else."""
+    from nanofed_tpu_torch.communication.transport import free_port, tenant_base_url
+    from nanofed_tpu_torch.loadgen import SwarmConfig, run_swarm
+    from nanofed_tpu_torch.service import (
+        AdmissionError,
+        FederationService,
+        TenantQuota,
+        TenantSpec,
+    )
+
+    fat = TenantSpec(name="fat", model="mnist_cnn", algorithm="fedbuff", rounds=2,
+                     async_buffer_k=8, quota=TenantQuota(ingest_capacity=TENANT_FAT_CAPACITY))
+    sync = TenantSpec(name="sync", model="mnist_cnn", algorithm="fedavg", rounds=2,
+                      min_clients=8)
+    resident = (2 + TENANT_FAT_CAPACITY) * P_MNIST * 4
+
+    async def refused() -> str:
+        service = FederationService(port=free_port(), hbm_budget_bytes=TENANT_REFUSED_BUDGET,
+                                    device="cuda")
+        try:
+            service.add_tenant(fat)
+        except AdmissionError as e:
+            if service.tenants() or service.transport.tenants() or service.scheduler.admitted():
+                fail("(z4) a refused tenant stayed mounted")
+            return str(e)
+        fail("(z4) the 19.7 GB tenant was admitted under 16 GiB")
+
+    message = asyncio.run(refused())
+    print(f"[{card}] (z4) refused under {TENANT_REFUSED_BUDGET:,} B: {message}")
+    if f"resident {resident:,} B" not in message or f"{TENANT_REFUSED_BUDGET:,} B" not in message:
+        fail(f"(z4) the refusal does not carry the footprint's numbers: {message}")
+
+    async def admitted() -> tuple:
+        service = FederationService(port=free_port(), device="cuda")
+        sessions = {s.name: service.add_tenant(s) for s in (fat, sync)}
+        stats = service.scheduler.stats()
+        await service.start()
+        base = f"http://127.0.0.1:{service.transport.port}"
+        try:
+            run = asyncio.ensure_future(service.run())
+
+            async def sync_rounds() -> list:
+                out = []
+                for r in range(sync.rounds):  # one cohort of 8 a round
+                    while sessions["sync"].server.current_round < r:
+                        await asyncio.sleep(0.01)
+                    out.append(await run_swarm(
+                        tenant_base_url(base, "sync"), sessions["sync"].params,
+                        SwarmConfig(num_clients=8, arrival="burst", seed=10 + r,
+                                    client_prefix=f"s{r}"),
+                        registry=sessions["sync"].registry))
+                return out
+
+            swarms = await asyncio.gather(
+                run_swarm(tenant_base_url(base, "fat"), sessions["fat"].params,
+                          SwarmConfig(num_clients=2 * fat.async_buffer_k, arrival="burst",
+                                      seed=1, client_prefix="f"),
+                          registry=sessions["fat"].registry),
+                sync_rounds())
+            summaries = await asyncio.wait_for(run, 600)
+            ingest_bytes = sessions["fat"].server.ingest_pipeline.buffer.device_bytes
+            peak = torch.cuda.max_memory_allocated()
+            after = service.scheduler.stats()
+        finally:
+            for name in ("fat", "sync"):
+                service.remove_tenant(name)
+            await service.stop()
+        left = (service.tenants(), service.transport.tenants(), service.scheduler.admitted())
+        return stats, summaries, swarms, ingest_bytes, peak, after, left
+
+    torch.cuda.reset_peak_memory_stats()
+    (stats, summaries, swarms, ingest_bytes, peak, after, left), wall, grew = counted(
+        torch, ops, card, "(z4) admitted beside a sync tenant", lambda: asyncio.run(admitted()),
+        {"weighted_mean_flat": sync.rounds})
+    print(f"[{card}] (z4) admitted under {stats['hbm_budget_bytes']} B "
+          f"({stats['hbm_budget_basis']})")
+    for name, st in stats["tenants"].items():
+        k = fat.async_buffer_k if name == "fat" else sync.min_clients
+        print(f"[{card}] (z4) {name}: resident {st['resident_bytes']:,} B, peak measured "
+              f"{st['peak_extra_bytes']:,} B against the analytic (K+2)*P*4 "
+              f"{(k + 2) * P_MNIST * 4:,} B (K = {k}; {st['footprint_basis']}); "
+              f"cost_hint_s {st['cost_hint_s']}; leases {after['tenants'][name]['leases']} "
+              f"device_seconds {after['tenants'][name]['device_seconds']}; rounds "
+              f"{summaries[name]['rounds_completed']}/{summaries[name]['rounds_target']}")
+    fat_swarm, sync_swarms = swarms
+    failed = fat_swarm.failed + sum(r.failed for r in sync_swarms)
+    print(f"[{card}] (z4) fat ingest buffer {ingest_bytes:,} B on the card, process peak "
+          f"{peak:,} B; swarms failed {failed}; wall_s {wall:.1f}; left mounted {left}")
+    if any(summaries[n]["rounds_completed"] != 2 for n in ("fat", "sync")) or failed \
+            or ingest_bytes != TENANT_FAT_CAPACITY * P_MNIST * 4 or any(left) \
+            or "total_memory" not in stats["hbm_budget_basis"] \
+            or any("max_memory_allocated" not in st["footprint_basis"]
+                   for st in stats["tenants"].values()):
+        fail(f"(z4) admitted run: {summaries}, stats {stats}")
+    return grew
+
+
+def start_beside(card: str, out_dir: Path) -> list[tuple]:
+    """(w4)'s ``torchrun`` run and (z5)'s ``federate`` started: each checks an entry point
+    and times nothing, so both run beside the cross-check of part 4, which times nothing
+    either.  Each is stopped at the interpreter's exit unless read."""
+    from nanofed_tpu_torch.communication.transport import free_port
+
+    torchrun = (subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", "1",
+         "--master_port", str(free_port()), "-m", "nanofed_tpu_torch.cli", "run",
+         "--distributed", "--model", "mlp", "--clients", "8", "--rounds", "1", "--epochs",
+         "1", "--train-size", "480", "--batch-size", "20", "--out-dir", str(out_dir / "w4")],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, start_new_session=True),
+        time.perf_counter())
+    federate = start_harness(["federate", *FEDERATE_ARGS, "--tmp-dir", str(out_dir / "fed"),
+                              "--out-dir", str(out_dir / "fed_out")])
+    print(f"[{card}] (w4) torchrun and (z5) federate started beside the cross-check")
+    return [(started, atexit_stop(started)) for started in (torchrun, federate)]
+
+
+def finish_torchrun(card: str, started: tuple, stop) -> None:
+    """(w4): ``nanofed-tpu-torch run --distributed`` under ``torchrun`` (one rank over
+    NCCL) exits 0 with its rounds on the card."""
+    import atexit
+
+    proc, t0 = started
+    try:
+        stdout, stderr = proc.communicate(timeout=300)
+    except subprocess.TimeoutExpired:
+        fail("(w4) torchrun run --distributed ran past 300 s")
+    atexit.unregister(stop)
+    if proc.returncode != 0:
+        fail(f"(w4) torchrun run --distributed exited {proc.returncode}: {stderr[-2000:]}")
+    summary = json.loads(stdout)
+    print(f"[{card}] (w4) torchrun --nproc_per_node 1 run --distributed (nccl), beside the "
+          f"cross-check: exit 0 {time.perf_counter() - t0:.3f} s after its start, "
+          f"rounds_completed={summary['rounds_completed']} "
+          f"params_device={summary['params_device']}")
+    if summary["rounds_completed"] != 1 or "cuda" not in summary["params_device"]:
+        fail(f"(w4) torchrun run --distributed summary {summary}")
+
+
+def finish_federate(card: str, started: tuple, stop) -> None:
+    """(z5): ``scripts/multihost_harness_torch.py federate`` on 2 gloo ranks sharing the
+    card, every host's params within 1e-5 of the numpy replay of the drained rounds,
+    nothing lost, no orphans."""
+    import atexit
+
+    record = harness_json(finish_harness(card, "(z5) federate", started, 600))
+    atexit.unregister(stop)
+    oracle = record["oracle"]
+    print(f"[{card}] (z5) federate 2 gloo ranks on the card: oracle gaps "
+          f"{oracle['max_abs_gap_by_host']} (tolerance {oracle['tolerance']}), hosts "
+          f"bit-equal {oracle['hosts_bit_equal']}; rounds {record['rounds']}; wire "
+          f"{record['wire']}; walltime_s {record['walltime_s']}")
+    if not (max(oracle["max_abs_gap_by_host"]) <= 1e-5 and oracle["hosts_bit_equal"]
+            and record["zero_lost_submits"] and record["platform"] == "gpu"
+            and not record["orphans"]):
+        fail(f"(z5) federate record {json.dumps(record)[:3000]}")
+
+
+def phase_service_cli(torch, ops, card: str, out_dir: Path) -> dict[str, int]:
+    """(z5): ``loadtest`` and ``tenants`` through ``cli.main`` at small sizes (no B1:
+    the two tenants are FedBuff); its ``federate`` run is :func:`start_beside`'s."""
+    import contextlib
+    import io
+
+    from nanofed_tpu_torch import cli
+    from nanofed_tpu_torch.observability.telemetry import summarize_telemetry
+
+    d = out_dir / "z5"
+
+    def run_cli():
+        with contextlib.redirect_stdout(io.StringIO()):
+            lt = cli.main(["loadtest", "--device", "cuda", "--clients", "200",
+                           "--async-buffer", "25", "--rate", "5000", "--max-inflight", "128",
+                           "--ingest-capacity", "128", "--virtual-clock",
+                           "--out-dir", str(d), "--telemetry-dir", str(d)])
+            tn = cli.main(["tenants", "--device", "cuda", "--tenants", "2", "--rounds", "2",
+                           "--clients", "24", "--virtual-clock", "--no-sequential",
+                           "--tag", "z5", "--out-dir", str(d), "--telemetry-dir", str(d)])
+        return lt, tn
+
+    (lt, tn), wall, grew = counted(torch, ops, card, "(z5) cli loadtest and tenants",
+                                   run_cli, {})
+    loadtest = json.loads(sorted(d.glob("loadtest_*.json"))[-1].read_text())
+    tenants = json.loads((d / "tenants_z5.json").read_text())
+    digest = summarize_telemetry(d / "telemetry.jsonl")
+    print(f"[{card}] (z5) loadtest exit {lt}: "
+          + "; ".join(loadtest_line(r) for r in loadtest["modes"].values())
+          + f"; tenants exit {tn}: isolation {tenants['isolation']}; metrics-summary "
+          f"loadtests {sorted(digest['loadtests'])} tenants {sorted(digest['tenants'])}")
+    if (lt, tn) != (0, 0) or sorted(digest["loadtests"]) != ["ingest", "per-submit"] \
+            or sorted(digest["tenants"]) != ["alpha", "bravo"]:
+        fail(f"(z5) cli exits {(lt, tn)}, digest {digest}")
+    return grew
+
+
+def phase_service(torch, ops, card: str, out_dir: Path) -> dict[str, int]:
+    """(z): load and service.  Returns the launches of (z1)-(z5)."""
+    import logging
+
+    from nanofed_tpu_torch.utils.logger import LogConfig, Logger
+
+    Logger().configure(LogConfig(level=logging.WARNING))  # no line a submit
+    t_phase = time.perf_counter()
+    base = out_dir / "z_service"
+    base.mkdir(parents=True, exist_ok=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    totals: dict[str, int] = dict.fromkeys(ops.launch_counts(), 0)
+    phase_loadtest(torch, ops, card, base)
+    t1 = time.perf_counter()
+    add_launches(totals, phase_tenants(torch, ops, card, base))
+    t2 = time.perf_counter()
+    add_launches(totals, phase_admission(torch, ops, card))
+    gc.collect()
+    torch.cuda.empty_cache()
+    t3 = time.perf_counter()
+    add_launches(totals, phase_service_cli(torch, ops, card, base))
+    print(f"[{card}] (z) wall_s={time.perf_counter() - t_phase:.1f} ((z1)-(z2) "
+          f"{t1 - t_phase:.1f}, (z3) {t2 - t1:.1f}, (z4) {t3 - t2:.1f}, (z5) "
+          f"{time.perf_counter() - t3:.1f}); launches {totals}")
+    return totals
+
+
 def main() -> None:
     t_script = time.perf_counter()
+    last = [t_script]
+
+    def mark(label: str) -> None:
+        now = time.perf_counter()
+        print(f"chip_smoke: {label} done at {now - t_script:.1f} s ({now - last[0]:.1f} s)")
+        last[0] = now
     import torch
 
     if not torch.cuda.is_available():
@@ -6497,38 +6927,66 @@ def main() -> None:
                 print(f"  {name}: {line.strip()}")
 
     records = phase_kernels(torch, ops, card)
+    mark("phase_kernels")
     records.update(phase_quantize(torch, ops, card))
+    mark("phase_quantize")
     records["dequant_accumulate_flat"] = phase_dequant(torch, ops, card)
+    mark("phase_dequant")
     with tempfile.TemporaryDirectory(dir=Path(__file__).resolve().parent / "runs") as tmp:
         slice_runs: dict = {}
         counts = phase_slice(torch, ops, run_experiment, card, Path(tmp), slice_runs)
+        mark("phase_slice")
         secure_counts = phase_secure(torch, ops, card)
+        mark("phase_secure")
         tuned_counts = phase_autotune(torch, ops, run_experiment, card, Path(tmp))
+        mark("phase_autotune")
         resume_counts = phase_resume(torch, ops, run_experiment, card, Path(tmp))
+        mark("phase_resume")
         network_resume_counts = phase_network_resume(torch, ops, card, Path(tmp))
+        mark("phase_network_resume")
         dp_counts = phase_dp(torch, ops, card, Path(tmp))
+        mark("phase_dp")
         scaffold_counts, scaffold_params, population = phase_scaffold(
             torch, ops, run_experiment, card, Path(tmp))
+        mark("phase_scaffold")
         phase_trainer(torch, ops, card, Path(tmp), scaffold_params, population)
+        mark("phase_trainer")
         del scaffold_params, population
         fused_counts = phase_fused(torch, ops, card, Path(tmp))
+        mark("phase_fused")
         cifar_counts = phase_cifar(torch, ops, card, Path(tmp))
+        mark("phase_cifar")
         obs_counts = phase_observability(torch, ops, card, Path(tmp))
+        mark("phase_observability")
         lm_counts = phase_transformer(torch, ops, card, Path(tmp))
+        mark("phase_transformer")
         mesh_counts = phase_mesh(torch, ops, card, Path(tmp), slice_runs)
+        mark("phase_mesh")
         rest_counts = phase_mesh_rest(torch, ops, card, Path(tmp))
+        mark("phase_mesh_rest")
         chaos_counts = phase_chaos(torch, ops, card, Path(tmp))
+        mark("phase_chaos")
+        service_counts = phase_service(torch, ops, card, Path(tmp))
+        mark("phase_service")
     wire_counts = phase_wire(torch, ops, card)
+    mark("phase_wire")
     counts = {k: counts[k] + secure_counts[k] + tuned_counts[k] + resume_counts[k]
               + network_resume_counts[k] + dp_counts[k] + scaffold_counts[k]
               + fused_counts[k] + cifar_counts[k] + obs_counts[k] + lm_counts[k]
-              + mesh_counts[k] + rest_counts[k] + chaos_counts[k] + wire_counts.get(k, 0)
+              + mesh_counts[k] + rest_counts[k] + chaos_counts[k]
+              + service_counts.get(k, 0) + wire_counts.get(k, 0)
               for k in counts}
     print(f"kernels: {json.dumps(counts)}")
     missing = [k for k, v in counts.items() if v == 0]
     if missing:
         fail(f"kernels never launched on the main paths: {missing}")
-    phase_cross_check(torch, ops, card)
+    with tempfile.TemporaryDirectory(dir=Path(__file__).resolve().parent / "runs") as tmp:
+        beside = start_beside(card, Path(tmp))
+        phase_cross_check(torch, ops, card)
+        mark("phase_cross_check")
+        finish_torchrun(card, *beside[0])
+        finish_federate(card, *beside[1])
+        mark("(w4) and (z5) federate read")
 
     if any(m == "jax" or m.startswith(("jax.", "nanofed_tpu.")) or m == "nanofed_tpu"
            for m in sys.modules):

@@ -4,11 +4,15 @@ installed as ``nanofed-tpu-torch``; ``python -m nanofed_tpu_torch.cli`` runs the
 ``run`` drives a simulated federated experiment (``--dp-epsilon`` engages
 budget-calibrated central DP), ``bench`` runs the BASELINE.json suite, ``profile``
 profiles the round programs without running a federation (``--sweep``: the autotune
-sweep), ``serve`` hosts the network-mode federation server, ``metrics-summary``
+sweep), ``serve`` hosts the network-mode federation server, ``loadtest`` drives a
+synthetic client swarm against an in-process server (exit 1 when a submit was lost
+outright), ``tenants`` runs the multi-tenant service drill (exit 1 when an untargeted
+tenant lost rounds or submits), ``metrics-summary``
 digests a run's ``telemetry.jsonl``, ``trace`` merges per-host telemetry streams into
 one timeline, and ``info`` prints the environment and the model zoo.  ``--telemetry-dir``
-on ``run``, ``profile`` and ``serve`` says where the telemetry goes.  ``run``, ``bench``, ``profile`` and ``serve`` run on
-``--device`` (default ``cuda``: without a card they raise unless given
+on ``run``, ``profile``, ``serve``, ``loadtest`` and ``tenants`` says where the
+telemetry goes.  ``run``, ``bench``, ``profile``, ``serve``, ``loadtest`` and
+``tenants`` run on ``--device`` (default ``cuda``: without a card they raise unless given
 ``--device cpu``).  ``run --distributed`` joins the world ``torchrun`` starts, and
 ``--model-shards``/``--hosts`` lay the world's ranks out as a mesh
 (``parallel.mesh``).
@@ -32,8 +36,6 @@ from typing import Any
 # Subcommands of later slices: name -> (help, ROADMAP queue A item).
 LATER_SUBCOMMANDS: dict[str, tuple[str, str]] = {
     "audit": ("audit the round programs", "item 21 (analysis)"),
-    "loadtest": ("synthetic client swarm load harness", "item 18 (load and service)"),
-    "tenants": ("multi-tenant federation service drill", "item 18 (load and service)"),
 }
 
 # Flags of later slices, by subcommand: dest -> (flag, type, JAX default, item).
@@ -42,9 +44,7 @@ LATER_SLICE_FLAGS: dict[str, dict[str, tuple[str, type, Any, str]]] = {
         "strict": ("--strict", bool, False, "item 21 (analysis)"),
     },
     "profile": {},
-    "serve": {
-        "max_inflight": ("--max-inflight", int, None, "item 18 (load and service)"),
-    },
+    "serve": {},
 }
 
 
@@ -490,7 +490,7 @@ def _cmd_serve(args: argparse.Namespace) -> int:
 
     async def serve() -> list[dict]:
         server = HTTPServer(host=args.host, port=args.port, ingest=ingest, device=device,
-                            chaos=chaos)
+                            chaos=chaos, max_inflight=args.max_inflight)
         await server.start()
         try:
             coordinator = NetworkCoordinator(
@@ -531,6 +531,63 @@ def _cmd_serve(args: argparse.Namespace) -> int:
         return 1
     print(json.dumps(history, indent=2, default=str))
     return 0 if all(h["status"] == "COMPLETED" for h in history) else 1
+
+
+def _cmd_loadtest(args: argparse.Namespace) -> int:
+    """Run the synthetic client swarm against one or both serving paths and print the
+    artifact (also written under --out-dir).  Exit 1 when a submit was lost outright
+    (not shed: 429s are retried) or none landed: a failed measurement."""
+    from nanofed_tpu_torch.core.device import resolve_device
+    from nanofed_tpu_torch.loadgen import run_loadtest_comparison
+
+    device = resolve_device(args.device)
+    modes = ("per-submit", "ingest") if args.mode == "both" else (args.mode,)
+    artifact = run_loadtest_comparison(
+        modes=modes, out_dir=args.out_dir, telemetry_dir=args.telemetry_dir,
+        clients=args.clients, submits_per_client=args.submits_per_client,
+        model=args.model, async_buffer_k=args.async_buffer,
+        aggregations=args.aggregations, ingest_capacity=args.ingest_capacity,
+        decode_workers=args.decode_workers, max_inflight=args.max_inflight,
+        arrival=args.arrival, arrival_rate=args.rate, weight_skew=args.weight_skew,
+        staleness_window=args.staleness_window, round_timeout_s=args.timeout,
+        virtual_clock=args.virtual_clock, seed=args.seed, adapter_rank=args.adapter_rank,
+        device=device,
+    )
+    print(json.dumps(artifact, indent=2))
+    ok = all(rec.get("failed_submits", 0) == 0 and rec["submit_latency_s"]["count"] > 0
+             for rec in artifact["modes"].values())
+    return 0 if ok else 1
+
+
+def _cmd_tenants(args: argparse.Namespace) -> int:
+    """Run the multi-tenant service drill and print the artifact (also written under
+    --out-dir).  Exit 1 when an untargeted tenant lost rounds or submits: the
+    isolation claim is the exit code."""
+    from nanofed_tpu_torch.core.device import resolve_device
+    from nanofed_tpu_torch.service import run_tenant_service
+
+    device = resolve_device(args.device)
+    chaos: bool | str | None
+    if args.chaos_tenant == "none":
+        chaos = None
+    elif args.chaos_tenant == "first":
+        chaos = True
+    else:
+        chaos = args.chaos_tenant
+    artifact = run_tenant_service(
+        tenants=args.tenants, rounds=args.rounds, clients_per_tenant=args.clients,
+        submits_per_client=args.submits_per_client, async_buffer_k=args.async_buffer,
+        arrival=args.arrival, arrival_rate=args.rate, chaos_tenant=chaos,
+        chaos_seed=args.chaos_seed, virtual_clock=args.virtual_clock,
+        sequential_baseline=not args.no_sequential,
+        hbm_budget_bytes=int(args.hbm_budget) if args.hbm_budget is not None else None,
+        seed=args.seed, out_dir=args.out_dir, telemetry_dir=args.telemetry_dir,
+        tag=args.tag, device=device,
+    )
+    print(json.dumps(artifact, indent=2))
+    ok = artifact["isolation"]["zero_rounds_lost"] and \
+        artifact["isolation"]["zero_failed_submits"]
+    return 0 if ok else 1
 
 
 def _cmd_chaos_plan(args: argparse.Namespace) -> int:
@@ -795,6 +852,10 @@ def build_parser() -> argparse.ArgumentParser:
                        help="with --ingest-batch: buffer rows (default 1024)")
     serve.add_argument("--decode-workers", type=int, default=None, metavar="N",
                        help="with --ingest-batch: decode pool size (default 4)")
+    serve.add_argument("--max-inflight", type=int, default=None, metavar="N",
+                       help="admission control: at most N update bodies in the read and "
+                       "decode pipeline; excess submits get an immediate 429 + "
+                       "Retry-After. Default: unbounded")
     serve.add_argument("--evict-stragglers", type=int, default=0, metavar="K",
                        help="evict a client after K consecutive missed rounds; 0 = never")
     serve.add_argument("--state-dir", default=None, metavar="DIR",
@@ -911,6 +972,84 @@ def build_parser() -> argparse.ArgumentParser:
     chaos_plan.add_argument("--out", default=None, metavar="PLAN.json",
                             help="write the plan here instead of printing it")
 
+    loadtest = sub.add_parser(
+        "loadtest",
+        help="synthetic client swarm load harness (nanofed_tpu_torch.loadgen): drive N "
+        "concurrent submits against an in-process federation server and record p50/p99 "
+        "submit latency, rounds/s and 429/retry counts as a runs/loadtest_*.json "
+        "artifact")
+    loadtest.add_argument("--clients", type=int, default=10_000)
+    loadtest.add_argument("--submits-per-client", type=int, default=1)
+    loadtest.add_argument("--mode", default="both", choices=["per-submit", "ingest", "both"],
+                          help="serving path under test; 'both' runs the per-submit and "
+                          "ingest paths on identical traffic and records the rounds/s ratio")
+    loadtest.add_argument("--model", default="digits_mlp")
+    loadtest.add_argument("--adapter-rank", type=int, default=None, metavar="R",
+                          help="federate the rank-R LoRA adapter tree: model fetches, "
+                          "canned payloads and the aggregation; the artifact records the "
+                          "measured full-vs-adapter payload bytes")
+    loadtest.add_argument("--async-buffer", type=int, default=64, metavar="K",
+                          help="FedBuff aggregation size K (aggregations fire on buffer "
+                          "fill)")
+    loadtest.add_argument("--aggregations", type=int, default=None,
+                          help="aggregations to run (default: total submits // K)")
+    loadtest.add_argument("--ingest-capacity", type=int, default=1024)
+    loadtest.add_argument("--decode-workers", type=int, default=4)
+    loadtest.add_argument("--max-inflight", type=int, default=512)
+    loadtest.add_argument("--arrival", default="poisson",
+                          choices=["poisson", "uniform", "burst"])
+    loadtest.add_argument("--rate", type=float, default=2000.0,
+                          help="mean arrival rate, submits/s (poisson and uniform)")
+    loadtest.add_argument("--weight-skew", type=float, default=0.0,
+                          help="lognormal sigma over reported num_samples (0: homogeneous)")
+    loadtest.add_argument("--staleness-window", type=int, default=4)
+    loadtest.add_argument("--timeout", type=float, default=120.0,
+                          help="per-aggregation round timeout (seconds)")
+    loadtest.add_argument("--virtual-clock", action="store_true",
+                          help="run arrivals and backoffs on a VirtualClock "
+                          "(deterministic, seconds of real time)")
+    loadtest.add_argument("--seed", type=int, default=0)
+    loadtest.add_argument("--out-dir", default="runs")
+    _add_telemetry_dir(loadtest, "also append per-mode 'loadtest' telemetry records here "
+                       "(read back with metrics-summary)")
+    _add_device(loadtest)
+
+    tenants = sub.add_parser(
+        "tenants",
+        help="multi-tenant federation service drill (nanofed_tpu_torch.service): N "
+        "tenant jobs over one card behind one listener, a swarm a tenant, a chaos storm "
+        "on one tenant; aggregate rounds/s against sequential, each tenant's p99 and the "
+        "isolation proof as a runs/tenants_*.json artifact")
+    tenants.add_argument("--tenants", type=int, default=3,
+                         help="concurrent tenant jobs (the default roster cycles)")
+    tenants.add_argument("--rounds", type=int, default=4,
+                         help="aggregations (fedbuff) or rounds (fedavg) a tenant")
+    tenants.add_argument("--clients", type=int, default=40, help="swarm clients a tenant")
+    tenants.add_argument("--submits-per-client", type=int, default=2)
+    tenants.add_argument("--async-buffer", type=int, default=16, metavar="K")
+    tenants.add_argument("--arrival", default="poisson",
+                         choices=["poisson", "uniform", "burst"])
+    tenants.add_argument("--rate", type=float, default=500.0,
+                         help="mean arrival rate, submits/s a tenant")
+    tenants.add_argument("--chaos-tenant", default="first",
+                         help="the storm's tenant: a name, 'first' (default) or 'none'")
+    tenants.add_argument("--chaos-seed", type=int, default=7)
+    tenants.add_argument("--no-sequential", action="store_true",
+                         help="skip the one-tenant-at-a-time baseline runs")
+    tenants.add_argument("--virtual-clock", action="store_true",
+                         help="run arrivals, backoffs and timeouts on a VirtualClock")
+    tenants.add_argument("--hbm-budget", type=float, default=None, metavar="BYTES",
+                         help="device memory budget of the admission bin-pack (default: "
+                         "NANOFED_AUTOTUNE_HBM_BUDGET, else the card's total_memory, else "
+                         "unbounded on the CPU)")
+    tenants.add_argument("--seed", type=int, default=0)
+    tenants.add_argument("--tag", default=None,
+                         help="artifact name suffix (default: UTC stamp)")
+    tenants.add_argument("--out-dir", default="runs")
+    _add_telemetry_dir(tenants, "also append one 'tenant' telemetry record a tenant here "
+                       "(read back with metrics-summary)")
+    _add_device(tenants)
+
     for name, (text, item) in LATER_SUBCOMMANDS.items():
         sub.add_parser(name, help=f"{text} (not in nanofed_tpu_torch yet: ROADMAP queue "
                        f"A {item})")
@@ -919,6 +1058,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 COMMANDS = {"info": _cmd_info, "run": _cmd_run, "bench": _cmd_bench,
             "profile": _cmd_profile, "serve": _cmd_serve, "chaos-plan": _cmd_chaos_plan,
+            "loadtest": _cmd_loadtest, "tenants": _cmd_tenants,
             "metrics-summary": _cmd_metrics_summary, "trace": _cmd_trace}
 
 

@@ -37,7 +37,15 @@ The update pipeline is the JAX package's:
 * ``chaos=`` (a ``faults.ChaosSchedule``) faults the update endpoint only: ``drop``
   severs the connection before the handler runs, ``ack_drop`` runs the handler (the
   update IS buffered) and severs it before the response, ``delay`` holds the request
-  for its seconds on ``clock`` (default: the system clock).
+  for its seconds on ``clock`` (default: the system clock);
+* ``max_inflight=N`` is admission control: at most N submits (plain and masked) in the
+  read and decode pipeline; past it a submit is answered 429 + ``Retry-After:
+  retry_after_s`` with its body unread (0 rejects every submit).  A full ingest buffer
+  answers the same 429;
+* ``transport=`` and ``tenant=`` mount the session on a shared ``HTTPTransport`` under
+  ``/t/<tenant>`` (the multi-tenant service): the transport's lifecycle governs, so
+  such a session is never started itself, and its admission, dedup window, chaos and
+  metrics stay its own.
 
 Wire metrics (``registry=``, default the process-wide registry) carry the JAX
 package's families: body bytes received and sent by endpoint, update submissions by
@@ -48,7 +56,8 @@ families are registered and stay at 0 until the fleet slice).  A submit's
 trace id.
 
 The server options of later slices raise ``NotImplementedError`` naming their item
-(:data:`LATER_SLICE_OPTIONS`).  ``aiohttp`` is needed to build a server, not to
+(:data:`LATER_SLICE_OPTIONS`), and the fleet's ``X-NanoFed-Tier`` header is ignored
+until that slice.  ``aiohttp`` is needed to build a server, not to
 import this module.
 """
 
@@ -107,14 +116,11 @@ HEADER_SECAGG = "X-NanoFed-SecAgg"  # "masked" flags a pairwise-masked uint32 pa
 HEADER_ENCODING = "X-NanoFed-Encoding"  # absent/"npz" = full params; or q8/topk8 delta
 HEADER_SUBMIT = "X-NanoFed-Submit"  # idempotency key: one per LOGICAL submit
 HEADER_TRACE = "X-NanoFed-Trace"  # W3C-style trace context: 00-<trace>-<span>-<flags>
+HEADER_TIER = "X-NanoFed-Tier"  # fleet tier of a submit (read by the fleet slice)
 
 #: Server options of later slices, with the JAX defaults (accepted).  Any other value
 #: raises NotImplementedError naming the slice.
 LATER_SLICE_OPTIONS: dict[str, tuple[Any, str]] = {
-    "max_inflight": (None, "admission control (service slice, queue A item 18)"),
-    "retry_after_s": (0.25, "admission control (service slice, queue A item 18)"),
-    "transport": (None, "shared multi-tenant transports (service slice, queue A item 18)"),
-    "tenant": (None, "shared multi-tenant transports (service slice, queue A item 18)"),
     "fleet": (None, "heterogeneous fleets (fleet slice, queue A item 16b)"),
 }
 
@@ -183,6 +189,10 @@ class HTTPServer:
         tracer: Any | None = None,
         chaos: Any | None = None,
         clock: Clock | None = None,
+        max_inflight: int | None = None,
+        retry_after_s: float = 0.25,
+        transport: HTTPTransport | None = None,
+        tenant: str | None = None,
         **later_slice_options: Any,
     ) -> None:
         """``client_keys`` maps client id -> PEM public key; with
@@ -198,11 +208,24 @@ class HTTPServer:
         ``SpanTracer``) opens a ``submit-decode`` span around each admitted submit's
         decode, tagged with its trace id (None records nothing).  ``chaos`` (a
         ``faults.ChaosSchedule``) applies the plan's wire faults to the update
-        endpoint; ``clock`` is the time source of their delays."""
+        endpoint; ``clock`` is the time source of their delays.  ``max_inflight`` bounds
+        the submits in the read and decode pipeline (None: no bound); the excess, and a
+        submit to a full ingest buffer, get 429 + ``Retry-After: retry_after_s``.
+        ``transport`` mounts this session on a shared transport under ``tenant``; then
+        ``host``, ``port`` and ``max_request_size`` are the transport's and
+        :meth:`start` refuses (the service starts the transport once)."""
         refuse_later_slice_options("HTTPServer", later_slice_options, LATER_SLICE_OPTIONS)
         require_aiohttp()
         if staleness_window < 0:
             raise ValueError("staleness_window must be >= 0")
+        if max_inflight is not None and max_inflight < 0:
+            raise ValueError("max_inflight must be >= 0 (0 rejects every submit)")
+        if transport is None and tenant is not None:
+            # A tenant name on a private transport would mount as its default session:
+            # /t/<name> requests would 404 while the name looks configured.
+            raise ValueError(
+                f"tenant={tenant!r} requires a shared transport= to mount under; a "
+                "standalone server is the anonymous default session")
         if read_timeout_s <= 0:
             raise ValueError("read_timeout_s must be > 0")
         self.host = host
@@ -212,6 +235,9 @@ class HTTPServer:
         self.require_signatures = require_signatures
         self.staleness_window = staleness_window
         self.read_timeout_s = read_timeout_s
+        self.max_inflight = max_inflight
+        self.retry_after_s = retry_after_s
+        self._inflight = 0  # submits in the read and decode pipeline
         self._chaos = chaos
         self._clock = clock or SYSTEM_CLOCK
         self.ingest = ingest
@@ -308,10 +334,14 @@ class HTTPServer:
             ("POST", ep.secagg_unmask): self._handle_unmask_post,
             ("GET", ep.metrics): self._handle_metrics,
         }
-        self.transport = HTTPTransport(host=host, port=port,
-                                       max_request_size=max_request_size,
-                                       registry=self.metrics_registry)
-        self.transport.add_session(self)
+        self.tenant = tenant
+        self._owns_transport = transport is None
+        if transport is None:
+            transport = HTTPTransport(host=host, port=port,
+                                      max_request_size=max_request_size,
+                                      registry=self.metrics_registry)
+        transport.add_session(self, tenant=tenant)
+        self.transport = transport
 
     # ------------------------------------------------------------------
     # Round-engine API
@@ -334,8 +364,9 @@ class HTTPServer:
                 if self._ingest_pipeline is None:
                     from nanofed_tpu_torch.ingest import IngestPipeline
 
-                    self._ingest_pipeline = IngestPipeline(host, self.ingest,
-                                                           device=self._ingest_device)
+                    self._ingest_pipeline = IngestPipeline(
+                        host, self.ingest, registry=self.metrics_registry,
+                        device=self._ingest_device)
                 # The flat base window follows the same pruning rule as the version
                 # window below, so acceptance and reconstruction cannot disagree.
                 self._ingest_pipeline.note_version(round_number, host,
@@ -716,11 +747,15 @@ class HTTPServer:
             headers={HEADER_STATUS: "training", HEADER_ROUND: str(self._round)},
         )
 
-    def _ingest_full(self) -> web.Response:
+    def _shed(self, reason: str, message: str, kind: str = "plain") -> web.Response:
+        """A 429 + ``Retry-After: retry_after_s``, counted by endpoint and reason."""
         self._m_429.inc(endpoint="update")
-        self._reject_update("ingest_full")
-        return _error(f"ingest buffer full ({self.ingest.capacity} slots); retry after "
-                      "backoff", 429, **{"Retry-After": "0.25"})
+        self._reject_update(reason, kind=kind)
+        return _error(message, 429, **{"Retry-After": f"{self.retry_after_s:g}"})
+
+    def _ingest_full(self) -> web.Response:
+        return self._shed("ingest_full", f"ingest buffer full ({self.ingest.capacity} "
+                          "slots); retry after backoff")
 
     async def _handle_submit_update(self, request: web.Request) -> web.StreamResponse:
         client_id = request.headers.get(HEADER_CLIENT)
@@ -753,21 +788,44 @@ class HTTPServer:
             self._reject_update("stale_round", kind="masked" if masked else "plain")
             return self._stale(round_number)
         encoding = request.headers.get(HEADER_ENCODING, "npz")
-        if masked:
-            if encoding != "npz":
-                self._reject_update("bad_encoding", kind="masked")
-                return _error(f"encoding {encoding!r} cannot combine with SecAgg masked "
-                              "payloads", 400)
-            return await self._handle_masked_update(request, client_id, round_number,
-                                                    metrics, submit_id, fingerprint)
+        if masked and encoding != "npz":
+            self._reject_update("bad_encoding", kind="masked")
+            return _error(f"encoding {encoding!r} cannot combine with SecAgg masked "
+                          "payloads", 400)
+        # Admission control over plain and masked submits: past the bound the answer
+        # is an immediate 429 with the body unread.  No await separates the check from
+        # the increment below, so the count cannot race on the event loop.
+        if self.max_inflight is not None and self._inflight >= self.max_inflight:
+            return self._shed("admission_reject",
+                              f"server at capacity ({self.max_inflight} submits in "
+                              "flight); retry after backoff",
+                              kind="masked" if masked else "plain")
         # A full ingest buffer sheds the submit before its body is read; a client
         # whose slot would only be replaced (latest wins) is not shed.
-        if (self._ingest_pipeline is not None
+        if (not masked and self._ingest_pipeline is not None
                 and self._ingest_pipeline.fill >= self.ingest.capacity
                 and not self._ingest_pipeline.buffer.has_client(client_id)):
             return self._ingest_full()
         # A malformed or absent trace header is an untraced submit, never a rejection.
         trace = parse_trace(request.headers.get(HEADER_TRACE))
+        self._inflight += 1
+        try:
+            if masked:
+                return await self._handle_masked_update(
+                    request, client_id, round_number, metrics, submit_id, fingerprint)
+            return await self._admitted_submit_update(
+                request, client_id, round_number, metrics, submit_id, fingerprint,
+                encoding, trace)
+        finally:
+            self._inflight -= 1
+
+    async def _admitted_submit_update(
+        self, request: web.Request, client_id: str, round_number: int,
+        metrics: dict[str, Any], submit_id: str | None, fingerprint: str, encoding: str,
+        trace: TraceContext | None,
+    ) -> web.StreamResponse:
+        """A plain submit after admission; the caller holds one in-flight slot for the
+        read, decode, verify and buffer."""
         body = await self._read_body(request)
         self._m_bytes_rx.inc(len(body), endpoint="update")
         if encoding not in ("npz", ENCODING_Q8_DELTA, ENCODING_TOPK8):
@@ -784,34 +842,46 @@ class HTTPServer:
                     else self._params)
             base_flat = (self._ingest_pipeline.base_flat(round_number)
                          if self._ingest_pipeline is not None else None)
-        if base is None:
+        ingest = self._ingest_pipeline is not None
+        if base is None or (ingest and base_flat is None):
             self._reject_update("stale_round")
             return self._stale(round_number)
+        headers = dict(request.headers)
 
-        def decode() -> Params:
-            # Compressed deltas reconstruct base + delta in the codec's numpy float32
-            # arithmetic: what the client signed.
+        def decode() -> tuple[Any, web.Response | None]:
+            # One pool job a submit: decode (a compressed delta reconstructs base +
+            # delta in the codec's numpy float32 arithmetic: what the client signed),
+            # verify on a signing server, and on the ingest path flatten to the host
+            # float32 delta against the snapshotted base.
             if encoding == ENCODING_TOPK8:
-                return reconstruct_topk8(base, body)
-            if encoding == ENCODING_Q8_DELTA:
-                return reconstruct_q8(base, body)
-            return decode_params(body, like=base)
+                params = reconstruct_topk8(base, body)
+            elif encoding == ENCODING_Q8_DELTA:
+                params = reconstruct_q8(base, body)
+            else:
+                params = decode_params(body, like=base)
+            if self.require_signatures:
+                verdict = self._verify_update_signature(client_id, round_number, headers,
+                                                        params)
+                if verdict is not None:
+                    return None, verdict
+            if ingest:
+                from nanofed_tpu_torch.ingest import flatten_params
+
+                return flatten_params(params) - base_flat, None
+            return params, None
 
         try:
             with self._decode_span(trace, client_id, encoding):
-                params = await self._offload(decode)
+                params, verdict = await self._offload(decode)
         except Exception as e:
             self._reject_update("bad_payload")
             return _error(f"bad payload: {e}", 400)
-        if self.require_signatures:
-            verdict = await self._offload(self._verify_update_signature, client_id,
-                                          round_number, dict(request.headers), params)
-            if verdict is not None:
-                self._reject_update("bad_signature")
-                return verdict
-        if self._ingest_pipeline is not None:
+        if verdict is not None:
+            self._reject_update("bad_signature")
+            return verdict
+        if ingest:
             return await self._ingest_buffer_update(
-                client_id, round_number, metrics, submit_id, fingerprint, params, base_flat,
+                client_id, round_number, metrics, submit_id, fingerprint, params,
                 trace="" if trace is None else trace.trace_id)
         async with self._lock:
             if self._duplicate_submit(client_id, submit_id, fingerprint):
@@ -834,19 +904,12 @@ class HTTPServer:
 
     async def _ingest_buffer_update(
         self, client_id: str, round_number: int, metrics: dict[str, Any],
-        submit_id: str | None, fingerprint: str, params: Params, base_flat: Any,
-        trace: str = "",
+        submit_id: str | None, fingerprint: str, flat_delta: Any, trace: str = "",
     ) -> web.StreamResponse:
-        """The ingest tail of an admitted plain submit: flatten the decoded params into
-        a delta against the snapshotted base (on the pool) and offer it to the buffer
-        under the lock, with the submit's trace id.  A full buffer is a 429 + Retry-After with the idempotency key
-        not recorded, so a retry lands later."""
-        if base_flat is None:
-            self._reject_update("stale_round")
-            return self._stale(round_number)
-        from nanofed_tpu_torch.ingest import flatten_params
-
-        flat_delta = await self._offload(lambda: flatten_params(params) - base_flat)
+        """The ingest tail of an admitted plain submit: the host delta against the
+        snapshotted base offered to the buffer under the lock, with the submit's trace
+        id.  A full buffer is a 429 + Retry-After with the idempotency key not
+        recorded, so a retry lands later."""
         async with self._lock:
             if self._duplicate_submit(client_id, submit_id, fingerprint):
                 return self._duplicate_response(client_id)
@@ -1216,9 +1279,16 @@ class HTTPServer:
         return self.transport.app
 
     async def start(self) -> None:
+        """Start listening; only a session that owns its transport may (a shared
+        transport is started once, by the service)."""
+        if not self._owns_transport:
+            raise RuntimeError("this session rides a shared transport; start the "
+                               "transport (once) instead of each session")
         await self.transport.start()
 
     async def stop(self) -> None:
-        await self.transport.stop()
+        """Release this session's resources, and its transport when it owns it."""
+        if self._owns_transport:
+            await self.transport.stop()
         if self._ingest_pipeline is not None:
             self._ingest_pipeline.close()

@@ -34,8 +34,14 @@ closed with the registry snapshot when :meth:`NetworkCoordinator.run` exits.
 round's model is published, then :class:`~nanofed_tpu_torch.faults.InjectedServerCrash`
 (a ``RuntimeError``, recoverable for ``persistence.is_recoverable``) is raised before
 aggregation; a new coordinator over the same ``state_store`` resumes at that round.
-The service's device gate comes with a later item; setting it raises
-``NotImplementedError`` naming its item.
+
+``device_gate`` (a zero-argument factory of an async context manager: the service's
+``lambda: scheduler.lease(name)``) brackets each device step, at the JAX engine's four
+places: the sync aggregate, the sync ingest drain, the FedBuff ingest drain and
+``fedbuff_combine``.  Stated difference: CUDA launches return before the work is done,
+so a section ends with a synchronize of the coordinator's device (and of the server's
+ingest device) inside the lease, and the lease bills device-complete seconds; the JAX
+section does not block on every path.  On the CPU the synchronize is a no-op.
 """
 
 from __future__ import annotations
@@ -43,6 +49,7 @@ from __future__ import annotations
 import asyncio
 import math
 import time
+from contextlib import asynccontextmanager
 from dataclasses import dataclass, replace
 from pathlib import Path
 from typing import TYPE_CHECKING, Any
@@ -91,10 +98,17 @@ if TYPE_CHECKING:
     # path must not require.
     from nanofed_tpu_torch.security.secure_agg import SecureAggregationConfig
 
-#: Coordinator options of later slices, with the JAX defaults (accepted).
-LATER_SLICE_OPTIONS: dict[str, tuple[Any, str]] = {
-    "device_gate": (None, "the service's device scheduler (service slice, queue A item 18)"),
-}
+#: Coordinator options of later slices, with the JAX defaults (accepted).  None left.
+LATER_SLICE_OPTIONS: dict[str, tuple[Any, str]] = {}
+
+
+def synchronize_devices(devices: set[torch.device]) -> None:
+    """Wait for the work queued on each CUDA device of ``devices``; a no-op on the
+    CPU.  Ends every gated device section, so the lease that brackets it measures
+    device-complete seconds."""
+    for device in devices:
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
 
 
 @dataclass(frozen=True)
@@ -263,6 +277,7 @@ class NetworkCoordinator:
         telemetry_dir: str | Path | None = None,
         registry: MetricsRegistry | None = None,
         chaos: Any | None = None,
+        device_gate: Any | None = None,
         **later_slice_options: Any,
     ) -> None:
         refuse_later_slice_options("NetworkCoordinator", later_slice_options,
@@ -312,6 +327,10 @@ class NetworkCoordinator:
         self.state_store = state_store
         self.history: list[dict[str, Any]] = []
         self.chaos = chaos
+        self._device_gate = device_gate
+        self._section_devices = {self.device}
+        if server.ingest is not None and server._ingest_device is not None:
+            self._section_devices.add(server._ingest_device)
         self._clock = clock or SYSTEM_CLOCK
         self._log = Logger()
         self.metrics_registry = registry or server.metrics_registry
@@ -361,6 +380,17 @@ class NetworkCoordinator:
     @property
     def ledger(self) -> RoundLedger:
         return self._ledger
+
+    @asynccontextmanager
+    async def _device_section(self):
+        """A device step: a no-op without a gate; under the service's scheduler, held
+        inside its weighted-fair lease and ended by a synchronize (module note)."""
+        if self._device_gate is None:
+            yield
+            return
+        async with self._device_gate():
+            yield
+            synchronize_devices(self._section_devices)
 
     async def _wait_for_clients(self, required: int) -> bool:
         """Poll the update buffer until ``required`` updates arrive or timeout."""
@@ -628,9 +658,10 @@ class NetworkCoordinator:
                       "num_clients": len(updates), "num_rejected": num_rejected,
                       "required": required}
         else:
-            with self._tracer.span("aggregate", round=round_number,
-                                   num_clients=len(updates)):
-                record = self._aggregate_round(round_number, updates, num_rejected)
+            async with self._device_section():
+                with self._tracer.span("aggregate", round=round_number,
+                                       num_clients=len(updates)):
+                    record = self._aggregate_round(round_number, updates, num_rejected)
             record["required"] = required
             if record["status"] == "COMPLETED":
                 self._log.info("round %d: %s", round_number, record["metrics"])
@@ -645,8 +676,9 @@ class NetworkCoordinator:
                                  ok: bool) -> dict[str, Any]:
         """A sync round on the ingest buffer: one product over every buffered delta
         against the round's base, the weighted FedAvg of the clients' params."""
-        with self._tracer.span("aggregate", round=round_number, ingest=True):
-            new_flat, metas = await self.server.drain_ingest_fedavg()
+        async with self._device_section():
+            with self._tracer.span("aggregate", round=round_number, ingest=True):
+                new_flat, metas = await self.server.drain_ingest_fedavg()
         newly_evicted = self._note_participation({m.client_id for m in metas})
         record: dict[str, Any] = {"round": round_number, "num_clients": len(metas),
                                   "num_rejected": 0, "required": required, "ingest": True}
@@ -771,8 +803,10 @@ class NetworkCoordinator:
                 else:
                     attrs = ({"num_clients": got, "ingest": True} if self._ingest_mode
                              else {"num_clients": len(taken)})
-                    with self._tracer.span("aggregate", aggregation=agg_i, **attrs):
-                        record = await self._fedbuff_step(agg_i, version, k, got, taken)
+                    async with self._device_section():
+                        with self._tracer.span("aggregate", aggregation=agg_i, **attrs):
+                            record = await self._fedbuff_step(agg_i, version, k, got,
+                                                              taken)
             if record["status"] == "COMPLETED":
                 version += 1
             else:

@@ -35,7 +35,23 @@ gloo, so ranks may share one card; ``--device cpu`` runs them on the CPU).  Mode
   writes ``<out-dir>/hostchaos_torch_*.json`` (detection and recovery seconds with the
   start-up seconds named apart, rounds lost, parity gap, orphans) and
   ``host_failure``/``recovery`` records into ``telemetry.jsonl``.
-* ``federate`` needs the load generator (ROADMAP queue A item 18) and exits 2.
+* ``federate``: one stack from the wire to the cross-host reduce.  Every rank is a
+  host running a live ``HTTPServer`` with a device ingest buffer; the supervisor
+  drives one ``loadgen`` swarm a host (real sockets, the schedule and backoffs on a
+  ``VirtualClock``, the other hosts as failover targets).  Each round a host drains
+  its buffer host-locally (``drain_ingest_fedavg_partial``: ``Σ w δ`` and the mass)
+  and joins ONE all-reduce of its ``[P+1+1]`` row over the hosts
+  (``communication.federation``); the last lane is a stop vote, so the hosts agree on
+  the final round through the collective they already run.  The all-reduce runs on an
+  executor thread under the collective watchdog, so the listener keeps accepting while
+  gloo blocks.  The supervisor holds every host's final params against a numpy
+  ``einsum`` replay of the drained rounds (:func:`federate_oracle`, within
+  :data:`FEDERATE_TOL`), asserts that no submit was lost, and writes
+  ``<out-dir>/federation_torch_*.json``.  ``--kill-round`` crashes one host by plan:
+  its clients reroute to the survivors live, the supervisor reaps the world, re-forms
+  it over the survivors from the newest generation every host committed and re-drives
+  the dead host's population; the replay drops the rounds drained after that
+  generation, and no submit may be lost.
 
 Run from the repo root, e.g. ``python3 scripts/multihost_harness_torch.py smoke
 --device cpu --clients 8``.  Nothing here imports JAX or the JAX package.
@@ -67,10 +83,9 @@ from nanofed_tpu_torch.faults.host_injector import (  # noqa: E402
     HOST_CRASH_EXIT_CODE as HOST_CRASH_RC,
 )
 
-FEDERATE_REFUSAL = (
-    "federate needs the load generator (loadgen), which comes with ROADMAP queue A "
-    "item 18 (load and service); run scripts/multihost_harness.py federate for it"
-)
+#: ``federate``: every host's final params against the numpy replay of the drained
+#: rounds (float32 device products against float64 sums).
+FEDERATE_TOL = 1e-5
 
 
 def _worker_env() -> dict[str, str]:
@@ -156,6 +171,8 @@ def run_worker(args: argparse.Namespace) -> int:
         print(f"[{time.time() - t0:6.1f}s p{pid}] {msg}", file=sys.stderr, flush=True)
 
     log(f"up: rank {pid} of {n} on {dev}")
+    if args.job == "federate":
+        return _federate_worker(args, log, dev, mesh)
     model = get_model(args.model)
     feat = tuple(model.input_shape)
     padded = pad_client_count(args.clients, n)
@@ -250,6 +267,267 @@ def run_worker(args: argparse.Namespace) -> int:
             "topology": topology,
         }, indent=2))
         log(f"wrote {args.out}")
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    return 0
+
+
+def _flat(params) -> "torch.Tensor":
+    import torch
+
+    return torch.cat([leaf.reshape(-1).to(torch.float32) for leaf in params.values()])
+
+
+def _federate_worker(args: argparse.Namespace, log, dev, mesh) -> int:
+    """One federate host: a live listener and a device ingest buffer, drained
+    host-locally each round, then ONE all-reduce over the hosts of the ``[P+1+1]`` row
+    (numerator, mass, stop vote), on an executor thread under the collective watchdog
+    so the listener keeps accepting while gloo blocks.  Hosts pace on a shared beat:
+    round r's deadline is r+1 round timeouts after the warm all-reduce, which every
+    host leaves together."""
+    import asyncio
+
+    import numpy as np
+    import torch
+
+    from nanofed_tpu_torch.communication.federation import (
+        apply_summed_row,
+        build_cross_host_row_psum,
+        host_partial_row,
+    )
+    from nanofed_tpu_torch.communication.http_server import HTTPServer
+    from nanofed_tpu_torch.ingest import IngestConfig
+    from nanofed_tpu_torch.models import get_model
+    from nanofed_tpu_torch.observability.registry import MetricsRegistry
+    from nanofed_tpu_torch.orchestration.engine import RoundLedger, completion_required
+    from nanofed_tpu_torch.parallel.resilience import (
+        CollectiveWatchdog,
+        Heartbeat,
+        HostFailure,
+    )
+    from nanofed_tpu_torch.persistence import GenerationStore
+    from nanofed_tpu_torch.utils.trees import from_numpy_params, unravel
+
+    host = args.host_id
+    hosts_list = [int(h) for h in args.hosts_list.split(",")]
+    like = {name: leaf.to(dev) for name, leaf in get_model(args.model).init(
+        torch.Generator().manual_seed(args.seed)).items()}
+    flat = _flat(like)
+    flat_size = int(flat.numel())
+    # A world of one host (a kill drill's lone survivor): its row is the sum.
+    psum_fn = build_cross_host_row_psum(mesh) if mesh is not None else (lambda row: row)
+    injector = None
+    if args.fault_plan:
+        from nanofed_tpu_torch.faults import ChaosSchedule, FaultPlan, HostChaosInjector
+
+        injector = HostChaosInjector(ChaosSchedule(FaultPlan.load(args.fault_plan)),
+                                     host=host)
+    hb = Heartbeat(args.hb_dir, host)
+    store = GenerationStore(args.ckpt_dir, host=host)
+    watchdog = CollectiveWatchdog(args.watchdog_deadline)
+    stop_file = Path(args.stop_file) if args.stop_file else None
+    start_round = 0
+    if args.resume:
+        rec = store.latest_complete()
+        if rec is not None:
+            flat = _flat(from_numpy_params(rec.params, device=dev))
+            start_round = rec.round_number
+            log(f"resumed generation {rec.generation} at round {start_round} (committed "
+                f"by hosts {list(rec.hosts)})")
+        else:
+            log("resume requested but no complete generation: fresh start")
+
+    # The warm all-reduce is the bring-up barrier: a listener opens only once every
+    # peer reached it, and every host's beat is anchored at its end.
+    psum_fn(host_partial_row(None, 0.0, flat_size, extra=(0.0,), device=dev))
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    anchor = time.monotonic()
+    anchor_wall = time.time()
+    log(f"cross-host all-reduce warm on a ({args.num_processes}, 1, 1) mesh (bring-up "
+        "barrier passed)")
+
+    registry = MetricsRegistry()
+    telemetry = None
+    if args.telemetry_dir:
+        from nanofed_tpu_torch.observability import RunTelemetry
+
+        # One stream a worker; clock_sync pins its wall clock to the barrier's epoch.
+        telemetry = RunTelemetry(Path(args.telemetry_dir) / f"host_{host}",
+                                 registry=registry)
+        telemetry.record("clock_sync", host=host, anchor_wall=round(anchor_wall, 6),
+                         process_id=args.process_id)
+    ledger = RoundLedger(registry, telemetry=telemetry, track_dropouts=True)
+    required = completion_required(args.round_quota, args.min_completion_rate)
+    n_hosts = len(hosts_list)
+    progress = Path(args.progress) if args.progress else None
+
+    async def _serve() -> dict:
+        server = HTTPServer(
+            port=args.wire_port, registry=registry, max_inflight=512,
+            # >= 1: at window 0 a publish clears the ingest buffer, dropping submits
+            # accepted but not yet drained.
+            staleness_window=max(1, args.staleness_window),
+            ingest=IngestConfig(capacity=args.ingest_capacity), device=dev,
+            tracer=None if telemetry is None else telemetry.tracer)
+        await server.start()
+        await server.publish_model(unravel(flat, like), start_round)
+        if args.ready_file:
+            ready = Path(args.ready_file)
+            tmp_path = ready.with_suffix(".tmp")
+            tmp_path.write_text(json.dumps({"host": host, "round": start_round,
+                                            "url": f"http://127.0.0.1:{args.wire_port}"}))
+            tmp_path.replace(ready)  # atomic: the supervisor never reads a torn file
+        log(f"listener up on :{args.wire_port}")
+
+        loop = asyncio.get_running_loop()
+        base = flat
+        rounds_meta: list[dict] = []
+        clients_seen: set[str] = set()
+        rerouted_total = 0
+        r = start_round
+        while True:
+            if injector is not None:
+                injector.maybe_fail(r)  # a planned host_crash leaves through os._exit
+                delay = injector.dcn_delay_s(r)
+                if delay:
+                    await asyncio.sleep(delay)
+            hb.beat(round_number=r, status="collecting")
+            t_round = time.perf_counter()
+            start_wall = time.time()
+            pipeline = server.ingest_pipeline
+            decode_before = pipeline.decode_busy_seconds()
+            # The strict shared beat: no early dispatch on a full quota, so the hosts
+            # enter the all-reduce together.  The quota scores the round's outcome.
+            deadline = anchor + (r - start_round + 1) * args.round_timeout_s
+            stop_seen = None
+            while True:
+                if stop_file is not None and stop_file.exists():
+                    # Written once every swarm submit landed: drain what is left after
+                    # a short grace and vote stop.
+                    if stop_seen is None:
+                        stop_seen = time.monotonic()
+                    elif time.monotonic() - stop_seen > 0.5:
+                        break
+                if time.monotonic() > deadline:
+                    break
+                await asyncio.sleep(0.02)
+            wait_measured = time.perf_counter() - t_round
+            seg_decode = min(max(0.0, pipeline.decode_busy_seconds() - decode_before),
+                             wait_measured)
+            t_drain = time.perf_counter()
+            out, mass, metas = await server.drain_ingest_fedavg_partial()
+            seg_drain = time.perf_counter() - t_drain
+            want_stop = (stop_file is not None and stop_file.exists()) or \
+                (r + 1) >= args.rounds
+            row = host_partial_row(out, mass, flat_size,
+                                   extra=(1.0 if want_stop else 0.0,), device=dev)
+            hb.beat(round_number=r, status="dispatch")
+            dispatch_t: dict = {}
+
+            def dispatch(row=row, base=base):
+                # One collective; the apply happens on every host from the same summed
+                # row, so the new params are the same bits everywhere.
+                t0 = time.perf_counter()
+                total = psum_fn(row)
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+                t1 = time.perf_counter()
+                applied = apply_summed_row(base, total, flat_size)
+                dispatch_t["collective"] = t1 - t0
+                dispatch_t["apply"] = time.perf_counter() - t1
+                return applied
+
+            try:
+                new_flat, tail = await loop.run_in_executor(None, lambda: watchdog.run(
+                    dispatch, round_number=r,
+                    tick=lambda: hb.beat(round_number=r, status="dispatch")))
+            except HostFailure as exc:
+                log(f"watchdog: {exc}")
+                hb.beat(round_number=r, status="peer_failure")
+                _exit_now(PEER_FAILURE_RC)
+            except Exception as exc:  # a gloo error: a peer died
+                log(f"dispatch failed (peer loss?): {type(exc).__name__}: {exc}")
+                hb.beat(round_number=r, status="peer_failure")
+                _exit_now(PEER_FAILURE_RC)
+            global_mass, stop_votes = (float(v) for v in tail.tolist())
+            if global_mass > 0.0:
+                base = new_flat
+                status = "COMPLETED" if len(metas) >= required else "DEGRADED"
+            else:
+                status = "FAILED"  # every host drained empty; the params stay
+            rerouted = sum(1 for m in metas if not str(m.client_id).startswith(f"h{host}_"))
+            rerouted_total += rerouted
+            clients_seen.update(str(m.client_id) for m in metas)
+            sentinel = want_stop and not metas and global_mass <= 0.0
+            round_r = r
+            r += 1
+            t_publish = time.perf_counter()
+            await server.publish_model(unravel(base, like), r)
+            seg_publish = time.perf_counter() - t_publish
+            dt = time.perf_counter() - t_round
+            hb.beat(round_number=r, status="running")
+            if not sentinel:
+                segments = {
+                    "wire_wait": max(0.0, wait_measured - seg_decode),
+                    "decode": seg_decode, "drain": seg_drain,
+                    "collective": dispatch_t.get("collective", 0.0),
+                    "apply": dispatch_t.get("apply", 0.0), "publish": seg_publish,
+                }
+                ledger.charge(
+                    status=status, num_clients=len(metas), duration_s=dt,
+                    expected=args.round_quota, segments=segments,
+                    telemetry_fields={
+                        "round": round_r, "host": host, "status": status,
+                        "duration_s": round(dt, 6), "start_wall": round(start_wall, 6),
+                        "drained": len(metas), "mass": round(float(mass), 3),
+                        "rerouted_in": rerouted, "traces": [m.trace for m in metas],
+                    })
+                line = {"round": round_r, "drained": len(metas),
+                        "mass": round(float(mass), 3), "global_mass": global_mass,
+                        "rerouted_in": rerouted, "duration_s": round(dt, 4),
+                        "status": status, "wall_t": time.time(),
+                        # The replay's input: who was drained, on which base, at what
+                        # weight (federate_oracle).
+                        "drains": [[m.client_id, int(m.round_number), float(m.weight)]
+                                   for m in metas]}
+                rounds_meta.append({k: v for k, v in line.items() if k != "drains"})
+                if progress is not None:
+                    with progress.open("a") as f:
+                        f.write(json.dumps(line) + "\n")
+                log(f"round {round_r}: drained {len(metas)} (mass {mass:.1f}, {rerouted} "
+                    f"rerouted in) global mass {global_mass:.1f} [{status}] {dt:.2f}s")
+            if r % args.block_size == 0 and not sentinel:
+                store.commit(r // args.block_size, r, unravel(base, like), {},
+                             hosts=hosts_list)
+            if stop_votes >= n_hosts - 0.5:
+                log(f"stop consensus at round {r} ({stop_votes:.0f}/{n_hosts} votes)")
+                break
+        if r % args.block_size != 0:
+            store.commit(r // args.block_size + 1, r, unravel(base, like), {},
+                         hosts=hosts_list)
+        server.stop_training()
+        await asyncio.sleep(0.2)  # let /status pollers see the stop
+        hb.beat(round_number=r, status="done")
+        np.save(args.out + ".params.npy", base.detach().cpu().numpy())
+        result = {
+            "mode": "federate", "host": host, "start_round": start_round, "end_round": r,
+            "rounds": rounds_meta,
+            "clients_distinct": len(clients_seen), "rerouted_in_total": rerouted_total,
+            "topology": {"process_count": args.num_processes, "hosts": n_hosts,
+                         "host_ids": hosts_list, "device": str(dev),
+                         "mesh_shape": [args.num_processes, 1, 1]},
+        }
+        await server.stop()
+        if telemetry is not None:
+            telemetry.close()
+        return result
+
+    result = asyncio.run(_serve())
+    Path(args.out).write_text(json.dumps(result, indent=2))
+    log(f"wrote {args.out}")
+    import torch.distributed as dist
+
     if dist.is_initialized():
         dist.destroy_process_group()
     return 0
@@ -928,14 +1206,460 @@ def run_hostchaos(args: argparse.Namespace) -> int:
     return 0
 
 
+def federate_oracle(model: str, seed: int, swarms: dict[str, dict], progress: list[dict]):
+    """The numpy replay of a federate run: every round's drained rows from all hosts,
+    ``base_r + einsum("c,cp->p", w, X - B_stamp) / Σ w`` in float64, where ``X`` is a
+    client's canned body decoded and ``B_stamp`` the published version it was computed
+    against (the einsum of ``tests/integration/test_ingest_parity.py``'s oracle).
+    ``swarms`` maps a client-id prefix to its :class:`SwarmConfig` fields; ``progress``
+    is every host's per-round lines.  Returns the final flat params (float64)."""
+    import numpy as np
+    import torch
+
+    from nanofed_tpu_torch.communication.codec import decode_params
+    from nanofed_tpu_torch.loadgen.swarm import SwarmConfig, make_canned_payloads
+    from nanofed_tpu_torch.models import get_model
+
+    like = get_model(model).init(torch.Generator().manual_seed(seed))
+
+    def flat(params) -> np.ndarray:
+        return np.concatenate([np.asarray(v, np.float64).ravel() for v in params.values()])
+
+    bodies = {prefix: [flat(decode_params(b, like=like))
+                       for b in make_canned_payloads(like, SwarmConfig(**cfg))]
+              for prefix, cfg in swarms.items()}
+    versions = [flat(like)]
+    by_round: dict[int, list] = {}
+    for line in progress:
+        by_round.setdefault(int(line["round"]), []).extend(line["drains"])
+    def body(cid: str) -> np.ndarray:
+        prefix, index = cid.rsplit("_", 1)
+        return bodies[prefix][int(index) % len(bodies[prefix])]
+
+    for r in range(max(by_round, default=-1) + 1):
+        rows = by_round.get(r, [])
+        base = versions[r]
+        if rows:
+            num = np.zeros_like(base)
+            for i in range(0, len(rows), 64):  # 64 rows at a time bound the memory
+                chunk = rows[i:i + 64]
+                x = np.stack([body(cid) - versions[stamp] for cid, stamp, _ in chunk])
+                num += np.einsum("c,cp->p", np.array([w for *_, w in chunk]), x)
+            base = base + num / sum(w for *_, w in rows)
+        versions.append(base)
+    return versions[-1]
+
+
+def _spawn_federate(args: argparse.Namespace, host_ids: list[int], ports: list[int], *,
+                    phase: str, hb_dir: Path, ckpt: Path, resume: bool,
+                    plan_path: Path | None, stop_file: Path, tmp: Path,
+                    telemetry_dir: Path) -> list[subprocess.Popen]:
+    """One federate worker a LOGICAL host id (dense ranks a phase, stable host ids and
+    ports across the kill), each with its own ready, progress and result files, on a
+    fresh rendezvous."""
+    rdv = _rendezvous(tmp)
+    procs = []
+    for rank, h in enumerate(host_ids):
+        cmd = [sys.executable, str(Path(__file__).resolve()), "worker", "--job", "federate",
+               "--process-id", str(rank), "--num-processes", str(len(host_ids)),
+               "--rendezvous", str(rdv), "--device", args.device,
+               "--timeout", str(args.timeout), "--rounds", str(args.max_rounds),
+               "--model", args.model, "--seed", str(args.seed),
+               "--block-size", str(args.block_size),
+               "--watchdog-deadline", str(args.federate_watchdog), "--host-id", str(h),
+               "--hosts-list", ",".join(map(str, host_ids)), "--hb-dir", str(hb_dir),
+               "--ckpt-dir", str(ckpt), "--wire-port", str(ports[h]),
+               "--ingest-capacity", str(args.ingest_capacity),
+               "--staleness-window", str(args.staleness_window),
+               "--round-quota", str(args.round_quota),
+               "--min-completion-rate", str(args.min_completion_rate),
+               "--round-timeout-s", str(args.round_timeout_s),
+               "--stop-file", str(stop_file),
+               "--ready-file", str(tmp / f"fed_ready_h{h}.json"),
+               "--progress", str(tmp / f"fed_progress_{phase}_h{h}.jsonl"),
+               "--out", str(tmp / f"fed_result_{phase}_h{h}.json"),
+               "--telemetry-dir", str(telemetry_dir)]
+        if resume:
+            cmd.append("--resume")
+        if plan_path is not None:
+            cmd += ["--fault-plan", str(plan_path)]
+        procs.append(subprocess.Popen(cmd, env=_worker_env()))
+    return procs
+
+
+def run_federate(args: argparse.Namespace) -> int:
+    """``--num-processes`` hosts, each a listener and an ingest buffer joined by one
+    cross-host all-reduce a round, under one swarm a host; every host's final params
+    against :func:`federate_oracle`, no submit lost, no orphan.  With ``--kill-round`` a
+    planned ``host_crash`` kills one host mid-campaign: its clients reroute to the
+    survivors live, the world re-forms over the survivors from the newest generation
+    every host committed, the dead host's population is re-driven, and the rounds the
+    kill lost (after that generation) leave the replay."""
+    import asyncio
+
+    import numpy as np
+    import torch
+
+    from nanofed_tpu_torch.communication.retry import RetryPolicy
+    from nanofed_tpu_torch.communication.transport import free_port
+    from nanofed_tpu_torch.faults.plan import FaultEvent, FaultPlan
+    from nanofed_tpu_torch.loadgen.swarm import SwarmConfig, latency_digest, run_swarm
+    from nanofed_tpu_torch.models import get_model
+    from nanofed_tpu_torch.observability.critical_path import federation_timeline
+    from nanofed_tpu_torch.observability.telemetry import RunTelemetry
+    from nanofed_tpu_torch.observability.tracing import (
+        FLIGHT_RECORDER_FILENAME,
+        FlightRecorder,
+        mttr_decomposition,
+    )
+    from nanofed_tpu_torch.parallel.resilience import no_orphans
+    from nanofed_tpu_torch.persistence import GenerationStore
+    from nanofed_tpu_torch.utils.clock import VirtualClock
+
+    n = args.num_processes
+    if n < 2:
+        raise SystemExit("federate needs --num-processes >= 2 (one listener a host)")
+    tmp = Path(args.tmp_dir)
+    tmp.mkdir(parents=True, exist_ok=True)
+    hb_dir = _fresh_dir(tmp / "fed_hb")
+    ckpt = _fresh_dir(tmp / "fed_ckpt")
+    telemetry_dir = (_fresh_dir(tmp / "fed_telemetry") if args.telemetry_dir is None
+                     else Path(args.telemetry_dir))
+    telemetry_dir.mkdir(parents=True, exist_ok=True)
+    stop_file = tmp / "federate_stop"
+    stop_file.unlink(missing_ok=True)
+    for stale in [*tmp.glob("fed_result_*"), *tmp.glob("fed_progress_*"),
+                  *tmp.glob("fed_ready_*")]:
+        stale.unlink()
+    hosts = list(range(n))
+    counts = [args.clients // n + (1 if i < args.clients % n else 0) for i in hosts]
+    ports = ([args.wire_port + h for h in hosts] if args.wire_port
+             else [free_port() for _ in hosts])
+    urls = [f"http://127.0.0.1:{port}" for port in ports]
+    kill = args.kill_round is not None
+    victim = args.kill_host if args.kill_host is not None else n - 1
+    plan = plan_path = None
+    if kill:
+        plan = FaultPlan(seed=args.seed, events=(
+            FaultEvent(kind="host_crash", round=args.kill_round, host=victim),))
+        plan_path = tmp / "federate_plan.json"
+        plan.save(plan_path)
+    # The workers' deterministic init: the servers reconstruct against the same base.
+    base_params = get_model(args.model).init(torch.Generator().manual_seed(args.seed))
+    recorder = FlightRecorder(name="federate-supervisor")
+    all_pids: list[int] = []
+    t0 = time.time()
+    common = dict(hb_dir=hb_dir, ckpt=ckpt, stop_file=stop_file, tmp=tmp,
+                  telemetry_dir=telemetry_dir)
+
+    def _wait_ready(procs: list, live: list[int]) -> None:
+        deadline = time.time() + args.timeout
+        while not all((tmp / f"fed_ready_h{h}.json").exists() for h in live):
+            for q in procs:
+                if q.poll() is not None:
+                    _reap(procs)
+                    raise SystemExit(f"federate worker exited rc={q.returncode} during "
+                                     "bring-up")
+            if time.time() > deadline:
+                _reap(procs)
+                raise SystemExit(f"federate workers not ready within {args.timeout:.0f}s")
+            time.sleep(0.1)
+
+    def _cfg(owner: int) -> dict:
+        # One canned-body pool an owner across phases, so the replay knows every body.
+        return dict(num_clients=counts[owner], submits_per_client=args.submits_per_client,
+                    arrival="uniform", arrival_rate=args.arrival_rate,
+                    seed=args.seed + 17 * owner, client_prefix=f"h{owner}",
+                    connector_limit=256, canned_payloads=4)
+
+    def _job(owner: int, salt: int, primary: int, live: list[int], indices) -> tuple:
+        # Generous retries: backoffs ride the virtual clock, and no client may exhaust
+        # while a failover target is alive.
+        config = SwarmConfig(
+            retry=RetryPolicy(max_attempts=64, base_backoff_s=0.05, max_backoff_s=1.0,
+                              multiplier=1.5, budget_s=None,
+                              seed=args.seed + 31 * owner + salt),
+            failover_urls=tuple(urls[j] for j in live if j != primary), **_cfg(owner))
+        return urls[primary], config, indices
+
+    async def _drive(procs: list, live: list[int], jobs: list, expect_kill: bool):
+        """The sub-swarms beside a worker monitor: the planned victim's exit starts the
+        reroute grace; any other exit stops the swarms (their pending submits terminate
+        early and are re-driven or reported)."""
+        stop_event = asyncio.Event()
+        clock = VirtualClock()
+        state: dict = {"t_kill": None, "unexpected": None}
+
+        async def monitor() -> None:
+            while not stop_event.is_set():
+                rcs = [q.poll() for q in procs]
+                killed = dict(zip(live, rcs)).get(victim) == HOST_CRASH_RC and expect_kill
+                if killed and state["t_kill"] is None:
+                    # Noted before the survivors' exits: a gloo peer fails at once when
+                    # the victim dies, so both can show in one poll.
+                    state["t_kill"] = time.time()
+                    recorder.note("kill_detected", host=victim, rc=HOST_CRASH_RC)
+                    print(f"# host {victim} killed by plan (rc={HOST_CRASH_RC}); wire "
+                          f"clients reroute to survivors for {args.reroute_grace:.1f}s",
+                          flush=True)
+                for h, rc in zip(live, rcs):
+                    if rc is None or (killed and h == victim):
+                        continue
+                    if rc == PEER_FAILURE_RC and expect_kill:
+                        stop_event.set()
+                        return
+                    else:
+                        state["unexpected"] = (h, rc)
+                        stop_event.set()
+                        return
+                if state["t_kill"] is not None and \
+                        time.time() - state["t_kill"] >= args.reroute_grace:
+                    recorder.note("grace_elapsed", grace_s=args.reroute_grace)
+                    stop_event.set()
+                    return
+                if all(rc is not None for rc in rcs):
+                    stop_event.set()
+                    return
+                await asyncio.sleep(0.2)  # real time: a process liveness poll
+
+        mon = asyncio.ensure_future(monitor())
+        try:
+            results = await asyncio.gather(*(
+                run_swarm(url, base_params, config, clock=clock, stop=stop_event,
+                          client_indices=indices) for url, config, indices in jobs))
+        finally:
+            stop_event.set()
+            mon.cancel()
+            try:
+                await mon
+            except (asyncio.CancelledError, Exception):
+                pass
+        return results, state
+
+    # ---- phase A: every host, the whole population
+    print(f"# federate: {n} hosts x wire listeners on {args.device}, {args.clients} wire "
+          "clients" + (f"; planned host_crash on host {victim} at round {args.kill_round}"
+                       if kill else ""), flush=True)
+    procs = _spawn_federate(args, hosts, ports, phase="a", resume=False,
+                            plan_path=plan_path, **common)
+    all_pids += [q.pid for q in procs]
+    recorder.note("spawned", phase="a", hosts=hosts)
+    _wait_ready(procs, hosts)
+    print("# all listeners ready; releasing the swarm", flush=True)
+    results_a, state_a = asyncio.run(_drive(
+        procs, hosts, [_job(h, 0, h, hosts, None) for h in hosts], kill))
+    swarm_a = dict(zip(hosts, results_a))
+    if state_a["unexpected"] is not None:
+        _reap(procs)
+        raise SystemExit(f"federate worker host {state_a['unexpected'][0]} exited "
+                         f"rc={state_a['unexpected'][1]} mid-campaign")
+    results_c: dict[int, object] = {}
+    survivors = hosts
+    recovery = None
+    resumed_round = None
+    if not kill:
+        stop_file.write_text("stop\n")
+        _wait(procs, args.timeout)
+    else:
+        if state_a["t_kill"] is None:
+            _reap(procs)
+            raise SystemExit("the kill was planned but the victim never died: lower "
+                             "--kill-round or raise the population")
+        # The survivors are blocked in an all-reduce the victim will never join.
+        _reap(procs)
+        recorder.note("reaped", victim=victim, phase="a")
+        dump_path = recorder.dump(telemetry_dir / FLIGHT_RECORDER_FILENAME,
+                                  extra={"victim": victim, "kill_round": args.kill_round})
+        survivors = [h for h in hosts if h != victim]
+        rec = GenerationStore(ckpt).latest_complete()
+        resumed_round = rec.round_number if rec is not None else 0
+        recovery = {"victim": victim, "kill_round": args.kill_round,
+                    "reroute_grace_s": args.reroute_grace,
+                    "resumed_generation": rec.generation if rec is not None else None,
+                    "resumed_round": resumed_round, "hosts_after": len(survivors),
+                    "flight_recorder": None if dump_path is None else str(dump_path)}
+        print(f"# phase C: re-forming over hosts {survivors} at round {resumed_round}; "
+              f"re-driving the dead host's {counts[victim]} wire clients", flush=True)
+        for h in survivors:
+            (tmp / f"fed_ready_h{h}.json").unlink(missing_ok=True)
+        procs = _spawn_federate(args, survivors, ports, phase="c", resume=True,
+                                plan_path=None, **common)
+        all_pids += [q.pid for q in procs]
+        recorder.note("respawned", phase="c", hosts=survivors)
+        _wait_ready(procs, survivors)
+        ready_mark = recorder.note("ready", phase="c", hosts=survivors)
+        # The dead host's population is striped over the survivors (a planned re-drive,
+        # spread up front); the survivors' clients that terminated early re-drive too.
+        owners, jobs_c = [], []
+        for j, s in enumerate(survivors):
+            stripe = list(range(counts[victim]))[j::len(survivors)]
+            if stripe:
+                owners.append(victim)
+                jobs_c.append(_job(victim, 1 + j, s, survivors, stripe))
+        for h in survivors:
+            missing = sorted(set(range(counts[h])) - set(swarm_a[h].completed_indices))
+            if missing:
+                owners.append(h)
+                jobs_c.append(_job(h, 1, h, survivors, missing))
+        results, state_c = asyncio.run(_drive(procs, survivors, jobs_c, False))
+        if state_c["unexpected"] is not None:
+            _reap(procs)
+            raise SystemExit(f"federate worker host {state_c['unexpected'][0]} exited "
+                             f"rc={state_c['unexpected'][1]} during recovery")
+        for owner, res in zip(owners, results):
+            prev = results_c.get(owner)
+            if prev is None:
+                results_c[owner] = res
+                continue
+            for field in ("accepted", "duplicates", "rejected_429", "retries",
+                          "stale_refreshes", "failed", "terminated_early", "reroutes"):
+                setattr(prev, field, getattr(prev, field) + getattr(res, field))
+            prev.latencies_s += res.latencies_s
+            prev.completed_indices += res.completed_indices
+        stop_file.write_text("stop\n")
+        _wait(procs, args.timeout)
+        # "recompile" ends at the recovered world's first drained round, read back
+        # from the phase-C progress and mapped onto the monotonic axis.
+        walls = [line["wall_t"] for h in survivors
+                 for line in _read_progress(tmp / f"fed_progress_c_h{h}.jsonl")[:1]]
+        if walls:
+            recorder.note("first_progress", wall=round(min(walls), 6),
+                          t_mono=round(ready_mark["t_mono"]
+                                       + max(0.0, min(walls) - ready_mark["t_wall"]), 6))
+        phases = mttr_decomposition(recorder.snapshot(), [
+            ("kill_detected", None), ("grace_elapsed", "reroute_grace"),
+            ("reaped", "reap"), ("respawned", "respawn"), ("ready", "bring_up"),
+            ("first_progress", "recompile")])
+        recovery["mttr_phases"] = phases
+        recovery["recovery_s"] = round(sum(phases.values()), 3)
+        recorder.dump(telemetry_dir / FLIGHT_RECORDER_FILENAME,
+                      extra={"victim": victim, "kill_round": args.kill_round,
+                             "mttr_phases": phases})
+
+    # ---- accounting, the replay and the checks
+    all_results = list(swarm_a.values()) + list(results_c.values())
+    latencies = [x for res in all_results for x in res.latencies_s]
+    failed = sum(res.failed for res in all_results)
+    lost = {}
+    for h in hosts:
+        done = set(swarm_a[h].completed_indices)
+        if h in results_c:
+            done |= set(results_c[h].completed_indices)
+        if len(done & set(range(counts[h]))) < counts[h]:
+            lost[h] = counts[h] - len(done & set(range(counts[h])))
+    lines_a = {h: _read_progress(tmp / f"fed_progress_a_h{h}.jsonl") for h in hosts}
+    lines_c = {h: _read_progress(tmp / f"fed_progress_c_h{h}.jsonl") for h in survivors}
+    # The rounds a kill lost (after the resumed generation) died with phase A.
+    kept = [line for h in hosts for line in lines_a[h]
+            if resumed_round is None or line["round"] < resumed_round]
+    progress = kept + [line for h in survivors for line in lines_c.get(h, [])]
+    final_phase = "c" if kill else "a"
+    want = federate_oracle(args.model, args.seed, {f"h{h}": _cfg(h) for h in hosts},
+                           progress)
+    finals = [np.load(tmp / f"fed_result_{final_phase}_h{h}.json.params.npy")
+              for h in survivors]
+    gaps = [float(np.abs(f.astype(np.float64) - want).max()) for f in finals]
+    same_bits = all(np.array_equal(finals[0], f) for f in finals[1:])
+    every = [line for h in hosts for line in lines_a[h]] + \
+        [line for h in survivors for line in lines_c.get(h, [])]
+    durations = sorted(line["duration_s"] for line in every)
+    median_round = durations[len(durations) // 2] if durations else None
+    rerouted_drained = sum(line.get("rerouted_in", 0) for line in every)
+    orphans = no_orphans(all_pids)
+    timeline = federation_timeline(telemetry_dir)
+    digest = latency_digest(latencies)
+    wire = {
+        "accepted": sum(res.accepted for res in all_results),
+        "duplicates": sum(res.duplicates for res in all_results), "failed": failed,
+        "terminated_early": sum(res.terminated_early for res in all_results),
+        "reroutes": sum(res.reroutes for res in all_results),
+        "rerouted_updates_drained": rerouted_drained, "submit_latency": digest,
+    }
+    artifact = {
+        "record_type": "federation",
+        "created_utc": time.strftime("%Y-%m-%dT%H:%M:%SZ", time.gmtime()),
+        "seed": args.seed, "model": args.model, "wire_clients": args.clients,
+        "submits_per_client": args.submits_per_client, "per_host_clients": counts,
+        "topology": {"hosts": n, "mesh_shape": [n, 1, 1], "wire_ports": ports,
+                     "device": args.device, "survivors": survivors},
+        "rounds": {
+            "drained_rounds": len(every), "median_round_s": median_round,
+            "rounds_per_sec": round(1.0 / median_round, 4) if median_round else None,
+            "round_quota": args.round_quota,
+            "min_completion_rate": args.min_completion_rate,
+            "updates_aggregated": sum(line["drained"] for line in progress),
+        },
+        "wire": wire,
+        "chaos": {"plan": json.loads(plan.to_json()), **recovery} if kill else None,
+        "oracle": {"max_abs_gap_by_host": gaps, "tolerance": FEDERATE_TOL,
+                   "hosts_bit_equal": same_bits, "rounds_replayed": len(progress),
+                   "basis": "numpy einsum replay of every drained round kept, float64"},
+        "critical_path": {"rounds": timeline["rounds"],
+                          "segments": timeline.get("segments"),
+                          "coverage": timeline.get("coverage")},
+        "trace_resolution": timeline["trace_resolution"],
+        "zero_lost_submits": failed == 0 and not lost,
+        "orphans": orphans,
+        "platform": "gpu" if args.device.startswith("cuda") else "cpu",
+        "basis": ("worker processes over gloo, one rank a host, with a real aiohttp wire "
+                  "tier: each host drains its ingest buffer host-locally and joins one "
+                  "cross-host all-reduce a round; the swarm's arrivals and backoffs ride "
+                  "a VirtualClock, submit latencies are wall-clock against live "
+                  "sockets.  Ranks that share one card measure the program, not a "
+                  "round across cards."),
+        "harness": "scripts/multihost_harness_torch.py federate",
+        "walltime_s": round(time.time() - t0, 1),
+    }
+    tel = RunTelemetry(telemetry_dir)
+    tel.record("federation", wire_clients=args.clients, hosts=n, survivors=len(survivors),
+               rounds=len(every), rounds_per_sec=artifact["rounds"]["rounds_per_sec"],
+               p99_submit_s=digest["p99_s"], accepted=wire["accepted"],
+               duplicates=wire["duplicates"], failed=failed, reroutes=wire["reroutes"],
+               rerouted_updates_drained=rerouted_drained,
+               terminated_early_redriven=wire["terminated_early"],
+               zero_lost_submits=artifact["zero_lost_submits"],
+               host_killed=victim if kill else None, kill_round=args.kill_round)
+    if kill:
+        tel.record("host_failure", kind="host_crash", host=victim, round=args.kill_round)
+        tel.record("recovery", **recovery)
+    tel.close()
+    out = Path(args.out_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    path = out / (f"federation_torch_{time.strftime('%Y%m%dT%H%M%S', time.gmtime())}"
+                  f"_{n}h.json")
+    path.write_text(json.dumps(artifact, indent=2) + "\n")
+    print(json.dumps(artifact, indent=2))
+    print(f"# artifact: {path}", flush=True)
+    problems = []
+    if failed or lost:
+        problems.append(f"lost submits: {failed} failed, clients never completed {lost}")
+    if not all(lines_a[h] for h in hosts):
+        problems.append(f"a host drained no rounds in phase A: "
+                        f"{ {h: len(v) for h, v in lines_a.items()} }")
+    if max(gaps) > FEDERATE_TOL or not same_bits:
+        problems.append(f"final params against the oracle: gaps {gaps} (tolerance "
+                        f"{FEDERATE_TOL}), hosts bit-equal {same_bits}")
+    if kill and not (wire["reroutes"] > 0 and rerouted_drained > 0):
+        problems.append(f"the kill rerouted no client ({wire['reroutes']} reroutes, "
+                        f"{rerouted_drained} rerouted updates drained)")
+    if kill and len(list(telemetry_dir.glob("host_*/telemetry.jsonl"))) < n:
+        problems.append("the dead host's telemetry stream did not survive")
+    if orphans:
+        problems.append(f"orphan workers survived: {orphans}")
+    if problems:
+        raise SystemExit("federate failed: " + "; ".join(problems))
+    print(f"federate OK: {n} hosts, {len(every)} drained rounds, {wire['accepted']} "
+          f"accepted, oracle gap {max(gaps):.3e}")
+    return 0
+
 def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(description=__doc__,
                                      formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument(
         "mode", choices=["smoke", "bench", "hostchaos", "federate", "worker"],
         help="smoke: a hosts-mesh world vs one rank; bench: rounds/s artifact; "
-        "hostchaos: seeded kill-and-recover drill; federate: needs item 18; worker: "
-        "internal (one rank)")
+        "hostchaos: seeded kill-and-recover drill; federate: wire clients into the "
+        "cross-host reduce; worker: internal (one rank)")
     parser.add_argument("--clients", type=int, default=None)
     parser.add_argument("--capacity", type=int, default=8, help="samples per client")
     parser.add_argument("--batch-size", type=int, default=8)
@@ -950,7 +1674,8 @@ def main(argv: list[str] | None = None) -> int:
                         "or cpu")
     parser.add_argument("--timeout", type=float, default=600.0,
                         help="per-world worker timeout (also the process group's)")
-    parser.add_argument("--job", choices=["smoke", "bench", "hostchaos"], default="smoke",
+    parser.add_argument("--job", choices=["smoke", "bench", "hostchaos", "federate"],
+                        default="smoke",
                         help="(worker) which launcher job this worker serves")
     parser.add_argument("--process-id", type=int, default=0, help="(worker) its rank")
     parser.add_argument("--rendezvous", default=None,
@@ -994,13 +1719,43 @@ def main(argv: list[str] | None = None) -> int:
                         help="(worker) per-round progress JSONL path")
     parser.add_argument("--resume", action="store_true",
                         help="(worker) resume from the newest complete generation")
+    parser.add_argument("--wire-port", type=int, default=0,
+                        help="(federate) host h listens on this + h; 0 picks free ports "
+                        "(a worker: its own port)")
+    parser.add_argument("--ingest-capacity", type=int, default=8192,
+                        help="(federate) ingest buffer rows a host")
+    parser.add_argument("--staleness-window", type=int, default=8,
+                        help="(federate) versions a submit may lag (>= 1)")
+    parser.add_argument("--round-quota", type=int, default=1024,
+                        help="(federate) drained updates a host must reach for a "
+                        "COMPLETED round (below: DEGRADED, still applied)")
+    parser.add_argument("--min-completion-rate", type=float, default=1.0)
+    parser.add_argument("--round-timeout-s", type=float, default=10.0,
+                        help="(federate) the shared beat: seconds a round")
+    parser.add_argument("--submits-per-client", type=int, default=1)
+    parser.add_argument("--arrival-rate", type=float, default=4000.0,
+                        help="(federate) virtual submits/s a host's swarm")
+    parser.add_argument("--max-rounds", type=int, default=10_000,
+                        help="(federate) rounds before the hosts vote stop on their own")
+    parser.add_argument("--federate-watchdog", type=float, default=240.0,
+                        help="(federate) deadline of a round's all-reduce")
+    parser.add_argument("--kill-round", type=int, default=None,
+                        help="(federate) a planned host_crash at this round: live "
+                        "reroutes, the world re-formed over the survivors, the dead "
+                        "host's clients re-driven")
+    parser.add_argument("--kill-host", type=int, default=None,
+                        help="(federate) the host --kill-round kills (default: the last)")
+    parser.add_argument("--reroute-grace", type=float, default=6.0,
+                        help="(federate) seconds the swarm reroutes to survivors after "
+                        "the kill before the world re-forms")
+    parser.add_argument("--stop-file", default=None, help="(worker) federate stop flag")
+    parser.add_argument("--ready-file", default=None, help="(worker) federate ready flag")
     args = parser.parse_args(argv)
 
     if args.clients is None:
         args.clients = 100_000 if args.mode == "bench" else 16
     if args.mode == "federate":
-        print(f"error: {FEDERATE_REFUSAL}", file=sys.stderr)
-        return 2
+        return run_federate(args)
     if args.mode == "worker":
         return run_worker(args)
     if args.mode == "smoke":

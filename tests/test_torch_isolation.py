@@ -1,5 +1,6 @@
 """The port imports neither JAX nor anything of ``nanofed_tpu`` (every module of the
-package, the fault plans and injectors, the multi-host harness's worker, fused
+package, the fault plans and injectors, the multi-host harness's worker, the load
+generator and the multi-tenant service when they run, fused
 multi-round blocks, the network mode, secure aggregation, signing, the ingest buffer,
 observability and tuning, the ResNets, the benchmark suite and the command line
 included, and the compressed codec, signing and ingest paths when they run), nor does
@@ -31,10 +32,12 @@ from nanofed_tpu_torch.communication.transport import free_port
 from nanofed_tpu_torch.core import resolve_device
 from nanofed_tpu_torch.data import federate, synthetic_classification
 from nanofed_tpu_torch.ingest import DeviceIngestBuffer, IngestConfig, IngestPipeline
+from nanofed_tpu_torch.loadgen import run_loadtest
 from nanofed_tpu_torch.models import get_model
 from nanofed_tpu_torch.orchestration import Coordinator, CoordinatorConfig
 from nanofed_tpu_torch.parallel import build_round_block, build_scaffold_round_step
 from nanofed_tpu_torch.security import secure_agg
+from nanofed_tpu_torch.service import FederationService, RoundScheduler, run_tenant_service
 from nanofed_tpu_torch.trainer import Trainer, TrainingConfig
 from nanofed_tpu_torch.tuning import PopulationSpec, autotune, profile_aggregation_epilogues
 from nanofed_tpu_torch.utils.trees import from_numpy_params
@@ -164,6 +167,35 @@ def test_faults_and_the_harness_worker_run_without_jax(tmp_path):
     assert proc.returncode == 0 and proc.stdout.split()[-1] == "ok", proc.stderr
 
 
+_RUN_LOADGEN_AND_SERVICE = """
+import logging, sys
+logging.disable(logging.WARNING)
+from nanofed_tpu_torch.loadgen import run_loadtest
+from nanofed_tpu_torch.service import TenantSpec, run_tenant_service
+rec = run_loadtest(mode="ingest", clients=16, async_buffer_k=8, ingest_capacity=16,
+                   virtual_clock=True, device="cpu")
+assert rec["failed_submits"] == 0 and rec["aggregations_completed"] == 2, rec
+art = run_tenant_service([TenantSpec(name="a", model="linear", rounds=1, async_buffer_k=4)],
+                         clients_per_tenant=8, submits_per_client=1, virtual_clock=True,
+                         sequential_baseline=False, out_dir=None, device="cpu")
+assert art["tenants"]["a"]["rounds_completed"] == 1, art
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
+             or m == "nanofed_tpu" or m.startswith("nanofed_tpu."))
+assert not bad, bad
+print("ok")
+"""
+
+
+def test_loadgen_and_service_run_without_jax():
+    """A swarm against the ingest path (``loadgen``) and a tenant behind the service's
+    shared listener, scheduler and device gate (``service``) run with no JAX and
+    nothing of the JAX package loaded."""
+    proc = subprocess.run([sys.executable, "-c", _RUN_LOADGEN_AND_SERVICE], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0 and proc.stdout.split()[-1] == "ok", proc.stderr
+
+
 def _harness_worker():
     spec = importlib.util.spec_from_file_location(
         "multihost_harness_torch", REPO / "scripts" / "multihost_harness_torch.py")
@@ -213,6 +245,12 @@ def _entry_points():
         "cli_bench": lambda: cli.main(["bench", "cross_silo", "--train-size", "64"]),
         "host_partial_row_empty": lambda: host_partial_row(None, 0.0, 3),
         "harness_worker": _harness_worker,
+        "RoundScheduler": lambda: RoundScheduler(),
+        "FederationService": lambda: FederationService(port=0),
+        "run_loadtest": lambda: run_loadtest(clients=4),
+        "run_tenant_service": lambda: run_tenant_service(out_dir=None),
+        "cli_loadtest": lambda: cli.main(["loadtest", "--clients", "4", "--virtual-clock"]),
+        "cli_tenants": lambda: cli.main(["tenants", "--clients", "4", "--virtual-clock"]),
     }
 
 
@@ -225,9 +263,12 @@ def _entry_points():
                                   "DeviceIngestBuffer", "IngestPipeline", "HTTPServer_ingest",
                                   "fedbuff_combine", "build_round_block",
                                   "Coordinator_fused", "run_benchmark", "cli_bench",
-                                  "host_partial_row_empty", "harness_worker"])
+                                  "host_partial_row_empty", "harness_worker",
+                                  "RoundScheduler", "FederationService", "run_loadtest",
+                                  "run_tenant_service", "cli_loadtest", "cli_tenants"])
 def test_entry_points_default_to_cuda_and_raise_without_it(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.delenv("NANOFED_AUTOTUNE_HBM_BUDGET", raising=False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         _entry_points()[name]()
     assert resolve_device("cpu").type == "cpu"

@@ -4,7 +4,9 @@ orphan-reaping contract of ``_wait``/``_reap``, the torn-tail progress reader), 
 the modes end to end with gloo ranks on a tiny model: ``smoke`` (2 ranks against 1
 within ``SMOKE_TOL``), ``bench`` (its artifact), and ``hostchaos`` for a planned
 ``host_crash`` (with a rejoin) and a ``host_stall`` (stall flagged after 3 s, watchdog
-deadline 5 s).  Each world's timeout is 120 s.  The four runs start together when the
+deadline 5 s), and ``federate`` (2 ranks as hosts under a 48-client swarm, every host's
+final params against the numpy replay; then a planned kill of host 1 in round 1 under a
+400-client swarm).  Each world's timeout is 120 s.  The six runs start together when the
 module's first run is asked for, so the file's wall time is the longest drill's."""
 
 import importlib.util
@@ -29,6 +31,15 @@ RUNS = {
     "bench": ["bench", *COMMON, "--client-chunk", "2", "--rounds", "2"],
     "crash": ["hostchaos", *COMMON, *DRILL, "--host-fault", "crash", "--rejoin-rounds", "2"],
     "stall": ["hostchaos", *COMMON, *DRILL, "--host-fault", "stall", "--rejoin-rounds", "0"],
+    # Short beats spread 48 wire clients over several rounds.
+    "federate": ["federate", "--device", "cpu", "--clients", "48", "--timeout", "120",
+                 "--round-timeout-s", "0.1", "--round-quota", "4", "--ingest-capacity", "64",
+                 "--arrival-rate", "20"],
+    # A population that outlasts round 1, where the plan kills host 1.
+    "federate_kill": ["federate", "--device", "cpu", "--clients", "400", "--timeout", "120",
+                      "--round-timeout-s", "0.2", "--round-quota", "4", "--ingest-capacity",
+                      "512", "--arrival-rate", "20", "--kill-round", "1", "--reroute-grace",
+                      "2", "--federate-watchdog", "30", "--block-size", "1"],
 }
 
 
@@ -148,11 +159,72 @@ def test_client_rows_are_the_jax_harness_draws(harness):
         assert got.dtype == want.dtype and (got == want).all()
 
 
-def test_federate_exits_2_naming_item_18():
-    proc = subprocess.run([sys.executable, str(SCRIPT), "federate", "--device", "cpu"],
-                          cwd=REPO, capture_output=True, text=True, timeout=120)
-    assert proc.returncode == 2
-    assert "item 18" in proc.stderr
+def test_federate_two_ranks_match_the_einsum_oracle(runs):
+    """Two gloo ranks as hosts, each a listener and an ingest buffer, one all-reduce a
+    round: every host ends on the numpy replay of the drained rounds within
+    ``FEDERATE_TOL``, the same bits on both, and no submit is lost."""
+    d, text = _finish(runs, "federate")
+    art = _artifact(d, "federation_torch_*.json")
+    oracle = art["oracle"]
+    assert len(oracle["max_abs_gap_by_host"]) == 2 and oracle["hosts_bit_equal"]
+    assert max(oracle["max_abs_gap_by_host"]) <= oracle["tolerance"] == 1e-5
+    assert art["zero_lost_submits"] and art["wire"]["failed"] == 0
+    assert art["wire"]["accepted"] + art["wire"]["duplicates"] >= 48
+    assert art["rounds"]["updates_aggregated"] == 48
+    assert art["rounds"]["drained_rounds"] >= 2 and art["orphans"] == []
+    assert art["topology"]["mesh_shape"] == [2, 1, 1] and art["platform"] == "cpu"
+    assert art["trace_resolution"]["resolved"]
+    assert "federate OK" in text
+    digest = summarize_telemetry(d / "tmp" / "fed_telemetry" / "telemetry.jsonl")
+    assert digest["federations"]["count"] == 1
+    assert digest["federations"]["zero_lost_submits"]
+
+
+def test_federate_kill_reroutes_reforms_and_loses_nothing(runs):
+    """A planned ``host_crash`` of host 1 in round 1: its clients reroute to host 0 live,
+    the world re-forms over host 0 from the newest generation both committed, the dead
+    host's clients are re-driven, no submit is lost, and host 0 ends on the replay of
+    the rounds kept."""
+    d, text = _finish(runs, "federate_kill")
+    art = _artifact(d, "federation_torch_*.json")
+    chaos = art["chaos"]
+    assert chaos["victim"] == 1 and chaos["kill_round"] == 1 and chaos["hosts_after"] == 1
+    assert chaos["resumed_round"] <= 1 and chaos["recovery_s"] > 0
+    assert art["topology"]["survivors"] == [0]
+    assert art["zero_lost_submits"] and art["wire"]["failed"] == 0
+    assert art["wire"]["reroutes"] > 0 and art["wire"]["rerouted_updates_drained"] > 0
+    assert max(art["oracle"]["max_abs_gap_by_host"]) <= art["oracle"]["tolerance"]
+    assert art["orphans"] == [] and "federate OK" in text
+    telemetry = d / "tmp" / "fed_telemetry"
+    assert len(list(telemetry.glob("host_*/telemetry.jsonl"))) == 2
+    digest = summarize_telemetry(telemetry / "telemetry.jsonl")
+    assert digest["host_failures"]["by_kind"] == {"host_crash": 1}
+    assert digest["recoveries"]["count"] == 1
+
+
+def test_federate_oracle_sees_a_changed_weight_or_a_lost_round(runs, harness):
+    """The replay is sensitive to what it checks: the busiest round's drains with one
+    weight scaled 100 times, or without that round (a round a kill lost), miss the hosts'
+    params."""
+    import numpy as np
+
+    d, _ = _finish(runs, "federate")
+    progress = [line for h in (0, 1)
+                for line in harness._read_progress(d / "tmp" / f"fed_progress_a_h{h}.jsonl")]
+    swarms = {f"h{h}": dict(num_clients=24, arrival="uniform", arrival_rate=20.0,
+                            seed=17 * h, client_prefix=f"h{h}", connector_limit=256,
+                            canned_payloads=4) for h in (0, 1)}
+    final = np.load(d / "tmp" / "fed_result_a_h0.json.params.npy").astype(np.float64)
+    want = harness.federate_oracle("digits_mlp", 0, swarms, progress)
+    assert np.abs(want - final).max() <= harness.FEDERATE_TOL
+    busiest = max(progress, key=lambda line: len(line["drains"]))
+    busiest["drains"][0][2] *= 100.0
+    assert np.abs(harness.federate_oracle("digits_mlp", 0, swarms, progress)
+                  - final).max() > harness.FEDERATE_TOL
+    busiest["drains"][0][2] /= 100.0
+    kept = [line for line in progress if line["round"] != busiest["round"]]
+    assert np.abs(harness.federate_oracle("digits_mlp", 0, swarms, kept)
+                  - final).max() > harness.FEDERATE_TOL
 
 
 def test_smoke_two_ranks_match_one(runs, harness):

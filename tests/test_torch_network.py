@@ -477,12 +477,9 @@ def test_codec_refuses_a_payload_that_does_not_fit_the_template():
 @pytest.mark.parametrize(
     "build",
     [
-        lambda: port_comm.HTTPServer(port=free_port(), max_inflight=4),
-        lambda: port_comm.HTTPServer(port=free_port(), transport=object()),
-        lambda: port_comm.HTTPServer(port=free_port(), tenant="t"),
         lambda: port_comm.HTTPServer(port=free_port(), fleet=object()),
     ],
-    ids=["admission", "transport", "tenant", "fleet"],
+    ids=["fleet"],
 )
 def test_later_slice_options_raise_naming_their_slice(build):
     """What the port still refuses names the ROADMAP item that brings it."""
