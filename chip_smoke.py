@@ -278,6 +278,24 @@ Phases (any failure exits non-zero):
    ``scripts/multihost_harness_torch.py federate`` on 2 gloo ranks sharing the card
    (run beside the cross-check of part 4: it times nothing), every host's params within
    1e-5 of the numpy replay of the drained rounds.
+   Then the heterogeneous fleet (phase (fl), ``nanofed_tpu_torch.fleet``): (fl1) the
+   ``base`` transformer (P = 97,745,408) behind ``HTTPServer(fleet=FleetGateway(
+   reference_fleet()))`` with a 16-row ingest buffer on a ``VirtualClock``, 24 clients
+   (7 rank-4 topk8 phones, 5 rank-8 q8 edge boxes, 1 rank-32 f32 silo a round), 3 rounds
+   of publish, tier-tagged ``GET /model``, ``run_fleet_swarm``, ``drain_ingest_fedavg``:
+   each round's publish seconds (factorization, views, payloads), decode seconds a
+   submit by tier, bytes by tier from ``/metrics``, the drain's seconds and the card's
+   peak; every submit accepted, one buffered row a tier within 1e-5 of its float64 host
+   recomputation (beside the host route's seconds for it), the head and one attention
+   leaf's views within 1e-4 of numpy's float64 truncated SVD and their projection
+   errors the singular-value tails within 1e-6, round 0's views revived, no kernel
+   launched; (fl2) the dense and padded routes over round 1's cohort within 1e-5; (fl3)
+   ``TenantFootprint.for_fleet`` against a drain's measured peak, ``sweep_fleet_mix``
+   under the card's budget, ``TuningSpace.for_fleet``'s profiled sweep at the
+   ``evidence`` config (ranks 2-64; B1 and B3 launches equal to ``sweep_launches``) with
+   its step costs fed to the mix sweep, B1 and B3 timed at its shapes; (fl4)
+   ``generate_fleet_evidence`` at 30 clients and 4 rounds and
+   ``generate_fedbuff_adapter_artifact`` at 100 clients and 4 aggregations.
 4. Cross-check: 8-client f32 rounds of the port on the card and on the CPU from the
    same weights, permutations and injected noise: the plain round with dropout off
    and on (the masks are an integer hash, the same bits on both devices), the
@@ -4389,17 +4407,18 @@ def hold_reduces(torch, ops, card: str, tag: str, seen: dict) -> None:
               f"stack against its plain version: max_abs_err={err:.3e}")
 
 
-def time_lm_reduces(torch, ops, card: str) -> None:
-    """(v) B1 (normalised or accumulate) and B3 at the transformer path's shapes, in the
-    round's layout, against their plain versions and the library calls, with bounds."""
+def time_lm_reduces(torch, ops, card: str, shapes=LM_REDUCES, tag: str = "(v)") -> None:
+    """B1 (normalised or accumulate) and B3 at a transformer path's ``shapes`` ((C, P,
+    form); default (v)'s), in the round's layout, against their plain versions and the
+    library calls, with bounds."""
     gen = torch.Generator(device="cuda").manual_seed(13)
-    for c, p, form in LM_REDUCES:
+    for c, p, form in shapes:
         x = round_layout(torch, c, p, seed=c + p)
         w = torch.rand(c, device="cuda", generator=gen) + 0.5
         if form == "accumulate":
             acc = torch.zeros(p, device="cuda")
             name = "weighted_sum_into"
-            err = check_close(torch, f"(v) {name} C={c} P={p}",
+            err = check_close(torch, f"{tag} {name} C={c} P={p}",
                               ops.weighted_sum_into(acc.clone(), x, w),
                               ops.weighted_sum_into_plain(acc.clone(), x, w), **TOL)
             ms = median_ms(lambda: ops.weighted_sum_into(acc, x, w), torch)
@@ -4408,25 +4427,25 @@ def time_lm_reduces(torch, ops, card: str) -> None:
             library, moved = "acc.addmv_(x.t(), w)", 4 * c * p + 8 * p + 4 * c
         else:
             name = "weighted_mean_flat"
-            err = check_close(torch, f"(v) {name} C={c} P={p}", ops.weighted_mean_flat(x, w),
+            err = check_close(torch, f"{tag} {name} C={c} P={p}", ops.weighted_mean_flat(x, w),
                               ops.weighted_mean_flat_plain(x, w), **TOL)
             ms = median_ms(lambda: ops.weighted_mean_flat(x, w), torch)
             plain_ms = median_ms(lambda: ops.weighted_mean_flat_plain(x, w), torch)
             library_ms = median_ms(lambda: w @ x, torch)
             library, moved = "w @ x", 4 * c * p + 4 * c + 4 * p
         b_ms, b_by = bound_ms(moved, 2 * c * p)
-        print(f"[{card}] (v) {name} C={c} P={p}: kernel_ms={ms:.6f} plain_ms={plain_ms:.6f} "
+        print(f"[{card}] {tag} {name} C={c} P={p}: kernel_ms={ms:.6f} plain_ms={plain_ms:.6f} "
               f"library_ms={library_ms:.6f} ({library}) bound_ms={b_ms:.6f} ({b_by}) "
               f"share_of_bound={b_ms / ms:.4f} max_abs_err={err:.3e} "
               f"{plan_line(torch, x, form == 'accumulate', False)}")
         if form == "normalised":
-            err = check_close(torch, f"(v) row_sq_norms C={c} P={p}", ops.row_sq_norms(x),
+            err = check_close(torch, f"{tag} row_sq_norms C={c} P={p}", ops.row_sq_norms(x),
                               ops.row_sq_norms_plain(x), **TOL)
             ms = median_ms(lambda: ops.row_sq_norms(x), torch)
             plain_ms = median_ms(lambda: ops.row_sq_norms_plain(x), torch)
             library_ms = median_ms(lambda: torch.linalg.vecdot(x, x), torch)
             b_ms, b_by = bound_ms(4 * c * p + 4 * c, 2 * c * p)
-            print(f"[{card}] (v) row_sq_norms C={c} P={p}: kernel_ms={ms:.6f} "
+            print(f"[{card}] {tag} row_sq_norms C={c} P={p}: kernel_ms={ms:.6f} "
                   f"plain_ms={plain_ms:.6f} library_ms={library_ms:.6f} "
                   f"(torch.linalg.vecdot(x, x)) bound_ms={b_ms:.6f} ({b_by}) "
                   f"share_of_bound={b_ms / ms:.4f} max_abs_err={err:.3e}")
@@ -6887,6 +6906,416 @@ def phase_service(torch, ops, card: str, out_dir: Path) -> dict[str, int]:
     return totals
 
 
+FLEET_POPULATION = 24  # (fl1): sub-swarms of 7 phones, 5 edge boxes and 1 silo a round
+FLEET_CAPACITY = 16  # (fl1): ingest rows, 6.25 GB at the base transformer's width
+FLEET_ROUNDS = 3  # (fl1): publish, swarm, drain, publish
+FLEET_ROW_RTOL = 1e-5  # (fl1): a buffered row against its float64 host recomputation
+FLEET_VIEW_RTOL = 1e-4  # (fl1): a view's image against numpy's float64 truncated SVD
+FLEET_TAIL_TOL = 1e-6  # (fl1): the projection error against the singular-value tail
+FLEET_ROUTE_RTOL = 1e-5  # (fl2): the padded route against the dense one
+FLEET_CHECK_LEAVES = ("head/kernel", "block_0/attn/wq/kernel")  # (fl1): 768x8192, 768x768
+FLEET_EVIDENCE = dict(num_clients=30, num_rounds=4, swarm_clients=60)  # (fl4), cut depth
+FLEDBUFF_CLIENTS = 100  # (fl4): the FedBuff adapter artifact's clients (its default: 400)
+FLEDBUFF_AGGREGATIONS = 4  # (fl4): of the 6 that 200 submits fill at K = 32 (default: 12)
+
+
+def rel_gap(got, want) -> float:
+    """max|got - want| over max|want| (numpy float64)."""
+    import numpy as np
+
+    scale = float(np.abs(want).max()) or 1.0
+    return float(np.abs(np.asarray(got, np.float64) - want).max()) / scale
+
+
+def fleet_host_row(spec, tree: dict, view_tree: dict, slices: dict, size: int):
+    """A tier submit's row recomputed on the host in float64: ``scaling * A @ B`` of the
+    decoded tree minus the view's, zeros off the targets."""
+    import numpy as np
+
+    row = np.zeros(size, np.float64)
+    for name, (offset, shape) in slices.items():
+        def image(t):
+            return spec.scaling * (t[f"{name}/A"].double().numpy() @ t[f"{name}/B"].double().numpy())
+        row[offset:offset + shape[0] * shape[1]] = (image(tree) - image(view_tree)).ravel()
+    return row
+
+
+def fleet_host_route_s(gateway, tier: str, body: bytes, view) -> float:
+    """Seconds of one submit's row built on the host, as the JAX gateway builds it: the
+    decode, ``adapter_delta`` and ``ravel`` in host float32, minus the view's host image
+    (copied to the host before the clock starts)."""
+    from nanofed_tpu_torch.adapters import adapter_delta
+    from nanofed_tpu_torch.fleet import decode_tier_submit
+    from nanofed_tpu_torch.utils.trees import ravel
+
+    image = view.flat_dense.cpu().numpy()
+    t0 = time.perf_counter()
+    tree = decode_tier_submit(gateway.profile.tier(tier), body, view.tree, view.tree)
+    row = ravel(adapter_delta(gateway.spec(tier), gateway.base_like, tree)).numpy() - image
+    del row
+    return time.perf_counter() - t0
+
+
+def phase_fleet_wire(torch, ops, card: str, out_dir: Path) -> tuple[dict, list]:
+    """(fl1): the fleet over live HTTP at the base transformer's width.  Returns the
+    per-round numbers and round 1's decoded cohort (for (fl2))."""
+    import numpy as np
+
+    import aiohttp
+
+    from nanofed_tpu_torch.adapters import AdapterSpec
+    from nanofed_tpu_torch.communication import HTTPServer
+    from nanofed_tpu_torch.communication.transport import free_port
+    from nanofed_tpu_torch.fleet import (
+        AdapterUpdate,
+        FleetGateway,
+        decode_tier_submit,
+        reference_fleet,
+        run_fleet_swarm,
+        tier_swarm_configs,
+    )
+    from nanofed_tpu_torch.fleet.aggregate import factor_leaves, factors_error
+    from nanofed_tpu_torch.ingest import IngestConfig
+    from nanofed_tpu_torch.models.transformer import flagship
+    from nanofed_tpu_torch.observability.registry import MetricsRegistry
+    from nanofed_tpu_torch.utils.clock import VirtualClock
+    from nanofed_tpu_torch.utils.trees import tree_size, unravel
+
+    profile = reference_fleet()
+    configs = tier_swarm_configs(profile, FLEET_POPULATION)
+    sizes = {name: c.num_clients for name, c in configs.items()}
+    if sizes != {"phone": 7, "edge": 5, "silo": 1}:
+        fail(f"(fl1) sub-swarms {sizes}, not 7/5/1")
+    params = {k: v.cuda() for k, v in flagship("base").init(
+        torch.Generator().manual_seed(0)).items()}
+    p = tree_size(params)
+    gateway = FleetGateway(profile, params, device="cuda")
+    n_leaves = len(gateway._slices)
+    print(f"[{card}] (fl1) base transformer P={p:,}, {n_leaves} targeted leaves "
+          f"({sum(int(np.prod(s)) for _, s in gateway._slices.values()):,} parameters); "
+          f"sub-swarms {sizes} of {FLEET_POPULATION}; ingest {FLEET_CAPACITY} rows "
+          f"({FLEET_CAPACITY * p * 4:,} B)")
+    decode_s: dict[str, list[float]] = {t: [] for t in profile.tier_names()}
+    captured: dict[int, list] = {}  # round -> [(tier, body)]
+    real_decode = gateway.decode_submit
+
+    def decode(tier, body, round_number):
+        t0 = time.perf_counter()
+        row = real_decode(tier, body, round_number)
+        decode_s[tier].append(time.perf_counter() - t0)
+        captured.setdefault(round_number, []).append((tier, body))
+        return row
+
+    gateway.decode_submit = decode
+    registry = MetricsRegistry()
+    clock = VirtualClock()
+    server = HTTPServer(port=free_port(), registry=registry, clock=clock, max_inflight=128,
+                        ingest=IngestConfig(capacity=FLEET_CAPACITY), fleet=gateway,
+                        device="cuda")
+    url = f"http://127.0.0.1:{server.port}"
+    rounds: list[dict] = []
+    cohort: list = []
+
+    def check_views_against_numpy(global_params) -> list[str]:
+        """The two leaves' views against numpy's float64 truncated SVD of the same
+        global delta, and the projection error against the singular-value tail."""
+        lines = []
+        for leaf in FLEET_CHECK_LEAVES:
+            delta = (global_params[leaf].double() - gateway._base[leaf].double()).cpu().numpy()
+            u, s, vt = np.linalg.svd(delta, full_matrices=False)
+            offset, shape = gateway._slices[leaf]
+            factors = factor_leaves({leaf: torch.from_numpy(delta).cuda()}, [leaf])
+            for tier, spec in gateway.specs.items():
+                r = spec.rank
+                want = (u[:, :r] * s[:r]) @ vt[:r]
+                got = gateway.view(tier).flat_dense[offset:offset + shape[0] * shape[1]]
+                gap = rel_gap(got.view(shape).cpu().numpy(), want)
+                tail = float(np.sqrt(np.sum(s[r:] ** 2) / np.sum(s ** 2)))
+                err = factors_error(factors, r)[leaf]
+                lines.append(f"{leaf} {tier} r={r}: image rel gap {gap:.3e}, error {err:.6e} "
+                             f"tail {tail:.6e}")
+                if gap > FLEET_VIEW_RTOL or abs(err - tail) > FLEET_TAIL_TOL:
+                    fail(f"(fl1) {leaf} {tier}: view image rel gap {gap:.3e} (tolerance "
+                         f"{FLEET_VIEW_RTOL}), error {err} against tail {tail}")
+        return lines
+
+    async def campaign():
+        global_params = params
+        await server.start()
+        try:
+            t0 = time.perf_counter()
+            await server.publish_model(params=global_params, round_number=0)
+            publish = {"wall_s": time.perf_counter() - t0, **gateway.last_publish_s}
+            for tier in profile.tier_names():
+                tree = gateway.view(tier).tree
+                dead = [k for k, a in tree.items() if k.endswith("/A")
+                        and bool((a.abs().sum(0) == 0).any())]
+                if dead or any(bool(tree[k].any()) for k in tree if k.endswith("/B")):
+                    fail(f"(fl1) round 0's {tier} view does not revive every direction: {dead}")
+            async with aiohttp.ClientSession() as http:
+                for r in range(FLEET_ROUNDS):
+                    for lst in decode_s.values():
+                        lst.clear()
+                    bases = {t: gateway.view(t).tree for t in profile.tier_names()}
+                    for tier in profile.tier_names():  # one client of a tier fetches its view
+                        async with http.get(f"{url}/model",
+                                            headers={"X-NanoFed-Tier": tier}) as resp:
+                            if await resp.read() != gateway.payload(tier):
+                                fail(f"(fl1) GET /model for {tier} is not its view's payload")
+                    t1 = time.perf_counter()
+                    results = await run_fleet_swarm(url, profile, bases, FLEET_POPULATION,
+                                                    seed=r, clock=clock, registry=registry,
+                                                    canned_payloads=1)
+                    swarm_s = time.perf_counter() - t1
+                    for tier, res in results.items():
+                        if res.failed or res.accepted != sizes[tier]:
+                            fail(f"(fl1) round {r} {tier}: {res.accepted} accepted of "
+                                 f"{sizes[tier]} submits, {res.failed} failed")
+                    checked = []
+                    if r == 0:
+                        # One buffered row a tier against its float64 host recomputation.
+                        buf = server.ingest_pipeline.buffer
+                        seen = set()
+                        for tier, body in captured.get(0, []):
+                            if tier in seen:
+                                continue
+                            seen.add(tier)
+                            view = gateway.view(tier, 0)
+                            tree = decode_tier_submit(profile.tier(tier), body, view.tree,
+                                                      view.tree)
+                            want = fleet_host_row(gateway.spec(tier), tree, view.tree,
+                                                  gateway._slices, p)
+                            gaps = []
+                            for m in buf.occupied():  # until one of the tier's rows holds
+                                if m.metrics.get("tier") == tier:
+                                    gaps.append(rel_gap(buf._buf[m.slot].cpu().numpy(), want))
+                                    if gaps[-1] <= FLEET_ROW_RTOL:
+                                        break
+                            host_s = fleet_host_route_s(gateway, tier, body, view)
+                            t_card = time.perf_counter()
+                            real_decode(tier, body, 0)
+                            card_s = time.perf_counter() - t_card
+                            checked.append(f"{tier} {min(gaps):.3e}; one submit alone: the "
+                                           f"host route (the JAX gateway's: densify and "
+                                           f"subtract in host float32) {host_s:.4f} s, the "
+                                           f"card route {card_s:.4f} s")
+                            if min(gaps) > FLEET_ROW_RTOL:
+                                fail(f"(fl1) no buffered {tier} row within {FLEET_ROW_RTOL} "
+                                     f"of its host recomputation: {gaps}")
+                    if r == 1:
+                        for tier, body in captured.get(1, []):
+                            view = gateway.view(tier, 1)
+                            tree = decode_tier_submit(profile.tier(tier), body, view.tree,
+                                                      view.tree)
+                            cohort.append(AdapterUpdate(
+                                spec=gateway.spec(tier), tier=tier,
+                                adapters={k: v.cuda() for k, v in tree.items()}))
+                    torch.cuda.synchronize()
+                    before = torch.cuda.memory_allocated()
+                    torch.cuda.reset_peak_memory_stats()
+                    t2 = time.perf_counter()
+                    flat, metas = await server.drain_ingest_fedavg()
+                    torch.cuda.synchronize()
+                    drain_s = time.perf_counter() - t2
+                    drain_peak = torch.cuda.max_memory_allocated() - before
+                    global_params = {k: v.clone() for k, v in unravel(flat, params).items()}
+                    del flat
+                    t3 = time.perf_counter()
+                    await server.publish_model(params=global_params, round_number=r + 1)
+                    next_publish = {"wall_s": time.perf_counter() - t3,
+                                    **gateway.last_publish_s}
+                    async with http.get(f"{url}/metrics") as resp:
+                        text = await resp.text()
+                    bytes_by_tier = {
+                        f"{t} {d}": prom_value(text, f'nanofed_fleet_bytes_total{{tier="{t}",'
+                                                     f'direction="{d}"}}')
+                        for t in profile.tier_names() for d in ("rx", "tx")}
+                    accepted = {t: prom_value(text, f'nanofed_fleet_updates_total{{tier="{t}",'
+                                                    'result="accepted"}')
+                                for t in profile.tier_names()}
+                    if accepted != {t: float(sizes[t] * (r + 1)) for t in sizes}:
+                        fail(f"(fl1) round {r}: accepted by tier {accepted}")
+                    views = check_views_against_numpy(global_params) if r == 0 else []
+                    rounds.append({
+                        "round": r, "publish": publish, "swarm_s": swarm_s,
+                        "decode_s": {t: (statistics.median(v) if v else None)
+                                     for t, v in decode_s.items()},
+                        "drain_s": drain_s, "drain_peak_bytes": drain_peak,
+                        "drained": len(metas), "bytes": bytes_by_tier,
+                        "peak_bytes": torch.cuda.max_memory_allocated(),
+                        "allocated_bytes": torch.cuda.memory_allocated(),
+                        "rows_checked": checked, "views_checked": views})
+                    publish = next_publish
+        finally:
+            server.stop_training()
+            await server.stop()
+        return global_params
+
+    torch.cuda.reset_peak_memory_stats()
+    global_params, wall, _ = counted(torch, ops, card, "(fl1) the fleet over live HTTP",
+                                     lambda: asyncio.run(campaign()), {})
+    for rec in rounds:
+        pub = rec["publish"]
+        print(f"[{card}] (fl1) round {rec['round']}: publish {pub['wall_s']:.3f} s (factor "
+              f"{pub['factor_s']:.3f}, views {pub['views_s']:.3f}, encode {pub['encode_s']:.3f}); "
+              f"swarm {rec['swarm_s']:.3f} s; decode s/submit "
+              + ", ".join(f"{t} {v:.4f}" for t, v in rec["decode_s"].items() if v is not None)
+              + f"; drain {rec['drain_s']:.4f} s over {rec['drained']} rows (peak +"
+              f"{rec['drain_peak_bytes']:,} B); bytes {rec['bytes']}; card peak "
+              f"{rec['peak_bytes']:,} B, allocated {rec['allocated_bytes']:,} B")
+        for line in rec["rows_checked"]:
+            print(f"[{card}] (fl1) round 0 buffered row vs float64 host: {line}")
+        for line in rec["views_checked"]:
+            print(f"[{card}] (fl1) round 1 view: {line}")
+    last = rounds[-1]["publish"]
+    print(f"[{card}] (fl1) final publish {last['wall_s']:.3f} s; wall_s {wall:.1f}; "
+          f"launches 0 as predicted (the drain is a plain product)")
+    del global_params
+    return {"rounds": rounds, "params": params, "p": p, "gateway": gateway}, cohort
+
+
+def phase_fleet_routes(torch, card: str, params: dict, cohort: list) -> None:
+    """(fl2): both aggregation routes over round 1's decoded cohort on the card
+    (uniform weights)."""
+    from nanofed_tpu_torch.fleet import aggregate_dense, aggregate_padded
+
+    out = {}
+    for name, route in (("dense", aggregate_dense), ("padded", aggregate_padded)):
+        gc.collect()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        agg = route(cohort, params)
+        torch.cuda.synchronize()
+        out[name] = (agg, time.perf_counter() - t0, torch.cuda.max_memory_allocated() - before)
+    dense, padded = out["dense"][0], out["padded"][0]
+    scale = max(float(v.abs().max()) for v in dense.values()) or 1.0
+    gap = max(float((dense[k] - padded[k]).abs().max()) for k in dense) / scale
+    ranks = sorted({u.spec.rank for u in cohort})
+    print(f"[{card}] (fl2) {len(cohort)} updates, ranks {ranks}: dense {out['dense'][1]:.4f} s "
+          f"peak +{out['dense'][2]:,} B; padded {out['padded'][1]:.4f} s peak "
+          f"+{out['padded'][2]:,} B; rel gap {gap:.3e} (tolerance {FLEET_ROUTE_RTOL})")
+    if gap > FLEET_ROUTE_RTOL:
+        fail(f"(fl2) padded route {gap:.3e} from the dense one")
+
+
+def phase_fleet_tuning(torch, ops, card: str, out_dir: Path, wire: dict) -> dict[str, int]:
+    """(fl3): the fleet footprint against a drain's measured peak, the mix sweep under the
+    card's budget, and ``TuningSpace.for_fleet`` at the evidence config (chunk and batch
+    pinned), its per-rank step costs fed to the mix sweep."""
+    from nanofed_tpu_torch.adapters import AdapterSpec, adapter_param_count
+    from nanofed_tpu_torch.fleet import reference_fleet, sweep_fleet_mix
+    from nanofed_tpu_torch.models.transformer import flagship
+    from nanofed_tpu_torch.observability.profiling import TIMED_CALLS
+    from nanofed_tpu_torch.service.scheduler import TenantFootprint
+    from nanofed_tpu_torch.trainer import TrainingConfig
+    from nanofed_tpu_torch.tuning import PopulationSpec, TuningSpace, autotune
+
+    profile = reference_fleet()
+    fp = TenantFootprint.for_fleet(profile, wire["params"], ingest_capacity=FLEET_CAPACITY)
+    peaks = [rec["drain_peak_bytes"] for rec in wire["rounds"]]
+    allocated = max(rec["allocated_bytes"] for rec in wire["rounds"])
+    print(f"[{card}] (fl3) TenantFootprint.for_fleet: resident {fp.resident_bytes:,} B, peak "
+          f"{fp.peak_extra_bytes:,} B ({fp.basis}); measured: a drain's peak "
+          f"+{max(peaks):,} B (rounds {peaks}), allocated after a publish {allocated:,} B")
+    outcomes = sweep_fleet_mix(profile, wire["params"], FLEET_POPULATION,
+                               ingest_capacity=FLEET_CAPACITY, device="cuda")
+    feasible = [o for o in outcomes if o.feasible]
+    print(f"[{card}] (fl3) sweep_fleet_mix under total_memory: {len(feasible)} of "
+          f"{len(outcomes)} feasible; best {feasible[0].to_dict() if feasible else None}")
+    model = flagship("evidence")
+    population = lm_population(LM_CLIENTS, 32, 16, "evidence")
+    pop = PopulationSpec.from_client_data(population)
+    space = dataclasses.replace(TuningSpace.for_fleet(profile, pop, 1, 16, 1),
+                                client_chunks=(None,), batch_sizes=(16,))
+    if space.adapter_ranks != (2, 4, 8, 16, 32, 64):
+        fail(f"(fl3) for_fleet ranks {space.adapter_ranks}")
+    training = TrainingConfig(batch_size=16, local_epochs=1, learning_rate=0.2)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = autotune(model, pop, training, space=space, adapter=AdapterSpec(rank=8),
+                      cache_dir=out_dir / "fl3_cache", out_dir=out_dir / "fl3_sweep",
+                      device="cuda")
+    torch.cuda.synchronize()
+    grew = ops.launch_counts()
+    print(f"[{card}] (fl3) autotune over TuningSpace.for_fleet: wall_s="
+          f"{time.perf_counter() - t0:.3f} launches={grew}")
+    want, oom = sweep_launches(result.to_dict(), LM_CLIENTS, 2 + TIMED_CALLS)
+    check_launches("(fl3) autotune(TuningSpace.for_fleet)", grew, want, oom)
+    print(f"[{card}] (fl3) launches equal sweep_launches: {want} ({oom} out-of-memory)")
+    costs = {o.config.adapter_rank: o.cost["measured_s_per_round"]
+             for o in result.outcomes if o.feasible and "measured_s_per_round" in o.cost}
+    if sorted(costs) != [2, 4, 8, 16, 32, 64]:
+        fail(f"(fl3) measured step costs for ranks {sorted(costs)}")
+    priced = sweep_fleet_mix(profile, wire["params"], FLEET_POPULATION,
+                             ingest_capacity=FLEET_CAPACITY, step_costs=costs, device="cuda")
+    print(f"[{card}] (fl3) per-rank step costs {costs}; priced best "
+          f"{priced[0].to_dict()}")
+    # B1 and B3 at the sweep's smallest and largest adapter shapes, timed (no count).
+    like = model.init(torch.Generator().manual_seed(0))
+    time_lm_reduces(torch, ops, card, tuple(
+        (LM_CLIENTS, adapter_param_count(AdapterSpec(rank=r), like)["adapter_params"],
+         "normalised") for r in (2, 64)), "(fl3)")
+    return grew
+
+
+def phase_fleet_evidence(torch, ops, card: str, out_dir: Path) -> None:
+    """(fl4): the fleet evidence at cut depth and the FedBuff adapter artifact."""
+    from nanofed_tpu_torch.adapters.evidence import generate_fedbuff_adapter_artifact
+    from nanofed_tpu_torch.fleet.evidence import generate_fleet_evidence
+
+    art, wall, _ = counted(torch, ops, card, "(fl4) generate_fleet_evidence", lambda:
+                           generate_fleet_evidence(out_dir=out_dir / "fl4", device="cuda",
+                                                   **FLEET_EVIDENCE), {})
+    print(f"[{card}] (fl4) {FLEET_EVIDENCE}: {art['conclusion']}; reached {art['reached']}; "
+          f"wall_s {wall:.1f}")
+    if art["mixed"]["parity_max_abs_diff"] > 1e-6 or art["swarm"]["failed_total"]:
+        fail(f"(fl4) parity {art['mixed']['parity_max_abs_diff']}, lost "
+             f"{art['swarm']['failed_total']}")
+    art, wall, _ = counted(torch, ops, card, "(fl4) generate_fedbuff_adapter_artifact",
+                           lambda: generate_fedbuff_adapter_artifact(
+                               out_dir=out_dir / "fl4", clients=FLEDBUFF_CLIENTS,
+                               aggregations=FLEDBUFF_AGGREGATIONS, device="cuda"), {})
+    print(f"[{card}] (fl4) FedBuff adapter artifact at {FLEDBUFF_CLIENTS} clients and "
+          f"{FLEDBUFF_AGGREGATIONS} aggregations (its defaults: 400 and 12): "
+          f"{art['conclusion']}; reached {art['reached']}; wall_s {wall:.1f}")
+    if art["fedbuff"]["failed_submits"] or not art["reached"]:
+        fail("(fl4) the FedBuff adapter scenario lost submits or did not reach its target")
+
+
+def phase_fleet(torch, ops, card: str, out_dir: Path) -> dict[str, int]:
+    """(fl): the heterogeneous fleet.  Returns the launches of (fl1)-(fl4): (fl3)'s
+    profiled sweep only."""
+    import logging
+
+    from nanofed_tpu_torch.utils.logger import LogConfig, Logger
+
+    Logger().configure(LogConfig(level=logging.WARNING))
+    t_phase = time.perf_counter()
+    base = out_dir / "fl_fleet"
+    base.mkdir(parents=True, exist_ok=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    wire, cohort = phase_fleet_wire(torch, ops, card, base)
+    t1 = time.perf_counter()
+    phase_fleet_routes(torch, card, wire["params"], cohort)
+    del cohort, wire["gateway"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    totals = phase_fleet_tuning(torch, ops, card, base, wire)
+    del wire
+    gc.collect()
+    torch.cuda.empty_cache()
+    t3 = time.perf_counter()
+    phase_fleet_evidence(torch, ops, card, base)
+    print(f"[{card}] (fl) wall_s={time.perf_counter() - t_phase:.1f} ((fl1) {t1 - t_phase:.1f}, "
+          f"(fl2) {t2 - t1:.1f}, (fl3) {t3 - t2:.1f}, (fl4) {time.perf_counter() - t3:.1f}); "
+          f"launches {totals}")
+    return totals
+
+
 def main() -> None:
     t_script = time.perf_counter()
     last = [t_script]
@@ -6968,13 +7397,15 @@ def main() -> None:
         mark("phase_chaos")
         service_counts = phase_service(torch, ops, card, Path(tmp))
         mark("phase_service")
+        fleet_counts = phase_fleet(torch, ops, card, Path(tmp))
+        mark("phase_fleet")
     wire_counts = phase_wire(torch, ops, card)
     mark("phase_wire")
     counts = {k: counts[k] + secure_counts[k] + tuned_counts[k] + resume_counts[k]
               + network_resume_counts[k] + dp_counts[k] + scaffold_counts[k]
               + fused_counts[k] + cifar_counts[k] + obs_counts[k] + lm_counts[k]
               + mesh_counts[k] + rest_counts[k] + chaos_counts[k]
-              + service_counts.get(k, 0) + wire_counts.get(k, 0)
+              + service_counts.get(k, 0) + fleet_counts.get(k, 0) + wire_counts.get(k, 0)
               for k in counts}
     print(f"kernels: {json.dumps(counts)}")
     missing = [k for k, v in counts.items() if v == 0]

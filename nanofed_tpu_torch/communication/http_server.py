@@ -45,20 +45,30 @@ The update pipeline is the JAX package's:
 * ``transport=`` and ``tenant=`` mount the session on a shared ``HTTPTransport`` under
   ``/t/<tenant>`` (the multi-tenant service): the transport's lifecycle governs, so
   such a session is never started itself, and its admission, dedup window, chaos and
-  metrics stay its own.
+  metrics stay its own;
+* the dense npz of the published params is encoded at the first untiered ``GET
+  /model`` after a publish, not at the publish as in the JAX server (the same bytes;
+  a fleet whose clients all fetch a tier's view never encodes it);
+* ``fleet=`` (a ``fleet.FleetGateway``) is the heterogeneous fleet: ``GET /model`` with
+  an ``X-NanoFed-Tier`` header serves that tier's low-rank view, and a tier-tagged
+  submit decodes by the tier's codec into a dense-delta row for the ingest buffer (one
+  pool job, ``fleet.decode_submit``; the slot's metrics carry its ``tier``).  An
+  unknown tier, an encoding header that disagrees with the tier's codec and a masked
+  body are 400s.  A fleet needs ``ingest=`` and excludes ``require_signatures``; every
+  publish projects the new global onto the tiers (``fleet.publish``).  A tier header
+  on a server without a fleet is a 400 (``bad_tier``), as in the JAX package.
 
 Wire metrics (``registry=``, default the process-wide registry) carry the JAX
 package's families: body bytes received and sent by endpoint, update submissions by
-kind and result, secure-aggregation evictions, 429s and read timeouts (the fleet
-families are registered and stay at 0 until the fleet slice).  A submit's
+kind and result, secure-aggregation evictions, 429s, read timeouts, and the fleet's
+bytes by tier and direction and tier submits by tier and result.  A submit's
 ``X-NanoFed-Trace`` header is parsed leniently, and with ``tracer=`` (a
 ``SpanTracer``) the offloaded decode runs inside a ``submit-decode`` span carrying its
 trace id.
 
-The server options of later slices raise ``NotImplementedError`` naming their item
-(:data:`LATER_SLICE_OPTIONS`), and the fleet's ``X-NanoFed-Tier`` header is ignored
-until that slice.  ``aiohttp`` is needed to build a server, not to
-import this module.
+Every server option of the JAX package is taken; :data:`LATER_SLICE_OPTIONS`, the
+table of options a later slice would bring, is empty.  ``aiohttp`` is needed to build
+a server, not to import this module.
 """
 
 from __future__ import annotations
@@ -116,13 +126,11 @@ HEADER_SECAGG = "X-NanoFed-SecAgg"  # "masked" flags a pairwise-masked uint32 pa
 HEADER_ENCODING = "X-NanoFed-Encoding"  # absent/"npz" = full params; or q8/topk8 delta
 HEADER_SUBMIT = "X-NanoFed-Submit"  # idempotency key: one per LOGICAL submit
 HEADER_TRACE = "X-NanoFed-Trace"  # W3C-style trace context: 00-<trace>-<span>-<flags>
-HEADER_TIER = "X-NanoFed-Tier"  # fleet tier of a submit (read by the fleet slice)
+HEADER_TIER = "X-NanoFed-Tier"  # fleet mode: which DeviceTier the client belongs to
 
 #: Server options of later slices, with the JAX defaults (accepted).  Any other value
 #: raises NotImplementedError naming the slice.
-LATER_SLICE_OPTIONS: dict[str, tuple[Any, str]] = {
-    "fleet": (None, "heterogeneous fleets (fleet slice, queue A item 16b)"),
-}
+LATER_SLICE_OPTIONS: dict[str, tuple[Any, str]] = {}
 
 
 def refuse_later_slice_options(owner: str, options: dict[str, Any],
@@ -193,6 +201,7 @@ class HTTPServer:
         retry_after_s: float = 0.25,
         transport: HTTPTransport | None = None,
         tenant: str | None = None,
+        fleet: Any | None = None,
         **later_slice_options: Any,
     ) -> None:
         """``client_keys`` maps client id -> PEM public key; with
@@ -213,11 +222,24 @@ class HTTPServer:
         submit to a full ingest buffer, get 429 + ``Retry-After: retry_after_s``.
         ``transport`` mounts this session on a shared transport under ``tenant``; then
         ``host``, ``port`` and ``max_request_size`` are the transport's and
-        :meth:`start` refuses (the service starts the transport once)."""
+        :meth:`start` refuses (the service starts the transport once).  ``fleet`` (a
+        ``fleet.FleetGateway``) serves and decodes tiers (module note); it needs
+        ``ingest`` and cannot combine with ``require_signatures``."""
         refuse_later_slice_options("HTTPServer", later_slice_options, LATER_SLICE_OPTIONS)
         require_aiohttp()
         if staleness_window < 0:
             raise ValueError("staleness_window must be >= 0")
+        if fleet is not None and ingest is None:
+            raise ValueError(
+                "fleet mode requires ingest= (tier submits decode into the "
+                "batched flat ingest buffer; there is no per-update path)"
+            )
+        if fleet is not None and require_signatures:
+            raise ValueError(
+                "fleet mode cannot combine with require_signatures: tier "
+                "submits never reconstruct the dense params tree a signature "
+                "would cover"
+            )
         if max_inflight is not None and max_inflight < 0:
             raise ValueError("max_inflight must be >= 0 (0 rejects every submit)")
         if transport is None and tenant is not None:
@@ -241,6 +263,7 @@ class HTTPServer:
         self._chaos = chaos
         self._clock = clock or SYSTEM_CLOCK
         self.ingest = ingest
+        self.fleet = fleet
         # The ingest buffer's device, resolved now so a missing card fails at
         # construction; the pipeline itself is built at the first publish (P).
         self._ingest_device = resolve_device(device) if ingest is not None else None
@@ -309,13 +332,12 @@ class HTTPServer:
             "nanofed_read_timeouts_total",
             "Request bodies that failed to arrive within read_timeout_s (408)",
         )
-        # The fleet families (the fleet slice writes them).
-        self.metrics_registry.counter(
+        self._m_fleet_bytes = self.metrics_registry.counter(
             "nanofed_fleet_bytes_total",
             "Fleet-mode body bytes by tier and direction (rx=submit, tx=model)",
             labels=("tier", "direction"),
         )
-        self.metrics_registry.counter(
+        self._m_fleet_updates = self.metrics_registry.counter(
             "nanofed_fleet_updates_total",
             "Fleet-mode tier submits by tier and result",
             labels=("tier", "result"),
@@ -352,12 +374,14 @@ class HTTPServer:
         updates and the round's share state are dropped (a straggler's masks are bound
         to the OLD round and would not cancel); so are buffered plain updates in sync
         mode.  In async mode the version joins the window and the buffer stays: a
-        straggler's update on an in-window version is still aggregatable."""
+        straggler's update on an in-window version is still aggregatable.  The dense
+        npz payload is encoded at the first ``GET /model`` without a tier header after
+        the publish (the JAX server encodes it at every publish), so a fleet whose
+        clients all fetch a tier's view never pays it."""
         host = {name: leaf.detach().cpu() for name, leaf in params.items()}
-        payload = encode_params(host)
         async with self._lock:
             self._params = host
-            self._params_bytes = payload
+            self._params_bytes = None
             self._param_count = sum(int(leaf.numel()) for leaf in host.values())
             self._round = round_number
             if self.ingest is not None:
@@ -373,6 +397,9 @@ class HTTPServer:
                                                    window=self.staleness_window)
                 if self.staleness_window == 0:
                     self._ingest_pipeline.clear()
+            if self.fleet is not None:
+                # The tier views version with the flat base cache's window rule.
+                self.fleet.publish(round_number, params, window=self.staleness_window)
             if self.staleness_window > 0:
                 self._version_params[round_number] = host
                 floor = round_number - self.staleness_window
@@ -739,8 +766,25 @@ class HTTPServer:
         if not self._training_active:
             return web.Response(status=200, headers={
                 HEADER_STATUS: "terminated", HEADER_ROUND: str(self._round)})
-        if self._params_bytes is None:
+        if self._params is None:
             return _error("no model published", 503)
+        tier = request.headers.get(HEADER_TIER)
+        if tier is not None:
+            if self.fleet is None:
+                return _error("tier header on a server with no fleet configured", 400)
+            try:
+                body = self.fleet.payload(tier)
+            except Exception as e:
+                return _error(f"bad tier: {e}", 400)
+            self._m_bytes_tx.inc(len(body), endpoint="model")
+            self._m_fleet_bytes.inc(len(body), tier=tier, direction="tx")
+            return web.Response(
+                body=body, content_type="application/octet-stream",
+                headers={HEADER_STATUS: "training", HEADER_ROUND: str(self._round),
+                         HEADER_TIER: tier},
+            )
+        if self._params_bytes is None:  # no await since the check: no publish interleaves
+            self._params_bytes = encode_params(self._params)
         self._m_bytes_tx.inc(len(self._params_bytes), endpoint="model")
         return web.Response(
             body=self._params_bytes, content_type="application/octet-stream",
@@ -777,6 +821,11 @@ class HTTPServer:
             self._reject_update("no_model")
             return _error("no model published", 503)
         masked = request.headers.get(HEADER_SECAGG) == "masked"
+        tier = request.headers.get(HEADER_TIER)
+        if tier is not None:
+            verdict = self._check_tier(tier, masked, request.headers.get(HEADER_ENCODING))
+            if verdict is not None:
+                return verdict
         # Idempotent-submit dedupe first: a retry of an accepted submit may arrive
         # after the round advanced, and a 400 would make a topk8 client fold a delta
         # the server already has.  The authoritative re-check runs under the lock.
@@ -815,19 +864,44 @@ class HTTPServer:
                     request, client_id, round_number, metrics, submit_id, fingerprint)
             return await self._admitted_submit_update(
                 request, client_id, round_number, metrics, submit_id, fingerprint,
-                encoding, trace)
+                encoding, trace, tier)
         finally:
             self._inflight -= 1
+
+    def _check_tier(self, tier: str, masked: bool, explicit: str | None
+                    ) -> web.Response | None:
+        """The 400 for a tier-tagged submit the fleet cannot take, or None: no fleet, a
+        masked body (the mask hides the codec's structure), an unknown tier, or an
+        encoding header other than the tier's codec."""
+        if self.fleet is None:
+            self._reject_update("bad_tier")
+            return _error("tier header on a server with no fleet configured", 400)
+        if masked:
+            self._reject_update("bad_tier", kind="masked")
+            return _error("tier routing cannot combine with SecAgg masked payloads", 400)
+        try:
+            tier_encoding = self.fleet.profile.tier(tier).encoding
+        except Exception as e:
+            self._reject_update("bad_tier")
+            return _error(f"bad tier: {e}", 400)
+        if explicit is not None and explicit != tier_encoding:
+            self._reject_update("bad_tier")
+            self._m_fleet_updates.inc(tier=tier, result="encoding_mismatch")
+            return _error(f"tier {tier!r} submits {tier_encoding!r}, not {explicit!r}", 400)
+        return None
 
     async def _admitted_submit_update(
         self, request: web.Request, client_id: str, round_number: int,
         metrics: dict[str, Any], submit_id: str | None, fingerprint: str, encoding: str,
-        trace: TraceContext | None,
+        trace: TraceContext | None, tier: str | None = None,
     ) -> web.StreamResponse:
         """A plain submit after admission; the caller holds one in-flight slot for the
-        read, decode, verify and buffer."""
+        read, decode, verify and buffer.  A tier submit decodes by its tier's codec."""
         body = await self._read_body(request)
         self._m_bytes_rx.inc(len(body), endpoint="update")
+        if tier is not None:
+            self._m_fleet_bytes.inc(len(body), tier=tier, direction="rx")
+            encoding = self.fleet.profile.tier(tier).encoding
         if encoding not in ("npz", ENCODING_Q8_DELTA, ENCODING_TOPK8):
             self._reject_update("bad_encoding")
             return _error(f"unknown encoding {encoding!r}", 400)
@@ -852,7 +926,10 @@ class HTTPServer:
             # One pool job a submit: decode (a compressed delta reconstructs base +
             # delta in the codec's numpy float32 arithmetic: what the client signed),
             # verify on a signing server, and on the ingest path flatten to the host
-            # float32 delta against the snapshotted base.
+            # float32 delta against the snapshotted base.  A tier submit is the
+            # gateway's row against the tier's view of the client's round.
+            if tier is not None:
+                return self.fleet.decode_submit(tier, body, round_number), None
             if encoding == ENCODING_TOPK8:
                 params = reconstruct_topk8(base, body)
             elif encoding == ENCODING_Q8_DELTA:
@@ -875,6 +952,8 @@ class HTTPServer:
                 params, verdict = await self._offload(decode)
         except Exception as e:
             self._reject_update("bad_payload")
+            if tier is not None:
+                self._m_fleet_updates.inc(tier=tier, result="bad_payload")
             return _error(f"bad payload: {e}", 400)
         if verdict is not None:
             self._reject_update("bad_signature")
@@ -882,7 +961,7 @@ class HTTPServer:
         if ingest:
             return await self._ingest_buffer_update(
                 client_id, round_number, metrics, submit_id, fingerprint, params,
-                trace="" if trace is None else trace.trace_id)
+                trace="" if trace is None else trace.trace_id, tier=tier)
         async with self._lock:
             if self._duplicate_submit(client_id, submit_id, fingerprint):
                 return self._duplicate_response(client_id)
@@ -905,17 +984,21 @@ class HTTPServer:
     async def _ingest_buffer_update(
         self, client_id: str, round_number: int, metrics: dict[str, Any],
         submit_id: str | None, fingerprint: str, flat_delta: Any, trace: str = "",
+        tier: str | None = None,
     ) -> web.StreamResponse:
-        """The ingest tail of an admitted plain submit: the host delta against the
+        """The ingest tail of an admitted plain submit: the delta against the
         snapshotted base offered to the buffer under the lock, with the submit's trace
-        id.  A full buffer is a 429 + Retry-After with the idempotency key not
-        recorded, so a retry lands later."""
+        id (and a tier submit's ``tier`` in the slot's metrics).  A full buffer is a
+        429 + Retry-After with the idempotency key not recorded, so a retry lands
+        later."""
         async with self._lock:
             if self._duplicate_submit(client_id, submit_id, fingerprint):
                 return self._duplicate_response(client_id)
             if not self._round_acceptable(round_number):
                 self._reject_update("stale_round")
                 return self._stale(round_number)
+            if tier is not None:
+                metrics = dict(metrics, tier=tier)
             slot = self._ingest_pipeline.offer(flat_delta, client_id=client_id,
                                                round_number=round_number, metrics=metrics,
                                                trace=trace)
@@ -923,7 +1006,11 @@ class HTTPServer:
                 self._record_submit_locked(client_id, submit_id, fingerprint)
                 buffered = self._ingest_pipeline.fill
         if slot is None:
+            if tier is not None:
+                self._m_fleet_updates.inc(tier=tier, result="ingest_full")
             return self._ingest_full()
+        if tier is not None:
+            self._m_fleet_updates.inc(tier=tier, result="accepted")
         self._m_updates.inc(kind="plain", result="accepted")
         self._log.info("ingested update from %s (round %d, slot %d, %d buffered)",
                        client_id, round_number, slot, buffered)

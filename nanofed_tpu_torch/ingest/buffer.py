@@ -5,7 +5,9 @@ Layout: one preallocated ``[capacity, P]`` float32 tensor of flattened client de
 on the card, plus host-side slot bookkeeping: a free list and per-slot metadata
 (client id, base round, aggregation weight, metrics, arrival sequence).  An accepted
 offer stages its host row (no device work on the serving event loop); the staged rows
-reach the card in one ``index_copy_`` at the next drain.  A drain is one product::
+reach the card in one ``index_copy_`` at the next drain.  A row that is already a
+tensor (a fleet tier's submit, densified on the card by ``fleet.FleetGateway``) is
+copied into its slot at once: the JAX buffer takes host rows only.  A drain is one product::
 
     new_flat = base_flat + coefs @ buffer        # torch.addmv, [P] + [capacity]·[capacity, P]
 
@@ -122,16 +124,23 @@ class DeviceIngestBuffer:
               metrics: Mapping[str, Any] | None = None, trace: str = "") -> int | None:
         """Stage one client's flattened delta into a slot; the slot, or None when the
         buffer is full.  ``trace`` is the submit's trace id, kept in the slot's record.  One live slot per client: a client's newer submit replaces
-        its unaggregated older one in place (latest wins)."""
+        its unaggregated older one in place (latest wins).  A host array is staged and
+        reaches the card at the next drain; a tensor (a fleet tier's row, built on the
+        card) is copied into its slot at once."""
         slot = self._client_slot.get(client_id)
         if slot is None:
             if not self._free:
                 return None
             slot = self._free.pop()
-        vec = np.asarray(flat_delta, np.float32)
-        if vec.shape != (self.flat_size,):
-            raise ValueError(f"flat delta shape {vec.shape} != ({self.flat_size},)")
-        self._staged[slot] = vec
+        row = flat_delta if torch.is_tensor(flat_delta) else np.asarray(flat_delta, np.float32)
+        if tuple(row.shape) != (self.flat_size,):
+            raise ValueError(f"flat delta shape {tuple(row.shape)} != ({self.flat_size},)")
+        if torch.is_tensor(row):
+            self._staged.pop(slot, None)
+            self._buf[slot].copy_(row)
+            self._dirty.add(slot)
+        else:
+            self._staged[slot] = row
         self._seq += 1
         self._meta[slot] = SlotMeta(slot=slot, client_id=client_id,
                                     round_number=int(round_number), weight=float(weight),

@@ -11,7 +11,9 @@ value back.  The parent waits with one deadline for the whole world: on timeout 
 kills every rank and raises ``TimeoutError``; when a rank raises, it gives the others a
 moment to report (a rank's failure usually breaks its peers' collectives too), kills
 the rest (they would wait in a collective forever) and raises ``RuntimeError`` with
-every failed rank's traceback.  A rank on the CPU runs with one thread.
+every failed rank's traceback.  A rank on the CPU runs with one thread.  A rank dies
+with the process that spawned it (:func:`die_with_parent`): a parent killed by SIGKILL
+runs no ``finally`` and would leave its ranks waiting in a collective forever.
 
 ``fn`` and its arguments and result cross processes by pickling, so ``fn`` is a
 module-level function of an importable module.
@@ -19,10 +21,14 @@ module-level function of an importable module.
 
 from __future__ import annotations
 
+import ctypes
 import multiprocessing as mp
+import os
 import queue
 import shutil
+import signal
 import tempfile
+import threading
 import time
 import traceback
 from pathlib import Path
@@ -33,13 +39,45 @@ import torch
 # Seconds the parent waits for the other ranks' reports once one rank has failed.
 FAILURE_GRACE_S = 3.0
 
+#: Linux's ``prctl`` option that has the kernel signal a process when its parent dies.
+PR_SET_PDEATHSIG = 1
+
+#: Seconds between two looks at the parent pid where ``prctl`` is missing.
+PARENT_POLL_S = 0.5
+
+
+def die_with_parent(parent_pid: int) -> None:
+    """Have this process killed (SIGKILL) once ``parent_pid``, the process that started
+    it, is gone, however it ended; a process parked forever (a planned host stall, a
+    collective whose peer died) then goes with it.  On Linux the kernel does it
+    (``prctl(PR_SET_PDEATHSIG, SIGKILL)``), elsewhere a daemon thread that polls
+    ``os.getppid()``.  The parent may have died before the call: the pid is checked
+    again after it, which closes that race."""
+    try:
+        armed = ctypes.CDLL(None, use_errno=True).prctl(
+            PR_SET_PDEATHSIG, signal.SIGKILL, 0, 0, 0) == 0
+    except (AttributeError, OSError):
+        armed = False
+    if os.getppid() != parent_pid:
+        os.kill(os.getpid(), signal.SIGKILL)
+    if armed:
+        return
+
+    def watch() -> None:
+        while os.getppid() == parent_pid:
+            time.sleep(PARENT_POLL_S)
+        os.kill(os.getpid(), signal.SIGKILL)
+
+    threading.Thread(target=watch, name="nanofed-parent-watch", daemon=True).start()
+
 
 def _rank_main(fn: Callable, rank: int, world_size: int, backend: str, device: str,
-               init_method: str, args: tuple, results: Any) -> None:
+               init_method: str, args: tuple, results: Any, parent_pid: int) -> None:
     import torch.distributed as dist
 
     from nanofed_tpu_torch.parallel.mesh import initialize_distributed
 
+    die_with_parent(parent_pid)
     try:
         if torch.device(device).type == "cpu":
             torch.set_num_threads(1)
@@ -75,7 +113,8 @@ def spawn_world(
     init_method = f"file://{rdv_dir / 'rendezvous'}"
     procs = [
         ctx.Process(target=_rank_main, daemon=True, args=(
-            fn, rank, world_size, backend, device, init_method, args, results))
+            fn, rank, world_size, backend, device, init_method, args, results,
+            os.getpid()))
         for rank in range(world_size)
     ]
     out: dict[int, Any] = {}

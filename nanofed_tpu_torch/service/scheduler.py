@@ -34,6 +34,8 @@ import time
 from dataclasses import dataclass
 from typing import Any
 
+import numpy as np
+
 from nanofed_tpu_torch.core.device import DeviceLike
 from nanofed_tpu_torch.observability.registry import MetricsRegistry, get_registry
 
@@ -67,11 +69,34 @@ class TenantFootprint:
     @classmethod
     def for_fleet(cls, profile: Any, base_like: Any, ingest_capacity: int,
                   agg_k: int = 8) -> "TenantFootprint":
-        """The JAX package sizes a heterogeneous-fleet tenant by its largest-rank tier
-        (``nanofed_tpu.fleet``); the fleet comes with ROADMAP queue A item 16b."""
-        raise NotImplementedError(
-            "TenantFootprint.for_fleet: heterogeneous fleets come with the fleet slice "
-            "(ROADMAP queue A item 16b); run nanofed_tpu for it")
+        """The analytic footprint of a heterogeneous-fleet tenant
+        (``nanofed_tpu_torch.fleet.FleetProfile``), sized by its largest-rank tier: the
+        fleet aggregates in dense-delta space, so the ingest buffer and the drain are
+        dense whatever the tier ranks, and the adapter state is the max-rank tier's.
+        Resident: the frozen base and its published copy, one max-rank A/B projection
+        and the ``capacity x P`` ingest buffer; peak: the ``(K + 2) x P`` drain shape.
+        The JAX package's numbers; ``chip_smoke.py`` (fl3) holds them against a
+        drain's measured peak on the card."""
+        from nanofed_tpu_torch.adapters.lora import AdapterSpec, adapter_param_count
+
+        flat = sum(int(np.prod(tuple(getattr(leaf, "shape", leaf))) or 1)
+                   for leaf in base_like.values())
+        top = profile.max_rank_tier
+        counts = adapter_param_count(AdapterSpec(rank=top.adapter_rank), base_like)
+        resident = (
+            2 * flat * 4  # frozen base + published dense copy
+            + 2 * counts["adapter_bytes_f32"]  # max-rank A/B projection
+            + ingest_capacity * flat * 4  # dense ingest buffer rows
+        )
+        peak = (agg_k + 2) * flat * 4
+        return cls(
+            resident_bytes=int(resident),
+            peak_extra_bytes=int(peak),
+            basis=(
+                f"analytic fleet({profile.name}): dense ingest, sized by "
+                f"max-rank tier '{top.name}' (rank {top.adapter_rank})"
+            ),
+        )
 
 
 class _Lease:

@@ -259,6 +259,29 @@ class TuningSpace:
             adapter_ranks=ranks,
         )
 
+    @classmethod
+    def for_fleet(
+        cls,
+        profile: Any,
+        population: PopulationSpec,
+        n_devices: int,
+        batch_size: int,
+        num_rounds: int,
+        hosts: tuple[int, ...] | None = None,
+    ) -> "TuningSpace":
+        """The profiled-cost space of a heterogeneous fleet
+        (``nanofed_tpu_torch.fleet.FleetProfile``): :meth:`default` with the
+        adapter-rank axis the sorted union of every tier's ``{max(1, r//2), r, 2r}``
+        ladder.  The mix itself is swept analytically (``fleet.tuning``); this space
+        prices each rank a mix could give a tier once, and the mix sweep reads those
+        prices (``sweep_fleet_mix(step_costs=)``)."""
+        base = cls.default(population, n_devices, batch_size, num_rounds, hosts=hosts)
+        ranks: set[int] = set()
+        for t in profile.tiers:
+            r = int(t.adapter_rank)
+            ranks.update({max(1, r // 2), r, 2 * r})
+        return dataclasses.replace(base, adapter_ranks=tuple(sorted(ranks)))
+
     def candidates(self) -> list[CandidateConfig]:
         out = []
         for chunk in self.client_chunks:

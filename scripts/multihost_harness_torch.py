@@ -53,6 +53,11 @@ gloo, so ranks may share one card; ``--device cpu`` runs them on the CPU).  Mode
   the dead host's population; the replay drops the rounds drained after that
   generation, and no submit may be lost.
 
+No worker outlives its supervisor: the supervisor reaps every worker it started on
+every exit path (SIGTERM included, raised as ``SystemExit``), and a worker dies with
+its supervisor (``parallel.launch.die_with_parent``), so a SIGKILLed supervisor, which
+reaps nothing, leaves no stalled rank behind.
+
 Run from the repo root, e.g. ``python3 scripts/multihost_harness_torch.py smoke
 --device cpu --clients 8``.  Nothing here imports JAX or the JAX package.
 """
@@ -63,6 +68,7 @@ import argparse
 import json
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import time
@@ -88,10 +94,25 @@ from nanofed_tpu_torch.faults.host_injector import (  # noqa: E402
 FEDERATE_TOL = 1e-5
 
 
+#: The environment variable that hands a worker its supervisor's pid.
+SUPERVISOR_PID_ENV = "NANOFED_HARNESS_SUPERVISOR_PID"
+
+#: Every worker this supervisor started; ``main`` reaps them on every exit path.
+_WORKERS: list[subprocess.Popen] = []
+
+
 def _worker_env() -> dict[str, str]:
     env = dict(os.environ)
     env["PYTHONPATH"] = f"{REPO}{os.pathsep}" + env.get("PYTHONPATH", "")
+    env[SUPERVISOR_PID_ENV] = str(os.getpid())
     return env
+
+
+def _popen(cmd: list[str]) -> subprocess.Popen:
+    """Start one worker and register it for the supervisor's final reap."""
+    proc = subprocess.Popen(cmd, env=_worker_env())
+    _WORKERS.append(proc)
+    return proc
 
 
 def client_rows(client_ids, capacity: int, feat: tuple[int, ...], seed: int):
@@ -125,6 +146,10 @@ def run_worker(args: argparse.Namespace) -> int:
     """One rank: join the world, build the hosts mesh, hold only this host's client
     rows, run the round program, report through files."""
     t0 = time.time()
+    from nanofed_tpu_torch.parallel.launch import die_with_parent
+
+    if SUPERVISOR_PID_ENV in os.environ:  # before the world forms: no rank outlives it
+        die_with_parent(int(os.environ[SUPERVISOR_PID_ENV]))
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -658,7 +683,7 @@ def _spawn(args: argparse.Namespace, worker_args: list[str], n: int,
                "--process-id", str(pid), "--num-processes", str(n),
                "--rendezvous", str(rdv), "--device", args.device,
                "--timeout", str(args.timeout), "--out", out, *worker_args]
-        procs.append(subprocess.Popen(cmd, env=_worker_env()))
+        procs.append(_popen(cmd))
     return procs
 
 
@@ -688,6 +713,11 @@ def _reap(procs: list[subprocess.Popen], grace_s: float = 5.0) -> None:
         except subprocess.TimeoutExpired:
             q.kill()
             q.wait()
+
+
+def _exit_on_sigterm(signum: int, frame: object) -> None:
+    """SIGTERM as ``SystemExit``, so the supervisor's final reap runs."""
+    raise SystemExit(128 + signum)
 
 
 def _wait(procs: list[subprocess.Popen], timeout_s: float) -> None:
@@ -851,7 +881,7 @@ def _spawn_hostchaos(args: argparse.Namespace, host_ids: list[int], *, rounds: i
             cmd += ["--out", str(out)]
         if progress is not None and pid == 0:
             cmd += ["--progress", str(progress)]
-        procs.append(subprocess.Popen(cmd, env=_worker_env()))
+        procs.append(_popen(cmd))
     return procs
 
 
@@ -1283,7 +1313,7 @@ def _spawn_federate(args: argparse.Namespace, host_ids: list[int], ports: list[i
             cmd.append("--resume")
         if plan_path is not None:
             cmd += ["--fault-plan", str(plan_path)]
-        procs.append(subprocess.Popen(cmd, env=_worker_env()))
+        procs.append(_popen(cmd))
     return procs
 
 
@@ -1754,15 +1784,15 @@ def main(argv: list[str] | None = None) -> int:
 
     if args.clients is None:
         args.clients = 100_000 if args.mode == "bench" else 16
-    if args.mode == "federate":
-        return run_federate(args)
     if args.mode == "worker":
         return run_worker(args)
-    if args.mode == "smoke":
-        return run_smoke(args)
-    if args.mode == "hostchaos":
-        return run_hostchaos(args)
-    return run_bench(args)
+    run = {"smoke": run_smoke, "bench": run_bench, "hostchaos": run_hostchaos,
+           "federate": run_federate}[args.mode]
+    signal.signal(signal.SIGTERM, _exit_on_sigterm)
+    try:
+        return run(args)
+    finally:
+        _reap(_WORKERS)
 
 
 if __name__ == "__main__":

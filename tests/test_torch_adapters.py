@@ -213,11 +213,6 @@ def test_measure_wire_bytes_equals_jax(adapter_delta_trees):
     assert got["q8_reduction"] > 1.0
 
 
-def test_fedbuff_adapter_artifact_waits_for_the_fleet():
-    with pytest.raises(NotImplementedError, match="item 16b"):
-        evidence.generate_fedbuff_adapter_artifact()
-
-
 def test_flagship_memory_sweep_on_tiny_configs():
     """The sweep's shape on the CPU at the smallest configurations: the replicated
     dense and adapter rounds run, the model-sharded layouts are rejected (one

@@ -1,6 +1,6 @@
 """The port imports neither JAX nor anything of ``nanofed_tpu`` (every module of the
 package, the fault plans and injectors, the multi-host harness's worker, the load
-generator and the multi-tenant service when they run, fused
+generator, the multi-tenant service and the fleet when they run, fused
 multi-round blocks, the network mode, secure aggregation, signing, the ingest buffer,
 observability and tuning, the ResNets, the benchmark suite and the command line
 included, and the compressed codec, signing and ingest paths when they run), nor does
@@ -193,6 +193,39 @@ def test_loadgen_and_service_run_without_jax():
     nothing of the JAX package loaded."""
     proc = subprocess.run([sys.executable, "-c", _RUN_LOADGEN_AND_SERVICE], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0 and proc.stdout.split()[-1] == "ok", proc.stderr
+
+
+_RUN_FLEET = """
+import asyncio, logging, sys
+logging.disable(logging.WARNING)
+from nanofed_tpu_torch import fleet
+from nanofed_tpu_torch.fleet import evidence
+from nanofed_tpu_torch.models import get_model
+profile = fleet.reference_fleet()
+base = get_model("mlp", in_features=16, hidden=8, num_classes=4).init(
+    __import__("torch").Generator().manual_seed(0))
+fleet.sweep_fleet_mix(profile, base, 24, device="cpu")
+rec = evidence.run_fleet_convergence(profile, num_clients=4, num_rounds=1, local_steps=1,
+                                     device="cpu")
+assert rec["parity_max_abs_diff"] <= 1e-6, rec
+digest = asyncio.run(evidence._swarm_leg(profile, num_clients=6, submits_per_client=1,
+                                         device="cpu"))
+assert digest["failed_total"] == 0 and digest["accepted_total"] > 0, digest
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
+             or m == "nanofed_tpu" or m.startswith("nanofed_tpu."))
+assert not bad, bad
+print("ok")
+"""
+
+
+def test_the_fleet_runs_without_jax():
+    """The fleet (``fleet``: the mix sweep, an in-process round through the gateway, the
+    wire codecs and both aggregation routes, a live fleet server under a per-tier swarm)
+    runs with no JAX and nothing of the JAX package loaded."""
+    proc = subprocess.run([sys.executable, "-c", _RUN_FLEET], cwd=REPO, capture_output=True,
+                          text=True, timeout=300)
     assert proc.returncode == 0 and proc.stdout.split()[-1] == "ok", proc.stderr
 
 

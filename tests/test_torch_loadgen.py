@@ -176,15 +176,21 @@ def test_submit_contract_equals_the_jax_client():
 
 
 def test_the_port_server_takes_tier_stamped_compressed_submits():
-    """``tier`` stamps ``X-NanoFed-Tier``, which the port's server ignores until the
-    fleet slice: q8 submits so stamped are accepted."""
+    """``tier`` stamps ``X-NanoFed-Tier``: a fleet server decodes the edge tier's q8
+    submits against the edge view and accepts them (``tests/test_torch_fleet_server.py``
+    holds the tier routing against the JAX server)."""
+    from nanofed_tpu_torch.fleet import FleetGateway, reference_fleet
+    from nanofed_tpu_torch.ingest import IngestConfig
+
     async def main():
-        server = HTTPServer(port=free_port(), registry=MetricsRegistry())
+        gateway = FleetGateway(reference_fleet(), _port_params(), device="cpu")
+        server = HTTPServer(port=free_port(), registry=MetricsRegistry(),
+                            ingest=IngestConfig(capacity=8), fleet=gateway, device="cpu")
         await server.start()
         try:
             await server.publish_model(_port_params(), 0)
             result = await port_swarm.run_swarm(
-                f"http://127.0.0.1:{server.port}", _port_params(),
+                f"http://127.0.0.1:{server.port}", gateway.view("edge").tree,
                 port_swarm.SwarmConfig(num_clients=4, arrival="burst", tier="edge",
                                        encoding="q8-delta"), clock=VirtualClock())
             return result, server.num_updates()

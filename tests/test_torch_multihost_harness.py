@@ -2,7 +2,8 @@
 ``tests/integration/test_multihost_harness.py`` against the port script (the
 orphan-reaping contract of ``_wait``/``_reap``, the torn-tail progress reader), then
 the modes end to end with gloo ranks on a tiny model: ``smoke`` (2 ranks against 1
-within ``SMOKE_TOL``), ``bench`` (its artifact), and ``hostchaos`` for a planned
+within ``SMOKE_TOL``), ``bench`` (its artifact), a worker parked by a planned
+``host_stall`` dying with its SIGKILLed supervisor (C4), and ``hostchaos`` for a planned
 ``host_crash`` (with a rejoin) and a ``host_stall`` (stall flagged after 3 s, watchdog
 deadline 5 s), and ``federate`` (2 ranks as hosts under a 48-client swarm, every host's
 final params against the numpy replay; then a planned kill of host 1 in round 1 under a
@@ -11,6 +12,9 @@ module's first run is asked for, so the file's wall time is the longest drill's.
 
 import importlib.util
 import json
+import os
+import select
+import signal
 import subprocess
 import sys
 import time
@@ -131,6 +135,68 @@ def test_reap_escalates_sigterm_to_sigkill(harness):
     harness._reap([stubborn], grace_s=0.5)
     assert stubborn.returncode is not None
     assert no_orphans([stubborn.pid]) == []
+
+
+# A supervisor that starts one hostchaos worker through the harness's own spawn path
+# under a plan that stalls host 0 in round 0, prints the worker's pid once the worker
+# is ready (it parks right after), and then waits to be killed.
+STALLED_WORKER_SUPERVISOR = r"""
+import argparse, importlib.util, sys, time
+from pathlib import Path
+spec = importlib.util.spec_from_file_location("harness", sys.argv[1])
+h = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(h)
+from nanofed_tpu_torch.faults.plan import FaultEvent, FaultPlan
+tmp = Path(sys.argv[2])
+plan = tmp / "plan.json"
+FaultPlan(seed=0, events=(FaultEvent(kind="host_stall", round=0, host=0),)).save(plan)
+args = argparse.Namespace(clients=2, capacity=8, batch_size=8, rounds=2, model="digits_mlp",
+                          seed=0, client_chunk=None, block_size=2, watchdog_deadline=5.0,
+                          compile_grace=30.0, tmp_dir=str(tmp), device="cpu", timeout=60.0)
+progress = tmp / "progress.jsonl"
+(worker,) = h._spawn_hostchaos(args, [0], rounds=2, hb_dir=h._fresh_dir(tmp / "hb"),
+                               ckpt_dir=h._fresh_dir(tmp / "ckpt"), resume=False,
+                               plan_path=plan, out=None, progress=progress)
+while not any(r.get("event") == "ready" for r in h._read_progress(progress)):
+    if worker.poll() is not None:
+        sys.exit(f"worker exited rc={worker.returncode}")
+    time.sleep(0.1)
+print(worker.pid, flush=True)
+time.sleep(600)
+"""
+
+
+def _gone(pid: int) -> bool:
+    """No such process, or a zombie (dead, its exit status not yet collected)."""
+    try:
+        return Path(f"/proc/{pid}/stat").read_text().rsplit(")", 1)[1].split()[0] == "Z"
+    except (FileNotFoundError, ProcessLookupError):
+        return True
+
+
+def test_a_stalled_worker_dies_with_its_sigkilled_supervisor(tmp_path):
+    """C4: a supervisor killed by SIGKILL runs no ``finally`` and reaps nothing, so its
+    worker, parked by a planned ``host_stall``, must go by itself: gone within 10 s."""
+    supervisor = subprocess.Popen(
+        [sys.executable, "-c", STALLED_WORKER_SUPERVISOR, str(SCRIPT), str(tmp_path)],
+        cwd=REPO, stdout=subprocess.PIPE, text=True)
+    worker = None
+    try:
+        ready, _, _ = select.select([supervisor.stdout], [], [], 25.0)
+        assert ready, "the worker did not report ready within 25 s"
+        worker = int(supervisor.stdout.readline())
+        os.kill(supervisor.pid, signal.SIGKILL)
+        supervisor.wait(timeout=10)
+        deadline = time.monotonic() + 10.0
+        while not _gone(worker) and time.monotonic() < deadline:
+            time.sleep(0.1)
+        assert _gone(worker), f"worker {worker} outlived its SIGKILLed supervisor by 10 s"
+    finally:
+        if supervisor.poll() is None:
+            supervisor.kill()
+            supervisor.wait(timeout=10)
+        if worker is not None and not _gone(worker):
+            os.kill(worker, signal.SIGKILL)
 
 
 def test_read_progress_skips_torn_tail(harness, tmp_path):

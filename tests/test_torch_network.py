@@ -474,19 +474,6 @@ def test_codec_refuses_a_payload_that_does_not_fit_the_template():
         codec.decode_params(codec.encode_params({"fc/bias": template["fc/bias"]}), like=template)
 
 
-@pytest.mark.parametrize(
-    "build",
-    [
-        lambda: port_comm.HTTPServer(port=free_port(), fleet=object()),
-    ],
-    ids=["fleet"],
-)
-def test_later_slice_options_raise_naming_their_slice(build):
-    """What the port still refuses names the ROADMAP item that brings it."""
-    with pytest.raises(NotImplementedError, match=r"slice, queue A item \d+"):
-        build()
-
-
 def test_chaos_options_are_taken_as_the_jax_package_takes_them():
     """``chaos=``, ``clock=`` and ``wire_filter=`` (the faults slice) are accepted
     where the JAX package accepts them; ``tests/test_torch_chaos.py`` runs them."""

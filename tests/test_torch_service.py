@@ -16,7 +16,8 @@ package's (``nanofed_tpu.service``) on the CPU.
 * Stated differences, one test each: a gated device section ends with a synchronize
   inside the lease, once a lease; on the CPU, where the profile reports no peak, a
   tenant's footprint takes the analytic ``(K+2)·P·4`` and says so.
-* What stays refused names its item: ``TenantFootprint.for_fleet`` (16b).
+  ``TenantFootprint.for_fleet`` is held against the JAX package in
+  ``tests/test_torch_fleet.py``.
 """
 
 import pytest
@@ -363,11 +364,6 @@ def test_cpu_footprint_takes_the_analytic_peak_and_a_measured_peak_when_there_is
         assert measured.resident_bytes == fp.resident_bytes
 
     asyncio.run(scenario())
-
-
-def test_fleet_footprint_stays_refused_naming_item_16b():
-    with pytest.raises(NotImplementedError, match="item 16b"):
-        port_sched.TenantFootprint.for_fleet(object(), {}, ingest_capacity=4)
 
 
 def test_service_defaults_to_the_card(monkeypatch):

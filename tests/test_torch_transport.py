@@ -273,11 +273,6 @@ def test_tenant_without_a_shared_transport_and_a_duplicate_mount_are_refused_lik
             comm.HTTPServer(transport=transport, tenant="a", registry=registry_cls())
 
 
-def test_the_fleet_option_stays_refused_naming_item_16b():
-    with pytest.raises(NotImplementedError, match="item 16b"):
-        port_comm.HTTPServer(port=0, fleet=object())
-
-
 class CountingGate:
     """A ``device_gate`` that counts its sections."""
 
