@@ -296,6 +296,19 @@ Phases (any failure exits non-zero):
    its step costs fed to the mix sweep, B1 and B3 timed at its shapes; (fl4)
    ``generate_fleet_evidence`` at 30 clients and 4 rounds and
    ``generate_fedbuff_adapter_artifact`` at 100 clients and 4 aggregations.
+   Then analysis (phase (an), ``nanofed_tpu_torch.analysis``): (an1) the flagship
+   through ``Coordinator(strict=True)``, one fused block of 2 rounds then one round
+   through the single round step (the contract checks on meta tensors and the program
+   audit at construction, every dispatch under ``strict_mode``), after the same run
+   with ``strict=False`` (which warms the card): params bit-equal under cuDNN's
+   deterministic algorithms, B1's accumulate form and B3 8 times a round in each, the
+   seconds strict adds to construction, each run's round seconds, and the peak device
+   memory of the construction's checks and audit run again (meta tensors: nothing is
+   allocated); (an2) the tutorial round, materialised, strict against not: B1
+   normalised and B3 once each, params bit-equal; (an3) inside ``strict_mode()`` on
+   the card ``.item()``, ``bool()`` of a device tensor and a pageable copy to the card
+   raise, and a B1 launch alone does not; (an4) ``audit_programs()`` of (an1)'s
+   coordinator: every program ``ok``, its seconds and peak-memory delta.
 4. Cross-check: 8-client f32 rounds of the port on the card and on the CPU from the
    same weights, permutations and injected noise: the plain round with dropout off
    and on (the masks are an integer hash, the same bits on both devices), the
@@ -7316,6 +7329,162 @@ def phase_fleet(torch, ops, card: str, out_dir: Path) -> dict[str, int]:
     return totals
 
 
+AN_ROUNDS = 3  # (an1): one fused block of AN_BLOCK rounds, then one single round
+AN_BLOCK = 2
+
+
+def phase_analysis(torch, ops, card: str, out_dir: Path) -> dict[str, int]:
+    """(an): strict mode and the program audit on the card.  Returns the launches of
+    (an1) and (an2)'s strict and plain runs."""
+    import logging
+
+    from nanofed_tpu_torch.analysis import strict_mode
+    from nanofed_tpu_torch.data import federate, load_mnist
+    from nanofed_tpu_torch.models import get_model
+    from nanofed_tpu_torch.orchestration import Coordinator, CoordinatorConfig, RoundStatus
+    from nanofed_tpu_torch.trainer import TrainingConfig
+    from nanofed_tpu_torch.utils.logger import LogConfig, Logger
+    from nanofed_tpu_torch.utils.trees import ravel
+
+    Logger().configure(LogConfig(level=logging.WARNING))
+    t_phase = time.perf_counter()
+    totals: dict[str, int] = dict.fromkeys(ops.launch_counts(), 0)
+    base = out_dir / "an_analysis"
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = get_model("mnist_cnn")
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    # Bit-equality between two runs needs cuDNN's deterministic algorithms, as (w1).
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        # (an1) the flagship, plain (warming the card) then strict.
+        data, training, chunk = flagship_data(), flagship_training(), 125
+        want: dict[str, int] = {}
+        add_launches(want, step_launches(chunk, FLAGSHIP["num_clients"]), AN_ROUNDS)
+
+        def build(strict: bool):
+            t0 = time.perf_counter()
+            coord = Coordinator(
+                model, data, CoordinatorConfig(num_rounds=AN_ROUNDS, seed=0,
+                                               rounds_per_block=AN_BLOCK,
+                                               base_dir=base / f"strict_{strict}",
+                                               save_metrics=False),
+                training, client_chunk=chunk, device="cuda", strict=strict)
+            torch.cuda.synchronize()
+            return coord, time.perf_counter() - t0
+
+        runs = {}
+        for strict in (False, True):
+            coord, ctor_s = build(strict)
+            rounds, wall, grew = counted(torch, ops, card,
+                                         f"(an1) flagship strict={strict}", coord.run, want)
+            add_launches(totals, grew)
+            if [m.status for m in rounds] != [RoundStatus.COMPLETED] * AN_ROUNDS:
+                fail(f"(an1) strict={strict}: rounds {[m.status for m in rounds]}")
+            runs[strict] = (coord, ctor_s, [m.duration_s for m in rounds], wall)
+            if not strict:
+                plain_params = ravel(coord.params)
+                del coord
+                gc.collect()
+        strict_coord = runs[True][0]
+        same = torch.equal(ravel(strict_coord.params), plain_params)
+        finite = bool(torch.isfinite(plain_params).all())
+        # The construction's checks and audit again, on the built coordinator: their
+        # seconds and the peak device memory they add (meta tensors: none).
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        strict_coord._check_contracts()
+        contract_s = time.perf_counter() - t0
+        strict_coord._audit_strict()
+        audit_s = time.perf_counter() - t0 - contract_s
+        check_peak = torch.cuda.max_memory_allocated() - before
+        print(f"[{card}] (an1) flagship ({FLAGSHIP['num_clients']} clients, "
+              f"{FLAGSHIP['compute_dtype']}, client_chunk={chunk}) "
+              f"{AN_ROUNDS} rounds as one {AN_BLOCK}-round block then one single round: "
+              f"construction plain {runs[False][1]:.3f} s, strict {runs[True][1]:.3f} s "
+              f"(strict adds {runs[True][1] - runs[False][1]:.3f} s; the contract checks "
+              f"again {contract_s:.3f} s, the audit again {audit_s:.3f} s; their peak above "
+              f"the allocated {before} bytes: {check_peak} bytes); round_s plain "
+              f"{runs[False][2]} strict {runs[True][2]}; params bit-equal={same}")
+        if not (same and finite):
+            fail(f"(an1) strict params differ from plain ones (bit-equal {same}, finite "
+                 f"{finite})")
+
+        # (an4) the audit of every registered program at full width.
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        reports = strict_coord.audit_programs()
+        audit_all_s = time.perf_counter() - t0
+        audit_peak = torch.cuda.max_memory_allocated() - before
+        print(f"[{card}] (an4) audit_programs(): {audit_all_s:.3f} s, peak above the "
+              f"allocated: {audit_peak} bytes; " + "; ".join(
+                  f"{r.program} ok={r.ok} checks={list(r.checks)} ranks={r.ranks} "
+                  f"collectives={len(r.schedule)}" for r in reports))
+        if sorted(r.program for r in reports) != ["round_block", "round_step"] or not all(
+                r.ok for r in reports):
+            fail(f"(an4) audit: {[f.render() for r in reports for f in r.findings]}")
+        del strict_coord, runs, data
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (an2) the tutorial round, materialised, plain then strict.
+        tutorial = federate(load_mnist("train", None, synthetic_size=TUTORIAL_SAMPLES),
+                            num_clients=2, batch_size=64, seed=0, proportions=[0.75, 0.25])
+        tut_training = TrainingConfig(batch_size=64, local_epochs=2, learning_rate=0.1)
+        tut_params, tut_round = {}, {}
+        for strict in (False, True):
+            coord = Coordinator(model, tutorial, CoordinatorConfig(
+                num_rounds=1, seed=0, base_dir=base / f"tutorial_{strict}",
+                save_metrics=False), tut_training, device="cuda", strict=strict)
+            rounds, _, grew = counted(torch, ops, card, f"(an2) tutorial strict={strict}",
+                                      coord.run, step_launches(None, 2))
+            add_launches(totals, grew)
+            tut_params[strict] = ravel(coord.params)
+            tut_round[strict] = rounds[0].duration_s
+            del coord
+        same = torch.equal(tut_params[True], tut_params[False])
+        print(f"[{card}] (an2) tutorial round (12k + 4k samples, 2 epochs, f32), "
+              f"materialised: round_s plain {tut_round[False]:.3f} strict "
+              f"{tut_round[True]:.3f}; params bit-equal={same}")
+        if not (same and bool(torch.isfinite(tut_params[True]).all())):
+            fail("(an2) the strict tutorial round differs from the plain one")
+
+        # (an3) the guard is not vacuous: each read raises, a B1 launch alone does not.
+        x = torch.randn(8, 4096, device="cuda")
+        w = torch.rand(8, device="cuda")
+        host = torch.ones(1024)
+        torch.cuda.synchronize()
+        reads = {".item()": lambda: x.sum().item(), "bool()": lambda: bool(x.sum() > 0),
+                 "pageable copy to the card": lambda: host.to("cuda")}
+        raised = {}
+        for name, read in reads.items():
+            try:
+                with strict_mode():
+                    read()
+                raised[name] = False
+            except RuntimeError as e:
+                raised[name] = "synchroniz" in str(e)
+        ops.reset_launch_counts()
+        with strict_mode():
+            out = ops.weighted_mean_flat(x, w)
+        torch.cuda.synchronize()
+        launched = ops.launch_counts()["weighted_mean_flat"]
+        err = float((out - ops.weighted_mean_flat_plain(x, w)).abs().max())
+        print(f"[{card}] (an3) under strict_mode on the card: raised {raised}; a B1 "
+              f"launch alone ran ({launched} launch, max_abs_err {err:.3e} against its "
+              "plain version)")
+        if not all(raised.values()) or launched != 1 or err > 1e-5:
+            fail(f"(an3) the guard: raised {raised}, B1 launches {launched}, err {err}")
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+    print(f"[{card}] (an) wall_s={time.perf_counter() - t_phase:.1f}; launches {totals}")
+    return totals
+
+
 def main() -> None:
     t_script = time.perf_counter()
     last = [t_script]
@@ -7399,6 +7568,8 @@ def main() -> None:
         mark("phase_service")
         fleet_counts = phase_fleet(torch, ops, card, Path(tmp))
         mark("phase_fleet")
+        analysis_counts = phase_analysis(torch, ops, card, Path(tmp))
+        mark("phase_analysis")
     wire_counts = phase_wire(torch, ops, card)
     mark("phase_wire")
     counts = {k: counts[k] + secure_counts[k] + tuned_counts[k] + resume_counts[k]
@@ -7406,6 +7577,7 @@ def main() -> None:
               + fused_counts[k] + cifar_counts[k] + obs_counts[k] + lm_counts[k]
               + mesh_counts[k] + rest_counts[k] + chaos_counts[k]
               + service_counts.get(k, 0) + fleet_counts.get(k, 0) + wire_counts.get(k, 0)
+              + analysis_counts.get(k, 0)
               for k in counts}
     print(f"kernels: {json.dumps(counts)}")
     missing = [k for k, v in counts.items() if v == 0]

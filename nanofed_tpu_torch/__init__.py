@@ -21,6 +21,31 @@ Every entry point takes ``device=None``, meaning ``"cuda"``; without a card it
 raises unless the caller passes ``device="cpu"`` (see ``core.device``).
 """
 
+from nanofed_tpu_torch.core import (
+    ClientData,
+    ClientMetrics,
+    ClientUpdates,
+    ModelUpdate,
+    ModelVersion,
+    NanoFedError,
+)
 from nanofed_tpu_torch.experiments import run_experiment
+from nanofed_tpu_torch.utils import Logger, LogConfig, get_current_time, log_exec
 
-__all__ = ["run_experiment"]
+# The version of the reference whose behaviour the port copies.
+__version__ = "0.4.0"
+
+__all__ = [
+    "ClientData",
+    "ClientMetrics",
+    "ClientUpdates",
+    "LogConfig",
+    "Logger",
+    "ModelUpdate",
+    "ModelVersion",
+    "NanoFedError",
+    "__version__",
+    "get_current_time",
+    "log_exec",
+    "run_experiment",
+]

@@ -179,8 +179,10 @@ def generate_adapter_evidence(
     """Train the rank-``rank`` adapter federation of the ``evidence`` transformer (its
     loss series), run ONE dense round of the same geometry for the full payload,
     measure both through q8/topk8, and attach the flagship memory sweep.  Writes
-    ``<out_dir>/adapter_<tag>_<stamp>.json``.  The JAX run's ``strict=True`` is not
-    taken (strict mode comes with a later slice)."""
+    ``<out_dir>/adapter_<tag>_<stamp>.json``.  The adapter federation runs with
+    ``strict=True``, as the JAX run does (``analysis``: contract checks and the
+    program audit at construction, the sync guard around every dispatch on the
+    card)."""
     import torch
 
     from nanofed_tpu_torch.adapters import AdapterSpec, adapter_param_count
@@ -211,7 +213,7 @@ def generate_adapter_evidence(
         config=CoordinatorConfig(num_rounds=num_rounds, seed=seed, base_dir=out_dir,
                                  save_metrics=False, eval_every=num_rounds),
         training=training, adapter=spec, eval_data=pack_eval(test, batch_size=128),
-        telemetry_dir=telemetry_dir, device=dev,
+        telemetry_dir=telemetry_dir, device=dev, strict=True,
     )
     adapters_before = {k: v.clone() for k, v in coord.params.items()}
     history = coord.run()
@@ -268,7 +270,7 @@ def generate_adapter_evidence(
             "data": "synthetic_token_streams (seeded first-order Markov chain)",
             "num_clients": num_clients, "rounds": num_rounds,
             "local_epochs": training.local_epochs, "batch_size": training.batch_size,
-            "learning_rate": training.learning_rate,
+            "learning_rate": training.learning_rate, "strict_mode": True,
         },
         "adapter": {**spec.to_dict(), **adapter_param_count(spec, coord.base_params)},
         "losses": losses,

@@ -11,19 +11,18 @@ tenant lost rounds or submits), ``metrics-summary``
 digests a run's ``telemetry.jsonl``, ``trace`` merges per-host telemetry streams into
 one timeline, and ``info`` prints the environment and the model zoo.  ``--telemetry-dir``
 on ``run``, ``profile``, ``serve``, ``loadtest`` and ``tenants`` says where the
-telemetry goes.  ``run``, ``bench``, ``profile``, ``serve``, ``loadtest`` and
-``tenants`` run on ``--device`` (default ``cuda``: without a card they raise unless given
-``--device cpu``).  ``run --distributed`` joins the world ``torchrun`` starts, and
-``--model-shards``/``--hosts`` lay the world's ranks out as a mesh
-(``parallel.mesh``).
+telemetry goes.  ``run``, ``bench``, ``profile``, ``serve``, ``loadtest``, ``tenants``
+and ``audit`` run on ``--device`` (default ``cuda``: without a card they raise unless
+given ``--device cpu``).  ``run --strict`` builds a strict coordinator (``analysis``:
+contract checks and the program audit at construction, the sync guard around every
+dispatch on the card); ``audit`` audits the reference program catalog
+(``analysis.program_audit``) without running a federation and exits 1 on findings.
+``run --distributed`` joins the world ``torchrun`` starts, and ``--model-shards``/
+``--hosts`` lay the world's ranks out as a mesh (``parallel.mesh``).
 
 The port profiles by RUNNING each program (``observability.profiling``): the JAX
 package asks XLA's cost model and runs nothing, so ``profile`` and ``profile
 --sweep`` cost a few round times per program here.
-
-The JAX command line's subcommands and flags of later slices are registered, so
-``--help`` lists them, and refused with the ROADMAP queue A item that brings them:
-a refused subcommand, or a refused flag set to anything but the JAX default, exits 2.
 """
 
 from __future__ import annotations
@@ -33,33 +32,11 @@ import json
 import sys
 from typing import Any
 
-# Subcommands of later slices: name -> (help, ROADMAP queue A item).
-LATER_SUBCOMMANDS: dict[str, tuple[str, str]] = {
-    "audit": ("audit the round programs", "item 21 (analysis)"),
-}
-
-# Flags of later slices, by subcommand: dest -> (flag, type, JAX default, item).
-LATER_SLICE_FLAGS: dict[str, dict[str, tuple[str, type, Any, str]]] = {
-    "run": {
-        "strict": ("--strict", bool, False, "item 21 (analysis)"),
-    },
-    "profile": {},
-    "serve": {},
-}
 
 
 def _error(msg: str) -> int:
     print(f"error: {msg}", file=sys.stderr)
     return 2
-
-
-def _refused_flags(args: argparse.Namespace) -> int | None:
-    """Exit code 2 with the item named when a later slice's flag is set."""
-    for dest, (flag, _, default, item) in LATER_SLICE_FLAGS.get(args.cmd, {}).items():
-        if getattr(args, dest) != default:
-            return _error(f"{flag} is not supported by nanofed_tpu_torch yet: it comes "
-                          f"with ROADMAP queue A {item} (run nanofed-tpu for it)")
-    return None
 
 
 def _cmd_info(_args: argparse.Namespace) -> int:
@@ -217,6 +194,7 @@ def _run(args: argparse.Namespace, device, run_experiment, primary: bool) -> int
         adapter_alpha=args.adapter_alpha,
         model_shards=args.model_shards,
         hosts=args.hosts,
+        strict=args.strict,
         device=device,
     )
     if primary:  # one summary for the world
@@ -533,6 +511,33 @@ def _cmd_serve(args: argparse.Namespace) -> int:
     return 0 if all(h["status"] == "COMPLETED" for h in history) else 1
 
 
+def _cmd_audit(args: argparse.Namespace) -> int:
+    """Audit the reference catalog's round programs WITHOUT running a federation
+    (``analysis.program_audit``): each rank's program on meta tensors, collective
+    schedules across ranks, mesh discipline, dtype drift, host reads.  Exit 1 on
+    findings."""
+    from nanofed_tpu_torch.analysis.program_audit import (
+        format_audit_reports,
+        reference_catalog,
+    )
+    from nanofed_tpu_torch.core.device import resolve_device
+
+    catalog = reference_catalog(device=resolve_device(args.device))
+    reports = catalog.audit_all(compile=not args.no_compile)
+    if args.telemetry_dir is not None:
+        from nanofed_tpu_torch.observability import RunTelemetry
+
+        telemetry = RunTelemetry(args.telemetry_dir)
+        for report in reports:
+            telemetry.record("audit", **report.to_dict())
+        telemetry.close()
+    if args.json:
+        print(json.dumps([r.to_dict() for r in reports], indent=2))
+    else:
+        print(format_audit_reports(reports))
+    return 0 if all(r.ok for r in reports) else 1
+
+
 def _cmd_loadtest(args: argparse.Namespace) -> int:
     """Run the synthetic client swarm against one or both serving paths and print the
     artifact (also written under --out-dir).  Exit 1 when a submit was lost outright
@@ -719,15 +724,6 @@ def _add_mesh_flags(p: argparse.ArgumentParser, cmd: str) -> None:
         "node count; H * model-shards must divide the world's ranks")
 
 
-def _add_later_flags(p: argparse.ArgumentParser, cmd: str) -> None:
-    for dest, (flag, kind, default, item) in LATER_SLICE_FLAGS[cmd].items():
-        note = f"not in nanofed_tpu_torch yet (ROADMAP queue A {item})"
-        if kind is bool:
-            p.add_argument(flag, dest=dest, action="store_true", help=note)
-        else:
-            p.add_argument(flag, dest=dest, type=kind, default=default, help=note)
-
-
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="nanofed-tpu-torch", description=__doc__,
                                      formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -813,8 +809,14 @@ def build_parser() -> argparse.ArgumentParser:
     _add_telemetry_dir(run, "write the run's telemetry.jsonl (phase spans + round records "
                        "+ final metrics snapshot) here instead of the default <out-dir>; "
                        "read it back with `nanofed-tpu-torch metrics-summary`")
+    run.add_argument(
+        "--strict", action="store_true",
+        help="strict execution mode (analysis): hold the round programs to the "
+        "round-engine contract on meta tensors and audit them at build time, and run "
+        "every round-step and block dispatch under torch.cuda.set_sync_debug_mode("
+        "'error') on the card — a synchronizing call in the hot path raises instead of "
+        "silently serializing dispatch (a no-op on the CPU)")
     _add_device(run)
-    _add_later_flags(run, "run")
 
     serve = sub.add_parser("serve", help="host a network-mode federation server")
     serve.add_argument("--model", default="mnist_cnn")
@@ -869,7 +871,6 @@ def build_parser() -> argparse.ArgumentParser:
                        "+ round records) here; live metrics are always scrapable at "
                        "GET /metrics")
     _add_device(serve)
-    _add_later_flags(serve, "serve")
 
     profile = sub.add_parser(
         "profile",
@@ -908,7 +909,25 @@ def build_parser() -> argparse.ArgumentParser:
                        "compile and autotune records) to a telemetry.jsonl here (read back "
                        "with `nanofed-tpu-torch metrics-summary`)")
     _add_device(profile)
-    _add_later_flags(profile, "profile")
+
+    audit = sub.add_parser(
+        "audit",
+        help="audit the round programs WITHOUT running a federation: each rank's "
+        "program on meta tensors, its collectives recorded — collective schedules "
+        "(every rank the same), mesh discipline (declared axes, hosts-after-clients "
+        "hierarchy, cross-host byte budget), dtype drift, host reads inside the "
+        "program — across single-step, fused-block, SCAFFOLD, 2-D FSDP, 3-axis "
+        "hierarchical, adapter and drained-ingest variants; exit 1 on findings")
+    audit.add_argument(
+        "--no-compile", action="store_true",
+        help="recorded in the reports (compiled: false); the port builds no AOT "
+        "artifact, so it changes no check")
+    audit.add_argument("--json", action="store_true",
+                       help="full report dicts as JSON instead of the table")
+    _add_telemetry_dir(audit, "also append an `audit` record per program to a "
+                       "telemetry.jsonl here (read back with `nanofed-tpu-torch "
+                       "metrics-summary`)")
+    _add_device(audit)
 
     bench = sub.add_parser("bench", help="run a named benchmark (BASELINE.json suite)")
     bench.add_argument("name", nargs="?", default="mnist_iid")
@@ -1049,32 +1068,18 @@ def build_parser() -> argparse.ArgumentParser:
     _add_telemetry_dir(tenants, "also append one 'tenant' telemetry record a tenant here "
                        "(read back with metrics-summary)")
     _add_device(tenants)
-
-    for name, (text, item) in LATER_SUBCOMMANDS.items():
-        sub.add_parser(name, help=f"{text} (not in nanofed_tpu_torch yet: ROADMAP queue "
-                       f"A {item})")
     return parser
 
 
 COMMANDS = {"info": _cmd_info, "run": _cmd_run, "bench": _cmd_bench,
             "profile": _cmd_profile, "serve": _cmd_serve, "chaos-plan": _cmd_chaos_plan,
             "loadtest": _cmd_loadtest, "tenants": _cmd_tenants,
-            "metrics-summary": _cmd_metrics_summary, "trace": _cmd_trace}
+            "metrics-summary": _cmd_metrics_summary, "trace": _cmd_trace,
+            "audit": _cmd_audit}
 
 
 def main(argv: list[str] | None = None) -> int:
-    parser = build_parser()
-    # A later slice's subcommand is refused whatever arguments follow it.
-    args, extra = parser.parse_known_args(argv)
-    if args.cmd in LATER_SUBCOMMANDS:
-        return _error(f"`{args.cmd}` is not supported by nanofed_tpu_torch yet: it comes "
-                      f"with ROADMAP queue A {LATER_SUBCOMMANDS[args.cmd][1]} (run "
-                      "nanofed-tpu for it)")
-    if extra:
-        parser.error(f"unrecognized arguments: {' '.join(extra)}")
-    refused = _refused_flags(args)
-    if refused is not None:
-        return refused
+    args = build_parser().parse_args(argv)
     return COMMANDS[args.cmd](args)
 
 

@@ -66,9 +66,8 @@ bytes by tier and direction and tier submits by tier and result.  A submit's
 ``SpanTracer``) the offloaded decode runs inside a ``submit-decode`` span carrying its
 trace id.
 
-Every server option of the JAX package is taken; :data:`LATER_SLICE_OPTIONS`, the
-table of options a later slice would bring, is empty.  ``aiohttp`` is needed to build
-a server, not to import this module.
+Every server option of the JAX package is taken.  ``aiohttp`` is needed to build a
+server, not to import this module.
 """
 
 from __future__ import annotations
@@ -128,25 +127,6 @@ HEADER_SUBMIT = "X-NanoFed-Submit"  # idempotency key: one per LOGICAL submit
 HEADER_TRACE = "X-NanoFed-Trace"  # W3C-style trace context: 00-<trace>-<span>-<flags>
 HEADER_TIER = "X-NanoFed-Tier"  # fleet mode: which DeviceTier the client belongs to
 
-#: Server options of later slices, with the JAX defaults (accepted).  Any other value
-#: raises NotImplementedError naming the slice.
-LATER_SLICE_OPTIONS: dict[str, tuple[Any, str]] = {}
-
-
-def refuse_later_slice_options(owner: str, options: dict[str, Any],
-                               table: dict[str, tuple[Any, str]]) -> None:
-    """Raise for an option outside ``table`` (TypeError) or set to a value other
-    than its JAX default (NotImplementedError naming its slice)."""
-    unknown = sorted(set(options) - set(table))
-    if unknown:
-        raise TypeError(f"{owner}: unexpected arguments {unknown}")
-    refused = [f"{name} ({table[name][1]})" for name, value in options.items()
-               if value != table[name][0]]
-    if refused:
-        raise NotImplementedError(
-            f"{owner}: {', '.join(refused)} not supported by this slice of "
-            "nanofed_tpu_torch (run nanofed_tpu for it)"
-        )
 
 
 def _error(message: str, status: int, **headers: str) -> web.Response:
@@ -202,7 +182,6 @@ class HTTPServer:
         transport: HTTPTransport | None = None,
         tenant: str | None = None,
         fleet: Any | None = None,
-        **later_slice_options: Any,
     ) -> None:
         """``client_keys`` maps client id -> PEM public key; with
         ``require_signatures`` every update and secure-aggregation body must carry a
@@ -225,7 +204,6 @@ class HTTPServer:
         :meth:`start` refuses (the service starts the transport once).  ``fleet`` (a
         ``fleet.FleetGateway``) serves and decodes tiers (module note); it needs
         ``ingest`` and cannot combine with ``require_signatures``."""
-        refuse_later_slice_options("HTTPServer", later_slice_options, LATER_SLICE_OPTIONS)
         require_aiohttp()
         if staleness_window < 0:
             raise ValueError("staleness_window must be >= 0")
@@ -413,9 +391,15 @@ class HTTPServer:
             self._unmask_reveals.clear()
 
     def _clear_round_shares_locked(self) -> None:
+        # The CALLER holds self._lock: publish_model, evict_secagg_clients and the
+        # round reset call it only inside `async with self._lock`.
+        # fedlint: disable=FED005 (caller holds self._lock: every call site is inside async with self._lock)
         self._round_share_epks.clear()
+        # fedlint: disable=FED005 (caller holds self._lock: every call site is inside async with self._lock)
         self._round_share_bhs.clear()
+        # fedlint: disable=FED005 (caller holds self._lock: every call site is inside async with self._lock)
         self._round_share_blobs.clear()
+        # fedlint: disable=FED005 (caller holds self._lock: every call site is inside async with self._lock)
         self._round_share_senders.clear()
 
     def num_updates(self) -> int:
@@ -540,9 +524,13 @@ class HTTPServer:
             return self._close_secagg_locked()
 
     def _close_secagg_locked(self) -> int:
+        """Freeze the roster; the CALLER must hold ``self._lock`` (``close_secagg``
+        and the register handler's implicit cap-reached freeze both do)."""
         if not self._secagg_closed:
+            # fedlint: disable=FED005 (caller holds self._lock: close_secagg and the register handler's locked freeze both enter locked)
             self._secagg_closed = True
             if self._secagg_threshold_for is not None:
+                # fedlint: disable=FED005 (caller holds self._lock: close_secagg and the register handler's locked freeze both enter locked)
                 self._secagg_threshold = int(
                     self._secagg_threshold_for(len(self._secagg_roster)))
         return len(self._secagg_roster)
@@ -783,7 +771,8 @@ class HTTPServer:
                 headers={HEADER_STATUS: "training", HEADER_ROUND: str(self._round),
                          HEADER_TIER: tier},
             )
-        if self._params_bytes is None:  # no await since the check: no publish interleaves
+        if self._params_bytes is None:
+            # fedlint: disable=FED005 (no await between the check and this store, so no handler or publish interleaves; publish_model resets it under the lock)
             self._params_bytes = encode_params(self._params)
         self._m_bytes_tx.inc(len(self._params_bytes), endpoint="model")
         return web.Response(

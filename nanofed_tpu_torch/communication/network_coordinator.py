@@ -63,10 +63,7 @@ from nanofed_tpu_torch.aggregation.robust import (
     robust_aggregate,
     robust_floor,
 )
-from nanofed_tpu_torch.communication.http_server import (
-    HTTPServer,
-    refuse_later_slice_options,
-)
+from nanofed_tpu_torch.communication.http_server import HTTPServer
 from nanofed_tpu_torch.core.device import DeviceLike, resolve_device
 from nanofed_tpu_torch.core.types import ClientMetrics, ClientUpdates, ModelUpdate, Params
 from nanofed_tpu_torch.faults.plan import InjectedServerCrash
@@ -97,10 +94,6 @@ if TYPE_CHECKING:
     # Imported where used: secure_agg needs ``cryptography``, which the plain network
     # path must not require.
     from nanofed_tpu_torch.security.secure_agg import SecureAggregationConfig
-
-#: Coordinator options of later slices, with the JAX defaults (accepted).  None left.
-LATER_SLICE_OPTIONS: dict[str, tuple[Any, str]] = {}
-
 
 def synchronize_devices(devices: set[torch.device]) -> None:
     """Wait for the work queued on each CUDA device of ``devices``; a no-op on the
@@ -278,10 +271,7 @@ class NetworkCoordinator:
         registry: MetricsRegistry | None = None,
         chaos: Any | None = None,
         device_gate: Any | None = None,
-        **later_slice_options: Any,
     ) -> None:
-        refuse_later_slice_options("NetworkCoordinator", later_slice_options,
-                                   LATER_SLICE_OPTIONS)
         if robust is not None and secure is not None:
             raise ValueError(
                 "robust= cannot be combined with secure=: the server only ever "

@@ -13,10 +13,11 @@ synthetic fallback), else synthetic data of the model's shape.
 ``adapter_rank``/``adapter_alpha`` (LoRA adapter federation), ``telemetry_dir`` and
 the mesh axes ``model_shards``/``hosts`` (over the ranks of the world, when this
 process is one of several) are taken as the JAX runner takes them.  Update validation
-is not a runner flag in either package: it is ``Coordinator(validation=...)``.  The
-JAX runner's strict mode comes with a later slice; passing it with a value other
-than the JAX default raises ``NotImplementedError`` naming it, never a silent
-ignore.
+is not a runner flag in either package: it is ``Coordinator(validation=...)``.
+``strict=True`` (CLI ``--strict``) builds a strict coordinator (``analysis``: the
+contract checks and the program audit at construction, every dispatch under the sync
+guard on the card) and the summary then carries ``"strict": true``, as the JAX
+runner's does.
 """
 
 from __future__ import annotations
@@ -42,12 +43,6 @@ from nanofed_tpu_torch.orchestration import Coordinator, CoordinatorConfig, Roun
 from nanofed_tpu_torch.parallel.mesh import mesh_shape_for_topology, world_size
 from nanofed_tpu_torch.trainer import TrainingConfig
 from nanofed_tpu_torch.utils.logger import Logger
-
-# The JAX runner's flags that later slices bring, with the JAX defaults (accepted).
-LATER_SLICE_FLAGS: dict[str, Any] = {
-    "strict": False,
-}
-
 
 def load_datasets_for(
     mdl: Any, data_dir: str | None, train_size: int | None, seed: int = 0
@@ -122,6 +117,7 @@ def run_experiment(
     adapter_alpha: float | None = None,
     model_shards: int = 1,
     hosts: int = 1,
+    strict: bool = False,
     **kwargs: Any,
 ) -> dict[str, Any]:
     """Run a simulated federated experiment on ``device`` (default: the GPU) and return
@@ -158,16 +154,6 @@ def run_experiment(
     arguments go to the partitioner (e.g. ``proportions=[0.75, 0.25]`` for unequal
     IID shares)."""
     dev = resolve_device(device)
-    refused = [
-        name for name, default in LATER_SLICE_FLAGS.items()
-        if name in kwargs and kwargs[name] != default
-    ]
-    if refused:
-        raise NotImplementedError(
-            f"{', '.join(refused)}: not supported by this slice of nanofed_tpu_torch "
-            "(run nanofed_tpu for it)"
-        )
-    scheme_kwargs = {k: v for k, v in kwargs.items() if k not in LATER_SLICE_FLAGS}
     if retune_every > 0 and not autotune:
         raise NanoFedError(
             "retune_every requires autotune=True: the online retuner re-ranks "
@@ -205,7 +191,7 @@ def run_experiment(
     Logger().info("dataset %s: %d train / %d test samples", train.name, len(train), len(test))
     client_data = federate(
         train, num_clients=num_clients, scheme=scheme, batch_size=batch_size, seed=seed,
-        **scheme_kwargs,
+        **kwargs,
     )
     config = CoordinatorConfig(
         num_rounds=num_rounds, participation_rate=participation, seed=seed,
@@ -222,7 +208,7 @@ def run_experiment(
     shared_kwargs: dict[str, Any] = dict(
         eval_data=pack_eval(test, batch_size=256), device=dev,
         central_privacy=central_privacy, robust=robust, scaffold=scaffold,
-        telemetry_dir=telemetry_dir, adapter=adapter,
+        telemetry_dir=telemetry_dir, adapter=adapter, strict=strict,
     )
     if autotune:
         coordinator = Coordinator.from_autotune(
@@ -270,4 +256,5 @@ def run_experiment(
         # The realized mesh (the tuner may have picked a 2-D layout).
         **({"mesh_shape": list(coordinator.mesh.shape)}
            if coordinator.mesh is not None and len(coordinator.mesh.shape) > 1 else {}),
+        **({"strict": True} if strict else {}),
     }

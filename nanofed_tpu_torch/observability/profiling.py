@@ -44,8 +44,8 @@ count.
 programs, profiled on demand, published as the ``nanofed_program_*`` gauges and the
 time-to-ready histogram under the same names.  :func:`update_device_occupancy`
 derives the ``nanofed_device_occupancy_ratio`` gauge the retuner reads from the
-coordinator's spans, on the JAX package's two bases.  Not in this slice:
-``ProgramCatalog.audit`` (the analysis slice).
+coordinator's spans, on the JAX package's two bases.  ``ProgramCatalog.audit`` and
+``audit_all`` run ``analysis.program_audit`` on the registered programs.
 """
 
 from __future__ import annotations
@@ -475,12 +475,34 @@ class ProgramCatalog:
         return [self.profile(name, force=force) for name in self.names()]
 
     def audit(self, name: str, compile: bool = True):
-        """The JAX package audits a program's jaxpr (``analysis.program_audit``); the
-        port's counterpart comes with the analysis slice (ROADMAP queue A item 21)."""
-        raise NotImplementedError(
-            "ProgramCatalog.audit: the program audit comes with the analysis slice "
-            "(ROADMAP queue A item 21); it is tied to jaxpr in the JAX package"
+        """Run the program audit (``analysis.program_audit``) on one registered
+        program; returns its ``AuditReport`` (findings included — never raises on
+        findings).  The program runs on meta tensors: a factory that takes a
+        ``device`` keyword makes its arguments there (nothing allocated), any other
+        factory's are converted.  A registration whose attributes carry
+        ``rank_programs`` (every rank's program on a described mesh) is audited
+        rank by rank, against ``attrs["mesh"]``'s axes.  ``compile`` is recorded in
+        the report; the port builds no AOT artifact, so it changes no check."""
+        from nanofed_tpu_torch.analysis.program_audit import audit_program, factory_args
+
+        with self._lock:
+            entry = self._entries.get(name)
+        if entry is None:
+            raise KeyError(f"no program {name!r} registered (have {self.names()})")
+        meta = torch.device("meta")
+        args, kwargs = factory_args(entry.args_factory, meta)
+        rank_programs = entry.attrs.get("rank_programs")
+        return audit_program(
+            name, entry.fn, *args, rounds=entry.rounds,
+            mesh=entry.attrs.get("mesh"), compile=compile,
+            attrs={k: v for k, v in entry.attrs.items()
+                   if k not in ("mesh", "rank_programs")},
+            ranks=None if rank_programs is None else rank_programs(device=meta),
+            **kwargs,
         )
+
+    def audit_all(self, compile: bool = True) -> list:
+        return [self.audit(name, compile=compile) for name in self.names()]
 
     def publish(self, report: ProgramCostReport) -> None:
         """Expose one report on the metrics registry: per-program gauges (label

@@ -134,6 +134,7 @@ class SpanTracer:
             except Exception:
                 annotation = None
         # Wall clock for cross-process alignment only; durations use perf_counter.
+        # fedlint: disable=FED010 (forensics-only: start_unix aligns spans across PROCESSES — durations use perf_counter below; a per-process virtual clock cannot provide a cross-process common timeline)
         start_unix = time.time()
         t0 = time.perf_counter()
         try:

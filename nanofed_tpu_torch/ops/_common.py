@@ -50,10 +50,12 @@ def kernel_launched(wrapper: Callable, nbytes: int) -> None:
 
 
 def uses_kernel(*tensors: torch.Tensor) -> bool:
-    """True for CUDA tensors, False for CPU tensors; anything else (mixed devices,
-    other device types) raises."""
+    """True for CUDA tensors, False for CPU tensors and for ``meta`` tensors (a shape
+    trace, as the analysis' contract checks and program audit run: a meta tensor
+    computes nothing, so the plain version hides no kernel); anything else (mixed
+    devices, other device types) raises."""
     kinds = {t.device.type for t in tensors}
-    if kinds == {"cpu"}:
+    if kinds == {"cpu"} or kinds == {"meta"}:
         return False
     if kinds == {"cuda"}:
         if len({t.device for t in tensors}) != 1:

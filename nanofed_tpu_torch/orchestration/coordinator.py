@@ -112,13 +112,28 @@ on a mesh runs every program on every rank in lockstep (see its docstring).
 ``chaos=`` (a ``faults.ChaosSchedule``) drops the plan's crashed clients from every
 cohort the host samples, after the dropout draw, as the JAX coordinator does; on a
 mesh every rank filters the same cohort.  A fused block that resamples its cohorts on
-the device does not consult the plan (nor does the JAX block).  The JAX coordinator's
-``strict=`` comes with a later slice: a value other than the JAX default raises
-``NotImplementedError`` naming the ROADMAP item (:data:`LATER_SLICE_KEYWORDS`).
+the device does not consult the plan (nor does the JAX block).
+
+Strict mode (``strict=True``, ``analysis``; the JAX coordinator's ``:693-706``,
+``:994-1033``, ``:1221-1298``): at construction the round step and the block are held
+to the round-engine contract on meta tensors (``analysis.contracts``; SCAFFOLD's step,
+whose signature differs, is skipped as in the JAX package) and the rank's inputs to
+the mesh layout, and every catalogued program is audited (``analysis.program_audit``):
+a finding raises ``ContractViolation`` before anything is dispatched, and a retuned
+program is checked again before its first dispatch.  Every round-step and block
+dispatch then runs under ``analysis.strict_mode`` (``torch.cuda.set_sync_debug_mode(
+"error")``), a no-op on the CPU.  The host inputs (cohorts, permutations, keys,
+weights, control rows) reach the device before the guard is entered.  The server
+optimizer's counters ride on the device as 0-d tensors between rounds; checkpoints
+turn them into ints.  ``audit_programs()`` audits every program on demand, with an
+``audit`` telemetry record and a ``program-audit`` span each; in a world of ranks the
+ranks also exchange their schedules (one ``all_gather_object``) and a rank whose
+schedule differs is a ``collective-schedule`` finding.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import logging
@@ -170,6 +185,7 @@ from nanofed_tpu_torch.parallel.mesh import (
     HOST_AXIS,
     Mesh,
     MeshLayout,
+    all_gather_object,
     broadcast_object,
     client_shard_count,
     client_slice,
@@ -184,6 +200,7 @@ from nanofed_tpu_torch.parallel.mesh import (
 )
 from nanofed_tpu_torch.parallel.multi_round import (
     build_round_block,
+    counters_on,
     pad_permutations,
     round_seeds,
 )
@@ -230,12 +247,6 @@ from nanofed_tpu_torch.utils.trees import (
 )
 
 _log = logging.getLogger(__name__)
-
-#: The JAX coordinator's keywords that later slices bring: name -> (the JAX default,
-#: which is accepted, and the ROADMAP queue A item that lands it).
-LATER_SLICE_KEYWORDS: dict[str, tuple[Any, str]] = {
-    "strict": (False, "item 21 (analysis)"),
-}
 
 
 @dataclass(frozen=True)
@@ -417,20 +428,10 @@ class Coordinator:
         mesh: Mesh | None = None,
         mesh_shape: tuple[int, ...] | None = None,
         chaos: Any | None = None,
-        **later_slice: Any,
+        strict: bool = False,
     ) -> None:
-        for name, value in later_slice.items():
-            if name not in LATER_SLICE_KEYWORDS:
-                raise TypeError(
-                    f"Coordinator.__init__() got an unexpected keyword argument {name!r}"
-                )
-            default, item = LATER_SLICE_KEYWORDS[name]
-            if value != default:
-                raise NotImplementedError(
-                    f"{name}=: not supported by this slice of nanofed_tpu_torch; it comes "
-                    f"with ROADMAP queue A {item} (run nanofed_tpu for it)"
-                )
         self.device = resolve_device(device)
+        self.strict = bool(strict)
         # Planned per-client crashes (faults.ChaosSchedule), applied to every sampled
         # cohort: deterministic under the plan, unlike dropout_rate's coin flips.
         self._chaos = chaos
@@ -523,7 +524,10 @@ class Coordinator:
                 self._base_like = {k: v.to("meta") for k, v in self.base_params.items()}
                 self._base_layout = MeshLayout(mesh, self._base_like)
                 self.base_params = self._base_layout.shard_params(self.base_params)
-        self.server_state = init_server_state(self.strategy, self.params)
+        # The counters ride on the device between rounds (0-d tensors, as inside a
+        # fused block): no dispatch reads them back; checkpoints turn them into ints.
+        self.server_state = counters_on(init_server_state(self.strategy, self.params),
+                                        self.device)
 
         if robust is not None and self.cohort_size < robust_floor(robust):
             # Every round would fail closed yet be reported COMPLETED: refuse up front.
@@ -700,6 +704,15 @@ class Coordinator:
             restored = state_store.restore_latest()
             if restored is not None:
                 self._resume(restored)
+        if self.strict:
+            if self.scaffold:
+                _log.info("strict=True: contract check skipped for the SCAFFOLD round "
+                          "program (different signature); the sync guard still applies")
+            else:
+                self._check_contracts()
+            # The program audit runs every rank's program on meta tensors: SCAFFOLD is
+            # covered too.
+            self._audit_strict()
         if config.profile_programs:
             self.profile_programs()
 
@@ -738,9 +751,9 @@ class Coordinator:
         state = from_numpy_server_state(server_state, self.strategy, params)
         if self._layout is not None:
             params = self._layout.shard_params(params)
-            state = {k: self._layout.slice_shard(v) if torch.is_tensor(v) else v
+            state = {k: self._layout.slice_shard(v) if _is_vector(v) else v
                      for k, v in state.items()}
-        self.params, self.server_state = params, state
+        self.params, self.server_state = params, counters_on(state, self.device)
         accountant_state = restored.metadata.metrics.get("privacy_accountant")
         if self.privacy_accountant is not None and accountant_state is not None:
             self.privacy_accountant.load_state_dict(accountant_state)
@@ -767,34 +780,38 @@ class Coordinator:
         coordinator's do (``[clients, model]`` on a 1-D mesh and on one device)."""
         n_local = self._slots.stop - self._slots.start
 
-        def _step_args() -> tuple[tuple, dict]:
-            gen = torch.Generator(device=self.device).manual_seed(self.config.seed)
+        def _step_args(device: torch.device | None = None) -> tuple[tuple, dict]:
+            # device="meta" (the analysis): the same arguments as shapes, made without
+            # reading or allocating anything.
+            at = self.device if device is None else torch.device(device)
+            gen = torch.Generator(device="cpu" if at.type == "meta" else at
+                                  ).manual_seed(self.config.seed)
             args = (
-                {name: p.clone() for name, p in self.params.items()},
-                {k: v.clone() if torch.is_tensor(v) else v
-                 for k, v in self.server_state.items()},
-                self._data.select(slice(0, n_local)),
-                torch.ones(n_local, device=self.device),
+                _copy_to(self.params, at),
+                _copy_to(self.server_state, at),
+                _copy_to(self._data, at, shared=True).select(slice(0, n_local)),
+                torch.ones(n_local, device=at),
                 draw_permutations(gen, n_local, self.training.local_epochs,
-                                  self._data.y.shape[1]),
-                client_keys(self.config.seed, n_local, self.device),
+                                  self._data.y.shape[1], device=at),
+                client_keys(self.config.seed, n_local, at),
             )
             if self.central_privacy is not None:
                 noise_type = self.central_privacy.privacy.noise_type
                 args += (get_noise_generator(noise_type).standard(
-                    gen, (tree_size(self._params_like or self.params),)),)
+                    gen, (tree_size(self._params_like or self.params),)).to(at),)
             return args, {}
 
         mesh_shape = [1] if self.mesh is None else list(self.mesh.shape)
         attrs = {"mesh_shape": mesh_shape + [1] * (len(mesh_shape) == 1),
                  "step_clients": self._step_clients, "client_chunk": self._client_chunk}
         if self.scaffold:
-            def _scaffold_args() -> tuple[tuple, dict]:
+            def _scaffold_args(device: torch.device | None = None) -> tuple[tuple, dict]:
                 # The SCAFFOLD step takes the controls between the server state and
                 # the data: c_global and the step's rows of the control stack.
-                (params, state, data, weights, perms, keys), _ = _step_args()
-                c_rows = self.c_stack[:n_local].clone()
-                return (params, state, self.c_global.clone(), c_rows, data, weights,
+                at = self.device if device is None else torch.device(device)
+                (params, state, data, weights, perms, keys), _ = _step_args(at)
+                c_rows = _copy_to(self.c_stack[:n_local], at)
+                return (params, state, _copy_to(self.c_global, at), c_rows, data, weights,
                         perms, keys), {}
 
             self.program_catalog.register(
@@ -805,11 +822,14 @@ class Coordinator:
         if self.adapter is not None:
             attrs = {**attrs, "adapter_rank": self.adapter.rank}
 
-            def _adapter_step_args() -> tuple[tuple, dict]:
+            def _adapter_step_args(device: torch.device | None = None) -> tuple[tuple, dict]:
                 # The frozen base enters as dispatched: the third argument, not cloned
                 # (no round writes it).
-                (params, state, *rest), _ = _step_args()
-                return (params, state, self.base_params, *rest), {}
+                at = self.device if device is None else torch.device(device)
+                (params, state, *rest), _ = _step_args(at)
+                base = self.base_params if at == self.device else _copy_to(
+                    self.base_params, at, shared=True)
+                return (params, state, base, *rest), {}
 
             self.program_catalog.register(
                 "adapter_round_step", self._round_step, args_factory=_adapter_step_args,
@@ -823,23 +843,26 @@ class Coordinator:
             return
         rpb = self.config.rounds_per_block
 
-        def _block_args() -> tuple[tuple, dict]:
+        def _block_args(device: torch.device | None = None) -> tuple[tuple, dict]:
             # Every slot a distinct client with weight: the profiled block runs the
             # rounds a full cohort runs; each host's slot segment holds its own clients.
+            at = self.device if device is None else torch.device(device)
             n = self._step_clients
-            slot = torch.arange(n, device=self.device)
+            slot = torch.arange(n, device=at)
             seg = n // self._n_hosts
             ids = (slot // seg) * self._rows_per_host + slot % seg
             idx = ids.expand(rpb, n).contiguous() if self._cohort_mode else None
             args = (
-                {name: p.clone() for name, p in self.params.items()},
-                {k: v.clone() if torch.is_tensor(v) else v
-                 for k, v in self.server_state.items()},
-                self._data, self._num_samples,
+                _copy_to(self.params, at), _copy_to(self.server_state, at),
+                _copy_to(self._data, at, shared=True),
+                _copy_to(self._num_samples, at, shared=True),
                 round_seeds(self.config.seed, range(rpb)), [1.0] * rpb,
-                idx, torch.ones((rpb, n), device=self.device),
+                idx, torch.ones((rpb, n), device=at),
             )
-            return args, ({} if self.adapter is None else {"base_params": self.base_params})
+            base = None if self.adapter is None else (
+                self.base_params if at == self.device
+                else _copy_to(self.base_params, at, shared=True))
+            return args, ({} if base is None else {"base_params": base})
 
         self.program_catalog.register(
             self._block_program_name, self._round_block, args_factory=_block_args,
@@ -849,6 +872,107 @@ class Coordinator:
     @property
     def _block_program_name(self) -> str:
         return "round_block" if self.adapter is None else "adapter_round_block"
+
+    # ------------------------------------------------------------------
+    # Strict mode and the program audit (analysis)
+    # ------------------------------------------------------------------
+
+    def _check_contracts(self) -> None:
+        """Hold the built round programs to the round-engine contract on meta
+        tensors (``analysis.contracts``: nothing executes, nothing is allocated) and
+        this rank's inputs to the mesh layout; a drifted program fails here with a
+        named leaf."""
+        from nanofed_tpu_torch.analysis.contracts import (
+            check_input_shardings,
+            check_round_block,
+            check_round_step,
+        )
+
+        meta = torch.device("meta")
+        name = "adapter_round_step" if self.adapter is not None else "round_step"
+        args, _ = self.program_catalog.registration(name)[1](device=meta)
+        params, state, *rest = args
+        base = None
+        if self.adapter is not None:
+            base, *rest = rest
+        report = check_round_step(self._round_step, params, state, *rest,
+                                  frozen_base=base, clients=self._step_clients)
+        _log.info("strict: %s contract ok (%s)", name, report)
+        if self._round_block is not None:
+            (params, state, data, num_samples, seeds, scales, idx, mask), kw = \
+                self.program_catalog.registration(self._block_program_name)[1](device=meta)
+            report = check_round_block(self._round_block, params, state, data, num_samples,
+                                       seeds, scales, cohort_idx=idx, cohort_mask=mask,
+                                       frozen_base=kw.get("base_params"))
+            _log.info("strict: %s contract ok (%s)", self._block_program_name, report)
+        check_input_shardings(
+            self._data, self.params, self.mesh, padded_clients=self._padded_clients,
+            params_like=self._params_like, base_params=self.base_params,
+            base_like=self._base_like,
+        )
+
+    def _audit(self, compile: bool, spans: bool = False) -> list:
+        """Every catalogued program's audit report (each under a ``program-audit``
+        span with ``spans``); in a world of ranks (real process groups) the ranks
+        also compare their schedules (one object all-gather) and a rank whose
+        schedule differs is a ``collective-schedule`` finding."""
+        from nanofed_tpu_torch.analysis.program_audit import schedule_mismatch_findings
+
+        reports = []
+        for name in self.program_catalog.names():
+            with (self._tracer.span("program-audit", program=name) if spans
+                  else contextlib.nullcontext()):
+                reports.append(self.program_catalog.audit(name, compile=compile))
+        if self.mesh is not None and self.mesh.world_size > 1 and not self.mesh.described:
+            schedules = all_gather_object([r.schedule for r in reports])
+            reports = [
+                dataclasses.replace(r, findings=r.findings + tuple(
+                    schedule_mismatch_findings(r.program, [s[i] for s in schedules])))
+                for i, r in enumerate(reports)
+            ]
+        return reports
+
+    def _audit_strict(self) -> None:
+        """The construction-time program audit: findings RAISE, so a divergent
+        collective schedule, an upcast input or a host read never reaches a
+        dispatch."""
+        from nanofed_tpu_torch.analysis.contracts import ContractViolation
+
+        findings = [f for report in self._audit(compile=False) for f in report.findings]
+        if findings:
+            raise ContractViolation(
+                "program audit failed:\n" + "\n".join(f.render() for f in findings))
+        _log.info("strict: program audit ok (%s)", ", ".join(self.program_catalog.names()))
+
+    def audit_programs(self, compile: bool = True) -> list:
+        """Audit every catalogued round program (``analysis.program_audit``):
+        collective schedules across ranks, mesh discipline, dtype drift, host reads
+        inside the program.  Appends an ``audit`` record a program to
+        ``telemetry.jsonl`` (when telemetry is on) under a ``program-audit`` span and
+        returns the reports; findings are REPORTED, not raised — the CLI decides the
+        exit code, strict mode has its own construction-time raise."""
+        reports = []
+        for report in self._audit(compile=compile, spans=True):
+            if self.telemetry is not None:
+                self.telemetry.record("audit", **report.to_dict())
+            _log.info(
+                "audit %s: %s (%d collectives, axes %s, %d rank(s))", report.program,
+                "ok" if report.ok else f"{len(report.findings)} finding(s)",
+                len(report.schedule), ",".join(report.mesh_axes) or "-", report.ranks,
+            )
+            reports.append(report)
+        return reports
+
+    def _dispatch_guard(self):
+        """The strict-mode sync guard around a round-step or block dispatch: every
+        input is on the device by then, so a synchronizing call inside the dispatch
+        is a hot-path bug and raises (``analysis.strict_mode``; a no-op on the CPU).
+        A no-op context when ``strict=False``."""
+        if not self.strict:
+            return contextlib.nullcontext()
+        from nanofed_tpu_torch.analysis.contracts import strict_mode
+
+        return strict_mode(self.device)
 
     def profile_programs(self, force: bool = False) -> list[ProgramCostReport]:
         """Profile every catalogued program (``observability.profiling``: a first
@@ -1046,6 +1170,11 @@ class Coordinator:
             # No dead program stays profiled.
             self.program_catalog.remove(self._block_program_name)
         self._register_programs()
+        if self.strict:
+            # A retuned program is a NEW program: checked and audited before the
+            # swap's first dispatch, the same bar as construction.
+            self._check_contracts()
+            self._audit_strict()
 
     # ------------------------------------------------------------------
     # Round loop
@@ -1319,19 +1448,22 @@ class Coordinator:
                 cfg.lr_schedule, first, n, cfg.num_rounds, min_factor=cfg.lr_min_factor,
                 decay_every=cfg.lr_decay_every, gamma=cfg.lr_decay_gamma,
             )
+            # Device-ready inputs BEFORE the guarded dispatch.
             idx_dev = self._to_device(idx_rows) if self._cohort_mode else None
             mask_dev = self._to_device(mask_rows)
-            result = self._round_block(
-                self.params, self.server_state, self._data, self._num_samples,
-                round_seeds(cfg.seed, rounds), lr_scales, idx_dev, mask_dev,
-                **({} if self.adapter is None else {"base_params": self.base_params}),
-            )
+            with self._dispatch_guard():
+                result = self._round_block(
+                    self.params, self.server_state, self._data, self._num_samples,
+                    round_seeds(cfg.seed, rounds), lr_scales, idx_dev, mask_dev,
+                    **({} if self.adapter is None else {"base_params": self.base_params}),
+                )
             self.params = result.params
             self.server_state = result.server_opt_state
 
         with self._tracer.span("host_sync", round=first, rounds=n):
             if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)  # the block's one barrier
+                # fedlint: disable=FED001 (the block's one barrier, after the whole block is enqueued: host_sync's span measures device time)
+                torch.cuda.synchronize(self.device)
             names = list(result.metrics)
             values = torch.stack([result.metrics[k].double() for k in names]).tolist()
             stacked = dict(zip(names, values))
@@ -1494,25 +1626,30 @@ class Coordinator:
         # local-train covers both (its attribute says so).  The round's one barrier
         # ends the span, so its duration is device time, not the enqueue.
         with self._tracer.span("local-train", round=round_id, fused="train+aggregate"):
+            step_weights = weights[sl]
             if self.scaffold:
                 cohort_idx = idx if self._cohort_mode else None
-                result = self._round_step(
-                    self.params, self.server_state, self.c_global,
-                    self._control_rows(cohort_idx, idx_dev), data, weights[sl], perms, keys,
-                    lr_scale,
-                )
+                # Host work (the exchange plan) before the guarded dispatch.
+                c_rows = self._control_rows(cohort_idx, idx_dev)
+                with self._dispatch_guard():
+                    result = self._round_step(
+                        self.params, self.server_state, self.c_global, c_rows, data,
+                        step_weights, perms, keys, lr_scale,
+                    )
                 self.c_global = result.c_global
                 self._add_control_deltas(cohort_idx, idx_dev, result.delta_c)
             else:
                 base = () if self.adapter is None else (self.base_params,)
-                result = self._round_step(
-                    self.params, self.server_state, *base, data, weights[sl], perms, keys,
-                    noise, lr_scale,
-                )
+                with self._dispatch_guard():
+                    result = self._round_step(
+                        self.params, self.server_state, *base, data, step_weights, perms,
+                        keys, noise, lr_scale,
+                    )
             self.params = result.params
             self.server_state = result.server_opt_state
             if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)  # the round's one barrier
+                # fedlint: disable=FED001 (the round's one barrier, inside the local-train span so its duration is device time, not the enqueue)
+                torch.cuda.synchronize(self.device)
 
         with self._tracer.span("aggregate", round=round_id):
             agg = self._round_agg({k: float(v) for k, v in result.metrics.items()},
@@ -1610,7 +1747,7 @@ class Coordinator:
         if self._layout is None or not self._layout.model_sharded:
             return self.server_state
         return {k: ravel(self._layout.gather_full(unravel(v, self.params)))
-                if torch.is_tensor(v) else v for k, v in self.server_state.items()}
+                if _is_vector(v) else v for k, v in self.server_state.items()}
 
     def full_c_global(self) -> torch.Tensor:
         """SCAFFOLD's server control ``[P]``, whole (gathered from the model shards on
@@ -1733,14 +1870,34 @@ class Coordinator:
         tmp.replace(path)
 
 
+def _is_vector(v: Any) -> bool:
+    """A params-shaped server-state vector (not a 0-d counter)."""
+    return torch.is_tensor(v) and v.ndim > 0
+
+
+def _copy_to(tree: Any, at: torch.device, shared: bool = False) -> Any:
+    """``tree``'s tensors as a program's arguments on ``at``: on ``meta``, shapes that
+    read and allocate nothing (``analysis.contracts.to_meta``); elsewhere clones, or
+    with ``shared`` (read-only inputs: the population, the frozen base) the tensors
+    themselves."""
+    from nanofed_tpu_torch.analysis.contracts import to_meta
+
+    if at.type == "meta":
+        return to_meta(tree)
+    if shared:
+        return tree
+    if torch.is_tensor(tree):
+        return tree.clone()
+    return {k: v.clone() if torch.is_tensor(v) else v for k, v in tree.items()}
+
+
 def _lockstep(step: Any) -> None:
     """Check that every rank of the world is about to take the same ``step``; raises
     on every rank, naming the ranks' steps, when they differ (one all-gather, bounded
     by the process group's timeout)."""
     if not dist.is_initialized():
         return
-    steps: list[Any] = [None] * dist.get_world_size()
-    dist.all_gather_object(steps, step)
+    steps = all_gather_object(step)
     if any(s != steps[0] for s in steps):
         raise NanoFedError(f"the ranks are out of step: {dict(enumerate(steps))}")
 

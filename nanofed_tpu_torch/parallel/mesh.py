@@ -30,6 +30,7 @@ collective is staged through host memory by this module.
 
 from __future__ import annotations
 
+import contextvars
 import math
 import os
 from dataclasses import dataclass, field
@@ -190,6 +191,11 @@ class Mesh:
         c = self.coords
         return c[HOST_AXIS] * self.dims[1] + c[CLIENT_AXIS]
 
+    @property
+    def described(self) -> bool:
+        """True for a mesh made by :meth:`describe` (no process group behind it)."""
+        return any(isinstance(g, _NoGroup) for g in self.groups.values())
+
     @classmethod
     def describe(cls, shape: tuple[int, ...], rank: int,
                  device: torch.device | str = "cpu") -> "Mesh":
@@ -197,12 +203,16 @@ class Mesh:
         group: for the layout arithmetic (slices, shards) only; its collectives raise."""
         mesh = cls(tuple(int(d) for d in shape), _axis_names(len(shape)), int(rank),
                    torch.device(device))
-        mesh.groups = {axis: _NoGroup() for axis, n in zip(_GRID, mesh.dims) if n > 1}
+        mesh.groups = {axis: _NoGroup(n) for axis, n in zip(_GRID, mesh.dims) if n > 1}
         return mesh
 
 
 class _NoGroup:
-    """Stands for a process group on a described mesh; any collective over it raises."""
+    """Stands for a process group of ``size`` ranks on a described mesh: any collective
+    over it raises, unless a :class:`CollectiveRecorder` is active."""
+
+    def __init__(self, size: int) -> None:
+        self.size = int(size)
 
 
 def _axis_names(ndim: int, axis_name: str = CLIENT_AXIS, model_axis: str = MODEL_AXIS,
@@ -338,6 +348,18 @@ def host_axis_size(mesh: Mesh) -> int:
     return mesh.dims[0]
 
 
+def client_axis_size(mesh: Mesh) -> int:
+    """Size of the ``clients`` axis alone (per-host client shards on a 3-axis mesh; use
+    :func:`client_shard_count` for the padding divisor)."""
+    return mesh.dims[1]
+
+
+def mesh_shape(mesh: Mesh) -> tuple[int, ...]:
+    """The mesh's per-axis sizes in axis order (``(clients,)``, ``(clients, model)`` or
+    ``(hosts, clients, model)``)."""
+    return tuple(mesh.shape)
+
+
 def client_shard_count(mesh: Mesh) -> int:
     """Total shards of the client data axis: ``hosts x clients``, the divisor for
     client padding."""
@@ -429,21 +451,83 @@ class _LeafSlot(NamedTuple):
     shard_shape: tuple[int, ...]
 
 
-def psum_stages(mesh: Mesh) -> list[Any]:
-    """The process groups of the client reduce, innermost first: the clients line,
-    then the hosts line (each only where it has more than one rank)."""
-    return [g for g in (mesh.groups.get(CLIENT_AXIS), mesh.groups.get(HOST_AXIS))
-            if g is not None]
+def psum_stages(mesh: Mesh) -> list[tuple[str, Any]]:
+    """The ``(axis, process group)`` stages of the client reduce, innermost first: the
+    clients line, then the hosts line (each only where it has more than one rank)."""
+    return [(axis, mesh.groups[axis]) for axis in (CLIENT_AXIS, HOST_AXIS)
+            if mesh.groups.get(axis) is not None]
 
 
-def _all_reduce(x: torch.Tensor, group: Any) -> None:
+#: The axis a world-wide object collective (:func:`broadcast_object`,
+#: :func:`all_gather_object`) is recorded under: it spans every mesh axis at once.
+WORLD_AXIS = "world"
+
+
+class CollectiveRecord(NamedTuple):
+    """One collective as a :class:`CollectiveRecorder` saw it: the op, the mesh axis
+    of its process group, the operand's shape and dtype (``()`` and None for an
+    object collective) and the operand's bytes."""
+
+    op: str
+    axis: str
+    shape: tuple[int, ...]
+    dtype: torch.dtype | None
+    bytes: int
+
+
+_recorder: contextvars.ContextVar["CollectiveRecorder | None"] = contextvars.ContextVar(
+    "nanofed_collective_recorder", default=None)
+
+
+class CollectiveRecorder:
+    """While entered (in this thread or task: the recorder is context-local), every
+    collective of this module appends a :class:`CollectiveRecord` to ``records`` and
+    moves no data: an all-reduce leaves its operand as it is, an all-gather returns an
+    empty tensor of the gathered shape on the operand's device, an object collective
+    returns this rank's object.  A described mesh (:meth:`Mesh.describe`), whose
+    collectives otherwise raise, then stands in for a world of ranks: one process runs
+    each rank's program in turn (``analysis.program_audit``)."""
+
+    def __init__(self) -> None:
+        self.records: list[CollectiveRecord] = []
+        self._token: contextvars.Token | None = None
+
+    def __enter__(self) -> "CollectiveRecorder":
+        self._token = _recorder.set(self)
+        return self
+
+    def __exit__(self, *exc: Any) -> None:
+        _recorder.reset(self._token)
+
+    def record(self, op: str, axis: str, x: torch.Tensor | None) -> None:
+        if x is None:
+            self.records.append(CollectiveRecord(op, axis, (), None, 0))
+            return
+        self.records.append(CollectiveRecord(
+            op, axis, tuple(int(d) for d in x.shape), x.dtype, x.numel() * x.element_size()))
+
+
+def _group_size(group: Any) -> int:
+    return group.size if isinstance(group, _NoGroup) else dist.get_world_size(group)
+
+
+def _all_reduce(x: torch.Tensor, group: Any, axis: str) -> None:
+    recorder = _recorder.get()
+    if recorder is not None:
+        recorder.record("all_reduce", axis, x)
+        return
     if isinstance(group, _NoGroup):
         raise RuntimeError("a described mesh (Mesh.describe) runs no collective")
     dist.all_reduce(x, group=group)
 
 
-def _all_gather(x: torch.Tensor, group: Any) -> torch.Tensor:
+def _all_gather(x: torch.Tensor, group: Any, axis: str) -> torch.Tensor:
     """``[n * rows, ...]``: the group's ranks' ``x`` in group-rank order."""
+    recorder = _recorder.get()
+    if recorder is not None:
+        recorder.record("all_gather", axis, x)
+        return torch.empty((_group_size(group) * x.shape[0], *x.shape[1:]),
+                           dtype=x.dtype, device=x.device)
     if isinstance(group, _NoGroup):
         raise RuntimeError("a described mesh (Mesh.describe) runs no collective")
     n = dist.get_world_size(group)
@@ -499,15 +583,15 @@ class MeshLayout:
         if not stages:
             return x
         y = x.reshape(-1).clone()
-        for group in stages:
-            _all_reduce(y, group)
+        for axis, group in stages:
+            _all_reduce(y, group, axis)
         return y.view(x.shape)
 
     def client_all_gather(self, x: torch.Tensor) -> torch.Tensor:
         """``[C_local, ...] -> [C, ...]``: every client shard's rows in global row order
         (hosts-major), on every rank."""
-        for group in psum_stages(self.mesh):
-            x = _all_gather(x, group)
+        for axis, group in psum_stages(self.mesh):
+            x = _all_gather(x, group, axis)
         return x
 
     def host_local_all_gather(self, x: torch.Tensor) -> torch.Tensor:
@@ -516,14 +600,14 @@ class MeshLayout:
         the first stage of :meth:`client_all_gather` alone, which moves nothing
         across hosts.  The identity where the line has one rank."""
         group = self.mesh.groups.get(CLIENT_AXIS)
-        return x if group is None else _all_gather(x, group)
+        return x if group is None else _all_gather(x, group, CLIENT_AXIS)
 
     def hosts_all_reduce(self, x: torch.Tensor) -> torch.Tensor:
         """The sum of ``x`` over this rank's hosts line: ONE all-reduce, in place on
         ``x``, which is returned (the identity without a hosts axis)."""
         group = self.mesh.groups.get(HOST_AXIS)
         if group is not None:
-            _all_reduce(x, group)
+            _all_reduce(x, group, HOST_AXIS)
         return x
 
     def hosts_all_gather(self, x: torch.Tensor) -> torch.Tensor:
@@ -531,7 +615,7 @@ class MeshLayout:
         rank's hosts line (one rank a host, the same client and model coordinates), in
         host order.  The identity without a hosts axis."""
         group = self.mesh.groups.get(HOST_AXIS)
-        return x if group is None else _all_gather(x, group)
+        return x if group is None else _all_gather(x, group, HOST_AXIS)
 
     # -- model axis ----------------------------------------------------------------
 
@@ -556,7 +640,7 @@ class MeshLayout:
         if not self.model_sharded:
             return shard
         flat = torch.cat([shard[s.name].reshape(-1) for s in self._slots])
-        rows = _all_gather(flat[None], self.mesh.groups[MODEL_AXIS])
+        rows = _all_gather(flat[None], self.mesh.groups[MODEL_AXIS], MODEL_AXIS)
         out, offset = {}, 0
         for slot in self._slots:
             n = math.prod(slot.shard_shape)
@@ -588,6 +672,24 @@ class MeshLayout:
         return torch.cat(parts)
 
 
+def hierarchical_psum(x: torch.Tensor, layout: MeshLayout) -> torch.Tensor:
+    """The sum of ``x`` over every client shard, innermost first (the JAX function's
+    torch meaning: :meth:`MeshLayout.client_psum`; it takes the layout, which owns the
+    axes, where the JAX one takes axis names)."""
+    return layout.client_psum(x)
+
+
+def hierarchical_pmean(x: torch.Tensor, layout: MeshLayout) -> torch.Tensor:
+    """The mean of ``x`` over every client shard (:func:`hierarchical_psum` divided by
+    the shard count)."""
+    return layout.client_psum(x) / client_shard_count(layout.mesh)
+
+
+def hierarchical_all_gather(x: torch.Tensor, layout: MeshLayout) -> torch.Tensor:
+    """Every client shard's rows, innermost first (:meth:`MeshLayout.client_all_gather`)."""
+    return layout.client_all_gather(x)
+
+
 def sum_fn_of(layout: MeshLayout | None) -> Callable[[torch.Tensor], torch.Tensor]:
     """``x -> sum(x)`` over this rank's rows and then every client shard (the
     validation z-score's ``sum_fn``); the local sum without a layout."""
@@ -599,12 +701,31 @@ def sum_fn_of(layout: MeshLayout | None) -> Callable[[torch.Tensor], torch.Tenso
 def broadcast_object(obj: Any, src: int = 0) -> Any:
     """``obj`` as rank ``src`` holds it, on every rank (the identity without a process
     group): how one rank's pick (the autotuner's winner, a retune verdict) reaches
-    every rank, so they all build the same mesh and program."""
+    every rank, so they all build the same mesh and program.  Under a
+    :class:`CollectiveRecorder` it is recorded and returns ``obj``."""
+    recorder = _recorder.get()
+    if recorder is not None:
+        recorder.record("broadcast_object", WORLD_AXIS, None)
+        return obj
     if not dist.is_initialized() or dist.get_world_size() == 1:
         return obj
     box = [obj]
     dist.broadcast_object_list(box, src=src)
     return box[0]
+
+
+def all_gather_object(obj: Any) -> list[Any]:
+    """Every rank's ``obj``, in rank order, on every rank (``[obj]`` without a process
+    group; recorded, and ``[obj]``, under a :class:`CollectiveRecorder`)."""
+    recorder = _recorder.get()
+    if recorder is not None:
+        recorder.record("all_gather_object", WORLD_AXIS, None)
+        return [obj]
+    if not dist.is_initialized():
+        return [obj]
+    out: list[Any] = [None] * dist.get_world_size()
+    dist.all_gather_object(out, obj)
+    return out
 
 
 def is_primary() -> bool:

@@ -86,7 +86,7 @@ class RoundBlockResult(NamedTuple):
     is the round within the block."""
 
     params: Params  # end-of-block global params
-    server_opt_state: Any  # end-of-block server optimizer state (counters as ints)
+    server_opt_state: Any  # end-of-block server state (counters as passed: int or 0-d)
     metrics: dict[str, torch.Tensor]  # weighted scalar metrics per round, each [R]
     survivors: torch.Tensor  # [R] int32: surviving sampled clients per round
     client_metrics: ClientMetrics | None  # [R, K] (None unless collect_client_detail)
@@ -113,16 +113,21 @@ def _salted(seed: int, salt: int) -> int:
     return (z ^ (z >> 31)) >> 1
 
 
-def _counters_on(sos: Any, device: torch.device) -> tuple[Any, list[str]]:
-    """The server state with its Python-int counters as 0-d int64 tensors on
-    ``device`` (filled there: no copy from the host), and the keys converted."""
+def int_counters(sos: Any) -> list[str]:
+    """The keys of ``sos`` whose server-optimizer counters are Python ints."""
     if not isinstance(sos, dict):
-        return sos, []
-    moved = [k for k in _COUNTERS if isinstance(sos.get(k), int)]
-    out = dict(sos)
-    for k in moved:
-        out[k] = torch.full((), sos[k], dtype=torch.int64, device=device)
-    return out, moved
+        return []
+    return [k for k in _COUNTERS if isinstance(sos.get(k), int)]
+
+
+def counters_on(sos: Any, device: torch.device | str) -> Any:
+    """The server state with its Python-int counters as 0-d int64 tensors on
+    ``device`` (filled there: no copy from the host)."""
+    moved = int_counters(sos)
+    if not moved:
+        return sos
+    return {**sos, **{k: torch.full((), sos[k], dtype=torch.int64, device=device)
+                      for k in moved}}
 
 
 def pad_permutations(perms: torch.Tensor, rows: int) -> torch.Tensor:
@@ -281,40 +286,43 @@ def build_round_block(
         """This rank's slots' data rows from the hosts that hold them: one all-gather
         over the hosts line of each host's rows for the line's slots (zeros where
         another host holds the client)."""
-        ids = idx[line_slots]
+        ids = idx[line_slots.to(idx.device)]
         held = (ids // rows_per_host) == host
         local = torch.where(held, ids - row0, torch.zeros_like(ids))
         pack = packed[local] * held[:, None].to(torch.uint8)
         gathered = hosts_line.hosts_all_gather(pack).view(n_hosts, len(ids), -1)
         round_block.cohort_exchange_bytes = gathered.numel()
         mine = slice(host * per, (host + 1) * per)
-        rows = gathered[ids[mine] // rows_per_host, torch.arange(per, device=dev) + mine.start]
+        rows = gathered[ids[mine] // rows_per_host,
+                        torch.arange(per, device=ids.device) + mine.start]
         fields, at = [], 0
         for dtype, shape, width in layout:
             fields.append(rows[:, at: at + width].contiguous().view(dtype).reshape(per, *shape))
             at += width
         return ClientData(*fields)
 
-    def resample(seed: int) -> tuple[torch.Tensor | None, torch.Tensor]:
-        """This round's cohort drawn on the device: ``(idx, mask)``."""
+    def resample(seed: int, at: torch.device,
+                 gen_at: torch.device) -> tuple[torch.Tensor | None, torch.Tensor]:
+        """This round's cohort drawn on the device ``at`` (generators on ``gen_at``):
+        ``(idx, mask)``."""
         drop = None
         if dropout_rate > 0:
-            drop = torch.Generator(device=dev).manual_seed(_salted(seed, _DROPOUT_SALT))
+            drop = torch.Generator(device=gen_at).manual_seed(_salted(seed, _DROPOUT_SALT))
         if not cohort_mode:
-            mask = (torch.arange(step_clients, device=dev) < num_clients).float()
+            mask = (torch.arange(step_clients, device=at) < num_clients).float()
             if drop is not None:
-                mask = mask * (torch.rand(step_clients, generator=drop, device=dev)
+                mask = mask * (torch.rand(step_clients, generator=drop, device=at)
                                >= dropout_rate).float()
             return None, mask
-        gen = torch.Generator(device=dev).manual_seed(_salted(seed, _COHORT_SALT))
-        perm = torch.randperm(num_clients, generator=gen, device=dev)
-        idx = torch.zeros(step_clients, dtype=torch.int64, device=dev)
+        gen = torch.Generator(device=gen_at).manual_seed(_salted(seed, _COHORT_SALT))
+        perm = torch.randperm(num_clients, generator=gen, device=at)
+        idx = torch.zeros(step_clients, dtype=torch.int64, device=at)
         idx[:cohort_size] = perm[:cohort_size]
-        mask = torch.zeros(step_clients, device=dev)
+        mask = torch.zeros(step_clients, device=at)
         if drop is None:
             mask[:cohort_size] = 1.0
         else:
-            mask[:cohort_size] = (torch.rand(cohort_size, generator=drop, device=dev)
+            mask[:cohort_size] = (torch.rand(cohort_size, generator=drop, device=at)
                                   >= dropout_rate).float()
         return idx, mask
 
@@ -353,8 +361,12 @@ def build_round_block(
         if fetching:
             packed, layout = data_bytes(data)
         n = data.y.shape[1]
-        gp, sos = global_params, server_opt_state
-        sos, moved = _counters_on(sos, dev)
+        # The call's device is the data's: on ``meta`` tensors (the analysis' shape
+        # trace) the generators live on the host and each draw is a meta shape.
+        at = data.y.device
+        gen_at = torch.device("cpu") if at.type == "meta" else at
+        moved = int_counters(server_opt_state)
+        gp, sos = global_params, counters_on(server_opt_state, at)
         rows: dict[str, list] = {
             "metrics": [], "survivors": [], "client": [], "norms": [], "weights": [],
             "ids": [],
@@ -362,14 +374,15 @@ def build_round_block(
         for i, seed in enumerate(seeds):
             # The round's draws, in _train_round's order.
             if perms is None:
-                gen = torch.Generator(device=dev).manual_seed(seed)
+                gen = torch.Generator(device=gen_at).manual_seed(seed)
                 perms_r = pad_permutations(
-                    draw_permutations(gen, num_clients, epochs, n), padded_clients)
-                keys_r = client_keys(seed, padded_clients, dev)
+                    draw_permutations(gen, num_clients, epochs, n, device=at),
+                    padded_clients)
+                keys_r = client_keys(seed, padded_clients, at)
             else:
                 perms_r, keys_r = perms[i], None if keys is None else keys[i]
             if cohort_mask is None:
-                idx, mask = resample(seed)
+                idx, mask = resample(seed, at, gen_at)
             else:
                 idx = cohort_idx[i] if cohort_mode else None
                 mask = cohort_mask[i]
@@ -403,8 +416,10 @@ def build_round_block(
                     rows["ids"].append(idx)
             del result, data_r, perms_r, keys_r
         if moved:
-            # The block's one read back: the counters return as ints, the
-            # checkpoints' format (utils.trees.to_numpy_server_state).
+            # A caller that passed int counters gets ints back: the block's one read
+            # back, after its last round.  The coordinator keeps its counters on the
+            # device, so its guarded dispatch never reaches this.
+            # fedlint: disable=FED001 (the block's one read back, after every round is enqueued: only a caller that passed int counters reaches it)
             sos = {**sos, **{k: int(sos[k]) for k in moved}}
         metrics = {k: torch.stack([m[k] for m in rows["metrics"]])
                    for k in rows["metrics"][0]}

@@ -129,17 +129,18 @@ def build_scaffold_round_step(
             cg_full = ravel(layout.gather_full(unravel(c_global, shard_params)))
         gp_flat = ravel(global_params)
         shard_flat = gp_flat if global_params is shard_params else ravel(shard_params)
-        if gp_flat.device.type != dev.type:
+        if gp_flat.device.type not in (dev.type, "meta"):
             raise ValueError(f"the params are on {gp_flat.device}, the step runs on {dev}")
+        at = gp_flat.device  # the step's device (``meta`` in the analysis' shape trace)
         k = client_chunk if client_chunk is not None and client_chunk < c else c
         if c % k != 0:
             raise ValueError(f"client_chunk {client_chunk} must divide client count {c}")
         p = gp_flat.numel()
         stride = -(-p // 4) * 4  # rows 16-byte aligned for the kernels
-        dy_rows = torch.empty((c, stride), device=dev)
-        delta_y, delta_c = dy_rows[:, :p], torch.empty((c, stride), device=dev)[:, :p]
+        dy_rows = torch.empty((c, stride), device=at)
+        delta_y, delta_c = dy_rows[:, :p], torch.empty((c, stride), device=at)[:, :p]
         participating = (weights > 0).float()
-        zero = torch.zeros((), device=dev)
+        zero = torch.zeros((), device=at)
         chunk_metrics = []
         for start in range(0, c, k):
             sl = slice(start, start + k)

@@ -126,11 +126,12 @@ def make_optimizer(config: TrainingConfig) -> SGD:
 
 
 def draw_permutations(
-    gen: torch.Generator, num_clients: int, epochs: int, n: int
+    gen: torch.Generator, num_clients: int, epochs: int, n: int,
+    device: torch.device | str | None = None,
 ) -> torch.Tensor:
     """``[num_clients, epochs, n]`` independent uniform permutations of ``range(n)``
-    on ``gen``'s device."""
-    u = torch.rand((num_clients, epochs, n), generator=gen, device=gen.device)
+    on ``gen``'s device (or ``device="meta"``: a shape, with a host generator)."""
+    u = torch.rand((num_clients, epochs, n), generator=gen, device=device or gen.device)
     return u.argsort(dim=-1)
 
 
@@ -139,6 +140,7 @@ def client_keys(seed: int, num_clients: int, device: torch.device | str) -> torc
     of ``(seed, c)`` alone.  Gather them by client id, as the permutations are."""
     lo, hi = seed & 0xFFFFFFFF, (seed >> 32) & 0xFFFFFFFF
     words = torch.tensor([lo, hi], dtype=torch.int64).to(torch.int32)  # wraps to int32
+    # fedlint: disable=FED001 (a host tensor of two seed words, made just above: the cast reads no device value)
     base = int(mix32(mix32(words[:1]) + words[1:]))
     ids = torch.arange(num_clients, dtype=torch.int32, device=device)
     return mix32(ids + base)

@@ -130,19 +130,21 @@ def from_checkpoint_stack(nested: Mapping[str, Any], like: Params, rows: int) ->
 def to_numpy_server_state(state: Mapping[str, Any], like: Params) -> tuple:
     """The port's flat server state as the JAX package's optax state: a
     ``(transform, schedule)`` tuple of ``core.types`` records whose trees are nested
-    dicts of numpy arrays shaped like ``like`` and whose counts are int32."""
+    dicts of numpy arrays shaped like ``like`` and whose counts are int32 (a count
+    that rides on the device as a 0-d tensor is read back here, the one place the
+    format needs it)."""
 
     def tree(flat: torch.Tensor) -> dict[str, Any]:
         return to_numpy_params(unravel(flat, like))
 
     if "mu" in state:
-        transform = ScaleByAdamState(np.asarray(state["count"], np.int32),
+        transform = ScaleByAdamState(np.asarray(int(state["count"]), np.int32),
                                      tree(state["mu"]), tree(state["nu"]))
     elif "trace" in state:
         transform = TraceState(tree(state["trace"]))
     else:
         transform = EmptyState()
-    schedule = (ScaleByScheduleState(np.asarray(state["schedule_count"], np.int32))
+    schedule = (ScaleByScheduleState(np.asarray(int(state["schedule_count"]), np.int32))
                 if "schedule_count" in state else EmptyState())
     return (transform, schedule)
 
@@ -250,3 +252,70 @@ def tree_weighted_mean(stacked: Params, weights: torch.Tensor, eps: float = 1e-1
         return (leaf * w).sum(0) / denom.to(leaf.dtype)
 
     return {name: leaf_mean(leaf) for name, leaf in stacked.items()}
+
+
+# ---------------------------------------------------------------------------
+# The JAX package's ``tree_*`` arithmetic on the port's flat params
+# ---------------------------------------------------------------------------
+
+
+def tree_zeros_like(params: Params) -> Params:
+    return {name: torch.zeros_like(leaf) for name, leaf in params.items()}
+
+
+def tree_add(a: Params, b: Params) -> Params:
+    return {name: leaf + b[name] for name, leaf in a.items()}
+
+
+def tree_sub(a: Params, b: Params) -> Params:
+    return {name: leaf - b[name] for name, leaf in a.items()}
+
+
+def tree_scale(params: Params, s: torch.Tensor | float) -> Params:
+    return {name: leaf * s for name, leaf in params.items()}
+
+
+def tree_where(pred: torch.Tensor | bool, a: Params, b: Params) -> Params:
+    """Leafwise ``where(pred, a, b)`` with a scalar or broadcastable predicate."""
+    pred = torch.as_tensor(pred)
+    return {name: torch.where(pred.to(leaf.device), leaf, b[name]) for name, leaf in a.items()}
+
+
+def tree_vdot(a: Params, b: Params) -> torch.Tensor:
+    """Sum of elementwise products across all leaves (a full inner product)."""
+    return torch.stack([torch.vdot(leaf.reshape(-1), b[name].reshape(-1))
+                        for name, leaf in a.items()]).sum()
+
+
+def tree_global_norm(params: Params) -> torch.Tensor:
+    """Global L2 norm over all leaves."""
+    return tree_sq_norm(params).sqrt()
+
+
+def tree_cast(params: Params, dtype: torch.dtype) -> Params:
+    return {name: leaf.to(dtype) for name, leaf in params.items()}
+
+
+def tree_ravel(params: Params) -> tuple[torch.Tensor, Any]:
+    """One 1-D vector in ravel order plus the function that unravels a vector like it
+    (``jax.flatten_util.ravel_pytree``'s pair; :func:`ravel` and :func:`unravel`)."""
+    like = {name: leaf.detach() for name, leaf in params.items()}
+    return ravel(params), lambda flat: unravel(flat, like)
+
+
+def tree_flatten_with_names(tree: Mapping[str, Any]) -> tuple[list[tuple[str, Any]], list[str]]:
+    """``[(path_name, leaf), ...]`` of a flat or nested dict (nested keys sorted, as the
+    JAX ravel order) plus the names, which rebuild it (``dict(zip(names, leaves))``,
+    then :func:`unflatten_names` for a nested tree): the port's treedef."""
+    named = list(flatten_with_names(tree).items())
+    return named, [name for name, _ in named]
+
+
+def tree_map_with_path_names(fn: Any, tree: Mapping[str, Any]) -> dict[str, Any]:
+    """Map with the ``/``-joined path name of each leaf, keeping a nested tree nested."""
+
+    def walk(node: Mapping[str, Any], prefix: str) -> dict[str, Any]:
+        return {key: walk(value, f"{prefix}{key}/") if isinstance(value, Mapping)
+                else fn(f"{prefix}{key}", value) for key, value in node.items()}
+
+    return walk(tree, "")

@@ -230,8 +230,9 @@ def test_flagship_memory_sweep_on_tiny_configs():
 def test_generate_adapter_evidence_writes_the_artifact(tmp_path, monkeypatch):
     """The evidence artifact at a cut size (2 clients, 2 rounds, no flagship sweep, the
     ``evidence`` geometry narrowed: no check here depends on its width): its keys are
-    the JAX artifact's less ``strict_mode`` and the JAX environment's, the losses are
-    the rounds', and the telemetry stream carries the measured bytes."""
+    the JAX artifact's less the JAX environment's, the run was strict as the JAX
+    one is, the losses are the rounds', and the telemetry stream carries the measured
+    bytes."""
     from nanofed_tpu_torch.observability import summarize_telemetry
 
     monkeypatch.setitem(transformer.FLAGSHIP_CONFIGS, "evidence", (64, 16, 32, 2, 2))
@@ -243,5 +244,6 @@ def test_generate_adapter_evidence_writes_the_artifact(tmp_path, monkeypatch):
     assert len(art["losses"]) == 2 and art["adapter"]["rank"] == 4
     assert art["wire_bytes_per_round"]["q8_reduction"] > 1
     assert art["workload"]["width"] == transformer.FLAGSHIP_CONFIGS["evidence"][2]
+    assert art["workload"]["strict_mode"] is True
     digest = summarize_telemetry(tmp_path / "adapter_t_telemetry" / "telemetry.jsonl")
     assert digest["adapter"]["rank"] == 4 and digest["adapter"]["merges"] >= 1

@@ -3,9 +3,10 @@ on the CPU: ``run`` and ``bench`` give what the library calls give, ``profile`` 
 ``--sweep``) and ``serve`` run through, ``--telemetry-dir`` writes each one's telemetry,
 ``metrics-summary`` and ``trace`` give what the JAX package's readers give, ``info``
 runs nothing, every command that runs something defaults to the card and raises
-without one, and each subcommand and flag of a later slice is refused with its ROADMAP
-item, and together they are the JAX command line's subcommands and flags (read from
-its parser, which is built and never run)."""
+without one, ``audit`` and ``run --strict`` (the analysis slice, the last whose
+subcommand and flag this command line refused) run, and together they are the JAX
+command line's subcommands and flags (read from its parser, which is built and never
+run)."""
 
 import argparse
 import asyncio
@@ -295,19 +296,51 @@ def test_commands_default_to_the_card_and_raise_without_it(argv, monkeypatch):
 @pytest.mark.parametrize("name,item", [
     ("audit", "item 21"),
 ])
-def test_later_subcommands_are_listed_and_refused_with_their_item(name, item, capsys):
-    assert cli.main([name, "--seed", "3", "somewhere"]) == 2
-    assert f"`{name}` is not supported" in (err := capsys.readouterr().err) and item in err
+def test_later_subcommands_are_listed_and_refused_with_their_item(name, item, capsys,
+                                                                   monkeypatch, tmp_path):
+    """The subcommand the analysis slice (ROADMAP ``item``) brings, once refused: it is
+    listed, audits the catalog it is given (here one program, and one whose host read
+    is a finding: exit 1), prints the JAX JSON shape and writes its telemetry."""
+    from nanofed_tpu_torch.analysis import program_audit
+    from nanofed_tpu_torch.observability import summarize_telemetry
+    from nanofed_tpu_torch.observability.profiling import ProgramCatalog
+
+    def catalog(device=None):
+        cat = ProgramCatalog()
+        cat.register("scale", lambda x: x * 2.0, args=(torch.ones(4, device=device),))
+        return cat
+
     assert name in cli.build_parser().format_help()
+    monkeypatch.setattr(program_audit, "reference_catalog", catalog)
+    assert cli.main([name, "--device", "cpu", "--json", "--no-compile",
+                     "--telemetry-dir", str(tmp_path)]) == 0
+    (report,) = json.loads(capsys.readouterr().out)
+    assert report["program"] == "scale" and report["ok"] and report["compiled"] is False
+    assert report["checks"] == list(program_audit.AUDIT_CHECKS)
+    audits = summarize_telemetry(tmp_path / "telemetry.jsonl")["audits"]
+    assert audits["clean"] == 1 and audits["dirty"] == 0
+
+    def dirty(device=None):
+        cat = catalog(device)
+        cat.register("reads", lambda x: x * float(x.sum()), args=(torch.ones(4),))
+        return cat
+
+    monkeypatch.setattr(program_audit, "reference_catalog", dirty)
+    assert cli.main([name, "--device", "cpu"]) == 1
+    assert "[host-transfer]" in capsys.readouterr().out
 
 
 @pytest.mark.parametrize("cmd,argv,item", [
     ("run", ["--strict"], "item 21"),
 ])
-def test_later_flags_are_refused_with_their_item(cmd, argv, item, capsys):
-    assert cli.main([cmd, *argv]) == 2  # refused before a device is looked for
-    err = capsys.readouterr().err
-    assert argv[0] in err and item in err
+def test_later_flags_are_refused_with_their_item(cmd, argv, item, tmp_path):
+    """The flag the analysis slice (ROADMAP ``item``) brings, once refused: a strict run
+    trains and its summary says so, as the JAX command's does."""
+    code, out = _main([cmd, *argv, "--device", "cpu", "--model", "linear", "--clients",
+                       "2", "--rounds", "1", "--train-size", "16", "--out-dir",
+                       str(tmp_path)])
+    summary = json.loads(out)
+    assert code == 0 and summary["strict"] is True and summary["rounds_completed"] == 1
 
 
 @pytest.mark.parametrize("cmd,argv,hosts,shards", [
@@ -409,8 +442,8 @@ def _jax_parser(monkeypatch):
 
 def test_every_jax_subcommand_and_flag_is_ported_or_refused(monkeypatch):
     theirs, ours = _subparsers(_jax_parser(monkeypatch)), _subparsers(cli.build_parser())
-    assert set(ours) == set(theirs)
-    assert set(theirs) - set(cli.COMMANDS) == set(cli.LATER_SUBCOMMANDS)
+    assert set(ours) == set(theirs) == set(cli.COMMANDS)  # nothing is refused any more
+    assert not hasattr(cli, "LATER_SUBCOMMANDS") and not hasattr(cli, "LATER_SLICE_FLAGS")
     for cmd in cli.COMMANDS:
         jax_flags = set(theirs[cmd]._option_string_actions)
         our_flags = set(ours[cmd]._option_string_actions)
@@ -418,10 +451,8 @@ def test_every_jax_subcommand_and_flag_is_ported_or_refused(monkeypatch):
         runs_nothing = cmd in ("info", "metrics-summary", "trace", "chaos-plan")
         assert our_flags - jax_flags == (set() if runs_nothing else {"--device"})
         assert jax_flags <= our_flags
-        refused = {flag for flag, *_ in cli.LATER_SLICE_FLAGS.get(cmd, {}).values()}
-        assert refused <= jax_flags
-        for dest, (flag, _, default, _) in cli.LATER_SLICE_FLAGS.get(cmd, {}).items():
-            assert theirs[cmd]._option_string_actions[flag].default == default
+    assert theirs["run"]._option_string_actions["--strict"].default is False
+    assert ours["run"]._option_string_actions["--strict"].default is False
 
 
 def test_later_flags_at_the_jax_default_are_accepted(tmp_path):

@@ -99,11 +99,15 @@ def test_completion_gate_fails_the_round_and_keeps_the_model(tmp_path):
 
 
 def test_run_experiment_refuses_later_slice_flags_and_trains(tmp_path):
-    with pytest.raises(NotImplementedError, match="strict"):
-        run_experiment(num_clients=2, device="cpu", strict=True, out_dir=tmp_path)
-    run_experiment(num_clients=2, device="cpu", strict=False, rounds_per_block=1,
-                   num_rounds=1, local_epochs=1, batch_size=8, train_size=32,
-                   out_dir=tmp_path / "ok")
+    """``strict``, the runner flag the analysis slice brought (refused before it): a
+    strict run trains and its summary says so, as the JAX runner's does; a plain run's
+    summary carries no ``strict`` key."""
+    kw = dict(num_clients=2, device="cpu", rounds_per_block=1, num_rounds=1,
+              local_epochs=1, batch_size=8, train_size=32)
+    strict = run_experiment(strict=True, out_dir=tmp_path / "strict", **kw)
+    assert strict["strict"] is True and strict["rounds_completed"] == 1
+    plain = run_experiment(strict=False, out_dir=tmp_path / "ok", **kw)
+    assert "strict" not in plain and plain["rounds_completed"] == 1
     summary = run_experiment(num_clients=4, num_rounds=2, local_epochs=1, batch_size=8,
                              train_size=96, client_chunk=2, device="cpu",
                              out_dir=tmp_path / "run", proportions=[0.25] * 4)

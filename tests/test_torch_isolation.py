@@ -1,6 +1,7 @@
 """The port imports neither JAX nor anything of ``nanofed_tpu`` (every module of the
 package, the fault plans and injectors, the multi-host harness's worker, the load
-generator, the multi-tenant service and the fleet when they run, fused
+generator, the multi-tenant service, the fleet and the analysis (fedlint, the
+contract checks, the program audit and strict mode) when they run, fused
 multi-round blocks, the network mode, secure aggregation, signing, the ingest buffer,
 observability and tuning, the ResNets, the benchmark suite and the command line
 included, and the compressed codec, signing and ingest paths when they run), nor does
@@ -20,6 +21,8 @@ import torch
 
 import nanofed_tpu_torch
 from nanofed_tpu_torch import cli, run_experiment
+from nanofed_tpu_torch.analysis import program_audit
+from nanofed_tpu_torch.analysis.__main__ import main as analysis_main
 from nanofed_tpu_torch.benchmarks import run_benchmark
 from nanofed_tpu_torch.communication import (
     HTTPServer,
@@ -229,6 +232,42 @@ def test_the_fleet_runs_without_jax():
     assert proc.returncode == 0 and proc.stdout.split()[-1] == "ok", proc.stderr
 
 
+_RUN_ANALYSIS = """
+import logging, sys
+logging.disable(logging.WARNING)
+import torch
+from nanofed_tpu_torch import analysis
+from nanofed_tpu_torch.analysis import program_audit
+from nanofed_tpu_torch.data import federate, synthetic_classification
+from nanofed_tpu_torch.models import get_model
+from nanofed_tpu_torch.orchestration import Coordinator, CoordinatorConfig
+from nanofed_tpu_torch.parallel.mesh import Mesh
+from nanofed_tpu_torch.trainer import TrainingConfig
+assert analysis.lint_paths(["nanofed_tpu_torch"]) == []
+assert all(r["ok"] for r in analysis.run_mutation_suite().values())
+data = federate(synthetic_classification(64, 3, (8,), seed=0), 4, batch_size=16)
+coord = Coordinator(get_model("mlp", in_features=8, hidden=8, num_classes=3), data,
+                    CoordinatorConfig(num_rounds=2, rounds_per_block=2, save_metrics=False),
+                    TrainingConfig(batch_size=16), device="cpu", strict=True,
+                    mesh=Mesh.describe((2, 2, 1), 1))
+assert all(r.ok for r in coord.audit_programs())
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
+             or m == "nanofed_tpu" or m.startswith("nanofed_tpu."))
+assert not bad, bad
+print("ok")
+"""
+
+
+def test_the_analysis_runs_without_jax():
+    """The analysis (``analysis``: fedlint over the package, the audit's mutation suite,
+    a strict coordinator's contract checks and audit on a described mesh) runs with no
+    JAX and nothing of the JAX package loaded."""
+    proc = subprocess.run([sys.executable, "-c", _RUN_ANALYSIS], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0 and proc.stdout.split()[-1] == "ok", proc.stderr
+
+
 def _harness_worker():
     spec = importlib.util.spec_from_file_location(
         "multihost_harness_torch", REPO / "scripts" / "multihost_harness_torch.py")
@@ -284,6 +323,9 @@ def _entry_points():
         "run_tenant_service": lambda: run_tenant_service(out_dir=None),
         "cli_loadtest": lambda: cli.main(["loadtest", "--clients", "4", "--virtual-clock"]),
         "cli_tenants": lambda: cli.main(["tenants", "--clients", "4", "--virtual-clock"]),
+        "reference_catalog": lambda: program_audit.reference_catalog(),
+        "cli_audit": lambda: cli.main(["audit"]),
+        "analysis_programs": lambda: analysis_main(["--programs", __file__]),
     }
 
 
@@ -298,7 +340,8 @@ def _entry_points():
                                   "Coordinator_fused", "run_benchmark", "cli_bench",
                                   "host_partial_row_empty", "harness_worker",
                                   "RoundScheduler", "FederationService", "run_loadtest",
-                                  "run_tenant_service", "cli_loadtest", "cli_tenants"])
+                                  "run_tenant_service", "cli_loadtest", "cli_tenants",
+                                  "reference_catalog", "cli_audit", "analysis_programs"])
 def test_entry_points_default_to_cuda_and_raise_without_it(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.delenv("NANOFED_AUTOTUNE_HBM_BUDGET", raising=False)

@@ -493,10 +493,10 @@ def test_chaos_options_are_taken_as_the_jax_package_takes_them():
         for name in names:
             assert inspect.signature(owner).parameters[name].default is None
             assert inspect.signature(port_owner).parameters[name].default is None
-    assert "chaos" not in http_server.LATER_SLICE_OPTIONS
-    assert "clock" not in http_server.LATER_SLICE_OPTIONS
-    assert "chaos" not in nc.LATER_SLICE_OPTIONS
-    assert not hasattr(http_client, "LATER_SLICE_OPTIONS")
+    # Every server and coordinator option is taken: no refusal table is left.
+    for module in (http_server, nc, http_client):
+        assert not hasattr(module, "LATER_SLICE_OPTIONS")
+    assert not hasattr(http_server, "refuse_later_slice_options")
     schedule = ChaosSchedule(FaultPlan(seed=1))
     clock = VirtualClock()
     server = port_comm.HTTPServer(port=free_port(), chaos=schedule, clock=clock)

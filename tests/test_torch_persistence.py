@@ -263,7 +263,7 @@ CROSS_STRATEGIES = {
     "fedadam": (jax_base.fedadam_strategy, base.fedadam_strategy),
     "fedyogi": (jax_base.fedyogi_strategy, base.fedyogi_strategy),
     "fedavgm_cosine": (lambda: jax_base.fedavgm_strategy(SERVER_SCHEDULE),
-                       lambda: base.fedavgm_strategy(lambda c: float(SERVER_SCHEDULE(c)))),
+                       lambda: base.fedavgm_strategy(lambda c: float(SERVER_SCHEDULE(int(c))))),
 }
 
 

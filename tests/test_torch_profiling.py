@@ -217,8 +217,12 @@ def test_catalog_is_lazy_caches_publishes_and_refuses_audit():
     assert "mm" in table and "no peak basis" in table
     catalog.remove("add")
     assert catalog.names() == ["mm"]
-    with pytest.raises(NotImplementedError, match="analysis slice"):
-        catalog.audit("mm")
+    # The audit, which the analysis slice brought (ROADMAP item 21): the program runs
+    # on meta copies of what its factory makes, nothing is cached, nothing published.
+    report = catalog.audit("mm", compile=False)
+    assert report.ok and report.schedule == () and made == [1, 1, 1]
+    assert report.compiled is False and report.attrs == {"k": 1}
+    assert [r.program for r in catalog.audit_all()] == ["mm"] and catalog.report("mm")
     with pytest.raises(KeyError):
         catalog.profile("add")
 

@@ -1,11 +1,13 @@
 """The small public names of the orchestration, core, aggregation and models layers
 against the JAX package's: the record types' fields, the exception hierarchy,
 ``validate_updates``' verdicts and messages, the model registry, the coordinator's
-progress snapshot, and the coordinator's answer to the JAX-only keywords (a
-``NotImplementedError`` naming the ROADMAP item that brings each)."""
+progress snapshot, and the coordinator's keywords: every JAX keyword is taken
+(``strict=`` last, with the analysis slice), and the package exports (``__all__``) of
+every JAX subpackage and the root, less a stated list of names tied to JAX."""
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -35,7 +37,6 @@ from nanofed_tpu_torch.orchestration import (
     CoordinatorConfig,
     TrainingProgress,
 )
-from nanofed_tpu_torch.orchestration.coordinator import LATER_SLICE_KEYWORDS
 from nanofed_tpu_torch.trainer import TrainingConfig
 from nanofed_tpu_torch.utils.trees import flatten_with_names
 
@@ -165,18 +166,31 @@ def test_training_progress_counts_like_jax(tmp_path):
     assert got.global_metrics["loss"] == pytest.approx(float(np.mean(losses)))
 
 
+def _coordinator_keywords() -> set[str]:
+    import inspect
+
+    return set(inspect.signature(Coordinator).parameters)
+
+
 @pytest.mark.parametrize("keyword,value,item", [
     ("strict", True, "item 21"),
 ])
 def test_coordinator_refuses_the_jax_only_keywords_with_their_item(tmp_path, keyword, value,
                                                                     item):
+    """The last JAX keyword a slice brought (``strict=``, ROADMAP ``item``) is taken at
+    both values with the JAX default, and a keyword the JAX coordinator lacks is still
+    a ``TypeError``."""
+    import inspect
+
     model = get_model("linear", in_features=10, num_classes=2)
     data = federate(synthetic_classification(32, 2, (10,), seed=0), 2, batch_size=8)
     config = CoordinatorConfig(base_dir=tmp_path, save_metrics=False)
-    with pytest.raises(NotImplementedError, match=f"{keyword}=.*{item}"):
-        Coordinator(model, data, config, device="cpu", **{keyword: value})
-    default = LATER_SLICE_KEYWORDS[keyword][0]
-    Coordinator(model, data, config, device="cpu", **{keyword: default})  # the JAX default
+    assert inspect.signature(Coordinator).parameters[keyword].default is False
+    assert inspect.signature(JaxCoordinator).parameters[keyword].default is False
+    strict = Coordinator(model, data, config, TrainingConfig(batch_size=8), device="cpu",
+                         **{keyword: value})
+    assert strict.strict is True and strict.run()[0].status.name == "COMPLETED"
+    assert Coordinator(model, data, config, device="cpu", **{keyword: False}).strict is False
     with pytest.raises(TypeError, match="unexpected keyword argument 'mesh_shapes'"):
         Coordinator(model, data, config, device="cpu", mesh_shapes=(1, 1))
 
@@ -189,7 +203,7 @@ def test_coordinator_chaos_drops_planned_crashes_as_jax(tmp_path, participation,
     from nanofed_tpu.faults import FaultPlan as JaxPlan
     from nanofed_tpu_torch.faults import ChaosSchedule, FaultPlan
 
-    assert "chaos" not in LATER_SLICE_KEYWORDS
+    assert "chaos" in _coordinator_keywords()
     kw = dict(seed=5, participation_rate=participation, dropout_rate=dropout,
               save_metrics=False)
     plan_args = (2, list(range(10)), 6)
@@ -248,7 +262,7 @@ def test_coordinator_takes_the_adapter_keyword(tmp_path):
     adapter tree of the adapted kernel, the base stays beside them, and a round runs."""
     from nanofed_tpu_torch.adapters import AdapterSpec
 
-    assert "adapter" not in LATER_SLICE_KEYWORDS
+    assert "adapter" in _coordinator_keywords()
     model = get_model("mlp", in_features=10, hidden=16, num_classes=2)
     data = federate(synthetic_classification(32, 2, (10,), seed=0), 2, batch_size=8)
     coord = Coordinator(model, data, CoordinatorConfig(base_dir=tmp_path, save_metrics=False),
@@ -273,4 +287,101 @@ def test_coordinator_telemetry_dir_writes_the_runs_telemetry(tmp_path):
     summary = summarize_telemetry(tmp_path / "tel" / "telemetry.jsonl")
     assert summary["rounds"] == {"COMPLETED": 2}
     assert summary["topology"]["num_clients"] == 2 and "local-train" in summary["phases"]
-    assert "telemetry_dir" not in LATER_SLICE_KEYWORDS
+    assert "telemetry_dir" in _coordinator_keywords()
+
+
+# The JAX packages' exported names without a torch meaning, with the reason each is
+# not exported by the port (ROADMAP's stated differences).
+NO_TORCH_MEANING = {
+    "core": {"PRNGKey": "a JAX key type: the port's randomness is counter-based hashes "
+                        "of explicit integers and seeded torch.Generator streams"},
+    "trainer": {"stack_rngs": "stacks JAX keys per client; the port draws permutations "
+                              "and hashes client keys (trainer.local.client_keys)"},
+    "observability": {"install_jax_event_bridge": "bridges jax.monitoring events; the "
+                                                  "port installs install_torch_event_bridge"},
+    "parallel": {
+        "stack_round_keys": "stacks JAX round keys; a fused block takes host round seeds "
+                            "(parallel.round_seeds)",
+        "client_sharding": "a jax.sharding.NamedSharding; a rank holds its own rows "
+                           "(parallel.client_slice)",
+        "param_sharding": "a NamedSharding per leaf; a rank holds its model shard "
+                          "(MeshLayout.shard_params, param_partition_spec)",
+        "replicated_sharding": "a NamedSharding; a replicated tensor is each rank's own",
+        "shard_client_data": "device_put onto a sharding; a rank copies its host rows to "
+                             "its device (host_client_slice)",
+        "shard_host_local_data": "assembles a global array from process-local rows; one "
+                                 "process a device holds its rows already",
+        "shard_params": "device_put of params onto param_sharding; MeshLayout.shard_params "
+                        "cuts the rank's shard",
+        "ModelAxisLayout": "the JAX model-axis half of the layout; MeshLayout holds both "
+                           "axes' layouts",
+        "build_sharded_round": "shard_map of the round; build_round_step(mesh=) is the "
+                               "rank's part of the round",
+    },
+}
+
+
+def _jax_subpackages() -> list[str]:
+    import pkgutil
+
+    import nanofed_tpu
+
+    return [""] + sorted(m.name for m in pkgutil.iter_modules(nanofed_tpu.__path__)
+                         if m.ispkg)
+
+
+@pytest.mark.parametrize("sub", _jax_subpackages(), ids=lambda s: s or "root")
+def test_every_jax_export_is_exported_by_the_port(sub):
+    """C5: for the root and every JAX subpackage with an ``__all__``, the JAX names less
+    the stated list are all present in the port's package (``hasattr``), and every
+    stated name really is exported by JAX and absent here."""
+    import importlib
+
+    theirs = importlib.import_module("nanofed_tpu" + (f".{sub}" if sub else ""))
+    ours = importlib.import_module("nanofed_tpu_torch" + (f".{sub}" if sub else ""))
+    stated = NO_TORCH_MEANING.get(sub, {})
+    names = set(getattr(theirs, "__all__", ()))
+    assert names, f"nanofed_tpu.{sub} has no __all__"
+    assert set(stated) <= names and not any(hasattr(ours, n) for n in stated)
+    assert sorted(n for n in names - set(stated) if not hasattr(ours, n)) == []
+    assert all(len(reason) >= 15 for reason in stated.values())
+    if not sub:
+        assert ours.__version__ == theirs.__version__ == "0.4.0"
+
+
+def test_the_ported_tree_helpers_match_jax():
+    """The JAX ``tree_*`` helpers given a torch meaning on the port's flat params."""
+    from nanofed_tpu import utils as jax_utils
+    from nanofed_tpu_torch import utils
+
+    rng = np.random.default_rng(0)
+    a = {"a": {"w": rng.normal(size=(2, 3)).astype(np.float32)},
+         "b": rng.normal(size=4).astype(np.float32)}
+    b = jax.tree.map(lambda x: x * 0.5 + 1.0, a)
+    ta, tb = flatten_with_names(a), flatten_with_names(b)
+    ta, tb = ({k: torch.from_numpy(np.asarray(v)) for k, v in t.items()} for t in (ta, tb))
+
+    def same(got, want):
+        want = flatten_with_names(want) if isinstance(want, dict) else {"": want}
+        got = got if isinstance(got, dict) else {"": got}
+        for k in want:
+            np.testing.assert_allclose(np.asarray(got[k]), np.asarray(want[k]), rtol=1e-6,
+                                       atol=1e-6)
+
+    same(utils.tree_add(ta, tb), jax_utils.tree_add(a, b))
+    same(utils.tree_sub(ta, tb), jax_utils.tree_sub(a, b))
+    same(utils.tree_scale(ta, 3.0), jax_utils.tree_scale(a, 3.0))
+    same(utils.tree_where(False, ta, tb), jax_utils.tree_where(False, a, b))
+    same(utils.tree_vdot(ta, tb), jax_utils.tree_vdot(a, b))
+    same(utils.tree_global_norm(ta), jax_utils.tree_global_norm(a))
+    same(utils.tree_zeros_like(ta), jax_utils.tree_zeros_like(a))
+    flat, unravel_fn = utils.tree_ravel(ta)
+    jflat, _ = jax_utils.tree_ravel(a)
+    np.testing.assert_array_equal(flat.numpy(), np.asarray(jflat))
+    assert all(torch.equal(unravel_fn(flat)[k], ta[k]) for k in ta)
+    assert utils.tree_cast(ta, torch.bfloat16)["b"].dtype == torch.bfloat16
+    named, names = utils.tree_flatten_with_names(a)
+    jnamed, _ = jax_utils.tree_flatten_with_names(a)
+    assert names == [n for n, _ in jnamed] == [n for n, _ in named]
+    mapped = utils.tree_map_with_path_names(lambda n, x: n, a)
+    assert mapped == jax_utils.tree_map_with_path_names(lambda n, x: n, a)
