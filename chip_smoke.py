@@ -276,12 +276,12 @@ Phases (any failure exits non-zero):
    a round at C = 8), both run and both are removed; (z5) ``nanofed-tpu-torch
    loadtest`` and ``tenants`` through ``cli.main`` (exit 0, the artifacts parse), and
    ``scripts/multihost_harness_torch.py federate`` on 2 gloo ranks sharing the card
-   (run beside the cross-check of part 4: it times nothing), every host's params within
+   (run beside (o)-(r) and the cross-check of part 4: it times nothing), every host's params within
    1e-5 of the numpy replay of the drained rounds.
    Then the heterogeneous fleet (phase (fl), ``nanofed_tpu_torch.fleet``): (fl1) the
    ``base`` transformer (P = 97,745,408) behind ``HTTPServer(fleet=FleetGateway(
    reference_fleet()))`` with a 16-row ingest buffer on a ``VirtualClock``, 24 clients
-   (7 rank-4 topk8 phones, 5 rank-8 q8 edge boxes, 1 rank-32 f32 silo a round), 3 rounds
+   (7 rank-4 topk8 phones, 5 rank-8 q8 edge boxes, 1 rank-32 f32 silo a round), 2 rounds
    of publish, tier-tagged ``GET /model``, ``run_fleet_swarm``, ``drain_ingest_fedavg``:
    each round's publish seconds (factorization, views, payloads), decode seconds a
    submit by tier, bytes by tier from ``/metrics``, the drain's seconds and the card's
@@ -299,13 +299,17 @@ Phases (any failure exits non-zero):
    Then analysis (phase (an), ``nanofed_tpu_torch.analysis``): (an1) the flagship
    through ``Coordinator(strict=True)``, one fused block of 2 rounds then one round
    through the single round step (the contract checks on meta tensors and the program
-   audit at construction, every dispatch under ``strict_mode``), after the same run
-   with ``strict=False`` (which warms the card): params bit-equal under cuDNN's
-   deterministic algorithms, B1's accumulate form and B3 8 times a round in each, the
-   seconds strict adds to construction, each run's round seconds, and the peak device
-   memory of the construction's checks and audit run again (meta tensors: nothing is
-   allocated); (an2) the tutorial round, materialised, strict against not: B1
-   normalised and B3 once each, params bit-equal; (an3) inside ``strict_mode()`` on
+   audit at construction, every dispatch under ``strict_mode``, its entries counted
+   with the sync debug mode read inside each), after an untimed warm run and the same
+   run with ``strict=False``: params bit-equal under cuDNN's deterministic algorithms,
+   B1's accumulate form and B3 8 times a round in each, the seconds strict adds to
+   construction, each run's round seconds and their strict/plain ratios, and the peak
+   device memory of the construction's checks and audit run again (the factories'
+   clones; the programs run on meta tensors); (an2) the tutorial round, materialised,
+   at one local epoch (cut from two), strict against not: B1 normalised and B3 once
+   each, params bit-equal; then a strict
+   coordinator whose round step reads ``.item()`` raises at its dispatch; (an3) inside
+   ``strict_mode()`` on
    the card ``.item()``, ``bool()`` of a device tensor and a pageable copy to the card
    raise, and a B1 launch alone does not; (an4) ``audit_programs()`` of (an1)'s
    coordinator: every program ``ok``, its seconds and peak-memory delta.
@@ -318,7 +322,8 @@ Phases (any failure exits non-zero):
    SCAFFOLD rounds from zero controls (params within 1e-4, the controls within 1e-4
    over K * eta, the factor (x - y) / (K * eta) multiplies the params' error by);
    then (v6) a tiny transformer's adapter round (vocab 256, seq 32, width 64, depth 2,
-   rank 4) within 1e-4.  Beside it run (w4)'s ``torchrun`` run and (z5)'s ``federate``.
+   rank 4) within 1e-4.  Beside (o)-(r) and it run (w4)'s ``torchrun`` run and (z5)'s
+   ``federate``.
 
 The last lines are the whole script's wall time, the kernels' JSON record, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -6796,8 +6801,9 @@ def phase_admission(torch, ops, card: str) -> dict[str, int]:
 
 def start_beside(card: str, out_dir: Path) -> list[tuple]:
     """(w4)'s ``torchrun`` run and (z5)'s ``federate`` started: each checks an entry point
-    and times nothing, so both run beside the cross-check of part 4, which times nothing
-    either.  Each is stopped at the interpreter's exit unless read."""
+    and times nothing, so both run beside (o)-(r)'s network rounds, whose seconds no
+    finding reads, and the cross-check of part 4, which times nothing either.  Each is
+    stopped at the interpreter's exit unless read."""
     from nanofed_tpu_torch.communication.transport import free_port
 
     torchrun = (subprocess.Popen(
@@ -6809,7 +6815,8 @@ def start_beside(card: str, out_dir: Path) -> list[tuple]:
         time.perf_counter())
     federate = start_harness(["federate", *FEDERATE_ARGS, "--tmp-dir", str(out_dir / "fed"),
                               "--out-dir", str(out_dir / "fed_out")])
-    print(f"[{card}] (w4) torchrun and (z5) federate started beside the cross-check")
+    print(f"[{card}] (w4) torchrun and (z5) federate started beside (o)-(r) and the "
+          "cross-check")
     return [(started, atexit_stop(started)) for started in (torchrun, federate)]
 
 
@@ -6921,7 +6928,7 @@ def phase_service(torch, ops, card: str, out_dir: Path) -> dict[str, int]:
 
 FLEET_POPULATION = 24  # (fl1): sub-swarms of 7 phones, 5 edge boxes and 1 silo a round
 FLEET_CAPACITY = 16  # (fl1): ingest rows, 6.25 GB at the base transformer's width
-FLEET_ROUNDS = 3  # (fl1): publish, swarm, drain, publish
+FLEET_ROUNDS = 2  # (fl1): publish, swarm, drain, publish (depth cut from 3 to fit the time)
 FLEET_ROW_RTOL = 1e-5  # (fl1): a buffered row against its float64 host recomputation
 FLEET_VIEW_RTOL = 1e-4  # (fl1): a view's image against numpy's float64 truncated SVD
 FLEET_TAIL_TOL = 1e-6  # (fl1): the projection error against the singular-value tail
@@ -7336,9 +7343,10 @@ AN_BLOCK = 2
 def phase_analysis(torch, ops, card: str, out_dir: Path) -> dict[str, int]:
     """(an): strict mode and the program audit on the card.  Returns the launches of
     (an1) and (an2)'s strict and plain runs."""
+    import contextlib
     import logging
 
-    from nanofed_tpu_torch.analysis import strict_mode
+    from nanofed_tpu_torch.analysis import contracts, strict_mode
     from nanofed_tpu_torch.data import federate, load_mnist
     from nanofed_tpu_torch.models import get_model
     from nanofed_tpu_torch.orchestration import Coordinator, CoordinatorConfig, RoundStatus
@@ -7348,6 +7356,10 @@ def phase_analysis(torch, ops, card: str, out_dir: Path) -> dict[str, int]:
 
     Logger().configure(LogConfig(level=logging.WARNING))
     t_phase = time.perf_counter()
+    split: dict[str, float] = {}
+
+    def lap(label: str) -> None:
+        split[label] = round(time.perf_counter() - t_phase - sum(split.values()), 1)
     totals: dict[str, int] = dict.fromkeys(ops.launch_counts(), 0)
     base = out_dir / "an_analysis"
     gc.collect()
@@ -7358,68 +7370,116 @@ def phase_analysis(torch, ops, card: str, out_dir: Path) -> dict[str, int]:
     # Bit-equality between two runs needs cuDNN's deterministic algorithms, as (w1).
     cudnn.deterministic, cudnn.benchmark = True, False
     try:
-        # (an1) the flagship, plain (warming the card) then strict.
+        # (an1) the flagship: an untimed plain run warms the card (kernel builds, cuDNN
+        # plans, the allocator), so neither timed run's rounds are the cold ones.  The
+        # strict run counts the guard's entries and reads the sync debug mode inside
+        # each.
         data, training, chunk = flagship_data(), flagship_training(), 125
         want: dict[str, int] = {}
         add_launches(want, step_launches(chunk, FLAGSHIP["num_clients"]), AN_ROUNDS)
 
-        def build(strict: bool):
+        def build(strict: bool, tag: str):
             t0 = time.perf_counter()
             coord = Coordinator(
                 model, data, CoordinatorConfig(num_rounds=AN_ROUNDS, seed=0,
                                                rounds_per_block=AN_BLOCK,
-                                               base_dir=base / f"strict_{strict}",
-                                               save_metrics=False),
+                                               base_dir=base / tag, save_metrics=False),
                 training, client_chunk=chunk, device="cuda", strict=strict)
             torch.cuda.synchronize()
             return coord, time.perf_counter() - t0
 
-        runs = {}
-        for strict in (False, True):
-            coord, ctor_s = build(strict)
-            rounds, wall, grew = counted(torch, ops, card,
-                                         f"(an1) flagship strict={strict}", coord.run, want)
+        real_guard = contracts.strict_mode
+        entries: list[int] = []
+
+        @contextlib.contextmanager
+        def counting_guard(device=None):
+            with real_guard(device):
+                entries.append(torch.cuda.get_sync_debug_mode())
+                yield
+
+        lap("data")
+        warm, _ = build(False, "warm")
+        warm.run()
+        torch.cuda.synchronize()
+        del warm
+        gc.collect()
+        lap("warm run")
+        runs: dict[bool, list] = {False: [], True: []}
+        params_seen, strict_coord = [], None
+        for i, strict in enumerate((False, True)):
+            coord, ctor_s = build(strict, f"an1_{i}")
+            entries.clear()
+            contracts.strict_mode = counting_guard
+            try:
+                rounds, wall, grew = counted(torch, ops, card,
+                                             f"(an1) flagship strict={strict} run {i}",
+                                             coord.run, want)
+            finally:
+                contracts.strict_mode = real_guard
             add_launches(totals, grew)
             if [m.status for m in rounds] != [RoundStatus.COMPLETED] * AN_ROUNDS:
                 fail(f"(an1) strict={strict}: rounds {[m.status for m in rounds]}")
-            runs[strict] = (coord, ctor_s, [m.duration_s for m in rounds], wall)
-            if not strict:
-                plain_params = ravel(coord.params)
+            # The guard: one entry a dispatch (the block and the single round), each
+            # with the sync debug mode at "error" (2); none in a plain run.
+            want_entries = [2, 2] if strict else []
+            print(f"[{card}] (an1) run {i} strict={strict}: guard entries with the sync "
+                  f"debug mode read inside: {entries}")
+            if entries != want_entries:
+                fail(f"(an1) run {i}: guard entries {entries}, expected {want_entries}")
+            runs[strict].append((ctor_s, [m.duration_s for m in rounds]))
+            params_seen.append(ravel(coord.params))
+            if strict and strict_coord is None:
+                strict_coord = coord
+            else:
                 del coord
-                gc.collect()
-        strict_coord = runs[True][0]
-        same = torch.equal(ravel(strict_coord.params), plain_params)
-        finite = bool(torch.isfinite(plain_params).all())
-        # The construction's checks and audit again, on the built coordinator: their
-        # seconds and the peak device memory they add (meta tensors: none).
+            gc.collect()
+        same = all(torch.equal(x, params_seen[0]) for x in params_seen[1:])
+        finite = bool(torch.isfinite(params_seen[0]).all())
+        del params_seen
+        lap("timed runs")
+
+        def mean(xs):
+            return sum(xs) / len(xs)
+
+        ctor = {k: mean([c for c, _ in v]) for k, v in runs.items()}
+        block = {k: mean([r for _, rs in v for r in rs[:AN_BLOCK]]) for k, v in runs.items()}
+        single = {k: mean([rs[AN_BLOCK] for _, rs in v]) for k, v in runs.items()}
+        # The construction's contract checks again, on the built coordinator: their
+        # seconds and the peak device memory they add (the factories' transient clones;
+        # the programs themselves run on meta tensors).  (an4) times the audit.
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         before = torch.cuda.memory_allocated()
         t0 = time.perf_counter()
         strict_coord._check_contracts()
         contract_s = time.perf_counter() - t0
-        strict_coord._audit_strict()
-        audit_s = time.perf_counter() - t0 - contract_s
         check_peak = torch.cuda.max_memory_allocated() - before
+        lap("contract checks again")
         print(f"[{card}] (an1) flagship ({FLAGSHIP['num_clients']} clients, "
               f"{FLAGSHIP['compute_dtype']}, client_chunk={chunk}) "
-              f"{AN_ROUNDS} rounds as one {AN_BLOCK}-round block then one single round: "
-              f"construction plain {runs[False][1]:.3f} s, strict {runs[True][1]:.3f} s "
-              f"(strict adds {runs[True][1] - runs[False][1]:.3f} s; the contract checks "
-              f"again {contract_s:.3f} s, the audit again {audit_s:.3f} s; their peak above "
-              f"the allocated {before} bytes: {check_peak} bytes); round_s plain "
-              f"{runs[False][2]} strict {runs[True][2]}; params bit-equal={same}")
+              f"{AN_ROUNDS} rounds as one {AN_BLOCK}-round block then one single round, "
+              f"after an untimed warm run, plain then strict: construction plain "
+              f"{[round(c, 3) for c, _ in runs[False]]} strict "
+              f"{[round(c, 3) for c, _ in runs[True]]} s (strict adds "
+              f"{ctor[True] - ctor[False]:.3f} s; the contract checks again "
+              f"{contract_s:.3f} s, their peak above the allocated {before} bytes: "
+              f"{check_peak} bytes); round_s plain "
+              f"{[rs for _, rs in runs[False]]} strict {[rs for _, rs in runs[True]]}; "
+              f"strict/plain block round {block[True] / block[False]:.4f}, single round "
+              f"{single[True] / single[False]:.4f}; params bit-equal={same}")
         if not (same and finite):
             fail(f"(an1) strict params differ from plain ones (bit-equal {same}, finite "
                  f"{finite})")
 
-        # (an4) the audit of every registered program at full width.
+        # (an4) the audit of every registered program at full width: the construction's
+        # audit again, with an ``audit`` record and a span a program.
         torch.cuda.reset_peak_memory_stats()
         before = torch.cuda.memory_allocated()
         t0 = time.perf_counter()
         reports = strict_coord.audit_programs()
         audit_all_s = time.perf_counter() - t0
         audit_peak = torch.cuda.max_memory_allocated() - before
+        lap("(an4)")
         print(f"[{card}] (an4) audit_programs(): {audit_all_s:.3f} s, peak above the "
               f"allocated: {audit_peak} bytes; " + "; ".join(
                   f"{r.program} ok={r.ok} checks={list(r.checks)} ranks={r.ranks} "
@@ -7434,7 +7494,9 @@ def phase_analysis(torch, ops, card: str, out_dir: Path) -> dict[str, int]:
         # (an2) the tutorial round, materialised, plain then strict.
         tutorial = federate(load_mnist("train", None, synthetic_size=TUTORIAL_SAMPLES),
                             num_clients=2, batch_size=64, seed=0, proportions=[0.75, 0.25])
-        tut_training = TrainingConfig(batch_size=64, local_epochs=2, learning_rate=0.1)
+        # One local epoch (the tutorial's two cut to one): the strict construction's meta
+        # traces walk every local step, and the script's time is bounded.
+        tut_training = TrainingConfig(batch_size=64, local_epochs=1, learning_rate=0.1)
         tut_params, tut_round = {}, {}
         for strict in (False, True):
             coord = Coordinator(model, tutorial, CoordinatorConfig(
@@ -7447,11 +7509,42 @@ def phase_analysis(torch, ops, card: str, out_dir: Path) -> dict[str, int]:
             tut_round[strict] = rounds[0].duration_s
             del coord
         same = torch.equal(tut_params[True], tut_params[False])
-        print(f"[{card}] (an2) tutorial round (12k + 4k samples, 2 epochs, f32), "
+        lap("(an2)")
+        print(f"[{card}] (an2) tutorial round (12k + 4k samples, 1 epoch, f32), "
               f"materialised: round_s plain {tut_round[False]:.3f} strict "
               f"{tut_round[True]:.3f}; params bit-equal={same}")
         if not (same and bool(torch.isfinite(tut_params[True]).all())):
             fail("(an2) the strict tutorial round differs from the plain one")
+        # A strict coordinator whose round step reads a device value with .item(): the
+        # construction's checks passed on the real step, so only the guard stands
+        # between the read and the card, and its dispatch must raise.  Two clients of
+        # 128 samples: the construction's meta traces walk every local step.
+        small = federate(load_mnist("train", None, synthetic_size=256), num_clients=2,
+                         batch_size=64, seed=0)
+        coord = Coordinator(model, small, CoordinatorConfig(
+            num_rounds=1, seed=0, base_dir=base / "reading", save_metrics=False),
+            tut_training, device="cuda", strict=True)
+        real_step = coord._round_step
+
+        def reading_step(*args, **kwargs):
+            result = real_step(*args, **kwargs)
+            result.metrics["loss"].item()
+            return result
+
+        coord._round_step = reading_step
+        try:
+            coord.run()
+            dispatch_raised = "no"
+        except RuntimeError as e:
+            dispatch_raised = str(e).splitlines()[0]
+        torch.cuda.synchronize()
+        del coord, real_step, small
+        lap("(an2) reading step")
+        print(f"[{card}] (an2) a strict round step that reads .item() on the card: the "
+              f"dispatch raised: {dispatch_raised}")
+        if "synchroniz" not in dispatch_raised:
+            fail(f"(an2) the guarded dispatch of a reading step did not raise: "
+                 f"{dispatch_raised}")
 
         # (an3) the guard is not vacuous: each read raises, a B1 launch alone does not.
         x = torch.randn(8, 4096, device="cuda")
@@ -7481,7 +7574,9 @@ def phase_analysis(torch, ops, card: str, out_dir: Path) -> dict[str, int]:
             fail(f"(an3) the guard: raised {raised}, B1 launches {launched}, err {err}")
     finally:
         cudnn.deterministic, cudnn.benchmark = saved
-    print(f"[{card}] (an) wall_s={time.perf_counter() - t_phase:.1f}; launches {totals}")
+    lap("(an3)")
+    print(f"[{card}] (an) wall_s={time.perf_counter() - t_phase:.1f} ({split}); launches "
+          f"{totals}")
     return totals
 
 
@@ -7570,21 +7665,21 @@ def main() -> None:
         mark("phase_fleet")
         analysis_counts = phase_analysis(torch, ops, card, Path(tmp))
         mark("phase_analysis")
-    wire_counts = phase_wire(torch, ops, card)
-    mark("phase_wire")
-    counts = {k: counts[k] + secure_counts[k] + tuned_counts[k] + resume_counts[k]
-              + network_resume_counts[k] + dp_counts[k] + scaffold_counts[k]
-              + fused_counts[k] + cifar_counts[k] + obs_counts[k] + lm_counts[k]
-              + mesh_counts[k] + rest_counts[k] + chaos_counts[k]
-              + service_counts.get(k, 0) + fleet_counts.get(k, 0) + wire_counts.get(k, 0)
-              + analysis_counts.get(k, 0)
-              for k in counts}
-    print(f"kernels: {json.dumps(counts)}")
-    missing = [k for k, v in counts.items() if v == 0]
-    if missing:
-        fail(f"kernels never launched on the main paths: {missing}")
     with tempfile.TemporaryDirectory(dir=Path(__file__).resolve().parent / "runs") as tmp:
         beside = start_beside(card, Path(tmp))
+        wire_counts = phase_wire(torch, ops, card)
+        mark("phase_wire")
+        counts = {k: counts[k] + secure_counts[k] + tuned_counts[k] + resume_counts[k]
+                  + network_resume_counts[k] + dp_counts[k] + scaffold_counts[k]
+                  + fused_counts[k] + cifar_counts[k] + obs_counts[k] + lm_counts[k]
+                  + mesh_counts[k] + rest_counts[k] + chaos_counts[k]
+                  + service_counts.get(k, 0) + fleet_counts.get(k, 0)
+                  + wire_counts.get(k, 0) + analysis_counts.get(k, 0)
+                  for k in counts}
+        print(f"kernels: {json.dumps(counts)}")
+        missing = [k for k, v in counts.items() if v == 0]
+        if missing:
+            fail(f"kernels never launched on the main paths: {missing}")
         phase_cross_check(torch, ops, card)
         mark("phase_cross_check")
         finish_torchrun(card, *beside[0])

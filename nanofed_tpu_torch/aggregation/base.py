@@ -7,18 +7,22 @@ The transforms follow optax's semantics (momentum trace, bias correction, eps ou
 the square root, Yogi's sign update and 1e-6 initial accumulators), not
 ``torch.optim``'s, and act on flat ``[P]`` vectors in ravel order.
 
-A learning rate is a float or a schedule, a plain callable ``count -> lr`` stepped
-once per round: the server state persists across rounds, so the count is the number
-of server updates so far.  A schedule keeps its count in the state as
+A learning rate is a float or a schedule, a callable ``count -> lr`` stepped once
+per round: the server state persists across rounds, so the count is the number of
+server updates so far.  A schedule keeps its count in the state as
 ``schedule_count`` (optax's ``ScaleByScheduleState``, which the JAX package's
 checkpoints carry), so a resumed run continues it.
 
-The counters (``schedule_count``, Adam's ``count``) are Python ints between rounds.
-Inside a fused block (``parallel.multi_round``) they ride as 0-d int64 tensors on the
-device, so a round the device gates leaves them where they were without a read back;
-a schedule is then called with that tensor, as an optax schedule is traced inside the
-JAX block, so it must compute with torch ops (``float()`` or ``if`` on it reads the
-device).
+The counters (``schedule_count``, Adam's ``count``) are 0-d int64 tensors on the
+params' device, from ``init`` on: a round the device gates leaves them where they
+were, and no round reads them back.  Only the checkpoint format turns them into ints
+(``utils.trees.to_numpy_server_state``).
+
+The schedule contract: a schedule is called with that 0-d int64 tensor, as an optax
+schedule is traced with the count inside the JAX round, and returns a float or a 0-d
+float tensor on the same device.  It computes with torch ops: ``float()``, ``int()``,
+``.item()`` or an ``if`` on the count reads the device back every round, and
+``Coordinator(strict=True)`` refuses such a read at construction.
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ from nanofed_tpu_torch.core.exceptions import AggregationError
 from nanofed_tpu_torch.core.types import ClientUpdates, Params
 
 State = dict[str, Any]
-LearningRate = float | Callable[[int], float]
+LearningRate = float | Callable[[torch.Tensor], float | torch.Tensor]
 
 
 @dataclass(frozen=True)
@@ -46,8 +50,13 @@ class AggregationResult:
     metrics: dict[str, Any] = field(default_factory=dict)
 
 
-def _schedule_init(learning_rate: LearningRate) -> State:
-    return {"schedule_count": 0} if callable(learning_rate) else {}
+def _counter(like: torch.Tensor) -> torch.Tensor:
+    """A 0-d int64 zero on ``like``'s device (filled there: no copy from the host)."""
+    return torch.zeros((), dtype=torch.int64, device=like.device)
+
+
+def _schedule_init(learning_rate: LearningRate, flat: torch.Tensor) -> State:
+    return {"schedule_count": _counter(flat)} if callable(learning_rate) else {}
 
 
 def _scaled(
@@ -63,11 +72,9 @@ def _scaled(
     return step * (-lr), {"schedule_count": count + 1}
 
 
-def _bias_correction(decay: float, count: int | torch.Tensor) -> float | torch.Tensor:
-    """``1 - decay**count`` in float64, on the host or (a tensor count) the device."""
-    if torch.is_tensor(count):
-        return 1 - torch.pow(decay, count.double())
-    return 1 - decay**count
+def _bias_correction(decay: float, count: torch.Tensor) -> torch.Tensor:
+    """``1 - decay**count`` in float64 on the count's device."""
+    return 1 - torch.pow(decay, count.double())
 
 
 @dataclass(frozen=True)
@@ -79,7 +86,7 @@ class ServerSGD:
 
     def init(self, flat: torch.Tensor) -> State:
         trace = {"trace": torch.zeros_like(flat)} if self.momentum else {}
-        return {**trace, **_schedule_init(self.learning_rate)}
+        return {**trace, **_schedule_init(self.learning_rate, flat)}
 
     def update(self, grad: torch.Tensor, state: State) -> tuple[torch.Tensor, State]:
         trace = {}
@@ -105,8 +112,8 @@ class ServerAdam:
 
     def init(self, flat: torch.Tensor) -> State:
         init = 1e-6 if self.yogi else 0.0  # optax's initial_accumulator_value
-        return {"count": 0, "mu": torch.full_like(flat, init),
-                "nu": torch.full_like(flat, init), **_schedule_init(self.learning_rate)}
+        return {"count": _counter(flat), "mu": torch.full_like(flat, init),
+                "nu": torch.full_like(flat, init), **_schedule_init(self.learning_rate, flat)}
 
     def update(self, grad: torch.Tensor, state: State) -> tuple[torch.Tensor, State]:
         mu = (1 - self.b1) * grad + self.b1 * state["mu"]

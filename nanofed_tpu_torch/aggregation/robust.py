@@ -54,20 +54,24 @@ class RobustAggregationConfig:
             )
 
 
-def _rank_mean(x: torch.Tensor, mask: torch.Tensor, like: Params, lo: int, hi: int,
-               ok: bool) -> torch.Tensor:
+def _rank_mean(x: torch.Tensor, mask: torch.Tensor, like: Params, lo: torch.Tensor,
+               hi: torch.Tensor, ok: torch.Tensor) -> torch.Tensor:
     """Mean of ranks ``[lo, hi)`` of every coordinate, sorted along the client axis
-    with non-participants as +inf; zeros unless ``ok``.  One leaf at a time, so the
-    sort's temporaries are one leaf's size."""
-    out = torch.zeros(x.shape[1], dtype=torch.float32, device=x.device)
-    if not ok:
-        return out
+    with non-participants as +inf; zeros unless ``ok``.  ``lo``, ``hi`` and ``ok`` are
+    0-d device tensors: the window is a mask over the ranks, not a slice, so nothing
+    is read on the host.  One leaf at a time, so the sort's temporaries are one
+    leaf's size."""
+    ranks = torch.arange(x.shape[0], device=x.device)[:, None]
+    keep = (ranks >= lo) & (ranks < hi)
+    denom = torch.clamp(hi - lo, min=1).float()
+    out = torch.empty(x.shape[1], dtype=torch.float32, device=x.device)
     offset = 0
     for seg in unravel_stacked(x, like).values():
         seg = seg.reshape(seg.shape[0], -1)
         vals = torch.where(mask[:, None], seg.float(), torch.inf)
         srt = torch.sort(vals, dim=0).values
-        out[offset : offset + seg.shape[1]] = srt[lo:hi].sum(0) / max(hi - lo, 1)
+        mean = torch.where(keep, srt, 0.0).sum(0) / denom
+        out[offset : offset + seg.shape[1]] = torch.where(ok, mean, 0.0)
         offset += seg.shape[1]
     return out
 
@@ -79,12 +83,11 @@ def trimmed_mean(
     a ``[C]`` {0, 1} mask): ranks ``[trim_k, m - trim_k)`` averaged.  ``kept`` is the
     number of ranks averaged per coordinate (0 when not ok)."""
     mask = participating.bool()
-    # fedlint: disable=FED001 (the rank window is sized by the participant count, read on the host: robust aggregation runs single rounds only, and strict mode's contract check refuses the read)
-    m = int(mask.sum())
+    m = mask.sum()
     ok = m >= 2 * trim_k + 1
-    agg = _rank_mean(x, mask, like, trim_k, m - trim_k, ok)
-    kept = max(m - 2 * trim_k, 0) if ok else 0
-    return agg, _scalar(ok, x), _scalar(float(kept), x)
+    agg = _rank_mean(x, mask, like, torch.full_like(m, trim_k), m - trim_k, ok)
+    kept = torch.where(ok, torch.clamp(m - 2 * trim_k, min=0), 0).float()
+    return agg, ok, kept
 
 
 def coordinate_median(
@@ -94,11 +97,10 @@ def coordinate_median(
     two middle ranks); ``ok`` needs 3 participants.  ``kept`` is the participant count
     m (every participant's ordering contributes to a median)."""
     mask = participating.bool()
-    # fedlint: disable=FED001 (the rank window is sized by the participant count, read on the host: robust aggregation runs single rounds only, and strict mode's contract check refuses the read)
-    m = int(mask.sum())
+    m = mask.sum()
     ok = m >= 3
     agg = _rank_mean(x, mask, like, (m - 1) // 2, m // 2 + 1, ok)
-    return agg, _scalar(ok, x), _scalar(float(m if ok else 0), x)
+    return agg, ok, torch.where(ok, m, 0).float()
 
 
 def multi_krum(
@@ -107,11 +109,11 @@ def multi_krum(
     """Multi-Krum over the participating clients: ``score(i)`` sums the squared L2
     distances to i's ``m - f - 2`` nearest participating peers, and the ``m - f``
     lowest scores are averaged, unweighted, by kernel B1 (weights = the selection,
-    denominator = its size).  ``ok`` needs ``2f + 3`` participants."""
+    denominator = its size).  ``ok`` needs ``2f + 3`` participants.  The participant
+    count stays a 0-d device tensor: the neighbour window is a mask over the ranks."""
     mask = participating.bool()
     c = mask.shape[0]
-    # fedlint: disable=FED001 (the rank window is sized by the participant count, read on the host: robust aggregation runs single rounds only, and strict mode's contract check refuses the read)
-    m = int(mask.sum())
+    m = mask.sum()
     ok = m >= 2 * f + 3
 
     # Pairwise squared distances leaf by leaf, so the [C, C] Gram matrices are the
@@ -128,18 +130,19 @@ def multi_krum(
 
     # score(i): row i sorted (self-distance 0 at rank 0, +inf at the tail), ranks
     # [1, 1 + n_near) summed.
-    n_near = max(m - f - 2, 1)
+    n_near = torch.clamp(m - f - 2, min=1)
+    ranks = torch.arange(c, device=x.device)
+    near = (ranks >= 1) & (ranks < 1 + n_near)
     srt = torch.sort(dist2, dim=1).values
-    scores = torch.where(mask, srt[:, 1 : 1 + n_near].sum(1), torch.inf)
+    scores = torch.where(mask, torch.where(near[None, :], srt, 0.0).sum(1), torch.inf)
     order = torch.argsort(scores, stable=True)
     score_rank = torch.empty_like(order)
-    score_rank[order] = torch.arange(c, device=x.device)
-    n_sel = max(m - f, 1)
+    score_rank[order] = ranks
+    n_sel = torch.clamp(m - f, min=1)
     sel = ((score_rank < n_sel) & mask).float()
-    agg = weighted_mean_flat(x, sel, denom=float(n_sel))
-    if not ok:
-        agg = torch.zeros_like(agg)
-    return agg, _scalar(ok, x), _scalar(float(n_sel if ok else 0), x)
+    agg = weighted_mean_flat(x, sel, denom=n_sel.float())
+    agg = torch.where(ok, agg, 0.0)
+    return agg, ok, torch.where(ok, n_sel, 0).float()
 
 
 def robust_aggregate(
@@ -162,7 +165,3 @@ def robust_floor(config: RobustAggregationConfig) -> int:
         return 2 * config.trim_k + 3
     return 2 * config.trim_k + 1
 
-
-def _scalar(value: bool | float, like: torch.Tensor) -> torch.Tensor:
-    dtype = torch.bool if isinstance(value, bool) else torch.float32
-    return torch.tensor(value, dtype=dtype, device=like.device)

@@ -245,7 +245,7 @@ def _spec(x: Any) -> tuple[tuple[int, ...], Any]:
     if isinstance(x, bool):
         return (), torch.bool
     if isinstance(x, int):
-        return (), torch.int64  # a Python-int counter: the round step returns it 0-d
+        return (), torch.int64
     if isinstance(x, float):
         return (), torch.float64
     return tuple(int(d) for d in x.shape), x.dtype

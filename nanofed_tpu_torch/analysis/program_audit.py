@@ -47,7 +47,6 @@ strict=True)`` raises, the CLI exits 1).
 from __future__ import annotations
 
 import dataclasses
-import inspect
 import math
 from functools import partial
 from typing import Any, Callable, Iterable, Sequence
@@ -71,7 +70,6 @@ __all__ = [
     "AuditReport",
     "RankPrograms",
     "audit_program",
-    "factory_args",
     "format_audit_reports",
     "reference_catalog",
     "run_mutation_suite",
@@ -442,42 +440,24 @@ def reference_catalog(device: Any = None):
     drained = [build_drained_ingest_reduce(Mesh.describe(shape, r), cap, flat)
                for r in range(math.prod(shape))]
 
-    def drained_args(r: int = 0, device: Any = "cpu") -> tuple[tuple, dict]:
+    def drained_args(r: int = 0) -> tuple[tuple, dict]:
         gen = torch.Generator().manual_seed(r)
-        return (torch.randn((cap, flat), generator=gen).to(device),
-                torch.rand((cap,), generator=gen).to(device),
-                torch.zeros(flat).to(device)), {}
+        return (torch.randn((cap, flat), generator=gen), torch.rand((cap,), generator=gen),
+                torch.zeros(flat)), {}
 
     catalog.register(
         "drained_ingest", drained[0], args_factory=drained_args, rounds=1,
         attrs={"variant": "drained_ingest", "source_program": "drained_ingest_reduce",
                "mesh": Mesh.describe(shape, 0),
-               "rank_programs": lambda device=None: [
-                   (fn, *drained_args(r, device or "cpu")) for r, fn in enumerate(drained)]},
+               "rank_programs": lambda: [
+                   (fn, *drained_args(r)) for r, fn in enumerate(drained)]},
     )
     return catalog
 
 
-def _rank_programs(regs: list, device: Any = None) -> list[tuple[Callable, tuple, dict]]:
+def _rank_programs(regs: list) -> list[tuple[Callable, tuple, dict]]:
     """Every rank's ``(fn, args, kwargs)`` from its coordinator's registration."""
-    out = []
-    for fn, factory, _, _ in regs:
-        args, kwargs = factory_args(factory, device)
-        out.append((fn, args, kwargs))
-    return out
-
-
-def factory_args(factory: Callable, device: Any = None) -> tuple[tuple, dict]:
-    """A catalog entry's ``(args, kwargs)``: ``factory(device=device)`` where the
-    factory takes a device (the coordinator's make the arguments there: on ``meta``
-    nothing is allocated), else ``factory()``."""
-    if device is not None:
-        try:
-            if "device" in inspect.signature(factory).parameters:
-                return factory(device=device)
-        except (TypeError, ValueError):
-            pass
-    return factory()
+    return [(fn, *factory()) for fn, factory, _, _ in regs]
 
 
 # ---------------------------------------------------------------------------

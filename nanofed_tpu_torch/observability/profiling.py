@@ -477,27 +477,26 @@ class ProgramCatalog:
     def audit(self, name: str, compile: bool = True):
         """Run the program audit (``analysis.program_audit``) on one registered
         program; returns its ``AuditReport`` (findings included — never raises on
-        findings).  The program runs on meta tensors: a factory that takes a
-        ``device`` keyword makes its arguments there (nothing allocated), any other
-        factory's are converted.  A registration whose attributes carry
+        findings).  The program runs on meta copies of its factory's arguments (the
+        factory's transient clones are the only allocation).  A registration whose
+        attributes carry
         ``rank_programs`` (every rank's program on a described mesh) is audited
         rank by rank, against ``attrs["mesh"]``'s axes.  ``compile`` is recorded in
         the report; the port builds no AOT artifact, so it changes no check."""
-        from nanofed_tpu_torch.analysis.program_audit import audit_program, factory_args
+        from nanofed_tpu_torch.analysis.program_audit import audit_program
 
         with self._lock:
             entry = self._entries.get(name)
         if entry is None:
             raise KeyError(f"no program {name!r} registered (have {self.names()})")
-        meta = torch.device("meta")
-        args, kwargs = factory_args(entry.args_factory, meta)
+        args, kwargs = entry.args_factory()
         rank_programs = entry.attrs.get("rank_programs")
         return audit_program(
             name, entry.fn, *args, rounds=entry.rounds,
             mesh=entry.attrs.get("mesh"), compile=compile,
             attrs={k: v for k, v in entry.attrs.items()
                    if k not in ("mesh", "rank_programs")},
-            ranks=None if rank_programs is None else rank_programs(device=meta),
+            ranks=None if rank_programs is None else rank_programs(),
             **kwargs,
         )
 

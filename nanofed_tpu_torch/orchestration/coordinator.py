@@ -200,7 +200,6 @@ from nanofed_tpu_torch.parallel.mesh import (
 )
 from nanofed_tpu_torch.parallel.multi_round import (
     build_round_block,
-    counters_on,
     pad_permutations,
     round_seeds,
 )
@@ -524,10 +523,7 @@ class Coordinator:
                 self._base_like = {k: v.to("meta") for k, v in self.base_params.items()}
                 self._base_layout = MeshLayout(mesh, self._base_like)
                 self.base_params = self._base_layout.shard_params(self.base_params)
-        # The counters ride on the device between rounds (0-d tensors, as inside a
-        # fused block): no dispatch reads them back; checkpoints turn them into ints.
-        self.server_state = counters_on(init_server_state(self.strategy, self.params),
-                                        self.device)
+        self.server_state = init_server_state(self.strategy, self.params)
 
         if robust is not None and self.cohort_size < robust_floor(robust):
             # Every round would fail closed yet be reported COMPLETED: refuse up front.
@@ -753,7 +749,7 @@ class Coordinator:
             params = self._layout.shard_params(params)
             state = {k: self._layout.slice_shard(v) if _is_vector(v) else v
                      for k, v in state.items()}
-        self.params, self.server_state = params, counters_on(state, self.device)
+        self.params, self.server_state = params, state
         accountant_state = restored.metadata.metrics.get("privacy_accountant")
         if self.privacy_accountant is not None and accountant_state is not None:
             self.privacy_accountant.load_state_dict(accountant_state)
@@ -780,38 +776,33 @@ class Coordinator:
         coordinator's do (``[clients, model]`` on a 1-D mesh and on one device)."""
         n_local = self._slots.stop - self._slots.start
 
-        def _step_args(device: torch.device | None = None) -> tuple[tuple, dict]:
-            # device="meta" (the analysis): the same arguments as shapes, made without
-            # reading or allocating anything.
-            at = self.device if device is None else torch.device(device)
-            gen = torch.Generator(device="cpu" if at.type == "meta" else at
-                                  ).manual_seed(self.config.seed)
+        def _step_args() -> tuple[tuple, dict]:
+            gen = torch.Generator(device=self.device).manual_seed(self.config.seed)
             args = (
-                _copy_to(self.params, at),
-                _copy_to(self.server_state, at),
-                _copy_to(self._data, at, shared=True).select(slice(0, n_local)),
-                torch.ones(n_local, device=at),
+                {name: p.clone() for name, p in self.params.items()},
+                {k: v.clone() for k, v in self.server_state.items()},
+                self._data.select(slice(0, n_local)),
+                torch.ones(n_local, device=self.device),
                 draw_permutations(gen, n_local, self.training.local_epochs,
-                                  self._data.y.shape[1], device=at),
-                client_keys(self.config.seed, n_local, at),
+                                  self._data.y.shape[1]),
+                client_keys(self.config.seed, n_local, self.device),
             )
             if self.central_privacy is not None:
                 noise_type = self.central_privacy.privacy.noise_type
                 args += (get_noise_generator(noise_type).standard(
-                    gen, (tree_size(self._params_like or self.params),)).to(at),)
+                    gen, (tree_size(self._params_like or self.params),)),)
             return args, {}
 
         mesh_shape = [1] if self.mesh is None else list(self.mesh.shape)
         attrs = {"mesh_shape": mesh_shape + [1] * (len(mesh_shape) == 1),
                  "step_clients": self._step_clients, "client_chunk": self._client_chunk}
         if self.scaffold:
-            def _scaffold_args(device: torch.device | None = None) -> tuple[tuple, dict]:
+            def _scaffold_args() -> tuple[tuple, dict]:
                 # The SCAFFOLD step takes the controls between the server state and
                 # the data: c_global and the step's rows of the control stack.
-                at = self.device if device is None else torch.device(device)
-                (params, state, data, weights, perms, keys), _ = _step_args(at)
-                c_rows = _copy_to(self.c_stack[:n_local], at)
-                return (params, state, _copy_to(self.c_global, at), c_rows, data, weights,
+                (params, state, data, weights, perms, keys), _ = _step_args()
+                c_rows = self.c_stack[:n_local].clone()
+                return (params, state, self.c_global.clone(), c_rows, data, weights,
                         perms, keys), {}
 
             self.program_catalog.register(
@@ -822,14 +813,11 @@ class Coordinator:
         if self.adapter is not None:
             attrs = {**attrs, "adapter_rank": self.adapter.rank}
 
-            def _adapter_step_args(device: torch.device | None = None) -> tuple[tuple, dict]:
+            def _adapter_step_args() -> tuple[tuple, dict]:
                 # The frozen base enters as dispatched: the third argument, not cloned
                 # (no round writes it).
-                at = self.device if device is None else torch.device(device)
-                (params, state, *rest), _ = _step_args(at)
-                base = self.base_params if at == self.device else _copy_to(
-                    self.base_params, at, shared=True)
-                return (params, state, base, *rest), {}
+                (params, state, *rest), _ = _step_args()
+                return (params, state, self.base_params, *rest), {}
 
             self.program_catalog.register(
                 "adapter_round_step", self._round_step, args_factory=_adapter_step_args,
@@ -843,26 +831,22 @@ class Coordinator:
             return
         rpb = self.config.rounds_per_block
 
-        def _block_args(device: torch.device | None = None) -> tuple[tuple, dict]:
+        def _block_args() -> tuple[tuple, dict]:
             # Every slot a distinct client with weight: the profiled block runs the
             # rounds a full cohort runs; each host's slot segment holds its own clients.
-            at = self.device if device is None else torch.device(device)
             n = self._step_clients
-            slot = torch.arange(n, device=at)
+            slot = torch.arange(n, device=self.device)
             seg = n // self._n_hosts
             ids = (slot // seg) * self._rows_per_host + slot % seg
             idx = ids.expand(rpb, n).contiguous() if self._cohort_mode else None
             args = (
-                _copy_to(self.params, at), _copy_to(self.server_state, at),
-                _copy_to(self._data, at, shared=True),
-                _copy_to(self._num_samples, at, shared=True),
+                {name: p.clone() for name, p in self.params.items()},
+                {k: v.clone() for k, v in self.server_state.items()},
+                self._data, self._num_samples,
                 round_seeds(self.config.seed, range(rpb)), [1.0] * rpb,
-                idx, torch.ones((rpb, n), device=at),
+                idx, torch.ones((rpb, n), device=self.device),
             )
-            base = None if self.adapter is None else (
-                self.base_params if at == self.device
-                else _copy_to(self.base_params, at, shared=True))
-            return args, ({} if base is None else {"base_params": base})
+            return args, ({} if self.adapter is None else {"base_params": self.base_params})
 
         self.program_catalog.register(
             self._block_program_name, self._round_block, args_factory=_block_args,
@@ -886,11 +870,11 @@ class Coordinator:
             check_input_shardings,
             check_round_block,
             check_round_step,
+            to_meta,
         )
 
-        meta = torch.device("meta")
         name = "adapter_round_step" if self.adapter is not None else "round_step"
-        args, _ = self.program_catalog.registration(name)[1](device=meta)
+        args, _ = to_meta(self.program_catalog.registration(name)[1]())
         params, state, *rest = args
         base = None
         if self.adapter is not None:
@@ -899,8 +883,8 @@ class Coordinator:
                                   frozen_base=base, clients=self._step_clients)
         _log.info("strict: %s contract ok (%s)", name, report)
         if self._round_block is not None:
-            (params, state, data, num_samples, seeds, scales, idx, mask), kw = \
-                self.program_catalog.registration(self._block_program_name)[1](device=meta)
+            (params, state, data, num_samples, seeds, scales, idx, mask), kw = to_meta(
+                self.program_catalog.registration(self._block_program_name)[1]())
             report = check_round_block(self._round_block, params, state, data, num_samples,
                                        seeds, scales, cohort_idx=idx, cohort_mask=mask,
                                        frozen_base=kw.get("base_params"))
@@ -1870,25 +1854,9 @@ class Coordinator:
         tmp.replace(path)
 
 
-def _is_vector(v: Any) -> bool:
+def _is_vector(v: torch.Tensor) -> bool:
     """A params-shaped server-state vector (not a 0-d counter)."""
-    return torch.is_tensor(v) and v.ndim > 0
-
-
-def _copy_to(tree: Any, at: torch.device, shared: bool = False) -> Any:
-    """``tree``'s tensors as a program's arguments on ``at``: on ``meta``, shapes that
-    read and allocate nothing (``analysis.contracts.to_meta``); elsewhere clones, or
-    with ``shared`` (read-only inputs: the population, the frozen base) the tensors
-    themselves."""
-    from nanofed_tpu_torch.analysis.contracts import to_meta
-
-    if at.type == "meta":
-        return to_meta(tree)
-    if shared:
-        return tree
-    if torch.is_tensor(tree):
-        return tree.clone()
-    return {k: v.clone() if torch.is_tensor(v) else v for k, v in tree.items()}
+    return v.ndim > 0
 
 
 def _lockstep(step: Any) -> None:

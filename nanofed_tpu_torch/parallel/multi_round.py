@@ -76,8 +76,6 @@ from nanofed_tpu_torch.trainer.local import GradFn, client_keys, draw_permutatio
 # cohort draw, the dropout draw and the round's training draws are separate streams.
 _COHORT_SALT = 0xC0F0
 _DROPOUT_SALT = 0xD409
-# The server optimizers' Python-int counters (aggregation.base).
-_COUNTERS = ("count", "schedule_count")
 _MASK64 = (1 << 64) - 1
 
 
@@ -86,7 +84,7 @@ class RoundBlockResult(NamedTuple):
     is the round within the block."""
 
     params: Params  # end-of-block global params
-    server_opt_state: Any  # end-of-block server state (counters as passed: int or 0-d)
+    server_opt_state: Any  # end-of-block server state (counters 0-d on the device)
     metrics: dict[str, torch.Tensor]  # weighted scalar metrics per round, each [R]
     survivors: torch.Tensor  # [R] int32: surviving sampled clients per round
     client_metrics: ClientMetrics | None  # [R, K] (None unless collect_client_detail)
@@ -111,23 +109,6 @@ def _salted(seed: int, salt: int) -> int:
     z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
     z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
     return (z ^ (z >> 31)) >> 1
-
-
-def int_counters(sos: Any) -> list[str]:
-    """The keys of ``sos`` whose server-optimizer counters are Python ints."""
-    if not isinstance(sos, dict):
-        return []
-    return [k for k in _COUNTERS if isinstance(sos.get(k), int)]
-
-
-def counters_on(sos: Any, device: torch.device | str) -> Any:
-    """The server state with its Python-int counters as 0-d int64 tensors on
-    ``device`` (filled there: no copy from the host)."""
-    moved = int_counters(sos)
-    if not moved:
-        return sos
-    return {**sos, **{k: torch.full((), sos[k], dtype=torch.int64, device=device)
-                      for k in moved}}
 
 
 def pad_permutations(perms: torch.Tensor, rows: int) -> torch.Tensor:
@@ -365,8 +346,7 @@ def build_round_block(
         # trace) the generators live on the host and each draw is a meta shape.
         at = data.y.device
         gen_at = torch.device("cpu") if at.type == "meta" else at
-        moved = int_counters(server_opt_state)
-        gp, sos = global_params, counters_on(server_opt_state, at)
+        gp, sos = global_params, server_opt_state
         rows: dict[str, list] = {
             "metrics": [], "survivors": [], "client": [], "norms": [], "weights": [],
             "ids": [],
@@ -415,12 +395,6 @@ def build_round_block(
                 if cohort_mask is None and cohort_mode:
                     rows["ids"].append(idx)
             del result, data_r, perms_r, keys_r
-        if moved:
-            # A caller that passed int counters gets ints back: the block's one read
-            # back, after its last round.  The coordinator keeps its counters on the
-            # device, so its guarded dispatch never reaches this.
-            # fedlint: disable=FED001 (the block's one read back, after every round is enqueued: only a caller that passed int counters reaches it)
-            sos = {**sos, **{k: int(sos[k]) for k in moved}}
         metrics = {k: torch.stack([m[k] for m in rows["metrics"]])
                    for k in rows["metrics"][0]}
         detail = collect_client_detail

@@ -135,22 +135,13 @@ def apply_server_update(
 
     The zero-weight identity is a select on the device, so the step never reads the
     device back: the server state's counters (Adam's ``count``, a schedule's
-    ``schedule_count``) come back as 0-d int64 tensors on the device, gated like the
-    rest, as they ride inside a fused block (``parallel.multi_round``).  Only the
-    checkpoint format turns them into ints (``utils.trees.to_numpy_server_state``)."""
+    ``schedule_count``) are 0-d int64 tensors on the device (``aggregation.base``),
+    gated like the rest.  Only the checkpoint format turns them into ints
+    (``utils.trees.to_numpy_server_state``)."""
     ok = total_w > 0
     updates, new_sos = server_tx.update(-agg_delta, sos)
-    new_sos = {key: _gated(ok, new, sos[key]) for key, new in new_sos.items()}
+    new_sos = {key: torch.where(ok, new, sos[key]) for key, new in new_sos.items()}
     return unravel(torch.where(ok, gp_flat + updates, gp_flat), like), new_sos
-
-
-def _gated(ok: torch.Tensor, new: Any, old: Any) -> torch.Tensor:
-    if not torch.is_tensor(old):
-        # A Python-int counter (an initial or restored state) becomes a 0-d counter,
-        # filled on the device (no copy from the host).
-        new = torch.full((), new, dtype=torch.int64, device=ok.device)
-        old = torch.full((), old, dtype=torch.int64, device=ok.device)
-    return torch.where(ok, new, old)
 
 
 def _rows(t: torch.Tensor | None, sl: slice) -> torch.Tensor | None:

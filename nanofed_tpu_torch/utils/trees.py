@@ -152,7 +152,8 @@ def to_numpy_server_state(state: Mapping[str, Any], like: Params) -> tuple:
 def from_numpy_server_state(state: Any, strategy: Any, like: Params) -> dict[str, Any]:
     """Inverse of :func:`to_numpy_server_state`, checked against what ``strategy``'s
     server optimizer keeps (its transform, and whether its learning rate is a
-    schedule) and against ``like``'s leaves; vectors land on ``like``'s device."""
+    schedule) and against ``like``'s leaves; vectors land on ``like``'s device and
+    counts become 0-d int64 tensors there, as ``server_tx.init`` makes them."""
     if not (isinstance(state, tuple) and len(state) == 2):
         raise CheckpointError(
             f"the checkpoint's server state is a {type(state).__name__}, not an optax "
@@ -162,17 +163,21 @@ def from_numpy_server_state(state: Any, strategy: Any, like: Params) -> dict[str
         leaves = _leaves_like(tree, like, f"the checkpoint's server state '{field}'")
         return torch.cat([leaf.reshape(-1) for leaf in leaves.values()])
 
+    def counter(count: Any) -> torch.Tensor:
+        return torch.full((), int(count), dtype=torch.int64, device=device)
+
+    device = next(iter(like.values())).device
     transform, schedule = state
     out: dict[str, Any] = {}
     if isinstance(transform, ScaleByAdamState):
-        out.update(count=int(transform.count), mu=flat(transform.mu, "mu"),
+        out.update(count=counter(transform.count), mu=flat(transform.mu, "mu"),
                    nu=flat(transform.nu, "nu"))
     elif isinstance(transform, TraceState):
         out["trace"] = flat(transform.trace, "trace")
     elif not isinstance(transform, EmptyState):
         raise CheckpointError(f"unknown server transform state {type(transform).__name__}")
     if isinstance(schedule, ScaleByScheduleState):
-        out["schedule_count"] = int(schedule.count)
+        out["schedule_count"] = counter(schedule.count)
     elif not isinstance(schedule, EmptyState):
         raise CheckpointError(f"unknown learning-rate state {type(schedule).__name__}")
     want = strategy.server_tx.init(torch.zeros(0))

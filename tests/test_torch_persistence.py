@@ -257,13 +257,19 @@ def test_model_manager_directories_cross_load(params, tmp_path, direction):
 
 # name: (JAX strategy, port strategy) with the same server optimizer.
 SERVER_SCHEDULE = optax.cosine_decay_schedule(1.0, decay_steps=4, alpha=0.1)
+def port_cosine(c: torch.Tensor) -> torch.Tensor:
+    """``SERVER_SCHEDULE`` in torch ops on the 0-d count (the port's schedule contract:
+    no read of the count on the host)."""
+    t = torch.clamp(c, max=4).float()
+    return 0.9 * (0.5 * (1 + torch.cos(torch.pi * t / 4))) + 0.1
+
 CROSS_STRATEGIES = {
     "fedavg": (jax_base.fedavg_strategy, base.fedavg_strategy),
     "fedavgm": (jax_base.fedavgm_strategy, base.fedavgm_strategy),
     "fedadam": (jax_base.fedadam_strategy, base.fedadam_strategy),
     "fedyogi": (jax_base.fedyogi_strategy, base.fedyogi_strategy),
     "fedavgm_cosine": (lambda: jax_base.fedavgm_strategy(SERVER_SCHEDULE),
-                       lambda: base.fedavgm_strategy(lambda c: float(SERVER_SCHEDULE(int(c))))),
+                       lambda: base.fedavgm_strategy(port_cosine)),
 }
 
 
@@ -372,10 +378,10 @@ _LOADER = textwrap.dedent("""
         params = from_checkpoint_params(restored.params, like)
         state = from_numpy_server_state(restored.server_state, strategy, params)
         out[name] = {"round": restored.round_number,
-                     "counts": {k: v for k, v in state.items() if not torch.is_tensor(v)}}
+                     "counts": {k: int(v) for k, v in state.items() if v.ndim == 0}}
         arrays.update({f"{name}.params.{k}": v.numpy() for k, v in params.items()})
         arrays.update({f"{name}.state.{k}": v.numpy() for k, v in state.items()
-                       if torch.is_tensor(v)})
+                       if v.ndim > 0})
     for case in ("bfloat16", "foreign"):
         try:
             load_state_pickle(root / f"{case}.pkl")

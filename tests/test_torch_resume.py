@@ -60,6 +60,12 @@ TOL = dict(rtol=1e-6, atol=1e-7)
 ROUND_TOL = dict(rtol=1e-4, atol=1e-4)
 MLP = dict(in_features=8, hidden=16, num_classes=3)
 SERVER_SCHEDULE = optax.cosine_decay_schedule(1.0, decay_steps=4, alpha=0.1)
+def port_cosine(c: torch.Tensor) -> torch.Tensor:
+    """``SERVER_SCHEDULE`` in torch ops on the 0-d count (the port's schedule contract:
+    no read of the count on the host)."""
+    t = torch.clamp(c, max=4).float()
+    return 0.9 * (0.5 * (1 + torch.cos(torch.pi * t / 4))) + 0.1
+
 # name: (JAX strategy, port strategy) with the same server optimizer.
 STRATEGIES = {
     "fedavg": (jax_base.fedavg_strategy, base.fedavg_strategy),
@@ -67,7 +73,7 @@ STRATEGIES = {
     "fedadam": (jax_base.fedadam_strategy, base.fedadam_strategy),
     "fedyogi": (jax_base.fedyogi_strategy, base.fedyogi_strategy),
     "fedavgm_cosine": (lambda: jax_base.fedavgm_strategy(SERVER_SCHEDULE),
-                       lambda: base.fedavgm_strategy(lambda c: float(SERVER_SCHEDULE(int(c))))),
+                       lambda: base.fedavgm_strategy(port_cosine)),
 }
 
 

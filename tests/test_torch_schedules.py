@@ -63,6 +63,13 @@ JAX_SCHEDULES = {
     "cosine": optax.cosine_decay_schedule(1.0, decay_steps=4, alpha=0.1),
     "linear": optax.linear_schedule(1.0, 0.2, transition_steps=5),
 }
+# The same schedules in torch ops on the port's 0-d count (its schedule contract: no
+# read of the count on the host).
+PORT_SCHEDULES = {
+    "cosine": lambda c: 0.9 * (0.5 * (1 + torch.cos(torch.pi * torch.clamp(c, max=4).float()
+                                                    / 4))) + 0.1,
+    "linear": lambda c: 0.8 * (1 - torch.clamp(c, 0, 5).float() / 5) + 0.2,
+}
 STRATEGIES = {
     "fedavg": (lambda lr: jax_base.Strategy("fedavg", optax.sgd(lr)),
                lambda lr: base.Strategy("fedavg", base.ServerSGD(lr))),
@@ -77,8 +84,8 @@ STRATEGIES = {
 @pytest.mark.parametrize("name", list(STRATEGIES))
 def test_server_schedule_equals_optax_over_five_rounds(tmp_path, name, schedule):
     """Each round's server update and state under an optax schedule, against the
-    port's strategy with the same schedule as a plain callable: the schedule is read
-    at optax's count, which the state carries (``ScaleByScheduleState``).  The JAX
+    port's strategy with the same schedule in torch ops on the 0-d count: the schedule
+    is read at optax's count, which the state carries (``ScaleByScheduleState``).  The JAX
     state reaches the port as a checkpoint would, through a pickle."""
 
     def as_port(state):
@@ -90,7 +97,7 @@ def test_server_schedule_equals_optax_over_five_rounds(tmp_path, name, schedule)
     jax_make, port_make = STRATEGIES[name]
     scale = 0.05 if name in ("fedadam", "fedyogi") else 1.0
     jax_tx = jax_make(lambda c: scale * sched(c)).server_tx
-    port_strategy = port_make(lambda c: scale * float(sched(c)))
+    port_strategy = port_make(lambda c: scale * PORT_SCHEDULES[schedule](c))
     rng = np.random.default_rng(0)
     params = {"a": {"w": np.zeros((3, 4), np.float32)}, "b": np.zeros(5, np.float32)}
     like = {"a/w": torch.zeros(3, 4), "b": torch.zeros(5)}

@@ -27,6 +27,7 @@ from nanofed_tpu_torch.models import get_model
 from nanofed_tpu_torch.observability import summarize_telemetry
 from nanofed_tpu_torch.orchestration import Coordinator, CoordinatorConfig
 from nanofed_tpu_torch.orchestration import coordinator as coordinator_module
+from nanofed_tpu_torch.parallel import round_step as round_step_module
 from nanofed_tpu_torch.parallel.mesh import Mesh
 from nanofed_tpu_torch.trainer import TrainingConfig
 from nanofed_tpu_torch.utils.trees import ravel
@@ -113,15 +114,40 @@ def test_a_drifted_round_step_fails_construction_naming_the_leaf(population, tmp
         _coord(population, tmp_path / "strict", True)
 
 
-def test_a_host_read_in_the_round_fails_strict_construction(population, tmp_path):
-    """Robust aggregation sizes its rank window with the participant count read on the
-    host: a strict coordinator refuses it at construction, naming the op and the line
-    (fedlint's suppression there says the same)."""
+def test_a_host_read_in_the_round_fails_strict_construction(population, tmp_path,
+                                                           monkeypatch):
+    """A robust estimator that sizes its rank window with the participant count read on
+    the host: a strict coordinator refuses it at construction, naming the op and the
+    line; a plain one runs it."""
+    real = round_step_module.robust_aggregate
+
+    def reading(config, x, participating, like):
+        if int(participating.sum()) < 1:
+            raise AssertionError("no participant")
+        return real(config, x, participating, like)
+
+    monkeypatch.setattr(round_step_module, "robust_aggregate", reading)
     with pytest.raises(ContractViolation,
-                       match=r"_local_scalar_dense at nanofed_tpu_torch/aggregation/"
-                             r"robust\.py:\d+ \(trimmed_mean\)"):
+                       match=r"_local_scalar_dense at tests/test_torch_strict\.py:\d+ "
+                             r"\(reading\)"):
         _coord(population, tmp_path, True, robust=RobustAggregationConfig(trim_k=1))
     _coord(population, tmp_path, False, robust=RobustAggregationConfig(trim_k=1)).run()
+
+
+@pytest.mark.parametrize("method", ["trimmed_mean", "median", "multi_krum"])
+def test_strict_robust_rounds_run_bit_equal_to_plain(population, tmp_path, method):
+    """The robust estimators keep the participant count on the device, so a strict
+    coordinator takes them: its contract check and audit pass, and it trains bit for
+    bit as the plain one does."""
+    robust = RobustAggregationConfig(trim_k=1, method=method)
+    strict = _coord(population, tmp_path / "s", True, robust=robust, num_rounds=2,
+                    participation_rate=0.75)
+    plain = _coord(population, tmp_path / "p", False, robust=robust, num_rounds=2,
+                   participation_rate=0.75)
+    s_rounds, p_rounds = strict.run(), plain.run()
+    assert torch.equal(ravel(strict.params), ravel(plain.params))
+    assert [m.agg_metrics for m in s_rounds] == [m.agg_metrics for m in p_rounds]
+    assert all(m.agg_metrics["robust_kept_clients"] > 0 for m in s_rounds)
 
 
 @pytest.mark.parametrize("shape", [(2,), (2, 2), (2, 2, 1)])
