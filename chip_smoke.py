@@ -10,6 +10,14 @@ Phases (any failure exits non-zero):
 1. Environment: the card's name and power limit, torch and CUDA versions, and the
    kernel build (one ``nvcc`` per source in ``nanofed_tpu_torch/ops/csrc``, all
    started together) with its wall time.
+Phases whose seconds a finding of PERF.md reads run one after another.  Everything
+that times nothing runs at the end, side by side, beside (o)-(r), part 4, (fl4)'s
+fleet evidence and (w3)'s one-rank references: the checks of phase 2, (d), (e), (t4),
+(i)'s runner, (k), (y2), (y3), (w3)'s ranks, (x1)'s (1, 2) mesh, (x4), (u2)-(u5), (v5),
+(z1), (z5), (fl4)'s FedBuff artifact, (an2) and (an3), each job a process of its own
+(``python3 chip_smoke.py --job NAME DIR``, ``JOBS``).  Depths cut to fit the time limit
+are stated beside their constants.
+
 2. Kernels: B1 (``weighted_mean_flat`` and ``weighted_sum_into``), B3
    (``row_sq_norms``) and B2 (``masked_weighted_mean_flat``) against their plain
    PyTorch versions on the card, on ragged shapes, weight and validity cases and
@@ -43,8 +51,10 @@ Phases (any failure exits non-zero):
    ``denom`` and the int8 extremes, then on the edges of its launch plan and twice for
    the same bits.  At those shapes each kernel, its plain version and one library
    call (for B4 the unfused yardstick ``torch.addmv(base, q.float().t(), coefs)``)
-   are timed with CUDA events (median of 30 runs after 5 warm-up runs, L2 flushed
-   before each run), beside the least time the card could take: B7 as a client's
+   are timed with CUDA events (median of ``SMOKE_REPS`` = 5 runs after 5 warm-up runs,
+   L2 flushed before each run; the kernel table's medians of 30 runs come from
+   ``scripts/time_reduce_kernels.py`` and ``scripts/time_quantize_kernels.py``, which
+   call this file's timing functions), beside the least time the card could take: B7 as a client's
    masking pass of k = 1, 7, 8, 14 and 999 seeds (its plain version up to k = 8), B4
    at C = 64 and 1000 with its launch plan.  B5, B6, B7 and B4 are also timed with the
    host's work hidden behind a device sleep (``kernel_ms``: B5's and B6's call, B7's
@@ -63,7 +73,7 @@ Phases (any failure exits non-zero):
    ``examples/secure_federation/run_secure.py`` drives it but through the port's
    ``HTTPServer``, ``NetworkCoordinator`` and ``HTTPClient`` on the card: 8 clients of
    ``mnist_cnn`` at full width on the ``cuda`` mask backend (600 synthetic samples
-   each, 1 epoch, batch 64, SGD lr 0.1, f32, 2 rounds), (f) the no-dropout masked
+   each, 1 epoch, batch 64, SGD lr 0.1, f32; 1 round, (g) 2), (f) the no-dropout masked
    round (``SecureAggregationConfig(min_clients=8)``) and (g) the dropout-tolerant
    round (threshold 5, ``min_clients`` 7, ``min_completion_rate`` 0.5), client_7 gone
    from round 1 on after the share exchange; then (h) the same 8 clients in the plain
@@ -74,7 +84,7 @@ Phases (any failure exits non-zero):
    one per dropout-tolerant recovery).
    Then (i) the autotuned run: ``Coordinator.from_autotune`` at the flagship's shape
    (1000 clients x 60 samples, 2 epochs, bf16, 2 rounds) over a pinned space
-   (``client_chunk`` None, 125 or 250 x batch 32 or 64), with the ranked table and the
+   (``client_chunk`` None, 125 or 250 x batch 64), with the ranked table and the
    aggregation-epilogue table (B4 and B2 against their unfused programs at P =
    1,199,882, C = 64); its final params must equal a hand-built coordinator with the
    winner's knobs within 1e-4; then ``run_experiment(autotune=True, retune_every=1,
@@ -101,7 +111,7 @@ Phases (any failure exits non-zero):
    Then the client-training layer at the flagship's shape (1000 clients x 60 samples,
    2 epochs, batch 64, bf16): (l) DP-SGD clients, ``Coordinator(local_fit=
    make_private_local_fit(..., PrivacyConfig(noise_multiplier=1.1,
-   max_gradient_norm=1.0)))`` with ``client_chunk=25``, 2 rounds (B1 accumulate and B3
+   max_gradient_norm=1.0)))`` with ``client_chunk=25``, 1 round (B1 accumulate and B3
    40 a round), its peak device memory and each client's ε at δ=1e-5 from
    ``record_local_fit``; on the card, one client's clipped per-example norms at most
    C(1 + 1e-5), the per-example gradients against one-example backward passes (1e-4),
@@ -143,12 +153,12 @@ Phases (any failure exits non-zero):
    signing and verifying timed, then a signed masked round on the ``cuda`` backend
    (B5 8, B7 8, B6 1).
    Then fused multi-round blocks (``CoordinatorConfig.rounds_per_block``): (s1) the
-   flagship (``client_chunk=125``), 8 rounds at ``rounds_per_block=4`` (two blocks) and
+   flagship (``client_chunk=125``), 4 rounds at ``rounds_per_block=2`` (two blocks) and
    at 1, and the fused run again for the run-to-run gap: params within 1e-4 and the gap
-   plus 1e-6, every round's metrics within 1e-4 (counts equal), B1 accumulate and B3 64
+   plus 1e-6, every round's metrics within 1e-4 (counts equal), B1 accumulate and B3 32
    each a run, per-round wall time and peak device memory above each run's start
-   (within 1%); (s2) a validated 10% cohort with dropout 0.1 as one 4-round block
-   against single rounds (B2 once a round), and a 4-round block that resamples its
+   (within 1%); (s2) a validated 10% cohort with dropout 0.1 as one 2-round block
+   against single rounds (B2 once a round), and a 2-round block that resamples its
    cohorts on the card through ``build_round_block`` (distinct ids, plausible
    survivors; B1 normalised and B3 once a round); (s3) in the second fused run, the synchronizing operations inside
    its first block's dispatch under ``torch.cuda.set_sync_debug_mode("warn")`` (must be
@@ -159,7 +169,7 @@ Phases (any failure exits non-zero):
    "fedprox_cifar10"])``, ResNet-8 (P = 77,850), 100 clients, Dirichlet 0.5, cohorts of
    10, FedProx mu 0.01, 3 rounds over 50,000 + 10,000 images (B1 normalised and B3 once
    a round); (t2) ``run_benchmark("cross_silo")``, ResNet-18 at full width (P =
-   11,218,340), 8 clients of 6,250 images, 2 rounds in f32 (TF32 off): round times,
+   11,218,340), 8 clients of 6,250 images, 1 round in f32 (TF32 off): round times,
    peak device memory above the phase's start, one round step of one batch a client
    profiled (``observability.profile_program``: counted FLOPs, so the round's FLOPs
    and achieved rate) and traced (``torch.profiler``: device busy time and the top
@@ -170,13 +180,13 @@ Phases (any failure exits non-zero):
    C = 10, P = 77,850 and C = 8, P = 11,218,340 in the round's layout, timed with the
    library calls ``w @ x`` and ``torch.linalg.vecdot(x, x)`` beside their bounds.
    Then observability (phase (u)): (u1) the flagship (``client_chunk=125``) with
-   ``telemetry_dir``, 4 single rounds and 8 rounds at ``rounds_per_block=4``: the spans
+   ``telemetry_dir``, 2 single rounds and 4 rounds at ``rounds_per_block=2``: the spans
    of ``telemetry.jsonl`` with the JAX names and nesting, every ``round`` record,
    ``summarize_telemetry`` over the file, the span-derived occupancy on both bases, the
    first block's whole ``dispatch`` span under the sync check (0 synchronizing
    operations) and the second block under ``torch.profiler`` (its span occupancy at
    most the device's busy share + 0.02), then the round with telemetry off and on,
-   interleaved (off, on, on, off; 3 rounds each after a warm round); (u2) one flagship
+   interleaved (off, on, on, off; 2 rounds each after a warm round); (u2) one flagship
    round inside ``utils.profiling.trace``, whose Chrome trace must hold the span names
    and B1's and B3's kernels; (u3) (h)'s plain network round with the server's
    ``registry=`` and ``tracer=``, the clients' ``registry=`` and the coordinator's
@@ -191,8 +201,8 @@ Phases (any failure exits non-zero):
    Markov-chain token streams, SGD without momentum: (v1) the ``base`` flagship (vocab
    8192, seq 128, width 768, depth 12, 12 heads; 97,745,408 parameters) with rank-8
    adapters (1,398,784 parameters, ratio 69.88) through ``Coordinator(adapter=)``, 8
-   clients of 128 sequences, batch 16, 1 epoch, lr 0.1: 2 rounds in f32, then 3 in bf16
-   (the third traced by ``torch.profiler``), each round's seconds, counted FLOPs
+   clients of 128 sequences, batch 16, 1 epoch, lr 0.1: 2 rounds in f32, then 2 in bf16
+   (the second traced by ``torch.profiler``), each round's seconds, counted FLOPs
    (``FlopCounterMode``) and rate, peak device memory and loss; the merge at round 0
    the base bit for bit and after round 1 within 1e-5 of ``base + s A@B`` in float64;
    B1 normalised and B3 once a round at C = 8, P = 1,398,784; (v2) the same cohort's
@@ -227,12 +237,14 @@ Phases (any failure exits non-zero):
    for bit, each rank's model state between rounds half the one-rank state, each rank's
    peak memory; (w4) ``nanofed-tpu-torch run --distributed`` under ``python -m
    torch.distributed.run --nproc_per_node 1`` (NCCL; it times nothing, so it runs beside
-   the cross-check of part 4) and ``run --model-shards 2`` on one rank (exit 2, the JAX validator's message); then B2's ``denom`` form at C = 250 and B1's
-   accumulate form and B3 at C = 2, P = 97,745,408 and 1,398,784 timed beside their plain
-   versions, library calls and bounds.  Every rank's launches join the kernels line.
-   Then the rest of the mesh and the host-local federation (phase (x)): (x1) SCAFFOLD
-   at (m)'s configuration (1000 clients, 10% cohorts in chunks of 25, 3 rounds) on 4
-   gloo ranks, mesh (2, 2, 1), within 1e-5 of one rank given the same (host-local)
+   (o)-(r) and part 4) and ``run --model-shards 2`` on one rank (exit 2, the JAX
+   validator's message); then B2's ``denom`` form at C = 250 and B1's accumulate form
+   and B3 at C = 2, P = 97,745,408 and 1,398,784 timed beside their plain versions,
+   library calls and bounds.  Every rank's launches join the kernels line.
+   Then the rest of the mesh and the host-local federation (phase (x); (w2) and
+   (x1)-(x3) in one world of 4 ranks, (w3), (x1)'s (1, 2) mesh and (x4) in one world of
+   2): (x1) SCAFFOLD at (m)'s configuration (1000 clients, 10% cohorts in chunks of 25,
+   3 rounds) on 4 gloo ranks, mesh (2, 2, 1), within 1e-5 of one rank given the same (host-local)
    cohorts, every rank's params and ``c_global`` the same bits, each rank a quarter of
    the control stack; the same on 2 ranks, mesh (1, 2), bit for bit one rank; a
    100-client checkpoint of the (2, 2, 1) run resumed on one rank and one rank's resumed
@@ -254,7 +266,7 @@ Phases (any failure exits non-zero):
    every round's status, the counts by kind, each aggregate within 1e-5 of the FedAvg of
    the updates accepted exactly once, B1 at C = that count;
    ``scripts/multihost_harness_torch.py`` with gloo ranks on the card: (y3) ``smoke``,
-   2 ranks against 1 within 5e-5, beside (y1) and (y2); then (y4) ``hostchaos`` with a planned ``host_crash`` (2
+   2 ranks against 1 within 5e-5; then (y4) ``hostchaos`` with a planned ``host_crash`` (2
    ranks, 6 rounds, blocks of 2, a rejoin): detection, recovery and start-up seconds,
    rounds lost, the parity gap, orphans; (y5) a short ``bench``.  Every rank's launches
    join the kernels line.
@@ -276,7 +288,7 @@ Phases (any failure exits non-zero):
    a round at C = 8), both run and both are removed; (z5) ``nanofed-tpu-torch
    loadtest`` and ``tenants`` through ``cli.main`` (exit 0, the artifacts parse), and
    ``scripts/multihost_harness_torch.py federate`` on 2 gloo ranks sharing the card
-   (run beside (o)-(r) and the cross-check of part 4: it times nothing), every host's params within
+   (it times nothing), every host's params within
    1e-5 of the numpy replay of the drained rounds.
    Then the heterogeneous fleet (phase (fl), ``nanofed_tpu_torch.fleet``): (fl1) the
    ``base`` transformer (P = 97,745,408) behind ``HTTPServer(fleet=FleetGateway(
@@ -322,11 +334,11 @@ Phases (any failure exits non-zero):
    SCAFFOLD rounds from zero controls (params within 1e-4, the controls within 1e-4
    over K * eta, the factor (x - y) / (K * eta) multiplies the params' error by);
    then (v6) a tiny transformer's adapter round (vocab 256, seq 32, width 64, depth 2,
-   rank 4) within 1e-4.  Beside (o)-(r) and it run (w4)'s ``torchrun`` run and (z5)'s
-   ``federate``.
+   rank 4) within 1e-4.
 
-The last lines are the whole script's wall time, the kernels' JSON record, the card's
-name and power limit, and ``{"ok": true, "device": {...}}``.
+The last lines are the whole script's wall time, the seconds of each phase and of each
+run beside (o)-(r) from its start, the kernels' JSON record, the card's name and power
+limit, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -340,6 +352,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -385,7 +398,9 @@ TOL = dict(rtol=1e-5, atol=1e-4)
 CROSS_TOL = 1e-4  # cuDNN vs CPU convolutions summed in another order, 4 SGD steps, TF32 off
 EPILOGUE_CLIENTS = 64  # the epilogue table's C (tuning.epilogues.DEFAULT_EPILOGUE_CLIENTS)
 TUNED_CHUNKS = (None, 125, 250)  # (i): the flagship sweep's pinned client_chunk axis
-TUNED_BATCHES = (32, 64)  # (i): and its batch-size axis
+# (i): and its batch-size axis (32 and 64 until 2026: 64 alone halves the sweep, to fit
+# the script's time limit; the chunk axis still ranks three candidates).
+TUNED_BATCHES = (64,)
 # (i): the autotuned runner's samples a client.  Its default space sweeps 3-round blocks
 # beside single rounds, and the profiler runs every candidate 5 times.
 RUNNER_SAMPLES = 128
@@ -394,6 +409,13 @@ FLAGSHIP = dict(num_clients=1000, num_rounds=2, local_epochs=2, batch_size=64,
 TRIM_K = 5  # (e): trimmed mean over the 100-client cohort
 RESUME_ROUNDS = 4  # (j): the flagship run resumed after 2 of its 4 rounds
 RESUME_TOL = 1e-4  # (j), (k): a resumed run against the uninterrupted one on the card
+# Kernel timing: the kernel table's medians of 30 runs, each after a 256 MB L2 flush, come
+# from scripts/time_reduce_kernels.py and scripts/time_quantize_kernels.py, which call
+# this file's timing functions at TABLE_REPS.  Phase 2 times the same shapes briefly, for
+# the JSON record of this run (reduced from 30 runs in 2026: the whole script had grown
+# past its time limit).
+TABLE_REPS = 30
+SMOKE_REPS = 5
 
 
 def fail(msg: str) -> None:
@@ -409,7 +431,7 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def median_ms(fn, torch, reps: int = 30, warmup: int = 5, hide_host_ms: float = 0.0,
+def median_ms(fn, torch, reps: int = TABLE_REPS, warmup: int = 5, hide_host_ms: float = 0.0,
               flush: str = "write", prep=None) -> float:
     """Median time of ``fn`` on the card, each run timed alone with CUDA events.  Before
     each run ``flush`` empties the 50 MB L2 of the inputs: ``"write"`` overwrites a
@@ -474,12 +496,37 @@ def check_close(torch, name: str, got, want, **tol) -> float:
 
 
 def phase_kernels(torch, ops, card: str) -> dict[str, dict]:
-    """Hold B1 (all forms), B3 and B2 against their plain versions, on ragged shapes
-    and on the edges of B1/B2's launch plan; check that B1/B2 give the same bits
-    twice; time them at every C the main path launches them with.  Returns the
+    """B1 (all forms), B3 and B2 at every C the main path launches them with, each held
+    against its plain version and then timed briefly (``SMOKE_REPS``).  Returns the
     per-kernel record of the main path's shape (the 125-client chunk for B1 and B3,
-    the 1000-client validated round for B2)."""
+    the 1000-client validated round for B2).  Their ragged, edge and bit checks are
+    :func:`check_reduce_kernels`'s."""
     gen = torch.Generator(device="cuda").manual_seed(0)
+    records = time_reduce(torch, ops, card, gen, reps=SMOKE_REPS)
+    for c in (2, 25, 100, 125):  # tutorial, (d)/(l) chunks, (m) cohort, flagship chunk
+        x = round_layout(torch, c, P_MNIST, seed=c)
+        err = check_close(torch, "row_sq_norms", ops.row_sq_norms(x), ops.row_sq_norms_plain(x),
+                          **TOL)
+        ms = median_ms(lambda: ops.row_sq_norms(x), torch, reps=SMOKE_REPS)
+        plain_ms = median_ms(lambda: ops.row_sq_norms_plain(x), torch, reps=SMOKE_REPS)
+        library_ms = median_ms(lambda: torch.linalg.vecdot(x, x), torch, reps=SMOKE_REPS)
+        sq_ms = median_ms(lambda: x.square().sum(1), torch, reps=SMOKE_REPS)
+        b_ms, b_by = bound_ms(4 * c * P_MNIST + 4 * c, 2 * c * P_MNIST)
+        print(f"[{card}] row_sq_norms C={c} P={P_MNIST}: kernel_ms={ms:.6f} "
+              f"plain_ms={plain_ms:.6f} library_ms={library_ms:.6f} "
+              f"(torch.linalg.vecdot(x, x)) bound_ms={b_ms:.6f} ({b_by}) "
+              f"max_abs_err={err:.3e}; x.square().sum(1) ms={sq_ms:.6f} "
+              f"{row_sq_plan_line(torch, x)}")
+        if c == 125:
+            records["row_sq_norms"] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                                           bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+    return records
+
+
+def check_reduce_kernels(torch, ops, gen) -> None:
+    """Hold B1 (all forms), B3 and B2 against their plain versions, on ragged shapes
+    and on the edges of B1/B2's and B3's launch plans; check that each gives the same
+    bits twice."""
 
     def rand(*shape):
         return torch.randn(*shape, device="cuda", generator=gen)
@@ -502,26 +549,6 @@ def phase_kernels(torch, ops, card: str) -> dict[str, dict]:
     check_row_sq_edges(torch, ops, gen)
     check_row_sq_determinism(torch, ops, gen)
     print(f"kernels: B3's edge and bit checks took {time.perf_counter() - t0:.3f} s")
-
-    records = time_reduce(torch, ops, card, gen)
-    for c in (2, 25, 100, 125):  # tutorial, (d)/(l) chunks, (m) cohort, flagship chunk
-        x = round_layout(torch, c, P_MNIST, seed=c)
-        err = check_close(torch, "row_sq_norms", ops.row_sq_norms(x), ops.row_sq_norms_plain(x),
-                          **TOL)
-        ms = median_ms(lambda: ops.row_sq_norms(x), torch)
-        plain_ms = median_ms(lambda: ops.row_sq_norms_plain(x), torch)
-        library_ms = median_ms(lambda: torch.linalg.vecdot(x, x), torch)
-        sq_ms = median_ms(lambda: x.square().sum(1), torch)
-        b_ms, b_by = bound_ms(4 * c * P_MNIST + 4 * c, 2 * c * P_MNIST)
-        print(f"[{card}] row_sq_norms C={c} P={P_MNIST}: kernel_ms={ms:.6f} "
-              f"plain_ms={plain_ms:.6f} library_ms={library_ms:.6f} "
-              f"(torch.linalg.vecdot(x, x)) bound_ms={b_ms:.6f} ({b_by}) "
-              f"max_abs_err={err:.3e}; x.square().sum(1) ms={sq_ms:.6f} "
-              f"{row_sq_plan_line(torch, x)}")
-        if c == 125:
-            records["row_sq_norms"] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                                           bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
-    return records
 
 
 def check_weight_cases(torch, ops, x, w, gen, tag: str) -> int:
@@ -741,8 +768,10 @@ TIMED_REDUCES = (
 )
 
 
-def time_reduce(torch, ops, card: str, gen, show_plan: bool = True) -> dict[str, dict]:
-    """Time B1/B2 at each of ``TIMED_REDUCES`` (P = 1,199,882): the kernel, its plain
+def time_reduce(torch, ops, card: str, gen, show_plan: bool = True,
+                reps: int = TABLE_REPS) -> dict[str, dict]:
+    """Time B1/B2 at each of ``TIMED_REDUCES`` (P = 1,199,882), medians of ``reps``
+    runs: the kernel, its plain
     version, one library call computing the same function where there is one, and the
     bound; with ``show_plan`` also the launch plan, ``ptxas``'s registers and the
     blocks an SM holds.  Returns the JSON records (B1 at C=125, B2 at C=1000).  B2's
@@ -791,11 +820,11 @@ def time_reduce(torch, ops, card: str, gen, show_plan: bool = True) -> dict[str,
                               ops.weighted_sum_into_plain(torch.zeros_like(acc), x, w), **TOL)
         else:
             err = check_close(torch, f"{form} C={c}", kernel(), plain(), **TOL)
-        ms, plain_ms = median_ms(kernel, torch), median_ms(plain, torch)
-        library_ms = median_ms(library, torch) if library else None
+        ms, plain_ms = median_ms(kernel, torch, reps=reps), median_ms(plain, torch, reps=reps)
+        library_ms = median_ms(library, torch, reps=reps) if library else None
         b_ms, b_by = bound
         if sanitized:
-            yard_ms = median_ms(lambda: coefs @ finite, torch)
+            yard_ms = median_ms(lambda: coefs @ finite, torch, reps=reps)
             lib_note = (f"library_ms=None yardstick_ms={yard_ms:.6f} (coefs @ x on a finite "
                         "x: the same bytes, not the same function)")
         else:
@@ -911,17 +940,29 @@ def fixed_point_inputs(torch, n: int, frac_bits: int, gen, specials: bool = True
 
 
 def phase_quantize(torch, ops, card: str) -> dict[str, dict]:
+    """Time, briefly (``SMOKE_REPS``), the floor of a 1.2M-word pass, B5 and B6 at that
+    size and B7 there for each of ``TIMED_MASK_KS``, each held bit for bit against its
+    plain version (B7 against the host's Philox streams up to k = 14).  Their ragged,
+    edge and bit checks are :func:`check_quantize_kernels`'s."""
+    import numpy as np
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    time_floor(torch, ops, card, reps=SMOKE_REPS)
+    records = time_fixed_point(torch, ops, card, gen, reps=SMOKE_REPS)
+    records["add_mask"] = time_masks(torch, ops, card, np.random.default_rng(11),
+                                     reps=SMOKE_REPS, plain_reps=1)[MASK_RECORD_K]
+    return records
+
+
+def check_quantize_kernels(torch, ops, gen) -> None:
     """Hold B5, B6 and B7 bit for bit against their plain versions (ragged P, unaligned
     starts, ties, saturation, both signs), B7 also with k seeds a launch; check B7's
     stream against numpy's Philox at P = 1,199,882, one seed and eight; hold B5 and B6
-    on the edges of their launch plan and twice for the same bits; time the floor of a
-    1.2M-word pass, B5 and B6 at that size, and B7 there for each of
-    ``TIMED_MASK_KS``."""
+    on the edges of their launch plan and twice for the same bits."""
     import numpy as np
 
     from nanofed_tpu_torch.security.secure_agg import _fold_seed_words, _prg_uint32
 
-    gen = torch.Generator(device="cuda").manual_seed(11)
     rng = np.random.default_rng(11)
     cases = 0
     for n in (1, 3, 5, 1000, 1027, P_MNIST):
@@ -963,10 +1004,6 @@ def phase_quantize(torch, ops, card: str) -> dict[str, dict]:
 
     check_fixed_point_edges(torch, ops, gen)
     check_fixed_point_determinism(torch, ops, gen)
-    time_floor(torch, ops, card)
-    records = time_fixed_point(torch, ops, card, gen)
-    records["add_mask"] = time_masks(torch, ops, card, rng)[MASK_RECORD_K]
-    return records
 
 
 # Units of the 16-byte path (words of the single-word path, over 4) a block covers in
@@ -1059,7 +1096,7 @@ def check_fixed_point_determinism(torch, ops, gen) -> None:
     print(f"kernels: B5 and B6 give the same bits twice at n = {sizes[0]} and {sizes[1]}")
 
 
-def time_floor(torch, ops, card: str) -> dict:
+def time_floor(torch, ops, card: str, reps: int = TABLE_REPS) -> dict:
     """The floor of a 1.2M-word pass under this script's timing, at P = 1,199,882: an
     empty launch (``torch.cuda._sleep(0)``) and a same-bytes copy yardstick
     (``out.copy_(x)`` of 4.8 MB of float32, the least time the card's own copy path
@@ -1075,8 +1112,9 @@ def time_floor(torch, ops, card: str) -> dict:
     b_ms, _ = bound_ms(8 * p, 0)
     floor = {}
     for flush in ("write", "read", "none"):
-        empty = median_ms(lambda: torch.cuda._sleep(0), torch, flush=flush, hide_host_ms=0.5)
-        copy = median_ms(lambda: out.copy_(x), torch, flush=flush, hide_host_ms=0.5,
+        empty = median_ms(lambda: torch.cuda._sleep(0), torch, reps=reps, flush=flush,
+                          hide_host_ms=0.5)
+        copy = median_ms(lambda: out.copy_(x), torch, reps=reps, flush=flush, hide_host_ms=0.5,
                          prep=(lambda: x.copy_(x0)) if flush == "none" else None)
         floor[flush] = dict(empty_launch_ms=empty, copy_ms=copy, floor_ms=max(empty, copy))
         print(f"[{card}] floor P={p} flush={flush}: empty_launch_ms={empty:.6f} "
@@ -1087,8 +1125,8 @@ def time_floor(torch, ops, card: str) -> dict:
         xs = round_layout(torch, c, p, seed=c + 1)
         w = torch.rand(c, device="cuda") + 0.5
         call = lambda: ops.weighted_mean_flat(xs, w)  # noqa: E731
-        hide = 2 * host_ms(call, torch) + 0.5
-        times = {flush: median_ms(call, torch, flush=flush, hide_host_ms=hide)
+        hide = 2 * host_ms(call, torch, reps=reps) + 0.5
+        times = {flush: median_ms(call, torch, reps=reps, flush=flush, hide_host_ms=hide)
                  for flush in ("write", "read", "none")}
         floor[f"weighted_mean_flat C={c}"] = times
         print(f"[{card}] floor weighted_mean_flat C={c} P={p}: write_flush_ms="
@@ -1115,7 +1153,7 @@ def fixed_point_plan_line(torch, dequantize: bool, plan) -> str:
             f"registers={regs}")
 
 
-def time_fixed_point(torch, ops, card: str, gen) -> dict[str, dict]:
+def time_fixed_point(torch, ops, card: str, gen, reps: int = TABLE_REPS) -> dict[str, dict]:
     """B5 and B6 at P = 1,199,882 on 16-byte-aligned vectors, as the secure round
     allocates them: the wrapper's call after the table's write flush (``ms``, as every
     kernel is timed), and with the host's work hidden behind a device sleep after the
@@ -1158,13 +1196,13 @@ def time_fixed_point(torch, ops, card: str, gen) -> dict[str, dict]:
     for name, (src, pristine, kernel, plain) in specs.items():
         warm = lambda src=src, pristine=pristine: src.view(torch.int32).copy_(  # noqa: E731
             pristine.view(torch.int32))
-        wrapper_ms = host_ms(kernel, torch)
+        wrapper_ms = host_ms(kernel, torch, reps=reps)
         hide = 2 * wrapper_ms + 0.5
-        ms = median_ms(kernel, torch)
-        kernel_ms = median_ms(kernel, torch, hide_host_ms=hide)
-        read_ms = median_ms(kernel, torch, flush="read", hide_host_ms=hide)
-        warm_ms = median_ms(kernel, torch, flush="none", prep=warm, hide_host_ms=hide)
-        plain_ms = median_ms(plain, torch)
+        ms = median_ms(kernel, torch, reps=reps)
+        kernel_ms = median_ms(kernel, torch, reps=reps, hide_host_ms=hide)
+        read_ms = median_ms(kernel, torch, reps=reps, flush="read", hide_host_ms=hide)
+        warm_ms = median_ms(kernel, torch, reps=reps, flush="none", prep=warm, hide_host_ms=hide)
+        plain_ms = median_ms(plain, torch, reps=reps)
         library_ms, lib_note = None, "none computes the same function"
         lib_name, lib_fn, to_bits = libraries[name]
         try:
@@ -1173,7 +1211,7 @@ def time_fixed_point(torch, ops, card: str, gen) -> dict[str, dict]:
         except (RuntimeError, NotImplementedError) as e:  # a yardstick torch lacks here
             agrees, lib_note = False, f"{lib_name} unavailable: {e}".splitlines()[0]
         if agrees:
-            library_ms, lib_note = median_ms(lib_fn, torch), lib_name
+            library_ms, lib_note = median_ms(lib_fn, torch, reps=reps), lib_name
         elif lib_note.startswith("none"):
             lib_note = f"{lib_name} is not bit-equal to the kernel, so not timed"
         line = (f"[{card}] {name} P={p}: ms={ms:.6f} (the call, write flush) kernel_ms="
@@ -1330,7 +1368,7 @@ def mask_pass(ops, q, seeds, signs, plain: bool = False):
     return q
 
 
-def host_ms(fn, torch, reps: int = 30) -> float:
+def host_ms(fn, torch, reps: int = TABLE_REPS) -> float:
     """The host's time for one call of ``fn`` (median of ``reps`` calls, each timed on
     the host clock without waiting for the card)."""
     fn()
@@ -1344,13 +1382,15 @@ def host_ms(fn, torch, reps: int = 30) -> float:
     return statistics.median(times) * 1e3
 
 
-def time_masks(torch, ops, card: str, rng, ks=TIMED_MASK_KS) -> dict[int, dict]:
+def time_masks(torch, ops, card: str, rng, ks=TIMED_MASK_KS, reps: int = TABLE_REPS,
+               plain_reps: int = 5) -> dict[int, dict]:
     """B7 at P = 1,199,882: a client's masking pass of k seeds for each k of ``ks``,
     timed on the card as the wrapper's call (``ms``, as every kernel is timed), again
     with the host's work hidden (``kernel_ms``, ``median_ms(hide_host_ms=...)``: a pass
     of k single-seed launches costs the host more than the card) and on the host alone,
     beside the function's bound (``mask_bound_ms``) and, up to k = 8, its plain version
-    (5 runs: it is slow); checked against the host's Philox streams up to k = 14.
+    (``plain_reps`` runs: it is slow); checked against the host's Philox streams up to
+    k = 14.
     Prints the compiled key loop's count (``sass_key_loop``) beside the function's, the
     kernel's registers, the blocks an SM holds and the grid.  Returns each k's record."""
     import numpy as np
@@ -1397,11 +1437,11 @@ def time_masks(torch, ops, card: str, rng, ks=TIMED_MASK_KS) -> dict[int, dict]:
                 fail(f"add_mask k={k} at P={P_MNIST}: differs from the host's Philox streams")
             err = 0.0
         call = lambda: mask_pass(ops, q, seeds, signs)  # noqa: E731
-        wrapper_ms = host_ms(call, torch)
-        ms = median_ms(call, torch)
-        kernel_ms = median_ms(call, torch, hide_host_ms=2 * wrapper_ms + 0.5)
+        wrapper_ms = host_ms(call, torch, reps=reps)
+        ms = median_ms(call, torch, reps=reps)
+        kernel_ms = median_ms(call, torch, reps=reps, hide_host_ms=2 * wrapper_ms + 0.5)
         plain_ms = (median_ms(lambda: mask_pass(ops, q, seeds, signs, plain=True), torch,
-                              reps=5, warmup=1) if k <= 8 else None)
+                              reps=plain_reps, warmup=1) if k <= 8 else None)
         b_ms, b_by = mask_bound_ms(P_MNIST, k)
         plain_note = f"{plain_ms:.6f}" if plain_ms is not None else "not measured (k > 8)"
         print(f"[{card}] add_mask k={k} P={P_MNIST}: ms={ms:.6f} (the call) kernel_ms="
@@ -1461,15 +1501,22 @@ def check_dequant_case(torch, ops, q, gen, tag: str, extremes: bool = False) -> 
 
 
 def phase_dequant(torch, ops, card: str) -> dict:
+    """B4 at the epilogue's shapes (C = 64 and 1000, P = 1,199,882), held against its
+    plain version and timed briefly (``SMOKE_REPS``) with its plan.  Returns the record
+    at C = 64, the epilogue table's C.  Its ragged, edge and bit checks are
+    :func:`check_dequant_kernel`'s."""
+    return time_dequant(torch, ops, card, torch.Generator(device="cuda").manual_seed(4),
+                        reps=SMOKE_REPS)
+
+
+def check_dequant_kernel(torch, ops, gen) -> None:
     """Hold B4 against its plain version: ragged P, every int8 load width (a row
     stride and start that allow 16, 8, 4, 2 or 1 bytes), C = 1, 9, 64 and 1000, zero
     weights (exactly ``base``), explicit ``denom`` (float and tensor), the int8
-    extremes, an unaligned ``base``; then on the edges of its launch plan, two launches
-    giving the same bits, and timed with its plan at the epilogue's shapes (C = 64 and
-    1000, P = 1,199,882).  Returns the record at C = 64, the epilogue table's C."""
+    extremes, an unaligned ``base``; then on the edges of its launch plan, and two
+    launches giving the same bits."""
     from nanofed_tpu_torch.ops._common import int8_vector_width
 
-    gen = torch.Generator(device="cuda").manual_seed(4)
     cases, widths = 0, set()
     for c in (1, 9, 64, 1000):
         for p in (1, 2, 3, 15, 16, 17, 31, 1000, 1333, 4097):
@@ -1495,7 +1542,17 @@ def phase_dequant(torch, ops, card: str) -> dict:
           f"weights return base exactly)")
     check_dequant_edges(torch, ops, gen)
     check_dequant_determinism(torch, ops, gen)
-    return time_dequant(torch, ops, card, gen)
+
+
+def phase_kernel_checks(torch, ops, card: str, out_dir: Path) -> dict[str, int]:
+    """Phase 2's checks of B1-B7 against their plain versions, in every form and layout:
+    :func:`check_reduce_kernels`, :func:`check_quantize_kernels` and
+    :func:`check_dequant_kernel`.  They time nothing, so they run beside (o)-(r).  Their
+    launches compare kernels with their plain versions and count for no path."""
+    check_reduce_kernels(torch, ops, torch.Generator(device="cuda").manual_seed(0))
+    check_quantize_kernels(torch, ops, torch.Generator(device="cuda").manual_seed(11))
+    check_dequant_kernel(torch, ops, torch.Generator(device="cuda").manual_seed(4))
+    return {}
 
 
 def check_dequant_edges(torch, ops, gen) -> None:
@@ -1547,7 +1604,7 @@ def check_dequant_determinism(torch, ops, gen) -> None:
           f"P = {P_MNIST}")
 
 
-def time_dequant(torch, ops, card: str, gen) -> dict:
+def time_dequant(torch, ops, card: str, gen, reps: int = TABLE_REPS) -> dict:
     """Time B4 at C = 64 and 1000 (P = 1,199,882, rows padded to 16 bytes, as the
     epilogue table allocates them): the wrapper's call (``ms``, as every kernel is
     timed: the coefficients' small tensor ops and the kernel) and, where the package
@@ -1569,8 +1626,8 @@ def time_dequant(torch, ops, card: str, gen) -> dict:
                           ops.dequant_accumulate_flat(q, s, w, base),
                           ops.dequant_accumulate_flat_plain(q, s, w, base), **TOL)
         call = lambda: ops.dequant_accumulate_flat(q, s, w, base)  # noqa: E731
-        wrapper_ms = host_ms(call, torch)
-        ms = median_ms(call, torch)
+        wrapper_ms = host_ms(call, torch, reps=reps)
+        ms = median_ms(call, torch, reps=reps)
         kernel_ms = None
         if hasattr(quantize, "dequant_launch"):
             out = torch.empty(p, device="cuda")
@@ -1578,9 +1635,10 @@ def time_dequant(torch, ops, card: str, gen) -> dict:
             launch()
             check_close(torch, f"dequant_accumulate_flat C={c} kernel alone", out,
                         ops.dequant_accumulate_flat_plain(q, s, w, base), **TOL)
-            kernel_ms = median_ms(launch, torch, hide_host_ms=2 * wrapper_ms + 0.5)
-        plain_ms = median_ms(lambda: ops.dequant_accumulate_flat_plain(q, s, w, base), torch)
-        yard_ms = median_ms(lambda: torch.addmv(base, q.float().t(), coefs), torch)
+            kernel_ms = median_ms(launch, torch, reps=reps, hide_host_ms=2 * wrapper_ms + 0.5)
+        plain_ms = median_ms(lambda: ops.dequant_accumulate_flat_plain(q, s, w, base), torch,
+                             reps=reps)
+        yard_ms = median_ms(lambda: torch.addmv(base, q.float().t(), coefs), torch, reps=reps)
         b_ms, b_by = bound_ms(c * p + 8 * p + 12 * c, 2 * c * p)
         kernel_note = ("not measured (no dequant_launch)" if kernel_ms is None else
                        f"{kernel_ms:.6f} (the launch alone, host hidden; share_of_bound="
@@ -1755,22 +1813,24 @@ def phase_secure(torch, ops, card: str) -> dict[str, int]:
     data = [host.select(slice(c, c + 1)).to(torch.device("cuda")) for c in range(n)]
     local_fit = make_local_fit(model, TrainingConfig(batch_size=64, local_epochs=1,
                                                      learning_rate=0.1))
-    rounds = 2
+    # Rounds: (g) drops a client from round 1 on, so it runs 2; (f) and (h) ran 2 until
+    # 2026 and run 1 since, to fit the script's time limit (their checks are per round).
     configs = {
         "f_secure": dict(secure=sa.SecureAggregationConfig(min_clients=n),
-                         round=dict(min_clients=n, round_timeout_s=120.0), drop=None),
+                         round=dict(min_clients=n, round_timeout_s=120.0), drop=None,
+                         rounds=1),
         # As run_secure.py --dropout-tolerant --drop-client 7 --drop-round 1 configures it.
         "g_dropout_tolerant": dict(
             secure=sa.SecureAggregationConfig(min_clients=n - 1, dropout_tolerant=True,
                                               threshold=n // 2 + 1),
             round=dict(min_clients=n, min_completion_rate=0.5, round_timeout_s=8.0),
-            drop=n - 1),
+            drop=n - 1, rounds=2),
         "h_plain_network": dict(secure=None, round=dict(min_clients=n, round_timeout_s=120.0),
-                                drop=None),
+                                drop=None, rounds=1),
     }
     totals = dict.fromkeys(ops.launch_counts(), 0)
     for name, cfg in configs.items():
-        secure, drop = cfg["secure"], cfg["drop"]
+        secure, drop, rounds = cfg["secure"], cfg["drop"], cfg["rounds"]
         trained, fetched, spent = {}, {}, {}
 
         async def main():
@@ -2523,24 +2583,22 @@ def print_epilogues(card: str, epilogues: dict) -> None:
               f"ms ({cmp_.get('bytes_accessed_reduction_pct')}% fewer bytes)")
 
 
-def phase_autotune(torch, ops, run_experiment, card: str, out_dir: Path) -> dict[str, int]:
+def phase_autotune(torch, ops, card: str, out_dir: Path) -> dict[str, int]:
     """(i): the autotuned flagship through ``Coordinator.from_autotune`` (held against
-    a hand-built coordinator with the winner's knobs), then the autotuned runner with
-    the online retuner and program profiling.  Returns their launch counts."""
-    from nanofed_tpu_torch.data import federate, load_mnist
+    a hand-built coordinator with the winner's knobs; the autotuned runner is
+    :func:`phase_autotune_runner`'s).  Returns its launch counts."""
     from nanofed_tpu_torch.models import get_model
     from nanofed_tpu_torch.observability.profiling import TIMED_CALLS
     from nanofed_tpu_torch.orchestration import Coordinator, CoordinatorConfig, RoundStatus
     from nanofed_tpu_torch.trainer import TrainingConfig
-    from nanofed_tpu_torch.tuning import AutotuneResult, TuningSpace
+    from nanofed_tpu_torch.tuning import TuningSpace
     from nanofed_tpu_torch.utils.trees import ravel
 
     calls = 2 + TIMED_CALLS  # the profiler's first, counting and timed calls
     cfg = FLAGSHIP
     n = cfg["num_clients"]
     model = get_model("mnist_cnn")
-    data = federate(load_mnist("train", None, synthetic_size=cfg["train_size"]),
-                    num_clients=n, batch_size=cfg["batch_size"], seed=0)
+    data = flagship_data()
     training = TrainingConfig(batch_size=cfg["batch_size"], local_epochs=cfg["local_epochs"],
                               learning_rate=cfg["learning_rate"],
                               compute_dtype=cfg["compute_dtype"])
@@ -2593,7 +2651,19 @@ def phase_autotune(torch, ops, run_experiment, card: str, out_dir: Path) -> dict
         fail(f"(i) the autotuned coordinator differs from the hand-built one by {diff}")
     del coord, ref
     torch.cuda.empty_cache()
+    return totals
 
+
+def phase_autotune_runner(torch, ops, card: str, out_dir: Path) -> dict[str, int]:
+    """(i): the autotuned runner with the online retuner and program profiling.  No
+    finding reads its sweep's seconds (the flagship sweep's ranking is PERF.md's), so it
+    runs beside (o)-(r); its winner may differ from one run to the next, and its
+    launches are derived from the winner it wrote.  Returns its launch counts."""
+    from nanofed_tpu_torch import run_experiment
+    from nanofed_tpu_torch.observability.profiling import TIMED_CALLS
+    from nanofed_tpu_torch.tuning import AutotuneResult
+
+    calls = 2 + TIMED_CALLS  # the profiler's first, counting and timed calls
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     summary = run_experiment(model="mnist_cnn", num_clients=SECURE_CLIENTS,
@@ -2628,8 +2698,7 @@ def phase_autotune(torch, ops, run_experiment, card: str, out_dir: Path) -> dict
         chunk = int(program.split("_")[1].removeprefix("chunk")) or None
         add_launches(want, step_launches(chunk, SECURE_CLIENTS), measured["rounds"])
     check_launches("(i) runner", grew, want, oom)
-    add_launches(totals, grew)
-    return totals
+    return grew
 
 
 def timed_method(obj, name: str, spent: list[float]) -> None:
@@ -2661,7 +2730,6 @@ def phase_resume(torch, ops, run_experiment, card: str, out_dir: Path) -> dict[s
     ``ConnectionError``; then the runner's lr flags (``run_experiment(lr_schedule=
     "linear")``).  Returns the launch counts."""
     from nanofed_tpu_torch.aggregation import fedavgm_strategy
-    from nanofed_tpu_torch.data import federate, load_mnist
     from nanofed_tpu_torch.models import get_model
     from nanofed_tpu_torch.orchestration import Coordinator, CoordinatorConfig, RoundStatus
     from nanofed_tpu_torch.persistence import (
@@ -2675,8 +2743,7 @@ def phase_resume(torch, ops, run_experiment, card: str, out_dir: Path) -> dict[s
     cfg, rounds, chunk = FLAGSHIP, RESUME_ROUNDS, 125
     n = cfg["num_clients"]
     model = get_model("mnist_cnn")
-    data = federate(load_mnist("train", None, synthetic_size=cfg["train_size"]),
-                    num_clients=n, batch_size=cfg["batch_size"], seed=0)
+    data = flagship_data()
     training = TrainingConfig(batch_size=cfg["batch_size"], local_epochs=cfg["local_epochs"],
                               learning_rate=cfg["learning_rate"],
                               compute_dtype=cfg["compute_dtype"])
@@ -2911,19 +2978,17 @@ def run_validated(out_dir: Path) -> dict:
     """(c): the flagship through ``Coordinator(validation=ValidationConfig())`` (the
     runner takes no validation flag, in either package), built as ``run_experiment``
     builds it."""
-    from nanofed_tpu_torch.data import federate, load_mnist, pack_eval
+    from nanofed_tpu_torch.data import load_mnist, pack_eval
     from nanofed_tpu_torch.models import get_model
     from nanofed_tpu_torch.orchestration import Coordinator, CoordinatorConfig, RoundStatus
     from nanofed_tpu_torch.security import ValidationConfig
     from nanofed_tpu_torch.trainer import TrainingConfig
 
     cfg = FLAGSHIP
-    train = load_mnist("train", None, synthetic_size=cfg["train_size"])
     test = load_mnist("test", None, synthetic_size=cfg["train_size"] // 6)
     coordinator = Coordinator(
         model=get_model("mnist_cnn"),
-        train_data=federate(train, num_clients=cfg["num_clients"],
-                            batch_size=cfg["batch_size"], seed=0),
+        train_data=flagship_data(),
         config=CoordinatorConfig(num_rounds=cfg["num_rounds"], seed=0, base_dir=out_dir),
         training=TrainingConfig(batch_size=cfg["batch_size"], local_epochs=cfg["local_epochs"],
                                 learning_rate=cfg["learning_rate"],
@@ -2958,16 +3023,19 @@ def dp_config(num_clients: int, cohort: int, rounds: int):
 
 
 def phase_slice(torch, ops, run_experiment, card: str, out_dir: Path,
-                keep: dict | None = None) -> dict[str, int]:
-    """Drive the port's entry points on the card in five configurations; return the
-    kernels' launch counts over all of them (each summary into ``keep``)."""
+                keep: dict | None = None, names=("a_tutorial_parity", "b_flagship",
+                                                 "c_validated")) -> dict[str, int]:
+    """Drive the port's entry points on the card in the configurations ``names`` of
+    five ((d) and (e) time nothing and run beside (o)-(r): :func:`phase_slice_guarded`);
+    return the kernels' launch counts over them (each summary into ``keep``)."""
     from nanofed_tpu_torch.orchestration import cohort_size
 
     n, rounds = FLAGSHIP["num_clients"], FLAGSHIP["num_rounds"]
     cohort = cohort_size(n, 0.1)
     sigma, central_privacy = dp_config(n, cohort, rounds)
-    print(f"[{card}] (d) central DP: sigma={sigma} (eps=2.0, delta=1e-5, q={cohort}/{n}, "
-          f"{rounds} rounds, clip 1.0)")
+    if "d_central_dp" in names:
+        print(f"[{card}] (d) central DP: sigma={sigma} (eps=2.0, delta=1e-5, q={cohort}/{n}, "
+              f"{rounds} rounds, clip 1.0)")
     configs = {
         "a_tutorial_parity": dict(
             num_clients=2, num_rounds=1, local_epochs=2, batch_size=64, learning_rate=0.1,
@@ -2994,7 +3062,8 @@ def phase_slice(torch, ops, run_experiment, card: str, out_dir: Path,
         "e_robust_trimmed_mean": {"row_sq_norms": 2},
     }
     totals = dict.fromkeys(ops.launch_counts(), 0)
-    for name, cfg in configs.items():
+    for name in names:
+        cfg = configs[name]
         want = {k: expected[name].get(k, 0) for k in totals}
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launch_counts()
@@ -3031,6 +3100,14 @@ def phase_slice(torch, ops, run_experiment, card: str, out_dir: Path,
     return totals
 
 
+def phase_slice_guarded(torch, ops, card: str, out_dir: Path) -> dict[str, int]:
+    """(d) central DP and (e) the trimmed mean through ``run_experiment``."""
+    from nanofed_tpu_torch import run_experiment
+
+    return phase_slice(torch, ops, run_experiment, card, out_dir,
+                       names=("d_central_dp", "e_robust_trimmed_mean"))
+
+
 def check_guarded(name: str, summary: dict, out_dir: Path, card: str) -> None:
     """What each guarded configuration must report."""
     train = summary["final_train_metrics"]
@@ -3058,6 +3135,9 @@ def check_guarded(name: str, summary: dict, out_dir: Path, card: str) -> None:
 
 
 DP_CHUNK = 25  # (l): a chunk's per-example gradients are 25 x 64 x P floats, 7.7 GB
+# (l): the DP-SGD flagship's rounds (the flagship's 2 until 2026, cut to fit the script's
+# time limit: round 0 read the same as round 1, 5.01 and 4.99 s on the H100).
+DP_ROUNDS = 1
 DP_PRIVACY = dict(noise_multiplier=1.1, max_gradient_norm=1.0)  # (l)
 DP_STABLE_CLIENTS = 100  # (l): the cohort whose round must not depend on client_chunk
 DP_STABLE_CHUNKS = (25, 50)
@@ -3070,14 +3150,21 @@ SCAFFOLD_RESUME_CLIENTS = 100  # (m): the resumed population, a 0.5 GB control s
 TUTORIAL_SAMPLES = 16_000  # (n): the tutorial's two clients, 12k + 4k samples
 
 
+_POPULATIONS: dict[int, object] = {}
+
+
 def flagship_data(num_clients: int | None = None):
-    """The flagship's population on the host: 60 synthetic MNIST samples a client."""
+    """The flagship's population on the host: 60 synthetic MNIST samples a client.  It
+    is built once a process for each size and shared: the phases only read it, and each
+    coordinator places its own copy on the card."""
     from nanofed_tpu_torch.data import federate, load_mnist
 
     num_clients = num_clients or FLAGSHIP["num_clients"]
-
-    return federate(load_mnist("train", None, synthetic_size=60 * num_clients),
-                    num_clients=num_clients, batch_size=FLAGSHIP["batch_size"], seed=0)
+    if num_clients not in _POPULATIONS:
+        _POPULATIONS[num_clients] = federate(
+            load_mnist("train", None, synthetic_size=60 * num_clients),
+            num_clients=num_clients, batch_size=FLAGSHIP["batch_size"], seed=0)
+    return _POPULATIONS[num_clients]
 
 
 def flagship_training(**kwargs):
@@ -3107,7 +3194,7 @@ def counted(torch, ops, card: str, tag: str, run, want: dict):
 
 def phase_dp(torch, ops, card: str, out_dir: Path) -> dict[str, int]:
     """(l): DP-SGD clients at the flagship's shape through ``Coordinator(local_fit=
-    make_private_local_fit(...))``, ``client_chunk=25``, 2 rounds, with each client's
+    make_private_local_fit(...))``, ``client_chunk=25``, ``DP_ROUNDS``, with each client's
     accountant; then per-example clipping, the noise and client stability on the card.
     Returns the coordinator run's launch counts."""
     from nanofed_tpu_torch.aggregation import fedavg_strategy
@@ -3131,7 +3218,7 @@ def phase_dp(torch, ops, card: str, out_dir: Path) -> dict[str, int]:
     )
     from nanofed_tpu_torch.utils.trees import ravel, tree_size
 
-    n, rounds = FLAGSHIP["num_clients"], FLAGSHIP["num_rounds"]
+    n, rounds = FLAGSHIP["num_clients"], DP_ROUNDS
     model = get_model("mnist_cnn")
     host = flagship_data()
     training = flagship_training()
@@ -3395,6 +3482,14 @@ def phase_scaffold(torch, ops, run_experiment, card: str, out_dir: Path):
     return totals, final_params, host
 
 
+def phase_scaffold_trainer(torch, ops, run_experiment, card: str,
+                           out_dir: Path) -> dict[str, int]:
+    """(m), then (n) over (m)'s model and population.  Returns (m)'s launch counts."""
+    totals, params, population = phase_scaffold(torch, ops, run_experiment, card, out_dir)
+    phase_trainer(torch, ops, card, out_dir, params, population)
+    return totals
+
+
 def phase_trainer(torch, ops, card: str, out_dir: Path, global_params, population) -> None:
     """(n): ``Trainer.fit`` with a ``MetricsLogger`` on the tutorial client against
     ``make_local_fit`` run directly, bit for bit; then the personalized evaluator over
@@ -3462,9 +3557,13 @@ def phase_trainer(torch, ops, card: str, out_dir: Path, global_params, populatio
         fail("(n) personalized accuracies outside [0, 1]")
 
 
-FUSED_RPB = 4  # (s): rounds per block
-FUSED_ROUNDS = 8  # (s1), (s3): two blocks of the flagship
-FUSED_COHORT_ROUNDS = 4  # (s2): one block
+# (s): rounds per block, and (s1), (s3)'s two blocks of the flagship.  Blocks of 4 and
+# 8 rounds until 2026, cut to 2 and 4 to fit the script's time limit: (s1) still holds
+# a fused run of two blocks against single rounds, and (s3) checks one block's dispatch
+# and profiles the other.
+FUSED_RPB = 2
+FUSED_ROUNDS = 4
+FUSED_COHORT_ROUNDS = 2  # (s2): one block (4 until 2026)
 FUSED_MEMORY_RTOL = 0.01  # (s1): a fused run's peak device memory against a single one's
 
 
@@ -3531,9 +3630,9 @@ def device_profile(torch, call) -> tuple[object, float, float, list[tuple[str, f
 
 
 def phase_fused(torch, ops, card: str, out_dir: Path) -> dict[str, int]:
-    """(s): fused multi-round blocks.  (s1) the flagship at ``rounds_per_block=4`` (two
-    blocks) and at 1, 8 rounds each, a second fused run for the run-to-run gap; (s2) a
-    validated 10% cohort with dropout as one block against single rounds, and a block
+    """(s): fused multi-round blocks.  (s1) the flagship at ``FUSED_RPB`` (two blocks)
+    and at 1, ``FUSED_ROUNDS`` rounds each, a second fused run for the run-to-run gap;
+    (s2) a validated 10% cohort with dropout as one block against single rounds, and a block
     resampling its cohorts on the device through ``build_round_block``; (s3) the
     synchronizing operations inside a block's dispatch (``set_sync_debug_mode``) and
     the device's busy share of one block (``torch.profiler``), both in the second
@@ -3713,6 +3812,9 @@ def phase_fused(torch, ops, card: str, out_dir: Path) -> dict[str, int]:
 
 
 CIFAR_TOL = 1e-4  # (t4): cuDNN vs CPU convolutions and GroupNorm summed in another order
+# (t2): cross_silo's rounds, its benchmark's 2 reduced to 1 in 2026 to fit the script's
+# time limit (a ResNet-18 f32 round takes 13.6 s; round 0 read the same as round 1).
+CIFAR_SILO_ROUNDS = 1
 CIFAR_BOUNDED_S = 90.0  # (t2): the phase's wall above which the data would be cut
 P_RESNET8, P_RESNET18 = 77_850, 11_218_340
 # (t5): B1 normalised and B3 at each new shape: (C, P) of fedprox_cifar10's cohort and
@@ -3749,9 +3851,9 @@ def phase_cifar(torch, ops, card: str, out_dir: Path) -> dict[str, int]:
     bench fedprox_cifar10`` (``cli.main``); (t2) ``run_benchmark("cross_silo")`` with
     ResNet-18 at full width, its peak device memory, and one round step profiled
     (counted FLOPs, top kernels); (t3) the same configuration in bf16 through the command
-    line, 1 round; (t4) a ResNet-8 round and a narrow ResNet-18's forward and gradient,
-    card against CPU; (t5) B1 and B3 timed at the two new shapes.  Returns the main
-    paths' launch counts."""
+    line, 1 round; (t5) B1 and B3 timed at the two new shapes ((t4) times nothing and
+    runs beside (o)-(r): :func:`phase_cifar_cross_check`).  Returns the main paths'
+    launch counts."""
     from nanofed_tpu_torch import cli
     from nanofed_tpu_torch.aggregation import fedavg_strategy
     from nanofed_tpu_torch.benchmarks import BENCHMARKS, run_benchmark
@@ -3785,7 +3887,7 @@ def phase_cifar(torch, ops, card: str, out_dir: Path) -> dict[str, int]:
           f"{summary['round_durations_s']} rounds_per_sec={summary['rounds_per_sec']} "
           f"eval_loss={ev['loss']} eval_accuracy={ev['accuracy']}")
 
-    # (t2) cross_silo: ResNet-18 on CIFAR-100 at full width, 8 clients, 2 rounds, f32.
+    # (t2) cross_silo: ResNet-18 on CIFAR-100 at full width, 8 clients, f32 (CIFAR_SILO_ROUNDS).
     silo = BENCHMARKS["cross_silo"]
     gc.collect()
     torch.cuda.synchronize()
@@ -3794,12 +3896,13 @@ def phase_cifar(torch, ops, card: str, out_dir: Path) -> dict[str, int]:
     t0 = time.perf_counter()
     summary, wall, grew = counted(
         torch, ops, card, "(t2) run_benchmark cross_silo",
-        lambda: run_benchmark("cross_silo", out_dir=str(base / "silo"), device="cuda"),
-        {"weighted_mean_flat": silo["num_rounds"], "row_sq_norms": silo["num_rounds"]})
+        lambda: run_benchmark("cross_silo", out_dir=str(base / "silo"), device="cuda",
+                              num_rounds=CIFAR_SILO_ROUNDS),
+        {"weighted_mean_flat": CIFAR_SILO_ROUNDS, "row_sq_norms": CIFAR_SILO_ROUNDS})
     silo_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() - start_bytes
     add_launches(totals, grew)
-    check_summary("(t2)", summary, silo["num_rounds"])
+    check_summary("(t2)", summary, CIFAR_SILO_ROUNDS)
     durations = summary["round_durations_s"]
     ev = summary["final_eval_metrics"]
     print(f"[{card}] (t2) cross_silo (resnet18, P={P_RESNET18}, 8 clients of 6,250 "
@@ -3866,13 +3969,12 @@ def phase_cifar(torch, ops, card: str, out_dir: Path) -> dict[str, int]:
     if abs(first["silo_bf16"]["loss"] - first["silo"]["loss"]) > 0.1 * first["silo"]["loss"]:
         fail("(t3) the bf16 round's training loss is more than 10% from the f32 round's")
 
-    phase_cifar_cross_check(torch, ops, card)
     time_cifar_reduces(torch, ops, card)
     print(f"[{card}] (t) phase wall_s={time.perf_counter() - t_phase:.3f}")
     return totals
 
 
-def phase_cifar_cross_check(torch, ops, card: str) -> None:
+def phase_cifar_cross_check(torch, ops, card: str, out_dir: Path) -> dict[str, int]:
     """(t4): a ResNet-8 round of 8 clients (f32, 2 epochs of 2 steps) and a narrow
     ResNet-18 (stages 8/16/32/64, 2 blocks each) forward and masked-NLL gradient, from
     the same inputs on the card and on the CPU: the stride-2 SAME convolutions and
@@ -3937,6 +4039,7 @@ def phase_cifar_cross_check(torch, ops, card: str) -> None:
           f"max|dlogp|={fwd:.3e} max|dgrad|={grad:.3e} (tolerance {CIFAR_TOL})")
     if not (fwd <= CIFAR_TOL and grad <= CIFAR_TOL):
         fail("(t4) the narrow ResNet-18 on the card disagrees with the CPU")
+    return {}  # a cross-check: its launches count for no path
 
 
 def time_cifar_reduces(torch, ops, card: str) -> None:
@@ -3971,9 +4074,14 @@ def time_cifar_reduces(torch, ops, card: str) -> None:
         torch.cuda.empty_cache()
 
 
-OBS_ROUNDS = 4  # (u1): single flagship rounds with telemetry
-OBS_FUSED_ROUNDS = 8  # (u1): two blocks at rounds_per_block = FUSED_RPB
-OBS_TIMED_ROUNDS = 3  # (u1): timed rounds a coordinator, after its warm round
+# (u1): single flagship rounds with telemetry (4 until 2026, cut to fit the script's time
+# limit: the span and record checks are per round).
+OBS_ROUNDS = 2
+OBS_FUSED_ROUNDS = 2 * FUSED_RPB  # (u1): two blocks at rounds_per_block = FUSED_RPB
+# (u1): timed rounds a coordinator, after its warm round (3 until 2026: the on/off
+# medians now take 4 rounds a side, where they took 6).
+OBS_TIMED_ROUNDS = 2
+OBS_NETWORK_ROUNDS = 1  # (u3): rounds of (h)'s network round with metrics (2 until 2026)
 OCCUPANCY_SLACK = 0.02  # (u1): span occupancy may exceed the profiler's busy share by this
 SINGLE_SPANS = [("cohort-sample", 1, "round"), ("cohort-gather", 1, "round"),
                 ("local-train", 1, "round"), ("aggregate", 1, "round"), ("round", 0, None),
@@ -4047,45 +4155,36 @@ def prom_value(text: str, sample: str) -> float | None:
     return None
 
 
-def phase_observability(torch, ops, card: str, out_dir: Path) -> dict[str, int]:
-    """(u): observability.  (u1) the flagship with ``telemetry_dir``: 4 single rounds,
-    then 8 rounds at ``rounds_per_block=4`` (the first block's dispatch under the
-    sync check, the second block under ``torch.profiler``), the spans' names and
-    nesting, the ``round`` records, ``summarize_telemetry``, the occupancy gauge on
-    both bases, and the round with telemetry off and on, interleaved; (u2) one
-    flagship round inside ``utils.profiling.trace``; (u3) (h)'s plain network round with
-    the server's ``registry=`` and ``tracer=``, clients' ``registry=`` and the network
-    coordinator's ``telemetry_dir=``: ``GET /metrics``, bytes and trace ids; (u4) the
-    kernel-build manifest; (u5) ``run --telemetry-dir``, then ``metrics-summary`` and
-    ``trace`` on it.  Returns the launch counts."""
-    import aiohttp
-
-    from nanofed_tpu_torch import cli
-    from nanofed_tpu_torch import communication as comm
-    from nanofed_tpu_torch import observability as obs
-    from nanofed_tpu_torch.data import federate, load_mnist
+def obs_coordinator(base: Path, name: str, rounds_per_block: int, num_rounds: int,
+                    telemetry: bool):
+    """(u)'s flagship coordinator, with ``telemetry_dir`` when ``telemetry``."""
     from nanofed_tpu_torch.models import get_model
-    from nanofed_tpu_torch.ops import _build
-    from nanofed_tpu_torch.orchestration import Coordinator, CoordinatorConfig, RoundStatus
-    from nanofed_tpu_torch.security import secure_agg as sa
-    from nanofed_tpu_torch.trainer import TrainingConfig, make_local_fit
-    from nanofed_tpu_torch.tuning import compile_cache
-    from nanofed_tpu_torch.utils import profiling as uprof
+    from nanofed_tpu_torch.orchestration import Coordinator, CoordinatorConfig
+
+    return Coordinator(
+        get_model("mnist_cnn"), flagship_data(),
+        CoordinatorConfig(num_rounds=num_rounds, seed=0, base_dir=base / name,
+                          save_metrics=False, rounds_per_block=rounds_per_block),
+        flagship_training(), client_chunk=125, device="cuda",
+        telemetry_dir=base / name / "telemetry" if telemetry else None)
+
+
+def phase_observability(torch, ops, card: str, out_dir: Path) -> dict[str, int]:
+    """(u1): observability on the flagship with ``telemetry_dir``: ``OBS_ROUNDS`` single
+    rounds, then two blocks at ``FUSED_RPB`` (the first block's dispatch under
+    the sync check, the second block under ``torch.profiler``), the spans' names and
+    nesting, the ``round`` records, ``summarize_telemetry``, the occupancy gauge on
+    both bases, and the round with telemetry off and on, interleaved ((u2)-(u5) time
+    nothing and run beside (o)-(r): :func:`phase_observability_entry`).  Returns the
+    launch counts."""
+    from nanofed_tpu_torch import observability as obs
+    from nanofed_tpu_torch.orchestration import RoundStatus
 
     t_phase = time.perf_counter()
     n, chunk, rpb = FLAGSHIP["num_clients"], 125, FUSED_RPB
-    model, data, training = get_model("mnist_cnn"), flagship_data(), flagship_training()
     totals: dict[str, int] = dict.fromkeys(ops.launch_counts(), 0)
     base = out_dir / "u_observability"
     gc.collect()
-
-    def make(name: str, rounds_per_block: int, num_rounds: int, telemetry: bool):
-        return Coordinator(
-            model, data, CoordinatorConfig(num_rounds=num_rounds, seed=0,
-                                           base_dir=base / name, save_metrics=False,
-                                           rounds_per_block=rounds_per_block),
-            training, client_chunk=chunk, device="cuda",
-            telemetry_dir=base / name / "telemetry" if telemetry else None)
 
     def drive(tag: str, coord, rounds: int):
         want: dict[str, int] = {}
@@ -4097,7 +4196,7 @@ def phase_observability(torch, ops, card: str, out_dir: Path) -> dict[str, int]:
         return out, wall
 
     # (u1) single rounds with telemetry.
-    single = make("single", 1, OBS_ROUNDS, True)
+    single = obs_coordinator(base, "single", 1, OBS_ROUNDS, True)
     s_rounds, s_wall = drive("(u1) flagship single rounds, telemetry on", single, OBS_ROUNDS)
     tel_dir = base / "single" / "telemetry"
     records = telemetry_records(tel_dir)
@@ -4133,7 +4232,7 @@ def phase_observability(torch, ops, card: str, out_dir: Path) -> dict[str, int]:
 
     # (u1) fused blocks with telemetry: block 0's dispatch under the sync check, block 1
     # (dispatch, host_sync and its publishes) under the profiler.
-    fused = make("fused", rpb, OBS_FUSED_ROUNDS, True)
+    fused = obs_coordinator(base, "fused", rpb, OBS_FUSED_ROUNDS, True)
     caught: dict[str, object] = {}
     sync_checked_span(torch, fused._tracer, "dispatch", caught)
     train_block = fused._train_block
@@ -4202,7 +4301,8 @@ def phase_observability(torch, ops, card: str, out_dir: Path) -> dict[str, int]:
     # (u1) the round with telemetry off and on, interleaved; spans are on in both.
     timed: dict[str, list[float]] = {"off": [], "on": []}
     for i, mode in enumerate(("off", "on", "on", "off")):
-        coord = make(f"overhead_{i}_{mode}", 1, 1 + OBS_TIMED_ROUNDS, mode == "on")
+        coord = obs_coordinator(base, f"overhead_{i}_{mode}", 1, 1 + OBS_TIMED_ROUNDS,
+                                mode == "on")
         out, _ = drive(f"(u1) overhead run {i} telemetry {mode}", coord,
                        1 + OBS_TIMED_ROUNDS)
         timed[mode].extend(m.duration_s for m in out[1:])
@@ -4213,8 +4313,38 @@ def phase_observability(torch, ops, card: str, out_dir: Path) -> dict[str, int]:
           f"{med_off:.6f}), on {timed['on']} (median {med_on:.6f}); on/off "
           f"{med_on / med_off:.6f}")
 
+    print(f"[{card}] (u) phase wall_s={time.perf_counter() - t_phase:.3f}")
+    return totals
+
+
+def phase_observability_entry(torch, ops, card: str, out_dir: Path) -> dict[str, int]:
+    """(u2) one flagship round inside ``utils.profiling.trace``; (u3) (h)'s plain
+    network round with the server's ``registry=`` and ``tracer=``, clients'
+    ``registry=`` and the network coordinator's ``telemetry_dir=``: ``GET /metrics``,
+    bytes and trace ids; (u4) the kernel-build manifest; (u5) ``run --telemetry-dir``,
+    then ``metrics-summary`` and ``trace`` on it.  They time nothing, so they run beside
+    (o)-(r).  Returns the launch counts."""
+    import aiohttp
+
+    from nanofed_tpu_torch import cli
+    from nanofed_tpu_torch import communication as comm
+    from nanofed_tpu_torch import observability as obs
+    from nanofed_tpu_torch.data import federate, load_mnist
+    from nanofed_tpu_torch.models import get_model
+    from nanofed_tpu_torch.ops import _build
+    from nanofed_tpu_torch.security import secure_agg as sa
+    from nanofed_tpu_torch.trainer import TrainingConfig, make_local_fit
+    from nanofed_tpu_torch.tuning import compile_cache
+    from nanofed_tpu_torch.utils import profiling as uprof
+
+    t_phase = time.perf_counter()
+    n, chunk = FLAGSHIP["num_clients"], 125
+    model = get_model("mnist_cnn")
+    totals: dict[str, int] = dict.fromkeys(ops.launch_counts(), 0)
+    base = out_dir / "u_observability"
+
     # (u2) one flagship round inside the capture.
-    cap = make("captured", 1, 1, True)
+    cap = obs_coordinator(base, "captured", 1, 1, True)
     want: dict[str, int] = {}
     add_launches(want, step_launches(chunk, n))
 
@@ -4258,7 +4388,7 @@ def phase_observability(torch, ops, card: str, out_dir: Path) -> dict[str, int]:
     cdata = [host.select(slice(c, c + 1)).to(torch.device("cuda")) for c in range(clients)]
     fit = make_local_fit(model, TrainingConfig(batch_size=64, local_epochs=1,
                                                learning_rate=0.1))
-    rounds = 2
+    rounds = OBS_NETWORK_ROUNDS
     server_reg = obs.MetricsRegistry()
     tracer = obs.SpanTracer(registry=False)
     client_regs = [obs.MetricsRegistry() for _ in range(clients)]
@@ -4371,7 +4501,7 @@ def phase_observability(torch, ops, card: str, out_dir: Path) -> dict[str, int]:
           f"resolved {timeline['trace_resolution']['resolved']}")
     if ran["rounds_completed"] != 1 or digest["rounds"] != {"COMPLETED": 1}:
         fail(f"(u5) run {ran} / summary {digest}")
-    print(f"[{card}] (u) phase wall_s={time.perf_counter() - t_phase:.3f}")
+    print(f"[{card}] (u2)-(u5) wall_s={time.perf_counter() - t_phase:.3f}")
     return totals
 
 
@@ -4379,6 +4509,9 @@ LM_RANK = 8  # (v): the adapters' rank
 LM_CLIENTS, LM_SEQS, LM_BATCH, LM_LR = 8, 128, 16, 0.1  # (v1)-(v3): the base flagship's cohort
 LM_MERGE_TOL = 1e-5  # (v1): merged params against base + s A@B in float64
 LM_FUSED_ROUNDS = 2  # (v3): at rounds_per_block 2 and 1
+# (v1): bf16 rounds, the last one traced.  Reduced from 3 in 2026 to fit the script's
+# time limit: round 0 is FLOP-counted and round 1 traced, where round 1 was counted too.
+LM_BF16_ROUNDS = 2
 LM_LARGE_CLIENTS, LM_LARGE_SEQS, LM_LARGE_CHUNK = 4, 8, 2  # (v4)
 LM_RESUME_ROUNDS = 4  # (v5): closed after 2 and resumed
 LM_REDUCES = (  # (v): B1 and B3 at the transformer's shapes: (C, P, form)
@@ -4507,12 +4640,11 @@ def lm_population(num_clients: int, seqs: int, batch: int, flagship: str, seed: 
 
 def phase_transformer(torch, ops, card: str, out_dir: Path) -> dict[str, int]:
     """(v): the causal transformer LM and LoRA adapter federation.  (v1) the ``base``
-    flagship with rank-8 adapters through ``Coordinator(adapter=)``, 2 rounds f32 then 2
-    bf16; (v2) the same cohort's dense full fine-tune, 1 round f32, and the wire bytes of
-    both deltas; (v3) fused blocks against single rounds; (v4) the ``large`` flagship's
-    adapter round step; (v5) the entry points at the ``evidence`` config.  Returns the
-    launch counts."""
-    from nanofed_tpu_torch import cli
+    flagship with rank-8 adapters through ``Coordinator(adapter=)``, 2 rounds f32 then
+    ``LM_BF16_ROUNDS`` bf16; (v2) the same cohort's dense full fine-tune, 1 round f32, and
+    the wire bytes of both deltas; (v3) fused blocks against single rounds; (v4) the
+    ``large`` flagship's adapter round step ((v5) runs beside (o)-(r):
+    :func:`phase_transformer_entry`).  Returns the launch counts."""
     from nanofed_tpu_torch.adapters import (
         AdapterSpec,
         adapter_param_count,
@@ -4622,12 +4754,13 @@ def phase_transformer(torch, ops, card: str, out_dir: Path) -> dict[str, int]:
     del merged, coord, before
     gc.collect()
     torch.cuda.empty_cache()
-    coord = coordinator("v1_bf16", 3, dtype="bfloat16")
+    coord = coordinator("v1_bf16", LM_BF16_ROUNDS, dtype="bfloat16")
     bf16_flops: list[float] = []
-    traced = {"call": 2}
+    traced = {"call": LM_BF16_ROUNDS - 1}
     flop_counted_rounds(torch, coord, bf16_flops, traced)
-    run_rounds("(v1) base flagship, adapters, bf16 (round 2 traced)", coord, bf16_flops,
-               {"weighted_mean_flat": 3, "row_sq_norms": 3})
+    run_rounds(f"(v1) base flagship, adapters, bf16 (round {LM_BF16_ROUNDS - 1} traced)",
+               coord, bf16_flops,
+               {"weighted_mean_flat": LM_BF16_ROUNDS, "row_sq_norms": LM_BF16_ROUNDS})
     busy, wall = traced["busy"], traced["wall"]
     top = "; ".join(f"{k[:80]} {t:.3f} ms ({t / busy:.1%})" for k, t in traced["top"][:6])
     print(f"[{card}] (v1) one traced bf16 adapter round step: device busy {busy:.3f} ms of "
@@ -4648,19 +4781,25 @@ def phase_transformer(torch, ops, card: str, out_dir: Path) -> dict[str, int]:
     undo()
     hold_reduces(torch, ops, card, "(v2)", seen)
     seen.clear()
-    dense_delta = {k: dense.params[k] - dense_before[k] for k in dense_before}
+    dense_delta = {k: (dense.params[k] - dense_before[k]).cpu() for k in dense_before}
     del dense, dense_before
     gc.collect()
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    wire = measure_wire_bytes(None, dense_delta, first_delta)
-    print(f"[{card}] (v2) wire bytes of one round's update (seed 0, top-k 5%): q8 full "
-          f"{wire['q8_bytes_full']:,} adapter {wire['q8_bytes_adapter']:,} "
-          f"({wire['q8_reduction']}x); topk8 full {wire['topk8_bytes_full']:,} adapter "
-          f"{wire['topk8_bytes_adapter']:,} ({wire['topk8_reduction']}x); encoding took "
-          f"{time.perf_counter() - t0:.3f} s")
-    del dense_delta, first_delta
     time_lm_reduces(torch, ops, card)
+
+    # The wire bytes of both deltas time nothing (no finding reads the encoding's
+    # seconds): the host encodes them in a thread beside (v3), from host copies, so the
+    # thread makes no CUDA call.
+    first_delta = {k: v.cpu() for k, v in first_delta.items()}
+    encoded: dict = {}
+
+    def encode() -> None:
+        t0 = time.perf_counter()
+        encoded["wire"] = measure_wire_bytes(None, dense_delta, first_delta)
+        encoded["s"] = time.perf_counter() - t0
+
+    encoder = threading.Thread(target=encode, name="v2-wire-bytes")
+    encoder.start()
 
     # (v3) fused blocks of 2 against single rounds, bf16, and the fused run again (the
     # run-to-run gap; its first block under the sync check).
@@ -4702,6 +4841,16 @@ def phase_transformer(torch, ops, card: str, out_dir: Path) -> dict[str, int]:
     del runs
     gc.collect()
     torch.cuda.empty_cache()
+    encoder.join()
+    if "wire" not in encoded:
+        fail("(v2) encoding the wire bytes raised (its traceback is above)")
+    wire = encoded["wire"]
+    print(f"[{card}] (v2) wire bytes of one round's update (seed 0, top-k 5%): q8 full "
+          f"{wire['q8_bytes_full']:,} adapter {wire['q8_bytes_adapter']:,} "
+          f"({wire['q8_reduction']}x); topk8 full {wire['topk8_bytes_full']:,} adapter "
+          f"{wire['topk8_bytes_adapter']:,} ({wire['topk8_reduction']}x); encoding took "
+          f"{encoded['s']:.3f} s, beside (v3)")
+    del dense_delta, first_delta, encoded
 
     # (v4) the large flagship's adapter round step, bf16, in client chunks.
     large = flagship("large")
@@ -4766,7 +4915,18 @@ def phase_transformer(torch, ops, card: str, out_dir: Path) -> dict[str, int]:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # (v5) the entry points at the evidence config.
+    print(f"[{card}] (v) phase wall_s={time.perf_counter() - t_phase:.3f}")
+    return totals
+
+
+def phase_transformer_entry(torch, ops, card: str, out_dir: Path) -> dict[str, int]:
+    """(v5): the entry points at the ``evidence`` config, ``run --model transformer_lm``
+    through the command line and :func:`phase_transformer_evidence`.  They time nothing,
+    so they run beside (o)-(r).  Returns their launch counts."""
+    from nanofed_tpu_torch import cli
+
+    base_dir = out_dir / "v_transformer"
+    totals: dict[str, int] = dict.fromkeys(ops.launch_counts(), 0)
     tag = "(v5) nanofed-tpu-torch run --model transformer_lm --adapter-rank 4"
     summary, wall, grew = counted(torch, ops, card, tag, lambda: cli_summary(cli, [
         "run", "--model", "transformer_lm", "--clients", "8", "--rounds", "1",
@@ -4776,9 +4936,7 @@ def phase_transformer(torch, ops, card: str, out_dir: Path) -> dict[str, int]:
     check_summary(tag, summary, 1)
     print(f"[{card}] {tag}: adapter {summary['adapter']} round_s="
           f"{summary['round_durations_s']} eval {summary['final_eval_metrics']}")
-    totals_v5 = phase_transformer_evidence(torch, ops, card, base_dir)
-    add_launches(totals, totals_v5)
-    print(f"[{card}] (v) phase wall_s={time.perf_counter() - t_phase:.3f}")
+    add_launches(totals, phase_transformer_evidence(torch, ops, card, base_dir))
     return totals
 
 
@@ -5338,18 +5496,17 @@ def max_abs_gap(torch, a: dict, b: dict) -> float:
 
 
 def phase_mesh(torch, ops, card: str, out_dir: Path, slice_runs: dict) -> dict[str, int]:
-    """(w): the sharded round across ranks (``parallel.mesh``) on the one card.  (w1)
-    this process as a world of one rank over NCCL: the flagship through
+    """(w) and (x), the sharded round across ranks (``parallel.mesh``) on the one card.
+    (w1) this process as a world of one rank over NCCL: the flagship through
     ``Coordinator(mesh_shape=(1,))``, bit for bit the unsharded coordinator's run of
-    (b)'s configuration; (w2) four ranks on ``cuda:0`` over gloo, mesh (2, 2, 1): the
-    same flagship (250 clients a rank, 2 chunks each) within 1e-5 of (w1), every rank's
-    params the same bits, the collectives' seconds and bytes, then one validated round
-    (B2 on a rank's rows); (w3) two ranks over gloo, mesh (1, 2): the ``base``
-    transformer's dense FedAdam round and its adapter round with the base sharded, each
-    bit for bit one rank's run, each rank's model state and peak memory; two NCCL ranks
-    on one card refused; (w4) ``--model-shards 2`` on one rank (its ``torchrun`` run is
-    :func:`start_torchrun`'s).  Returns the launch counts of every rank's main paths and
-    this process's."""
+    (b)'s configuration; two NCCL ranks on one card refused; then one world of four
+    ranks on ``cuda:0`` over gloo runs (w2), mesh (2, 2, 1): the same flagship (250
+    clients a rank, 2 chunks each) within 1e-5 of (w1), every rank's params the same
+    bits, the collectives' seconds and bytes, then one validated round (B2 on a rank's
+    rows); and then (x1)-(x3) (:func:`check_scaffold_mesh`); (w4) ``--model-shards 2``
+    on one rank (its ``torchrun`` run is :func:`start_beside`'s).  (w3), (x1)'s (1, 2)
+    mesh and (x4) time nothing and run beside (o)-(r) (:func:`phase_mesh_pairs`).
+    Returns the launch counts of every rank's main paths and this process's."""
     import contextlib
     import io
 
@@ -5357,6 +5514,7 @@ def phase_mesh(torch, ops, card: str, out_dir: Path, slice_runs: dict) -> dict[s
 
     from nanofed_tpu_torch import cli
     from nanofed_tpu_torch.parallel.mesh import initialize_distributed
+    from nanofed_tpu_torch.persistence import FileStateStore
 
     t_phase = time.perf_counter()
     totals: dict[str, int] = dict.fromkeys(ops.launch_counts(), 0)
@@ -5419,9 +5577,27 @@ def phase_mesh(torch, ops, card: str, out_dir: Path, slice_runs: dict) -> dict[s
         if not refused:
             fail(f"(w) two NCCL ranks failed otherwise: {e}")
 
-    # (w2) four ranks on cuda:0 over gloo, mesh (2, 2, 1).
-    w2 = spawned(torch, card, "(w2) flagship, mesh (2, 2, 1)", mesh_flagship_rank, 4, "gloo",
-                 args=((2, 2, 1), str(base_dir), True))
+    # (x1)'s one-rank checkpoint, which the world resumes on (2, 2, 1): two rounds of the
+    # 100-client population, written before the world starts.
+    torch.backends.cudnn.deterministic = True
+    try:
+        one = scaffold_coordinator(base_dir / "x1_one", flagship_data(SCAFFOLD_RESUME_CLIENTS),
+                                   rounds=2,
+                                   state_store=FileStateStore(base_dir / "x1_one_ckpt"))
+        _, _, grew = counted(torch, ops, card, "(x1) population 100 on one rank, 2 rounds",
+                             one.run, scaffold_launches(2))
+        add_launches(totals, grew)
+        one_state = controls_state(torch, one)
+        del one
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (w2) then (x1)-(x3): one world of four ranks on cuda:0 over gloo.
+    quad = spawned(torch, card, "(w2) flagship on (2, 2, 1), then (x1)-(x3) SCAFFOLD, "
+                   "profiles and a block", quad_rank, 4, "gloo", args=(str(base_dir),))
+    w2 = [r["w2"] for r in quad]
     add_launches(totals, rank_counts(w2))
     add_launches(totals, rank_counts(w2, "validated_counts"))
     gap = max_abs_gap(torch, w2[0]["params"], w1["params"])
@@ -5446,8 +5622,44 @@ def phase_mesh(torch, ops, card: str, out_dir: Path, slice_runs: dict) -> dict[s
     if gap > MESH_TOL or not ranks_same:
         fail(f"(w2) params {gap} from (w1), ranks bit-identical: {ranks_same}")
 
-    # (w3) the base transformer on one rank (this process, no process group: the same
-    # mesh code), then on two ranks over gloo, mesh (1, 2); dense, then adapters.
+    add_launches(totals, check_scaffold_mesh(torch, ops, card, base_dir,
+                                             [r["x"] for r in quad], one_state))
+    del quad, w2, one_state
+
+    # (w4) --model-shards 2 on one rank.
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        code = cli.main(["run", "--model-shards", "2", "--model", "mlp", "--clients", "8",
+                         "--rounds", "1", "--train-size", "480", "--batch-size", "20",
+                         "--out-dir", str(base_dir / "w4_refused")])
+    message = ("model_shards=2 does not divide the 1 available devices — the 2-D mesh needs "
+               "a full (devices/N, N) clients x model grid")
+    print(f"[{card}] (w4) run --model-shards 2 on one rank: exit {code}, the JAX "
+          f"validator's message: {message in err.getvalue()}")
+    if code != 2 or message not in err.getvalue():
+        fail(f"(w4) --model-shards 2 on one rank: exit {code} {err.getvalue()[-1000:]}")
+
+    time_mesh_reduces(torch, ops, card)
+    time_rank_mean(torch, ops, card)
+    print(f"[{card}] (w) and (x) ranks share one card over gloo: these times are not a "
+          f"multi-card round's; phase wall_s={time.perf_counter() - t_phase:.1f}")
+    return totals
+
+
+def quad_rank(rank: int, world: int, out_dir: str) -> dict:
+    """(w2) then (x1)-(x3) as one rank of a world of four: one start-up for both."""
+    import torch
+
+    out = {"w2": mesh_flagship_rank(rank, world, (2, 2, 1), out_dir, True)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["x"] = scaffold_mesh_rank(rank, world, out_dir)
+    return out
+
+
+def lm_mesh_refs(torch, ops, base_dir: Path, totals: dict) -> list[dict]:
+    """(w3)'s references: the base transformer's dense and adapter rounds on one rank
+    (this process, no process group: the same mesh code), deterministic algorithms."""
     population = lm_population(LM_CLIENTS, LM_SEQS, LM_BATCH, "base")
     refs = []
     was = (torch.are_deterministic_algorithms_enabled(),
@@ -5469,8 +5681,14 @@ def phase_mesh(torch, ops, card: str, out_dir: Path, slice_runs: dict) -> dict[s
     del population
     gc.collect()
     torch.cuda.empty_cache()
-    ranks = spawned(torch, card, "(w3) base dense and adapter rounds, mesh (1, 2)",
-                    mesh_lm_rank, 2, "gloo", args=(str(base_dir),))
+    return refs
+
+
+def check_lm_mesh(torch, card: str, base_dir: Path, refs: list, ranks: list,
+                  totals: dict) -> None:
+    """(w3): the (1, 2) mesh's dense and adapter rounds each bit for bit one rank's
+    (``refs``), each rank's model state and peak memory; ``ranks`` are the ranks'
+    records of :func:`mesh_lm_rank`."""
     for j, adapter in enumerate((False, True)):
         tag = f"(w3) base {'adapter' if adapter else 'dense'} FedAdam round"
         ref = refs[j]
@@ -5497,24 +5715,7 @@ def phase_mesh(torch, ops, card: str, out_dir: Path, slice_runs: dict) -> dict[s
         if not same:
             fail(f"{tag}: the (1, 2) mesh is {gap} from one rank, not bit-equal")
         del got
-    del refs
 
-    # (w4) --model-shards 2 on one rank.
-    err = io.StringIO()
-    with contextlib.redirect_stderr(err):
-        code = cli.main(["run", "--model-shards", "2", "--model", "mlp", "--clients", "8",
-                         "--rounds", "1", "--train-size", "480", "--batch-size", "20",
-                         "--out-dir", str(base_dir / "w4_refused")])
-    message = ("model_shards=2 does not divide the 1 available devices — the 2-D mesh needs "
-               "a full (devices/N, N) clients x model grid")
-    print(f"[{card}] (w4) run --model-shards 2 on one rank: exit {code}, the JAX "
-          f"validator's message: {message in err.getvalue()}")
-    if code != 2 or message not in err.getvalue():
-        fail(f"(w4) --model-shards 2 on one rank: exit {code} {err.getvalue()[-1000:]}")
-
-    time_mesh_reduces(torch, ops, card)
-    print(f"[{card}] (w) phase wall_s={time.perf_counter() - t_phase:.1f}")
-    return totals
 
 SCAFFOLD_MESH_SHAPE = (2, 2, 1)  # (x1), (x2), (x3)
 SCAFFOLD_MESH_TOL = 1e-5  # (x1): four ranks against one rank given the same cohorts
@@ -5876,66 +6077,41 @@ def time_rank_mean(torch, ops, card: str) -> None:
           f"max_abs_err={err:.3e} {plan_line(torch, x, False, False)}")
 
 
-def phase_mesh_rest(torch, ops, card: str, out_dir: Path) -> dict[str, int]:
-    """(x): the rest of the mesh and the host-local federation on the one card.  (x1)
-    SCAFFOLD at (m)'s configuration on four gloo ranks, mesh (2, 2, 1), against one
-    rank given the same cohorts (1e-5), and on (1, 2) against one rank bit for bit;
-    each rank's control-stack bytes and launches; a 100-client checkpoint from
-    (2, 2, 1) resumed on one rank and one rank's resumed on (2, 2, 1), bit for bit;
-    (x2) the SCAFFOLD step profiled in lockstep on every rank; (x3) a fused block of
-    R = 4, 20% cohorts drawn on the card over the hosts axis in chunks of 25, against
-    the one-device block (1e-5); (x4) two ranks as hosts: ingest servers, partial drains, one row
-    all-reduce and the apply against one server draining the union, FedAvg and FedBuff,
-    with generations committed.  Ranks share the card over gloo, so (x)'s times say
-    nothing of a multi-card round.  Returns every rank's launches on the main paths."""
+def check_scaffold_mesh(torch, ops, card: str, base_dir: Path, ranks: list,
+                        one_state: dict) -> dict[str, int]:
+    """(x1)-(x3) from the four ranks' records: SCAFFOLD at (m)'s configuration on
+    (2, 2, 1) against one rank given the same cohorts (1e-5); each rank's control-stack
+    bytes and launches; a 100-client checkpoint from (2, 2, 1) resumed on one rank and
+    one rank's (``one_state``) resumed on (2, 2, 1), bit for bit; (x2) the SCAFFOLD
+    step profiled in lockstep on every rank; (x3) a fused block of R = 4, 20% cohorts
+    drawn on the card over the hosts axis in chunks of 25, against the one-device block
+    (1e-5).  Returns the launches of every rank and of this process's references."""
     from nanofed_tpu_torch.parallel.mesh import Mesh, client_slice
     from nanofed_tpu_torch.persistence import FileStateStore
 
-    t_phase = time.perf_counter()
     totals: dict[str, int] = dict.fromkeys(ops.launch_counts(), 0)
-    base_dir = out_dir / "x_mesh"
-    base_dir.mkdir(parents=True, exist_ok=True)
-    gc.collect()
-    torch.cuda.empty_cache()
     n, p = FLAGSHIP["num_clients"], P_MNIST
 
-    # The one-rank checkpoint (x1) resumes on (2, 2, 1): two rounds of the 100-client
-    # population, written before the world starts.
+    # (x1) four ranks against one rank given their cohorts.
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     try:
-        small = flagship_data(SCAFFOLD_RESUME_CLIENTS)
-        one = scaffold_coordinator(base_dir / "x1_one", small, rounds=2,
-                                   state_store=FileStateStore(base_dir / "x1_one_ckpt"))
-        _, _, grew = counted(torch, ops, card, "(x1) population 100 on one rank, 2 rounds",
-                             one.run, scaffold_launches(2))
+        gc.collect()
+        torch.cuda.empty_cache()
+        given = ranks[0]
+        ref = scaffold_coordinator(base_dir / "x1_ref_given", flagship_data())
+        # The mesh's cohorts in the mesh's slot order: a bf16 fit's bits depend on the
+        # clients its chunk holds (vmap batches them into one convolution).
+        slots = {c.tobytes(): s for c, s in zip(given["cohorts"], given["slots"])}
+        ref._sample_cohort = lambda r, c=given["cohorts"]: c[r]
+        ref._place_cohort = lambda survived, s=slots: s[survived.tobytes()]
+        _, wall, grew = counted(torch, ops, card, "(x1) one rank, given cohorts",
+                                ref.run, scaffold_launches(SCAFFOLD_ROUNDS))
         add_launches(totals, grew)
-        one_state = controls_state(torch, one)
-        del one
-        ranks = spawned(torch, card, "(x1)-(x3) SCAFFOLD, profiles and a block, mesh (2, 2, 1)",
-                        scaffold_mesh_rank, 4, "gloo", args=(str(base_dir),))
-        two = spawned(torch, card, "(x1) SCAFFOLD on (1, 2), then (x4) two hosts",
-                      federation_rank, 2, "gloo", args=(str(base_dir),))
-
-        # (x1) four ranks against one rank given their cohorts; (1, 2) against one rank.
-        refs = {}
-        for name, given in (("given", ranks[0]), ("own", None)):
-            gc.collect()
-            torch.cuda.empty_cache()
-            ref = scaffold_coordinator(base_dir / f"x1_ref_{name}", flagship_data())
-            if given is not None:
-                # The mesh's cohorts in the mesh's slot order: a bf16 fit's bits depend
-                # on the clients its chunk holds (vmap batches them into one convolution).
-                slots = {c.tobytes(): s for c, s in zip(given["cohorts"], given["slots"])}
-                ref._sample_cohort = lambda r, c=given["cohorts"]: c[r]
-                ref._place_cohort = lambda survived, s=slots: s[survived.tobytes()]
-            _, wall, grew = counted(torch, ops, card, f"(x1) one rank, {name} cohorts",
-                                    ref.run, scaffold_launches(SCAFFOLD_ROUNDS))
-            add_launches(totals, grew)
-            refs[name] = {"params": {k: v.cpu() for k, v in ref.params.items()},
+        refs = {"given": {"params": {k: v.cpu() for k, v in ref.params.items()},
                           "c_global": ref.c_global.cpu(), "wall_s": wall,
-                          "stack_bytes": ref.c_stack.numel() * ref.c_stack.element_size()}
-            del ref
+                          "stack_bytes": ref.c_stack.numel() * ref.c_stack.element_size()}}
+        del ref
     finally:
         torch.backends.cudnn.deterministic = deterministic
     gc.collect()
@@ -5968,19 +6144,6 @@ def phase_mesh_rest(torch, ops, card: str, out_dir: Path) -> dict[str, int]:
           f"bytes")
     if gap > SCAFFOLD_MESH_TOL or not ranks_same:
         fail(f"(x1) (2, 2, 1) is {gap} from one rank; ranks bit-identical: {ranks_same}")
-    for i, r in enumerate(two):
-        add_launches(totals, r["counts"])
-        print(f"[{card}] (x1) rank {i} of (1, 2): round_s={r['round_s']} control stack "
-              f"{r['stack_bytes']} bytes; launches={r['counts']}")
-        if r["counts"] != {k: want_counts.get(k, 0) for k in r["counts"]}:
-            fail(f"(x1) (1, 2) rank {i} launches {r['counts']}")
-    same = (all(torch.equal(torch.from_numpy(two[0]["params"][k]), refs["own"]["params"][k])
-                for k in refs["own"]["params"])
-            and torch.equal(torch.from_numpy(two[0]["c_global"]), refs["own"]["c_global"]))
-    print(f"[{card}] (x1) (1, 2) params and c_global bit-equal to one rank: {same}")
-    if not same:
-        fail("(x1) the (1, 2) SCAFFOLD run is not bit-equal to one rank: max "
-             f"{max_abs_gap(torch, two[0]['params'], refs['own']['params']):.3e}")
 
     # Checkpoints across mesh shapes: (2, 2, 1)'s resumed on one rank; one rank's on
     # (2, 2, 1).
@@ -6050,6 +6213,67 @@ def phase_mesh_rest(torch, ops, card: str, out_dir: Path) -> dict[str, int]:
           f"{got['loss'].tolist()} vs {ref['loss'].tolist()}")
     if not ids_same or gap > MESH_BLOCK_TOL or crossed == 0:
         fail(f"(x3) ids equal {ids_same}, params {gap} from one device, {crossed} crossed")
+    return totals
+
+
+def pair_rank(rank: int, world: int, out_dir: str) -> dict:
+    """(w3) then (x1)'s (1, 2) mesh and (x4) as one rank of a world of two: one
+    start-up for both."""
+    import torch
+
+    out = {"w3": mesh_lm_rank(rank, world, out_dir)}
+    torch.use_deterministic_algorithms(False)  # (w3)'s; (x1) runs as its reference does
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["x"] = federation_rank(rank, world, out_dir)
+    return out
+
+
+def phase_mesh_pairs(torch, ops, card: str, out_dir: Path) -> dict[str, int]:
+    """One world of two gloo ranks on the card for (w3) (its records saved for
+    :func:`check_lm_mesh`), then (x1)'s SCAFFOLD run on (1, 2) against one rank, bit for
+    bit, and (x4): the two
+    ranks as hosts, ingest servers, partial drains, one row all-reduce and the apply
+    against one server draining the union, FedAvg and FedBuff, with generations
+    committed.  No finding reads their seconds, so they run beside (o)-(r).  Returns the
+    launch counts."""
+    totals: dict[str, int] = dict.fromkeys(ops.launch_counts(), 0)
+    base_dir = out_dir / "mesh_pairs"
+    base_dir.mkdir(parents=True, exist_ok=True)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        ref = scaffold_coordinator(base_dir / "x1_ref_own", flagship_data())
+        _, _, grew = counted(torch, ops, card, "(x1) one rank, own cohorts", ref.run,
+                             scaffold_launches(SCAFFOLD_ROUNDS))
+        add_launches(totals, grew)
+        refs = {"own": {"params": {k: v.cpu() for k, v in ref.params.items()},
+                        "c_global": ref.c_global.cpu()}}
+        del ref
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    gc.collect()
+    torch.cuda.empty_cache()
+    pairs = spawned(torch, card, "(w3) base dense and adapter rounds, then (x1) SCAFFOLD, on "
+                    "(1, 2), then (x4) two hosts", pair_rank, 2, "gloo", args=(str(base_dir),))
+    # (w3)'s ranks are held against their references by the parent (check_lm_mesh),
+    # which computes them beside this world.
+    torch.save([r["w3"] for r in pairs], base_dir / "w3_ranks.pt")
+    two = [r["x"] for r in pairs]
+    want_counts = scaffold_launches(SCAFFOLD_ROUNDS)
+    for i, r in enumerate(two):
+        add_launches(totals, r["counts"])
+        print(f"[{card}] (x1) rank {i} of (1, 2): round_s={r['round_s']} control stack "
+              f"{r['stack_bytes']} bytes; launches={r['counts']}")
+        if r["counts"] != {k: want_counts.get(k, 0) for k in r["counts"]}:
+            fail(f"(x1) (1, 2) rank {i} launches {r['counts']}")
+    same = (all(torch.equal(torch.from_numpy(two[0]["params"][k]), refs["own"]["params"][k])
+                for k in refs["own"]["params"])
+            and torch.equal(torch.from_numpy(two[0]["c_global"]), refs["own"]["c_global"]))
+    print(f"[{card}] (x1) (1, 2) params and c_global bit-equal to one rank: {same}")
+    if not same:
+        fail("(x1) the (1, 2) SCAFFOLD run is not bit-equal to one rank: max "
+             f"{max_abs_gap(torch, two[0]['params'], refs['own']['params']):.3e}")
 
     # (x4) the two hosts against one server draining the union.
     if any(r["imports"] for r in two):
@@ -6069,9 +6293,6 @@ def phase_mesh_rest(torch, ops, card: str, out_dir: Path) -> dict[str, int]:
                 fail(f"(x4) {policy} host {i}: {gap} from the union, {x['latest_complete']}")
         if not (two[0][policy]["new"] == two[1][policy]["new"]).all():
             fail(f"(x4) {policy}: the hosts' params differ")
-    time_rank_mean(torch, ops, card)
-    print(f"[{card}] (x) ranks share one card over gloo: these times are not a multi-card "
-          f"round's; phase wall_s={time.perf_counter() - t_phase:.1f}")
     return totals
 
 
@@ -6397,23 +6618,18 @@ HARNESS_SMOKE_TIMED = 3  # (y3): rounds after the warm-up round
 
 
 def start_chaos_smoke(card: str, out_dir: Path) -> tuple[subprocess.Popen, float]:
-    """(y3) started: it checks parity and times nothing, so it runs beside (y1) and
-    (y2)."""
+    """(y3) started: it checks parity and times nothing, so it runs beside (o)-(r)."""
     per_rank = {k: 2 * (HARNESS_SMOKE_TIMED + 1) for k in ("weighted_sum_into", "row_sq_norms")}
     print(f"[{card}] (y3) predicted launches a rank of 2: {per_rank}, one rank twice that")
     return start_harness(["smoke", *HARNESS_ARGS, "--rounds", str(HARNESS_SMOKE_TIMED),
                           "--timeout", "300", "--tmp-dir", str(out_dir / "y3")])
 
 
-def phase_chaos_harness(torch, ops, card: str, out_dir: Path,
-                        smoke: tuple[subprocess.Popen, float]) -> dict[str, int]:
-    """(y3)-(y5): the multi-host harness with gloo ranks on the card (they share it, so
-    no time here is a round across cards); (y3) was started by :func:`start_chaos_smoke`.
-    Launches predicted from the round step's code: a rank streams its rows in chunks of
-    4, B1 accumulate and B3 once a chunk."""
-    from nanofed_tpu_torch.observability.telemetry import summarize_telemetry
-
-    totals: dict[str, int] = dict.fromkeys(ops.launch_counts(), 0)
+def finish_chaos_smoke(card: str, smoke: tuple[subprocess.Popen, float]) -> dict[str, int]:
+    """(y3): the multi-host harness's ``smoke``, started by :func:`start_chaos_smoke`:
+    2 gloo ranks against one rank.  Launches predicted from the round step's code: a
+    rank streams its rows in chunks of 4, B1 accumulate and B3 once a chunk."""
+    totals: dict[str, int] = {}
     per_rank = {k: 2 * (HARNESS_SMOKE_TIMED + 1) for k in ("weighted_sum_into", "row_sq_norms")}
     verdict = harness_json(finish_harness(card, "(y3) smoke", smoke, 420))
     gaps = (verdict["max_loss_delta"], verdict["max_param_delta"])
@@ -6429,7 +6645,16 @@ def phase_chaos_harness(torch, ops, card: str, out_dir: Path,
                  {k: 2 * v for k, v in per_rank.items()})
     add_launches(totals, sum_ranks(verdict["launches_by_rank"]))
     add_launches(totals, verdict["launches_ref"])
+    return totals
 
+
+def phase_chaos_harness(torch, ops, card: str, out_dir: Path) -> dict[str, int]:
+    """(y4) and (y5): the multi-host harness with gloo ranks on the card (they share it,
+    so no time here is a round across cards).  Launches predicted from the round step's
+    code: a rank streams its rows in chunks, B1 accumulate and B3 once a chunk."""
+    from nanofed_tpu_torch.observability.telemetry import summarize_telemetry
+
+    totals: dict[str, int] = dict.fromkeys(ops.launch_counts(), 0)
     rounds, block = 6, 2
     finish_harness(card, "(y4) hostchaos", start_harness([
         "hostchaos", *HARNESS_ARGS, "--host-fault", "crash", "--rounds", str(rounds),
@@ -6494,26 +6719,19 @@ def phase_chaos_harness(torch, ops, card: str, out_dir: Path,
 
 
 def phase_chaos(torch, ops, card: str, out_dir: Path) -> dict[str, int]:
-    """(y): faults and chaos.  Returns the launches of (y1), (y2) and every rank of
-    (y3)-(y5)."""
+    """(y): faults and chaos, (y1), (y4) and (y5) ((y2) and (y3) time nothing and run
+    beside (o)-(r): :func:`phase_beside_network`, :func:`start_chaos_smoke`).  Returns
+    the launches of (y1) and every rank of (y4)-(y5)."""
     t_phase = time.perf_counter()
     base = out_dir / "y_chaos"
     base.mkdir(parents=True, exist_ok=True)
     gc.collect()
     torch.cuda.empty_cache()
-    smoke = start_chaos_smoke(card, base)
-    try:
-        totals = phase_chaos_simulator(torch, ops, card, base)
-        t1 = time.perf_counter()
-        add_launches(totals, phase_chaos_network(torch, ops, card, base, wire_setup(torch)))
-    except BaseException:
-        stop_harness(smoke)
-        raise
-    t2 = time.perf_counter()
-    add_launches(totals, phase_chaos_harness(torch, ops, card, base, smoke))
+    totals = phase_chaos_simulator(torch, ops, card, base)
+    t1 = time.perf_counter()
+    add_launches(totals, phase_chaos_harness(torch, ops, card, base))
     print(f"[{card}] (y) wall_s={time.perf_counter() - t_phase:.1f} ((y1) {t1 - t_phase:.1f}, "
-          f"(y2) {t2 - t1:.1f}, (y3) beside them, then (y3)-(y5) "
-          f"{time.perf_counter() - t2:.1f}); launches {totals}")
+          f"(y4)-(y5) {time.perf_counter() - t1:.1f}); launches {totals}")
     return totals
 
 
@@ -6572,10 +6790,10 @@ def loadtest_line(rec: dict) -> str:
                f"{pool['busy_s']} utilization {pool['utilization']}"))
 
 
-def phase_loadtest(torch, ops, card: str, out_dir: Path) -> None:
-    """(z1) and (z2).  Predicted launches: none (the FedBuff and ingest drains are plain
+def phase_loadtest_defaults(torch, ops, card: str, out_dir: Path) -> None:
+    """(z1).  Predicted launches: none (the FedBuff and ingest drains are plain
     products in both packages)."""
-    from nanofed_tpu_torch.loadgen import run_loadtest, run_loadtest_comparison
+    from nanofed_tpu_torch.loadgen import run_loadtest_comparison
 
     art, wall, _ = counted(torch, ops, card, "(z1) loadtest, both paths", lambda:
                            run_loadtest_comparison(out_dir=out_dir / "z1",
@@ -6586,6 +6804,13 @@ def phase_loadtest(torch, ops, card: str, out_dir: Path) -> None:
         check_loadtest("(z1)", rec, LOADTEST_DEFAULTS["clients"])
     print(f"[{card}] (z1) rounds/s ingest over per-submit "
           f"{art.get('rounds_per_sec_ratio_ingest_over_per_submit')}; wall_s {wall:.1f}")
+
+
+def phase_loadtest(torch, ops, card: str, out_dir: Path) -> None:
+    """(z2).  Predicted launches: none (the ingest drain is a plain product in both
+    packages)."""
+    from nanofed_tpu_torch.loadgen import run_loadtest
+
     rec, wall, _ = counted(torch, ops, card, "(z2) ingest at mnist_cnn width", lambda:
                            run_loadtest(mode="ingest", device="cuda", **LOADTEST_FULL), {})
     print(f"[{card}] (z2) {loadtest_line(rec)}; ingest.device_bytes "
@@ -6799,11 +7024,125 @@ def phase_admission(torch, ops, card: str) -> dict[str, int]:
     return grew
 
 
-def start_beside(card: str, out_dir: Path) -> list[tuple]:
-    """(w4)'s ``torchrun`` run and (z5)'s ``federate`` started: each checks an entry point
-    and times nothing, so both run beside (o)-(r)'s network rounds, whose seconds no
-    finding reads, and the cross-check of part 4, which times nothing either.  Each is
-    stopped at the interpreter's exit unless read."""
+JOB_FLAG = "--job"
+JOB_COUNTS = "chip_smoke job launches: "
+BESIDE_TIMEOUT_S = 900.0  # the jobs' and harness runs' limit from their start
+
+
+def phase_beside_network(torch, ops, card: str, out_dir: Path) -> dict[str, int]:
+    """(k) and (y2): the network rounds resumed from a store, and under a chaos plan;
+    then (an2) and (an3), strict mode's guard on the tutorial round and on reads."""
+    totals = phase_network_resume(torch, ops, card, out_dir)
+    base = out_dir / "y_chaos"
+    base.mkdir(parents=True, exist_ok=True)
+    add_launches(totals, phase_chaos_network(torch, ops, card, base, wire_setup(torch)))
+    add_launches(totals, phase_analysis_guard(torch, ops, card, out_dir))
+    return totals
+
+
+def phase_beside_entry(torch, ops, card: str, out_dir: Path) -> dict[str, int]:
+    """(u2)-(u5), (v5), (z1), (z5)'s command line and (fl4)'s FedBuff adapter artifact:
+    entry points that time nothing."""
+    import logging
+
+    from nanofed_tpu_torch.utils.logger import LogConfig, Logger
+
+    totals = phase_observability_entry(torch, ops, card, out_dir)
+    add_launches(totals, phase_transformer_entry(torch, ops, card, out_dir))
+    gc.collect()
+    torch.cuda.empty_cache()
+    Logger().configure(LogConfig(level=logging.WARNING))  # no line a submit
+    base = out_dir / "z_service"
+    base.mkdir(parents=True, exist_ok=True)
+    phase_loadtest_defaults(torch, ops, card, base)
+    add_launches(totals, phase_service_cli(torch, ops, card, base))
+    base = out_dir / "fl_fleet"
+    base.mkdir(parents=True, exist_ok=True)
+    phase_fedbuff_adapter(torch, ops, card, base)
+    return totals
+
+
+# Work that times nothing (no finding reads its seconds), each job in a process of its
+# own beside (o)-(r) and the cross-check (``python3 chip_smoke.py --job NAME DIR``), its
+# phases in turn.  The jobs share the card's 80 GB with the parent's (w3) references
+# (12 GB), so none holds much: (w3)'s ranks take about 25 GB and the other two-rank
+# meshes run after it in the same world, the kernel checks up to about 8 GB.  (n)'s
+# evaluator fits 1000 clients at once (tens of GB), so (m) and (n) stay in the serial
+# part, as do (c) (15 GB), (v) and (z4).
+JOBS = {
+    "mesh_pairs": (phase_mesh_pairs,),
+    "checks, runner": (phase_kernel_checks, phase_slice_guarded, phase_cifar_cross_check,
+                       phase_autotune_runner),
+    "network": (phase_beside_network,),
+    "entry": (phase_beside_entry,),
+}
+
+
+def run_job(torch, ops, name: str, out_dir: Path) -> None:
+    """One of ``JOBS`` in this process: its launch counts as the last line."""
+    from nanofed_tpu_torch.ops import _build
+
+    _build.build()  # the parent's build, loaded
+    card = nvidia_smi()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    # Jobs share the host's cores with (o)-(r) and one another: two threads each for
+    # the CPU's tensor ops, where torch would take them all.
+    torch.set_num_threads(2)
+    counts: dict[str, int] = {}
+    for phase in JOBS[name]:
+        t0 = time.perf_counter()
+        add_launches(counts, phase(torch, ops, card, out_dir))
+        torch.cuda.synchronize()
+        print(f"[{card}] job {name}: {phase.__name__} wall_s={time.perf_counter() - t0:.1f}")
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(JOB_COUNTS + json.dumps({k: counts.get(k, 0) for k in ops.launch_counts()}))
+
+
+def start_job(name: str, out_dir: Path) -> tuple:
+    """``python3 chip_smoke.py --job NAME DIR`` started, its output to a log in a
+    directory of its own under ``out_dir``; it and every process it spawns are stopped
+    at the interpreter's exit unless read."""
+    root = Path(__file__).resolve().parent
+    job_dir = out_dir / f"job_{len(list(out_dir.glob('job_*')))}"
+    job_dir.mkdir(parents=True, exist_ok=True)
+    log = job_dir / "job.log"
+    with open(log, "w") as handle:
+        proc = subprocess.Popen([sys.executable, str(root / "chip_smoke.py"), JOB_FLAG, name,
+                                 str(job_dir)], stdout=handle, stderr=subprocess.STDOUT,
+                                cwd=root, start_new_session=True)
+    started = (proc, time.perf_counter())
+    return name, log, started, atexit_stop(started)
+
+
+def finish_job(job: tuple, timeout_s: float) -> dict[str, int]:
+    """Wait for a started job; print its output; fail unless it exits 0.  Returns its
+    launch counts."""
+    import atexit
+
+    name, log, started, stop = job
+    proc, t0 = started
+    try:
+        proc.wait(timeout=max(1.0, timeout_s - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        stop_harness(started)
+        print(log.read_text()[-8000:])
+        fail(f"job {name}: ran past {timeout_s} s")
+    atexit.unregister(stop)
+    text = log.read_text()
+    print(text, end="" if text.endswith("\n") else "\n")
+    if proc.returncode != 0:
+        fail(f"job {name} exited {proc.returncode}")
+    last = [line for line in text.splitlines() if line.startswith(JOB_COUNTS)]
+    return json.loads(last[-1][len(JOB_COUNTS):])
+
+
+def start_beside(card: str, out_dir: Path) -> dict:
+    """Everything that times nothing, started: ``JOBS``, (w4)'s ``torchrun`` run, (z5)'s
+    ``federate`` and (y3)'s ``smoke``.  They run beside one another and beside (o)-(r)'s
+    network rounds, whose seconds no finding reads, and the cross-check of part 4,
+    which times nothing either; never beside a phase whose seconds a finding reads.
+    Each is stopped at the interpreter's exit unless read."""
     from nanofed_tpu_torch.communication.transport import free_port
 
     torchrun = (subprocess.Popen(
@@ -6815,9 +7154,47 @@ def start_beside(card: str, out_dir: Path) -> list[tuple]:
         time.perf_counter())
     federate = start_harness(["federate", *FEDERATE_ARGS, "--tmp-dir", str(out_dir / "fed"),
                               "--out-dir", str(out_dir / "fed_out")])
-    print(f"[{card}] (w4) torchrun and (z5) federate started beside (o)-(r) and the "
-          "cross-check")
-    return [(started, atexit_stop(started)) for started in (torchrun, federate)]
+    smoke = start_chaos_smoke(card, out_dir)
+    beside = {"torchrun": (torchrun, atexit_stop(torchrun)),
+              "federate": (federate, atexit_stop(federate)),
+              "smoke": (smoke, atexit_stop(smoke)),
+              "jobs": [start_job(name, out_dir) for name in JOBS], "seconds": {}}
+    started = {"(w4) torchrun": torchrun, "(z5) federate": federate, "(y3) smoke": smoke,
+               **{f"job {job[0]}": job[2] for job in beside["jobs"]}}
+
+    def watch() -> None:
+        """Each run's seconds from its start to its end, as it ends."""
+        t_wait = time.perf_counter()
+        while (len(beside["seconds"]) < len(started)
+               and time.perf_counter() - t_wait < BESIDE_TIMEOUT_S):
+            for name, (proc, t0) in started.items():
+                if name not in beside["seconds"] and proc.poll() is not None:
+                    beside["seconds"][name] = round(time.perf_counter() - t0, 1)
+            time.sleep(0.2)
+
+    beside["watcher"] = threading.Thread(target=watch, name="beside-watcher", daemon=True)
+    beside["watcher"].start()
+    print(f"[{card}] (w4) torchrun, (z5) federate, (y3) smoke and the jobs {list(JOBS)} "
+          "started beside (o)-(r) and the cross-check")
+    return beside
+
+
+def finish_beside(card: str, beside: dict) -> tuple[dict[str, int], dict[str, float]]:
+    """Read everything :func:`start_beside` started, once all of it has ended.  Returns
+    the launches of their main paths and each one's seconds from its start to its end."""
+    import atexit
+
+    beside["watcher"].join()
+    seconds = beside["seconds"]
+    finish_torchrun(card, *beside["torchrun"])
+    finish_federate(card, *beside["federate"])
+    smoke, stop = beside["smoke"]
+    totals = finish_chaos_smoke(card, smoke)
+    atexit.unregister(stop)
+    for job in beside["jobs"]:
+        add_launches(totals, finish_job(job, BESIDE_TIMEOUT_S))
+    print(f"[{card}] beside (o)-(r): seconds from each start to its end {json.dumps(seconds)}")
+    return totals, seconds
 
 
 def finish_torchrun(card: str, started: tuple, stop) -> None:
@@ -6899,7 +7276,8 @@ def phase_service_cli(torch, ops, card: str, out_dir: Path) -> dict[str, int]:
 
 
 def phase_service(torch, ops, card: str, out_dir: Path) -> dict[str, int]:
-    """(z): load and service.  Returns the launches of (z1)-(z5)."""
+    """(z): load and service, (z2)-(z4) ((z1) and (z5) time nothing and run beside
+    (o)-(r)).  Returns the launches of (z2)-(z4)."""
     import logging
 
     from nanofed_tpu_torch.utils.logger import LogConfig, Logger
@@ -6918,11 +7296,9 @@ def phase_service(torch, ops, card: str, out_dir: Path) -> dict[str, int]:
     add_launches(totals, phase_admission(torch, ops, card))
     gc.collect()
     torch.cuda.empty_cache()
-    t3 = time.perf_counter()
-    add_launches(totals, phase_service_cli(torch, ops, card, base))
-    print(f"[{card}] (z) wall_s={time.perf_counter() - t_phase:.1f} ((z1)-(z2) "
-          f"{t1 - t_phase:.1f}, (z3) {t2 - t1:.1f}, (z4) {t3 - t2:.1f}, (z5) "
-          f"{time.perf_counter() - t3:.1f}); launches {totals}")
+    print(f"[{card}] (z) wall_s={time.perf_counter() - t_phase:.1f} ((z2) "
+          f"{t1 - t_phase:.1f}, (z3) {t2 - t1:.1f}, (z4) {time.perf_counter() - t2:.1f}); "
+          f"launches {totals}")
     return totals
 
 
@@ -7281,8 +7657,8 @@ def phase_fleet_tuning(torch, ops, card: str, out_dir: Path, wire: dict) -> dict
 
 
 def phase_fleet_evidence(torch, ops, card: str, out_dir: Path) -> None:
-    """(fl4): the fleet evidence at cut depth and the FedBuff adapter artifact."""
-    from nanofed_tpu_torch.adapters.evidence import generate_fedbuff_adapter_artifact
+    """(fl4): the fleet evidence at cut depth (no launch: the drains are plain
+    products)."""
     from nanofed_tpu_torch.fleet.evidence import generate_fleet_evidence
 
     art, wall, _ = counted(torch, ops, card, "(fl4) generate_fleet_evidence", lambda:
@@ -7293,6 +7669,12 @@ def phase_fleet_evidence(torch, ops, card: str, out_dir: Path) -> None:
     if art["mixed"]["parity_max_abs_diff"] > 1e-6 or art["swarm"]["failed_total"]:
         fail(f"(fl4) parity {art['mixed']['parity_max_abs_diff']}, lost "
              f"{art['swarm']['failed_total']}")
+
+
+def phase_fedbuff_adapter(torch, ops, card: str, out_dir: Path) -> None:
+    """(fl4): the FedBuff adapter artifact at cut depth (no launch)."""
+    from nanofed_tpu_torch.adapters.evidence import generate_fedbuff_adapter_artifact
+
     art, wall, _ = counted(torch, ops, card, "(fl4) generate_fedbuff_adapter_artifact",
                            lambda: generate_fedbuff_adapter_artifact(
                                out_dir=out_dir / "fl4", clients=FLEDBUFF_CLIENTS,
@@ -7305,8 +7687,9 @@ def phase_fleet_evidence(torch, ops, card: str, out_dir: Path) -> None:
 
 
 def phase_fleet(torch, ops, card: str, out_dir: Path) -> dict[str, int]:
-    """(fl): the heterogeneous fleet.  Returns the launches of (fl1)-(fl4): (fl3)'s
-    profiled sweep only."""
+    """(fl): the heterogeneous fleet, (fl1)-(fl3) ((fl4) times nothing and runs beside
+    (o)-(r): :func:`phase_fleet_evidence`).  Returns the launches of (fl3)'s profiled
+    sweep, the only ones."""
     import logging
 
     from nanofed_tpu_torch.utils.logger import LogConfig, Logger
@@ -7328,11 +7711,8 @@ def phase_fleet(torch, ops, card: str, out_dir: Path) -> dict[str, int]:
     del wire
     gc.collect()
     torch.cuda.empty_cache()
-    t3 = time.perf_counter()
-    phase_fleet_evidence(torch, ops, card, base)
     print(f"[{card}] (fl) wall_s={time.perf_counter() - t_phase:.1f} ((fl1) {t1 - t_phase:.1f}, "
-          f"(fl2) {t2 - t1:.1f}, (fl3) {t3 - t2:.1f}, (fl4) {time.perf_counter() - t3:.1f}); "
-          f"launches {totals}")
+          f"(fl2) {t2 - t1:.1f}, (fl3) {time.perf_counter() - t2:.1f}); launches {totals}")
     return totals
 
 
@@ -7341,16 +7721,15 @@ AN_BLOCK = 2
 
 
 def phase_analysis(torch, ops, card: str, out_dir: Path) -> dict[str, int]:
-    """(an): strict mode and the program audit on the card.  Returns the launches of
-    (an1) and (an2)'s strict and plain runs."""
+    """(an): strict mode and the program audit on the card, (an1) and (an4) ((an2) and
+    (an3) time nothing and run beside (o)-(r): :func:`phase_analysis_guard`).  Returns
+    the launches of (an1)'s strict and plain runs."""
     import contextlib
     import logging
 
-    from nanofed_tpu_torch.analysis import contracts, strict_mode
-    from nanofed_tpu_torch.data import federate, load_mnist
+    from nanofed_tpu_torch.analysis import contracts
     from nanofed_tpu_torch.models import get_model
     from nanofed_tpu_torch.orchestration import Coordinator, CoordinatorConfig, RoundStatus
-    from nanofed_tpu_torch.trainer import TrainingConfig
     from nanofed_tpu_torch.utils.logger import LogConfig, Logger
     from nanofed_tpu_torch.utils.trees import ravel
 
@@ -7491,6 +7870,37 @@ def phase_analysis(torch, ops, card: str, out_dir: Path) -> dict[str, int]:
         gc.collect()
         torch.cuda.empty_cache()
 
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+    print(f"[{card}] (an) wall_s={time.perf_counter() - t_phase:.1f} ({split}); launches "
+          f"{totals}")
+    return totals
+
+
+def phase_analysis_guard(torch, ops, card: str, out_dir: Path) -> dict[str, int]:
+    """(an2) the tutorial round strict and plain, and a strict step that reads a device
+    value; (an3) reads under the guard raise, a B1 launch does not.  Their seconds
+    compare nothing, so they run beside (o)-(r).  Returns the launches of (an2)'s
+    strict and plain runs."""
+    import logging
+
+    from nanofed_tpu_torch.analysis import strict_mode
+    from nanofed_tpu_torch.data import federate, load_mnist
+    from nanofed_tpu_torch.models import get_model
+    from nanofed_tpu_torch.orchestration import Coordinator, CoordinatorConfig
+    from nanofed_tpu_torch.trainer import TrainingConfig
+    from nanofed_tpu_torch.utils.logger import LogConfig, Logger
+    from nanofed_tpu_torch.utils.trees import ravel
+
+    Logger().configure(LogConfig(level=logging.WARNING))
+    totals: dict[str, int] = dict.fromkeys(ops.launch_counts(), 0)
+    base = out_dir / "an_analysis"
+    model = get_model("mnist_cnn")
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    # Bit-equality between two runs needs cuDNN's deterministic algorithms, as (w1).
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
         # (an2) the tutorial round, materialised, plain then strict.
         tutorial = federate(load_mnist("train", None, synthetic_size=TUTORIAL_SAMPLES),
                             num_clients=2, batch_size=64, seed=0, proportions=[0.75, 0.25])
@@ -7509,7 +7919,6 @@ def phase_analysis(torch, ops, card: str, out_dir: Path) -> dict[str, int]:
             tut_round[strict] = rounds[0].duration_s
             del coord
         same = torch.equal(tut_params[True], tut_params[False])
-        lap("(an2)")
         print(f"[{card}] (an2) tutorial round (12k + 4k samples, 1 epoch, f32), "
               f"materialised: round_s plain {tut_round[False]:.3f} strict "
               f"{tut_round[True]:.3f}; params bit-equal={same}")
@@ -7539,7 +7948,6 @@ def phase_analysis(torch, ops, card: str, out_dir: Path) -> dict[str, int]:
             dispatch_raised = str(e).splitlines()[0]
         torch.cuda.synchronize()
         del coord, real_step, small
-        lap("(an2) reading step")
         print(f"[{card}] (an2) a strict round step that reads .item() on the card: the "
               f"dispatch raised: {dispatch_raised}")
         if "synchroniz" not in dispatch_raised:
@@ -7574,19 +7982,45 @@ def phase_analysis(torch, ops, card: str, out_dir: Path) -> dict[str, int]:
             fail(f"(an3) the guard: raised {raised}, B1 launches {launched}, err {err}")
     finally:
         cudnn.deterministic, cudnn.benchmark = saved
-    lap("(an3)")
-    print(f"[{card}] (an) wall_s={time.perf_counter() - t_phase:.1f} ({split}); launches "
-          f"{totals}")
     return totals
+
+
+def final_stretch(torch, ops, card: str, out_dir: Path, counts: dict, mark) -> dict:
+    """Everything that times nothing, side by side: (o)-(r), part 4, (fl4)'s fleet
+    evidence and (w3)'s references in this process, :func:`start_beside`'s runs beside
+    them; then (w3)'s ranks against the references.  Adds the launches of the main
+    paths to ``counts``; returns each beside run's seconds from its start."""
+    gc.collect()
+    torch.cuda.empty_cache()  # the jobs beside share the card's memory
+    beside = start_beside(card, out_dir)
+    add_launches(counts, phase_wire(torch, ops, card))
+    mark("phase_wire")
+    phase_cross_check(torch, ops, card)
+    mark("phase_cross_check")
+    (out_dir / "fl_fleet").mkdir()
+    phase_fleet_evidence(torch, ops, card, out_dir / "fl_fleet")
+    mark("phase_fleet_evidence")
+    lm_refs = lm_mesh_refs(torch, ops, out_dir / "w3_refs", counts)
+    mark("(w3) references")
+    beside_counts, beside_s = finish_beside(card, beside)
+    add_launches(counts, beside_counts)
+    pairs_dir = next(job[1].parent for job in beside["jobs"]
+                     if job[0] == "mesh_pairs") / "mesh_pairs"
+    ranks_w3 = torch.load(pairs_dir / "w3_ranks.pt", weights_only=False)  # the job's
+    check_lm_mesh(torch, card, pairs_dir, lm_refs, ranks_w3, counts)
+    mark("beside (o)-(r) read")
+    return beside_s
 
 
 def main() -> None:
     t_script = time.perf_counter()
     last = [t_script]
+    budget: dict[str, float] = {}
 
     def mark(label: str) -> None:
         now = time.perf_counter()
         print(f"chip_smoke: {label} done at {now - t_script:.1f} s ({now - last[0]:.1f} s)")
+        budget[label] = round(now - last[0], 1)
         last[0] = now
     import torch
 
@@ -7604,6 +8038,9 @@ def main() -> None:
     # Before the first build, so (u4) reads its nvcc builds from the counters.
     install_torch_event_bridge()
     install_compile_cache_metrics()
+    if sys.argv[1:2] == [JOB_FLAG]:
+        run_job(torch, ops, sys.argv[2], Path(sys.argv[3]))
+        return
 
     card = nvidia_smi()
     print(f"card: {card}")
@@ -7625,66 +8062,37 @@ def main() -> None:
     mark("phase_quantize")
     records["dequant_accumulate_flat"] = phase_dequant(torch, ops, card)
     mark("phase_dequant")
+    counts: dict[str, int] = dict.fromkeys(ops.launch_counts(), 0)
     with tempfile.TemporaryDirectory(dir=Path(__file__).resolve().parent / "runs") as tmp:
         slice_runs: dict = {}
-        counts = phase_slice(torch, ops, run_experiment, card, Path(tmp), slice_runs)
-        mark("phase_slice")
-        secure_counts = phase_secure(torch, ops, card)
-        mark("phase_secure")
-        tuned_counts = phase_autotune(torch, ops, run_experiment, card, Path(tmp))
-        mark("phase_autotune")
-        resume_counts = phase_resume(torch, ops, run_experiment, card, Path(tmp))
-        mark("phase_resume")
-        network_resume_counts = phase_network_resume(torch, ops, card, Path(tmp))
-        mark("phase_network_resume")
-        dp_counts = phase_dp(torch, ops, card, Path(tmp))
-        mark("phase_dp")
-        scaffold_counts, scaffold_params, population = phase_scaffold(
-            torch, ops, run_experiment, card, Path(tmp))
-        mark("phase_scaffold")
-        phase_trainer(torch, ops, card, Path(tmp), scaffold_params, population)
-        mark("phase_trainer")
-        del scaffold_params, population
-        fused_counts = phase_fused(torch, ops, card, Path(tmp))
-        mark("phase_fused")
-        cifar_counts = phase_cifar(torch, ops, card, Path(tmp))
-        mark("phase_cifar")
-        obs_counts = phase_observability(torch, ops, card, Path(tmp))
-        mark("phase_observability")
-        lm_counts = phase_transformer(torch, ops, card, Path(tmp))
-        mark("phase_transformer")
-        mesh_counts = phase_mesh(torch, ops, card, Path(tmp), slice_runs)
-        mark("phase_mesh")
-        rest_counts = phase_mesh_rest(torch, ops, card, Path(tmp))
-        mark("phase_mesh_rest")
-        chaos_counts = phase_chaos(torch, ops, card, Path(tmp))
-        mark("phase_chaos")
-        service_counts = phase_service(torch, ops, card, Path(tmp))
-        mark("phase_service")
-        fleet_counts = phase_fleet(torch, ops, card, Path(tmp))
-        mark("phase_fleet")
-        analysis_counts = phase_analysis(torch, ops, card, Path(tmp))
-        mark("phase_analysis")
+        for label, run in (
+                ("phase_slice", lambda: phase_slice(torch, ops, run_experiment, card, Path(tmp),
+                                                    slice_runs)),
+                ("phase_secure", lambda: phase_secure(torch, ops, card)),
+                ("phase_autotune", lambda: phase_autotune(torch, ops, card, Path(tmp))),
+                ("phase_resume", lambda: phase_resume(torch, ops, run_experiment, card,
+                                                      Path(tmp))),
+                ("phase_dp", lambda: phase_dp(torch, ops, card, Path(tmp))),
+                ("phase_scaffold", lambda: phase_scaffold_trainer(torch, ops, run_experiment,
+                                                                  card, Path(tmp))),
+                ("phase_fused", lambda: phase_fused(torch, ops, card, Path(tmp))),
+                ("phase_cifar", lambda: phase_cifar(torch, ops, card, Path(tmp))),
+                ("phase_observability", lambda: phase_observability(torch, ops, card,
+                                                                    Path(tmp))),
+                ("phase_transformer", lambda: phase_transformer(torch, ops, card, Path(tmp))),
+                ("phase_mesh", lambda: phase_mesh(torch, ops, card, Path(tmp), slice_runs)),
+                ("phase_chaos", lambda: phase_chaos(torch, ops, card, Path(tmp))),
+                ("phase_service", lambda: phase_service(torch, ops, card, Path(tmp))),
+                ("phase_fleet", lambda: phase_fleet(torch, ops, card, Path(tmp))),
+                ("phase_analysis", lambda: phase_analysis(torch, ops, card, Path(tmp)))):
+            add_launches(counts, run())
+            mark(label)
     with tempfile.TemporaryDirectory(dir=Path(__file__).resolve().parent / "runs") as tmp:
-        beside = start_beside(card, Path(tmp))
-        wire_counts = phase_wire(torch, ops, card)
-        mark("phase_wire")
-        counts = {k: counts[k] + secure_counts[k] + tuned_counts[k] + resume_counts[k]
-                  + network_resume_counts[k] + dp_counts[k] + scaffold_counts[k]
-                  + fused_counts[k] + cifar_counts[k] + obs_counts[k] + lm_counts[k]
-                  + mesh_counts[k] + rest_counts[k] + chaos_counts[k]
-                  + service_counts.get(k, 0) + fleet_counts.get(k, 0)
-                  + wire_counts.get(k, 0) + analysis_counts.get(k, 0)
-                  for k in counts}
-        print(f"kernels: {json.dumps(counts)}")
-        missing = [k for k, v in counts.items() if v == 0]
-        if missing:
-            fail(f"kernels never launched on the main paths: {missing}")
-        phase_cross_check(torch, ops, card)
-        mark("phase_cross_check")
-        finish_torchrun(card, *beside[0])
-        finish_federate(card, *beside[1])
-        mark("(w4) and (z5) federate read")
+        beside_s = final_stretch(torch, ops, card, Path(tmp), counts, mark)
+    print(f"kernels: {json.dumps(counts)}")
+    missing = [k for k, v in counts.items() if v == 0]
+    if missing:
+        fail(f"kernels never launched on the main paths: {missing}")
 
     if any(m == "jax" or m.startswith(("jax.", "nanofed_tpu.")) or m == "nanofed_tpu"
            for m in sys.modules):
@@ -7707,7 +8115,10 @@ def main() -> None:
          "launches": counts[name], **records[name]}
         for name, (src, replaces) in sources.items()
     ]
-    print(f"chip_smoke: whole script wall_s={time.perf_counter() - t_script:.1f}")
+    whole = time.perf_counter() - t_script
+    print(f"chip_smoke: whole script wall_s={whole:.1f}")
+    print("chip_smoke: phase seconds " + json.dumps(
+        {**budget, "beside, from each start": beside_s, "whole": round(whole, 1)}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -9,6 +9,10 @@
   for each logical submit, the same bytes through every retry, 429 ``Retry-After`` as
   a backoff floor through ``RetryPolicy``'s arithmetic, and protocol 400s final for
   that round (a stale-round 400 refreshes the round and starts a new logical submit).
+  A failed attempt after the server announced the end of training abandons the submit
+  as terminated, as a refresh does.  The JAX swarm retries on until its budget is spent
+  and counts the submit lost, although no retry could reach an aggregation: a full
+  ingest buffer is never drained again, so its 429s last.
 * **Time is injectable.**  Arrival offsets and backoff sleeps ride the ``Clock``, so a
   smoke runs the schedule on a ``VirtualClock``; latency is always measured on the
   real monotonic clock.
@@ -340,6 +344,11 @@ async def _submit_once(
                     # Final for THIS round: refresh and submit anew (the straggler's
                     # re-sync).
                     break
+                if not tracker.training_active:
+                    # Training ended (or the swarm was stopped): nothing drains the
+                    # buffer any more, so no retry can land in an aggregation.
+                    result.terminated_early += 1
+                    return False
                 retryable = status in (429, 502, 503, 504) or status == -1
                 exhausted = policy is None or not retryable or attempt >= policy.max_attempts
                 if not exhausted:

@@ -29,9 +29,9 @@ from nanofed_tpu_torch.utils.trees import flatten_with_names, unflatten_names
 def _block_init(gen: torch.Generator, cin: int, cout: int) -> dict[str, Params]:
     p = {
         "conv1": nn.conv2d_init(gen, cin, cout, 3, use_bias=False),
-        "gn1": nn.group_norm_init(cout, gen.device),
+        "gn1": nn.group_norm_init(cout, device=gen.device),
         "conv2": nn.conv2d_init(gen, cout, cout, 3, use_bias=False),
-        "gn2": nn.group_norm_init(cout, gen.device),
+        "gn2": nn.group_norm_init(cout, device=gen.device),
     }
     if cin != cout:
         p["proj"] = nn.conv2d_init(gen, cin, cout, 1, use_bias=False)
@@ -58,7 +58,7 @@ def _resnet(
     def init(gen: torch.Generator) -> Params:
         layers: dict[str, Any] = {
             "stem": nn.conv2d_init(gen, 3, stem_channels, 3, use_bias=False),
-            "gn_stem": nn.group_norm_init(stem_channels, gen.device),
+            "gn_stem": nn.group_norm_init(stem_channels, device=gen.device),
         }
         cin = stem_channels
         for si, cout in enumerate(stage_channels):

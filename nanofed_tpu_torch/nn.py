@@ -20,6 +20,7 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 
+from nanofed_tpu_torch.core.device import DeviceLike, resolve_device
 from nanofed_tpu_torch.core.types import Params
 
 # ---------------------------------------------------------------------------
@@ -132,9 +133,12 @@ def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
     return x.mean(dim=(1, 2))
 
 
-def group_norm_init(num_channels: int, device: torch.device | str = "cpu") -> Params:
-    return {"bias": torch.zeros(num_channels, device=device),
-            "scale": torch.ones(num_channels, device=device)}
+def group_norm_init(num_channels: int, dtype: torch.dtype = torch.float32,
+                    device: DeviceLike = None) -> Params:
+    """GroupNorm's unit scale and zero bias; ``device=None`` is the card."""
+    dev = resolve_device(device)
+    return {"bias": torch.zeros(num_channels, dtype=dtype, device=dev),
+            "scale": torch.ones(num_channels, dtype=dtype, device=dev)}
 
 
 def group_norm(params: Params, x: torch.Tensor, num_groups: int = 8,

@@ -258,3 +258,19 @@ def test_loadtest_defaults_to_the_card(monkeypatch):
         port_loadgen.run_loadtest(clients=4)
     with pytest.raises(ValueError, match="unknown loadtest mode"):
         port_loadgen.run_loadtest(mode="both", device="cpu")
+
+
+@pytest.mark.parametrize("virtual_clock", [True, False])
+def test_a_submit_shed_after_the_engine_ends_is_terminated_not_lost(virtual_clock):
+    """The engine stops after 2 aggregations of 8 while all 100 clients of a burst are
+    in flight, and nothing drains the 16-slot buffer after that: a submit it sheds ends
+    ``terminated_early`` at its next failed attempt, as at a refresh, not ``failed``
+    once its retry budget is spent (the JAX swarm retries on and loses 68)."""
+    rec = port_loadgen.run_loadtest(
+        mode="ingest", device="cpu", clients=100, model="mlp", async_buffer_k=8,
+        aggregations=2, ingest_capacity=16, decode_workers=2, max_inflight=512,
+        arrival="burst", round_timeout_s=5.0, virtual_clock=virtual_clock, seed=0)
+    assert rec["aggregations_completed"] == 2
+    assert rec["ingest"]["offers"]["buffer_full"] > 0 and rec["http_429_total"] > 0
+    assert rec["failed_submits"] == 0 and rec["terminated_early"] > 0
+    assert rec["accepted"] + rec["duplicates"] + rec["terminated_early"] == 100

@@ -91,6 +91,23 @@ def test_group_norm_matches_jax(dtype, channels):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_group_norm_init_matches_jax(dtype):
+    want = jnn.group_norm_init(12, jnp.dtype(dtype))
+    got = nn.group_norm_init(12, getattr(torch, dtype), device="cpu")
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert got[k].dtype == getattr(torch, dtype) and got[k].device.type == "cpu"
+        assert str(want[k].dtype) == dtype
+        np.testing.assert_array_equal(got[k].float().numpy(), np.asarray(want[k], np.float32))
+
+
+def test_group_norm_init_defaults_to_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        nn.group_norm_init(4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("window,stride", [(2, None), (3, 1), (3, 2)])
 def test_pools_match_jax(dtype, window, stride):
     x = np.random.default_rng(window).normal(size=(2, 9, 8, 4)).astype(np.float32)
