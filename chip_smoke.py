@@ -325,6 +325,15 @@ are stated beside their constants.
    the card ``.item()``, ``bool()`` of a device tensor and a pageable copy to the card
    raise, and a B1 launch alone does not; (an4) ``audit_programs()`` of (an1)'s
    coordinator: every program ``ok``, its seconds and peak-memory delta.
+   Then real data (phase (ev), the digits bundled with the port): (ev1)
+   ``scripts/record_accuracy_torch.py``'s default run, ``mnist_cnn`` on the digits
+   upsampled to 28x28, 8 clients, must reach 97% held-out accuracy within 30 rounds
+   (the round and the wall clock to 97% printed; B1 normalised and B3 once a round);
+   (ev2) ``scripts/record_evidence_torch.py``'s byzantine mode at its own depth (16
+   clients, 2 attackers, 20 rounds, 5 arms of ``digits_mlp(96)``) must hold every
+   defense (B1 4 and B3 5 a round over the arms); (ev3) ``run_experiment(
+   model="digits_mlp")``, one round of 4 clients (B1 and B3 once); (ev4) B1 and B3
+   timed at the evidence runs' shapes.
 4. Cross-check: 8-client f32 rounds of the port on the card and on the CPU from the
    same weights, permutations and injected noise: the plain round with dropout off
    and on (the masks are an integer hash, the same bits on both devices), the
@@ -7985,6 +7994,104 @@ def phase_analysis_guard(torch, ops, card: str, out_dir: Path) -> dict[str, int]
     return totals
 
 
+EV_MAX_ROUNDS = 30  # (ev1): record_accuracy_torch's default run (60 rounds) cut to 30
+EV_TARGET = 0.97  # (ev1): held-out accuracy of mnist_cnn on the real digits at 28x28
+EV_CLIENTS = 4  # (ev3): run_experiment's digits_mlp round
+# (ev4): B1 and B3 at the evidence runs' shapes (C, P, form): (ev1)'s 8 mnist_cnn
+# clients, digits_mlp(128) at 100 and 1000 clients, digits_mlp(96)'s byzantine cohort of 16, mnist_cnn's DP cohort of 24
+# (B1's denom form moves the same bytes) and its label-skew cohort of 10, the fedprox and
+# SCAFFOLD cohort of 9 (SCAFFOLD's control-delta sum in the accumulate form), the
+# personalization population of 20, the cohort-gather arms' 24 and 240 rows of
+# mlp(64->512->10) and asyncfed's sync round of 6 digits_mlp(32) clients.
+P_DIGITS_MLP = {32: 2_410, 96: 7_210, 128: 9_610}
+P_GATHER_MLP = 38_410
+EV_REDUCES = ((8, P_MNIST, "normalised"), (100, P_DIGITS_MLP[128], "normalised"),
+              (1000, P_DIGITS_MLP[128], "normalised"), (16, P_DIGITS_MLP[96], "normalised"),
+              (24, P_MNIST, "normalised"), (10, P_MNIST, "normalised"),
+              (9, P_DIGITS_MLP[96], "normalised"),
+              (9, P_DIGITS_MLP[96], "accumulate"), (20, P_DIGITS_MLP[96], "normalised"),
+              (24, P_GATHER_MLP, "normalised"), (240, P_GATHER_MLP, "normalised"),
+              (6, P_DIGITS_MLP[32], "normalised"))
+
+
+def evidence_script(name: str):
+    """``scripts/<name>.py`` of this checkout, loaded as a module."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parent / "scripts" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def script_launches(tag: str, artifact: dict, want: dict) -> dict[str, int]:
+    """The launches an evidence function counted (it zeroes the counts at its start and
+    reads them at its end); fail unless they equal ``want``."""
+    grew = artifact["device"]["kernel_launches"]
+    want = {k: want.get(k, 0) for k in grew}
+    if grew != want:
+        fail(f"{tag}: kernel launches {grew}, expected {want}")
+    return grew
+
+
+def phase_evidence(torch, ops, run_experiment, card: str, out_dir: Path) -> dict[str, int]:
+    """(ev): real data on the card.  (ev1) ``record_accuracy_torch``'s default run,
+    ``mnist_cnn`` on the bundled digits upsampled to 28x28, 8 clients, to 97% held-out
+    accuracy within ``EV_MAX_ROUNDS``; (ev2) ``record_evidence_torch``'s byzantine mode
+    at the reference's depth (16 clients, 2 attackers, 20 rounds, 5 arms of
+    ``digits_mlp(96)``), which must hold every defense; (ev3) ``run_experiment(
+    model="digits_mlp")``, the command line's path, one round of ``EV_CLIENTS``; (ev4)
+    B1 and B3 at the evidence runs' shapes.  Returns the launches of (ev1)-(ev3)."""
+    totals: dict[str, int] = {}
+    t0 = time.perf_counter()
+    acc = evidence_script("record_accuracy_torch").record_accuracy(
+        max_rounds=EV_MAX_ROUNDS, device="cuda", base_dir=out_dir / "ev1")
+    rounds = len(acc["trajectory"])
+    grew = script_launches("(ev1)", acc, {"weighted_mean_flat": rounds, "row_sq_norms": rounds})
+    add_launches(totals, grew)
+    final = acc["final_test_accuracy"]
+    print(f"[{card}] (ev1) {acc['model']} on {acc['dataset']}, {acc['num_clients']} clients: "
+          f"held-out accuracy {final} at round {acc['reached_at_round']}, wall clock to "
+          f"{EV_TARGET:.0%} {acc['wall_clock_to_target_s']} s; trajectory "
+          f"{[row['test_accuracy'] for row in acc['trajectory']]}; B1 normalised "
+          f"{grew['weighted_mean_flat']}, B3 {grew['row_sq_norms']}")
+    if not acc["reached"] or final < EV_TARGET:
+        fail(f"(ev1): held-out accuracy {final} after {rounds} rounds, not {EV_TARGET}")
+    t1 = time.perf_counter()
+
+    byz = evidence_script("record_evidence_torch").run_byzantine(device="cuda",
+                                                                  base_dir=out_dir / "ev2")
+    n = byz["regime"]["num_rounds"]
+    # Per round: plain FedAvg B1 and B3 (2 arms); the trimmed mean and the median B3
+    # alone; Multi-Krum B1 twice (the params, then its [C, 2] scalars) and B3.
+    grew = script_launches("(ev2)", byz, {"weighted_mean_flat": 4 * n, "row_sq_norms": 5 * n})
+    add_launches(totals, grew)
+    print(f"[{card}] (ev2) {byz['summary']}; defense_holds_per_arm "
+          f"{byz['defense_holds_per_arm']}; B1 normalised {grew['weighted_mean_flat']}, "
+          f"B3 {grew['row_sq_norms']}; {time.perf_counter() - t1:.1f} s")
+    if not byz["defense_holds"]:
+        fail(f"(ev2): a defense did not hold: {byz['defense_holds_per_arm']}")
+    t2 = time.perf_counter()
+
+    summary, _, grew = counted(
+        torch, ops, card, "(ev3) run_experiment(model='digits_mlp')",
+        lambda: run_experiment(model="digits_mlp", num_clients=EV_CLIENTS, num_rounds=1,
+                               local_epochs=1, batch_size=16, eval_every=1,
+                               out_dir=out_dir / "ev3", device="cuda"),
+        {"weighted_mean_flat": 1, "row_sq_norms": 1})
+    add_launches(totals, grew)
+    check_summary("(ev3)", summary, 1)
+    print(f"[{card}] (ev3) digits_mlp on the bundled digits: held-out accuracy "
+          f"{summary['final_eval_metrics']['accuracy']:.4f} after 1 round of {EV_CLIENTS}")
+    t3 = time.perf_counter()
+    time_lm_reduces(torch, ops, card, EV_REDUCES, "(ev4)")
+    print(f"[{card}] (ev) wall_s={time.perf_counter() - t0:.1f} ((ev1) {t1 - t0:.1f}, (ev2) "
+          f"{t2 - t1:.1f}, (ev3) {t3 - t2:.1f}, (ev4) {time.perf_counter() - t3:.1f}); "
+          f"launches {totals}")
+    return totals
+
+
 def final_stretch(torch, ops, card: str, out_dir: Path, counts: dict, mark) -> dict:
     """Everything that times nothing, side by side: (o)-(r), part 4, (fl4)'s fleet
     evidence and (w3)'s references in this process, :func:`start_beside`'s runs beside
@@ -8084,7 +8191,9 @@ def main() -> None:
                 ("phase_chaos", lambda: phase_chaos(torch, ops, card, Path(tmp))),
                 ("phase_service", lambda: phase_service(torch, ops, card, Path(tmp))),
                 ("phase_fleet", lambda: phase_fleet(torch, ops, card, Path(tmp))),
-                ("phase_analysis", lambda: phase_analysis(torch, ops, card, Path(tmp)))):
+                ("phase_analysis", lambda: phase_analysis(torch, ops, card, Path(tmp))),
+                ("phase_evidence", lambda: phase_evidence(torch, ops, run_experiment, card,
+                                                          Path(tmp)))):
             add_launches(counts, run())
             mark(label)
     with tempfile.TemporaryDirectory(dir=Path(__file__).resolve().parent / "runs") as tmp:

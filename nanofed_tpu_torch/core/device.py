@@ -31,3 +31,31 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
     return dev
+
+
+def device_record(device: DeviceLike = None) -> dict:
+    """Where a run took place, for its artifact: the device's type, the card's name and
+    power limit as ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
+    prints them (``"not available"`` where it cannot be read), the torch and CUDA
+    versions, and the port's kernel launches so far by kernel
+    (``ops.launch_counts()``: zero them before the run, read them with this)."""
+    import subprocess
+
+    from nanofed_tpu_torch import ops
+
+    dev = torch.device("cuda" if device is None else device)
+    try:
+        card = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=30, check=True,
+        ).stdout.strip().splitlines()[0]
+    except (OSError, subprocess.SubprocessError, IndexError):
+        card = "not available"
+    return {
+        "type": dev.type,
+        "name": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
+        "nvidia_smi": card,
+        "torch": torch.__version__,
+        "cuda": torch.version.cuda,
+        "kernel_launches": ops.launch_counts(),
+    }

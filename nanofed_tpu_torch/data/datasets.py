@@ -6,13 +6,21 @@ from the standard python pickle layout (``cifar-10-batches-py/``,
 ``cifar-100-python/`` under ``data_dir``), normalized per channel; and a
 deterministic synthetic fallback with the same shapes (class prototypes plus
 Gaussian noise) when no files are present.  Nothing is downloaded.  Also the
-scikit-learn digits (when sklearn is installed), a bilinear resize, and the seeded
-Markov-chain token streams of the causal transformer LM.
+handwritten digits, a bilinear resize, and the seeded Markov-chain token streams of
+the causal transformer LM.
+
+The digits ship with the package as ``digits.csv.gz`` (1,797 rows of 64 pixels and a
+label): the UCI "Optical Recognition of Handwritten Digits" test set (E. Alpaydin and
+C. Kaynak, 1998) as scikit-learn distributes it under the BSD-3-Clause license, byte
+for byte, so the loader needs no scikit-learn.  The JAX package reads the same data
+through scikit-learn.
 """
 
 from __future__ import annotations
 
 import gzip
+import hashlib
+import io
 import pickle
 import struct
 from dataclasses import dataclass
@@ -163,20 +171,25 @@ def load_mnist(
     )
 
 
-def load_digits_dataset(split: str = "train", test_fraction: float = 0.2) -> Dataset:
-    """The scikit-learn handwritten digits (1,797 real 8x8 images), pixels scaled to
-    [0, 1], split by a seeded shuffle with the last ``test_fraction`` held out.
-    Raises ``FileNotFoundError`` when sklearn is not installed."""
-    try:
-        from sklearn.datasets import load_digits
-    except ImportError as e:
-        raise FileNotFoundError(
-            "sklearn is not installed; the bundled digits dataset is unavailable"
-        ) from e
+DIGITS_FILE = Path(__file__).resolve().parent / "digits.csv.gz"
+DIGITS_SHA256 = "09f66e6debdee2cd2b5ae59e0d6abbb73fc2b0e0185d2e1957e9ebb51e23aa22"
 
-    x, y = load_digits(return_X_y=True)
-    x = (x.reshape(-1, 8, 8, 1) / 16.0).astype(np.float32)  # pixels are 0..16
-    y = y.astype(np.int32)
+
+def load_digits_dataset(split: str = "train", test_fraction: float = 0.2) -> Dataset:
+    """The handwritten digits (1,797 real 8x8 images, UCI optdigits) from the bundled
+    :data:`DIGITS_FILE`, pixels scaled to [0, 1], split by a seeded shuffle with the
+    last ``test_fraction`` held out.  Raises ``FileNotFoundError`` when the file is
+    missing and ``ValueError`` when its sha256 is not :data:`DIGITS_SHA256`."""
+    try:
+        raw = DIGITS_FILE.read_bytes()
+    except FileNotFoundError as e:
+        raise FileNotFoundError(f"the bundled digits file {DIGITS_FILE} is missing") from e
+    digest = hashlib.sha256(raw).hexdigest()
+    if digest != DIGITS_SHA256:
+        raise ValueError(f"{DIGITS_FILE}: sha256 {digest}, expected {DIGITS_SHA256}")
+    table = np.loadtxt(io.BytesIO(gzip.decompress(raw)), delimiter=",")
+    x = (table[:, :64].reshape(-1, 8, 8, 1) / 16.0).astype(np.float32)  # pixels are 0..16
+    y = table[:, 64].astype(np.int32)
     order = np.random.default_rng(0).permutation(len(y))
     x, y = x[order], y[order]
     cut = int(len(y) * (1.0 - test_fraction))

@@ -90,12 +90,18 @@ def test_load_digits_and_resize_equal_jax():
     assert resized.x.shape[1:] == (28, 28, 1)
 
 
-def test_load_digits_without_sklearn_raises_file_not_found(monkeypatch):
+def test_load_digits_without_sklearn_raises_file_not_found(monkeypatch, tmp_path):
+    """The port's digits need no scikit-learn (they ship with the package); only a
+    missing bundled file raises ``FileNotFoundError``."""
     import sys
+
+    from nanofed_tpu_torch.data import datasets
 
     monkeypatch.setitem(sys.modules, "sklearn", None)
     monkeypatch.setitem(sys.modules, "sklearn.datasets", None)
-    with pytest.raises(FileNotFoundError, match="sklearn"):
+    assert len(data.load_digits_dataset()) == 1437
+    monkeypatch.setattr(datasets, "DIGITS_FILE", tmp_path / "digits.csv.gz")
+    with pytest.raises(FileNotFoundError, match="digits"):
         data.load_digits_dataset()
 
 
