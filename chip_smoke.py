@@ -334,6 +334,18 @@ are stated beside their constants.
    defense (B1 4 and B3 5 a round over the arms); (ev3) ``run_experiment(
    model="digits_mlp")``, one round of 4 clients (B1 and B3 once); (ev4) B1 and B3
    timed at the evidence runs' shapes.
+   Then the online retuner (phase (rt), ``scripts/record_retune_evidence_torch.py``'s
+   reference lifecycle on the card: the AOT sweep with its epilogue table (B4, B2),
+   probes of the alternative, the closed loop with a decision every 4 rounds, the
+   write-back): the AOT winner, the measured winner, the decisions, the swap round and
+   the steady-state rates printed; it fails on the structural checks (at most one
+   applied swap, on a block boundary, a write-back with a ``measured`` block) and on
+   launches other than the sweep's, the probes' and the rounds' each program ran, never
+   on which candidate wins.  Beside (o)-(r), the job ``notebook`` (phase (nb)) builds
+   ``scripts/build_notebook_torch.py``'s tutorial and runs every cell on the card with
+   its in-process runner in a temporary directory: every code cell without an error
+   output and its own asserts holding, and each cell's launches (B1, B3, B5, B6, B7)
+   equal to the ones derived from its rounds and its secure clients.
 4. Cross-check: 8-client f32 rounds of the port on the card and on the CPU from the
    same weights, permutations and injected noise: the plain round with dropout off
    and on (the masks are an integer hash, the same bits on both devices), the
@@ -2522,6 +2534,12 @@ def step_launches(chunk, rows: int) -> dict[str, int]:
     return {"weighted_sum_into": rows // chunk, "row_sq_norms": rows // chunk}
 
 
+def program_chunk(program: str):
+    """The ``client_chunk`` of a candidate's program name (``cand_chunk<k>_...``; 0 is
+    None, the materialised round)."""
+    return int(program.split("_")[1].removeprefix("chunk")) or None
+
+
 def add_launches(total: dict, more: dict, times: int = 1) -> None:
     for k, v in more.items():
         total[k] = total.get(k, 0) + times * v
@@ -2704,8 +2722,8 @@ def phase_autotune_runner(torch, ops, card: str, out_dir: Path) -> dict[str, int
     add_launches(want, step_launches(tuned["client_chunk"], SECURE_CLIENTS),
                  calls * (1 + rpb if rpb > 1 else 1))
     for program, measured in retunes["measured"].items():  # the rounds each chunk ran
-        chunk = int(program.split("_")[1].removeprefix("chunk")) or None
-        add_launches(want, step_launches(chunk, SECURE_CLIENTS), measured["rounds"])
+        add_launches(want, step_launches(program_chunk(program), SECURE_CLIENTS),
+                     measured["rounds"])
     check_launches("(i) runner", grew, want, oom)
     return grew
 
@@ -7071,6 +7089,69 @@ def phase_beside_entry(torch, ops, card: str, out_dir: Path) -> dict[str, int]:
     return totals
 
 
+# (nb): the launches of each code cell of the tutorial notebook, from its rounds.  A
+# materialised round launches B1 normalised and B3 once (D: 10 rounds, G: 3 with
+# central DP, H: 2 then 2 resumed, L: 6, O: 8); M's FedAvg arm 12 rounds and its SCAFFOLD
+# arm 12 rounds of ``scaffold_launches``; each secure client's mask is one B5 and one B7
+# (J: 3 clients; K: 3 survivors), the server's unmask one B6, K's recovery one B7.  E, F,
+# I, N and P launch none (P's FedBuff combine is a plain sum).
+NB_ROUND_CELLS = {"D": 10, "G": 3, "H": 4, "L": 6, "O": 8}
+
+
+def notebook_launches() -> dict[str, dict[str, int]]:
+    """Each code cell's expected launches, by its letter."""
+    want: dict[str, dict[str, int]] = {letter: {} for letter in "ABCDEFGHIJKLMNOP"}
+    for letter, rounds in NB_ROUND_CELLS.items():
+        want[letter] = {"weighted_mean_flat": rounds, "row_sq_norms": rounds}
+    add_launches(want["M"], {"weighted_mean_flat": 12, "row_sq_norms": 12})
+    add_launches(want["M"], scaffold_launches(12))
+    want["J"] = {"quantize_u32": 3, "add_mask": 3, "dequantize_u32": 1}
+    want["K"] = {"quantize_u32": 3, "add_mask": 3 + 1, "dequantize_u32": 1}
+    return want
+
+
+def phase_notebook(torch, ops, card: str, out_dir: Path) -> dict[str, int]:
+    """(nb): the tutorial notebook of ``scripts/build_notebook_torch.py`` built for the
+    card and run cell by cell with its in-process runner in ``out_dir / "nb"`` (the
+    committed notebook is not touched); every code cell's launches held against
+    :func:`notebook_launches`.  Returns the notebook's launches."""
+    builder = evidence_script("build_notebook_torch")
+    want = notebook_launches()
+    totals: dict[str, int] = {}
+    seen: list[dict] = []
+    before = [ops.launch_counts()]
+
+    def on_cell(index: int, cell: dict) -> None:
+        torch.cuda.synchronize()
+        now = ops.launch_counts()
+        grew = {k: now[k] - before[0][k] for k in now}
+        before[0] = now
+        seen.append(grew)
+        add_launches(totals, grew)
+
+    t0 = time.perf_counter()
+    try:
+        nb = builder.execute(builder.build("cuda"), "cuda", out_dir / "nb", on_cell=on_cell)
+    except builder.CellError as e:
+        fail(f"(nb) {e}")
+    wall = time.perf_counter() - t0
+    code = [c for c in nb["cells"] if c["cell_type"] == "code"]
+    letters = [c["metadata"]["nanofed_cell"] for c in code]
+    if letters != list("ABCDEFGHIJKLMNOP") or len(seen) != len(code):
+        fail(f"(nb) cells {letters}, {len(seen)} of them run")
+    for letter, cell, grew in zip(letters, code, seen):
+        kinds = [o["output_type"] for o in cell["outputs"]]
+        if not kinds or "error" in kinds:
+            fail(f"(nb) cell {letter}: outputs {kinds}")
+        expected = {k: want[letter].get(k, 0) for k in grew}
+        if grew != expected:
+            fail(f"(nb) cell {letter}: kernel launches {grew}, expected {expected}")
+    text = "".join("".join(o.get("text", "")) for o in code[0]["outputs"])
+    print(f"[{card}] (nb) the tutorial notebook on the card: {len(code)} code cells in "
+          f"{wall:.1f} s, launches {totals}; cell A: {text.strip().splitlines()[0]}")
+    return totals
+
+
 # Work that times nothing (no finding reads its seconds), each job in a process of its
 # own beside (o)-(r) and the cross-check (``python3 chip_smoke.py --job NAME DIR``), its
 # phases in turn.  The jobs share the card's 80 GB with the parent's (w3) references
@@ -7084,6 +7165,7 @@ JOBS = {
                        phase_autotune_runner),
     "network": (phase_beside_network,),
     "entry": (phase_beside_entry,),
+    "notebook": (phase_notebook,),
 }
 
 
@@ -8092,6 +8174,55 @@ def phase_evidence(torch, ops, run_experiment, card: str, out_dir: Path) -> dict
     return totals
 
 
+RT_CONFIG = "reference"  # (rt): the reference script's configuration
+
+
+def phase_retune(torch, ops, card: str, out_dir: Path) -> dict[str, int]:
+    """(rt): the online retuner's lifecycle (``scripts/record_retune_evidence_torch.py``
+    at its reference configuration) on the card.  It fails on the structural checks and
+    on launches other than the derived ones, never on which candidate wins.  Returns its
+    launches."""
+    from nanofed_tpu_torch.observability.profiling import TIMED_CALLS
+
+    script = evidence_script("record_retune_evidence_torch")
+    t0 = time.perf_counter()
+    try:
+        art = script.record_retune(RT_CONFIG, "cuda", out_dir / "rt", check_outcome=False)
+    except AssertionError as e:
+        fail(f"(rt) a structural check failed: {e}")
+    wall = time.perf_counter() - t0
+    grew = art["device"]["kernel_launches"]
+    rows = 32  # the reference configuration's clients
+    rpb, rounds = script.RPB, script.NUM_ROUNDS
+    # Both candidates of the sweep's chunk axis (None, 1) must be feasible: a rejected
+    # candidate's partial runs are not derivable.
+    if sorted((r["config"]["client_chunk"] or 0) for r in art["aot_ranking"]) != [0, 1]:
+        fail(f"(rt) the sweep ranked {art['aot_ranking']}, not both chunks None and 1")
+
+    calls = 2 + TIMED_CALLS  # the profiler's first, counting and timed calls
+    want: dict[str, int] = {"dequant_accumulate_flat": calls,
+                            "masked_weighted_mean_flat": calls}  # the epilogue table
+    for row in art["aot_ranking"]:
+        add_launches(want, step_launches(row["config"]["client_chunk"], rows), calls * rpb)
+    for name in art["probe"]:
+        add_launches(want, step_launches(program_chunk(name), rows), script.PROBE_ROUNDS)
+    premise, swap = art["premise"], art["swap"]
+    at = swap["round"] if swap is not None else rounds
+    add_launches(want, step_launches(program_chunk(premise["aot_winner"]), rows), at)
+    if swap is not None:
+        add_launches(want, step_launches(program_chunk(swap["new_program"]), rows), rounds - at)
+    want = {k: want.get(k, 0) for k in grew}
+    print(f"[{card}] (rt) retune lifecycle ({RT_CONFIG}): AOT winner {premise['aot_winner']} "
+          f"(scores {premise['aot_scores']}), measured winner {premise['measured_winner']}, "
+          f"steady s/round {premise['steady_state_s_per_round']}; {premise['retuner']}"
+          + (f" at round {swap['round']}" if swap is not None else "")
+          + f"; decisions {json.dumps(art['decisions'])}; post-swap {art['post_swap']}; "
+          f"wall_s={wall:.1f} launches={grew}")
+    if grew != want:
+        fail(f"(rt) kernel launches {grew}, expected {want}")
+    return grew
+
+
 def final_stretch(torch, ops, card: str, out_dir: Path, counts: dict, mark) -> dict:
     """Everything that times nothing, side by side: (o)-(r), part 4, (fl4)'s fleet
     evidence and (w3)'s references in this process, :func:`start_beside`'s runs beside
@@ -8193,7 +8324,8 @@ def main() -> None:
                 ("phase_fleet", lambda: phase_fleet(torch, ops, card, Path(tmp))),
                 ("phase_analysis", lambda: phase_analysis(torch, ops, card, Path(tmp))),
                 ("phase_evidence", lambda: phase_evidence(torch, ops, run_experiment, card,
-                                                          Path(tmp)))):
+                                                          Path(tmp))),
+                ("phase_retune", lambda: phase_retune(torch, ops, card, Path(tmp)))):
             add_launches(counts, run())
             mark(label)
     with tempfile.TemporaryDirectory(dir=Path(__file__).resolve().parent / "runs") as tmp:

@@ -19,8 +19,9 @@ and warm, beside the floor of such a pass (an empty launch and a same-bytes copy
 C = 2 and 125 under each flush), with the wrapper's host time a call and, where the
 package has a plan, the plan and the kernel's registers.  B7 is timed as a client's masking pass of k seeds at
 P = 1,199,882 for k = 1, 7, 8, 14 and 999 (one launch for all k seeds, or, with a
-package whose ``add_mask`` takes one seed, k launches); B4 at C = 64 and 1000, with
-its launch plan and registers where it has a plan.  Each is timed as the call
+package whose ``add_mask`` takes one seed, k launches), its plain version up to k = 8
+or, with ``--b7-plain-all``, at every k (one run each above 8: about 72 ms a key); B4
+at C = 64 and 1000, with its launch plan and registers where it has a plan.  Each is timed as the call
 (``ms``) and with the host's work hidden behind a device sleep (``kernel_ms``: B5's
 and B6's call, B7's pass, B4's launch alone where the
 package has ``quantize.dequant_launch``).  Needs a card; imports nothing of JAX.
@@ -38,12 +39,35 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parents[1]
 
 
+def time_plain_masks(torch, ops, smoke, card: str, rng, masks: dict) -> None:
+    """B7's plain version, one run with no warm-up, at each k that ``time_masks`` left
+    without a plain time; fills the record's ``plain_ms``."""
+    import numpy as np
+
+    from nanofed_tpu_torch.security.secure_agg import _fold_seed_words
+
+    q = torch.randint(-(1 << 31), 1 << 31, (smoke.P_MNIST,), device="cuda",
+                      dtype=torch.int32).view(torch.uint32)
+    for k, record in masks.items():
+        if record["plain_ms"] is not None:
+            continue
+        seeds = np.stack([_fold_seed_words(rng.bytes(32)) for _ in range(k)])
+        signs = [int(v) for v in rng.choice([1, -1], k)]
+        record["plain_ms"] = smoke.median_ms(
+            lambda: smoke.mask_pass(ops, q, seeds, signs, plain=True), torch, reps=1,
+            warmup=0)
+        print(f"[{card}] add_mask k={k} P={smoke.P_MNIST}: plain_ms={record['plain_ms']:.6f} "
+              "(one run)")
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--root", type=Path, default=REPO,
                         help="checkout whose nanofed_tpu_torch is timed")
     parser.add_argument("--kernels", default="b5b6,b7,b4",
                         help="comma-separated kernels to time: b5b6, b7, b4")
+    parser.add_argument("--b7-plain-all", action="store_true",
+                        help="time B7's plain version at every k, not only up to k = 8")
     args = parser.parse_args()
     which = set(args.kernels.split(","))
     sys.path.insert(0, str(args.root.resolve()))
@@ -75,7 +99,10 @@ def main() -> None:
         result.update(smoke.time_fixed_point(torch, ops, card,
                                              torch.Generator(device="cuda").manual_seed(11)))
     if "b7" in which:
-        masks = smoke.time_masks(torch, ops, card, np.random.default_rng(11))
+        rng = np.random.default_rng(11)
+        masks = smoke.time_masks(torch, ops, card, rng)
+        if args.b7_plain_all:
+            time_plain_masks(torch, ops, smoke, card, rng, masks)
         result["add_mask"] = {str(k): v for k, v in masks.items()}
     if "b4" in which:
         result["dequant_accumulate_flat"] = smoke.time_dequant(

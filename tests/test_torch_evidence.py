@@ -233,3 +233,22 @@ def test_evidence_scripts_import_no_jax():
                            *map(str, SCRIPTS.values())],
                           cwd=REPO, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("name", ["build_notebook_torch", "record_retune_evidence_torch",
+                                  "record_compile_evidence_torch", "gen_api_docs_torch"])
+def test_later_scripts_import_no_jax(name):
+    """The tutorial builder, the retune and time-to-ready evidence and the API
+    generator: none names JAX or the JAX package in an import, and every module each
+    of the first three imports loads without them (the generator's run over the
+    port's modules, with JAX blocked, is tests/test_torch_api_docs.py's)."""
+    path = REPO / "scripts" / f"{name}.py"
+    names = {n.module for n in ast.walk(ast.parse(path.read_text()))
+             if isinstance(n, ast.ImportFrom)}
+    assert not any(m == "jax" or m.startswith(("jax.", "nanofed_tpu."))
+                   or m == "nanofed_tpu" for m in names), path
+    if name == "gen_api_docs_torch":
+        return  # it imports the port's modules as it documents them: see the docs test
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_SCRIPTS, str(path)],
+                          cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
